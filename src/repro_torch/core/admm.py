@@ -1,0 +1,161 @@
+"""A-FADMM: analog federated ADMM — the paper's core algorithm (Sec. 2), on
+``(W, d)`` worker-major tensors.  Counterpart of ``repro/core/admm.py`` for
+the unguarded, unmasked round.
+
+Update rules (paper equation numbers):
+
+* modulate   (Alg. 1 l.14):   s_{n,i} = h*_{n,i} θ_{n,i} + λ*_{n,i}/ρ
+* uplink     (Eq. 23):        y_i = Σ_n h_{n,i} s_{n,i} + z_i,  z ~ CN(0, N0/T)
+* global     (Eq. 9/24):      Θ_i = Re{y_i} / Σ_n |h_{n,i}|²
+* primal     (Eq. 6/10):      0 ∈ ∂f + Re{λ* h} + ρ|h|²(θ − Θ)   [solved by caller]
+* dual       (Eq. 8/11):      λ' = λ + ρ h (θ − Θ)  (− ρ Re{z} under analog downlink)
+* flip rule  (Sec. 2, "Time-varying Channel"): when h^{k+1} ≠ h^k freeze θ and
+  re-solve the stationarity condition for λ: λ = t·h/|h|².
+
+Every random plane a round reads arrives in a :class:`RoundDraws`, so the
+same round can run on the port's own generators or on planes replayed from
+the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import cplx
+from repro_torch.core.channel import ChannelBlock, ChannelConfig
+from repro_torch.core.cplx import Complex
+from repro_torch.core.transport import dual_update, flip_lambda, ota_uplink
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmmConfig:
+    """Hyperparameters of the ADMM layer (paper Sec. 5 defaults)."""
+
+    rho: float = 0.5
+    #: apply the time-varying-channel flip rule (Sec. 2)
+    flip_on_change: bool = True
+    #: enforce the per-worker transmit power budget via the min-α protocol
+    power_control: bool = True
+
+
+class AFadmmState(NamedTuple):
+    """Per-round algorithm state. Shapes: theta/lam (W, d); Theta (d,)."""
+
+    theta: Tensor
+    lam: Complex
+    Theta: Tensor
+    blk: ChannelBlock
+    step: int
+
+
+class RoundDraws(NamedTuple):
+    """Every random plane one round reads.
+
+    h_fresh: the new Rayleigh block (W, d), only on rounds that redraw the
+      channel (``channel.redraws``), else None.
+    noise_re: (d,) real plane of the uplink matched-filter noise (zeros on
+      a noise-free link).
+    downlink_noise_re: (W, d) real plane of the analog-downlink noise, only
+      under ``ChannelConfig.analog_downlink``, else None.
+    batch_idx: (n_steps, W, B) shard-local minibatch indices for a
+      stochastic local solver, else None.
+    """
+
+    h_fresh: Optional[Complex]
+    noise_re: Tensor
+    downlink_noise_re: Optional[Tensor] = None
+    batch_idx: Optional[Tensor] = None
+
+
+def init_state(theta0: Tensor, blk: ChannelBlock) -> AFadmmState:
+    """theta0: (W, d) initial local models (paper: random init)."""
+    W, d = theta0.shape
+    return AFadmmState(
+        theta=theta0,
+        lam=cplx.czero((W, d), dtype=theta0.dtype, device=theta0.device),
+        Theta=theta0.mean(0),
+        blk=blk,
+        step=0)
+
+
+def residuals(state: AFadmmState, Theta_prev: Tensor) -> Tuple[Tensor, Tensor]:
+    """(primal, dual) residual norms of Theorem 1: r = θ−Θ, S = ρ|h|²(Θ'−Θ)."""
+    r = state.theta - state.Theta[None, :]
+    S = cplx.abs2(state.blk.h) * (state.Theta - Theta_prev)[None, :]
+    return torch.sqrt(torch.sum(r * r)), torch.sqrt(torch.sum(S * S))
+
+
+# ---------------------------------------------------------------------------
+# One full A-FADMM round
+# ---------------------------------------------------------------------------
+
+#: ``(theta, lam, h, Theta, batch_idx) -> theta'``.  A solver that takes
+#: minibatches also has ``draw_batches(gen) -> batch_idx`` (see
+#: ``optim.local_solvers``); ``batch_idx`` is None for the others.
+LocalSolve = Callable[[Tensor, Complex, Complex, Tensor, Optional[Tensor]],
+                      Tensor]
+GradFn = Callable[[Tensor], Tensor]
+
+
+def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
+                 local_solve: LocalSolve, grad_fn: GradFn, acfg: AdmmConfig,
+                 ccfg: ChannelConfig, draws: RoundDraws
+                 ) -> Tuple[AFadmmState, dict]:
+    """One synchronous round of Algorithm 1 (with Appendix-B noise handling).
+
+    Args:
+      blk_next: the channel block for iteration k+1 (the caller steps the
+        channel so the trainer can account coherence across rounds).
+      local_solve: ``(theta, lam, h, Theta, batch_idx) -> theta'`` — solves
+        or approximates the primal problem (Eq. 6/10) ignoring the flip
+        mask, which is applied here.
+      grad_fn: ``theta -> ∂f(θ)`` per worker, used by the flip rule.
+        Shapes (W, d) -> (W, d).
+      draws: the round's random planes (:class:`RoundDraws`).
+
+    Metrics are 0-d tensors on the device: reading them is the caller's
+    choice of when to synchronise.
+    """
+    h = blk_next.h
+    rho = acfg.rho
+
+    # --- primal / flip (Sec. 2 "Time-varying Channel") --------------------
+    theta_solved = local_solve(state.theta, state.lam, h, state.Theta,
+                               draws.batch_idx)
+    if acfg.flip_on_change:
+        changed = blk_next.changed
+        theta_new = torch.where(changed, state.theta, theta_solved)
+        lam_flip = flip_lambda(grad_fn(state.theta), state.theta, state.Theta,
+                               h, rho)
+        lam_pre = cplx.cwhere(changed, lam_flip, state.lam)
+    else:
+        theta_new = theta_solved
+        lam_pre = state.lam
+
+    # --- uplink: modulate, power-scale, superpose, matched-filter ---------
+    Theta_new, inv_alpha = ota_uplink(theta_new, lam_pre, h, draws.noise_re,
+                                      rho, ccfg,
+                                      power_control=acfg.power_control)
+
+    # --- downlink + dual ---------------------------------------------------
+    downlink = None
+    if ccfg.analog_downlink:
+        if draws.downlink_noise_re is None:
+            raise ValueError("analog_downlink needs draws.downlink_noise_re")
+        downlink = draws.downlink_noise_re
+    lam_new = dual_update(lam_pre, h, theta_new, Theta_new, rho, downlink)
+
+    new_state = AFadmmState(theta=theta_new, lam=lam_new, Theta=Theta_new,
+                            blk=blk_next, step=state.step + 1)
+    metrics = {
+        "primal_residual": torch.sqrt(torch.mean(
+            (theta_new - Theta_new[None, :]) ** 2)),
+        "dual_residual": torch.sqrt(torch.mean(
+            (cplx.abs2(h) * (Theta_new - state.Theta)[None, :]) ** 2)) * rho,
+        "inv_alpha": inv_alpha,
+    }
+    return new_state, metrics
