@@ -1,6 +1,7 @@
 """A-FADMM: analog federated ADMM — the paper's core algorithm (Sec. 2), on
 ``(W, d)`` worker-major tensors.  Counterpart of ``repro/core/admm.py`` for
-the unguarded, unmasked round.
+the unguarded round, with the participation mask and imperfect CSI of the
+``repro_torch.phy`` scenarios.
 
 Update rules (paper equation numbers):
 
@@ -19,7 +20,7 @@ the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,13 +44,17 @@ class AdmmConfig:
 
 
 class AFadmmState(NamedTuple):
-    """Per-round algorithm state. Shapes: theta/lam (W, d); Theta (d,)."""
+    """Per-round algorithm state. Shapes: theta/lam (W, d); Theta (d,).
+
+    ``phys`` is the ``repro_torch.phy.PhyState`` under a wireless scenario,
+    None on the legacy block-fading path."""
 
     theta: Tensor
     lam: Complex
     Theta: Tensor
     blk: ChannelBlock
     step: int
+    phys: Optional[Any] = None
 
 
 class RoundDraws(NamedTuple):
@@ -63,15 +68,19 @@ class RoundDraws(NamedTuple):
       under ``ChannelConfig.analog_downlink``, else None.
     batch_idx: (n_steps, W, B) shard-local minibatch indices for a
       stochastic local solver, else None.
+    phy: the scenario's ``repro_torch.phy.PhyDraws`` under a wireless
+      scenario (then ``h_fresh`` is None), else None.
     """
 
     h_fresh: Optional[Complex]
     noise_re: Tensor
     downlink_noise_re: Optional[Tensor] = None
     batch_idx: Optional[Tensor] = None
+    phy: Optional[Any] = None
 
 
-def init_state(theta0: Tensor, blk: ChannelBlock) -> AFadmmState:
+def init_state(theta0: Tensor, blk: ChannelBlock,
+               phys=None) -> AFadmmState:
     """theta0: (W, d) initial local models (paper: random init)."""
     W, d = theta0.shape
     return AFadmmState(
@@ -79,7 +88,8 @@ def init_state(theta0: Tensor, blk: ChannelBlock) -> AFadmmState:
         lam=cplx.czero((W, d), dtype=theta0.dtype, device=theta0.device),
         Theta=theta0.mean(0),
         blk=blk,
-        step=0)
+        step=0,
+        phys=phys)
 
 
 def residuals(state: AFadmmState, Theta_prev: Tensor) -> Tuple[Tensor, Tensor]:
@@ -103,7 +113,9 @@ GradFn = Callable[[Tensor], Tensor]
 
 def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
                  local_solve: LocalSolve, grad_fn: GradFn, acfg: AdmmConfig,
-                 ccfg: ChannelConfig, draws: RoundDraws
+                 ccfg: ChannelConfig, draws: RoundDraws,
+                 mask: Optional[Tensor] = None,
+                 h_tx: Optional[Complex] = None
                  ) -> Tuple[AFadmmState, dict]:
     """One synchronous round of Algorithm 1 (with Appendix-B noise handling).
 
@@ -116,21 +128,28 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
       grad_fn: ``theta -> ∂f(θ)`` per worker, used by the flip rule.
         Shapes (W, d) -> (W, d).
       draws: the round's random planes (:class:`RoundDraws`).
+      mask: (W,) participation mask (deep-fade truncation).  A masked
+        worker skips the round: zero superposition contribution, left out
+        of min-α, dual frozen at its pre-round value.  An all-masked round
+        keeps Θ.
+      h_tx: the workers' CSI ``h_hat`` (imperfect CSI): they solve, flip,
+        precode and dual-update with it while the air applies ``h``.
 
     Metrics are 0-d tensors on the device: reading them is the caller's
     choice of when to synchronise.
     """
     h = blk_next.h
     rho = acfg.rho
+    h_wkr = h if h_tx is None else h_tx   # what the workers believe
 
     # --- primal / flip (Sec. 2 "Time-varying Channel") --------------------
-    theta_solved = local_solve(state.theta, state.lam, h, state.Theta,
+    theta_solved = local_solve(state.theta, state.lam, h_wkr, state.Theta,
                                draws.batch_idx)
     if acfg.flip_on_change:
         changed = blk_next.changed
         theta_new = torch.where(changed, state.theta, theta_solved)
         lam_flip = flip_lambda(grad_fn(state.theta), state.theta, state.Theta,
-                               h, rho)
+                               h_wkr, rho)
         lam_pre = cplx.cwhere(changed, lam_flip, state.lam)
     else:
         theta_new = theta_solved
@@ -139,7 +158,12 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
     # --- uplink: modulate, power-scale, superpose, matched-filter ---------
     Theta_new, inv_alpha = ota_uplink(theta_new, lam_pre, h, draws.noise_re,
                                       rho, ccfg,
-                                      power_control=acfg.power_control)
+                                      power_control=acfg.power_control,
+                                      mask=mask, h_tx=h_tx)
+    if mask is not None:
+        # nobody transmitted: keep Θ rather than demodulate noise over a
+        # zero pilot
+        Theta_new = torch.where(mask.any(), Theta_new, state.Theta)
 
     # --- downlink + dual ---------------------------------------------------
     downlink = None
@@ -147,10 +171,17 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
         if draws.downlink_noise_re is None:
             raise ValueError("analog_downlink needs draws.downlink_noise_re")
         downlink = draws.downlink_noise_re
-    lam_new = dual_update(lam_pre, h, theta_new, Theta_new, rho, downlink)
+    lam_new = dual_update(lam_pre, h_wkr, theta_new, Theta_new, rho,
+                          downlink)
+    if mask is not None:
+        # truncated workers sat the round out: their duals stay at the
+        # PRE-round value — state.lam, not lam_pre, which under
+        # flip_on_change already holds this round's flip
+        lam_new = cplx.cwhere(mask[:, None], lam_new, state.lam)
 
     new_state = AFadmmState(theta=theta_new, lam=lam_new, Theta=Theta_new,
-                            blk=blk_next, step=state.step + 1)
+                            blk=blk_next, step=state.step + 1,
+                            phys=state.phys)
     metrics = {
         "primal_residual": torch.sqrt(torch.mean(
             (theta_new - Theta_new[None, :]) ** 2)),
@@ -158,4 +189,6 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
             (cplx.abs2(h) * (Theta_new - state.Theta)[None, :]) ** 2)) * rho,
         "inv_alpha": inv_alpha,
     }
+    if mask is not None:
+        metrics["participation"] = mask.to(torch.float32).mean()
     return new_state, metrics

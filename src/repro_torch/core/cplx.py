@@ -36,6 +36,11 @@ def cmul_conj(a: Complex, b: Complex) -> Complex:
     return Complex(a.re * b.re + a.im * b.im, a.im * b.re - a.re * b.im)
 
 
+def scale(a: Complex, s) -> Complex:
+    """a · s for a real tensor or float ``s``."""
+    return Complex(a.re * s, a.im * s)
+
+
 def abs2(x: Complex) -> Tensor:
     """|x|² elementwise (a real tensor)."""
     return x.re * x.re + x.im * x.im

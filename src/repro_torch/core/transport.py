@@ -4,9 +4,15 @@ flat ``(W, d)`` problem.  Counterpart of ``repro/core/transport.py``.
 
 The backend follows the tensors' device (:func:`resolve_backend`): CUDA
 tensors go through the hand-written kernels (B1 ``ota_modulate``, B2
-``ota_receive``, B4 ``admm_dual_update``, B5 ``admm_flip_lambda``), CPU
-tensors through their plain versions.  There is no switch that sends CUDA
-tensors to the plain versions.
+``ota_receive``, B8 ``ota_receive_masked``, B4 ``admm_dual_update``, B5
+``admm_flip_lambda``), CPU tensors through their plain versions.  There is
+no switch that sends CUDA tensors to the plain versions.
+
+A participation ``mask`` ((W,) bool, ``repro_torch.phy`` deep-fade
+truncation) drops workers from the round: a masked worker contributes
+exactly zero to the superposition and the pilot sum (B8 never reads its
+rows) and is left out of the min-α consensus.  ``h_tx`` is the channel the
+workers precode with under imperfect CSI; the air applies ``h``.
 
 All OTA arithmetic is f32 whatever the parameter dtype.  The round's random
 planes are arguments (the matched-filter noise ``noise_re``), so a test can
@@ -25,6 +31,7 @@ from repro_torch.core.cplx import Complex
 from repro_torch.core.power import alpha_from_energy
 from repro_torch.kernels import admm_update as _admm_k
 from repro_torch.kernels import ota as _ota_k
+from repro_torch.kernels import phy_channel as _phy_k
 from repro_torch.kernels.build import BACKENDS, resolve_backend  # noqa: F401
 
 Tensor = torch.Tensor
@@ -58,14 +65,20 @@ def demodulate(y_re: Tensor, sumh2: Tensor, noise_re: Tensor,
 
 
 def receive(signals: Complex, h: Complex, noise_re: Tensor,
-            inv_alpha: Tensor) -> Tensor:
-    """Fused superpose → matched-filter → demodulate (B2).  (W, d) -> (d,).
+            inv_alpha: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+    """Fused superpose → matched-filter → demodulate (B2; B8 with a
+    ``mask``).  (W, d) -> (d,).
 
     ``noise_re`` is the real plane of this round's matched-filter noise
     ``CN(0, N0/T)`` (zeros on a noise-free link); ``inv_alpha`` a 0-d tensor.
+    An all-masked round divides zero signal by the clamped zero pilot: the
+    round driver keeps the previous Θ then.
     """
-    return _ota_k.ota_receive(_f32(signals.re), _f32(signals.im), _f32(h.re),
-                              _f32(h.im), _f32(noise_re), _f32(inv_alpha))
+    planes = (_f32(signals.re), _f32(signals.im), _f32(h.re), _f32(h.im))
+    if mask is None:
+        return _ota_k.ota_receive(*planes, _f32(noise_re), _f32(inv_alpha))
+    return _phy_k.ota_receive_masked(*planes, mask.to(torch.bool).contiguous(),
+                                     _f32(noise_re), _f32(inv_alpha))
 
 
 def dual_update(lam: Complex, h: Complex, theta: Tensor, Theta: Tensor,
@@ -111,22 +124,30 @@ def worker_energy(signals: Complex) -> Tensor:
     return e.reshape(e.shape[0], -1).sum(1)
 
 
-def inv_alpha_from_energy(energy: Tensor, budget: float) -> Tensor:
-    """1/α with α = min_n sqrt(P_budget / E_n), a 0-d tensor.
+def inv_alpha_from_energy(energy: Tensor, budget: float,
+                          mask: Optional[Tensor] = None) -> Tensor:
+    """1/α with α = min_n sqrt(P_budget / E_n) over the active workers, a
+    0-d tensor.
 
-    A zero-energy worker's α_n is +inf, so it never binds the min; if every
-    worker is energy-free, α = +inf and 1/α = 0 exactly (demodulate then
-    adds no noise).
+    A zero-energy worker's α_n is +inf, so it never binds the min; a masked
+    worker does not transmit and is left out (its α_n is +inf too).  If no
+    worker binds, α = +inf and 1/α = 0 exactly (demodulate then adds no
+    noise).
     """
-    return 1.0 / torch.min(alpha_from_energy(energy, budget))
+    alphas = alpha_from_energy(energy, budget)
+    if mask is not None:
+        alphas = torch.where(mask, alphas, torch.full_like(alphas,
+                                                           float("inf")))
+    return 1.0 / torch.min(alphas)
 
 
-def power_scale(signals: Complex, ccfg: ChannelConfig) -> Tensor:
+def power_scale(signals: Complex, ccfg: ChannelConfig,
+                mask: Optional[Tensor] = None) -> Tensor:
     """inv_alpha for a single-leaf uplink.  Budget: per-subcarrier power P
     × elements uploaded per worker."""
     d = signals.re.numel() // signals.re.shape[0]
     return inv_alpha_from_energy(worker_energy(signals),
-                                 ccfg.transmit_power * d)
+                                 ccfg.transmit_power * d, mask=mask)
 
 
 # ---------------------------------------------------------------------------
@@ -135,16 +156,20 @@ def power_scale(signals: Complex, ccfg: ChannelConfig) -> Tensor:
 
 def ota_uplink(theta: Tensor, lam: Complex, h: Complex, noise_re: Tensor,
                rho: float, ccfg: ChannelConfig, *,
-               power_control: bool = True) -> Tuple[Tensor, Tensor]:
+               power_control: bool = True, mask: Optional[Tensor] = None,
+               h_tx: Optional[Complex] = None) -> Tuple[Tensor, Tensor]:
     """modulate → power-scale → superpose → matched-filter → demodulate.
 
     theta/lam/h: (W, d) worker-major; ``noise_re``: (d,) real plane of the
-    round's matched-filter noise.  Returns (Theta (d,), inv_alpha 0-d), both
-    on the device, with no host synchronisation.
+    round's matched-filter noise.  ``mask``: optional (W,) participation
+    mask; ``h_tx``: the workers' CSI (None = perfect), which modulates while
+    the air applies ``h``.  Energies are those of the unmasked signals.
+    Returns (Theta (d,), inv_alpha 0-d), both on the device, with no host
+    synchronisation.
     """
-    signals = modulate(theta, lam, h, rho)
+    signals = modulate(theta, lam, h if h_tx is None else h_tx, rho)
     if power_control:
-        inv_alpha = power_scale(signals, ccfg)
+        inv_alpha = power_scale(signals, ccfg, mask=mask)
     else:
         inv_alpha = torch.ones((), dtype=torch.float32, device=theta.device)
-    return receive(signals, h, noise_re, inv_alpha), inv_alpha
+    return receive(signals, h, noise_re, inv_alpha, mask), inv_alpha

@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 BACKENDS = ("torch", "cuda")
 
-_PTR, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+_PTR, _I64, _F32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
+                          ctypes.c_int)
 #: library -> C entry point -> argtypes (the stream is the last pointer)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "ota": {
@@ -43,6 +44,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "admm_update": {
         "admm_dual_update": [_PTR] * 9 + [_I64, _I64, _F32, _PTR],
         "admm_flip_lambda": [_PTR] * 7 + [_I64, _I64, _F32, _PTR],
+    },
+    "phy_channel": {
+        "fading_step": [_PTR] * 6 + [_I64, _F32, _F32, _INT, _PTR],
+        "ota_receive_masked": [_PTR] * 8 + [_I64, _I64, _PTR],
+    },
+    "phy_population": {
+        "population_step": [_PTR] * 20 + [_I64, _F32, _F32, _INT, _F32, _F32,
+                                          _F32, _F32, _INT, _PTR],
     },
 }
 

@@ -1,0 +1,56 @@
+"""Wrapper of the population-scale phy kernel in ``csrc/phy_population.cu``
+(B10 ``population_step``).
+
+Same contract as ``kernels/ota.py``: CUDA tensors launch the kernel or
+raise, CPU tensors take the plain version from ``kernels/ref.py``.
+Counterpart of ``repro/kernels/phy_population.py``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+Tensor = torch.Tensor
+
+_PLANES = ("h_re", "h_im", "w_re", "w_im", "pos_x", "pos_y", "dest_x",
+           "dest_y", "fresh_x", "fresh_y", "shadow", "shadow_fresh")
+
+
+def population_step(h_re: Tensor, h_im: Tensor, w_re: Tensor, w_im: Tensor,
+                    pos_x: Tensor, pos_y: Tensor, dest_x: Tensor,
+                    dest_y: Tensor, fresh_x: Tensor, fresh_y: Tensor,
+                    shadow: Tensor, shadow_fresh: Tensor, rho: float,
+                    scale: float, redraw: bool, step: float, ref_d: float,
+                    norm_d: float, pexp: float, shadow_redraw: bool
+                    ) -> Tuple[Tensor, ...]:
+    """One fused phy slot over twelve flat (N,) planes (B10).
+
+    Inputs: the fading planes and their innovations, position, waypoint and
+    fresh-waypoint x/y planes, shadowing and fresh shadowing.  Scalars: the
+    AR(1) ``rho``/``scale``/``redraw`` gate, the waypoint ``step`` =
+    speed·slot, the path-loss ``ref_d``/``norm_d``/``pexp``, and the
+    ``shadow_redraw`` switch.  Returns ``(h_re', h_im', pos_x', pos_y',
+    dest_x', dest_y', shadow', gain)``, each (N,) float32; on CUDA they are
+    the rows of one (8, N) buffer."""
+    planes = (h_re, h_im, w_re, w_im, pos_x, pos_y, dest_x, dest_y, fresh_x,
+              fresh_y, shadow, shadow_fresh)
+    scalars = (rho, scale, redraw, step, ref_d, norm_d, pexp, shadow_redraw)
+    if build.resolve_backend(h_re.device) == "torch":
+        return ref.population_step(*planes, *scalars)
+    dev = build.check_cuda_f32("population_step", **dict(zip(_PLANES, planes)))
+    n = h_re.numel()
+    for name, t in zip(_PLANES, planes):
+        if t.shape != (n,):
+            raise ValueError(f"population_step: {name} has shape "
+                             f"{tuple(t.shape)}, want ({n},)")
+    out = torch.empty((8, n), dtype=torch.float32, device=dev)
+    base = out.data_ptr()
+    build.launch("phy_population", "population_step", dev,
+                 *(t.data_ptr() for t in planes),
+                 *(base + 4 * n * k for k in range(8)), n, float(rho),
+                 float(scale), int(bool(redraw)), float(step), float(ref_d),
+                 float(norm_d), float(pexp), int(bool(shadow_redraw)))
+    return tuple(out.unbind(0))

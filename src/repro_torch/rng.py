@@ -4,8 +4,10 @@ A key is a plain 64-bit integer.  :func:`fold_in` derives a child key from a
 key and an integer with splitmix64, so a stream's draws depend only on the
 path of folds that names it, never on how many draws other streams made:
 round ``r`` of a run draws from ``fold_in(seed, r + 1)``, as the JAX trainer
-does, and its two halves are :func:`split`'s two folds.  :func:`generator`
-turns a key into a seeded ``torch.Generator`` on a device.
+does, and its halves are :func:`split`'s folds.  A side branch (such as
+``phy.geometry.SHADOW_SALT``) is a ``fold_in`` with a salt, so drawing on
+it changes no draw of the base schedule.  :func:`generator` turns a key into
+a seeded ``torch.Generator`` on a device.
 
 The bits differ from JAX's threefry; tests that compare the two packages
 make their random planes once and hand them to both.
@@ -31,9 +33,10 @@ def fold_in(key: int, data: int) -> int:
     return _splitmix64(_splitmix64(key & _MASK64) ^ (data & _MASK64))
 
 
-def split(key: int) -> Tuple[int, int]:
-    """Two independent child keys (the halves of ``jax.random.split``)."""
-    return fold_in(key, 0), fold_in(key, 1)
+def split(key: int, num: int = 2) -> Tuple[int, ...]:
+    """``num`` independent child keys (the parts of ``jax.random.split``):
+    folds 0 … num − 1."""
+    return tuple(fold_in(key, i) for i in range(num))
 
 
 def generator(key: int, device) -> torch.Generator:

@@ -10,7 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import admm_update, build, ota, ref  # noqa: E402
+from repro_torch.kernels import (admm_update, build, ota,  # noqa: E402
+                                 phy_channel, phy_population, ref)
 
 pytestmark = pytest.mark.cuda
 SHAPES = [(3, 1000), (5, 1025), (8, 4097), (100, 109_386)]
@@ -84,6 +85,77 @@ def test_flip_lambda_kernel(dev, W, d):
         torch.testing.assert_close(a, b, **TOL)
 
 
+@pytest.mark.parametrize("W,d", SHAPES)
+@pytest.mark.parametrize("ia", [0.37, 0.0])
+def test_receive_masked_kernel(dev, W, d, ia):
+    """A dropped row holding NaN and Inf never reaches Θ."""
+    s_re, s_im, h_re, h_im = _planes(dev, W, d, 4, 6)
+    mask = torch.arange(W, device=dev) % 3 != 1
+    s_re[1] = float("nan")
+    h_im[1] = float("inf")
+    noise = torch.randn(d, device=dev)
+    ia_t = torch.tensor(ia, device=dev)
+    got = _launched("ota_receive_masked", lambda: phy_channel.ota_receive_masked(
+        s_re, s_im, h_re, h_im, mask, noise, ia_t))
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref.ota_receive_masked(
+        s_re, s_im, h_re, h_im, mask, noise, ia_t), rtol=1e-5, atol=1e-6)
+
+
+def test_receive_masked_kernel_all_masked_and_many_rows(dev):
+    """Every row masked gives exactly 0 at α⁻¹ = 0; more rows than one
+    shared-memory tile of the mask still matches the plain version."""
+    s_re, s_im, h_re, h_im = _planes(dev, 9000, 33, 4, 7)
+    noise = torch.randn(33, device=dev)
+    none = torch.zeros(9000, dtype=torch.bool, device=dev)
+    got = phy_channel.ota_receive_masked(s_re, s_im, h_re, h_im, none, noise,
+                                         torch.zeros((), device=dev))
+    assert torch.equal(got, torch.zeros(33, device=dev))
+    mask = torch.rand(9000, device=dev) > 0.3
+    ia = torch.tensor(0.5, device=dev)
+    torch.testing.assert_close(
+        phy_channel.ota_receive_masked(s_re, s_im, h_re, h_im, mask, noise,
+                                       ia),
+        ref.ota_receive_masked(s_re, s_im, h_re, h_im, mask, noise, ia),
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("W,d", SHAPES)
+@pytest.mark.parametrize("rho,redraw", [(0.9, True), (0.9, False),
+                                        (0.0, True)])
+def test_fading_step_kernel(dev, W, d, rho, redraw):
+    h_re, h_im, w_re, w_im = _planes(dev, W, d, 4, 8)
+    scale = math.sqrt(1.0 - rho * rho)
+    got = _launched("fading_step", lambda: phy_channel.fading_step(
+        h_re, h_im, w_re, w_im, rho, scale, redraw))
+    want = ref.fading_step(h_re, h_im, w_re, w_im, rho, scale, redraw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    if not redraw:
+        assert torch.equal(got[0], h_re) and torch.equal(got[1], h_im)
+
+
+@pytest.mark.parametrize("n", [1000, 4097, 1_000_000])
+@pytest.mark.parametrize("redraw,shadow_redraw", [(True, True),
+                                                  (False, False)])
+def test_population_step_kernel(dev, n, redraw, shadow_redraw):
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    planes = [torch.randn(n, generator=g, device=dev) for _ in range(12)]
+    planes[4:10] = [p * 300.0 for p in planes[4:10]]       # positions, m
+    planes[6][: n // 4] = planes[4][: n // 4] + 1e-3        # arrivals
+    planes[7][: n // 4] = planes[5][: n // 4]
+    planes[10:] = [10.0 ** (0.6 * p) for p in planes[10:]]  # shadowing
+    scalars = (0.95, math.sqrt(1 - 0.95 ** 2), redraw, 0.015, 1.0, 250.0,
+               3.2, shadow_redraw)
+    got = _launched("population_step", lambda: phy_population.population_step(
+        *planes, *scalars))
+    want = ref.population_step(*planes, *scalars)
+    assert len(got) == 8
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
 def test_wrappers_refuse_bad_operands(dev):
     a, b = _planes(dev, 2, 8, 2, 5)
     with pytest.raises(ValueError, match="not contiguous"):
@@ -97,3 +169,13 @@ def test_wrappers_refuse_bad_operands(dev):
     with pytest.raises(ValueError, match="Theta"):
         admm_update.admm_dual_update(a, a, b, b, a, torch.zeros(7, device=dev),
                                      0.5)
+    z8, ia = torch.zeros(8, device=dev), torch.zeros((), device=dev)
+    with pytest.raises(ValueError, match="mask"):
+        phy_channel.ota_receive_masked(a, a, b, b, torch.ones(2, device=dev),
+                                       z8, ia)
+    with pytest.raises(ValueError, match="shape"):
+        phy_channel.fading_step(a, a, b, b[:, :4].contiguous(), 0.5, 0.8,
+                                True)
+    with pytest.raises(ValueError, match="want"):
+        phy_population.population_step(*([a] * 12), 0.9, 0.4, True, 0.1, 1.0,
+                                       250.0, 3.0, True)

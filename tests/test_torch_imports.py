@@ -88,12 +88,15 @@ def _entry_points():
             np.zeros(15, np.float32), (4, 3)),
         "afadmm_state_from_numpy": lambda: convert.afadmm_state_from_numpy(
             {k: np.zeros((1, 1)) for k in convert.STATE_KEYS}),
+        "phy_state_from_numpy": lambda: convert.phy_state_from_numpy(
+            {"h_re": np.zeros((1, 1)), "h_im": np.zeros((1, 1)), "age": 0}),
     }
 
 
 @pytest.mark.parametrize("name", sorted(
     ["linreg_dataset", "image_dataset", "split_iid", "init_mlp_flat",
-     "mlp_flat_from_numpy", "afadmm_state_from_numpy"]))
+     "mlp_flat_from_numpy", "afadmm_state_from_numpy",
+     "phy_state_from_numpy"]))
 def test_entry_point_without_device_raises_without_cuda(name):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
