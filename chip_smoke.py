@@ -11,7 +11,8 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 3. kernels — at the paper MLP's full width (W = 100 workers, d = 109,386)
              and at the other shapes the paths give a kernel (the fading
              step on (100, 1) planes; the population kernel at N = 10⁶ and
-             65,536 workers), each CUDA kernel against its plain PyTorch
+             65,536 workers; the one-pass round at (65,536, 32)), in each
+             mode a path uses, each CUDA kernel against its plain PyTorch
              version on the same inputs, with its device time (``ms``,
              median of CUDA-event timings behind a GPU spin), its time with
              the host's launch (``ms_with_launch``), the plain version's
@@ -30,11 +31,20 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 8. scaleup — ``benchmarks/scaleup.py``'s largest full-transmit point: 65,536
              workers on the frequency-flat ``urban-mobility`` scenario,
              d = 32, 10 rounds of its proximal consensus task.
-9. profile — one more round of phases 4 and 7 each under torch.profiler:
-             device time by kernel family, and its share of the phase's
-             round time.
+9. fused_round — ``transport.ota_round_fused`` at W = 100, d = 109,386
+             (power control, ``power_control=False``, ``worker_chunk=32``,
+             a deep-fade mask with CSI error, the fused AR(1) step), each
+             against the composed ``ota_uplink`` on the same inputs, with
+             its launches gated and both timed.
+10. chaos  — the MLP of phase 4 under ``markov-doppler`` for 20 rounds
+             fault-free, then 20 with 25 workers crashing, a NaN worker and
+             interference bursts under the evict-retransmit guard
+             (``make("afadmm", ..., faults=..., guard=...)`` and ``train``).
+11. profile — one more round of phases 4, 7 and 10 each under
+             torch.profiler: device time by kernel family, its share of the
+             phase's round time, and the guarded uplink's span.
 
-Launch counts are reset just before each of phases 4–8 and read just
+Launch counts are reset just before each of phases 4–10 and read just
 after.  Then come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
@@ -78,6 +88,9 @@ def card_peaks(name: str):
             return key, peaks
     raise SmokeFailure(f"no data-sheet peaks for card {name!r}")
 
+
+#: the profiler span around the guarded uplink (``core/admm.py``)
+GUARD_SPAN = "guarded_ota_round"
 
 #: GPU cycles to spin before each timed call (~3 ms on an H100): the host
 #: enqueues the start event, the call's launches and the end event while the
@@ -158,8 +171,8 @@ def _err_ratio(diff, tol) -> float:
 
 def phase_kernels(torch, card):
     from repro_torch import rng
-    from repro_torch.kernels import (admm_update, build, ota, phy_channel,
-                                     phy_population, ref)
+    from repro_torch.kernels import (admm_update, build, ota, ota_round,
+                                     phy_channel, phy_population, ref)
     from repro_torch.phy import doppler_rho, innovation_scale
 
     _, (mem_rate, f32_rate) = card_peaks(card)
@@ -202,6 +215,16 @@ def phase_kernels(torch, card):
     # slots, 6 dB shadowing, exponent 3.2)
     pop_scalars = (doppler_rho(100.0, 1e-3), innovation_scale(
         doppler_rho(100.0, 1e-3)), True, 15.0 * 1e-3, 1.0, 250.0, 3.2, True)
+    # B6/B7: the workers' CSI (σ_e = 0.1) and, under the mask, a NaN θ row
+    tx_re, tx_im = h_re + 0.1 * plane(), h_im + 0.1 * plane()
+    theta_bad = theta.clone()
+    theta_bad[dropped[0]] = float("nan")
+    bad_row = int(dropped[0])
+    scale_f = innovation_scale(rho_f)
+    # B6 at the scaleup phase's (65,536, 32)
+    big = [torch.randn((65_536, 32), generator=gen, device=dev)
+           * (0.05 if i == 0 else 1.0) for i in range(5)]
+    y_vec, p2_vec = noise * 1e3, torch.rand(d, generator=gen, device=dev) * W
     pops = {n: _population_inputs(torch, gen, dev, n)
             for n in (1_000_000, 65_536)}
     pop_bytes = {n: _population_bytes(torch, p, pop_scalars)
@@ -216,8 +239,21 @@ def phase_kernels(torch, card):
                 lambda: ref.population_step(*pop, *pop_scalars),
                 nbytes, 40 * n, (1e-5, 1e-5), [n], {"arrived": arrived})
 
+    def drop_nan_row(outs):
+        """B6 under the mask: the NaN row's energy is NaN (it is every
+        row's energy); compare the other rows."""
+        require(bool(torch.isnan(outs[2][bad_row])),
+                "the NaN row's energy is not NaN")
+        keep = torch.arange(W, device=dev) != bad_row
+        return (outs[0], outs[1], outs[2][keep])
+
+    # one pass of B6/B7: planes in and out, y and p2 (d,), energy (W,)
+    def round_bytes(n_in, n_out, rows=W, cols=d, energy=True):
+        return 4 * (rows * cols * (n_in + n_out) + 2 * cols
+                    + (rows if energy else 0))
+
     # name, TPU kernel, source, kernel call, plain call, bytes, flops, tol,
-    # shape, extra fields of the row
+    # shape, extra fields of the row[, outputs to compare]
     cases = [
         ("ota_modulate", "src/repro/kernels/ota.py:99", "ota",
          lambda: ota.ota_modulate(theta, lam_re, lam_im, h_re, h_im, rho),
@@ -297,11 +333,73 @@ def phase_kernels(torch, card):
          6 * W * 4, 6 * W, (1e-6, 1e-6), [W, 1], {}),
         population_case(1_000_000, ""),
         population_case(65_536, "[N=65,536]"),
+        # y/p2 sum 100 terms of size ~1.4 in another order than the plain
+        # version's: atol 1e-4 (a reordering moves such sums by ~1e-6 to
+        # 1e-5); energies sum 109,386 terms and are held by rtol
+        ("ota_round_stats", "src/repro/kernels/ota_round.py:203",
+         "ota_round",
+         lambda: ota_round.ota_round_stats(theta, lam_re, lam_im, h_re, h_im,
+                                           rho),
+         lambda: ref.ota_round_stats(theta, lam_re, lam_im, h_re, h_im, rho),
+         round_bytes(5, 0), 18 * W * d, (1e-5, 1e-4)),
+        # every row is read: the energy is promised for masked rows too
+        ("ota_round_stats[mask, h_tx, NaN row]",
+         "src/repro/kernels/ota_round.py:203", "ota_round",
+         lambda: ota_round.ota_round_stats(theta_bad, lam_re, lam_im, h_re,
+                                           h_im, rho, mask=mask,
+                                           htx=(tx_re, tx_im)),
+         lambda: ref.ota_round_stats(theta_bad, lam_re, lam_im, h_re, h_im,
+                                     rho, mask=mask, htx=(tx_re, tx_im)),
+         round_bytes(7, 0) + W, 18 * W * d, (1e-5, 1e-4), [W, d], {},
+         drop_nan_row),
+        ("ota_round_stats[channel step]",
+         "src/repro/kernels/ota_round.py:203", "ota_round",
+         lambda: ota_round.ota_round_stats(
+             theta, lam_re, lam_im, h_re, h_im, rho,
+             chan=(w_re, w_im, rho_f, scale_f, True)),
+         lambda: ref.ota_round_stats(
+             theta, lam_re, lam_im, h_re, h_im, rho,
+             chan=(w_re, w_im, rho_f, scale_f, True)),
+         round_bytes(7, 2), 24 * W * d, (1e-5, 1e-4)),
+        # the held channel reads no innovations
+        ("ota_round_stats[channel step, held]",
+         "src/repro/kernels/ota_round.py:203", "ota_round",
+         lambda: ota_round.ota_round_stats(
+             theta, lam_re, lam_im, h_re, h_im, rho,
+             chan=(w_re, w_im, rho_f, scale_f, False)),
+         lambda: ref.ota_round_stats(
+             theta, lam_re, lam_im, h_re, h_im, rho,
+             chan=(w_re, w_im, rho_f, scale_f, False)),
+         round_bytes(5, 2), 18 * W * d, (1e-5, 1e-4)),
+        # 65,536 terms a column: a reordering moves y by up to ~1e-3
+        ("ota_round_stats[(65,536, 32)]",
+         "src/repro/kernels/ota_round.py:203", "ota_round",
+         lambda: ota_round.ota_round_stats(*big, rho),
+         lambda: ref.ota_round_stats(*big, rho),
+         round_bytes(5, 0, 65_536, 32), 18 * 65_536 * 32, (1e-5, 1e-3),
+         [65_536, 32], {}),
+        ("ota_round_theta", "src/repro/kernels/ota_round.py:223",
+         "ota_round",
+         lambda: ota_round.ota_round_theta(theta, lam_re, lam_im, h_re, h_im,
+                                           noise, ia, rho),
+         lambda: ref.ota_round_theta(theta, lam_re, lam_im, h_re, h_im,
+                                     noise, ia, rho),
+         round_bytes(5, 0, energy=False) + 4, 20 * W * d, (1e-5, 1e-6)),
+        # elementwise, rounded as the plain version rounds
+        ("ota_demodulate_dyn", "src/repro/kernels/ota.py:147", "ota",
+         lambda: ota.ota_demodulate_dyn(y_vec, noise, p2_vec, ia),
+         lambda: ref.ota_demodulate_dyn(y_vec, noise, p2_vec, ia),
+         4 * vec_b + 4, 4 * d, (1e-6, 1e-7), [d], {}),
+        ("ota_demodulate", "src/repro/kernels/ota.py:121", "ota",
+         lambda: ota.ota_demodulate(y_vec, noise, p2_vec, 1.0),
+         lambda: ref.ota_demodulate(y_vec, noise, p2_vec, 1.0),
+         4 * vec_b, 4 * d, (1e-6, 1e-7), [d], {}),
     ]
-    cases = [c if len(c) == 10 else (*c, [W, d], {}) for c in cases]
+    cases = [c if len(c) >= 10 else (*c, [W, d], {}) for c in cases]
+    cases = [c if len(c) == 11 else (*c, None) for c in cases]
     results = {}
     for (name, replaces, lib, kernel, plain, nbytes, flops, (rtol, atol),
-         shape, extra) in cases:
+         shape, extra, select) in cases:
         fn_name = name.split("[")[0]
         before = build.launches[fn_name]
         out = kernel()
@@ -311,6 +409,8 @@ def phase_kernels(torch, card):
         outs = out if isinstance(out, tuple) else (out,)
         want = plain()
         refs = want if isinstance(want, tuple) else (want,)
+        if select is not None:
+            outs, refs = select(outs), select(refs)
         require(all(bool(torch.isfinite(o).all()) for o in outs),
                 f"{name}: non-finite output")
         max_abs, err_over_tol = _max_err(outs, refs, rtol, atol)
@@ -694,10 +794,233 @@ def phase_scaleup(torch, card):
     return launches
 
 
+def phase_fused_round(torch):
+    """``transport.ota_round_fused`` at the paper MLP's width (W = 100,
+    d = 109,386), each variant held against the composed ``ota_uplink`` on
+    the same inputs and noise plane, with its launches gated and both
+    timed on the device."""
+    from repro_torch import rng
+    from repro_torch.core import transport
+    from repro_torch.core.channel import ChannelConfig, rayleigh
+    from repro_torch.kernels import build
+    from repro_torch.phy import doppler_rho, gauss_markov_step, make_scenario
+
+    dev = torch.device("cuda")
+    W, d, rho = W_FULL, 109_386, 0.5
+    gen = rng.generator(SEED + 7, dev)
+    ccfg = ChannelConfig(n_workers=W, snr_db=40.0)
+    theta = torch.randn((W, d), generator=gen, device=dev) * 0.05
+    lam = rayleigh(gen, (W, d))
+    h = rayleigh(gen, (W, d))
+    w = rayleigh(gen, (W, d))
+    noise = transport.matched_filter_noise_re(gen, (d,), ccfg)
+    # deep-fade-truncation with CSI error 0.1: its state's broadcast fades,
+    # estimates and participation mask
+    fade = make_scenario("deep-fade-truncation", ccfg, csi_err=0.1).init(
+        SEED + 8, W, d, dev)
+    rho_f = doppler_rho(50.0, 1e-3)
+
+    def composed_chan():
+        h2 = gauss_markov_step(h, w, rho_f, True)
+        return (*transport.ota_uplink(theta, lam, h2, noise, rho, ccfg), h2)
+
+    variants = [
+        ("power control", dict(),
+         lambda: (*transport.ota_uplink(theta, lam, h, noise, rho, ccfg), h),
+         {"ota_round_stats": 1, "ota_demodulate_dyn": 1}),
+        ("power_control=False", dict(power_control=False),
+         lambda: (*transport.ota_uplink(theta, lam, h, noise, rho, ccfg,
+                                        power_control=False), h),
+         {"ota_round_theta": 1}),
+        ("worker_chunk=32", dict(worker_chunk=32),
+         lambda: (*transport.ota_uplink(theta, lam, h, noise, rho, ccfg), h),
+         {"ota_round_stats": 4, "ota_demodulate_dyn": 1}),
+        ("deep-fade mask, h_tx", dict(mask=fade.mask, h_tx=fade.h_hat),
+         lambda: (*transport.ota_uplink(theta, lam, fade.h, noise, rho, ccfg,
+                                        mask=fade.mask, h_tx=fade.h_hat),
+                  fade.h),
+         {"ota_round_stats": 1, "ota_demodulate_dyn": 1}),
+        ("channel step", dict(chan_step=(w, rho_f, True)), composed_chan,
+         {"ota_round_stats": 1, "ota_demodulate_dyn": 1}),
+    ]
+    path_launches: dict = {}
+    rows = []
+    for label, kw, composed, want in variants:
+        h_in = fade.h if "mask" in kw else h
+
+        def fused(kw=kw, h_in=h_in):
+            return transport.ota_round_fused(theta, lam, h_in, noise, rho,
+                                             ccfg, **kw)
+
+        build.reset_launches()
+        T, ia, h_air = fused()
+        torch.cuda.synchronize()
+        launches = dict(build.launches)
+        for k, v in launches.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+        require(launches == want, f"fused_round[{label}]: launches "
+                f"{launches}, want {want}")
+        Tc, iac, hc = composed()
+        require(bool(torch.isfinite(T).all()) and bool(torch.isfinite(ia)),
+                f"fused_round[{label}]: non-finite Θ or α⁻¹")
+        t_abs, t_ratio = _max_err([T], [Tc], 1e-5, 1e-6)
+        ia_rel = float(((ia - iac).abs() / iac.abs()).max())
+        h_abs, h_ratio = _max_err([h_air.re, h_air.im], [hc.re, hc.im], 1e-6,
+                                  1e-6)
+        require(t_ratio <= 1.0 and ia_rel <= 1e-5 and h_ratio <= 1.0,
+                f"fused_round[{label}]: fused and composed disagree: Θ "
+                f"{t_abs} ({t_ratio} of rtol 1e-5, atol 1e-6), α⁻¹ rel "
+                f"{ia_rel}, h_air {h_abs}")
+        fused_ms = time_ms(torch, fused)
+        composed_ms = time_ms(torch, composed)
+        rows.append({"variant": label, "launches": launches,
+                     "theta_max_abs_err": t_abs, "theta_err_over_tol": t_ratio,
+                     "inv_alpha_rel_err": ia_rel, "h_air_max_abs_err": h_abs,
+                     "fused_ms": fused_ms, "composed_ms": composed_ms,
+                     "composed_over_fused": composed_ms / fused_ms,
+                     "fused_ms_with_launch": time_ms(torch, fused,
+                                                     spin=False),
+                     "composed_ms_with_launch": time_ms(torch, composed,
+                                                        spin=False)})
+    emit({"phase": "fused_round", "ok": True, "W": W, "d": d,
+          "active_deep_fade": int(fade.mask.sum()), "rho_f": rho_f,
+          "variants": rows})
+    return path_launches
+
+
+def _crash_schedule(n_workers: int):
+    """The last 25 workers (75–99 of 100) crash, five a round over rounds
+    2–6."""
+    return tuple((2 + i // 5, n_workers - 25 + i) for i in range(25))
+
+
+def phase_chaos(torch, run):
+    """The paper MLP of phase ``mlp`` under ``markov-doppler`` (flip off,
+    power control on), 20 rounds fault-free and 20 under a fault plan —
+    25 workers crashing, a persistent NaN worker, interference bursts — with
+    the evict-retransmit guard: ``tests/test_faults.py``'s chaos run at the
+    paper's width."""
+    from repro_torch import rng
+    from repro_torch.core.aggregators import make
+    from repro_torch.faults import FaultPlan, GuardConfig
+    from repro_torch.kernels import build
+    from repro_torch.phy import make_scenario
+    from repro_torch.train.fl_trainer import train
+
+    base = run["alg"]
+    ccfg = base.ccfg
+    scn = make_scenario("markov-doppler", ccfg)
+    theta0, solver, grad_fn = run["theta0"], run["solver"], run["grad_fn"]
+    n_rounds, key = 20, SEED + 11
+    W = theta0.shape[0]
+
+    def alg_with(**kw):
+        return make("afadmm", base.acfg, ccfg, base.plan, scenario=scn, **kw)
+
+    clean = alg_with()
+    train(clean, theta0, solver, grad_fn, 1, key + 1)     # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    h0 = train(clean, theta0, solver, grad_fn, n_rounds, key,
+               eval_fn=run["eval_fn"], eval_every=1)
+    torch.cuda.synchronize()
+    clean_s = (time.perf_counter() - t0) / n_rounds
+    _per_round(dict(build.launches), n_rounds, {
+        "fading_step": 1, "ota_modulate": 1, "ota_receive": 1,
+        "admm_dual_update": 1, "ota_round_stats": 0})
+
+    # burst reckoning from the fault-free round 0: its receive SNR without
+    # a burst is Σy²/(α⁻²·d·σ²); a burst of std b divides it by 1 + b²/σ²
+    diag = alg_with(guard=GuardConfig(policy="skip", snr_floor_db=0.0))
+    _, m0 = diag.round(rng.fold_in(key, 1), diag.init(key, theta0), solver,
+                       grad_fn)
+    snr0_db = float(m0["guard/snr_db"])
+    sigma2 = ccfg.noise_var_matched / 2.0
+
+    def burst_snr_db(b):
+        return snr0_db - 10.0 * math.log10(1.0 + b * b / sigma2)
+
+    # 3 dB below the floor, so the burst also trips it in later rounds
+    burst_std = 5.0
+    while burst_snr_db(burst_std) > -3.0:
+        burst_std = 10.0 ** (math.floor(math.log10(burst_std)) + 1)
+    plan = FaultPlan(crash_at=_crash_schedule(W), nan_workers=1,
+                     burst_prob=0.4, burst_std=burst_std)
+    gcfg = GuardConfig(policy="evict-retransmit", snr_floor_db=0.0,
+                       max_retries=2)
+    chaos = alg_with(faults=plan, guard=gcfg)
+    train(chaos, theta0, solver, grad_fn, 1, key + 1)     # warm-up
+    torch.cuda.synchronize()
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    h1 = train(chaos, theta0, solver, grad_fn, n_rounds, key,
+               eval_fn=run["eval_fn"], eval_every=1)
+    torch.cuda.synchronize()
+    chaos_s = (time.perf_counter() - t0) / n_rounds
+    launches = dict(build.launches)
+    # B6 once plus the evict pass; B3′ once, the evict pass, two retries
+    _per_round(launches, n_rounds, {
+        "ota_round_stats": 2, "ota_demodulate": 4, "fading_step": 1,
+        "admm_dual_update": 1, "ota_modulate": 0, "ota_receive": 0,
+        "ota_receive_masked": 0, "ota_demodulate_dyn": 0})
+
+    ex = h1.extra
+    for r in range(n_rounds):
+        require(all(math.isfinite(v[r]) for v in ex.values()),
+                f"chaos: round {r} has non-finite metrics (θ or Θ): "
+                f"{ {k: v[r] for k, v in ex.items()} }")
+    require(all(math.isfinite(v) for v in h1.loss), "chaos: non-finite loss")
+    require(ex["fault/alive"][-1] == W - 26,
+            f"chaos: final fault/alive {ex['fault/alive'][-1]}, want "
+            f"{W - 26}")
+    require(sum(ex["guard/retries"]) > 0, "chaos: no retransmission fired")
+    require(h1.loss[-1] < run["loss0"], f"chaos: final loss {h1.loss[-1]} "
+            f"not below the initial {run['loss0']}")
+
+    # rounds 0–6 again, one at a time: worker 0 evicted in round 0 with its
+    # dual zeroed, every scheduled crash landed by round 6
+    st = chaos.init(key, theta0)
+    for r in range(7):
+        st, _ = chaos.round(rng.fold_in(key, r + 1), st, solver, grad_fn)
+        require(bool(torch.isfinite(st.Theta).all())
+                and bool(torch.isfinite(st.theta).all()),
+                f"chaos: non-finite Θ or θ in round {r}")
+        if r == 0:
+            require(not bool(st.flt.alive[0]) and int(st.flt.n_evicted) == 1,
+                    "chaos: worker 0 was not evicted in round 0")
+            require(not bool(st.lam.re[0].any())
+                    and not bool(st.lam.im[0].any()),
+                    "chaos: the evicted worker's dual is not zero")
+    require(not bool(st.flt.alive[W - 25:].any())
+            and int(st.flt.alive.sum()) == W - 26,
+            f"chaos: {int(st.flt.alive.sum())} alive after round 6, want "
+            f"{W - 26}")
+    emit({"phase": "chaos", "ok": True, "W": W, "rounds": n_rounds,
+          "scenario": "markov-doppler", "crashes": len(plan.crash_at),
+          "nan_workers": 1, "burst_prob": plan.burst_prob,
+          "burst_std": burst_std, "burst_reckoning": {
+              "round0_snr_db": snr0_db, "round0_inv_alpha":
+              float(m0["inv_alpha"]), "sigma": math.sqrt(sigma2),
+              "burst_snr_db_at_std_5": burst_snr_db(5.0),
+              "burst_snr_db": burst_snr_db(burst_std)},
+          "seconds_per_round": chaos_s, "fault_free_seconds_per_round":
+          clean_s, "loss_init": run["loss0"], "loss": h1.loss,
+          "fault_free_loss": h0.loss,
+          "final_loss_over_fault_free": h1.loss[-1] / h0.loss[-1],
+          "alive": ex["fault/alive"], "bursts": ex["fault/burst"],
+          "retries": ex["guard/retries"], "ok_first": ex["guard/ok_first"],
+          "healthy": ex["guard/healthy"], "evicted": ex["guard/evicted"],
+          "snr_db": ex["guard/snr_db"], "launches": launches})
+    return launches, chaos, chaos_s
+
+
 def _kernel_family(name: str) -> str:
     for fn in ("receive_masked_kernel", "fading_step_kernel",
-               "population_step_kernel", "modulate_kernel", "receive_kernel",
-               "dual_update_kernel", "flip_lambda_kernel"):
+               "population_step_kernel", "demodulate_kernel",
+               "modulate_kernel", "receive_kernel", "dual_update_kernel",
+               "flip_lambda_kernel", "round_finalize_kernel", "round_kernel"):
         if fn in name:
             return "port:" + fn
     if "gemm" in name or "xmma" in name:
@@ -727,9 +1050,13 @@ def phase_profile(torch, path: str, alg, run, round_s: float):
         train(alg, theta0, solver, grad_fn, 1, SEED + 2)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    # the guarded uplink's span (core/admm.py) shows twice: on the host,
+    # with the device time of the kernels launched inside it, and on the
+    # device timeline, as its extent from first to last kernel
+    kernels = [e for e in events
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0 and e.key != GUARD_SPAN]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     families: dict = {}
     for e in kernels:
@@ -739,7 +1066,28 @@ def phase_profile(torch, path: str, alg, run, round_s: float):
         fam["device_ms"] += e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
+    host = [e for e in events
+            if e.key == GUARD_SPAN and e.device_type == DeviceType.CPU]
+    extent = [e for e in events
+              if e.key == GUARD_SPAN and e.device_type == DeviceType.CUDA]
+    guard = None
+    if host and kernels:
+        span_ms = host[0].device_time_total / 1e3
+
+        def per_call(fam):
+            f = families.get("port:" + fam)
+            return f["device_ms"] / f["calls"] if f else 0.0
+
+        # one unguarded fused pass: B6 (with its finalize) and one B3′
+        base_ms = (per_call("round_kernel") + per_call("round_finalize_kernel")
+                   + per_call("demodulate_kernel"))
+        guard = {"span_device_ms": span_ms, "span_share": span_ms / device_ms,
+                 "beyond_one_pass_ms": span_ms - base_ms,
+                 "beyond_one_pass_share": (span_ms - base_ms) / device_ms,
+                 "span_extent_on_device_ms":
+                 extent[0].self_device_time_total / 1e3 if extent else None}
     emit({"phase": "profile", "path": path, "ok": True, "rounds": 1,
+          "guard": guard,
           "profiled_wall_ms": wall_ms, "round_ms": round_s * 1e3,
           "device_ms": device_ms if kernels else None,
           "busy_share": device_ms / (round_s * 1e3) if kernels else None,
@@ -775,8 +1123,11 @@ def main() -> int:
         paths["scenario_deepfade"], fade_alg, fade_s = phase_scenario(
             torch, mlp_run, "scenario_deepfade", "deep-fade-truncation")
         paths["scaleup"] = phase_scaleup(torch, name)
+        paths["fused_round"] = phase_fused_round(torch)
+        paths["chaos"], chaos_alg, chaos_s = phase_chaos(torch, mlp_run)
         phase_profile(torch, "mlp", mlp_run["alg"], mlp_run, round_s)
         phase_profile(torch, "scenario_deepfade", fade_alg, mlp_run, fade_s)
+        phase_profile(torch, "chaos", chaos_alg, mlp_run, chaos_s)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1

@@ -16,17 +16,22 @@ from repro_torch.core.admm import AFadmmState
 from repro_torch.core.channel import ChannelBlock
 from repro_torch.core.cplx import Complex
 from repro_torch.device import resolve_device
+from repro_torch.faults.plan import FaultState
 from repro_torch.models.mlp import Unflatten, mlp_unflatten
 from repro_torch.phy.scenario import PhyState
 
 #: leaves of an ``AFadmmState`` as :func:`afadmm_state_from_numpy` takes them
-#: (plus an optional ``phys`` entry under a scenario)
+#: (plus optional ``phys`` and ``flt`` entries under a scenario and a fault
+#: plan)
 STATE_KEYS = ("theta", "lam_re", "lam_im", "Theta", "h_re", "h_im",
               "h_prev_re", "h_prev_im", "changed", "age", "step")
 #: leaves of a ``PhyState`` as :func:`phy_state_from_numpy` takes them; only
 #: ``h_re``, ``h_im`` and ``age`` are required, as in the JAX state
 PHY_KEYS = ("h_re", "h_im", "h_small_re", "h_small_im", "h_hat_re",
             "h_hat_im", "gain", "shadow", "pos", "dest", "mask", "age")
+#: leaves of a ``FaultState`` as :func:`fault_state_from_numpy` takes them;
+#: ``stale`` may be missing or None (no stragglers)
+FAULT_KEYS = ("alive", "stale", "round", "n_evicted")
 
 
 def phy_state_from_numpy(d: Mapping[str, Optional[np.ndarray]],
@@ -67,6 +72,28 @@ def phy_state_from_numpy(d: Mapping[str, Optional[np.ndarray]],
         age=int(d["age"]))
 
 
+def fault_state_from_numpy(d: Mapping[str, Optional[np.ndarray]],
+                           device="cuda") -> FaultState:
+    """The port's ``FaultState`` from the JAX ``FaultState``'s leaves:
+    ``alive`` (W,) bool, ``stale`` (W, d) or None, and the int scalars
+    ``round`` and ``n_evicted``."""
+    missing = [k for k in ("alive", "round", "n_evicted") if d.get(k) is None]
+    if missing:
+        raise KeyError(f"fault_state_from_numpy: missing leaves {missing}")
+    unknown = sorted(set(d) - set(FAULT_KEYS))
+    if unknown:
+        raise KeyError(f"fault_state_from_numpy: unknown leaves {unknown}")
+    dev = resolve_device(device)
+    stale = d.get("stale")
+    return FaultState(
+        alive=torch.tensor(np.asarray(d["alive"], bool), device=dev),
+        stale=None if stale is None else torch.tensor(
+            np.asarray(stale, np.float32), device=dev),
+        round=int(d["round"]),
+        n_evicted=torch.tensor(int(d["n_evicted"]), dtype=torch.int32,
+                               device=dev))
+
+
 def afadmm_state_from_numpy(d: Mapping[str, np.ndarray],
                             device="cuda") -> AFadmmState:
     """The port's ``AFadmmState`` from the JAX state's leaves.
@@ -75,12 +102,14 @@ def afadmm_state_from_numpy(d: Mapping[str, np.ndarray],
     re/im (W, d), Θ (d,), the block's h and h_prev re/im (W, d), ``changed``
     (W, d) bool, and the int scalars ``age`` and ``step``.  Under a
     scenario, ``d["phys"]`` holds the ``PhyState``'s leaves
-    (:func:`phy_state_from_numpy`)."""
+    (:func:`phy_state_from_numpy`); under a fault plan, ``d["flt"]`` the
+    ``FaultState``'s (:func:`fault_state_from_numpy`)."""
     missing = [k for k in STATE_KEYS if k not in d]
     if missing:
         raise KeyError(f"afadmm_state_from_numpy: missing leaves {missing}")
     dev = resolve_device(device)
     phys = d.get("phys")
+    flt = d.get("flt")
 
     def f32(k: str) -> torch.Tensor:
         return torch.tensor(np.asarray(d[k], np.float32), device=dev)
@@ -94,7 +123,9 @@ def afadmm_state_from_numpy(d: Mapping[str, np.ndarray],
                                                        f32("lam_im")),
                        Theta=f32("Theta"), blk=blk, step=int(d["step"]),
                        phys=None if phys is None
-                       else phy_state_from_numpy(phys, device=dev))
+                       else phy_state_from_numpy(phys, device=dev),
+                       flt=None if flt is None
+                       else fault_state_from_numpy(flt, device=dev))
 
 
 def mlp_flat_from_numpy(flat: np.ndarray, sizes: Sequence[int],

@@ -1,7 +1,8 @@
 """A-FADMM: analog federated ADMM — the paper's core algorithm (Sec. 2), on
-``(W, d)`` worker-major tensors.  Counterpart of ``repro/core/admm.py`` for
-the unguarded round, with the participation mask and imperfect CSI of the
-``repro_torch.phy`` scenarios.
+``(W, d)`` worker-major tensors.  Counterpart of ``repro/core/admm.py``: the
+round with the participation mask and imperfect CSI of the
+``repro_torch.phy`` scenarios, and the fault-injected, guarded round of
+``repro_torch.faults``.
 
 Update rules (paper equation numbers):
 
@@ -28,6 +29,8 @@ from repro_torch.core import cplx
 from repro_torch.core.channel import ChannelBlock, ChannelConfig
 from repro_torch.core.cplx import Complex
 from repro_torch.core.transport import dual_update, flip_lambda, ota_uplink
+from repro_torch.faults import guards as _fguards
+from repro_torch.faults import plan as _fplan
 
 Tensor = torch.Tensor
 
@@ -47,7 +50,8 @@ class AFadmmState(NamedTuple):
     """Per-round algorithm state. Shapes: theta/lam (W, d); Theta (d,).
 
     ``phys`` is the ``repro_torch.phy.PhyState`` under a wireless scenario,
-    None on the legacy block-fading path."""
+    None on the legacy block-fading path; ``flt`` the
+    ``repro_torch.faults.FaultState`` under a fault plan, else None."""
 
     theta: Tensor
     lam: Complex
@@ -55,6 +59,7 @@ class AFadmmState(NamedTuple):
     blk: ChannelBlock
     step: int
     phys: Optional[Any] = None
+    flt: Optional[Any] = None
 
 
 class RoundDraws(NamedTuple):
@@ -70,6 +75,11 @@ class RoundDraws(NamedTuple):
       stochastic local solver, else None.
     phy: the scenario's ``repro_torch.phy.PhyDraws`` under a wireless
       scenario (then ``h_fresh`` is None), else None.
+    faults: the fault plan's uniforms (``repro_torch.faults.plan
+      .FaultDraws``) under a fault plan, else None.
+    guard: the guard's burst and retry noise planes
+      (``repro_torch.faults.guards.GuardDraws``) when the round is guarded
+      or has bursts, else None.
     """
 
     h_fresh: Optional[Complex]
@@ -77,10 +87,12 @@ class RoundDraws(NamedTuple):
     downlink_noise_re: Optional[Tensor] = None
     batch_idx: Optional[Tensor] = None
     phy: Optional[Any] = None
+    faults: Optional[Any] = None
+    guard: Optional[Any] = None
 
 
 def init_state(theta0: Tensor, blk: ChannelBlock,
-               phys=None) -> AFadmmState:
+               phys=None, flt=None) -> AFadmmState:
     """theta0: (W, d) initial local models (paper: random init)."""
     W, d = theta0.shape
     return AFadmmState(
@@ -89,7 +101,8 @@ def init_state(theta0: Tensor, blk: ChannelBlock,
         Theta=theta0.mean(0),
         blk=blk,
         step=0,
-        phys=phys)
+        phys=phys,
+        flt=flt)
 
 
 def residuals(state: AFadmmState, Theta_prev: Tensor) -> Tuple[Tensor, Tensor]:
@@ -115,8 +128,8 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
                  local_solve: LocalSolve, grad_fn: GradFn, acfg: AdmmConfig,
                  ccfg: ChannelConfig, draws: RoundDraws,
                  mask: Optional[Tensor] = None,
-                 h_tx: Optional[Complex] = None
-                 ) -> Tuple[AFadmmState, dict]:
+                 h_tx: Optional[Complex] = None,
+                 guard=None, faults=None) -> Tuple[AFadmmState, dict]:
     """One synchronous round of Algorithm 1 (with Appendix-B noise handling).
 
     Args:
@@ -128,12 +141,20 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
       grad_fn: ``theta -> ∂f(θ)`` per worker, used by the flip rule.
         Shapes (W, d) -> (W, d).
       draws: the round's random planes (:class:`RoundDraws`).
-      mask: (W,) participation mask (deep-fade truncation).  A masked
-        worker skips the round: zero superposition contribution, left out
-        of min-α, dual frozen at its pre-round value.  An all-masked round
-        keeps Θ.
+      mask: (W,) participation mask (deep-fade truncation and/or fault
+        liveness).  A masked worker skips the round: zero superposition
+        contribution, left out of min-α, dual frozen at its pre-round
+        value.  An all-masked round keeps Θ.
       h_tx: the workers' CSI ``h_hat`` (imperfect CSI): they solve, flip,
         precode and dual-update with it while the air applies ``h``.
+      guard: a ``repro_torch.faults.GuardConfig`` — the uplink becomes the
+        guarded fused round (Θ finiteness + SNR floor, then evict /
+        retransmit / skip).  A healthy guarded round is the unguarded
+        round's.
+      faults: ``(FaultPlan, RoundFaults, stale)`` — substitutes the
+        uplinked planes per the round's fault draw (stragglers, corruption,
+        bursts); θ and the duals stay the workers' own.  A refreshed stale
+        buffer and the evicted rows ride in ``metrics["_fault_aux"]``.
 
     Metrics are 0-d tensors on the device: reading them is the caller's
     choice of when to synchronise.
@@ -155,17 +176,56 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
         theta_new = theta_solved
         lam_pre = state.lam
 
+    # --- fault injection: what the air sees (worker state stays truthful) --
+    aux = {}
+    burst_std = None
+    theta_tx = theta_new
+    if faults is not None:
+        fplan, rf, stale = faults
+        theta_tx, stale_next = _fplan.apply_uplink(fplan, rf, theta_new,
+                                                   stale)
+        burst_std = rf.burst_std
+        if stale_next is not None:
+            aux["stale"] = stale_next
+
     # --- uplink: modulate, power-scale, superpose, matched-filter ---------
-    Theta_new, inv_alpha = ota_uplink(theta_new, lam_pre, h, draws.noise_re,
-                                      rho, ccfg,
-                                      power_control=acfg.power_control,
-                                      mask=mask, h_tx=h_tx)
-    if mask is not None:
-        # nobody transmitted: keep Θ rather than demodulate noise over a
-        # zero pilot
-        Theta_new = torch.where(mask.any(), Theta_new, state.Theta)
+    healthy = evicted = None
+    guard_metrics = {}
+    if guard is not None or burst_std is not None:
+        if draws.guard is None:
+            raise ValueError("a guarded or bursty round needs draws.guard")
+        with torch.profiler.record_function("guarded_ota_round"):
+            gr = _fguards.guarded_ota_round(
+                theta_tx, lam_pre, h, draws.noise_re, rho, ccfg,
+                guard if guard is not None else _fguards.GuardConfig(),
+                power_control=acfg.power_control, mask=mask, h_tx=h_tx,
+                burst_std=burst_std, draws=draws.guard)
+        Theta_new, inv_alpha = gr.Theta, gr.inv_alpha
+        if guard is not None:   # burst-only: no policy, accept the round
+            healthy, evicted = gr.healthy, gr.evicted
+            guard_metrics = gr.metrics
+            aux["evicted"] = evicted
+    else:
+        Theta_new, inv_alpha = ota_uplink(theta_tx, lam_pre, h,
+                                          draws.noise_re, rho, ccfg,
+                                          power_control=acfg.power_control,
+                                          mask=mask, h_tx=h_tx)
+    keep = None
+    if mask is not None or evicted is not None:
+        # nobody transmitted (all masked or evicted): keep Θ rather than
+        # demodulate noise over a zero pilot
+        active = mask
+        if evicted is not None:
+            active = ~evicted if active is None else active & ~evicted
+        keep = active.any()
+    if healthy is not None:
+        keep = healthy if keep is None else keep & healthy
+    if keep is not None:
+        Theta_new = torch.where(keep, Theta_new, state.Theta)
 
     # --- downlink + dual ---------------------------------------------------
+    # duals update from the workers' true θ (theta_new, not the faulted
+    # theta_tx): a straggler's or corrupter's bookkeeping stays healthy
     downlink = None
     if ccfg.analog_downlink:
         if draws.downlink_noise_re is None:
@@ -173,22 +233,35 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
         downlink = draws.downlink_noise_re
     lam_new = dual_update(lam_pre, h_wkr, theta_new, Theta_new, rho,
                           downlink)
-    if mask is not None:
-        # truncated workers sat the round out: their duals stay at the
-        # PRE-round value — state.lam, not lam_pre, which under
-        # flip_on_change already holds this round's flip
-        lam_new = cplx.cwhere(mask[:, None], lam_new, state.lam)
+    freeze = mask
+    if evicted is not None:
+        freeze = ~evicted if freeze is None else freeze & ~evicted
+    if freeze is not None:
+        # workers that sat the round out keep their PRE-round duals —
+        # state.lam, not lam_pre, which under flip_on_change already holds
+        # this round's flip
+        lam_new = cplx.cwhere(freeze[:, None], lam_new, state.lam)
+    if healthy is not None:
+        lam_new = cplx.cwhere(healthy, lam_new, state.lam)
+    if evicted is not None:
+        zero = torch.zeros((), dtype=lam_new.re.dtype,
+                           device=lam_new.re.device)
+        lam_new = Complex(torch.where(evicted[:, None], zero, lam_new.re),
+                          torch.where(evicted[:, None], zero, lam_new.im))
 
     new_state = AFadmmState(theta=theta_new, lam=lam_new, Theta=Theta_new,
                             blk=blk_next, step=state.step + 1,
-                            phys=state.phys)
+                            phys=state.phys, flt=state.flt)
     metrics = {
         "primal_residual": torch.sqrt(torch.mean(
             (theta_new - Theta_new[None, :]) ** 2)),
         "dual_residual": torch.sqrt(torch.mean(
             (cplx.abs2(h) * (Theta_new - state.Theta)[None, :]) ** 2)) * rho,
         "inv_alpha": inv_alpha,
+        **guard_metrics,
     }
     if mask is not None:
         metrics["participation"] = mask.to(torch.float32).mean()
+    if aux:
+        metrics["_fault_aux"] = aux
     return new_state, metrics

@@ -18,3 +18,14 @@ def alpha_from_energy(energy: Tensor, power_budget: float) -> Tensor:
     return torch.where(energy > 0.0,
                        torch.sqrt(power_budget / torch.clamp_min(energy, 1e-30)),
                        torch.full_like(energy, float("inf")))
+
+
+def retry_power_budget(power_budget: float, attempt: int,
+                       backoff: float) -> float:
+    """Budget ``P·γ^attempt`` of the guard's retransmission ``attempt``
+    (``faults.guards``).  Attempt 0 is the original slot: γ⁰ = 1 exactly,
+    so its budget is ``power_budget`` itself and a guarded round with no
+    retry is the unguarded round.  ``attempt`` is a host integer (the
+    guard runs every attempt); with γ a power of two the f32 budget the
+    kernels see is the JAX package's ``f32(P)·γ^attempt`` exactly."""
+    return power_budget * float(backoff) ** int(attempt)

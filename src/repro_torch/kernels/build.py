@@ -40,6 +40,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "ota": {
         "ota_modulate": [_PTR] * 7 + [_I64, _F32, _PTR],
         "ota_receive": [_PTR] * 7 + [_I64, _I64, _PTR],
+        "ota_demodulate_dyn": [_PTR] * 5 + [_I64, _PTR],
+        "ota_demodulate": [_PTR] * 4 + [_I64, _F32, _PTR],
+    },
+    "ota_round": {
+        "ota_round_stats": [_PTR] * 18 + [_I64, _I64, _INT, _I64, _F32, _F32,
+                                          _F32, _INT, _PTR],
+        "ota_round_theta": [_PTR] * 17 + [_I64, _I64, _INT, _I64, _F32, _F32,
+                                          _F32, _INT, _PTR],
     },
     "admm_update": {
         "admm_dual_update": [_PTR] * 9 + [_I64, _I64, _F32, _PTR],

@@ -69,3 +69,45 @@ def ota_receive(s_re: Tensor, s_im: Tensor, h_re: Tensor, h_im: Tensor,
                  h_re.data_ptr(), h_im.data_ptr(), noise_re.data_ptr(),
                  inv_alpha.data_ptr(), out.data_ptr(), W, d)
     return out
+
+
+def _demod_operands(name: str, y_re: Tensor, noise_re: Tensor,
+                    sumh2: Tensor, **scalars: Tensor) -> torch.device:
+    dev = build.check_cuda_f32(name, y_re=y_re, noise_re=noise_re,
+                               sumh2=sumh2, **scalars)
+    for arg, t in (("noise_re", noise_re), ("sumh2", sumh2)):
+        if t.shape != y_re.shape:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"y_re {tuple(y_re.shape)}")
+    return dev
+
+
+def ota_demodulate_dyn(y_re: Tensor, noise_re: Tensor, sumh2: Tensor,
+                       inv_alpha: Tensor) -> Tensor:
+    """Θ = (y + z·α⁻¹)/max(Σ|h|², 1e-12) elementwise (B3), with α⁻¹ a
+    one-element tensor read by the kernel on the device."""
+    if build.resolve_backend(y_re.device) == "torch":
+        return ref.ota_demodulate_dyn(y_re, noise_re, sumh2, inv_alpha)
+    if not isinstance(inv_alpha, torch.Tensor) or inv_alpha.numel() != 1:
+        raise ValueError("ota_demodulate_dyn: inv_alpha must be a "
+                         "one-element tensor on the device")
+    dev = _demod_operands("ota_demodulate_dyn", y_re, noise_re, sumh2,
+                          inv_alpha=inv_alpha)
+    out = torch.empty_like(y_re)
+    build.launch("ota", "ota_demodulate_dyn", dev, y_re.data_ptr(),
+                 noise_re.data_ptr(), sumh2.data_ptr(), inv_alpha.data_ptr(),
+                 out.data_ptr(), y_re.numel())
+    return out
+
+
+def ota_demodulate(y_re: Tensor, noise_re: Tensor, sumh2: Tensor,
+                   inv_alpha: float) -> Tensor:
+    """B3 with α⁻¹ a host float (B3′): Θ = (y + z·α⁻¹)/max(Σ|h|², 1e-12)."""
+    if build.resolve_backend(y_re.device) == "torch":
+        return ref.ota_demodulate(y_re, noise_re, sumh2, float(inv_alpha))
+    dev = _demod_operands("ota_demodulate", y_re, noise_re, sumh2)
+    out = torch.empty_like(y_re)
+    build.launch("ota", "ota_demodulate", dev, y_re.data_ptr(),
+                 noise_re.data_ptr(), sumh2.data_ptr(), out.data_ptr(),
+                 y_re.numel(), float(inv_alpha))
+    return out

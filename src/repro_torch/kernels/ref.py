@@ -4,8 +4,9 @@ Each function is the mathematical definition, written with no regard for
 the card: the CPU tests hold them against the JAX package, ``chip_smoke.py``
 holds each CUDA kernel against them on the card, and the kernel wrappers
 take them for CPU tensors only.  Counterpart of ``repro/kernels/ref.py``,
-plus a plain receive, masked receive, fading step and population step,
-which the JAX oracle file does not have.
+plus a plain receive, masked receive, one-pass round, fading step and
+population step, which the JAX oracle file does not have (the one-pass
+round's oracle there is ``repro/core/transport.py``'s jnp path).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ def ota_receive(s_re: Tensor, s_im: Tensor, h_re: Tensor, h_im: Tensor,
     s/h: (W, d); noise_re: (d,); returns (d,)."""
     y = (h_re * s_re - h_im * s_im).sum(0)
     p2 = (h_re * h_re + h_im * h_im).sum(0)
-    return (y + noise_re * inv_alpha) / torch.clamp_min(p2, 1e-12)
+    return ota_demodulate(y, noise_re, p2, inv_alpha)
 
 
 def ota_receive_masked(s_re: Tensor, s_im: Tensor, h_re: Tensor,
@@ -46,6 +47,63 @@ def ota_receive_masked(s_re: Tensor, s_im: Tensor, h_re: Tensor,
     return ota_receive(*(torch.where(active, x, zero)
                          for x in (s_re, s_im, h_re, h_im)),
                        noise_re, inv_alpha)
+
+
+def ota_demodulate(y_re: Tensor, noise_re: Tensor, sumh2: Tensor,
+                   inv_alpha: Tensor | float) -> Tensor:
+    """Θ = (y + z·α⁻¹) / max(Σ|h|², 1e-12) over (d,) planes (Eq. 24), the
+    last step of :func:`ota_receive`."""
+    return (y_re + noise_re * inv_alpha) / torch.clamp_min(sumh2, 1e-12)
+
+
+#: B3 reads α⁻¹ on the device, B3′ takes a host float: one function
+ota_demodulate_dyn = ota_demodulate
+
+
+def ota_round_stats(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
+                    h_re: Tensor, h_im: Tensor, rho: float,
+                    mask: Optional[Tensor] = None,
+                    htx: Optional[Tuple[Tensor, Tensor]] = None,
+                    chan: Optional[tuple] = None) -> Tuple[Tensor, ...]:
+    """One pass of the round over (W, d) planes: [AR(1) step of h] →
+    modulate with ``htx`` (else the channel) → per-worker energy of the
+    unmasked signal → ``where``-mask → y = Re{Σ_w h⊙s}, p2 = Σ_w |h|².
+
+    ``chan = (w_re, w_im, rho_f, scale, redraw)``.  Returns ``(y, p2,
+    energy)``, plus the stepped channel's planes with ``chan``.  The same
+    expressions as :func:`ota_modulate`, the composed path's energy and
+    :func:`ota_receive_masked`, so the fused round equals the composed one
+    bit for bit."""
+    if chan is not None:
+        w_re, w_im, rho_f, scale, redraw = chan
+        h_re, h_im = fading_step(h_re, h_im, w_re, w_im, rho_f, scale, redraw)
+    tx_re, tx_im = (h_re, h_im) if htx is None else htx
+    s_re, s_im = ota_modulate(theta, lam_re, lam_im, tx_re, tx_im, rho)
+    e = s_re * s_re + s_im * s_im
+    energy = e.reshape(e.shape[0], -1).sum(1)
+    hm_re, hm_im = h_re, h_im
+    if mask is not None:
+        active = mask[:, None]
+        zero = torch.zeros((), dtype=s_re.dtype, device=s_re.device)
+        s_re, s_im, hm_re, hm_im = (torch.where(active, x, zero)
+                                    for x in (s_re, s_im, h_re, h_im))
+    y = (hm_re * s_re - hm_im * s_im).sum(0)
+    p2 = (hm_re * hm_re + hm_im * hm_im).sum(0)
+    out = (y, p2, energy)
+    return out if chan is None else out + (h_re, h_im)
+
+
+def ota_round_theta(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
+                    h_re: Tensor, h_im: Tensor, noise_re: Tensor,
+                    inv_alpha: Tensor | float, rho: float,
+                    mask: Optional[Tensor] = None,
+                    htx: Optional[Tuple[Tensor, Tensor]] = None,
+                    chan: Optional[tuple] = None) -> Tuple[Tensor, ...]:
+    """:func:`ota_round_stats` with the demodulate epilogue: returns
+    ``(Theta,)``, plus the stepped channel's planes with ``chan``."""
+    out = ota_round_stats(theta, lam_re, lam_im, h_re, h_im, rho, mask=mask,
+                          htx=htx, chan=chan)
+    return (ota_demodulate(out[0], noise_re, out[1], inv_alpha),) + out[3:]
 
 
 def fading_step(h_re: Tensor, h_im: Tensor, w_re: Tensor, w_im: Tensor,

@@ -11,7 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (admm_update, build, ota,  # noqa: E402
-                                 phy_channel, phy_population, ref)
+                                 ota_round, phy_channel, phy_population, ref)
 
 pytestmark = pytest.mark.cuda
 SHAPES = [(3, 1000), (5, 1025), (8, 4097), (100, 109_386)]
@@ -156,6 +156,85 @@ def test_population_step_kernel(dev, n, redraw, shadow_redraw):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+#: B6/B7 sum W terms of size ~1 in another order than the plain version's
+#: tree sum: y and p2 carry ~W·1e-7 of absolute rounding, Θ = y/p2 ~1e-7
+ROUND_TOL = dict(rtol=1e-5, atol=1e-4)
+ROUND_SHAPES = SHAPES + [(65_536, 32), (1000, 8)]
+ROUND_MODES = ["plain", "mask", "csi", "chan", "chan-held", "mask+csi+chan"]
+
+
+def _round_inputs(dev, W, d, mode, seed=9):
+    theta, lre, lim, hre, him, tre, tim, wre, wim = _planes(dev, W, d, 9, seed)
+    theta = theta * 0.1
+    mask = htx = chan = None
+    if "mask" in mode:
+        mask = torch.arange(W, device=dev) % 5 != 2
+        theta[2] = float("nan")              # a dropped row's NaN stays out
+        hre[2] = float("inf")
+    if "csi" in mode:
+        htx = (tre, tim)
+    if "chan" in mode:
+        chan = (wre, wim, 0.9755, math.sqrt(1 - 0.9755 ** 2),
+                "held" not in mode)
+    return (theta, lre, lim, hre, him), dict(mask=mask, htx=htx, chan=chan)
+
+
+def _close_round(got, want, mask):
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i == 2 and mask is not None:       # energies: the NaN row's too
+            assert torch.isnan(a[2]) and torch.isnan(b[2])
+            keep = torch.arange(a.numel(), device=a.device) != 2
+            a, b = a[keep], b[keep]
+        tol = ROUND_TOL if i < 3 else dict(rtol=1e-6, atol=1e-6)
+        if i == 2:
+            tol = dict(rtol=1e-5, atol=0.0)
+        torch.testing.assert_close(a, b, **tol)
+
+
+@pytest.mark.parametrize("W,d", ROUND_SHAPES)
+@pytest.mark.parametrize("mode", ROUND_MODES)
+def test_round_stats_kernel(dev, W, d, mode):
+    planes, kw = _round_inputs(dev, W, d, mode)
+    got = _launched("ota_round_stats",
+                    lambda: ota_round.ota_round_stats(*planes, 0.5, **kw))
+    want = ref.ota_round_stats(*planes, 0.5, **kw)
+    _close_round(got, want, kw["mask"])
+    assert bool(torch.isfinite(got[0]).all())
+    again = ota_round.ota_round_stats(*planes, 0.5, **kw)
+    for a, b in zip(got, again):             # no atomics: the same bits
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+@pytest.mark.parametrize("W,d", ROUND_SHAPES)
+@pytest.mark.parametrize("mode", ["plain", "mask+csi+chan"])
+def test_round_theta_kernel(dev, W, d, mode):
+    planes, kw = _round_inputs(dev, W, d, mode, seed=10)
+    noise = torch.randn(d, device=dev) * 1e-3
+    ia = torch.tensor(0.37, device=dev)
+    got = _launched("ota_round_theta", lambda: ota_round.ota_round_theta(
+        *planes, noise, ia, 0.5, **kw))
+    want = ref.ota_round_theta(*planes, noise, ia, 0.5, **kw)
+    assert len(got) == len(want)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [1, 1000, 109_386])
+def test_demodulate_kernels(dev, d):
+    y, z, p2 = (torch.randn(d, device=dev) for _ in range(3))
+    p2 = p2.abs()
+    p2[: min(d, 3)] = 0.0
+    ia = torch.tensor(0.37, device=dev)
+    got = _launched("ota_demodulate_dyn",
+                    lambda: ota.ota_demodulate_dyn(y, z, p2, ia))
+    assert torch.equal(got, ref.ota_demodulate_dyn(y, z, p2, ia))
+    got = _launched("ota_demodulate",
+                    lambda: ota.ota_demodulate(y, z, p2, 0.37))
+    assert torch.equal(got, ref.ota_demodulate(y, z, p2, 0.37))
+
+
 def test_wrappers_refuse_bad_operands(dev):
     a, b = _planes(dev, 2, 8, 2, 5)
     with pytest.raises(ValueError, match="not contiguous"):
@@ -179,3 +258,10 @@ def test_wrappers_refuse_bad_operands(dev):
     with pytest.raises(ValueError, match="want"):
         phy_population.population_step(*([a] * 12), 0.9, 0.4, True, 0.1, 1.0,
                                        250.0, 3.0, True)
+    with pytest.raises(ValueError, match="mask"):
+        ota_round.ota_round_stats(a, a, a, b, b, 0.5,
+                                  mask=torch.ones(2, device=dev))
+    with pytest.raises(ValueError, match="one-element tensor"):
+        ota_round.ota_round_theta(a, a, a, b, b, z8, 1.0, 0.5)
+    with pytest.raises(ValueError, match="shape"):
+        ota.ota_demodulate(z8, z8[:4].contiguous(), z8, 1.0)

@@ -90,13 +90,15 @@ def _entry_points():
             {k: np.zeros((1, 1)) for k in convert.STATE_KEYS}),
         "phy_state_from_numpy": lambda: convert.phy_state_from_numpy(
             {"h_re": np.zeros((1, 1)), "h_im": np.zeros((1, 1)), "age": 0}),
+        "fault_state_from_numpy": lambda: convert.fault_state_from_numpy(
+            {"alive": np.ones(1, bool), "round": 0, "n_evicted": 0}),
     }
 
 
 @pytest.mark.parametrize("name", sorted(
     ["linreg_dataset", "image_dataset", "split_iid", "init_mlp_flat",
      "mlp_flat_from_numpy", "afadmm_state_from_numpy",
-     "phy_state_from_numpy"]))
+     "phy_state_from_numpy", "fault_state_from_numpy"]))
 def test_entry_point_without_device_raises_without_cuda(name):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
