@@ -11,13 +11,18 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 3. kernels — at the paper MLP's full width (W = 100 workers, d = 109,386)
              and at the other shapes the paths give a kernel (the fading
              step on (100, 1) planes; the population kernel at N = 10⁶ and
-             65,536 workers; the one-pass round at (65,536, 32)), in each
-             mode a path uses, each CUDA kernel against its plain PyTorch
-             version on the same inputs, with its device time (``ms``,
-             median of CUDA-event timings behind a GPU spin), its time with
-             the host's launch (``ms_with_launch``), the plain version's
-             times, and its bound (bytes over the card's memory rate, or
-             flops over its fp32 rate, whichever is larger).
+             65,536 workers; the one-pass round at (65,536, 32); the LLM
+             round's B6, dual update and demodulation at (2, 637,554,688)
+             and (637,554,688,); flash attention B11 — forward,
+             dq, dk/dv — at the LLM round's (2, 32, 4096, 128) in bf16 and
+             on two ragged f32 cases), in each mode a path uses, each CUDA
+             kernel against its plain PyTorch version on the same inputs,
+             with its device time (``ms``, median of CUDA-event timings
+             behind a GPU spin), its time with the host's launch
+             (``ms_with_launch``), the plain version's times, its bound
+             (bytes over the card's memory rate, or operations over the
+             card's rate for their type, whichever is larger) and, for B11,
+             SDPA's time (``library_ms``).
 4. mlp     — the main path: the paper's 784-128-64-10 MLP, 100 workers,
              4096 subcarriers, 20 local Adam steps per round, trained for 5
              rounds through ``make("afadmm", ...)`` and ``train``.
@@ -43,15 +48,22 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 11. profile — one more round of phases 4, 7 and 10 each under
              torch.profiler: device time by kernel family, its share of the
              phase's round time, and the guarded uplink's span.
+12. llm    — the federated LLM trainer's replicated mode
+             (``make_fl_train`` / ``train_step``) on granite-8b at full
+             width (d_model 4096, 32/8 heads of 128, d_ff 14,336, vocabulary
+             49,152, bf16) with 2 of its 36 layers: 2 workers, 1 × 4,096
+             tokens each, 2 local sgd steps at lr 5e-4, 3 rounds; then one
+             more round under torch.profiler.
 
-Launch counts are reset just before each of phases 4–10 and read just
-after.  Then come the kernel table as one JSON line, the nvidia-smi line,
+Launch counts are reset just before each of phases 4–10 and 12 and read
+just after.  Then come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
 a result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -64,9 +76,12 @@ SRC = Path(__file__).resolve().parent / "src"
 SEED = 0
 W_FULL = 100
 TIMED_RUNS = 25
-#: (memory bytes/s, fp32 flop/s outside the tensor cores): NVIDIA data sheets
-CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-              "H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
+#: (memory bytes/s, fp32 flop/s outside the tensor cores, dense bf16 flop/s
+#: of the tensor cores): NVIDIA data sheets
+CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
+              "H100 NVL": (3.9e12, 60e12, 835e12),
+              "H100": (3.35e12, 67e12, 989e12),
+              "H200": (4.8e12, 67e12, 989e12)}
 
 
 class SmokeFailure(Exception):
@@ -149,14 +164,22 @@ def phase_build(build):
                         for lib, v in info.items()}})
 
 
+#: elements compared at a time: a (2, 637,554,688) plane is 5.1 GB, and the
+#: comparison's temporaries stay at a chunk's size
+ERR_CHUNK = 1 << 26
+
+
 def _max_err(outs, refs, rtol: float, atol: float):
-    """(max |a − b|, max |a − b| / (atol + rtol·|b|)); the kernel agrees
-    when the second is ≤ 1 (0 for an exact match when both are 0)."""
+    """(max |a − b|, max |a − b| / (atol + rtol·|b|)) in f32; the kernel
+    agrees when the second is ≤ 1 (0 for an exact match when both are 0)."""
     max_abs, worst = 0.0, 0.0
     for a, b in zip(outs, refs):
-        diff = (a - b).abs()
-        max_abs = max(max_abs, float(diff.max()))
-        worst = max(worst, _err_ratio(diff, atol + rtol * b.abs()))
+        a, b = a.reshape(-1), b.reshape(-1)
+        for i in range(0, a.numel(), ERR_CHUNK):
+            x, y = a[i:i + ERR_CHUNK].float(), b[i:i + ERR_CHUNK].float()
+            diff = (x - y).abs()
+            max_abs = max(max_abs, float(diff.max()))
+            worst = max(worst, _err_ratio(diff, atol + rtol * y.abs()))
     return max_abs, worst
 
 
@@ -175,7 +198,7 @@ def phase_kernels(torch, card):
                                      phy_channel, phy_population, ref)
     from repro_torch.phy import doppler_rho, innovation_scale
 
-    _, (mem_rate, f32_rate) = card_peaks(card)
+    _, (mem_rate, f32_rate, _) = card_peaks(card)
     dev = torch.device("cuda")
     gen = rng.generator(SEED, dev)
     W, d = W_FULL, 109_386
@@ -396,48 +419,230 @@ def phase_kernels(torch, card):
          4 * vec_b, 4 * d, (1e-6, 1e-7), [d], {}),
     ]
     cases = [c if len(c) >= 10 else (*c, [W, d], {}) for c in cases]
-    cases = [c if len(c) == 11 else (*c, None) for c in cases]
     results = {}
-    for (name, replaces, lib, kernel, plain, nbytes, flops, (rtol, atol),
-         shape, extra, select) in cases:
-        fn_name = name.split("[")[0]
-        before = build.launches[fn_name]
-        out = kernel()
-        torch.cuda.synchronize()
-        require(build.launches[fn_name] == before + 1,
-                f"{name}: the launch counter did not rise")
-        outs = out if isinstance(out, tuple) else (out,)
-        want = plain()
-        refs = want if isinstance(want, tuple) else (want,)
-        if select is not None:
-            outs, refs = select(outs), select(refs)
-        require(all(bool(torch.isfinite(o).all()) for o in outs),
-                f"{name}: non-finite output")
-        max_abs, err_over_tol = _max_err(outs, refs, rtol, atol)
-        require(err_over_tol <= 1.0,
-                f"{name}: kernel and plain version disagree beyond "
-                f"rtol={rtol} atol={atol} (max abs err {max_abs}, "
-                f"{err_over_tol} of the tolerance)")
-        kernel_ms = time_ms(torch, kernel)
-        plain_ms = time_ms(torch, plain)
-        bytes_ms = nbytes / mem_rate * 1e3
-        flops_ms = flops / f32_rate * 1e3
-        row = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/kernels/csrc/{lib}.cu",
-               "replaces": replaces, "max_abs_err": max_abs,
-               "err_over_tol": err_over_tol,
-               "rtol": rtol, "atol": atol, "ok": True,
-               "ms": kernel_ms, "plain_ms": plain_ms,
-               "kernel_ms": kernel_ms, "ref_ms": plain_ms,
-               "ms_with_launch": time_ms(torch, kernel, spin=False),
-               "plain_ms_with_launch": time_ms(torch, plain, spin=False),
-               "bytes": nbytes, "flops": flops,
-               "bound_ms": max(bytes_ms, flops_ms),
-               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-               "library_ms": None, "shape": shape, **extra}
-        emit({"phase": "kernels", **row})
-        results[name] = row
+    for case in cases:
+        row = _kernel_row(torch, build, mem_rate, f32_rate, *case)
+        results[row["name"]] = row
+    del cases
+    results.update(_llm_round_rows(torch, build, mem_rate, f32_rate))
+    results.update(_flash_rows(torch, build, card))
     return results
+
+
+def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
+                plain, nbytes, flops, tol, shape, extra, select=None,
+                tol_of=None, library=None):
+    """One row of the kernel table: launch once (the counter must rise),
+    hold the outputs against the plain version, time both, and the library
+    call that computes the same function where there is one.  ``tol`` is
+    (rtol, atol); ``tol_of(ref)`` gives each output its own instead.
+    ``flops`` are counted at ``op_rate``; ``select`` picks the outputs to
+    compare."""
+    fn_name = name.split("[")[0]
+    before = build.launches[fn_name]
+    out = kernel()
+    torch.cuda.synchronize()
+    require(build.launches[fn_name] == before + 1,
+            f"{name}: the launch counter did not rise")
+    outs = out if isinstance(out, tuple) else (out,)
+    want = plain()
+    refs = want if isinstance(want, tuple) else (want,)
+    if select is not None:
+        outs, refs = select(outs), select(refs)
+    require(all(bool(torch.isfinite(o).all()) for o in outs),
+            f"{name}: non-finite output")
+    tols = [tol if tol_of is None else tol_of(b) for b in refs]
+    max_abs, err_over_tol = 0.0, 0.0
+    for a, b, (rtol, atol) in zip(outs, refs, tols):
+        m_abs, ratio = _max_err([a], [b], rtol, atol)
+        max_abs, err_over_tol = max(max_abs, m_abs), max(err_over_tol, ratio)
+    require(err_over_tol <= 1.0,
+            f"{name}: kernel and plain version disagree beyond (rtol, atol) "
+            f"{tols} (max abs err {max_abs}, {err_over_tol} of the "
+            f"tolerance)")
+    del out, outs, want, refs
+    kernel_ms = time_ms(torch, kernel)
+    plain_ms = time_ms(torch, plain)
+    bytes_ms = nbytes / mem_rate * 1e3
+    flops_ms = flops / op_rate * 1e3
+    row = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/kernels/csrc/{lib}.cu",
+           "replaces": replaces, "max_abs_err": max_abs,
+           "err_over_tol": err_over_tol,
+           "rtol": tols[0][0], "atol": tols[0][1], "ok": True,
+           "ms": kernel_ms, "plain_ms": plain_ms,
+           "kernel_ms": kernel_ms, "ref_ms": plain_ms,
+           "ms_with_launch": time_ms(torch, kernel, spin=False),
+           "plain_ms_with_launch": time_ms(torch, plain, spin=False),
+           "bytes": nbytes, "flops": flops, "op_rate": op_rate,
+           "bound_ms": max(bytes_ms, flops_ms),
+           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+           "library_ms": None if library is None
+           else time_ms(torch, library), "shape": shape, **extra}
+    if tol_of is not None:
+        row["output_tols"] = tols
+    emit({"phase": "kernels", **row})
+    return row
+
+
+#: the LLM round's packed width: granite-8b at 2 layers (phase ``llm``)
+LLM_D = 637_554_688
+
+
+def _llm_round_rows(torch, build, mem_rate, f32_rate):
+    """The OTA kernels of the LLM round at its shape, W = 2 by D =
+    637,554,688 (W·D = 1.28·10⁹, near 2³¹): B6 and B4 on the same five
+    (2, D) planes (25.5 GB) and Θ, then B3 on three (D,) vectors; each set
+    is freed when its rows are done."""
+    from repro_torch import rng
+    from repro_torch.kernels import admm_update, ota, ota_round, ref
+
+    dev = torch.device("cuda")
+    gen = rng.generator(SEED + 13, dev)
+    W, d = 2, LLM_D
+    shape = [W, d]
+    theta, lam_re, lam_im, h_re, h_im = (
+        torch.randn((W, d), generator=gen, device=dev)
+        * (0.05 if i == 0 else math.sqrt(0.5)) for i in range(5))
+    Theta = torch.randn(d, generator=gen, device=dev) * 0.05
+    rows = {}
+    # y/p2 sum two workers (the same two terms in either order); the energy
+    # sums 637.6 M terms, which the kernel groups in 128-column tiles and a
+    # lane-strided finalize over ~5 M partials: held by rtol 1e-4
+    rows["b6"] = _kernel_row(
+        torch, build, mem_rate, f32_rate, "ota_round_stats[(2, 637,554,688)]",
+        "src/repro/kernels/ota_round.py:203", "ota_round",
+        lambda: ota_round.ota_round_stats(theta, lam_re, lam_im, h_re, h_im,
+                                          0.5),
+        lambda: ref.ota_round_stats(theta, lam_re, lam_im, h_re, h_im, 0.5),
+        4 * (W * d * 5 + 2 * d + W), 18 * W * d, (1e-4, 1e-4), shape, {})
+    # elementwise: five planes and Θ in, two planes out, as at (100, 109,386)
+    rows["b4"] = _kernel_row(
+        torch, build, mem_rate, f32_rate,
+        "admm_dual_update[(2, 637,554,688)]",
+        "src/repro/kernels/admm_update.py:42", "admm_update",
+        lambda: admm_update.admm_dual_update(lam_re, lam_im, h_re, h_im,
+                                             theta, Theta, 0.5),
+        lambda: ref.admm_dual_update(lam_re, lam_im, h_re, h_im, theta,
+                                     Theta, 0.5),
+        4 * (W * d * 7 + d), 8 * W * d, (1e-5, 1e-5), shape, {})
+    del theta, lam_re, lam_im, h_re, h_im, Theta
+    torch.cuda.empty_cache()
+    # B3 at the round's (D,): y and p2 of two workers' sums, the matched
+    # filter's noise, α⁻¹ on the device; rounded as the plain version rounds
+    y = torch.randn(d, generator=gen, device=dev)
+    noise = torch.randn(d, generator=gen, device=dev) * 7e-4
+    p2 = torch.rand(d, generator=gen, device=dev) * W
+    ia = torch.tensor(0.37, device=dev)
+    rows["b3"] = _kernel_row(
+        torch, build, mem_rate, f32_rate, "ota_demodulate_dyn[(637,554,688)]",
+        "src/repro/kernels/ota.py:147", "ota",
+        lambda: ota.ota_demodulate_dyn(y, noise, p2, ia),
+        lambda: ref.ota_demodulate_dyn(y, noise, p2, ia),
+        4 * 4 * d + 4, 4 * d, (1e-6, 1e-7), [d], {})
+    del y, noise, p2, ia
+    torch.cuda.empty_cache()
+    return {row["name"]: row for row in rows.values()}
+
+
+#: B11 rows: (label, B, H, S, hd, dtype name, causal).  The trainer's shape
+#: (granite-8b: 32 heads of 128 after GQA's repeat, W·B = 2, S = 4,096) in
+#: bf16, and two f32 cases: a ragged causal S = 1,000 and a non-causal one
+FLASH_CASES = (("", 2, 32, 4096, 128, "bfloat16", True),
+               ("[f32 ragged (1, 2, 1000, 64)]", 1, 2, 1000, 64, "float32",
+                True),
+               ("[f32 non-causal (1, 2, 1000, 64)]", 1, 2, 1000, 64,
+                "float32", False))
+
+
+def _flash_rows(torch, build, card):
+    """B11's forward, dq and dk/dv against their plain versions on the same
+    inputs (the backward kernels take the forward kernel's lse and δ, as the
+    autograd.Function hands them over), with SDPA as the library yardstick.
+
+    Tolerances.  bf16: the outputs are rounded to bf16 (half an ulp is 2e-3
+    of a value, on either side), so rtol 1e-2, with atol 1e-3 of the
+    largest reference value for entries near zero, where the f32 sums over
+    up to 4,096 keys differ only in order.  f32: rtol 1e-4, atol 1e-5 of the
+    largest value (summation order).  lse (f32 in both): rtol and atol
+    1e-5 (summation order of l)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch import rng
+    from repro_torch.kernels import flash_attention as fa, ref
+
+    _, (mem_rate, f32_rate, bf16_rate) = card_peaks(card)
+    dev = torch.device("cuda")
+    rows = {}
+    for label, B, H, S, hd, dtype_name, causal in FLASH_CASES:
+        dtype = getattr(torch, dtype_name)
+        gen = rng.generator(SEED + 17, dev)
+        q, k, v, do = (torch.randn((B, H, S, hd), generator=gen, device=dev)
+                       .to(dtype) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        delta = fa.attention_delta(o, do)
+        rtol, rel_atol = (1e-2, 1e-3) if dtype == torch.bfloat16 \
+            else (1e-4, 1e-5)
+
+        def tol_of(b, rtol=rtol, rel_atol=rel_atol, dtype=dtype):
+            if b.dtype == torch.float32 and dtype != torch.float32:
+                return (1e-5, 1e-5)                             # lse
+            return (rtol, rel_atol * float(b.float().abs().max()))
+
+        esize = q.element_size()
+        plane = B * H * S * hd * esize
+        vec = 4 * B * H * S
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+        rate = bf16_rate if dtype == torch.bfloat16 else f32_rate
+        backend = [SDPBackend.FLASH_ATTENTION] if dtype == torch.bfloat16 \
+            else [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                  SDPBackend.MATH]
+
+        def sdpa_fwd():
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        with sdpa_kernel(backend):
+            sdpa_out = F.scaled_dot_product_attention(*leaves,
+                                                      is_causal=causal)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa_out, leaves, do,
+                                       retain_graph=True)
+
+        sdpa_bwd_what = "SDPA backward (dq, dk and dv together)"
+        specs = [
+            ("flash_attention_fwd", "src/repro/kernels/flash_attention.py:125",
+             lambda: fa.flash_attention_fwd(q, k, v, causal),
+             lambda: ref.flash_attention_fwd(q, k, v, causal),
+             4 * plane + vec, 4 * hd * pairs, sdpa_fwd, "SDPA forward"),
+            ("flash_attention_dq", "src/repro/kernels/flash_attention.py:275",
+             lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
+             lambda: ref.flash_attention_bwd(q, k, v, do, causal, lse=lse,
+                                             delta=delta)[0],
+             5 * plane + 2 * vec, 6 * hd * pairs, sdpa_bwd, sdpa_bwd_what),
+            ("flash_attention_dkv", "src/repro/kernels/flash_attention.py:291",
+             lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta, causal),
+             lambda: ref.flash_attention_bwd(q, k, v, do, causal, lse=lse,
+                                             delta=delta)[1:],
+             6 * plane + 2 * vec, 8 * hd * pairs, sdpa_bwd, sdpa_bwd_what),
+        ]
+        for fn_name, replaces, kernel, plain, nbytes, flops, library, \
+                lib_what in specs:
+            row = _kernel_row(
+                torch, build, mem_rate, rate, fn_name + label, replaces,
+                "flash_attention", kernel, plain, nbytes, flops,
+                (rtol, rel_atol), [B, H, S, hd],
+                {"library": lib_what, "dtype": dtype_name, "causal": causal,
+                 "atol_of_max": rel_atol},
+                tol_of=tol_of, library=library)
+            rows[row["name"]] = row
+        del q, k, v, do, o, lse, delta, leaves, sdpa_out
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _population_inputs(torch, gen, dev, n: int):
@@ -741,7 +946,7 @@ def phase_scaleup(torch, card):
     from repro_torch.phy import make_scenario
     from repro_torch.train.fl_trainer import train
 
-    _, (mem_rate, _) = card_peaks(card)
+    _, (mem_rate, _, _) = card_peaks(card)
     dev = torch.device("cuda")
     W, D, n_sub, n_rounds, key = 65_536, 32, 32, 10, SEED
     ccfg = ChannelConfig(n_workers=W, n_subcarriers=n_sub, snr_db=20.0)
@@ -1016,14 +1221,122 @@ def phase_chaos(torch, run):
     return launches, chaos, chaos_s
 
 
+#: phase ``llm``: granite-8b at full width, depth cut 36 -> 2 (the round's
+#: (W, D) f32 planes of λ and h alone take 16 bytes a parameter per worker)
+LLM_LAYERS, LLM_WORKERS, LLM_SEQ, LLM_ROUNDS = 2, 2, 4096, 3
+#: local sgd step.  The reduced models' 1e-2 overshoots at full width (the
+#: loss of rounds 1 -> 3 went 10.39 -> 16.16 on an H100), and so does 1e-3
+#: (5.53, 4.13, 7.22 with or without the uplink noise); 5e-4 falls every
+#: round of six (``tools/sweep_llm_lr.py``)
+LLM_LR = 5e-4
+#: launches per round: each layer's B11 forward runs twice a local step
+#: (once more when its checkpoint is recomputed in the backward pass)
+LLM_LAUNCHES = {"flash_attention_fwd": 2 * LLM_LAYERS * 2,
+                "flash_attention_dq": LLM_LAYERS * 2,
+                "flash_attention_dkv": LLM_LAYERS * 2,
+                "ota_round_stats": 1, "ota_demodulate_dyn": 1,
+                "admm_dual_update": 1, "ota_modulate": 0, "ota_receive": 0,
+                "ota_round_theta": 0}
+
+
+def phase_llm(torch):
+    """The federated LLM trainer's replicated mode (``make_fl_train`` /
+    ``train_step``) on granite-8b at full width with 2 of its 36 layers, in
+    bf16: W = 2 workers, per-worker batch 1 × 4,096 tokens, 2 local sgd
+    steps, 3 rounds.  Returns (launches, a one-round callable for the
+    profiler, s/round)."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model, get_model
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+    from repro_torch.tree import tree_leaves
+
+    full = get_model("granite-8b").cfg
+    cfg = dataclasses.replace(full, n_layers=LLM_LAYERS)
+    model = build_model(cfg)
+    W, B, S = LLM_WORKERS, 1, LLM_SEQ
+    local_steps = 2
+    flcfg = FLConfig(mode="replicated", n_workers=W, local_steps=local_steps,
+                     local_lr=LLM_LR, local_optimizer="sgd")
+    acfg = AdmmConfig(rho=0.5, flip_on_change=False)
+    ccfg = ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=10)
+    t0 = time.perf_counter()
+    init_fn, train_step = make_fl_train(model, flcfg, acfg, ccfg)
+    state = init_fn(SEED)
+    tokens = token_dataset(SEED + 1, B, S, cfg.vocab_size, n_workers=W)
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    d = sum(leaf[0].numel() for leaf in tree_leaves(state.theta))
+    require(d == LLM_D, f"granite-8b at {LLM_LAYERS} layers packs {d} "
+            f"parameters, want {LLM_D}")
+    norms = (2 * LLM_LAYERS + 1) * cfg.d_model
+    require(d == cfg.param_count() + norms, f"{d} parameters, the analytic "
+            f"count is {cfg.param_count()} plus {norms} norm scales")
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    losses, drifts, inv_alphas, times = [], [], [], []
+    for r in range(LLM_ROUNDS):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, key=rng.fold_in(SEED, r + 1))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        drifts.append(float(m["theta_drift"]))
+        inv_alphas.append(float(m["inv_alpha"]))
+        require(math.isfinite(losses[-1]), f"llm: round {r} loss "
+                f"{losses[-1]} is not finite")
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    _per_round(launches, LLM_ROUNDS, LLM_LAUNCHES)
+    require(losses[-1] < losses[0], f"llm: round {LLM_ROUNDS} loss "
+            f"{losses[-1]} is not below round 1's {losses[0]} (losses "
+            f"{losses}, s/round {times}, peak {peak / 1e9} GB)")
+    require(all(math.isfinite(x) for x in drifts + inv_alphas),
+            f"llm: non-finite theta_drift {drifts} or inv_alpha "
+            f"{inv_alphas}")
+    require(all(bool(torch.isfinite(leaf).all())
+                for leaf in tree_leaves(state.Theta)), "llm: non-finite Θ")
+    round_s = statistics.mean(times[1:])
+    tokens_per_round = W * B * S * local_steps
+    emit({"phase": "llm", "ok": True, "arch": cfg.name,
+          "reduced": {"n_layers": f"{full.n_layers} -> {LLM_LAYERS}"},
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+          "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+          "dtype": cfg.param_dtype, "D": d, "W": W, "batch_per_worker": B,
+          "seq": S, "local_steps": local_steps, "local_lr": LLM_LR,
+          "rounds": LLM_ROUNDS,
+          "setup_s": setup_s, "round_s": times,
+          "seconds_per_round": round_s,
+          "tokens_per_s": tokens_per_round / round_s,
+          "loss": losses, "theta_drift": drifts, "inv_alpha": inv_alphas,
+          "peak_mem_gb": peak / 1e9, "launches": launches})
+    keys = iter(range(100, 1000))
+
+    def one_round():
+        nonlocal state
+        state, _ = train_step(state, batch, key=rng.fold_in(SEED,
+                                                            next(keys)))
+    return launches, one_round, round_s
+
+
+
 def _kernel_family(name: str) -> str:
     for fn in ("receive_masked_kernel", "fading_step_kernel",
                "population_step_kernel", "demodulate_kernel",
                "modulate_kernel", "receive_kernel", "dual_update_kernel",
-               "flip_lambda_kernel", "round_finalize_kernel", "round_kernel"):
+               "flip_lambda_kernel", "round_finalize_kernel", "round_kernel",
+               "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
         if fn in name:
             return "port:" + fn
-    if "gemm" in name or "xmma" in name:
+    if any(k in name for k in ("gemm", "xmma", "nvjet", "cutlass")):
         return "matmul"
     if "elementwise" in name:
         return "elementwise"
@@ -1032,22 +1345,28 @@ def _kernel_family(name: str) -> str:
     return "other"
 
 
-def phase_profile(torch, path: str, alg, run, round_s: float):
-    """One more MLP round of ``path`` under ``torch.profiler``: device time
-    of every kernel (kernel events only: ``key_averages`` also credits each
-    kernel's time to the ``aten::`` op that launched it), grouped by family,
-    and its share of the unprofiled round time of that path's phase."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def _mlp_round(alg, run):
+    """One round of an MLP path, for the profiler."""
     from repro_torch.train.fl_trainer import train
 
     theta0, solver, grad_fn = (run[k] for k in ("theta0", "solver",
                                                 "grad_fn"))
+    return lambda: train(alg, theta0, solver, grad_fn, 1, SEED + 2)
+
+
+def phase_profile(torch, path: str, run_once, round_s: float):
+    """One more round of ``path`` (``run_once``) under ``torch.profiler``:
+    device time of every kernel (kernel events only: ``key_averages`` also
+    credits each kernel's time to the ``aten::`` op that launched it),
+    grouped by family, and its share of the unprofiled round time of that
+    path's phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train(alg, theta0, solver, grad_fn, 1, SEED + 2)
+        run_once()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -1125,9 +1444,20 @@ def main() -> int:
         paths["scaleup"] = phase_scaleup(torch, name)
         paths["fused_round"] = phase_fused_round(torch)
         paths["chaos"], chaos_alg, chaos_s = phase_chaos(torch, mlp_run)
-        phase_profile(torch, "mlp", mlp_run["alg"], mlp_run, round_s)
-        phase_profile(torch, "scenario_deepfade", fade_alg, mlp_run, fade_s)
-        phase_profile(torch, "chaos", chaos_alg, mlp_run, chaos_s)
+        phase_profile(torch, "mlp", _mlp_round(mlp_run["alg"], mlp_run),
+                      round_s)
+        phase_profile(torch, "scenario_deepfade",
+                      _mlp_round(fade_alg, mlp_run), fade_s)
+        phase_profile(torch, "chaos", _mlp_round(chaos_alg, mlp_run), chaos_s)
+        # the MLP paths' tensors go before the LLM round's ~60 GB
+        del mlp_run, fade_alg, chaos_alg
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["llm"], llm_round, llm_s = phase_llm(torch)
+        phase_profile(torch, "llm", llm_round, llm_s)
+        del llm_round
+        gc.collect()
+        torch.cuda.empty_cache()
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1

@@ -7,7 +7,7 @@ thing on either side.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -15,10 +15,13 @@ import torch
 from repro_torch.core.admm import AFadmmState
 from repro_torch.core.channel import ChannelBlock
 from repro_torch.core.cplx import Complex
+from repro_torch.core.tree_ota import TreeChannel, TreeFLState
 from repro_torch.device import resolve_device
 from repro_torch.faults.plan import FaultState
 from repro_torch.models.mlp import Unflatten, mlp_unflatten
+from repro_torch.optim.optimizers import OptState
 from repro_torch.phy.scenario import PhyState
+from repro_torch.tree import tree_map
 
 #: leaves of an ``AFadmmState`` as :func:`afadmm_state_from_numpy` takes them
 #: (plus optional ``phys`` and ``flt`` entries under a scenario and a fault
@@ -139,3 +142,51 @@ def mlp_flat_from_numpy(flat: np.ndarray, sizes: Sequence[int],
     dev = resolve_device(device)
     return (torch.tensor(np.asarray(flat, np.float32), device=dev),
             mlp_unflatten(sizes))
+
+
+def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
+    """One array, dtype kept; bfloat16 (``ml_dtypes``, as JAX hands it
+    over) travels as its 16 bits."""
+    dev = resolve_device(device)
+    a = np.array(a, order="C")          # a writable copy; 0-d stays 0-d
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def model_params_from_numpy(tree: Mapping[str, Any], device="cuda"):
+    """A nested dict of arrays (``numpy.asarray`` of each leaf of a JAX
+    parameter tree, e.g. ``transformer.init_params``'s or the LLM trainer's
+    worker-led θ) -> the same dict of tensors, dtypes kept."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), dict(tree))
+
+
+def tree_fl_state_from_numpy(theta: Mapping[str, Any],
+                             Theta: Mapping[str, Any], lam_re: np.ndarray,
+                             lam_im: np.ndarray, h_re: np.ndarray,
+                             h_im: np.ndarray, age: int, step: int = 0,
+                             opt: Optional[Mapping[str, Any]] = None,
+                             device="cuda") -> TreeFLState:
+    """The port's ``TreeFLState`` from the JAX LLM trainer's state: θ
+    (leaves (W, ...)), Θ, the packed (W, D) λ and h planes, the channel's
+    age and the step, and the local optimizer's ``{"mu", "nu", "count"}``
+    (``nu`` None for sgd, whose second moment is the first's object, as in
+    JAX)."""
+    dev = resolve_device(device)
+
+    def f32(a) -> torch.Tensor:
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    state_opt = None
+    if opt is not None:
+        mu = model_params_from_numpy(opt["mu"], dev)
+        nu = mu if opt.get("nu") is None else model_params_from_numpy(
+            opt["nu"], dev)
+        state_opt = OptState(mu=mu, nu=nu, count=int(opt["count"]))
+    return TreeFLState(theta=model_params_from_numpy(theta, dev),
+                       lam=Complex(f32(lam_re), f32(lam_im)),
+                       Theta=model_params_from_numpy(Theta, dev),
+                       chan=TreeChannel(h=Complex(f32(h_re), f32(h_im)),
+                                        age=int(age)),
+                       opt=state_opt, step=int(step))

@@ -1,7 +1,8 @@
 """Synthetic datasets, statistically matched to the paper's tasks.
 
 The same distributions as ``repro/data/synthetic.py`` (20k × 6 housing-style
-regression; 60k/10k 784-dim 10-class images), drawn from the port's own
+regression; 60k/10k 784-dim 10-class images; per-worker skewed token
+streams for the LLM trainer), drawn from the port's own
 generators: the bits differ from the JAX package's, the statistics do not.
 """
 from __future__ import annotations
@@ -61,3 +62,26 @@ def image_dataset(key: int, n_train: int = 60_000, n_test: int = 10_000,
     x_test = protos[y_test] + cluster_std * torch.randn(
         (n_test, dim), generator=gte, device=dev)
     return torch.sigmoid(x_train), y_train, torch.sigmoid(x_test), y_test
+
+
+def token_dataset(key: int, n_sequences: int, seq_len: int, vocab_size: int,
+                  n_workers: int = 1, skew: float = 2.0,
+                  device="cuda") -> Tensor:
+    """Synthetic token streams with per-worker unigram skew (non-IID FL).
+
+    Each worker samples from a Zipf-tempered unigram distribution (logit
+    −skew·log rank) under a worker-specific random permutation of the
+    vocabulary, so local losses genuinely disagree.  Returns
+    (n_workers, n_sequences, seq_len) int32."""
+    dev = resolve_device(device)
+    ranks = torch.arange(1, vocab_size + 1, dtype=torch.float32, device=dev)
+    probs = torch.softmax(-skew * torch.log(ranks), dim=0)
+    out = []
+    for w in range(n_workers):
+        gp, gs = (rng.generator(k, dev) for k in rng.split(rng.fold_in(key, w)))
+        perm = torch.randperm(vocab_size, generator=gp, device=dev)
+        p = probs[torch.argsort(perm)]
+        ids = torch.multinomial(p, n_sequences * seq_len, replacement=True,
+                                generator=gs)
+        out.append(ids.reshape(n_sequences, seq_len))
+    return torch.stack(out).to(torch.int32)

@@ -61,6 +61,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "population_step": [_PTR] * 20 + [_I64, _F32, _F32, _INT, _F32, _F32,
                                           _F32, _F32, _INT, _PTR],
     },
+    "flash_attention": {
+        "flash_attention_fwd": [_PTR] * 5 + [_I64] * 3 + [_INT, _INT, _F32,
+                                                          _INT, _PTR],
+        "flash_attention_dq": [_PTR] * 7 + [_I64] * 3 + [_INT, _INT, _F32,
+                                                         _INT, _PTR],
+        "flash_attention_dkv": [_PTR] * 8 + [_I64] * 3 + [_INT, _INT, _F32,
+                                                          _INT, _PTR],
+    },
 }
 
 #: kernel launches per wrapper name since the last :func:`reset_launches`
@@ -161,6 +169,12 @@ def library(name: str) -> ctypes.CDLL:
 
 def check_cuda_f32(name: str, **tensors: torch.Tensor) -> torch.device:
     """Every tensor is a contiguous float32 CUDA tensor on one device."""
+    return check_cuda(name, (torch.float32,), **tensors)
+
+
+def check_cuda(name: str, dtypes, **tensors: torch.Tensor) -> torch.device:
+    """Every tensor is a contiguous CUDA tensor on one device, of a dtype in
+    ``dtypes``."""
     device = None
     for arg, t in tensors.items():
         if t.device.type != "cuda":
@@ -170,8 +184,9 @@ def check_cuda_f32(name: str, **tensors: torch.Tensor) -> torch.device:
         elif t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, the other "
                              f"operands on {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} has dtype {t.dtype}, want float32")
+        if t.dtype not in dtypes:
+            want = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise ValueError(f"{name}: {arg} has dtype {t.dtype}, want {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous; pass "
                              f"x.contiguous()")

@@ -6,7 +6,8 @@ holds each CUDA kernel against them on the card, and the kernel wrappers
 take them for CPU tensors only.  Counterpart of ``repro/kernels/ref.py``,
 plus a plain receive, masked receive, one-pass round, fading step and
 population step, which the JAX oracle file does not have (the one-pass
-round's oracle there is ``repro/core/transport.py``'s jnp path).
+round's oracle there is ``repro/core/transport.py``'s jnp path), and the
+flash-attention forward with its log-sum-exp residual.
 """
 from __future__ import annotations
 
@@ -162,3 +163,64 @@ def admm_flip_lambda(grad: Tensor, theta: Tensor, Theta_prev: Tensor,
     t = -(grad.float() + rho * h2 * (theta.float() - Theta_prev.float()))
     s = t / torch.clamp_min(h2, 1e-12)
     return h_re * s, h_im * s
+
+
+#: the masked score of the attention kernels (the TPU kernel's NEG_INF)
+NEG_INF = -1e30
+
+
+def _attention_scores(q: Tensor, k: Tensor, causal: bool,
+                      scale: float) -> Tensor:
+    """Masked f32 scores of q (B,H,S,hd) against k (B,H,T,hd)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        S, T = s.shape[-2:]
+        rows = torch.arange(S, device=s.device)[:, None]
+        mask = torch.arange(T, device=s.device)[None, :] <= rows
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
+    return s
+
+
+def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                        scale: Optional[float] = None
+                        ) -> Tuple[Tensor, Tensor]:
+    """Exact softmax attention in f32: ``(o, lse)`` with o in q's dtype and
+    the f32 residual lse = m + log(max(l, 1e-30)) per query row (m the row
+    max of the masked scores, l the sum of exp(s − m)).  q (B,H,S,hd), k/v
+    (B,H,T,hd); causal masks col > row."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    s = _attention_scores(q, k, causal, scale)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    lc = torch.clamp_min(p.sum(dim=-1), 1e-30)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / lc[..., None]
+    return o.to(q.dtype), m + torch.log(lc)
+
+
+def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                        causal: bool = True, scale: Optional[float] = None,
+                        lse: Optional[Tensor] = None,
+                        delta: Optional[Tensor] = None
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Closed-form backward of :func:`flash_attention_fwd` in the residual
+    form of ``repro/kernels/ref.py`` ``attention_vjp``: p, δ = Σ_d do∘o,
+    ds = p∘(dp − δ), f32 accumulation, cotangents in the primal dtypes.
+
+    With the forward's residuals, as the kernels take them, p =
+    exp(s − lse) (0 where masked) and ``delta`` is δ; without them p is the
+    softmax and δ comes from o recomputed in f32."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = _attention_scores(q, k, causal, scale)
+    p = (torch.softmax(s, dim=-1) if lse is None
+         else torch.exp(s - lse[..., None]))
+    del s
+    if delta is None:
+        o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+        delta = torch.sum(dof * o, dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -1,1 +1,6 @@
-"""Models operated as flat parameter vectors."""
+"""Models: the paper's MLP as a flat parameter vector (``mlp``), and the
+transformer LLMs of the registry (``config``, ``registry``, ``layers``,
+``transformer``)."""
+from repro_torch.models.config import ModelConfig  # noqa: F401
+from repro_torch.models.registry import (ARCHS, Model, build_model,  # noqa: F401
+                                         get_config, get_model, list_archs)

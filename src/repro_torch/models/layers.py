@@ -1,0 +1,272 @@
+"""Shared transformer building blocks: norms, RoPE, GQA attention, MLPs.
+Counterpart of ``repro/models/layers.py``, with its names, parameter keys
+and layouts.
+
+Conventions:
+* params are nested dicts of tensors; init functions mirror forward
+  functions 1:1;
+* activations flow in the config dtype (bf16), softmax/norm statistics in
+  f32;
+* every leaf may carry leading dims in front of its own shape (the LLM
+  trainer's worker axis W), and the activations then carry the same leading
+  dims: a dense weight (W, i, o) applies to x (W, ..., i) as
+  ``einsum("w...i,wio->w...o")``, and attention folds W into its batch.
+  The JAX package gets the same by ``vmap`` over workers;
+* full causal attention (S ≥ 16, no window) runs B11, the flash-attention
+  kernels (``kernels/flash_attention.py``); a sliding window, or S < 16,
+  takes the masked-einsum fallback in plain torch.  JAX's query-chunked
+  variant (``optflags`` ``chunked_attn``) and the single-token decode are
+  not ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import rng
+from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+Params = Dict[str, Tensor]
+
+NEG_INF = -1e30
+
+
+def _bcast(t: Tensor, x: Tensor, n_elem: int) -> Tensor:
+    """View of a parameter ``t`` (lead + its n_elem-dim shape) that
+    broadcasts against ``x`` (lead + batch dims + the same trailing dims)."""
+    lead = t.dim() - n_elem
+    if lead == 0:
+        return t
+    extra = x.dim() - t.dim()
+    return t.reshape(t.shape[:lead] + (1,) * extra + t.shape[lead:])
+
+
+def _lead(w: Tensor, n_elem: int) -> int:
+    lead = w.dim() - n_elem
+    if lead not in (0, 1):
+        raise ValueError(f"parameter of shape {tuple(w.shape)}: at most one "
+                         f"leading (worker) dim is supported")
+    return lead
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype, device="cuda") -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype,
+                                device=resolve_device(device))}
+
+
+def rmsnorm(p: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * _bcast(p["scale"], x, 1).float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype, device="cuda") -> Params:
+    dev = resolve_device(device)
+    return {"scale": torch.ones((d,), dtype=dtype, device=dev),
+            "bias": torch.zeros((d,), dtype=dtype, device=dev)}
+
+
+def layernorm(p: Params, x: Tensor, eps: float = 1e-6) -> Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * _bcast(p["scale"], x, 1).float()
+            + _bcast(p["bias"], x, 1).float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """Rotary embedding, split-halves convention. x: (..., S, H, hd);
+    positions: (..., S), broadcasting against x's leading dims."""
+    hd = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                          device=x.device) / hd))
+    angles = positions[..., None].float() * freqs        # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                 # over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense / embedding
+# ---------------------------------------------------------------------------
+
+def dense_init(key: int, d_in: int, d_out: int, dtype, bias: bool = False,
+               scale: Optional[float] = None, device="cuda") -> Params:
+    s = scale if scale is not None else d_in ** -0.5
+    g = rng.generator(key, resolve_device(device))
+    w = torch.randn((d_in, d_out), generator=g, device=g.device) * s
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=g.device)
+    return p
+
+
+def dense(p: Params, x: Tensor) -> Tensor:
+    w = p["w"]
+    if _lead(w, 2):
+        y = torch.einsum("w...i,wio->w...o", x, w)
+    else:
+        y = torch.einsum("...i,io->...o", x, w)
+    if "b" in p:
+        y = y + _bcast(p["b"], y, 1)
+    return y
+
+
+def embedding_init(key: int, vocab: int, d: int, dtype,
+                   device="cuda") -> Params:
+    g = rng.generator(key, resolve_device(device))
+    t = torch.randn((vocab, d), generator=g, device=g.device) * d ** -0.5
+    return {"table": t.to(dtype)}
+
+
+def embed(p: Params, ids: Tensor) -> Tensor:
+    table = p["table"]
+    if _lead(table, 2):
+        w = torch.arange(table.shape[0], device=ids.device)
+        return table[w.reshape((-1,) + (1,) * (ids.dim() - 1)), ids]
+    return table[ids]
+
+
+def unembed(p: Params, x: Tensor) -> Tensor:
+    table = p["table"]
+    if _lead(table, 2):
+        return torch.einsum("w...d,wvd->w...v", x, table)
+    return torch.einsum("...d,vd->...v", x, table)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional sliding window)
+# ---------------------------------------------------------------------------
+
+def attention_init(key: int, cfg: ModelConfig, device="cuda") -> Params:
+    hd = cfg.hd
+    kq, kk, kv, ko = rng.split(key, 4)
+    return {
+        "wq": dense_init(kq, cfg.d_model, cfg.n_heads * hd, cfg.dtype,
+                         bias=cfg.qkv_bias, device=device),
+        "wk": dense_init(kk, cfg.d_model, cfg.n_kv_heads * hd, cfg.dtype,
+                         bias=cfg.qkv_bias, device=device),
+        "wv": dense_init(kv, cfg.d_model, cfg.n_kv_heads * hd, cfg.dtype,
+                         bias=cfg.qkv_bias, device=device),
+        "wo": dense_init(ko, cfg.n_heads * hd, cfg.d_model, cfg.dtype,
+                         device=device),
+    }
+
+
+def _split_heads(x: Tensor, n: int, hd: int) -> Tensor:
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _attn_weights(q: Tensor, k: Tensor, mask: Tensor) -> Tensor:
+    """q: (B,S,KV,G,hd)  k: (B,T,KV,hd)  mask: (S,T) or (B,S,T) ->
+    (B,KV,G,S,T), scores and softmax in f32."""
+    scores = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float())
+    scores = scores * (q.shape[-1] ** -0.5)
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full((), NEG_INF, device=scores.device))
+    return torch.softmax(scores, dim=-1)
+
+
+def causal_mask(s: int, window: Optional[int], device=None) -> Tensor:
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    m = j <= i
+    if window is not None:
+        m = m & (j > i - window)
+    return m
+
+
+def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
+                  window: Optional[int]) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Full-sequence causal attention over x (..., S, d). Returns (out, kv)
+    — kv for prefill."""
+    hd = cfg.hd
+    S = x.shape[-2]
+    lead = x.shape[:-2]
+    n = math.prod(lead)
+    q = _split_heads(dense(p["wq"], x), cfg.n_heads, hd)
+    k = _split_heads(dense(p["wk"], x), cfg.n_kv_heads, hd)
+    v = _split_heads(dense(p["wv"], x), cfg.n_kv_heads, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    g = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(n, S, cfg.n_kv_heads, g, hd)
+    kn = k.reshape(n, S, cfg.n_kv_heads, hd)
+    vn = v.reshape(n, S, cfg.n_kv_heads, hd)
+    if window is None and S >= 16:
+        # B11 (kernels/flash_attention), differentiable through its
+        # autograd.Function.  GQA stays here: KV repeated over the group
+        # (head = kv·g + i), and repeat_interleave's backward sums the k/v
+        # cotangents back over the group.
+        qf = qg.permute(0, 2, 3, 1, 4).reshape(n, cfg.n_heads, S, hd)
+        kf = torch.repeat_interleave(kn.permute(0, 2, 1, 3), g, dim=1)
+        vf = torch.repeat_interleave(vn.permute(0, 2, 1, 3), g, dim=1)
+        of = flash_attention(qf.contiguous(), kf.contiguous(),
+                             vf.contiguous(), causal=True)
+        o = of.reshape(n, cfg.n_kv_heads, g, S, hd).permute(0, 3, 1, 2, 4)
+    else:
+        w = _attn_weights(qg, kn, causal_mask(S, window, x.device))
+        o = torch.einsum("bkgst,btkh->bskgh", w.to(x.dtype), vn)
+    o = o.reshape(lead + (S, cfg.n_heads * hd))
+    return dense(p["wo"], o), {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def _gelu(x: Tensor) -> Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_init(key: int, cfg: ModelConfig, d_ff: Optional[int] = None,
+             device="cuda") -> Params:
+    """mlp_act: "silu" (swiglu) | "geglu" | "gelu_mlp" (plain 2-matrix)."""
+    d_ff = d_ff or cfg.d_ff
+    if cfg.mlp_act in ("silu", "geglu"):  # gated: gate/up/down
+        kg, ku, kd = rng.split(key, 3)
+        return {
+            "gate": dense_init(kg, cfg.d_model, d_ff, cfg.dtype,
+                               device=device),
+            "up": dense_init(ku, cfg.d_model, d_ff, cfg.dtype, device=device),
+            "down": dense_init(kd, d_ff, cfg.d_model, cfg.dtype,
+                               device=device),
+        }
+    ki, ko = rng.split(key)
+    return {
+        "fc_in": dense_init(ki, cfg.d_model, d_ff, cfg.dtype, bias=True,
+                            device=device),
+        "fc_out": dense_init(ko, d_ff, cfg.d_model, cfg.dtype, bias=True,
+                             device=device),
+    }
+
+
+def mlp(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    if "gate" in p:
+        act = F.silu if cfg.mlp_act == "silu" else _gelu
+        h = act(dense(p["gate"], x)) * dense(p["up"], x)
+        return dense(p["down"], h)
+    h = _gelu(dense(p["fc_in"], x))
+    return dense(p["fc_out"], h)

@@ -1,0 +1,96 @@
+"""Dense decoder-only transformer (qwen1.5 / codeqwen / starcoder2 / granite),
+with the layers stacked on a leading ``n_layers`` dim.  Counterpart of
+``repro/models/transformer.py`` (text inputs; no prefill cache, no
+decode).
+
+A Python loop over the stacked layers replaces ``lax.scan``; ``remat=True``
+(JAX's default) checkpoints each layer with
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, so the
+backward pass runs each layer's forward again — B11's forward included.
+Leaves may carry a leading worker dim W in front of ``n_layers``
+(``models/layers.py``); layer ``i`` is then ``leaf[:, i]``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import rng
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map, tree_stack
+
+Tensor = torch.Tensor
+Params = Dict
+
+
+def init_block(key: int, cfg: ModelConfig, device="cuda") -> Params:
+    k1, k2 = rng.split(key)
+    return {
+        "ln1": L.rmsnorm_init(cfg.d_model, cfg.dtype, device),
+        "attn": L.attention_init(k1, cfg, device),
+        "ln2": L.rmsnorm_init(cfg.d_model, cfg.dtype, device),
+        "mlp": L.mlp_init(k2, cfg, device=device),
+    }
+
+
+def block_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
+              window: Optional[int]) -> Tuple[Tensor, Dict[str, Tensor]]:
+    a, kv = L.attention_fwd(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                            cfg, positions, window)
+    x = x + a
+    x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return x, kv
+
+
+def init_params(key: int, cfg: ModelConfig, device="cuda") -> Params:
+    """Random init from an integer key: per-layer leaves stacked on a
+    leading ``n_layers`` dim, as ``jax.vmap(init_block)`` makes them."""
+    if cfg.modality != "text":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.modality} frontend is not ported (ROADMAP "
+            f"queue A item 5)")
+    device = resolve_device(device)
+    ke, kl, _ = rng.split(key, 3)
+    lkeys = [rng.fold_in(kl, i) for i in range(cfg.n_layers)]
+    return {
+        "embed": L.embedding_init(ke, cfg.vocab_size, cfg.d_model, cfg.dtype,
+                                  device),
+        "layers": tree_stack([init_block(k, cfg, device) for k in lkeys]),
+        "final_norm": L.rmsnorm_init(cfg.d_model, cfg.dtype, device),
+    }
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    return L.embed(params["embed"], tokens)
+
+
+def layer_params(params: Params, i: int) -> Params:
+    """Layer ``i`` of the stacked ``params["layers"]`` (views)."""
+    lead = params["embed"]["table"].dim() - 2
+    index = (slice(None),) * lead + (i,)
+    return tree_map(lambda leaf: leaf[index], params["layers"])
+
+
+def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
+               remat: bool = True) -> Tensor:
+    """Full-sequence forward over tokens (..., B, S). Returns logits."""
+    x = _embed_inputs(params, cfg, tokens)
+    S = x.shape[-2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+
+    def block(x_: Tensor, p_: Params) -> Tensor:
+        return block_fwd(p_, x_, cfg, positions, cfg.sliding_window)[0]
+
+    for i in range(cfg.n_layers):
+        layer_p = layer_params(params, i)
+        if remat:
+            x = checkpoint(block, x, layer_p, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = block(x, layer_p)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embed"], x)

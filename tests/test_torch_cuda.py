@@ -10,8 +10,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (admm_update, build, ota,  # noqa: E402
-                                 ota_round, phy_channel, phy_population, ref)
+from repro_torch.kernels import (admm_update, build,  # noqa: E402
+                                 flash_attention, ota, ota_round, phy_channel,
+                                 phy_population, ref)
 
 pytestmark = pytest.mark.cuda
 SHAPES = [(3, 1000), (5, 1025), (8, 4097), (100, 109_386)]
@@ -265,3 +266,209 @@ def test_wrappers_refuse_bad_operands(dev):
         ota_round.ota_round_theta(a, a, a, b, b, z8, 1.0, 0.5)
     with pytest.raises(ValueError, match="shape"):
         ota.ota_demodulate(z8, z8[:4].contiguous(), z8, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# B11 flash attention
+# ---------------------------------------------------------------------------
+
+#: (B, H, S, T): square, ragged S = T, T < S, T > S
+FLASH_SHAPES = [(2, 3, 128, 128), (1, 2, 100, 100), (2, 2, 96, 40),
+                (1, 3, 40, 130)]
+#: f32: the kernels sum in another order than the plain version; bf16: the
+#: outputs are rounded to bf16 (about 4e-3 relative), held to 1e-2
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _flash_inputs(dev, B, H, S, T, hd, dtype, seed=11):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return r(B, H, S, hd), r(B, H, T, hd), r(B, H, T, hd), r(B, H, S, hd)
+
+
+def _flash_close(got, want, dtype):
+    tol = FLASH_TOL[dtype]
+    for a, b in zip(got, want):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                   atol=tol * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("hd", flash_attention.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,T", FLASH_SHAPES)
+def test_flash_kernels(dev, hd, causal, dtype, B, H, S, T):
+    q, k, v, do = _flash_inputs(dev, B, H, S, T, hd, dtype)
+    o, lse = _launched("flash_attention_fwd",
+                       lambda: flash_attention.flash_attention_fwd(
+                           q, k, v, causal))
+    o_ref, lse_ref = ref.flash_attention_fwd(q, k, v, causal)
+    _flash_close([o], [o_ref], dtype)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    delta = flash_attention.attention_delta(o, do)
+    dq = _launched("flash_attention_dq", lambda: flash_attention.
+                   flash_attention_dq(q, k, v, do, lse, delta, causal))
+    dk, dv = _launched("flash_attention_dkv", lambda: flash_attention.
+                       flash_attention_dkv(q, k, v, do, lse, delta, causal))
+    want = ref.flash_attention_bwd(q, k, v, do, causal, lse=lse, delta=delta)
+    for a, b in zip((dq, dk, dv), want):
+        assert a.dtype == dtype and a.shape == b.shape
+    _flash_close((dq, dk, dv), want, dtype)
+
+
+def test_flash_kernels_bitwise_repeatable_and_counted(dev):
+    q, k, v, do = _flash_inputs(dev, 2, 4, 300, 300, 64, torch.bfloat16)
+    build.reset_launches()
+    o1, l1 = flash_attention.flash_attention_fwd(q, k, v)
+    o2, l2 = flash_attention.flash_attention_fwd(q, k, v)
+    delta = flash_attention.attention_delta(o1, do)
+    g1 = flash_attention.flash_attention_bwd(q, k, v, o1, l1, do)
+    g2 = flash_attention.flash_attention_bwd(q, k, v, o1, l1, do)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert dict(build.launches) == {"flash_attention_fwd": 2,
+                                    "flash_attention_dq": 2,
+                                    "flash_attention_dkv": 2}
+    assert delta.dtype == torch.float32
+
+
+def test_flash_autograd_matches_plain_backward(dev):
+    q, k, v, do = _flash_inputs(dev, 2, 2, 200, 200, 32, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention.flash_attention(*leaves)
+    out.backward(do)
+    want = ref.flash_attention_bwd(q, k, v, do)
+    _flash_close([t.grad for t in leaves], want, torch.float32)
+    _flash_close([out], [ref.flash_attention_fwd(q, k, v)[0]], torch.float32)
+
+
+def test_flash_wrappers_refuse_bad_operands(dev):
+    q, k, v, do = _flash_inputs(dev, 1, 2, 64, 64, 32, torch.float32)
+    with pytest.raises(ValueError, match="want cuda"):
+        flash_attention.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention.flash_attention_fwd(q, k.bfloat16(), v)
+    q48 = torch.zeros(1, 2, 64, 48, device=dev)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention.flash_attention_fwd(q48, q48, q48)
+    with pytest.raises(ValueError, match="not contiguous"):
+        flash_attention.flash_attention_fwd(q.transpose(2, 3), k, v)
+    lse = torch.zeros(1, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention.flash_attention_dq(q, k, v, do,
+                                           torch.zeros(1, 2, 10, device=dev),
+                                           lse, True)
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention.flash_attention_dkv(q, k, v, do, lse.double(), lse)
+
+
+# ---------------------------------------------------------------------------
+# B11 on the LLM path: GQA attention and one trainer round
+# ---------------------------------------------------------------------------
+
+def _tree_to(tree, dev):
+    """A copy of ``tree`` on ``dev`` whose leaves are new autograd leaves."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().to(dev), tree)
+
+
+def test_gqa_attention_grads_match_the_plain_path(dev):
+    """4 heads over 2 KV heads (hd 16), S = 64, f32: forward and grads
+    w.r.t. params and x on the card (B11) against the CPU (B11's plain
+    version); summation order only."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=64,
+                      param_dtype="float32")
+    params = L.attention_init(3, cfg, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((2, 64, 64), generator=g)
+    cot = torch.randn((2, 64, 64), generator=g)
+    results = []
+    for d in (torch.device("cpu"), dev):
+        p = _tree_to(params, d)
+        for leaf in tree_leaves(p):
+            leaf.requires_grad_()
+        xx = x.detach().to(d).requires_grad_()
+        build.reset_launches()
+        out, _ = L.attention_fwd(p, xx, cfg, torch.arange(64, device=d), None)
+        (out * cot.to(d)).sum().backward()
+        results.append((out.detach().cpu(), xx.grad.cpu(),
+                        [leaf.grad.cpu() for leaf in tree_leaves(p)],
+                        dict(build.launches)))
+    (o0, x0, g0, l0), (o1, x1, g1, l1) = results
+    assert not l0
+    assert l1 == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
+                  "flash_attention_dkv": 1}
+    torch.testing.assert_close(o1, o0, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(x1, x0, rtol=1e-4, atol=1e-4)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_reduced_granite_train_step_matches_the_cpu(dev):
+    """One replicated-mode round of reduced granite-8b in f32 (W = 4, B = 2,
+    S = 16, 2 local steps) on the card against the CPU's plain path from
+    the same state and draws.  Σ|h|² divides Θ (Eq. 24), amplifying
+    summation-order differences where it is small: rtol/atol 1e-4."""
+    import dataclasses
+
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import registry as reg
+    from repro_torch.train.llm_trainer import (FLConfig, draw_round,
+                                               make_fl_train)
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(reg.get_config("granite-8b").reduced(),
+                              param_dtype="float32")
+    model = reg.build_model(cfg)
+    W = 4
+    flcfg = FLConfig(n_workers=W, local_steps=2, local_lr=1e-2)
+    acfg = AdmmConfig(rho=0.5, flip_on_change=False)
+    ccfg = ChannelConfig(n_workers=W, snr_db=40.0)
+    init_cpu, step_cpu = make_fl_train(model, flcfg, acfg, ccfg,
+                                       device="cpu")
+    _, step_gpu = make_fl_train(model, flcfg, acfg, ccfg)
+    st = init_cpu(0)
+    draws = draw_round(7, st, ccfg)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (W, 2, 16), generator=g,
+                           dtype=torch.int32)
+    want, m_cpu = step_cpu(st, {"tokens": tokens}, draws=draws)
+    st_gpu = st._replace(theta=_tree_to(st.theta, dev),
+                         Theta=_tree_to(st.Theta, dev),
+                         lam=type(st.lam)(st.lam.re.to(dev),
+                                          st.lam.im.to(dev)),
+                         chan=st.chan._replace(h=type(st.chan.h)(
+                             st.chan.h.re.to(dev), st.chan.h.im.to(dev))),
+                         opt=st.opt._replace(mu=_tree_to(st.opt.mu, dev),
+                                             nu=_tree_to(st.opt.mu, dev)))
+    build.reset_launches()
+    got, m_gpu = step_gpu(st_gpu, {"tokens": tokens.to(dev)},
+                          draws=draws._replace(
+                              noise_re=draws.noise_re.to(dev)))
+    torch.cuda.synchronize()
+    assert dict(build.launches) == {
+        "flash_attention_fwd": 8, "flash_attention_dq": 4,
+        "flash_attention_dkv": 4, "ota_round_stats": 1,
+        "ota_demodulate_dyn": 1, "admm_dual_update": 1}
+    tol = dict(rtol=1e-4, atol=1e-4)
+    for k in ("loss", "theta_drift", "inv_alpha"):
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], **tol)
+    for a, b in zip(tree_leaves(got.theta) + tree_leaves(got.Theta),
+                    tree_leaves(want.theta) + tree_leaves(want.Theta)):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    torch.testing.assert_close(got.lam.re.cpu(), want.lam.re, **tol)
+    torch.testing.assert_close(got.lam.im.cpu(), want.lam.im, **tol)

@@ -74,12 +74,34 @@ def _no_cuda():
         pytest.skip("CUDA is present; the default device would work")
 
 
+def _llm_trainer():
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import get_model
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+    return make_fl_train(get_model("granite-8b", reduced=True),
+                         FLConfig(n_workers=2), AdmmConfig(),
+                         ChannelConfig(n_workers=2))
+
+
 def _entry_points():
     from repro_torch import convert
     from repro_torch.data.federated import split_iid
-    from repro_torch.data.synthetic import image_dataset, linreg_dataset
+    from repro_torch.data.synthetic import (image_dataset, linreg_dataset,
+                                            token_dataset)
+    from repro_torch.models import get_model, transformer
     from repro_torch.models.mlp import init_mlp_flat
+    z = np.zeros((1, 1), np.float32)
     return {
+        "token_dataset": lambda: token_dataset(0, 1, 4, 8),
+        "make_fl_train": _llm_trainer,
+        "Model.init": lambda: get_model("granite-8b", reduced=True).init(0),
+        "transformer.init_params": lambda: transformer.init_params(
+            0, get_model("granite-8b", reduced=True).cfg),
+        "model_params_from_numpy": lambda: convert.model_params_from_numpy(
+            {"w": z}),
+        "tree_fl_state_from_numpy": lambda: convert.tree_fl_state_from_numpy(
+            {"w": z}, {"w": z[0]}, z, z, z, z, 0),
         "linreg_dataset": lambda: linreg_dataset(0, n_samples=10),
         "image_dataset": lambda: image_dataset(0, 10, 10, dim=4),
         "split_iid": lambda: split_iid(0, 10, 2),
@@ -98,11 +120,29 @@ def _entry_points():
 @pytest.mark.parametrize("name", sorted(
     ["linreg_dataset", "image_dataset", "split_iid", "init_mlp_flat",
      "mlp_flat_from_numpy", "afadmm_state_from_numpy",
-     "phy_state_from_numpy", "fault_state_from_numpy"]))
+     "phy_state_from_numpy", "fault_state_from_numpy", "token_dataset",
+     "make_fl_train", "Model.init", "transformer.init_params",
+     "model_params_from_numpy", "tree_fl_state_from_numpy"]))
 def test_entry_point_without_device_raises_without_cuda(name):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points()[name]()
+
+
+def test_llm_entry_points_default_to_the_card():
+    import inspect
+
+    from repro_torch import convert
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.models import layers, transformer
+    from repro_torch.train.llm_trainer import make_fl_train, make_replicated
+    for fn in (make_fl_train, make_replicated, token_dataset,
+               convert.model_params_from_numpy,
+               convert.tree_fl_state_from_numpy, transformer.init_params,
+               transformer.init_block, layers.dense_init,
+               layers.embedding_init, layers.attention_init, layers.mlp_init,
+               layers.rmsnorm_init, layers.layernorm_init):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_chip_smoke_fails_without_a_card():
