@@ -11,18 +11,24 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 3. kernels — at the paper MLP's full width (W = 100 workers, d = 109,386)
              and at the other shapes the paths give a kernel (the fading
              step on (100, 1) planes; the population kernel at N = 10⁶ and
-             65,536 workers; the one-pass round at (65,536, 32); the LLM
-             round's B6, dual update and demodulation at (2, 637,554,688)
-             and (637,554,688,); flash attention B11 — forward,
+             65,536 workers; the one-pass round at (65,536, 32); each LLM
+             round's B6, dual update and demodulation at its (W, D) and
+             (D,), D from the path's config: granite-8b's 637,554,688,
+             falcon-mamba-7b's 476,967,488 and the reduced hybrid's
+             568,192; flash attention B11 — forward,
              dq, dk/dv — at the LLM round's (2, 32, 4096, 128) in bf16 and
-             on two ragged f32 cases), in each mode a path uses, each CUDA
-             kernel against its plain PyTorch version on the same inputs,
-             with its device time (``ms``, median of CUDA-event timings
-             behind a GPU spin), its time with the host's launch
-             (``ms_with_launch``), the plain version's times, its bound
-             (bytes over the card's memory rate, or operations over the
-             card's rate for their type, whichever is larger) and, for B11,
-             SDPA's time (``library_ms``).
+             on two ragged f32 cases; the gated linear scan B12 — forward
+             and backward — at the SSM round's (2, 4,096, 131,072), the
+             hybrid's full-width (2, 4,096, 2,560), the hybrid path's
+             (4, 128, 128) and a ragged (3, 1,000, 100); the accumulate
+             B13 at d = 109,386), in each
+             mode a path uses, each CUDA kernel against its plain PyTorch
+             version on the same inputs, with its device time (``ms``,
+             median of CUDA-event timings behind a GPU spin), its time with
+             the host's launch (``ms_with_launch``), the plain version's
+             times, its bound (bytes over the card's memory rate, or
+             operations over the card's rate for their type, whichever is
+             larger) and, for B11, SDPA's time (``library_ms``).
 4. mlp     — the main path: the paper's 784-128-64-10 MLP, 100 workers,
              4096 subcarriers, 20 local Adam steps per round, trained for 5
              rounds through ``make("afadmm", ...)`` and ``train``.
@@ -48,14 +54,28 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 11. profile — one more round of phases 4, 7 and 10 each under
              torch.profiler: device time by kernel family, its share of the
              phase's round time, and the guarded uplink's span.
-12. llm    — the federated LLM trainer's replicated mode
+12. accumulate — the worker-at-a-time receive at the paper MLP's width
+             (W = 100, d = 109,386): ``transport.ota_accumulate`` (B13) once
+             per worker, then ``ota_receive_accumulated`` (one B3), held
+             against the stacked receive (B2) on the same draws.
+13. llm    — the federated LLM trainer's replicated mode
              (``make_fl_train`` / ``train_step``) on granite-8b at full
              width (d_model 4096, 32/8 heads of 128, d_ff 14,336, vocabulary
              49,152, bf16) with 2 of its 36 layers: 2 workers, 1 × 4,096
              tokens each, 2 local sgd steps at lr 5e-4, 3 rounds; then one
              more round under torch.profiler.
+14. llm_ssm — the same trainer on falcon-mamba-7b at full width (d_model
+             4096, d_inner 8,192, state 16, dt rank 256, conv 4, vocabulary
+             65,024, bf16) with 2 of its 64 layers: 2 workers, 1 × 4,096
+             tokens each, 2 local sgd steps, 3 rounds; then one more round
+             under torch.profiler.
+15. llm_hybrid — the same trainer on recurrentgemma-2b at its reduced
+             widths (one super-block: rec, rec, windowed attention) in f32,
+             2 workers, 3 rounds on the card and the same rounds on the CPU
+             from the same state and draws: losses to rtol 1e-5, Θ to atol
+             1e-5.
 
-Launch counts are reset just before each of phases 4–10 and 12 and read
+Launch counts are reset just before each of phases 4–10 and 12–15 and read
 just after.  Then come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
@@ -66,6 +86,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -88,7 +109,14 @@ class SmokeFailure(Exception):
     pass
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``t_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -417,6 +445,14 @@ def phase_kernels(torch, card):
          lambda: ota.ota_demodulate(y_vec, noise, p2_vec, 1.0),
          lambda: ref.ota_demodulate(y_vec, noise, p2_vec, 1.0),
          4 * vec_b, 4 * d, (1e-6, 1e-7), [d], {}),
+        # one worker's term into the running sums: six (d,) planes in, two
+        # out; rounded as the plain version rounds
+        ("ota_accumulate", "src/repro/kernels/ota.py:171", "ota",
+         lambda: ota.ota_accumulate(y_vec, p2_vec, s_re[0], s_im[0],
+                                    h_re[0], h_im[0]),
+         lambda: ref.ota_accumulate(y_vec, p2_vec, s_re[0], s_im[0],
+                                    h_re[0], h_im[0]),
+         8 * vec_b, 6 * d, (0.0, 0.0), [d], {}),
     ]
     cases = [c if len(c) >= 10 else (*c, [W, d], {}) for c in cases]
     results = {}
@@ -424,8 +460,11 @@ def phase_kernels(torch, card):
         row = _kernel_row(torch, build, mem_rate, f32_rate, *case)
         results[row["name"]] = row
     del cases
-    results.update(_llm_round_rows(torch, build, mem_rate, f32_rate))
+    for W, d in _llm_round_shapes():
+        results.update(_llm_round_rows(torch, build, mem_rate, f32_rate, W,
+                                       d))
     results.update(_flash_rows(torch, build, card))
+    results.update(_scan_rows(torch, build, mem_rate, f32_rate))
     return results
 
 
@@ -485,32 +524,41 @@ def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
     return row
 
 
-#: the LLM round's packed width: granite-8b at 2 layers (phase ``llm``)
-LLM_D = 637_554_688
+def _llm_round_shapes():
+    """(W, D) of the packed round of each LLM path, D from the path's own
+    config: granite-8b (``llm``, W·D = 1.28·10⁹, near 2³¹), falcon-mamba-7b
+    (``llm_ssm``, whose D is not a multiple of B6's 128-column tiles) and
+    the reduced hybrid (``llm_hybrid``)."""
+    from repro_torch.models.registry import packed_param_count
+
+    return [(LLM_WORKERS, packed_param_count(_llm_cfg(arch, n_layers)))
+            for arch, n_layers in ((LLM_ARCH, LLM_LAYERS),
+                                   (SSM_ARCH, SSM_LAYERS))] + [
+        (HYBRID_WORKERS, packed_param_count(_hybrid_cfg()))]
 
 
-def _llm_round_rows(torch, build, mem_rate, f32_rate):
-    """The OTA kernels of the LLM round at its shape, W = 2 by D =
-    637,554,688 (W·D = 1.28·10⁹, near 2³¹): B6 and B4 on the same five
-    (2, D) planes (25.5 GB) and Θ, then B3 on three (D,) vectors; each set
-    is freed when its rows are done."""
+def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
+    """The OTA kernels of an LLM round at its (W, D): B6 and B4 on the same
+    five (W, D) planes (25.5 GB at granite's) and Θ, then B3 on three (D,)
+    vectors; each set is freed when its rows are done."""
     from repro_torch import rng
     from repro_torch.kernels import admm_update, ota, ota_round, ref
 
     dev = torch.device("cuda")
     gen = rng.generator(SEED + 13, dev)
-    W, d = 2, LLM_D
     shape = [W, d]
+    label = f"[({W}, {d:,})]"
     theta, lam_re, lam_im, h_re, h_im = (
         torch.randn((W, d), generator=gen, device=dev)
         * (0.05 if i == 0 else math.sqrt(0.5)) for i in range(5))
     Theta = torch.randn(d, generator=gen, device=dev) * 0.05
     rows = {}
     # y/p2 sum two workers (the same two terms in either order); the energy
-    # sums 637.6 M terms, which the kernel groups in 128-column tiles and a
-    # lane-strided finalize over ~5 M partials: held by rtol 1e-4
+    # sums up to 637.6 M terms, which the kernel groups in 128-column tiles
+    # (the last one ragged where D is no multiple of 128) and a
+    # lane-strided finalize over up to ~5 M partials: held by rtol 1e-4
     rows["b6"] = _kernel_row(
-        torch, build, mem_rate, f32_rate, "ota_round_stats[(2, 637,554,688)]",
+        torch, build, mem_rate, f32_rate, "ota_round_stats" + label,
         "src/repro/kernels/ota_round.py:203", "ota_round",
         lambda: ota_round.ota_round_stats(theta, lam_re, lam_im, h_re, h_im,
                                           0.5),
@@ -518,8 +566,7 @@ def _llm_round_rows(torch, build, mem_rate, f32_rate):
         4 * (W * d * 5 + 2 * d + W), 18 * W * d, (1e-4, 1e-4), shape, {})
     # elementwise: five planes and Θ in, two planes out, as at (100, 109,386)
     rows["b4"] = _kernel_row(
-        torch, build, mem_rate, f32_rate,
-        "admm_dual_update[(2, 637,554,688)]",
+        torch, build, mem_rate, f32_rate, "admm_dual_update" + label,
         "src/repro/kernels/admm_update.py:42", "admm_update",
         lambda: admm_update.admm_dual_update(lam_re, lam_im, h_re, h_im,
                                              theta, Theta, 0.5),
@@ -535,7 +582,8 @@ def _llm_round_rows(torch, build, mem_rate, f32_rate):
     p2 = torch.rand(d, generator=gen, device=dev) * W
     ia = torch.tensor(0.37, device=dev)
     rows["b3"] = _kernel_row(
-        torch, build, mem_rate, f32_rate, "ota_demodulate_dyn[(637,554,688)]",
+        torch, build, mem_rate, f32_rate,
+        f"ota_demodulate_dyn[({d:,})]",
         "src/repro/kernels/ota.py:147", "ota",
         lambda: ota.ota_demodulate_dyn(y, noise, p2, ia),
         lambda: ref.ota_demodulate_dyn(y, noise, p2, ia),
@@ -642,6 +690,65 @@ def _flash_rows(torch, build, card):
             rows[row["name"]] = row
         del q, k, v, do, o, lse, delta, leaves, sdpa_out
     torch.cuda.empty_cache()
+    return rows
+
+
+def _scan_cases():
+    """B12 rows: (label, B, S, D), from the paths' configs.  The SSM
+    round's planes (``llm_ssm``: W·B sequences of its tokens by
+    d_inner·ssm_state channels), the hybrid's at full width
+    (recurrentgemma-2b's lru_width at the granite path's W·B and S), the
+    ``llm_hybrid`` path's reduced ones, and a ragged case."""
+    from repro_torch.models import get_config
+
+    ssm_cfg = get_config(SSM_ARCH)
+    full, reduced = get_config(HYBRID_ARCH), _hybrid_cfg()
+    return [("", LLM_WORKERS, SSM_SEQ, ssm_cfg.d_inner * ssm_cfg.ssm_state),
+            ("[hybrid ({}, {}, {})]", LLM_WORKERS, LLM_SEQ, full.lru_width),
+            ("[hybrid path ({}, {}, {})]", HYBRID_WORKERS * HYBRID_BATCH,
+             HYBRID_SEQ, reduced.lru_width),
+            ("[ragged ({}, {}, {})]", 3, 1000, 100)]
+
+
+def _scan_rows(torch, build, mem_rate, f32_rate):
+    """B12's forward and backward against their plain versions (sequential
+    loops that round each step as the kernels do) on gates in (0, 1), as
+    exp(dt·A) gives them.  Bytes: the forward needs a_1 … a_{S−1} (h_0 =
+    b_0), all of b, and writes h; the backward needs a_1 … a_{S−1},
+    h_0 … h_{S−2} and all of dh, and writes g = db and da.  No single
+    PyTorch call computes a linear recurrence: ``library_ms`` is null.
+    Both kernels are held to the plain versions' bits (tolerance 0)."""
+    from repro_torch import rng
+    from repro_torch.kernels import linear_scan as ls, ref
+
+    dev = torch.device("cuda")
+    rows = {}
+    for label, B, S, D in _scan_cases():
+        label = label.format(B, S, D)
+        gen = rng.generator(SEED + 19, dev)
+        a = torch.sigmoid(2.0 * torch.randn((B, S, D), generator=gen,
+                                            device=dev))
+        b = torch.randn((B, S, D), generator=gen, device=dev)
+        dh = torch.randn((B, S, D), generator=gen, device=dev)
+        h = ls.linear_scan_fwd(a, b)
+        n, n1 = B * S * D, B * (S - 1) * D
+        specs = [
+            ("linear_scan_fwd", lambda: ls.linear_scan_fwd(a, b),
+             lambda: ref.linear_scan(a, b), 4 * (n1 + 2 * n), 2 * n1),
+            ("linear_scan_bwd", lambda: ls.linear_scan_bwd(a, h, dh),
+             lambda: ref.linear_scan_bwd(a, h, dh), 4 * (2 * n1 + 3 * n),
+             2 * n1 + n),
+        ]
+        for fn_name, kernel, plain, nbytes, flops in specs:
+            row = _kernel_row(
+                torch, build, mem_rate, f32_rate, fn_name + label,
+                "src/repro/kernels/linear_scan.py:60", "linear_scan", kernel,
+                plain, nbytes, flops, (0.0, 0.0), [B, S, D],
+                {"library": "none: no PyTorch call computes a linear "
+                 "recurrence"})
+            rows[row["name"]] = row
+        del a, b, dh, h
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1093,6 +1200,67 @@ def phase_fused_round(torch):
     return path_launches
 
 
+def phase_accumulate(torch, card):
+    """The worker-at-a-time receive at the paper MLP's width (W = 100,
+    d = 109,386): ``transport.ota_accumulate`` (B13) once per worker into
+    the running sums, then ``ota_receive_accumulated`` (B3 with α⁻¹ on the
+    device), against the stacked ``receive`` (B2) on the same signals,
+    channel and noise plane, as ``tests/test_transport.py``'s accumulated
+    receive does.  The launches are gated: 100 B13 and one demodulate."""
+    from repro_torch import rng
+    from repro_torch.core import transport
+    from repro_torch.core.channel import ChannelConfig, rayleigh
+    from repro_torch.core.cplx import Complex
+    from repro_torch.kernels import build
+
+    _, (mem_rate, _, _) = card_peaks(card)
+    dev = torch.device("cuda")
+    W, d = W_FULL, 109_386
+    gen = rng.generator(SEED + 23, dev)
+    ccfg = ChannelConfig(n_workers=W, snr_db=20.0)
+    theta = torch.randn((W, d), generator=gen, device=dev)
+    lam = rayleigh(gen, (W, d))
+    h = rayleigh(gen, (W, d))
+    s = transport.modulate(theta, lam, h, 0.5)
+    noise = transport.matched_filter_noise_re(gen, (d,), ccfg)
+    ia = torch.tensor(0.7, device=dev)
+    want = transport.receive(s, h, noise, ia)
+
+    def accumulated():
+        acc = transport.ota_accumulate_init((d,))
+        for w in range(W):
+            acc = transport.ota_accumulate(acc, Complex(s.re[w], s.im[w]),
+                                           Complex(h.re[w], h.im[w]))
+        return transport.ota_receive_accumulated(acc, noise, ia)
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    got = accumulated()
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    want_launches = {"ota_accumulate": W, "ota_demodulate_dyn": 1}
+    require(launches == want_launches, f"accumulate: launches {launches}, "
+            f"want {want_launches}")
+    require(bool(torch.isfinite(got).all()), "accumulate: non-finite Θ")
+    # both sum the 100 workers in order; B2's compiled loop may contract
+    # y += h·s into multiply-adds, B13 rounds each product and sum
+    t_abs, t_ratio = _max_err([got], [want], 1e-5, 1e-6)
+    require(t_ratio <= 1.0, f"accumulate: Θ differs from the stacked "
+            f"receive by {t_abs} ({t_ratio} of rtol 1e-5, atol 1e-6)")
+    acc_ms = time_ms(torch, accumulated)
+    recv_ms = time_ms(torch, lambda: transport.receive(s, h, noise, ia))
+    emit({"phase": "accumulate", "ok": True, "W": W, "d": d,
+          "theta_max_abs_err": t_abs, "theta_err_over_tol": t_ratio,
+          "rtol": 1e-5, "atol": 1e-6,
+          "accumulated_ms": acc_ms, "stacked_receive_ms": recv_ms,
+          "accumulated_ms_with_launch": time_ms(torch, accumulated,
+                                                spin=False),
+          "accumulated_bytes": W * 8 * 4 * d + 4 * 4 * d,
+          "accumulated_bound_ms": (W * 8 * 4 * d + 4 * 4 * d) / mem_rate
+          * 1e3, "launches": launches})
+    return launches
+
+
 def _crash_schedule(n_workers: int):
     """The last 25 workers (75–99 of 100) crash, five a round over rounds
     2–6."""
@@ -1223,6 +1391,7 @@ def phase_chaos(torch, run):
 
 #: phase ``llm``: granite-8b at full width, depth cut 36 -> 2 (the round's
 #: (W, D) f32 planes of λ and h alone take 16 bytes a parameter per worker)
+LLM_ARCH = "granite-8b"
 LLM_LAYERS, LLM_WORKERS, LLM_SEQ, LLM_ROUNDS = 2, 2, 4096, 3
 #: local sgd step.  The reduced models' 1e-2 overshoots at full width (the
 #: loss of rounds 1 -> 3 went 10.39 -> 16.16 on an H100), and so does 1e-3
@@ -1237,32 +1406,63 @@ LLM_LAUNCHES = {"flash_attention_fwd": 2 * LLM_LAYERS * 2,
                 "ota_round_stats": 1, "ota_demodulate_dyn": 1,
                 "admm_dual_update": 1, "ota_modulate": 0, "ota_receive": 0,
                 "ota_round_theta": 0}
+#: phase ``llm_ssm``: falcon-mamba-7b at full width, depth cut 64 -> 2, at
+#: the granite path's 4,096 tokens a worker: the scan's f32 (W·B, S,
+#: d_inner·n) planes are 4.3 GB each; the round peaks at 55.5 GB on an H100
+SSM_ARCH, SSM_LAYERS, SSM_SEQ = "falcon-mamba-7b", 2, LLM_SEQ
+#: 5e-4 falls every round of six, as 1e-3 and 2.5e-4 do; 1e-4 rises in
+#: round 2 (``tools/sweep_llm_lr.py --arch falcon-mamba-7b``)
+SSM_LR = 5e-4
+#: each layer's B12 forward runs twice a local step (the checkpoint's
+#: recompute), its backward once; no attention
+SSM_LAUNCHES = {"linear_scan_fwd": 2 * SSM_LAYERS * 2,
+                "linear_scan_bwd": SSM_LAYERS * 2,
+                "ota_round_stats": 1, "ota_demodulate_dyn": 1,
+                "admm_dual_update": 1, "flash_attention_fwd": 0,
+                "ota_modulate": 0, "ota_receive": 0, "ota_round_theta": 0}
 
 
-def phase_llm(torch):
-    """The federated LLM trainer's replicated mode (``make_fl_train`` /
-    ``train_step``) on granite-8b at full width with 2 of its 36 layers, in
-    bf16: W = 2 workers, per-worker batch 1 × 4,096 tokens, 2 local sgd
-    steps, 3 rounds.  Returns (launches, a one-round callable for the
-    profiler, s/round)."""
+def _llm_cfg(arch: str, n_layers: int):
+    """``arch`` at full width, cut to ``n_layers``."""
     import dataclasses
 
+    from repro_torch.models import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=n_layers)
+
+
+def _check_packed_d(phase: str, cfg, d: int) -> None:
+    from repro_torch.models.registry import (analytic_param_count,
+                                             packed_param_count)
+
+    require(d == packed_param_count(cfg), f"{phase}: {d} parameters packed, "
+            f"the analytic count is {analytic_param_count(cfg)} and "
+            f"{packed_param_count(cfg)} with norm scales and biases")
+
+
+def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
+              lr: float, want_launches: dict):
+    """The federated LLM trainer's replicated mode (``make_fl_train`` /
+    ``train_step``) on ``arch`` at full width with ``n_layers`` of its
+    layers, in bf16: W = 2 workers, per-worker batch 1 × ``seq`` tokens, 2
+    local sgd steps at ``lr``, 3 rounds.  Returns (launches, a one-round
+    callable for the profiler, s/round)."""
     from repro_torch import rng
     from repro_torch.core.admm import AdmmConfig
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.data.synthetic import token_dataset
     from repro_torch.kernels import build
-    from repro_torch.models import build_model, get_model
+    from repro_torch.models import build_model, get_config
     from repro_torch.train.llm_trainer import FLConfig, make_fl_train
     from repro_torch.tree import tree_leaves
 
-    full = get_model("granite-8b").cfg
-    cfg = dataclasses.replace(full, n_layers=LLM_LAYERS)
+    full = get_config(arch)
+    cfg = _llm_cfg(arch, n_layers)
     model = build_model(cfg)
-    W, B, S = LLM_WORKERS, 1, LLM_SEQ
+    W, B, S = LLM_WORKERS, 1, seq
     local_steps = 2
     flcfg = FLConfig(mode="replicated", n_workers=W, local_steps=local_steps,
-                     local_lr=LLM_LR, local_optimizer="sgd")
+                     local_lr=lr, local_optimizer="sgd")
     acfg = AdmmConfig(rho=0.5, flip_on_change=False)
     ccfg = ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=10)
     t0 = time.perf_counter()
@@ -1273,11 +1473,7 @@ def phase_llm(torch):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     d = sum(leaf[0].numel() for leaf in tree_leaves(state.theta))
-    require(d == LLM_D, f"granite-8b at {LLM_LAYERS} layers packs {d} "
-            f"parameters, want {LLM_D}")
-    norms = (2 * LLM_LAYERS + 1) * cfg.d_model
-    require(d == cfg.param_count() + norms, f"{d} parameters, the analytic "
-            f"count is {cfg.param_count()} plus {norms} norm scales")
+    _check_packed_d(phase, cfg, d)
 
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
@@ -1290,28 +1486,34 @@ def phase_llm(torch):
         losses.append(float(m["loss"]))
         drifts.append(float(m["theta_drift"]))
         inv_alphas.append(float(m["inv_alpha"]))
-        require(math.isfinite(losses[-1]), f"llm: round {r} loss "
+        require(math.isfinite(losses[-1]), f"{phase}: round {r} loss "
                 f"{losses[-1]} is not finite")
     launches = dict(build.launches)
     peak = torch.cuda.max_memory_allocated()
-    _per_round(launches, LLM_ROUNDS, LLM_LAUNCHES)
-    require(losses[-1] < losses[0], f"llm: round {LLM_ROUNDS} loss "
+    _per_round(launches, LLM_ROUNDS, want_launches)
+    require(losses[-1] < losses[0], f"{phase}: round {LLM_ROUNDS} loss "
             f"{losses[-1]} is not below round 1's {losses[0]} (losses "
             f"{losses}, s/round {times}, peak {peak / 1e9} GB)")
     require(all(math.isfinite(x) for x in drifts + inv_alphas),
-            f"llm: non-finite theta_drift {drifts} or inv_alpha "
+            f"{phase}: non-finite theta_drift {drifts} or inv_alpha "
             f"{inv_alphas}")
     require(all(bool(torch.isfinite(leaf).all())
-                for leaf in tree_leaves(state.Theta)), "llm: non-finite Θ")
+                for leaf in tree_leaves(state.Theta)), f"{phase}: non-finite "
+            f"Θ")
     round_s = statistics.mean(times[1:])
     tokens_per_round = W * B * S * local_steps
-    emit({"phase": "llm", "ok": True, "arch": cfg.name,
-          "reduced": {"n_layers": f"{full.n_layers} -> {LLM_LAYERS}"},
-          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
-          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
-          "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+    widths = {"dense": ("d_model", "n_heads", "n_kv_heads", "hd", "d_ff",
+                        "vocab_size"),
+              "ssm": ("d_model", "d_inner", "ssm_state", "dt_rank",
+                      "conv1d_width", "vocab_size")}[cfg.family]
+    reduced = {"n_layers": f"{full.n_layers} -> {n_layers}"}
+    if seq != LLM_SEQ:
+        reduced["seq"] = f"{LLM_SEQ} (the granite path's) -> {seq}"
+    emit({"phase": phase, "ok": True, "arch": cfg.name, "reduced": reduced,
+          **{("head_dim" if k == "hd" else k): getattr(cfg, k)
+             for k in widths},
           "dtype": cfg.param_dtype, "D": d, "W": W, "batch_per_worker": B,
-          "seq": S, "local_steps": local_steps, "local_lr": LLM_LR,
+          "seq": S, "local_steps": local_steps, "local_lr": lr,
           "rounds": LLM_ROUNDS,
           "setup_s": setup_s, "round_s": times,
           "seconds_per_round": round_s,
@@ -1327,9 +1529,109 @@ def phase_llm(torch):
     return launches, one_round, round_s
 
 
+#: phase ``llm_hybrid``: recurrentgemma-2b reduced, in f32 so the card can
+#: be held to the CPU; 128 tokens run past its 64-token attention window
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_WORKERS, HYBRID_BATCH, HYBRID_SEQ, HYBRID_LR = 2, 2, 128, 1e-2
+#: the rec layers of the one checkpointed super-block: B12 forward twice a
+#: local step, backward once; the windowed attention takes no B11
+HYBRID_LAUNCHES = {"linear_scan_fwd": 8, "linear_scan_bwd": 4,
+                   "ota_round_stats": 1, "ota_demodulate_dyn": 1,
+                   "admm_dual_update": 1, "flash_attention_fwd": 0}
+#: card against CPU, f32: the sums of the local steps run in other orders
+#: (cuBLAS, the round's reductions), and Θ divides by Σ|h|².  On an H100 the
+#: per-round losses agreed to 0 and 6.1e-8 relative and Θ to 3.6e-7 after
+#: three rounds: the per-round loss is held to rtol 1e-5, Θ to atol 1e-5
+HYBRID_LOSS_RTOL = 1e-5
+HYBRID_THETA_ATOL = 1e-5
+
+
+def _hybrid_cfg():
+    """recurrentgemma-2b at ``ModelConfig.reduced()``, in f32."""
+    import dataclasses
+
+    from repro_torch.models import get_config
+
+    return dataclasses.replace(get_config(HYBRID_ARCH).reduced(),
+                               param_dtype="float32")
+
+
+def phase_llm_hybrid(torch):
+    """``train_step`` on recurrentgemma-2b at ``ModelConfig.reduced()`` in
+    f32 (one super-block), W = 2, 3 rounds on the card, and the same rounds
+    on the CPU (the plain versions) from the same state and draws: the
+    losses and Θ agree, the launches are exact, the loss falls."""
+    from repro_torch import rng
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.train.llm_trainer import (FLConfig, draw_round,
+                                               make_fl_train)
+    from repro_torch.tree import to_device, tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = _hybrid_cfg()
+    W = HYBRID_WORKERS
+    model = build_model(cfg)
+    flcfg = FLConfig(n_workers=W, local_steps=2, local_lr=HYBRID_LR)
+    acfg = AdmmConfig(rho=0.5, flip_on_change=False)
+    ccfg = ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=2)
+    init_cpu, step_cpu = make_fl_train(model, flcfg, acfg, ccfg,
+                                       device="cpu")
+    _, step_gpu = make_fl_train(model, flcfg, acfg, ccfg)
+    tokens = token_dataset(SEED + 5, HYBRID_BATCH, HYBRID_SEQ, cfg.vocab_size,
+                           n_workers=W, device="cpu")
+
+    st_cpu = init_cpu(SEED)
+    _check_packed_d("llm_hybrid", cfg, st_cpu.lam.re.shape[1])
+    st_gpu = to_device(st_cpu, dev)
+    cpu_losses, gpu_losses, redraws = [], [], []
+    build.reset_launches()
+    for r in range(LLM_ROUNDS):
+        draws = draw_round(rng.fold_in(SEED, r + 1), st_cpu, ccfg)
+        redraws.append(draws.h_fresh is not None)
+        st_cpu, m_cpu = step_cpu(st_cpu, {"tokens": tokens}, draws=draws)
+        st_gpu, m_gpu = step_gpu(st_gpu, {"tokens": tokens.to(dev)},
+                                 draws=to_device(draws, dev))
+        cpu_losses.append(float(m_cpu["loss"]))
+        gpu_losses.append(float(m_gpu["loss"]))
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    _per_round(launches, LLM_ROUNDS, HYBRID_LAUNCHES)
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu_losses, cpu_losses)]
+    require(all(math.isfinite(x) for x in gpu_losses + cpu_losses),
+            f"llm_hybrid: non-finite losses {gpu_losses}, {cpu_losses}")
+    require(max(rel) <= HYBRID_LOSS_RTOL, f"llm_hybrid: card losses "
+            f"{gpu_losses} differ from the CPU's {cpu_losses} by up to "
+            f"{max(rel)} relative, beyond {HYBRID_LOSS_RTOL}")
+    require(gpu_losses[-1] < gpu_losses[0], f"llm_hybrid: round "
+            f"{LLM_ROUNDS} loss {gpu_losses[-1]} is not below round 1's "
+            f"{gpu_losses[0]}")
+    theta_gap = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(tree_leaves(st_gpu.Theta),
+                                    tree_leaves(st_cpu.Theta)))
+    require(theta_gap <= HYBRID_THETA_ATOL, f"llm_hybrid: card Θ differs "
+            f"from the CPU's by {theta_gap} after {LLM_ROUNDS} rounds, beyond "
+            f"{HYBRID_THETA_ATOL} (or is not finite)")
+    emit({"phase": "llm_hybrid", "ok": True, "arch": cfg.name,
+          "reduced": "ModelConfig.reduced(): one super-block (rec, rec, "
+          "attn), d_model 128, lru_width 128, window 64", "dtype": "float32",
+          "W": W, "batch_per_worker": HYBRID_BATCH, "seq": HYBRID_SEQ,
+          "local_steps": 2, "local_lr": HYBRID_LR, "rounds": LLM_ROUNDS,
+          "redraws": redraws, "loss": gpu_losses, "cpu_loss": cpu_losses,
+          "loss_rel_err": rel, "loss_rtol": HYBRID_LOSS_RTOL,
+          "Theta_max_abs_gap_after_3_rounds": theta_gap,
+          "Theta_atol": HYBRID_THETA_ATOL,
+          "launches": launches})
+    return launches
+
 
 def _kernel_family(name: str) -> str:
-    for fn in ("receive_masked_kernel", "fading_step_kernel",
+    for fn in ("linear_scan_fwd_kernel", "linear_scan_bwd_kernel",
+               "accumulate_kernel", "receive_masked_kernel",
+               "fading_step_kernel",
                "population_step_kernel", "demodulate_kernel",
                "modulate_kernel", "receive_kernel", "dual_update_kernel",
                "flip_lambda_kernel", "round_finalize_kernel", "round_kernel",
@@ -1417,6 +1719,10 @@ def phase_profile(torch, path: str, run_once, round_s: float):
 
 
 def main() -> int:
+    # the LLM rounds peak near 56 GB of the card's 80: let freed blocks be
+    # remapped rather than held as reserved fragments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1453,11 +1759,23 @@ def main() -> int:
         del mlp_run, fade_alg, chaos_alg
         gc.collect()
         torch.cuda.empty_cache()
-        paths["llm"], llm_round, llm_s = phase_llm(torch)
+        paths["accumulate"] = phase_accumulate(torch, name)
+        paths["llm"], llm_round, llm_s = phase_llm(
+            torch, "llm", LLM_ARCH, LLM_LAYERS, LLM_SEQ, LLM_LR,
+            LLM_LAUNCHES)
         phase_profile(torch, "llm", llm_round, llm_s)
+        # granite's ~55 GB go before the SSM round's ~56 GB
         del llm_round
         gc.collect()
         torch.cuda.empty_cache()
+        paths["llm_ssm"], ssm_round, ssm_s = phase_llm(
+            torch, "llm_ssm", SSM_ARCH, SSM_LAYERS, SSM_SEQ, SSM_LR,
+            SSM_LAUNCHES)
+        phase_profile(torch, "llm_ssm", ssm_round, ssm_s)
+        del ssm_round
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["llm_hybrid"] = phase_llm_hybrid(torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1

@@ -6,9 +6,10 @@ problem, composed (:func:`ota_uplink`) or in one pass over the worker planes
 The backend follows the tensors' device (:func:`resolve_backend`): CUDA
 tensors go through the hand-written kernels (B1 ``ota_modulate``, B2
 ``ota_receive``, B3/B3′ ``ota_demodulate(_dyn)``, B6/B7 ``ota_round_stats``/
-``ota_round_theta``, B8 ``ota_receive_masked``, B4 ``admm_dual_update``, B5
-``admm_flip_lambda``), CPU tensors through their plain versions.  There is
-no switch that sends CUDA tensors to the plain versions.
+``ota_round_theta``, B8 ``ota_receive_masked``, B13 ``ota_accumulate``, B4
+``admm_dual_update``, B5 ``admm_flip_lambda``), CPU tensors through their
+plain versions.  There is no switch that sends CUDA tensors to the plain
+versions.
 
 A participation ``mask`` ((W,) bool, ``repro_torch.phy`` deep-fade
 truncation or ``repro_torch.faults`` liveness) drops workers from the
@@ -25,7 +26,7 @@ Re{y}/Σ|h|², Eq. 24), so only ``noise.re`` is ever passed.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import math
 
@@ -35,6 +36,7 @@ from repro_torch.core import cplx
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.cplx import Complex
 from repro_torch.core.power import alpha_from_energy
+from repro_torch.device import resolve_device
 from repro_torch.kernels import admm_update as _admm_k
 from repro_torch.kernels import ota as _ota_k
 from repro_torch.kernels import ota_round as _round_k
@@ -179,6 +181,48 @@ def ota_uplink(theta: Tensor, lam: Complex, h: Complex, noise_re: Tensor,
     else:
         inv_alpha = torch.ones((), dtype=torch.float32, device=theta.device)
     return receive(signals, h, noise_re, inv_alpha, mask), inv_alpha
+
+
+# ---------------------------------------------------------------------------
+# Worker-at-a-time receive: the superposition accumulated one worker a call
+# ---------------------------------------------------------------------------
+
+class OtaAccumulator(NamedTuple):
+    """Running receiver state of a time-multiplexed uplink, whose workers
+    transmit one after another: the two sums the receiver needs, f32 on one
+    device.  :func:`ota_receive_accumulated` demodulates them once a
+    round."""
+
+    y_re: Tensor    # running Re{Σ_n h_n ⊙ s_n}
+    sumh2: Tensor   # running Σ_n |h_n|² (the pilot aggregate)
+
+
+def ota_accumulate_init(shape, device="cuda") -> OtaAccumulator:
+    """Zero sums of ``shape`` on ``device`` (the card unless the caller
+    asks for the CPU)."""
+    dev = resolve_device(device)
+    return OtaAccumulator(torch.zeros(shape, device=dev),
+                          torch.zeros(shape, device=dev))
+
+
+def ota_accumulate(acc: OtaAccumulator, signal: Complex,
+                   h: Complex) -> OtaAccumulator:
+    """Add ONE worker's term: y += Re{h ⊙ s}, Σ|h|² += |h|², elementwise
+    over the worker's signal shape, in one pass (B13)."""
+    shape = acc.y_re.shape
+    y, p2 = _ota_k.ota_accumulate(
+        *(_f32(x).reshape(-1) for x in (acc.y_re, acc.sumh2, signal.re,
+                                        signal.im, h.re, h.im)))
+    return OtaAccumulator(y.reshape(shape), p2.reshape(shape))
+
+
+def ota_receive_accumulated(acc: OtaAccumulator, noise_re: Tensor,
+                            inv_alpha: Tensor | float = 1.0) -> Tensor:
+    """Θ = (y + z·α⁻¹)/max(Σ|h|², 1e-12) of accumulated sums: the
+    worker-at-a-time twin of :func:`receive`, with one matched-filter noise
+    plane ``noise_re`` (the JAX package draws it from the round key) and one
+    :func:`demodulate` (B3 for a tensor α⁻¹, B3′ for a float) a round."""
+    return demodulate(acc.y_re, acc.sumh2, noise_re, inv_alpha)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "ota_receive": [_PTR] * 7 + [_I64, _I64, _PTR],
         "ota_demodulate_dyn": [_PTR] * 5 + [_I64, _PTR],
         "ota_demodulate": [_PTR] * 4 + [_I64, _F32, _PTR],
+        "ota_accumulate": [_PTR] * 8 + [_I64, _PTR],
     },
     "ota_round": {
         "ota_round_stats": [_PTR] * 18 + [_I64, _I64, _INT, _I64, _F32, _F32,
@@ -68,6 +69,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                                          _INT, _PTR],
         "flash_attention_dkv": [_PTR] * 8 + [_I64] * 3 + [_INT, _INT, _F32,
                                                           _INT, _PTR],
+    },
+    "linear_scan": {
+        "linear_scan_fwd": [_PTR] * 3 + [_I64] * 3 + [_PTR],
+        "linear_scan_bwd": [_PTR] * 5 + [_I64] * 3 + [_PTR],
     },
 }
 

@@ -1,11 +1,13 @@
-// Over-the-air signal path: modulate (B1), fused receive (B2) and demodulate
-// (B3, B3′), for sm_90a.
+// Over-the-air signal path: modulate (B1), fused receive (B2), demodulate
+// (B3, B3′) and the worker-at-a-time accumulate (B13), for sm_90a.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/ota.py:
 //   * ota_modulate  (_mod_kernel)      s = conj(h)·θ + conj(λ)/ρ
 //   * ota_receive   (_receive_kernel)  Θ = (Σ_w Re{h_w ⊙ s_w} + z·α⁻¹) / max(Σ_w |h_w|², 1e-12)
 //   * ota_demodulate_dyn (_demod_dyn_kernel) and ota_demodulate
 //     (_demod_kernel)                 Θ = (y + z·α⁻¹) / max(p2, 1e-12) over (d,)
+//   * ota_accumulate (_accumulate_kernel)  y += h_re·s_re − h_im·s_im,
+//                                          p2 += h_re² + h_im² over (d,)
 //
 // All are bound by device-memory bytes: a few flops per f32 element read
 // once.  The design therefore reads every input byte once and writes every
@@ -25,6 +27,10 @@
 //     B3′ takes it as a host float (a constant α, the guarded round's 1.0).
 //     It rounds at each step in the plain version's order (no contracted
 //     multiply-add), so it gives the plain version's bits.
+//   * accumulate is one thread per element in a grid-stride loop: the two
+//     running sums share the h planes, so one pass reads the six (d,) planes
+//     once and writes y and p2 once (32 bytes an element).  Rounded in the
+//     plain version's order, term first, then the add.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -96,6 +102,26 @@ __global__ void demodulate_kernel(const float* __restrict__ y,
   }
 }
 
+__global__ void accumulate_kernel(const float* __restrict__ y,
+                                  const float* __restrict__ p2,
+                                  const float* __restrict__ s_re,
+                                  const float* __restrict__ s_im,
+                                  const float* __restrict__ h_re,
+                                  const float* __restrict__ h_im,
+                                  float* __restrict__ y_out,
+                                  float* __restrict__ p2_out, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const float hr = h_re[i];
+    const float hi = h_im[i];
+    y_out[i] = __fadd_rn(y[i], __fsub_rn(__fmul_rn(hr, s_re[i]),
+                                         __fmul_rn(hi, s_im[i])));
+    p2_out[i] = __fadd_rn(p2[i], __fadd_rn(__fmul_rn(hr, hr),
+                                           __fmul_rn(hi, hi)));
+  }
+}
+
 }  // namespace
 
 extern "C" int ota_modulate(const float* theta, const float* lam_re,
@@ -135,5 +161,16 @@ extern "C" int ota_demodulate(const float* y, const float* noise_re,
   if (n <= 0) return static_cast<int>(cudaSuccess);
   demodulate_kernel<<<grid_for(n), kThreads, 0, stream>>>(
       y, noise_re, p2, nullptr, inv_alpha, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ota_accumulate(const float* y, const float* p2,
+                              const float* s_re, const float* s_im,
+                              const float* h_re, const float* h_im,
+                              float* y_out, float* p2_out, int64_t n,
+                              cudaStream_t stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  accumulate_kernel<<<grid_for(n), kThreads, 0, stream>>>(
+      y, p2, s_re, s_im, h_re, h_im, y_out, p2_out, n);
   return static_cast<int>(cudaGetLastError());
 }

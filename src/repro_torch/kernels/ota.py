@@ -111,3 +111,27 @@ def ota_demodulate(y_re: Tensor, noise_re: Tensor, sumh2: Tensor,
                  noise_re.data_ptr(), sumh2.data_ptr(), out.data_ptr(),
                  y_re.numel(), float(inv_alpha))
     return out
+
+
+def ota_accumulate(y_re: Tensor, sumh2: Tensor, s_re: Tensor, s_im: Tensor,
+                   h_re: Tensor, h_im: Tensor) -> Tuple[Tensor, Tensor]:
+    """One worker's term added to the receiver's running sums (B13):
+    ``(y + h_re·s_re − h_im·s_im, Σ|h|² + h_re² + h_im²)`` over flat planes
+    of one shape, in one pass; new tensors, the inputs are left as they
+    are."""
+    if build.resolve_backend(y_re.device) == "torch":
+        return ref.ota_accumulate(y_re, sumh2, s_re, s_im, h_re, h_im)
+    dev = build.check_cuda_f32("ota_accumulate", y_re=y_re, sumh2=sumh2,
+                               s_re=s_re, s_im=s_im, h_re=h_re, h_im=h_im)
+    for name, t in (("sumh2", sumh2), ("s_re", s_re), ("s_im", s_im),
+                    ("h_re", h_re), ("h_im", h_im)):
+        if t.shape != y_re.shape:
+            raise ValueError(f"ota_accumulate: {name} has shape "
+                             f"{tuple(t.shape)}, y_re {tuple(y_re.shape)}")
+    y = torch.empty_like(y_re)
+    p2 = torch.empty_like(y_re)
+    build.launch("ota", "ota_accumulate", dev, y_re.data_ptr(),
+                 sumh2.data_ptr(), s_re.data_ptr(), s_im.data_ptr(),
+                 h_re.data_ptr(), h_im.data_ptr(), y.data_ptr(),
+                 p2.data_ptr(), y_re.numel())
+    return y, p2

@@ -4,10 +4,11 @@ Each function is the mathematical definition, written with no regard for
 the card: the CPU tests hold them against the JAX package, ``chip_smoke.py``
 holds each CUDA kernel against them on the card, and the kernel wrappers
 take them for CPU tensors only.  Counterpart of ``repro/kernels/ref.py``,
-plus a plain receive, masked receive, one-pass round, fading step and
-population step, which the JAX oracle file does not have (the one-pass
-round's oracle there is ``repro/core/transport.py``'s jnp path), and the
-flash-attention forward with its log-sum-exp residual.
+plus a plain receive, masked receive, one-pass round, fading step,
+population step and worker-at-a-time accumulate, which the JAX oracle file
+does not have (the one-pass round's and the accumulate's oracle there is
+``repro/core/transport.py``'s jnp path), the flash-attention forward with
+its log-sum-exp residual, and the linear scan's backward.
 """
 from __future__ import annotations
 
@@ -59,6 +60,16 @@ def ota_demodulate(y_re: Tensor, noise_re: Tensor, sumh2: Tensor,
 
 #: B3 reads α⁻¹ on the device, B3′ takes a host float: one function
 ota_demodulate_dyn = ota_demodulate
+
+
+def ota_accumulate(y_re: Tensor, sumh2: Tensor, s_re: Tensor, s_im: Tensor,
+                   h_re: Tensor, h_im: Tensor) -> Tuple[Tensor, Tensor]:
+    """One worker's term added to the running receiver sums (B13):
+    y += Re{h ⊙ s} = h_re·s_re − h_im·s_im and Σ|h|² += h_re² + h_im², in
+    ``repro/core/transport.py``'s ``ota_accumulate`` order (the term first,
+    then the add)."""
+    return (y_re + (h_re * s_re - h_im * s_im),
+            sumh2 + (h_re * h_re + h_im * h_im))
 
 
 def ota_round_stats(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
@@ -224,3 +235,36 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def linear_scan(a: Tensor, b: Tensor) -> Tensor:
+    """Gated linear recurrence h_t = a_t ⊙ h_{t−1} + b_t, h_0 = b_0, over
+    axis 1 of (B, S, D), in f32.
+
+    A loop over S: each step rounds the product, then the sum, as the B12
+    kernel does, so the two agree bit for bit.  The JAX package's oracle is
+    an associative scan, whose products of gates are grouped differently:
+    the two agree to float tolerance only."""
+    a, b = a.float(), b.float()
+    h = torch.empty_like(b)
+    h[:, 0] = b[:, 0]
+    for t in range(1, b.shape[1]):
+        h[:, t] = a[:, t] * h[:, t - 1] + b[:, t]
+    return h
+
+
+def linear_scan_bwd(a: Tensor, h: Tensor, dh: Tensor
+                    ) -> Tuple[Tensor, Tensor]:
+    """Cotangents ``(da, db)`` of :func:`linear_scan` from its gates ``a``,
+    its output ``h`` and the output's cotangent ``dh``: the reversed
+    recurrence g_t = dh_t + a_{t+1}·g_{t+1} (g_{S−1} = dh_{S−1}), then
+    da_t = g_t·h_{t−1} with h_{−1} = 0, and db = g (f32).  A loop over S in
+    the B12 backward kernel's rounding order."""
+    a, h, dh = a.float(), h.float(), dh.float()
+    g = torch.empty_like(dh)
+    S = dh.shape[1]
+    g[:, S - 1] = dh[:, S - 1]
+    for t in range(S - 2, -1, -1):
+        g[:, t] = dh[:, t] + a[:, t + 1] * g[:, t + 1]
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return g * h_prev, g

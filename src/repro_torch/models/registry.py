@@ -3,10 +3,11 @@ uniform functional Model API (init / forward / loss).  Counterpart of
 ``repro/models/registry.py``: ``ARCHS`` is a data copy of the JAX
 package's table, field for field.
 
-``build_model`` builds the ``dense`` family; every other family, and the
-decode API (``init_cache``/``decode_step``), raises ``NotImplementedError``
-naming its ROADMAP item.  With parameters that carry a leading worker dim
-(the LLM trainer's), ``loss`` returns one loss per worker.
+``build_model`` builds the ``dense``, ``ssm`` and ``hybrid`` families;
+every other family, and the decode API (``init_cache``/``decode_step``),
+raises ``NotImplementedError`` naming its ROADMAP item.  With parameters
+that carry a leading worker dim (the LLM trainer's), ``loss`` returns one
+loss per worker.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -137,19 +138,23 @@ def _not_ported(what: str, item: str):
     return fail
 
 
+#: the full-sequence modules of the families the port builds
+FAMILIES = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
+
+
 def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam != "dense":
+    if fam not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {fam!r} family is not ported yet (ROADMAP "
-            f"queue A item 5: moe, ssm, hybrid, encdec and vlm)")
+            f"queue A item 5: moe, encdec and vlm)")
+    module = FAMILIES[fam]
 
     def init(key: int, device="cuda"):
-        return transformer.init_params(key, cfg, device)
+        return module.init_params(key, cfg, device)
 
     def forward(params, batch, remat=True):
-        logits = transformer.lm_forward(params, cfg, batch["tokens"],
-                                        remat=remat)
+        logits = module.lm_forward(params, cfg, batch["tokens"], remat=remat)
         return logits, torch.zeros((), device=logits.device)
 
     def loss(params, batch, remat=True):
@@ -239,3 +244,30 @@ def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
         return embed + cfg.n_enc_layers * enc_l + cfg.n_layers * dec_l
 
     raise ValueError(cfg.family)
+
+
+def packed_param_count(cfg: ModelConfig) -> int:
+    """Every parameter ``init_params`` builds, so the length D of the
+    trainer's packed (W, D) buffers: the analytic count plus what it leaves
+    out (norm scales and biases).  Counted for the families
+    ``build_model`` builds."""
+    d, L_ = cfg.d_model, cfg.n_layers
+    if cfg.family == "dense":
+        qkv_bias = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd \
+            if cfg.qkv_bias else 0
+        mlp_bias = cfg.d_ff + d if cfg.mlp_act == "gelu_mlp" else 0
+        per_layer = 2 * d + qkv_bias + mlp_bias
+    elif cfg.family == "ssm":
+        # the norm, the b/c/dt norms, the conv and dt_proj biases
+        per_layer = d + 2 * cfg.ssm_state + cfg.dt_rank + 2 * cfg.d_inner
+    elif cfg.family == "hybrid":
+        # two norms a layer; a recurrent one adds the conv and both gate
+        # biases
+        n_rec = sum(1 for i in range(L_) if cfg.block_pattern[
+            i % len(cfg.block_pattern)] == "rec")
+        return (analytic_param_count(cfg) + 2 * d * L_
+                + 3 * cfg.lru_width * n_rec + d)
+    else:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family "
+                                  f"is not built by the port")
+    return analytic_param_count(cfg) + L_ * per_layer + d

@@ -1,0 +1,139 @@
+"""SSM family: mamba1 (falcon-mamba-7b), attention-free selective state
+space.  Counterpart of ``repro/models/ssm.py``, the full-sequence half.
+
+Per layer:  x,z = in_proj(u);  x = silu(causal_conv1d(x));
+            dt,B,C = x_proj(x);  dt = softplus(dt_proj(dt)+bias);
+            h_t = exp(dt·A)⊙h_{t-1} + (dt·B_t)·x_t ;  y_t = C_t·h_t + D⊙x_t;
+            out = out_proj(y ⊙ silu(z)),
+with the RMS normalisation of (B, C, dt) that Falcon-Mamba adds.
+
+The recurrence runs B12 (``kernels/linear_scan.py``) over the (·, S,
+d_inner·n) planes a and b in f32, as JAX's ``_scan_full`` materialises
+them; the leading worker and batch dims fold into the scan's batch.  A
+Python loop over the stacked layers replaces ``lax.scan``, and ``remat=True``
+checkpoints each layer (``transformer.run_stacked``), so the backward pass
+runs each layer's forward, B12 included, once more.  ``A_log`` and ``D``
+stay f32 leaves in a bf16 tree.  Not ported yet: the ``chunked_scan``
+optflag's fused chunk loop (ROADMAP queue A item 2) and decode (item 5).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import rng
+from repro_torch.device import resolve_device
+from repro_torch.kernels.linear_scan import gated_linear_scan
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import run_stacked
+from repro_torch.tree import tree_stack
+
+Tensor = torch.Tensor
+Params = Dict
+
+
+def block_init(key: int, cfg: ModelConfig, device="cuda") -> Params:
+    d, di, n, r = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    dt = cfg.dtype
+    dev = resolve_device(device)
+    k = rng.split(key, 6)
+    g = rng.generator(k[1], dev)
+    # S4D-real initialisation for A
+    a_init = torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev)[None].repeat(di, 1)
+    return {
+        "norm": L.rmsnorm_init(d, dt, dev),
+        "in_proj": L.dense_init(k[0], d, 2 * di, dt, device=dev),
+        "conv_w": (torch.randn((cfg.conv1d_width, di), generator=g,
+                               device=dev) * 0.1).to(dt),
+        "conv_b": torch.zeros((di,), dtype=dt, device=dev),
+        "x_proj": L.dense_init(k[2], di, r + 2 * n, dt, device=dev),
+        "dt_proj": L.dense_init(k[3], r, di, dt, bias=True, device=dev),
+        "A_log": torch.log(a_init),                    # f32: dynamics in f32
+        "D": torch.ones((di,), dtype=torch.float32, device=dev),
+        "out_proj": L.dense_init(k[4], di, d, dt, device=dev),
+        "b_norm": L.rmsnorm_init(n, dt, dev),
+        "c_norm": L.rmsnorm_init(n, dt, dev),
+        "dt_norm": L.rmsnorm_init(r, dt, dev),
+    }
+
+
+def _conv1d_causal(w: Tensor, b: Tensor, x: Tensor) -> Tensor:
+    """Depthwise causal conv. x: (..., B, S, di); w: (..., W, di), the
+    leading (worker) dims of w matching x's."""
+    K, S = w.shape[-2], x.shape[-2]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = sum(xp[..., i:i + S, :] * L._bcast(w[..., i, :], x, 1)
+              for i in range(K))
+    return out + L._bcast(b, x, 1)
+
+
+def _ssm_inputs(p: Params, x: Tensor, cfg: ModelConfig):
+    """Shared pre-scan computation. x: (..., B, S, di) post-conv.  Returns
+    (dt, B, C, A): dt (..., B, S, di), B and C (..., B, S, n) in f32, and
+    A = −exp(A_log) (..., di, n)."""
+    n, r = cfg.ssm_state, cfg.dt_rank
+    proj = L.dense(p["x_proj"], x)
+    dt_r, Bc, Cc = torch.split(proj, [r, n, n], dim=-1)
+    dt_r = L.rmsnorm(p["dt_norm"], dt_r, cfg.norm_eps)
+    Bc = L.rmsnorm(p["b_norm"], Bc, cfg.norm_eps).float()
+    Cc = L.rmsnorm(p["c_norm"], Cc, cfg.norm_eps).float()
+    dt = F.softplus(L.dense(p["dt_proj"], dt_r).float())
+    A = -torch.exp(p["A_log"])
+    return dt, Bc, Cc, A
+
+
+def _scan_full(dt: Tensor, Bc: Tensor, Cc: Tensor, A: Tensor,
+               xf: Tensor) -> Tensor:
+    """Materialise the (..., B, S, di, n) planes a and b in f32, run B12
+    over them with every leading dim folded into its batch, contract with
+    C."""
+    a = torch.exp(dt[..., None] * L._bcast(A, dt[..., None], 2))
+    b = (dt * xf)[..., None] * Bc[..., None, :]
+    S, di, n = a.shape[-3:]
+    hs = gated_linear_scan(a.reshape(-1, S, di, n), b.reshape(-1, S, di, n))
+    return torch.einsum("...sdn,...sn->...sd", hs.reshape(a.shape), Cc)
+
+
+def block_fwd(p: Params, u: Tensor, cfg: ModelConfig) -> Tensor:
+    """Full-sequence forward. u: (..., B, S, d)."""
+    h = L.rmsnorm(p["norm"], u, cfg.norm_eps)
+    xz = L.dense(p["in_proj"], h)
+    x, z = torch.chunk(xz, 2, dim=-1)
+    x = F.silu(_conv1d_causal(p["conv_w"], p["conv_b"], x))
+    dt, Bc, Cc, A = _ssm_inputs(p, x, cfg)
+    xf = x.float()
+    y = _scan_full(dt, Bc, Cc, A, xf)
+    y = y + L._bcast(p["D"], xf, 1) * xf
+    y = y.to(u.dtype) * F.silu(z)
+    return u + L.dense(p["out_proj"], y)
+
+
+def init_params(key: int, cfg: ModelConfig, device="cuda") -> Params:
+    """Random init from an integer key: per-layer leaves stacked on a
+    leading ``n_layers`` dim, as ``jax.vmap(block_init)`` makes them."""
+    dev = resolve_device(device)
+    ke, kl = rng.split(key)
+    lkeys = [rng.fold_in(kl, i) for i in range(cfg.n_layers)]
+    return {
+        "embed": L.embedding_init(ke, cfg.vocab_size, cfg.d_model, cfg.dtype,
+                                  dev),
+        "layers": tree_stack([block_init(k, cfg, dev) for k in lkeys]),
+        "final_norm": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev),
+    }
+
+
+def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
+               remat: bool = True) -> Tensor:
+    """Full-sequence forward over tokens (..., B, S). Returns logits."""
+    x = L.embed(params["embed"], tokens)
+
+    def block(x_: Tensor, p_: Params) -> Tensor:
+        return block_fwd(p_, x_, cfg)
+
+    x = run_stacked(params, x, block, cfg.n_layers, remat)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embed"], x)

@@ -12,7 +12,7 @@ Leaves may carry a leading worker dim W in front of ``n_layers``
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -68,11 +68,28 @@ def _embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     return L.embed(params["embed"], tokens)
 
 
-def layer_params(params: Params, i: int) -> Params:
-    """Layer ``i`` of the stacked ``params["layers"]`` (views)."""
+def layer_params(params: Params, i: int, key: str = "layers") -> Params:
+    """Entry ``i`` of the stacked ``params[key]`` (views), behind the
+    leading worker dim if the leaves carry one."""
     lead = params["embed"]["table"].dim() - 2
     index = (slice(None),) * lead + (i,)
-    return tree_map(lambda leaf: leaf[index], params["layers"])
+    return tree_map(lambda leaf: leaf[index], params[key])
+
+
+def run_stacked(params: Params, x: Tensor, block: Callable, n: int,
+                remat: bool, key: str = "layers") -> Tensor:
+    """x through ``block(x, entry)`` for each of the ``n`` stacked entries
+    of ``params[key]`` in order (JAX's ``lax.scan``); with ``remat`` each
+    entry is one ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of
+    the scan body), so the backward pass runs its forward again."""
+    for i in range(n):
+        entry = layer_params(params, i, key)
+        if remat:
+            x = checkpoint(block, x, entry, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = block(x, entry)
+    return x
 
 
 def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
@@ -85,12 +102,6 @@ def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
     def block(x_: Tensor, p_: Params) -> Tensor:
         return block_fwd(p_, x_, cfg, positions, cfg.sliding_window)[0]
 
-    for i in range(cfg.n_layers):
-        layer_p = layer_params(params, i)
-        if remat:
-            x = checkpoint(block, x, layer_p, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = block(x, layer_p)
+    x = run_stacked(params, x, block, cfg.n_layers, remat)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x)

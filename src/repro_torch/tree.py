@@ -1,6 +1,8 @@
-"""Nested dicts of tensors as trees, with ``jax.tree_util``'s leaf order.
+"""Nested dicts and lists of tensors as trees, with ``jax.tree_util``'s
+leaf order.
 
-A tree is a dict (keys visited sorted, recursively) whose leaves are
+A tree is a dict (keys visited sorted, recursively) or a list (items in
+index order; an empty list holds no leaf, as in JAX) whose leaves are
 tensors or ``core.cplx.Complex`` pairs (a Complex is one leaf, as the JAX
 package's ``is_leaf=_is_cplx`` makes it).  Flattening in the same order as
 JAX makes packed offsets, and so every packed buffer, mean the same in both
@@ -16,16 +18,16 @@ TreeDef = Any
 
 
 def tree_flatten(tree) -> Tuple[List[Any], TreeDef]:
-    """(leaves in sorted-key order, structure)."""
-    if isinstance(tree, dict):
-        keys = sorted(tree)
+    """(leaves in sorted-key and index order, structure)."""
+    if isinstance(tree, (dict, list)):
+        keys = sorted(tree) if isinstance(tree, dict) else None
         leaves: List[Any] = []
         defs = []
-        for k in keys:
-            sub, d = tree_flatten(tree[k])
+        for item in (tree[k] for k in keys) if keys is not None else tree:
+            sub, d = tree_flatten(item)
             leaves += sub
             defs.append(d)
-        return leaves, (tuple(keys), tuple(defs))
+        return leaves, (keys if keys is None else tuple(keys), tuple(defs))
     return [tree], None
 
 
@@ -36,6 +38,8 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
         if d is None:
             return next(it)
         keys, defs = d
+        if keys is None:
+            return [build(sub) for sub in defs]
         return {k: build(sub) for k, sub in zip(keys, defs)}
 
     out = build(treedef)
@@ -59,3 +63,31 @@ def tree_map(fn: Callable, tree, *rest):
 def tree_stack(trees, dim: int = 0):
     """Leafwise ``torch.stack`` of same-structure trees."""
     return tree_map(lambda *ls: torch.stack(ls, dim=dim), *trees)
+
+
+def to_device(obj, device):
+    """A copy of ``obj`` with every tensor detached onto ``device``.  Dicts,
+    lists and tuples (named ones too: a trainer state with its channel and
+    optimizer state, a round's draws, a ``Complex``) are walked field by
+    field, other values kept.  An object reached twice is copied once, so
+    aliases survive the move (sgd's ``nu`` is its ``mu``)."""
+    memo = {}
+
+    def move(x):
+        if id(x) in memo:
+            return memo[id(x)]
+        if isinstance(x, torch.Tensor):
+            out = x.detach().to(device)
+        elif isinstance(x, dict):
+            out = {k: move(v) for k, v in x.items()}
+        elif isinstance(x, list):
+            out = [move(v) for v in x]
+        elif isinstance(x, tuple):
+            items = [move(v) for v in x]
+            out = type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+        else:
+            return x
+        memo[id(x)] = out
+        return out
+
+    return move(obj)

@@ -11,8 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (admm_update, build,  # noqa: E402
-                                 flash_attention, ota, ota_round, phy_channel,
-                                 phy_population, ref)
+                                 flash_attention, linear_scan, ota, ota_round,
+                                 phy_channel, phy_population, ref)
 
 pytestmark = pytest.mark.cuda
 SHAPES = [(3, 1000), (5, 1025), (8, 4097), (100, 109_386)]
@@ -374,19 +374,13 @@ def test_flash_wrappers_refuse_bad_operands(dev):
 # B11 on the LLM path: GQA attention and one trainer round
 # ---------------------------------------------------------------------------
 
-def _tree_to(tree, dev):
-    """A copy of ``tree`` on ``dev`` whose leaves are new autograd leaves."""
-    from repro_torch.tree import tree_map
-    return tree_map(lambda t: t.detach().to(dev), tree)
-
-
 def test_gqa_attention_grads_match_the_plain_path(dev):
     """4 heads over 2 KV heads (hd 16), S = 64, f32: forward and grads
     w.r.t. params and x on the card (B11) against the CPU (B11's plain
     version); summation order only."""
     from repro_torch.models import layers as L
     from repro_torch.models.config import ModelConfig
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import to_device, tree_leaves
 
     cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=64,
                       n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=64,
@@ -397,7 +391,7 @@ def test_gqa_attention_grads_match_the_plain_path(dev):
     cot = torch.randn((2, 64, 64), generator=g)
     results = []
     for d in (torch.device("cpu"), dev):
-        p = _tree_to(params, d)
+        p = to_device(params, d)
         for leaf in tree_leaves(p):
             leaf.requires_grad_()
         xx = x.detach().to(d).requires_grad_()
@@ -429,7 +423,7 @@ def test_reduced_granite_train_step_matches_the_cpu(dev):
     from repro_torch.models import registry as reg
     from repro_torch.train.llm_trainer import (FLConfig, draw_round,
                                                make_fl_train)
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import to_device, tree_leaves
 
     cfg = dataclasses.replace(reg.get_config("granite-8b").reduced(),
                               param_dtype="float32")
@@ -447,22 +441,150 @@ def test_reduced_granite_train_step_matches_the_cpu(dev):
     tokens = torch.randint(0, cfg.vocab_size, (W, 2, 16), generator=g,
                            dtype=torch.int32)
     want, m_cpu = step_cpu(st, {"tokens": tokens}, draws=draws)
-    st_gpu = st._replace(theta=_tree_to(st.theta, dev),
-                         Theta=_tree_to(st.Theta, dev),
-                         lam=type(st.lam)(st.lam.re.to(dev),
-                                          st.lam.im.to(dev)),
-                         chan=st.chan._replace(h=type(st.chan.h)(
-                             st.chan.h.re.to(dev), st.chan.h.im.to(dev))),
-                         opt=st.opt._replace(mu=_tree_to(st.opt.mu, dev),
-                                             nu=_tree_to(st.opt.mu, dev)))
     build.reset_launches()
-    got, m_gpu = step_gpu(st_gpu, {"tokens": tokens.to(dev)},
-                          draws=draws._replace(
-                              noise_re=draws.noise_re.to(dev)))
+    got, m_gpu = step_gpu(to_device(st, dev), {"tokens": tokens.to(dev)},
+                          draws=to_device(draws, dev))
     torch.cuda.synchronize()
     assert dict(build.launches) == {
         "flash_attention_fwd": 8, "flash_attention_dq": 4,
         "flash_attention_dkv": 4, "ota_round_stats": 1,
+        "ota_demodulate_dyn": 1, "admm_dual_update": 1}
+    tol = dict(rtol=1e-4, atol=1e-4)
+    for k in ("loss", "theta_drift", "inv_alpha"):
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], **tol)
+    for a, b in zip(tree_leaves(got.theta) + tree_leaves(got.Theta),
+                    tree_leaves(want.theta) + tree_leaves(want.Theta)):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    torch.testing.assert_close(got.lam.re.cpu(), want.lam.re, **tol)
+    torch.testing.assert_close(got.lam.im.cpu(), want.lam.im, **tol)
+
+
+# ---------------------------------------------------------------------------
+# B12 gated linear scan and B13 accumulate
+# ---------------------------------------------------------------------------
+
+#: (B, S, D) from one step and one channel to the hybrid's full width;
+#: ragged S and D, and the SSM's many-channel shape cut short
+SCAN_SHAPES = [(1, 1, 1), (1, 2, 3), (2, 37, 19), (3, 1000, 100),
+               (1, 257, 129), (2, 9, 4097), (2, 64, 131_072),
+               (2, 4096, 2560)]
+
+
+def _scan_inputs(dev, shape, seed=21):
+    """Gates in (0, 1), as exp(dt·A) gives them; N(0, 1) inputs and
+    cotangents."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    a = torch.sigmoid(2.0 * torch.randn(shape, generator=g, device=dev))
+    b = torch.randn(shape, generator=g, device=dev)
+    dh = torch.randn(shape, generator=g, device=dev)
+    return a, b, dh
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+def test_linear_scan_kernels_equal_the_plain_versions(dev, shape):
+    """Both kernels round each step as the plain loops do (product, then
+    sum): bit for bit."""
+    a, b, dh = _scan_inputs(dev, shape)
+    h = _launched("linear_scan_fwd", lambda: linear_scan.linear_scan_fwd(a, b))
+    assert torch.equal(h, ref.linear_scan(a, b))
+    da, db = _launched("linear_scan_bwd",
+                       lambda: linear_scan.linear_scan_bwd(a, h, dh))
+    want_da, want_db = ref.linear_scan_bwd(a, h, dh)
+    assert torch.equal(da, want_da) and torch.equal(db, want_db)
+
+
+def test_linear_scan_autograd_matches_the_plain_backward(dev):
+    a, b, dh = _scan_inputs(dev, (2, 300, 130), seed=22)
+    at, bt = a.clone().requires_grad_(), b.clone().requires_grad_()
+    build.reset_launches()
+    h = linear_scan.gated_linear_scan(at.reshape(2, 300, 10, 13),
+                                      bt.reshape(2, 300, 10, 13))
+    (h.reshape(2, 300, 130) * dh).sum().backward()
+    assert dict(build.launches) == {"linear_scan_fwd": 1,
+                                    "linear_scan_bwd": 1}
+    want_da, want_db = ref.linear_scan_bwd(a, ref.linear_scan(a, b), dh)
+    assert torch.equal(at.grad, want_da) and torch.equal(bt.grad, want_db)
+
+
+def test_linear_scan_kernels_bitwise_repeatable(dev):
+    a, b, dh = _scan_inputs(dev, (2, 513, 2560), seed=23)
+    h1 = linear_scan.linear_scan_fwd(a, b)
+    h2 = linear_scan.linear_scan_fwd(a, b)
+    g1 = linear_scan.linear_scan_bwd(a, h1, dh)
+    g2 = linear_scan.linear_scan_bwd(a, h1, dh)
+    assert torch.equal(h1, h2)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+
+
+def test_linear_scan_wrappers_refuse_bad_operands(dev):
+    a, b, dh = _scan_inputs(dev, (2, 8, 6))
+    with pytest.raises(ValueError, match="want cuda"):
+        linear_scan.linear_scan_fwd(a, b.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        linear_scan.linear_scan_fwd(a.double(), b)
+    with pytest.raises(ValueError, match="not contiguous"):
+        linear_scan.linear_scan_fwd(a.transpose(1, 2), b.transpose(1, 2))
+    with pytest.raises(ValueError, match="differ in shape"):
+        linear_scan.linear_scan_fwd(a, b[:, :4].contiguous())
+    with pytest.raises(ValueError, match="\\(B, S, D\\)"):
+        linear_scan.linear_scan_fwd(a[0], b[0])
+    with pytest.raises(ValueError, match="differ in shape"):
+        linear_scan.linear_scan_bwd(a, b, dh[:1].contiguous())
+
+
+@pytest.mark.parametrize("d", [1, 1000, 109_386])
+def test_accumulate_kernel(dev, d):
+    y, p2, sre, sim, hre, him = (torch.randn(d, device=dev)
+                                 for _ in range(6))
+    got = _launched("ota_accumulate",
+                    lambda: ota.ota_accumulate(y, p2, sre, sim, hre, him))
+    want = ref.ota_accumulate(y, p2, sre, sim, hre, him)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="shape"):
+        ota.ota_accumulate(y, torch.zeros(d + 1, device=dev), sre, sim, hre,
+                           him)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
+def test_reduced_ssm_and_hybrid_train_step_match_the_cpu(dev, arch):
+    """One replicated-mode round of the reduced model in f32 (W = 4, B = 2,
+    S = 80, past the hybrid's 64-token window; 2 local steps) on the card
+    against the CPU's plain path from the same state and draws, as
+    ``test_reduced_granite_train_step_matches_the_cpu`` does.  Each local
+    step runs B12 forward twice per recurrent layer (the checkpoint's
+    recompute) and backward once: 8 and 4 a round for both models."""
+    import dataclasses
+
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import registry as reg
+    from repro_torch.train.llm_trainer import (FLConfig, draw_round,
+                                               make_fl_train)
+    from repro_torch.tree import to_device, tree_leaves
+
+    cfg = dataclasses.replace(reg.get_config(arch).reduced(),
+                              param_dtype="float32")
+    model = reg.build_model(cfg)
+    W = 4
+    flcfg = FLConfig(n_workers=W, local_steps=2, local_lr=1e-2)
+    acfg = AdmmConfig(rho=0.5, flip_on_change=False)
+    ccfg = ChannelConfig(n_workers=W, snr_db=40.0)
+    init_cpu, step_cpu = make_fl_train(model, flcfg, acfg, ccfg,
+                                       device="cpu")
+    _, step_gpu = make_fl_train(model, flcfg, acfg, ccfg)
+    st = init_cpu(0)
+    draws = draw_round(7, st, ccfg)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (W, 2, 80), generator=g,
+                           dtype=torch.int32)
+    want, m_cpu = step_cpu(st, {"tokens": tokens}, draws=draws)
+    build.reset_launches()
+    got, m_gpu = step_gpu(to_device(st, dev), {"tokens": tokens.to(dev)},
+                          draws=to_device(draws, dev))
+    torch.cuda.synchronize()
+    assert dict(build.launches) == {
+        "linear_scan_fwd": 8, "linear_scan_bwd": 4, "ota_round_stats": 1,
         "ota_demodulate_dyn": 1, "admm_dual_update": 1}
     tol = dict(rtol=1e-4, atol=1e-4)
     for k in ("loss", "theta_drift", "inv_alpha"):

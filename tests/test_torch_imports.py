@@ -89,7 +89,8 @@ def _entry_points():
     from repro_torch.data.federated import split_iid
     from repro_torch.data.synthetic import (image_dataset, linreg_dataset,
                                             token_dataset)
-    from repro_torch.models import get_model, transformer
+    from repro_torch.core import transport
+    from repro_torch.models import get_model, hybrid, ssm, transformer
     from repro_torch.models.mlp import init_mlp_flat
     z = np.zeros((1, 1), np.float32)
     return {
@@ -98,6 +99,11 @@ def _entry_points():
         "Model.init": lambda: get_model("granite-8b", reduced=True).init(0),
         "transformer.init_params": lambda: transformer.init_params(
             0, get_model("granite-8b", reduced=True).cfg),
+        "ssm.init_params": lambda: ssm.init_params(
+            0, get_model("falcon-mamba-7b", reduced=True).cfg),
+        "hybrid.init_params": lambda: hybrid.init_params(
+            0, get_model("recurrentgemma-2b", reduced=True).cfg),
+        "ota_accumulate_init": lambda: transport.ota_accumulate_init((4,)),
         "model_params_from_numpy": lambda: convert.model_params_from_numpy(
             {"w": z}),
         "tree_fl_state_from_numpy": lambda: convert.tree_fl_state_from_numpy(
@@ -122,6 +128,7 @@ def _entry_points():
      "mlp_flat_from_numpy", "afadmm_state_from_numpy",
      "phy_state_from_numpy", "fault_state_from_numpy", "token_dataset",
      "make_fl_train", "Model.init", "transformer.init_params",
+     "ssm.init_params", "hybrid.init_params", "ota_accumulate_init",
      "model_params_from_numpy", "tree_fl_state_from_numpy"]))
 def test_entry_point_without_device_raises_without_cuda(name):
     _no_cuda()
@@ -133,13 +140,17 @@ def test_llm_entry_points_default_to_the_card():
     import inspect
 
     from repro_torch import convert
+    from repro_torch.core import transport
     from repro_torch.data.synthetic import token_dataset
-    from repro_torch.models import layers, transformer
+    from repro_torch.models import hybrid, layers, ssm, transformer
     from repro_torch.train.llm_trainer import make_fl_train, make_replicated
     for fn in (make_fl_train, make_replicated, token_dataset,
                convert.model_params_from_numpy,
                convert.tree_fl_state_from_numpy, transformer.init_params,
-               transformer.init_block, layers.dense_init,
+               transformer.init_block, ssm.init_params, ssm.block_init,
+               hybrid.init_params, hybrid.rec_block_init,
+               hybrid.attn_block_init, hybrid.mlp_block_init,
+               transport.ota_accumulate_init, layers.dense_init,
                layers.embedding_init, layers.attention_init, layers.mlp_init,
                layers.rmsnorm_init, layers.layernorm_init):
         assert inspect.signature(fn).parameters["device"].default == "cuda"

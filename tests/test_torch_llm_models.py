@@ -73,12 +73,33 @@ def test_registry_lists_and_refuses_unported_families():
     with pytest.raises(KeyError):
         reg.get_config("nope")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reg.get_model("falcon-mamba-7b", reduced=True)
+        reg.get_model("qwen3-moe-30b-a3b", reduced=True)
     m = reg.get_model("granite-8b", reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.init_cache(1, 8)
     sw = reg.get_model("granite-8b", reduced=True, sliding_window=8)
     assert sw.cfg.sliding_window == 8
+
+
+@pytest.mark.parametrize("name", [n for n in sorted(reg.ARCHS)
+                                  if reg.ARCHS[n].family in reg.FAMILIES])
+@pytest.mark.parametrize("extra_layers", [0, 1])
+def test_packed_param_count_equals_both_trees(name, extra_layers):
+    """``packed_param_count`` is the number of parameters in JAX's tree
+    (shapes only, through ``jax.eval_shape``) and in the port's, at the
+    reduced config and one layer deeper (a hybrid tail)."""
+    cfg = reg.ARCHS[name].reduced()
+    cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers + extra_layers)
+    jcfg = dataclasses.replace(jreg.ARCHS[name].reduced(),
+                               n_layers=cfg.n_layers)
+    shapes = jax.eval_shape(jreg.build_model(jcfg).init, KEY)
+    want = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(
+        shapes))
+    got = sum(leaf.numel() for leaf in tree_leaves(
+        reg.build_model(cfg).init(0, device="cpu")))
+    assert reg.packed_param_count(cfg) == want == got
+    with pytest.raises(NotImplementedError, match="qwen3-moe-30b-a3b"):
+        reg.packed_param_count(reg.ARCHS["qwen3-moe-30b-a3b"])
 
 
 # ---------------------------------------------------------------------------
