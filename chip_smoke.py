@@ -16,8 +16,11 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              (D,), D from the path's config: granite-8b's 637,554,688,
              falcon-mamba-7b's 476,967,488 and the reduced hybrid's
              568,192; flash attention B11 — forward,
-             dq, dk/dv — at the LLM round's (2, 32, 4096, 128) in bf16 and
-             on two ragged f32 cases; the gated linear scan B12 — forward
+             dq, dk/dv — at the LLM round's (2, 32, 4096, 128) in bf16 (the
+             tensor-core kernels) and on a ragged causal and a non-causal
+             (1, 2, 1000, 64) case in bf16 and in f32 (the SIMT kernels);
+             B2 at the scaleup phase's (65,536, 32); the gated linear scan
+             B12 — forward
              and backward — at the SSM round's (2, 4,096, 131,072), the
              hybrid's full-width (2, 4,096, 2,560), the hybrid path's
              (4, 128, 128) and a ragged (3, 1,000, 100); the accumulate
@@ -318,6 +321,12 @@ def phase_kernels(torch, card):
          lambda: ota.ota_receive(s_re, s_im, h_re, h_im, noise, ia_zero),
          lambda: ref.ota_receive(s_re, s_im, h_re, h_im, noise, ia_zero),
          4 * plane_b + 2 * vec_b + 4, 8 * W * d + 3 * d, (1e-5, 1e-6)),
+        # B2 at the scaleup phase's (65,536, 32): four planes in, Θ out
+        ("ota_receive[(65,536, 32)]", "src/repro/kernels/ota.py:201", "ota",
+         lambda: ota.ota_receive(*big[1:], noise[:32], ia),
+         lambda: ref.ota_receive(*big[1:], noise[:32], ia),
+         4 * 4 * 65_536 * 32 + 2 * 4 * 32 + 4, 8 * 65_536 * 32 + 3 * 32,
+         (1e-5, 1e-6), [65_536, 32], {}),
         ("admm_dual_update", "src/repro/kernels/admm_update.py:42",
          "admm_update",
          lambda: admm_update.admm_dual_update(lam_re, lam_im, h_re, h_im,
@@ -595,12 +604,20 @@ def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
 
 #: B11 rows: (label, B, H, S, hd, dtype name, causal).  The trainer's shape
 #: (granite-8b: 32 heads of 128 after GQA's repeat, W·B = 2, S = 4,096) in
-#: bf16, and two f32 cases: a ragged causal S = 1,000 and a non-causal one
+#: bf16, and a ragged causal S = 1,000 and a non-causal one in each dtype:
+#: bf16 runs the tensor-core kernels, f32 the SIMT ones, each with its own
+#: masking
 FLASH_CASES = (("", 2, 32, 4096, 128, "bfloat16", True),
+               ("[bf16 ragged (1, 2, 1000, 64)]", 1, 2, 1000, 64, "bfloat16",
+                True),
+               ("[bf16 non-causal (1, 2, 1000, 64)]", 1, 2, 1000, 64,
+                "bfloat16", False),
                ("[f32 ragged (1, 2, 1000, 64)]", 1, 2, 1000, 64, "float32",
                 True),
                ("[f32 non-causal (1, 2, 1000, 64)]", 1, 2, 1000, 64,
                 "float32", False))
+#: which cores each dtype's B11 kernels run on (``flash_attention.cu``)
+FLASH_CORES = {"bfloat16": "tensor cores", "float32": "simt"}
 
 
 def _flash_rows(torch, build, card):
@@ -685,7 +702,7 @@ def _flash_rows(torch, build, card):
                 "flash_attention", kernel, plain, nbytes, flops,
                 (rtol, rel_atol), [B, H, S, hd],
                 {"library": lib_what, "dtype": dtype_name, "causal": causal,
-                 "atol_of_max": rel_atol},
+                 "cores": FLASH_CORES[dtype_name], "atol_of_max": rel_atol},
                 tol_of=tol_of, library=library)
             rows[row["name"]] = row
         del q, k, v, do, o, lse, delta, leaves, sdpa_out
@@ -1635,7 +1652,8 @@ def _kernel_family(name: str) -> str:
                "population_step_kernel", "demodulate_kernel",
                "modulate_kernel", "receive_kernel", "dual_update_kernel",
                "flip_lambda_kernel", "round_finalize_kernel", "round_kernel",
-               "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
+               # B11: flash_<fwd|dq|dkv>_kernel (f32, SIMT) and _tc (bf16)
+               "flash_fwd", "flash_dq", "flash_dkv"):
         if fn in name:
             return "port:" + fn
     if any(k in name for k in ("gemm", "xmma", "nvjet", "cutlass")):

@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and becomes one
 shared library, built for ``sm_90a`` at first use into ``_build/`` next to
 this file (listed in ``.gitignore``).  The library's file name carries a hash
-of its source and the compiler flags, so an edited source is rebuilt and a
-stale library is never loaded.  :func:`build` starts one ``nvcc`` per missing
-library, all at once, and waits for them.
+of its source, of every ``csrc`` header it includes (``#include "…"``, at any
+depth) and of ``NVCC_FLAGS`` (every compile and link flag), so an edited
+source or header is rebuilt and a stale library is never loaded.
+:func:`build` starts one ``nvcc`` per missing library, all at once, and
+waits for them.
 
 Every C entry point takes the CUDA stream as its last argument, launches on
 it without synchronising, and returns ``cudaGetLastError()``.  :func:`launch`
@@ -18,6 +20,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -112,11 +115,30 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes from ``csrc``, at any
+    depth, in the order first reached."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc
+                 for inc in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(name: str, out: Path) -> List[str]:

@@ -5,8 +5,10 @@ a differentiable :func:`flash_attention` by a ``torch.autograd.Function``.
 Same contract as ``kernels/ota.py``: CUDA tensors launch the kernel or
 raise, CPU tensors take the plain version from ``kernels/ref.py``.  q is
 (B, H, S, hd), k and v (B, H, T, hd), contiguous, bf16 or f32 alike, with
-hd ∈ {16, 32, 64, 128}; lse and δ are f32 (B, H, S).  Counterpart of
-``repro/kernels/flash_attention.py``.
+hd ∈ {16, 32, 64, 128}; lse and δ are f32 (B, H, S); every operand
+16-byte aligned.  bf16 operands run the kernels on the tensor cores, f32
+operands the SIMT kernels (the C entry points choose by dtype).
+Counterpart of ``repro/kernels/flash_attention.py``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ Tensor = torch.Tensor
 #: head widths the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: gridDim.y carries B·H
+#: the SIMT (f32) kernels' gridDim.y carries B·H
 MAX_BH = 65535
 
 
@@ -60,7 +62,7 @@ def _check(name: str, q: Tensor, k: Tensor, v: Tensor,
         raise ValueError(f"{name}: B·H = {B * H} exceeds {MAX_BH}")
     if S == 0 or T == 0:
         raise ValueError(f"{name}: empty sequence (S={S}, T={T})")
-    for arg, t in primal.items():
+    for arg, t in {**primal, **rows}.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} is not 16-byte aligned")
     return dev, B * H, S, T, hd

@@ -75,6 +75,31 @@ def test_edited_source_gets_a_new_library(fake_cuda):
     assert after.is_file() and not before.exists()
 
 
+def test_edited_header_gets_a_new_library(fake_cuda):
+    """A header the source includes (at any depth) is part of the hash; a
+    header it does not include is not."""
+    csrc = build.CSRC
+    (csrc / "flash_attention.cu").write_text('#include "outer.cuh"\n')
+    (csrc / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("// inner\n")
+    (csrc / "unrelated.cuh").write_text("// unrelated\n")
+    assert [p.name for p in build.sources("flash_attention")] == [
+        "flash_attention.cu", "outer.cuh", "inner.cuh"]
+    before = build.library_path("flash_attention")
+    (csrc / "unrelated.cuh").write_text("// unrelated, edited\n")
+    assert build.library_path("flash_attention") == before
+    (csrc / "inner.cuh").write_text("// inner, edited\n")
+    after = build.library_path("flash_attention")
+    assert after != before and after.name.startswith("libflash_attention_")
+    assert build.library_path("ota") == build.library_path("ota")
+
+
+def test_flags_are_part_of_the_library_name(fake_cuda, monkeypatch):
+    before = build.library_path("ota")
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lcuda",))
+    assert build.library_path("ota") != before
+
+
 def test_failed_compile_raises_with_the_log(fake_cuda):
     (build.CSRC / "admm_update.cu").write_text("// FAIL\n")
     with pytest.raises(RuntimeError, match="forced failure"):

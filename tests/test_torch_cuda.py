@@ -338,6 +338,43 @@ def test_flash_kernels_bitwise_repeatable_and_counted(dev):
     assert delta.dtype == torch.float32
 
 
+@pytest.mark.parametrize("B,H,S,T,causal", [(1, 2, 1000, 1000, True),
+                                             (1, 2, 384, 200, False),
+                                             (1, 2, 200, 384, False)])
+def test_flash_bf16_tensor_cores_multi_tile(dev, B, H, S, T, causal):
+    """bf16 at hd = 128 over several query and key tiles of the
+    tensor-core kernels (128-row forward and dq blocks, 64- and 128-key
+    tiles, 64-row dk/dv tiles), ragged in S and T."""
+    q, k, v, do = _flash_inputs(dev, B, H, S, T, 128, torch.bfloat16)
+    o, lse = _launched("flash_attention_fwd",
+                       lambda: flash_attention.flash_attention_fwd(
+                           q, k, v, causal))
+    o_ref, lse_ref = ref.flash_attention_fwd(q, k, v, causal)
+    _flash_close([o], [o_ref], torch.bfloat16)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    delta = flash_attention.attention_delta(o, do)
+    dq = _launched("flash_attention_dq", lambda: flash_attention.
+                   flash_attention_dq(q, k, v, do, lse, delta, causal))
+    dk, dv = _launched("flash_attention_dkv", lambda: flash_attention.
+                       flash_attention_dkv(q, k, v, do, lse, delta, causal))
+    want = ref.flash_attention_bwd(q, k, v, do, causal, lse=lse, delta=delta)
+    _flash_close((dq, dk, dv), want, torch.bfloat16)
+
+
+def test_flash_bf16_bitwise_repeatable_over_tiles(dev):
+    """Two launches of each tensor-core kernel agree bit for bit where the
+    blocks stream many tiles (S = T = 1,000: 8 query blocks of 128 rows,
+    up to 16 key tiles of 64)."""
+    q, k, v, do = _flash_inputs(dev, 2, 4, 1000, 1000, 128, torch.bfloat16)
+    o1, l1 = flash_attention.flash_attention_fwd(q, k, v)
+    o2, l2 = flash_attention.flash_attention_fwd(q, k, v)
+    g1 = flash_attention.flash_attention_bwd(q, k, v, o1, l1, do)
+    g2 = flash_attention.flash_attention_bwd(q, k, v, o1, l1, do)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
 def test_flash_autograd_matches_plain_backward(dev):
     q, k, v, do = _flash_inputs(dev, 2, 2, 200, 200, 32, torch.float32)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
