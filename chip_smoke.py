@@ -19,8 +19,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              dq, dk/dv — at the LLM round's (2, 32, 4096, 128) in bf16 (the
              tensor-core kernels) and on a ragged causal and a non-causal
              (1, 2, 1000, 64) case in bf16 and in f32 (the SIMT kernels);
-             B2 at the scaleup phase's (65,536, 32); the gated linear scan
-             B12 — forward
+             B2 at the scaleup phase's (65,536, 32) on its split plan with
+             the unsplit time beside it, and at the MLP's width on its
+             unsplit plan, bit for bit a launch forced onto that path; B6
+             at each LLM D on the column plan with the row plan's time
+             beside it, and B7 at falcon-mamba-7b's D masked, with CSI and
+             the fused channel step (each B2/B6/B7 row names its ``plan``);
+             the gated linear scan B12 — forward
              and backward — at the SSM round's (2, 4,096, 131,072), the
              hybrid's full-width (2, 4,096, 2,560), the hybrid path's
              (4, 128, 128) and a ragged (3, 1,000, 100); the accumulate
@@ -301,6 +306,32 @@ def phase_kernels(torch, card):
         keep = torch.arange(W, device=dev) != bad_row
         return (outs[0], outs[1], outs[2][keep])
 
+    n_sm = ota_round.sm_count(dev)
+
+    def receive_plan(rows, cols):
+        return ota.receive_tiling(rows, cols, n_sm)
+
+    def unsplit(rows, cols):
+        return ota_round.Tiling("unsplit", 1, rows,
+                                -(-cols // ota.RECEIVE_THREADS), 1)
+
+    def receive_unsplit_bits(rows, cols):
+        """B2 at the paper MLP's width keeps its one-thread-a-column
+        kernel: the planner picks it, and its Θ is bit for bit a launch
+        forced onto that path."""
+        plan = receive_plan(rows, cols)
+        require(plan.plan == "unsplit",
+                f"ota_receive: ({rows}, {cols}) planned {plan}")
+        got = ota.ota_receive(s_re, s_im, h_re, h_im, noise, ia)
+        old = ota.ota_receive(s_re, s_im, h_re, h_im, noise, ia,
+                              plan=unsplit(rows, cols))
+        require(bool(torch.equal(got, old)),
+                "ota_receive: the planned launch and the unsplit path differ")
+        return {"plan": plan.plan, "bitwise_equal_to_unsplit": True}
+
+    def round_plan(rows, cols):
+        return {"plan": ota_round.tiling(rows, cols, n_sm).plan}
+
     # one pass of B6/B7: planes in and out, y and p2 (d,), energy (W,)
     def round_bytes(n_in, n_out, rows=W, cols=d, energy=True):
         return 4 * (rows * cols * (n_in + n_out) + 2 * cols
@@ -316,17 +347,24 @@ def phase_kernels(torch, card):
         ("ota_receive", "src/repro/kernels/ota.py:201", "ota",
          lambda: ota.ota_receive(s_re, s_im, h_re, h_im, noise, ia),
          lambda: ref.ota_receive(s_re, s_im, h_re, h_im, noise, ia),
-         4 * plane_b + 2 * vec_b + 4, 8 * W * d + 3 * d, (1e-5, 1e-6)),
+         4 * plane_b + 2 * vec_b + 4, 8 * W * d + 3 * d, (1e-5, 1e-6),
+         [W, d], receive_unsplit_bits(W, d)),
         ("ota_receive[inv_alpha=0]", "src/repro/kernels/ota.py:201", "ota",
          lambda: ota.ota_receive(s_re, s_im, h_re, h_im, noise, ia_zero),
          lambda: ref.ota_receive(s_re, s_im, h_re, h_im, noise, ia_zero),
-         4 * plane_b + 2 * vec_b + 4, 8 * W * d + 3 * d, (1e-5, 1e-6)),
-        # B2 at the scaleup phase's (65,536, 32): four planes in, Θ out
+         4 * plane_b + 2 * vec_b + 4, 8 * W * d + 3 * d, (1e-5, 1e-6),
+         [W, d], {"plan": receive_plan(W, d).plan}),
+        # B2 at the scaleup phase's (65,536, 32): four planes in, Θ out;
+        # the worker axis split, its unsplit time beside it
         ("ota_receive[(65,536, 32)]", "src/repro/kernels/ota.py:201", "ota",
          lambda: ota.ota_receive(*big[1:], noise[:32], ia),
          lambda: ref.ota_receive(*big[1:], noise[:32], ia),
          4 * 4 * 65_536 * 32 + 2 * 4 * 32 + 4, 8 * 65_536 * 32 + 3 * 32,
-         (1e-5, 1e-6), [65_536, 32], {}),
+         (1e-5, 1e-6), [65_536, 32], {
+             "plan": receive_plan(65_536, 32).plan,
+             "unsplit_ms": time_ms(torch, lambda: ota.ota_receive(
+                 *big[1:], noise[:32], ia,
+                 plan=unsplit(65_536, 32)))}),
         ("admm_dual_update", "src/repro/kernels/admm_update.py:42",
          "admm_update",
          lambda: admm_update.admm_dual_update(lam_re, lam_im, h_re, h_im,
@@ -401,7 +439,8 @@ def phase_kernels(torch, card):
          lambda: ota_round.ota_round_stats(theta, lam_re, lam_im, h_re, h_im,
                                            rho),
          lambda: ref.ota_round_stats(theta, lam_re, lam_im, h_re, h_im, rho),
-         round_bytes(5, 0), 18 * W * d, (1e-5, 1e-4)),
+         round_bytes(5, 0), 18 * W * d, (1e-5, 1e-4), [W, d],
+         round_plan(W, d)),
         # every row is read: the energy is promised for masked rows too
         ("ota_round_stats[mask, h_tx, NaN row]",
          "src/repro/kernels/ota_round.py:203", "ota_round",
@@ -410,8 +449,8 @@ def phase_kernels(torch, card):
                                            htx=(tx_re, tx_im)),
          lambda: ref.ota_round_stats(theta_bad, lam_re, lam_im, h_re, h_im,
                                      rho, mask=mask, htx=(tx_re, tx_im)),
-         round_bytes(7, 0) + W, 18 * W * d, (1e-5, 1e-4), [W, d], {},
-         drop_nan_row),
+         round_bytes(7, 0) + W, 18 * W * d, (1e-5, 1e-4), [W, d],
+         round_plan(W, d), drop_nan_row),
         ("ota_round_stats[channel step]",
          "src/repro/kernels/ota_round.py:203", "ota_round",
          lambda: ota_round.ota_round_stats(
@@ -420,7 +459,8 @@ def phase_kernels(torch, card):
          lambda: ref.ota_round_stats(
              theta, lam_re, lam_im, h_re, h_im, rho,
              chan=(w_re, w_im, rho_f, scale_f, True)),
-         round_bytes(7, 2), 24 * W * d, (1e-5, 1e-4)),
+         round_bytes(7, 2), 24 * W * d, (1e-5, 1e-4), [W, d],
+         round_plan(W, d)),
         # the held channel reads no innovations
         ("ota_round_stats[channel step, held]",
          "src/repro/kernels/ota_round.py:203", "ota_round",
@@ -430,21 +470,23 @@ def phase_kernels(torch, card):
          lambda: ref.ota_round_stats(
              theta, lam_re, lam_im, h_re, h_im, rho,
              chan=(w_re, w_im, rho_f, scale_f, False)),
-         round_bytes(5, 2), 18 * W * d, (1e-5, 1e-4)),
+         round_bytes(5, 2), 18 * W * d, (1e-5, 1e-4), [W, d],
+         round_plan(W, d)),
         # 65,536 terms a column: a reordering moves y by up to ~1e-3
         ("ota_round_stats[(65,536, 32)]",
          "src/repro/kernels/ota_round.py:203", "ota_round",
          lambda: ota_round.ota_round_stats(*big, rho),
          lambda: ref.ota_round_stats(*big, rho),
          round_bytes(5, 0, 65_536, 32), 18 * 65_536 * 32, (1e-5, 1e-3),
-         [65_536, 32], {}),
+         [65_536, 32], round_plan(65_536, 32)),
         ("ota_round_theta", "src/repro/kernels/ota_round.py:223",
          "ota_round",
          lambda: ota_round.ota_round_theta(theta, lam_re, lam_im, h_re, h_im,
                                            noise, ia, rho),
          lambda: ref.ota_round_theta(theta, lam_re, lam_im, h_re, h_im,
                                      noise, ia, rho),
-         round_bytes(5, 0, energy=False) + 4, 20 * W * d, (1e-5, 1e-6)),
+         round_bytes(5, 0, energy=False) + 4, 20 * W * d, (1e-5, 1e-6),
+         [W, d], round_plan(W, d)),
         # elementwise, rounded as the plain version rounds
         ("ota_demodulate_dyn", "src/repro/kernels/ota.py:147", "ota",
          lambda: ota.ota_demodulate_dyn(y_vec, noise, p2_vec, ia),
@@ -469,9 +511,13 @@ def phase_kernels(torch, card):
         row = _kernel_row(torch, build, mem_rate, f32_rate, *case)
         results[row["name"]] = row
     del cases
-    for W, d in _llm_round_shapes():
+    shapes = _llm_round_shapes()
+    for W, d in shapes:
         results.update(_llm_round_rows(torch, build, mem_rate, f32_rate, W,
                                        d))
+    # B7 at the SSM round's ragged D (no multiple of 128) in every mode
+    results.update(_llm_theta_row(torch, build, mem_rate, f32_rate,
+                                  *shapes[1]))
     results.update(_flash_rows(torch, build, card))
     results.update(_scan_rows(torch, build, mem_rate, f32_rate))
     return results
@@ -562,17 +608,23 @@ def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
         * (0.05 if i == 0 else math.sqrt(0.5)) for i in range(5))
     Theta = torch.randn(d, generator=gen, device=dev) * 0.05
     rows = {}
+    plan = ota_round.tiling(W, d, ota_round.sm_count(dev))
+    row_plan = ota_round.row_tiling(W, d)
     # y/p2 sum two workers (the same two terms in either order); the energy
-    # sums up to 637.6 M terms, which the kernel groups in 128-column tiles
-    # (the last one ragged where D is no multiple of 128) and a
-    # lane-strided finalize over up to ~5 M partials: held by rtol 1e-4
+    # sums up to 637.6 M terms, which the column plan groups per thread
+    # over its grid stride, then per block, then over ~10³ block partials:
+    # held by rtol 1e-4.  The row plan's time on the same planes (its
+    # 128-column tiles and one-warp-a-row finalize) stands beside it.
     rows["b6"] = _kernel_row(
         torch, build, mem_rate, f32_rate, "ota_round_stats" + label,
         "src/repro/kernels/ota_round.py:203", "ota_round",
         lambda: ota_round.ota_round_stats(theta, lam_re, lam_im, h_re, h_im,
                                           0.5),
         lambda: ref.ota_round_stats(theta, lam_re, lam_im, h_re, h_im, 0.5),
-        4 * (W * d * 5 + 2 * d + W), 18 * W * d, (1e-4, 1e-4), shape, {})
+        4 * (W * d * 5 + 2 * d + W), 18 * W * d, (1e-4, 1e-4), shape,
+        {"plan": plan.plan, "tiling": list(plan),
+         "row_plan_ms": time_ms(torch, lambda: ota_round.ota_round_stats(
+             theta, lam_re, lam_im, h_re, h_im, 0.5, plan=row_plan))})
     # elementwise: five planes and Θ in, two planes out, as at (100, 109,386)
     rows["b4"] = _kernel_row(
         torch, build, mem_rate, f32_rate, "admm_dual_update" + label,
@@ -600,6 +652,65 @@ def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
     del y, noise, p2, ia
     torch.cuda.empty_cache()
     return {row["name"]: row for row in rows.values()}
+
+
+#: columns of the chunked plain version of B7 at an LLM D: its temporaries
+#: stay at a chunk's size
+THETA_CHUNK = 1 << 26
+
+
+def _llm_theta_row(torch, build, mem_rate, f32_rate, W: int, d: int):
+    """B7 at an LLM round's (W, D) in the masked, CSI and fused-channel mode
+    (nine (W, D) planes in, the stepped channel's two out: 42 GB at
+    falcon-mamba-7b's D), worker 1 masked with a NaN θ row.  Θ is
+    columnwise, so the plain version runs in column chunks into its
+    outputs; the planes are freed after the row."""
+    from repro_torch import rng
+    from repro_torch.kernels import ota_round, ref
+
+    dev = torch.device("cuda")
+    gen = rng.generator(SEED + 29, dev)
+    theta, lam_re, lam_im, h_re, h_im, tx_re, tx_im, w_re, w_im = (
+        torch.randn((W, d), generator=gen, device=dev)
+        * (0.05 if i == 0 else math.sqrt(0.5)) for i in range(9))
+    theta[W - 1] = float("nan")
+    mask = torch.arange(W, device=dev) != W - 1
+    noise = torch.randn(d, generator=gen, device=dev) * 7e-4
+    ia = torch.tensor(0.37, device=dev)
+    rho_f = 0.9755
+    chan = (w_re, w_im, rho_f, math.sqrt(1 - rho_f ** 2), True)
+    planes = (theta, lam_re, lam_im, h_re, h_im)
+    plan = ota_round.tiling(W, d, ota_round.sm_count(dev))
+
+    def plain():
+        Theta = torch.empty(d, device=dev)
+        hn_re = torch.empty((W, d), device=dev)
+        hn_im = torch.empty((W, d), device=dev)
+        for a in range(0, d, THETA_CHUNK):
+            b = min(d, a + THETA_CHUNK)
+            out = ref.ota_round_theta(
+                *(x[:, a:b] for x in planes), noise[a:b], ia, 0.5,
+                mask=mask, htx=(tx_re[:, a:b], tx_im[:, a:b]),
+                chan=(w_re[:, a:b], w_im[:, a:b], *chan[2:]))
+            Theta[a:b], hn_re[:, a:b], hn_im[:, a:b] = out
+        return Theta, hn_re, hn_im
+
+    # Θ as at (100, 109,386); the column plan rounds as the plain version
+    # does, so the two agree to the bit where the W = 2 sums run in order
+    row = _kernel_row(
+        torch, build, mem_rate, f32_rate,
+        f"ota_round_theta[({W}, {d:,}) mask+csi+chan]",
+        "src/repro/kernels/ota_round.py:223", "ota_round",
+        lambda: ota_round.ota_round_theta(*planes, noise, ia, 0.5,
+                                          mask=mask, htx=(tx_re, tx_im),
+                                          chan=chan),
+        plain, 4 * (W * d * 11 + 2 * d) + W + 4, 26 * W * d, (1e-5, 1e-6),
+        [W, d], {"plan": plan.plan, "tiling": list(plan),
+                 "mode": "mask+csi+chan"})
+    del theta, lam_re, lam_im, h_re, h_im, tx_re, tx_im, w_re, w_im, planes
+    del chan, noise, mask
+    torch.cuda.empty_cache()
+    return {row["name"]: row}
 
 
 #: B11 rows: (label, B, H, S, hd, dtype name, causal).  The trainer's shape
@@ -1066,7 +1177,7 @@ def phase_scaleup(torch, card):
     from repro_torch.core.aggregators import make
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.core.subcarrier import SubcarrierPlan
-    from repro_torch.kernels import build, ota
+    from repro_torch.kernels import build, ota, ota_round
     from repro_torch.phy import make_scenario
     from repro_torch.train.fl_trainer import train
 
@@ -1105,7 +1216,7 @@ def phase_scaleup(torch, card):
         "population_step": 1, "ota_modulate": 1, "ota_receive": 1,
         "admm_dual_update": 1, "fading_step": 0})
 
-    # the receive at this shape: one thread per column has 32 columns
+    # the receive at this shape: 32 columns, the worker axis split
     gen = rng.generator(SEED + 5, dev)
     planes = [torch.randn((W, D), generator=gen, device=dev)
               for _ in range(4)]
@@ -1118,6 +1229,8 @@ def phase_scaleup(torch, card):
           "seconds_per_round": run_s / n_rounds, "theta_rms": hist.loss,
           "inv_alpha": hist.extra["inv_alpha"],
           "receive_ms": recv_ms, "receive_bytes": recv_bytes,
+          "receive_plan": list(ota.receive_tiling(
+              W, D, ota_round.sm_count(dev))),
           "receive_bound_ms": recv_bytes / mem_rate * 1e3,
           "launches": launches})
     return launches
@@ -1650,8 +1763,11 @@ def _kernel_family(name: str) -> str:
                "accumulate_kernel", "receive_masked_kernel",
                "fading_step_kernel",
                "population_step_kernel", "demodulate_kernel",
-               "modulate_kernel", "receive_kernel", "dual_update_kernel",
+               "modulate_kernel", "receive_kernel", "receive_split_kernel",
+               "receive_finalize_kernel", "dual_update_kernel",
                "flip_lambda_kernel", "round_finalize_kernel", "round_kernel",
+               # B6/B7's column plan and its energy finalize
+               "round_cols_kernel", "round_energy_kernel",
                # B11: flash_<fwd|dq|dkv>_kernel (f32, SIMT) and _tc (bf16)
                "flash_fwd", "flash_dq", "flash_dkv"):
         if fn in name:
@@ -1717,8 +1833,11 @@ def phase_profile(torch, path: str, run_once, round_s: float):
             f = families.get("port:" + fam)
             return f["device_ms"] / f["calls"] if f else 0.0
 
-        # one unguarded fused pass: B6 (with its finalize) and one B3′
+        # one unguarded fused pass: B6 (with its finalize, on either plan)
+        # and one B3′
         base_ms = (per_call("round_kernel") + per_call("round_finalize_kernel")
+                   + per_call("round_cols_kernel")
+                   + per_call("round_energy_kernel")
                    + per_call("demodulate_kernel"))
         guard = {"span_device_ms": span_ms, "span_share": span_ms / device_ms,
                  "beyond_one_pass_ms": span_ms - base_ms,

@@ -12,7 +12,9 @@ waits for them.
 Every C entry point takes the CUDA stream as its last argument, launches on
 it without synchronising, and returns ``cudaGetLastError()``.  :func:`launch`
 passes PyTorch's current stream, raises on a non-zero return, and only then
-adds one to the wrapper's count in :data:`launches`.
+adds one to the wrapper's count in :data:`launches`.  A wrapper with several
+plans (one C entry point each) counts every plan under its own name, so one
+wrapper call is one counted launch.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "ota": {
         "ota_modulate": [_PTR] * 7 + [_I64, _F32, _PTR],
         "ota_receive": [_PTR] * 7 + [_I64, _I64, _PTR],
+        "ota_receive_split": [_PTR] * 9 + [_I64, _I64, _INT, _I64, _PTR],
         "ota_demodulate_dyn": [_PTR] * 5 + [_I64, _PTR],
         "ota_demodulate": [_PTR] * 4 + [_I64, _F32, _PTR],
         "ota_accumulate": [_PTR] * 8 + [_I64, _PTR],
@@ -52,6 +55,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                           _F32, _INT, _PTR],
         "ota_round_theta": [_PTR] * 17 + [_I64, _I64, _INT, _I64, _F32, _F32,
                                           _F32, _INT, _PTR],
+        "ota_round_stats_cols": [_PTR] * 16 + [_I64, _I64, _INT, _I64, _F32,
+                                               _F32, _F32, _INT, _PTR],
+        "ota_round_theta_cols": [_PTR] * 15 + [_I64, _I64, _INT, _I64, _F32,
+                                               _F32, _F32, _INT, _PTR],
     },
     "admm_update": {
         "admm_dual_update": [_PTR] * 9 + [_I64, _I64, _F32, _PTR],
@@ -220,13 +227,15 @@ def check_cuda(name: str, dtypes, **tensors: torch.Tensor) -> torch.device:
     return device
 
 
-def launch(lib_name: str, fn_name: str, device: torch.device, *args) -> None:
+def launch(lib_name: str, fn_name: str, device: torch.device, *args,
+           count: str = "") -> None:
     """Call C entry point ``fn_name`` on ``device``'s current PyTorch stream;
-    raise if it reports a CUDA error, else count the launch."""
+    raise if it reports a CUDA error, else count the launch under ``count``
+    (the wrapper's name; ``fn_name`` by default)."""
     fn = getattr(library(lib_name), fn_name)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: kernel launch failed with "
                            f"cudaError_t {err}")
-    launches[fn_name] += 1
+    launches[count or fn_name] += 1

@@ -14,10 +14,19 @@
 // output byte once, and keeps intermediates in registers:
 //   * modulate is one thread per element in a grid-stride loop; neighbouring
 //     threads touch neighbouring addresses, so every load and store coalesces.
-//   * receive is one thread per column j.  The thread walks the W worker
-//     rows, keeping the superposition y and the pilot p2 in registers, so the
-//     (d,) sums never reach device memory.  Within one row neighbouring
-//     threads read neighbouring columns, so the loads coalesce.
+//   * receive is one thread per column j where the columns fill the card
+//     (the paper MLP's d = 109,386: 428 blocks).  The thread walks the W
+//     worker rows, keeping the superposition y and the pilot p2 in
+//     registers, so the (d,) sums never reach device memory.  Within one row
+//     neighbouring threads read neighbouring columns, so the loads coalesce.
+//   * where they cannot (65,536 workers over d = 32: one block of 32
+//     threads walking 65,536 rows), the receive splits the worker axis as
+//     B6's row plan does (kernels/ota_round.py, row_tiling): a block is 8
+//     warps over a tile of 32·k columns and a slice of the rows, a warp
+//     takes whole rows, y/p2 meet across the warps in shared memory and go
+//     to a (d, n_slices) partial; a finalize pass, one warp per column, sums
+//     the partials lane-strided in a fixed order and applies Θ's epilogue
+//     in the plain version's rounding order.  No float atomics.
 // Loads are scalar: rows of a (W, d) plane start only 4-byte aligned when d
 // is odd (the paper MLP has d = 109,386), so float4 loads across rows would
 // be misaligned.  Indices are 64-bit: packed buffers exceed 2^31 elements.
@@ -87,6 +96,109 @@ __global__ void receive_kernel(const float* __restrict__ s_re,
   }
 }
 
+constexpr int kSplitWarps = 8;
+constexpr int kSplitThreads = kSplitWarps * 32;
+constexpr int kSplitMaxK = 4;
+constexpr int64_t kMaxSlices = 65535;  // gridDim.y
+
+__device__ __forceinline__ float demod(float y, float z, float ia, float p2) {
+  // the plain version's order, rounded at each step as it is
+  return __fdiv_rn(__fadd_rn(y, __fmul_rn(z, ia)), fmaxf(p2, 1e-12f));
+}
+
+// Block (tile, slice): columns [32·k·tile, +32·k), rows [rows·slice, +rows).
+// With one slice it writes Θ; with several, the (d, n_slices) partials.
+__global__ void __launch_bounds__(kSplitThreads)
+receive_split_kernel(const float* __restrict__ s_re,
+                     const float* __restrict__ s_im,
+                     const float* __restrict__ h_re,
+                     const float* __restrict__ h_im,
+                     const float* __restrict__ noise_re,
+                     const float* __restrict__ inv_alpha,
+                     float* __restrict__ out, float* __restrict__ y_part,
+                     float* __restrict__ p2_part, int64_t n_workers,
+                     int64_t d, int k, int64_t rows_per_slice,
+                     int64_t n_slices) {
+  __shared__ float sy[kSplitWarps][kSplitMaxK * 32];
+  __shared__ float sp[kSplitWarps][kSplitMaxK * 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t slice = blockIdx.y;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * 32 * k;
+  const int64_t r0 = slice * rows_per_slice;
+  const int64_t r1 = r0 + rows_per_slice < n_workers ? r0 + rows_per_slice
+                                                     : n_workers;
+  float y[kSplitMaxK];
+  float p2[kSplitMaxK];
+#pragma unroll
+  for (int j = 0; j < kSplitMaxK; ++j) {
+    y[j] = 0.0f;
+    p2[j] = 0.0f;
+  }
+#pragma unroll 4
+  for (int64_t r = r0 + warp; r < r1; r += kSplitWarps) {
+#pragma unroll
+    for (int j = 0; j < kSplitMaxK; ++j) {
+      const int64_t c = c0 + lane + 32 * j;
+      if (j >= k || c >= d) continue;
+      const int64_t i = r * d + c;
+      const float hr = h_re[i];
+      const float hi = h_im[i];
+      y[j] += hr * s_re[i] - hi * s_im[i];
+      p2[j] += hr * hr + hi * hi;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kSplitMaxK; ++j) {
+    sy[warp][lane + 32 * j] = y[j];
+    sp[warp][lane + 32 * j] = p2[j];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < 32 * k; t += kSplitThreads) {
+    const int64_t c = c0 + t;
+    if (c >= d) continue;
+    float ys = 0.0f;
+    float ps = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      ys += sy[w][t];
+      ps += sp[w][t];
+    }
+    if (n_slices > 1) {
+      y_part[c * n_slices + slice] = ys;
+      p2_part[c * n_slices + slice] = ps;
+    } else {
+      out[c] = demod(ys, noise_re[c], *inv_alpha, ps);
+    }
+  }
+}
+
+// One warp per column: its n_slices partials, lane-strided, then a
+// warp-shuffle tree, then Θ.
+__global__ void receive_finalize_kernel(const float* __restrict__ y_part,
+                                        const float* __restrict__ p2_part,
+                                        const float* __restrict__ noise_re,
+                                        const float* __restrict__ inv_alpha,
+                                        float* __restrict__ out, int64_t d,
+                                        int64_t n_slices) {
+  const int64_t c = (static_cast<int64_t>(blockIdx.x) * blockDim.x
+                     + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (c >= d) return;  // the same for every lane of the warp
+  float ys = 0.0f;
+  float ps = 0.0f;
+  for (int64_t s = lane; s < n_slices; s += 32) {
+    ys += y_part[c * n_slices + s];
+    ps += p2_part[c * n_slices + s];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    ys += __shfl_down_sync(0xffffffffu, ys, off);
+    ps += __shfl_down_sync(0xffffffffu, ps, off);
+  }
+  if (lane == 0) out[c] = demod(ys, noise_re[c], *inv_alpha, ps);
+}
+
 __global__ void demodulate_kernel(const float* __restrict__ y,
                                   const float* __restrict__ noise_re,
                                   const float* __restrict__ p2,
@@ -97,8 +209,7 @@ __global__ void demodulate_kernel(const float* __restrict__ y,
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
-    out[i] = __fdiv_rn(__fadd_rn(y[i], __fmul_rn(noise_re[i], ia)),
-                       fmaxf(p2[i], 1e-12f));
+    out[i] = demod(y[i], noise_re[i], ia, p2[i]);
   }
 }
 
@@ -142,6 +253,40 @@ extern "C" int ota_receive(const float* s_re, const float* s_im,
   if (d <= 0) return static_cast<int>(cudaSuccess);
   receive_kernel<<<grid_for(d), kThreads, 0, stream>>>(
       s_re, s_im, h_re, h_im, noise_re, inv_alpha, out, n_workers, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2 with the worker axis split: y_part/p2_part are (d, n_slices) scratch,
+// used when n_slices > 1 (else may be null).
+extern "C" int ota_receive_split(const float* s_re, const float* s_im,
+                                 const float* h_re, const float* h_im,
+                                 const float* noise_re,
+                                 const float* inv_alpha, float* y_part,
+                                 float* p2_part, float* out,
+                                 int64_t n_workers, int64_t d, int k,
+                                 int64_t rows_per_slice,
+                                 cudaStream_t stream) {
+  if (n_workers <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
+  if (k < 1 || k > kSplitMaxK || rows_per_slice < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t n_tiles = (d + 32 * k - 1) / (32 * k);
+  const int64_t n_slices = (n_workers + rows_per_slice - 1) / rows_per_slice;
+  if (n_slices > kMaxSlices || n_tiles > INT32_MAX
+      || (n_slices > 1 && (y_part == nullptr || p2_part == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(n_tiles),
+                  static_cast<unsigned>(n_slices));
+  receive_split_kernel<<<grid, kSplitThreads, 0, stream>>>(
+      s_re, s_im, h_re, h_im, noise_re, inv_alpha, out, y_part, p2_part,
+      n_workers, d, k, rows_per_slice, n_slices);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_slices == 1) return static_cast<int>(err);
+  const int64_t blocks = (d + kSplitWarps - 1) / kSplitWarps;
+  receive_finalize_kernel<<<static_cast<unsigned>(blocks), kSplitThreads, 0,
+                            stream>>>(y_part, p2_part, noise_re, inv_alpha,
+                                      out, d, n_slices);
   return static_cast<int>(cudaGetLastError());
 }
 

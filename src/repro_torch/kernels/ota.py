@@ -4,17 +4,32 @@ On CUDA tensors each wrapper checks its operands, allocates its outputs with
 ``torch.empty``, launches its kernel on the current stream and counts the
 launch in ``build.launches``; it raises on anything the kernel does not
 take.  On CPU tensors it returns the plain version from ``kernels/ref.py``
-and launches nothing.  Counterpart of ``repro/kernels/ota.py``.
+and launches nothing.  ``ota_receive`` has two plans
+(:func:`receive_tiling`), each one counted launch.  Counterpart of
+``repro/kernels/ota.py``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ota_round, ref
+from repro_torch.kernels.ota_round import Tiling
 
 Tensor = torch.Tensor
+
+#: threads of a block of the unsplit receive (the kernel's kThreads) and
+#: its most blocks (kMaxBlocks)
+RECEIVE_THREADS = 256
+RECEIVE_MAX_BLOCKS = 1 << 20
+#: the split receive needs at least this many workers: at d = 32 it is
+#: faster from W = 32 up (8.3 against 10.6 µs; tools/sweep_ota_round.py);
+#: below that one thread walks its rows in a few µs and the finalize's
+#: second launch costs as much
+RECEIVE_SPLIT_MIN_ROWS = 32
+#: blocks the split receive aims for (tools/sweep_ota_round.py)
+RECEIVE_TARGET_BLOCKS = ota_round.TARGET_BLOCKS
 
 
 def ota_modulate(theta: Tensor, lam_re: Tensor, lam_im: Tensor, h_re: Tensor,
@@ -38,13 +53,31 @@ def ota_modulate(theta: Tensor, lam_re: Tensor, lam_im: Tensor, h_re: Tensor,
     return s_re, s_im
 
 
+def receive_tiling(n_workers: int, d: int,
+                   n_sm: int = ota_round.SMS) -> Tiling:
+    """B2's plan: one thread per column (``"unsplit"``) where the columns'
+    blocks fill the card's ``n_sm`` SMs or the workers are few; else the
+    worker axis split as B6's row plan splits it (``"split"``, its grid
+    from :func:`ota_round.row_tiling`).  (100, 109,386) stays unsplit;
+    (65,536, 32) splits into 525 slices of 125 rows."""
+    blocks = -(-d // RECEIVE_THREADS)
+    if blocks < n_sm and n_workers >= RECEIVE_SPLIT_MIN_ROWS:
+        t = ota_round.row_tiling(n_workers, d, RECEIVE_TARGET_BLOCKS)
+        if t.n_slices > 1:
+            return t._replace(plan="split")
+    return Tiling("unsplit", 1, n_workers,
+                  max(1, min(blocks, RECEIVE_MAX_BLOCKS)), 1)
+
+
 def ota_receive(s_re: Tensor, s_im: Tensor, h_re: Tensor, h_im: Tensor,
-                noise_re: Tensor, inv_alpha: Tensor) -> Tensor:
+                noise_re: Tensor, inv_alpha: Tensor, *,
+                plan: Optional[Tiling] = None) -> Tensor:
     """Fused receive chain (B2): Θ = (Re{Σ_w h_w⊙s_w} + z·α⁻¹)/max(Σ|h|², 1e-12).
 
     s/h: (W, d) planes; noise_re: (d,); inv_alpha: a one-element tensor,
     read by the kernel on the device so the host never waits for it.
-    Returns (d,) float32."""
+    ``plan``: the kernel's grid, :func:`receive_tiling`'s by default.
+    Returns (d,) float32; one counted launch whichever plan runs."""
     if build.resolve_backend(s_re.device) == "torch":
         return ref.ota_receive(s_re, s_im, h_re, h_im, noise_re, inv_alpha)
     if not isinstance(inv_alpha, torch.Tensor) or inv_alpha.numel() != 1:
@@ -64,10 +97,23 @@ def ota_receive(s_re: Tensor, s_im: Tensor, h_re: Tensor, h_im: Tensor,
     if noise_re.shape != (d,):
         raise ValueError(f"ota_receive: noise_re has shape "
                          f"{tuple(noise_re.shape)}, want ({d},)")
+    if plan is None:
+        plan = receive_tiling(W, d, ota_round.sm_count(dev))
+    ota_round.check_tiling("ota_receive", plan, W, d)
     out = torch.empty(d, dtype=torch.float32, device=dev)
-    build.launch("ota", "ota_receive", dev, s_re.data_ptr(), s_im.data_ptr(),
-                 h_re.data_ptr(), h_im.data_ptr(), noise_re.data_ptr(),
-                 inv_alpha.data_ptr(), out.data_ptr(), W, d)
+    ptrs = [t.data_ptr() for t in (s_re, s_im, h_re, h_im, noise_re,
+                                   inv_alpha)]
+    if plan.plan == "unsplit":
+        build.launch("ota", "ota_receive", dev, *ptrs, out.data_ptr(), W, d)
+        return out
+    parts = (None, None)          # (d, n_slices) y/p2 partials
+    if plan.n_slices > 1:
+        parts = tuple(torch.empty((d, plan.n_slices), dtype=torch.float32,
+                                  device=dev) for _ in range(2))
+    build.launch("ota", "ota_receive_split", dev, *ptrs,
+                 *(None if p is None else p.data_ptr() for p in parts),
+                 out.data_ptr(), W, d, plan.k, plan.rows_per_slice,
+                 count="ota_receive")
     return out
 
 

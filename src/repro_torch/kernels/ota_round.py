@@ -3,12 +3,14 @@
 
 Same contract as ``kernels/ota.py``: CUDA tensors launch the kernel or
 raise, CPU tensors take the plain version from ``kernels/ref.py``.  The
-wrapper picks the kernel's 2-D tiling from the shape (:func:`tiling`) and
-allocates the partial-sum scratch it needs.  Counterpart of
-``repro/kernels/ota_round.py``.
+wrapper picks the kernel's plan and grid from the shape (:func:`tiling`):
+the row plan for many workers, the column plan for few, and allocates the
+partial-sum scratch it needs.  Either plan is one counted launch.
+Counterpart of ``repro/kernels/ota_round.py``.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -17,35 +19,116 @@ from repro_torch.kernels import build, ref
 
 Tensor = torch.Tensor
 
-#: warps of a block (the kernel's kWarps)
+#: warps of a row-plan block (the kernel's kWarps)
 WARPS = 8
-#: most columns a lane takes (the kernel's kMaxK)
+#: most columns a lane takes in the row plan (the kernel's kMaxK)
 MAX_COLS_PER_LANE = 4
-#: blocks to aim for: four per SM of an H100's 132
-TARGET_BLOCKS = 4 * 132
+#: SMs of an H100, for the row plan's grid and a default elsewhere
+SMS = 132
+#: blocks the row plan aims for: four per SM of an H100
+TARGET_BLOCKS = 4 * SMS
 #: gridDim.y, the most worker slices
 MAX_SLICES = 65535
+#: the most workers the column plan takes (the kernel's kColMaxWorkers)
+MAX_COLUMN_WORKERS = 16
+#: W below this takes the column plan: it beats the row plan at every W
+#: from 2 to 16 (tools/sweep_ota_round.py)
+COLUMN_BELOW = MAX_COLUMN_WORKERS + 1
+#: threads of a column-plan block (the kernel's kColThreads)
+COLUMN_THREADS = 256
+#: column-plan blocks per SM: the blocks that fit an SM at once (the
+#: kernel's kColMinBlocksPerSm), one wave (tools/sweep_ota_round.py)
+COLUMN_BLOCKS_PER_SM = 3
 
 
 class Tiling(NamedTuple):
-    k: int               # columns per lane: a block's tile is 32·k columns
-    rows_per_slice: int  # worker rows of a block
+    """A kernel's plan and grid.  ``plan`` is ``"row"`` or ``"column"`` for
+    B6/B7, ``"split"`` or ``"unsplit"`` for B2 (``kernels/ota.py``).
+
+    * row / split: a block is 8 warps over a tile of 32·``k`` columns and
+      ``rows_per_slice`` worker rows; ``n_tiles`` × ``n_slices`` blocks.
+    * column: each thread loads ``k`` floats at once (4: 16-byte loads, or
+      1) and walks all ``rows_per_slice`` = W rows; ``n_tiles`` blocks
+      stride over the columns, ``n_slices`` = 1.
+    * unsplit: one thread per column, ``n_tiles`` blocks."""
+    plan: str
+    k: int
+    rows_per_slice: int
     n_tiles: int
     n_slices: int
 
 
-def tiling(n_workers: int, d: int) -> Tiling:
-    """The kernel's grid for (W, d) planes: column tiles as wide as the
-    row allows, then the worker axis split until about
-    :data:`TARGET_BLOCKS` blocks are in flight (at least one row per warp
-    in a slice).  (100, 109,386) gives 855 tiles of one slice; (65,536, 32)
-    one tile of 525 slices."""
+def row_tiling(n_workers: int, d: int,
+               target_blocks: int = TARGET_BLOCKS) -> Tiling:
+    """The row plan's grid for (W, d) planes: column tiles as wide as the
+    row allows, then the worker axis split until about ``target_blocks``
+    blocks are in flight (at least one row per warp in a slice).
+    (100, 109,386) gives 855 tiles of one slice; (65,536, 32) one tile of
+    525 slices."""
     k = max(1, min(MAX_COLS_PER_LANE, -(-d // 32)))
     n_tiles = -(-d // (32 * k))
-    want = max(1, min(-(-TARGET_BLOCKS // n_tiles), -(-n_workers // WARPS),
+    want = max(1, min(-(-target_blocks // n_tiles), -(-n_workers // WARPS),
                       MAX_SLICES))
     rows = -(-n_workers // want)
-    return Tiling(k, rows, n_tiles, -(-n_workers // rows))
+    return Tiling("row", k, rows, n_tiles, -(-n_workers // rows))
+
+
+def column_tiling(n_workers: int, d: int, n_sm: int = SMS,
+                  aligned: bool = True,
+                  blocks_per_sm: int = COLUMN_BLOCKS_PER_SM) -> Tiling:
+    """The column plan's grid: 16-byte loads where d % 4 == 0 and the
+    planes are ``aligned``, and ``blocks_per_sm`` blocks an SM, fewer where
+    the columns run out first."""
+    vec = 4 if aligned and d % 4 == 0 else 1
+    groups = -(-d // vec)
+    blocks = max(1, min(blocks_per_sm * n_sm, -(-groups // COLUMN_THREADS)))
+    return Tiling("column", vec, n_workers, blocks, 1)
+
+
+def tiling(n_workers: int, d: int, n_sm: int = SMS,
+           aligned: bool = True) -> Tiling:
+    """The plan for (W, d) planes on a card of ``n_sm`` SMs: the column
+    plan for W < :data:`COLUMN_BELOW`, where the row plan's warps take too
+    few rows to keep the loads in flight, else the row plan."""
+    if n_workers < COLUMN_BELOW:
+        return column_tiling(n_workers, d, n_sm, aligned)
+    return row_tiling(n_workers, d)
+
+
+def check_tiling(name: str, t: Tiling, n_workers: int, d: int) -> None:
+    """``t`` is a grid the kernels take for (W, d): the scratch the wrapper
+    allocates follows from it."""
+    plans = ("split", "unsplit") if name == "ota_receive" else ("row",
+                                                                "column")
+    if t.plan not in plans:
+        ok = False
+    elif t.plan in ("row", "split"):
+        ok = (1 <= t.k <= MAX_COLS_PER_LANE and t.rows_per_slice >= 1
+              and t.n_tiles == -(-d // (32 * t.k))
+              and t.n_slices == -(-n_workers // t.rows_per_slice)
+              and t.n_slices <= MAX_SLICES)
+    elif t.plan == "column":
+        ok = (t.k in (1, 4) and (t.k == 1 or d % 4 == 0)
+              and t.rows_per_slice == n_workers
+              and n_workers <= MAX_COLUMN_WORKERS and t.n_tiles >= 1
+              and t.n_slices == 1)
+    else:
+        ok = (t.k == 1 and t.rows_per_slice == n_workers and t.n_tiles >= 1
+              and t.n_slices == 1)
+    if not ok:
+        raise ValueError(f"{name}: no kernel takes {t} for ({n_workers}, "
+                         f"{d}) planes")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (cached per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def aligned16(*tensors: Optional[Tensor]) -> bool:
+    """Every given tensor starts on a 16-byte boundary."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _operands(name: str, theta, lam_re, lam_im, h_re, h_im, mask, htx, chan):
@@ -89,6 +172,17 @@ def _common_args(theta, lam_re, lam_im, h_re, h_im, mask, htx, chan):
                               mask)]
 
 
+def _plan(name: str, plan: Optional[Tiling], dev: torch.device, W: int,
+          d: int, *planes: Tensor) -> Tiling:
+    """The given grid, checked, or :func:`tiling`'s for this card and these
+    planes' alignment (the outputs are fresh allocations, 16-byte
+    aligned)."""
+    if plan is None:
+        return tiling(W, d, sm_count(dev), aligned16(*planes))
+    check_tiling(name, plan, W, d)
+    return plan
+
+
 def _chan_scalars(chan) -> list:
     if chan is None:
         return [0.0, 0.0, 0]
@@ -100,13 +194,15 @@ def ota_round_stats(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
                     h_re: Tensor, h_im: Tensor, rho: float, *,
                     mask: Optional[Tensor] = None,
                     htx: Optional[Tuple[Tensor, Tensor]] = None,
-                    chan: Optional[tuple] = None) -> Tuple[Tensor, ...]:
+                    chan: Optional[tuple] = None,
+                    plan: Optional[Tiling] = None) -> Tuple[Tensor, ...]:
     """One pass over the (W, d) worker planes (B6): [AR(1) step] →
     modulate → per-worker energy → mask → y = Re{Σ h⊙s}, p2 = Σ|h|².
 
     ``mask``: (W,) bool; ``htx = (re, im)``: the workers' CSI, which
     modulates while the air applies h; ``chan = (w_re, w_im, rho_f, scale,
-    redraw)`` fuses the fading step, with ``redraw`` a host bool.  Returns
+    redraw)`` fuses the fading step, with ``redraw`` a host bool.
+    ``plan``: the kernel's grid, :func:`tiling`'s by default.  Returns
     ``(y (d,), p2 (d,), energy (W,))``, plus the stepped channel's (W, d)
     planes with ``chan``."""
     if build.resolve_backend(theta.device) == "torch":
@@ -115,22 +211,28 @@ def ota_round_stats(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
     dev = _operands("ota_round_stats", theta, lam_re, lam_im, h_re, h_im,
                     mask, htx, chan)
     W, d = theta.shape
-    t = tiling(W, d)
+    t = _plan("ota_round_stats", plan, dev, W, d, theta, lam_re, lam_im,
+              h_re, h_im, *(htx or ()), *(chan or ())[:2])
     y, p2, energy = _empty(dev, d), _empty(dev, d), _empty(dev, W)
-    y_part = p2_part = e_part = None
-    if t.n_slices > 1:
-        y_part, p2_part = _empty(dev, d, t.n_slices), _empty(dev, d,
-                                                             t.n_slices)
-    if t.n_tiles > 1:
-        e_part = _empty(dev, W, t.n_tiles)
     h_new = ((_empty(dev, W, d), _empty(dev, W, d)) if chan is not None
              else (None, None))
-    build.launch("ota_round", "ota_round_stats", dev,
-                 *_common_args(theta, lam_re, lam_im, h_re, h_im, mask, htx,
-                               chan),
-                 *map(_ptr, (y_part, p2_part, e_part, y, p2, energy,
-                             *h_new)),
-                 W, d, t.k, t.rows_per_slice, 1.0 / rho, *_chan_scalars(chan))
+    common = _common_args(theta, lam_re, lam_im, h_re, h_im, mask, htx, chan)
+    e_part = _empty(dev, W, t.n_tiles) if t.n_tiles > 1 else None
+    if t.plan == "column":
+        build.launch("ota_round", "ota_round_stats_cols", dev, *common,
+                     *map(_ptr, (e_part, y, p2, energy, *h_new)),
+                     W, d, t.k, t.n_tiles, 1.0 / rho, *_chan_scalars(chan),
+                     count="ota_round_stats")
+    else:
+        y_part = p2_part = None
+        if t.n_slices > 1:
+            y_part, p2_part = (_empty(dev, d, t.n_slices),
+                               _empty(dev, d, t.n_slices))
+        build.launch("ota_round", "ota_round_stats", dev, *common,
+                     *map(_ptr, (y_part, p2_part, e_part, y, p2, energy,
+                                 *h_new)),
+                     W, d, t.k, t.rows_per_slice, 1.0 / rho,
+                     *_chan_scalars(chan))
     out = (y, p2, energy)
     return out if chan is None else out + h_new
 
@@ -140,12 +242,13 @@ def ota_round_theta(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
                     inv_alpha: Tensor, rho: float, *,
                     mask: Optional[Tensor] = None,
                     htx: Optional[Tuple[Tensor, Tensor]] = None,
-                    chan: Optional[tuple] = None) -> Tuple[Tensor, ...]:
+                    chan: Optional[tuple] = None,
+                    plan: Optional[Tiling] = None) -> Tuple[Tensor, ...]:
     """The whole round in one launch for an α known before the pass (B7):
     :func:`ota_round_stats` with the epilogue Θ = (y + z·α⁻¹)/max(p2,
     1e-12).  ``noise_re``: (d,); ``inv_alpha``: a one-element tensor on the
-    device.  Returns ``(Theta,)``, plus the stepped channel's planes with
-    ``chan``."""
+    device; ``plan`` as there.  Returns ``(Theta,)``, plus the stepped
+    channel's planes with ``chan``."""
     if build.resolve_backend(theta.device) == "torch":
         return ref.ota_round_theta(theta, lam_re, lam_im, h_re, h_im,
                                    noise_re, inv_alpha, rho, mask=mask,
@@ -161,18 +264,25 @@ def ota_round_theta(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
     if noise_re.shape != (d,):
         raise ValueError(f"ota_round_theta: noise_re has shape "
                          f"{tuple(noise_re.shape)}, want ({d},)")
-    t = tiling(W, d)
+    t = _plan("ota_round_theta", plan, dev, W, d, theta, lam_re, lam_im,
+              h_re, h_im, noise_re, *(htx or ()), *(chan or ())[:2])
     Theta = _empty(dev, d)
-    y_part = p2_part = None
-    if t.n_slices > 1:
-        y_part, p2_part = _empty(dev, d, t.n_slices), _empty(dev, d,
-                                                             t.n_slices)
     h_new = ((_empty(dev, W, d), _empty(dev, W, d)) if chan is not None
              else (None, None))
-    build.launch("ota_round", "ota_round_theta", dev,
-                 *_common_args(theta, lam_re, lam_im, h_re, h_im, mask, htx,
-                               chan),
-                 *map(_ptr, (noise_re, inv_alpha, y_part, p2_part, Theta,
-                             *h_new)),
-                 W, d, t.k, t.rows_per_slice, 1.0 / rho, *_chan_scalars(chan))
+    common = _common_args(theta, lam_re, lam_im, h_re, h_im, mask, htx, chan)
+    if t.plan == "column":
+        build.launch("ota_round", "ota_round_theta_cols", dev, *common,
+                     *map(_ptr, (noise_re, inv_alpha, Theta, *h_new)),
+                     W, d, t.k, t.n_tiles, 1.0 / rho, *_chan_scalars(chan),
+                     count="ota_round_theta")
+    else:
+        y_part = p2_part = None
+        if t.n_slices > 1:
+            y_part, p2_part = (_empty(dev, d, t.n_slices),
+                               _empty(dev, d, t.n_slices))
+        build.launch("ota_round", "ota_round_theta", dev, *common,
+                     *map(_ptr, (noise_re, inv_alpha, y_part, p2_part, Theta,
+                                 *h_new)),
+                     W, d, t.k, t.rows_per_slice, 1.0 / rho,
+                     *_chan_scalars(chan))
     return (Theta,) if chan is None else (Theta,) + h_new

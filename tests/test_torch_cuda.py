@@ -49,7 +49,12 @@ def test_modulate_kernel(dev, W, d):
         torch.testing.assert_close(a, b, **TOL)
 
 
-@pytest.mark.parametrize("W,d", SHAPES)
+#: B2's shapes: the unsplit plan's, then the split plan's (the scaleup
+#: phase's 65,536 workers over 32 columns; a ragged 7-column tile)
+RECEIVE_SHAPES = SHAPES + [(65_536, 32), (4096, 7)]
+
+
+@pytest.mark.parametrize("W,d", RECEIVE_SHAPES)
 @pytest.mark.parametrize("ia", [0.37, 0.0])
 def test_receive_kernel(dev, W, d, ia):
     args = _planes(dev, W, d, 4, 2)
@@ -59,6 +64,27 @@ def test_receive_kernel(dev, W, d, ia):
                     lambda: ota.ota_receive(*args, noise, ia_t))
     torch.testing.assert_close(got, ref.ota_receive(*args, noise, ia_t),
                                rtol=1e-5, atol=1e-6)
+    again = ota.ota_receive(*args, noise, ia_t)
+    assert torch.equal(got, again)           # no atomics: the same bits
+
+
+@pytest.mark.parametrize("W,d", [(100, 109_386), (65_536, 32), (300, 33)])
+def test_receive_plans(dev, W, d):
+    """Both of B2's plans at one shape, each against the plain version; the
+    planned launch is bit for bit the launch of the plan it picked."""
+    args = _planes(dev, W, d, 4, 12)
+    noise = torch.randn(d, device=dev) * 1e-3
+    ia = torch.tensor(0.37, device=dev)
+    want = ref.ota_receive(*args, noise, ia)
+    planned = ota.receive_tiling(W, d, ota_round.sm_count(dev))
+    unsplit = ota_round.Tiling("unsplit", 1, W, -(-d // 256), 1)
+    split = ota_round.row_tiling(W, d)._replace(plan="split")
+    for plan in (unsplit, split):
+        got = _launched("ota_receive", lambda: ota.ota_receive(
+            *args, noise, ia, plan=plan))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        if plan.plan == planned.plan:
+            assert torch.equal(got, ota.ota_receive(*args, noise, ia))
 
 
 @pytest.mark.parametrize("W,d", SHAPES)
@@ -160,7 +186,11 @@ def test_population_step_kernel(dev, n, redraw, shadow_redraw):
 #: B6/B7 sum W terms of size ~1 in another order than the plain version's
 #: tree sum: y and p2 carry ~W·1e-7 of absolute rounding, Θ = y/p2 ~1e-7
 ROUND_TOL = dict(rtol=1e-5, atol=1e-4)
-ROUND_SHAPES = SHAPES + [(65_536, 32), (1000, 8)]
+#: the row plan's shapes (W ≥ 8) and the column plan's: (3, 1000) and
+#: (5, 1025) from SHAPES, d % 4 != 0 (scalar loads, ragged) and d % 4 == 0
+#: (16-byte loads) up to 10⁶ columns
+ROUND_SHAPES = SHAPES + [(65_536, 32), (1000, 8), (2, 4097), (3, 1_000_003),
+                         (2, 1 << 20)]
 ROUND_MODES = ["plain", "mask", "csi", "chan", "chan-held", "mask+csi+chan"]
 
 
@@ -169,9 +199,11 @@ def _round_inputs(dev, W, d, mode, seed=9):
     theta = theta * 0.1
     mask = htx = chan = None
     if "mask" in mode:
-        mask = torch.arange(W, device=dev) % 5 != 2
-        theta[2] = float("nan")              # a dropped row's NaN stays out
-        hre[2] = float("inf")
+        bad = _bad_row(W)
+        rows = torch.arange(W, device=dev)
+        mask = (rows % 5 != 2) & (rows != bad)
+        theta[bad] = float("nan")            # a dropped row's NaN stays out
+        hre[bad] = float("inf")
     if "csi" in mode:
         htx = (tre, tim)
     if "chan" in mode:
@@ -180,12 +212,18 @@ def _round_inputs(dev, W, d, mode, seed=9):
     return (theta, lre, lim, hre, him), dict(mask=mask, htx=htx, chan=chan)
 
 
+def _bad_row(W):
+    """The masked row that holds NaN and Inf: row 2, or the last of fewer."""
+    return 2 if W > 2 else W - 1
+
+
 def _close_round(got, want, mask):
     assert len(got) == len(want)
     for i, (a, b) in enumerate(zip(got, want)):
         if i == 2 and mask is not None:       # energies: the NaN row's too
-            assert torch.isnan(a[2]) and torch.isnan(b[2])
-            keep = torch.arange(a.numel(), device=a.device) != 2
+            bad = _bad_row(a.numel())
+            assert torch.isnan(a[bad]) and torch.isnan(b[bad])
+            keep = torch.arange(a.numel(), device=a.device) != bad
             a, b = a[keep], b[keep]
         tol = ROUND_TOL if i < 3 else dict(rtol=1e-6, atol=1e-6)
         if i == 2:
@@ -220,6 +258,91 @@ def test_round_theta_kernel(dev, W, d, mode):
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
     for a, b in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose storage starts one float past a
+    16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("W,d", [(2, 4096), (3, 1000)])
+@pytest.mark.parametrize("mode", ["plain", "mask+csi+chan"])
+def test_round_kernels_misaligned_planes(dev, W, d, mode):
+    """d % 4 == 0 but a plane 4 bytes off a 16-byte boundary: the column
+    plan takes its scalar loads, and refuses 16-byte loads there."""
+    planes, kw = _round_inputs(dev, W, d, mode, seed=13)
+    planes = (_misaligned(planes[0]),) + planes[1:]
+    assert planes[0].data_ptr() % 16 != 0
+    t = ota_round.tiling(W, d, ota_round.sm_count(dev),
+                         ota_round.aligned16(*planes))
+    assert t.plan == "column" and t.k == 1
+    got = _launched("ota_round_stats",
+                    lambda: ota_round.ota_round_stats(*planes, 0.5, **kw))
+    _close_round(got, ref.ota_round_stats(*planes, 0.5, **kw), kw["mask"])
+    again = ota_round.ota_round_stats(*planes, 0.5, **kw)
+    for a, b in zip(got, again):             # no atomics: the same bits
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    noise = _misaligned(torch.randn(d, device=dev) * 1e-3)
+    ia = torch.tensor(0.37, device=dev)
+    got = _launched("ota_round_theta", lambda: ota_round.ota_round_theta(
+        *planes, noise, ia, 0.5, **kw))
+    want = ref.ota_round_theta(*planes, noise, ia, 0.5, **kw)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, ota_round.
+               ota_round_theta(*planes, noise, ia, 0.5, **kw)))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ota_round.ota_round_stats(*planes, 0.5, **kw,
+                                  plan=t._replace(k=4))
+
+
+@pytest.mark.parametrize("W,d", [(4, 10_000), (7, 4097), (16, 1000)])
+@pytest.mark.parametrize("mode", ["plain", "mask+csi+chan"])
+def test_round_plans_agree(dev, W, d, mode):
+    """Row and column plan on the same planes, each against the plain
+    version, up to the column plan's most rows."""
+    planes, kw = _round_inputs(dev, W, d, mode, seed=14)
+    want = ref.ota_round_stats(*planes, 0.5, **kw)
+    for plan in (ota_round.row_tiling(W, d),
+                 ota_round.column_tiling(W, d, ota_round.sm_count(dev))):
+        got = _launched("ota_round_stats", lambda: ota_round.ota_round_stats(
+            *planes, 0.5, **kw, plan=plan))
+        _close_round(got, want, kw["mask"])
+        again = ota_round.ota_round_stats(*planes, 0.5, **kw, plan=plan)
+        for a, b in zip(got, again):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+@pytest.mark.parametrize("mode", ["plain", "mask+csi+chan"])
+def test_column_plan_rounds_as_the_plain_version(dev, mode):
+    """At W = 2 the column plan's y, p2, Θ and stepped channel are the
+    plain version's bits: each product and sum is rounded as there, and
+    the two rows are summed in order."""
+    W, d = 2, 1 << 20
+    planes, kw = _round_inputs(dev, W, d, mode, seed=15)
+    got = ota_round.ota_round_stats(*planes, 0.5, **kw)
+    want = ref.ota_round_stats(*planes, 0.5, **kw)
+    for i in (0, 1, *range(3, len(want))):
+        assert torch.equal(got[i], want[i]), i
+    noise = torch.randn(d, device=dev) * 1e-3
+    ia = torch.tensor(0.37, device=dev)
+    got = ota_round.ota_round_theta(*planes, noise, ia, 0.5, **kw)
+    want = ref.ota_round_theta(*planes, noise, ia, 0.5, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_round_plans_refuse_what_no_kernel_takes(dev):
+    planes, _ = _round_inputs(dev, 17, 64, "plain")
+    with pytest.raises(ValueError, match="no kernel takes"):
+        ota_round.ota_round_stats(*planes, 0.5, plan=ota_round.Tiling(
+            "column", 1, 17, 1, 1))
+    with pytest.raises(ValueError, match="no kernel takes"):
+        ota.ota_receive(*planes[1:], torch.zeros(64, device=dev),
+                        torch.ones((), device=dev),
+                        plan=ota_round.row_tiling(17, 64))
 
 
 @pytest.mark.parametrize("d", [1, 1000, 109_386])

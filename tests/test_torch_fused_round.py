@@ -378,19 +378,102 @@ def test_cpu_round_wrappers_take_plain_version_and_count_nothing():
     assert sum(build.launches.values()) == 0
 
 
+def test_cpu_wrappers_take_the_plain_version_whatever_the_plan():
+    """A plan picks a kernel's grid on the card; CPU tensors take the plain
+    version and launch nothing."""
+    theta, lam, h, mask, htx, chan = _kernel_inputs("mask+csi+chan", W=4,
+                                                    d=64)
+    args = (_t(theta), _t(lam[0]), _t(lam[1]), _t(h[0]), _t(h[1]))
+    kw = _port_kw(mask, htx, chan)
+    build.reset_launches()
+    for plan in (ota_round.row_tiling(4, 64), ota_round.tiling(4, 64)):
+        for a, b in zip(ota_round.ota_round_stats(*args, RHO, **kw,
+                                                  plan=plan),
+                        ref.ota_round_stats(*args, RHO, **kw)):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    noise, ia = torch.zeros(64), torch.tensor(0.5)
+    for plan in (ota.receive_tiling(4, 64),
+                 ota_round.row_tiling(4, 64)._replace(plan="split")):
+        assert torch.equal(ota.ota_receive(*args[1:], noise, ia, plan=plan),
+                           ref.ota_receive(*args[1:], noise, ia))
+    assert sum(build.launches.values()) == 0
+
+
 @pytest.mark.parametrize("W,d,want", [
-    (100, 109_386, (4, 100, 855, 1)),
-    (65_536, 32, (1, 125, 1, 525)),
-    (4, 1061, (4, 4, 9, 1)),
-    (7, 1, (1, 7, 1, 1)),
-    (1000, 8, (1, 8, 1, 125)),
+    (100, 109_386, ("row", 4, 100, 855, 1)),
+    (65_536, 32, ("row", 1, 125, 1, 525)),
+    # below the column threshold (W ≤ 16): one thread walks all W rows; k is
+    # its load width (4 where d % 4 == 0, else 1), n_tiles its blocks
+    (4, 1061, ("column", 1, 4, 5, 1)),
+    (7, 1, ("column", 1, 7, 1, 1)),
+    (1000, 8, ("row", 1, 8, 1, 125)),
+    # the LLM rounds: three blocks an SM of 132, 16-byte loads; then the
+    # column plan's most workers and the row plan from one more
+    (2, 637_554_688, ("column", 4, 2, 396, 1)),
+    (2, 476_967_488, ("column", 4, 2, 396, 1)),
+    (2, 568_192, ("column", 4, 2, 396, 1)),
+    (16, 109_386, ("column", 1, 16, 396, 1)),
+    (17, 109_386, ("row", 4, 17, 855, 1)),
 ])
 def test_kernel_tiling(W, d, want):
-    """Column tiles as wide as the rows allow, then the worker axis split
-    toward four blocks an SM, a warp's row at least per slice."""
+    """Many workers: column tiles as wide as the rows allow, then the worker
+    axis split toward four blocks an SM, a warp's row at least per slice.
+    Few workers: the column plan, a fixed number of blocks an SM striding
+    over the columns."""
     t = ota_round.tiling(W, d)
     assert tuple(t) == want
-    assert t.n_tiles * 32 * t.k >= d and t.n_slices * t.rows_per_slice >= W
+    if t.plan == "row":
+        assert t.n_tiles * 32 * t.k >= d
+        assert t.n_slices * t.rows_per_slice >= W
+    else:
+        assert t.n_tiles * ota_round.COLUMN_THREADS * t.k >= d or \
+            t.n_tiles == ota_round.COLUMN_BLOCKS_PER_SM * ota_round.SMS
+    ota_round.check_tiling("ota_round_stats", t, W, d)
+
+
+@pytest.mark.parametrize("W,d,aligned,n_sm,want", [
+    (2, 637_554_688, False, 132, ("column", 1, 2, 396, 1)),
+    (2, 4097, True, 132, ("column", 1, 2, 17, 1)),
+    (3, 1000, True, 132, ("column", 4, 3, 1, 1)),
+    (2, 568_192, True, 78, ("column", 4, 2, 234, 1)),
+    (7, 1 << 20, True, 132, ("column", 4, 7, 396, 1)),
+    (8, 4097, True, 132, ("column", 1, 8, 17, 1)),
+])
+def test_column_plan_grid(W, d, aligned, n_sm, want):
+    """The column plan takes scalar loads for a misaligned plane or a d that
+    is no multiple of 4, and its grid follows the card's SM count."""
+    assert tuple(ota_round.tiling(W, d, n_sm, aligned)) == want
+
+
+@pytest.mark.parametrize("W,d,want", [
+    (65_536, 32, ("split", 1, 125, 1, 525)),
+    (4096, 7, ("split", 1, 8, 1, 512)),
+    (100, 109_386, ("unsplit", 1, 100, 428, 1)),
+    (10, 6, ("unsplit", 1, 10, 1, 1)),
+    (32, 32, ("split", 1, 8, 1, 4)),
+    (31, 32, ("unsplit", 1, 31, 1, 1)),
+    (2, 637_554_688, ("unsplit", 1, 2, 1 << 20, 1)),
+])
+def test_receive_tiling(W, d, want):
+    """B2 splits the worker axis (B6's row plan) only where the columns
+    cannot fill the card and the workers are many; the paper MLP's width
+    keeps one thread a column."""
+    t = ota.receive_tiling(W, d)
+    assert tuple(t) == want
+    ota_round.check_tiling("ota_receive", t, W, d)
+
+
+@pytest.mark.parametrize("name,plan,W,d", [
+    ("ota_round_stats", ("column", 4, 2, 1, 1), 2, 1001),
+    ("ota_round_stats", ("column", 1, 17, 1, 1), 17, 64),
+    ("ota_round_stats", ("row", 4, 100, 854, 1), 100, 109_386),
+    ("ota_round_stats", ("split", 1, 125, 1, 525), 65_536, 32),
+    ("ota_receive", ("row", 1, 125, 1, 525), 65_536, 32),
+    ("ota_receive", ("split", 1, 100, 1, 3), 200, 32),
+])
+def test_check_tiling_refuses_grids_no_kernel_takes(name, plan, W, d):
+    with pytest.raises(ValueError, match="no kernel takes"):
+        ota_round.check_tiling(name, ota_round.Tiling(*plan), W, d)
 
 
 def test_noise_re_and_snr_match_jax():
