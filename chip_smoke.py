@@ -28,7 +28,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              the gated linear scan B12 — forward
              and backward — at the SSM round's (2, 4,096, 131,072), the
              hybrid's full-width (2, 4,096, 2,560), the hybrid path's
-             (4, 128, 128) and a ragged (3, 1,000, 100); the accumulate
+             (4, 128, 128) and a ragged (3, 1,000, 100), each on the
+             planner's plan and again on the other (``thread`` or
+             ``staged``, named in the row); the accumulate
              B13 at d = 109,386), in each
              mode a path uses, each CUDA kernel against its plain PyTorch
              version on the same inputs, with its device time (``ms``,
@@ -82,8 +84,14 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              2 workers, 3 rounds on the card and the same rounds on the CPU
              from the same state and draws: losses to rtol 1e-5, Θ to atol
              1e-5.
+16. rec_block — one recurrentgemma-2b recurrent block
+             (``models/hybrid.rec_block_fwd``) at full width, bf16, on
+             (2, 1, 4,096, 2,560), forward and backward of a fixed scalar
+             loss once on each B12 plan: output and parameter gradients
+             equal bit for bit between the plans, one B12 launch a
+             direction a run; each plan's device ms and B12's share.
 
-Launch counts are reset just before each of phases 4–10 and 12–15 and read
+Launch counts are reset just before each of phases 4–10 and 12–16 and read
 just after.  Then come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
@@ -525,13 +533,14 @@ def phase_kernels(torch, card):
 
 def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
                 plain, nbytes, flops, tol, shape, extra, select=None,
-                tol_of=None, library=None):
+                tol_of=None, library=None, plain_times=None):
     """One row of the kernel table: launch once (the counter must rise),
     hold the outputs against the plain version, time both, and the library
     call that computes the same function where there is one.  ``tol`` is
     (rtol, atol); ``tol_of(ref)`` gives each output its own instead.
     ``flops`` are counted at ``op_rate``; ``select`` picks the outputs to
-    compare."""
+    compare; ``plain_times`` (``plain_ms``, ``plain_ms_with_launch``) of an
+    earlier row on the same inputs spare timing the plain version again."""
     fn_name = name.split("[")[0]
     before = build.launches[fn_name]
     out = kernel()
@@ -556,7 +565,10 @@ def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
             f"tolerance)")
     del out, outs, want, refs
     kernel_ms = time_ms(torch, kernel)
-    plain_ms = time_ms(torch, plain)
+    if plain_times is None:
+        plain_times = (time_ms(torch, plain), time_ms(torch, plain,
+                                                      spin=False))
+    plain_ms, plain_ms_with_launch = plain_times
     bytes_ms = nbytes / mem_rate * 1e3
     flops_ms = flops / op_rate * 1e3
     row = {"name": name, "route": "cuda",
@@ -567,7 +579,7 @@ def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
            "ms": kernel_ms, "plain_ms": plain_ms,
            "kernel_ms": kernel_ms, "ref_ms": plain_ms,
            "ms_with_launch": time_ms(torch, kernel, spin=False),
-           "plain_ms_with_launch": time_ms(torch, plain, spin=False),
+           "plain_ms_with_launch": plain_ms_with_launch,
            "bytes": nbytes, "flops": flops, "op_rate": op_rate,
            "bound_ms": max(bytes_ms, flops_ms),
            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
@@ -841,15 +853,19 @@ def _scan_cases():
 def _scan_rows(torch, build, mem_rate, f32_rate):
     """B12's forward and backward against their plain versions (sequential
     loops that round each step as the kernels do) on gates in (0, 1), as
-    exp(dt·A) gives them.  Bytes: the forward needs a_1 … a_{S−1} (h_0 =
-    b_0), all of b, and writes h; the backward needs a_1 … a_{S−1},
-    h_0 … h_{S−2} and all of dh, and writes g = db and da.  No single
-    PyTorch call computes a linear recurrence: ``library_ms`` is null.
-    Both kernels are held to the plain versions' bits (tolerance 0)."""
+    exp(dt·A) gives them, each case on the planner's plan (``scan_tiling``)
+    and, where the planes allow it, as a second row on the other plan
+    (named ``[…, <plan> plan]``, the plain version's times shared).  Bytes:
+    the forward needs a_1 … a_{S−1} (h_0 = b_0), all of b, and writes h;
+    the backward needs a_1 … a_{S−1}, h_0 … h_{S−2} and all of dh, and
+    writes g = db and da.  No single PyTorch call computes a linear
+    recurrence: ``library_ms`` is null.  Every row is held to the plain
+    versions' bits (tolerance 0)."""
     from repro_torch import rng
-    from repro_torch.kernels import linear_scan as ls, ref
+    from repro_torch.kernels import linear_scan as ls, ota_round, ref
 
     dev = torch.device("cuda")
+    n_sm = ota_round.sm_count(dev)
     rows = {}
     for label, B, S, D in _scan_cases():
         label = label.format(B, S, D)
@@ -859,22 +875,39 @@ def _scan_rows(torch, build, mem_rate, f32_rate):
         b = torch.randn((B, S, D), generator=gen, device=dev)
         dh = torch.randn((B, S, D), generator=gen, device=dev)
         h = ls.linear_scan_fwd(a, b)
+        aligned = ota_round.aligned16(a, b, h, dh)
+        planned = ls.scan_tiling(B, S, D, n_sm, aligned)
+        plans = [planned] + [ls.resolve_plan("linear_scan", p, B, S, D, n_sm,
+                                             aligned)
+                             for p in ls.PLANS if p != planned.plan
+                             and (p == "thread"
+                                  or ls.staged_refusal(D, aligned) is None)]
         n, n1 = B * S * D, B * (S - 1) * D
         specs = [
-            ("linear_scan_fwd", lambda: ls.linear_scan_fwd(a, b),
+            ("linear_scan_fwd", lambda t: ls.linear_scan_fwd(a, b, t),
              lambda: ref.linear_scan(a, b), 4 * (n1 + 2 * n), 2 * n1),
-            ("linear_scan_bwd", lambda: ls.linear_scan_bwd(a, h, dh),
+            ("linear_scan_bwd", lambda t: ls.linear_scan_bwd(a, h, dh, t),
              lambda: ref.linear_scan_bwd(a, h, dh), 4 * (2 * n1 + 3 * n),
              2 * n1 + n),
         ]
         for fn_name, kernel, plain, nbytes, flops in specs:
-            row = _kernel_row(
-                torch, build, mem_rate, f32_rate, fn_name + label,
-                "src/repro/kernels/linear_scan.py:60", "linear_scan", kernel,
-                plain, nbytes, flops, (0.0, 0.0), [B, S, D],
-                {"library": "none: no PyTorch call computes a linear "
-                 "recurrence"})
-            rows[row["name"]] = row
+            plain_times = None
+            for t in plans:
+                name = fn_name + label
+                if t is not planned:
+                    inner = label[1:-1] + ", " if label else ""
+                    name = f"{fn_name}[{inner}{t.plan} plan]"
+                row = _kernel_row(
+                    torch, build, mem_rate, f32_rate, name,
+                    "src/repro/kernels/linear_scan.py:60", "linear_scan",
+                    lambda t=t: kernel(t), plain, nbytes, flops, (0.0, 0.0),
+                    [B, S, D],
+                    {"plan": t.plan, "tiling": list(t),
+                     "planner_plan": t is planned,
+                     "library": "none: no PyTorch call computes a linear "
+                     "recurrence"}, plain_times=plain_times)
+                plain_times = (row["plain_ms"], row["plain_ms_with_launch"])
+                rows[row["name"]] = row
         del a, b, dh, h
         torch.cuda.empty_cache()
     return rows
@@ -1758,8 +1791,117 @@ def phase_llm_hybrid(torch):
     return launches
 
 
+#: phase ``rec_block``: one recurrentgemma-2b recurrent block at full width
+#: on the LLM paths' W = 2 × 1 × 4,096 tokens, forward and backward once on
+#: each B12 plan; timed over REC_RUNS runs a plan, in turns
+REC_RUNS = 5
+
+
+def _rec_block_run(torch, hybrid, cfg, p, u, cot):
+    """Forward and backward of Σ out·cot through one rec block: (out, the
+    parameters' gradients in leaf order)."""
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(p)
+    for leaf in leaves:
+        leaf.grad = None
+    out = hybrid.rec_block_fwd(p, u, cfg)
+    (out.float() * cot).sum().backward()
+    return out.detach(), [leaf.grad for leaf in leaves]
+
+
+def phase_rec_block(torch):
+    """``models/hybrid.rec_block_fwd`` of recurrentgemma-2b at full width
+    (d_model 2,560, lru_width 2,560, conv 4, bf16 parameters from a seed),
+    input (2, 1, 4,096, 2,560), forward and backward of a fixed scalar loss
+    on each B12 plan (``linear_scan.forced_plan``): the output and every
+    parameter gradient equal bit for bit between the plans, one B12 launch
+    a direction a run, all finite.  Records each plan's device ms (CUDA
+    events, median of REC_RUNS, the plans in turns) and B12's share of a
+    profiled run's kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import rng
+    from repro_torch.kernels import build, linear_scan as ls
+    from repro_torch.models import get_config, hybrid
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = get_config(HYBRID_ARCH)
+    p = hybrid.rec_block_init(SEED + 7, cfg, device=dev)
+    for leaf in tree_leaves(p):
+        leaf.requires_grad_(True)
+    gen = rng.generator(SEED + 8, dev)
+    shape = (LLM_WORKERS, 1, LLM_SEQ, cfg.d_model)
+    u = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    cot = torch.randn(shape, generator=gen, device=dev)
+    runs, launches = {}, {}
+    for plan in ls.PLANS:
+        build.reset_launches()
+        with ls.forced_plan(plan):
+            runs[plan] = _rec_block_run(torch, hybrid, cfg, p, u, cot)
+        torch.cuda.synchronize()
+        got = dict(build.launches)
+        require(got.get("linear_scan_fwd") == 1
+                and got.get("linear_scan_bwd") == 1,
+                f"rec_block: the {plan} plan launched {got}, want one B12 "
+                f"forward and one backward")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    (out_t, grads_t), (out_s, grads_s) = runs["thread"], runs["staged"]
+    require(all(bool(torch.isfinite(x).all()) for x in (out_t, *grads_t)),
+            "rec_block: non-finite output or gradient")
+    require(bool(torch.equal(out_t, out_s)), "rec_block: the plans' outputs "
+            "differ")
+    differ = [i for i, (x, y) in enumerate(zip(grads_t, grads_s))
+              if not torch.equal(x, y)]
+    require(not differ, f"rec_block: the plans' gradients of leaves {differ} "
+            f"(in leaf order) differ")
+    del runs, out_t, grads_t, out_s, grads_s
+
+    def run(plan):
+        with ls.forced_plan(plan):
+            _rec_block_run(torch, hybrid, cfg, p, u, cot)
+
+    times = {plan: [] for plan in ls.PLANS}
+    for _ in range(REC_RUNS):
+        for plan in ("thread", "staged", "staged", "thread"):
+            times[plan].append(time_ms(torch, lambda: run(plan), runs=1,
+                                       warmup=0))
+    stats = {}
+    for plan in ls.PLANS:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(plan)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        total = sum(e.self_device_time_total for e in kernels) / 1e3
+        scan = sum(e.self_device_time_total for e in kernels
+                   if "linear_scan" in e.key) / 1e3
+        stats[plan] = {"device_ms": statistics.median(times[plan]),
+                       "device_ms_runs": times[plan],
+                       "profiled_kernel_ms": total, "b12_ms": scan,
+                       "b12_share": scan / total if total else None}
+    emit({"phase": "rec_block", "ok": True, "arch": cfg.name,
+          "reduced": "one rec block (models/hybrid.rec_block_fwd), no "
+          "embedding, mlp or attention", "d_model": cfg.d_model,
+          "lru_width": cfg.lru_width, "conv1d_width": cfg.conv1d_width,
+          "dtype": cfg.param_dtype, "input": list(shape),
+          "loss": "sum(out * fixed N(0, 1) cotangent)",
+          "bitwise_equal_between_plans": True, "plans": stats,
+          "staged_saves_ms": stats["thread"]["device_ms"]
+          - stats["staged"]["device_ms"], "launches": launches})
+    return launches
+
+
 def _kernel_family(name: str) -> str:
     for fn in ("linear_scan_fwd_kernel", "linear_scan_bwd_kernel",
+               # B12's staged plan
+               "linear_scan_fwd_staged_kernel",
+               "linear_scan_bwd_staged_kernel",
                "accumulate_kernel", "receive_masked_kernel",
                "fading_step_kernel",
                "population_step_kernel", "demodulate_kernel",
@@ -1913,6 +2055,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         paths["llm_hybrid"] = phase_llm_hybrid(torch)
+        paths["rec_block"] = phase_rec_block(torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1

@@ -83,6 +83,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "linear_scan": {
         "linear_scan_fwd": [_PTR] * 3 + [_I64] * 3 + [_PTR],
         "linear_scan_bwd": [_PTR] * 5 + [_I64] * 3 + [_PTR],
+        "linear_scan_fwd_staged": [_PTR] * 3 + [_I64] * 3 + [_INT] * 3
+        + [_PTR],
+        "linear_scan_bwd_staged": [_PTR] * 5 + [_I64] * 3 + [_INT] * 3
+        + [_PTR],
     },
 }
 

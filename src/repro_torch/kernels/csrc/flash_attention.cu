@@ -1083,28 +1083,6 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
 
 // --- host side --------------------------------------------------------------
 
-using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
-
-// cuTensorMapEncodeTiled, a libcuda entry point, reached through the
-// runtime (no link against libcuda).
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A (BH, L, D) bf16 tensor as a 3-D map with boxes of `rows` × Geo::box.
 template <int D>
 bool rows_map(CUtensorMap* m, const void* ptr, int64_t L, int64_t BH,
@@ -1118,11 +1096,11 @@ bool rows_map(CUtensorMap* m, const void* ptr, int64_t L, int64_t BH,
   const CUtensorMapSwizzle swz = G::swz == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : G::swz == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                   const_cast<void*>(ptr), dims, strides, box, step,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                           const_cast<void*>(ptr), dims, strides, box, step,
+                           CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A (BH·S,) f32 plane as a 1-D map with boxes of kBMk values.
@@ -1131,11 +1109,12 @@ bool vec_map(CUtensorMap* m, const float* ptr, int64_t n) {
   const cuuint64_t strides[1] = {4};   // unused at rank 1
   const cuuint32_t box[1] = {kBMk};
   const cuuint32_t step[1] = {1};
-  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
-                   const_cast<float*>(ptr), dims, strides, box, step,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                   CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::encoder()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                           const_cast<float*>(ptr), dims, strides, box, step,
+                           CU_TENSOR_MAP_INTERLEAVE_NONE,
+                           CU_TENSOR_MAP_SWIZZLE_NONE,
+                           CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // What TMA needs of the operands: 16-byte aligned bases, and every
@@ -1145,7 +1124,7 @@ bool tma_ok(int64_t BH, int64_t S, int64_t Tk,
   for (const void* p : ptrs) {
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
   }
-  return encoder() != nullptr && BH * S < (int64_t(1) << 31) &&
+  return hopper::encoder() != nullptr && BH * S < (int64_t(1) << 31) &&
          BH * Tk < (int64_t(1) << 31);
 }
 

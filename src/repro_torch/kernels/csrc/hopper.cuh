@@ -1,7 +1,9 @@
 // Hopper building blocks for the hand-written sm_90a kernels: TMA tile
-// loads completing on mbarriers, the warpgroup matrix multiply (wgmma) with
-// its shared-memory descriptors, and register reallocation between
-// warpgroups.  Everything here is inline PTX; nothing is from a library.
+// loads completing on mbarriers, TMA tile stores in bulk-async groups, the
+// warpgroup matrix multiply (wgmma) with its shared-memory descriptors, and
+// register reallocation between warpgroups.  Everything on the device is
+// inline PTX; nothing is from a library.  On the host, the driver's
+// tensor-map encoder (`encoder`).
 //
 // Shared-memory operands are tiles that TMA wrote with a 32-, 64- or
 // 128-byte swizzle: rows of `swz` bytes (hd bf16 values, or a 64-wide
@@ -17,10 +19,34 @@
 //     of a 128-wide row (the second TMA box).
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// cuTensorMapEncodeTiled, a libcuda entry point, reached through the
+// runtime (no link against libcuda); null where the driver lacks it.
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -97,6 +123,42 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
+}
+
+// One box of shared memory at `src` into a 3-D tensor map at (c0, c1, c2),
+// innermost first; elements outside the tensor are not written.  Joins the
+// bulk-async group that the next bulk_commit closes.
+__device__ __forceinline__ void tma_store_3d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups still read shared
+// memory (their sources may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most N of this thread's committed groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Orders this thread's earlier shared-memory writes before later reads of
+// the async proxy (a TMA store of the same bytes).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void prefetch_map(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // --- warpgroups -----------------------------------------------------------

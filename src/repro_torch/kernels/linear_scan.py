@@ -5,8 +5,14 @@ differentiable through :class:`LinearScan`.
 
 Same contract as ``kernels/ota.py``: CUDA tensors launch the kernel or
 raise, CPU tensors take the plain version from ``kernels/ref.py``.  The
-kernels take contiguous float32 (B, S, D) tensors.  Counterpart of
-``repro/kernels/linear_scan.py`` and of the scan shim in
+kernels take contiguous float32 (B, S, D) tensors.  Each direction has two
+plans, which give the same bits (the plain version's): ``"thread"``, one
+thread walking each sequence, for many sequences, and ``"staged"``, a warp
+walking cb sequences out of a TMA-fed shared-memory ring, for few.  The
+planner :func:`scan_tiling` picks one by shape; a wrapper's ``plan``
+argument, or :func:`forced_plan` around the autograd path, forces one.
+Either plan is one launch, counted under the wrapper's name.  Counterpart
+of ``repro/kernels/linear_scan.py`` and of the scan shim in
 ``repro/kernels/__init__.py``; the JAX package's ``REPRO_USE_PALLAS``
 switch and its ``chunked_scan`` optflag are not ported (ROADMAP queue A
 item 2): on the card the scan always runs B12, and ``REPRO_OPT`` naming
@@ -14,14 +20,76 @@ item 2): on the card the scan always runs B12, and ``REPRO_OPT`` naming
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ota_round, ref
 
 Tensor = torch.Tensor
+
+PLANS = ("thread", "staged")
+#: rows·D below this many sequences an SM take the staged plan: on an H100
+#: (132 SMs) it beats the thread plan at every count below 131,072, at
+#: S = 128, 1,000 and 4,096, both directions; from there the two are within
+#: 3 % either way (tools/sweep_scan.py)
+STAGED_BELOW_PER_SM = 992
+#: channels a staged block walks: the widest is the fastest from a few
+#: thousand sequences up and no slower below (tools/sweep_scan.py)
+STAGED_CHANNELS = 32
+#: (steps a stage, stages in the ring).  A stage costs the walker a fixed
+#: fraction of a µs, so below LONG_STAGES_BELOW_PER_SM sequences an SM,
+#: where the walk sets the time, stages are long; above, where the blocks
+#: stream the most bytes, they are short and the ring small enough that
+#: two blocks share an SM (tools/sweep_scan.py)
+LONG_STAGES_BELOW_PER_SM = 31
+LONG_STAGES = (128, 3)
+SHORT_STAGES = (32, 3)
+
+
+class ScanTiling(NamedTuple):
+    """B12's plan.  ``"thread"``: one thread a sequence (the other fields
+    0).  ``"staged"``: a block walks ``channels`` sequences of one row out
+    of a ring of ``stages`` shared-memory stages of ``steps`` steps each."""
+    plan: str
+    channels: int = 0
+    steps: int = 0
+    stages: int = 0
+
+
+def scan_tiling(rows: int, S: int, D: int, n_sm: int = ota_round.SMS,
+                aligned: bool = True) -> ScanTiling:
+    """The plan for (rows, S, D) planes on a card of ``n_sm`` SMs: staged
+    where rows·D sequences are too few to fill the card (fewer than
+    :data:`STAGED_BELOW_PER_SM` an SM) and TMA can take the planes
+    (D % 4 == 0, 16-byte ``aligned`` bases), else one thread a sequence.
+    The staged plan's parameters follow from the same count; S does not
+    move the choice (the sweep's crossover is the same at every S)."""
+    if rows * D < STAGED_BELOW_PER_SM * n_sm and staged_refusal(
+            D, aligned) is None:
+        return staged_tiling(rows, D, n_sm)
+    return ScanTiling("thread")
+
+
+def staged_tiling(rows: int, D: int, n_sm: int = ota_round.SMS
+                  ) -> ScanTiling:
+    """The staged plan's parameters for rows·D sequences on ``n_sm`` SMs:
+    long stages for few sequences, short ones for more."""
+    long = rows * D < LONG_STAGES_BELOW_PER_SM * n_sm
+    return ScanTiling("staged", STAGED_CHANNELS,
+                      *(LONG_STAGES if long else SHORT_STAGES))
+
+
+def staged_refusal(D: int, aligned: bool) -> Optional[str]:
+    """Why the staged plan cannot take these planes, or None."""
+    if D % 4:
+        return f"D = {D} is not a multiple of 4 (TMA's 16-byte row stride)"
+    if not aligned:
+        return "a plane does not start on a 16-byte boundary (TMA's base)"
+    return None
 
 
 def _check(name: str, **tensors: Tensor):
@@ -36,31 +104,101 @@ def _check(name: str, **tensors: Tensor):
     return (dev, *first)
 
 
-def linear_scan_fwd(a: Tensor, b: Tensor) -> Tensor:
-    """B12 forward: h (B, S, D) float32."""
+PlanArg = Union[None, str, ScanTiling]
+
+
+def resolve_plan(name: str, plan: PlanArg, rows: int, S: int, D: int,
+                 n_sm: int = ota_round.SMS, aligned: bool = True
+                 ) -> ScanTiling:
+    """``plan`` resolved for (rows, S, D) planes: None is the planner's
+    choice, a plan's name its parameters for this shape, a
+    :class:`ScanTiling` itself; a staged plan the planes cannot take
+    raises, naming the reason."""
+    if plan is None:
+        return scan_tiling(rows, S, D, n_sm, aligned)
+    name_of = plan if isinstance(plan, str) else plan.plan
+    if name_of not in PLANS:
+        raise ValueError(f"{name}: plan {plan!r} is none of {PLANS}")
+    if name_of == "thread":
+        return ScanTiling("thread")
+    why = staged_refusal(D, aligned)
+    if why is not None:
+        raise ValueError(f"{name}: the staged plan cannot take ({rows}, "
+                         f"{S}, {D}) planes: {why}")
+    return staged_tiling(rows, D, n_sm) if isinstance(plan, str) else plan
+
+
+def _plan(name: str, plan: PlanArg, *planes: Tensor) -> ScanTiling:
+    """:func:`resolve_plan` for these (B, S, D) planes on their card."""
+    if planes[0].dim() != 3:
+        raise ValueError(f"{name}: want (B, S, D) tensors, got "
+                         f"{tuple(planes[0].shape)}")
+    dev = planes[0].device
+    n_sm = ota_round.sm_count(dev) if dev.type == "cuda" else ota_round.SMS
+    return resolve_plan(name, plan, *planes[0].shape, n_sm,
+                        ota_round.aligned16(*planes))
+
+
+def linear_scan_fwd(a: Tensor, b: Tensor, plan: PlanArg = None) -> Tensor:
+    """B12 forward: h (B, S, D) float32, on ``plan`` (see
+    :func:`resolve_plan`; on CPU tensors a forced plan is checked, then the
+    plain version runs)."""
     if build.resolve_backend(a.device) == "torch":
+        if plan is not None:
+            _plan("linear_scan_fwd", plan, a, b)
         return ref.linear_scan(a, b)
     dev, rows, S, D = _check("linear_scan_fwd", a=a, b=b)
+    t = _plan("linear_scan_fwd", plan, a, b)
     h = torch.empty_like(b)
-    build.launch("linear_scan", "linear_scan_fwd", dev, a.data_ptr(),
-                 b.data_ptr(), h.data_ptr(), rows, S, D)
+    args = (a.data_ptr(), b.data_ptr(), h.data_ptr(), rows, S, D)
+    if t.plan == "thread":
+        build.launch("linear_scan", "linear_scan_fwd", dev, *args)
+    else:
+        build.launch("linear_scan", "linear_scan_fwd_staged", dev, *args,
+                     t.channels, t.steps, t.stages, count="linear_scan_fwd")
     return h
 
 
-def linear_scan_bwd(a: Tensor, h: Tensor, dh: Tensor
+def linear_scan_bwd(a: Tensor, h: Tensor, dh: Tensor, plan: PlanArg = None
                     ) -> Tuple[Tensor, Tensor]:
     """B12 backward: ``(da, db)`` float32 from the gates, the forward's
     output and its cotangent (the reversed recurrence and the epilogue
-    da = g ⊙ h_{t−1} in one launch)."""
+    da = g ⊙ h_{t−1} in one launch), on ``plan``."""
     if build.resolve_backend(a.device) == "torch":
+        if plan is not None:
+            _plan("linear_scan_bwd", plan, a, h, dh)
         return ref.linear_scan_bwd(a, h, dh)
     dev, rows, S, D = _check("linear_scan_bwd", a=a, h=h, dh=dh)
+    t = _plan("linear_scan_bwd", plan, a, h, dh)
     da = torch.empty_like(dh)
     g = torch.empty_like(dh)
-    build.launch("linear_scan", "linear_scan_bwd", dev, a.data_ptr(),
-                 h.data_ptr(), dh.data_ptr(), da.data_ptr(), g.data_ptr(),
-                 rows, S, D)
+    args = (a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
+            g.data_ptr(), rows, S, D)
+    if t.plan == "thread":
+        build.launch("linear_scan", "linear_scan_bwd", dev, *args)
+    else:
+        build.launch("linear_scan", "linear_scan_bwd_staged", dev, *args,
+                     t.channels, t.steps, t.stages, count="linear_scan_bwd")
     return da, g
+
+
+#: the plan :func:`forced_plan` sets for the autograd path in this context
+_forced: contextvars.ContextVar = contextvars.ContextVar(
+    "linear_scan_forced_plan", default=None)
+
+
+@contextlib.contextmanager
+def forced_plan(plan: str):
+    """Every :class:`LinearScan` forward entered inside the block runs on
+    ``plan`` ("thread" or "staged"), and so does its backward, wherever it
+    runs."""
+    if plan not in PLANS:
+        raise ValueError(f"forced_plan: {plan!r} is none of {PLANS}")
+    token = _forced.set(plan)
+    try:
+        yield
+    finally:
+        _forced.reset(token)
 
 
 class LinearScan(torch.autograd.Function):
@@ -72,7 +210,8 @@ class LinearScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
         af, bf = a.float().contiguous(), b.float().contiguous()
-        h = linear_scan_fwd(af, bf)
+        ctx.plan = _forced.get()
+        h = linear_scan_fwd(af, bf, ctx.plan)
         ctx.save_for_backward(af, h)
         ctx.dtypes = (a.dtype, b.dtype)
         return h
@@ -80,7 +219,7 @@ class LinearScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         a, h = ctx.saved_tensors
-        da, db = linear_scan_bwd(a, h, dh.float().contiguous())
+        da, db = linear_scan_bwd(a, h, dh.float().contiguous(), ctx.plan)
         return da.to(ctx.dtypes[0]), db.to(ctx.dtypes[1])
 
 

@@ -148,3 +148,31 @@ def test_operand_checks_refuse_what_the_kernels_do_not_take():
     meta = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="want cuda"):
         build.check_cuda_f32("k", a=meta)
+
+
+_C_TYPES = {"int64_t": build._I64, "int": build._INT, "float": build._F32}
+
+
+def _c_params(src: str, fn: str):
+    """The ctypes type of each parameter of ``extern "C" int fn(...)``: a
+    pointer or the stream is a pointer, else by its C type."""
+    decl = src.split(f'extern "C" int {fn}(', 1)[1].split(")", 1)[0]
+    out = []
+    for param in decl.split(","):
+        words = param.replace("*", " * ").split()
+        if "*" in words or words[0] == "cudaStream_t":
+            out.append(build._PTR)
+        else:
+            out.append(_C_TYPES[words[-2]])
+    return out
+
+
+@pytest.mark.parametrize("lib,fn", [(lib, fn)
+                                    for lib, fns in build.SIGNATURES.items()
+                                    for fn in fns])
+def test_signatures_match_the_c_parameter_lists(lib, fn):
+    """ctypes passes each argument as SIGNATURES declares it: the list must
+    be the C entry point's, type for type (an int64 passed as an int, or a
+    pointer as either, would be cut)."""
+    src = (build.CSRC / f"{lib}.cu").read_text()
+    assert build.SIGNATURES[lib][fn] == _c_params(src, fn)

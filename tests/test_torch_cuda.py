@@ -693,6 +693,95 @@ def test_linear_scan_wrappers_refuse_bad_operands(dev):
         linear_scan.linear_scan_bwd(a, b, dh[:1].contiguous())
 
 
+#: the staged plan's ragged edges at both stage lengths T: one step, T − 1,
+#: T, T + 1, and many stages with a remainder; D of one 4-channel group, of
+#: a partial tile, and the hybrid's full width
+STAGE_EDGES = sorted({s for T, _ in (linear_scan.LONG_STAGES,
+                                     linear_scan.SHORT_STAGES)
+                      for s in (T - 1, T, T + 1)} | {1, 1000})
+#: each plan by name (the planner's parameters) and both stage lengths
+PLAN_CASES = [*linear_scan.PLANS] + [
+    linear_scan.ScanTiling("staged", linear_scan.STAGED_CHANNELS, *st)
+    for st in (linear_scan.LONG_STAGES, linear_scan.SHORT_STAGES)]
+
+
+@pytest.mark.parametrize("plan", PLAN_CASES, ids=str)
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("D", [4, 100, 2560])
+@pytest.mark.parametrize("S", STAGE_EDGES)
+def test_linear_scan_plans_equal_the_plain_versions(dev, S, D, rows, plan):
+    """Either plan, forced, and the staged plan at either stage length,
+    rounds each step as the plain loops do: bit for bit, forward and
+    backward, one counted launch each."""
+    a, b, dh = _scan_inputs(dev, (rows, S, D), seed=S + D + rows)
+    h = _launched("linear_scan_fwd",
+                  lambda: linear_scan.linear_scan_fwd(a, b, plan))
+    assert torch.equal(h, ref.linear_scan(a, b))
+    da, db = _launched("linear_scan_bwd",
+                       lambda: linear_scan.linear_scan_bwd(a, h, dh, plan))
+    want_da, want_db = ref.linear_scan_bwd(a, h, dh)
+    assert torch.equal(da, want_da) and torch.equal(db, want_db)
+
+
+@pytest.mark.parametrize("tiling", [(32, 128, 3), (32, 32, 3), (8, 16, 2),
+                                    (16, 64, 4), (32, 256, 2), (8, 8, 3)],
+                         ids=str)
+def test_staged_parameters_give_the_thread_plans_bits(dev, tiling):
+    """Any channels, steps and stages the kernel takes give the same bits,
+    at the hybrid's width with a ragged S."""
+    a, b, dh = _scan_inputs(dev, (2, 1001, 2560), seed=24)
+    t = linear_scan.ScanTiling("staged", *tiling)
+    h = linear_scan.linear_scan_fwd(a, b, "thread")
+    assert torch.equal(linear_scan.linear_scan_fwd(a, b, t), h)
+    want = linear_scan.linear_scan_bwd(a, h, dh, "thread")
+    got = linear_scan.linear_scan_bwd(a, h, dh, t)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_staged_plan_bitwise_repeatable(dev):
+    a, b, dh = _scan_inputs(dev, (2, 4096, 2560), seed=25)
+    assert linear_scan.scan_tiling(2, 4096, 2560).plan == "staged"
+    h1 = linear_scan.linear_scan_fwd(a, b, "staged")
+    h2 = linear_scan.linear_scan_fwd(a, b, "staged")
+    g1 = linear_scan.linear_scan_bwd(a, h1, dh, "staged")
+    g2 = linear_scan.linear_scan_bwd(a, h1, dh, "staged")
+    assert torch.equal(h1, h2)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+    assert torch.equal(h1, linear_scan.linear_scan_fwd(a, b, "thread"))
+
+
+@pytest.mark.parametrize("plan", linear_scan.PLANS)
+def test_linear_scan_autograd_counts_one_launch_a_direction(dev, plan):
+    a, b, dh = _scan_inputs(dev, (2, 300, 128), seed=26)
+    at, bt = a.clone().requires_grad_(), b.clone().requires_grad_()
+    build.reset_launches()
+    with linear_scan.forced_plan(plan):
+        h = linear_scan.gated_linear_scan(at.reshape(2, 300, 8, 16),
+                                          bt.reshape(2, 300, 8, 16))
+        (h.reshape(2, 300, 128) * dh).sum().backward()
+    assert dict(build.launches) == {"linear_scan_fwd": 1,
+                                    "linear_scan_bwd": 1}
+    want_da, want_db = ref.linear_scan_bwd(a, ref.linear_scan(a, b), dh)
+    assert torch.equal(at.grad, want_da) and torch.equal(bt.grad, want_db)
+
+
+def test_staged_plan_refuses_what_tma_cannot_take(dev):
+    a, b, dh = _scan_inputs(dev, (2, 8, 6))
+    with pytest.raises(ValueError, match="not a multiple of 4"):
+        linear_scan.linear_scan_fwd(a, b, "staged")
+    assert linear_scan.scan_tiling(2, 8, 6).plan == "thread"
+    buf = torch.zeros(2 * 8 * 8 + 1, device=dev)
+    off = buf[1:].view(2, 8, 8)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        linear_scan.linear_scan_bwd(off, off, off, "staged")
+    a8, b8, _ = _scan_inputs(dev, (2, 8, 8))
+    for bad in ((12, 64, 2), (8, 264, 2), (8, 60, 2), (8, 64, 1),
+                (32, 256, 8)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            linear_scan.linear_scan_fwd(
+                a8, b8, linear_scan.ScanTiling("staged", *bad))
+
+
 @pytest.mark.parametrize("d", [1, 1000, 109_386])
 def test_accumulate_kernel(dev, d):
     y, p2, sre, sim, hre, him = (torch.randn(d, device=dev)

@@ -21,6 +21,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import transport  # noqa: E402
 from repro_torch.core.cplx import Complex  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import linear_scan as ls  # noqa: E402
 from repro_torch.kernels.linear_scan import (LinearScan,  # noqa: E402
                                              gated_linear_scan, linear_scan,
                                              linear_scan_bwd,
@@ -140,6 +141,95 @@ def test_gated_linear_scan_refuses_what_it_cannot_run(monkeypatch):
     monkeypatch.setenv("REPRO_OPT", "chunked_attn,chunked_scan")
     with pytest.raises(NotImplementedError, match="chunked_scan"):
         gated_linear_scan(a, a)
+
+
+# ---------------------------------------------------------------------------
+# B12's planner: which plan each shape takes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,S,D,stages", [
+    (2, 4096, 2560, ls.SHORT_STAGES),  # recurrentgemma-2b at full width
+    (4, 128, 128, ls.LONG_STAGES),     # the llm_hybrid path
+    (3, 1000, 100, ls.LONG_STAGES),    # ragged
+])
+def test_few_sequences_take_the_staged_plan(rows, S, D, stages):
+    t = ls.scan_tiling(rows, S, D)
+    assert t == ls.ScanTiling("staged", ls.STAGED_CHANNELS, *stages)
+    assert rows * D < ls.STAGED_BELOW_PER_SM * ls.ota_round.SMS
+
+
+def test_the_ssm_shape_takes_the_thread_plan():
+    """falcon-mamba-7b's (W·B, S, d_inner·n): 262,144 sequences fill the
+    card one thread each.  The threshold is in sequences an SM."""
+    assert ls.scan_tiling(2, 4096, 131_072) == ls.ScanTiling("thread")
+    below = ls.STAGED_BELOW_PER_SM * 132
+    assert ls.scan_tiling(1, 4096, below).plan == "thread"
+    assert ls.scan_tiling(1, 4096, below - 4).plan == "staged"
+    assert ls.scan_tiling(1, 4096, below - 4, n_sm=66).plan == "thread"
+
+
+@pytest.mark.parametrize("rows,D,n_sm,stages", [
+    (2, 2044, 132, ls.LONG_STAGES),    # 4,088 sequences: 31 an SM or fewer
+    (2, 2048, 132, ls.SHORT_STAGES),
+    (2, 2048, 264, ls.LONG_STAGES),    # the same count on twice the SMs
+    (1, 65_000, 132, ls.SHORT_STAGES),
+])
+def test_stage_length_follows_the_sequences_an_sm(rows, D, n_sm, stages):
+    assert ls.staged_tiling(rows, D, n_sm) == ls.ScanTiling(
+        "staged", ls.STAGED_CHANNELS, *stages)
+
+
+@pytest.mark.parametrize("D,aligned,why", [
+    (2562, True, "not a multiple of 4"),
+    (2560, False, "16-byte boundary"),
+])
+def test_what_tma_cannot_take_keeps_the_thread_plan(D, aligned, why):
+    assert ls.scan_tiling(2, 4096, D, aligned=aligned).plan == "thread"
+    with pytest.raises(ValueError, match=why):
+        ls.resolve_plan("linear_scan_fwd", "staged", 2, 4096, D,
+                        aligned=aligned)
+
+
+def test_a_forced_staged_plan_the_planes_cannot_take_raises():
+    """On CPU tensors too: D = 6, and planes 4 bytes off a 16-byte
+    boundary."""
+    a, b = map(torch.from_numpy, _inputs((2, 5, 6), 8))
+    with pytest.raises(ValueError, match="staged plan cannot take"):
+        linear_scan_fwd(a, b, plan="staged")
+    with pytest.raises(ValueError, match="staged plan cannot take"):
+        linear_scan_bwd(a, b, b, plan="staged")
+    buf = torch.zeros(2 * 5 * 8 + 1)
+    off = buf[1:].view(2, 5, 8)
+    assert off.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        linear_scan_fwd(off, off, plan="staged")
+    assert torch.equal(linear_scan_fwd(off, off, plan="thread"),
+                       ref.linear_scan(off, off))
+    with pytest.raises(ValueError, match="none of"):
+        linear_scan_fwd(a, b, plan="chunked")
+    with pytest.raises(ValueError, match="none of"):
+        with ls.forced_plan("chunked"):
+            pass
+
+
+def test_forced_plan_reaches_both_directions_of_the_autograd_path():
+    """The plan forced around the forward is the one its backward runs,
+    even after the block: D = 6 cannot be staged, so both refuse."""
+    a, b = map(torch.from_numpy, _inputs((2, 5, 6), 9))
+    at = a.clone().requires_grad_()
+    with pytest.raises(ValueError, match="staged plan cannot take"):
+        with ls.forced_plan("staged"):
+            linear_scan(at, b)
+    a8, b8 = map(torch.from_numpy, _inputs((2, 5, 8), 9))
+    at = a8.clone().requires_grad_()
+    with ls.forced_plan("staged"):
+        h = linear_scan(at, b8)
+    assert ls._forced.get() is None
+    assert h.grad_fn.plan == "staged"
+    h.sum().backward()
+    want_da, _ = ref.linear_scan_bwd(a8, ref.linear_scan(a8, b8),
+                                     torch.ones_like(b8))
+    assert torch.equal(at.grad, want_da)
 
 
 # ---------------------------------------------------------------------------
