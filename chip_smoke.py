@@ -26,8 +26,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              beside it, and B7 at falcon-mamba-7b's D masked, with CSI and
              the fused channel step (each B2/B6/B7 row names its ``plan``);
              the gated linear scan B12 — forward
-             and backward — at the SSM round's (2, 4,096, 131,072), the
-             hybrid's full-width (2, 4,096, 2,560), the hybrid path's
+             and backward — at the SSM round's (2, 4,096, 131,072), one
+             512-step chunk of it (2, 512, 131,072), the hybrid's
+             full-width (2, 4,096, 2,560), the hybrid path's
              (4, 128, 128) and a ragged (3, 1,000, 100), each on the
              planner's plan and again on the other (``thread`` or
              ``staged``, named in the row); the accumulate
@@ -61,37 +62,54 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              fault-free, then 20 with 25 workers crashing, a NaN worker and
              interference bursts under the evict-retransmit guard
              (``make("afadmm", ..., faults=..., guard=...)`` and ``train``).
-11. profile — one more round of phases 4, 7 and 10 each under
+11. baselines — the paper's comparison set on phase 4's MLP (its data,
+             solver and initial models): D-FADMM, A-GD and FedAvg, 5
+             rounds each through ``make(name, ...)`` and ``train``, and one
+             more round of each under torch.profiler; none launches an OTA
+             kernel.
+12. figures — the torch twins of the paper's figures
+             (``repro_torch.benchmarks``) on the card: fig2a, fig5 and fig3a
+             at the FAST scale, then fig3a at the paper's (W = 100,
+             784-128-64-10, 200 rounds); A-FADMM must reach the 1e-4 gap
+             in fig2a.
+13. profile — one more round of phases 4, 7 and 10 each under
              torch.profiler: device time by kernel family, its share of the
              phase's round time, and the guarded uplink's span.
-12. accumulate — the worker-at-a-time receive at the paper MLP's width
+14. accumulate — the worker-at-a-time receive at the paper MLP's width
              (W = 100, d = 109,386): ``transport.ota_accumulate`` (B13) once
              per worker, then ``ota_receive_accumulated`` (one B3), held
              against the stacked receive (B2) on the same draws.
-13. llm    — the federated LLM trainer's replicated mode
+15. llm    — the federated LLM trainer's replicated mode
              (``make_fl_train`` / ``train_step``) on granite-8b at full
              width (d_model 4096, 32/8 heads of 128, d_ff 14,336, vocabulary
              49,152, bf16) with 2 of its 36 layers: 2 workers, 1 × 4,096
              tokens each, 2 local sgd steps at lr 5e-4, 3 rounds; then one
              more round under torch.profiler.
-14. llm_ssm — the same trainer on falcon-mamba-7b at full width (d_model
+16. llm_ssm — the same trainer on falcon-mamba-7b at full width (d_model
              4096, d_inner 8,192, state 16, dt rank 256, conv 4, vocabulary
              65,024, bf16) with 2 of its 64 layers: 2 workers, 1 × 4,096
              tokens each, 2 local sgd steps, 3 rounds; then one more round
              under torch.profiler.
-15. llm_hybrid — the same trainer on recurrentgemma-2b at its reduced
+17. llm_ssm_chunked — phase 16 again under ``REPRO_OPT=chunked_scan``
+             (512-step chunks, each B12 launch of the round one a chunk)
+             from the same state and draws: the first round's loss within
+             1e-3 of phase 16's, a lower peak; then one more round under
+             torch.profiler; then both runs again with f32 parameters
+             (``llm_ssm_f32``, ``llm_ssm_chunked_f32``), every round's
+             loss within 1e-4.
+18. llm_hybrid — the same trainer on recurrentgemma-2b at its reduced
              widths (one super-block: rec, rec, windowed attention) in f32,
              2 workers, 3 rounds on the card and the same rounds on the CPU
              from the same state and draws: losses to rtol 1e-5, Θ to atol
              1e-5.
-16. rec_block — one recurrentgemma-2b recurrent block
+19. rec_block — one recurrentgemma-2b recurrent block
              (``models/hybrid.rec_block_fwd``) at full width, bf16, on
              (2, 1, 4,096, 2,560), forward and backward of a fixed scalar
              loss once on each B12 plan: output and parameter gradients
              equal bit for bit between the plans, one B12 launch a
              direction a run; each plan's device ms and B12's share.
 
-Launch counts are reset just before each of phases 4–10 and 12–16 and read
+Launch counts are reset just before each of phases 4–12 and 14–19 and read
 just after.  Then come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
@@ -99,6 +117,7 @@ a result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -836,7 +855,8 @@ def _flash_rows(torch, build, card):
 def _scan_cases():
     """B12 rows: (label, B, S, D), from the paths' configs.  The SSM
     round's planes (``llm_ssm``: W·B sequences of its tokens by
-    d_inner·ssm_state channels), the hybrid's at full width
+    d_inner·ssm_state channels), one chunk of them (``llm_ssm_chunked``:
+    ``SSM_SCAN_CHUNK`` steps), the hybrid's at full width
     (recurrentgemma-2b's lru_width at the granite path's W·B and S), the
     ``llm_hybrid`` path's reduced ones, and a ragged case."""
     from repro_torch.models import get_config
@@ -844,6 +864,8 @@ def _scan_cases():
     ssm_cfg = get_config(SSM_ARCH)
     full, reduced = get_config(HYBRID_ARCH), _hybrid_cfg()
     return [("", LLM_WORKERS, SSM_SEQ, ssm_cfg.d_inner * ssm_cfg.ssm_state),
+            ("[chunk ({}, {}, {})]", LLM_WORKERS, SSM_SCAN_CHUNK,
+             ssm_cfg.d_inner * ssm_cfg.ssm_state),
             ("[hybrid ({}, {}, {})]", LLM_WORKERS, LLM_SEQ, full.lru_width),
             ("[hybrid path ({}, {}, {})]", HYBRID_WORKERS * HYBRID_BATCH,
              HYBRID_SEQ, reduced.lru_width),
@@ -979,6 +1001,7 @@ def _linreg_task(torch, dev, W: int, D: int, key: int):
 
 def phase_mlp(torch):
     from repro_torch import rng
+    from repro_torch.benchmarks.common import MinibatchGrad
     from repro_torch.configs import paper_mlp as cfg
     from repro_torch.core.admm import AdmmConfig
     from repro_torch.core.aggregators import make
@@ -1062,7 +1085,8 @@ def phase_mlp(torch):
           "inv_alpha": hist.extra["inv_alpha"],
           "channel_uses": hist.channel_uses, "launches": launches})
     run = dict(alg=alg, theta0=theta0, solver=solver, grad_fn=grad_fn,
-               eval_fn=eval_fn, loss0=loss0)
+               eval_fn=eval_fn, loss0=loss0,
+               minibatch_grad=MinibatchGrad(grad, batch_fn))
     return launches, run, run_s / n_rounds
 
 
@@ -1552,6 +1576,126 @@ def phase_chaos(torch, run):
     return launches, chaos, chaos_s
 
 
+#: phase ``baselines``: the paper's comparison set on phase ``mlp``'s task;
+#: A-GD's step is the figure benchmarks' (``fig3a_comm_efficiency``)
+BASELINE_ROUNDS = 5
+BASELINES = (("dfadmm", {}),
+             ("analog_gd", dict(learning_rate=5e-2, epsilon=1e-6)),
+             ("fedavg", {}))
+
+
+def phase_baselines(torch, run, afadmm_s: float):
+    """D-FADMM, A-GD and FedAvg (``make(name, ...)`` and ``train``) on the
+    paper MLP of phase ``mlp``: its data, solver and initial models, W =
+    100, d = 109,386, 4096 subcarriers, 20 local prox-Adam steps, 40 dB, 5
+    rounds each, then one more round of each under torch.profiler.  None
+    of them uses an OTA kernel: D-FADMM's uplink is digital and FedAvg's
+    ideal, and A-GD's truncated inversion is plain torch as it is plain jnp
+    in the JAX package, so each run's launch count is pinned at zero."""
+    from repro_torch.configs import paper_mlp as cfg
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.aggregators import make
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.subcarrier import SubcarrierPlan
+    from repro_torch.kernels import build
+    from repro_torch.train.fl_trainer import train
+
+    theta0 = run["theta0"]
+    W, d = theta0.shape
+    ccfg = ChannelConfig(n_workers=W, n_subcarriers=cfg.N_SUBCARRIERS,
+                         snr_db=40.0)
+    plan = SubcarrierPlan.build(d, cfg.N_SUBCARRIERS)
+    out, all_launches, rounds = {}, {}, {}
+    for name, kw in BASELINES:
+        alg = make(name, AdmmConfig(rho=cfg.RHO, flip_on_change=False), ccfg,
+                   plan, **kw)
+        # one round first, so the timed run excludes the warm-up
+        train(alg, theta0, run["solver"], run["minibatch_grad"], 1, SEED + 1)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        hist = train(alg, theta0, run["solver"], run["minibatch_grad"],
+                     BASELINE_ROUNDS, SEED, eval_fn=run["eval_fn"])
+        torch.cuda.synchronize()
+        round_s = (time.perf_counter() - t0) / BASELINE_ROUNDS
+        launches = dict(build.launches)
+        series = [hist.loss, hist.accuracy, hist.channel_uses,
+                  *hist.extra.values()]
+        require(all(math.isfinite(v) for s_ in series for v in s_),
+                f"baselines: {name} has non-finite metrics: {hist}")
+        require(hist.loss[-1] < run["loss0"],
+                f"baselines: {name}'s test loss {hist.loss[-1]} after "
+                f"{BASELINE_ROUNDS} rounds is not below the initial mean "
+                f"model's {run['loss0']}")
+        require(not launches, f"baselines: {name} launched {launches}; "
+                "none of the baselines runs an OTA kernel")
+        all_launches.update(launches)
+        rounds[name] = (alg, round_s)
+        out[name] = {"seconds_per_round": round_s,
+                     "per_afadmm_round": round_s / afadmm_s,
+                     "loss": hist.loss, "accuracy": hist.accuracy,
+                     "channel_uses": hist.channel_uses, "launches": launches,
+                     **({k: kw[k] for k in kw})}
+    emit({"phase": "baselines", "ok": True, "W": W, "d": d,
+          "subcarriers": cfg.N_SUBCARRIERS, "local_steps": cfg.LOCAL_ITERS,
+          "snr_db": 40.0, "rounds": BASELINE_ROUNDS,
+          "loss_init": run["loss0"],
+          "afadmm": {"seconds_per_round": afadmm_s,
+                     "channel_uses": float(plan.n_slots)},
+          **out})
+    for name, (alg, round_s) in rounds.items():
+        phase_profile(torch, "baselines:" + name,
+                      lambda alg=alg: train(alg, theta0, run["solver"],
+                                            run["minibatch_grad"], 1,
+                                            SEED + 2), round_s)
+    return all_launches
+
+
+def phase_figures(torch):
+    """The torch twins of the paper's figures (``repro_torch.benchmarks``)
+    on the card at their default (FAST) scale, JAX's: fig2a (A-FADMM,
+    D-FADMM, D-FADMM over 10× the subcarriers and A-GD, 300 linreg rounds),
+    fig5 (A-FADMM at three ρ, 150 rounds each) and fig3a (A-FADMM, D-FADMM
+    and A-GD on the FAST MLP, 25 rounds); then fig3a at the paper's scale
+    (W = 100, 784-128-64-10, 200 rounds).  Every derived number and each
+    function's seconds are recorded; A-FADMM must reach the 1e-4 gap in
+    fig2a.  Only A-FADMM launches kernels: B1, B2 and B4 each round, B5
+    each linreg round (the flip rule is on there)."""
+    from repro_torch.benchmarks import common, fig2_linreg, fig5_rho
+    from repro_torch.benchmarks import fig3_classification as fig3
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    fast, paper = {}, {}
+    for name, fn in (("fig2a_comm_efficiency",
+                      fig2_linreg.fig2a_comm_efficiency),
+                     ("fig5_rho_sensitivity", fig5_rho.fig5_rho_sensitivity),
+                     ("fig3a_comm_efficiency", fig3.fig3a_comm_efficiency)):
+        fast[name] = common.timed(lambda fn=fn: fn(device="cuda"))
+    paper["fig3a_comm_efficiency"] = common.timed(
+        lambda: fig3.fig3a_comm_efficiency(device="cuda",
+                                           scale=common.PAPER_SCALE))
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    fig2a = fast["fig2a_comm_efficiency"]["derived"]
+    require(fig2a["afadmm"]["rounds_to_1e-4"] is not None,
+            f"figures: A-FADMM never reached the 1e-4 gap in fig2a: {fig2a}")
+    linreg_rounds = common.LINREG_ROUNDS + 3 * 150
+    afadmm_rounds = (linreg_rounds + common.FAST_SCALE.mlp_rounds
+                     + common.PAPER_SCALE.mlp_rounds)
+    for k, n in (("ota_modulate", afadmm_rounds),
+                 ("ota_receive", afadmm_rounds),
+                 ("admm_dual_update", afadmm_rounds),
+                 ("admm_flip_lambda", linreg_rounds)):
+        require(launches.pop(k, 0) == n,
+                f"figures: {k} launched {build.launches.get(k, 0)} times in "
+                f"{afadmm_rounds} A-FADMM rounds, want {n}")
+    require(not launches, f"figures: unexpected launches {launches}")
+    emit({"phase": "figures", "ok": True, "fast": fast, "paper": paper,
+          "launches": dict(build.launches)})
+    return dict(build.launches)
+
+
 #: phase ``llm``: granite-8b at full width, depth cut 36 -> 2 (the round's
 #: (W, D) f32 planes of λ and h alone take 16 bytes a parameter per worker)
 LLM_ARCH = "granite-8b"
@@ -1585,6 +1729,29 @@ SSM_LAUNCHES = {"linear_scan_fwd": 2 * SSM_LAYERS * 2,
                 "ota_modulate": 0, "ota_receive": 0, "ota_round_theta": 0}
 
 
+#: phase ``llm_ssm_chunked``: ``llm_ssm`` again under
+#: ``REPRO_OPT=chunked_scan`` with chunks of 512 steps, from the same
+#: initial state and draws: each B12 launch of the round becomes one a chunk
+SSM_SCAN_CHUNK = 512
+SSM_CHUNKS = -(-SSM_SEQ // SSM_SCAN_CHUNK)
+SSM_CHUNKED_LAUNCHES = dict(
+    SSM_LAUNCHES, linear_scan_fwd=SSM_CHUNKS * SSM_LAUNCHES["linear_scan_fwd"],
+    linear_scan_bwd=SSM_CHUNKS * SSM_LAUNCHES["linear_scan_bwd"])
+#: loss of the chunked rounds against the unchunked ones.  The chunked
+#: scan rounds as the whole one step by step, but dA sums per chunk and the
+#: C contraction runs per chunk, so the gradients differ in their last
+#: bits; with bf16 parameters an sgd step at lr 5e-4 is below one bf16 ulp
+#: for most of them, and which of them move by an ulp turns on those bits,
+#: so the two bf16 runs fork after their first round (relative 1.2e-4,
+#: 5.0e-4, 8.3e-3 in rounds 1-3 on an H100).  The gate holds the bf16
+#: pair's first round, and every round of an f32 pair (the same runs with
+#: f32 parameters, where the steps are far above the rounding: 0, 2.2e-6,
+#: 1.4e-5) to a tighter bound
+SSM_CHUNKED_LOSS_RTOL = 1e-3
+SSM_CHUNKED_BF16_ROUNDS = 1
+SSM_CHUNKED_F32_LOSS_RTOL = 1e-4
+
+
 def _llm_cfg(arch: str, n_layers: int):
     """``arch`` at full width, cut to ``n_layers``."""
     import dataclasses
@@ -1604,12 +1771,19 @@ def _check_packed_d(phase: str, cfg, d: int) -> None:
 
 
 def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
-              lr: float, want_launches: dict):
+              lr: float, want_launches: dict, reference=None,
+              loss_rounds: int = LLM_ROUNDS,
+              loss_rtol: float = SSM_CHUNKED_LOSS_RTOL, dtype=None):
     """The federated LLM trainer's replicated mode (``make_fl_train`` /
     ``train_step``) on ``arch`` at full width with ``n_layers`` of its
-    layers, in bf16: W = 2 workers, per-worker batch 1 × ``seq`` tokens, 2
-    local sgd steps at ``lr``, 3 rounds.  Returns (launches, a one-round
-    callable for the profiler, s/round)."""
+    layers, in bf16 (or ``dtype``): W = 2 workers, per-worker batch 1 ×
+    ``seq`` tokens, 2 local sgd steps at ``lr``, 3 rounds.  With
+    ``reference`` (an earlier run's summary, same state and draws) the loss
+    of each of the first ``loss_rounds`` rounds must be within
+    ``loss_rtol`` of its, and the peak below its.  Returns
+    (launches, a one-round callable for the profiler, s/round, summary)."""
+    import dataclasses
+
     from repro_torch import rng
     from repro_torch.core.admm import AdmmConfig
     from repro_torch.core.channel import ChannelConfig
@@ -1621,6 +1795,8 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
 
     full = get_config(arch)
     cfg = _llm_cfg(arch, n_layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype)
     model = build_model(cfg)
     W, B, S = LLM_WORKERS, 1, seq
     local_steps = 2
@@ -1665,6 +1841,23 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
             f"Θ")
     round_s = statistics.mean(times[1:])
     tokens_per_round = W * B * S * local_steps
+    summary = {"loss": losses, "peak_mem_gb": peak / 1e9,
+               "seconds_per_round": round_s,
+               "tokens_per_s": tokens_per_round / round_s}
+    versus = None
+    if reference is not None:
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, reference["loss"])]
+        require(max(rel[:loss_rounds]) <= loss_rtol,
+                f"{phase}: losses {losses} against {reference['loss']}: "
+                f"relative {rel} > {loss_rtol} in the first {loss_rounds} "
+                f"rounds")
+        require(peak / 1e9 < reference["peak_mem_gb"],
+                f"{phase}: peak {peak / 1e9} GB is not below "
+                f"{reference['peak_mem_gb']} GB")
+        versus = dict(reference, loss_rel_diff=rel,
+                      loss_rtol=loss_rtol,
+                      loss_gated_rounds=loss_rounds,
+                      loss_bits_equal=losses == reference["loss"])
     widths = {"dense": ("d_model", "n_heads", "n_kv_heads", "hd", "d_ff",
                         "vocab_size"),
               "ssm": ("d_model", "d_inner", "ssm_state", "dt_rank",
@@ -1682,14 +1875,66 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
           "seconds_per_round": round_s,
           "tokens_per_s": tokens_per_round / round_s,
           "loss": losses, "theta_drift": drifts, "inv_alpha": inv_alphas,
-          "peak_mem_gb": peak / 1e9, "launches": launches})
+          "peak_mem_gb": peak / 1e9, "launches": launches,
+          **({} if versus is None else {"reference": versus})})
     keys = iter(range(100, 1000))
 
     def one_round():
         nonlocal state
         state, _ = train_step(state, batch, key=rng.fold_in(SEED,
                                                             next(keys)))
-    return launches, one_round, round_s
+    return launches, one_round, round_s, summary
+
+
+@contextlib.contextmanager
+def _chunked_scan():
+    """``REPRO_OPT=chunked_scan`` with ``SSM_SCAN_CHUNK``-step chunks inside
+    the block; the environment as it was after."""
+    saved = {k: os.environ.get(k) for k in ("REPRO_OPT", "REPRO_SCAN_CHUNK")}
+    os.environ["REPRO_OPT"] = "chunked_scan"
+    os.environ["REPRO_SCAN_CHUNK"] = str(SSM_SCAN_CHUNK)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_llm_ssm_chunked(torch, reference: dict):
+    """Phase ``llm_ssm`` again under ``REPRO_OPT=chunked_scan`` from the
+    same state and draws, held to ``llm_ssm``'s (``reference``) first-round
+    loss and peak, then one more round under torch.profiler; then the f32
+    pair (``llm_ssm_f32``, ``llm_ssm_chunked_f32``: both runs with f32
+    parameters), every round's loss held (``SSM_CHUNKED_F32_LOSS_RTOL``).
+    Returns each run's launches by phase."""
+    paths = {}
+    with _chunked_scan():
+        paths["llm_ssm_chunked"], one_round, round_s, _ = phase_llm(
+            torch, "llm_ssm_chunked", SSM_ARCH, SSM_LAYERS, SSM_SEQ, SSM_LR,
+            SSM_CHUNKED_LAUNCHES, reference=reference,
+            loss_rounds=SSM_CHUNKED_BF16_ROUNDS)
+        phase_profile(torch, "llm_ssm_chunked", one_round, round_s)
+    del one_round
+    _free(torch)
+    paths["llm_ssm_f32"], _, _, f32 = phase_llm(
+        torch, "llm_ssm_f32", SSM_ARCH, SSM_LAYERS, SSM_SEQ, SSM_LR,
+        SSM_LAUNCHES, dtype="float32")
+    _free(torch)
+    with _chunked_scan():
+        paths["llm_ssm_chunked_f32"], _, _, _ = phase_llm(
+            torch, "llm_ssm_chunked_f32", SSM_ARCH, SSM_LAYERS, SSM_SEQ,
+            SSM_LR, SSM_CHUNKED_LAUNCHES, reference=f32,
+            loss_rtol=SSM_CHUNKED_F32_LOSS_RTOL, dtype="float32")
+    _free(torch)
+    return paths
 
 
 #: phase ``llm_hybrid``: recurrentgemma-2b reduced, in f32 so the card can
@@ -2029,6 +2274,8 @@ def main() -> int:
         paths["scaleup"] = phase_scaleup(torch, name)
         paths["fused_round"] = phase_fused_round(torch)
         paths["chaos"], chaos_alg, chaos_s = phase_chaos(torch, mlp_run)
+        paths["baselines"] = phase_baselines(torch, mlp_run, round_s)
+        paths["figures"] = phase_figures(torch)
         phase_profile(torch, "mlp", _mlp_round(mlp_run["alg"], mlp_run),
                       round_s)
         phase_profile(torch, "scenario_deepfade",
@@ -2039,7 +2286,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         paths["accumulate"] = phase_accumulate(torch, name)
-        paths["llm"], llm_round, llm_s = phase_llm(
+        paths["llm"], llm_round, llm_s, _ = phase_llm(
             torch, "llm", LLM_ARCH, LLM_LAYERS, LLM_SEQ, LLM_LR,
             LLM_LAUNCHES)
         phase_profile(torch, "llm", llm_round, llm_s)
@@ -2047,13 +2294,14 @@ def main() -> int:
         del llm_round
         gc.collect()
         torch.cuda.empty_cache()
-        paths["llm_ssm"], ssm_round, ssm_s = phase_llm(
+        paths["llm_ssm"], ssm_round, ssm_s, ssm_summary = phase_llm(
             torch, "llm_ssm", SSM_ARCH, SSM_LAYERS, SSM_SEQ, SSM_LR,
             SSM_LAUNCHES)
         phase_profile(torch, "llm_ssm", ssm_round, ssm_s)
         del ssm_round
         gc.collect()
         torch.cuda.empty_cache()
+        paths.update(phase_llm_ssm_chunked(torch, ssm_summary))
         paths["llm_hybrid"] = phase_llm_hybrid(torch)
         paths["rec_block"] = phase_rec_block(torch)
     except SmokeFailure as e:

@@ -63,16 +63,18 @@ class AFadmmState(NamedTuple):
 
 
 class RoundDraws(NamedTuple):
-    """Every random plane one round reads.
+    """Every random plane one round reads (of A-FADMM here, and of the
+    baselines in ``core.aggregators``).
 
     h_fresh: the new Rayleigh block (W, d), only on rounds that redraw the
-      channel (``channel.redraws``), else None.
+      channel (``channel.redraws``), else None.  D-FADMM's is (W, S).
     noise_re: (d,) real plane of the uplink matched-filter noise (zeros on
-      a noise-free link).
+      a noise-free link); None for D-FADMM and FedAvg, whose links add none.
     downlink_noise_re: (W, d) real plane of the analog-downlink noise, only
       under ``ChannelConfig.analog_downlink``, else None.
     batch_idx: (n_steps, W, B) shard-local minibatch indices for a
-      stochastic local solver, else None.
+      stochastic local solver (A-GD: (W, B) for its one gradient), else
+      None.
     phy: the scenario's ``repro_torch.phy.PhyDraws`` under a wireless
       scenario (then ``h_fresh`` is None), else None.
     faults: the fault plan's uniforms (``repro_torch.faults.plan
@@ -83,7 +85,7 @@ class RoundDraws(NamedTuple):
     """
 
     h_fresh: Optional[Complex]
-    noise_re: Tensor
+    noise_re: Optional[Tensor]
     downlink_noise_re: Optional[Tensor] = None
     batch_idx: Optional[Tensor] = None
     phy: Optional[Any] = None

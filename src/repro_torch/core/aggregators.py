@@ -5,31 +5,48 @@
     st, m = alg.round(key, st, local_solve, grad_fn)
     Theta = alg.global_model(st)
 
-Counterpart of ``repro/core/aggregators.py`` for A-FADMM, the paper's
-algorithm.  Keys are integers (``repro_torch.rng``); the device is that of
-``theta0``.  ``round`` draws its random planes from the round key, as the
-JAX round does from its two halves, or takes them ready-made.  With a
-``repro_torch.phy`` scenario the channel is the scenario's: its state rides
-in ``AFadmmState.phys`` and it supplies the round's participation mask and
-the workers' CSI.  With a ``repro_torch.faults.FaultPlan`` the fault state
-rides in ``AFadmmState.flt``, its draws come from the round key's
-``FAULT_SALT`` side branch (so an all-zero plan changes no draw of the
-fault-free run), and a ``GuardConfig`` guards the uplink.
+Counterpart of ``repro/core/aggregators.py``, with the paper's Sec. 5
+benchmark set:
+
+* ``afadmm``    — A-FADMM (the paper): analog OTA, no channel inversion;
+* ``dfadmm``    — D-FADMM: digital orthogonal-subcarrier ADMM (Appendix A),
+                  Shannon-rate channel-use accounting (Appendix H);
+* ``analog_gd`` — A-GD: first-order analog FL with truncated channel
+                  inversion (transmit only where |h| ≥ ε) [refs 9-11];
+* ``fedavg``    — plain FedAvg over an ideal link.
+
+Keys are integers (``repro_torch.rng``); the device is that of ``theta0``.
+Every algorithm's ``round`` draws its random planes from the round key, as
+the JAX round does, or takes them ready-made from its ``draw`` (a
+``core.admm.RoundDraws``), so a test can replay the JAX package's planes.
+With a ``repro_torch.phy`` scenario A-FADMM's channel is the scenario's:
+its state rides in ``AFadmmState.phys`` and it supplies the round's
+participation mask and the workers' CSI.  With a ``repro_torch.faults
+.FaultPlan`` the fault state rides in ``AFadmmState.flt``, its draws come
+from the round key's ``FAULT_SALT`` side branch (so an all-zero plan changes
+no draw of the fault-free run), and a ``GuardConfig`` guards the uplink.
+
+A-GD masks its truncated workers with ``where``, not by multiplying as the
+JAX round does, so a non-finite gradient behind a truncated channel never
+reaches Θ.  D-FADMM's channel uses are a 0-dim tensor on the run's device
+(they depend on the drawn channel); the others' are host floats.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import rng
-from repro_torch.core import admm, subcarrier
+from repro_torch.core import admm, cplx, subcarrier
 from repro_torch.core.admm import (AdmmConfig, AFadmmState, GradFn,
                                    LocalSolve, RoundDraws)
 from repro_torch.core.channel import (ChannelBlock, ChannelConfig,
                                       init_channel, matched_filter_noise,
-                                      rayleigh, redraws, step_channel)
+                                      rayleigh, redraws, shannon_rate,
+                                      step_channel)
+from repro_torch.core.cplx import Complex
 from repro_torch.core.subcarrier import SubcarrierPlan
 from repro_torch.core.transport import matched_filter_noise_re
 from repro_torch.faults import guards as _guards
@@ -39,6 +56,15 @@ Tensor = torch.Tensor
 
 #: fold of the round key that seeds the local solver's minibatch draw
 BATCH_SALT = 2
+
+
+def _batches(fn, key: int, dev) -> Optional[Tensor]:
+    """``fn.draw_batches`` on the round key's ``BATCH_SALT`` fold, or None
+    for a function that takes no minibatches."""
+    draw_batches = getattr(fn, "draw_batches", None)
+    if draw_batches is None:
+        return None
+    return draw_batches(rng.generator(rng.fold_in(key, BATCH_SALT), dev))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,9 +130,7 @@ class AFadmm:
         if self.ccfg.analog_downlink:
             downlink = matched_filter_noise(
                 rng.generator(rng.fold_in(kn, 1), dev), (W, d), self.ccfg).re
-        draw_batches = getattr(local_solve, "draw_batches", None)
-        batch_idx = None if draw_batches is None else draw_batches(
-            rng.generator(rng.fold_in(key, BATCH_SALT), dev))
+        batch_idx = _batches(local_solve, key, dev)
         faults = guard = None
         if self.faults is not None:
             faults = _fplan.draw_uniforms(
@@ -164,16 +188,226 @@ class AFadmm:
         return st.Theta
 
 
-ALGORITHMS = {"afadmm": AFadmm}
+def _ones(theta: Tensor) -> Complex:
+    """h ≡ 1: the digital links' stand-in channel for the local solver."""
+    return Complex(torch.ones_like(theta), torch.zeros_like(theta))
+
+
+# ---------------------------------------------------------------------------
+# D-FADMM (digital baseline, Appendix A)
+# ---------------------------------------------------------------------------
+
+class DFadmmState(NamedTuple):
+    theta: Tensor       # (W, d)
+    lam: Tensor         # (W, d) real duals
+    Theta: Tensor       # (d,)
+    blk: ChannelBlock   # (W, S): for the Shannon channel-use count only
+    step: int
+
+
+@dataclasses.dataclass(frozen=True)
+class DFadmm:
+    acfg: AdmmConfig
+    ccfg: ChannelConfig
+    plan: SubcarrierPlan
+    bits_per_element: int = 32
+
+    name = "dfadmm"
+
+    def init(self, key: int, theta0: Tensor) -> DFadmmState:
+        blk = init_channel(rng.generator(key, theta0.device), self.ccfg)
+        return DFadmmState(theta=theta0, lam=torch.zeros_like(theta0),
+                           Theta=theta0.mean(0), blk=blk, step=0)
+
+    def draw(self, key: int, st: DFadmmState,
+             local_solve: LocalSolve) -> RoundDraws:
+        """The fresh (W, S) block from the whole round key on a redraw
+        round (as JAX's ``step_channel(key, ...)``), the minibatches from
+        fold ``BATCH_SALT``; the digital link adds no noise."""
+        dev = st.theta.device
+        h_fresh = None
+        if redraws(st.blk, self.ccfg):
+            h_fresh = rayleigh(rng.generator(key, dev), st.blk.h.re.shape)
+        return RoundDraws(h_fresh=h_fresh, noise_re=None,
+                          batch_idx=_batches(local_solve, key, dev))
+
+    def round(self, key: int, st: DFadmmState, local_solve: LocalSolve,
+              grad_fn: GradFn, draws: Optional[RoundDraws] = None
+              ) -> Tuple[DFadmmState, dict]:
+        del grad_fn
+        if draws is None:
+            draws = self.draw(key, st, local_solve)
+        rho = self.acfg.rho
+        lam_c = Complex(st.lam, torch.zeros_like(st.lam))
+        theta_new = local_solve(st.theta, lam_c, _ones(st.theta), st.Theta,
+                                draws.batch_idx)                  # Eq. (20)
+        Theta_new = (theta_new + st.lam / rho).sum(0) \
+            / self.ccfg.n_workers                                 # Eq. (21)
+        lam_new = st.lam + rho * (theta_new - Theta_new[None, :])  # Eq. (22)
+
+        blk_next = step_channel(st.blk, self.ccfg, draws.h_fresh)
+        # Appendix H straggler accounting: orthogonal S/N subcarriers a worker
+        s_w = max(self.ccfg.n_subcarriers // self.ccfg.n_workers, 1)
+        rates = shannon_rate(blk_next.h, self.ccfg)[:, :s_w]
+        uses = subcarrier.digital_channel_uses(
+            rates, float(self.bits_per_element * self.plan.d), s_w)
+        metrics = {
+            "primal_residual": torch.sqrt(torch.mean(
+                (theta_new - Theta_new[None, :]) ** 2)),
+            "dual_residual": rho * torch.sqrt(torch.mean(
+                (Theta_new - st.Theta) ** 2)),
+            "channel_uses": uses,
+        }
+        return DFadmmState(theta=theta_new, lam=lam_new, Theta=Theta_new,
+                           blk=blk_next, step=st.step + 1), metrics
+
+    def global_model(self, st: DFadmmState) -> Tensor:
+        return st.Theta
+
+
+# ---------------------------------------------------------------------------
+# A-GD (truncated channel inversion, refs [9-11])
+# ---------------------------------------------------------------------------
+
+class AnalogGDState(NamedTuple):
+    Theta: Tensor   # (d,): first-order methods keep one global model
+    blk: ChannelBlock
+    step: int
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalogGD:
+    ccfg: ChannelConfig
+    plan: SubcarrierPlan
+    learning_rate: float = 1e-4
+    #: truncation threshold ε: transmit only where |h| ≥ ε (Appendix H: 1e-6)
+    epsilon: float = 1e-6
+
+    name = "analog_gd"
+
+    def init(self, key: int, theta0: Tensor) -> AnalogGDState:
+        blk = init_channel(rng.generator(key, theta0.device), self.ccfg,
+                           n_coeffs=theta0.shape[-1])
+        return AnalogGDState(Theta=theta0.mean(0), blk=blk, step=0)
+
+    def draw(self, key: int, st: AnalogGDState,
+             grad_fn: GradFn) -> RoundDraws:
+        """The fresh block from the round key's first half on a redraw
+        round, the uplink noise from its second, and, for a ``grad_fn``
+        with ``draw_batches``, its minibatch from fold ``BATCH_SALT``."""
+        kc, kn = rng.split(key)
+        dev = st.Theta.device
+        d = st.Theta.shape[0]
+        h_fresh = None
+        if redraws(st.blk, self.ccfg):
+            h_fresh = rayleigh(rng.generator(kc, dev), st.blk.h.re.shape)
+        noise_re = matched_filter_noise_re(rng.generator(kn, dev), (d,),
+                                           self.ccfg)
+        return RoundDraws(h_fresh=h_fresh, noise_re=noise_re,
+                          batch_idx=_batches(grad_fn, key, dev))
+
+    def round(self, key: int, st: AnalogGDState, local_solve: LocalSolve,
+              grad_fn: GradFn, draws: Optional[RoundDraws] = None
+              ) -> Tuple[AnalogGDState, dict]:
+        del local_solve
+        if draws is None:
+            draws = self.draw(key, st, grad_fn)
+        blk = step_channel(st.blk, self.ccfg, draws.h_fresh)
+        W, d = self.ccfg.n_workers, st.Theta.shape[0]
+        theta_rep = st.Theta[None, :].expand(W, d)
+        # local gradients at the global model
+        g = grad_fn(theta_rep) if draws.batch_idx is None \
+            else grad_fn(theta_rep, draws.batch_idx)
+        keep = torch.sqrt(cplx.abs2(blk.h)) >= self.epsilon
+        # channel inversion: tx g/h, the channel applies h, the PS sees the
+        # kept workers' sum + z
+        num = torch.where(keep, g, torch.zeros((), dtype=g.dtype,
+                                               device=g.device)).sum(0)
+        den = torch.clamp(keep.sum(0).to(g.dtype), min=1.0)
+        g_hat = num / den + draws.noise_re / torch.clamp(den, min=1.0)
+        Theta_new = st.Theta - self.learning_rate * g_hat
+        metrics = {
+            "participation": keep.to(g.dtype).mean(),
+            "channel_uses": float(self.plan.n_slots),
+            "grad_norm": torch.sqrt(torch.sum(g_hat ** 2)),
+        }
+        return AnalogGDState(Theta=Theta_new, blk=blk,
+                             step=st.step + 1), metrics
+
+    def global_model(self, st: AnalogGDState) -> Tensor:
+        return st.Theta
+
+
+# ---------------------------------------------------------------------------
+# FedAvg (ideal-link reference)
+# ---------------------------------------------------------------------------
+
+class FedAvgState(NamedTuple):
+    theta: Tensor
+    Theta: Tensor
+    step: int
+
+
+@dataclasses.dataclass(frozen=True)
+class FedAvg:
+    ccfg: ChannelConfig
+    plan: SubcarrierPlan
+
+    name = "fedavg"
+
+    def init(self, key: int, theta0: Tensor) -> FedAvgState:
+        return FedAvgState(theta=theta0, Theta=theta0.mean(0), step=0)
+
+    def draw(self, key: int, st: FedAvgState,
+             local_solve: LocalSolve) -> RoundDraws:
+        """Only the local solver's minibatches (fold ``BATCH_SALT``): the
+        ideal link draws nothing."""
+        return RoundDraws(h_fresh=None, noise_re=None,
+                          batch_idx=_batches(local_solve, key,
+                                             st.theta.device))
+
+    def round(self, key: int, st: FedAvgState, local_solve: LocalSolve,
+              grad_fn: GradFn, draws: Optional[RoundDraws] = None
+              ) -> Tuple[FedAvgState, dict]:
+        del grad_fn
+        if draws is None:
+            draws = self.draw(key, st, local_solve)
+        zero = cplx.czero(st.theta.shape, dtype=st.theta.dtype,
+                          device=st.theta.device)
+        theta_new = local_solve(st.theta, zero, _ones(st.theta), st.Theta,
+                                draws.batch_idx)
+        Theta_new = theta_new.sum(0) / self.ccfg.n_workers
+        return FedAvgState(theta=Theta_new[None, :].expand(st.theta.shape),
+                           Theta=Theta_new, step=st.step + 1), \
+            {"channel_uses": float(self.plan.n_slots)}
+
+    def global_model(self, st: FedAvgState) -> Tensor:
+        return st.Theta
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+ALGORITHMS = {
+    "afadmm": AFadmm,
+    "dfadmm": DFadmm,
+    "analog_gd": AnalogGD,
+    "fedavg": FedAvg,
+}
 
 
 def make(name: str, acfg: AdmmConfig, ccfg: ChannelConfig,
-         plan: SubcarrierPlan, scenario=None, faults=None, guard=None):
-    """Factory over :data:`ALGORITHMS`; ``scenario`` is an optional
-    ``repro_torch.phy.Scenario``, ``faults`` a ``repro_torch.faults
-    .FaultPlan`` and ``guard`` a ``GuardConfig``."""
+         plan: SubcarrierPlan, **kw):
+    """Factory over :data:`ALGORITHMS`, taking each class's own keywords:
+    A-FADMM's ``scenario`` (a ``repro_torch.phy.Scenario``), ``faults`` (a
+    ``repro_torch.faults.FaultPlan``) and ``guard`` (a ``GuardConfig``);
+    D-FADMM's ``bits_per_element``; A-GD's ``learning_rate`` and
+    ``epsilon``.  ``acfg`` is ignored by the first-order algorithms."""
     if name not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {name!r}; the port has "
                          f"{sorted(ALGORITHMS)}")
-    return ALGORITHMS[name](acfg=acfg, ccfg=ccfg, plan=plan,
-                            scenario=scenario, faults=faults, guard=guard)
+    cls = ALGORITHMS[name]
+    if cls in (AnalogGD, FedAvg):
+        return cls(ccfg=ccfg, plan=plan, **kw)
+    return cls(acfg=acfg, ccfg=ccfg, plan=plan, **kw)

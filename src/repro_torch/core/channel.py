@@ -5,7 +5,8 @@ Counterpart of ``repro/core/channel.py``:
 * **Rayleigh fading** ``h ~ CN(0, 1)`` per (worker, coefficient), redrawn
   every ``coherence_iters`` rounds ("block fading");
 * **AWGN** after the matched filter (Appendix B, Eq. 23): ``CN(0, N0/T)``;
-* **SNR** as in Appendix H: ``SNR = P / (N0 · W_hz)``.
+* **SNR** as in Appendix H: ``SNR = P / (N0 · W_hz)``;
+* the digital baseline's per-subcarrier **Shannon rate** (Appendix H).
 
 Draws take an explicit ``torch.Generator``.  :func:`step_channel` takes the
 fresh block as an argument instead of drawing it, so a round's random planes
@@ -19,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.cplx import Complex
+from repro_torch.core.cplx import Complex, abs2
 
 Tensor = torch.Tensor
 
@@ -131,3 +132,13 @@ def matched_filter_noise(gen: torch.Generator, shape: Tuple[int, ...],
         z = torch.zeros(shape, device=gen.device)
         return Complex(z, z)
     return awgn(gen, shape, cfg.noise_var_matched)
+
+
+def shannon_rate(h: Complex, cfg: ChannelConfig) -> Tensor:
+    """Per-subcarrier achievable rate (bits/slot) for the *digital*
+    baseline.  Appendix H: R = W log2(1 + P|h|²/(N0 W)) bits/s; one slot is
+    ``slot_seconds``."""
+    snr_lin = cfg.transmit_power * abs2(h) / (cfg.noise_psd
+                                              * cfg.subcarrier_hz)
+    bits_per_sec = cfg.subcarrier_hz * torch.log2(1.0 + snr_lin)
+    return bits_per_sec * cfg.slot_seconds

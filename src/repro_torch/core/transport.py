@@ -46,6 +46,26 @@ from repro_torch.kernels.build import BACKENDS, resolve_backend  # noqa: F401
 Tensor = torch.Tensor
 
 
+def check_backend_choice(backend: Optional[str]) -> None:
+    """The JAX package's OTA backend switch (``backend=``,
+    ``REPRO_OTA_BACKEND``, ``FLConfig.transport_backend``) as the port reads
+    it: None or ``"pallas"`` is the route the port always takes, the
+    hand-written kernels on CUDA tensors and their plain versions on CPU
+    tensors.  ``"jnp"`` asked JAX for its plain versions on any device; the
+    port keeps those for its tests and never sends CUDA tensors to them, so
+    it refuses ``"jnp"``."""
+    if backend in (None, "pallas"):
+        return
+    if backend == "jnp":
+        raise ValueError(
+            "OTA backend 'jnp' asks for the plain versions on the card; in "
+            "the port they serve the tests only and a tensor's device picks "
+            "the route ('pallas', the hand-written kernels on CUDA tensors, "
+            "is the one it takes)")
+    raise ValueError(f"unknown OTA backend {backend!r}; want None, 'pallas' "
+                     f"or 'jnp'")
+
+
 def _f32(x: Tensor) -> Tensor:
     return x.to(torch.float32).contiguous()
 

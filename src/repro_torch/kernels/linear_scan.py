@@ -1,7 +1,9 @@
 """Wrappers of the gated linear scan's CUDA kernels in ``csrc/linear_scan.cu``
 (B12): h_t = a_t ⊙ h_{t−1} + b_t over (B, S, D), h_0 = b_0, its reversed
-backward, and :func:`gated_linear_scan`, the models' entry point, which is
-differentiable through :class:`LinearScan`.
+backward, :func:`gated_linear_scan`, the models' entry point, which is
+differentiable through :class:`LinearScan`, and :func:`linear_scan_carry`,
+the scan from a carried state that the SSM's chunked scan runs chunk by
+chunk.
 
 Same contract as ``kernels/ota.py``: CUDA tensors launch the kernel or
 raise, CPU tensors take the plain version from ``kernels/ref.py``.  The
@@ -13,16 +15,15 @@ planner :func:`scan_tiling` picks one by shape; a wrapper's ``plan``
 argument, or :func:`forced_plan` around the autograd path, forces one.
 Either plan is one launch, counted under the wrapper's name.  Counterpart
 of ``repro/kernels/linear_scan.py`` and of the scan shim in
-``repro/kernels/__init__.py``; the JAX package's ``REPRO_USE_PALLAS``
-switch and its ``chunked_scan`` optflag are not ported (ROADMAP queue A
-item 2): on the card the scan always runs B12, and ``REPRO_OPT`` naming
-``chunked_scan`` is refused.
+``repro/kernels/__init__.py``.  The shim has no ``REPRO_USE_PALLAS``
+switch: the scan always runs B12, which is the branch JAX's shim takes
+first, so under ``REPRO_OPT=chunked_scan`` it still runs B12 over the
+whole sequence (the SSM chunks its own scan, ``models/ssm.py``).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-import os
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -229,13 +230,66 @@ def linear_scan(a: Tensor, b: Tensor) -> Tensor:
     return LinearScan.apply(a, b)
 
 
+class LinearScanCarry(torch.autograd.Function):
+    """(h, h_last, b) = the scan of (B, S, ...) planes from a carried state
+    h0 (B, ...): h_0 = a_0·h0 + b_0, then as :class:`LinearScan`; the
+    trailing dims fold into one channel axis.  ``b`` (float32, contiguous,
+    not a view) is taken over: its first step becomes b_0 + a_0·h0, rounded
+    product first as B12 rounds each step, so a sequence scanned chunk by
+    chunk, each chunk carrying the last one's ``h_last``, gets the whole
+    scan's bits.  ``b`` is returned (marked dirty) for the caller to drop.
+    The backward is one B12 backward launch: the next chunk's gradient of
+    ``h_last`` enters the last step of dh (on a copy), h0's gradient is
+    g_0·a_0, and da_0 gains g_0·h0 (B12's own step 0 reads h_{−1} = 0)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        if b.dtype != torch.float32 or not b.is_contiguous() \
+                or b._base is not None:
+            raise ValueError("linear_scan_carry: b must be a contiguous "
+                             "float32 tensor, not a view; its first step "
+                             "is overwritten")
+        ctx.set_materialize_grads(False)
+        B, S = b.shape[:2]
+        af = a.float().contiguous().view(B, S, -1)
+        bf = b.view(B, S, -1)
+        h0f = h0.float().reshape(B, -1)
+        bf[:, 0] += af[:, 0] * h0f
+        ctx.mark_dirty(b)
+        ctx.plan = _forced.get()
+        h = linear_scan_fwd(af, bf, ctx.plan)
+        ctx.save_for_backward(af, h, h0f)
+        ctx.meta = (b.shape, a.dtype, h0.shape, h0.dtype)
+        return h.view(b.shape), h[:, -1].reshape(h0.shape).clone(), b
+
+    @staticmethod
+    def backward(ctx, dh, dh_last, _):
+        a, h, h0 = ctx.saved_tensors
+        shape, a_dtype, h0_shape, h0_dtype = ctx.meta
+        dh = torch.zeros_like(h) if dh is None \
+            else dh.float().reshape(h.shape).contiguous()
+        if dh_last is not None:
+            dh = dh.clone()
+            dh[:, -1] += dh_last.float().reshape(h0.shape)
+        da, g = linear_scan_bwd(a, h, dh, ctx.plan)
+        da[:, 0] += g[:, 0] * h0
+        dh0 = (g[:, 0] * a[:, 0]).reshape(h0_shape).to(h0_dtype)
+        return da.view(shape).to(a_dtype), g.view(shape), dh0
+
+
+def linear_scan_carry(a: Tensor, b: Tensor,
+                      h0: Tensor) -> Tuple[Tensor, Tensor]:
+    """(h, h_last): the recurrence over axis 1 of (B, S, ...) from the
+    state h0 (B, ...), h_0 = a_0·h0 + b_0; ``b`` is overwritten
+    (:class:`LinearScanCarry`).  Float32 out, differentiable; one B12
+    launch a direction."""
+    h, h_last, _ = LinearScanCarry.apply(a, b, h0)
+    return h, h_last
+
+
 def gated_linear_scan(a: Tensor, b: Tensor) -> Tensor:
     """The recurrence over axis 1 of (B, S, ...): the trailing dims fold
     into one channel axis, as the JAX shim folds them."""
-    if "chunked_scan" in os.environ.get("REPRO_OPT", "").split(","):
-        raise NotImplementedError(
-            "REPRO_OPT chunked_scan is not ported yet (ROADMAP queue A item "
-            "2: optflags.py); the scan runs B12 on the card")
     if a.shape != b.shape or a.dim() < 2:
         raise ValueError(f"gated_linear_scan: want a and b of one (B, S, "
                          f"...) shape, got {tuple(a.shape)} and "

@@ -15,8 +15,8 @@ Conventions:
 * full causal attention (S ≥ 16, no window) runs B11, the flash-attention
   kernels (``kernels/flash_attention.py``); a sliding window, or S < 16,
   takes the masked-einsum fallback in plain torch.  JAX's query-chunked
-  variant (``optflags`` ``chunked_attn``) and the single-token decode are
-  not ported.
+  variant (``optflags`` ``chunked_attn``, refused) and the single-token
+  decode are not ported.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import rng
+from repro_torch import optflags, rng
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
@@ -200,6 +200,9 @@ def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
                   window: Optional[int]) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Full-sequence causal attention over x (..., S, d). Returns (out, kv)
     — kv for prefill."""
+    if optflags.enabled("chunked_attn"):
+        raise NotImplementedError("REPRO_OPT chunked_attn is not ported yet "
+                                  "(ROADMAP queue A item 2)")
     hd = cfg.hd
     S = x.shape[-2]
     lead = x.shape[:-2]

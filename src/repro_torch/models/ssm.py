@@ -9,12 +9,16 @@ with the RMS normalisation of (B, C, dt) that Falcon-Mamba adds.
 
 The recurrence runs B12 (``kernels/linear_scan.py``) over the (·, S,
 d_inner·n) planes a and b in f32, as JAX's ``_scan_full`` materialises
-them; the leading worker and batch dims fold into the scan's batch.  A
-Python loop over the stacked layers replaces ``lax.scan``, and ``remat=True``
-checkpoints each layer (``transformer.run_stacked``), so the backward pass
-runs each layer's forward, B12 included, once more.  ``A_log`` and ``D``
-stay f32 leaves in a bf16 tree.  Not ported yet: the ``chunked_scan``
-optflag's fused chunk loop (ROADMAP queue A item 2) and decode (item 5).
+them; the leading worker and batch dims fold into the scan's batch.  Under
+``REPRO_OPT=chunked_scan`` (``optflags``) a sequence longer than
+``SCAN_CHUNK`` runs JAX's ``_scan_chunked_fused`` instead: a and b are
+built one chunk at a time, B12 runs on each chunk with the carry folded
+into its first step, and h is contracted with C inside the chunk, so the
+planes exist at the chunk's length only.  A Python loop over the stacked
+layers replaces ``lax.scan``, and ``remat=True`` checkpoints each layer
+(``transformer.run_stacked``), so the backward pass runs each layer's
+forward, B12 included, once more.  ``A_log`` and ``D`` stay f32 leaves in a
+bf16 tree.  Not ported yet: decode (ROADMAP queue A item 5).
 """
 from __future__ import annotations
 
@@ -23,9 +27,10 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch import rng
+from repro_torch import optflags, rng
 from repro_torch.device import resolve_device
-from repro_torch.kernels.linear_scan import gated_linear_scan
+from repro_torch.kernels.linear_scan import (gated_linear_scan,
+                                             linear_scan_carry)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import run_stacked
@@ -98,6 +103,39 @@ def _scan_full(dt: Tensor, Bc: Tensor, Cc: Tensor, A: Tensor,
     return torch.einsum("...sdn,...sn->...sd", hs.reshape(a.shape), Cc)
 
 
+def _scan_chunked_fused(dt: Tensor, Bc: Tensor, Cc: Tensor, A: Tensor,
+                        xf: Tensor, chunk: int) -> Tensor:
+    """``_scan_full`` one chunk of ``chunk`` steps at a time along the
+    sequence (axis −2 of the (..., B, S, ·) inputs; the leading dims fold
+    into the scan's batch): each chunk builds its own a = exp(dt·A) and
+    b = (dt·x)⊗B, runs B12 from the last chunk's state
+    (``linear_scan_carry``, which folds it into step 0: b₀ += a₀·h_prev,
+    rounded product first as B12's own step), contracts h with C and
+    keeps only h's last step for the next chunk.  The tail is padded with
+    dt = 0 (a = 1, b = 0) and the output sliced back to S."""
+    lead = xf.shape[:-2]
+    S, di = xf.shape[-2:]
+    n = A.shape[-1]
+    C = min(chunk, S)
+    pad = -(-S // C) * C - S
+    A_b = L._bcast(A, dt[..., None], 2).expand(*lead, 1, di, n)
+    A_b = A_b.reshape(-1, 1, di, n)
+    if pad:
+        dt, Bc, Cc, xf = (F.pad(v, (0, 0, 0, pad)) for v in (dt, Bc, Cc, xf))
+    dt, Bc, Cc, xf = (v.reshape(-1, S + pad, v.shape[-1])
+                      for v in (dt, Bc, Cc, xf))
+    ys, h = [], dt.new_zeros(dt.shape[0], di, n)
+    # one split a tensor: its backward is one concatenation, where a slice
+    # a chunk would add a zero-filled full-length gradient per chunk
+    for dtc, bc, cc, xc in zip(*(v.split(C, dim=1)
+                                 for v in (dt, Bc, Cc, xf))):
+        a = torch.exp(dtc[..., None] * A_b)               # (N, C, di, n)
+        b = (dtc * xc)[..., None] * bc[:, :, None, :]
+        hs, h = linear_scan_carry(a, b, h)
+        ys.append(torch.einsum("bsdn,bsn->bsd", hs, cc))
+    return torch.cat(ys, dim=1)[:, :S].reshape(*lead, S, di)
+
+
 def block_fwd(p: Params, u: Tensor, cfg: ModelConfig) -> Tensor:
     """Full-sequence forward. u: (..., B, S, d)."""
     h = L.rmsnorm(p["norm"], u, cfg.norm_eps)
@@ -106,7 +144,10 @@ def block_fwd(p: Params, u: Tensor, cfg: ModelConfig) -> Tensor:
     x = F.silu(_conv1d_causal(p["conv_w"], p["conv_b"], x))
     dt, Bc, Cc, A = _ssm_inputs(p, x, cfg)
     xf = x.float()
-    y = _scan_full(dt, Bc, Cc, A, xf)
+    if optflags.enabled("chunked_scan") and x.shape[-2] > optflags.SCAN_CHUNK:
+        y = _scan_chunked_fused(dt, Bc, Cc, A, xf, optflags.SCAN_CHUNK)
+    else:
+        y = _scan_full(dt, Bc, Cc, A, xf)
     y = y + L._bcast(p["D"], xf, 1) * xf
     y = y.to(u.dtype) * F.silu(z)
     return u + L.dense(p["out_proj"], y)

@@ -17,7 +17,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import rng
+from repro_torch import optflags, rng
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -82,6 +82,10 @@ def run_stacked(params: Params, x: Tensor, block: Callable, n: int,
     of ``params[key]`` in order (JAX's ``lax.scan``); with ``remat`` each
     entry is one ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of
     the scan body), so the backward pass runs its forward again."""
+    if remat and optflags.enabled("save_dots"):
+        raise NotImplementedError(
+            "REPRO_OPT save_dots (a checkpoint policy that keeps the matrix "
+            "products) is not ported yet (ROADMAP queue A item 2)")
     for i in range(n):
         entry = layer_params(params, i, key)
         if remat:

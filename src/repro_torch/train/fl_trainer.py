@@ -4,8 +4,10 @@ wireless channel, driving the paper's Sec. 5 experiments (linreg + MLP).
 Counterpart of ``repro/train/fl_trainer.py``.  The JAX package has two
 drivers (a compiled ``lax.scan`` and a Python loop) that it pins as bitwise
 equal; the port has the one round loop.  Round ``r`` uses the round key
-``fold_in(key, r + 1)``, as both JAX drivers do.  Metrics and evals stay on
-the device until the run ends, so the loop never waits for the card.
+``fold_in(key, r + 1)``, as both JAX drivers do.  Metrics, evals and a
+round's channel uses (a tensor when they depend on the drawn channel, as
+D-FADMM's do) stay on the device until the run ends, so the loop never
+waits for the card.
 """
 from __future__ import annotations
 
@@ -61,18 +63,23 @@ def train(algorithm, theta0: Tensor, local_solve: Callable, grad_fn: Callable,
     do_eval = _eval_rounds(n_rounds, eval_every) if eval_fn is not None \
         else [False] * n_rounds
     hist = History()
+    uses: List = []
     metrics_log: Dict[str, List[Tensor]] = {}
     evals: List[Dict[str, Tensor]] = []
     for r in range(n_rounds):
         st, metrics = algorithm.round(
             rng.fold_in(key, r + 1), st, local_solve, grad_fn,
             draws=None if draws is None else draws(r))
-        hist.channel_uses.append(float(metrics.pop("channel_uses")))
+        uses.append(metrics.pop("channel_uses"))
         for k, v in metrics.items():
             metrics_log.setdefault(k, []).append(v)
         if do_eval[r]:
             evals.append(eval_fn(algorithm.global_model(st)))
     # one transfer per series, after the last round
+    tensors = [u for u in uses if torch.is_tensor(u)]
+    fetched = iter(torch.stack(tensors).tolist() if tensors else ())
+    hist.channel_uses = [next(fetched) if torch.is_tensor(u) else float(u)
+                         for u in uses]
     for k, vals in metrics_log.items():
         hist.extra[k] = torch.stack(vals).tolist()
     if evals:

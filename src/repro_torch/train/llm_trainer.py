@@ -124,8 +124,6 @@ def _refuse_unported(flcfg: FLConfig, mesh) -> None:
         ("packed_uplink=False", flcfg.packed_uplink is False,
          "3 (the leafwise ota_tree_round oracle)"),
         ("mesh", mesh is not None, "6 (multi-device)"),
-        ("transport_backend", flcfg.transport_backend is not None,
-         "1 (the backend follows the tensors' device)"),
         ("ota_block_cols", flcfg.ota_block_cols is not None,
          "4 (the fused kernel picks its own tiling)"),
     )
@@ -134,6 +132,7 @@ def _refuse_unported(flcfg: FLConfig, mesh) -> None:
             raise NotImplementedError(
                 f"FLConfig {name} is not ported yet (ROADMAP queue A item "
                 f"{item})")
+    transport.check_backend_choice(flcfg.transport_backend)
 
 
 # ---------------------------------------------------------------------------

@@ -765,6 +765,40 @@ def test_linear_scan_autograd_counts_one_launch_a_direction(dev, plan):
     assert torch.equal(at.grad, want_da) and torch.equal(bt.grad, want_db)
 
 
+@pytest.mark.parametrize("plan", linear_scan.PLANS)
+def test_chunked_ssm_scan_equals_the_unchunked_one_on_b12(dev, plan):
+    """``models/ssm``'s chunked scan (``REPRO_OPT=chunked_scan``) at
+    (2, 1,024, 4,096) — 2 sequences, d_inner 256 × state 16 — in chunks of
+    512: one B12 launch a chunk and direction; the output and gradients
+    those of the whole-sequence scan (each step rounds as B12's own step,
+    the carry folded into b₀; the C contraction and the dA sums run per
+    chunk)."""
+    from repro_torch.models import ssm
+    g = torch.Generator(device=dev)
+    g.manual_seed(27)
+    Bn, S, di, n = 2, 1024, 256, 16
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa
+    ins = [torch.nn.functional.softplus(r(Bn, S, di) - 1.0), r(Bn, S, n),
+           r(Bn, S, n), -torch.exp(0.5 * r(di, n)), r(Bn, S, di)]
+    cot = r(Bn, S, di)
+    outs = []
+    for fn, per_direction in ((ssm._scan_full, 1),
+                              (lambda *a: ssm._scan_chunked_fused(*a, 512),
+                               2)):
+        leaves = [a.clone().requires_grad_() for a in ins]
+        build.reset_launches()
+        with linear_scan.forced_plan(plan):
+            y = fn(*leaves)
+            (y * cot).sum().backward()
+        assert dict(build.launches) == {"linear_scan_fwd": per_direction,
+                                        "linear_scan_bwd": per_direction}
+        outs.append((y.detach(), [a.grad for a in leaves]))
+    (y0, g0), (y1, g1) = outs
+    torch.testing.assert_close(y1, y0, rtol=1e-6, atol=1e-6)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
 def test_staged_plan_refuses_what_tma_cannot_take(dev):
     a, b, dh = _scan_inputs(dev, (2, 8, 6))
     with pytest.raises(ValueError, match="not a multiple of 4"):

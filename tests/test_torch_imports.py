@@ -86,6 +86,7 @@ def _llm_trainer():
 
 def _entry_points():
     from repro_torch import convert
+    from repro_torch.benchmarks import common
     from repro_torch.data.federated import split_iid
     from repro_torch.data.synthetic import (image_dataset, linreg_dataset,
                                             token_dataset)
@@ -111,6 +112,8 @@ def _entry_points():
         "linreg_dataset": lambda: linreg_dataset(0, n_samples=10),
         "image_dataset": lambda: image_dataset(0, 10, 10, dim=4),
         "split_iid": lambda: split_iid(0, 10, 2),
+        "make_linreg_task": lambda: common.make_linreg_task(0, 2, 10),
+        "make_mlp_task": lambda: common.make_mlp_task(0, 2),
         "init_mlp_flat": lambda: init_mlp_flat(0, (4, 3)),
         "mlp_flat_from_numpy": lambda: convert.mlp_flat_from_numpy(
             np.zeros(15, np.float32), (4, 3)),
@@ -125,6 +128,7 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", sorted(
     ["linreg_dataset", "image_dataset", "split_iid", "init_mlp_flat",
+     "make_linreg_task", "make_mlp_task",
      "mlp_flat_from_numpy", "afadmm_state_from_numpy",
      "phy_state_from_numpy", "fault_state_from_numpy", "token_dataset",
      "make_fl_train", "Model.init", "transformer.init_params",
@@ -154,6 +158,22 @@ def test_llm_entry_points_default_to_the_card():
                layers.embedding_init, layers.attention_init, layers.mlp_init,
                layers.rmsnorm_init, layers.layernorm_init):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_benchmark_entry_points_default_to_the_card():
+    import inspect
+
+    from repro_torch.benchmarks import (ablation_noniid, common, fig2_linreg,
+                                        fig3_classification, fig5_rho)
+    from repro_torch.benchmarks.run import main
+    fns = [common.make_linreg_task, common.make_mlp_task,
+           ablation_noniid.ablation_noniid, fig5_rho.fig5_rho_sensitivity]
+    fns += [getattr(m, n) for m in (fig2_linreg, fig3_classification)
+            for n in dir(m) if n.startswith("fig")]
+    assert len(fns) == 10
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert "--device" in inspect.getsource(main)
 
 
 def test_chip_smoke_fails_without_a_card():

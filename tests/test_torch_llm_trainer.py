@@ -272,7 +272,7 @@ def test_twelve_rounds_lower_the_loss():
     (dict(telemetry=True), NotImplementedError),
     (dict(population=8, cohort=4), NotImplementedError),
     (dict(packed_uplink=False), NotImplementedError),
-    (dict(transport_backend="pallas"), NotImplementedError),
+    (dict(transport_backend="jnp"), ValueError),
     (dict(ota_block_cols=256), NotImplementedError),
     (dict(doppler_hz=5.0), ValueError),
     (dict(cohort=2), ValueError),
@@ -283,6 +283,24 @@ def test_unsupported_options_raise(override, exc):
     flcfg = dataclasses.replace(FLConfig(n_workers=W), **override)
     with pytest.raises(exc):
         make_fl_train(model, flcfg, acfg, ccfg, device="cpu")
+
+
+def test_transport_backend_pallas_is_the_ports_route():
+    """JAX's ``transport_backend``: None and "pallas" build the same
+    trainer (the kernels on CUDA tensors, their plain versions here); "jnp"
+    and unknown names are refused by name."""
+    model = reg.get_model("granite-8b", reduced=True)
+    _, _, acfg, ccfg = _configs(10)
+    for backend in (None, "pallas"):
+        init_fn, step = make_fl_train(
+            model, FLConfig(n_workers=W, transport_backend=backend), acfg,
+            ccfg, device="cpu")
+        assert callable(init_fn) and callable(step)
+    for backend, match in (("jnp", "'jnp'"), ("xla", "unknown")):
+        with pytest.raises(ValueError, match=match):
+            make_fl_train(model, FLConfig(n_workers=W,
+                                          transport_backend=backend),
+                          acfg, ccfg, device="cpu")
 
 
 def test_a_mesh_is_refused():

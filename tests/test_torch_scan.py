@@ -25,6 +25,7 @@ from repro_torch.kernels import linear_scan as ls  # noqa: E402
 from repro_torch.kernels.linear_scan import (LinearScan,  # noqa: E402
                                              gated_linear_scan, linear_scan,
                                              linear_scan_bwd,
+                                             linear_scan_carry,
                                              linear_scan_fwd)
 from test_transport import KEY, TOL, _problem  # noqa: E402
 
@@ -135,12 +136,53 @@ def test_gated_linear_scan_folds_trailing_dims_like_jax():
 
 
 def test_gated_linear_scan_refuses_what_it_cannot_run(monkeypatch):
+    """Mismatched planes are refused; ``chunked_scan`` (and a chunk shorter
+    than the sequence) leaves the shim's result as it was: the shim runs
+    the recurrence whole, the SSM chunks its own scan."""
     a = torch.rand(2, 4, 3)
     with pytest.raises(ValueError, match="one \\(B, S"):
         gated_linear_scan(a, a[:, :3])
+    b = torch.randn(2, 4, 3)
+    want = gated_linear_scan(a, b)
     monkeypatch.setenv("REPRO_OPT", "chunked_attn,chunked_scan")
-    with pytest.raises(NotImplementedError, match="chunked_scan"):
-        gated_linear_scan(a, a)
+    monkeypatch.setenv("REPRO_SCAN_CHUNK", "2")
+    assert torch.equal(gated_linear_scan(a, b), want)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 16, 40])
+def test_linear_scan_carry_chunk_by_chunk_is_the_whole_scan(chunk):
+    """Each chunk from the last one's ``h_last``: h, and the gradients of a
+    and b through the carries, bit for bit those of one whole scan (the
+    carry is folded in and its gradient added as B12 rounds each step)."""
+    a, b = (torch.from_numpy(x) for x in _inputs((2, 40, 3, 5), 9))
+    cot = torch.from_numpy(_inputs((2, 40, 3, 5), 10)[1])
+    whole_a, whole_b = a.clone().requires_grad_(), b.clone().requires_grad_()
+    want = gated_linear_scan(whole_a, whole_b)
+    (want * cot).sum().backward()
+    ca, cb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    hs, h = [], torch.zeros(2, 3, 5)
+    for ac, bc in zip(ca.split(chunk, dim=1), cb.split(chunk, dim=1)):
+        out, h = linear_scan_carry(ac, bc * 1.0, h)
+        hs.append(out)
+    got = torch.cat(hs, dim=1)
+    (got * cot).sum().backward()
+    assert torch.equal(got, want) and torch.equal(h, want[:, -1])
+    assert torch.equal(ca.grad, whole_a.grad)
+    assert torch.equal(cb.grad, whole_b.grad)
+
+
+def test_linear_scan_carry_takes_over_b_and_refuses_views():
+    a, b = (torch.from_numpy(x) for x in _inputs((2, 6, 4), 11))
+    h0 = torch.ones(2, 4)
+    b_in = b.clone()
+    h, h_last = linear_scan_carry(a, b_in, h0)
+    torch.testing.assert_close(b_in[:, 0], b[:, 0] + a[:, 0] * h0)
+    assert torch.equal(h, ref.linear_scan(a, b_in))
+    assert torch.equal(h_last, h[:, -1])
+    with pytest.raises(ValueError, match="not a view"):
+        linear_scan_carry(a, b.clone()[:, :3], h0)
+    with pytest.raises(ValueError, match="float32"):
+        linear_scan_carry(a, b.double(), h0)
 
 
 # ---------------------------------------------------------------------------
