@@ -14,8 +14,11 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              65,536 workers; the one-pass round at (65,536, 32); each LLM
              round's B6, dual update and demodulation at its (W, D) and
              (D,), D from the path's config: granite-8b's 637,554,688,
-             falcon-mamba-7b's 476,967,488 and the reduced hybrid's
-             568,192; flash attention B11 — forward,
+             falcon-mamba-7b's 476,967,488, the reduced hybrid's 568,192
+             and 1-layer granite-8b's 419,442,688, where B9 and the guarded
+             round's masked B6 with CSI and B3′ run too; B1, B2 and B4 on
+             the leafwise round's embedding leaf (2, 201,326,592) and at
+             the sampled cohort's (256, 32); flash attention B11 — forward,
              dq, dk/dv — at the LLM round's (2, 32, 4096, 128) in bf16 (the
              tensor-core kernels) and on a ragged causal and a non-causal
              (1, 2, 1000, 64) case in bf16 and in f32 (the SIMT kernels);
@@ -108,8 +111,26 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              loss once on each B12 plan: output and parameter gradients
              equal bit for bit between the plans, one B12 launch a
              direction a run; each plan's device ms and B12's share.
+20. scaleup_sampled — ``benchmarks/scaleup.py``'s sampled point through
+             its torch twin: a uniform cohort of 256 from 10⁶ workers
+             (``AFadmm(cohort=...)``), d = 32, frequency-flat
+             ``urban-mobility``, 5 rounds: B10 over the population, B1, B2
+             and B4 at (256, 32); the rows it did not sample keep their θ
+             and λ bits; the round's peak above the state it carries.
+21. llm_chaos — phase 15's trainer on granite-8b cut to 1 of its 36
+             layers (D = 419,442,688) under ``markov-doppler`` with CSI
+             error 0.1, stragglers and bursts (one forced through the
+             round's fault draws) and the evict-retransmit guard, 3 rounds;
+             then one more round under torch.profiler.
+22. llm_cohort — the same 1-layer trainer over a population of 4, sampling
+             the 2 strongest channels (``top-gain``) a round, 3 rounds: the
+             unsampled workers keep their θ and λ bits.
+23. llm_leafwise — one round of the same trainer with
+             ``packed_uplink=False`` (one B1, B2 and B4 a leaf), noise-free
+             with power control, then the leafwise round against the packed
+             one on the same θ, λ and h: Θ, λ and α⁻¹ within 1e-6.
 
-Launch counts are reset just before each of phases 4–12 and 14–19 and read
+Launch counts are reset just before each of phases 4–12 and 14–23 and read
 just after.  Then come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
@@ -138,6 +159,10 @@ CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
               "H100 NVL": (3.9e12, 60e12, 835e12),
               "H100": (3.35e12, 67e12, 989e12),
               "H200": (4.8e12, 67e12, 989e12)}
+
+
+#: the card's memory: every LLM phase's peak must stay within it
+CARD_BYTES = 80e9
 
 
 class SmokeFailure(Exception):
@@ -545,9 +570,129 @@ def phase_kernels(torch, card):
     # B7 at the SSM round's ragged D (no multiple of 128) in every mode
     results.update(_llm_theta_row(torch, build, mem_rate, f32_rate,
                                   *shapes[1]))
+    results.update(_robust_rows(torch, build, mem_rate, f32_rate))
     results.update(_flash_rows(torch, build, card))
     results.update(_scan_rows(torch, build, mem_rate, f32_rate))
     return results
+
+
+def _robust_rows(torch, build, mem_rate, f32_rate):
+    """The kernels of the ``llm_chaos``, ``llm_leafwise`` and
+    ``scaleup_sampled`` paths at their shapes: at granite-8b's 1-layer
+    (2, 419,442,688) B9 (``markov-doppler``'s step) and the guarded round's
+    B6 (with the guard's mask and the workers' CSI; its plain version in
+    column chunks, the energies summed over the chunks) and B3′; the
+    leafwise round's B1, B2 and B4 on the embedding leaf (2, 201,326,592);
+    and B1, B2, B4 at the sampled cohort's (256, 32).  Each set of planes
+    is freed when its rows are done."""
+    from repro_torch import rng
+    from repro_torch.kernels import (admm_update, ota, ota_round,
+                                     phy_channel, ref)
+    from repro_torch.models.registry import packed_param_count
+    from repro_torch.phy import doppler_rho, innovation_scale
+
+    dev = torch.device("cuda")
+    gen = rng.generator(SEED + 31, dev)
+    rows = {}
+
+    def planes(W, d, n, first_scale=math.sqrt(0.5)):
+        return [torch.randn((W, d), generator=gen, device=dev)
+                * (first_scale if i == 0 else math.sqrt(0.5))
+                for i in range(n)]
+
+    def add(*args, **kw):
+        row = _kernel_row(torch, build, mem_rate, f32_rate, *args, **kw)
+        rows[row["name"]] = row
+
+    cfg = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
+    W, D = LLM_WORKERS, packed_param_count(cfg)
+    label = f"[({W}, {D:,})]"
+    rho_f = doppler_rho(50.0, 1e-3)
+    scale_f = innovation_scale(rho_f)
+    h_re, h_im, w_re, w_im = planes(W, D, 4)
+    add("fading_step" + label, "src/repro/kernels/phy_channel.py:54",
+        "phy_channel",
+        lambda: phy_channel.fading_step(h_re, h_im, w_re, w_im, rho_f,
+                                        scale_f, True),
+        lambda: ref.fading_step(h_re, h_im, w_re, w_im, rho_f, scale_f,
+                                True),
+        4 * 6 * W * D, 6 * W * D, (1e-6, 1e-6), [W, D], {})
+    del w_re, w_im
+    torch.cuda.empty_cache()
+    theta, lam_re, lam_im, tx_re, tx_im = planes(W, D, 5, 0.05)
+    tx_re.add_(h_re)
+    tx_im.add_(h_im)
+    mask = torch.ones(W, dtype=torch.bool, device=dev)
+    stat_planes = (theta, lam_re, lam_im, h_re, h_im)
+    plan = ota_round.tiling(W, D, ota_round.sm_count(dev))
+
+    def stats_plain():
+        y = torch.empty(D, device=dev)
+        p2 = torch.empty(D, device=dev)
+        energy = torch.zeros(W, device=dev)
+        for a in range(0, D, THETA_CHUNK):
+            b = min(D, a + THETA_CHUNK)
+            out = ref.ota_round_stats(*(x[:, a:b] for x in stat_planes), 0.5,
+                                      mask=mask,
+                                      htx=(tx_re[:, a:b], tx_im[:, a:b]))
+            y[a:b], p2[a:b] = out[0], out[1]
+            energy += out[2]
+        return y, p2, energy
+
+    # as at the LLM D's without the mask: y/p2 of two workers, the energy
+    # over 419 M terms in another grouping, rtol 1e-4
+    add(f"ota_round_stats[({W}, {D:,}) mask+csi]",
+        "src/repro/kernels/ota_round.py:203", "ota_round",
+        lambda: ota_round.ota_round_stats(*stat_planes, 0.5, mask=mask,
+                                          htx=(tx_re, tx_im)),
+        stats_plain, 4 * (W * D * 7 + 2 * D + W) + W, 18 * W * D,
+        (1e-4, 1e-4), [W, D], {"plan": plan.plan, "tiling": list(plan),
+                               "mode": "mask+csi",
+                               "plain": "in column chunks"})
+    del theta, lam_re, lam_im, tx_re, tx_im, h_re, h_im, stat_planes
+    torch.cuda.empty_cache()
+    y = torch.randn(D, generator=gen, device=dev)
+    noise = torch.randn(D, generator=gen, device=dev) * 7e-4
+    p2 = torch.rand(D, generator=gen, device=dev) * W
+    add(f"ota_demodulate[({D:,})]", "src/repro/kernels/ota.py:121", "ota",
+        lambda: ota.ota_demodulate(y, noise, p2, 1.0),
+        lambda: ref.ota_demodulate(y, noise, p2, 1.0),
+        4 * 4 * D, 4 * D, (1e-6, 1e-7), [D], {})
+    del y, noise, p2
+    torch.cuda.empty_cache()
+    leaf = cfg.vocab_size * cfg.d_model
+    for rows_, cols, what in ((W, leaf, "embedding leaf"),
+                              (SAMPLED_COHORT, 32, "sampled cohort")):
+        lab = f"[({rows_}, {cols:,}) {what}]"
+        theta, lam_re, lam_im, h_re, h_im = planes(rows_, cols, 5, 0.05)
+        Theta = torch.randn(cols, generator=gen, device=dev) * 0.05
+        noise = torch.randn(cols, generator=gen, device=dev) * 7e-4
+        ia = torch.tensor(0.37, device=dev)
+        add("ota_modulate" + lab, "src/repro/kernels/ota.py:99", "ota",
+            lambda: ota.ota_modulate(theta, lam_re, lam_im, h_re, h_im, 0.5),
+            lambda: ref.ota_modulate(theta, lam_re, lam_im, h_re, h_im, 0.5),
+            4 * 7 * rows_ * cols, 6 * rows_ * cols, (1e-5, 1e-5),
+            [rows_, cols], {})
+        s_re, s_im = ota.ota_modulate(theta, lam_re, lam_im, h_re, h_im, 0.5)
+        add("ota_receive" + lab, "src/repro/kernels/ota.py:201", "ota",
+            lambda: ota.ota_receive(s_re, s_im, h_re, h_im, noise, ia),
+            lambda: ref.ota_receive(s_re, s_im, h_re, h_im, noise, ia),
+            4 * (4 * rows_ * cols + 2 * cols) + 4,
+            8 * rows_ * cols + 3 * cols, (1e-5, 1e-6), [rows_, cols],
+            {"plan": ota.receive_tiling(
+                rows_, cols, ota_round.sm_count(dev)).plan})
+        del s_re, s_im
+        add("admm_dual_update" + lab, "src/repro/kernels/admm_update.py:42",
+            "admm_update",
+            lambda: admm_update.admm_dual_update(lam_re, lam_im, h_re, h_im,
+                                                 theta, Theta, 0.5),
+            lambda: ref.admm_dual_update(lam_re, lam_im, h_re, h_im, theta,
+                                         Theta, 0.5),
+            4 * (7 * rows_ * cols + cols), 8 * rows_ * cols, (1e-5, 1e-5),
+            [rows_, cols], {})
+        del theta, lam_re, lam_im, h_re, h_im, Theta, noise, ia
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
@@ -620,7 +765,9 @@ def _llm_round_shapes():
     return [(LLM_WORKERS, packed_param_count(_llm_cfg(arch, n_layers)))
             for arch, n_layers in ((LLM_ARCH, LLM_LAYERS),
                                    (SSM_ARCH, SSM_LAYERS))] + [
-        (HYBRID_WORKERS, packed_param_count(_hybrid_cfg()))]
+        (HYBRID_WORKERS, packed_param_count(_hybrid_cfg())),
+        (LLM_WORKERS, packed_param_count(_llm_cfg(LLM_ARCH,
+                                                  ROBUST_LAYERS)))]
 
 
 def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
@@ -1211,45 +1358,24 @@ def _check_masked_duals(torch, alg, run, key: int) -> dict:
     raise SmokeFailure("no round in 6 dropped a worker that had a dual")
 
 
-def _proximal_solver(rho: float):
-    """Closed-form primal of the proximal-point objective
-    f_n(θ) = ‖θ − θ_n^prev‖² (``benchmarks/scaleup.py``'s consensus task):
-    2(θ − θ_prev) + Re{λ*h} + ρ|h|²(θ − Θ) = 0."""
-    from repro_torch.core import cplx
-
-    def solve(theta, lam, h, Theta, batch_idx=None):
-        h2 = cplx.abs2(h)
-        mu = cplx.cmul_conj(h, lam).re
-        return (2.0 * theta - mu + rho * h2 * Theta[None, :]) \
-            / (2.0 + rho * h2)
-    return solve
-
-
 def phase_scaleup(torch, card):
-    """``benchmarks/scaleup.py``'s largest full-transmit point: W = 65,536
-    workers, d = 32 over 32 subcarriers, 20 dB, ρ = 0.5, flip rule off,
-    power control on, the frequency-flat ``urban-mobility`` scenario."""
+    """``benchmarks/scaleup.py``'s largest full-transmit point through its
+    twin's algorithm (``repro_torch.benchmarks.scaleup.make_alg``): W =
+    65,536 workers, d = 32 over 32 subcarriers, 20 dB, ρ = 0.5, flip rule
+    off, power control on, the frequency-flat ``urban-mobility``
+    scenario."""
     from repro_torch import rng
-    from repro_torch.core.admm import AdmmConfig
-    from repro_torch.core.aggregators import make
-    from repro_torch.core.channel import ChannelConfig
-    from repro_torch.core.subcarrier import SubcarrierPlan
+    from repro_torch.benchmarks import scaleup
     from repro_torch.kernels import build, ota, ota_round
-    from repro_torch.phy import make_scenario
     from repro_torch.train.fl_trainer import train
 
     _, (mem_rate, _, _) = card_peaks(card)
     dev = torch.device("cuda")
-    W, D, n_sub, n_rounds, key = 65_536, 32, 32, 10, SEED
-    ccfg = ChannelConfig(n_workers=W, n_subcarriers=n_sub, snr_db=20.0)
-    alg = make("afadmm", AdmmConfig(rho=0.5, flip_on_change=False,
-                                    power_control=True), ccfg,
-               SubcarrierPlan.build(D, n_sub),
-               scenario=make_scenario("urban-mobility", ccfg,
-                                      freq_flat=True))
+    W, D, n_rounds, key = 65_536, scaleup.D, 10, SEED
+    alg = scaleup.make_alg(W, W)
     theta0 = torch.randn((W, D), generator=rng.generator(
         rng.fold_in(key, 1), dev), device=dev)
-    solver = _proximal_solver(0.5)
+    solver = scaleup.proximal_solver(scaleup.RHO)
 
     def grad_fn(theta):
         raise SmokeFailure("the flip rule is off; grad_fn must not run")
@@ -1773,15 +1899,22 @@ def _check_packed_d(phase: str, cfg, d: int) -> None:
 def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
               lr: float, want_launches: dict, reference=None,
               loss_rounds: int = LLM_ROUNDS,
-              loss_rtol: float = SSM_CHUNKED_LOSS_RTOL, dtype=None):
+              loss_rtol: float = SSM_CHUNKED_LOSS_RTOL, dtype=None,
+              fl=None, round_draws=None, check_round=None, gate=None):
     """The federated LLM trainer's replicated mode (``make_fl_train`` /
     ``train_step``) on ``arch`` at full width with ``n_layers`` of its
     layers, in bf16 (or ``dtype``): W = 2 workers, per-worker batch 1 ×
     ``seq`` tokens, 2 local sgd steps at ``lr``, 3 rounds.  With
     ``reference`` (an earlier run's summary, same state and draws) the loss
     of each of the first ``loss_rounds`` rounds must be within
-    ``loss_rtol`` of its, and the peak below its.  Returns
-    (launches, a one-round callable for the profiler, s/round, summary)."""
+    ``loss_rtol`` of its, and the peak below its.  ``fl``: more
+    ``FLConfig`` fields (a scenario, faults, a guard, a population: the
+    batch is then the cohort's); ``round_draws(r, key, state, ccfg)``: round
+    r's draws (else the trainer draws from the key); ``check_round(r,
+    before, after, metrics)``: a gate on each round; ``gate(metrics by
+    round, state)``: a gate on the run, returning fields for the phase's
+    line.  The peak must stay within the card's 80 GB.  Returns (launches,
+    a one-round callable for the profiler, s/round, summary)."""
     import dataclasses
 
     from repro_torch import rng
@@ -1798,12 +1931,14 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
     if dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
     model = build_model(cfg)
-    W, B, S = LLM_WORKERS, 1, seq
+    fl = dict(fl or {})
+    W, B, S = fl.get("cohort", LLM_WORKERS), 1, seq
     local_steps = 2
     flcfg = FLConfig(mode="replicated", n_workers=W, local_steps=local_steps,
-                     local_lr=lr, local_optimizer="sgd")
+                     local_lr=lr, local_optimizer="sgd", **fl)
     acfg = AdmmConfig(rho=0.5, flip_on_change=False)
-    ccfg = ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=10)
+    ccfg = ChannelConfig(n_workers=fl.get("population", W), snr_db=40.0,
+                         coherence_iters=10)
     t0 = time.perf_counter()
     init_fn, train_step = make_fl_train(model, flcfg, acfg, ccfg)
     state = init_fn(SEED)
@@ -1817,19 +1952,43 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     losses, drifts, inv_alphas, times = [], [], [], []
+    extra: dict = {}
     for r in range(LLM_ROUNDS):
+        key = rng.fold_in(SEED, r + 1)
+        # the round's state and draws go in through lists the call empties,
+        # so the trainer can free the old channel and the spent draws
+        # mid-round; a check keeps only the old θ and λ
+        pending = [None if round_draws is None
+                   else round_draws(r, key, state, ccfg)]
+        before = (state._replace(chan=None) if check_round is not None
+                  else None)
+        held = [state]
+        state = None
         t0 = time.perf_counter()
-        state, m = train_step(state, batch, key=rng.fold_in(SEED, r + 1))
+        state, m = train_step(held.pop(), batch, key=key,
+                              draws=pending.pop())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         drifts.append(float(m["theta_drift"]))
         inv_alphas.append(float(m["inv_alpha"]))
+        for k, v in m.items():
+            if k not in ("loss", "theta_drift", "inv_alpha"):
+                extra.setdefault(k, []).append(float(v))
         require(math.isfinite(losses[-1]), f"{phase}: round {r} loss "
                 f"{losses[-1]} is not finite")
+        if check_round is not None:
+            check_round(r, before, state, m)
+        del before, m
     launches = dict(build.launches)
     peak = torch.cuda.max_memory_allocated()
     _per_round(launches, LLM_ROUNDS, want_launches)
+    require(peak <= CARD_BYTES, f"{phase}: peak {peak / 1e9} GB is above "
+            f"the card's {CARD_BYTES / 1e9} GB")
+    require(all(bool(torch.isfinite(leaf).all())
+                for leaf in tree_leaves(state.theta)), f"{phase}: non-finite "
+            f"θ")
+    gated = {} if gate is None else gate(extra, state)
     require(losses[-1] < losses[0], f"{phase}: round {LLM_ROUNDS} loss "
             f"{losses[-1]} is not below round 1's {losses[0]} (losses "
             f"{losses}, s/round {times}, peak {peak / 1e9} GB)")
@@ -1876,7 +2035,9 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
           "tokens_per_s": tokens_per_round / round_s,
           "loss": losses, "theta_drift": drifts, "inv_alpha": inv_alphas,
           "peak_mem_gb": peak / 1e9, "launches": launches,
-          **({} if versus is None else {"reference": versus})})
+          **({} if versus is None else {"reference": versus}),
+          **({"options": {k: repr(v) for k, v in fl.items()},
+              "metrics": extra} if fl else {}), **gated})
     keys = iter(range(100, 1000))
 
     def one_round():
@@ -2142,6 +2303,271 @@ def phase_rec_block(torch):
     return launches
 
 
+#: phase ``scaleup_sampled``: the sampled point of
+#: ``repro_torch/benchmarks/scaleup.py``, a 256-worker cohort of 10⁶
+SAMPLED_POPULATION, SAMPLED_COHORT, SAMPLED_ROUNDS = 1_000_000, 256, 5
+#: per round: B10 over the population, the uplink at cohort width
+SAMPLED_LAUNCHES = {"population_step": 1, "ota_modulate": 1,
+                    "ota_receive": 1, "admm_dual_update": 1,
+                    "fading_step": 0, "ota_round_stats": 0}
+
+
+def phase_scaleup_sampled(torch):
+    """``benchmarks/scaleup.py``'s (10⁶, 256) point through its torch twin
+    (``repro_torch.benchmarks.scaleup``): the twin's timed rounds and the
+    round's peak above the state it carries, then ``SAMPLED_ROUNDS`` rounds
+    of ``AFadmm(cohort=...)`` with their launches gated and, each round, the
+    non-sampled rows' θ and λ held to their pre-round bits."""
+    from repro_torch.benchmarks import scaleup
+    from repro_torch.core.cohort import sample_cohort
+    from repro_torch.kernels import build
+    from repro_torch import rng
+
+    dev = torch.device("cuda")
+    N, W = SAMPLED_POPULATION, SAMPLED_COHORT
+    point = scaleup.run_point(N, W, rounds=SAMPLED_ROUNDS, iters=5)
+    alg = scaleup.make_alg(N, W)
+    solve = scaleup.proximal_solver(scaleup.RHO)
+    key = SEED + 17
+    st = alg.init(key, torch.randn((N, scaleup.D), device=dev,
+                                   generator=rng.generator(key, dev)))
+    state_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    for r in range(SAMPLED_ROUNDS):
+        k = rng.fold_in(key, r + 1)
+        draws = alg.draw(k, st, solve)
+        idx = sample_cohort(alg.cohort, draws.cohort)
+        st2, m = alg.round(k, st, solve, scaleup.zero_grad, draws=draws)
+        off = torch.ones(N, dtype=torch.bool, device=dev)
+        off[idx] = False
+        for a, b in ((st2.theta, st.theta), (st2.lam.re, st.lam.re),
+                     (st2.lam.im, st.lam.im)):
+            require(bool(torch.equal(a[off], b[off])),
+                    f"scaleup_sampled: round {r} changed a row it did not "
+                    f"sample")
+        require(bool(torch.isfinite(st2.Theta).all()),
+                f"scaleup_sampled: round {r} Θ is not finite")
+        st = st2
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated() - state_bytes
+    _per_round(launches, SAMPLED_ROUNDS, SAMPLED_LAUNCHES)
+    plane = N * scaleup.D * 8         # one (N, d) complex64 plane
+    emit({"phase": "scaleup_sampled", "ok": True, "population": N,
+          "cohort": W, "d": scaleup.D, "scenario": "urban-mobility",
+          "freq_flat": True, "rounds": SAMPLED_ROUNDS, "twin": point,
+          "seconds_per_round": point["seconds_per_round"],
+          "gated_rounds_s": run_s / SAMPLED_ROUNDS,
+          "peak_above_state_bytes": point["peak_above_state_bytes"],
+          "gated_rounds_peak_above_state_bytes": peak,
+          "complex_plane_bytes": plane, "inv_alpha": float(m["inv_alpha"]),
+          "launches": launches})
+    return launches
+
+
+#: phases ``llm_chaos``, ``llm_cohort``, ``llm_leafwise``: granite-8b at
+#: full width cut to 1 of its 36 layers (D = 419,442,688), W = 2
+ROBUST_LAYERS = 1
+LLM_FLASH_1 = {"flash_attention_fwd": 2 * ROBUST_LAYERS * 2,
+               "flash_attention_dq": ROBUST_LAYERS * 2,
+               "flash_attention_dkv": ROBUST_LAYERS * 2}
+#: stragglers (snapshots every 2 rounds) and bursts; a burst of std 100
+#: drops the receive SNR by ~10·log10(1 + 100²/σ²) ≈ 80 dB at 40 dB, far
+#: below the guard's 0 dB floor, and the retry (no burst) recovers
+CHAOS_FAULTS = dict(straggler_prob=0.5, straggler_delay=2, burst_prob=0.2,
+                    burst_std=100.0)
+CHAOS_GUARD = dict(policy="evict-retransmit", snr_floor_db=0.0,
+                   max_retries=2)
+#: the round whose burst uniform is forced to 0 (a burst for certain)
+CHAOS_BURST_ROUND = 1
+#: per round: B9 steps the (2, D) fading; B6 once plus the guard's evict
+#: pass; B3′ on the slot, the evict pass and two retries; one B4
+CHAOS_LAUNCHES = dict(LLM_FLASH_1, fading_step=1, ota_round_stats=2,
+                      ota_demodulate=4, admm_dual_update=1,
+                      ota_demodulate_dyn=0, ota_modulate=0, ota_receive=0)
+COHORT_LAUNCHES = dict(LLM_FLASH_1, ota_round_stats=1, ota_demodulate_dyn=1,
+                       admm_dual_update=1, fading_step=0, ota_modulate=0)
+
+
+def phase_llm_chaos(torch):
+    """Phase ``llm``'s trainer on granite-8b (1 of 36 layers) under
+    ``markov-doppler`` with CSI error 0.1, stragglers and bursts, and the
+    evict-retransmit guard; round ``CHAOS_BURST_ROUND`` has its burst
+    forced through its fault draws.  Gates: θ and Θ finite, the loss falls,
+    at least one retransmission, participation in (0, 1]."""
+    from repro_torch.faults import FaultPlan, GuardConfig
+    from repro_torch.phy import make_scenario
+    from repro_torch.train.llm_trainer import draw_round
+
+    plan, gcfg = FaultPlan(**CHAOS_FAULTS), GuardConfig(**CHAOS_GUARD)
+    fl = dict(scenario="markov-doppler", csi_err=0.1, faults=plan,
+              guard=gcfg)
+
+    def round_draws(r, key, state, ccfg):
+        d = draw_round(key, state, ccfg, scenario=make_scenario(
+            "markov-doppler", ccfg, csi_err=0.1), faults=plan, guard=gcfg)
+        if r == CHAOS_BURST_ROUND:
+            d = d._replace(faults=d.faults._replace(
+                burst=torch.zeros_like(d.faults.burst)))
+        return d
+
+    def gate(metrics, state):
+        require(sum(metrics["guard/retries"]) >= 1,
+                f"llm_chaos: no retransmission: {metrics['guard/retries']}")
+        require(metrics["fault/burst"][CHAOS_BURST_ROUND] == 1.0
+                and metrics["guard/ok_first"][CHAOS_BURST_ROUND] == 0.0,
+                "llm_chaos: the forced burst did not trip the guard")
+        part = metrics["participation"]
+        require(all(0.0 < p <= 1.0 for p in part),
+                f"llm_chaos: participation {part} not in (0, 1]")
+        return {"retransmissions": sum(metrics["guard/retries"]),
+                "participation": part,
+                "straggler_stale_shape": list(state.flt.stale.shape)}
+
+    return phase_llm(torch, "llm_chaos", LLM_ARCH, ROBUST_LAYERS, LLM_SEQ,
+                     LLM_LR, CHAOS_LAUNCHES, fl=fl, round_draws=round_draws,
+                     gate=gate)
+
+
+def phase_llm_cohort(torch):
+    """Phase ``llm``'s trainer on granite-8b (1 of 36 layers) over a
+    population of 4 workers, sampling the cohort of 2 strongest channels
+    (``top-gain``) each round.  Gates: the unsampled rows keep their θ and
+    λ bits each round; the loss falls."""
+    from repro_torch.core.cohort import (CohortConfig, channel_weight,
+                                         sample_cohort)
+    from repro_torch.tree import tree_leaves
+
+    cfg = CohortConfig(population=4, cohort=2, policy="top-gain")
+    fl = dict(population=cfg.population, cohort=cfg.cohort,
+              cohort_policy=cfg.policy)
+    cohorts = []
+
+    def check_round(r, before, after, m):
+        idx = sample_cohort(cfg, None, channel_weight(after.chan.h))
+        cohorts.append(sorted(idx.tolist()))
+        for w in sorted(set(range(cfg.population)) - set(cohorts[-1])):
+            same = all(bool(torch.equal(a[w], b[w])) for a, b in zip(
+                tree_leaves(after.theta), tree_leaves(before.theta)))
+            same = same and bool(torch.equal(after.lam.re[w],
+                                             before.lam.re[w]))
+            same = same and bool(torch.equal(after.lam.im[w],
+                                             before.lam.im[w]))
+            require(same, f"llm_cohort: round {r} changed worker {w}, "
+                    f"which it did not sample")
+
+    def gate(metrics, state):
+        return {"cohorts": cohorts,
+                "lam_shape": list(state.lam.re.shape)}
+
+    return phase_llm(torch, "llm_cohort", LLM_ARCH, ROBUST_LAYERS, LLM_SEQ,
+                     LLM_LR, COHORT_LAUNCHES, fl=fl, check_round=check_round,
+                     gate=gate)
+
+
+#: ``llm_leafwise``: the packed round against the leafwise one on the same
+#: θ, λ and h, noise-free with power control: Θ and λ within rtol 1e-6
+LEAFWISE_RTOL = 1e-6
+
+
+def phase_llm_leafwise(torch):
+    """One round of phase ``llm``'s trainer on granite-8b (1 of 36 layers)
+    with ``packed_uplink=False`` (λ and h as per-leaf trees; one B1, B2 and
+    B4 per leaf), noise-free with power control; then, on the same θ (after
+    the local steps), λ and h, the leafwise round against the packed one
+    (B6, B3, B4): Θ, λ and α⁻¹ within ``LEAFWISE_RTOL``, and the trainer's
+    λ the leafwise round's bit for bit."""
+    from repro_torch import rng
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.packing import build_packspec
+    from repro_torch.core.tree_ota import ota_tree_round
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.train.llm_trainer import (FLConfig, draw_round,
+                                               make_fl_train)
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
+    W = LLM_WORKERS
+    acfg = AdmmConfig(rho=0.5, flip_on_change=False)
+    ccfg = ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=10,
+                         noisy=False)
+    init_fn, train_step = make_fl_train(
+        build_model(cfg), FLConfig(n_workers=W, local_steps=2,
+                                   local_lr=LLM_LR, packed_uplink=False),
+        acfg, ccfg)
+    state = init_fn(SEED)
+    spec = build_packspec(state.theta, batch_dims=1)
+    _check_packed_d("llm_leafwise", cfg, spec.d)
+    batch = {"tokens": token_dataset(SEED + 1, 1, LLM_SEQ, cfg.vocab_size,
+                                     n_workers=W)}
+    draws = draw_round(rng.fold_in(SEED, 1), state, ccfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    new, m = train_step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n = spec.n_leaves
+    _per_round(launches, 1, dict(LLM_FLASH_1, ota_modulate=n, ota_receive=n,
+                                 admm_dual_update=n, ota_round_stats=0,
+                                 ota_demodulate_dyn=0))
+    require(peak <= CARD_BYTES, f"llm_leafwise: peak {peak / 1e9} GB")
+    require(math.isfinite(float(m["loss"])), "llm_leafwise: loss not finite")
+    # the two rounds on the trainer's θ after its local steps
+    theta = new.theta
+    noise = list(draws.noise_re)
+    rounds = {}
+    for packed in (False, True):
+        T, lam, mr = ota_tree_round(
+            theta, state.lam, state.chan.h,
+            noise if not packed else torch.zeros(spec.d, device=dev),
+            acfg, ccfg, packed=packed)
+        rounds[packed] = (tree_leaves(T), tree_leaves(lam),
+                          float(mr["inv_alpha"]))
+        del T, lam
+    (T_l, l_l, ia_l), (T_p, l_p, ia_p) = rounds[False], rounds[True]
+    require(all(bool(torch.equal(a.re, b.re)) and bool(torch.equal(a.im,
+                                                                  b.im))
+                for a, b in zip(tree_leaves(new.lam), l_l)),
+            "llm_leafwise: the trainer's λ is not its leafwise round's")
+    theta_err = _max_err(T_p, T_l, LEAFWISE_RTOL, 0.0)
+    lam_err = _max_err([x for z in l_p for x in z], [x for z in l_l
+                                                     for x in z],
+                       LEAFWISE_RTOL, 0.0)
+    bits = {"Theta": all(bool(torch.equal(a, b)) for a, b in zip(T_p, T_l)),
+            "lam": all(bool(torch.equal(a.re, b.re))
+                       and bool(torch.equal(a.im, b.im))
+                       for a, b in zip(l_p, l_l))}
+    ia_rel = abs(ia_p - ia_l) / abs(ia_l)
+    out = {"phase": "llm_leafwise", "ok": True, "arch": cfg.name,
+          "reduced": {"n_layers": f"36 -> {ROBUST_LAYERS}"}, "D": spec.d,
+          "leaves": n, "W": W, "seq": LLM_SEQ, "noisy": False,
+          "power_control": True, "round_s": round_s,
+          "loss": float(m["loss"]),
+          "peak_mem_gb": peak / 1e9, "inv_alpha_leafwise": ia_l,
+          "inv_alpha_packed": ia_p, "inv_alpha_rel_diff": ia_rel,
+          "theta_max_abs_err": theta_err[0], "theta_err_over_rtol":
+          theta_err[1], "lam_max_abs_err": lam_err[0],
+          "lam_err_over_rtol": lam_err[1], "bitwise_equal": bits,
+          "launches": launches}
+    require(theta_err[1] <= 1.0 and lam_err[1] <= 1.0
+            and ia_rel <= LEAFWISE_RTOL,
+            f"llm_leafwise: packed and leafwise differ beyond rtol "
+            f"{LEAFWISE_RTOL}: {out}")
+    emit(out)
+    return launches
+
+
 def _kernel_family(name: str) -> str:
     for fn in ("linear_scan_fwd_kernel", "linear_scan_bwd_kernel",
                # B12's staged plan
@@ -2304,6 +2730,18 @@ def main() -> int:
         paths.update(phase_llm_ssm_chunked(torch, ssm_summary))
         paths["llm_hybrid"] = phase_llm_hybrid(torch)
         paths["rec_block"] = phase_rec_block(torch)
+        _free(torch)
+        paths["scaleup_sampled"] = phase_scaleup_sampled(torch)
+        _free(torch)
+        paths["llm_chaos"], chaos_round, chaos_llm_s, _ = phase_llm_chaos(
+            torch)
+        phase_profile(torch, "llm_chaos", chaos_round, chaos_llm_s)
+        del chaos_round
+        _free(torch)
+        paths["llm_cohort"] = phase_llm_cohort(torch)[0]
+        _free(torch)
+        paths["llm_leafwise"] = phase_llm_leafwise(torch)
+        _free(torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1

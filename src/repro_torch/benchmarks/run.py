@@ -24,7 +24,8 @@ def _not_ported(name: str, why: str, device="cuda"):
 
 def _benchmarks():
     from repro_torch.benchmarks import (ablation_noniid, fig2_linreg,
-                                        fig3_classification, fig5_rho)
+                                        fig3_classification, fig5_rho,
+                                        scaleup)
     kernels = ("the JAX package's kernel and transport timings; the port's "
                "are chip_smoke.py's kernels phase")
     missing = {
@@ -43,6 +44,7 @@ def _benchmarks():
         "fig3b_energy": fig3_classification.fig3b_energy,
         "fig3c_scalability": fig3_classification.fig3c_scalability,
         "fig5_rho_sensitivity": fig5_rho.fig5_rho_sensitivity,
+        "scaleup": scaleup.scaleup,
         **{k: functools.partial(_not_ported, k, why)
            for k, why in missing.items()},
     }

@@ -163,20 +163,35 @@ def model_params_from_numpy(tree: Mapping[str, Any], device="cuda"):
 
 
 def tree_fl_state_from_numpy(theta: Mapping[str, Any],
-                             Theta: Mapping[str, Any], lam_re: np.ndarray,
-                             lam_im: np.ndarray, h_re: np.ndarray,
-                             h_im: np.ndarray, age: int, step: int = 0,
+                             Theta: Mapping[str, Any], lam_re, lam_im,
+                             h_re=None, h_im=None, age: int = 0,
+                             step: int = 0,
                              opt: Optional[Mapping[str, Any]] = None,
+                             phys: Optional[Mapping[str, Any]] = None,
+                             flt: Optional[Mapping[str, Any]] = None,
                              device="cuda") -> TreeFLState:
     """The port's ``TreeFLState`` from the JAX LLM trainer's state: θ
-    (leaves (W, ...)), Θ, the packed (W, D) λ and h planes, the channel's
+    (leaves (W, ...); (N, ...) for a population), Θ, λ and h, the channel's
     age and the step, and the local optimizer's ``{"mu", "nu", "count"}``
     (``nu`` None for sgd, whose second moment is the first's object, as in
-    JAX)."""
+    JAX).
+
+    λ and h are the packed (W, D) planes, or, for the leafwise state
+    (``packed_uplink=False``), nested dicts of per-leaf planes shaped as θ.
+    Under a scenario ``phys`` holds the ``PhyState``'s leaves
+    (:func:`phy_state_from_numpy`) and h and ``age`` are not read; under a
+    fault plan ``flt`` holds the ``FaultState``'s
+    (:func:`fault_state_from_numpy`)."""
     dev = resolve_device(device)
 
     def f32(a) -> torch.Tensor:
         return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    def planes(re, im):
+        if isinstance(re, Mapping):
+            return tree_map(lambda r, i: Complex(f32(r), f32(i)), dict(re),
+                            dict(im))
+        return Complex(f32(re), f32(im))
 
     state_opt = None
     if opt is not None:
@@ -184,9 +199,16 @@ def tree_fl_state_from_numpy(theta: Mapping[str, Any],
         nu = mu if opt.get("nu") is None else model_params_from_numpy(
             opt["nu"], dev)
         state_opt = OptState(mu=mu, nu=nu, count=int(opt["count"]))
+    if phys is not None:
+        chan = phy_state_from_numpy(phys, device=dev)
+    else:
+        if h_re is None or h_im is None:
+            raise KeyError("tree_fl_state_from_numpy: h_re and h_im are "
+                           "needed without a scenario's phys")
+        chan = TreeChannel(h=planes(h_re, h_im), age=int(age))
     return TreeFLState(theta=model_params_from_numpy(theta, dev),
-                       lam=Complex(f32(lam_re), f32(lam_im)),
+                       lam=planes(lam_re, lam_im),
                        Theta=model_params_from_numpy(Theta, dev),
-                       chan=TreeChannel(h=Complex(f32(h_re), f32(h_im)),
-                                        age=int(age)),
-                       opt=state_opt, step=int(step))
+                       chan=chan, opt=state_opt, step=int(step),
+                       flt=None if flt is None
+                       else fault_state_from_numpy(flt, device=dev))

@@ -82,6 +82,8 @@ class RoundDraws(NamedTuple):
     guard: the guard's burst and retry noise planes
       (``repro_torch.faults.guards.GuardDraws``) when the round is guarded
       or has bursts, else None.
+    cohort: the cohort plane (``repro_torch.core.cohort.draw_cohort``)
+      when A-FADMM samples a cohort from its population, else None.
     """
 
     h_fresh: Optional[Complex]
@@ -91,6 +93,7 @@ class RoundDraws(NamedTuple):
     phy: Optional[Any] = None
     faults: Optional[Any] = None
     guard: Optional[Any] = None
+    cohort: Optional[Tensor] = None
 
 
 def init_state(theta0: Tensor, blk: ChannelBlock,

@@ -25,6 +25,9 @@ participation mask and the workers' CSI.  With a ``repro_torch.faults
 .FaultPlan`` the fault state rides in ``AFadmmState.flt``, its draws come
 from the round key's ``FAULT_SALT`` side branch (so an all-zero plan changes
 no draw of the fault-free run), and a ``GuardConfig`` guards the uplink.
+With a ``repro_torch.core.cohort.CohortConfig`` A-FADMM's state is a
+population's and each round runs the sampled cohort's rows only; the
+cohort's plane comes from the round key's ``COHORT_SALT`` side branch.
 
 A-GD masks its truncated workers with ``where``, not by multiplying as the
 JAX round does, so a non-finite gradient behind a truncated channel never
@@ -39,7 +42,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import rng
-from repro_torch.core import admm, cplx, subcarrier
+from repro_torch.core import admm, cohort as _cohort, cplx, subcarrier
 from repro_torch.core.admm import (AdmmConfig, AFadmmState, GradFn,
                                    LocalSolve, RoundDraws)
 from repro_torch.core.channel import (ChannelBlock, ChannelConfig,
@@ -80,6 +83,11 @@ class AFadmm:
     #: guard); None keeps the fault-free round
     faults: Optional[_fplan.FaultPlan] = None
     guard: Optional[_guards.GuardConfig] = None
+    #: optional ``repro_torch.core.cohort.CohortConfig``: ``theta0``, the
+    #: duals and the phy and fault state are population-wide, and each
+    #: round only the sampled cohort's rows run it; the others keep their θ
+    #: and λ.  None, or ``cohort == population``, is the unsampled round
+    cohort: Optional[_cohort.CohortConfig] = None
 
     name = "afadmm"
 
@@ -115,10 +123,13 @@ class AFadmm:
         half's fold 1 (as ``repro.core.admm``), the minibatches from fold
         ``BATCH_SALT``, the fault uniforms from the ``FAULT_SALT`` fold of
         the whole key, and the guard's burst and retry planes from folds of
-        the noise half (``faults.guards.draw``)."""
+        the noise half (``faults.guards.draw``), and the cohort's plane from
+        the ``COHORT_SALT`` fold of the whole key.  Under sampling the
+        analog-downlink noise is the cohort's, the rest the population's."""
         kc, kn = rng.split(key)
         dev = st.theta.device
         W, d = st.theta.shape
+        sampling = _cohort.cohort_active(self.cohort)
         h_fresh = phy = None
         if self.scenario is not None:
             phy = self.scenario.draw(kc, st.phys)
@@ -128,8 +139,10 @@ class AFadmm:
                                            self.ccfg)
         downlink = None
         if self.ccfg.analog_downlink:
+            rows = self.cohort.cohort if sampling else W
             downlink = matched_filter_noise(
-                rng.generator(rng.fold_in(kn, 1), dev), (W, d), self.ccfg).re
+                rng.generator(rng.fold_in(kn, 1), dev), (rows, d),
+                self.ccfg).re
         batch_idx = _batches(local_solve, key, dev)
         faults = guard = None
         if self.faults is not None:
@@ -141,7 +154,9 @@ class AFadmm:
                                  self.ccfg, dev, bursts)
         return RoundDraws(h_fresh=h_fresh, noise_re=noise_re,
                           downlink_noise_re=downlink, batch_idx=batch_idx,
-                          phy=phy, faults=faults, guard=guard)
+                          phy=phy, faults=faults, guard=guard,
+                          cohort=_cohort.draw_cohort(key, self.cohort, dev)
+                          if sampling else None)
 
     def round(self, key: int, st: AFadmmState, local_solve: LocalSolve,
               grad_fn: GradFn, draws: Optional[RoundDraws] = None
@@ -171,10 +186,14 @@ class AFadmm:
             st = st._replace(flt=st_mid)
             mask = rf.alive if mask is None else mask & rf.alive
             faults = (self.faults, rf, st.flt.stale)
-        st, metrics = admm.afadmm_round(st, blk_next, local_solve, grad_fn,
-                                        self.acfg, self.ccfg, draws,
-                                        mask=mask, h_tx=h_tx,
-                                        guard=self.guard, faults=faults)
+        if _cohort.cohort_active(self.cohort):
+            st, metrics = self._cohort_round(st, blk_next, local_solve,
+                                             grad_fn, draws, mask, h_tx,
+                                             faults)
+        else:
+            st, metrics = admm.afadmm_round(
+                st, blk_next, local_solve, grad_fn, self.acfg, self.ccfg,
+                draws, mask=mask, h_tx=h_tx, guard=self.guard, faults=faults)
         aux = metrics.pop("_fault_aux", {})
         if self.faults is not None:
             st = st._replace(flt=_fplan.commit(st.flt, aux.get("stale"),
@@ -183,6 +202,55 @@ class AFadmm:
         metrics["channel_uses"] = float(
             subcarrier.analog_channel_uses(self.plan))
         return st, metrics
+
+    def _cohort_round(self, st: AFadmmState, blk_next: ChannelBlock,
+                      local_solve: LocalSolve, grad_fn: GradFn,
+                      draws: RoundDraws, mask, h_tx, faults
+                      ) -> Tuple[AFadmmState, dict]:
+        """Sampled round: gather the cohort's rows out of the population
+        state (θ, λ, the channel block, the mask, h_tx, the fault rows), run
+        ``admm.afadmm_round`` at cohort width, scatter θ, λ and the fault
+        aux back.  The solver must take any worker count."""
+        if draws.cohort is None and self.cohort.policy != "top-gain":
+            raise ValueError("a sampled round needs draws.cohort")
+        n_pop = st.theta.shape[0]
+        # uniform never reads the weight: no (N, d) |h|² pass
+        wgt = (_cohort.channel_weight(blk_next.h)
+               if self.cohort.policy != "uniform" else None)
+        idx = _cohort.sample_cohort(self.cohort, draws.cohort, wgt)
+        take = _cohort.take_rows
+        blk_sub = ChannelBlock(h=take(blk_next.h, idx),
+                               h_prev=take(blk_next.h_prev, idx),
+                               changed=take(blk_next.changed, idx),
+                               age=blk_next.age)
+        faults_sub = None
+        if faults is not None:
+            fplan, rf, stale = faults
+            rf = rf._replace(alive=take(rf.alive, idx),
+                             straggler=take(rf.straggler, idx),
+                             corrupt=take(rf.corrupt, idx),
+                             snapshot_due=take(rf.snapshot_due, idx))
+            faults_sub = (fplan, rf, take(stale, idx))
+        sub = AFadmmState(theta=st.theta[idx], lam=take(st.lam, idx),
+                          Theta=st.Theta, blk=blk_sub, step=st.step)
+        st2, metrics = admm.afadmm_round(
+            sub, blk_sub, local_solve, grad_fn, self.acfg, self.ccfg, draws,
+            mask=take(mask, idx), h_tx=take(h_tx, idx), guard=self.guard,
+            faults=faults_sub)
+        aux = metrics.pop("_fault_aux", None)
+        if aux is not None:
+            if aux.get("stale") is not None:
+                aux["stale"] = _cohort.put_rows(st.flt.stale, idx,
+                                                aux["stale"])
+            if aux.get("evicted") is not None:
+                aux["evicted"] = _cohort.put_rows(
+                    torch.zeros(n_pop, dtype=torch.bool,
+                                device=st.theta.device), idx, aux["evicted"])
+            metrics["_fault_aux"] = aux
+        return AFadmmState(theta=_cohort.put_rows(st.theta, idx, st2.theta),
+                           lam=_cohort.put_rows(st.lam, idx, st2.lam),
+                           Theta=st2.Theta, blk=blk_next, step=st2.step,
+                           phys=st.phys, flt=st.flt), metrics
 
     def global_model(self, st: AFadmmState) -> Tensor:
         return st.Theta
@@ -401,7 +469,8 @@ def make(name: str, acfg: AdmmConfig, ccfg: ChannelConfig,
          plan: SubcarrierPlan, **kw):
     """Factory over :data:`ALGORITHMS`, taking each class's own keywords:
     A-FADMM's ``scenario`` (a ``repro_torch.phy.Scenario``), ``faults`` (a
-    ``repro_torch.faults.FaultPlan``) and ``guard`` (a ``GuardConfig``);
+    ``repro_torch.faults.FaultPlan``), ``guard`` (a ``GuardConfig``) and
+    ``cohort`` (a ``repro_torch.core.cohort.CohortConfig``);
     D-FADMM's ``bits_per_element``; A-GD's ``learning_rate`` and
     ``epsilon``.  ``acfg`` is ignored by the first-order algorithms."""
     if name not in ALGORITHMS:

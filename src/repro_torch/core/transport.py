@@ -136,10 +136,14 @@ def flip_lambda(grad_f: Tensor, theta: Tensor, Theta_prev: Tensor, h: Complex,
 def penalty_grad(theta: Tensor, lam: Complex, h: Complex, Theta: Tensor,
                  rho: float) -> Tensor:
     """∇ of the augmented-Lagrangian terms added to f_n (prox local steps):
-    Re{λ* h} + ρ|h|²(θ − Θ).  Returns theta's dtype."""
-    mu = cplx.cmul_conj(h, lam).re  # Re{λ* h} == Re{h λ*}
-    g = mu + rho * cplx.abs2(h) * (theta.float() - Theta.float())
-    return g.to(theta.dtype)
+    Re{λ* h} + ρ|h|²(θ − Θ).  Returns theta's dtype.  Only the real part of
+    λ*h is formed, and the products accumulate in place, in the order and
+    rounding of the plain expression: at an LLM's widths each temporary is
+    a (W, leaf) f32 plane."""
+    g = h.re * lam.re + h.im * lam.im   # Re{λ* h} == Re{h λ*}
+    pen = cplx.abs2(h).mul_(rho)
+    pen.mul_(theta.float() - Theta.float())
+    return g.add_(pen).to(theta.dtype)
 
 
 # ---------------------------------------------------------------------------

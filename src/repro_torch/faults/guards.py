@@ -150,7 +150,7 @@ def guarded_receive(gcfg: GuardConfig, *, stats_fn: Callable,
     thr = (None if gcfg.snr_floor_db is None
            else 10.0 ** (gcfg.snr_floor_db / 10.0))
 
-    def epilogue(y, p2, energy, m, attempt, noise, burst) -> _Attempt:
+    def epilogue(y, p2, energy, sig, m, attempt, noise, burst) -> _Attempt:
         ia = inv_alpha_fn(energy, m, attempt)
         n = noise
         if burst:
@@ -158,18 +158,24 @@ def guarded_receive(gcfg: GuardConfig, *, stats_fn: Callable,
             # division scales it exactly like the matched-filter noise
             n = n + burst_std * burst_plane
         n_eff = n * ia
+        del n
         Theta = demod_fn(y, p2, n_eff)
         ok = torch.isfinite(Theta).all()
-        sig = torch.sum(y * y)
         npow = torch.sum(n_eff * n_eff)
         if thr is not None:
             # division-free: 0/0 impossible, NaN fails
             ok = ok & (sig >= thr * npow)
         return _Attempt(ok, Theta, ia, sig, npow)
 
+    def power(y):
+        # the slot's signal power: a function of y only, so computed once a
+        # pass rather than once an attempt
+        return torch.sum(y * y)
+
     bursty = burst_std is not None
     y, p2, energy = stats_fn(mask)
-    first = epilogue(y, p2, energy, mask, 0, noise_re, bursty)
+    sig = power(y)
+    first = epilogue(y, p2, energy, sig, mask, 0, noise_re, bursty)
     cur, m_cur = first, base_mask
     evicted = torch.zeros(n_workers, dtype=torch.bool, device=dev)
     if gcfg.evicts:
@@ -179,25 +185,29 @@ def guarded_receive(gcfg: GuardConfig, *, stats_fn: Callable,
         off = off & base_mask
         m2 = base_mask & ~off
         y2, p22, e2 = stats_fn(m2)
-        cut = epilogue(y2, p22, e2, m2, 0, noise_re, bursty)
+        sig2 = power(y2)
+        cut = epilogue(y2, p22, e2, sig2, m2, 0, noise_re, bursty)
         keep = first.ok
         cur = _pick(keep, first, cut)
-        y, p2, energy = (torch.where(keep, a, b) for a, b in
-                         ((y, y2), (p2, p22), (energy, e2)))
+        y, p2, energy, sig = (torch.where(keep, a, b) for a, b in
+                              ((y, y2), (p2, p22), (energy, e2),
+                               (sig, sig2)))
         m_cur = torch.where(keep, base_mask, m2)
         evicted = off & ~keep
+        del y2, p22, e2, sig2, cut
     retries = torch.zeros((), dtype=torch.float32, device=dev)
     if gcfg.retries > 0:
-        # every retry runs; the first healthy attempt (else the last) wins
-        attempts = [cur] + [epilogue(y, p2, energy, m_cur, a,
-                                     retry_noise[a - 1], False)
-                            for a in range(1, gcfg.retries + 1)]
-        cur = attempts[-1]
-        retries = retries + float(gcfg.retries)
-        for a in range(gcfg.retries - 1, -1, -1):
-            ok_a = attempts[a].ok
-            cur = _pick(ok_a, attempts[a], cur)
-            retries = torch.where(ok_a, float(a), retries)
+        # every retry runs; the first healthy attempt (else the last) wins.
+        # Folded one attempt at a time, so two live at once: at an LLM's D
+        # each holds a (D,) Θ
+        done = cur.ok
+        for a in range(1, gcfg.retries + 1):
+            att = epilogue(y, p2, energy, sig, m_cur, a, retry_noise[a - 1],
+                           False)
+            cur = _pick(done, cur, att)
+            retries = torch.where(done, retries, float(a))
+            done = done | att.ok
+            del att
     metrics = {
         "guard/retries": retries,
         "guard/snr_db": transport.snr_db_from_power(cur.sig, cur.npow),

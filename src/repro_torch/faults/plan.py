@@ -212,7 +212,8 @@ def apply_uplink(plan: FaultPlan, rf: RoundFaults, theta_p: Tensor,
             raise ValueError("straggler faults need a stale buffer "
                              "(FaultState.stale), got None")
         if rf.snapshot_due:
-            stale_next = theta_p.to(torch.float32, copy=True)
+            # no copy: the rounds never write into their θ planes
+            stale_next = theta_p.to(torch.float32)
         t = torch.where(rf.straggler[:, None], stale_next, t)
     if rf.corrupt is not None:
         if plan.corrupt_mode == "spike":

@@ -14,6 +14,10 @@
 // output byte once, and keeps intermediates in registers:
 //   * modulate is one thread per element in a grid-stride loop; neighbouring
 //     threads touch neighbouring addresses, so every load and store coalesces.
+//     It and the unsplit receive round at each step in the plain version's
+//     order (no contracted multiply-add), as B6's column plan does, so the
+//     leafwise round (B1 then B2 a leaf) gives the packed round's bits where
+//     the W sums run in the same order.
 //   * receive is one thread per column j where the columns fill the card
 //     (the paper MLP's d = 109,386: 428 blocks).  The thread walks the W
 //     worker rows, keeping the superposition y and the pilot p2 in
@@ -65,9 +69,16 @@ __global__ void modulate_kernel(const float* __restrict__ theta,
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     const float t = theta[i];
-    s_re[i] = h_re[i] * t + lam_re[i] * inv_rho;
-    s_im[i] = -h_im[i] * t - lam_im[i] * inv_rho;
+    // the plain version's order, rounded at each step (no contracted
+    // multiply-add), as B6 modulates in its registers
+    s_re[i] = __fadd_rn(__fmul_rn(h_re[i], t), __fmul_rn(lam_re[i], inv_rho));
+    s_im[i] = __fsub_rn(__fmul_rn(-h_im[i], t), __fmul_rn(lam_im[i], inv_rho));
   }
+}
+
+__device__ __forceinline__ float demod(float y, float z, float ia, float p2) {
+  // the plain version's order, rounded at each step as it is
+  return __fdiv_rn(__fadd_rn(y, __fmul_rn(z, ia)), fmaxf(p2, 1e-12f));
 }
 
 __global__ void receive_kernel(const float* __restrict__ s_re,
@@ -88,11 +99,12 @@ __global__ void receive_kernel(const float* __restrict__ s_re,
       const int64_t k = w * d + j;
       const float hr = h_re[k];
       const float hi = h_im[k];
-      y += hr * s_re[k] - hi * s_im[k];
-      p2 += hr * hr + hi * hi;
+      y = __fadd_rn(y, __fsub_rn(__fmul_rn(hr, s_re[k]),
+                                 __fmul_rn(hi, s_im[k])));
+      p2 = __fadd_rn(p2, __fadd_rn(__fmul_rn(hr, hr), __fmul_rn(hi, hi)));
     }
     // ia == 0 (all workers energy-free) adds exactly 0 for a finite z
-    out[j] = (y + noise_re[j] * ia) / fmaxf(p2, 1e-12f);
+    out[j] = demod(y, noise_re[j], ia, p2);
   }
 }
 
@@ -100,11 +112,6 @@ constexpr int kSplitWarps = 8;
 constexpr int kSplitThreads = kSplitWarps * 32;
 constexpr int kSplitMaxK = 4;
 constexpr int64_t kMaxSlices = 65535;  // gridDim.y
-
-__device__ __forceinline__ float demod(float y, float z, float ia, float p2) {
-  // the plain version's order, rounded at each step as it is
-  return __fdiv_rn(__fadd_rn(y, __fmul_rn(z, ia)), fmaxf(p2, 1e-12f));
-}
 
 // Block (tile, slice): columns [32·k·tile, +32·k), rows [rows·slice, +rows).
 // With one slice it writes Θ; with several, the (d, n_slices) partials.

@@ -10,6 +10,7 @@ packages.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List, Tuple
 
 import torch
@@ -67,10 +68,11 @@ def tree_stack(trees, dim: int = 0):
 
 def to_device(obj, device):
     """A copy of ``obj`` with every tensor detached onto ``device``.  Dicts,
-    lists and tuples (named ones too: a trainer state with its channel and
-    optimizer state, a round's draws, a ``Complex``) are walked field by
-    field, other values kept.  An object reached twice is copied once, so
-    aliases survive the move (sgd's ``nu`` is its ``mu``)."""
+    lists, tuples (named ones too: a trainer state with its channel and
+    optimizer state, a round's draws, a ``Complex``) and dataclass
+    instances (a ``ChannelBlock``) are walked field by field, other values
+    kept.  An object reached twice is copied once, so aliases survive the
+    move (sgd's ``nu`` is its ``mu``)."""
     memo = {}
 
     def move(x):
@@ -85,6 +87,10 @@ def to_device(obj, device):
         elif isinstance(x, tuple):
             items = [move(v) for v in x]
             out = type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            out = dataclasses.replace(x, **{
+                f.name: move(getattr(x, f.name))
+                for f in dataclasses.fields(x) if f.init})
         else:
             return x
         memo[id(x)] = out

@@ -877,3 +877,177 @@ def test_reduced_ssm_and_hybrid_train_step_match_the_cpu(dev, arch):
         torch.testing.assert_close(a.cpu(), b, **tol)
     torch.testing.assert_close(got.lam.re.cpu(), want.lam.re, **tol)
     torch.testing.assert_close(got.lam.im.cpu(), want.lam.im, **tol)
+
+
+# ---------------------------------------------------------------------------
+# the guarded packed round, cohort sampling and the robust LLM rounds
+# ---------------------------------------------------------------------------
+
+def test_guarded_packed_round_with_mask_and_csi_matches_the_cpu(dev):
+    """The guarded packed round at W = 2 (B6's column plan) with a mask, the
+    workers' CSI, a burst and the evict-retransmit guard, on the card
+    against the CPU on the same planes: B6 once plus the evict pass, B3′ on
+    each of its four epilogues, one B4."""
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.cplx import Complex
+    from repro_torch.core.packing import build_packspec
+    from repro_torch.core.tree_ota import ota_tree_round_packed_state
+    from repro_torch.faults import FaultPlan, GuardConfig
+    from repro_torch.faults.guards import GuardDraws
+    from repro_torch.faults.plan import RoundFaults
+    from repro_torch.tree import to_device
+
+    W, d = 2, 5003
+    g = torch.Generator().manual_seed(8)
+    theta = {"a": torch.randn((W, 3, 1000), generator=g) * 0.05,
+             "b": torch.randn((W, 2003), generator=g) * 0.05}
+    spec = build_packspec(theta, batch_dims=1)
+    assert spec.d == d
+    pl = [torch.randn((W, d), generator=g) * math.sqrt(0.5)
+          for _ in range(6)]
+    lam, h, htx = Complex(*pl[:2]), Complex(*pl[2:4]), Complex(*pl[4:])
+    noise = torch.randn(d, generator=g) * 1e-2
+    draws = GuardDraws(burst=torch.randn(d, generator=g),
+                       retry_noise=(noise * 2, noise * 3))
+    plan = FaultPlan(burst_prob=1.0, burst_std=3.0)
+    rf = RoundFaults(alive=torch.tensor([True, True]), straggler=None,
+                     corrupt=None, snapshot_due=None,
+                     burst_std=torch.tensor(3.0))
+    args = dict(mask=torch.tensor([True, True]), h_tx_p=htx,
+                Theta_prev={k: v[0] * 0 for k, v in theta.items()},
+                guard=GuardConfig(policy="evict-retransmit",
+                                  snr_floor_db=0.0),
+                guard_draws=draws, faults=(plan, rf, None))
+    acfg = AdmmConfig(rho=0.5)
+    ccfg = ChannelConfig(n_workers=W, snr_db=20.0)
+    T_c, l_c, m_c = ota_tree_round_packed_state(theta, lam, h, noise, acfg,
+                                                ccfg, spec, **args)
+    build.reset_launches()
+    T_g, l_g, m_g = ota_tree_round_packed_state(
+        to_device(theta, dev), to_device(lam, dev), to_device(h, dev),
+        noise.to(dev), acfg, ccfg, spec, **to_device(args, dev))
+    torch.cuda.synchronize()
+    assert dict(build.launches) == {"ota_round_stats": 2,
+                                    "ota_demodulate": 4,
+                                    "admm_dual_update": 1}
+    for k in ("guard/retries", "guard/healthy", "guard/ok_first"):
+        assert float(m_g[k]) == float(m_c[k]), k
+    assert float(m_c["guard/retries"]) >= 1.0
+    for k in T_c:
+        torch.testing.assert_close(T_g[k].cpu(), T_c[k], rtol=1e-5,
+                                   atol=1e-5)
+    torch.testing.assert_close(l_g.re.cpu(), l_c.re, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(m_g["inv_alpha"].cpu(), m_c["inv_alpha"],
+                               rtol=1e-5, atol=0.0)
+
+
+def test_sampled_flat_round_matches_the_cpu(dev):
+    """A 64-worker cohort of a 4,096-worker population over the
+    frequency-flat urban-mobility scenario (the scaleup benchmark's round
+    at a small population), on the card against the CPU from the same
+    state and draws: B10 over the population, B1/B2/B4 at cohort width."""
+    from repro_torch.benchmarks import scaleup
+    from repro_torch.tree import to_device
+
+    alg = scaleup.make_alg(4096, 64)
+    solve = scaleup.proximal_solver(scaleup.RHO)
+    g = torch.Generator().manual_seed(4)
+    st = alg.init(3, torch.randn((4096, scaleup.D), generator=g))
+    draws = alg.draw(11, st, solve)
+    want, m_c = alg.round(11, st, solve, scaleup.zero_grad, draws=draws)
+    build.reset_launches()
+    got, m_g = alg.round(11, to_device(st, dev), solve, scaleup.zero_grad,
+                         draws=to_device(draws, dev))
+    torch.cuda.synchronize()
+    assert dict(build.launches) == {"population_step": 1, "ota_modulate": 1,
+                                    "ota_receive": 1, "admm_dual_update": 1}
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for a, b in ((got.theta, want.theta), (got.lam.re, want.lam.re),
+                 (got.Theta, want.Theta), (got.phys.h.re, want.phys.h.re)):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    idx = draws.cohort[:64]
+    off = torch.ones(4096, dtype=torch.bool)
+    off[idx] = False
+    assert torch.equal(got.theta.cpu()[off], st.theta[off])
+    assert torch.equal(got.lam.re.cpu()[off], st.lam.re[off])
+
+
+_ROBUST = {
+    "chaos": dict(scenario="markov-doppler", csi_err=0.1,
+                  faults=dict(straggler_prob=0.5, straggler_delay=2,
+                              burst_prob=1.0, burst_std=3.0),
+                  guard=dict(policy="evict-retransmit", snr_floor_db=0.0)),
+    "cohort": dict(population=6, cohort=4, cohort_policy="top-gain"),
+    "leafwise": dict(packed_uplink=False),
+}
+
+
+@pytest.mark.parametrize("case", list(_ROBUST))
+def test_reduced_granite_robust_train_step_matches_the_cpu(dev, case):
+    """One round of reduced granite-8b in f32 (W = 4, B = 2, S = 16) under
+    a scenario, faults and the guard; sampling a cohort; on the leafwise
+    state: on the card against the CPU from the same state and draws, with
+    each path's launches."""
+    import dataclasses
+
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.cohort import CohortConfig
+    from repro_torch.core.packing import build_packspec
+    from repro_torch.faults import FaultPlan, GuardConfig
+    from repro_torch.models import registry as reg
+    from repro_torch.phy import make_scenario
+    from repro_torch.train.llm_trainer import (FLConfig, draw_round,
+                                               make_fl_train)
+    from repro_torch.tree import to_device, tree_leaves
+
+    fl = dict(_ROBUST[case])
+    if "faults" in fl:
+        fl["faults"] = FaultPlan(**fl["faults"])
+        fl["guard"] = GuardConfig(**fl["guard"])
+    cfg = dataclasses.replace(reg.get_config("granite-8b").reduced(),
+                              param_dtype="float32")
+    model = reg.build_model(cfg)
+    W = 4
+    flcfg = FLConfig(n_workers=W, local_steps=2, local_lr=1e-2, **fl)
+    acfg = AdmmConfig(rho=0.5, flip_on_change=False)
+    ccfg = ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=1)
+    init_cpu, step_cpu = make_fl_train(model, flcfg, acfg, ccfg,
+                                       device="cpu")
+    _, step_gpu = make_fl_train(model, flcfg, acfg, ccfg)
+    st = init_cpu(0)
+    scn = (make_scenario(fl["scenario"], ccfg, csi_err=fl["csi_err"])
+           if "scenario" in fl else None)
+    coh = CohortConfig(6, 4, "top-gain") if "population" in fl else None
+    draws = draw_round(7, st, ccfg, scenario=scn, faults=fl.get("faults"),
+                       guard=fl.get("guard"), cohort=coh)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (W, 2, 16), generator=g,
+                           dtype=torch.int32)
+    want, m_cpu = step_cpu(st, {"tokens": tokens}, draws=draws)
+    build.reset_launches()
+    got, m_gpu = step_gpu(to_device(st, dev), {"tokens": tokens.to(dev)},
+                          draws=to_device(draws, dev))
+    torch.cuda.synchronize()
+    flash = {"flash_attention_fwd": 8, "flash_attention_dq": 4,
+             "flash_attention_dkv": 4}
+    n = build_packspec(st.theta, batch_dims=1).n_leaves
+    want_launches = {
+        "chaos": {"fading_step": 1, "ota_round_stats": 2,
+                  "ota_demodulate": 4, "admm_dual_update": 1},
+        "cohort": {"ota_round_stats": 1, "ota_demodulate_dyn": 1,
+                   "admm_dual_update": 1},
+        "leafwise": {"ota_modulate": n, "ota_receive": n,
+                     "admm_dual_update": n},
+    }[case]
+    assert dict(build.launches) == dict(flash, **want_launches)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    for k in ("loss", "theta_drift", "inv_alpha"):
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], **tol)
+    for a, b in zip(tree_leaves(got.theta) + tree_leaves(got.Theta),
+                    tree_leaves(want.theta) + tree_leaves(want.Theta)):
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    for a, b in zip(tree_leaves(got.lam), tree_leaves(want.lam)):
+        torch.testing.assert_close(a.re.cpu(), b.re, **tol)
+        torch.testing.assert_close(a.im.cpu(), b.im, **tol)

@@ -146,13 +146,15 @@ def test_fig3a_twin_accuracies_within_the_band(monkeypatch):
 
 
 def test_run_cli_names_and_refusals(capsys):
-    """The driver offers JAX's names; the unported ones fail by name."""
+    """``run.py`` offers JAX's names, and the twin of JAX's stand-alone
+    ``benchmarks/scaleup.py`` as ``scaleup``; the unported ones fail by
+    name."""
     assert set(bench_run._benchmarks()) == {
         "ablation_noniid", "ablation_decentralized", "fig2a_comm_efficiency",
         "fig2b_energy", "fig2c_scalability", "fig3a_comm_efficiency",
         "fig3b_energy", "fig3c_scalability", "fig5_rho_sensitivity",
         "serve_microbench", "kernels_microbench", "transport_microbench",
-        "roofline_summary"}
+        "roofline_summary", "scaleup"}
     assert bench_run.main(["--only", "decentralized", "--device",
                            "cpu"]) == 1
     out = capsys.readouterr().out.splitlines()

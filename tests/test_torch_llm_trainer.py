@@ -3,7 +3,8 @@ the JAX package's ``make_fl_train`` on reduced granite-8b (W = 4 workers,
 B = 2, S = 16, 2 local sgd steps): the state layout, one round and five
 replayed rounds across a coherence redraw from JAX's own ``init_fn`` state
 with JAX's draws injected, the fused/composed uplinks, the ideal-channel
-consensus, training, the refused options, and ``token_dataset``."""
+consensus, training, the refused options and JAX's ValueErrors, and
+``token_dataset``."""
 import dataclasses
 
 import numpy as np
@@ -266,12 +267,14 @@ def test_twelve_rounds_lower_the_loss():
 @pytest.mark.parametrize("override,exc", [
     (dict(mode="sketched"), NotImplementedError),
     (dict(mode="bogus"), ValueError),
-    (dict(scenario="markov-doppler"), NotImplementedError),
-    (dict(faults=object()), NotImplementedError),
-    (dict(guard=object()), NotImplementedError),
+    # JAX's ValueErrors: scenarios, faults, guards and sampling need the
+    # packed state; a population needs its cohort
+    (dict(scenario="markov-doppler", packed_uplink=False), ValueError),
+    (dict(faults=object(), packed_uplink=False), ValueError),
+    (dict(guard=object(), packed_uplink=False), ValueError),
     (dict(telemetry=True), NotImplementedError),
-    (dict(population=8, cohort=4), NotImplementedError),
-    (dict(packed_uplink=False), NotImplementedError),
+    (dict(population=8, cohort=4, packed_uplink=False), ValueError),
+    (dict(population=8), ValueError),
     (dict(transport_backend="jnp"), ValueError),
     (dict(ota_block_cols=256), NotImplementedError),
     (dict(doppler_hz=5.0), ValueError),

@@ -1,7 +1,10 @@
-"""Shared by the port's baseline and figure tests: a port algorithm's JAX
+"""Shared by the port's tests that replay JAX's runs: a port algorithm's JAX
 twin, the JAX algorithm's initial state carried into the port, and the
 random planes JAX's ``round(key, ...)`` draws, made in JAX and handed to the
-port's ``round(..., draws=)``."""
+port's ``round(..., draws=)``; for A-FADMM under a scenario, faults, a guard
+and a cohort too, and for the LLM trainer's ``train_step`` (its state and
+its round's planes: the scenario's, the per-leaf noise, the fault uniforms,
+the guard's planes and the cohort plane)."""
 from __future__ import annotations
 
 import dataclasses
@@ -108,3 +111,162 @@ def replay(alg, theta0: torch.Tensor, key, batch_idx=None):
                      None if batch_idx is None else batch_idx(r))
 
     return port_state(alg.name, st_j), round_draws
+
+
+# ---------------------------------------------------------------------------
+# cohorts, scenarios, faults and guards; the LLM trainer's rounds
+# ---------------------------------------------------------------------------
+
+def cohort_draw(key, cfg):
+    """The plane JAX's ``sample_cohort(key, cfg, ...)`` draws from the
+    ``COHORT_SALT`` branch of round key ``key``: the permutation for
+    ``uniform``, the Gumbel plane for ``prop-h2``, None for ``top-gain``."""
+    from repro.core.cohort import COHORT_SALT
+
+    k = jax.random.fold_in(key, COHORT_SALT)
+    if cfg.policy == "uniform":
+        return t(jax.random.permutation(k, cfg.population))
+    if cfg.policy == "prop-h2":
+        return t(jax.random.gumbel(k, (cfg.population,), jnp.float32))
+    return None
+
+
+def _faulted_extras(key, kn, d, n_workers, faults, guard, ccfg_j):
+    """(FaultDraws, GuardDraws) of a round under JAX's fault plan and guard
+    (each None where absent)."""
+    from test_torch_faults import guard_draws, jax_uniforms
+
+    from repro_torch.faults import GuardConfig
+    from repro_torch.faults.plan import FAULT_SALT
+
+    fd = gd = None
+    if faults is not None:
+        fd = jax_uniforms(faults, jax.random.fold_in(key, FAULT_SALT),
+                          n_workers)
+    bursts = faults is not None and faults.burst_prob > 0
+    if guard is not None or bursts:
+        g = GuardConfig(**dataclasses.asdict(guard)) if guard is not None \
+            else GuardConfig()
+        gd = guard_draws(g, kn, d, ccfg_j, bursts)
+    return fd, gd
+
+
+def afadmm_round_draws(key, st_j, alg_j) -> RoundDraws:
+    """Every plane JAX's ``AFadmm.round(key, st_j, ...)`` draws under its
+    scenario, fault plan, guard and cohort (population-wide state)."""
+    from test_torch_scenario import replay_phy
+
+    ccfg = alg_j.ccfg
+    kc, kn = jax.random.split(key)
+    N, d = st_j.theta.shape
+    h_fresh = phy = None
+    if alg_j.scenario is not None:
+        phy = replay_phy(alg_j.scenario, kc, st_j.phys)
+    elif int(st_j.blk.age) + 1 >= ccfg.coherence_iters:
+        h = rayleigh(kc, (N, d))
+        h_fresh = Complex(t(h.re), t(h.im))
+    fd, gd = _faulted_extras(key, kn, d, N, alg_j.faults, alg_j.guard, ccfg)
+    coh = alg_j.cohort
+    sampled = coh is not None and coh.cohort < coh.population
+    return RoundDraws(
+        h_fresh=h_fresh, noise_re=t(matched_filter_noise(kn, (d,), ccfg).re),
+        phy=phy, faults=fd, guard=gd,
+        cohort=cohort_draw(key, coh) if sampled else None)
+
+
+def afadmm_full_state(st_j):
+    """The port's ``AFadmmState`` from a JAX one with its phy and fault
+    state."""
+    from test_torch_faults import fault_to_numpy
+    from test_torch_scenario import afadmm_to_numpy
+
+    leaves = afadmm_to_numpy(st_j)
+    if st_j.flt is not None:
+        leaves["flt"] = fault_to_numpy(st_j.flt)
+    return convert.afadmm_state_from_numpy(leaves, device="cpu")
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def llm_state(st_j):
+    """The port's ``TreeFLState`` from the JAX LLM trainer's: packed or
+    leafwise λ and h, a scenario's ``PhyState``, a ``FaultState``, sgd's
+    optimizer state."""
+    from test_torch_faults import fault_to_numpy
+    from test_torch_scenario import phy_to_numpy
+
+    from repro.core.cplx import Complex as JComplex
+
+    is_c = lambda x: isinstance(x, JComplex)  # noqa: E731
+    if isinstance(st_j.lam, JComplex):
+        lam_re, lam_im = np.asarray(st_j.lam.re), np.asarray(st_j.lam.im)
+    else:
+        lam_re = jax.tree.map(lambda c: np.asarray(c.re), st_j.lam,
+                              is_leaf=is_c)
+        lam_im = jax.tree.map(lambda c: np.asarray(c.im), st_j.lam,
+                              is_leaf=is_c)
+    chan = st_j.chan
+    phys = h_re = h_im = None
+    age = 0
+    if hasattr(chan, "h_small"):
+        phys = phy_to_numpy(chan)
+    elif isinstance(chan.h, JComplex):
+        h_re, h_im, age = np.asarray(chan.h.re), np.asarray(chan.h.im), \
+            int(chan.age)
+    else:
+        h_re = jax.tree.map(lambda c: np.asarray(c.re), chan.h, is_leaf=is_c)
+        h_im = jax.tree.map(lambda c: np.asarray(c.im), chan.h, is_leaf=is_c)
+        age = int(chan.age)
+    return convert.tree_fl_state_from_numpy(
+        _np_tree(st_j.theta), _np_tree(st_j.Theta), lam_re, lam_im, h_re,
+        h_im, age, int(st_j.step),
+        opt={"mu": _np_tree(st_j.opt.mu), "nu": None,
+             "count": int(st_j.opt.count)},
+        phys=phys,
+        flt=None if st_j.flt is None else fault_to_numpy(st_j.flt),
+        device="cpu")
+
+
+def llm_round_draws(key, st_j, ccfg_j, *, scenario=None, faults=None,
+                    guard=None, cohort=None):
+    """Every plane JAX's LLM ``train_step(st_j, batch, key)`` draws: the
+    channel from ``kc`` (the scenario's draws, or the redraw block, packed
+    or one per leaf from ``split(kc, n_leaves)``), the uplink noise from
+    ``kn`` (per leaf from ``split(kn, n_leaves)`` for the leafwise state),
+    the fault uniforms, the guard's planes and the cohort plane."""
+    from test_torch_scenario import replay_phy
+
+    from repro.core.cplx import Complex as JComplex
+    from repro.core.transport import matched_filter_noise_re
+    from repro_torch.train.llm_trainer import TreeRoundDraws
+
+    kc, kn = jax.random.split(key)
+    leaves = jax.tree_util.tree_leaves(st_j.theta)
+    packed = isinstance(st_j.lam, JComplex)
+    N = leaves[0].shape[0]
+    d = sum(int(np.prod(leaf.shape[1:])) for leaf in leaves)
+    h_fresh = phy = None
+    if scenario is not None:
+        phy = replay_phy(scenario, kc, st_j.chan)
+    elif int(st_j.chan.age) + 1 >= ccfg_j.coherence_iters:
+        if packed:
+            h = rayleigh(kc, (N, d))
+            h_fresh = Complex(t(h.re), t(h.im))
+        else:
+            h_fresh = []
+            for k, leaf in zip(jax.random.split(kc, len(leaves)), leaves):
+                h = rayleigh(k, leaf.shape)
+                h_fresh.append(Complex(t(h.re), t(h.im)))
+    if packed:
+        noise = t(matched_filter_noise_re(kn, (d,), ccfg_j))
+    else:
+        noise = [t(matched_filter_noise(k, leaf.shape[1:], ccfg_j).re)
+                 for k, leaf in zip(jax.random.split(kn, len(leaves)),
+                                    leaves)]
+    fd, gd = _faulted_extras(key, kn, d, N, faults, guard, ccfg_j)
+    sampled = cohort is not None and cohort.cohort < cohort.population
+    return TreeRoundDraws(h_fresh, noise, phy=phy, faults=fd, guard=gd,
+                          cohort=cohort_draw(key, cohort) if sampled
+                          else None)
