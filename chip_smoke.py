@@ -129,8 +129,29 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              ``packed_uplink=False`` (one B1, B2 and B4 a leaf), noise-free
              with power control, then the leafwise round against the packed
              one on the same θ, λ and h: Θ, λ and α⁻¹ within 1e-6.
+24. autotune — right after phase 3: ``autotune_population_step`` (B10's
+             block size) at N = 10⁶ and ``autotune_ota_round`` (B6/B7's
+             plan × the worker cohort) at (100, 109,386) and (2, D₁), with
+             their tables and winners.
+25. resume — after phase 10, on phase 4's MLP: the scan and loop drivers
+             over 23 rounds bit for bit, a run killed after round 17 and
+             resumed from its snapshot bit for bit (final ``.npz`` and
+             history), each driver's s/round and a snapshot's MB and
+             seconds.
+26. telemetry — the MLP (after phase 25) and, after phase 23, granite-8b
+             cut to 1 layer, each with telemetry off and on from the same
+             state and keys: Θ, λ and the loss bit-equal, the JAX package's
+             obs/ keys, the receive SNR in its window, ms a round off and
+             on.
+27. launch — ``repro_torch.launch.train`` on granite-8b cut to 1 layer
+             (W = 2, 4,096 tokens, the scan driver, 4 rounds) with a run
+             dir, telemetry, the profiler and the autotune cache, twice
+             (measured, then cached): the run dir validates, every round is
+             logged, the trace exists, the loss falls; then the reference's
+             kill-and-resume of the reduced model with faults and the
+             guard, bit for bit.
 
-Launch counts are reset just before each of phases 4–12 and 14–23 and read
+Launch counts are reset just before each of phases 4–12 and 14–27 and read
 just after.  Then come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
@@ -1896,6 +1917,14 @@ def _check_packed_d(phase: str, cfg, d: int) -> None:
             f"{packed_param_count(cfg)} with norm scales and biases")
 
 
+#: the allocator's counters a round may move (``torch.cuda.memory_stats``):
+#: device allocations and frees, retries after a failed allocation,
+#: segments, and the bytes the allocator took from or gave back to the card
+ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
+               "segment.all.allocated", "segment.all.freed",
+               "reserved_bytes.all.allocated", "reserved_bytes.all.freed")
+
+
 def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
               lr: float, want_launches: dict, reference=None,
               loss_rounds: int = LLM_ROUNDS,
@@ -1951,7 +1980,7 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
 
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    losses, drifts, inv_alphas, times = [], [], [], []
+    losses, drifts, inv_alphas, times, alloc = [], [], [], [], []
     extra: dict = {}
     for r in range(LLM_ROUNDS):
         key = rng.fold_in(SEED, r + 1)
@@ -1964,11 +1993,15 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
                   else None)
         held = [state]
         state = None
+        stats0 = torch.cuda.memory_stats()
         t0 = time.perf_counter()
         state, m = train_step(held.pop(), batch, key=key,
                               draws=pending.pop())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        stats1 = torch.cuda.memory_stats()
+        alloc.append({k: stats1.get(k, 0) - stats0.get(k, 0)
+                      for k in ALLOC_STATS})
         losses.append(float(m["loss"]))
         drifts.append(float(m["theta_drift"]))
         inv_alphas.append(float(m["inv_alpha"]))
@@ -2030,7 +2063,7 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
           "dtype": cfg.param_dtype, "D": d, "W": W, "batch_per_worker": B,
           "seq": S, "local_steps": local_steps, "local_lr": lr,
           "rounds": LLM_ROUNDS,
-          "setup_s": setup_s, "round_s": times,
+          "setup_s": setup_s, "round_s": times, "alloc_per_round": alloc,
           "seconds_per_round": round_s,
           "tokens_per_s": tokens_per_round / round_s,
           "loss": losses, "theta_drift": drifts, "inv_alpha": inv_alphas,
@@ -2374,6 +2407,11 @@ ROBUST_LAYERS = 1
 LLM_FLASH_1 = {"flash_attention_fwd": 2 * ROBUST_LAYERS * 2,
                "flash_attention_dq": ROBUST_LAYERS * 2,
                "flash_attention_dkv": ROBUST_LAYERS * 2}
+#: a round of the 1-layer granite-8b packed uplink (phases ``telemetry``
+#: and ``launch``): B11's, then B6, B3 and B4 once each
+LLM_ROUND_1_LAUNCHES = dict(LLM_FLASH_1, ota_round_stats=1,
+                            ota_demodulate_dyn=1, admm_dual_update=1,
+                            ota_modulate=0, ota_receive=0, ota_round_theta=0)
 #: stragglers (snapshots every 2 rounds) and bursts; a burst of std 100
 #: drops the receive SNR by ~10·log10(1 + 100²/σ²) ≈ 80 dB at 40 dB, far
 #: below the guard's 0 dB floor, and the retry (no burst) recovers
@@ -2568,6 +2606,487 @@ def phase_llm_leafwise(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the autotuners, the block driver and its snapshots, telemetry
+# and the training launcher
+# ---------------------------------------------------------------------------
+
+def _d1() -> int:
+    """D of granite-8b cut to ``ROBUST_LAYERS`` layers (419,442,688)."""
+    from repro_torch.models.registry import packed_param_count
+
+    return packed_param_count(_llm_cfg(LLM_ARCH, ROBUST_LAYERS))
+
+
+def phase_autotune(torch):
+    """The two autotuners on the card, each a sweep a user runs before a
+    job: ``autotune_population_step`` (B10's block size) at the scaleup
+    benchmark's N = 10⁶, and ``autotune_ota_round`` (B6/B7's plan by
+    ``block_cols`` × the streamed round's ``worker_chunk``) at the paper
+    MLP's (100, 109,386) and the 1-layer granite round's (2, D₁).  Every
+    table row is timed with CUDA events (median of 10 after a warm-up);
+    each sweep's winner is one of its rows."""
+    from repro_torch.core.transport import autotune_ota_round
+    from repro_torch.kernels import build
+    from repro_torch.phy.population import autotune_population_step
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    pop = autotune_population_step(1_000_000, device="cuda")
+    pop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mlp = autotune_ota_round(W_FULL, 109_386, device="cuda")
+    mlp_s = time.perf_counter() - t0
+    d1 = _d1()
+    t0 = time.perf_counter()
+    llm = autotune_ota_round(LLM_WORKERS, d1, device="cuda")
+    llm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    _free(torch)
+    for name, res in (("population", pop), ("mlp", mlp), ("llm", llm)):
+        require(res["best"] in res["table"]
+                and all(math.isfinite(r["us"]) and r["us"] > 0
+                        for r in res["table"]),
+                f"autotune: {name} sweep {res}")
+    require(len(pop["table"]) == 4, f"autotune: {pop['table']}")
+    require({r["worker_chunk"] for r in llm["table"]} == {0},
+            f"autotune: at W = 2 only the monolithic pass is valid: "
+            f"{llm['table']}")
+    require(launches.get("population_step", 0) > 0
+            and launches.get("ota_round_stats", 0) > 0,
+            f"autotune: launches {launches}")
+    emit({"phase": "autotune", "ok": True,
+          "population": {"n": 1_000_000, "seconds": pop_s, **pop},
+          "ota_round_mlp": {"W": W_FULL, "d": 109_386, "seconds": mlp_s,
+                            **mlp},
+          "ota_round_llm": {"W": LLM_WORKERS, "d": d1, "seconds": llm_s,
+                            **llm},
+          "launches": launches})
+    return launches
+
+
+#: a round of the paper MLP's A-FADMM (phases ``resume`` and
+#: ``telemetry``): B1, B2 and B4 once each
+MLP_ROUND_LAUNCHES = {"ota_modulate": 1, "ota_receive": 1,
+                      "admm_dual_update": 1}
+#: phase ``resume``: rounds of the uninterrupted run, the round the killed
+#: run stops after (not a boundary of the 10-round coherence blocks) and
+#: the eval cadence
+RESUME_ROUNDS, RESUME_KILL, RESUME_EVAL_EVERY = 23, 17, 5
+
+
+def _npz_diff(pa: str, pb: str) -> list:
+    """Keys whose arrays differ (NaN equal to NaN) between two ``.npz``."""
+    import numpy as np
+
+    with np.load(pa) as za, np.load(pb) as zb:
+        if sorted(za.files) != sorted(zb.files):
+            return [f"key sets {sorted(za.files)} != {sorted(zb.files)}"]
+        return [k for k in za.files
+                if za[k].dtype != zb[k].dtype
+                or not np.array_equal(za[k], zb[k], equal_nan=True)]
+
+
+def _same_history(a, b) -> bool:
+    return (a.loss == b.loss and a.accuracy == b.accuracy
+            and a.channel_uses == b.channel_uses and a.extra == b.extra)
+
+
+def phase_resume(torch, run):
+    """The block driver on the paper MLP of phase ``mlp`` (W = 100, d =
+    109,386, 20 local Adam steps, coherence 10, the ADMM state on the
+    card): ``train(driver="scan")`` against ``train(driver="loop")`` over
+    23 rounds, bit for bit; a run killed after round 17 with snapshots on
+    and resumed with ``resume=True`` against the uninterrupted run, its
+    final ``.npz`` leaf by leaf and its history.  Records each driver's
+    s/round and a snapshot's size and write and restore seconds."""
+    import tempfile
+
+    from repro_torch.checkpoint import round_path, save
+    from repro_torch.kernels import build
+    from repro_torch.train.fl_trainer import resume_state, train
+
+    alg, theta0, solver, grad_fn, eval_fn = (
+        run[k] for k in ("alg", "theta0", "solver", "grad_fn", "eval_fn"))
+    n, kill, key = RESUME_ROUNDS, RESUME_KILL, SEED + 21
+    kw = dict(eval_fn=eval_fn, eval_every=RESUME_EVAL_EVERY)
+    train(alg, theta0, solver, grad_fn, 1, key + 1)       # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    h_scan = train(alg, theta0, solver, grad_fn, n, key, driver="scan", **kw)
+    torch.cuda.synchronize()
+    scan_s = (time.perf_counter() - t0) / n
+    launches = dict(build.launches)
+    t0 = time.perf_counter()
+    h_loop = train(alg, theta0, solver, grad_fn, n, key, driver="loop", **kw)
+    torch.cuda.synchronize()
+    loop_s = (time.perf_counter() - t0) / n
+    require(_same_history(h_scan, h_loop),
+            f"resume: the scan and loop drivers' histories differ: "
+            f"loss {h_scan.loss} / {h_loop.loss}")
+    _per_round(launches, n, MLP_ROUND_LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        da, db = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        h_a = train(alg, theta0, solver, grad_fn, n, key, checkpoint_dir=da,
+                    checkpoint_every=n, **kw)
+        train(alg, theta0, solver, grad_fn, kill, key, checkpoint_dir=db,
+              checkpoint_every=10 ** 9, **kw)
+        h_b = train(alg, theta0, solver, grad_fn, n, key, checkpoint_dir=db,
+                    checkpoint_every=10 ** 9, resume=True, **kw)
+        diff = _npz_diff(round_path(da, n), round_path(db, n))
+        require(not diff, f"resume: the resumed run's final snapshot "
+                f"differs from the uninterrupted run's in {diff}")
+        tail = n - kill
+        require(_same_history(h_a, h_scan), "resume: snapshots changed "
+                "the run's history")
+        require(h_b.loss == h_a.loss[-len(h_b.loss):]
+                and all(h_b.extra[k] == v[-tail:]
+                        for k, v in h_a.extra.items()),
+                f"resume: the resumed history is not the uninterrupted "
+                f"run's tail: loss {h_b.loss} / {h_a.loss}")
+        t0 = time.perf_counter()
+        st, r0 = resume_state(alg, theta0, key, db)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        require(r0 == n, f"resume: latest snapshot round {r0}, want {n}")
+        path = os.path.join(tmp, "timed.npz")
+        t0 = time.perf_counter()
+        save(path, st)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        del st
+    emit({"phase": "resume", "ok": True, "W": theta0.shape[0],
+          "d": theta0.shape[1], "rounds": n, "killed_after": kill,
+          "coherence": alg.ccfg.coherence_iters,
+          "scan_seconds_per_round": scan_s, "loop_seconds_per_round": loop_s,
+          "scan_over_loop": scan_s / loop_s, "drivers_bitwise": True,
+          "resume_bitwise": True, "loss": h_scan.loss,
+          "resumed_loss": h_b.loss, "snapshot_mb": size / 1e6,
+          "snapshot_save_s": save_s, "snapshot_restore_s": restore_s,
+          "launches": launches})
+    return launches
+
+
+#: the obs/ keys of each path's round (the JAX package's ``pallas`` set):
+#: the unguarded flat round exposes no receive internals, the packed LLM
+#: round is the fused receive's full set
+TELEMETRY_KEYS = {
+    "mlp": {"obs/active_workers", "obs/min_alpha", "obs/theta_update_norm"},
+    "llm": {"obs/active_workers", "obs/min_alpha", "obs/rx_snr_db",
+            "obs/theta_update_norm", "obs/tx_energy"}}
+TELEMETRY_LLM_ROUNDS = 3
+#: obs/rx_snr_db's window on the LLM round.  The configured 40 dB is
+#: P/(N0·B), B = 15 kHz; the receiver's real noise plane has variance
+#: N0/(2T), T = 1 ms, so one worker at full power sees 40 + 10·log10(2BT)
+#: = 54.8 dB a coefficient, and two superposed add up to 10·log10(6) dB
+TELEMETRY_SNR_WINDOW_DB = 10.0
+
+
+def _rx_snr_expect_db(ccfg) -> float:
+    return ccfg.snr_db + 10.0 * math.log10(
+        2.0 * ccfg.subcarrier_hz * ccfg.slot_seconds)
+
+
+def _event_ms(torch, fn):
+    """(fn's result, CUDA-event ms from before its launches to after
+    them, host seconds), synchronising after."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), time.perf_counter() - t0
+
+
+def phase_telemetry_mlp(torch, run):
+    """Telemetry off and on on the paper MLP of phase ``mlp``: 5 rounds of
+    each from the same state and keys.  Gates: Θ, λ, θ and the eval loss
+    bit-equal; the obs/ keys the JAX package's ``pallas`` route emits.
+    Records the ms a round (CUDA events) with it off and on."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.kernels import build
+
+    base, theta0, solver, grad_fn = (run[k] for k in ("alg", "theta0",
+                                                      "solver", "grad_fn"))
+    n, key = 5, SEED + 31
+    out, ms, launches = {}, {}, {}
+    per_round = {}
+    for tel in (None, True):
+        alg = dataclasses.replace(base, telemetry=tel)
+        st = alg.init(key, theta0)
+        st, _ = alg.round(rng.fold_in(key, 1), st, solver, grad_fn)
+        build.reset_launches()
+        times, m = [], None
+        for r in range(1, n):
+            (st, m), t, _ = _event_ms(torch, lambda: alg.round(
+                rng.fold_in(key, r + 1), st, solver, grad_fn))
+            times.append(t)
+        launches = dict(build.launches)
+        _per_round(launches, n - 1, MLP_ROUND_LAUNCHES)
+        per_round[tel] = launches
+        out[tel], ms[tel] = (st, m), statistics.median(times)
+    (st0, m0), (st1, m1) = out[None], out[True]
+    same = all(bool(torch.equal(a, b)) for a, b in (
+        (st0.Theta, st1.Theta), (st0.theta, st1.theta),
+        (st0.lam.re, st1.lam.re), (st0.lam.im, st1.lam.im)))
+    loss = [float(run["eval_fn"](s.Theta)["loss"]) for s in (st0, st1)]
+    require(same and loss[0] == loss[1], "telemetry: the MLP's state or "
+            f"loss changed with telemetry on (loss {loss})")
+    keys = {k for k in m1 if k.startswith("obs/")}
+    require(keys == TELEMETRY_KEYS["mlp"] and not any(
+        k.startswith("obs/") for k in m0), f"telemetry: MLP keys {keys}")
+    require(all(math.isfinite(float(m1[k])) for k in keys),
+            f"telemetry: non-finite MLP telemetry {m1}")
+    emit({"phase": "telemetry", "path": "mlp", "ok": True,
+          "W": theta0.shape[0], "d": theta0.shape[1], "rounds": n,
+          "ms_per_round_off": ms[None], "ms_per_round_on": ms[True],
+          "overhead_ms": ms[True] - ms[None], "bitwise_off_on": True,
+          "keys": sorted(keys),
+          "values": {k: float(m1[k]) for k in sorted(keys)},
+          "launches_off": per_round[None], "launches": launches})
+    return launches
+
+
+def phase_telemetry_llm(torch):
+    """Telemetry off and on on the 1-layer granite-8b round (full width,
+    W = 2, 1 × 4,096 tokens, 2 sgd steps at 5e-4), 3 rounds each from the
+    same state and keys.  Gates: Θ, λ and the loss bit-equal; the obs/
+    keys of the JAX package's packed round; ``obs/rx_snr_db`` finite and
+    within ``TELEMETRY_SNR_WINDOW_DB`` of the coefficient SNR the
+    configuration implies; ``obs/tx_energy`` (W,).  Records the ms a round
+    (CUDA events) off and on."""
+    from repro_torch import rng
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+    from repro_torch.tree import tree_leaves
+
+    cfg = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
+    model = build_model(cfg)
+    W = LLM_WORKERS
+    acfg = AdmmConfig(rho=0.5, flip_on_change=False)
+    ccfg = ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=10)
+    batch = {"tokens": token_dataset(SEED + 1, 1, LLM_SEQ, cfg.vocab_size,
+                                     n_workers=W)}
+    runs, launches, per_round = {}, {}, {}
+    for tel in (None, True):
+        flcfg = FLConfig(n_workers=W, local_steps=2, local_lr=LLM_LR,
+                         telemetry=tel)
+        init_fn, step = make_fl_train(model, flcfg, acfg, ccfg)
+        held = [init_fn(SEED)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        losses, times, walls, metrics = [], [], [], []
+        for r in range(TELEMETRY_LLM_ROUNDS):
+            (state, m), t, wall = _event_ms(torch, lambda: step(
+                held.pop(), batch, key=rng.fold_in(SEED, r + 1)))
+            held.append(state)
+            del state
+            times.append(t)
+            walls.append(wall)
+            losses.append(float(m["loss"]))
+            metrics.append({k: v.tolist() for k, v in m.items()
+                            if k.startswith("obs/")})
+        launches = dict(build.launches)
+        _per_round(launches, TELEMETRY_LLM_ROUNDS, LLM_ROUND_1_LAUNCHES)
+        per_round[tel] = launches
+        st = held.pop()
+        runs[tel] = dict(Theta=st.Theta, lam=st.lam, loss=losses, ms=times,
+                         wall=walls, metrics=metrics,
+                         peak=torch.cuda.max_memory_allocated())
+        del st, held, init_fn, step
+        _free(torch)
+    off, on = runs[None], runs[True]
+    same = (off["loss"] == on["loss"]
+            and bool(torch.equal(off["lam"].re, on["lam"].re))
+            and bool(torch.equal(off["lam"].im, on["lam"].im))
+            and all(bool(torch.equal(a, b)) for a, b in zip(
+                tree_leaves(off["Theta"]), tree_leaves(on["Theta"]))))
+    require(same, f"telemetry: the LLM round changed with telemetry on "
+            f"(loss {off['loss']} / {on['loss']})")
+    expect = _rx_snr_expect_db(ccfg)
+    for r, m in enumerate(on["metrics"]):
+        require(set(m) == TELEMETRY_KEYS["llm"] and not off["metrics"][r],
+                f"telemetry: LLM round {r} keys {sorted(m)}")
+        snr = m["obs/rx_snr_db"]
+        require(math.isfinite(snr)
+                and abs(snr - expect) <= TELEMETRY_SNR_WINDOW_DB,
+                f"telemetry: round {r} rx_snr_db {snr} is not within "
+                f"{TELEMETRY_SNR_WINDOW_DB} dB of {expect}")
+        require(len(m["obs/tx_energy"]) == W,
+                f"telemetry: tx_energy {m['obs/tx_energy']} is not ({W},)")
+    del runs
+    _free(torch)
+    ms_off = statistics.median(off["ms"][1:])
+    ms_on = statistics.median(on["ms"][1:])
+    emit({"phase": "telemetry", "path": "llm", "ok": True, "arch": cfg.name,
+          "reduced": {"n_layers": f"36 -> {ROBUST_LAYERS}"}, "W": W,
+          "seq": LLM_SEQ, "rounds": TELEMETRY_LLM_ROUNDS,
+          "ms_per_round_off": ms_off, "ms_per_round_on": ms_on,
+          "overhead_ms": ms_on - ms_off, "round_ms_off": off["ms"],
+          "round_ms_on": on["ms"], "wall_s_off": off["wall"],
+          "wall_s_on": on["wall"], "bitwise_off_on": True,
+          "loss": on["loss"], "rx_snr_expect_db": expect,
+          "metrics": on["metrics"], "peak_gb_off": off["peak"] / 1e9,
+          "peak_gb_on": on["peak"] / 1e9, "launches_off": per_round[None],
+          "launches": launches})
+    return launches
+
+
+#: phase ``launch``: the launcher's flags at granite-8b's full width
+LAUNCH_ARGS = ["--arch", LLM_ARCH, "--workers", str(LLM_WORKERS), "--seq",
+               str(LLM_SEQ), "--batch", "1", "--local-steps", "2",
+               "--local-lr", str(LLM_LR), "--driver", "scan", "--rounds", "4",
+               "--log-every", "2"]
+LAUNCH_ROUNDS = 4
+#: the kill-and-resume run of tests/test_checkpoint_resume.py, its flags
+LAUNCH_RESUME_ARGS = ["--arch", LLM_ARCH, "--reduced", "--workers", "2",
+                      "--seq", "16", "--local-steps", "1", "--driver",
+                      "scan", "--log-every", "2", "--checkpoint-every", "2",
+                      "--nan-workers", "1", "--burst-prob", "0.5",
+                      "--burst-std", "20", "--straggler-prob", "0.3",
+                      "--guard", "evict-retransmit", "--snr-floor-db", "-40"]
+
+
+def _launch_quiet(launch, argv, model=None):
+    """``repro_torch.launch.train.run`` on ``argv`` with its stdout kept
+    (returned with the result), not printed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = launch.run(launch.parser().parse_args(argv), model)
+    return res, buf.getvalue()
+
+
+def phase_launch(torch):
+    """``python -m repro_torch.launch.train`` through its ``run`` on
+    granite-8b at full width cut to 1 layer (``ROBUST_LAYERS``): W = 2,
+    1 × 4,096 tokens, 2 sgd steps at 5e-4, the scan driver for 4 rounds in
+    blocks of 2, with ``--run-dir`` (telemetry on) and ``--autotune-cache``,
+    three times.  The first call adds ``--profile`` and measures the sweep;
+    the next two, plain CLI runs, read the sweep from the cache, and their
+    rounds alone are timed and counted (B11's, B6, B3 and B4 a round).
+    Each call records its blocks' seconds and the allocator's counters
+    (``ALLOC_STATS``) over the call.  Gates:
+    each run dir validates, every round is in ``metrics.jsonl``, the
+    profiled call's trace file exists, the loss is finite and falls.  Then
+    the reference's kill-and-resume on the card, its launches kept apart:
+    reduced granite-8b with its faults and guard, 6 rounds, and 4 then
+    resumed to 6: ``round_00000006.npz`` bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import round_path
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build_model
+    from repro_torch.obs.sink import read_events
+    from repro_torch.obs.validate import validate_run_dir
+
+    model = build_model(_llm_cfg(LLM_ARCH, ROBUST_LAYERS))
+    knobs = ("REPRO_OTA_BLOCK_COLS", "REPRO_OTA_WORKER_CHUNK")
+    saved = {k: os.environ.get(k) for k in knobs}
+    calls, launches = [], {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cache = os.path.join(tmp, "autotune.json")
+            for i, profiled in enumerate((True, False, False)):
+                rd = os.path.join(tmp, f"run{i}")
+                _free(torch)
+                torch.cuda.reset_peak_memory_stats()
+                build.reset_launches()
+                stats0 = torch.cuda.memory_stats()
+                t0 = time.perf_counter()
+                res, out = _launch_quiet(launch, [
+                    *LAUNCH_ARGS, "--run-dir", rd, "--autotune-cache", cache,
+                    *(["--profile"] if profiled else [])], model)
+                total_s = time.perf_counter() - t0
+                stats1 = torch.cuda.memory_stats()
+                peak = torch.cuda.max_memory_allocated()
+                if not profiled:
+                    # a plain call's own launches (its sweep is a cache hit
+                    # and launches nothing); the last one's are the path's
+                    launches = dict(build.launches)
+                    _per_round(launches, LAUNCH_ROUNDS, LLM_ROUND_1_LAUNCHES)
+                del res["state"]
+                _free(torch)
+                errs = validate_run_dir(rd)
+                events = read_events(rd)
+                rounds = [e["round"] for e in events if e["event"] == "round"]
+                losses = res["losses"]
+                tune = res["autotune"]
+                require(not errs, f"launch: run dir {errs}")
+                require(rounds == list(range(LAUNCH_ROUNDS)),
+                        f"launch: rounds {rounds}")
+                if profiled:
+                    require(res["trace"] is not None
+                            and os.path.isfile(res["trace"]),
+                            f"launch: no trace ({res['trace']})")
+                require(all(math.isfinite(x) for x in losses)
+                        and losses[-1] < losses[0],
+                        f"launch: losses {losses}")
+                require(tune is not None and tune["cached"] == (i > 0),
+                        f"launch: call {i} autotune {tune}")
+                round_s = res["seconds"] / res["rounds"]
+                calls.append({
+                    "profiled": profiled,
+                    "autotune_cached": tune["cached"],
+                    "autotune_best": tune["best"],
+                    "autotune_table": tune["table"],
+                    "seconds_per_round": round_s,
+                    "tokens_per_s": LLM_WORKERS * LLM_SEQ * 2 / round_s,
+                    "block_s": [e["seconds"] for e in events
+                                if e["event"] == "block"],
+                    "alloc": {k: stats1.get(k, 0) - stats0.get(k, 0)
+                              for k in ALLOC_STATS},
+                    "total_s": total_s, "peak_mem_gb": peak / 1e9,
+                    "loss": losses,
+                    "trace_mb": os.path.getsize(res["trace"]) / 1e6
+                    if profiled else None,
+                    "stdout": out.strip().splitlines()[-6:]})
+            build.reset_launches()
+            da, db = os.path.join(tmp, "ka"), os.path.join(tmp, "kb")
+            _launch_quiet(launch, [*LAUNCH_RESUME_ARGS, "--rounds", "6",
+                                   "--checkpoint-dir", da])
+            _launch_quiet(launch, [*LAUNCH_RESUME_ARGS, "--rounds", "4",
+                                   "--checkpoint-dir", db])
+            res, out = _launch_quiet(launch, [
+                *LAUNCH_RESUME_ARGS, "--rounds", "6", "--checkpoint-dir", db,
+                "--resume"])
+            require("resumed from round 4" in out, f"launch: {out}")
+            diff = _npz_diff(round_path(da, 6), round_path(db, 6))
+            require(not diff, f"launch: the resumed reduced run differs "
+                    f"from the uninterrupted one in {diff}")
+            torch.cuda.synchronize()
+            resume_launches = dict(build.launches)
+            del res
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _free(torch)
+    emit({"phase": "launch", "ok": True, "arch": LLM_ARCH,
+          "reduced": {"n_layers": f"36 -> {ROBUST_LAYERS}"},
+          "argv": LAUNCH_ARGS, "calls": calls,
+          "kill_resume": {"argv": LAUNCH_RESUME_ARGS, "killed_after": 4,
+                          "rounds": 6, "bitwise": True,
+                          "launches": resume_launches},
+          "launches": launches})
+    return launches
+
+
 def _kernel_family(name: str) -> str:
     for fn in ("linear_scan_fwd_kernel", "linear_scan_bwd_kernel",
                # B12's staged plan
@@ -2690,6 +3209,9 @@ def main() -> int:
         name, smi = phase_device(torch)
         phase_build(build)
         rows = phase_kernels(torch, name)
+        # a microbenchmark sweep, not a main path: its launches are in its
+        # own line, outside the kernel table's counts
+        phase_autotune(torch)
         paths = {}
         paths["mlp"], mlp_run, round_s = phase_mlp(torch)
         paths["linreg"] = phase_linreg(torch)
@@ -2707,6 +3229,8 @@ def main() -> int:
         phase_profile(torch, "scenario_deepfade",
                       _mlp_round(fade_alg, mlp_run), fade_s)
         phase_profile(torch, "chaos", _mlp_round(chaos_alg, mlp_run), chaos_s)
+        paths["resume"] = phase_resume(torch, mlp_run)
+        paths["telemetry_mlp"] = phase_telemetry_mlp(torch, mlp_run)
         # the MLP paths' tensors go before the LLM round's ~60 GB
         del mlp_run, fade_alg, chaos_alg
         gc.collect()
@@ -2741,6 +3265,10 @@ def main() -> int:
         paths["llm_cohort"] = phase_llm_cohort(torch)[0]
         _free(torch)
         paths["llm_leafwise"] = phase_llm_leafwise(torch)
+        _free(torch)
+        paths["telemetry_llm"] = phase_telemetry_llm(torch)
+        _free(torch)
+        paths["launch"] = phase_launch(torch)
         _free(torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})

@@ -12,7 +12,9 @@ step (B10) and the transport are what is scaled.  Per sweep point:
 * ``peak_above_state_bytes`` on the card: the most a round allocated above
   the state it carries (``torch.cuda.max_memory_allocated``).
 
-Telemetry is not ported, so there is no ``rx_snr_db``.  The structural pin
+There is no ``rx_snr_db``: the unguarded flat round on the kernel route
+exposes no receive internals, so its telemetry, as the JAX package's
+``backend="pallas"`` route, has no ``obs/rx_snr_db``.  The structural pin
 behind the 10⁶ point is :func:`max_compute_out_elems`: no compute op of a
 sampled round may output O(N·d) elements, population-wide buffers being
 only carried state, (N,) phy planes and row gathers and scatters.

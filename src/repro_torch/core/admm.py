@@ -25,10 +25,12 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core import cplx
 from repro_torch.core.channel import ChannelBlock, ChannelConfig
 from repro_torch.core.cplx import Complex
-from repro_torch.core.transport import dual_update, flip_lambda, ota_uplink
+from repro_torch.core.transport import (active_workers, applied_alpha,
+                                        dual_update, flip_lambda, ota_uplink)
 from repro_torch.faults import guards as _fguards
 from repro_torch.faults import plan as _fplan
 
@@ -134,7 +136,8 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
                  ccfg: ChannelConfig, draws: RoundDraws,
                  mask: Optional[Tensor] = None,
                  h_tx: Optional[Complex] = None,
-                 guard=None, faults=None) -> Tuple[AFadmmState, dict]:
+                 guard=None, faults=None,
+                 telemetry=None) -> Tuple[AFadmmState, dict]:
     """One synchronous round of Algorithm 1 (with Appendix-B noise handling).
 
     Args:
@@ -160,10 +163,19 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
         uplinked planes per the round's fault draw (stragglers, corruption,
         bursts); θ and the duals stay the workers' own.  A refreshed stale
         buffer and the evicted rows ride in ``metrics["_fault_aux"]``.
+      telemetry: True or a ``repro_torch.obs.TelemetryConfig`` adds the
+        ``obs/`` keys, the JAX package's ``backend="pallas"`` set: a guarded
+        or bursty round the accepted attempt's full set
+        (``faults.guards``), the unguarded round, whose composed uplink
+        exposes no receive internals, only ``obs/min_alpha`` and
+        ``obs/active_workers``; every round ``obs/theta_update_norm``.  Off
+        (None) is bitwise the round without it, and on changes no bit of
+        the state or of the other metrics.
 
     Metrics are 0-d tensors on the device: reading them is the caller's
     choice of when to synchronise.
     """
+    tel = _obs.resolve(telemetry)
     h = blk_next.h
     rho = acfg.rho
     h_wkr = h if h_tx is None else h_tx   # what the workers believe
@@ -204,17 +216,28 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
                 theta_tx, lam_pre, h, draws.noise_re, rho, ccfg,
                 guard if guard is not None else _fguards.GuardConfig(),
                 power_control=acfg.power_control, mask=mask, h_tx=h_tx,
-                burst_std=burst_std, draws=draws.guard)
+                burst_std=burst_std, draws=draws.guard, telemetry=tel)
         Theta_new, inv_alpha = gr.Theta, gr.inv_alpha
         if guard is not None:   # burst-only: no policy, accept the round
             healthy, evicted = gr.healthy, gr.evicted
             guard_metrics = gr.metrics
             aux["evicted"] = evicted
+        else:
+            # no guard verdicts, but the accepted slot's telemetry applies
+            guard_metrics = {k: v for k, v in gr.metrics.items()
+                             if k.startswith("obs/")}
     else:
         Theta_new, inv_alpha = ota_uplink(theta_tx, lam_pre, h,
                                           draws.noise_re, rho, ccfg,
                                           power_control=acfg.power_control,
                                           mask=mask, h_tx=h_tx)
+        if tel is not None:
+            # the composed uplink exposes no receive internals: only the
+            # worker-free subset
+            guard_metrics = {
+                "obs/min_alpha": applied_alpha(inv_alpha),
+                "obs/active_workers": active_workers(
+                    mask, state.theta.shape[0], state.theta.device)}
     keep = None
     if mask is not None or evicted is not None:
         # nobody transmitted (all masked or evicted): keep Θ rather than
@@ -257,14 +280,17 @@ def afadmm_round(state: AFadmmState, blk_next: ChannelBlock,
     new_state = AFadmmState(theta=theta_new, lam=lam_new, Theta=Theta_new,
                             blk=blk_next, step=state.step + 1,
                             phys=state.phys, flt=state.flt)
-    metrics = {
+    metrics = _obs.merge_disjoint({
         "primal_residual": torch.sqrt(torch.mean(
             (theta_new - Theta_new[None, :]) ** 2)),
         "dual_residual": torch.sqrt(torch.mean(
             (cplx.abs2(h) * (Theta_new - state.Theta)[None, :]) ** 2)) * rho,
         "inv_alpha": inv_alpha,
-        **guard_metrics,
-    }
+    }, guard_metrics, who="afadmm_round")
+    if tel is not None:
+        # the norm of the committed consensus update (after keep/skip)
+        dTh = Theta_new - state.Theta
+        metrics["obs/theta_update_norm"] = torch.sqrt(torch.sum(dTh * dTh))
     if mask is not None:
         metrics["participation"] = mask.to(torch.float32).mean()
     if aux:

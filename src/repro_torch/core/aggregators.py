@@ -29,6 +29,11 @@ With a ``repro_torch.core.cohort.CohortConfig`` A-FADMM's state is a
 population's and each round runs the sampled cohort's rows only; the
 cohort's plane comes from the round key's ``COHORT_SALT`` side branch.
 
+Every algorithm also has :meth:`ScanRounds.scan_rounds`, a block of
+rounds at their global indices with the metrics stacked on the device (the
+block driver ``train.fl_trainer.train_scan`` runs), and A-FADMM takes a
+``telemetry`` knob (``repro_torch.obs``) that adds its ``obs/`` keys.
+
 A-GD masks its truncated workers with ``where``, not by multiplying as the
 JAX round does, so a non-finite gradient behind a truncated channel never
 reaches Θ.  D-FADMM's channel uses are a 0-dim tensor on the run's device
@@ -37,10 +42,11 @@ reaches Θ.  D-FADMM's channel uses are a 0-dim tensor on the run's device
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch import rng
 from repro_torch.core import admm, cohort as _cohort, cplx, subcarrier
 from repro_torch.core.admm import (AdmmConfig, AFadmmState, GradFn,
@@ -70,8 +76,65 @@ def _batches(fn, key: int, dev) -> Optional[Tensor]:
     return draw_batches(rng.generator(rng.fold_in(key, BATCH_SALT), dev))
 
 
+def stack_rows(values: list) -> Tensor:
+    """One metric's rows as a (T, ...) tensor: tensors stacked on their
+    device, host numbers as a float64 CPU tensor (exact for the floats)."""
+    if all(torch.is_tensor(v) for v in values):
+        return torch.stack(values)
+    return torch.tensor([float(v) for v in values], dtype=torch.float64)
+
+
+class ScanRounds:
+    """``scan_rounds``, shared by every algorithm: a block of rounds in one
+    call, the torch counterpart of the JAX package's ``lax.scan`` over
+    rounds.  Round ``r`` (its global index) uses the key ``fold_in(key,
+    r + 1)``, as a driver that calls ``round`` once a round does, so a
+    block's history is bit for bit that driver's."""
+
+    def scan_rounds(self, key: int, st, local_solve, grad_fn,
+                    rounds: int | Sequence[int],
+                    eval_fn: Optional[Callable] = None,
+                    eval_mask: Optional[Sequence[bool]] = None,
+                    draws: Optional[Callable[[int], RoundDraws]] = None):
+        """Run ``rounds`` (an int n for rounds 0 … n−1, or the global
+        round indices) one after another without reading a value back.
+
+        Returns ``(state, metrics)`` with each metric's rows stacked to
+        (T, ...) on the device (host numbers as a float64 CPU tensor); with
+        ``eval_fn``, ``(state, metrics, evals)``: ``eval_fn`` of the
+        post-round global model where ``eval_mask`` is true (every round
+        without a mask), zeros of its shape elsewhere (an empty dict when
+        no round of the block evaluates).  ``draws(r)`` replaces round
+        r's own random planes."""
+        rounds = list(range(rounds)) if isinstance(rounds, int) \
+            else [int(r) for r in rounds]
+        if eval_mask is None:
+            eval_mask = [True] * len(rounds)
+        rows: Dict[str, list] = {}
+        evals: list = []
+        for r, do_ev in zip(rounds, eval_mask):
+            st, m = self.round(rng.fold_in(key, r + 1), st, local_solve,
+                               grad_fn,
+                               draws=None if draws is None else draws(r))
+            for k, v in m.items():
+                rows.setdefault(k, []).append(v)
+            if eval_fn is not None:
+                evals.append(eval_fn(self.global_model(st)) if do_ev
+                             else None)
+        metrics = {k: stack_rows(v) for k, v in rows.items()}
+        if eval_fn is None:
+            return st, metrics
+        like = next((e for e in evals if e is not None), None)
+        if like is None:
+            return st, metrics, {}
+        zero = {k: torch.zeros_like(v) for k, v in like.items()}
+        return st, metrics, {
+            k: torch.stack([(zero if e is None else e)[k] for e in evals])
+            for k in like}
+
+
 @dataclasses.dataclass(frozen=True)
-class AFadmm:
+class AFadmm(ScanRounds):
     acfg: AdmmConfig
     ccfg: ChannelConfig
     plan: SubcarrierPlan
@@ -88,6 +151,10 @@ class AFadmm:
     #: round only the sampled cohort's rows run it; the others keep their θ
     #: and λ.  None, or ``cohort == population``, is the unsampled round
     cohort: Optional[_cohort.CohortConfig] = None
+    #: optional ``repro_torch.obs.TelemetryConfig`` (or True): the round's
+    #: ``obs/`` keys (``admm.afadmm_round``), and a sampled round's
+    #: ``obs/cohort_*``.  None keeps the round bit for bit
+    telemetry: Optional[Any] = None
 
     name = "afadmm"
 
@@ -193,12 +260,13 @@ class AFadmm:
         else:
             st, metrics = admm.afadmm_round(
                 st, blk_next, local_solve, grad_fn, self.acfg, self.ccfg,
-                draws, mask=mask, h_tx=h_tx, guard=self.guard, faults=faults)
+                draws, mask=mask, h_tx=h_tx, guard=self.guard, faults=faults,
+                telemetry=self.telemetry)
         aux = metrics.pop("_fault_aux", {})
         if self.faults is not None:
             st = st._replace(flt=_fplan.commit(st.flt, aux.get("stale"),
                                                aux.get("evicted")))
-        metrics.update(fmetrics)
+        metrics = _obs.merge_disjoint(metrics, fmetrics, who="AFadmm.round")
         metrics["channel_uses"] = float(
             subcarrier.analog_channel_uses(self.plan))
         return st, metrics
@@ -236,7 +304,7 @@ class AFadmm:
         st2, metrics = admm.afadmm_round(
             sub, blk_sub, local_solve, grad_fn, self.acfg, self.ccfg, draws,
             mask=take(mask, idx), h_tx=take(h_tx, idx), guard=self.guard,
-            faults=faults_sub)
+            faults=faults_sub, telemetry=self.telemetry)
         aux = metrics.pop("_fault_aux", None)
         if aux is not None:
             if aux.get("stale") is not None:
@@ -247,6 +315,10 @@ class AFadmm:
                     torch.zeros(n_pop, dtype=torch.bool,
                                 device=st.theta.device), idx, aux["evicted"])
             metrics["_fault_aux"] = aux
+        if _obs.is_on(self.telemetry):
+            metrics = _obs.merge_disjoint(
+                metrics, _cohort.cohort_metrics(self.cohort),
+                who="AFadmm._cohort_round")
         return AFadmmState(theta=_cohort.put_rows(st.theta, idx, st2.theta),
                            lam=_cohort.put_rows(st.lam, idx, st2.lam),
                            Theta=st2.Theta, blk=blk_next, step=st2.step,
@@ -274,7 +346,7 @@ class DFadmmState(NamedTuple):
 
 
 @dataclasses.dataclass(frozen=True)
-class DFadmm:
+class DFadmm(ScanRounds):
     acfg: AdmmConfig
     ccfg: ChannelConfig
     plan: SubcarrierPlan
@@ -344,7 +416,7 @@ class AnalogGDState(NamedTuple):
 
 
 @dataclasses.dataclass(frozen=True)
-class AnalogGD:
+class AnalogGD(ScanRounds):
     ccfg: ChannelConfig
     plan: SubcarrierPlan
     learning_rate: float = 1e-4
@@ -417,7 +489,7 @@ class FedAvgState(NamedTuple):
 
 
 @dataclasses.dataclass(frozen=True)
-class FedAvg:
+class FedAvg(ScanRounds):
     ccfg: ChannelConfig
     plan: SubcarrierPlan
 
@@ -470,7 +542,8 @@ def make(name: str, acfg: AdmmConfig, ccfg: ChannelConfig,
     """Factory over :data:`ALGORITHMS`, taking each class's own keywords:
     A-FADMM's ``scenario`` (a ``repro_torch.phy.Scenario``), ``faults`` (a
     ``repro_torch.faults.FaultPlan``), ``guard`` (a ``GuardConfig``) and
-    ``cohort`` (a ``repro_torch.core.cohort.CohortConfig``);
+    ``cohort`` (a ``repro_torch.core.cohort.CohortConfig``) and
+    ``telemetry`` (a ``repro_torch.obs.TelemetryConfig`` or True);
     D-FADMM's ``bits_per_element``; A-GD's ``learning_rate`` and
     ``epsilon``.  ``acfg`` is ignored by the first-order algorithms."""
     if name not in ALGORITHMS:

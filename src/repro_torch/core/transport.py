@@ -23,15 +23,26 @@ planes are arguments (the matched-filter noise ``noise_re``, the fading
 innovations of a fused channel step), so a test can replay the JAX
 package's draws.  The receiver only samples the real plane (Θ =
 Re{y}/Σ|h|², Eq. 24), so only ``noise.re`` is ever passed.
+
+The fused round also returns the ``obs/`` telemetry of
+:func:`round_telemetry` when asked, and :func:`autotune_ota_round` (with
+its JSON cache, :func:`autotune_ota_round_cached`) sweeps its kernels'
+plans (``block_cols``) and its worker cohort (``worker_chunk``).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import json
 import math
+import os
+import statistics
+import time
 
 import torch
 
+from repro_torch import obs as _obs
+from repro_torch import optflags, rng
 from repro_torch.core import cplx
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.cplx import Complex
@@ -262,6 +273,53 @@ def snr_db_from_power(sig: Tensor, npow: Tensor) -> Tensor:
     return torch.nan_to_num(snr, nan=-1e3, posinf=1e3, neginf=-1e3)
 
 
+def applied_alpha(inv_alpha: Tensor) -> Tensor:
+    """The min-α power scale behind a receive's 1/α (``obs/min_alpha``):
+    1/α == 0 exactly means nobody transmitted, and then α reads 0."""
+    return torch.where(inv_alpha > 0, 1.0 / torch.clamp_min(inv_alpha, 1e-38),
+                       torch.zeros_like(inv_alpha))
+
+
+def active_workers(mask: Optional[Tensor], n_workers: int,
+                   device) -> Tensor:
+    """Workers that transmitted (``obs/active_workers``): the mask's count,
+    or all ``n_workers`` without one."""
+    if mask is None:
+        return torch.full((), float(n_workers), dtype=torch.float32,
+                          device=device)
+    return mask.to(torch.float32).sum()
+
+
+def round_telemetry(tel: _obs.TelemetryConfig, y_re: Tensor, noise_re: Tensor,
+                    inv_alpha: Tensor, energy: Optional[Tensor],
+                    mask: Optional[Tensor], n_workers: int) -> dict:
+    """``obs/`` channel telemetry (the ``repro_torch.obs`` schema) from what
+    the receive already holds: the superposed ``y`` and the noise plane
+    (d,), the accepted 1/α and the (W,) energies B6 wrote.  Two O(d)
+    dot products, which read y and the noise once and write no (d,)
+    temporary, and O(W) arithmetic; no pass over the (W, d) worker planes.
+    The effective noise power Σ(z·α⁻¹)² is formed as α⁻²·Σz² (the same
+    value up to rounding).  Every value is a tensor on the device."""
+    y = y_re.reshape(-1)
+    z = noise_re.reshape(-1)
+    sig = torch.dot(y, y)
+    npw = torch.dot(z, z) * (inv_alpha * inv_alpha)
+    alpha = applied_alpha(inv_alpha)
+    out = {
+        "obs/rx_snr_db": snr_db_from_power(sig, npw),
+        "obs/min_alpha": alpha,
+        "obs/active_workers": active_workers(mask, n_workers, y_re.device),
+    }
+    if tel.per_worker and energy is not None:
+        # the energy each worker radiated: it transmits α·s, so
+        # E_tx = α²·Σ|s|², a (W,) VECTOR leaf
+        e_tx = energy * (alpha * alpha)
+        if mask is not None:
+            e_tx = torch.where(mask, e_tx, torch.zeros_like(e_tx))
+        out["obs/tx_energy"] = e_tx
+    return out
+
+
 def matched_filter_noise_re(gen: torch.Generator, shape,
                             ccfg: ChannelConfig) -> Tensor:
     """The real plane of ``channel.matched_filter_noise(gen, shape, ccfg)``
@@ -304,10 +362,31 @@ def _round_operands(theta: Tensor, lam: Complex, h: Complex,
     return planes, kw, h_air
 
 
+def _plan(block_cols: Optional[int], planes: tuple, kw: dict,
+          *extra: Tensor) -> Optional[_round_k.Tiling]:
+    """B6/B7's plan for a column tile: the caller's ``block_cols``, else
+    ``REPRO_OTA_BLOCK_COLS`` (read when called), mapped onto the kernels'
+    grid (``kernels/ota_round.tiling_for_cols``) for these planes' card and
+    alignment.  The tile is checked on every device; None (no tile, or the
+    CPU, where no kernel runs) leaves the kernels their own plan."""
+    cols = optflags.ota_block_cols() if block_cols is None else block_cols
+    if cols is None:
+        return None
+    W, d = planes[0].shape
+    _round_k.check_block_cols(W, d, cols)
+    if planes[0].device.type != "cuda":
+        return None
+    return _round_k.tiling_for_cols(
+        W, d, cols, _round_k.sm_count(planes[0].device),
+        _round_k.aligned16(*planes, *extra, *(kw["htx"] or ()),
+                           *(kw["chan"] or ())[:2]))
+
+
 def ota_round_stats(theta: Tensor, lam: Complex, h: Complex, rho: float, *,
                     mask: Optional[Tensor] = None,
                     h_tx: Optional[Complex] = None,
-                    chan_step: Optional[ChanStep] = None
+                    chan_step: Optional[ChanStep] = None,
+                    block_cols: Optional[int] = None
                     ) -> Tuple[Tensor, Tensor, Tensor, Complex]:
     """One pass over the (W, d) worker planes (B6): modulate → per-worker
     energy → (mask) → superpose → pilot sum.
@@ -316,9 +395,12 @@ def ota_round_stats(theta: Tensor, lam: Complex, h: Complex, rho: float, *,
     the round that touches the worker planes.  ``h_air`` is the channel the
     air applied: ``h``, or the AR(1)-stepped channel when ``chan_step``
     fuses the fading update into the pass.  Energies are those of the
-    unmasked signals, for every row."""
+    unmasked signals, for every row.  ``block_cols`` picks B6's plan
+    (``kernels/ota_round.tiling_for_cols``); None defers to
+    ``REPRO_OTA_BLOCK_COLS``, and unset, to the kernel's own plan."""
     planes, kw, h_air = _round_operands(theta, lam, h, mask, h_tx, chan_step)
-    out = _round_k.ota_round_stats(*planes, rho, **kw)
+    out = _round_k.ota_round_stats(*planes, rho,
+                                   plan=_plan(block_cols, planes, kw), **kw)
     if h_air is None:
         h_air = Complex(out[3], out[4])
     return out[0], out[1], out[2], h_air
@@ -336,14 +418,18 @@ def _ota_round_streamed(theta: Tensor, lam: Complex, h: Complex,
                         noise_re: Tensor, rho: float, ccfg: ChannelConfig,
                         chunk: int, *, power_control: bool,
                         mask: Optional[Tensor], h_tx: Optional[Complex],
-                        chan_step: Optional[ChanStep]
-                        ) -> Tuple[Tensor, Tensor, Complex]:
+                        chan_step: Optional[ChanStep],
+                        block_cols: Optional[int] = None,
+                        telemetry: Optional[_obs.TelemetryConfig] = None):
     """The round over ``ceil(W/chunk)`` worker cohorts, one B6 pass each,
     summing y/p2 and concatenating the energies, so the signal planes of
     only one cohort live at a time.  The last cohort is zero-padded to the
     chunk: an all-zero row adds exactly zero to the sums, has zero energy
     (α = +inf, never binding) and a padded mask row is False.  The sums
-    group differently from the monolithic pass: tolerance-equal."""
+    group differently from the monolithic pass: tolerance-equal.  With
+    ``telemetry`` the result gains the ``obs/`` dict of
+    :func:`round_telemetry` over the summed y and the concatenated
+    energies."""
     W, d = theta.shape
     n_chunks = -(-W // chunk)
 
@@ -366,7 +452,8 @@ def _ota_round_streamed(theta: Tensor, lam: Complex, h: Complex,
         yi, p2i, ei, hi = ota_round_stats(
             rows(_f32(theta), i), crows(lam, i), crows(h, i), rho,
             mask=None if mask is None else rows(mask.to(torch.bool), i),
-            h_tx=None if h_tx is None else crows(h_tx, i), chan_step=cs)
+            h_tx=None if h_tx is None else crows(h_tx, i), chan_step=cs,
+            block_cols=block_cols)
         y = y + yi
         p2 = p2 + p2i
         energies.append(ei)
@@ -376,7 +463,11 @@ def _ota_round_streamed(theta: Tensor, lam: Complex, h: Complex,
     h_air = h if chan_step is None else Complex(torch.cat(h_re)[:W],
                                                 torch.cat(h_im)[:W])
     inv_alpha = _inv_alpha(energy, d, ccfg, power_control, mask)
-    return demodulate(y, p2, noise_re, inv_alpha), inv_alpha, h_air
+    Theta = demodulate(y, p2, noise_re, inv_alpha)
+    if telemetry is not None:
+        return Theta, inv_alpha, h_air, round_telemetry(
+            telemetry, y, noise_re, inv_alpha, energy, mask, W)
+    return Theta, inv_alpha, h_air
 
 
 def ota_round_fused(theta: Tensor, lam: Complex, h: Complex,
@@ -385,8 +476,9 @@ def ota_round_fused(theta: Tensor, lam: Complex, h: Complex,
                     mask: Optional[Tensor] = None,
                     h_tx: Optional[Complex] = None,
                     chan_step: Optional[ChanStep] = None,
-                    worker_chunk: int = 0
-                    ) -> Tuple[Tensor, Tensor, Complex]:
+                    worker_chunk: Optional[int] = None,
+                    block_cols: Optional[int] = None,
+                    telemetry=None) -> Tuple:
     """The whole uplink in one pass over the worker planes: the fused twin
     of :func:`ota_uplink`, on the same inputs and noise plane.
 
@@ -395,27 +487,163 @@ def ota_round_fused(theta: Tensor, lam: Complex, h: Complex,
     With ``power_control=False`` α is known before the pass and B7 does the
     whole round in one launch.  ``chan_step = (w, rho_f, redraw)`` fuses
     the AR(1) fading step into the pass; ``worker_chunk`` > 0 (and < W)
-    streams the workers in cohorts of that size.
+    streams the workers in cohorts of that size (None:
+    ``REPRO_OTA_WORKER_CHUNK``, 0 unset); ``block_cols`` picks B6/B7's plan
+    (None: ``REPRO_OTA_BLOCK_COLS``, else the kernels' own).
 
     Returns ``(Theta (d,), inv_alpha 0-d, h_air)``, with no host
     synchronisation.  On the CPU the result is the composed path's bit for
-    bit given equal inputs (monolithic pass)."""
+    bit given equal inputs (monolithic pass).  With ``telemetry`` on (True
+    or a live ``repro_torch.obs.TelemetryConfig``) the return gains a
+    fourth element, the ``obs/`` dict of :func:`round_telemetry`, and the
+    three others are unchanged; without power control the round then takes
+    B6 and B3′ in place of B7, which exposes no y."""
+    tel = _obs.resolve(telemetry)
     W, d = theta.shape
-    chunk = int(worker_chunk)
+    chunk = int(optflags.ota_worker_chunk() if worker_chunk is None
+                else worker_chunk)
     if 0 < chunk < W:
         return _ota_round_streamed(theta, lam, h, noise_re, rho, ccfg, chunk,
                                    power_control=power_control, mask=mask,
-                                   h_tx=h_tx, chan_step=chan_step)
-    if not power_control:
+                                   h_tx=h_tx, chan_step=chan_step,
+                                   block_cols=block_cols, telemetry=tel)
+    if not power_control and tel is None:
         planes, kw, h_air = _round_operands(theta, lam, h, mask, h_tx,
                                             chan_step)
         inv_alpha = torch.ones((), dtype=torch.float32, device=theta.device)
-        out = _round_k.ota_round_theta(*planes, _f32(noise_re), inv_alpha,
-                                       rho, **kw)
+        noise = _f32(noise_re)
+        out = _round_k.ota_round_theta(
+            *planes, noise, inv_alpha, rho,
+            plan=_plan(block_cols, planes, kw, noise), **kw)
         if h_air is None:
             h_air = Complex(out[1], out[2])
         return out[0], inv_alpha, h_air
     y, p2, energy, h_air = ota_round_stats(theta, lam, h, rho, mask=mask,
-                                           h_tx=h_tx, chan_step=chan_step)
-    inv_alpha = _inv_alpha(energy, d, ccfg, True, mask)
-    return demodulate(y, p2, noise_re, inv_alpha), inv_alpha, h_air
+                                           h_tx=h_tx, chan_step=chan_step,
+                                           block_cols=block_cols)
+    inv_alpha = _inv_alpha(energy, d, ccfg, power_control, mask)
+    Theta = demodulate(y, p2, noise_re, inv_alpha)
+    if tel is not None:
+        return Theta, inv_alpha, h_air, round_telemetry(
+            tel, y, noise_re, inv_alpha, energy, mask, W)
+    return Theta, inv_alpha, h_air
+
+
+# ---------------------------------------------------------------------------
+# Autotuning the fused round's plan and worker cohort
+# ---------------------------------------------------------------------------
+
+def median_ms(fn, iters: int, dev: torch.device) -> float:
+    """Median of ``iters`` timings of ``fn()`` after one warm-up call: CUDA
+    events on a card, the host clock (around the finished call) on the
+    CPU."""
+    fn()
+    ts = []
+    for _ in range(iters):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            ts.append(start.elapsed_time(stop))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def autotune_ota_round(W: int, d: int, ccfg: Optional[ChannelConfig] = None,
+                       *, rho: float = 1.0, block_cols_grid=None,
+                       worker_chunks=(0, 8, 32), iters: int = 10,
+                       device="cuda", seed: int = 0) -> dict:
+    """Sweep the fused round's plan and worker cohort on random (W, d)
+    planes on ``device``.
+
+    For each ``worker_chunk`` (those ≥ W skipped: they are the monolithic
+    pass) and each ``block_cols`` the kernels can honour at the chunk's
+    width (``kernels/ota_round.block_cols_choices``; only those in
+    ``block_cols_grid`` when it is given), times :func:`ota_round_fused`
+    (median of ``iters`` after a warm-up, CUDA events on a card) and
+    returns ``{"best": row, "table": [row, ...]}``.  A row carries the
+    plan's fields (``plan``, ``k``, ``rows_per_slice``, ``n_tiles``,
+    ``n_slices``) beside ``block_cols``, ``worker_chunk`` and ``us``.  The
+    winner maps onto ``REPRO_OTA_BLOCK_COLS`` / ``REPRO_OTA_WORKER_CHUNK``
+    and ``FLConfig.ota_block_cols``/``ota_worker_chunk``.  On the CPU
+    ``block_cols`` reaches no kernel, so one plan (the kernels' own) is
+    kept a chunk."""
+    from repro_torch.core.channel import ChannelConfig as _CC, rayleigh
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if ccfg is None:
+        ccfg = _CC(n_workers=W)
+    gen = rng.generator(seed, dev)
+    theta = torch.randn((W, d), generator=gen, device=dev)
+    lam = rayleigh(gen, (W, d))
+    h = rayleigh(gen, (W, d))
+    noise = matched_filter_noise_re(gen, (d,), ccfg)
+    table = []
+    for wc in worker_chunks:
+        if wc and wc >= W:
+            continue
+        width = wc or W
+        cols = _round_k.block_cols_choices(width, d)
+        if block_cols_grid is not None:
+            cols = tuple(c for c in cols if c in block_cols_grid)
+        if dev.type != "cuda":
+            # the kernels' own plan, the one row kept
+            cols = (_round_k.block_cols_of(_round_k.tiling(width, d)),)
+        for bc in cols:
+            t = _round_k.tiling_for_cols(width, d, bc)
+            ms = median_ms(lambda: ota_round_fused(
+                theta, lam, h, noise, rho, ccfg, worker_chunk=wc,
+                block_cols=bc)[0], iters, dev)
+            table.append({"block_cols": int(bc), "worker_chunk": int(wc),
+                          "plan": t.plan, "k": t.k,
+                          "rows_per_slice": t.rows_per_slice,
+                          "n_tiles": t.n_tiles, "n_slices": t.n_slices,
+                          "us": 1e3 * ms})
+    if not table:
+        raise ValueError(f"autotune_ota_round: no configuration to time for "
+                         f"W={W} (worker_chunks {tuple(worker_chunks)})")
+    best = min(table, key=lambda r: r["us"])
+    return {"best": best, "table": table}
+
+
+def autotune_ota_round_cached(W: int, d: int,
+                              ccfg: Optional[ChannelConfig] = None, *,
+                              cache_path: str, device="cuda", **kw) -> dict:
+    """:func:`autotune_ota_round` behind a JSON file cache.
+
+    Results key on ``"{W}x{d}:{device type}"`` (``"…:cuda"`` on the card):
+    one sweep per problem shape per machine, then every later launch
+    (``launch/train.py --autotune-cache``) reads the winner instead of
+    measuring again.  The write is atomic (a temporary file renamed into
+    place), so launchers can share one cache file; a corrupt or unreadable
+    cache counts as empty, never as an error.  The returned dict is the
+    sweep's result plus ``"cached": True`` on a hit."""
+    from repro_torch.device import resolve_device
+
+    cache_key = f"{int(W)}x{int(d)}:{resolve_device(device).type}"
+    cache = {}
+    if os.path.exists(cache_path):
+        try:
+            with open(cache_path) as f:
+                cache = json.load(f)
+            if not isinstance(cache, dict):
+                cache = {}
+        except (OSError, ValueError):
+            cache = {}
+    if cache_key in cache:
+        return dict(cache[cache_key], cached=True)
+    res = autotune_ota_round(W, d, ccfg, device=device, **kw)
+    cache[cache_key] = res
+    tmp = f"{cache_path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(cache, f, indent=2, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, cache_path)
+    return dict(res, cached=False)

@@ -18,8 +18,9 @@ cohort of a population (``core.cohort``).  Its random planes are
 arguments: the matched-filter noise ``noise_re`` ((D,), or one plane per
 leaf for the leafwise round), the guard's :class:`~repro_torch.faults
 .guards.GuardDraws` and, on a redraw round, the fresh Rayleigh block, so a
-test can replay the JAX package's draws.  Not ported yet: telemetry (ROADMAP
-queue A item 4) and the shard-local round (item 6).
+test can replay the JAX package's draws.  With ``telemetry`` the packed
+round adds the ``obs/`` keys of ``repro_torch.obs`` to its metrics.  Not
+ported yet: the shard-local round (ROADMAP queue A item 6).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch import rng
 from repro_torch.core import cohort as _cohort
 from repro_torch.core import transport
@@ -204,6 +206,7 @@ def ota_tree_round_packed_state(theta: PyTree, lam_p: Complex, h_p: Complex,
                                 Theta_prev: Optional[PyTree] = None,
                                 fused: Optional[bool] = None,
                                 worker_chunk: Optional[int] = None,
+                                block_cols: Optional[int] = None,
                                 guard: Optional[_guards.GuardConfig] = None,
                                 guard_draws: Optional[_guards.GuardDraws]
                                 = None,
@@ -214,8 +217,9 @@ def ota_tree_round_packed_state(theta: PyTree, lam_p: Complex, h_p: Complex,
 
     Only θ is packed here.  ``fused`` None/True runs the uplink as
     ``transport.ota_round_fused`` (B6 then B3, with power control per
-    ``acfg``; ``worker_chunk`` streams the workers in cohorts), False as the
-    composed ``transport.ota_uplink``; then the dual update (B4).  Returns
+    ``acfg``; ``worker_chunk`` streams the workers in cohorts and
+    ``block_cols`` picks B6's plan, each None for its environment knob), False
+    as the composed ``transport.ota_uplink``; then the dual update (B4).  Returns
     ``(Theta_tree_f32, lam_new_packed, metrics)``: the global model stays
     f32 (the analog path).
 
@@ -235,11 +239,12 @@ def ota_tree_round_packed_state(theta: PyTree, lam_p: Complex, h_p: Complex,
       cohort-wide, λ, h, the mask, h_tx and the fault rows population-wide;
       their rows are gathered here, the round runs at cohort width, and λ
       and the fault aux scatter back with the other duals frozen.
+    * ``telemetry`` (True or a ``repro_torch.obs.TelemetryConfig``) adds the
+      ``obs/`` keys: the fused or guarded receive's (the composed path has
+      none), ``obs/theta_update_norm`` where ``Theta_prev`` is given, and a
+      cohort's ``obs/cohort_*``.  The round's Θ and λ are unchanged.
     """
-    if telemetry not in (None, False):
-        raise NotImplementedError(
-            "ota_tree_round_packed_state: telemetry is not ported yet "
-            "(ROADMAP queue A item 4)")
+    tel = _obs.resolve(telemetry)
     theta_p = pack(spec, theta)                    # the one layout op per round
     idx = cohort_idx
     lam_pop = stale_pop = None
@@ -284,18 +289,27 @@ def ota_tree_round_packed_state(theta: PyTree, lam_p: Complex, h_p: Complex,
                 theta_tx_p, lam_p, h_p, noise_re, rho, ccfg,
                 guard if guard is not None else _guards.GuardConfig(),
                 power_control=acfg.power_control, mask=mask, h_tx=h_tx_p,
-                burst_std=burst_std, draws=guard_draws)
+                burst_std=burst_std, draws=guard_draws,
+                block_cols=block_cols, telemetry=tel)
         Theta_p, inv_alpha = gr.Theta, gr.inv_alpha
         if guard is not None:   # burst-only: no policy, accept the round
             healthy, evicted = gr.healthy, gr.evicted
             guard_metrics = gr.metrics
             aux["evicted"] = evicted
+        else:
+            # no guard verdicts, but the accepted slot's telemetry applies
+            guard_metrics = {k: v for k, v in gr.metrics.items()
+                             if k.startswith("obs/")}
         del gr
     elif fused is not False:
-        Theta_p, inv_alpha, _ = transport.ota_round_fused(
+        out = transport.ota_round_fused(
             theta_tx_p, lam_p, h_p, noise_re, rho, ccfg,
             power_control=acfg.power_control, mask=mask, h_tx=h_tx_p,
-            worker_chunk=int(worker_chunk or 0))
+            worker_chunk=worker_chunk, block_cols=block_cols, telemetry=tel)
+        Theta_p, inv_alpha = out[0], out[1]
+        if tel is not None:
+            guard_metrics = out[3]
+        del out
     else:
         Theta_p, inv_alpha = transport.ota_uplink(
             theta_tx_p, lam_p, h_p, noise_re, rho, ccfg,
@@ -306,7 +320,8 @@ def ota_tree_round_packed_state(theta: PyTree, lam_p: Complex, h_p: Complex,
     h_wkr = h_p if h_tx_p is None else h_tx_p
     lam_new_p = transport.dual_update(lam_p, h_wkr, theta_p, Theta_p, rho)
     del h_wkr, h_p, h_tx_p, theta_p
-    metrics = {"inv_alpha": inv_alpha, **guard_metrics}
+    metrics = _obs.merge_disjoint({"inv_alpha": inv_alpha}, guard_metrics,
+                                  who="ota_tree_round_packed_state")
     take_new = mask
     if evicted is not None:
         take_new = ~evicted if take_new is None else take_new & ~evicted
@@ -333,6 +348,10 @@ def ota_tree_round_packed_state(theta: PyTree, lam_p: Complex, h_p: Complex,
     if keep is not None and Theta_prev is not None:
         Theta_new = tree_map(lambda new, old: torch.where(
             keep, new, old.to(new.dtype)), Theta_new, Theta_prev)
+    if tel is not None and Theta_prev is not None:
+        # the l2 norm of the committed consensus update (after keep/skip)
+        metrics["obs/theta_update_norm"] = tree_update_norm(Theta_new,
+                                                            Theta_prev)
     if idx is not None:
         # non-sampled duals keep their rows; the fault aux lands on the
         # sampled rows only
@@ -343,9 +362,28 @@ def ota_tree_round_packed_state(theta: PyTree, lam_p: Complex, h_p: Complex,
             aux["evicted"] = _cohort.put_rows(
                 torch.zeros(n_population, dtype=torch.bool,
                             device=evicted.device), idx, aux["evicted"])
+        if tel is not None:
+            metrics = _obs.merge_disjoint(
+                metrics, _cohort.cohort_metrics(_cohort.CohortConfig(
+                    n_population, int(idx.shape[0]))),
+                who="ota_tree_round_packed_state.cohort")
     if aux:
         metrics["_fault_aux"] = aux
     return Theta_new, lam_new_p, metrics
+
+
+def tree_update_norm(new: PyTree, old: PyTree) -> Tensor:
+    """‖new − old‖₂ over every leaf of two like trees, in f32, a leaf at a
+    time: one f32 leaf-sized temporary (the difference, formed in place in
+    a copy of ``new``; a bf16 ``old`` widens exactly inside the
+    subtraction)."""
+    sq = None
+    for n, o in zip(tree_leaves(new), tree_leaves(old)):
+        d = n.to(torch.float32, copy=True).sub_(o).reshape(-1)
+        s = torch.dot(d, d)
+        del d
+        sq = s if sq is None else sq + s
+    return torch.sqrt(sq)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch import rng
 from repro_torch.core import power, transport
 from repro_torch.core.channel import ChannelConfig
@@ -126,7 +127,8 @@ def guarded_receive(gcfg: GuardConfig, *, stats_fn: Callable,
                     noise_re: Tensor, retry_noise: Tuple[Tensor, ...] = (),
                     burst_std: Optional[Tensor] = None,
                     burst_plane: Optional[Tensor] = None,
-                    offender_fn: Optional[Callable] = None) -> GuardedRound:
+                    offender_fn: Optional[Callable] = None,
+                    telemetry=None) -> GuardedRound:
     """The guarded-receive cascade.
 
     * ``stats_fn(mask) -> (y, p2, energy)`` — the worker-plane pass (B6).
@@ -138,7 +140,12 @@ def guarded_receive(gcfg: GuardConfig, *, stats_fn: Callable,
       added on attempt 0 and on the evict pass.
     * ``offender_fn() -> (W,) bool`` — more per-row offender evidence (non-
       finite channel planes) on top of the non-finite-energy test.
+    * ``telemetry`` (True or a ``repro_torch.obs.TelemetryConfig``) adds the
+      accepted attempt's ``obs/`` keys: its SNR (``guard/snr_db``'s value,
+      the burst included), α, the workers that transmitted and, per
+      worker, their energy α²·Σ|s|² (zero for a masked or evicted one).
     """
+    tel = _obs.resolve(telemetry)
     if gcfg.retries > len(retry_noise):
         raise ValueError(f"the guard retries {gcfg.retries} times but "
                          f"{len(retry_noise)} retry noise planes were given")
@@ -208,13 +215,25 @@ def guarded_receive(gcfg: GuardConfig, *, stats_fn: Callable,
             retries = torch.where(done, retries, float(a))
             done = done | att.ok
             del att
+    snr_db = transport.snr_db_from_power(cur.sig, cur.npow)
     metrics = {
         "guard/retries": retries,
-        "guard/snr_db": transport.snr_db_from_power(cur.sig, cur.npow),
+        "guard/snr_db": snr_db,
         "guard/ok_first": first.ok.to(torch.float32),
         "guard/healthy": cur.ok.to(torch.float32),
         "guard/evicted": evicted.to(torch.float32).sum(),
     }
+    if tel is not None:
+        # the accepted attempt's channel telemetry, from the cascade's own
+        # tensors: obs/rx_snr_db is guard/snr_db under its other name
+        alpha = transport.applied_alpha(cur.inv_alpha)
+        metrics["obs/rx_snr_db"] = snr_db
+        metrics["obs/min_alpha"] = alpha
+        metrics["obs/active_workers"] = transport.active_workers(
+            m_cur, n_workers, dev)
+        if tel.per_worker:
+            metrics["obs/tx_energy"] = torch.where(
+                m_cur, energy * (alpha * alpha), torch.zeros_like(energy))
     return GuardedRound(cur.Theta, cur.inv_alpha, cur.ok, evicted, metrics)
 
 
@@ -233,17 +252,22 @@ def guarded_ota_round(theta: Tensor, lam: Complex, h: Complex,
                       mask: Optional[Tensor] = None,
                       h_tx: Optional[Complex] = None,
                       burst_std: Optional[Tensor] = None,
-                      draws: GuardDraws = GuardDraws()) -> GuardedRound:
+                      draws: GuardDraws = GuardDraws(),
+                      block_cols: Optional[int] = None,
+                      telemetry=None) -> GuardedRound:
     """Guarded twin of ``transport.ota_round_fused`` (monolithic pass) on
     the flat (W, d) problem.  On a healthy slot (no burst, finite planes,
     SNR above the floor) Θ and α⁻¹ are the unguarded fused round's, bit for
-    bit on the CPU: the guard only adds its O(d) checks."""
+    bit on the CPU: the guard only adds its O(d) checks.  ``block_cols``
+    picks B6's plan (``transport.ota_round_stats``); ``telemetry``: as
+    :func:`guarded_receive`."""
     W, d = theta.shape
     budget = ccfg.transmit_power * d
 
     def stats_fn(m):
         y, p2, e, _ = transport.ota_round_stats(theta, lam, h, rho, mask=m,
-                                                h_tx=h_tx)
+                                                h_tx=h_tx,
+                                                block_cols=block_cols)
         return y, p2, e
 
     def inv_alpha_fn(energy, m, attempt):
@@ -265,4 +289,4 @@ def guarded_ota_round(theta: Tensor, lam: Complex, h: Complex,
                            demod_fn=demod_fn, mask=mask, n_workers=W,
                            noise_re=noise_re, retry_noise=draws.retry_noise,
                            burst_std=burst_std, burst_plane=draws.burst,
-                           offender_fn=offender_fn)
+                           offender_fn=offender_fn, telemetry=telemetry)

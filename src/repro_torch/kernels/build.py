@@ -70,7 +70,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "phy_population": {
         "population_step": [_PTR] * 20 + [_I64, _F32, _F32, _INT, _F32, _F32,
-                                          _F32, _F32, _INT, _PTR],
+                                          _F32, _F32, _INT, _INT, _PTR],
     },
     "flash_attention": {
         "flash_attention_fwd": [_PTR] * 5 + [_I64] * 3 + [_INT, _INT, _F32,

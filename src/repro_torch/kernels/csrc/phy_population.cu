@@ -15,7 +15,9 @@
 //
 // Bound by device-memory bytes: 12 planes in and 8 out, about 30 flops and
 // two transcendentals per worker.  One thread per worker in a grid-stride
-// loop reads each input once and writes each output once; x and y arrive as
+// loop reads each input once and writes each output once; the block size
+// (a multiple of 32 up to 1024, 256 by default) is the caller's, the knob
+// the autotuner sweeps; x and y arrive as
 // separate contiguous planes, so neighbouring threads touch neighbouring
 // addresses in every plane.  Indices are 64-bit.  The path gain uses
 // expf/logf as the TPU kernel does (the JAX chain's pow differs from it in
@@ -25,11 +27,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 1 << 20;
 
-int grid_for(int64_t n) {
-  int64_t blocks = (n + kThreads - 1) / kThreads;
+int grid_for(int64_t n, int threads) {
+  int64_t blocks = (n + threads - 1) / threads;
   return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 
@@ -94,10 +95,13 @@ extern "C" int population_step(
     float* o_h_re, float* o_h_im, float* o_pos_x, float* o_pos_y,
     float* o_dest_x, float* o_dest_y, float* o_shadow, float* o_gain,
     int64_t n, float rho, float scale, int redraw, float step, float ref_d,
-    float norm_d, float pexp, int shadow_redraw, cudaStream_t stream) {
+    float norm_d, float pexp, int shadow_redraw, int threads,
+    cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (threads < 32 || threads > 1024 || threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params p{rho, scale, step, ref_d, norm_d, pexp, redraw, shadow_redraw};
-  population_step_kernel<<<grid_for(n), kThreads, 0, stream>>>(
+  population_step_kernel<<<grid_for(n, threads), threads, 0, stream>>>(
       h_re, h_im, w_re, w_im, pos_x, pos_y, dest_x, dest_y, fresh_x, fresh_y,
       shadow, shadow_fresh, o_h_re, o_h_im, o_pos_x, o_pos_y, o_dest_x,
       o_dest_y, o_shadow, o_gain, n, p);

@@ -5,8 +5,12 @@ Same contract as ``kernels/ota.py``: CUDA tensors launch the kernel or
 raise, CPU tensors take the plain version from ``kernels/ref.py``.  The
 wrapper picks the kernel's plan and grid from the shape (:func:`tiling`):
 the row plan for many workers, the column plan for few, and allocates the
-partial-sum scratch it needs.  Either plan is one counted launch.
-Counterpart of ``repro/kernels/ota_round.py``.
+partial-sum scratch it needs.  Either plan is one counted launch.  A caller
+may hand a wrapper its ``plan`` instead.  The transport layer maps a column
+tile (the autotuner's, ``FLConfig.ota_block_cols``, ``REPRO_OTA_BLOCK_COLS``)
+onto a plan with :func:`tiling_for_cols`: 32, 64, 96 or 128 columns a block
+for the row plan, 256 or 1,024 for the column plan at W ≤ 16.  Counterpart of
+``repro/kernels/ota_round.py``.
 """
 from __future__ import annotations
 
@@ -58,14 +62,23 @@ class Tiling(NamedTuple):
     n_slices: int
 
 
+#: the ``block_cols`` of each plan: a row-plan block covers 32·k columns
+#: of a tile (k = 1 … 4), a column-plan block 256·vec per stride (vec 1 or
+#: 4, the float4 loads)
+ROW_BLOCK_COLS = (32, 64, 96, 128)
+COLUMN_BLOCK_COLS = (256, 1024)
+
+
 def row_tiling(n_workers: int, d: int,
-               target_blocks: int = TARGET_BLOCKS) -> Tiling:
+               target_blocks: int = TARGET_BLOCKS,
+               k: Optional[int] = None) -> Tiling:
     """The row plan's grid for (W, d) planes: column tiles as wide as the
-    row allows, then the worker axis split until about ``target_blocks``
-    blocks are in flight (at least one row per warp in a slice).
-    (100, 109,386) gives 855 tiles of one slice; (65,536, 32) one tile of
-    525 slices."""
-    k = max(1, min(MAX_COLS_PER_LANE, -(-d // 32)))
+    row allows (or 32·``k`` columns), then the worker axis split until
+    about ``target_blocks`` blocks are in flight (at least one row per warp
+    in a slice).  (100, 109,386) gives 855 tiles of one slice; (65,536, 32)
+    one tile of 525 slices."""
+    if k is None:
+        k = max(1, min(MAX_COLS_PER_LANE, -(-d // 32)))
     n_tiles = -(-d // (32 * k))
     want = max(1, min(-(-target_blocks // n_tiles), -(-n_workers // WARPS),
                       MAX_SLICES))
@@ -75,11 +88,14 @@ def row_tiling(n_workers: int, d: int,
 
 def column_tiling(n_workers: int, d: int, n_sm: int = SMS,
                   aligned: bool = True,
-                  blocks_per_sm: int = COLUMN_BLOCKS_PER_SM) -> Tiling:
+                  blocks_per_sm: int = COLUMN_BLOCKS_PER_SM,
+                  vec: Optional[int] = None) -> Tiling:
     """The column plan's grid: 16-byte loads where d % 4 == 0 and the
-    planes are ``aligned``, and ``blocks_per_sm`` blocks an SM, fewer where
-    the columns run out first."""
-    vec = 4 if aligned and d % 4 == 0 else 1
+    planes are ``aligned`` (or ``vec`` floats a load), and
+    ``blocks_per_sm`` blocks an SM, fewer where the columns run out
+    first."""
+    if vec is None:
+        vec = 4 if aligned and d % 4 == 0 else 1
     groups = -(-d // vec)
     blocks = max(1, min(blocks_per_sm * n_sm, -(-groups // COLUMN_THREADS)))
     return Tiling("column", vec, n_workers, blocks, 1)
@@ -93,6 +109,48 @@ def tiling(n_workers: int, d: int, n_sm: int = SMS,
     if n_workers < COLUMN_BELOW:
         return column_tiling(n_workers, d, n_sm, aligned)
     return row_tiling(n_workers, d)
+
+
+def block_cols_choices(n_workers: int, d: int) -> Tuple[int, ...]:
+    """The ``block_cols`` values the kernels can honour for (W, d) planes:
+    the row plan's always, the column plan's for W ≤ 16 (1,024, its float4
+    loads, only where d % 4 == 0)."""
+    out = ROW_BLOCK_COLS
+    if n_workers <= MAX_COLUMN_WORKERS:
+        out += tuple(c for c in COLUMN_BLOCK_COLS if c == 256 or d % 4 == 0)
+    return out
+
+
+def check_block_cols(n_workers: int, d: int, block_cols: int) -> None:
+    """ValueError naming the values the plans take, unless they take
+    ``block_cols`` for (W, d) planes."""
+    ok = block_cols_choices(n_workers, d)
+    if block_cols not in ok:
+        raise ValueError(f"ota_block_cols={block_cols}: the one-pass round "
+                         f"kernels take {ok} for ({n_workers}, {d}) planes "
+                         f"(32·k columns a row-plan block, 256·vec a "
+                         f"column-plan block)")
+
+
+def tiling_for_cols(n_workers: int, d: int, block_cols: int,
+                    n_sm: int = SMS, aligned: bool = True) -> Tiling:
+    """The plan whose block covers ``block_cols`` columns
+    (:func:`block_cols_choices`); the column plan's 1,024 needs planes
+    that start 16-byte ``aligned``."""
+    check_block_cols(n_workers, d, block_cols)
+    if block_cols in ROW_BLOCK_COLS:
+        return row_tiling(n_workers, d, k=block_cols // 32)
+    if block_cols == 1024 and not aligned:
+        raise ValueError("ota_block_cols=1024 loads float4s and needs planes "
+                         "that start on a 16-byte boundary")
+    return column_tiling(n_workers, d, n_sm, aligned,
+                         vec=block_cols // COLUMN_THREADS)
+
+
+def block_cols_of(t: Tiling) -> int:
+    """The columns a block of plan ``t`` covers (inverse of
+    :func:`tiling_for_cols`)."""
+    return (COLUMN_THREADS if t.plan == "column" else 32) * t.k
 
 
 def check_tiling(name: str, t: Tiling, n_workers: int, d: int) -> None:
@@ -174,7 +232,7 @@ def _common_args(theta, lam_re, lam_im, h_re, h_im, mask, htx, chan):
 
 def _plan(name: str, plan: Optional[Tiling], dev: torch.device, W: int,
           d: int, *planes: Tensor) -> Tiling:
-    """The given grid, checked, or :func:`tiling`'s for this card and these
+    """The given grid, checked; or :func:`tiling`'s for this card and these
     planes' alignment (the outputs are fresh allocations, 16-byte
     aligned)."""
     if plan is None:
@@ -202,17 +260,17 @@ def ota_round_stats(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
     ``mask``: (W,) bool; ``htx = (re, im)``: the workers' CSI, which
     modulates while the air applies h; ``chan = (w_re, w_im, rho_f, scale,
     redraw)`` fuses the fading step, with ``redraw`` a host bool.
-    ``plan``: the kernel's grid, :func:`tiling`'s by default.  Returns
-    ``(y (d,), p2 (d,), energy (W,))``, plus the stepped channel's (W, d)
-    planes with ``chan``."""
+    ``plan``: the kernel's grid, else :func:`tiling`'s.  Returns ``(y (d,),
+    p2 (d,), energy (W,))``, plus the stepped channel's (W, d) planes with
+    ``chan``."""
     if build.resolve_backend(theta.device) == "torch":
         return ref.ota_round_stats(theta, lam_re, lam_im, h_re, h_im, rho,
                                    mask=mask, htx=htx, chan=chan)
     dev = _operands("ota_round_stats", theta, lam_re, lam_im, h_re, h_im,
                     mask, htx, chan)
     W, d = theta.shape
-    t = _plan("ota_round_stats", plan, dev, W, d, theta, lam_re, lam_im,
-              h_re, h_im, *(htx or ()), *(chan or ())[:2])
+    t = _plan("ota_round_stats", plan, dev, W, d, theta, lam_re,
+              lam_im, h_re, h_im, *(htx or ()), *(chan or ())[:2])
     y, p2, energy = _empty(dev, d), _empty(dev, d), _empty(dev, W)
     h_new = ((_empty(dev, W, d), _empty(dev, W, d)) if chan is not None
              else (None, None))
@@ -247,8 +305,8 @@ def ota_round_theta(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
     """The whole round in one launch for an α known before the pass (B7):
     :func:`ota_round_stats` with the epilogue Θ = (y + z·α⁻¹)/max(p2,
     1e-12).  ``noise_re``: (d,); ``inv_alpha``: a one-element tensor on the
-    device; ``plan`` as there.  Returns ``(Theta,)``, plus the stepped
-    channel's planes with ``chan``."""
+    device; ``plan`` as there.  Returns ``(Theta,)``,
+    plus the stepped channel's planes with ``chan``."""
     if build.resolve_backend(theta.device) == "torch":
         return ref.ota_round_theta(theta, lam_re, lam_im, h_re, h_im,
                                    noise_re, inv_alpha, rho, mask=mask,
@@ -264,8 +322,9 @@ def ota_round_theta(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
     if noise_re.shape != (d,):
         raise ValueError(f"ota_round_theta: noise_re has shape "
                          f"{tuple(noise_re.shape)}, want ({d},)")
-    t = _plan("ota_round_theta", plan, dev, W, d, theta, lam_re, lam_im,
-              h_re, h_im, noise_re, *(htx or ()), *(chan or ())[:2])
+    t = _plan("ota_round_theta", plan, dev, W, d, theta, lam_re,
+              lam_im, h_re, h_im, noise_re, *(htx or ()),
+              *(chan or ())[:2])
     Theta = _empty(dev, d)
     h_new = ((_empty(dev, W, d), _empty(dev, W, d)) if chan is not None
              else (None, None))

@@ -12,12 +12,25 @@ the port still takes effect:
   yet (ROADMAP queue A item 2): the models refuse them.
 
 ``SCAN_CHUNK`` (``REPRO_SCAN_CHUNK``, 512) and ``ATTN_CHUNK``
-(``REPRO_ATTN_CHUNK``, 512) are the chunk lengths.  The JAX package's OTA
-tiling knobs have no counterpart: the port's kernels pick their own tiling.
+(``REPRO_ATTN_CHUNK``, 512) are the chunk lengths.
+
+The OTA tiling knobs are functions, read when a round runs, so a launcher
+or an autotune sweep (``transport.autotune_ota_round``,
+``phy.population.autotune_population_step``) that sets the environment
+after import still takes effect:
+
+* :func:`ota_worker_chunk` (``REPRO_OTA_WORKER_CHUNK``) — the streamed
+  round's worker cohort, 0 for the monolithic pass;
+* :func:`ota_block_cols` (``REPRO_OTA_BLOCK_COLS``) — the column tile of the
+  one-pass round kernels B6/B7, which picks their plan
+  (``kernels/ota_round.block_cols_choices``); unset, the kernels' own plan;
+* :func:`ota_block_rows` (``REPRO_OTA_BLOCK_ROWS``) — the population
+  kernel B10's block size (threads), 256 by default.
 """
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 #: module attribute -> (environment variable, default)
 _CHUNKS = {"SCAN_CHUNK": ("REPRO_SCAN_CHUNK", "512"),
@@ -37,3 +50,23 @@ def __getattr__(name: str) -> int:
                              f"step")
         return value
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def ota_worker_chunk() -> int:
+    """Worker cohort of the streamed OTA round
+    (``transport.ota_round_fused``): 0 (the default) the monolithic pass
+    over all W workers; C > 0 streams ceil(W/C) cohorts, so the signal
+    planes of C workers live at a time."""
+    return int(os.environ.get("REPRO_OTA_WORKER_CHUNK", "0"))
+
+
+def ota_block_cols() -> Optional[int]:
+    """Column tile of the one-pass round kernels (B6/B7), or None (unset:
+    ``kernels/ota_round.tiling`` picks the plan)."""
+    value = os.environ.get("REPRO_OTA_BLOCK_COLS")
+    return None if value in (None, "") else int(value)
+
+
+def ota_block_rows() -> int:
+    """Threads a block of the population kernel (B10), 256 by default."""
+    return int(os.environ.get("REPRO_OTA_BLOCK_ROWS", "256"))

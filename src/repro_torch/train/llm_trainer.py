@@ -22,9 +22,10 @@ state and λ.
 
 A round's random planes are a :class:`TreeRoundDraws`, drawn from the round
 key when not given (:func:`draw_round`), so a test can replay the JAX
-package's.  Not ported yet, and refused by name: the ``sketched`` mode,
-telemetry, meshes, a transport backend override and the fused kernel's
-column tile.
+package's.  ``telemetry`` adds the round's ``obs/`` keys
+(``repro_torch.obs``) and ``ota_block_cols`` picks the fused kernel's plan
+(``kernels/ota_round.block_cols_choices``).  Not ported yet, and refused by
+name: the ``sketched`` mode, meshes and a transport backend override.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch import rng
 from repro_torch.core import cohort as _cohort
 from repro_torch.core import cplx, transport
@@ -45,11 +47,12 @@ from repro_torch.core.tree_ota import (TreeFLState, _zmap, draw_channel_tree,
                                        ota_tree_round,
                                        ota_tree_round_packed_state, redraws,
                                        step_channel_packed, step_channel_tree,
-                                       tree_penalty_grad)
+                                       tree_penalty_grad, tree_update_norm)
 from repro_torch.device import resolve_device
 from repro_torch.faults import guards as _guards
 from repro_torch.faults import plan as _fplan
-from repro_torch.models.registry import Model
+from repro_torch.kernels import ota_round as _round_k
+from repro_torch.models.registry import Model, packed_param_count
 from repro_torch.optim.optimizers import OptState, adam, sgd
 from repro_torch.phy.scenario import h_tx as _phys_h_tx
 from repro_torch.phy.scenario import make_scenario
@@ -84,12 +87,18 @@ class FLConfig:
     #: one-pass fused receive: None/True the fused round, False the
     #: composed per-primitive chain
     ota_fused: Optional[bool] = None
-    #: worker-cohort streaming of the fused round: 0/None all W at once
+    #: worker-cohort streaming of the fused round: 0 all W at once; None
+    #: defers to REPRO_OTA_WORKER_CHUNK
     ota_worker_chunk: Optional[int] = None
+    #: the fused kernel's column tile, which picks its plan (32, 64, 96,
+    #: 128: the row plan; 256, 1024: the column plan, W ≤ 16); None defers
+    #: to REPRO_OTA_BLOCK_COLS, else the kernel's own plan
     ota_block_cols: Optional[int] = None
     #: ``repro_torch.faults.FaultPlan`` / ``GuardConfig`` (packed layout)
     faults: Optional[Any] = None
     guard: Optional[Any] = None
+    #: ``repro_torch.obs.TelemetryConfig`` (or True): the round's ``obs/``
+    #: keys (packed layout); None keeps the trainer bit for bit
     telemetry: Optional[Any] = None
     #: workers that exist; each round samples ``cohort`` of them
     #: (``core.cohort``, packed layout).  Batch leaves are cohort-wide: row
@@ -178,21 +187,19 @@ def _local_opt(flcfg: FLConfig):
     return sgd(flcfg.local_lr)
 
 
-def _refuse_unported(flcfg: FLConfig, mesh) -> None:
+def _refuse_unported(flcfg: FLConfig, mesh, model: Model) -> None:
     """NotImplementedError for every FLConfig feature the port lacks, named
-    with its ROADMAP item, so none is silently ignored."""
-    checks = (
-        ("telemetry", flcfg.telemetry not in (None, False), "4 (obs/)"),
-        ("mesh", mesh is not None, "6 (multi-device)"),
-        ("ota_block_cols", flcfg.ota_block_cols is not None,
-         "4 (the fused kernel picks its own tiling)"),
-    )
-    for name, bad, item in checks:
-        if bad:
-            raise NotImplementedError(
-                f"FLConfig {name} is not ported yet (ROADMAP queue A item "
-                f"{item})")
+    with its ROADMAP item, so none is silently ignored; ValueError for a
+    column tile no plan of the fused kernel takes at the round's (W, D)."""
+    if mesh is not None:
+        raise NotImplementedError("FLConfig mesh is not ported yet (ROADMAP "
+                                  "queue A item 6 (multi-device))")
     transport.check_backend_choice(flcfg.transport_backend)
+    if flcfg.ota_block_cols is not None:
+        width = flcfg.cohort if flcfg.population is not None else \
+            flcfg.n_workers
+        _round_k.check_block_cols(width or 0, packed_param_count(model.cfg),
+                                  flcfg.ota_block_cols)
 
 
 def _opt_map(fn, opt: OptState, *rest: OptState) -> OptState:
@@ -213,7 +220,7 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
     """``(init_fn, train_step)`` of the replicated mode on one device: one
     globally packed (W, D) buffer each for λ and h, or per-leaf trees under
     ``packed_uplink=False``."""
-    _refuse_unported(flcfg, mesh)
+    _refuse_unported(flcfg, mesh, model)
     cohort_cfg = None
     if flcfg.population is not None:
         if flcfg.cohort is None:
@@ -228,6 +235,7 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
     W = flcfg.population if flcfg.population is not None \
         else flcfg.n_workers
     opt = _local_opt(flcfg)
+    tel = _obs.resolve(flcfg.telemetry)
     dev = resolve_device(device)
     scn = None
     if flcfg.scenario is not None:
@@ -246,6 +254,10 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
         raise ValueError(
             "FLConfig.faults/guard apply to the packed uplink and require "
             "the packed state layout (packed_uplink != False)")
+    if tel is not None and flcfg.packed_uplink is False:
+        raise ValueError(
+            "FLConfig.telemetry is collected inside the packed receive and "
+            "requires the packed state layout (packed_uplink != False)")
     packed_layout = scn is not None or flcfg.packed_uplink is not False
     sampling = _cohort.cohort_active(cohort_cfg)
     if sampling and not packed_layout:
@@ -382,9 +394,10 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
                     theta, state.lam, chan.h, draws.noise_re, acfg, ccfg,
                     spec, mask=mask, h_tx_p=h_tx_p, Theta_prev=Theta_prev,
                     fused=flcfg.ota_fused,
-                    worker_chunk=flcfg.ota_worker_chunk, guard=gcfg,
+                    worker_chunk=flcfg.ota_worker_chunk,
+                    block_cols=flcfg.ota_block_cols, guard=gcfg,
                     guard_draws=draws.guard, faults=faults_arg,
-                    cohort_idx=idx)
+                    telemetry=tel, cohort_idx=idx)
             else:
                 Theta_f32, lam_new, m = ota_tree_round(
                     theta, state.lam, chan.h, draws.noise_re, acfg, ccfg,
@@ -403,9 +416,14 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
             Theta_new = _zmap(lambda T, t: T.to(t.dtype), Theta_f32,
                               state.Theta)
             del Theta_f32
-            metrics = {"loss": loss, "theta_drift": _tree_rms_gap(theta,
-                                                                  Theta_new),
-                       **m, **fmetrics}
+            if tel is not None and "obs/theta_update_norm" not in m:
+                # a round without Theta_prev cannot emit the norm itself
+                m["obs/theta_update_norm"] = tree_update_norm(Theta_new,
+                                                              state.Theta)
+            metrics = _obs.merge_disjoint(
+                {"loss": loss, "theta_drift": _tree_rms_gap(theta,
+                                                            Theta_new)},
+                m, fmetrics, who="make_replicated.train_step")
         new_state = TreeFLState(theta=theta, lam=lam_new, Theta=Theta_new,
                                 chan=chan, opt=opt_state, step=state.step + 1,
                                 flt=flt_new)

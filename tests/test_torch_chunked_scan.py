@@ -81,7 +81,19 @@ def test_optflags_read_when_called(monkeypatch):
     with pytest.raises(ValueError, match="REPRO_SCAN_CHUNK"):
         optflags.SCAN_CHUNK
     with pytest.raises(AttributeError):
-        optflags.ota_block_cols
+        optflags.NO_SUCH_KNOB
+    # the OTA tiling knobs are functions, read when called
+    for var in ("REPRO_OTA_BLOCK_COLS", "REPRO_OTA_WORKER_CHUNK",
+                "REPRO_OTA_BLOCK_ROWS"):
+        monkeypatch.delenv(var, raising=False)
+    assert optflags.ota_block_cols() is None
+    assert optflags.ota_worker_chunk() == 0
+    assert optflags.ota_block_rows() == 256
+    monkeypatch.setenv("REPRO_OTA_BLOCK_COLS", "128")
+    monkeypatch.setenv("REPRO_OTA_WORKER_CHUNK", "8")
+    monkeypatch.setenv("REPRO_OTA_BLOCK_ROWS", "512")
+    assert (optflags.ota_block_cols(), optflags.ota_worker_chunk(),
+            optflags.ota_block_rows()) == (128, 8, 512)
 
 
 def test_scan_chunked_fused_matches_jax_forward_and_grads():

@@ -272,11 +272,13 @@ def test_twelve_rounds_lower_the_loss():
     (dict(scenario="markov-doppler", packed_uplink=False), ValueError),
     (dict(faults=object(), packed_uplink=False), ValueError),
     (dict(guard=object(), packed_uplink=False), ValueError),
-    (dict(telemetry=True), NotImplementedError),
+    # telemetry rides the packed receive (JAX's refusal and wording)
+    (dict(telemetry=True, packed_uplink=False), ValueError),
     (dict(population=8, cohort=4, packed_uplink=False), ValueError),
     (dict(population=8), ValueError),
     (dict(transport_backend="jnp"), ValueError),
-    (dict(ota_block_cols=256), NotImplementedError),
+    # a column tile no plan of the fused kernel takes
+    (dict(ota_block_cols=512), ValueError),
     (dict(doppler_hz=5.0), ValueError),
     (dict(cohort=2), ValueError),
 ], ids=lambda v: "-".join(v) if isinstance(v, dict) else v.__name__)

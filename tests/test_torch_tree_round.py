@@ -279,9 +279,18 @@ def test_healthy_guarded_packed_round_is_the_unguarded_one():
         tree_ota.ota_tree_round_packed_state(
             theta, lam_p, h_p, noise, acfg, ccfg, spec, guard=gcfg,
             Theta_prev=prev)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        tree_ota.ota_tree_round_packed_state(
-            theta, lam_p, h_p, noise, acfg, ccfg, spec, telemetry=True)
+    # telemetry is a pure addition to the guarded round: the same Θ and λ
+    # bits, the accepted attempt's obs/ keys beside the guard's
+    T2, l2, m2 = tree_ota.ota_tree_round_packed_state(
+        theta, lam_p, h_p, noise, acfg, ccfg, spec, guard=gcfg,
+        guard_draws=GuardDraws(retry_noise=(2 * noise, 3 * noise)),
+        telemetry=True, **kw)
+    assert all(torch.equal(T1[n], T2[n]) for n in T1)
+    assert torch.equal(l1.re, l2.re) and torch.equal(l1.im, l2.im)
+    assert torch.equal(m2["obs/rx_snr_db"], m2["guard/snr_db"])
+    assert float(m2["obs/active_workers"]) == 2.0
+    assert float(m2["obs/tx_energy"][1]) == 0.0
+    assert "obs/theta_update_norm" in m2
 
 
 def test_guard_evicts_a_nan_worker_and_zeroes_its_dual():
@@ -333,3 +342,87 @@ def test_cohort_round_is_the_round_on_the_gathered_rows():
     assert float(m["participation"]) == float(m2["participation"])
     assert float(m["participation"]) == pytest.approx(2 / 3)
     assert torch.equal(m["inv_alpha"], m2["inv_alpha"])
+
+
+# ---------------------------------------------------------------------------
+# the tree path and the flat path are one protocol (port against port)
+# ---------------------------------------------------------------------------
+
+def _flat_inputs(Wf, d, seed):
+    rs = np.random.default_rng(seed)
+    f = lambda: torch.from_numpy(  # noqa: E731
+        rs.standard_normal((Wf, d)).astype(np.float32))
+    theta, lam = f(), Complex(0.2 * f(), 0.2 * f())
+    s = float(np.sqrt(0.5))
+    return theta, lam, Complex(s * f(), s * f())
+
+
+def _noise_free(Wf):
+    return (AdmmConfig(rho=0.5, power_control=False),
+            ChannelConfig(n_workers=Wf, noisy=False))
+
+
+def test_tree_round_matches_flat_round():
+    """A one-leaf tree round (packed, the fused B6 + B3 chain) against the
+    flat primitives (modulate, the stacked receive, the dual update) on a
+    noise-free link: the same Θ and λ bits."""
+    from repro_torch.core import transport
+    Wf, d, rho = 5, 48, 0.5
+    theta, lam, h = _flat_inputs(Wf, d, 0)
+    acfg, ccfg = _noise_free(Wf)
+    zero = torch.zeros(d)
+    s = transport.modulate(theta, lam, h, rho)
+    Theta_flat = transport.receive(s, h, zero, torch.ones(()))
+    lam_flat = transport.dual_update(lam, h, theta, Theta_flat, rho)
+    T, l, _ = tree_ota.ota_tree_round({"w": theta}, {"w": lam}, {"w": h},
+                                      zero, acfg, ccfg)
+    assert torch.equal(T["w"], Theta_flat)
+    assert torch.equal(l["w"].re, lam_flat.re)
+    assert torch.equal(l["w"].im, lam_flat.im)
+
+
+def test_tree_round_multi_leaf_equals_concatenated_flat():
+    """Splitting the parameter vector across leaves changes no bit of Θ
+    (the protocol is elementwise)."""
+    Wf, d = 4, 60
+    theta, lam, h = _flat_inputs(Wf, d, 1)
+    lam = Complex(lam.re, torch.zeros_like(lam.im))
+    acfg, ccfg = _noise_free(Wf)
+    one, _, _ = tree_ota.ota_tree_round({"w": theta}, {"w": lam}, {"w": h},
+                                        torch.zeros(d), acfg, ccfg)
+
+    def split(x):
+        return {"a": x[:, :25], "b": x[:, 25:]}
+
+    def split_c(c):
+        return {"a": Complex(c.re[:, :25], c.im[:, :25]),
+                "b": Complex(c.re[:, 25:], c.im[:, 25:])}
+
+    two, _, _ = tree_ota.ota_tree_round(split(theta), split_c(lam),
+                                        split_c(h), torch.zeros(d), acfg,
+                                        ccfg)
+    assert torch.equal(torch.cat([two["a"], two["b"]], dim=-1), one["w"])
+
+
+def test_power_control_consistent_across_paths():
+    """min-α sums every leaf's energy: the tree's per-worker energy over
+    two leaves is the flat energy of the whole vector (to the reference's
+    rtol 1e-5: the sums group by leaf), and its budget counts every
+    element."""
+    from repro_torch.core import transport
+    Wf, d, rho = 3, 40, 0.5
+    theta, _, h = _flat_inputs(Wf, d, 2)
+    lam = Complex(torch.zeros(Wf, d), torch.zeros(Wf, d))
+    s_flat = transport.modulate(theta, lam, h, rho)
+
+    def split_c(c):
+        return {"a": Complex(c.re[:, :15], c.im[:, :15]),
+                "b": Complex(c.re[:, 15:], c.im[:, 15:])}
+
+    s_tree = tree_ota._modulate_tree(
+        {"a": theta[:, :15], "b": theta[:, 15:]}, split_c(lam), split_c(h),
+        rho)
+    assert tree_ota._tree_size(s_tree) == d
+    np.testing.assert_allclose(
+        tree_ota._tree_energy_per_worker(s_tree).numpy(),
+        transport.worker_energy(s_flat).numpy(), rtol=1e-5)
