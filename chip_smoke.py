@@ -151,7 +151,30 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              kill-and-resume of the reduced model with faults and the
              guard, bit for bit.
 
-Launch counts are reset just before each of phases 4–12 and 14–27 and read
+28. privacy — after phase 26: the privacy harness (``core/privacy.py``) on
+             one A-FADMM round of phase 4's task: the eavesdropper's view,
+             an ambiguity witness and its view (2 B1), their observation
+             gap within an f32 bar, the inversion attack's RMSE.
+29. decentralized — after phase 12: paper §6's chain GADMM through the
+             twin ``ablation_decentralized`` (W = 8, d = 6, 40 dB, 300
+             rounds: final gap < 1e-4, 2 channel uses a round), then the
+             chain with an interior worker dead (its θ frozen, its dual
+             zero, the gap falling); no OTA kernel.
+30. examples — the example twins (``repro_torch.examples``): quickstart,
+             ``train_llm_federated`` at its default width for 25 steps and
+             ``privacy_attack_demo``, through their ``main``.
+31. save_dots — right after phase 15: phase 15 again under
+             ``REPRO_OPT=save_dots`` from the same state and draws: its
+             launches, a bit-equal first-round loss, Θ within 1e-3, and its
+             s/round, device and cuBLAS ms and peak beside phase 15's.
+32. chunked_attn — after phase 19: one full-width recurrentgemma-2b
+             local-attention sub-block ((2, 4,096, 2,560) bf16, window
+             2,048) on the masked and the chunked path, forward and forward
+             + backward: outputs and gradients within 2⁻⁶, each path's peak
+             and ms; then phase 21's 1-layer granite-8b trainer under the
+             flag, 3 rounds, B11 as ever (``chunked_attn_llm``).
+
+Launch counts are reset just before each of phases 4–12, 14–32 and read
 just after.  Then come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
@@ -1929,17 +1952,19 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
               lr: float, want_launches: dict, reference=None,
               loss_rounds: int = LLM_ROUNDS,
               loss_rtol: float = SSM_CHUNKED_LOSS_RTOL, dtype=None,
-              fl=None, round_draws=None, check_round=None, gate=None):
+              fl=None, round_draws=None, check_round=None, gate=None,
+              peak_below: bool = True):
     """The federated LLM trainer's replicated mode (``make_fl_train`` /
     ``train_step``) on ``arch`` at full width with ``n_layers`` of its
     layers, in bf16 (or ``dtype``): W = 2 workers, per-worker batch 1 ×
     ``seq`` tokens, 2 local sgd steps at ``lr``, 3 rounds.  With
     ``reference`` (an earlier run's summary, same state and draws) the loss
     of each of the first ``loss_rounds`` rounds must be within
-    ``loss_rtol`` of its, and the peak below its.  ``fl``: more
-    ``FLConfig`` fields (a scenario, faults, a guard, a population: the
-    batch is then the cohort's); ``round_draws(r, key, state, ccfg)``: round
-    r's draws (else the trainer draws from the key); ``check_round(r,
+    ``loss_rtol`` of its, and with ``peak_below`` the peak below its.
+    ``fl``: more ``FLConfig`` fields (a scenario, faults, a guard, a
+    population: the batch is then the cohort's); ``round_draws(r, key,
+    state, ccfg)``: round r's draws (else the trainer draws from the key);
+    ``check_round(r,
     before, after, metrics)``: a gate on each round; ``gate(metrics by
     round, state)``: a gate on the run, returning fields for the phase's
     line.  The peak must stay within the card's 80 GB.  Returns (launches,
@@ -2043,7 +2068,7 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
                 f"{phase}: losses {losses} against {reference['loss']}: "
                 f"relative {rel} > {loss_rtol} in the first {loss_rounds} "
                 f"rounds")
-        require(peak / 1e9 < reference["peak_mem_gb"],
+        require(not peak_below or peak / 1e9 < reference["peak_mem_gb"],
                 f"{phase}: peak {peak / 1e9} GB is not below "
                 f"{reference['peak_mem_gb']} GB")
         versus = dict(reference, loss_rel_diff=rel,
@@ -2081,12 +2106,11 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
 
 
 @contextlib.contextmanager
-def _chunked_scan():
-    """``REPRO_OPT=chunked_scan`` with ``SSM_SCAN_CHUNK``-step chunks inside
-    the block; the environment as it was after."""
-    saved = {k: os.environ.get(k) for k in ("REPRO_OPT", "REPRO_SCAN_CHUNK")}
-    os.environ["REPRO_OPT"] = "chunked_scan"
-    os.environ["REPRO_SCAN_CHUNK"] = str(SSM_SCAN_CHUNK)
+def _opt_env(**env):
+    """The environment variables ``env`` (``REPRO_OPT`` and its chunk
+    sizes) inside the block; the environment as it was after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
     try:
         yield
     finally:
@@ -2095,6 +2119,11 @@ def _chunked_scan():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def _chunked_scan():
+    """``REPRO_OPT=chunked_scan`` with ``SSM_SCAN_CHUNK``-step chunks."""
+    return _opt_env(REPRO_OPT="chunked_scan", REPRO_SCAN_CHUNK=SSM_SCAN_CHUNK)
 
 
 def _free(torch):
@@ -3087,6 +3116,407 @@ def phase_launch(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the privacy harness, decentralized GADMM, chunked_attn, save_dots and the
+# example twins
+# ---------------------------------------------------------------------------
+
+#: the observation gap's bar, in units of 2⁻²⁴ (f32's unit roundoff) times
+#: W times the largest product term |h|·|s| of either witness: each of the
+#: two views rounds every term a few times (h·θ, λ/ρ, the sum, the complex
+#: product) and sums W of them, so the two sums can part by a few roundings
+#: of the largest term a worker; W·2⁻²⁴ of it is already above the
+#: random-walk √W a sum of W roundings takes
+PRIVACY_GAP_ULPS = 4.0
+
+
+def phase_privacy(torch, run):
+    """The privacy harness (``core/privacy.py``) on a real round of the
+    paper MLP's A-FADMM (phase ``mlp``'s W = 100, d = 109,386): θ, λ, h and
+    Θ after one round; the eavesdropper's view of it, an ambiguity witness
+    (δ from a seed) and its view.  Gates: exactly 2 B1 launches and no
+    other OTA kernel; max|θ'−θ| > 0.1; the observation gap within
+    ``PRIVACY_GAP_ULPS``·W·2⁻²⁴ of the largest product term; the
+    inversion attack's RMSE on worker 0 above 0 where the digital uplink's
+    is 0; Thm 2's slack of 3.  Records the view's device ms and the gap."""
+    from repro_torch import rng
+    from repro_torch.core import cplx, privacy
+    from repro_torch.kernels import build
+
+    alg, theta0, solver, grad_fn = (run[k] for k in ("alg", "theta0",
+                                                     "solver", "grad_fn"))
+    key = SEED + 41
+    st0 = alg.init(key, theta0)
+    st, _ = alg.round(rng.fold_in(key, 1), st0, solver, grad_fn)
+    theta, lam, h, rho = st.theta, st.lam, st.blk.h, alg.acfg.rho
+    W, d = theta.shape
+    torch.cuda.synchronize()
+    build.reset_launches()
+    view, view_ms, _ = _event_ms(torch, lambda: privacy.eavesdropper_view(
+        theta, lam, h, rho, st0.Theta, st.Theta))
+    theta2, lam2, h2 = privacy.construct_ambiguity(key + 1, theta, lam, h,
+                                                   rho)
+    view2 = privacy.eavesdropper_view(theta2, lam2, h2, rho, st0.Theta,
+                                      st.Theta)
+    gap = float(privacy.observation_gap(view, view2))
+    guess = privacy.model_inversion_attack(view, W, rho, key)
+    rmse = float(torch.sqrt(torch.mean((guess - theta[0]) ** 2)))
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    require({k: v for k, v in launches.items() if v} == {"ota_modulate": 2},
+            f"privacy: launches {launches}, want 2 of ota_modulate and "
+            f"nothing else")
+    # the largest product term h·s of either witness: |h|·(|h|·|θ| + |λ|/ρ)
+    habs = torch.sqrt(cplx.abs2(h))
+    term = float(torch.max(habs * (habs * torch.maximum(theta.abs(),
+                                                        theta2.abs())
+                                   + torch.maximum(
+                                       torch.sqrt(cplx.abs2(lam)),
+                                       torch.sqrt(cplx.abs2(lam2))) / rho)))
+    bar = PRIVACY_GAP_ULPS * W * 2.0 ** -24 * term
+    y_max = float(torch.max(torch.maximum(view.y.re.abs(),
+                                          view.y.im.abs())))
+    moved = float((theta2 - theta).abs().max())
+    received = theta.clone()   # a digital uplink decodes each θ_n verbatim
+    digital_rmse = float(torch.sqrt(torch.mean((received[0] - theta[0])
+                                               ** 2)))
+    slack = privacy.underdetermination(W)["slack"]
+    require(moved > 0.1, f"privacy: the witness moved θ by only {moved}")
+    require(gap <= bar, f"privacy: observation gap {gap} above the f32 bar "
+            f"{bar} ({PRIVACY_GAP_ULPS}·W·2⁻²⁴·{term})")
+    require(rmse > 0.0 and digital_rmse == 0.0, f"privacy: attack RMSE "
+            f"{rmse}, digital {digital_rmse}")
+    require(slack == 3, f"privacy: Thm 2 slack {slack}")
+    emit({"phase": "privacy", "ok": True, "W": W, "d": d,
+          "round": "one A-FADMM round of phase mlp's task",
+          "view_device_ms": view_ms, "observation_gap": gap,
+          "gap_rel_to_max_y": gap / y_max, "gap_bar": bar,
+          "gap_bar_rel_to_max_y": bar / y_max, "largest_term": term,
+          "max_theta_shift": moved, "attack_rmse_worker0": rmse,
+          "digital_rmse_worker0": digital_rmse,
+          "underdetermination": privacy.underdetermination(W),
+          "launches": launches})
+    return launches
+
+
+#: phase ``decentralized``: the masked chain's dead interior worker and
+#: rounds
+DEC_DEAD, DEC_MASKED_ROUNDS = 3, 100
+
+
+def phase_decentralized(torch):
+    """Paper §6's decentralized analog GADMM on the card: the torch twin
+    ``ablation_decentralized`` at the paper's configuration (W = 8, d = 6,
+    40 dB, ρ = 1, 300 rounds), then the same chain with interior worker
+    ``DEC_DEAD`` dead for ``DEC_MASKED_ROUNDS`` rounds.  Gates: final gap
+    < 1e-4, 2 channel uses a round; the dead row's θ bit for bit its
+    initial one, its edge dual zero, the alive chain's consensus gap
+    falling; no OTA kernel.  Records s/round of both runs."""
+    from repro_torch.benchmarks import ablation_noniid as abl
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.decentralized import (AnalogGadmm,
+                                                gadmm_quadratic_solver)
+    from repro_torch.core.subcarrier import SubcarrierPlan
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    rounds = 300
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = abl.ablation_decentralized(rounds, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    require(out["final_gap"] < 1e-4, f"decentralized: final gap "
+            f"{out['final_gap']} >= 1e-4")
+    require(out["channel_uses_per_round"] == 2.0, f"decentralized: "
+            f"{out['channel_uses_per_round']} channel uses a round, want 2")
+
+    key, W, d = abl.DECENTRALIZED_KEY, 8, 6
+    X, y, theta0 = abl.decentralized_task(key, W, d, dev)
+    m = X.shape[0] // W
+    Xw = X[: m * W].reshape(W, m, d) / math.sqrt(m)
+    yw = y[: m * W].reshape(W, m) / math.sqrt(m)
+    alive = torch.ones(W, dtype=torch.bool, device=dev)
+    alive[DEC_DEAD] = False
+    alg = AnalogGadmm(ccfg=ChannelConfig(n_workers=W, n_subcarriers=d,
+                                         noisy=True, snr_db=40.0),
+                      plan=SubcarrierPlan.build(d, d), rho=1.0, mask=alive)
+    t0 = time.perf_counter()
+    st, met = alg.scan_rounds(key, alg.init(key, theta0),
+                              gadmm_quadratic_solver(Xw, yw, alg.rho), None,
+                              DEC_MASKED_ROUNDS)
+    torch.cuda.synchronize()
+    masked_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    require(not any(launches.values()), f"decentralized: OTA launches "
+            f"{launches}")
+    gaps = met["consensus_gap"].tolist()
+    require(bool(torch.equal(st.theta[DEC_DEAD], theta0[DEC_DEAD])),
+            "decentralized: the dead worker's θ moved")
+    require(not bool(st.lam[DEC_DEAD].any()), "decentralized: the dead "
+            "worker's edge dual is not zero")
+    require(all(math.isfinite(g) for g in gaps) and gaps[-1] < gaps[0],
+            f"decentralized: the masked chain's consensus gap went "
+            f"{gaps[0]} -> {gaps[-1]}")
+    emit({"phase": "decentralized", "ok": True, "W": W, "d": d,
+          "rounds": rounds, **out, "seconds_per_round": run_s / rounds,
+          "masked": {"dead": DEC_DEAD, "rounds": DEC_MASKED_ROUNDS,
+                     "seconds_per_round": masked_s / DEC_MASKED_ROUNDS,
+                     "consensus_gap_first": gaps[0],
+                     "consensus_gap_last": gaps[-1],
+                     "alive": float(met["gadmm_alive"][-1])},
+          "launches": launches})
+    return launches
+
+
+#: phase ``chunked_attn``: the query chunk, and the bar on the chunked
+#: path against the masked one in bf16.  Both compute each row's exact
+#: softmax from f32 scores; only the score and PV products' shapes differ,
+#: so cuBLAS may accumulate their f32 sums in another order, and a bf16
+#: rounding of a weight, an output or a gradient element can flip.  One
+#: flip is one bf16 ulp, at most 2⁻⁷ of the tensor's largest magnitude (8
+#: significant bits); the bar is two of them
+ATTN_CHUNK_ROWS = 512
+ATTN_TOL_REL = 2.0 ** -6
+ATTN_RUNS = 3
+
+
+def _attn_err(a, b) -> float:
+    """max|a − b| / max|b|."""
+    ref = float(b.float().abs().max())
+    return float((a.float() - b.float()).abs().max()) / max(ref, 1e-30)
+
+
+def phase_chunked_attn(torch):
+    """``REPRO_OPT=chunked_attn`` on the card.  First one recurrentgemma-2b
+    local-attention sub-block (``models/hybrid.attn_block_fwd``: rmsnorm, 10
+    heads over 1 KV head of 256, window 2,048) at full width, input
+    (2, 4,096, 2,560) bf16, parameters from a seed: forward under no_grad
+    and forward + backward of a fixed scalar loss, on the masked path and
+    on the chunked one (512-row chunks).  Gates: output and every parameter
+    gradient within ``ATTN_TOL_REL``.  Records each path's max error, peak
+    above the inputs (``reset_peak_memory_stats`` around each) and device
+    ms.  Then phase ``llm``'s trainer on granite-8b cut to 1 layer under the
+    flag, 3 rounds: full causal attention keeps B11 (4 fwd, 2 dq, 2 dk/dv a
+    round)."""
+    from repro_torch import rng
+    from repro_torch.models import get_config, hybrid
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = get_config(HYBRID_ARCH)
+    p = hybrid.attn_block_init(SEED + 9, cfg, device=dev)
+    leaves = tree_leaves(p)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    gen = rng.generator(SEED + 10, dev)
+    shape = (LLM_WORKERS, LLM_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    cot = torch.randn(shape, generator=gen, device=dev)
+    pos = torch.arange(LLM_SEQ, dtype=torch.int32, device=dev)
+    flags = {"masked": "", "chunked": "chunked_attn"}
+
+    def fwd():
+        with torch.no_grad():
+            return hybrid.attn_block_fwd(p, x, cfg, pos)
+
+    def fwd_bwd():
+        for leaf in leaves:
+            leaf.grad = None
+        out = hybrid.attn_block_fwd(p, x, cfg, pos)
+        (out.float() * cot).sum().backward()
+        return out.detach(), [leaf.grad for leaf in leaves]
+
+    res, stats = {}, {}
+    for path, flag in flags.items():
+        with _opt_env(REPRO_OPT=flag, REPRO_ATTN_CHUNK=ATTN_CHUNK_ROWS):
+            row = {}
+            for mode, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+                _free(torch)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                res[path, mode] = fn()
+                torch.cuda.synchronize()
+                row[mode + "_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                row[mode + "_peak_above_inputs_gb"] = (
+                    torch.cuda.max_memory_allocated() - base) / 1e9
+            stats[path] = row
+    out_m, out_c = res["masked", "fwd"], res["chunked", "fwd"]
+    (bo_m, g_m), (bo_c, g_c) = res["masked", "fwd_bwd"], \
+        res["chunked", "fwd_bwd"]
+    errs = {"fwd": _attn_err(out_c, out_m), "fwd_bwd_out": _attn_err(bo_c,
+                                                                     bo_m),
+            "grads": [_attn_err(a, b) for a, b in zip(g_c, g_m)]}
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (out_m, out_c, bo_m, bo_c, *g_m, *g_c))
+    require(finite, "chunked_attn: non-finite output or gradient")
+    worst = max(errs["fwd"], errs["fwd_bwd_out"], *errs["grads"])
+    require(worst <= ATTN_TOL_REL, f"chunked_attn: chunked against masked "
+            f"{errs} above {ATTN_TOL_REL}")
+    bitwise = (bool(torch.equal(out_m, out_c)) and bool(torch.equal(bo_m,
+                                                                    bo_c))
+               and all(bool(torch.equal(a, b)) for a, b in zip(g_m, g_c)))
+    del res, out_m, out_c, bo_m, bo_c, g_m, g_c
+    for path, flag in flags.items():
+        with _opt_env(REPRO_OPT=flag, REPRO_ATTN_CHUNK=ATTN_CHUNK_ROWS):
+            stats[path]["fwd_ms"] = time_ms(torch, fwd, runs=ATTN_RUNS,
+                                            warmup=1)
+            stats[path]["fwd_bwd_ms"] = time_ms(torch, fwd_bwd,
+                                                runs=ATTN_RUNS, warmup=1)
+    emit({"phase": "chunked_attn", "path": "block", "ok": True,
+          "arch": cfg.name, "reduced": "one local-attention sub-block "
+          "(models/hybrid.attn_block_fwd), no embedding, mlp or recurrence",
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+          "window": cfg.attn_window, "chunk": ATTN_CHUNK_ROWS,
+          "dtype": cfg.param_dtype, "input": list(shape),
+          "loss": "sum(out * fixed N(0, 1) cotangent)",
+          "max_err_rel": errs, "tol_rel": ATTN_TOL_REL,
+          "bitwise_equal": bitwise, "paths": stats})
+    del p, leaves, x, cot
+    _free(torch)
+    with _opt_env(REPRO_OPT="chunked_attn",
+                  REPRO_ATTN_CHUNK=ATTN_CHUNK_ROWS):
+        launches, _, _, _ = phase_llm(
+            torch, "chunked_attn_llm", LLM_ARCH, ROBUST_LAYERS, LLM_SEQ,
+            LLM_LR, LLM_ROUND_1_LAUNCHES)
+    _free(torch)
+    return launches
+
+
+#: phase ``save_dots``: Θ after phase ``llm``'s 3 rounds against ``llm``'s,
+#: relative Frobenius distance a leaf
+SAVE_DOTS_THETA_RTOL = 1e-3
+
+
+def _keep_theta(store: dict):
+    """A ``phase_llm`` gate that keeps the run's Θ leaves on the host."""
+    from repro_torch.tree import tree_leaves
+
+    def gate(metrics, state):
+        store["Theta"] = [leaf.detach().cpu() for leaf in
+                          tree_leaves(state.Theta)]
+        return {}
+    return gate
+
+
+def phase_save_dots(torch, llm: dict, llm_theta: list, llm_profile: dict):
+    """Phase ``llm`` again under ``REPRO_OPT=save_dots`` (each checkpointed
+    layer keeps its matrix products' outputs), from the same state and
+    draws, then one more round under torch.profiler.  Gates: ``llm``'s
+    launches a round (B11's forward still runs again in the backward), the
+    peak within the card, the first round's loss bit-equal to ``llm``'s
+    (the forward is the same ops), Θ after 3 rounds within
+    ``SAVE_DOTS_THETA_RTOL`` of ``llm``'s.  Records whether Θ is bit-equal,
+    s/round, device and cuBLAS ms of the profiled round and the peak,
+    beside ``llm``'s (``llm``: its summary, ``llm_theta``: its Θ leaves
+    from ``_keep_theta``, ``llm_profile``: its profiled round)."""
+    from repro_torch.tree import tree_leaves
+
+    def gate(metrics, state):
+        rel, equal = [], True
+        for got, want in zip(tree_leaves(state.Theta), llm_theta):
+            w = want.to(got.device).float()
+            diff = got.float() - w
+            rel.append(float(torch.linalg.vector_norm(diff)
+                             / torch.linalg.vector_norm(w)))
+            equal = equal and not bool(diff.any())
+            del w, diff
+        require(max(rel) <= SAVE_DOTS_THETA_RTOL, f"save_dots: Θ relative "
+                f"distance {max(rel)} from llm's above "
+                f"{SAVE_DOTS_THETA_RTOL}")
+        return {"theta_rel_to_llm": max(rel), "theta_bitwise_llm": equal}
+
+    with _opt_env(REPRO_OPT="save_dots"):
+        launches, one_round, round_s, summary = phase_llm(
+            torch, "save_dots", LLM_ARCH, LLM_LAYERS, LLM_SEQ, LLM_LR,
+            LLM_LAUNCHES, reference=llm, loss_rounds=1, loss_rtol=0.0,
+            gate=gate, peak_below=False)
+        prof = phase_profile(torch, "save_dots", one_round, round_s)
+    del one_round
+    _free(torch)
+    emit({"phase": "save_dots", "path": "against llm", "ok": True,
+          "seconds_per_round": round_s, "llm_seconds_per_round":
+          llm["seconds_per_round"], "device_ms": prof["device_ms"],
+          "llm_device_ms": llm_profile["device_ms"],
+          "matmul_ms": prof["matmul_ms"],
+          "llm_matmul_ms": llm_profile["matmul_ms"],
+          "peak_mem_gb": summary["peak_mem_gb"],
+          "llm_peak_mem_gb": llm["peak_mem_gb"]})
+    return launches
+
+
+#: phase ``examples``: the LLM twin's steps, and its launches a step at its
+#: default 8 layers: B11 as ``llm`` a layer, one packed round
+EXAMPLE_LLM_STEPS, EXAMPLE_LLM_LAYERS = 25, 8
+EXAMPLE_LLM_LAUNCHES = {"flash_attention_fwd": 2 * EXAMPLE_LLM_LAYERS * 2,
+                        "flash_attention_dq": EXAMPLE_LLM_LAYERS * 2,
+                        "flash_attention_dkv": EXAMPLE_LLM_LAYERS * 2,
+                        "ota_round_stats": 1, "ota_demodulate_dyn": 1,
+                        "admm_dual_update": 1}
+EXAMPLE_QUICKSTART_ROUNDS = 200
+
+
+def _quiet(torch, main, argv):
+    """``main(argv)`` with its printing kept: (its result, its output's
+    last lines, seconds)."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    torch.cuda.synchronize()
+    return out, buf.getvalue().splitlines()[-3:], time.perf_counter() - t0
+
+
+def phase_examples(torch):
+    """The example twins on the card through their ``main``: the
+    quickstart (A-FADMM linreg, 200 rounds), ``train_llm_federated`` at its
+    default width (granite-family, d_model 256, 8 layers, 4 workers) for
+    25 steps, and ``privacy_attack_demo``.  Gates: the quickstart's final
+    gap < 1e-4 and B1, B2, B4 once a round; the LLM twin's loss falls and
+    its B11, B6, B3, B4 a step; the demo's observation gap below the
+    reference's 1e-4 and 2 B1."""
+    from repro_torch.examples import (privacy_attack_demo, quickstart,
+                                      train_llm_federated)
+    from repro_torch.kernels import build
+
+    total: dict = {}
+    rows = {}
+
+    def counted(name, main, argv):
+        build.reset_launches()
+        out, tail, secs = _quiet(torch, main, argv)
+        got = dict(build.launches)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        rows[name] = {"result": out, "stdout_tail": tail, "seconds": secs,
+                      "launches": got}
+        return out, got
+
+    out, got = counted("quickstart", quickstart.main, [])
+    require(out["final_gap"] < 1e-4, f"examples: quickstart gap "
+            f"{out['final_gap']}")
+    _per_round(got, EXAMPLE_QUICKSTART_ROUNDS, {
+        "ota_modulate": 1, "ota_receive": 1, "admm_dual_update": 1})
+    require(got.get("admm_flip_lambda", 0) >= 1, f"examples: the "
+            f"quickstart's flip rule never ran: {got}")
+    out, got = counted("train_llm_federated", train_llm_federated.main,
+                       ["--steps", str(EXAMPLE_LLM_STEPS)])
+    require(out["loss"][-1] < out["loss"][0], f"examples: the LLM twin's "
+            f"loss {out['loss']} did not fall")
+    _per_round(got, EXAMPLE_LLM_STEPS, EXAMPLE_LLM_LAUNCHES)
+    out, got = counted("privacy_attack_demo", privacy_attack_demo.main, [])
+    require(out["observation_gap"] < 1e-4, f"examples: the demo's gap "
+            f"{out['observation_gap']}")
+    require({k: v for k, v in got.items() if v} == {"ota_modulate": 2},
+            f"examples: the demo launched {got}")
+    emit({"phase": "examples", "ok": True, **rows, "launches": total})
+    return total
+
+
 def _kernel_family(name: str) -> str:
     for fn in ("linear_scan_fwd_kernel", "linear_scan_bwd_kernel",
                # B12's staged plan
@@ -3127,7 +3557,8 @@ def phase_profile(torch, path: str, run_once, round_s: float):
     device time of every kernel (kernel events only: ``key_averages`` also
     credits each kernel's time to the ``aten::`` op that launched it),
     grouped by family, and its share of the unprofiled round time of that
-    path's phase."""
+    path's phase.  Returns the device ms and the matrix products' (cuBLAS)
+    ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3185,6 +3616,8 @@ def phase_profile(torch, path: str, run_once, round_s: float):
           "top": [{"name": e.key[:90], "calls": e.count,
                    "device_ms": e.self_device_time_total / 1e3}
                   for e in top]})
+    return {"device_ms": device_ms if kernels else None,
+            "matmul_ms": families.get("matmul", {}).get("device_ms", 0.0)}
 
 
 def main() -> int:
@@ -3224,6 +3657,9 @@ def main() -> int:
         paths["chaos"], chaos_alg, chaos_s = phase_chaos(torch, mlp_run)
         paths["baselines"] = phase_baselines(torch, mlp_run, round_s)
         paths["figures"] = phase_figures(torch)
+        paths["decentralized"] = phase_decentralized(torch)
+        paths["examples"] = phase_examples(torch)
+        _free(torch)
         phase_profile(torch, "mlp", _mlp_round(mlp_run["alg"], mlp_run),
                       round_s)
         phase_profile(torch, "scenario_deepfade",
@@ -3231,19 +3667,22 @@ def main() -> int:
         phase_profile(torch, "chaos", _mlp_round(chaos_alg, mlp_run), chaos_s)
         paths["resume"] = phase_resume(torch, mlp_run)
         paths["telemetry_mlp"] = phase_telemetry_mlp(torch, mlp_run)
+        paths["privacy"] = phase_privacy(torch, mlp_run)
         # the MLP paths' tensors go before the LLM round's ~60 GB
         del mlp_run, fade_alg, chaos_alg
         gc.collect()
         torch.cuda.empty_cache()
         paths["accumulate"] = phase_accumulate(torch, name)
-        paths["llm"], llm_round, llm_s, _ = phase_llm(
+        llm_theta: dict = {}
+        paths["llm"], llm_round, llm_s, llm_summary = phase_llm(
             torch, "llm", LLM_ARCH, LLM_LAYERS, LLM_SEQ, LLM_LR,
-            LLM_LAUNCHES)
-        phase_profile(torch, "llm", llm_round, llm_s)
-        # granite's ~55 GB go before the SSM round's ~56 GB
+            LLM_LAUNCHES, gate=_keep_theta(llm_theta))
+        llm_prof = phase_profile(torch, "llm", llm_round, llm_s)
+        # granite's ~50 GB go before the next LLM round's
         del llm_round
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free(torch)
+        paths["save_dots"] = phase_save_dots(torch, llm_summary,
+                                             llm_theta.pop("Theta"), llm_prof)
         paths["llm_ssm"], ssm_round, ssm_s, ssm_summary = phase_llm(
             torch, "llm_ssm", SSM_ARCH, SSM_LAYERS, SSM_SEQ, SSM_LR,
             SSM_LAUNCHES)
@@ -3255,6 +3694,7 @@ def main() -> int:
         paths["llm_hybrid"] = phase_llm_hybrid(torch)
         paths["rec_block"] = phase_rec_block(torch)
         _free(torch)
+        paths["chunked_attn"] = phase_chunked_attn(torch)
         paths["scaleup_sampled"] = phase_scaleup_sampled(torch)
         _free(torch)
         paths["llm_chaos"], chaos_round, chaos_llm_s, _ = phase_llm_chaos(

@@ -5,9 +5,12 @@ The paper's experiments use equal IID shards. Under label-skewed shards the
 per-worker optima genuinely disagree; ADMM's dual variables absorb the
 disagreement, so A-FADMM should retain accuracy where plain analog gradient
 averaging degrades. Reported: test accuracy after a fixed round budget, IID
-vs Dirichlet(0.3), for A-FADMM and A-GD.
+vs Dirichlet(0.3), for A-FADMM and A-GD.  :func:`ablation_decentralized`
+runs the paper's §6 chain without a parameter server.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -18,9 +21,11 @@ from repro_torch.benchmarks.common import run_train as train
 from repro_torch.core.admm import AdmmConfig
 from repro_torch.core.aggregators import make
 from repro_torch.core.channel import ChannelConfig
+from repro_torch.core.decentralized import (AnalogGadmm,
+                                            gadmm_quadratic_solver)
 from repro_torch.core.subcarrier import SubcarrierPlan
 from repro_torch.data.federated import split_dirichlet, split_iid
-from repro_torch.data.synthetic import image_dataset
+from repro_torch.data.synthetic import image_dataset, linreg_dataset
 from repro_torch.device import resolve_device
 from repro_torch.models.mlp import init_mlp_flat
 
@@ -46,11 +51,46 @@ def _task(split: str, n_workers: int = 8, rho: float = 0.5, device="cuda"):
                     local_iters=5, lr=0.01, batch=64)
 
 
+#: the decentralized ablation's key, as JAX's ``PRNGKey(11)``
+DECENTRALIZED_KEY = 11
+
+
+def decentralized_task(key: int, W: int, d: int, device):
+    """The ablation's samples X (2000, d), y (2000,) and the chain's
+    initial models (W, d), on ``device``."""
+    X, y, _ = linreg_dataset(key, 2000, d, device=device)
+    theta0 = torch.randn((W, d), generator=rng.generator(key, device),
+                         device=device)
+    return X, y, theta0
+
+
 def ablation_decentralized(rounds: int = 300, device="cuda"):
-    """Paper §6's chain GADMM with analog neighbour links: not ported."""
-    raise NotImplementedError(
-        "ablation_decentralized needs core/decentralized.py (AnalogGadmm), "
-        "which is not ported yet (ROADMAP queue A item 5)")
+    """Paper §6 "Decentralized Architecture": chain GADMM with analog
+    neighbour links vs the PS-based algorithms: 2 channel uses a round
+    (spatial reuse), and no worker ever talks to a central server."""
+    dev = resolve_device(device)
+    key = DECENTRALIZED_KEY
+    W, d = 8, 6
+    X, y, theta0 = decentralized_task(key, W, d, dev)
+    m = 2000 // W
+    Xw = X[: m * W].reshape(W, m, d) / math.sqrt(m)
+    yw = y[: m * W].reshape(W, m) / math.sqrt(m)
+    theta_star = torch.linalg.solve(X.T @ X, X.T @ y)
+
+    def f(th):
+        return float(torch.mean((y - X @ th) ** 2))
+
+    ccfg = ChannelConfig(n_workers=W, n_subcarriers=d, noisy=True,
+                         snr_db=40.0)
+    alg = AnalogGadmm(ccfg=ccfg, plan=SubcarrierPlan.build(d, d), rho=1.0)
+    solver = gadmm_quadratic_solver(Xw, yw, alg.rho)
+    st, met = alg.scan_rounds(key, alg.init(key, theta0), solver, None,
+                              rounds)
+    return {
+        "final_gap": abs(f(alg.global_model(st)) - f(theta_star)),
+        "consensus_gap": float(met["consensus_gap"][-1]),
+        "channel_uses_per_round": float(met["channel_uses"][-1]),
+    }
 
 
 def ablation_noniid(rounds: int = 20, device="cuda"):

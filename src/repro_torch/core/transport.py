@@ -31,7 +31,7 @@ plans (``block_cols``) and its worker cohort (``worker_chunk``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import json
 import math
@@ -90,6 +90,23 @@ def modulate(theta: Tensor, lam: Complex, h: Complex, rho: float) -> Complex:
     s_re, s_im = _ota_k.ota_modulate(_f32(theta), _f32(lam.re), _f32(lam.im),
                                      _f32(h.re), _f32(h.im), rho)
     return Complex(s_re, s_im)
+
+
+def superpose(signals: Complex, h: Complex,
+              reduce_fn: Optional[Callable[[Tensor], Tensor]] = None
+              ) -> Tuple[Complex, Tensor]:
+    """The air: y = Σ_n h_n ⊙ s_n, both complex planes, and the pilot
+    aggregate Σ_n |h_n|², in f32.  For callers that inspect the full
+    observation (the privacy harness, ``core/privacy.py``); the hot path
+    (:func:`receive`) superposes Re only.  ``reduce_fn`` replaces the sum
+    over the worker dim."""
+    hf = Complex(_f32(h.re), _f32(h.im))
+    rx = cplx.cmul(hf, Complex(_f32(signals.re), _f32(signals.im)))
+    if reduce_fn is None:
+        def reduce_fn(x: Tensor) -> Tensor:
+            return x.sum(0)
+    return (Complex(reduce_fn(rx.re), reduce_fn(rx.im)),
+            reduce_fn(cplx.abs2(hf)))
 
 
 def demodulate(y_re: Tensor, sumh2: Tensor, noise_re: Tensor,

@@ -14,9 +14,10 @@ Conventions:
   The JAX package gets the same by ``vmap`` over workers;
 * full causal attention (S ≥ 16, no window) runs B11, the flash-attention
   kernels (``kernels/flash_attention.py``); a sliding window, or S < 16,
-  takes the masked-einsum fallback in plain torch.  JAX's query-chunked
-  variant (``optflags`` ``chunked_attn``, refused) and the single-token
-  decode are not ported.
+  takes the masked-einsum fallback in plain torch, or under ``optflags``
+  ``chunked_attn`` (and S > ``ATTN_CHUNK``) its query-chunked variant,
+  whose score tensor is (chunk, S), not (S, S).  The single-token decode is
+  not ported.
 """
 from __future__ import annotations
 
@@ -196,13 +197,36 @@ def causal_mask(s: int, window: Optional[int], device=None) -> Tensor:
     return m
 
 
+def _attention_chunked(qg: Tensor, k: Tensor, v: Tensor,
+                       window: Optional[int], chunk: int) -> Tensor:
+    """Query-chunked causal attention: the peak score tensor is (chunk, S),
+    not (S, S).  Exact softmax (a full row per query chunk), over query
+    blocks in order.  qg: (B,S,KV,G,hd)  k, v: (B,S,KV,hd) -> (B,S,KV,G,hd);
+    S is padded to a multiple of the chunk and the padded rows sliced
+    off."""
+    S = qg.shape[1]
+    C = min(chunk, S)
+    n = -(-S // C)
+    if n * C != S:
+        qg = F.pad(qg, (0, 0, 0, 0, 0, 0, 0, n * C - S))
+    t = torch.arange(S, device=qg.device)
+    outs = []
+    for ci in range(n):
+        i = ci * C + torch.arange(C, device=qg.device)[:, None]  # query rows
+        m = t[None, :] <= i
+        if window is not None:
+            m = m & (t[None, :] > i - window)
+        w = _attn_weights(qg[:, ci * C:(ci + 1) * C], k, m)
+        outs.append(torch.einsum("bkgst,btkh->bskgh", w.to(v.dtype), v))
+    return torch.cat(outs, 1)[:, :S]
+
+
 def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
                   window: Optional[int]) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Full-sequence causal attention over x (..., S, d). Returns (out, kv)
-    — kv for prefill."""
-    if optflags.enabled("chunked_attn"):
-        raise NotImplementedError("REPRO_OPT chunked_attn is not ported yet "
-                                  "(ROADMAP queue A item 2)")
+    — kv for prefill.  The reference's dispatch: B11 wherever there is no
+    window and S ≥ 16, else the chunked path under ``chunked_attn`` when
+    S > ``ATTN_CHUNK``, else the masked einsum."""
     hd = cfg.hd
     S = x.shape[-2]
     lead = x.shape[:-2]
@@ -228,6 +252,8 @@ def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
         of = flash_attention(qf.contiguous(), kf.contiguous(),
                              vf.contiguous(), causal=True)
         o = of.reshape(n, cfg.n_kv_heads, g, S, hd).permute(0, 3, 1, 2, 4)
+    elif optflags.enabled("chunked_attn") and S > optflags.ATTN_CHUNK:
+        o = _attention_chunked(qg, kn, vn, window, optflags.ATTN_CHUNK)
     else:
         w = _attn_weights(qg, kn, causal_mask(S, window, x.device))
         o = torch.einsum("bkgst,btkh->bskgh", w.to(x.dtype), vn)

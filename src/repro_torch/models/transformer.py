@@ -6,16 +6,20 @@ decode).
 A Python loop over the stacked layers replaces ``lax.scan``; ``remat=True``
 (JAX's default) checkpoints each layer with
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, so the
-backward pass runs each layer's forward again — B11's forward included.
+backward pass runs each layer's forward again — B11's forward included;
+under ``REPRO_OPT=save_dots`` the forward keeps the matrix products'
+outputs and the backward recomputes the rest (``run_stacked``).
 Leaves may carry a leading worker dim W in front of ``n_layers``
 (``models/layers.py``); layer ``i`` is then ``leaf[:, i]``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import optflags, rng
 from repro_torch.device import resolve_device
@@ -76,21 +80,39 @@ def layer_params(params: Params, i: int, key: str = "layers") -> Params:
     return tree_map(lambda leaf: leaf[index], params[key])
 
 
+#: the matrix products ``dense``, the einsums and ``matmul`` lower to
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_saveable(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """JAX's ``dots_saveable``: keep the outputs of the matrix products,
+    recompute everything else.  The CUDA kernels (B11, B12) are ctypes
+    launches the dispatcher never sees, so they run again, as a
+    ``pallas_call`` (no ``dot_general``) does under JAX's policy."""
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if func in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def run_stacked(params: Params, x: Tensor, block: Callable, n: int,
                 remat: bool, key: str = "layers") -> Tensor:
     """x through ``block(x, entry)`` for each of the ``n`` stacked entries
     of ``params[key]`` in order (JAX's ``lax.scan``); with ``remat`` each
     entry is one ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of
-    the scan body), so the backward pass runs its forward again."""
+    the scan body), so the backward pass runs its forward again, all of it
+    (JAX's ``nothing_saveable``) or, under ``optflags`` ``save_dots``, all
+    but the matrix products, whose outputs the forward keeps
+    (:func:`_dots_saveable`)."""
+    policy = {}
     if remat and optflags.enabled("save_dots"):
-        raise NotImplementedError(
-            "REPRO_OPT save_dots (a checkpoint policy that keeps the matrix "
-            "products) is not ported yet (ROADMAP queue A item 2)")
+        policy["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
     for i in range(n):
         entry = layer_params(params, i, key)
         if remat:
             x = checkpoint(block, x, entry, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False, **policy)
         else:
             x = block(x, entry)
     return x

@@ -8,8 +8,13 @@ the port still takes effect:
 * ``enabled("chunked_scan")`` — the SSM runs its recurrence in chunks of
   :data:`SCAN_CHUNK` steps along the sequence (``models/ssm.py``), so its
   (·, S, d_inner·n) f32 planes never exist at full length.
-* ``enabled("chunked_attn")`` and ``enabled("save_dots")`` — not ported
-  yet (ROADMAP queue A item 2): the models refuse them.
+* ``enabled("chunked_attn")`` — windowed (or short) attention runs in
+  query chunks of :data:`ATTN_CHUNK` rows (``models/layers.py``), so its
+  score tensor is (chunk, S), not (S, S); full causal attention runs B11
+  whatever the flag says, as in the reference.
+* ``enabled("save_dots")`` — each checkpointed layer keeps its matrix
+  products' outputs and the backward recomputes the rest
+  (``models/transformer.run_stacked``, JAX's ``dots_saveable``).
 
 ``SCAN_CHUNK`` (``REPRO_SCAN_CHUNK``, 512) and ``ATTN_CHUNK``
 (``REPRO_ATTN_CHUNK``, 512) are the chunk lengths.

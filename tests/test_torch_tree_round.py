@@ -381,6 +381,26 @@ def test_tree_round_matches_flat_round():
     assert torch.equal(l["w"].im, lam_flat.im)
 
 
+def test_tree_round_matches_the_superposed_flat_round():
+    """The reference's own flat chain (``tests/test_tree_flat_
+    consistency.py``): modulate, ``superpose`` (both planes and the pilot
+    sum), demodulate and the dual update, against the one-leaf tree round
+    on a noise-free link: the same Θ and λ bits."""
+    from repro_torch.core import transport
+    Wf, d, rho = 5, 48, 0.5
+    theta, lam, h = _flat_inputs(Wf, d, 0)
+    acfg, ccfg = _noise_free(Wf)
+    zero = torch.zeros(d)
+    y, sumh2 = transport.superpose(transport.modulate(theta, lam, h, rho), h)
+    Theta_flat = transport.demodulate(y.re, sumh2, zero)
+    lam_flat = transport.dual_update(lam, h, theta, Theta_flat, rho)
+    T, l, _ = tree_ota.ota_tree_round({"w": theta}, {"w": lam}, {"w": h},
+                                      zero, acfg, ccfg)
+    assert torch.equal(T["w"], Theta_flat)
+    assert torch.equal(l["w"].re, lam_flat.re)
+    assert torch.equal(l["w"].im, lam_flat.im)
+
+
 def test_tree_round_multi_leaf_equals_concatenated_flat():
     """Splitting the parameter vector across leaves changes no bit of Θ
     (the protocol is elementwise)."""

@@ -117,6 +117,34 @@ def replay(alg, theta0: torch.Tensor, key, batch_idx=None):
 # cohorts, scenarios, faults and guards; the LLM trainer's rounds
 # ---------------------------------------------------------------------------
 
+def gadmm_draws(keys, shape, ccfg):
+    """The link planes JAX's ``AnalogGadmm.round(key, ...)`` draws for each
+    of ``keys`` (round keys), as one ``r -> GadmmDraws`` of round r: each
+    half-round's ``_noisy_link`` splits its half of the key into h and z."""
+    from repro.core.channel import awgn
+
+    from repro_torch.core.decentralized import GadmmDraws
+
+    if not ccfg.noisy:
+        return lambda r: GadmmDraws(None, None, None, None)
+
+    @jax.jit
+    @jax.vmap
+    def planes(key):
+        out = []
+        for k in jax.random.split(key):
+            kh, kz = jax.random.split(k)
+            h = rayleigh(kh, shape)
+            z = awgn(kz, shape, ccfg.noise_var_matched)
+            out += [h.re, h.im, z.re, z.im]
+        return out
+
+    p = [np.array(x) for x in planes(jnp.stack(list(keys)))]
+    return lambda r: GadmmDraws(*(Complex(torch.from_numpy(p[i][r]),
+                                          torch.from_numpy(p[i + 1][r]))
+                                  for i in range(0, 8, 2)))
+
+
 def cohort_draw(key, cfg):
     """The plane JAX's ``sample_cohort(key, cfg, ...)`` draws from the
     ``COHORT_SALT`` branch of round key ``key``: the permutation for
