@@ -173,8 +173,29 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              + backward: outputs and gradients within 2⁻⁶, each path's peak
              and ms; then phase 21's 1-layer granite-8b trainer under the
              flag, 3 rounds, B11 as ever (``chunked_attn_llm``).
+33. llm_sketched_check — after phase 27: the sketched mode (A-FADMM-CS,
+             ``make_fl_train(mode="sketched")``) on reduced granite-8b in
+             f32 (W = 4, 2 × 16 tokens, ratio 16, sketch_lr 0.5, 2 sgd
+             steps at 1e-2): 3 rounds on the card and on the CPU from the
+             same state and draws (loss rtol 1e-5, Θ atol 1e-5), then 12
+             rounds on the card, the last loss below 0.9 × the first.
+34. llm_sketched — the sketched mode on granite-8b at full width and all
+             36 layers (D = 8,053,362,688, bf16): W = 2, 1 × 4,096 tokens,
+             2 sgd steps at 5e-4, ratio 256 (d_s = 31,458,448), 3 rounds:
+             the peak within the card, λ and h (2, d_s), B11 288/144/144
+             and B6, B3, B4 once a round; the codec's device ms; then one
+             more round under torch.profiler.
+35. serve — ``repro_torch.serve`` on granite-8b, falcon-mamba-7b and
+             recurrentgemma-2b at full width and depth, bf16: 8 prompts of
+             64 tokens, 64 greedy tokens through ``generate`` (every step's
+             logits finite, no kernel launched) and ``make_prefill`` (B11 ×
+             36, B12 × 64, B12 × 18); each family's decode against its
+             forward in f32 at 2 (3) layers; one decode step profiled.
+             Its kernel rows: B6, B3 and B4 at (2, 31,458,448), B11 at the
+             prefill's (8, 32, 64, 128) and B12 at (8, 64, 131,072) and
+             (8, 64, 2,560).
 
-Launch counts are reset just before each of phases 4–12, 14–32 and read
+Launch counts are reset just before each of phases 4–12, 14–35 and read
 just after.  Then come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
@@ -802,16 +823,20 @@ def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
 def _llm_round_shapes():
     """(W, D) of the packed round of each LLM path, D from the path's own
     config: granite-8b (``llm``, W·D = 1.28·10⁹, near 2³¹), falcon-mamba-7b
-    (``llm_ssm``, whose D is not a multiple of B6's 128-column tiles) and
-    the reduced hybrid (``llm_hybrid``)."""
+    (``llm_ssm``, whose D is not a multiple of B6's 128-column tiles), the
+    reduced hybrid (``llm_hybrid``), 1-layer granite-8b (``llm_chaos``) and
+    the full-depth granite-8b's sketch (``llm_sketched``: (W, d_s))."""
     from repro_torch.models.registry import packed_param_count
+    from repro_torch.train.llm_trainer import _sketch_dim
 
     return [(LLM_WORKERS, packed_param_count(_llm_cfg(arch, n_layers)))
             for arch, n_layers in ((LLM_ARCH, LLM_LAYERS),
                                    (SSM_ARCH, SSM_LAYERS))] + [
         (HYBRID_WORKERS, packed_param_count(_hybrid_cfg())),
         (LLM_WORKERS, packed_param_count(_llm_cfg(LLM_ARCH,
-                                                  ROBUST_LAYERS)))]
+                                                  ROBUST_LAYERS))),
+        (LLM_WORKERS, _sketch_dim(packed_param_count(_llm_cfg(
+            LLM_ARCH, SKETCH_LAYERS)), SKETCH_RATIO))]
 
 
 def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
@@ -948,7 +973,9 @@ FLASH_CASES = (("", 2, 32, 4096, 128, "bfloat16", True),
                ("[f32 ragged (1, 2, 1000, 64)]", 1, 2, 1000, 64, "float32",
                 True),
                ("[f32 non-causal (1, 2, 1000, 64)]", 1, 2, 1000, 64,
-                "float32", False))
+                "float32", False),
+               ("[bf16 prefill (8, 32, 64, 128)]", 8, 32, 64, 128,
+                "bfloat16", True))
 #: which cores each dtype's B11 kernels run on (``flash_attention.cu``)
 FLASH_CORES = {"bfloat16": "tensor cores", "float32": "simt"}
 
@@ -1060,7 +1087,11 @@ def _scan_cases():
             ("[hybrid ({}, {}, {})]", LLM_WORKERS, LLM_SEQ, full.lru_width),
             ("[hybrid path ({}, {}, {})]", HYBRID_WORKERS * HYBRID_BATCH,
              HYBRID_SEQ, reduced.lru_width),
-            ("[ragged ({}, {}, {})]", 3, 1000, 100)]
+            ("[ragged ({}, {}, {})]", 3, 1000, 100),
+            ("[ssm prefill ({}, {}, {})]", SERVE_BATCH, SERVE_PROMPT,
+             ssm_cfg.d_inner * ssm_cfg.ssm_state),
+            ("[hybrid prefill ({}, {}, {})]", SERVE_BATCH, SERVE_PROMPT,
+             full.lru_width)]
 
 
 def _scan_rows(torch, build, mem_rate, f32_rate):
@@ -3517,6 +3548,404 @@ def phase_examples(torch):
     return total
 
 
+#: phase ``llm_sketched_check``: ``tests/test_fl_llm.py``'s sketched setting
+#: (reduced granite-8b, W = 4, B = 2, S = 16, ratio 16, sketch_lr 0.5, 2
+#: local sgd steps at 1e-2) in f32, so the card can be held to the CPU
+SKETCH_CHECK_W, SKETCH_CHECK_B, SKETCH_CHECK_S = 4, 2, 16
+SKETCH_CHECK_FL = dict(n_workers=SKETCH_CHECK_W, local_steps=2,
+                       local_lr=1e-2, sketch_ratio=16, sketch_lr=0.5)
+#: rounds held card against CPU, then rounds trained on the card alone to
+#: the reference's own bar (the last loss below 0.9 × the first)
+SKETCH_CHECK_ROUNDS, SKETCH_TRAIN_ROUNDS, SKETCH_TRAIN_BAR = 3, 12, 0.9
+#: card against CPU, f32: the local steps' sums and the codec's scatter-add
+#: (float atomics on the card) run in other orders, and the round divides
+#: by Σ|h|²
+SKETCH_LOSS_RTOL = 1e-5
+SKETCH_THETA_ATOL = 1e-5
+
+
+def _sketched_launches(cfg, W: int, local_steps: int) -> dict:
+    """A sketched round's launches: B11 as each worker's local steps make
+    it (the forward, and again in the checkpoint's recompute; dq and dk/dv
+    once a step and layer), one B6 + B3 and one B4 on the (W, d_s)
+    sketches."""
+    n = W * local_steps * cfg.n_layers
+    return {"flash_attention_fwd": 2 * n, "flash_attention_dq": n,
+            "flash_attention_dkv": n, "ota_round_stats": 1,
+            "ota_demodulate_dyn": 1, "admm_dual_update": 1,
+            "ota_modulate": 0, "ota_receive": 0, "ota_round_theta": 0}
+
+
+def phase_llm_sketched_check(torch):
+    """The sketched mode (``make_fl_train(mode="sketched")``) on reduced
+    granite-8b in f32: 3 rounds on the card and on the CPU (the plain
+    versions) from the same state and draws, losses and Θ held; then 12
+    rounds on the card from the initial state, the loss below 0.9 × its
+    first.  Launches: B11 for every local step, B6, B3 and B4 once a
+    round."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model, get_config
+    from repro_torch.train.llm_trainer import (FLConfig, draw_round,
+                                               make_fl_train)
+    from repro_torch.tree import to_device, tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LLM_ARCH).reduced(),
+                              param_dtype="float32")
+    model = build_model(cfg)
+    W = SKETCH_CHECK_W
+    flcfg = FLConfig(mode="sketched", **SKETCH_CHECK_FL)
+    acfg = AdmmConfig(rho=0.5, flip_on_change=False)
+    ccfg = ChannelConfig(n_workers=W, snr_db=40.0)
+    init_cpu, step_cpu = make_fl_train(model, flcfg, acfg, ccfg,
+                                       device="cpu")
+    _, step_gpu = make_fl_train(model, flcfg, acfg, ccfg)
+    tokens = token_dataset(SEED + 7, SKETCH_CHECK_B, SKETCH_CHECK_S,
+                           cfg.vocab_size, n_workers=W, device="cpu")
+    st0 = init_cpu(SEED)
+    st_cpu, st_gpu = st0, to_device(st0, dev)
+    cpu_losses, gpu_losses = [], []
+    build.reset_launches()
+    for r in range(SKETCH_CHECK_ROUNDS):
+        draws = draw_round(rng.fold_in(SEED, r + 1), st_cpu, ccfg)
+        st_cpu, m_cpu = step_cpu(st_cpu, {"tokens": tokens}, draws=draws)
+        st_gpu, m_gpu = step_gpu(st_gpu, {"tokens": tokens.to(dev)},
+                                 draws=to_device(draws, dev))
+        cpu_losses.append(float(m_cpu["loss"]))
+        gpu_losses.append(float(m_gpu["loss"]))
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu_losses, cpu_losses)]
+    require(all(math.isfinite(x) for x in gpu_losses + cpu_losses),
+            f"llm_sketched_check: non-finite losses {gpu_losses}, "
+            f"{cpu_losses}")
+    require(max(rel) <= SKETCH_LOSS_RTOL, f"llm_sketched_check: card losses "
+            f"{gpu_losses} differ from the CPU's {cpu_losses} by up to "
+            f"{max(rel)} relative, beyond {SKETCH_LOSS_RTOL}")
+    theta_gap = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(tree_leaves(st_gpu.Theta),
+                                    tree_leaves(st_cpu.Theta)))
+    require(theta_gap <= SKETCH_THETA_ATOL, f"llm_sketched_check: card Θ "
+            f"differs from the CPU's by {theta_gap} after "
+            f"{SKETCH_CHECK_ROUNDS} rounds, beyond {SKETCH_THETA_ATOL}")
+    st = to_device(st0, dev)
+    batch = {"tokens": tokens.to(dev)}
+    losses = []
+    t0 = time.perf_counter()
+    for r in range(SKETCH_TRAIN_ROUNDS):
+        st, m = step_gpu(st, batch, key=rng.fold_in(SEED, 100 + r))
+        losses.append(float(m["loss"]))
+    round_s = (time.perf_counter() - t0) / SKETCH_TRAIN_ROUNDS
+    launches = dict(build.launches)
+    _per_round(launches, SKETCH_CHECK_ROUNDS + SKETCH_TRAIN_ROUNDS,
+               _sketched_launches(cfg, W, SKETCH_CHECK_FL["local_steps"]))
+    require(all(math.isfinite(x) for x in losses) and losses[-1]
+            < SKETCH_TRAIN_BAR * losses[0], f"llm_sketched_check: the loss "
+            f"went {losses[0]} -> {losses[-1]} in {SKETCH_TRAIN_ROUNDS} "
+            f"rounds, not below {SKETCH_TRAIN_BAR}× (losses {losses})")
+    emit({"phase": "llm_sketched_check", "ok": True, "arch": cfg.name,
+          "reduced": "ModelConfig.reduced(): 2 layers, d_model 128",
+          "dtype": "float32", **SKETCH_CHECK_FL,
+          "batch_per_worker": SKETCH_CHECK_B, "seq": SKETCH_CHECK_S,
+          "d_s": st0.lam.re.shape[1], "loss": gpu_losses,
+          "cpu_loss": cpu_losses, "loss_rel_err": rel,
+          "loss_rtol": SKETCH_LOSS_RTOL,
+          "Theta_max_abs_gap": theta_gap, "Theta_atol": SKETCH_THETA_ATOL,
+          "train_loss": losses, "train_bar": SKETCH_TRAIN_BAR,
+          "seconds_per_round": round_s, "launches": launches})
+    return launches
+
+
+#: phase ``llm_sketched``: granite-8b at full width and full depth
+#: (D = 8,053,362,688) in bf16, W = 2, 1 × 4,096 tokens a worker, 2 local
+#: sgd steps at ``LLM_LR``, ratio 256 (d_s = 31,458,448), sketch_lr 1, 3
+#: rounds, telemetry on for the model-space update norm
+SKETCH_LAYERS, SKETCH_RATIO, SKETCH_LR, SKETCH_ROUNDS = 36, 256, 1.0, 3
+
+
+def _codec_ms(torch, Theta, d_s: int) -> dict:
+    """Device ms of the round's codec on ``Theta``'s leaves (a delta's size
+    and layout): one worker's chunked encode, and one decode of a (d_s,)
+    sketch a chunk at a time (its values summed so none is dropped)."""
+    from repro_torch.core.sketch import (chunks, decode_packed,
+                                         encode_chunked)
+    from repro_torch.train.llm_trainer import SKETCH_SEED
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(Theta)
+    s = torch.zeros(d_s, device=leaves[0].device)
+
+    def encode():
+        encode_chunked(leaves, d_s, SKETCH_SEED, out=s)
+
+    def decode():
+        acc, off = torch.zeros((), device=s.device), 0
+        for leaf in leaves:
+            n = leaf.numel()
+            for a, b in chunks(n):
+                acc += decode_packed(s, b - a, SKETCH_SEED, off + a).sum()
+            off += n
+        return acc
+
+    return {"encode_ms": time_ms(torch, encode, runs=3, warmup=1),
+            "decode_ms": time_ms(torch, decode, runs=3, warmup=1)}
+
+
+def phase_llm_sketched(torch):
+    """The sketched mode on granite-8b at full width and all 36 layers,
+    bf16: Θ is one shared 16.1 GB model, λ and h (2, d_s).  Gates: the
+    peak within the card, λ and h (W, d_s), every round's loss and Θ
+    finite, the launches of every round (B11 288/144/144, B6, B3, B4 once);
+    recorded: s/round, tokens/s, the codec's device ms, the model-space
+    update norm, one profiled round."""
+    from repro_torch import rng
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.models.registry import packed_param_count
+    from repro_torch.train.llm_trainer import (FLConfig, _sketch_dim,
+                                               make_fl_train)
+    from repro_torch.tree import tree_leaves
+
+    cfg = _llm_cfg(LLM_ARCH, SKETCH_LAYERS)
+    model = build_model(cfg)
+    W, B, S, local_steps = LLM_WORKERS, 1, LLM_SEQ, 2
+    flcfg = FLConfig(mode="sketched", n_workers=W, local_steps=local_steps,
+                     local_lr=LLM_LR, sketch_ratio=SKETCH_RATIO,
+                     sketch_lr=SKETCH_LR, telemetry=True)
+    acfg = AdmmConfig(rho=0.5, flip_on_change=False)
+    ccfg = ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=10)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init_fn, train_step = make_fl_train(model, flcfg, acfg, ccfg)
+    state = init_fn(SEED)
+    tokens = token_dataset(SEED + 1, B, S, cfg.vocab_size, n_workers=W)
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    d = sum(leaf.numel() for leaf in tree_leaves(state.Theta))
+    _check_packed_d("llm_sketched", cfg, d)
+    d_s = _sketch_dim(packed_param_count(cfg), SKETCH_RATIO)
+    require(tuple(state.lam.re.shape) == (W, d_s)
+            and tuple(state.chan.h.re.shape) == (W, d_s),
+            f"llm_sketched: λ {tuple(state.lam.re.shape)} and h "
+            f"{tuple(state.chan.h.re.shape)} are not ({W}, {d_s})")
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    losses, times, norms, inv_alphas = [], [], [], []
+    for r in range(SKETCH_ROUNDS):
+        held = [state]
+        state = None
+        t0 = time.perf_counter()
+        state, m = train_step(held.pop(), batch, key=rng.fold_in(SEED, r + 1))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["obs/theta_update_norm"]))
+        inv_alphas.append(float(m["inv_alpha"]))
+        require(math.isfinite(losses[-1]) and math.isfinite(norms[-1]),
+                f"llm_sketched: round {r} loss {losses[-1]} or update norm "
+                f"{norms[-1]} is not finite")
+        require(all(bool(torch.isfinite(leaf).all())
+                    for leaf in tree_leaves(state.Theta)),
+                f"llm_sketched: non-finite Θ after round {r}")
+        del m
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    _per_round(launches, SKETCH_ROUNDS, _sketched_launches(cfg, W,
+                                                           local_steps))
+    require(peak <= CARD_BYTES and setup_peak <= CARD_BYTES,
+            f"llm_sketched: peak {peak / 1e9} GB (set-up "
+            f"{setup_peak / 1e9} GB) is above the card's "
+            f"{CARD_BYTES / 1e9} GB")
+    round_s = statistics.mean(times[1:])
+    tokens_per_round = W * B * S * local_steps
+    codec = _codec_ms(torch, state.Theta, d_s)
+    codec_round_ms = W * codec["encode_ms"] + codec["decode_ms"]
+    emit({"phase": "llm_sketched", "ok": True, "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+          "dtype": cfg.param_dtype, "D": d, "d_s": d_s,
+          "sketch_ratio": SKETCH_RATIO, "sketch_lr": SKETCH_LR, "W": W,
+          "batch_per_worker": B, "seq": S, "local_steps": local_steps,
+          "local_lr": LLM_LR, "rounds": SKETCH_ROUNDS, "setup_s": setup_s,
+          "setup_peak_gb": setup_peak / 1e9, "round_s": times,
+          "seconds_per_round": round_s,
+          "tokens_per_s": tokens_per_round / round_s, "loss": losses,
+          "model_space_update_norm": norms, "inv_alpha": inv_alphas,
+          "peak_mem_gb": peak / 1e9, "codec_encode_ms": codec["encode_ms"],
+          "codec_decode_ms": codec["decode_ms"],
+          "codec_ms_per_round": codec_round_ms,
+          "codec_share_of_round": codec_round_ms / (round_s * 1e3),
+          "launches": launches})
+    keys = iter(range(100, 1000))
+
+    def one_round():
+        nonlocal state
+        state, _ = train_step(state, batch, key=rng.fold_in(SEED,
+                                                            next(keys)))
+    return launches, one_round, round_s
+
+
+#: phase ``serve``: each family at full width and depth, bf16, random init:
+#: a batch of 8 prompts of 64 tokens, 64 greedy tokens through ``generate``
+#: (the prompt ingested through decode), and ``make_prefill`` on the same
+#: prompts, whose launches are B11 a layer (granite-8b) and B12 a
+#: recurrent layer (all 64 of falcon-mamba-7b; 18 of recurrentgemma-2b's
+#: 26, its windowed attention taking the masked path)
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 64, 64
+SERVE_ARCHS = (("granite-8b", {"flash_attention_fwd": 36}),
+               ("falcon-mamba-7b", {"linear_scan_fwd": 64}),
+               ("recurrentgemma-2b", {"linear_scan_fwd": 18}))
+#: the decode-against-forward check: f32 at full width with 2 layers (the
+#: hybrid 3: one of each kind), 8 tokens, TF32 off
+SERVE_CHECK_LAYERS = {"granite-8b": 2, "falcon-mamba-7b": 2,
+                      "recurrentgemma-2b": 3}
+SERVE_CHECK_TOKENS, SERVE_CHECK_RTOL = 8, 1e-4
+
+
+def _serve_check(torch, arch: str) -> dict:
+    """Token-by-token decode against the teacher-forced forward, f32, at
+    full width: max |Δlogit| ≤ ``SERVE_CHECK_RTOL`` × max |logit| and the
+    same argmax at every position."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.models import build_model, get_config
+
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=SERVE_CHECK_LAYERS[arch],
+                              param_dtype="float32")
+    dev = torch.device("cuda")
+    m = build_model(cfg)
+    p = m.init(SEED + 5)
+    n = SERVE_CHECK_TOKENS
+    toks = torch.randint(0, cfg.vocab_size, (1, n), device=dev,
+                         generator=rng.generator(SEED + 6, dev))
+    with torch.no_grad():
+        fwd, _ = m.forward(p, {"tokens": toks}, remat=False)
+        cache = m.init_cache(1, n)
+        errs, agree = [], []
+        for t in range(n):
+            logits, cache = m.decode_step(p, cache, toks[:, t], t)
+            errs.append(float((logits - fwd[:, t]).abs().max()))
+            agree.append(bool(torch.equal(logits.argmax(-1),
+                                          fwd[:, t].argmax(-1))))
+    scale = float(fwd.abs().max())
+    require(max(errs) <= SERVE_CHECK_RTOL * scale and all(agree),
+            f"serve: {arch} decode against forward: max |Δ| {max(errs)} "
+            f"(bar {SERVE_CHECK_RTOL * scale}), argmax equal {agree}")
+    del m, p, fwd, cache
+    return {"layers": cfg.n_layers, "max_abs_err": max(errs),
+            "max_abs_logit": scale, "argmax_equal": all(agree)}
+
+
+def phase_serve(torch, card):
+    """Serving (``repro_torch.serve``) on granite-8b, falcon-mamba-7b and
+    recurrentgemma-2b at full width and depth, bf16.  Gates: the ids'
+    shape and range, every decode step's logits finite, the peak within the
+    card, the prefill's launches (B11 or B12) and none in decode, and the
+    f32 decode-against-forward check.  Recorded: prefill ms, the wall ms of
+    a decode step against its bound (the weights' bytes at the card's
+    memory rate), tokens/s, the peak; one decode step profiled.  Returns
+    the prefills' launches."""
+    from repro_torch import rng
+    from repro_torch.kernels import build
+    from repro_torch.models import get_model
+    from repro_torch.serve import generate, make_prefill
+    from repro_torch.tree import tree_leaves
+
+    _, (mem_rate, _, _) = card_peaks(card)
+    dev = torch.device("cuda")
+    B, P, N = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    paths: dict = {}
+    for arch, want in SERVE_ARCHS:
+        check = _serve_check(torch, arch)
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        model = get_model(arch)
+        cfg = model.cfg
+        t0 = time.perf_counter()
+        params = model.init(SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weight_bytes = sum(leaf.numel() * leaf.element_size()
+                           for leaf in tree_leaves(params))
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                                generator=rng.generator(SEED + 3, dev))
+        prefill = make_prefill(model)
+        build.reset_launches()
+        last = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in build.launches.items() if v}
+        require(launches == want, f"serve: {arch} prefill launched "
+                f"{launches}, want {want}")
+        require(bool(torch.isfinite(last).all()) and tuple(last.shape)
+                == (B, cfg.vocab_size), f"serve: {arch} prefill logits "
+                f"{tuple(last.shape)} not finite or not ({B}, V)")
+        prefill_ms = time_ms(torch, lambda: prefill(
+            params, {"tokens": prompts}), runs=5, warmup=1, spin=False)
+        for k, v in launches.items():
+            paths[k] = paths.get(k, 0) + v
+
+        finite = []
+
+        def observed_step(p, c, tok, pos):
+            logits, c = model.decode_step(p, c, tok, pos)
+            finite.append(torch.isfinite(logits).all())
+            return logits, c
+
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = generate(model._replace(decode_step=observed_step), params,
+                       prompts, n_steps=N)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        require(not any(build.launches.values()), f"serve: {arch} decode "
+                f"launched {dict(build.launches)}")
+        require(tuple(ids.shape) == (B, N) and int(ids.min()) >= 0
+                and int(ids.max()) < cfg.vocab_size, f"serve: {arch} ids "
+                f"{tuple(ids.shape)} in [{int(ids.min())}, "
+                f"{int(ids.max())}]")
+        steps = P - 1 + N
+        require(len(finite) == steps and bool(torch.stack(finite).all()),
+                f"serve: {arch} non-finite logits in {steps} decode steps")
+        step_ms = gen_s / steps * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        require(peak <= CARD_BYTES, f"serve: {arch} peak {peak / 1e9} GB")
+        cache = model.init_cache(B, P + N)
+        tok = ids[:, -1]
+        prof = phase_profile(
+            torch, f"serve_decode:{arch}",
+            lambda: model.decode_step(params, cache, tok, P), step_ms / 1e3)
+        bound_ms = weight_bytes / mem_rate * 1e3
+        emit({"phase": "serve", "ok": True, "arch": arch,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "vocab_size": cfg.vocab_size, "dtype": cfg.param_dtype,
+              "params": sum(leaf.numel() for leaf in tree_leaves(params)),
+              "weight_bytes": weight_bytes, "batch": B, "prompt": P,
+              "new_tokens": N, "init_s": init_s, "prefill_ms": prefill_ms,
+              "prefill_launches": launches, "decode_steps": steps,
+              "generate_s": gen_s, "decode_ms_per_step": step_ms,
+              "decode_device_ms_per_step": prof["device_ms"],
+              "decode_bound_ms": bound_ms,
+              "decode_over_bound": step_ms / bound_ms,
+              "new_tokens_per_s": B * N / gen_s,
+              "peak_mem_gb": peak / 1e9, "decode_vs_forward_f32": check})
+        del model, params, prompts, last, ids, cache, tok, finite
+        _free(torch)
+    return paths
+
+
 def _kernel_family(name: str) -> str:
     for fn in ("linear_scan_fwd_kernel", "linear_scan_bwd_kernel",
                # B12's staged plan
@@ -3709,6 +4138,15 @@ def main() -> int:
         paths["telemetry_llm"] = phase_telemetry_llm(torch)
         _free(torch)
         paths["launch"] = phase_launch(torch)
+        _free(torch)
+        paths["llm_sketched_check"] = phase_llm_sketched_check(torch)
+        _free(torch)
+        paths["llm_sketched"], sketch_round, sketch_s = phase_llm_sketched(
+            torch)
+        phase_profile(torch, "llm_sketched", sketch_round, sketch_s)
+        del sketch_round
+        _free(torch)
+        paths["serve"] = phase_serve(torch, name)
         _free(torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})

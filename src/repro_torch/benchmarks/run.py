@@ -25,11 +25,10 @@ def _not_ported(name: str, why: str, device="cuda"):
 def _benchmarks():
     from repro_torch.benchmarks import (ablation_noniid, fig2_linreg,
                                         fig3_classification, fig5_rho,
-                                        scaleup)
+                                        scaleup, serve_microbench)
     kernels = ("the JAX package's kernel and transport timings; the port's "
                "are chip_smoke.py's kernels phase")
     missing = {
-        "serve_microbench": "serving is ROADMAP queue A item 5",
         "kernels_microbench": kernels,
         "transport_microbench": kernels,
         "roofline_summary": kernels,
@@ -45,6 +44,7 @@ def _benchmarks():
         "fig3c_scalability": fig3_classification.fig3c_scalability,
         "fig5_rho_sensitivity": fig5_rho.fig5_rho_sensitivity,
         "scaleup": scaleup.scaleup,
+        "serve_microbench": serve_microbench.serve_microbench,
         **{k: functools.partial(_not_ported, k, why)
            for k, why in missing.items()},
     }

@@ -14,10 +14,14 @@ is ``fold_in(key, 1000 + r)`` and its round key ``fold_in(key, 2000 + r)``,
 by the global index, so a resumed run (``--checkpoint-dir`` +
 ``--resume``) equals the uninterrupted one bit for bit.
 
-Refused by name: ``--fsdp > 1`` (a mesh, ROADMAP queue A item 6),
-``--mode sketched`` (item 5, refused by the trainer) and the families the
-model registry does not build.  Torch has no HLO, so no
-``compile_report.json`` is written; the manifest says why.
+``--mode sketched`` runs A-FADMM-CS (one shared model, (W, d_s) duals;
+``--sketch-ratio``, ``--sketch-lr``): its state's fields (``Theta``,
+``lam``, ``chan``, ``step``, ``flt``) are the snapshot's keys, as the
+reference writes them.  Refused by name: ``--fsdp > 1`` (a mesh, ROADMAP
+queue A item 6), ``--population`` in the sketched mode (the trainer's
+ValueError) and the families the model registry does not build.  Torch
+has no HLO, so no ``compile_report.json`` is written; the manifest says
+why.
 
 :func:`run` takes the parsed arguments and, optionally, a model built by
 the caller (a full-width model cut to fewer layers, say); :func:`main`

@@ -16,8 +16,13 @@ The recurrence runs B12 (``kernels/linear_scan.py``) with the leading
 worker and batch dims folded into its batch.  Attention is windowed
 (``attn_window``), so it takes ``layers.attention_fwd``'s masked fallback,
 not B11.  ``remat=True`` checkpoints each super-block as one unit, as JAX's
-``jax.checkpoint(body)`` does; the tail layers are not checkpointed.  Not
-ported yet: decode (ROADMAP queue A item 5).
+``jax.checkpoint(body)`` does; the tail layers are not checkpointed.
+
+Decode runs in plain torch (:func:`init_cache`, :func:`decode_step`): a
+rec layer keeps its f32 RG-LRU state (B, lru_width) and conv window, an
+attention layer a rotating KV buffer of ``attn_window`` slots written at
+``pos % attn_window``; the caches of the super-blocks are stacked and the
+tail's a list, in the parameters' order, and are updated in place.
 """
 from __future__ import annotations
 
@@ -33,8 +38,8 @@ from repro_torch.kernels.linear_scan import gated_linear_scan
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import _conv1d_causal
-from repro_torch.models.transformer import run_stacked
-from repro_torch.tree import tree_stack
+from repro_torch.models.transformer import layer_params, run_stacked
+from repro_torch.tree import tree_map, tree_stack
 
 Tensor = torch.Tensor
 Params = Dict
@@ -95,6 +100,23 @@ def rec_block_fwd(p: Params, u: Tensor, cfg: ModelConfig) -> Tensor:
                           b.reshape(-1, S, dw)).reshape(a.shape)
     y = h.to(u.dtype) * g
     return u + L.dense(p["w_out"], y)
+
+
+def rec_block_decode(p: Params, u: Tensor, cfg: ModelConfig,
+                     lru_state: Tensor, conv_state: Tensor
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """u: (B, 1, d); lru_state: (B, dw) f32; conv_state: (B, K − 1, dw).
+    Returns (out, new state, new conv window)."""
+    x = L.rmsnorm(p["norm"], u, cfg.norm_eps)
+    g = L._gelu(L.dense(p["w_gelu"], x))
+    y = L.dense(p["w_rec"], x)                           # (B, 1, dw)
+    window = torch.cat([conv_state, y], dim=1)
+    y = (torch.einsum("bwd,wd->bd", window, p["conv_w"])
+         + p["conv_b"])[:, None]
+    a, b = _rglru_coeffs(p, y)
+    h = a[:, 0] * lru_state + b[:, 0]
+    y = h[:, None].to(u.dtype) * g
+    return u + L.dense(p["w_out"], y), h, window[:, 1:]
 
 
 # ---------------------------------------------------------------------------
@@ -200,3 +222,78 @@ def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
         x = _layer_fwd(p_l, x, cfg, positions, kind)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def _layer_cache(cfg: ModelConfig, batch: int, kind: str, dtype,
+                 device) -> Dict[str, Tensor]:
+    if kind == "rec":
+        return {"lru": torch.zeros((batch, cfg.lru_width),
+                                   dtype=torch.float32, device=device),
+                "conv": torch.zeros((batch, cfg.conv1d_width - 1,
+                                     cfg.lru_width), dtype=dtype,
+                                    device=device)}
+    acfg = _attn_cfg(cfg)
+    shape = (batch, cfg.attn_window, acfg.n_kv_heads, acfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               device="cuda") -> Dict:
+    """The zero cache: ``super`` the super-blocks' layer caches stacked on a
+    leading dim, ``tail`` a list of the tail layers'; recurrent state and a
+    rotating window, so the size does not depend on the sequence."""
+    del max_seq
+    dtype = dtype or cfg.dtype
+    dev = resolve_device(device)
+    pat = cfg.block_pattern
+    n_super, tail = _split_pattern(cfg)
+    one = {f"b{i}": _layer_cache(cfg, batch, kind, dtype, dev)
+           for i, kind in enumerate(pat)}
+    return {"super": tree_map(
+                lambda x: x[None].repeat((n_super,) + (1,) * x.dim()), one),
+            "tail": [_layer_cache(cfg, batch, kind, dtype, dev)
+                     for kind in tail]}
+
+
+def _layer_decode(p: Params, x: Tensor, cfg: ModelConfig, cache: Dict,
+                  kind: str, write_pos: int, abs_pos: int) -> Tensor:
+    """One layer's decode; its cache entries are updated in place."""
+    if kind == "rec":
+        y, lru, conv = rec_block_decode(p["temporal"], x, cfg, cache["lru"],
+                                        cache["conv"])
+        cache["lru"].copy_(lru)
+        cache["conv"].copy_(conv)
+    else:
+        h = L.rmsnorm(p["temporal"]["ln"], x, cfg.norm_eps)
+        a, _, _ = L.attention_decode(p["temporal"]["attn"], h, _attn_cfg(cfg),
+                                     cache["k"], cache["v"], write_pos,
+                                     abs_pos)
+        y = x + a
+    return mlp_block_fwd(p["mlp_blk"], y, cfg)
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Dict, token: Tensor,
+                pos: int) -> Tuple[Tensor, Dict]:
+    """One decode step: the (B, V) logits, and the cache updated in place
+    (attention slots at ``pos % attn_window``)."""
+    pat = cfg.block_pattern
+    n_super, tail = _split_pattern(cfg)
+    scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
+                         device=token.device)
+    x = L.embed(params["embed"], token[:, None]) * scale
+    write_pos = pos % cfg.attn_window
+    for s in range(n_super):
+        super_p = layer_params(params, s, key="super")
+        super_c = tree_map(lambda leaf: leaf[s], cache["super"])
+        for i, kind in enumerate(pat):
+            x = _layer_decode(super_p[f"b{i}"], x, cfg, super_c[f"b{i}"],
+                              kind, write_pos, pos)
+    for p_l, c_l, kind in zip(params["tail"], cache["tail"], tail):
+        x = _layer_decode(p_l, x, cfg, c_l, kind, write_pos, pos)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embed"], x)[:, 0], cache

@@ -16,8 +16,9 @@ Conventions:
   kernels (``kernels/flash_attention.py``); a sliding window, or S < 16,
   takes the masked-einsum fallback in plain torch, or under ``optflags``
   ``chunked_attn`` (and S > ``ATTN_CHUNK``) its query-chunked variant,
-  whose score tensor is (chunk, S), not (S, S).  The single-token decode is
-  not ported.
+  whose score tensor is (chunk, S), not (S, S).  The single-token decode
+  (:func:`attention_decode`) is plain torch against a KV cache it writes
+  in place, as the reference computes it outside any kernel.
 """
 from __future__ import annotations
 
@@ -154,7 +155,7 @@ def unembed(p: Params, x: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA, optional sliding window)
+# attention (GQA, optional sliding window, KV cache decode)
 # ---------------------------------------------------------------------------
 
 def attention_init(key: int, cfg: ModelConfig, device="cuda") -> Params:
@@ -244,13 +245,19 @@ def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
     if window is None and S >= 16:
         # B11 (kernels/flash_attention), differentiable through its
         # autograd.Function.  GQA stays here: KV repeated over the group
-        # (head = kv·g + i), and repeat_interleave's backward sums the k/v
-        # cotangents back over the group.
+        # (head = kv·g + i) by an expand, whose backward sums the k/v
+        # cotangents back over the group in a fixed order (on the card,
+        # repeat_interleave's backward adds them with float atomics, whose
+        # order is not)
         qf = qg.permute(0, 2, 3, 1, 4).reshape(n, cfg.n_heads, S, hd)
-        kf = torch.repeat_interleave(kn.permute(0, 2, 1, 3), g, dim=1)
-        vf = torch.repeat_interleave(vn.permute(0, 2, 1, 3), g, dim=1)
-        of = flash_attention(qf.contiguous(), kf.contiguous(),
-                             vf.contiguous(), causal=True)
+
+        def group(t: Tensor) -> Tensor:
+            t = t.permute(0, 2, 1, 3)[:, :, None]
+            return t.expand(n, cfg.n_kv_heads, g, S, hd).reshape(
+                n, cfg.n_heads, S, hd).contiguous()
+
+        of = flash_attention(qf.contiguous(), group(kn), group(vn),
+                             causal=True)
         o = of.reshape(n, cfg.n_kv_heads, g, S, hd).permute(0, 3, 1, 2, 4)
     elif optflags.enabled("chunked_attn") and S > optflags.ATTN_CHUNK:
         o = _attention_chunked(qg, kn, vn, window, optflags.ATTN_CHUNK)
@@ -259,6 +266,39 @@ def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
         o = torch.einsum("bkgst,btkh->bskgh", w.to(x.dtype), vn)
     o = o.reshape(lead + (S, cfg.n_heads * hd))
     return dense(p["wo"], o), {"k": k, "v": v}
+
+
+def attention_decode(p: Params, x: Tensor, cfg: ModelConfig, cache_k: Tensor,
+                     cache_v: Tensor, write_pos: int,
+                     abs_pos: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """One-token decode. x: (B, 1, d); cache_[kv]: (B, T, KV, hd).
+
+    The token's k and v are written into the caches at slot ``write_pos``,
+    in place (``abs_pos`` for a full cache, ``abs_pos % window`` for a
+    rotating sliding-window buffer); ``abs_pos`` is the absolute position
+    (RoPE, and the validity mask: slot t is attended iff t ≤ abs_pos, so a
+    warm rotating buffer attends every slot, which is exactly the window).
+    The scores and the softmax run in f32, GQA grouped as
+    :func:`_attn_weights` groups it.  Returns (out, cache_k, cache_v)."""
+    hd = cfg.hd
+    B = x.shape[0]
+    T = cache_k.shape[1]
+    q = _split_heads(dense(p["wq"], x), cfg.n_heads, hd)
+    k = _split_heads(dense(p["wk"], x), cfg.n_kv_heads, hd)
+    v = _split_heads(dense(p["wv"], x), cfg.n_kv_heads, hd)
+    posv = torch.full((B, 1), abs_pos, dtype=torch.int32, device=x.device)
+    q = rope(q, posv, cfg.rope_theta)
+    k = rope(k, posv, cfg.rope_theta)
+    cache_k[:, write_pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, write_pos] = v[:, 0].to(cache_v.dtype)
+
+    m = torch.arange(T, device=x.device) <= abs_pos
+    g = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, 1, cfg.n_kv_heads, g, hd)
+    w = _attn_weights(qg, cache_k, m[None, :])
+    o = torch.einsum("bkgst,btkh->bskgh", w.to(x.dtype), cache_v)
+    o = o.reshape(B, 1, cfg.n_heads * hd)
+    return dense(p["wo"], o), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,12 @@ uniform functional Model API (init / forward / loss).  Counterpart of
 ``repro/models/registry.py``: ``ARCHS`` is a data copy of the JAX
 package's table, field for field.
 
-``build_model`` builds the ``dense``, ``ssm`` and ``hybrid`` families;
-every other family, and the decode API (``init_cache``/``decode_step``),
-raises ``NotImplementedError`` naming its ROADMAP item.  With parameters
-that carry a leading worker dim (the LLM trainer's), ``loss`` returns one
-loss per worker.
+``build_model`` builds the ``dense``, ``ssm`` and ``hybrid`` families,
+with the decode API (``init_cache``/``decode_step``: a cache the step
+updates in place); every other family (moe, encdec, vlm) raises
+``NotImplementedError`` naming its ROADMAP item (queue A item 5).  With
+parameters that carry a leading worker dim (the LLM trainer's), ``loss``
+returns one loss per worker.
 """
 from __future__ import annotations
 
@@ -113,8 +114,10 @@ class Model(NamedTuple):
     #: loss(params, batch, remat=True) -> (loss, metrics); loss has the
     #: params' leading (worker) dims
     loss: Callable[..., Any]
+    #: init_cache(batch, max_seq, dtype=None, device="cuda") -> cache
     init_cache: Callable[..., Any]
-    #: decode_step(params, cache, token, pos) -> (logits, cache)
+    #: decode_step(params, cache, token, pos) -> (logits, cache); the cache
+    #: is updated in place (JAX donates it)
     decode_step: Callable[..., Any]
 
 
@@ -131,14 +134,7 @@ def _xent(logits: Tensor, labels: Tensor, mask: Optional[Tensor] = None,
     return -torch.mean(ll, -1)
 
 
-def _not_ported(what: str, item: str):
-    def fail(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue "
-                                  f"A item {item})")
-    return fail
-
-
-#: the full-sequence modules of the families the port builds
+#: the modules of the families the port builds
 FAMILIES = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
 
 
@@ -165,9 +161,14 @@ def build_model(cfg: ModelConfig) -> Model:
         l = _xent(lo, la, lead=lead)
         return l, {"xent": l}
 
-    return Model(cfg, init, forward, loss,
-                 _not_ported("decode (init_cache)", "5"),
-                 _not_ported("decode (decode_step)", "5"))
+    def init_cache(batch: int, max_seq: int, dtype=None, device="cuda"):
+        return module.init_cache(cfg, batch, max_seq, dtype=dtype,
+                                 device=device)
+
+    def decode_step(params, cache, token, pos):
+        return module.decode_step(params, cfg, cache, token, pos)
+
+    return Model(cfg, init, forward, loss, init_cache, decode_step)
 
 
 def get_model(name: str, reduced: bool = False,

@@ -18,11 +18,13 @@ planes exist at the chunk's length only.  A Python loop over the stacked
 layers replaces ``lax.scan``, and ``remat=True`` checkpoints each layer
 (``transformer.run_stacked``), so the backward pass runs each layer's
 forward, B12 included, once more.  ``A_log`` and ``D`` stay f32 leaves in a
-bf16 tree.  Not ported yet: decode (ROADMAP queue A item 5).
+bf16 tree.  Decode is the O(1)-per-token state update in plain torch
+(:func:`init_cache`, :func:`decode_step`): an f32 state (B, d_inner, n)
+and the conv window (B, K − 1, d_inner) a layer, updated in place.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +35,7 @@ from repro_torch.kernels.linear_scan import (gated_linear_scan,
                                              linear_scan_carry)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import run_stacked
+from repro_torch.models.transformer import layer_params, run_stacked
 from repro_torch.tree import tree_stack
 
 Tensor = torch.Tensor
@@ -178,3 +180,57 @@ def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
     x = run_stacked(params, x, block, cfg.n_layers, remat)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x)
+
+
+# ---------------------------------------------------------------------------
+# decode: the O(1) state update a token
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               device="cuda") -> Dict[str, Tensor]:
+    """The zero state of every layer: ``ssm`` (n_layers, B, d_inner, n) f32
+    and ``conv`` (n_layers, B, K − 1, d_inner) in the param dtype; the size
+    does not depend on the sequence."""
+    del max_seq, dtype
+    dev = resolve_device(device)
+    return {
+        "ssm": torch.zeros((cfg.n_layers, batch, cfg.d_inner, cfg.ssm_state),
+                           dtype=torch.float32, device=dev),
+        "conv": torch.zeros((cfg.n_layers, batch, cfg.conv1d_width - 1,
+                             cfg.d_inner), dtype=cfg.dtype, device=dev),
+    }
+
+
+def block_decode(p: Params, u: Tensor, cfg: ModelConfig, ssm_state: Tensor,
+                 conv_state: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """u: (B, 1, d); ssm_state: (B, d_inner, n); conv_state: (B, K − 1,
+    d_inner).  Returns (out, new state, new conv window)."""
+    h = L.rmsnorm(p["norm"], u, cfg.norm_eps)
+    xz = L.dense(p["in_proj"], h)
+    x, z = torch.chunk(xz, 2, dim=-1)                   # (B, 1, di)
+    window = torch.cat([conv_state, x], dim=1)          # (B, K, di)
+    x = torch.einsum("bwd,wd->bd", window, p["conv_w"]) + p["conv_b"]
+    x = F.silu(x)[:, None]                              # (B, 1, di)
+    dt, Bc, Cc, A = _ssm_inputs(p, x, cfg)
+    dt, Bc, Cc = dt[:, 0], Bc[:, 0], Cc[:, 0]           # (B, di) / (B, n)
+    xf = x[:, 0].float()
+    a = torch.exp(dt[..., None] * A[None])              # (B, di, n)
+    hnew = a * ssm_state + (dt * xf)[..., None] * Bc[:, None, :]
+    y = torch.einsum("bdn,bn->bd", hnew, Cc) + p["D"][None] * xf
+    y = (y.to(u.dtype) * F.silu(z[:, 0]))[:, None]
+    return u + L.dense(p["out_proj"], y), hnew, window[:, 1:]
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
+                token: Tensor, pos: int) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One decode step (an SSM has no positional state beyond h): the
+    (B, V) logits, and the cache updated in place."""
+    del pos
+    x = L.embed(params["embed"], token[:, None])
+    for i in range(cfg.n_layers):
+        x, s, c = block_decode(layer_params(params, i), x, cfg,
+                               cache["ssm"][i], cache["conv"][i])
+        cache["ssm"][i].copy_(s)
+        cache["conv"][i].copy_(c)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embed"], x)[:, 0], cache

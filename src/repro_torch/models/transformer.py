@@ -1,7 +1,9 @@
 """Dense decoder-only transformer (qwen1.5 / codeqwen / starcoder2 / granite),
 with the layers stacked on a leading ``n_layers`` dim.  Counterpart of
-``repro/models/transformer.py`` (text inputs; no prefill cache, no
-decode).
+``repro/models/transformer.py`` (text inputs; no prefill cache): the
+full-sequence forward and the one-token decode against a KV cache
+(:func:`init_cache`, :func:`decode_step`; a rotating buffer of ``window``
+slots under a sliding window), which updates the cache in place.
 
 A Python loop over the stacked layers replaces ``lax.scan``; ``remat=True``
 (JAX's default) checkpoints each layer with
@@ -25,7 +27,7 @@ from repro_torch import optflags, rng
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.tree import tree_map, tree_stack
+from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
 Tensor = torch.Tensor
 Params = Dict
@@ -50,6 +52,16 @@ def block_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
     return x, kv
 
 
+def block_decode(p: Params, x: Tensor, cfg: ModelConfig, ck: Tensor,
+                 cv: Tensor, write_pos: int, abs_pos: int):
+    a, ck, cv = L.attention_decode(p["attn"],
+                                   L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                   cfg, ck, cv, write_pos, abs_pos)
+    x = x + a
+    x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return x, ck, cv
+
+
 def init_params(key: int, cfg: ModelConfig, device="cuda") -> Params:
     """Random init from an integer key: per-layer leaves stacked on a
     leading ``n_layers`` dim, as ``jax.vmap(init_block)`` makes them."""
@@ -72,9 +84,33 @@ def _embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     return L.embed(params["embed"], tokens)
 
 
+#: the keys whose leaves the families stack on a leading entry dim (the
+#: layers; the hybrid's super-blocks): :func:`run_stacked` reads them
+STACKED_KEYS = ("layers", "super")
+
+
+def unstack(params: Params) -> Params:
+    """``params`` with each stacked entry of :data:`STACKED_KEYS` as a list
+    of one tree an entry (views of the stacked leaves), which
+    :func:`layer_params` reads as it reads the stacked leaves.  Made
+    autograd leaves, the views give each entry a gradient of its own,
+    where a stacked leaf's backward pass would add a zero-filled gradient
+    of its whole size once an entry."""
+    out = dict(params)
+    for key in STACKED_KEYS:
+        if isinstance(params.get(key), dict):
+            n = tree_leaves(params[key])[0].shape[0]
+            out[key] = [tree_map(lambda leaf, i=i: leaf[i], params[key])
+                        for i in range(n)]
+    return out
+
+
 def layer_params(params: Params, i: int, key: str = "layers") -> Params:
     """Entry ``i`` of the stacked ``params[key]`` (views), behind the
-    leading worker dim if the leaves carry one."""
+    leading worker dim if the leaves carry one; entry ``i`` of the list
+    where ``params[key]`` is :func:`unstack`'s."""
+    if isinstance(params[key], list):
+        return params[key][i]
     lead = params["embed"]["table"].dim() - 2
     index = (slice(None),) * lead + (i,)
     return tree_map(lambda leaf: leaf[index], params[key])
@@ -131,3 +167,31 @@ def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
     x = run_stacked(params, x, block, cfg.n_layers, remat)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               device="cuda") -> Dict[str, Tensor]:
+    """Zero K and V caches (n_layers, B, T, KV, hd): T = max_seq, or
+    min(max_seq, window) under a sliding window."""
+    dtype = dtype or cfg.dtype
+    kvs = (max_seq if cfg.sliding_window is None
+           else min(max_seq, cfg.sliding_window))
+    shape = (cfg.n_layers, batch, kvs, cfg.n_kv_heads, cfg.hd)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
+                token: Tensor, pos: int) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One greedy decode step. token: (B,) ids; pos: the absolute position.
+    Returns the (B, V) logits and the cache, written in place at slot
+    ``pos`` (``pos % window`` in a sliding window's rotating buffer)."""
+    x = L.embed(params["embed"], token[:, None])
+    T = cache["k"].shape[2]
+    write_pos = pos % T if cfg.sliding_window is not None else pos
+    for i in range(cfg.n_layers):
+        x, _, _ = block_decode(layer_params(params, i), x, cfg,
+                               cache["k"][i], cache["v"][i], write_pos, pos)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embed"], x)[:, 0], cache

@@ -1,31 +1,38 @@
-"""Federated LLM training: A-FADMM as the aggregation layer, in the
-``replicated`` mode.  Counterpart of ``repro/train/llm_trainer.py``.
+"""Federated LLM training: A-FADMM as the aggregation layer.  Counterpart
+of ``repro/train/llm_trainer.py`` on one device, in both of its modes.
 
-Every FL worker owns a full (θ_n, λ_n) copy; per-worker tensors carry a
-leading worker dim W.  The local prox steps run all workers at once: their
-losses (one per worker, ``Model.loss`` on W-led parameters) are summed and
-back-propagated, which gives each worker its own gradient.  One analog OTA
-round (``core.tree_ota.ota_tree_round_packed_state``: the fused uplink B6 +
-B3, then the dual update B4) produces the new global model.  Per the
-paper's Appendix H the stochastic variant skips the flip rule.  λ and h
-live persistently packed as ``(W, D)`` Complex buffers on one device, or as
-trees of per-leaf buffers under ``packed_uplink=False`` (the leafwise
-round, one receive chain per leaf).
+``replicated``: every FL worker owns a full (θ_n, λ_n) copy; per-worker
+tensors carry a leading worker dim W.  The local prox steps run all workers
+at once: their losses (one per worker, ``Model.loss`` on W-led parameters)
+are summed and back-propagated, which gives each worker its own gradient.
+One analog OTA round (``core.tree_ota.ota_tree_round_packed_state``: the
+fused uplink B6 + B3, then the dual update B4) produces the new global
+model.  Per the paper's Appendix H the stochastic variant skips the flip
+rule.  λ and h live persistently packed as ``(W, D)`` Complex buffers on
+one device, or as trees of per-leaf buffers under ``packed_uplink=False``
+(the leafwise round, one receive chain per leaf).
 
-Under a ``phy`` scenario the channel is the scenario's (W, D) ``PhyState``:
-its mask truncates workers and its CSI is what the workers act on.  A
-``faults.FaultPlan`` injects uplink faults (its state rides in
-``TreeFLState.flt``) and a ``faults.GuardConfig`` guards the receive.  With
-``population``/``cohort`` the state is a population's and each round only
-the sampled cohort trains and transmits; the others keep their θ, optimizer
-state and λ.
+``sketched`` (A-FADMM-CS, the paper's §6 large-model extension,
+:func:`make_sketched`): one shared model Θ; the workers run one after
+another from it, each worker's delta is count-sketched by the global
+hashed codec (``core.sketch``) and the stacked (W, d_s) sketches ride the
+same packed round, so λ and h are (W, d_s) and a model as deep as
+granite-8b's 36 layers trains on one card.
+
+Under a ``phy`` scenario the channel is the scenario's (W, D) (or
+(W, d_s)) ``PhyState``: its mask truncates workers and its CSI is what the
+workers act on.  A ``faults.FaultPlan`` injects uplink faults (its state
+rides in the state's ``flt``) and a ``faults.GuardConfig`` guards the
+receive.  With ``population``/``cohort`` (replicated mode) the state is a
+population's and each round only the sampled cohort trains and transmits;
+the others keep their θ, optimizer state and λ.
 
 A round's random planes are a :class:`TreeRoundDraws`, drawn from the round
 key when not given (:func:`draw_round`), so a test can replay the JAX
 package's.  ``telemetry`` adds the round's ``obs/`` keys
 (``repro_torch.obs``) and ``ota_block_cols`` picks the fused kernel's plan
-(``kernels/ota_round.block_cols_choices``).  Not ported yet, and refused by
-name: the ``sketched`` mode, meshes and a transport backend override.
+(``kernels/ota_round.block_cols_choices``).  Refused by name: a mesh
+(ROADMAP queue A item 6) and a transport backend override.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from repro_torch.core.admm import AdmmConfig
 from repro_torch.core.channel import ChannelConfig, rayleigh
 from repro_torch.core.cplx import Complex
 from repro_torch.core.packing import build_packspec, unpack_cplx
+from repro_torch.core.sketch import chunks, decode_packed, encode_chunked
 from repro_torch.core.tree_ota import (TreeFLState, _zmap, draw_channel_tree,
                                        init_channel_packed, init_channel_tree,
                                        ota_tree_round,
@@ -53,10 +61,12 @@ from repro_torch.faults import guards as _guards
 from repro_torch.faults import plan as _fplan
 from repro_torch.kernels import ota_round as _round_k
 from repro_torch.models.registry import Model, packed_param_count
+from repro_torch.models.transformer import unstack
 from repro_torch.optim.optimizers import OptState, adam, sgd
 from repro_torch.phy.scenario import h_tx as _phys_h_tx
 from repro_torch.phy.scenario import make_scenario
-from repro_torch.tree import tree_leaves, tree_map, tree_stack
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                              tree_stack, tree_unflatten)
 
 Tensor = torch.Tensor
 PyTree = Any
@@ -65,7 +75,7 @@ PyTree = Any
 @dataclasses.dataclass(frozen=True)
 class FLConfig:
     """The JAX package's ``FLConfig``, field for field (see its docs for
-    each); the port runs ``mode="replicated"``."""
+    each)."""
 
     mode: str = "replicated"        # replicated | sketched
     n_workers: int = 4
@@ -133,7 +143,11 @@ class TreeRoundDraws(NamedTuple):
     cohort: Optional[Tensor] = None
 
 
-def _device_of(state: TreeFLState) -> torch.device:
+def _device_of(state) -> torch.device:
+    """The device of a trainer state: its packed λ's, or its θ's (the
+    leafwise state)."""
+    if isinstance(state.lam, Complex):
+        return state.lam.re.device
     return tree_leaves(state.theta)[0].device
 
 
@@ -187,14 +201,18 @@ def _local_opt(flcfg: FLConfig):
     return sgd(flcfg.local_lr)
 
 
-def _refuse_unported(flcfg: FLConfig, mesh, model: Model) -> None:
-    """NotImplementedError for every FLConfig feature the port lacks, named
-    with its ROADMAP item, so none is silently ignored; ValueError for a
-    column tile no plan of the fused kernel takes at the round's (W, D)."""
+def _refuse_mesh_and_backend(flcfg: FLConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("FLConfig mesh is not ported yet (ROADMAP "
                                   "queue A item 6 (multi-device))")
     transport.check_backend_choice(flcfg.transport_backend)
+
+
+def _refuse_unported(flcfg: FLConfig, mesh, model: Model) -> None:
+    """NotImplementedError for every FLConfig feature the port lacks, named
+    with its ROADMAP item, so none is silently ignored; ValueError for a
+    column tile no plan of the fused kernel takes at the round's (W, D)."""
+    _refuse_mesh_and_backend(flcfg, mesh)
     if flcfg.ota_block_cols is not None:
         width = flcfg.cohort if flcfg.population is not None else \
             flcfg.n_workers
@@ -465,6 +483,207 @@ def _tree_rms_gap(theta_w: PyTree, Theta: PyTree) -> Tensor:
     return torch.sqrt(num / float(den))
 
 
+# ---------------------------------------------------------------------------
+# sketched mode (A-FADMM-CS)
+# ---------------------------------------------------------------------------
+
+class SketchFLState(NamedTuple):
+    Theta: PyTree       # the one shared global model
+    lam: Complex        # packed sketch-space duals, (W, d_s) f32
+    chan: Any           # TreeChannel or PhyState over (W, d_s)
+    step: int
+    flt: Any = None     # FaultState (sketch-space layout) or None
+
+
+#: hash seed of the global packed count-sketch codec
+SKETCH_SEED = 17
+
+
+def _sketch_dim(packed_size: int, ratio: int) -> int:
+    if ratio < 1:
+        raise ValueError(
+            f"FLConfig.sketch_ratio must be a positive compression ratio "
+            f"(d_s = ceil(d / ratio)), got {ratio}")
+    return max(8, -(-packed_size // ratio))
+
+
+def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
+                  ccfg: ChannelConfig, mesh=None, device="cuda"):
+    """``(init_fn, train_step)`` of A-FADMM-CS on one device.
+
+    One shared model Θ; the workers run one after another, each from Θ
+    for ``local_steps`` sgd steps on its own batch.  A worker's delta
+    (θ − Θ, in the parameter dtype, then f32) is count-sketched by the
+    global hashed codec over the packed index space
+    (``core.sketch.encode_chunked``: leaf by leaf, a chunk at a time, no
+    (D,) buffer), and its θ and gradient go before the next worker starts.
+    The stacked (W, d_s) sketches then run the replicated mode's round,
+    ``ota_tree_round_packed_state``, as one packed leaf: the fused receive,
+    the scenario's mask and CSI, faults and the guard.  The consensus
+    sketch is decoded leaf by leaf and applied as
+    ``Θ + sketch_lr · decoded`` in the parameter dtype.  On one device the
+    reference's shard-local codec is this packed codec; a ``mesh`` is
+    refused (ROADMAP queue A item 6)."""
+    _refuse_mesh_and_backend(flcfg, mesh)
+    if flcfg.population is not None:
+        raise ValueError(
+            "FLConfig.population/cohort sampling is a replicated-mode "
+            "feature (per-worker θ rows to gather); sketched mode "
+            "time-multiplexes workers over one shared model and has no "
+            "population state to subsample")
+    W = flcfg.n_workers
+    ratio = flcfg.sketch_ratio
+    tel = _obs.resolve(flcfg.telemetry)
+    dev = resolve_device(device)
+    scn = None
+    if flcfg.scenario is not None:
+        scn = make_scenario(flcfg.scenario, ccfg,
+                            doppler_hz=flcfg.doppler_hz,
+                            csi_err=flcfg.csi_err, h_min=flcfg.h_min,
+                            slots_per_round=flcfg.slots_per_round)
+    fplan, gcfg = flcfg.faults, flcfg.guard
+
+    def init_fn(key: int) -> SketchFLState:
+        """Θ from the model's init, λ = 0 and the channel (or the
+        scenario's state) over (W, d_s), the fault plan's fresh state."""
+        kp, kc = rng.split(key)
+        Theta = model.init(kp, device=dev)
+        d_s = _sketch_dim(build_packspec(Theta).d, ratio)
+        if flcfg.ota_block_cols is not None:
+            _round_k.check_block_cols(W, d_s, flcfg.ota_block_cols)
+        lam = cplx.czero((W, d_s), device=dev)
+        chan = (scn.init(kc, W, d_s, dev) if scn is not None else
+                init_channel_packed(rng.generator(kc, dev), W, d_s))
+        flt = _fplan.init(fplan, W, d_s, dev) if fplan is not None else None
+        return SketchFLState(Theta=Theta, lam=lam, chan=chan, step=0,
+                             flt=flt)
+
+    def worker_sketch(Theta: PyTree, batch_w: dict, out: Tensor) -> Tensor:
+        """``local_steps`` sgd steps of one worker from Θ, its delta's
+        sketch added into ``out`` (d_s,); returns the loss of the last
+        step (at the θ it started from)."""
+        with torch.no_grad():
+            theta = tree_map(torch.clone, Theta)
+        # one autograd leaf a layer (views of θ), so each layer's gradient
+        # is a tensor of its own
+        run = tree_map(lambda l: l.detach().requires_grad_(),
+                       unstack(theta) if isinstance(theta, dict) else theta)
+        leaves = tree_leaves(run)
+        loss = None
+        for _ in range(flcfg.local_steps):
+            loss, _ = model.loss(run, batch_w)
+            loss.backward()
+            with torch.no_grad():
+                for p in leaves:
+                    # θ − lr·g in the param dtype: p's storage is θ's
+                    p.sub_(p.grad.to(p.dtype).mul_(flcfg.local_lr))
+                    p.grad = None
+            loss = loss.detach()
+        del run, leaves
+        with torch.no_grad():
+            for t, T in zip(tree_leaves(theta), tree_leaves(Theta)):
+                t.sub_(T)              # the delta, rounded in the dtype
+            encode_chunked(tree_leaves(theta), out.shape[-1], SKETCH_SEED,
+                           out=out)
+        return loss
+
+    def apply_delta(Theta: PyTree, s: Tensor) -> Tuple[PyTree, Tensor]:
+        """Θ + sketch_lr · decode(s), a leaf and a chunk at a time in the
+        param dtype; and ‖decode(s)‖² (f32)."""
+        lr = flcfg.sketch_lr
+        sq = torch.zeros((), dtype=torch.float32, device=s.device)
+        new, off = [], 0
+        leaves, treedef = tree_flatten(Theta)
+        for p in leaves:
+            out = torch.empty_like(p)
+            src, dst = p.reshape(-1), out.view(-1)
+            for a, b in chunks(src.shape[0]):
+                dg = decode_packed(s, b - a, SKETCH_SEED, off + a)
+                if tel is not None:
+                    sq += torch.dot(dg, dg)
+                torch.add(src[a:b], dg.to(p.dtype).mul_(lr), out=dst[a:b])
+            new.append(out)
+            off += src.shape[0]
+        return tree_unflatten(treedef, new), sq
+
+    def train_step(state: SketchFLState, batch: dict,
+                   key: Optional[int] = None,
+                   draws: Optional[TreeRoundDraws] = None
+                   ) -> Tuple[SketchFLState, dict]:
+        """One round.  batch leaves: (W, B_w, ...), a worker's rows each;
+        the round's planes (at (W, d_s)) are ``draws``, else drawn from
+        ``key`` as the replicated mode draws them."""
+        if draws is None:
+            if key is None:
+                raise ValueError("train_step needs a round key or the "
+                                 "round's draws")
+            draws = draw_round(key, state, ccfg, scenario=scn, faults=fplan,
+                               guard=gcfg)
+        W_, d_s = state.lam.re.shape
+        mask = h_tx_p = Theta_prev = None
+        if scn is not None:
+            chan = scn.step(state.chan, draws.phy)   # PhyState, (W, d_s)
+            if scn.truncating:
+                mask = chan.mask
+            if scn.imperfect_csi:
+                h_tx_p = chan.h_hat
+        else:
+            chan, _ = step_channel_packed(state.chan, ccfg, draws.h_fresh)
+        faults_arg = None
+        fmetrics = {}
+        flt_mid = state.flt
+        if fplan is not None:
+            if draws.faults is None:
+                raise ValueError("a round under a fault plan needs "
+                                 "draws.faults")
+            rf, flt_mid, fmetrics = _fplan.draw(fplan, state.flt,
+                                                draws.faults)
+            mask = rf.alive if mask is None else mask & rf.alive
+            faults_arg = (fplan, rf, state.flt.stale)
+        if mask is not None or gcfg is not None or fplan is not None:
+            # a skipped or all-masked round must leave Θ alone: the
+            # fallback consensus is the zero sketch, which decodes to 0
+            Theta_prev = torch.zeros((d_s,), dtype=torch.float32,
+                                     device=state.lam.re.device)
+
+        s_w = torch.zeros((W_, d_s), dtype=torch.float32,
+                          device=state.lam.re.device)
+        losses = []
+        for w in range(W_):
+            batch_w = tree_map(lambda l: l[w], batch)
+            losses.append(worker_sketch(state.Theta, batch_w, s_w[w]))
+
+        with torch.no_grad():
+            # the consensus round in sketch space: s_w is the packed buffer
+            spec = build_packspec(s_w, batch_dims=1)
+            Theta_s, lam_new, m = ota_tree_round_packed_state(
+                s_w, state.lam, chan.h, draws.noise_re, acfg, ccfg, spec,
+                mask=mask, h_tx_p=h_tx_p, Theta_prev=Theta_prev,
+                fused=flcfg.ota_fused, worker_chunk=flcfg.ota_worker_chunk,
+                block_cols=flcfg.ota_block_cols, guard=gcfg,
+                guard_draws=draws.guard, faults=faults_arg, telemetry=tel)
+            del s_w, draws, faults_arg
+            Theta_new, sq = apply_delta(state.Theta, Theta_s)
+            flt_new = state.flt
+            if fplan is not None:
+                aux = m.pop("_fault_aux", {})
+                flt_new = _fplan.commit(flt_mid, aux.get("stale"),
+                                        aux.get("evicted"))
+            metrics = _obs.merge_disjoint(
+                {"loss": torch.stack(losses).mean()}, m, fmetrics,
+                who="make_sketched.train_step")
+            if tel is not None:
+                # the model-space update norm (sketch_lr · ‖decoded
+                # delta‖), in place of the sketch-space norm of the round
+                metrics["obs/theta_update_norm"] = \
+                    flcfg.sketch_lr * torch.sqrt(sq)
+        new_state = SketchFLState(Theta=Theta_new, lam=lam_new, chan=chan,
+                                  step=state.step + 1, flt=flt_new)
+        return new_state, metrics
+
+    return init_fn, train_step
+
+
 def make_fl_train(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
                   ccfg: ChannelConfig, mesh=None, device="cuda"):
     """``(init_fn, train_step)`` for ``flcfg.mode`` on ``device`` (the card
@@ -489,6 +708,6 @@ def make_fl_train(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
         return make_replicated(model, flcfg, acfg, ccfg, mesh=mesh,
                                device=device)
     if flcfg.mode == "sketched":
-        raise NotImplementedError("FLConfig mode 'sketched' is not ported yet "
-                                  "(ROADMAP queue A item 5: core/sketch.py)")
+        return make_sketched(model, flcfg, acfg, ccfg, mesh=mesh,
+                             device=device)
     raise ValueError(f"unknown FL mode {flcfg.mode!r}")

@@ -155,11 +155,11 @@ def test_run_cli_names_and_refusals(capsys):
         "fig3b_energy", "fig3c_scalability", "fig5_rho_sensitivity",
         "serve_microbench", "kernels_microbench", "transport_microbench",
         "roofline_summary", "scaleup"}
-    assert bench_run.main(["--only", "serve", "--device", "cpu"]) == 1
+    assert bench_run.main(["--only", "kernels", "--device", "cpu"]) == 1
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "name,us_per_call,derived"
-    assert out[1].startswith("serve_microbench,-1,")
-    assert "queue A item 5" in out[1]
+    assert out[1].startswith("kernels_microbench,-1,")
+    assert "chip_smoke.py" in out[1]
 
 
 def test_ota_backend_knob(monkeypatch):

@@ -100,7 +100,8 @@ def test_launcher_drivers_agree_bitwise(tmp_path):
 
 @pytest.mark.parametrize("flags,exc,match", [
     (["--fsdp", "2"], NotImplementedError, "item 6"),
-    (["--mode", "sketched"], NotImplementedError, "item 5"),
+    (["--mode", "sketched", "--population", "4", "--cohort", "2"],
+     ValueError, "replicated-mode feature"),
     (["--backend", "jnp"], ValueError, "jnp"),
     (["--ota-block-cols", "512"], ValueError, "take"),
 ], ids=["fsdp", "sketched", "jnp", "block-cols"])

@@ -72,11 +72,13 @@ def test_registry_lists_and_refuses_unported_families():
     assert reg.list_archs() == jreg.list_archs()
     with pytest.raises(KeyError):
         reg.get_config("nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reg.get_model("qwen3-moe-30b-a3b", reduced=True)
+    for name in ("qwen3-moe-30b-a3b", "seamless-m4t-medium"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            reg.get_model(name, reduced=True)
+    # decode is ported (tests/test_torch_decode.py holds it against JAX)
     m = reg.get_model("granite-8b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.init_cache(1, 8)
+    assert tuple(m.init_cache(1, 8, device="cpu")["k"].shape) == (
+        2, 1, 8, 4, 32)
     sw = reg.get_model("granite-8b", reduced=True, sliding_window=8)
     assert sw.cfg.sliding_window == 8
 
@@ -174,6 +176,43 @@ def test_attention_fwd_and_grads_match(attention_case):
     for got, want in zip(tree_leaves(p), jax.tree_util.tree_leaves(jp_grads)):
         _close(got.grad, want, GRAD_TOL)
     _close(x.grad, jx_grad, GRAD_TOL)
+
+
+@pytest.mark.parametrize("n_kv_heads", [1, 2, 4], ids=["mqa", "gqa", "mha"])
+def test_attention_hands_b11_contiguous_grouped_heads(monkeypatch,
+                                                      n_kv_heads):
+    """B11's wrapper refuses non-contiguous operands on the card: for every
+    group size (MHA's g = 1 included) ``attention_fwd`` hands it contiguous
+    (B, H, S, hd) q, k, v, the KV heads repeated as head = kv·g + i (the
+    output and the input's gradient equal the masked einsum's, which
+    groups the heads itself)."""
+    cfg = dataclasses.replace(TCFG, n_kv_heads=n_kv_heads)
+    real, seen = L.flash_attention, []
+
+    def spy(q, k, v, causal):
+        seen.append(all(t.is_contiguous() for t in (q, k, v)))
+        return real(q, k, v, causal=causal)
+
+    monkeypatch.setattr(L, "flash_attention", spy)
+    p = L.attention_init(0, cfg, device="cpu")
+    S, hd, g = 16, cfg.hd, cfg.n_heads // n_kv_heads
+    xs = [torch.from_numpy(_x((2, S, 64))).requires_grad_() for _ in "ab"]
+    out, _ = L.attention_fwd(p, xs[0], cfg, torch.arange(S), None)
+    assert seen == [True]
+    x = xs[1]
+    pos = torch.arange(S)
+    qg = L.rope(L._split_heads(L.dense(p["wq"], x), cfg.n_heads, hd), pos,
+                cfg.rope_theta).reshape(2, S, n_kv_heads, g, hd)
+    k = L.rope(L._split_heads(L.dense(p["wk"], x), n_kv_heads, hd), pos,
+               cfg.rope_theta)
+    v = L._split_heads(L.dense(p["wv"], x), n_kv_heads, hd)
+    w = L._attn_weights(qg, k, L.causal_mask(S, None))
+    o = torch.einsum("bkgst,btkh->bskgh", w, v).reshape(2, S, -1)
+    want = L.dense(p["wo"], o)
+    _close(out, want.detach().numpy(), dict(rtol=1e-5, atol=1e-6))
+    out.sum().backward()
+    want.sum().backward()
+    _close(xs[0].grad, xs[1].grad.numpy(), dict(rtol=1e-4, atol=1e-6))
 
 
 def test_attention_worker_axis_equals_per_worker_calls(attention_case):

@@ -265,7 +265,9 @@ def test_twelve_rounds_lower_the_loss():
 
 
 @pytest.mark.parametrize("override,exc", [
-    (dict(mode="sketched"), NotImplementedError),
+    # the sketched mode runs on one device; a mesh is refused by name
+    pytest.param(dict(mode="sketched", mesh=object()), NotImplementedError,
+                 id="mode-NotImplementedError"),
     (dict(mode="bogus"), ValueError),
     # JAX's ValueErrors: scenarios, faults, guards and sampling need the
     # packed state; a population needs its cohort
@@ -285,9 +287,11 @@ def test_twelve_rounds_lower_the_loss():
 def test_unsupported_options_raise(override, exc):
     model = reg.get_model("granite-8b", reduced=True)
     _, _, acfg, ccfg = _configs(10)
+    override = dict(override)
+    mesh = override.pop("mesh", None)
     flcfg = dataclasses.replace(FLConfig(n_workers=W), **override)
     with pytest.raises(exc):
-        make_fl_train(model, flcfg, acfg, ccfg, device="cpu")
+        make_fl_train(model, flcfg, acfg, ccfg, mesh=mesh, device="cpu")
 
 
 def test_transport_backend_pallas_is_the_ports_route():

@@ -4,7 +4,8 @@ random planes JAX's ``round(key, ...)`` draws, made in JAX and handed to the
 port's ``round(..., draws=)``; for A-FADMM under a scenario, faults, a guard
 and a cohort too, and for the LLM trainer's ``train_step`` (its state and
 its round's planes: the scenario's, the per-leaf noise, the fault uniforms,
-the guard's planes and the cohort plane)."""
+the guard's planes and the cohort plane), in the replicated and the
+sketched mode."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +13,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core import AdmmConfig as JAdmmConfig
@@ -26,6 +28,17 @@ from repro_torch.core.aggregators import (AnalogGDState, DFadmmState,
                                           FedAvgState)
 from repro_torch.core.channel import ChannelBlock
 from repro_torch.core.cplx import Complex
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op torch thread for a module of toy-sized tests: the suite
+    runs several pytest workers on the host's cores, and a torch op that
+    spreads a tiny tensor over all of them waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def t(x) -> torch.Tensor:
@@ -257,6 +270,31 @@ def llm_state(st_j):
         device="cpu")
 
 
+def sketch_state(st_j):
+    """The port's ``SketchFLState`` from the JAX sketched trainer's: Θ, the
+    (W, d_s) λ and channel (a scenario's ``PhyState``), a ``FaultState``."""
+    from test_torch_faults import fault_to_numpy
+    from test_torch_scenario import phy_to_numpy
+
+    from repro_torch.core.tree_ota import TreeChannel
+    from repro_torch.train.llm_trainer import SketchFLState
+
+    def c(x):
+        return Complex(t(x.re), t(x.im))
+
+    chan = st_j.chan
+    if hasattr(chan, "h_small"):
+        chan = convert.phy_state_from_numpy(phy_to_numpy(chan), device="cpu")
+    else:
+        chan = TreeChannel(h=c(chan.h), age=int(chan.age))
+    flt = None if st_j.flt is None else convert.fault_state_from_numpy(
+        fault_to_numpy(st_j.flt), device="cpu")
+    return SketchFLState(
+        Theta=convert.model_params_from_numpy(_np_tree(st_j.Theta),
+                                              device="cpu"),
+        lam=c(st_j.lam), chan=chan, step=int(st_j.step), flt=flt)
+
+
 def llm_round_draws(key, st_j, ccfg_j, *, scenario=None, faults=None,
                     guard=None, cohort=None):
     """Every plane JAX's LLM ``train_step(st_j, batch, key)`` draws: the
@@ -271,10 +309,13 @@ def llm_round_draws(key, st_j, ccfg_j, *, scenario=None, faults=None,
     from repro_torch.train.llm_trainer import TreeRoundDraws
 
     kc, kn = jax.random.split(key)
-    leaves = jax.tree_util.tree_leaves(st_j.theta)
     packed = isinstance(st_j.lam, JComplex)
-    N = leaves[0].shape[0]
-    d = sum(int(np.prod(leaf.shape[1:])) for leaf in leaves)
+    if packed:              # replicated (W, D) or sketched (W, d_s) planes
+        N, d = st_j.lam.re.shape
+    else:
+        leaves = jax.tree_util.tree_leaves(st_j.theta)
+        N = leaves[0].shape[0]
+        d = sum(int(np.prod(leaf.shape[1:])) for leaf in leaves)
     h_fresh = phy = None
     if scenario is not None:
         phy = replay_phy(scenario, kc, st_j.chan)
