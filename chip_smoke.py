@@ -185,17 +185,45 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              the peak within the card, λ and h (2, d_s), B11 288/144/144
              and B6, B3, B4 once a round; the codec's device ms; then one
              more round under torch.profiler.
-35. serve — ``repro_torch.serve`` on granite-8b, falcon-mamba-7b and
-             recurrentgemma-2b at full width and depth, bf16: 8 prompts of
-             64 tokens, 64 greedy tokens through ``generate`` (every step's
-             logits finite, no kernel launched) and ``make_prefill`` (B11 ×
-             36, B12 × 64, B12 × 18); each family's decode against its
-             forward in f32 at 2 (3) layers; one decode step profiled.
-             Its kernel rows: B6, B3 and B4 at (2, 31,458,448), B11 at the
-             prefill's (8, 32, 64, 128) and B12 at (8, 64, 131,072) and
-             (8, 64, 2,560).
+35. serve — ``repro_torch.serve`` on granite-8b, falcon-mamba-7b,
+             recurrentgemma-2b, qwen3-moe-30b-a3b (48 layers), pixtral-12b
+             (40) and seamless-m4t-medium (12 + 12) at full width and
+             depth, and deepseek-v3-671b cut to 4 of its 61 layers, bf16:
+             8 prompts of 64 tokens, 64 greedy tokens through ``generate``
+             (every step's logits finite, no kernel launched) and
+             ``make_prefill`` (B11 × 36, B12 × 64, B12 × 18, B11 × 48,
+             B11 × 40 over 256 stub patches a prompt, B11 × 12 over 1,024
+             stub frames a prompt, none for MLA); each model's decode
+             against its forward in f32 at 2 (3) layers, ≤ 8 tokens, the
+             enc-dec's cross cache from ``prefill_cross``; one decode step
+             profiled.  Its kernel rows: B6, B3 and B4 at (2, 31,458,448),
+             B11 at the prefills' (8, 32, 64, 128), (8, 32, 320, 128) and
+             (8, 16, 64, 64) and B12 at (8, 64, 131,072) and (8, 64,
+             2,560).
+36. llm_families_check — after phase 34: the replicated mode on reduced
+             deepseek-v3-671b, qwen3-moe-30b-a3b, pixtral-12b and
+             seamless-m4t-medium in f32 (W = 2, 2 × 32 tokens, the stub
+             patches and frames), 3 rounds on the card and on the CPU from
+             the same state and draws (loss rtol 1e-5, Θ atol 1e-5), the
+             experts picked in round 1 equal pick for pick, round 1 run
+             twice on the card bit-equal; one deepseek-v3 round under
+             ``grouped_moe``.
+37. llm_moe — the sketched mode (phase 34's setting) on qwen3-moe-30b-a3b
+             at full width cut to 12 of its 48 layers (D = 7,788,611,584,
+             d_s = 30,424,264): the peak within the card, λ and h (2, d_s),
+             B11 96/48/48 and B6, B3, B4 once a round; the aux loss and the
+             share of (token, k) pairs dropped; then one more round under
+             torch.profiler with the dispatch's device ms.  Its kernel
+             rows: B6, B3 and B4 at (2, 30,424,264), B11 at a worker's
+             (1, 32, 4,096, 128).
+38. llm_encdec — phase 15's replicated round on seamless-m4t-medium at full
+             width and depth (D = 614,926,336), W = 2, 2 × 1,024 tokens a
+             worker over 2 × 1,024 stub frames: B11 48/24/24 and B6, B3, B4
+             once a round, the loss falling, then one more round under
+             torch.profiler.  Its kernel rows: B6, B3 and B4 at (2,
+             614,926,336), B11 at the decoder's (4, 16, 1,024, 64).
 
-Launch counts are reset just before each of phases 4–12, 14–35 and read
+Launch counts are reset just before each of phases 4–12, 14–38 and read
 just after.  Then come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
@@ -259,6 +287,9 @@ def card_peaks(name: str):
 
 #: the profiler span around the guarded uplink (``core/admm.py``)
 GUARD_SPAN = "guarded_ota_round"
+#: the profiler spans of the MoE dispatch (``models/moe.py``): the sort,
+#: ranking and scatter into the capacity buffer; the gather and the sum
+MOE_SPANS = ("moe_dispatch", "moe_combine")
 
 #: GPU cycles to spin before each timed call (~3 ms on an H100): the host
 #: enqueues the start event, the call's launches and the end event while the
@@ -825,7 +856,9 @@ def _llm_round_shapes():
     config: granite-8b (``llm``, W·D = 1.28·10⁹, near 2³¹), falcon-mamba-7b
     (``llm_ssm``, whose D is not a multiple of B6's 128-column tiles), the
     reduced hybrid (``llm_hybrid``), 1-layer granite-8b (``llm_chaos``) and
-    the full-depth granite-8b's sketch (``llm_sketched``: (W, d_s))."""
+    the full-depth granite-8b's sketch (``llm_sketched``: (W, d_s)),
+    qwen3-moe's 12-layer sketch (``llm_moe``) and seamless-m4t-medium
+    (``llm_encdec``)."""
     from repro_torch.models.registry import packed_param_count
     from repro_torch.train.llm_trainer import _sketch_dim
 
@@ -836,7 +869,11 @@ def _llm_round_shapes():
         (LLM_WORKERS, packed_param_count(_llm_cfg(LLM_ARCH,
                                                   ROBUST_LAYERS))),
         (LLM_WORKERS, _sketch_dim(packed_param_count(_llm_cfg(
-            LLM_ARCH, SKETCH_LAYERS)), SKETCH_RATIO))]
+            LLM_ARCH, SKETCH_LAYERS)), SKETCH_RATIO)),
+        (LLM_WORKERS, _sketch_dim(packed_param_count(_llm_cfg(
+            MOE_ARCH, MOE_LAYERS)), SKETCH_RATIO)),
+        (LLM_WORKERS, packed_param_count(_llm_cfg(ENCDEC_ARCH,
+                                                  ENCDEC_LAYERS)))]
 
 
 def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
@@ -975,6 +1012,19 @@ FLASH_CASES = (("", 2, 32, 4096, 128, "bfloat16", True),
                ("[f32 non-causal (1, 2, 1000, 64)]", 1, 2, 1000, 64,
                 "float32", False),
                ("[bf16 prefill (8, 32, 64, 128)]", 8, 32, 64, 128,
+                "bfloat16", True),
+               # the paths of the moe, vlm and enc-dec families: qwen3-moe's
+               # sketched workers one at a time (1 × 4,096 tokens),
+               # seamless's decoder in training (W·B = 4 × 1,024) and in
+               # the prefill (8 × 64, 16 heads of 64), pixtral's prefill
+               # over 256 patches + 64 tokens
+               ("[bf16 sketched (1, 32, 4096, 128)]", 1, 32, 4096, 128,
+                "bfloat16", True),
+               ("[bf16 enc-dec decoder (4, 16, 1024, 64)]", 4, 16, 1024, 64,
+                "bfloat16", True),
+               ("[bf16 vlm prefill (8, 32, 320, 128)]", 8, 32, 320, 128,
+                "bfloat16", True),
+               ("[bf16 enc-dec prefill (8, 16, 64, 64)]", 8, 16, 64, 64,
                 "bfloat16", True))
 #: which cores each dtype's B11 kernels run on (``flash_attention.cu``)
 FLASH_CORES = {"bfloat16": "tensor cores", "float32": "simt"}
@@ -1971,6 +2021,20 @@ def _check_packed_d(phase: str, cfg, d: int) -> None:
             f"{packed_param_count(cfg)} with norm scales and biases")
 
 
+def _frontend(torch, cfg, lead: tuple, gen) -> dict:
+    """A batch's stub frontend embeddings for leading dims ``lead`` (f32,
+    from ``gen``, on its device): the vlm's patches (.., frontend_tokens,
+    frontend_dim), the audio enc-dec's frames (.., frontend_tokens,
+    d_model); none for a text model."""
+    if cfg.family == "vlm":
+        shape, key = (cfg.frontend_tokens, cfg.frontend_dim), "patches"
+    elif cfg.family == "audio":
+        shape, key = (cfg.frontend_tokens, cfg.d_model), "frames"
+    else:
+        return {}
+    return {key: torch.randn(lead + shape, generator=gen, device=gen.device)}
+
+
 #: the allocator's counters a round may move (``torch.cuda.memory_stats``):
 #: device allocations and frees, retries after a failed allocation,
 #: segments, and the bytes the allocator took from or gave back to the card
@@ -1984,11 +2048,12 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
               loss_rounds: int = LLM_ROUNDS,
               loss_rtol: float = SSM_CHUNKED_LOSS_RTOL, dtype=None,
               fl=None, round_draws=None, check_round=None, gate=None,
-              peak_below: bool = True):
+              peak_below: bool = True, batch_per_worker: int = 1):
     """The federated LLM trainer's replicated mode (``make_fl_train`` /
     ``train_step``) on ``arch`` at full width with ``n_layers`` of its
-    layers, in bf16 (or ``dtype``): W = 2 workers, per-worker batch 1 ×
-    ``seq`` tokens, 2 local sgd steps at ``lr``, 3 rounds.  With
+    layers, in bf16 (or ``dtype``): W = 2 workers, per-worker batch
+    ``batch_per_worker`` × ``seq`` tokens (with the family's stub patches or
+    frames), 2 local sgd steps at ``lr``, 3 rounds.  With
     ``reference`` (an earlier run's summary, same state and draws) the loss
     of each of the first ``loss_rounds`` rounds must be within
     ``loss_rtol`` of its, and with ``peak_below`` the peak below its.
@@ -2017,7 +2082,7 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
         cfg = dataclasses.replace(cfg, param_dtype=dtype)
     model = build_model(cfg)
     fl = dict(fl or {})
-    W, B, S = fl.get("cohort", LLM_WORKERS), 1, seq
+    W, B, S = fl.get("cohort", LLM_WORKERS), batch_per_worker, seq
     local_steps = 2
     flcfg = FLConfig(mode="replicated", n_workers=W, local_steps=local_steps,
                      local_lr=lr, local_optimizer="sgd", **fl)
@@ -2028,7 +2093,8 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
     init_fn, train_step = make_fl_train(model, flcfg, acfg, ccfg)
     state = init_fn(SEED)
     tokens = token_dataset(SEED + 1, B, S, cfg.vocab_size, n_workers=W)
-    batch = {"tokens": tokens}
+    batch = {"tokens": tokens, **_frontend(
+        torch, cfg, (W, B), rng.generator(SEED + 2, torch.device("cuda")))}
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     d = sum(leaf[0].numel() for leaf in tree_leaves(state.theta))
@@ -2108,16 +2174,21 @@ def phase_llm(torch, phase: str, arch: str, n_layers: int, seq: int,
                       loss_bits_equal=losses == reference["loss"])
     widths = {"dense": ("d_model", "n_heads", "n_kv_heads", "hd", "d_ff",
                         "vocab_size"),
+              "audio": ("d_model", "n_heads", "n_kv_heads", "hd", "d_ff",
+                        "vocab_size", "n_enc_layers", "frontend_tokens"),
               "ssm": ("d_model", "d_inner", "ssm_state", "dt_rank",
                       "conv1d_width", "vocab_size")}[cfg.family]
-    reduced = {"n_layers": f"{full.n_layers} -> {n_layers}"}
-    if seq != LLM_SEQ:
+    reduced = ({"n_layers": f"{full.n_layers} -> {n_layers}"}
+               if n_layers != full.n_layers else {})
+    if seq != LLM_SEQ and batch_per_worker == 1:
         reduced["seq"] = f"{LLM_SEQ} (the granite path's) -> {seq}"
     emit({"phase": phase, "ok": True, "arch": cfg.name, "reduced": reduced,
           **{("head_dim" if k == "hd" else k): getattr(cfg, k)
              for k in widths},
           "dtype": cfg.param_dtype, "D": d, "W": W, "batch_per_worker": B,
-          "seq": S, "local_steps": local_steps, "local_lr": lr,
+          "seq": S, **{k: list(v.shape) for k, v in batch.items()
+                       if k != "tokens"},
+          "local_steps": local_steps, "local_lr": lr,
           "rounds": LLM_ROUNDS,
           "setup_s": setup_s, "round_s": times, "alloc_per_round": alloc,
           "seconds_per_round": round_s,
@@ -3695,25 +3766,29 @@ def _codec_ms(torch, Theta, d_s: int) -> dict:
             "decode_ms": time_ms(torch, decode, runs=3, warmup=1)}
 
 
-def phase_llm_sketched(torch):
-    """The sketched mode on granite-8b at full width and all 36 layers,
-    bf16: Θ is one shared 16.1 GB model, λ and h (2, d_s).  Gates: the
-    peak within the card, λ and h (W, d_s), every round's loss and Θ
-    finite, the launches of every round (B11 288/144/144, B6, B3, B4 once);
+def phase_llm_sketched(torch, phase: str = "llm_sketched",
+                       arch: str = LLM_ARCH, n_layers: int = SKETCH_LAYERS):
+    """The sketched mode on granite-8b at full width and all 36 layers
+    (or ``arch`` cut to ``n_layers``), bf16: Θ is one shared model (16.1
+    GB for granite-8b), λ and h (2, d_s).  Gates: the peak within the card,
+    λ and h (W, d_s), every round's loss and Θ finite, the launches of
+    every round (B11 288/144/144 for granite-8b, B6, B3, B4 once);
     recorded: s/round, tokens/s, the codec's device ms, the model-space
-    update norm, one profiled round."""
+    update norm, one profiled round; for a moe arch the aux loss a round
+    and the share of (token, k) pairs the capacity dropped."""
     from repro_torch import rng
     from repro_torch.core.admm import AdmmConfig
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.data.synthetic import token_dataset
     from repro_torch.kernels import build
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, get_config, moe
     from repro_torch.models.registry import packed_param_count
     from repro_torch.train.llm_trainer import (FLConfig, _sketch_dim,
                                                make_fl_train)
     from repro_torch.tree import tree_leaves
 
-    cfg = _llm_cfg(LLM_ARCH, SKETCH_LAYERS)
+    cfg = _llm_cfg(arch, n_layers)
+    routed = cfg.family == "moe"
     model = build_model(cfg)
     W, B, S, local_steps = LLM_WORKERS, 1, LLM_SEQ, 2
     flcfg = FLConfig(mode="sketched", n_workers=W, local_steps=local_steps,
@@ -3730,46 +3805,68 @@ def phase_llm_sketched(torch):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     d = sum(leaf.numel() for leaf in tree_leaves(state.Theta))
-    _check_packed_d("llm_sketched", cfg, d)
+    _check_packed_d(phase, cfg, d)
     d_s = _sketch_dim(packed_param_count(cfg), SKETCH_RATIO)
     require(tuple(state.lam.re.shape) == (W, d_s)
             and tuple(state.chan.h.re.shape) == (W, d_s),
-            f"llm_sketched: λ {tuple(state.lam.re.shape)} and h "
+            f"{phase}: λ {tuple(state.lam.re.shape)} and h "
             f"{tuple(state.chan.h.re.shape)} are not ({W}, {d_s})")
     setup_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    losses, times, norms, inv_alphas = [], [], [], []
+    losses, times, norms, inv_alphas, auxs = [], [], [], [], []
+    kept = pairs = 0
     for r in range(SKETCH_ROUNDS):
         held = [state]
         state = None
+        routing = (moe.record_routing() if routed
+                   else contextlib.nullcontext([]))
         t0 = time.perf_counter()
-        state, m = train_step(held.pop(), batch, key=rng.fold_in(SEED, r + 1))
+        with routing as seen:
+            state, m = train_step(held.pop(), batch,
+                                  key=rng.fold_in(SEED, r + 1))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        # each dispatch of the round, the checkpoints' recomputes too
+        kept += sum(int(e["kept"].sum()) for e in seen)
+        pairs += sum(e["kept"].numel() for e in seen)
+        del seen
         losses.append(float(m["loss"]))
         norms.append(float(m["obs/theta_update_norm"]))
         inv_alphas.append(float(m["inv_alpha"]))
+        if routed:
+            auxs.append(float(m["aux"]))
         require(math.isfinite(losses[-1]) and math.isfinite(norms[-1]),
-                f"llm_sketched: round {r} loss {losses[-1]} or update norm "
+                f"{phase}: round {r} loss {losses[-1]} or update norm "
                 f"{norms[-1]} is not finite")
         require(all(bool(torch.isfinite(leaf).all())
                     for leaf in tree_leaves(state.Theta)),
-                f"llm_sketched: non-finite Θ after round {r}")
+                f"{phase}: non-finite Θ after round {r}")
         del m
     launches = dict(build.launches)
     peak = torch.cuda.max_memory_allocated()
     _per_round(launches, SKETCH_ROUNDS, _sketched_launches(cfg, W,
                                                            local_steps))
     require(peak <= CARD_BYTES and setup_peak <= CARD_BYTES,
-            f"llm_sketched: peak {peak / 1e9} GB (set-up "
+            f"{phase}: peak {peak / 1e9} GB (set-up "
             f"{setup_peak / 1e9} GB) is above the card's "
             f"{CARD_BYTES / 1e9} GB")
     round_s = statistics.mean(times[1:])
     tokens_per_round = W * B * S * local_steps
     codec = _codec_ms(torch, state.Theta, d_s)
     codec_round_ms = W * codec["encode_ms"] + codec["decode_ms"]
-    emit({"phase": "llm_sketched", "ok": True, "arch": cfg.name,
+    moe_fields = {}
+    if routed:
+        moe_fields = {
+            "n_experts": cfg.n_experts, "top_k": cfg.n_experts_active,
+            "moe_d_ff": cfg.moe_d_ff, "aux": auxs,
+            "capacity": moe._capacity(B * S, cfg),
+            "pairs_dispatched": pairs,
+            "pairs_dropped_share": (pairs - kept) / pairs}
+    reduced = ({} if n_layers == get_config(arch).n_layers else
+               {"reduced": {"n_layers": f"{get_config(arch).n_layers} -> "
+                                        f"{n_layers}"}})
+    emit({"phase": phase, "ok": True, "arch": cfg.name, **reduced,
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
           "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
@@ -3785,7 +3882,7 @@ def phase_llm_sketched(torch):
           "codec_decode_ms": codec["decode_ms"],
           "codec_ms_per_round": codec_round_ms,
           "codec_share_of_round": codec_round_ms / (round_s * 1e3),
-          "launches": launches})
+          **moe_fields, "launches": launches})
     keys = iter(range(100, 1000))
 
     def one_round():
@@ -3795,20 +3892,247 @@ def phase_llm_sketched(torch):
     return launches, one_round, round_s
 
 
+#: phase ``llm_families_check``: the moe, vlm and audio families at their
+#: ``ModelConfig.reduced()`` widths in f32, so the card can be held to the
+#: CPU: W = 2, 2 × 32 tokens a worker (after the vlm's 16 stub patches;
+#: over the enc-dec's 16 stub frames), 2 local sgd steps at 1e-2, 3 rounds
+FAMILY_ARCHS = ("deepseek-v3-671b", "qwen3-moe-30b-a3b", "pixtral-12b",
+                "seamless-m4t-medium")
+FAMILY_W, FAMILY_B, FAMILY_S, FAMILY_LR = 2, 2, 32, 1e-2
+#: card against CPU, f32, as ``llm_hybrid`` holds it
+FAMILY_LOSS_RTOL = 1e-5
+FAMILY_THETA_ATOL = 1e-5
+
+
+def _family_launches(cfg, local_steps: int = 2) -> dict:
+    """A replicated round's launches: B11 for each causal attention layer
+    (qwen3-moe's and pixtral's layers, the enc-dec's decoder; MLA and the
+    enc-dec's encoder run none) twice a local step (the checkpoint's
+    recompute), dq and dk/dv once; B6, B3 and B4 once."""
+    n = (0 if cfg.use_mla else cfg.n_layers) * local_steps
+    return {"flash_attention_fwd": 2 * n, "flash_attention_dq": n,
+            "flash_attention_dkv": n, "ota_round_stats": 1,
+            "ota_demodulate_dyn": 1, "admm_dual_update": 1,
+            "ota_modulate": 0, "ota_receive": 0, "ota_round_theta": 0}
+
+
+def _theta_gap(torch, a, b) -> float:
+    from repro_torch.tree import tree_leaves
+
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _same_bits(torch, a, b) -> bool:
+    """Every tensor of trees ``a`` and ``b`` equal bit for bit (a Complex
+    leaf by its two planes)."""
+    from repro_torch.tree import tree_leaves
+
+    def planes(tree):
+        return [t for leaf in tree_leaves(tree)
+                for t in ((leaf.re, leaf.im) if hasattr(leaf, "re")
+                          else (leaf,))]
+
+    return all(bool(torch.equal(x, y))
+               for x, y in zip(planes(a), planes(b)))
+
+
+def phase_llm_families_check(torch):
+    """``train_step`` (replicated) on reduced deepseek-v3-671b,
+    qwen3-moe-30b-a3b, pixtral-12b and seamless-m4t-medium in f32, 3 rounds
+    on the card and the same rounds on the CPU from the same state and
+    draws.  Gates: each round's loss (rtol 1e-5), Θ after 3 rounds (atol
+    1e-5), the experts picked in round 1 equal pick for pick, round 1 run
+    twice on the card bit-equal in Θ, θ and λ (the dispatch accumulates
+    nothing by index), the launches of each round.  Then one deepseek-v3
+    round under ``grouped_moe``, card and CPU, its loss recorded.  Returns
+    the gated rounds' launches."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model, get_config, moe
+    from repro_torch.train.llm_trainer import (FLConfig, draw_round,
+                                               make_fl_train)
+    from repro_torch.tree import to_device
+
+    dev = torch.device("cuda")
+    W = FAMILY_W
+    total: dict = {}
+    for arch in FAMILY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  param_dtype="float32")
+        model = build_model(cfg)
+        flcfg = FLConfig(n_workers=W, local_steps=2, local_lr=FAMILY_LR)
+        acfg = AdmmConfig(rho=0.5, flip_on_change=False)
+        ccfg = ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=2)
+        init_cpu, step_cpu = make_fl_train(model, flcfg, acfg, ccfg,
+                                           device="cpu")
+        _, step_gpu = make_fl_train(model, flcfg, acfg, ccfg)
+        batch = {"tokens": token_dataset(SEED + 11, FAMILY_B, FAMILY_S,
+                                         cfg.vocab_size, n_workers=W,
+                                         device="cpu"),
+                 **_frontend(torch, cfg, (W, FAMILY_B),
+                             rng.generator(SEED + 12, "cpu"))}
+        batch_gpu = to_device(batch, dev)
+        st0 = init_cpu(SEED)
+        _check_packed_d("llm_families_check", cfg, st0.lam.re.shape[1])
+        draws0 = draw_round(rng.fold_in(SEED, 1), st0, ccfg)
+        # round 1 twice on the card from the same state and draws
+        twice = [step_gpu(to_device(st0, dev), batch_gpu,
+                          draws=to_device(draws0, dev))[0] for _ in range(2)]
+        bit_equal = all(_same_bits(torch, getattr(twice[0], f),
+                                   getattr(twice[1], f))
+                        for f in ("Theta", "theta", "lam"))
+        del twice
+        st_cpu, st_gpu = st0, to_device(st0, dev)
+        cpu_losses, gpu_losses, picks, terms = [], [], {}, {}
+        build.reset_launches()
+        for r in range(LLM_ROUNDS):
+            draws = draw_round(rng.fold_in(SEED, r + 1), st_cpu, ccfg)
+            with moe.record_routing() as on_cpu:
+                st_cpu, m_cpu = step_cpu(st_cpu, batch, draws=draws)
+            with moe.record_routing() as on_gpu:
+                st_gpu, m_gpu = step_gpu(st_gpu, batch_gpu,
+                                         draws=to_device(draws, dev))
+            if r == 0:
+                picks = {"dispatches": len(on_gpu),
+                         "picks": sum(e["idx"].numel() for e in on_gpu),
+                         "differing": sum(
+                             int((a["idx"].cpu() != b["idx"]).sum())
+                             for a, b in zip(on_gpu, on_cpu)),
+                         "dropped": sum(int((~e["kept"]).sum())
+                                        for e in on_gpu)}
+                require(len(on_gpu) == len(on_cpu),
+                        f"llm_families_check: {arch} dispatched "
+                        f"{len(on_gpu)} times on the card, {len(on_cpu)} "
+                        f"on the CPU")
+            del on_cpu, on_gpu
+            cpu_losses.append(float(m_cpu["loss"]))
+            gpu_losses.append(float(m_gpu["loss"]))
+            for k in ("aux", "mtp"):
+                if k in m_gpu:
+                    terms.setdefault(k, []).append(float(m_gpu[k]))
+        torch.cuda.synchronize()
+        launches = dict(build.launches)
+        _per_round(launches, LLM_ROUNDS, _family_launches(cfg))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        rel = [abs(g - c) / abs(c) for g, c in zip(gpu_losses, cpu_losses)]
+        gap = _theta_gap(torch, st_gpu.Theta, st_cpu.Theta)
+        require(all(math.isfinite(x) for x in gpu_losses + cpu_losses),
+                f"llm_families_check: {arch} non-finite losses "
+                f"{gpu_losses}, {cpu_losses}")
+        require(max(rel) <= FAMILY_LOSS_RTOL, f"llm_families_check: {arch} "
+                f"card losses {gpu_losses} differ from the CPU's "
+                f"{cpu_losses} by up to {max(rel)} relative, beyond "
+                f"{FAMILY_LOSS_RTOL}")
+        require(gap <= FAMILY_THETA_ATOL, f"llm_families_check: {arch} card "
+                f"Θ differs from the CPU's by {gap} after {LLM_ROUNDS} "
+                f"rounds, beyond {FAMILY_THETA_ATOL} (or is not finite)")
+        require(picks.get("differing", 0) == 0, f"llm_families_check: "
+                f"{arch} picked other experts on the card than on the CPU "
+                f"in round 1: {picks}")
+        require(bit_equal, f"llm_families_check: {arch} round 1 run twice "
+                f"on the card gave other bits")
+        grouped = {}
+        if arch == "deepseek-v3-671b":
+            with _opt_env(REPRO_OPT="grouped_moe"):
+                _, g_cpu = step_cpu(st0, batch, draws=draws0)
+                _, g_gpu = step_gpu(to_device(st0, dev), batch_gpu,
+                                    draws=to_device(draws0, dev))
+            grouped = {"grouped_moe_loss": float(g_gpu["loss"]),
+                       "grouped_moe_cpu_loss": float(g_cpu["loss"]),
+                       "ungrouped_loss": gpu_losses[0]}
+        emit({"phase": "llm_families_check", "ok": True, "arch": arch,
+              "family": cfg.family,
+              "reduced": "ModelConfig.reduced(): 2 layers, d_model 128",
+              "dtype": "float32", "W": W, "batch_per_worker": FAMILY_B,
+              "seq": FAMILY_S, **{k: list(v.shape) for k, v in batch.items()
+                                  if k != "tokens"},
+              "local_steps": 2, "local_lr": FAMILY_LR,
+              "rounds": LLM_ROUNDS, "loss": gpu_losses,
+              "cpu_loss": cpu_losses, "loss_rel_err": rel,
+              "loss_rtol": FAMILY_LOSS_RTOL, "Theta_max_abs_gap": gap,
+              "Theta_atol": FAMILY_THETA_ATOL, "loss_terms": terms,
+              "round1_routing": picks, "round1_twice_bit_equal": bit_equal,
+              **grouped, "launches": launches})
+        del st0, st_cpu, st_gpu, batch, batch_gpu, draws0
+        _free(torch)
+    return total
+
+
+#: phase ``llm_moe``: qwen3-moe-30b-a3b at full width (d_model 2,048, 32/4
+#: heads of 128, 128 experts top 8 of d_ff 768, vocabulary 151,936, bf16)
+#: cut 48 -> 12 layers (D = 7,788,611,584), in ``llm_sketched``'s setting
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 12
+#: phase ``llm_encdec``: seamless-m4t-medium at full width and depth (12 +
+#: 12 layers, D = 614,926,336), replicated, W = 2, 2 × 1,024 tokens a
+#: worker over 2 × 1,024 stub frames
+ENCDEC_ARCH, ENCDEC_LAYERS, ENCDEC_BATCH, ENCDEC_SEQ = (
+    "seamless-m4t-medium", 12, 2, 1024)
+
+
+def phase_llm_encdec(torch):
+    """``llm``'s replicated round on seamless-m4t-medium at full width and
+    depth (B11 in the decoder's self-attention: 48/24/24 a round), then one
+    more round under torch.profiler.  Returns the round's launches."""
+    import dataclasses
+
+    from repro_torch.models import get_config
+
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH),
+                              n_layers=ENCDEC_LAYERS)
+    launches, one_round, round_s, _ = phase_llm(
+        torch, "llm_encdec", ENCDEC_ARCH, ENCDEC_LAYERS, ENCDEC_SEQ, LLM_LR,
+        _family_launches(cfg), batch_per_worker=ENCDEC_BATCH)
+    phase_profile(torch, "llm_encdec", one_round, round_s)
+    return launches
+
+
 #: phase ``serve``: each family at full width and depth, bf16, random init:
 #: a batch of 8 prompts of 64 tokens, 64 greedy tokens through ``generate``
 #: (the prompt ingested through decode), and ``make_prefill`` on the same
-#: prompts, whose launches are B11 a layer (granite-8b) and B12 a
-#: recurrent layer (all 64 of falcon-mamba-7b; 18 of recurrentgemma-2b's
-#: 26, its windowed attention taking the masked path)
+#: prompts (the vlm's after 256 stub patches each, the enc-dec's over 1,024
+#: stub frames each), whose launches are B11 a causal attention layer
+#: (granite-8b's 36, qwen3-moe's 48, pixtral's 40, seamless's 12 decoder
+#: layers; none for deepseek-v3's MLA) and B12 a recurrent layer (all 64 of
+#: falcon-mamba-7b; 18 of recurrentgemma-2b's 26, its windowed attention
+#: taking the masked path)
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 64, 64
 SERVE_ARCHS = (("granite-8b", {"flash_attention_fwd": 36}),
                ("falcon-mamba-7b", {"linear_scan_fwd": 64}),
-               ("recurrentgemma-2b", {"linear_scan_fwd": 18}))
+               ("recurrentgemma-2b", {"linear_scan_fwd": 18}),
+               ("qwen3-moe-30b-a3b", {"flash_attention_fwd": 48}),
+               ("pixtral-12b", {"flash_attention_fwd": 40}),
+               ("seamless-m4t-medium", {"flash_attention_fwd": 12}),
+               ("deepseek-v3-671b", {}))
+#: depth cuts of the served models: deepseek-v3's 3 dense layers and 1 of
+#: its 58 MoE layers (with the MTP block its init builds: 25.79 B
+#: parameters, 51.6 GB)
+SERVE_LAYERS = {"deepseek-v3-671b": 4}
+#: the weights a decode step does not read: the MTP block, the vision
+#: projector, the encoder (the enc-dec decodes against its cross cache)
+SERVE_UNREAD = ("mtp_block", "mtp_proj", "mtp_norm", "projector",
+                "enc_layers", "enc_norm")
 #: the decode-against-forward check: f32 at full width with 2 layers (the
-#: hybrid 3: one of each kind), 8 tokens, TF32 off
-SERVE_CHECK_LAYERS = {"granite-8b": 2, "falcon-mamba-7b": 2,
-                      "recurrentgemma-2b": 3}
+#: hybrid 3: one of each kind; the enc-dec 2 + 2; deepseek-v3 one dense
+#: and one MoE layer, without the MTP block decode never reads), 8 tokens
+#: (at most 8 tokens no MoE pair is dropped), TF32 off; the enc-dec's
+#: cross cache from ``prefill_cross`` over 1,024 stub frames
+SERVE_CHECK_CUTS = {"granite-8b": {"n_layers": 2},
+                    "falcon-mamba-7b": {"n_layers": 2},
+                    "recurrentgemma-2b": {"n_layers": 3},
+                    "qwen3-moe-30b-a3b": {"n_layers": 2},
+                    "pixtral-12b": {"n_layers": 2},
+                    "seamless-m4t-medium": {"n_layers": 2,
+                                            "n_enc_layers": 2},
+                    "deepseek-v3-671b": {"n_layers": 2,
+                                         "first_dense_layers": 1,
+                                         "mtp": False}}
 SERVE_CHECK_TOKENS, SERVE_CHECK_RTOL = 8, 1e-4
 
 
@@ -3819,20 +4143,28 @@ def _serve_check(torch, arch: str) -> dict:
     import dataclasses
 
     from repro_torch import rng
-    from repro_torch.models import build_model, get_config
+    from repro_torch.models import build_model, encdec, get_config
 
-    cfg = dataclasses.replace(get_config(arch),
-                              n_layers=SERVE_CHECK_LAYERS[arch],
+    cfg = dataclasses.replace(get_config(arch), **SERVE_CHECK_CUTS[arch],
                               param_dtype="float32")
     dev = torch.device("cuda")
     m = build_model(cfg)
     p = m.init(SEED + 5)
     n = SERVE_CHECK_TOKENS
+    gen = rng.generator(SEED + 6, dev)
     toks = torch.randint(0, cfg.vocab_size, (1, n), device=dev,
-                         generator=rng.generator(SEED + 6, dev))
+                         generator=gen)
+    batch = {"tokens": toks}
+    if cfg.family == "audio":
+        batch.update(_frontend(torch, cfg, (1,), gen))
     with torch.no_grad():
-        fwd, _ = m.forward(p, {"tokens": toks}, remat=False)
+        fwd, _ = m.forward(p, batch, remat=False)
         cache = m.init_cache(1, n)
+        if cfg.family == "audio":
+            memory = encdec.encode(p, cfg, batch["frames"], remat=False)
+            cache["cross_k"], cache["cross_v"] = encdec.prefill_cross(
+                p, cfg, memory)
+            del memory
         errs, agree = [], []
         for t in range(n):
             logits, cache = m.decode_step(p, cache, toks[:, t], t)
@@ -3843,23 +4175,28 @@ def _serve_check(torch, arch: str) -> dict:
     require(max(errs) <= SERVE_CHECK_RTOL * scale and all(agree),
             f"serve: {arch} decode against forward: max |Δ| {max(errs)} "
             f"(bar {SERVE_CHECK_RTOL * scale}), argmax equal {agree}")
-    del m, p, fwd, cache
-    return {"layers": cfg.n_layers, "max_abs_err": max(errs),
+    del m, p, fwd, cache, batch
+    return {"cut": SERVE_CHECK_CUTS[arch], "max_abs_err": max(errs),
             "max_abs_logit": scale, "argmax_equal": all(agree)}
 
 
 def phase_serve(torch, card):
-    """Serving (``repro_torch.serve``) on granite-8b, falcon-mamba-7b and
-    recurrentgemma-2b at full width and depth, bf16.  Gates: the ids'
-    shape and range, every decode step's logits finite, the peak within the
-    card, the prefill's launches (B11 or B12) and none in decode, and the
-    f32 decode-against-forward check.  Recorded: prefill ms, the wall ms of
-    a decode step against its bound (the weights' bytes at the card's
-    memory rate), tokens/s, the peak; one decode step profiled.  Returns
-    the prefills' launches."""
+    """Serving (``repro_torch.serve``) on granite-8b, falcon-mamba-7b,
+    recurrentgemma-2b, qwen3-moe-30b-a3b, pixtral-12b and
+    seamless-m4t-medium at full width and depth, and deepseek-v3-671b cut
+    to 4 layers, bf16.  Gates: the ids' shape and range, every decode
+    step's logits finite, the peak within the card, the prefill's launches
+    (B11 or B12; none for MLA) and none in decode, and the f32
+    decode-against-forward check.  Recorded: prefill ms, the wall and
+    device ms of a decode step against its bound (the bytes of the weights
+    it reads at the card's memory rate: every expert's, as the reference's
+    decode runs all of them), tokens/s, the peak; one decode step
+    profiled.  Returns the prefills' launches."""
+    import dataclasses
+
     from repro_torch import rng
     from repro_torch.kernels import build
-    from repro_torch.models import get_model
+    from repro_torch.models import build_model, get_config
     from repro_torch.serve import generate, make_prefill
     from repro_torch.tree import tree_leaves
 
@@ -3871,19 +4208,30 @@ def phase_serve(torch, card):
         check = _serve_check(torch, arch)
         _free(torch)
         torch.cuda.reset_peak_memory_stats()
-        model = get_model(arch)
+        full = get_config(arch)
+        model = build_model(dataclasses.replace(
+            full, n_layers=SERVE_LAYERS.get(arch, full.n_layers)))
         cfg = model.cfg
         t0 = time.perf_counter()
         params = model.init(SEED)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        weight_bytes = sum(leaf.numel() * leaf.element_size()
-                           for leaf in tree_leaves(params))
+        init_peak = torch.cuda.max_memory_allocated()
+
+        def nbytes(tree):
+            return sum(leaf.numel() * leaf.element_size()
+                       for leaf in tree_leaves(tree))
+
+        weight_bytes = nbytes(params)
+        decode_bytes = nbytes({k: v for k, v in params.items()
+                               if k not in SERVE_UNREAD})
+        gen = rng.generator(SEED + 3, dev)
         prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
-                                generator=rng.generator(SEED + 3, dev))
+                                generator=gen)
+        batch = {"tokens": prompts, **_frontend(torch, cfg, (B,), gen)}
         prefill = make_prefill(model)
         build.reset_launches()
-        last = prefill(params, {"tokens": prompts})
+        last = prefill(params, batch)
         torch.cuda.synchronize()
         launches = {k: v for k, v in build.launches.items() if v}
         require(launches == want, f"serve: {arch} prefill launched "
@@ -3891,8 +4239,8 @@ def phase_serve(torch, card):
         require(bool(torch.isfinite(last).all()) and tuple(last.shape)
                 == (B, cfg.vocab_size), f"serve: {arch} prefill logits "
                 f"{tuple(last.shape)} not finite or not ({B}, V)")
-        prefill_ms = time_ms(torch, lambda: prefill(
-            params, {"tokens": prompts}), runs=5, warmup=1, spin=False)
+        prefill_ms = time_ms(torch, lambda: prefill(params, batch), runs=5,
+                             warmup=1, spin=False)
         for k, v in launches.items():
             paths[k] = paths.get(k, 0) + v
 
@@ -3927,13 +4275,20 @@ def phase_serve(torch, card):
         prof = phase_profile(
             torch, f"serve_decode:{arch}",
             lambda: model.decode_step(params, cache, tok, P), step_ms / 1e3)
-        bound_ms = weight_bytes / mem_rate * 1e3
+        bound_ms = decode_bytes / mem_rate * 1e3
         emit({"phase": "serve", "ok": True, "arch": arch,
+              **({"reduced": {"n_layers": f"{full.n_layers} -> "
+                                          f"{cfg.n_layers}"}}
+                 if cfg.n_layers != full.n_layers else {}),
               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "vocab_size": cfg.vocab_size, "dtype": cfg.param_dtype,
               "params": sum(leaf.numel() for leaf in tree_leaves(params)),
-              "weight_bytes": weight_bytes, "batch": B, "prompt": P,
-              "new_tokens": N, "init_s": init_s, "prefill_ms": prefill_ms,
+              "weight_bytes": weight_bytes,
+              "decode_weight_bytes": decode_bytes, "batch": B, "prompt": P,
+              **{f"prefill_{k}": list(v.shape) for k, v in batch.items()
+                 if k != "tokens"},
+              "new_tokens": N, "init_s": init_s,
+              "init_peak_gb": init_peak / 1e9, "prefill_ms": prefill_ms,
               "prefill_launches": launches, "decode_steps": steps,
               "generate_s": gen_s, "decode_ms_per_step": step_ms,
               "decode_device_ms_per_step": prof["device_ms"],
@@ -3941,7 +4296,7 @@ def phase_serve(torch, card):
               "decode_over_bound": step_ms / bound_ms,
               "new_tokens_per_s": B * N / gen_s,
               "peak_mem_gb": peak / 1e9, "decode_vs_forward_f32": check})
-        del model, params, prompts, last, ids, cache, tok, finite
+        del model, params, prompts, batch, last, ids, cache, tok, finite
         _free(torch)
     return paths
 
@@ -3981,13 +4336,15 @@ def _mlp_round(alg, run):
     return lambda: train(alg, theta0, solver, grad_fn, 1, SEED + 2)
 
 
-def phase_profile(torch, path: str, run_once, round_s: float):
+def phase_profile(torch, path: str, run_once, round_s: float,
+                  spans=()):
     """One more round of ``path`` (``run_once``) under ``torch.profiler``:
     device time of every kernel (kernel events only: ``key_averages`` also
     credits each kernel's time to the ``aten::`` op that launched it),
     grouped by family, and its share of the unprofiled round time of that
-    path's phase.  Returns the device ms and the matrix products' (cuBLAS)
-    ms."""
+    path's phase; for each profiler range named in ``spans``, the device
+    time of the kernels launched inside it.  Returns the device ms, the
+    matrix products' (cuBLAS) ms and the spans' device ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4001,9 +4358,10 @@ def phase_profile(torch, path: str, run_once, round_s: float):
     # the guarded uplink's span (core/admm.py) shows twice: on the host,
     # with the device time of the kernels launched inside it, and on the
     # device timeline, as its extent from first to last kernel
+    ranges = (GUARD_SPAN, *MOE_SPANS)
     kernels = [e for e in events
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0 and e.key != GUARD_SPAN]
+               and e.self_device_time_total > 0 and e.key not in ranges]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     families: dict = {}
     for e in kernels:
@@ -4036,8 +4394,16 @@ def phase_profile(torch, path: str, run_once, round_s: float):
                  "beyond_one_pass_share": (span_ms - base_ms) / device_ms,
                  "span_extent_on_device_ms":
                  extent[0].self_device_time_total / 1e3 if extent else None}
+    spans_ms = {}
+    for name in spans:
+        on_host = [e for e in events
+                   if e.key == name and e.device_type == DeviceType.CPU]
+        spans_ms[name] = {
+            "calls": on_host[0].count if on_host else 0,
+            "device_ms": on_host[0].device_time_total / 1e3 if on_host
+            else 0.0}
     emit({"phase": "profile", "path": path, "ok": True, "rounds": 1,
-          "guard": guard,
+          "guard": guard, **({"spans": spans_ms} if spans else {}),
           "profiled_wall_ms": wall_ms, "round_ms": round_s * 1e3,
           "device_ms": device_ms if kernels else None,
           "busy_share": device_ms / (round_s * 1e3) if kernels else None,
@@ -4046,7 +4412,8 @@ def phase_profile(torch, path: str, run_once, round_s: float):
                    "device_ms": e.self_device_time_total / 1e3}
                   for e in top]})
     return {"device_ms": device_ms if kernels else None,
-            "matmul_ms": families.get("matmul", {}).get("device_ms", 0.0)}
+            "matmul_ms": families.get("matmul", {}).get("device_ms", 0.0),
+            "spans": spans_ms}
 
 
 def main() -> int:
@@ -4145,6 +4512,15 @@ def main() -> int:
             torch)
         phase_profile(torch, "llm_sketched", sketch_round, sketch_s)
         del sketch_round
+        _free(torch)
+        paths["llm_families_check"] = phase_llm_families_check(torch)
+        _free(torch)
+        paths["llm_moe"], moe_round, moe_s = phase_llm_sketched(
+            torch, "llm_moe", MOE_ARCH, MOE_LAYERS)
+        phase_profile(torch, "llm_moe", moe_round, moe_s, spans=MOE_SPANS)
+        del moe_round
+        _free(torch)
+        paths["llm_encdec"] = phase_llm_encdec(torch)
         _free(torch)
         paths["serve"] = phase_serve(torch, name)
         _free(torch)

@@ -4,9 +4,10 @@ twin of ``examples/serve_batched.py``.
     PYTHONPATH=src python -m repro_torch.examples.serve_batched \\
         [--arch falcon-mamba-7b] [--device cpu]
 
-Runs the reduced variant of an arch the port builds (dense, SSM, hybrid):
-ingests a batch of prompts and decodes new tokens with the same
-``serve_step`` that ``repro_torch.serve.generate`` runs.
+Runs the reduced variant of any assigned arch: ingests a batch of prompts
+and decodes new tokens with the same ``serve_step`` that
+``repro_torch.serve.generate`` runs (the vlm and the audio enc-dec decode
+text alone, as in the reference: the enc-dec's cross cache stays zero).
 """
 from __future__ import annotations
 

@@ -17,9 +17,10 @@ by the global index, so a resumed run (``--checkpoint-dir`` +
 ``--mode sketched`` runs A-FADMM-CS (one shared model, (W, d_s) duals;
 ``--sketch-ratio``, ``--sketch-lr``): its state's fields (``Theta``,
 ``lam``, ``chan``, ``step``, ``flt``) are the snapshot's keys, as the
-reference writes them.  Refused by name: ``--fsdp > 1`` (a mesh, ROADMAP
-queue A item 6), ``--population`` in the sketched mode (the trainer's
-ValueError) and the families the model registry does not build.  Torch
+reference writes them.  Every arch trains: a round's batch adds the stub
+patches (vlm) or frames (audio) to the tokens.  Refused by name:
+``--fsdp > 1`` (a mesh, ROADMAP queue A item 6) and ``--population`` in
+the sketched mode (the trainer's ValueError).  Torch
 has no HLO, so no ``compile_report.json`` is written; the manifest says
 why.
 
@@ -351,11 +352,24 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
         return last
 
     def make_batch(r: int) -> dict:
+        """Round r's batch: each worker's sequences, and the stub
+        frontend's embeddings (the vlm's patches, the audio enc-dec's
+        frames) drawn from the same generator, as the reference draws
+        them from the round's key."""
         gen = rng.generator(rng.fold_in(key, 1000 + r), dev)
         idx = torch.randint(0, data.shape[1], (W_round, args.batch),
                             generator=gen, device=dev)
-        return {"tokens": torch.gather(
+        batch = {"tokens": torch.gather(
             data, 1, idx[:, :, None].expand(-1, -1, data.shape[2]))}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.randn(
+                (W_round, args.batch, cfg.frontend_tokens, cfg.frontend_dim),
+                generator=gen, device=dev)
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn(
+                (W_round, args.batch, cfg.frontend_tokens, cfg.d_model),
+                generator=gen, device=dev)
+        return batch
 
     def step(st, r: int):
         return train_step(st, make_batch(r), key=rng.fold_in(key, 2000 + r))

@@ -38,8 +38,9 @@ from repro_torch.kernels.linear_scan import gated_linear_scan
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import _conv1d_causal
-from repro_torch.models.transformer import layer_params, run_stacked
-from repro_torch.tree import tree_map, tree_stack
+from repro_torch.models.transformer import (init_stacked, layer_params,
+                                            run_stacked)
+from repro_torch.tree import tree_map
 
 Tensor = torch.Tensor
 Params = Dict
@@ -191,8 +192,8 @@ def init_params(key: int, cfg: ModelConfig, device="cuda") -> Params:
     return {
         "embed": L.embedding_init(ke, cfg.vocab_size, cfg.d_model, cfg.dtype,
                                   dev),
-        "super": tree_stack([init_super(rng.fold_in(ks, i))
-                             for i in range(n_super)]),
+        "super": init_stacked(init_super, [rng.fold_in(ks, i)
+                                           for i in range(n_super)]),
         "final_norm": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev),
         "tail": tail_p,
     }

@@ -3,12 +3,14 @@ uniform functional Model API (init / forward / loss).  Counterpart of
 ``repro/models/registry.py``: ``ARCHS`` is a data copy of the JAX
 package's table, field for field.
 
-``build_model`` builds the ``dense``, ``ssm`` and ``hybrid`` families,
-with the decode API (``init_cache``/``decode_step``: a cache the step
-updates in place); every other family (moe, encdec, vlm) raises
-``NotImplementedError`` naming its ROADMAP item (queue A item 5).  With
-parameters that carry a leading worker dim (the LLM trainer's), ``loss``
-returns one loss per worker.
+``build_model`` builds every family (dense, vlm, moe, ssm, hybrid and the
+audio enc-dec), with the decode API (``init_cache``/``decode_step``: a
+cache the step updates in place).  With parameters that carry a leading
+worker dim (the LLM trainer's), ``loss`` returns one loss per worker, and
+so do its metrics.  A batch holds ``tokens`` (..., B, S), and ``patches``
+(..., B, P, frontend_dim) for the vlm arch (the loss is over the text
+positions only) or ``frames`` (..., B, T_frames, d_model) for the audio
+one; the moe loss is ``xent + 0.1·mtp + aux``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, moe, ssm, transformer
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -134,36 +136,69 @@ def _xent(logits: Tensor, labels: Tensor, mask: Optional[Tensor] = None,
     return -torch.mean(ll, -1)
 
 
-#: the modules of the families the port builds
-FAMILIES = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
+#: the module of each family
+FAMILIES = {"dense": transformer, "vlm": transformer, "moe": moe,
+            "ssm": ssm, "hybrid": hybrid, "audio": encdec}
 
 
 def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
     if fam not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {fam!r} family is not ported yet (ROADMAP "
-            f"queue A item 5: moe, encdec and vlm)")
+        raise ValueError(f"unknown family {fam!r}")
     module = FAMILIES[fam]
 
     def init(key: int, device="cuda"):
         return module.init_params(key, cfg, device)
 
-    def forward(params, batch, remat=True):
-        logits = module.lm_forward(params, cfg, batch["tokens"], remat=remat)
-        return logits, torch.zeros((), device=logits.device)
+    def zero(logits: Tensor) -> Tensor:
+        return torch.zeros((), device=logits.device)
+
+    if fam == "moe":
+        def forward(params, batch, remat=True):
+            logits, aux, _ = moe.lm_forward(params, cfg, batch["tokens"],
+                                            remat=remat)
+            return logits, aux
+    elif fam == "audio":
+        def forward(params, batch, remat=True):
+            logits = encdec.lm_forward(params, cfg, batch["tokens"],
+                                       batch["frames"], remat=remat)
+            return logits, zero(logits)
+    elif fam == "vlm":
+        def forward(params, batch, remat=True):
+            logits = transformer.lm_forward(
+                params, cfg, batch["tokens"],
+                frontend_embeds=batch.get("patches"), remat=remat)
+            return logits, zero(logits)
+    else:
+        def forward(params, batch, remat=True):
+            logits = module.lm_forward(params, cfg, batch["tokens"],
+                                       remat=remat)
+            return logits, zero(logits)
 
     def loss(params, batch, remat=True):
-        logits, _ = forward(params, batch, remat)
         tokens = batch["tokens"]
         lead = params["embed"]["table"].dim() - 2
-        lo, la = logits[..., :-1, :], tokens[..., 1:]
-        l = _xent(lo, la, lead=lead)
+        if fam == "moe":
+            logits, aux, mtp_logits = moe.lm_forward(
+                params, cfg, tokens, remat=remat, return_mtp=cfg.mtp)
+            l = _xent(logits[..., :-1, :], tokens[..., 1:], lead=lead)
+            metrics = {"xent": l, "aux": aux}
+            if mtp_logits is not None:       # predict t+2
+                l_mtp = _xent(mtp_logits[..., :-2, :], tokens[..., 2:],
+                              lead=lead)
+                metrics["mtp"] = l_mtp
+                l = l + 0.1 * l_mtp
+            return l + aux, metrics
+        logits, _ = forward(params, batch, remat)
+        if fam == "vlm":        # the loss only on the text positions
+            logits = logits[..., -tokens.shape[-1]:, :]
+        l = _xent(logits[..., :-1, :], tokens[..., 1:], lead=lead)
         return l, {"xent": l}
 
-    def init_cache(batch: int, max_seq: int, dtype=None, device="cuda"):
+    def init_cache(batch: int, max_seq: int, dtype=None, device="cuda",
+                   **kw):
         return module.init_cache(cfg, batch, max_seq, dtype=dtype,
-                                 device=device)
+                                 device=device, **kw)
 
     def decode_step(params, cache, token, pos):
         return module.decode_step(params, cfg, cache, token, pos)
@@ -250,25 +285,42 @@ def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
 def packed_param_count(cfg: ModelConfig) -> int:
     """Every parameter ``init_params`` builds, so the length D of the
     trainer's packed (W, D) buffers: the analytic count plus what it leaves
-    out (norm scales and biases).  Counted for the families
-    ``build_model`` builds."""
+    out (norm scales and biases; the vlm's projector; MLA's q and kv
+    norms; the MTP block's norms)."""
     d, L_ = cfg.d_model, cfg.n_layers
-    if cfg.family == "dense":
-        qkv_bias = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd \
-            if cfg.qkv_bias else 0
-        mlp_bias = cfg.d_ff + d if cfg.mlp_act == "gelu_mlp" else 0
+    qkv_bias = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd \
+        if cfg.qkv_bias else 0
+    mlp_bias = cfg.d_ff + d if cfg.mlp_act == "gelu_mlp" else 0
+    if cfg.family in ("dense", "vlm"):
         per_layer = 2 * d + qkv_bias + mlp_bias
-    elif cfg.family == "ssm":
+        extra = cfg.frontend_dim * d if cfg.modality == "vision" else 0
+        return analytic_param_count(cfg) + L_ * per_layer + d + extra
+    if cfg.family == "moe":
+        # two norms a block, MLA's kv (and q) norm or the qkv biases; the
+        # routed and shared experts are gated (no biases)
+        attn_norms = (cfg.kv_lora_rank + cfg.q_lora_rank if cfg.use_mla
+                      else qkv_bias)
+        per_block = 2 * d + attn_norms
+        n_dense = cfg.first_dense_layers
+        mtp = per_block + d if cfg.mtp else 0     # its block and mtp_norm
+        return (analytic_param_count(cfg) + L_ * per_block
+                + n_dense * mlp_bias + d + mtp)
+    if cfg.family == "ssm":
         # the norm, the b/c/dt norms, the conv and dt_proj biases
         per_layer = d + 2 * cfg.ssm_state + cfg.dt_rank + 2 * cfg.d_inner
-    elif cfg.family == "hybrid":
+        return analytic_param_count(cfg) + L_ * per_layer + d
+    if cfg.family == "hybrid":
         # two norms a layer; a recurrent one adds the conv and both gate
         # biases
         n_rec = sum(1 for i in range(L_) if cfg.block_pattern[
             i % len(cfg.block_pattern)] == "rec")
         return (analytic_param_count(cfg) + 2 * d * L_
                 + 3 * cfg.lru_width * n_rec + d)
-    else:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family "
-                                  f"is not built by the port")
-    return analytic_param_count(cfg) + L_ * per_layer + d
+    if cfg.family == "audio":
+        # layernorms (scale and bias): two an encoder layer, three a
+        # decoder layer, and the two final ones
+        enc = 4 * d + qkv_bias + mlp_bias
+        dec = 6 * d + 2 * qkv_bias + mlp_bias
+        return (analytic_param_count(cfg) + cfg.n_enc_layers * enc
+                + L_ * dec + 4 * d)
+    raise ValueError(cfg.family)

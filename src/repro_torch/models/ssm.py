@@ -35,8 +35,8 @@ from repro_torch.kernels.linear_scan import (gated_linear_scan,
                                              linear_scan_carry)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layer_params, run_stacked
-from repro_torch.tree import tree_stack
+from repro_torch.models.transformer import (init_stacked, layer_params,
+                                            run_stacked)
 
 Tensor = torch.Tensor
 Params = Dict
@@ -164,7 +164,7 @@ def init_params(key: int, cfg: ModelConfig, device="cuda") -> Params:
     return {
         "embed": L.embedding_init(ke, cfg.vocab_size, cfg.d_model, cfg.dtype,
                                   dev),
-        "layers": tree_stack([block_init(k, cfg, dev) for k in lkeys]),
+        "layers": init_stacked(lambda k: block_init(k, cfg, dev), lkeys),
         "final_norm": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev),
     }
 

@@ -1,9 +1,12 @@
-"""Dense decoder-only transformer (qwen1.5 / codeqwen / starcoder2 / granite),
-with the layers stacked on a leading ``n_layers`` dim.  Counterpart of
-``repro/models/transformer.py`` (text inputs; no prefill cache): the
-full-sequence forward and the one-token decode against a KV cache
+"""Dense decoder-only transformer (qwen1.5 / codeqwen / starcoder2 / granite
+/ the pixtral backbone), with the layers stacked on a leading ``n_layers``
+dim.  Counterpart of ``repro/models/transformer.py`` (no prefill cache):
+the full-sequence forward and the one-token decode against a KV cache
 (:func:`init_cache`, :func:`decode_step`; a rotating buffer of ``window``
-slots under a sliding window), which updates the cache in place.
+slots under a sliding window), which updates the cache in place.  The vlm
+arch's stub vision frontend is a ``projector`` leaf: :func:`lm_forward`'s
+``frontend_embeds`` (the stub patches) are projected and put in front of
+the token embeddings.
 
 A Python loop over the stacked layers replaces ``lax.scan``; ``remat=True``
 (JAX's default) checkpoints each layer with
@@ -27,7 +30,7 @@ from repro_torch import optflags, rng
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.tree import tree_leaves, tree_map, tree_stack
+from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
 Params = Dict
@@ -62,31 +65,67 @@ def block_decode(p: Params, x: Tensor, cfg: ModelConfig, ck: Tensor,
     return x, ck, cv
 
 
+def init_stacked(init_one: Callable[[int], Params], keys) -> Params:
+    """The trees ``init_one(k)`` for each of ``keys``, stacked leafwise on a
+    leading dim (``jax.vmap(init_one)(keys)``'s layout, ``tree_stack``'s
+    tensors): the stacked leaves are allocated once and filled an entry at
+    a time, so the init holds the stack and one entry, never two copies
+    (one entry is its own stack, a view)."""
+    out = dst = None
+    for i, k in enumerate(keys):
+        entry = init_one(k)
+        if out is None:
+            if len(keys) == 1:
+                return tree_map(lambda l: l[None], entry)
+            out = tree_map(
+                lambda l: l.new_empty((len(keys),) + tuple(l.shape)), entry)
+            dst = tree_leaves(out)
+        for d_, s_ in zip(dst, tree_leaves(entry)):
+            d_[i].copy_(s_)
+        del entry
+    return out
+
+
 def init_params(key: int, cfg: ModelConfig, device="cuda") -> Params:
     """Random init from an integer key: per-layer leaves stacked on a
-    leading ``n_layers`` dim, as ``jax.vmap(init_block)`` makes them."""
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.modality} frontend is not ported (ROADMAP "
-            f"queue A item 5)")
+    leading ``n_layers`` dim, as ``jax.vmap(init_block)`` makes them, and
+    the vision frontend's ``projector`` (frontend_dim → d_model) when
+    ``modality == "vision"``."""
     device = resolve_device(device)
-    ke, kl, _ = rng.split(key, 3)
-    lkeys = [rng.fold_in(kl, i) for i in range(cfg.n_layers)]
-    return {
+    ke, kl, kp = rng.split(key, 3)
+    params = {
         "embed": L.embedding_init(ke, cfg.vocab_size, cfg.d_model, cfg.dtype,
                                   device),
-        "layers": tree_stack([init_block(k, cfg, device) for k in lkeys]),
+        "layers": init_stacked(lambda k: init_block(k, cfg, device),
+                               [rng.fold_in(kl, i)
+                                for i in range(cfg.n_layers)]),
         "final_norm": L.rmsnorm_init(cfg.d_model, cfg.dtype, device),
     }
+    if cfg.modality == "vision":
+        params["projector"] = L.dense_init(kp, cfg.frontend_dim, cfg.d_model,
+                                           cfg.dtype, device=device)
+    return params
 
 
-def _embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    return L.embed(params["embed"], tokens)
+def _embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor,
+                  frontend_embeds: Optional[Tensor] = None) -> Tensor:
+    """Token embeddings (..., S, d); with ``frontend_embeds`` (..., P,
+    frontend_dim), the projected patches (cast to the param dtype) in front
+    of them: (..., P + S, d)."""
+    x = L.embed(params["embed"], tokens)
+    if frontend_embeds is not None:
+        patches = L.dense(params["projector"],
+                          frontend_embeds.to(cfg.dtype))
+        x = torch.cat([patches, x], dim=-2)
+    return x
 
 
 #: the keys whose leaves the families stack on a leading entry dim (the
-#: layers; the hybrid's super-blocks): :func:`run_stacked` reads them
-STACKED_KEYS = ("layers", "super")
+#: layers; the hybrid's super-blocks; the moe family's dense and MoE
+#: layers; the encoder's and the decoder's layers): :func:`run_stacked`
+#: reads them
+STACKED_KEYS = ("layers", "super", "dense_layers", "moe_layers",
+                "enc_layers", "dec_layers")
 
 
 def unstack(params: Params) -> Params:
@@ -132,32 +171,43 @@ def _dots_saveable(ctx, func, *args, **kwargs) -> CheckpointPolicy:
 
 
 def run_stacked(params: Params, x: Tensor, block: Callable, n: int,
-                remat: bool, key: str = "layers") -> Tensor:
+                remat: bool, key: str = "layers", with_aux: bool = False):
     """x through ``block(x, entry)`` for each of the ``n`` stacked entries
     of ``params[key]`` in order (JAX's ``lax.scan``); with ``remat`` each
     entry is one ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of
     the scan body), so the backward pass runs its forward again, all of it
     (JAX's ``nothing_saveable``) or, under ``optflags`` ``save_dots``, all
     but the matrix products, whose outputs the forward keeps
-    (:func:`_dots_saveable`)."""
+    (:func:`_dots_saveable`).  With ``with_aux`` the block returns
+    ``(x, aux)`` (the scan's per-layer output) and so does this: ``(x, [aux
+    of each entry])``."""
     policy = {}
     if remat and optflags.enabled("save_dots"):
         policy["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_saveable)
+    auxs = []
     for i in range(n):
         entry = layer_params(params, i, key)
         if remat:
-            x = checkpoint(block, x, entry, use_reentrant=False,
-                           preserve_rng_state=False, **policy)
+            out = checkpoint(block, x, entry, use_reentrant=False,
+                             preserve_rng_state=False, **policy)
         else:
-            x = block(x, entry)
-    return x
+            out = block(x, entry)
+        if with_aux:
+            x, a = out
+            auxs.append(a)
+        else:
+            x = out
+    return (x, auxs) if with_aux else x
 
 
 def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
+               frontend_embeds: Optional[Tensor] = None,
                remat: bool = True) -> Tensor:
-    """Full-sequence forward over tokens (..., B, S). Returns logits."""
-    x = _embed_inputs(params, cfg, tokens)
+    """Full-sequence forward over tokens (..., B, S), after the projected
+    ``frontend_embeds`` (..., B, P, frontend_dim) where given (positions
+    over the whole P + S sequence). Returns logits."""
+    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     S = x.shape[-2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
 

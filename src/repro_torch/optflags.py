@@ -15,6 +15,10 @@ the port still takes effect:
 * ``enabled("save_dots")`` — each checkpointed layer keeps its matrix
   products' outputs and the backward recomputes the rest
   (``models/transformer.run_stacked``, JAX's ``dots_saveable``).
+* ``enabled("grouped_moe")`` — the MoE dispatch runs in G token groups
+  (G the largest divisor of a worker's N ≤ 16), each with its own sort and
+  capacity (``models/moe.moe_apply``); it changes which (token, k) pairs
+  the capacity drops, so it changes results, as in the reference.
 
 ``SCAN_CHUNK`` (``REPRO_SCAN_CHUNK``, 512) and ``ATTN_CHUNK``
 (``REPRO_ATTN_CHUNK``, 512) are the chunk lengths.

@@ -3,10 +3,13 @@ Counterpart of ``repro/serve/serving.py``.
 
 ``make_serve_step`` makes ONE new token for every sequence of the batch
 against a KV/state cache, which it updates in place (JAX donates the
-cache to the compiled step).  Prefill is the model's full forward, so it
-runs B11 (dense) or B12 (the SSM and the hybrid's recurrent layers) on the
-card; decode is plain torch, as the reference computes it outside any
-kernel.
+cache to the compiled step).  Prefill is the model's full forward (with
+the batch's stub patches or frames for the vlm and the audio enc-dec), so
+it runs B11 (dense, vlm, qwen3-moe, the enc-dec's decoder) or B12 (the SSM
+and the hybrid's recurrent layers) on the card; MLA is plain einsums.
+Decode is plain torch, as the reference computes it outside any kernel;
+``generate`` starts the enc-dec from a zero cross cache, as the reference
+does (``models/encdec.prefill_cross`` fills it).
 """
 from __future__ import annotations
 

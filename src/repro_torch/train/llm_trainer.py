@@ -27,6 +27,12 @@ receive.  With ``population``/``cohort`` (replicated mode) the state is a
 population's and each round only the sampled cohort trains and transmits;
 the others keep their θ, optimizer state and λ.
 
+A batch's leaves lead with the worker dim: ``tokens`` (W, B, S), and the
+vlm's ``patches`` or the audio enc-dec's ``frames``.  A round's metrics
+carry the moe family's loss terms (``aux``, and ``mtp`` for deepseek-v3)
+beside the loss, each a mean over the workers (the reference's trainer
+reports the loss alone).
+
 A round's random planes are a :class:`TreeRoundDraws`, drawn from the round
 key when not given (:func:`draw_round`), so a test can replay the JAX
 package's.  ``telemetry`` adds the round's ``obs/`` keys
@@ -310,10 +316,11 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
 
     def local_step(theta: PyTree, opt_state, batch, lam_tree, h_tree,
                    Theta: PyTree, rows: Optional[Tensor] = None):
-        """One prox step of every worker: (θ', opt', mean loss).  ``rows``:
-        the cohort's rows of the population-wide λ and h trees."""
+        """One prox step of every worker: (θ', opt', mean loss, the means
+        of the loss's extra terms).  ``rows``: the cohort's rows of the
+        population-wide λ and h trees."""
         leaves = tree_map(lambda l: l.detach().requires_grad_(), theta)
-        losses, _ = model.loss(leaves, batch)            # (W,)
+        losses, lm = model.loss(leaves, batch)           # (W,)
         losses.sum().backward()
         with torch.no_grad():
             grads = tree_map(lambda l: l.grad, leaves)
@@ -322,7 +329,7 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
             g = tree_map(lambda a, b: a + b.to(a.dtype), grads, pen)
             del grads, pen, leaves
             theta, opt_state = opt.update(g, opt_state, theta)
-        return theta, opt_state, losses.detach().mean()
+        return theta, opt_state, losses.detach().mean(), _loss_terms(lm)
 
     def train_step(state: TreeFLState, batch: dict, key: Optional[int] = None,
                    draws: Optional[TreeRoundDraws] = None
@@ -392,11 +399,11 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
             # the old θ and optimizer state are spent once the steps start
             del theta_run, opt_run
             state = state._replace(theta=None, opt=None)
-        loss = None
+        loss = terms = None
         for _ in range(flcfg.local_steps):
-            theta, opt_state, loss = local_step(theta, opt_state, batch,
-                                                lam_tree, h_tree, state.Theta,
-                                                rows=idx)
+            theta, opt_state, loss, terms = local_step(
+                theta, opt_state, batch, lam_tree, h_tree, state.Theta,
+                rows=idx)
         del lam_tree, h_tree
         if idx is not None:
             # the gathered rows go before the round; sgd passes its second
@@ -440,8 +447,8 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
                                                               state.Theta)
             metrics = _obs.merge_disjoint(
                 {"loss": loss, "theta_drift": _tree_rms_gap(theta,
-                                                            Theta_new)},
-                m, fmetrics, who="make_replicated.train_step")
+                                                            Theta_new),
+                 **terms}, m, fmetrics, who="make_replicated.train_step")
         new_state = TreeFLState(theta=theta, lam=lam_new, Theta=Theta_new,
                                 chan=chan, opt=opt_state, step=state.step + 1,
                                 flt=flt_new)
@@ -465,6 +472,17 @@ def _scatter_opt(full: OptState, new: OptState, idx: Tensor,
         nu = tree_map(lambda f, r: _cohort.put_rows(f, idx, r), full.nu,
                       new.nu)
     return OptState(mu=mu, nu=nu, count=new.count)
+
+
+#: the terms of a family's loss a round reports beside it: the moe
+#: family's load-balance ``aux`` and its ``mtp`` cross-entropy
+LOSS_TERMS = ("aux", "mtp")
+
+
+def _loss_terms(lm: dict) -> dict:
+    """The :data:`LOSS_TERMS` of ``model.loss``'s metrics, each its mean
+    over the workers, detached."""
+    return {k: lm[k].detach().float().mean() for k in LOSS_TERMS if k in lm}
 
 
 def _tree_rms_gap(theta_w: PyTree, Theta: PyTree) -> Tensor:
@@ -558,10 +576,11 @@ def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
         return SketchFLState(Theta=Theta, lam=lam, chan=chan, step=0,
                              flt=flt)
 
-    def worker_sketch(Theta: PyTree, batch_w: dict, out: Tensor) -> Tensor:
+    def worker_sketch(Theta: PyTree, batch_w: dict, out: Tensor
+                      ) -> Tuple[Tensor, dict]:
         """``local_steps`` sgd steps of one worker from Θ, its delta's
         sketch added into ``out`` (d_s,); returns the loss of the last
-        step (at the θ it started from)."""
+        step (at the θ it started from) and that step's loss terms."""
         with torch.no_grad():
             theta = tree_map(torch.clone, Theta)
         # one autograd leaf a layer (views of θ), so each layer's gradient
@@ -569,9 +588,11 @@ def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
         run = tree_map(lambda l: l.detach().requires_grad_(),
                        unstack(theta) if isinstance(theta, dict) else theta)
         leaves = tree_leaves(run)
-        loss = None
+        loss = terms = None
         for _ in range(flcfg.local_steps):
-            loss, _ = model.loss(run, batch_w)
+            loss, lm = model.loss(run, batch_w)
+            terms = _loss_terms(lm)
+            del lm
             loss.backward()
             with torch.no_grad():
                 for p in leaves:
@@ -585,7 +606,7 @@ def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
                 t.sub_(T)              # the delta, rounded in the dtype
             encode_chunked(tree_leaves(theta), out.shape[-1], SKETCH_SEED,
                            out=out)
-        return loss
+        return loss, terms
 
     def apply_delta(Theta: PyTree, s: Tensor) -> Tuple[PyTree, Tensor]:
         """Θ + sketch_lr · decode(s), a leaf and a chunk at a time in the
@@ -648,10 +669,12 @@ def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
 
         s_w = torch.zeros((W_, d_s), dtype=torch.float32,
                           device=state.lam.re.device)
-        losses = []
+        losses, terms = [], []
         for w in range(W_):
             batch_w = tree_map(lambda l: l[w], batch)
-            losses.append(worker_sketch(state.Theta, batch_w, s_w[w]))
+            loss_w, terms_w = worker_sketch(state.Theta, batch_w, s_w[w])
+            losses.append(loss_w)
+            terms.append(terms_w)
 
         with torch.no_grad():
             # the consensus round in sketch space: s_w is the packed buffer
@@ -670,7 +693,9 @@ def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
                 flt_new = _fplan.commit(flt_mid, aux.get("stale"),
                                         aux.get("evicted"))
             metrics = _obs.merge_disjoint(
-                {"loss": torch.stack(losses).mean()}, m, fmetrics,
+                {"loss": torch.stack(losses).mean(),
+                 **{k: torch.stack([t[k] for t in terms]).mean()
+                    for k in terms[0]}}, m, fmetrics,
                 who="make_sketched.train_step")
             if tel is not None:
                 # the model-space update norm (sketch_lr · ‖decoded

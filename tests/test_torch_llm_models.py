@@ -69,12 +69,17 @@ def test_archs_and_param_counts_equal_jax(name):
 
 
 def test_registry_lists_and_refuses_unported_families():
+    """Every family is built now: each arch's model comes back, and only
+    a family no module serves is refused."""
     assert reg.list_archs() == jreg.list_archs()
     with pytest.raises(KeyError):
         reg.get_config("nope")
-    for name in ("qwen3-moe-30b-a3b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            reg.get_model(name, reduced=True)
+    assert set(reg.FAMILIES) == {c.family for c in reg.ARCHS.values()}
+    for name in reg.list_archs():
+        assert reg.get_model(name, reduced=True).cfg.name == name
+    with pytest.raises(ValueError, match="unknown family"):
+        reg.build_model(dataclasses.replace(reg.get_config("granite-8b"),
+                                            family="nope"))
     # decode is ported (tests/test_torch_decode.py holds it against JAX)
     m = reg.get_model("granite-8b", reduced=True)
     assert tuple(m.init_cache(1, 8, device="cpu")["k"].shape) == (
@@ -83,13 +88,12 @@ def test_registry_lists_and_refuses_unported_families():
     assert sw.cfg.sliding_window == 8
 
 
-@pytest.mark.parametrize("name", [n for n in sorted(reg.ARCHS)
-                                  if reg.ARCHS[n].family in reg.FAMILIES])
+@pytest.mark.parametrize("name", sorted(reg.ARCHS))
 @pytest.mark.parametrize("extra_layers", [0, 1])
 def test_packed_param_count_equals_both_trees(name, extra_layers):
     """``packed_param_count`` is the number of parameters in JAX's tree
     (shapes only, through ``jax.eval_shape``) and in the port's, at the
-    reduced config and one layer deeper (a hybrid tail)."""
+    reduced config and one layer deeper (a hybrid tail), for every arch."""
     cfg = reg.ARCHS[name].reduced()
     cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers + extra_layers)
     jcfg = dataclasses.replace(jreg.ARCHS[name].reduced(),
@@ -100,8 +104,8 @@ def test_packed_param_count_equals_both_trees(name, extra_layers):
     got = sum(leaf.numel() for leaf in tree_leaves(
         reg.build_model(cfg).init(0, device="cpu")))
     assert reg.packed_param_count(cfg) == want == got
-    with pytest.raises(NotImplementedError, match="qwen3-moe-30b-a3b"):
-        reg.packed_param_count(reg.ARCHS["qwen3-moe-30b-a3b"])
+    with pytest.raises(ValueError, match="nope"):
+        reg.packed_param_count(dataclasses.replace(cfg, family="nope"))
 
 
 # ---------------------------------------------------------------------------

@@ -102,7 +102,17 @@ def test_serve_microbench_twin(capsys):
     assert name == "serve_microbench" and float(us) > 0
     import json
     d = json.loads(derived)
-    for arch in ("granite-8b", "falcon-mamba-7b", "recurrentgemma-2b"):
+    for arch in ("granite-8b", "falcon-mamba-7b", "recurrentgemma-2b",
+                 "qwen3-moe-30b-a3b"):
         assert d[arch]["shape_ok"] is True and d[arch]["tok_per_s"] > 0
-    assert d["qwen3-moe-30b-a3b"] == {
-        "error": "not ported: ROADMAP queue A item 5 (moe)"}
+
+
+def test_serve_microbench_takes_every_family():
+    """The twin serves the archs the reference's list leaves out too: the
+    vlm, the audio enc-dec (from its zero cross cache) and MLA."""
+    from repro_torch.benchmarks.serve_microbench import serve_microbench
+    archs = ("pixtral-12b", "seamless-m4t-medium", "deepseek-v3-671b")
+    d = serve_microbench(batch=2, new_tokens=3, device="cpu", archs=archs)
+    assert sorted(d) == sorted(archs)
+    assert all(v["shape_ok"] is True and v["tok_per_s"] > 0
+               for v in d.values())

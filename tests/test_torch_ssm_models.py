@@ -289,8 +289,7 @@ def test_bf16_loss_matches_within_bf16_rounding(name):
 
 def test_decode_is_refused_by_name():
     """Decode runs for both families now (``tests/test_torch_decode.py``
-    holds it against JAX's); the families the port does not build still
-    refuse by name."""
+    holds it against JAX's), and for the moe family, once refused."""
     for name in ARCHS:
         m = reg.get_model(name, reduced=True)
         p = m.init(0, device="cpu")
@@ -299,5 +298,9 @@ def test_decode_is_refused_by_name():
             1, dtype=torch.long), 0)
         assert tuple(logits.shape) == (1, m.cfg.vocab_size)
         assert cache2 is cache
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reg.get_model("qwen3-moe-30b-a3b", reduced=True)
+    # the moe family, refused here once, is built and decodes too
+    m = reg.get_model("qwen3-moe-30b-a3b", reduced=True)
+    logits, _ = m.decode_step(m.init(0, device="cpu"),
+                              m.init_cache(1, 8, device="cpu"),
+                              torch.zeros(1, dtype=torch.long), 0)
+    assert tuple(logits.shape) == (1, m.cfg.vocab_size)
