@@ -16,7 +16,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              (D,), D from the path's config: granite-8b's 637,554,688,
              falcon-mamba-7b's 476,967,488, the reduced hybrid's 568,192
              and 1-layer granite-8b's 419,442,688, where B9 and the guarded
-             round's masked B6 with CSI and B3′ run too; B1, B2 and B4 on
+             round's masked B6 with CSI and B3′ run too, and at each mesh
+             rank's block of phases 39 and 40 ((2, 209,721,344), (2,
+             318,777,344), (1, 637,554,688)); B1, B2 and B4 on
              the leafwise round's embedding leaf (2, 201,326,592) and at
              the sampled cohort's (256, 32); flash attention B11 — forward,
              dq, dk/dv — at the LLM round's (2, 32, 4096, 128) in bf16 (the
@@ -223,8 +225,26 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              torch.profiler.  Its kernel rows: B6, B3 and B4 at (2,
              614,926,336), B11 at the decoder's (4, 16, 1,024, 64).
 
-Launch counts are reset just before each of phases 4–12, 14–38 and read
-just after.  Then come the kernel table as one JSON line, the nvidia-smi line,
+39. llm_mesh_check — after phase 35: the replicated mode on a (data,
+             model) = (1, 2) grid of two ranks spawned on the one card
+             (gloo, ``launch.mesh``; the kernels built once, before the
+             spawn): granite-8b cut to 1 of 36 layers (D = 419,442,688), W
+             = 2, one sgd step, noise-free with power control.  Round 1's
+             loss equals the one-device trainer's from the same init bit
+             for bit; then the shard-local round on the trainer's θ, λ and
+             h against the one-rank packed round (B6, B3, B4 over the
+             gathered (2, d_pad) planes): Θ, λ and α⁻¹ within 1e-6; B6, B3
+             and B4 once a round on each rank.
+40. llm_mesh — phase 15's trainer (granite-8b, 2 of 36 layers, W = 2,
+             4,096 tokens a worker, 3 rounds) on the (1, 2) grid (each rank
+             half of every leaf, the forward gathering a layer at a time)
+             and the (2, 1) grid (one worker a rank): the loss falling, θ
+             and Θ finite, each rank's peak ≤ 40 GB; s/round, tokens/s,
+             each rank's peak, the gathers' and collectives' ms a round,
+             the backend and any staged collective.
+
+Launch counts are reset just before each of phases 4–12, 14–40 and read
+just after (in each rank for phases 39 and 40, summed over the ranks).  Then come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
 a result.
@@ -858,7 +878,8 @@ def _llm_round_shapes():
     reduced hybrid (``llm_hybrid``), 1-layer granite-8b (``llm_chaos``) and
     the full-depth granite-8b's sketch (``llm_sketched``: (W, d_s)),
     qwen3-moe's 12-layer sketch (``llm_moe``) and seamless-m4t-medium
-    (``llm_encdec``)."""
+    (``llm_encdec``); then each mesh rank's block (:func:`_mesh_round_shapes`:
+    ``llm_mesh_check``, ``llm_mesh``)."""
     from repro_torch.models.registry import packed_param_count
     from repro_torch.train.llm_trainer import _sketch_dim
 
@@ -873,7 +894,22 @@ def _llm_round_shapes():
         (LLM_WORKERS, _sketch_dim(packed_param_count(_llm_cfg(
             MOE_ARCH, MOE_LAYERS)), SKETCH_RATIO)),
         (LLM_WORKERS, packed_param_count(_llm_cfg(ENCDEC_ARCH,
-                                                  ENCDEC_LAYERS)))]
+                                                  ENCDEC_LAYERS)))] + \
+        _mesh_round_shapes()
+
+
+def _mesh_round_shapes():
+    """Each mesh rank's (W_local, d_local) block in ``llm_mesh_check`` (1
+    layer on the first grid) and ``llm_mesh`` (2 layers on each grid):
+    granite-8b's replicated segment (its norms) splits evenly, so d_local
+    is D over the model axis with no padding (the phases gate that)."""
+    from repro_torch.models.registry import packed_param_count
+
+    d1 = packed_param_count(_llm_cfg(LLM_ARCH, ROBUST_LAYERS))
+    d2 = packed_param_count(_llm_cfg(LLM_ARCH, LLM_LAYERS))
+    (data, model), = MESH_SHAPES[:1]
+    return [(LLM_WORKERS // data, d1 // model)] + [
+        (LLM_WORKERS // data, d2 // model) for data, model in MESH_SHAPES]
 
 
 def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
@@ -4301,6 +4337,412 @@ def phase_serve(torch, card):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the replicated mode on a (data, model) grid of two ranks that
+# share the card (gloo)
+# ---------------------------------------------------------------------------
+
+#: ranks of the mesh phases: both on the one card, so gloo (NCCL refuses
+#: two ranks on one device)
+MESH_RANKS = 2
+#: the mesh phases' grids: the shard grid of 2 model shards, then one
+#: worker a rank (the paper's one device a worker)
+MESH_SHAPES = ((1, 2), (2, 1))
+#: a rank's peak in ``llm_mesh`` (bytes): both ranks share the 80 GB
+MESH_PEAK = 40e9
+#: seconds the parent waits for its ranks before killing them, and a
+#: collective's wait inside them
+MESH_TIMEOUT = 600
+#: collectives the mesh stages through the host itself: none, gloo takes
+#: all-reduce and all-gather on CUDA tensors (``launch/mesh.py``)
+STAGED_COLLECTIVES: list = []
+#: B6, B3 and B4 once a round on each rank; B11 as in phase ``llm``
+MESH_ROUND_LAUNCHES = {"ota_round_stats": 1, "ota_demodulate_dyn": 1,
+                       "admm_dual_update": 1, "ota_modulate": 0,
+                       "ota_receive": 0, "ota_round_theta": 0}
+
+
+def _mesh_trainer(torch, cfg, mesh, noisy: bool, local_steps: int = 2):
+    """The replicated trainer of phase ``llm`` (W = 2, ``local_steps`` sgd
+    steps at ``LLM_LR``) on ``cfg``, on ``mesh`` (None: one device)."""
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import build_model
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+
+    acfg = AdmmConfig(rho=0.5, flip_on_change=False)
+    ccfg = ChannelConfig(n_workers=LLM_WORKERS, snr_db=40.0,
+                         coherence_iters=10, noisy=noisy)
+    init_fn, step = make_fl_train(
+        build_model(cfg), FLConfig(n_workers=LLM_WORKERS,
+                                   local_steps=local_steps, local_lr=LLM_LR),
+        acfg, ccfg, mesh=mesh)
+    return init_fn, step, acfg, ccfg
+
+
+def _mesh_batch(torch, cfg, rows=slice(None)):
+    from repro_torch.data.synthetic import token_dataset
+
+    return {"tokens": token_dataset(SEED + 1, 1, LLM_SEQ, cfg.vocab_size,
+                                    n_workers=LLM_WORKERS)[rows]}
+
+
+#: ``llm_mesh_check``'s local steps: with one, round 1's loss is the
+#: forward's on the init alone (a second step's loss also reads h through
+#: the penalty, and the mesh draws its blocks of h from keys of its own)
+MESH_CHECK_STEPS = 1
+
+
+def _mesh_check_reference(torch) -> float:
+    """Round 1's loss of the one-device trainer of ``llm_mesh_check``."""
+    from repro_torch import rng
+
+    cfg = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
+    init_fn, step, _, _ = _mesh_trainer(torch, cfg, None, noisy=False,
+                                        local_steps=MESH_CHECK_STEPS)
+    return float(step(init_fn(SEED), _mesh_batch(torch, cfg),
+                      key=rng.fold_in(SEED, 1))[1]["loss"])
+
+
+def _mesh_stats(mesh, rounds: int) -> dict:
+    """The mesh's collectives a round: calls, ms and MB."""
+    return {op: {"calls_per_round": s["calls"] / rounds,
+                 "ms_per_round": 1e3 * s["seconds"] / rounds,
+                 "mb_per_round": s["bytes"] / rounds / 1e6}
+            for op, s in sorted(mesh.stats.items())}
+
+
+def _mesh_check_rank(torch, mesh, loss_ref: float) -> dict:
+    """``llm_mesh_check`` on one rank: one trainer round of granite-8b cut
+    to 1 layer on the (1, 2) grid, noise-free with power control; then the
+    shard-local round alone on the trainer's θ (after its local steps), λ
+    and h, and rank 0 runs the one-rank packed round (B6, B3, B4 over the
+    gathered (W, d_pad) planes) on the same inputs and holds the mesh's Θ,
+    λ and α⁻¹ to it."""
+    from repro_torch import rng
+    from repro_torch.core import cplx, transport
+    from repro_torch.core.cplx import Complex
+    from repro_torch.core.packing import pack_shard_local
+    from repro_torch.core.tree_ota import (ota_tree_round_shard_local,
+                                          shard_coords)
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    cfg = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
+    init_fn, step, acfg, ccfg = _mesh_trainer(torch, cfg, mesh, noisy=False,
+                                              local_steps=MESH_CHECK_STEPS)
+    state = init_fn(SEED)
+    sspec = init_fn.layout["sspec"]
+    c = shard_coords(mesh, sspec)
+    batch = _mesh_batch(torch, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    t0 = time.perf_counter()
+    new, m = step(state, batch, key=rng.fold_in(SEED, 1))
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = dict(build.launches)
+    stats = _mesh_stats(mesh, 1)
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(m["loss"])
+    theta, lam, h = new.theta, state.lam, state.chan.h
+    del new, m, state, step, init_fn
+    T_mesh, lam_mesh, mr = ota_tree_round_shard_local(
+        theta, lam, h, torch.zeros(sspec.d_local, device=dev), acfg, ccfg,
+        sspec, mesh)
+    ia_mesh = float(mr["inv_alpha"])
+    Th_mesh = pack_shard_local(sspec, T_mesh, c.j)
+    del lam, T_mesh, mr
+    _free(torch)
+    rank0 = c.j == 0
+
+    def full(x):
+        """The (…, d_pad) plane from every rank's (…, d_local) block, kept
+        on rank 0 only."""
+        out = mesh.all_gather(x, c.saxes, x.dim() - 1)
+        return out if rank0 else None
+
+    theta_p = full(pack_shard_local(sspec, theta, c.j))
+    h_full = Complex(full(h.re), full(h.im))
+    del theta, h
+    out = {"loss": loss, "loss_ref": loss_ref, "round_s": round_s,
+           "launches": launches, "collectives": stats, "peak": peak,
+           "d_pad": sspec.d_pad, "d_local": sspec.d_local, "D": sspec.spec.d}
+    if rank0:
+        W = theta_p.shape[0]
+        lam0 = cplx.czero((W, sspec.d_pad), device=dev)
+        Th_ref, ia_ref, _ = transport.ota_round_fused(
+            theta_p, lam0, h_full, torch.zeros(sspec.d_pad, device=dev),
+            acfg.rho, ccfg, power_control=True)
+        lam_ref = transport.dual_update(lam0, h_full, theta_p, Th_ref,
+                                        acfg.rho)
+        del lam0, theta_p, h_full
+        _free(torch)
+        out.update(inv_alpha_mesh=ia_mesh, inv_alpha_ref=float(ia_ref))
+    Th = full(Th_mesh)
+    if rank0:
+        out["theta_err"] = _max_err([Th], [Th_ref], LEAFWISE_RTOL, 0.0)
+        out["theta_bits_equal"] = bool(torch.equal(Th, Th_ref))
+        del Th, Th_ref
+    for part in ("re", "im"):
+        x = full(getattr(lam_mesh, part))
+        if rank0:
+            ref = getattr(lam_ref, part)
+            out[f"lam_{part}_err"] = _max_err([x], [ref], LEAFWISE_RTOL, 0.0)
+            out[f"lam_{part}_bits_equal"] = bool(torch.equal(x, ref))
+        del x
+    mesh.timing = False
+    return out
+
+
+def _mesh_run_rank(torch, mesh) -> dict:
+    """``llm_mesh`` on one rank: phase ``llm``'s trainer (granite-8b at
+    full width, 2 of 36 layers, W = 2, 1 × 4,096 tokens a worker, 2 sgd
+    steps at ``LLM_LR``, 3 rounds) on ``mesh``, the collectives timed."""
+    from repro_torch import rng
+    from repro_torch.core.tree_ota import shard_coords
+    from repro_torch.kernels import build
+    from repro_torch.tree import tree_leaves
+
+    cfg = _llm_cfg(LLM_ARCH, LLM_LAYERS)
+    t0 = time.perf_counter()
+    init_fn, step, _, _ = _mesh_trainer(torch, cfg, mesh, noisy=True)
+    state = init_fn(SEED)
+    c = shard_coords(mesh, init_fn.layout["sspec"])
+    W_l = LLM_WORKERS // c.n_data
+    batch = _mesh_batch(torch, cfg, slice(c.jd * W_l, (c.jd + 1) * W_l))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    losses, times = [], []
+    for r in range(LLM_ROUNDS):
+        # the state goes in through a list the call empties, so the trainer
+        # can free the old θ and optimizer state mid-round
+        held = [state]
+        state = None
+        t0 = time.perf_counter()
+        state, m = step(held.pop(), batch, key=rng.fold_in(SEED, r + 1))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        del m
+    mesh.timing = False
+    finite = all(bool(torch.isfinite(leaf).all()) for leaf in
+                 tree_leaves(state.theta) + tree_leaves(state.Theta))
+    out = {"losses": losses, "round_s": times, "setup_s": setup_s,
+           "peak": torch.cuda.max_memory_allocated(), "finite": finite,
+           "launches": dict(build.launches),
+           "collectives": _mesh_stats(mesh, LLM_ROUNDS),
+           "W_local": W_l, "d_local": init_fn.layout["sspec"].d_local}
+    del state, step, init_fn
+    _free(torch)
+    return out
+
+
+def _mesh_rank_main(rank: int, store: str, out_dir: str,
+                    loss_ref: float) -> None:
+    """One rank of the mesh phases, spawned by :func:`phase_llm_mesh`: it
+    joins the gloo group through ``store``, runs ``llm_mesh_check`` and
+    ``llm_mesh`` on both grids, and writes its results (or its traceback)
+    to ``out_dir``."""
+    import datetime
+    import traceback
+
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    res = {"rank": rank}
+
+    def dump():
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+
+    try:
+        from repro_torch.launch.mesh import init_distributed, make_mesh
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res["backend"] = init_distributed(
+            "cuda", init_method=store, rank=rank, world_size=MESH_RANKS,
+            timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+        axes = ("data", "model")
+        res["check"] = _mesh_check_rank(
+            torch, make_mesh(MESH_SHAPES[0], axes, "cuda"), loss_ref)
+        _free(torch)
+        dump()
+        res["runs"] = {}
+        for shape in MESH_SHAPES:
+            res["runs"][str(shape)] = _mesh_run_rank(
+                torch, make_mesh(shape, axes, "cuda"))
+            dump()
+        torch.distributed.destroy_process_group()
+    except Exception:
+        res["error"] = traceback.format_exc()
+        res["memory_gb"] = {"allocated": torch.cuda.memory_allocated() / 1e9,
+                            "peak": torch.cuda.max_memory_allocated() / 1e9,
+                            "reserved": torch.cuda.memory_reserved() / 1e9}
+    dump()
+
+
+def _spawn_mesh_ranks(loss_ref: float):
+    """Run :func:`_mesh_rank_main` in ``MESH_RANKS`` spawned processes
+    that meet through a file store in a temporary directory; wait for them
+    (killing any still alive after ``MESH_TIMEOUT``) and return (each
+    rank's results, their exit codes, the wall seconds)."""
+    import multiprocessing
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as out_dir:
+        store = "file://" + os.path.join(out_dir, "store")
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_rank_main,
+                             args=(r, store, out_dir, loss_ref))
+                 for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, MESH_TIMEOUT - (time.perf_counter() - t0)))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        wall_s = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        res = []
+        for r in range(MESH_RANKS):
+            path = os.path.join(out_dir, f"rank{r}.json")
+            require(os.path.exists(path), f"llm_mesh: rank {r} wrote no "
+                    f"result (exit codes {codes})")
+            with open(path) as f:
+                res.append(json.load(f))
+    return res, codes, wall_s
+
+
+def phase_llm_mesh(torch):
+    """Phases ``llm_mesh_check`` and ``llm_mesh``: the replicated mode on a
+    (data, model) grid of two ranks spawned on the one card, gloo between
+    them (``launch.mesh``).  The kernels are built already (phase
+    ``build``), so the ranks load them and do not race on the build
+    directory.  The parent first runs the one-device trainer round the
+    check holds the mesh's loss to, then waits for its ranks (killing them
+    after ``MESH_TIMEOUT``), and gates their results.  Returns the launches
+    of each phase, summed over the ranks."""
+    loss_ref = _mesh_check_reference(torch)
+    # the ranks share the card with this process: it holds no tensor now
+    _free(torch)
+    res, exit_codes, wall_s = _spawn_mesh_ranks(loss_ref)
+    failed = [r for r in res if "error" in r]
+    require("check" in res[0] and "check" in res[1] or not failed,
+            f"llm_mesh_check: a rank failed:\n"
+            + "\n".join(f"rank {r['rank']} ({r['memory_gb']}):\n{r['error']}"
+                        for r in failed))
+
+    # llm_mesh_check
+    chk = [r["check"] for r in res]
+    c0 = chk[0]
+    shapes = _mesh_round_shapes()
+    for r, c in enumerate(chk):
+        require((LLM_WORKERS, c["d_local"]) == shapes[0], f"llm_mesh_check: "
+                f"a rank's block (2, {c['d_local']}) is not the kernel rows' "
+                f"{shapes[0]}")
+        require(c["loss"] == loss_ref, f"llm_mesh_check: rank {r}'s round-1 "
+                f"loss {c['loss']} is not the one-device trainer's "
+                f"{loss_ref} bit for bit")
+        _per_round(dict(c["launches"]), 1, dict(
+            {k: v * MESH_CHECK_STEPS // 2 for k, v in LLM_FLASH_1.items()},
+            **MESH_ROUND_LAUNCHES))
+    ia_rel = abs(c0["inv_alpha_mesh"] - c0["inv_alpha_ref"]) / abs(
+        c0["inv_alpha_ref"])
+    errs = {k: c0[k] for k in ("theta_err", "lam_re_err", "lam_im_err")}
+    check = {"phase": "llm_mesh_check", "ok": True, "arch": LLM_ARCH,
+             "reduced": {"n_layers": f"36 -> {ROBUST_LAYERS}"},
+             "grid": {"data": 1, "model": 2}, "ranks": MESH_RANKS,
+             "backend": res[0]["backend"], "staged_collectives":
+             STAGED_COLLECTIVES, "D": c0["D"],
+             "d_pad": c0["d_pad"], "d_local": c0["d_local"],
+             "W": LLM_WORKERS, "seq": LLM_SEQ,
+             "local_steps": MESH_CHECK_STEPS, "noisy": False,
+             "power_control": True, "loss": [c["loss"] for c in chk],
+             "loss_one_device": loss_ref, "loss_bits_equal": True,
+             "round_s": [c["round_s"] for c in chk],
+             "peak_mem_gb": [c["peak"] / 1e9 for c in chk],
+             "inv_alpha_mesh": c0["inv_alpha_mesh"],
+             "inv_alpha_one_rank": c0["inv_alpha_ref"],
+             "inv_alpha_rel_diff": ia_rel,
+             **{f"{k}_max_abs": v[0] for k, v in errs.items()},
+             **{f"{k}_over_rtol": v[1] for k, v in errs.items()},
+             "bitwise_equal": {k: c0[f"{k}_bits_equal"]
+                               for k in ("theta", "lam_re", "lam_im")},
+             "collectives": [c["collectives"] for c in chk],
+             "launches": [c["launches"] for c in chk]}
+    require(all(v[1] <= 1.0 for v in errs.values())
+            and ia_rel <= LEAFWISE_RTOL,
+            f"llm_mesh_check: the mesh round and the one-rank packed round "
+            f"differ beyond rtol {LEAFWISE_RTOL}: {check}")
+    emit(check)
+    require(not failed, "llm_mesh: a rank failed:\n" + "\n".join(
+        f"rank {r['rank']} ({r['memory_gb']}) after "
+        f"{sorted(r.get('runs', {}))}:\n{r['error']}" for r in failed))
+    require(all(c == 0 for c in exit_codes),
+            f"llm_mesh: rank exit codes {exit_codes}")
+
+    # llm_mesh
+    runs = {}
+    for shape in MESH_SHAPES:
+        per = [r["runs"][str(shape)] for r in res]
+        for r, run in enumerate(per):
+            tag = f"llm_mesh {shape} rank {r}"
+            require((run["W_local"], run["d_local"]) in shapes,
+                    f"{tag}: block ({run['W_local']}, {run['d_local']}) is "
+                    f"not one of the kernel rows' {shapes[1:]}")
+            require(run["losses"][-1] < run["losses"][0],
+                    f"{tag}: round {LLM_ROUNDS} loss {run['losses'][-1]} is "
+                    f"not below round 1's {run['losses'][0]}")
+            require(run["finite"], f"{tag}: non-finite θ or Θ")
+            require(run["peak"] <= MESH_PEAK, f"{tag}: peak "
+                    f"{run['peak'] / 1e9} GB above {MESH_PEAK / 1e9} GB")
+            _per_round(dict(run["launches"]), LLM_ROUNDS,
+                       {k: v for k, v in LLM_LAUNCHES.items()})
+        s_round = statistics.mean(max(per[r]["round_s"][i]
+                                      for r in range(MESH_RANKS))
+                                  for i in range(1, LLM_ROUNDS))
+        tokens = LLM_WORKERS * LLM_SEQ * 2
+        runs[str(shape)] = {
+            "grid": dict(zip(("data", "model"), shape)),
+            "W_local": per[0]["W_local"], "d_local": per[0]["d_local"],
+            "loss": per[0]["losses"], "round_s": [p["round_s"] for p in per],
+            "seconds_per_round": s_round, "tokens_per_s": tokens / s_round,
+            "setup_s": [p["setup_s"] for p in per],
+            "peak_mem_gb": [p["peak"] / 1e9 for p in per],
+            "collectives": [p["collectives"] for p in per],
+            "launches": [p["launches"] for p in per]}
+    emit({"phase": "llm_mesh", "ok": True, "arch": LLM_ARCH,
+          "reduced": {"n_layers": f"36 -> {LLM_LAYERS}"},
+          "ranks": MESH_RANKS, "backend": res[0]["backend"],
+          "staged_collectives": STAGED_COLLECTIVES, "W": LLM_WORKERS,
+          "seq": LLM_SEQ, "local_steps": 2, "local_lr": LLM_LR,
+          "rounds": LLM_ROUNDS, "timing": "every collective synchronised "
+          "and timed (Mesh.timing)", "wall_s": wall_s, "grids": runs})
+
+    def summed(launch_lists):
+        out: dict = {}
+        for ln in launch_lists:
+            for k, v in ln.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    return (summed(c["launches"] for c in chk),
+            summed(p["launches"] for r in res for p in r["runs"].values()))
+
+
 def _kernel_family(name: str) -> str:
     for fn in ("linear_scan_fwd_kernel", "linear_scan_bwd_kernel",
                # B12's staged plan
@@ -4524,6 +4966,7 @@ def main() -> int:
         _free(torch)
         paths["serve"] = phase_serve(torch, name)
         _free(torch)
+        paths["llm_mesh_check"], paths["llm_mesh"] = phase_llm_mesh(torch)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1

@@ -212,3 +212,76 @@ def tree_fl_state_from_numpy(theta: Mapping[str, Any],
                        chan=chan, opt=state_opt, step=int(step),
                        flt=None if flt is None
                        else fault_state_from_numpy(flt, device=dev))
+
+
+def shard_fl_state(state: TreeFLState, sspec, coords,
+                   n_data: int) -> TreeFLState:
+    """One mesh rank's part of a GLOBAL replicated-mode state (the JAX
+    package's shard-global layout: θ and the optimizer moments (W, ...), Θ
+    whole, λ, h and the straggler snapshot the shard-packed (W, d_pad)
+    planes): the rows of the rank's workers, its (fsdp, model) shard of
+    every leaf (``core.packing.shard_tree``) and its (W_local, d_local)
+    block of each plane.  ``coords`` is the rank's
+    ``tree_ota.ShardCoords``; ``n_data`` the data axes' rank count.  Global
+    (W,) vectors (the fault state's ``alive``) stay whole; a scenario's
+    ``PhyState`` keeps every worker's row and gives its per-element planes
+    the rank's columns (:func:`phy_planes`).  The pieces are copies, so
+    the global state can go."""
+    from repro_torch.core.packing import shard_tree
+
+    W = state.lam.re.shape[0]
+    W_l = W // n_data
+    rows = slice(coords.jd * W_l, (coords.jd + 1) * W_l)
+    dl = sspec.d_local
+    cols = slice(coords.j * dl, (coords.j + 1) * dl)
+
+    def plane(x):
+        return None if x is None else x[rows, cols].clone()
+
+    def cplane(c):
+        return Complex(plane(c.re), plane(c.im))
+
+    def worker_tree(tree):
+        return tree_map(lambda l: l[rows].clone(),
+                        shard_tree(sspec, tree, coords.j))
+
+    opt = state.opt
+    if opt is not None:
+        mu = worker_tree(opt.mu)
+        nu = mu if opt.nu is opt.mu else worker_tree(opt.nu)
+        opt = OptState(mu=mu, nu=nu, count=opt.count)
+    flt = state.flt
+    if flt is not None:
+        flt = flt._replace(stale=plane(flt.stale))
+    chan = state.chan
+    if isinstance(chan, PhyState):
+        chan = phy_planes(chan, sspec.d_pad, lambda x: x[:, cols].clone())
+    else:
+        chan = chan._replace(h=cplane(chan.h))
+    return TreeFLState(
+        theta=worker_tree(state.theta), lam=cplane(state.lam),
+        Theta=tree_map(torch.clone, shard_tree(sspec, state.Theta,
+                                               coords.j)),
+        chan=chan, opt=opt, step=state.step, flt=flt)
+
+
+def phy_planes(phys: PhyState, width: int, fn) -> PhyState:
+    """``phys`` with ``fn`` applied to each plane of its per-element
+    Complex fields (h, h_small, h_hat) that is ``width`` wide; a
+    frequency-flat (W, 1) fade and the per-worker fields are kept."""
+    def one(z):
+        if z is None or z.re.shape[-1] != width:
+            return z
+        return Complex(fn(z.re), fn(z.im))
+
+    return phys._replace(h=one(phys.h), h_small=one(phys.h_small),
+                         h_hat=one(phys.h_hat))
+
+
+def mesh_tree_fl_state_from_numpy(sspec, coords, n_data: int,
+                                  *args, **kwargs) -> TreeFLState:
+    """:func:`tree_fl_state_from_numpy` of the JAX trainer's shard-global
+    state (λ and h the (W, d_pad) shard-packed planes), then one rank's
+    part of it (:func:`shard_fl_state`)."""
+    return shard_fl_state(tree_fl_state_from_numpy(*args, **kwargs), sspec,
+                          coords, n_data)

@@ -27,8 +27,9 @@ packed index space (:func:`encode_packed`, :func:`decode_packed`), so
 elements at a time and never builds a (D,) buffer.
 
 The shard-local codec (``encode_shard_local``/``decode_shard_local``) is
-here as plain functions of a shard's canonical indices and validity mask;
-the shard-local pack spec that makes them is ROADMAP queue A item 6.
+here as plain functions of a shard's canonical indices and validity mask
+(``core.packing.shard_perm_local``/``shard_valid_mask`` make them); the
+sketched mode's mesh that runs them is ROADMAP queue A item 6b.
 """
 from __future__ import annotations
 

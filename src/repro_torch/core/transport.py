@@ -121,7 +121,9 @@ def demodulate(y_re: Tensor, sumh2: Tensor, noise_re: Tensor,
 
 
 def receive(signals: Complex, h: Complex, noise_re: Tensor,
-            inv_alpha: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+            inv_alpha: Tensor, mask: Optional[Tensor] = None, *,
+            reduce_fn: Optional[Callable[[Tensor], Tensor]] = None
+            ) -> Tensor:
     """Fused superpose → matched-filter → demodulate (B2; B8 with a
     ``mask``).  (W, d) -> (d,).
 
@@ -129,7 +131,25 @@ def receive(signals: Complex, h: Complex, noise_re: Tensor,
     ``CN(0, N0/T)`` (zeros on a noise-free link); ``inv_alpha`` a 0-d tensor.
     An all-masked round divides zero signal by the clamped zero pilot: the
     round driver keeps the previous Θ then.
+
+    ``reduce_fn`` replaces the sum over the worker dim (a mesh's local sum
+    and all-reduce over the data axes): then Re{Σ h⊙s} and Σ|h|² are formed
+    elementwise, a masked worker's planes selected away (not multiplied: a
+    dropped worker's buffers may hold NaN), reduced by ``reduce_fn`` and
+    demodulated by B3, as the JAX package composes it around its psum.
     """
+    if reduce_fn is not None:
+        hf = Complex(_f32(h.re), _f32(h.im))
+        sf = Complex(_f32(signals.re), _f32(signals.im))
+        if mask is not None:
+            keep = mask.reshape((-1,) + (1,) * (hf.re.dim() - 1))
+            hf = Complex(torch.where(keep, hf.re, 0.0),
+                         torch.where(keep, hf.im, 0.0))
+            sf = Complex(torch.where(keep, sf.re, 0.0),
+                         torch.where(keep, sf.im, 0.0))
+        rx_re = hf.re * sf.re - hf.im * sf.im
+        return demodulate(reduce_fn(rx_re), reduce_fn(cplx.abs2(hf)),
+                          noise_re, inv_alpha)
     planes = (_f32(signals.re), _f32(signals.im), _f32(h.re), _f32(h.im))
     if mask is None:
         return _ota_k.ota_receive(*planes, _f32(noise_re), _f32(inv_alpha))
@@ -185,29 +205,38 @@ def worker_energy(signals: Complex) -> Tensor:
 
 
 def inv_alpha_from_energy(energy: Tensor, budget: float,
-                          mask: Optional[Tensor] = None) -> Tensor:
+                          mask: Optional[Tensor] = None, *,
+                          min_reduce_fn: Optional[Callable[[Tensor], Tensor]]
+                          = None) -> Tensor:
     """1/α with α = min_n sqrt(P_budget / E_n) over the active workers, a
     0-d tensor.
 
     A zero-energy worker's α_n is +inf, so it never binds the min; a masked
     worker does not transmit and is left out (its α_n is +inf too).  If no
     worker binds, α = +inf and 1/α = 0 exactly (demodulate then adds no
-    noise).
+    noise).  ``min_reduce_fn`` takes the min on to the workers of other
+    ranks (a mesh's pmin over the data axes); None keeps the local min.
     """
     alphas = alpha_from_energy(energy, budget)
     if mask is not None:
         alphas = torch.where(mask, alphas, torch.full_like(alphas,
                                                            float("inf")))
-    return 1.0 / torch.min(alphas)
+    a = torch.min(alphas)
+    if min_reduce_fn is not None:
+        a = min_reduce_fn(a)
+    return 1.0 / a
 
 
 def power_scale(signals: Complex, ccfg: ChannelConfig,
-                mask: Optional[Tensor] = None) -> Tensor:
+                mask: Optional[Tensor] = None, *,
+                min_reduce_fn: Optional[Callable[[Tensor], Tensor]] = None
+                ) -> Tensor:
     """inv_alpha for a single-leaf uplink.  Budget: per-subcarrier power P
     × elements uploaded per worker."""
     d = signals.re.numel() // signals.re.shape[0]
     return inv_alpha_from_energy(worker_energy(signals),
-                                 ccfg.transmit_power * d, mask=mask)
+                                 ccfg.transmit_power * d, mask=mask,
+                                 min_reduce_fn=min_reduce_fn)
 
 
 # ---------------------------------------------------------------------------

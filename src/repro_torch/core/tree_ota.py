@@ -19,8 +19,13 @@ arguments: the matched-filter noise ``noise_re`` ((D,), or one plane per
 leaf for the leafwise round), the guard's :class:`~repro_torch.faults
 .guards.GuardDraws` and, on a redraw round, the fresh Rayleigh block, so a
 test can replay the JAX package's draws.  With ``telemetry`` the packed
-round adds the ``obs/`` keys of ``repro_torch.obs`` to its metrics.  Not
-ported yet: the shard-local round (ROADMAP queue A item 6).
+round adds the ``obs/`` keys of ``repro_torch.obs`` to its metrics.
+
+Under a model-parallel mesh (``launch.mesh``) the round is
+:func:`ota_tree_round_shard_local`: SPMD code every rank runs on the leaf
+shards it holds, in the shard-local packed layout
+(``core.packing.ShardPackSpec``), with the mesh's collectives where the
+JAX package's ``shard_map`` body has them.
 """
 from __future__ import annotations
 
@@ -35,8 +40,14 @@ from repro_torch.core import transport
 from repro_torch.core.admm import AdmmConfig
 from repro_torch.core.channel import ChannelConfig, rayleigh
 from repro_torch.core.cplx import Complex
-from repro_torch.core.packing import (PackSpec, build_packspec, pack,
-                                      pack_cplx, unpack, unpack_cplx)
+from repro_torch.core.packing import (PackSpec, ShardPackSpec,
+                                      build_packspec, pack, pack_cplx,
+                                      pack_shard_local, scatter_b_chunk,
+                                      scatter_c_chunk, scatter_rep_chunk,
+                                      shard_b_chunk, shard_c_chunk,
+                                      shard_rep_chunk, shard_valid_mask,
+                                      unpack, unpack_cplx,
+                                      unpack_shard_local)
 from repro_torch.faults import guards as _guards
 from repro_torch.faults import plan as _fplan
 from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
@@ -492,3 +503,402 @@ def ota_tree_round_leafwise(theta: PyTree, lam: PyTree, h: PyTree,
             Theta_new = tree_map(lambda new, old: torch.where(
                 keep, new, old.to(new.dtype)), Theta_new, Theta_prev)
     return Theta_new, lam_new, metrics
+
+
+# ---------------------------------------------------------------------------
+# the shard-local round (model-parallel meshes), SPMD over the ranks
+# ---------------------------------------------------------------------------
+#
+# Each rank holds its workers' rows (its coordinate on the data axes) and
+# its (fsdp, model) shard of every leaf; λ and h live in the global
+# shard-packed (W, d_pad) layout, of which the rank holds the (W_local,
+# d_local) block of its rows and its shard's columns.  No signal plane ever
+# crosses the shard grid: the worker superposition is an all-reduce over
+# the data axes, the power consensus an all-reduce of the per-worker
+# energies over the grid and a min over the data axes, and only the small
+# B/C/replicated segments are summed across the grid to be unpacked.
+
+def _mesh_data_axes(mesh, model_axis: str,
+                    fsdp_axis: str = "fsdp") -> Tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names
+                 if a not in (model_axis, fsdp_axis))
+
+
+def _shard_grid_axes(mesh, model_axis: str,
+                     fsdp_axis: str = "fsdp") -> Tuple[str, ...]:
+    """Mesh axes of the (fsdp, model) shard grid, fsdp-major: the axes the
+    packed ``d_pad`` dimension shards over (flat shard
+    ``j = jf * n_model + jm``)."""
+    return tuple(a for a in (fsdp_axis, model_axis) if a in mesh.axis_names)
+
+
+class ShardCoords(NamedTuple):
+    """A rank's place on the mesh for a shard-local layout."""
+
+    daxes: Tuple[str, ...]      # the data axes (the worker dim's)
+    saxes: Tuple[str, ...]      # the shard grid's axes, fsdp-major
+    jd: int                     # flat index on the data axes
+    n_data: int
+    jm: int                     # model shard
+    jf: int                     # fsdp shard
+    j: int                      # flat shard, jf * n_model + jm
+
+
+def shard_coords(mesh, sspec: Optional[ShardPackSpec] = None,
+                 model_axis: str = "model",
+                 fsdp_axis: str = "fsdp") -> ShardCoords:
+    """This rank's :class:`ShardCoords`; with ``sspec``, a check that the
+    spec's grid is the mesh's."""
+    daxes = _mesh_data_axes(mesh, model_axis, fsdp_axis)
+    saxes = _shard_grid_axes(mesh, model_axis, fsdp_axis)
+    n_model = mesh.shape.get(model_axis, 1)
+    n_fsdp = mesh.shape.get(fsdp_axis, 1)
+    if sspec is not None and (sspec.n_model, sspec.n_fsdp) != (n_model,
+                                                                 n_fsdp):
+        raise ValueError(f"spec has a ({sspec.n_fsdp}, {sspec.n_model}) "
+                         f"(fsdp, model) grid but mesh "
+                         f"{dict(mesh.shape)} has ({n_fsdp}, {n_model})")
+    jm = mesh.axis_index(model_axis) if model_axis in mesh.shape else 0
+    jf = mesh.axis_index(fsdp_axis) if fsdp_axis in mesh.shape else 0
+    return ShardCoords(daxes=daxes, saxes=saxes,
+                       jd=mesh.axis_index(daxes) if daxes else 0,
+                       n_data=mesh.axis_size(daxes) if daxes else 1,
+                       jm=jm, jf=jf, j=jf * n_model + jm)
+
+
+def _segs_psum(sspec: ShardPackSpec, plane: Tensor, jm: int, jf: int, mesh,
+               model_axis: str = "model", fsdp_axis: str = "fsdp"):
+    """Rebuild the full B/C/D segments from the per-shard chunks: one small
+    all-reduce each over exactly the axes the segment is split across (B
+    over fsdp, C over model, D over both).  A segment that is not split is
+    the shard's own chunk, a view.  Returns ``(b_seg, c_seg, rep_seg)``
+    (None where the class is empty)."""
+    b_seg = c_seg = rep_seg = None
+    if sspec.b_leaves:
+        b_seg = shard_b_chunk(sspec, plane)
+        if sspec.n_fsdp > 1:
+            b_seg = mesh.psum(scatter_b_chunk(sspec, b_seg, jf), fsdp_axis)
+    if sspec.c_leaves:
+        c_seg = shard_c_chunk(sspec, plane)
+        if sspec.n_model > 1:
+            c_seg = mesh.psum(scatter_c_chunk(sspec, c_seg, jm), model_axis)
+    if sspec.rep_leaves:
+        rep_seg = shard_rep_chunk(sspec, plane)
+        axes = tuple(a for a, n in ((fsdp_axis, sspec.n_fsdp),
+                                    (model_axis, sspec.n_model)) if n > 1)
+        if axes:
+            j = jf * sspec.n_model + jm
+            rep_seg = mesh.psum(scatter_rep_chunk(sspec, rep_seg, j), axes)
+    return b_seg, c_seg, rep_seg
+
+
+def unpack_cplx_shard_local(sspec: ShardPackSpec, buf: Complex, mesh,
+                            model_axis: str = "model",
+                            fsdp_axis: str = "fsdp") -> PyTree:
+    """This rank's block of the global shard-packed ``(W, d_pad)`` Complex
+    planes -> its tree of Complex ``(W_local, ...)`` leaf shards.  Sharded
+    leaves are views of the block; only the B/C/replicated segments cross
+    the grid (one all-reduce each).  The trainer reads λ and h for the
+    penalty gradient through it."""
+    c = shard_coords(mesh, sspec, model_axis, fsdp_axis)
+
+    def one(plane):
+        b_seg, c_seg, rep_seg = _segs_psum(sspec, plane, c.jm, c.jf, mesh,
+                                           model_axis, fsdp_axis)
+        return tree_leaves(unpack_shard_local(sspec, plane, rep_seg,
+                                              b_seg=b_seg, c_seg=c_seg))
+
+    return tree_unflatten(sspec.spec.treedef, [
+        Complex(r, i) for r, i in zip(one(buf.re), one(buf.im))])
+
+
+def shard_replication(sspec: ShardPackSpec, i: int) -> int:
+    """How many shards of the grid hold leaf ``i``'s same block."""
+    n = sspec.n_shards
+    if sspec.shard_dims[i] is not None:
+        n //= sspec.n_model
+    if sspec.fsdp_dims[i] is not None:
+        n //= sspec.n_fsdp
+    return n
+
+
+def _global_rows(mesh, x: Tensor, daxes) -> Tensor:
+    """A (W_local,) vector of each data rank -> the global (W,) one."""
+    if not daxes:
+        return x
+    return mesh.all_gather(x, daxes, 0)
+
+
+def ota_tree_round_shard_local(theta: PyTree, lam_p: Complex, h_p: Complex,
+                               noise_re: Tensor, acfg: AdmmConfig,
+                               ccfg: ChannelConfig, sspec: ShardPackSpec,
+                               mesh, *, mask: Optional[Tensor] = None,
+                               h_tx_p: Optional[Complex] = None,
+                               Theta_prev: Optional[PyTree] = None,
+                               model_axis: str = "model",
+                               fsdp_axis: str = "fsdp",
+                               fused: Optional[bool] = None,
+                               block_cols: Optional[int] = None,
+                               guard: Optional[_guards.GuardConfig] = None,
+                               guard_draws: Optional[_guards.GuardDraws]
+                               = None,
+                               faults=None, telemetry=None,
+                               ) -> Tuple[PyTree, Complex, dict]:
+    """One OTA round with SHARD-LOCAL packing under a mesh, run by every
+    rank (the JAX package's ``shard_map`` body, with this rank's ``(jm,
+    jf)``).
+
+    Per rank: θ the tree of its ``(W_local, ...)`` leaf shards; ``lam_p``,
+    ``h_p`` (and ``h_tx_p``) its ``(W_local, d_local)`` block of the global
+    shard-packed planes; ``noise_re`` its shard's (d_local,) matched-filter
+    noise (JAX draws it from ``fold_in(key, j)``); ``Theta_prev`` its shard
+    of Θ.  ``mask`` and the fault rows are global (W,) vectors, as every
+    rank holds them; ``guard_draws`` holds the shard's burst and retry
+    planes (``faults.guards.draw`` on the shard's noise key).  Each rank:
+
+    1. packs its resident θ shards (no collective);
+    2. runs one pass over its worker planes (``fused`` None/True: B6), or
+       the composed chain (False: B1, then the receive);
+    3. joins the min-α consensus: energies summed over the grid, the min
+       over the data axes;
+    4. superposes over the data axes (an all-reduce; with one rank on the
+       data axes the worker sum is local), demodulates its ``d_local``
+       slice of Θ (B3) and updates its λ block (B4).
+
+    Each shard runs exactly one receive a round.  The guard evicts
+    proactively (non-finite rows, OR-ed over the grid, leave the mask
+    before the receive) and unrolls its retransmissions as ``where``
+    selects, with the JAX package's noise keys and power backoff.  Noise-
+    free, Θ and λ are the leafwise round's, bit for bit on a one-rank data
+    axis.  Returns ``(Theta_tree_f32, lam_new_block, metrics)``: Θ the
+    rank's shard, metrics global values, the stale buffer (this rank's
+    block) and the evicted rows (global) in ``metrics["_fault_aux"]``.
+    """
+    rho = acfg.rho
+    c = shard_coords(mesh, sspec, model_axis, fsdp_axis)
+    daxes, saxes = c.daxes, c.saxes
+    local_w = c.n_data == 1
+    use_fused = fused is not False
+    tel = _obs.resolve(telemetry)
+    has_guard = guard is not None
+    has_faults = faults is not None
+    want_energy_out = (tel is not None and use_fused and tel.per_worker
+                       and acfg.power_control)
+    if (has_guard or has_faults) and not use_fused:
+        raise ValueError("round guards/faults require the fused shard-local "
+                         "path (fused=True)")
+    if has_guard and Theta_prev is None:
+        raise ValueError("guard needs Theta_prev for the skip fallback")
+    W_l = lam_p.re.shape[0]
+    rows = slice(c.jd * W_l, (c.jd + 1) * W_l)
+    dev = lam_p.re.device
+
+    def local(v):
+        return None if v is None else v[rows]
+
+    mask_l = local(mask)
+    theta_p = pack_shard_local(sspec, theta, c.j)       # (W_l, d_local)
+    budget = ccfg.transmit_power * sspec.spec.d         # real elements
+    theta_tx = theta_p
+    stale_next = None
+    burst_std = None
+    if has_faults:
+        fplan, rf, stale = faults
+        rf_l = _fplan.RoundFaults(
+            alive=None, straggler=local(rf.straggler),
+            corrupt=local(rf.corrupt), snapshot_due=rf.snapshot_due,
+            burst_std=rf.burst_std)
+        theta_tx, stale_next = _fplan.apply_uplink(fplan, rf_l, theta_p,
+                                                   stale)
+        burst_std = rf.burst_std
+    if burst_std is not None and (guard_draws is None
+                                  or guard_draws.burst is None):
+        raise ValueError("a bursty round needs guard_draws.burst")
+    evicted_l = None
+    if has_guard and guard.evicts:
+        planes = [theta_tx, lam_p.re, lam_p.im, h_p.re, h_p.im]
+        if h_tx_p is not None:
+            planes += [h_tx_p.re, h_tx_p.im]
+        # a worker's row spans every shard: OR the local verdicts
+        bad = mesh.por(_guards._rows_nonfinite(*planes), saxes)
+        base = (torch.ones(W_l, dtype=torch.bool, device=dev)
+                if mask_l is None else mask_l)
+        evicted_l = bad & base
+        mask_l = base & ~evicted_l
+    mrf = None if local_w else (lambda a: mesh.pmin(a, daxes))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    healthy = retries = None
+    sig_g = npw_g = zero
+    h_wkr = h_p if h_tx_p is None else h_tx_p
+    if use_fused:
+        y_l, p2_l, energy_l, _ = transport.ota_round_stats(
+            theta_tx, lam_p, h_p, rho, mask=mask_l, h_tx=h_tx_p,
+            block_cols=block_cols)
+        energy = mesh.psum(energy_l, saxes) if acfg.power_control else None
+        if not local_w:
+            # the superposition: B6's own planes, summed in place
+            y_l = mesh.psum(y_l, daxes, inplace=True)
+            p2_l = mesh.psum(p2_l, daxes, inplace=True)
+
+        def gsum(v):
+            return mesh.psum(v, saxes)
+
+        def power(energy_budget) -> Tensor:
+            if not acfg.power_control:
+                return torch.ones((), dtype=torch.float32, device=dev)
+            return transport.inv_alpha_from_energy(
+                energy, energy_budget, mask=mask_l, min_reduce_fn=mrf)
+
+        if has_guard:
+            from repro_torch.core import power as _power
+
+            thr = (None if guard.snr_floor_db is None
+                   else 10.0 ** (guard.snr_floor_db / 10.0))
+
+            def epi(noise, attempt, with_burst):
+                ia = power(_power.retry_power_budget(budget, attempt,
+                                                     guard.power_backoff))
+                n = noise
+                if with_burst:
+                    n = n + burst_std * guard_draws.burst
+                n_eff = n * ia
+                Th = transport.demodulate(y_l, p2_l, n_eff, 1.0)
+                ok = gsum((~torch.isfinite(Th)).to(torch.float32).sum()) \
+                    == 0.0
+                sig = npw = zero
+                if thr is not None or tel is not None:
+                    sig = gsum(torch.sum(y_l * y_l))
+                    npw = gsum(torch.sum(n_eff * n_eff))
+                if thr is not None:
+                    ok = ok & (sig >= thr * npw)
+                return Th, ia, ok, sig, npw
+
+            Theta_p, inv_alpha, ok, sig_g, npw_g = epi(
+                noise_re, 0, burst_std is not None)
+            retries = torch.zeros((), dtype=torch.int32, device=dev)
+            # unrolled retries: every rank runs each attempt's collectives,
+            # and the first healthy attempt (or the last) is kept
+            for a in range(1, guard.retries + 1):
+                Th_a, ia_a, ok_a, sig_a, npw_a = epi(
+                    guard_draws.retry_noise[a - 1], a, False)
+                take = ~ok
+                Theta_p = torch.where(take, Th_a, Theta_p)
+                inv_alpha = torch.where(take, ia_a, inv_alpha)
+                sig_g = torch.where(take, sig_a, sig_g)
+                npw_g = torch.where(take, npw_a, npw_g)
+                retries = retries + take.to(torch.int32)
+                ok = torch.where(take, ok_a, ok)
+            healthy = ok
+        else:
+            inv_alpha = power(budget)
+            noise = noise_re
+            if burst_std is not None:
+                noise = noise + burst_std * guard_draws.burst
+            Theta_p = transport.demodulate(y_l, p2_l, noise, inv_alpha)
+            if tel is not None:
+                # y_l is whole over the data axes here, so the power sums
+                # reduce over the grid only: the guard's exact gsum
+                n_eff = noise * inv_alpha
+                sig_g = gsum(torch.sum(y_l * y_l))
+                npw_g = gsum(torch.sum(n_eff * n_eff))
+        e_tx = None
+        if want_energy_out:
+            alpha = transport.applied_alpha(inv_alpha)
+            e_tx = energy * (alpha * alpha)
+            if mask_l is not None:
+                e_tx = torch.where(mask_l, e_tx, torch.zeros_like(e_tx))
+        del y_l, p2_l
+    else:
+        signals = transport.modulate(theta_p, lam_p, h_wkr, rho)
+        if acfg.power_control:
+            # per-worker TOTAL energy: every element is owned by one shard
+            energy = mesh.psum(transport.worker_energy(signals), saxes)
+            inv_alpha = transport.inv_alpha_from_energy(
+                energy, budget, mask=mask_l, min_reduce_fn=mrf)
+        else:
+            inv_alpha = torch.ones((), dtype=torch.float32, device=dev)
+        Theta_p = transport.receive(
+            signals, h_p, noise_re, inv_alpha, mask_l,
+            reduce_fn=None if local_w
+            else (lambda x: mesh.psum(x.sum(0), daxes)))
+        del signals
+    # duals update from the worker's TRUE planes (theta_p, not the faulted
+    # theta_tx); the mask already excludes evicted offenders
+    lam_new = transport.dual_update(lam_p, h_wkr, theta_p, Theta_p, rho)
+    del theta_p, theta_tx
+    if mask_l is not None:
+        _keep_rows_(mask_l, lam_new, lam_p)
+    if healthy is not None:
+        lam_new = Complex(torch.where(healthy, lam_new.re, lam_p.re),
+                          torch.where(healthy, lam_new.im, lam_p.im))
+    if evicted_l is not None:
+        lam_new.re.masked_fill_(evicted_l[:, None], 0.0)
+        lam_new.im.masked_fill_(evicted_l[:, None], 0.0)
+    if sspec.has_padding:
+        # padding never re-enters the air: Θ is garbage there, so the dual
+        # update would otherwise seed non-zero λ at padded slots
+        pad = ~shard_valid_mask(sspec, c.j, dev)
+        lam_new.re.masked_fill_(pad[None, :], 0.0)
+        lam_new.im.masked_fill_(pad[None, :], 0.0)
+    b_seg, c_seg, rep_seg = _segs_psum(sspec, Theta_p, c.jm, c.jf, mesh,
+                                       model_axis, fsdp_axis)
+    Theta_new = unpack_shard_local(sspec, Theta_p, rep_seg, b_seg=b_seg,
+                                   c_seg=c_seg)
+    aux = {}
+    guard_metrics = {}
+    evicted = None
+    if stale_next is not None:
+        aux["stale"] = stale_next
+    if has_guard:
+        guard_metrics["guard/healthy"] = healthy.to(torch.float32)
+        guard_metrics["guard/retries"] = retries.to(torch.float32)
+        if evicted_l is not None:
+            evicted = _global_rows(mesh, evicted_l.to(torch.float32),
+                                   daxes) > 0.5
+            aux["evicted"] = evicted
+            guard_metrics["guard/evicted"] = evicted.to(torch.float32).sum()
+    W = W_l * c.n_data
+    active = mask
+    if evicted is not None:
+        active = ~evicted if active is None else active & ~evicted
+    obs_metrics = {}
+    if tel is not None:
+        obs_metrics["obs/min_alpha"] = transport.applied_alpha(inv_alpha)
+        obs_metrics["obs/active_workers"] = transport.active_workers(
+            active, W, dev)
+        if use_fused:
+            obs_metrics["obs/rx_snr_db"] = transport.snr_db_from_power(
+                sig_g, npw_g)
+            if want_energy_out:
+                obs_metrics["obs/tx_energy"] = _global_rows(mesh, e_tx,
+                                                            daxes)
+    metrics = _obs.merge_disjoint({"inv_alpha": inv_alpha}, guard_metrics,
+                                  obs_metrics,
+                                  who="ota_tree_round_shard_local")
+    if mask is not None:
+        metrics["participation"] = mask.to(torch.float32).mean()
+    keep = None if active is None else active.any()
+    if healthy is not None:
+        keep = healthy if keep is None else keep & healthy
+    if keep is not None and Theta_prev is not None:
+        Theta_new = tree_map(lambda new, old: torch.where(
+            keep, new, old.to(new.dtype)), Theta_new, Theta_prev)
+    if tel is not None and Theta_prev is not None:
+        metrics["obs/theta_update_norm"] = shard_update_norm(
+            sspec, Theta_new, Theta_prev, mesh, saxes)
+    if aux:
+        metrics["_fault_aux"] = aux
+    return Theta_new, lam_new, metrics
+
+
+def shard_update_norm(sspec: ShardPackSpec, new: PyTree, old: PyTree, mesh,
+                      saxes) -> Tensor:
+    """‖new − old‖₂ over the GLOBAL trees whose shards the grid's ranks
+    hold: each leaf's local sum of squares counted once across the shards
+    that hold the same block, then summed over the grid."""
+    sq = None
+    for i, (n, o) in enumerate(zip(tree_leaves(new), tree_leaves(old))):
+        d = n.to(torch.float32, copy=True).sub_(o).reshape(-1)
+        s = torch.dot(d, d) / float(shard_replication(sspec, i))
+        sq = s if sq is None else sq + s
+    return torch.sqrt(mesh.psum(sq, saxes))

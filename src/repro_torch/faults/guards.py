@@ -254,13 +254,16 @@ def guarded_ota_round(theta: Tensor, lam: Complex, h: Complex,
                       burst_std: Optional[Tensor] = None,
                       draws: GuardDraws = GuardDraws(),
                       block_cols: Optional[int] = None,
-                      telemetry=None) -> GuardedRound:
+                      telemetry=None,
+                      min_reduce_fn: Optional[Callable] = None
+                      ) -> GuardedRound:
     """Guarded twin of ``transport.ota_round_fused`` (monolithic pass) on
     the flat (W, d) problem.  On a healthy slot (no burst, finite planes,
     SNR above the floor) Θ and α⁻¹ are the unguarded fused round's, bit for
     bit on the CPU: the guard only adds its O(d) checks.  ``block_cols``
     picks B6's plan (``transport.ota_round_stats``); ``telemetry``: as
-    :func:`guarded_receive`."""
+    :func:`guarded_receive`; ``min_reduce_fn`` carries each attempt's min-α
+    to other ranks' workers (``transport.inv_alpha_from_energy``)."""
     W, d = theta.shape
     budget = ccfg.transmit_power * d
 
@@ -274,7 +277,8 @@ def guarded_ota_round(theta: Tensor, lam: Complex, h: Complex,
         if not power_control:
             return torch.ones((), dtype=torch.float32, device=energy.device)
         b = power.retry_power_budget(budget, attempt, gcfg.power_backoff)
-        return transport.inv_alpha_from_energy(energy, b, mask=m)
+        return transport.inv_alpha_from_energy(energy, b, mask=m,
+                                               min_reduce_fn=min_reduce_fn)
 
     def demod_fn(y, p2, n_eff):
         return transport.demodulate(y, p2, n_eff, 1.0)

@@ -1,0 +1,271 @@
+"""Process meshes over ``torch.distributed``: the port's counterpart of
+``repro/launch/mesh.py`` and of the collectives the JAX package uses inside
+``shard_map``.
+
+A :class:`Mesh` lays the world's ranks out on named axes, ``("data",
+"model")`` or ``("data", "fsdp", "model")`` (``"pod"`` in front for a
+multi-pod layout), over a ``torch.distributed.device_mesh.DeviceMesh``.
+Each rank knows its coordinate on every axis (:meth:`Mesh.axis_index`) and
+holds one process group per axis and per tuple of axes
+(:meth:`Mesh.group`).  The collectives are the ones the JAX package's
+shard-local round and the gathered forward need, and no more:
+:meth:`Mesh.psum` (all-reduce SUM), :meth:`Mesh.pmin` (MIN),
+:meth:`Mesh.por` (an OR as a SUM > 0, as ``tree_ota`` takes it) and
+:meth:`Mesh.all_gather` along a tensor dim, each over one axis or a tuple
+of axes.  A collective over axes of total size 1 is the identity and
+touches no process group.
+
+Backend rule (:func:`backend_for`): NCCL where every rank has a card of its
+own; gloo where ranks share a card or run on the CPU.  Gloo takes each of
+these collectives on CUDA tensors and copies them through the host itself
+(with torch 2.11 on an H100 host: all-reduce SUM and MIN and
+all-gather, so this module stages none); compute never leaves the card.
+
+With ``Mesh.timing`` on, every collective synchronises the card before and
+after itself and adds its wall time and bytes to :attr:`Mesh.stats`, so a
+caller reads the collectives' milliseconds a round; off (the default) it
+adds its call count only.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+import os
+import time
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+Tensor = torch.Tensor
+Axes = Union[str, Sequence[str]]
+
+
+def backend_for(device, local_world_size: int,
+                n_cards: Optional[int] = None) -> str:
+    """``"nccl"`` where each of the host's ``local_world_size`` ranks has a
+    card of its own, else ``"gloo"`` (ranks sharing a card, or the CPU).
+    NCCL refuses two ranks on one device, so this is a rule, not a
+    fallback."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    if n_cards is None:
+        n_cards = torch.cuda.device_count()
+    return "nccl" if n_cards >= local_world_size else "gloo"
+
+
+def init_distributed(device, *, init_method: Optional[str] = None,
+                     rank: Optional[int] = None,
+                     world_size: Optional[int] = None,
+                     timeout=None) -> str:
+    """Join the default process group (if not joined yet) with the backend
+    :func:`backend_for` picks, and return it.  ``rank``/``world_size``
+    default to ``torch.distributed.run``'s ``RANK``/``WORLD_SIZE``, and
+    ``init_method`` to its ``env://`` rendezvous; a caller spawning its own
+    ranks passes a ``file://`` or ``tcp://localhost:<port>`` method, and
+    ``timeout`` (a ``datetime.timedelta``) bounds a collective's wait."""
+    if dist.is_initialized():
+        return dist.get_backend()
+    rank = int(os.environ.get("RANK", 0)) if rank is None else rank
+    world_size = (int(os.environ.get("WORLD_SIZE", 1)) if world_size is None
+                  else world_size)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    backend = backend_for(device, local)
+    kw = {} if timeout is None else {"timeout": timeout}
+    dist.init_process_group(backend, init_method=init_method or "env://",
+                            rank=rank, world_size=world_size, **kw)
+    return backend
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axes and sizes without ranks or groups (the JAX package's
+    ``AbstractMesh``): what the sharding rules read."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def abstract_mesh(shape: Sequence[int], axes: Sequence[str]) -> MeshShape:
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {tuple(shape)} does not match axes "
+                         f"{tuple(axes)}")
+    return MeshShape(tuple(axes), tuple(int(n) for n in shape))
+
+
+def _axes(names: Axes) -> Tuple[str, ...]:
+    return (names,) if isinstance(names, str) else tuple(names)
+
+
+class Mesh:
+    """The world's ranks on named axes, with this rank's coordinates and
+    process groups and the collectives over them.  Build it with
+    :func:`make_mesh` once the default process group is up."""
+
+    def __init__(self, device_mesh, device, backend: str):
+        self.device_mesh = device_mesh
+        self.device = torch.device(device)
+        self.backend = backend
+        self.axis_names: Tuple[str, ...] = tuple(device_mesh.mesh_dim_names)
+        ranks = device_mesh.mesh.cpu()
+        self.shape: Dict[str, int] = dict(zip(self.axis_names,
+                                              ranks.shape))
+        self._coord = dict(zip(self.axis_names,
+                               device_mesh.get_coordinate()))
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        for a in self.axis_names:
+            self._groups[(a,)] = device_mesh.get_group(a)
+        # one group family a tuple of two or more axes, created by every
+        # rank in the same order (torch orders a group's ranks ascending,
+        # so a tuple in mesh order is row-major, fsdp-major for the grid)
+        for k in range(2, len(self.axis_names) + 1):
+            for sub in itertools.combinations(self.axis_names, k):
+                rest = [a for a in self.axis_names if a not in sub]
+                perm = ([self.axis_names.index(a) for a in rest]
+                        + [self.axis_names.index(a) for a in sub])
+                flat = ranks.permute(perm).reshape(
+                    -1, math.prod(self.shape[a] for a in sub))
+                for row in flat.tolist():
+                    g = dist.new_group(sorted(row))
+                    if dist.get_rank() in row:
+                        self._groups[sub] = g
+        self.timing = False
+        self.stats: Dict[str, Dict[str, float]] = {}
+
+    # -- layout -------------------------------------------------------------
+
+    def axis_size(self, names: Axes) -> int:
+        return math.prod(self.shape[a] for a in _axes(names))
+
+    def axis_index(self, names: Axes) -> int:
+        """This rank's flat coordinate over ``names`` (row-major in the
+        order given)."""
+        idx = 0
+        for a in _axes(names):
+            idx = idx * self.shape[a] + self._coord[a]
+        return idx
+
+    def group(self, names: Axes):
+        """The process group of this rank over ``names`` (taken in mesh
+        order)."""
+        key = tuple(a for a in self.axis_names if a in _axes(names))
+        return self._groups[key]
+
+    # -- collectives --------------------------------------------------------
+
+    def reset_stats(self) -> None:
+        self.stats = {}
+
+    def _run(self, op: str, x: Tensor, fn, inplace: bool = False) -> Tensor:
+        """``fn(t)`` on ``t``, a contiguous copy of ``x`` (``x`` itself when
+        ``inplace`` and contiguous: a collective that only reads it, or a
+        plane the caller gives up), counted (and timed when asked) under
+        ``op`` in :attr:`stats`."""
+        sync = self.timing and x.is_cuda
+        if sync:
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        out = fn(x if inplace and x.is_contiguous()
+                 else x.contiguous().clone())
+        if sync:
+            torch.cuda.synchronize(x.device)
+        s = self.stats.setdefault(op, {"calls": 0, "seconds": 0.0,
+                                       "bytes": 0})
+        s["calls"] += 1
+        s["seconds"] += time.perf_counter() - t0
+        s["bytes"] += x.numel() * x.element_size()
+        return out
+
+    def _reduce(self, op: str, x: Tensor, names: Axes, rop,
+                inplace: bool = False) -> Tensor:
+        if self.axis_size(names) == 1:
+            return x
+        group = self.group(names)
+
+        def fn(t):
+            dist.all_reduce(t, op=rop, group=group)
+            return t
+        return self._run(op, x, fn, inplace)
+
+    def psum(self, x: Tensor, names: Axes, inplace: bool = False) -> Tensor:
+        """Σ of ``x`` over the ranks of ``names``; ``inplace`` sums into
+        ``x`` itself (a plane the caller no longer needs as it was), where
+        a copy would hold one more plane."""
+        return self._reduce("psum", x, names, dist.ReduceOp.SUM, inplace)
+
+    def pmin(self, x: Tensor, names: Axes) -> Tensor:
+        """Elementwise min of ``x`` over the ranks of ``names``."""
+        return self._reduce("pmin", x, names, dist.ReduceOp.MIN)
+
+    def por(self, x: Tensor, names: Axes) -> Tensor:
+        """Elementwise OR of bool ``x`` over ``names``: a SUM of its f32
+        image, then > 0 (the JAX package's ``psum(bad) > 0``)."""
+        if self.axis_size(names) == 1:
+            return x
+        return self._reduce("por", x.to(torch.float32), names,
+                            dist.ReduceOp.SUM) > 0.0
+
+    def all_gather(self, x: Tensor, names: Axes, dim: int) -> Tensor:
+        """The ranks' ``x`` over ``names`` concatenated along ``dim``, in
+        the order of :meth:`axis_index`."""
+        n = self.axis_size(names)
+        if n == 1:
+            return x
+        group = self.group(names)
+
+        def fn(t):
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t, group=group)
+            return torch.cat(parts, dim=dim)
+        # the gather reads x only: no copy of it
+        return self._run("all_gather", x, fn, inplace=True)
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], device) -> Mesh:
+    """A :class:`Mesh` of ``shape`` over ``axes`` for the tensors of
+    ``device``: rank ``r`` of the default process group sits at the
+    row-major coordinate ``r`` of ``shape``.  The mesh must cover the
+    world.  An ``fsdp`` axis must divide the data plane: the launcher's
+    check (``--fsdp N`` "must divide" the rank count) stands before it."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = tuple(int(n) for n in shape)
+    axes = tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} does not match axes {axes}")
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} holds {math.prod(shape)} "
+                         f"ranks but the world has {world}")
+    backend = dist.get_backend()
+    dev = torch.device(device)
+    # the device mesh's type names the groups' backend: gloo's groups are
+    # host groups even when their tensors live on a shared card
+    kind = "cuda" if backend == "nccl" else "cpu"
+    dm = init_device_mesh(kind, shape, mesh_dim_names=axes)
+    return Mesh(dm, dev, backend)
+
+
+def fsdp_mesh_shape(n_ranks: int, fsdp: int) -> Tuple[int, int, int]:
+    """The launcher's ``(n // fsdp, fsdp, 1)`` (data, fsdp, model) shape;
+    a ValueError that says "must divide" when ``fsdp`` does not."""
+    if fsdp < 1 or n_ranks % fsdp:
+        raise ValueError(f"--fsdp {fsdp} must divide the rank count "
+                         f"({n_ranks})")
+    return (n_ranks // fsdp, fsdp, 1)
+
+
+def data_axes(multi_pod: bool) -> Tuple[str, ...]:
+    """Mesh axes that jointly carry the batch / FL-worker dimension."""
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def axis_size(mesh, names: Axes) -> int:
+    """Product of the sizes of ``names`` on ``mesh`` (a :class:`Mesh` or a
+    :class:`MeshShape`)."""
+    return math.prod(mesh.shape[a] for a in _axes(names))

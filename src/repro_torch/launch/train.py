@@ -18,11 +18,25 @@ by the global index, so a resumed run (``--checkpoint-dir`` +
 ``--sketch-ratio``, ``--sketch-lr``): its state's fields (``Theta``,
 ``lam``, ``chan``, ``step``, ``flt``) are the snapshot's keys, as the
 reference writes them.  Every arch trains: a round's batch adds the stub
-patches (vlm) or frames (audio) to the tokens.  Refused by name:
-``--fsdp > 1`` (a mesh, ROADMAP queue A item 6) and ``--population`` in
-the sketched mode (the trainer's ValueError).  Torch
-has no HLO, so no ``compile_report.json`` is written; the manifest says
-why.
+patches (vlm) or frames (audio) to the tokens.
+
+``--fsdp N`` (N > 1) trains the replicated mode on the reference's
+``(n // N, N, 1)`` (data, fsdp, model) mesh of the ``n`` ranks that
+``torch.distributed.run`` starts:
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch granite-8b --reduced --fsdp 2
+
+Each rank joins the process group with the backend ``launch.mesh`` picks
+(NCCL where every rank has a card, gloo where ranks share one or run on
+the CPU), builds the batch of all workers from the round key and keeps its
+workers' rows.  Only rank 0 writes the run dir, the log lines and the
+snapshots (``checkpoint.save_sharded``: the JAX package's global layout;
+every rank restores its part).  Refused by name: an N that does not divide
+the rank count (a CLI error that says "must divide"), ``--mode sketched``
+with ``--fsdp`` > 1 (ROADMAP queue A item 6b), and ``--population`` in the
+sketched mode (the trainer's ValueError).  Torch has no HLO, so no
+``compile_report.json`` is written; the manifest says why.
 
 :func:`run` takes the parsed arguments and, optionally, a model built by
 the caller (a full-width model cut to fewer layers, say); :func:`main`
@@ -42,12 +56,17 @@ from typing import Optional
 import torch
 
 from repro_torch import rng
-from repro_torch.checkpoint import latest_round, restore, round_path, save
+from repro_torch.checkpoint import (gather_fl_state, latest_round, restore,
+                                    restore_sharded, round_path, save,
+                                    save_sharded)
 from repro_torch.core.admm import AdmmConfig
 from repro_torch.core.aggregators import stack_rows
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.data.synthetic import token_dataset
+from repro_torch.core.tree_ota import shard_coords
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (fsdp_mesh_shape, init_distributed,
+                                     make_mesh)
 from repro_torch.models.registry import (Model, get_model, list_archs,
                                          packed_param_count)
 from repro_torch.phy import list_scenarios
@@ -55,7 +74,7 @@ from repro_torch.train.llm_trainer import FLConfig, make_fl_train
 
 #: why the launcher writes no compile report (the manifest records it)
 NO_COMPILE_REPORT = ("torch has no HLO to analyse; the launcher's HLO "
-                     "analysis is ROADMAP queue A item 6")
+                     "analysis is ROADMAP queue A item 6c")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -74,8 +93,8 @@ def parser() -> argparse.ArgumentParser:
                     help="step size applied to the decoded sketch delta")
     ap.add_argument("--fsdp", type=int, default=1,
                     help="shard parameters over an 'fsdp' mesh axis of this "
-                         "size (refused above 1: the port runs on one "
-                         "device)")
+                         "size: the (n // N, N, 1) (data, fsdp, model) mesh "
+                         "of the n ranks torch.distributed.run starts")
     ap.add_argument("--backend", default=None, choices=["jnp", "pallas"],
                     help="OTA transport backend (the port takes 'pallas', "
                          "its kernels, and refuses 'jnp')")
@@ -233,10 +252,17 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
     final trainer state, every round's loss this run, the wall seconds and
     the number of this run's rounds, the autotune result (or None) and the
     profiler's Chrome trace path (or None)."""
+    mesh = None
     if args.fsdp > 1:
-        raise NotImplementedError(
-            f"--fsdp {args.fsdp} needs a device mesh, which is not ported "
-            f"yet (ROADMAP queue A item 6: multi-device)")
+        if args.mode == "sketched":
+            raise SystemExit(
+                f"--mode sketched --fsdp {args.fsdp}: the sketched mode's "
+                f"mesh is not ported yet (ROADMAP queue A item 6b)")
+        try:
+            shape = fsdp_mesh_shape(int(os.environ.get("WORLD_SIZE", 1)),
+                                    args.fsdp)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     if args.population is not None and args.cohort is None:
         raise SystemExit("--population requires --cohort (use "
                          "--cohort == --population to disable sampling)")
@@ -244,6 +270,16 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
         # the knobs are read when a round runs (repro_torch.optflags)
         os.environ["REPRO_OTA_BLOCK_ROWS"] = str(args.ota_block_rows)
     dev = resolve_device(args.device)
+    if args.fsdp > 1:
+        if dev.type == "cuda" and dev.index is None:
+            # a card a rank where there are enough, else the ranks share
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                               % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        init_distributed(dev)
+        mesh = make_mesh(shape, ("data", "fsdp", "model"), dev)
+    main_rank = mesh is None or torch.distributed.get_rank() == 0
+    say = print if main_rank else (lambda *a, **k: None)
     telemetry_on = (args.telemetry == "on") if args.telemetry is not None \
         else args.run_dir is not None
 
@@ -275,18 +311,19 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
     acfg = AdmmConfig(rho=args.rho, flip_on_change=False)
     ccfg = ChannelConfig(n_workers=args.population or W, snr_db=args.snr_db,
                          coherence_iters=args.coherence)
-    init_fn, train_step = make_fl_train(model, flcfg, acfg, ccfg,
+    init_fn, train_step = make_fl_train(model, flcfg, acfg, ccfg, mesh=mesh,
                                         device=dev)
 
     sink = timer = None
-    if args.run_dir:
+    if args.run_dir and main_rank:
         from repro_torch.obs.sink import MetricsSink, run_manifest
         sink = MetricsSink(args.run_dir, resume=args.resume)
         sink.write_manifest(run_manifest(
             arch=args.arch, reduced=args.reduced, mode=args.mode,
             driver=args.driver, backend=args.backend, device=str(dev),
             telemetry=telemetry_on, rounds=args.rounds, workers=W,
-            seed=args.seed, log_every=args.log_every, mesh_shape=None,
+            seed=args.seed, log_every=args.log_every,
+            mesh_shape=None if mesh is None else dict(mesh.shape),
             model=dataclasses.asdict(cfg),
             flconfig=dataclasses.asdict(flcfg),
             admm=dataclasses.asdict(acfg),
@@ -298,7 +335,9 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
         timer = SpanTimer()
 
     tuned = None
-    if args.autotune_cache:
+    if args.autotune_cache and mesh is not None:
+        say("autotune: skipped (one device only)", flush=True)
+    elif args.autotune_cache:
         if args.mode == "replicated" and (flcfg.packed_uplink is not False
                                           or args.scenario is not None):
             from repro_torch.core.transport import autotune_ota_round_cached
@@ -328,15 +367,28 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
                          seq_len=args.seq, vocab_size=cfg.vocab_size,
                          n_workers=W_round, device=dev)
     st = init_fn(key)
+    mine = slice(None)          # the batch rows of this rank's workers
+    if mesh is not None:
+        sspec = init_fn.layout["sspec"]
+        c = shard_coords(mesh)
+        mine = slice(c.jd * (W_round // c.n_data),
+                     (c.jd + 1) * (W_round // c.n_data))
+
+    def snapshot(path: str, st) -> None:
+        if mesh is None:
+            save(path, st)
+        else:
+            save_sharded(path, st, mesh, sspec)
 
     r0 = 0
     if args.resume and args.checkpoint_dir:
         latest = latest_round(args.checkpoint_dir)
         if latest is not None:
             path = round_path(args.checkpoint_dir, latest)
-            st = restore(path, st)
+            st = (restore(path, st) if mesh is None
+                  else restore_sharded(path, st, mesh, sspec))
             r0 = latest
-            print(f"resumed from round {r0} ({path})", flush=True)
+            say(f"resumed from round {r0} ({path})", flush=True)
             if sink is not None:
                 sink.log_resume(r0)
 
@@ -347,7 +399,7 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
         if (args.checkpoint_dir and args.checkpoint_every > 0
                 and (stop - last >= args.checkpoint_every
                      or stop == args.rounds)):
-            save(round_path(args.checkpoint_dir, stop), st)
+            snapshot(round_path(args.checkpoint_dir, stop), st)
             return stop
         return last
 
@@ -369,13 +421,13 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
             batch["frames"] = torch.randn(
                 (W_round, args.batch, cfg.frontend_tokens, cfg.d_model),
                 generator=gen, device=dev)
-        return batch
+        return {k: v[mine] for k, v in batch.items()}
 
     def step(st, r: int):
         return train_step(st, make_batch(r), key=rng.fold_in(key, 2000 + r))
 
     trace_ctx = contextlib.nullcontext(None)
-    if args.profile and args.run_dir:
+    if args.profile and args.run_dir and main_rank:
         from repro_torch.obs.profiling import trace_session
         trace_ctx = trace_session(os.path.join(args.run_dir, "trace"))
 
@@ -403,7 +455,9 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
                     sink.log_rounds(start, ms)
                     sink.log_block(start + block - 1, bs, block)
                 losses += ms["loss"].tolist()
-                _log(start + block - 1, {k: v[-1] for k, v in ms.items()})
+                if main_rank:
+                    _log(start + block - 1,
+                         {k: v[-1] for k, v in ms.items()})
                 last = maybe_checkpoint(start + block, st, last)
         else:
             for r in range(r0, args.rounds):
@@ -417,19 +471,20 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
                 if sink is not None:
                     sink.log_round(r, metrics)
                 losses.append(float(metrics["loss"]))
-                if r % args.log_every == 0 or r == args.rounds - 1:
+                if main_rank and (r % args.log_every == 0
+                                  or r == args.rounds - 1):
                     _log(r, metrics)
                 last = maybe_checkpoint(r + 1, st, last)
         dt = time.time() - t0      # the rounds, not the trace's export
-    print(f"done: {args.rounds} rounds in {dt:.1f}s "
-          f"({dt / args.rounds:.2f}s/round)", flush=True)
+    say(f"done: {args.rounds} rounds in {dt:.1f}s "
+        f"({dt / args.rounds:.2f}s/round)", flush=True)
     if sink is not None:
         sink.log_done(args.rounds - r0, dt)
         sink.close()
     trace_path = None if trace is None else trace.path
     if timer is not None:
         summ = timer.summary()
-        if args.run_dir:
+        if args.run_dir and main_rank:
             with open(os.path.join(args.run_dir, "profile.json"), "w") as f:
                 json.dump({"spans": summ, "series": timer.series,
                            "trace": trace_path,
@@ -438,11 +493,14 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
                 f.write("\n")
         parts = ", ".join(f"{k}={v['seconds']:.2f}s/{int(v['count'])}x"
                           for k, v in sorted(summ.items()))
-        print(f"profile: {parts}", flush=True)
+        say(f"profile: {parts}", flush=True)
 
     if args.checkpoint:
-        save(args.checkpoint, st.Theta)
-        print(f"saved global model to {args.checkpoint}")
+        Theta = (st.Theta if mesh is None
+                 else gather_fl_state(st, mesh, sspec).Theta)
+        if main_rank:
+            save(args.checkpoint, Theta)
+        say(f"saved global model to {args.checkpoint}")
     return {"state": st, "losses": losses, "seconds": dt,
             "rounds": args.rounds - r0, "autotune": tuned,
             "trace": trace_path}
@@ -450,6 +508,8 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
 
 def main(argv=None) -> int:
     run(parser().parse_args(argv))
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -1,0 +1,137 @@
+"""The gathered forward: a model whose parameters each rank holds as its
+(fsdp, model) shard runs on the full parameters, one stacked layer at a
+time.
+
+Under a model-parallel mesh the JAX package's θ leaves carry their model
+and fsdp shardings and XLA partitions the forward; the semantics are each
+worker's loss on its full parameters.  The port keeps θ shard-local and
+gathers on the way in: :func:`gather_params` all-gathers the unstacked
+leaves (embedding, head, norms) whole, and the stacked leaves of
+``transformer.STACKED_KEYS`` only along their entry dim where the grid
+shards that dim; ``transformer.run_stacked`` then gathers the rest of each
+entry inside its checkpointed block (:func:`gather_entry`), so the
+backward's recompute gathers again and only one full layer is alive.
+
+The gather's backward (:class:`_Gather`) narrows the full gradient to the
+rank's own slice.  Every rank of the shard grid computes the same products
+on the same batch, so there is no gradient reduction; nor across the data
+axes, where each worker trains its own θ.  Partitioning the products
+themselves (column and row splits with their all-reduces) is a later
+ROADMAP item.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+Tensor = torch.Tensor
+PyTree = Any
+#: a leaf's sharded element dims: ((dim, mesh axis), ...)
+Dims = Tuple[Tuple[int, str], ...]
+
+
+class GatherPlan(NamedTuple):
+    """How to rebuild full parameters from a rank's shards."""
+
+    mesh: Any
+    dims: PyTree        # params' structure; each leaf a :data:`Dims`
+    lead: int           # leading worker dims of the leaves
+
+
+_ACTIVE: dict = {"plan": None}
+
+
+def make_plan(params: PyTree, model_dims, fsdp_dims, mesh, lead: int = 1,
+              model_axis: str = "model",
+              fsdp_axis: str = "fsdp") -> GatherPlan:
+    """The plan of a params tree (its flatten order) from its per-leaf
+    model and fsdp element dims (``launch.shardings.shard_dims_2d``).  An
+    axis of size 1 gathers nothing and is left out."""
+    treedef = tree_flatten(params)[1]
+    n_model = mesh.shape.get(model_axis, 1)
+    n_fsdp = mesh.shape.get(fsdp_axis, 1)
+    leaves = []
+    for md, fd in zip(model_dims, fsdp_dims):
+        pairs = []
+        if md is not None and n_model > 1:
+            pairs.append((md, model_axis))
+        if fd is not None and n_fsdp > 1:
+            pairs.append((fd, fsdp_axis))
+        leaves.append(tuple(pairs))
+    return GatherPlan(mesh, tree_unflatten(treedef, leaves), lead)
+
+
+@contextlib.contextmanager
+def gathering(plan: Optional[GatherPlan]):
+    """Make ``plan`` the one :func:`gather_params` and ``run_stacked``
+    read in the enclosed code (None: no gathering)."""
+    prev = _ACTIVE["plan"]
+    _ACTIVE["plan"] = plan
+    try:
+        yield
+    finally:
+        _ACTIVE["plan"] = prev
+
+
+def current() -> Optional[GatherPlan]:
+    return _ACTIVE["plan"]
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` over ``axis``; the backward narrows the
+    (identical on every rank) full gradient to this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, mesh, axis: str, dim: int) -> Tensor:
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.width = x.shape[dim]
+        return mesh.all_gather(x.detach(), axis, dim)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        i = ctx.mesh.axis_index(ctx.axis)
+        return g.narrow(ctx.dim, i * ctx.width, ctx.width), None, None, None
+
+
+def _gather_leaf(x: Tensor, pairs: Dims, mesh, offset: int) -> Tensor:
+    for d, axis in pairs:
+        x = _Gather.apply(x, mesh, axis, offset + d)
+    return x
+
+
+def gather_params(params: PyTree, plan: Optional[GatherPlan] = None
+                  ) -> PyTree:
+    """``params`` (this rank's shards) with every unstacked leaf gathered
+    whole and every stacked leaf gathered along its entry dim where it is
+    sharded there; the identity without a plan."""
+    from repro_torch.models.transformer import STACKED_KEYS
+
+    plan = plan or current()
+    if plan is None:
+        return params
+    out = {}
+    for key, sub in params.items():
+        dims = plan.dims[key]
+        if key in STACKED_KEYS and isinstance(sub, dict):
+            out[key] = tree_map(lambda x, p: _gather_leaf(
+                x, tuple(q for q in p if q[0] == 0), plan.mesh, plan.lead),
+                sub, dims)
+        else:
+            out[key] = tree_map(lambda x, p: _gather_leaf(
+                x, p, plan.mesh, plan.lead), sub, dims)
+    return out
+
+
+def gather_entry(plan: Optional[GatherPlan], entry: PyTree,
+                 key: str) -> PyTree:
+    """One stacked entry of ``params[key]`` (leaves ``leaf[:, i]``, the
+    entry dim gone) with its other sharded dims gathered."""
+    if plan is None:
+        return entry
+    return tree_map(lambda x, p: _gather_leaf(
+        x, tuple((d - 1, a) for d, a in p if d > 0), plan.mesh,
+        plan.lead), entry, plan.dims[key])

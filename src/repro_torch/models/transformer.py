@@ -180,7 +180,17 @@ def run_stacked(params: Params, x: Tensor, block: Callable, n: int,
     but the matrix products, whose outputs the forward keeps
     (:func:`_dots_saveable`).  With ``with_aux`` the block returns
     ``(x, aux)`` (the scan's per-layer output) and so does this: ``(x, [aux
-    of each entry])``."""
+    of each entry])``.  Under a gather plan (``models/gather``: θ held as
+    shards of a mesh) each entry's shards are gathered inside its block, so
+    the recompute gathers again and one full entry is alive at a time."""
+    from repro_torch.models import gather as _gather
+
+    plan = _gather.current()
+    if plan is not None:
+        inner = block
+
+        def block(x_, p_):
+            return inner(x_, _gather.gather_entry(plan, p_, key))
     policy = {}
     if remat and optflags.enabled("save_dots"):
         policy["context_fn"] = functools.partial(

@@ -131,8 +131,8 @@ def compile_report(hlo_text: str, path: Optional[str] = None,
     """Refused: the JAX package's report analyses a compiled module's
     optimized HLO, and torch's eager kernels have none.  The launcher's
     analysis of a round (``launch/hlo_analysis.py``) is ROADMAP queue A
-    item 6."""
+    item 6c."""
     raise NotImplementedError(
         "compile_report: torch has no HLO to analyse; the port's launcher "
         "writes no compile_report.json (the HLO analysis is ROADMAP queue A "
-        "item 6)")
+        "item 6c)")

@@ -160,10 +160,19 @@ class Scenario:
         return (self.cfg.coherence_iters >= STATIC_COHERENCE
                 and self._plain_fading and not self.mobile)
 
-    def _keys(self, key: int) -> Tuple[int, int, int]:
+    def _keys(self, key: int,
+              shard: Optional[int] = None) -> Tuple[int, int, int]:
+        """(fading, geometry, CSI) keys.  With ``shard`` (a mesh rank's
+        shard of the (W, d) planes) the per-element fading and CSI draw
+        from the shard's folds, and what is per worker (the geometry, a
+        frequency-flat fade) from the keys every shard shares."""
         if self._plain_fading:
-            return key, key, key  # geometry/csi keys unused
-        return rng.split(key, 3)
+            kf = kg = kc = key  # geometry/csi keys unused
+        else:
+            kf, kg, kc = rng.split(key, 3)
+        if shard is not None and not self.cfg.freq_flat:
+            kf, kc = rng.fold_in(kf, shard), rng.fold_in(kc, shard)
+        return kf, kg, kc
 
     def changed(self, state: PhyState) -> bool:
         """Did the channel redraw discontinuously this round?  This drives
@@ -183,9 +192,10 @@ class Scenario:
             return None
         return awgn(rng.generator(kc, device), shape, self.cfg.csi_err ** 2)
 
-    def init(self, key: int, n_workers: int, d: int, device) -> PhyState:
+    def init(self, key: int, n_workers: int, d: int, device,
+             shard: Optional[int] = None) -> PhyState:
         cfg = self.cfg
-        kf, kg, kc = self._keys(key)
+        kf, kg, kc = self._keys(key, shard)
         shape = (n_workers, 1) if cfg.freq_flat else (n_workers, d)
         h_small = rayleigh(rng.generator(kf, device), shape)
         gain = shadow = pos = dest = None
@@ -200,16 +210,18 @@ class Scenario:
                               self._draw_csi(kc, self._csi_shape(n_workers, d),
                                              device))
 
-    def draw(self, key: int, state: PhyState) -> PhyDraws:
+    def draw(self, key: int, state: PhyState,
+             shard: Optional[int] = None) -> PhyDraws:
         """The random planes of one :meth:`step` from ``state``, drawn from
         ``key`` on the state's device.  The key splits three ways (fading,
         geometry, CSI) unless the fading is the only randomness; the fresh
-        shadowing is the ``SHADOW_SALT`` side branch of the geometry key."""
+        shadowing is the ``SHADOW_SALT`` side branch of the geometry key.
+        ``shard``: as :meth:`init`'s, a mesh rank's shard of the planes."""
         if self._static:
             return PhyDraws()
         cfg = self.cfg
         dev = state.h.re.device
-        kf, kg, kc = self._keys(key)
+        kf, kg, kc = self._keys(key, shard)
         h_small = state.h if state.h_small is None else state.h_small
         w = None
         if _fading.redraws(state.age, cfg.coherence_iters):

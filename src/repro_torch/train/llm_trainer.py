@@ -37,8 +37,20 @@ A round's random planes are a :class:`TreeRoundDraws`, drawn from the round
 key when not given (:func:`draw_round`), so a test can replay the JAX
 package's.  ``telemetry`` adds the round's ``obs/`` keys
 (``repro_torch.obs``) and ``ota_block_cols`` picks the fused kernel's plan
-(``kernels/ota_round.block_cols_choices``).  Refused by name: a mesh
-(ROADMAP queue A item 6) and a transport backend override.
+(``kernels/ota_round.block_cols_choices``).
+
+``mesh`` (a ``launch.mesh.Mesh``; the replicated mode) runs the trainer as
+one rank of a (data, fsdp, model) process grid.  The rank holds the rows of
+its workers (its coordinate on the data axes) and, when the grid shards
+the model (model > 1 or fsdp > 1), its (fsdp, model) shard of θ, Θ, the
+optimizer state and of the global shard-packed (W, d_pad) λ and h
+(``core.packing.ShardPackSpec`` over ``launch.shardings.shard_dims_2d``).
+The local steps run the gathered forward (``models.gather``), the penalty
+reads λ and h through ``tree_ota.unpack_cplx_shard_local`` and the round is
+``tree_ota.ota_tree_round_shard_local``.  A pure-data mesh keeps the global
+packed layout, its worker rows split over the data axes.  Refused by name:
+the sketched mode under a mesh (ROADMAP queue A item 6b) and a transport
+backend override.
 """
 from __future__ import annotations
 
@@ -54,18 +66,24 @@ from repro_torch.core import cplx, transport
 from repro_torch.core.admm import AdmmConfig
 from repro_torch.core.channel import ChannelConfig, rayleigh
 from repro_torch.core.cplx import Complex
-from repro_torch.core.packing import build_packspec, unpack_cplx
+from repro_torch.core.packing import (build_packspec, build_shard_packspec,
+                                      shard_tree, unpack_cplx)
 from repro_torch.core.sketch import chunks, decode_packed, encode_chunked
 from repro_torch.core.tree_ota import (TreeFLState, _zmap, draw_channel_tree,
                                        init_channel_packed, init_channel_tree,
                                        ota_tree_round,
-                                       ota_tree_round_packed_state, redraws,
+                                       ota_tree_round_packed_state,
+                                       ota_tree_round_shard_local, redraws,
+                                       shard_coords, shard_replication,
+                                       shard_update_norm,
                                        step_channel_packed, step_channel_tree,
-                                       tree_penalty_grad, tree_update_norm)
+                                       tree_penalty_grad, tree_update_norm,
+                                       unpack_cplx_shard_local)
 from repro_torch.device import resolve_device
 from repro_torch.faults import guards as _guards
 from repro_torch.faults import plan as _fplan
 from repro_torch.kernels import ota_round as _round_k
+from repro_torch.models import gather as _gather
 from repro_torch.models.registry import Model, packed_param_count
 from repro_torch.models.transformer import unstack
 from repro_torch.optim.optimizers import OptState, adam, sgd
@@ -157,23 +175,48 @@ def _device_of(state) -> torch.device:
     return tree_leaves(state.theta)[0].device
 
 
+def block_key(key: int, shard: int, data_rank: int) -> int:
+    """The key of a mesh rank's block of a (W, d_pad) plane: the rank
+    draws its (W_local, d_local) block alone, from the plane's key folded
+    with its shard and then its data rank."""
+    return rng.fold_in(rng.fold_in(key, shard), data_rank)
+
+
 def draw_round(key: int, state: TreeFLState, ccfg: ChannelConfig, *,
                scenario=None, faults: Optional[_fplan.FaultPlan] = None,
                guard: Optional[_guards.GuardConfig] = None,
-               cohort: Optional[_cohort.CohortConfig] = None
+               cohort: Optional[_cohort.CohortConfig] = None,
+               mesh_rank: Optional[Tuple[int, int, bool]] = None
                ) -> TreeRoundDraws:
     """The round's planes from its key, split as JAX splits it: ``kc`` the
     channel (the redraw block, drawn only on a redraw round, or the
     scenario's draws), ``kn`` the noise (per leaf: ``split(kn, n_leaves)``
     for the leafwise state) and the guard's planes (folds of ``kn``); the
     fault uniforms from the key's ``FAULT_SALT`` fold and the cohort plane
-    from its ``COHORT_SALT`` fold."""
+    from its ``COHORT_SALT`` fold.
+
+    ``mesh_rank = (shard j, data rank, shard_local)`` draws one mesh rank's
+    planes: its redraw block from :func:`block_key` (a scenario's from its
+    shard's keys, ``Scenario.draw(shard=)``, every worker's row), its noise
+    (d_local,) from ``fold_in(kn, j)`` on the shard-local layout (JAX's
+    per-shard noise) or from ``kn`` on a pure-data mesh (the packed
+    round's), and the guard's planes from that noise key; the fault
+    uniforms stay global."""
     kc, kn = rng.split(key)
     dev = _device_of(state)
     leafwise = not isinstance(state.lam, Complex)
     h_fresh = phy = None
+    shard = None
+    if mesh_rank is not None:
+        j, jd, shard_local = mesh_rank
+        shard = j if shard_local else None
+        if scenario is None:
+            kc = block_key(kc, j, jd)
+        if shard_local:
+            kn = rng.fold_in(kn, j)
     if scenario is not None:
-        phy = scenario.draw(kc, state.chan)
+        phy = (scenario.draw(kc, state.chan) if shard is None
+               else scenario.draw(kc, state.chan, shard=shard))
     elif redraws(state.chan, ccfg):
         h_fresh = (draw_channel_tree(kc, state.chan.h) if leafwise else
                    rayleigh(rng.generator(kc, dev), tuple(state.lam.re.shape)))
@@ -207,18 +250,16 @@ def _local_opt(flcfg: FLConfig):
     return sgd(flcfg.local_lr)
 
 
-def _refuse_mesh_and_backend(flcfg: FLConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("FLConfig mesh is not ported yet (ROADMAP "
-                                  "queue A item 6 (multi-device))")
-    transport.check_backend_choice(flcfg.transport_backend)
-
-
 def _refuse_unported(flcfg: FLConfig, mesh, model: Model) -> None:
     """NotImplementedError for every FLConfig feature the port lacks, named
     with its ROADMAP item, so none is silently ignored; ValueError for a
     column tile no plan of the fused kernel takes at the round's (W, D)."""
-    _refuse_mesh_and_backend(flcfg, mesh)
+    transport.check_backend_choice(flcfg.transport_backend)
+    if mesh is not None and flcfg.packed_uplink is False:
+        raise NotImplementedError(
+            "FLConfig.packed_uplink=False under a mesh: the leafwise round "
+            "runs on one device only (ROADMAP queue A item 6e)")
+
     if flcfg.ota_block_cols is not None:
         width = flcfg.cohort if flcfg.population is not None else \
             flcfg.n_workers
@@ -241,9 +282,10 @@ def _opt_map(fn, opt: OptState, *rest: OptState) -> OptState:
 
 def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
                     ccfg: ChannelConfig, mesh=None, device="cuda"):
-    """``(init_fn, train_step)`` of the replicated mode on one device: one
+    """``(init_fn, train_step)`` of the replicated mode: on one device one
     globally packed (W, D) buffer each for λ and h, or per-leaf trees under
-    ``packed_uplink=False``."""
+    ``packed_uplink=False``; under ``mesh`` one rank's part of the state
+    and of the round (:func:`_mesh_replicated`)."""
     _refuse_unported(flcfg, mesh, model)
     cohort_cfg = None
     if flcfg.population is not None:
@@ -289,6 +331,9 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
             "FLConfig.population/cohort sampling gathers rows of the packed "
             "(N, D) dual/fading buffers and requires the packed state "
             "layout (packed_uplink != False)")
+    if mesh is not None:
+        return _mesh_replicated(model, flcfg, acfg, ccfg, mesh, dev, W, opt,
+                                tel, sampling, scn)
 
     def init_fn(key: int) -> TreeFLState:
         """Per-worker random init (worker w from ``fold_in(kp, w)``), Θ the
@@ -320,7 +365,8 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
         of the loss's extra terms).  ``rows``: the cohort's rows of the
         population-wide λ and h trees."""
         leaves = tree_map(lambda l: l.detach().requires_grad_(), theta)
-        losses, lm = model.loss(leaves, batch)           # (W,)
+        # under a mesh's gather plan the forward sees the full parameters
+        losses, lm = model.loss(_gather.gather_params(leaves), batch)  # (W,)
         losses.sum().backward()
         with torch.no_grad():
             grads = tree_map(lambda l: l.grad, leaves)
@@ -457,6 +503,233 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
     return init_fn, train_step
 
 
+def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
+                     ccfg: ChannelConfig, mesh, dev: torch.device, W: int,
+                     opt, tel, sampling: bool, scn):
+    """The replicated mode as one rank of ``mesh`` (SPMD: every rank runs
+    the same calls, with the mesh's collectives where the JAX package's
+    ``shard_map`` bodies and XLA's partitioning put theirs).
+
+    The rank holds workers ``[jd·W_l, (jd+1)·W_l)`` (``jd`` its data
+    coordinate) and, on a model-parallel grid, its (fsdp, model) shard:
+    θ, Θ and the optimizer state as resident blocks, λ and h as its
+    ``(W_l, d_local)`` block of the global shard-packed ``(W, d_pad)``
+    planes.  A pure-data mesh keeps the global packed layout (a 1 x 1
+    grid's ``ShardPackSpec`` is ``PackSpec``'s).  ``init_fn`` builds the
+    layout from the full init it slices, so it runs before ``train_step``.
+    Each rank draws its own blocks of h and of the noise
+    (``draw_round(mesh_rank=...)``); the batch a rank's ``train_step`` takes
+    is its workers' rows (W_l, B, ...).  A round's metrics are global
+    values, the same on every rank.
+
+    Under a scenario the rank's ``PhyState`` holds every worker's row and
+    its shard's columns (``Scenario.init(shard=)``: the per-worker state,
+    the geometry and a frequency-flat fade, is every rank's; the
+    per-element planes are the shard's), so the mask is global and the
+    round reads the rank's rows."""
+    from repro_torch.launch.shardings import shard_dims_2d
+
+    fplan, gcfg = flcfg.faults, flcfg.guard
+    model_n = mesh.shape.get("model", 1)
+    fsdp_n = mesh.shape.get("fsdp", 1)
+    shard_local = model_n > 1 or fsdp_n > 1
+    mc = shard_coords(mesh)
+    if sampling:
+        if shard_local:
+            raise ValueError(
+                "FLConfig.population/cohort sampling is not supported on "
+                "the shard-local packed layout yet — run cohort sampling "
+                "on a single-device or pure-data mesh")
+        raise NotImplementedError(
+            "FLConfig.population/cohort sampling on a pure-data mesh is not "
+            "ported yet (ROADMAP queue A item 6e)")
+    if W % mc.n_data:
+        raise ValueError(f"{W} workers do not split over the {mc.n_data} "
+                         f"ranks of the data axes {mc.daxes}")
+    if (scn is not None and shard_local and scn.truncating
+            and not scn.cfg.freq_flat):
+        raise NotImplementedError(
+            f"FLConfig.scenario {flcfg.scenario!r} truncates on the RMS of "
+            f"a whole (W, d) row, which a shard grid splits; not ported yet "
+            f"(ROADMAP queue A item 6e)")
+    shard = mc.j if shard_local else None
+    W_l = W // mc.n_data
+    rows = slice(mc.jd * W_l, (mc.jd + 1) * W_l)     # the rank's workers
+    every = mesh.axis_names
+    layout: dict = {}
+
+    def spec_of(theta: PyTree):
+        if not shard_local:
+            n = len(tree_leaves(theta))
+            return build_shard_packspec(theta, (None,) * n, 1, batch_dims=1)
+        mdims, fdims = shard_dims_2d(theta, model.cfg, mesh,
+                                     multi_pod="pod" in mesh.axis_names)
+        return build_shard_packspec(theta, mdims, model_n, batch_dims=1,
+                                    fsdp_dims=fdims, n_fsdp=fsdp_n)
+
+    def init_fn(key: int) -> TreeFLState:
+        """Each rank inits its workers as one device inits them (worker w
+        from ``fold_in(kp, w)``) and keeps its shard of them, bit for bit
+        the one-device init's slice; Θ is the mean over all W workers; λ =
+        0 and h its block of one Rayleigh draw (:func:`block_key`)."""
+        kp, kc = rng.split(key)
+        full = tree_stack([model.init(rng.fold_in(kp, w), device=dev)
+                           for w in range(W)[rows]])
+        sspec = spec_of(full)
+        layout["sspec"] = sspec
+        layout["plan"] = (_gather.make_plan(full, sspec.shard_dims,
+                                            sspec.fsdp_dims, mesh)
+                          if shard_local else None)
+        if mc.n_data == 1:
+            Theta = tree_map(lambda l: l.float().mean(0).to(l.dtype), full)
+        else:
+            Theta = tree_map(lambda l: (mesh.psum(l.float().sum(0),
+                                                  mc.daxes) / W).to(l.dtype),
+                             full)
+        theta = tree_map(torch.clone, shard_tree(sspec, full, mc.j))
+        Theta = tree_map(torch.clone, shard_tree(sspec, Theta, mc.j))
+        del full
+        d_local = sspec.d_local
+        lam = cplx.czero((W_l, d_local), device=dev)
+        if scn is not None:
+            chan = (scn.init(kc, W, d_local, dev) if shard is None
+                    else scn.init(kc, W, d_local, dev, shard=shard))
+        else:
+            chan = init_channel_packed(rng.generator(
+                block_key(kc, mc.j, mc.jd), dev), W_l, d_local)
+        flt = None
+        if fplan is not None:
+            # alive is every rank's global (W,); the straggler snapshot is
+            # the rank's block, as λ
+            flt = _fplan.FaultState(
+                alive=torch.ones(W, dtype=torch.bool, device=dev),
+                stale=(torch.zeros((W_l, d_local), device=dev)
+                       if fplan.has_stragglers else None),
+                round=0, n_evicted=torch.zeros((), dtype=torch.int32,
+                                               device=dev))
+        return TreeFLState(theta=theta, lam=lam, Theta=Theta, chan=chan,
+                           opt=opt.init(theta), step=0, flt=flt)
+
+    def local_step(theta, opt_state, batch, lam_tree, h_tree, Theta):
+        leaves = tree_map(lambda l: l.detach().requires_grad_(), theta)
+        with _gather.gathering(layout["plan"]):
+            losses, lm = model.loss(_gather.gather_params(leaves), batch)
+            losses.sum().backward()
+        with torch.no_grad():
+            grads = tree_map(lambda l: l.grad, leaves)
+            pen = tree_penalty_grad(theta, lam_tree, h_tree, Theta, acfg.rho)
+            g = tree_map(lambda a, b: a + b.to(a.dtype), grads, pen)
+            del grads, pen, leaves
+            theta, opt_state = opt.update(g, opt_state, theta)
+        return theta, opt_state, losses.detach(), lm
+
+    def over_workers(v: Tensor) -> Tensor:
+        """The mean over all W workers of a (W_l,) per-worker value."""
+        if mc.n_data == 1:
+            return v.float().mean()
+        return mesh.psum(v.float().sum(), mc.daxes) / W
+
+    def rms_gap(theta_w: PyTree, Theta: PyTree, sspec) -> Tensor:
+        num = None
+        for i, (t, T) in enumerate(zip(tree_leaves(theta_w),
+                                       tree_leaves(Theta))):
+            Tf = T.float()
+            s = sum(torch.sum((row.float() - Tf) ** 2) for row in t)
+            s = s / float(shard_replication(sspec, i))
+            num = s if num is None else num + s
+        return torch.sqrt(mesh.psum(num, every) / float(W * sspec.spec.d))
+
+    def train_step(state: TreeFLState, batch: dict, key: Optional[int] = None,
+                   draws: Optional[TreeRoundDraws] = None
+                   ) -> Tuple[TreeFLState, dict]:
+        """One round of this rank.  batch leaves: (W_l, B, ...), the rows
+        of the rank's workers; the round's planes are ``draws`` (this
+        rank's blocks), else drawn from ``key``."""
+        sspec = layout.get("sspec")
+        if sspec is None:
+            raise ValueError("train_step under a mesh: call init_fn first "
+                             "(the shard-local layout is built from the "
+                             "init it slices)")
+        if draws is None:
+            if key is None:
+                raise ValueError("train_step needs a round key or the "
+                                 "round's draws")
+            draws = draw_round(key, state, ccfg, scenario=scn, faults=fplan,
+                               guard=gcfg,
+                               mesh_rank=(mc.j, mc.jd, shard_local))
+        mask = Theta_prev = faults_arg = h_tx_p = None
+        if scn is not None:
+            chan = scn.step(state.chan, draws.phy)   # every worker's rows
+
+            def mine(z):
+                return Complex(z.re[rows], z.im[rows])
+
+            h_air, h_pack = mine(chan.h), mine(_phys_h_tx(chan))
+            if scn.truncating:
+                mask, Theta_prev = chan.mask, state.Theta
+            if scn.imperfect_csi:
+                h_tx_p = h_pack
+        else:
+            chan, _ = step_channel_packed(state.chan, ccfg, draws.h_fresh)
+            h_air = h_pack = chan.h
+        draws = draws._replace(h_fresh=None, phy=None)
+        state = state._replace(chan=None)
+        lam_tree = unpack_cplx_shard_local(sspec, state.lam, mesh)
+        h_tree = unpack_cplx_shard_local(sspec, h_pack, mesh)
+        del h_pack
+        fmetrics = {}
+        flt_mid = state.flt
+        if fplan is not None:
+            if draws.faults is None:
+                raise ValueError("a round under a fault plan needs "
+                                 "draws.faults")
+            rf, flt_mid, fmetrics = _fplan.draw(fplan, state.flt,
+                                                draws.faults)
+            mask = rf.alive if mask is None else mask & rf.alive
+            faults_arg = (fplan, rf, state.flt.stale)
+        if fplan is not None or gcfg is not None:
+            Theta_prev = state.Theta
+        theta, opt_state = state.theta, state.opt
+        state = state._replace(theta=None, opt=None)
+        losses = lm = None
+        for _ in range(flcfg.local_steps):
+            theta, opt_state, losses, lm = local_step(
+                theta, opt_state, batch, lam_tree, h_tree, state.Theta)
+        del lam_tree, h_tree
+        with torch.no_grad():
+            Theta_f32, lam_new, m = ota_tree_round_shard_local(
+                theta, state.lam, h_air, draws.noise_re, acfg, ccfg, sspec,
+                mesh, mask=mask, h_tx_p=h_tx_p, Theta_prev=Theta_prev,
+                fused=flcfg.ota_fused, block_cols=flcfg.ota_block_cols,
+                guard=gcfg, guard_draws=draws.guard, faults=faults_arg,
+                telemetry=tel)
+            del draws, faults_arg, h_air, h_tx_p
+            flt_new = state.flt
+            if fplan is not None:
+                aux = m.pop("_fault_aux", {})
+                flt_new = _fplan.commit(flt_mid, aux.get("stale"),
+                                        aux.get("evicted"))
+            Theta_new = _zmap(lambda T, t: T.to(t.dtype), Theta_f32,
+                              state.Theta)
+            del Theta_f32
+            if tel is not None and "obs/theta_update_norm" not in m:
+                m["obs/theta_update_norm"] = shard_update_norm(
+                    sspec, Theta_new, state.Theta, mesh, mc.saxes)
+            terms = {k: over_workers(lm[k].detach()) for k in LOSS_TERMS
+                     if k in lm}
+            metrics = _obs.merge_disjoint(
+                {"loss": over_workers(losses),
+                 "theta_drift": rms_gap(theta, Theta_new, sspec), **terms},
+                m, fmetrics, who="make_replicated.train_step")
+        new_state = TreeFLState(theta=theta, lam=lam_new, Theta=Theta_new,
+                                chan=chan, opt=opt_state, step=state.step + 1,
+                                flt=flt_new)
+        return new_state, metrics
+
+    init_fn.layout = layout
+    return init_fn, train_step
+
+
 def _scatter_opt(full: OptState, new: OptState, idx: Tensor,
                  nu_kept: bool) -> OptState:
     """The population's optimizer state with the cohort's updated rows
@@ -541,8 +814,12 @@ def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
     sketch is decoded leaf by leaf and applied as
     ``Θ + sketch_lr · decoded`` in the parameter dtype.  On one device the
     reference's shard-local codec is this packed codec; a ``mesh`` is
-    refused (ROADMAP queue A item 6)."""
-    _refuse_mesh_and_backend(flcfg, mesh)
+    refused (ROADMAP queue A item 6b)."""
+    transport.check_backend_choice(flcfg.transport_backend)
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sketched mode under a mesh (its codec over the shard grid "
+            "and rs_grads) is not ported yet (ROADMAP queue A item 6b)")
     if flcfg.population is not None:
         raise ValueError(
             "FLConfig.population/cohort sampling is a replicated-mode "

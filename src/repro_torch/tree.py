@@ -49,6 +49,19 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     return out
 
 
+def tree_paths(tree, prefix: Tuple[str, ...] = ()
+               ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) of every leaf in flatten order: a dict key as itself, a
+    list item as ``#i`` (the names ``jax.tree_util``'s key paths give)."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_paths(tree[k], prefix + (str(k),))]
+    if isinstance(tree, list):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_paths(v, prefix + (f"#{i}",))]
+    return [(prefix, tree)]
+
+
 def tree_leaves(tree) -> List[Any]:
     return tree_flatten(tree)[0]
 

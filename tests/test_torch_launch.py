@@ -11,7 +11,8 @@ autotune smokes of ``tests/test_fused_round.py`` and
 ``tests/test_population.py`` (on the CPU one plan a worker chunk), the JSON
 cache (measured, then hit; a corrupt file counts as empty) and the
 launcher's ``autotune[...]`` lines.  One subprocess runs the module as a
-user would."""
+user would, and ``torch.distributed.run`` runs it as two ranks on an fsdp
+mesh."""
 import json
 import os
 import subprocess
@@ -99,12 +100,13 @@ def test_launcher_drivers_agree_bitwise(tmp_path):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--fsdp", "2"], NotImplementedError, "item 6"),
+    (["--fsdp", "2"], SystemExit, "must divide"),
+    (["--mode", "sketched", "--fsdp", "2"], SystemExit, "item 6b"),
     (["--mode", "sketched", "--population", "4", "--cohort", "2"],
      ValueError, "replicated-mode feature"),
     (["--backend", "jnp"], ValueError, "jnp"),
     (["--ota-block-cols", "512"], ValueError, "take"),
-], ids=["fsdp", "sketched", "jnp", "block-cols"])
+], ids=["fsdp", "sketched-fsdp", "sketched", "jnp", "block-cols"])
 def test_launcher_refuses_by_name(flags, exc, match):
     with pytest.raises(exc, match=match):
         main([*BASE, "--rounds", "1", *flags])
@@ -193,6 +195,32 @@ def test_autotune_cache_measures_once_and_survives_corruption(tmp_path,
     out = capsys.readouterr().out
     assert "autotune[measured]: block_cols=" in out
     assert "autotune[cache]: block_cols=" in out
+
+
+def test_launcher_fsdp_on_two_ranks(tmp_path):
+    """``torch.distributed.run`` with two gloo ranks on the CPU: ``--fsdp
+    2`` trains on the (1, 2, 1) (data, fsdp, model) mesh; only rank 0 logs
+    and writes, and the snapshot holds the global layout."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    run_dir, ck = tmp_path / "run", tmp_path / "ck"
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *BASE,
+         "--fsdp", "2", "--rounds", "2", "--log-every", "1",
+         "--run-dir", str(run_dir), "--checkpoint-dir", str(ck),
+         "--checkpoint-every", "2"], env=env, capture_output=True,
+        text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.count("done: 2 rounds") == 1, proc.stdout
+    assert proc.stdout.count("round    1") == 1, proc.stdout
+    man = json.loads((run_dir / "manifest.json").read_text())
+    assert man["mesh_shape"] == {"data": 1, "fsdp": 2, "model": 1}
+    assert len(read_events(str(run_dir))) >= 2
+    with np.load(round_path(str(ck), 2)) as zf:
+        lam = zf["lam|re"]
+        emb = zf["theta|embed|table"]
+    assert lam.shape[0] == 2 and emb.shape[0] == 2
 
 
 def test_launcher_runs_as_a_module():

@@ -313,11 +313,13 @@ def test_transport_backend_pallas_is_the_ports_route():
 
 
 def test_a_mesh_is_refused():
+    """The replicated mode runs on a mesh (``tests/test_torch_shard_local
+    .py``); the leafwise state is refused there by name."""
     model = reg.get_model("granite-8b", reduced=True)
     _, _, acfg, ccfg = _configs(10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fl_train(model, FLConfig(n_workers=W), acfg, ccfg,
-                      mesh=object(), device="cpu")
+        make_fl_train(model, FLConfig(n_workers=W, packed_uplink=False),
+                      acfg, ccfg, mesh=object(), device="cpu")
 
 
 def test_token_dataset_shape_dtype_and_skew():
