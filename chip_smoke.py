@@ -100,7 +100,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              from the same state and draws: the first round's loss within
              1e-3 of phase 16's, a lower peak; then one more round under
              torch.profiler; then both runs again with f32 parameters
-             (``llm_ssm_f32``, ``llm_ssm_chunked_f32``), every round's
+             (``llm_ssm_f32``, ``llm_ssm_chunked_f32``), round 1's loss
+             within 1e-4, and each round of the f32 run again under the
+             flag from its state (``llm_ssm_f32_rounds``), every round's
              loss within 1e-4.
 18. llm_hybrid — the same trainer on recurrentgemma-2b at its reduced
              widths (one super-block: rec, rec, windowed attention) in f32,
@@ -234,7 +236,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              for bit; then the shard-local round on the trainer's θ, λ and
              h against the one-rank packed round (B6, B3, B4 over the
              gathered (2, d_pad) planes): Θ, λ and α⁻¹ within 1e-6; B6, B3
-             and B4 once a round on each rank.
+             and B4 once a round on each rank.  Then the pure-data pin: the
+             same 1-layer trainer on (2, 1) (one worker a rank) against one
+             device, noise-free, 3 rounds of 2 local steps: every round's
+             loss and α⁻¹, Θ, the rank's θ and λ rows within rtol 1e-6, its
+             h rows bit-equal (each rank runs the one-device rounds in
+             turn, then the mesh's).
 40. llm_mesh — phase 15's trainer (granite-8b, 2 of 36 layers, W = 2,
              4,096 tokens a worker, 3 rounds) on the (1, 2) grid (each rank
              half of every leaf, the forward gathering a layer at a time)
@@ -242,9 +249,27 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              and Θ finite, each rank's peak ≤ 40 GB; s/round, tokens/s,
              each rank's peak, the gathers' and collectives' ms a round,
              the backend and any staged collective.
+41. llm_mesh_sketched_check — between phases 39 and 40, in the same
+             ranks: the sketched mode on (1, 2) (Θ each rank's model shard,
+             the (2, d_s) sketches whole on each), granite-8b cut to 1
+             layer, one local step, noise-free, against the parent's
+             one-device round: round 1's loss bit-equal, the consensus
+             sketch Θ_s within atol 1e-6, each rank's decoded Θ shard
+             within rtol 1e-5 of one device's slice.
+42. llm_mesh_sketched — after phase 40: the sketched mode on (1, 2),
+             granite-8b cut to 2 of 36 layers, W = 2, 1 × 4,096 tokens, 2
+             sgd steps at 5e-4, ratio 256, 3 rounds: λ and h (2, d_s), the
+             loss and Θ finite, each rank's peak ≤ 40 GB; s/round,
+             tokens/s, the gathers', psums' and codec's ms a round.
+43. llm_mesh_cohort_check — last: reduced granite-8b in f32 on (2, 1), a
+             population of 4 sampling 2 by top-gain, 3 rounds against the
+             parent's one-device run: the losses within rtol 1e-6, Θ and
+             the rank's θ and λ rows within 1e-6 of each tensor's largest
+             magnitude.
 
-Launch counts are reset just before each of phases 4–12, 14–40 and read
-just after (in each rank for phases 39 and 40, summed over the ranks).  Then come the kernel table as one JSON line, the nvidia-smi line,
+Launch counts are reset just before each of phases 4–12, 14–43 and read
+just after (in each rank for phases 39–43, summed over the ranks).  Then
+come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
 a result.
@@ -899,17 +924,31 @@ def _llm_round_shapes():
 
 
 def _mesh_round_shapes():
-    """Each mesh rank's (W_local, d_local) block in ``llm_mesh_check`` (1
-    layer on the first grid) and ``llm_mesh`` (2 layers on each grid):
-    granite-8b's replicated segment (its norms) splits evenly, so d_local
-    is D over the model axis with no padding (the phases gate that)."""
+    """Each mesh rank's (W_local, d_local) block of the round: in
+    ``llm_mesh_check`` (1 layer on the first grid) and ``llm_mesh`` (2
+    layers on each grid), then the pure-data pin's (1 layer on (2, 1)),
+    the sketched phases' (W, d_s) sketches (1 and 2 layers) and the cohort
+    check's (reduced granite-8b on (2, 1)).  granite-8b's replicated
+    segment (its norms) splits evenly, so d_local is D over the model axis
+    with no padding (the phases gate that)."""
+    import dataclasses
+
+    from repro_torch.models import get_config
     from repro_torch.models.registry import packed_param_count
+    from repro_torch.train.llm_trainer import _sketch_dim
 
     d1 = packed_param_count(_llm_cfg(LLM_ARCH, ROBUST_LAYERS))
     d2 = packed_param_count(_llm_cfg(LLM_ARCH, LLM_LAYERS))
     (data, model), = MESH_SHAPES[:1]
+    pin_data = MESH_PIN_SHAPE[0]
+    d_red = packed_param_count(dataclasses.replace(
+        get_config(LLM_ARCH).reduced(), param_dtype="float32"))
     return [(LLM_WORKERS // data, d1 // model)] + [
-        (LLM_WORKERS // data, d2 // model) for data, model in MESH_SHAPES]
+        (LLM_WORKERS // data, d2 // model) for data, model in MESH_SHAPES] + [
+        (LLM_WORKERS // pin_data, d1)] + [
+        (LLM_WORKERS, _sketch_dim(d, SKETCH_RATIO)) for d in (
+            d1, packed_param_count(_llm_cfg(LLM_ARCH, MESH_SKETCH_LAYERS)))
+    ] + [(MESH_COHORT["cohort"] // pin_data, d_red)]
 
 
 def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
@@ -2031,9 +2070,16 @@ SSM_CHUNKED_LAUNCHES = dict(
 #: for most of them, and which of them move by an ulp turns on those bits,
 #: so the two bf16 runs fork after their first round (relative 1.2e-4,
 #: 5.0e-4, 8.3e-3 in rounds 1-3 on an H100).  The gate holds the bf16
-#: pair's first round, and every round of an f32 pair (the same runs with
-#: f32 parameters, where the steps are far above the rounding: 0, 2.2e-6,
-#: 1.4e-5) to a tighter bound
+#: pair's first round, and the f32 pair's (the same runs with f32
+#: parameters, where the steps are far above the rounding) to a tighter
+#: bound, with every later f32 round held from one shared state
+#: (:func:`phase_llm_ssm_f32_rounds`).  Along their own trajectories the
+#: f32 runs fork too, by how much turns on the draw of h: Θ divides the
+#: noise by Σ|h|², which the smallest pilots of a (2, D) draw make huge,
+#: so a 1-ulp gap in round 1 grows by 6–90× a round.  On an H100 round 3
+#: read 1.4e-5 with the trainer's earlier whole-plane draw of h and 3.3e-4
+#: with its per-row one; across three keys of each rule, 1.2e-5 – 3.3e-4
+#: (``tools/sweep_ssm_pair.py``, NVIDIA H100 80GB HBM3, 700 W)
 SSM_CHUNKED_LOSS_RTOL = 1e-3
 SSM_CHUNKED_BF16_ROUNDS = 1
 SSM_CHUNKED_F32_LOSS_RTOL = 1e-4
@@ -2274,8 +2320,9 @@ def phase_llm_ssm_chunked(torch, reference: dict):
     same state and draws, held to ``llm_ssm``'s (``reference``) first-round
     loss and peak, then one more round under torch.profiler; then the f32
     pair (``llm_ssm_f32``, ``llm_ssm_chunked_f32``: both runs with f32
-    parameters), every round's loss held (``SSM_CHUNKED_F32_LOSS_RTOL``).
-    Returns each run's launches by phase."""
+    parameters), round 1's loss held (``SSM_CHUNKED_F32_LOSS_RTOL``), the
+    later rounds' recorded, and every round held from a shared state
+    (``llm_ssm_f32_rounds``).  Returns each run's launches by phase."""
     paths = {}
     with _chunked_scan():
         paths["llm_ssm_chunked"], one_round, round_s, _ = phase_llm(
@@ -2293,9 +2340,72 @@ def phase_llm_ssm_chunked(torch, reference: dict):
         paths["llm_ssm_chunked_f32"], _, _, _ = phase_llm(
             torch, "llm_ssm_chunked_f32", SSM_ARCH, SSM_LAYERS, SSM_SEQ,
             SSM_LR, SSM_CHUNKED_LAUNCHES, reference=f32,
+            loss_rounds=SSM_CHUNKED_BF16_ROUNDS,
             loss_rtol=SSM_CHUNKED_F32_LOSS_RTOL, dtype="float32")
     _free(torch)
+    paths["llm_ssm_f32_rounds"] = phase_llm_ssm_f32_rounds(torch)
+    _free(torch)
     return paths
+
+
+def phase_llm_ssm_f32_rounds(torch):
+    """The f32 pair held round by round: each round of the unchunked f32
+    run (``llm_ssm_f32``'s trainer, state and keys) is also run under
+    ``REPRO_OPT=chunked_scan`` from the same state and key, and its loss
+    is held to the unchunked round's within ``SSM_CHUNKED_F32_LOSS_RTOL``:
+    the chunked scan's rounds, free of the fork the two runs' own
+    trajectories take.  Launches: one round of each a round."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+
+    cfg = dataclasses.replace(_llm_cfg(SSM_ARCH, SSM_LAYERS),
+                              param_dtype="float32")
+    W = LLM_WORKERS
+    init_fn, step = make_fl_train(
+        build_model(cfg), FLConfig(mode="replicated", n_workers=W,
+                                   local_steps=2, local_lr=SSM_LR,
+                                   local_optimizer="sgd"),
+        AdmmConfig(rho=0.5, flip_on_change=False),
+        ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=10))
+    state = init_fn(SEED)
+    batch = {"tokens": token_dataset(SEED + 1, 1, SSM_SEQ, cfg.vocab_size,
+                                     n_workers=W)}
+    build.reset_launches()
+    plain, chunked = [], []
+    for r in range(LLM_ROUNDS):
+        key = rng.fold_in(SEED, r + 1)
+        with _chunked_scan():
+            _, m = step(state, batch, key=key)
+        chunked.append(float(m["loss"]))
+        del m
+        _free(torch)
+        held = [state]
+        state = None
+        state, m = step(held.pop(), batch, key=key)
+        plain.append(float(m["loss"]))
+        del m
+    launches = dict(build.launches)
+    del state
+    rel = [abs(a - b) / abs(b) for a, b in zip(chunked, plain)]
+    _per_round(launches, LLM_ROUNDS, {
+        k: SSM_LAUNCHES.get(k, 0) + SSM_CHUNKED_LAUNCHES.get(k, 0)
+        for k in SSM_CHUNKED_LAUNCHES})
+    require(max(rel) <= SSM_CHUNKED_F32_LOSS_RTOL, f"llm_ssm_f32_rounds: "
+            f"chunked losses {chunked} against {plain} from the same "
+            f"states: relative {rel} > {SSM_CHUNKED_F32_LOSS_RTOL}")
+    emit({"phase": "llm_ssm_f32_rounds", "ok": True, "arch": cfg.name,
+          "reduced": {"n_layers": f"64 -> {SSM_LAYERS}"}, "dtype": "float32",
+          "rounds": LLM_ROUNDS, "loss": plain, "chunked_loss": chunked,
+          "loss_rel_diff": rel, "loss_rtol": SSM_CHUNKED_F32_LOSS_RTOL,
+          "launches": launches})
+    return launches
 
 
 #: phase ``llm_hybrid``: recurrentgemma-2b reduced, in f32 so the card can
@@ -4545,12 +4655,439 @@ def _mesh_run_rank(torch, mesh) -> dict:
     return out
 
 
+#: ``llm_mesh_check``'s pure-data pin: the (2, 1) grid (one worker a rank)
+#: against one device, granite-8b cut to 1 layer, noise-free, 3 rounds of
+#: 2 local steps (the second step reads h through the penalty, so the pin
+#: holds the ranks to one device's draws of h); every round's loss, Θ, λ
+#: and α⁻¹ within rtol 1e-6, h's rows bit for bit
+MESH_PIN_SHAPE = (2, 1)
+MESH_PIN_ROUNDS, MESH_PIN_STEPS = 3, 2
+MESH_PIN_RTOL = 1e-6
+
+
+def _mesh_pin_rank(torch, mesh) -> dict:
+    """The pure-data pin on one rank.  Each rank in turn (the others wait)
+    runs the one-device trainer and keeps its workers' rows of the final
+    state, the losses and α⁻¹; then the ranks run the same rounds on
+    ``mesh`` and the rank holds its rows, and Θ whole, to them."""
+    from repro_torch import rng
+    from repro_torch.core.tree_ota import shard_coords
+    from repro_torch.kernels import build
+    from repro_torch.tree import tree_leaves
+
+    cfg = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
+    rank = torch.distributed.get_rank()
+    jd, n_data = mesh.axis_index("data"), mesh.shape["data"]
+    W_l = LLM_WORKERS // n_data
+    rows = slice(jd * W_l, (jd + 1) * W_l)
+    ref: dict = {}
+    for turn in range(MESH_RANKS):
+        torch.distributed.barrier()
+        if rank != turn:
+            continue
+        init1, step1, _, _ = _mesh_trainer(torch, cfg, None, noisy=False,
+                                           local_steps=MESH_PIN_STEPS)
+        st = init1(SEED)
+        batch = _mesh_batch(torch, cfg)
+        losses, ias = [], []
+        for r in range(MESH_PIN_ROUNDS):
+            st, m = step1(st, batch, key=rng.fold_in(SEED, r + 1))
+            losses.append(float(m["loss"]))
+            ias.append(float(m["inv_alpha"]))
+        ref = {"losses": losses, "inv_alpha": ias, "Theta": st.Theta,
+               "theta": [x[rows].clone() for x in tree_leaves(st.theta)],
+               "lam": [st.lam.re[rows].clone(), st.lam.im[rows].clone()],
+               "h": [st.chan.h.re[rows].clone(), st.chan.h.im[rows].clone()]}
+        del st, step1, init1, m
+        _free(torch)
+    torch.distributed.barrier()
+    init_fn, step, _, _ = _mesh_trainer(torch, cfg, mesh, noisy=False,
+                                        local_steps=MESH_PIN_STEPS)
+    state = init_fn(SEED)
+    c = shard_coords(mesh, init_fn.layout["sspec"])
+    batch = _mesh_batch(torch, cfg, rows)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    losses, ias, times = [], [], []
+    for r in range(MESH_PIN_ROUNDS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, key=rng.fold_in(SEED, r + 1))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        ias.append(float(m["inv_alpha"]))
+    mesh.timing = False
+    launches = dict(build.launches)
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    errs = {"Theta": _max_err(tree_leaves(state.Theta),
+                              tree_leaves(ref["Theta"]), MESH_PIN_RTOL, 0.0),
+            "theta": _max_err(tree_leaves(state.theta), ref["theta"],
+                              MESH_PIN_RTOL, 0.0),
+            "lam": _max_err([state.lam.re, state.lam.im], ref["lam"],
+                            MESH_PIN_RTOL, 0.0)}
+    bits = {"loss": losses == ref["losses"],
+            "inv_alpha": ias == ref["inv_alpha"],
+            "Theta": all(bool(torch.equal(a, b)) for a, b in zip(
+                tree_leaves(state.Theta), tree_leaves(ref["Theta"]))),
+            "theta": all(bool(torch.equal(a, b)) for a, b in zip(
+                tree_leaves(state.theta), ref["theta"])),
+            "lam": all(bool(torch.equal(a, b)) for a, b in zip(
+                [state.lam.re, state.lam.im], ref["lam"])),
+            "h": all(bool(torch.equal(a, b)) for a, b in zip(
+                [state.chan.h.re, state.chan.h.im], ref["h"]))}
+    out = {"losses": losses, "losses_one_device": ref["losses"],
+           "inv_alpha": ias, "inv_alpha_one_device": ref["inv_alpha"],
+           "loss_rel_err": rel(losses, ref["losses"]),
+           "inv_alpha_rel_err": rel(ias, ref["inv_alpha"]),
+           **{f"{k}_max_abs": v[0] for k, v in errs.items()},
+           **{f"{k}_over_rtol": v[1] for k, v in errs.items()},
+           "bits_equal": bits, "round_s": times,
+           "peak": torch.cuda.max_memory_allocated(),
+           "W_local": W_l, "d_local": init_fn.layout["sspec"].d_local,
+           "jd": c.jd, "launches": launches,
+           "collectives": _mesh_stats(mesh, MESH_PIN_ROUNDS)}
+    del state, step, init_fn, ref
+    _free(torch)
+    return out
+
+
+#: ``llm_mesh_sketched_check`` and ``llm_mesh_sketched``: the sketched mode
+#: on the (1, 2) grid (Θ the rank's model shard, the (W, d_s) sketches
+#: whole on each rank); granite-8b at full width, W = 2, 1 × 4,096 tokens
+#: a worker, sgd at ``LLM_LR``, ratio 256.  The check: 1 layer, one local
+#: step, noise-free, against one device; the run: 2 layers, 2 steps, 3
+#: rounds (each worker's local steps gather every layer, twice with the
+#: checkpoint's recompute)
+MESH_SKETCH_SHAPE = (1, 2)
+MESH_SKETCH_LAYERS, MESH_SKETCH_ROUNDS = 2, 3
+#: Θ_s against one device's: the encode's scatter-add sums each bucket in
+#: another order (float atomics, and the grid's psum of its partial
+#: sketches), the chunked encode's tolerance; the decoded Θ shard against
+#: the one-device Θ's slice to rtol 1e-5
+MESH_SKETCH_THETA_S_ATOL = 1e-6
+MESH_SKETCH_THETA_RTOL = 1e-5
+
+
+def _mesh_sketched_trainer(torch, cfg, mesh, noisy: bool,
+                           local_steps: int):
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import build_model
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+
+    return make_fl_train(
+        build_model(cfg), FLConfig(
+            mode="sketched", n_workers=LLM_WORKERS, local_steps=local_steps,
+            local_lr=LLM_LR, sketch_ratio=SKETCH_RATIO, sketch_lr=SKETCH_LR),
+        AdmmConfig(rho=0.5, flip_on_change=False),
+        ChannelConfig(n_workers=LLM_WORKERS, snr_db=40.0, coherence_iters=10,
+                      noisy=noisy), mesh=mesh)
+
+
+@contextlib.contextmanager
+def _consensus_sketch(out: list):
+    """Keep each sketched round's consensus sketch Θ_s (the packed round's
+    Θ over the (W, d_s) sketches) in ``out``."""
+    from repro_torch.train import llm_trainer
+
+    inner = llm_trainer.ota_tree_round_packed_state
+
+    def keep(*args, **kwargs):
+        res = inner(*args, **kwargs)
+        out.append(res[0].detach().clone())
+        return res
+    llm_trainer.ota_tree_round_packed_state = keep
+    try:
+        yield out
+    finally:
+        llm_trainer.ota_tree_round_packed_state = inner
+
+
+def _mesh_sketched_reference(torch) -> dict:
+    """The one-device round of ``llm_mesh_sketched_check``: its loss and
+    consensus sketch Θ_s (on the host)."""
+    from repro_torch import rng
+
+    cfg = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
+    init_fn, step = _mesh_sketched_trainer(torch, cfg, None, noisy=False,
+                                           local_steps=1)
+    sketches: list = []
+    with _consensus_sketch(sketches):
+        _, m = step(init_fn(SEED), _mesh_batch(torch, cfg),
+                    key=rng.fold_in(SEED, 1))
+    return {"loss": float(m["loss"]), "Theta_s": sketches[0].cpu().numpy()}
+
+
+def _mesh_sketched_check_rank(torch, mesh, ref: dict) -> dict:
+    """``llm_mesh_sketched_check`` on one rank: one round on ``mesh``; the
+    loss, Θ_s and the rank's decoded Θ shard against the one-device round
+    (``ref``; its Θ is the one-device decode of its Θ_s over the full
+    init)."""
+    from repro_torch import rng
+    from repro_torch.core.packing import shard_tree
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.train.llm_trainer import _apply_packed
+    from repro_torch.tree import tree_leaves
+
+    cfg = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
+    init_fn, step = _mesh_sketched_trainer(torch, cfg, mesh, noisy=False,
+                                           local_steps=1)
+    state = init_fn(SEED)
+    lay = init_fn.layout
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    sketches: list = []
+    t0 = time.perf_counter()
+    with _consensus_sketch(sketches):
+        state, m = step(state, _mesh_batch(torch, cfg),
+                        key=rng.fold_in(SEED, 1))
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    mesh.timing = False
+    launches = dict(build.launches)
+    dev = torch.device("cuda")
+    ref_s = torch.from_numpy(ref["Theta_s"]).to(dev)
+    s_err = _max_err([sketches[0]], [ref_s], 0.0, MESH_SKETCH_THETA_S_ATOL)
+    # one device's Θ after the round: its decode of its Θ_s over the init
+    full = build_model(cfg).init(rng.split(SEED)[0], device=dev)
+    one, _ = _apply_packed(full, ref_s, SKETCH_LR, False)
+    del full
+    mine = shard_tree(lay["sspec"], one, lay["j"])
+    t_err = _max_err(tree_leaves(state.Theta), tree_leaves(mine),
+                     MESH_SKETCH_THETA_RTOL, 0.0)
+    out = {"loss": float(m["loss"]), "loss_one_device": ref["loss"],
+           "Theta_s_max_abs": s_err[0], "Theta_s_over_atol": s_err[1],
+           "Theta_s_bits_equal": bool(torch.equal(sketches[0], ref_s)),
+           "Theta_max_abs": t_err[0], "Theta_over_rtol": t_err[1],
+           "Theta_bits_equal": all(bool(torch.equal(a, b)) for a, b in zip(
+               tree_leaves(state.Theta), tree_leaves(mine))),
+           "lam_shape": list(state.lam.re.shape), "round_s": round_s,
+           "peak": torch.cuda.max_memory_allocated(),
+           "d_local": lay["sspec"].d_local, "j": lay["j"],
+           "launches": launches, "collectives": _mesh_stats(mesh, 1)}
+    del state, step, init_fn, one, mine, sketches
+    _free(torch)
+    return out
+
+
+def _timed_methods(torch, cls, names, acc: dict):
+    """Wrap ``cls``'s methods ``names`` so each call's wall ms (the card
+    synchronised around it) adds into ``acc[name]``; returns the undo."""
+    saved = {n: getattr(cls, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            acc[name] = acc.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+            return res
+        return timed
+    for n, fn in saved.items():
+        setattr(cls, n, wrap(n, fn))
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+    return undo
+
+
+def _mesh_sketched_rank(torch, mesh) -> dict:
+    """``llm_mesh_sketched`` on one rank: granite-8b at full width cut to
+    ``MESH_SKETCH_LAYERS``, 3 rounds, the collectives and the codec (the
+    rank's encodes, the grid's psum, its decode) timed."""
+    from repro_torch import rng
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import packed_param_count
+    from repro_torch.train import llm_trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = _llm_cfg(LLM_ARCH, MESH_SKETCH_LAYERS)
+    t0 = time.perf_counter()
+    init_fn, step = _mesh_sketched_trainer(torch, cfg, mesh, noisy=True,
+                                           local_steps=2)
+    state = init_fn(SEED)
+    batch = _mesh_batch(torch, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    d_s = llm_trainer._sketch_dim(packed_param_count(cfg), SKETCH_RATIO)
+    shapes_ok = (tuple(state.lam.re.shape) == (LLM_WORKERS, d_s)
+                 and tuple(state.chan.h.re.shape) == (LLM_WORKERS, d_s))
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    codec: dict = {}
+    undo = _timed_methods(torch, llm_trainer._SketchGrid,
+                          ("encode", "join", "apply_delta"), codec)
+    losses, times, finite = [], [], True
+    try:
+        for r in range(MESH_SKETCH_ROUNDS):
+            held = [state]
+            state = None
+            t0 = time.perf_counter()
+            state, m = step(held.pop(), batch, key=rng.fold_in(SEED, r + 1))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            finite &= math.isfinite(losses[-1]) and all(
+                bool(torch.isfinite(leaf).all())
+                for leaf in tree_leaves(state.Theta))
+            del m
+    finally:
+        undo()
+        mesh.timing = False
+    out = {"losses": losses, "round_s": times, "setup_s": setup_s,
+           "finite": finite, "shapes_ok": shapes_ok, "d_s": d_s,
+           "peak": torch.cuda.max_memory_allocated(),
+           "launches": dict(build.launches),
+           "collectives": _mesh_stats(mesh, MESH_SKETCH_ROUNDS),
+           "codec_ms_per_round": {k: v / MESH_SKETCH_ROUNDS
+                                  for k, v in codec.items()},
+           "d_local": init_fn.layout["sspec"].d_local,
+           "D": packed_param_count(cfg)}
+    del state, step, init_fn
+    _free(torch)
+    return out
+
+
+#: ``llm_mesh_cohort_check``: cohort sampling on the (2, 1) grid (a
+#: population of 4, 2 rows a rank; 2 sampled a round by top-gain, one a
+#: rank) against one device: reduced granite-8b in f32 (at full width two
+#: ranks' populations would not fit beside each other: ``llm_cohort``
+#: alone peaks near 70 GB), 2 local sgd steps at 1e-2, noise-free, 3
+#: rounds.  The losses within rtol 1e-6; Θ, θ and λ within 1e-6 of each
+#: tensor's largest magnitude: at these widths cuBLAS takes another f32
+#: GEMM for a rank's one worker than for one device's two (on an H100 the
+#: check reads 1-ulp differences, 1.2e-7 of Θ's largest value, where the
+#: CPU's runs are bit-equal), and an element near zero has no relative
+#: error to hold
+MESH_COHORT = dict(population=4, cohort=2, cohort_policy="top-gain")
+MESH_COHORT_ROUNDS, MESH_COHORT_RTOL = 3, 1e-6
+
+
+def _scaled_err(outs, refs, rtol: float):
+    """(max |a − b|, max |a − b| / (rtol · max |b|)) over pairs of
+    tensors, each held to its reference's largest magnitude."""
+    worst_abs, worst = 0.0, 0.0
+    for a, b in zip(outs, refs):
+        scale = float(b.abs().max())
+        m_abs, ratio = _max_err([a], [b], 0.0, rtol * scale)
+        worst_abs, worst = max(worst_abs, m_abs), max(worst, ratio)
+    return worst_abs, worst
+
+
+def _mesh_cohort_trainer(torch, mesh):
+    import dataclasses
+
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import build_model, get_config
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+
+    cfg = dataclasses.replace(get_config(LLM_ARCH).reduced(),
+                              param_dtype="float32")
+    init_fn, step = make_fl_train(
+        build_model(cfg), FLConfig(n_workers=MESH_COHORT["cohort"],
+                                   local_steps=2, local_lr=1e-2,
+                                   **MESH_COHORT),
+        AdmmConfig(rho=0.5, flip_on_change=False),
+        ChannelConfig(n_workers=MESH_COHORT["population"], snr_db=40.0,
+                      coherence_iters=10, noisy=False), mesh=mesh)
+    return cfg, init_fn, step
+
+
+def _mesh_cohort_tokens(torch, cfg):
+    from repro_torch.data.synthetic import token_dataset
+
+    return token_dataset(SEED + 3, SKETCH_CHECK_B, SKETCH_CHECK_S,
+                         cfg.vocab_size, n_workers=MESH_COHORT["cohort"])
+
+
+def _mesh_cohort_reference(torch) -> dict:
+    """The one-device cohort run of ``llm_mesh_cohort_check``: its losses
+    and final Θ, θ and λ (on the host)."""
+    from repro_torch import rng
+    from repro_torch.tree import tree_leaves
+
+    cfg, init_fn, step = _mesh_cohort_trainer(torch, None)
+    st = init_fn(SEED)
+    batch = {"tokens": _mesh_cohort_tokens(torch, cfg)}
+    losses = []
+    for r in range(MESH_COHORT_ROUNDS):
+        st, m = step(st, batch, key=rng.fold_in(SEED, r + 1))
+        losses.append(float(m["loss"]))
+    host = lambda xs: [x.cpu().numpy() for x in xs]  # noqa: E731
+    return {"losses": losses, "Theta": host(tree_leaves(st.Theta)),
+            "theta": host(tree_leaves(st.theta)),
+            "lam": host([st.lam.re, st.lam.im])}
+
+
+def _mesh_cohort_rank(torch, mesh, ref: dict) -> dict:
+    """``llm_mesh_cohort_check`` on one rank: the rounds on ``mesh``, its
+    population rows of θ and λ and Θ against the one-device run's
+    (:func:`_scaled_err`), and whether they are bit-equal."""
+    from repro_torch import rng
+    from repro_torch.kernels import build
+    from repro_torch.tree import tree_leaves
+
+    cfg, init_fn, step = _mesh_cohort_trainer(torch, mesh)
+    state = init_fn(SEED)
+    jd, n_data = mesh.axis_index("data"), mesh.shape["data"]
+    n_l = MESH_COHORT["population"] // n_data
+    c_l = MESH_COHORT["cohort"] // n_data
+    rows = slice(jd * n_l, (jd + 1) * n_l)
+    batch = {"tokens": _mesh_cohort_tokens(torch, cfg)[
+        jd * c_l:(jd + 1) * c_l]}
+    build.reset_launches()
+    losses = []
+    for r in range(MESH_COHORT_ROUNDS):
+        state, m = step(state, batch, key=rng.fold_in(SEED, r + 1))
+        losses.append(float(m["loss"]))
+    launches = dict(build.launches)
+    dev = torch.device("cuda")
+    on = lambda xs: [torch.from_numpy(x).to(dev) for x in xs]  # noqa: E731
+    got = {"Theta": tree_leaves(state.Theta),
+           "theta": tree_leaves(state.theta),
+           "lam": [state.lam.re, state.lam.im]}
+    want = {"Theta": on(ref["Theta"]),
+            "theta": [x[rows] for x in on(ref["theta"])],
+            "lam": [x[rows] for x in on(ref["lam"])]}
+    errs = {k: _scaled_err(got[k], want[k], MESH_COHORT_RTOL) for k in got}
+    bits = {k: all(bool(torch.equal(a, b)) for a, b in zip(got[k], want[k]))
+            for k in got}
+    out = {"losses": losses, "losses_one_device": ref["losses"],
+           "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                               zip(losses, ref["losses"])),
+           "losses_bits_equal": losses == ref["losses"],
+           **{f"{k}_max_abs": v[0] for k, v in errs.items()},
+           **{f"{k}_over_rtol_of_max": v[1] for k, v in errs.items()},
+           "bits_equal": bits, "launches": launches, "population_rows": n_l,
+           "cohort_slots": c_l}
+    del state, step, init_fn
+    _free(torch)
+    return out
+
+
 def _mesh_rank_main(rank: int, store: str, out_dir: str,
-                    loss_ref: float) -> None:
+                    refs: dict) -> None:
     """One rank of the mesh phases, spawned by :func:`phase_llm_mesh`: it
-    joins the gloo group through ``store``, runs ``llm_mesh_check`` and
-    ``llm_mesh`` on both grids, and writes its results (or its traceback)
-    to ``out_dir``."""
+    joins the gloo group through ``store``, runs ``llm_mesh_check`` (with
+    its pure-data pin), ``llm_mesh_sketched_check``, ``llm_mesh`` on both
+    grids, ``llm_mesh_sketched`` and ``llm_mesh_cohort_check`` against the
+    parent's one-device ``refs``, and writes its results (or its
+    traceback) to ``out_dir`` after each."""
     import datetime
     import traceback
 
@@ -4573,15 +5110,25 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
             "cuda", init_method=store, rank=rank, world_size=MESH_RANKS,
             timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
         axes = ("data", "model")
-        res["check"] = _mesh_check_rank(
-            torch, make_mesh(MESH_SHAPES[0], axes, "cuda"), loss_ref)
+
+        def on(shape):
+            return make_mesh(shape, axes, "cuda")
+        res["check"] = _mesh_check_rank(torch, on(MESH_SHAPES[0]),
+                                        refs["loss"])
         _free(torch)
+        res["pin"] = _mesh_pin_rank(torch, on(MESH_PIN_SHAPE))
+        dump()
+        res["sketched_check"] = _mesh_sketched_check_rank(
+            torch, on(MESH_SKETCH_SHAPE), refs["sketched"])
         dump()
         res["runs"] = {}
         for shape in MESH_SHAPES:
-            res["runs"][str(shape)] = _mesh_run_rank(
-                torch, make_mesh(shape, axes, "cuda"))
+            res["runs"][str(shape)] = _mesh_run_rank(torch, on(shape))
             dump()
+        res["sketched"] = _mesh_sketched_rank(torch, on(MESH_SKETCH_SHAPE))
+        dump()
+        res["cohort"] = _mesh_cohort_rank(torch, on(MESH_PIN_SHAPE),
+                                          refs["cohort"])
         torch.distributed.destroy_process_group()
     except Exception:
         res["error"] = traceback.format_exc()
@@ -4591,7 +5138,7 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
     dump()
 
 
-def _spawn_mesh_ranks(loss_ref: float):
+def _spawn_mesh_ranks(refs: dict):
     """Run :func:`_mesh_rank_main` in ``MESH_RANKS`` spawned processes
     that meet through a file store in a temporary directory; wait for them
     (killing any still alive after ``MESH_TIMEOUT``) and return (each
@@ -4603,7 +5150,7 @@ def _spawn_mesh_ranks(loss_ref: float):
         store = "file://" + os.path.join(out_dir, "store")
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=_mesh_rank_main,
-                             args=(r, store, out_dir, loss_ref))
+                             args=(r, store, out_dir, refs))
                  for r in range(MESH_RANKS)]
         t0 = time.perf_counter()
         for p in procs:
@@ -4626,26 +5173,45 @@ def _spawn_mesh_ranks(loss_ref: float):
     return res, codes, wall_s
 
 
+def _summed(launch_lists) -> dict:
+    out: dict = {}
+    for ln in launch_lists:
+        for k, v in ln.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _rank_failures(res, part: str) -> str:
+    return "\n".join(f"rank {r['rank']} ({r['memory_gb']}) without "
+                     f"{part!r}:\n{r['error']}" for r in res
+                     if "error" in r and part not in r)
+
+
 def phase_llm_mesh(torch):
-    """Phases ``llm_mesh_check`` and ``llm_mesh``: the replicated mode on a
-    (data, model) grid of two ranks spawned on the one card, gloo between
-    them (``launch.mesh``).  The kernels are built already (phase
-    ``build``), so the ranks load them and do not race on the build
-    directory.  The parent first runs the one-device trainer round the
-    check holds the mesh's loss to, then waits for its ranks (killing them
-    after ``MESH_TIMEOUT``), and gates their results.  Returns the launches
-    of each phase, summed over the ranks."""
-    loss_ref = _mesh_check_reference(torch)
+    """Phases ``llm_mesh_check``, ``llm_mesh_sketched_check``,
+    ``llm_mesh``, ``llm_mesh_sketched`` and ``llm_mesh_cohort_check``: the
+    replicated and the sketched mode on (data, model) grids of two ranks
+    spawned on the one card, gloo between them (``launch.mesh``).  The
+    kernels are built already (phase ``build``), so the ranks load them and
+    do not race on the build directory.  The parent first runs the
+    one-device rounds the checks hold the ranks to (each rank runs the
+    full-width pure-data pin's itself), frees them, then waits for its
+    ranks (killing them after ``MESH_TIMEOUT``), and gates their results.
+    Returns each phase's launches, summed over the ranks."""
+    refs = {"loss": _mesh_check_reference(torch)}
+    _free(torch)
+    refs["sketched"] = _mesh_sketched_reference(torch)
+    _free(torch)
+    refs["cohort"] = _mesh_cohort_reference(torch)
     # the ranks share the card with this process: it holds no tensor now
     _free(torch)
-    res, exit_codes, wall_s = _spawn_mesh_ranks(loss_ref)
-    failed = [r for r in res if "error" in r]
-    require("check" in res[0] and "check" in res[1] or not failed,
-            f"llm_mesh_check: a rank failed:\n"
-            + "\n".join(f"rank {r['rank']} ({r['memory_gb']}):\n{r['error']}"
-                        for r in failed))
+    loss_ref = refs["loss"]
+    res, exit_codes, wall_s = _spawn_mesh_ranks(refs)
+    for part in ("check", "pin"):
+        require(all(part in r for r in res), f"llm_mesh_check: a rank "
+                f"failed:\n" + _rank_failures(res, part))
 
-    # llm_mesh_check
+    # llm_mesh_check: the (1, 2) round, then the (2, 1) pin
     chk = [r["check"] for r in res]
     c0 = chk[0]
     shapes = _mesh_round_shapes()
@@ -4662,6 +5228,22 @@ def phase_llm_mesh(torch):
     ia_rel = abs(c0["inv_alpha_mesh"] - c0["inv_alpha_ref"]) / abs(
         c0["inv_alpha_ref"])
     errs = {k: c0[k] for k in ("theta_err", "lam_re_err", "lam_im_err")}
+    pins = [r["pin"] for r in res]
+    for r, pin in enumerate(pins):
+        tag = f"llm_mesh_check pure-data pin rank {r}"
+        require((pin["W_local"], pin["d_local"]) in shapes, f"{tag}: block "
+                f"({pin['W_local']}, {pin['d_local']}) is not one of the "
+                f"kernel rows' {shapes}")
+        require(pin["loss_rel_err"] <= MESH_PIN_RTOL
+                and pin["inv_alpha_rel_err"] <= MESH_PIN_RTOL
+                and all(pin[f"{k}_over_rtol"] <= 1.0
+                        for k in ("Theta", "theta", "lam")),
+                f"{tag}: the (2, 1) rounds differ from one device's beyond "
+                f"rtol {MESH_PIN_RTOL}: {pin}")
+        require(pin["bits_equal"]["h"], f"{tag}: the rank's h is not its "
+                f"rows of one device's h")
+        _per_round(dict(pin["launches"]), MESH_PIN_ROUNDS,
+                   dict(LLM_FLASH_1, **MESH_ROUND_LAUNCHES))
     check = {"phase": "llm_mesh_check", "ok": True, "arch": LLM_ARCH,
              "reduced": {"n_layers": f"36 -> {ROBUST_LAYERS}"},
              "grid": {"data": 1, "model": 2}, "ranks": MESH_RANKS,
@@ -4682,17 +5264,57 @@ def phase_llm_mesh(torch):
              "bitwise_equal": {k: c0[f"{k}_bits_equal"]
                                for k in ("theta", "lam_re", "lam_im")},
              "collectives": [c["collectives"] for c in chk],
-             "launches": [c["launches"] for c in chk]}
+             "launches": [c["launches"] for c in chk],
+             "pure_data_pin": {
+                 "grid": dict(zip(("data", "model"), MESH_PIN_SHAPE)),
+                 "rounds": MESH_PIN_ROUNDS, "local_steps": MESH_PIN_STEPS,
+                 "noisy": False, "rtol": MESH_PIN_RTOL,
+                 "ranks": [{k: v for k, v in pin.items() if k != "launches"}
+                           for pin in pins],
+                 "launches": [pin["launches"] for pin in pins]}}
     require(all(v[1] <= 1.0 for v in errs.values())
             and ia_rel <= LEAFWISE_RTOL,
             f"llm_mesh_check: the mesh round and the one-rank packed round "
             f"differ beyond rtol {LEAFWISE_RTOL}: {check}")
     emit(check)
-    require(not failed, "llm_mesh: a rank failed:\n" + "\n".join(
-        f"rank {r['rank']} ({r['memory_gb']}) after "
-        f"{sorted(r.get('runs', {}))}:\n{r['error']}" for r in failed))
-    require(all(c == 0 for c in exit_codes),
-            f"llm_mesh: rank exit codes {exit_codes}")
+
+    # llm_mesh_sketched_check
+    require(all("sketched_check" in r for r in res),
+            "llm_mesh_sketched_check: a rank failed:\n"
+            + _rank_failures(res, "sketched_check"))
+    sk = [r["sketched_check"] for r in res]
+    cfg1 = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
+    for r, c in enumerate(sk):
+        tag = f"llm_mesh_sketched_check rank {r}"
+        require(c["loss"] == refs["sketched"]["loss"], f"{tag}: round-1 loss "
+                f"{c['loss']} is not one device's "
+                f"{refs['sketched']['loss']} bit for bit")
+        require(c["Theta_s_over_atol"] <= 1.0, f"{tag}: Θ_s differs from one "
+                f"device's by {c['Theta_s_max_abs']}, beyond atol "
+                f"{MESH_SKETCH_THETA_S_ATOL}")
+        require(c["Theta_over_rtol"] <= 1.0, f"{tag}: the decoded Θ shard "
+                f"differs from one device's slice by {c['Theta_max_abs']}, "
+                f"beyond rtol {MESH_SKETCH_THETA_RTOL}")
+        _per_round(dict(c["launches"]), 1,
+                   _sketched_launches(cfg1, LLM_WORKERS, 1))
+    emit({"phase": "llm_mesh_sketched_check", "ok": True, "arch": LLM_ARCH,
+          "reduced": {"n_layers": f"36 -> {ROBUST_LAYERS}"},
+          "grid": dict(zip(("data", "model"), MESH_SKETCH_SHAPE)),
+          "W": LLM_WORKERS, "seq": LLM_SEQ, "local_steps": 1,
+          "sketch_ratio": SKETCH_RATIO, "noisy": False,
+          "d_s": sk[0]["lam_shape"][1], "loss_one_device":
+          refs["sketched"]["loss"], "loss_bits_equal": True,
+          "Theta_s_atol": MESH_SKETCH_THETA_S_ATOL,
+          "Theta_rtol": MESH_SKETCH_THETA_RTOL,
+          "ranks": [{k: v for k, v in c.items() if k != "launches"}
+                    for c in sk],
+          "launches": [c["launches"] for c in sk]})
+
+    require(all(len(r.get("runs", {})) == len(MESH_SHAPES) for r in res),
+            "llm_mesh: a rank failed:\n" + "\n".join(
+                f"rank {r['rank']} ({r['memory_gb']}) after "
+                f"{sorted(r.get('runs', {}))}:\n{r['error']}"
+                for r in res if "error" in r))
 
     # llm_mesh
     runs = {}
@@ -4730,17 +5352,77 @@ def phase_llm_mesh(torch):
           "staged_collectives": STAGED_COLLECTIVES, "W": LLM_WORKERS,
           "seq": LLM_SEQ, "local_steps": 2, "local_lr": LLM_LR,
           "rounds": LLM_ROUNDS, "timing": "every collective synchronised "
-          "and timed (Mesh.timing)", "wall_s": wall_s, "grids": runs})
+          "and timed (Mesh.timing)", "grids": runs})
 
-    def summed(launch_lists):
-        out: dict = {}
-        for ln in launch_lists:
-            for k, v in ln.items():
-                out[k] = out.get(k, 0) + v
-        return out
+    # llm_mesh_sketched
+    require(all("sketched" in r for r in res), "llm_mesh_sketched: a rank "
+            "failed:\n" + _rank_failures(res, "sketched"))
+    sr = [r["sketched"] for r in res]
+    cfg2 = _llm_cfg(LLM_ARCH, MESH_SKETCH_LAYERS)
+    for r, run in enumerate(sr):
+        tag = f"llm_mesh_sketched rank {r}"
+        require(run["shapes_ok"], f"{tag}: λ or h is not ({LLM_WORKERS}, "
+                f"{run['d_s']})")
+        require(run["finite"], f"{tag}: a loss or Θ is not finite: "
+                f"{run['losses']}")
+        require(run["peak"] <= MESH_PEAK, f"{tag}: peak {run['peak'] / 1e9} "
+                f"GB above {MESH_PEAK / 1e9} GB")
+        _per_round(dict(run["launches"]), MESH_SKETCH_ROUNDS,
+                   _sketched_launches(cfg2, LLM_WORKERS, 2))
+    s_round = statistics.mean(max(sr[r]["round_s"][i]
+                                  for r in range(MESH_RANKS))
+                              for i in range(1, MESH_SKETCH_ROUNDS))
+    emit({"phase": "llm_mesh_sketched", "ok": True, "arch": LLM_ARCH,
+          "reduced": {"n_layers": f"36 -> {MESH_SKETCH_LAYERS}"},
+          "grid": dict(zip(("data", "model"), MESH_SKETCH_SHAPE)),
+          "ranks": MESH_RANKS, "backend": res[0]["backend"],
+          "W": LLM_WORKERS, "seq": LLM_SEQ, "local_steps": 2,
+          "local_lr": LLM_LR, "sketch_ratio": SKETCH_RATIO,
+          "rounds": MESH_SKETCH_ROUNDS, "D": sr[0]["D"], "d_s": sr[0]["d_s"],
+          "d_local": sr[0]["d_local"], "loss": sr[0]["losses"],
+          "round_s": [run["round_s"] for run in sr],
+          "seconds_per_round": s_round,
+          "tokens_per_s": LLM_WORKERS * LLM_SEQ * 2 / s_round,
+          "setup_s": [run["setup_s"] for run in sr],
+          "peak_mem_gb": [run["peak"] / 1e9 for run in sr],
+          "collectives": [run["collectives"] for run in sr],
+          "codec_ms_per_round": [run["codec_ms_per_round"] for run in sr],
+          "timing": "every collective and codec call synchronised and "
+          "timed", "launches": [run["launches"] for run in sr]})
 
-    return (summed(c["launches"] for c in chk),
-            summed(p["launches"] for r in res for p in r["runs"].values()))
+    # llm_mesh_cohort_check
+    require(all("cohort" in r for r in res), "llm_mesh_cohort_check: a rank "
+            "failed:\n" + _rank_failures(res, "cohort"))
+    require(all(c == 0 for c in exit_codes),
+            f"llm_mesh: rank exit codes {exit_codes}")
+    co = [r["cohort"] for r in res]
+    for r, c in enumerate(co):
+        require(c["loss_rel_err"] <= MESH_COHORT_RTOL
+                and all(c[f"{k}_over_rtol_of_max"] <= 1.0
+                        for k in ("Theta", "theta", "lam")),
+                f"llm_mesh_cohort_check rank {r}: the (2, 1) cohort rounds "
+                f"differ from one device's beyond rtol {MESH_COHORT_RTOL}: "
+                f"{c}")
+        _per_round(dict(c["launches"]), MESH_COHORT_ROUNDS, {
+            "flash_attention_fwd": 8, "flash_attention_dq": 4,
+            "flash_attention_dkv": 4, **MESH_ROUND_LAUNCHES})
+    emit({"phase": "llm_mesh_cohort_check", "ok": True, "arch": LLM_ARCH,
+          "reduced": "ModelConfig.reduced(): 2 layers, d_model 128",
+          "dtype": "float32", "grid": dict(zip(("data", "model"),
+                                               MESH_PIN_SHAPE)),
+          **MESH_COHORT, "rounds": MESH_COHORT_ROUNDS,
+          "rtol": MESH_COHORT_RTOL, "noisy": False,
+          "ranks": [{k: v for k, v in c.items() if k != "launches"}
+                    for c in co],
+          "launches": [c["launches"] for c in co], "wall_s": wall_s})
+
+    return {"llm_mesh_check": _summed([c["launches"] for c in chk]
+                                      + [p["launches"] for p in pins]),
+            "llm_mesh_sketched_check": _summed(c["launches"] for c in sk),
+            "llm_mesh": _summed(p["launches"] for r in res
+                                for p in r["runs"].values()),
+            "llm_mesh_sketched": _summed(run["launches"] for run in sr),
+            "llm_mesh_cohort_check": _summed(c["launches"] for c in co)}
 
 
 def _kernel_family(name: str) -> str:
@@ -4966,7 +5648,7 @@ def main() -> int:
         _free(torch)
         paths["serve"] = phase_serve(torch, name)
         _free(torch)
-        paths["llm_mesh_check"], paths["llm_mesh"] = phase_llm_mesh(torch)
+        paths.update(phase_llm_mesh(torch))
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1

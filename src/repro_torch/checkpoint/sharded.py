@@ -1,13 +1,15 @@
-"""Snapshots of a mesh-sharded replicated-mode state in the JAX package's
-``.npz`` format: the same keys and the same GLOBAL layout as the JAX
-package writes under a mesh (θ (W, ...), Θ whole, λ, h and the straggler
-snapshot the shard-packed (W, d_pad) planes), so a snapshot either package
-wrote under a (data, model) grid restores into the other's ranks.
+"""Snapshots of a mesh-sharded trainer state in the JAX package's ``.npz``
+format: the same keys and the same GLOBAL layout as the JAX package writes
+under a mesh, so a snapshot either package wrote under a (data, model)
+grid restores into the other's ranks.  The replicated mode's state: θ
+(W, ...), Θ whole, λ, h and the straggler snapshot the shard-packed (W,
+d_pad) planes.  The sketched mode's: Θ whole; its (W, d_s) λ and channel
+are every rank's already.
 
 :func:`save_sharded` gathers the ranks' parts (every rank takes part in
 the gathers) and rank 0 writes the file; :func:`restore_sharded` has each
 rank read the file and keep its own part
-(``convert.shard_fl_state``)."""
+(``convert.shard_fl_state``; the sketched mode's Θ shard)."""
 from __future__ import annotations
 
 import numpy as np
@@ -18,23 +20,42 @@ from repro_torch.checkpoint.np_checkpoint import (_SEP, _fields, _is_node,
                                                   save)
 from repro_torch.convert import phy_planes, shard_fl_state
 from repro_torch.core.cplx import Complex
+from repro_torch.core.packing import shard_tree
 from repro_torch.core.tree_ota import TreeFLState, shard_coords
 from repro_torch.optim.optimizers import OptState
 from repro_torch.phy.scenario import PhyState
-from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
-def gather_fl_state(state: TreeFLState, mesh, sspec) -> TreeFLState:
-    """The GLOBAL state from every rank's part (collective: all ranks call
-    it, and all get the result)."""
-    c = shard_coords(mesh, sspec)
-
+def _grid_gather(mesh, sspec, faxes):
+    """A leaf's resident block -> the whole leaf, gathered over the grid
+    (``faxes``: the axes of its fsdp dim)."""
     def grid(x, md, fd, lead: int):
-        if md is not None:
+        if md is not None and sspec.n_model > 1:
             x = mesh.all_gather(x, "model", lead + md)
-        if fd is not None and "fsdp" in mesh.shape:
-            x = mesh.all_gather(x, "fsdp", lead + fd)
+        if fd is not None and sspec.n_fsdp > 1:
+            x = mesh.all_gather(x, faxes, lead + fd)
         return x
+    return grid
+
+
+def _grid_index(mesh, sspec, faxes) -> int:
+    jm = mesh.axis_index("model") if sspec.n_model > 1 else 0
+    jf = mesh.axis_index(faxes) if sspec.n_fsdp > 1 else 0
+    return jf * sspec.n_model + jm
+
+
+def gather_fl_state(state, mesh, sspec, faxes=("fsdp",)):
+    """The GLOBAL state from every rank's part (collective: all ranks call
+    it, and all get the result).  ``faxes``: the axes of the grid's fsdp
+    dim (the sketched mode's ``init_fn.layout["faxes"]``)."""
+    grid = _grid_gather(mesh, sspec, faxes)
+    if not isinstance(state, TreeFLState):
+        leaves, treedef = tree_flatten(state.Theta)
+        return state._replace(Theta=tree_unflatten(treedef, [
+            grid(l, md, fd, 0) for l, md, fd in
+            zip(leaves, sspec.shard_dims, sspec.fsdp_dims)]))
+    c = shard_coords(mesh, sspec)
 
     def rows(x):
         return mesh.all_gather(x, c.daxes, 0) if c.daxes else x
@@ -76,10 +97,10 @@ def gather_fl_state(state: TreeFLState, mesh, sspec) -> TreeFLState:
                        flt=flt)
 
 
-def save_sharded(path: str, state: TreeFLState, mesh, sspec) -> None:
+def save_sharded(path: str, state, mesh, sspec, faxes=("fsdp",)) -> None:
     """Gather the global state and write it from rank 0 (every rank
     calls; the others wait for the file)."""
-    full = gather_fl_state(state, mesh, sspec)
+    full = gather_fl_state(state, mesh, sspec, faxes)
     if dist.get_rank() == 0:
         save(path, full)
     del full
@@ -114,12 +135,16 @@ def _load_global(path: str, like):
     return build(like, ())
 
 
-def restore_sharded(path: str, like: TreeFLState, mesh,
-                    sspec) -> TreeFLState:
+def restore_sharded(path: str, like, mesh, sspec, faxes=("fsdp",)):
     """This rank's part of the global state in ``path``, shape-checked
     against ``like`` (the rank's own state, e.g. ``init_fn``'s)."""
-    c = shard_coords(mesh, sspec)
-    out = shard_fl_state(_load_global(path, like), sspec, c, c.n_data)
+    glob = _load_global(path, like)
+    if isinstance(like, TreeFLState):
+        c = shard_coords(mesh, sspec)
+        out = shard_fl_state(glob, sspec, c, c.n_data)
+    else:
+        out = glob._replace(Theta=tree_map(torch.clone, shard_tree(
+            sspec, glob.Theta, _grid_index(mesh, sspec, faxes))))
     for a, b in zip(_flat(out), _flat(like)):
         if tuple(a.shape) != tuple(b.shape):
             raise ValueError(f"restore_sharded: a leaf of shape "

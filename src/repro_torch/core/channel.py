@@ -16,10 +16,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import rng
 from repro_torch.core.cplx import Complex, abs2
 
 Tensor = torch.Tensor
@@ -80,6 +81,25 @@ def rayleigh(gen: torch.Generator, shape: Tuple[int, ...]) -> Complex:
     s = math.sqrt(0.5)
     return Complex(torch.randn(shape, generator=gen, device=gen.device) * s,
                    torch.randn(shape, generator=gen, device=gen.device) * s)
+
+
+def rayleigh_rows(key: int, rows: Sequence[int], d: int,
+                  device) -> Complex:
+    """CN(0, 1) rows of a packed ``(W, d)`` plane: worker ``w``'s row from
+    ``fold_in(key, w)`` (re, then im), so any subset of the rows (a mesh
+    rank's workers) is bit for bit those rows of the whole plane, and no
+    rank draws rows it does not hold.  A row costs a generator and two
+    launches, so this is the LLM trainer's draw (a few workers, wide
+    rows); the flat trainer's thousands of narrow rows draw the whole
+    plane at once (:func:`rayleigh`)."""
+    s = math.sqrt(0.5)
+    re = torch.empty((len(rows), d), device=device)
+    im = torch.empty((len(rows), d), device=device)
+    for i, w in enumerate(rows):
+        gen = rng.generator(rng.fold_in(key, w), device)
+        torch.randn((d,), generator=gen, device=device, out=re[i])
+        torch.randn((d,), generator=gen, device=device, out=im[i])
+    return Complex(re.mul_(s), im.mul_(s))
 
 
 def awgn(gen: torch.Generator, shape: Tuple[int, ...], var: float) -> Complex:

@@ -26,10 +26,13 @@ packed index space (:func:`encode_packed`, :func:`decode_packed`), so
 :func:`encode_chunked` encodes a whole tree a chunk of :data:`CHUNK`
 elements at a time and never builds a (D,) buffer.
 
-The shard-local codec (``encode_shard_local``/``decode_shard_local``) is
-here as plain functions of a shard's canonical indices and validity mask
-(``core.packing.shard_perm_local``/``shard_valid_mask`` make them); the
-sketched mode's mesh that runs them is ROADMAP queue A item 6b.
+The shard-local codec (``encode_shard_local``/``decode_shard_local``)
+takes a shard's canonical indices and validity mask
+(``core.packing.shard_perm_local``/``shard_valid_mask`` make them): the
+sketched mode on a mesh (``train.llm_trainer.make_sketched(mesh=)``)
+encodes each rank's resident slice with it, a chunk at a time, and sums
+the partial sketches over the shard grid; each rank decodes its own
+coordinates.
 """
 from __future__ import annotations
 
@@ -171,13 +174,14 @@ def decode_hashed(s: Tensor, shape, seed: int, offset: int = 0) -> Tensor:
 
 
 def encode_shard_local(v: Tensor, idx: Tensor, valid: Tensor, d_s: int,
-                       seed: int) -> Tensor:
+                       seed: int, out: Optional[Tensor] = None) -> Tensor:
     """One shard's (..., m) resident packed slice -> its (..., d_s) partial
-    global count sketch.  ``idx``: the (m,) canonical packed index of each
-    position; ``valid``: the (m,) mask that zeroes layout padding.  The
-    partial sketches of all shards sum to the global encode."""
+    global count sketch, added into ``out`` when given.  ``idx``: the (m,)
+    canonical packed index of each position; ``valid``: the (m,) mask that
+    zeroes layout padding.  The partial sketches of all shards sum to the
+    global encode."""
     signed = v.float() * sign_of(idx, seed) * valid.to(torch.float32)
-    return _scatter(signed, bucket_of(idx, d_s, seed), d_s, None)
+    return _scatter(signed, bucket_of(idx, d_s, seed), d_s, out)
 
 
 def decode_shard_local(s: Tensor, idx: Tensor, valid: Tensor,

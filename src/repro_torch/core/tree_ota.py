@@ -38,7 +38,7 @@ from repro_torch import rng
 from repro_torch.core import cohort as _cohort
 from repro_torch.core import transport
 from repro_torch.core.admm import AdmmConfig
-from repro_torch.core.channel import ChannelConfig, rayleigh
+from repro_torch.core.channel import ChannelConfig, rayleigh, rayleigh_rows
 from repro_torch.core.cplx import Complex
 from repro_torch.core.packing import (PackSpec, ShardPackSpec,
                                       build_packspec, pack, pack_cplx,
@@ -171,11 +171,11 @@ def _tree_size(tree: PyTree) -> int:
 # persistently-packed fading state
 # ---------------------------------------------------------------------------
 
-def init_channel_packed(gen: torch.Generator, n_workers: int,
-                        d: int) -> TreeChannel:
-    """One Rayleigh fading block drawn over the packed ``(W, D)`` index
-    space, on ``gen``'s device."""
-    return TreeChannel(h=rayleigh(gen, (n_workers, d)), age=0)
+def init_channel_packed(key: int, rows: Sequence[int], d: int,
+                        device) -> TreeChannel:
+    """The first fading block over the packed ``(W, D)`` index space: the
+    ``rows`` of ``channel.rayleigh_rows``."""
+    return TreeChannel(h=rayleigh_rows(key, rows, d, device), age=0)
 
 
 def redraws(chan: TreeChannel, ccfg: ChannelConfig) -> bool:
@@ -448,6 +448,7 @@ def ota_tree_round_leafwise(theta: PyTree, lam: PyTree, h: PyTree,
                             mask: Optional[Tensor] = None,
                             h_tx: Optional[PyTree] = None,
                             Theta_prev: Optional[PyTree] = None,
+                            mesh=None, sspec: Optional[ShardPackSpec] = None,
                             ) -> Tuple[PyTree, PyTree, dict]:
     """The per-leaf round: B1 per leaf, the min-α over every leaf's energy,
     then per leaf one receive (B2, or B8 under ``mask``) on that leaf's own
@@ -455,19 +456,49 @@ def ota_tree_round_leafwise(theta: PyTree, lam: PyTree, h: PyTree,
     from ``split(key, n_leaves)[i]``) and one dual update (B4).  ``mask``,
     ``h_tx`` and ``Theta_prev`` as in :func:`ota_tree_round_packed_state`.
     On a noise-free link it computes the packed round's Θ and λ; with power
-    control α⁻¹ sums the energies in another order."""
+    control α⁻¹ sums the energies in another order.
+
+    Under ``mesh`` (with the layout ``sspec`` names: each leaf's model and
+    fsdp dims) a rank holds its workers' rows of its (fsdp, model) block of
+    every leaf, and ``noise_re[i]`` is that block's noise.  The energies
+    sum over the grid (a block several ranks hold counts once), the min-α
+    takes the min over the data axes and each leaf's superposition sums
+    over them, as in :func:`ota_tree_round_shard_local`; ``mask`` stays the
+    global (W,) vector."""
     rho = acfg.rho
+    c = None if mesh is None else shard_coords(mesh, sspec)
+    mask_l = mask
+    if c is not None and mask is not None:
+        W_l = tree_leaves(theta)[0].shape[0]
+        mask_l = mask[c.jd * W_l:(c.jd + 1) * W_l]
     h_wkr = h if h_tx is None else h_tx
     signals = _modulate_tree(theta, lam, h_wkr, rho)
     s_leaves, treedef = tree_flatten(signals)
+    dev = s_leaves[0].re.device
     if acfg.power_control:
-        budget = ccfg.transmit_power * _tree_size(signals)
-        inv_alpha = transport.inv_alpha_from_energy(
-            _tree_energy_per_worker(signals), budget, mask=mask)
+        mrf = None
+        if c is None:
+            budget = ccfg.transmit_power * _tree_size(signals)
+            energy = _tree_energy_per_worker(signals)
+        else:
+            budget = ccfg.transmit_power * sspec.spec.d
+            energy = torch.zeros(s_leaves[0].re.shape[0],
+                                 dtype=torch.float32, device=dev)
+            for i, sl in enumerate(s_leaves):
+                if _counts_block(sspec, i, c):
+                    energy = energy + transport.worker_energy(sl)
+            energy = mesh.psum(energy, c.saxes)
+            if c.n_data > 1:
+                mrf = lambda a: mesh.pmin(a, c.daxes)  # noqa: E731
+        inv_alpha = transport.inv_alpha_from_energy(energy, budget,
+                                                    mask=mask_l,
+                                                    min_reduce_fn=mrf)
     else:
-        inv_alpha = torch.ones((), dtype=torch.float32,
-                               device=s_leaves[0].re.device)
+        inv_alpha = torch.ones((), dtype=torch.float32, device=dev)
     del signals
+    reduce_fn = None
+    if c is not None and c.n_data > 1:
+        reduce_fn = lambda x: mesh.psum(x.sum(0), c.daxes)  # noqa: E731
     h_leaves = tree_leaves(h)
     noise = list(noise_re)
     if len(noise) != len(s_leaves):
@@ -478,7 +509,8 @@ def ota_tree_round_leafwise(theta: PyTree, lam: PyTree, h: PyTree,
         hh = h_leaves[i]
         out = transport.receive(s_leaves[i], Complex(_rows(hh.re),
                                                      _rows(hh.im)),
-                                noise[i].reshape(-1), inv_alpha, mask)
+                                noise[i].reshape(-1), inv_alpha, mask_l,
+                                reduce_fn=reduce_fn)
         s_leaves[i] = None
         thetas.append(out.reshape(hh.re.shape[1:]))
     Theta_new = tree_unflatten(treedef, thetas)
@@ -489,8 +521,8 @@ def ota_tree_round_leafwise(theta: PyTree, lam: PyTree, h: PyTree,
             Complex(_rows(hh.re), _rows(hh.im)), _rows(t), T.reshape(-1),
             rho)
         new = Complex(out.re.reshape(l.re.shape), out.im.reshape(l.im.shape))
-        if mask is not None:
-            _keep_rows_(mask, Complex(out.re, out.im),
+        if mask_l is not None:
+            _keep_rows_(mask_l, Complex(out.re, out.im),
                         Complex(_rows(l.re), _rows(l.im)))
         return new
 
@@ -610,6 +642,14 @@ def unpack_cplx_shard_local(sspec: ShardPackSpec, buf: Complex, mesh,
 
     return tree_unflatten(sspec.spec.treedef, [
         Complex(r, i) for r, i in zip(one(buf.re), one(buf.im))])
+
+
+def _counts_block(sspec: ShardPackSpec, i: int, c: ShardCoords) -> bool:
+    """Whether this rank's block of leaf ``i`` is the one the grid counts:
+    a leaf the grid does not split on an axis counts on that axis's
+    coordinate 0 only."""
+    return ((sspec.shard_dims[i] is not None or c.jm == 0)
+            and (sspec.fsdp_dims[i] is not None or c.jf == 0))
 
 
 def shard_replication(sspec: ShardPackSpec, i: int) -> int:

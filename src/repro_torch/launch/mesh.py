@@ -10,9 +10,10 @@ holds one process group per axis and per tuple of axes
 (:meth:`Mesh.group`).  The collectives are the ones the JAX package's
 shard-local round and the gathered forward need, and no more:
 :meth:`Mesh.psum` (all-reduce SUM), :meth:`Mesh.pmin` (MIN),
-:meth:`Mesh.por` (an OR as a SUM > 0, as ``tree_ota`` takes it) and
-:meth:`Mesh.all_gather` along a tensor dim, each over one axis or a tuple
-of axes.  A collective over axes of total size 1 is the identity and
+:meth:`Mesh.por` (an OR as a SUM > 0, as ``tree_ota`` takes it),
+:meth:`Mesh.all_gather` along a tensor dim and :meth:`Mesh.reduce_scatter`
+(the sketched mode's ``rs_grads``), each over one axis or a tuple of
+axes.  A collective over axes of total size 1 is the identity and
 touches no process group.
 
 Backend rule (:func:`backend_for`): NCCL where every rank has a card of its
@@ -20,6 +21,12 @@ own; gloo where ranks share a card or run on the CPU.  Gloo takes each of
 these collectives on CUDA tensors and copies them through the host itself
 (with torch 2.11 on an H100 host: all-reduce SUM and MIN and
 all-gather, so this module stages none); compute never leaves the card.
+Gloo copies on streams of its own, so on CUDA tensors the mesh waits for
+the card before each such collective and again before anything reads
+what it wrote, which leaves no window for a copy race: one (1, 2) round
+on an H100 gave rank 1 a loss 2·10⁻⁵ away from its peer's, which
+repeated runs never showed again (``tools/check_mesh_bits.py`` repeats
+the round's pieces).
 
 With ``Mesh.timing`` on, every collective synchronises the card before and
 after itself and adds its wall time and bytes to :attr:`Mesh.stats`, so a
@@ -166,20 +173,24 @@ class Mesh:
         ``inplace`` and contiguous: a collective that only reads it, or a
         plane the caller gives up), counted (and timed when asked) under
         ``op`` in :attr:`stats`."""
-        sync = self.timing and x.is_cuda
-        if sync:
-            torch.cuda.synchronize(x.device)
+        self._wait(x)
         t0 = time.perf_counter()
         out = fn(x if inplace and x.is_contiguous()
                  else x.contiguous().clone())
-        if sync:
-            torch.cuda.synchronize(x.device)
+        self._wait(x)
         s = self.stats.setdefault(op, {"calls": 0, "seconds": 0.0,
                                        "bytes": 0})
         s["calls"] += 1
         s["seconds"] += time.perf_counter() - t0
         s["bytes"] += x.numel() * x.element_size()
         return out
+
+    def _wait(self, x: Tensor) -> None:
+        """Wait for the card: around every collective of gloo (which moves
+        CUDA tensors on streams of its own) and, with :attr:`timing`, of
+        any backend."""
+        if x.is_cuda and (self.timing or self.backend == "gloo"):
+            torch.cuda.synchronize(x.device)
 
     def _reduce(self, op: str, x: Tensor, names: Axes, rop,
                 inplace: bool = False) -> Tensor:
@@ -210,6 +221,23 @@ class Mesh:
         return self._reduce("por", x.to(torch.float32), names,
                             dist.ReduceOp.SUM) > 0.0
 
+    def reduce_scatter(self, x: Tensor, names: Axes, dim: int) -> Tensor:
+        """Σ of ``x`` over the ranks of ``names``, of which this rank keeps
+        its slice along ``dim`` (``x``'s ``dim`` cut in the order of
+        :meth:`axis_index`)."""
+        n = self.axis_size(names)
+        if n == 1:
+            return x
+        group = self.group(names)
+
+        def fn(t):
+            parts = [p.contiguous() for p in t.chunk(n, dim)]
+            out = torch.empty_like(parts[0])
+            dist.reduce_scatter(out, parts, group=group)
+            return out
+        # the scatter reads x only: no copy of it
+        return self._run("reduce_scatter", x, fn, inplace=True)
+
     def all_gather(self, x: Tensor, names: Axes, dim: int) -> Tensor:
         """The ranks' ``x`` over ``names`` concatenated along ``dim``, in
         the order of :meth:`axis_index`."""
@@ -221,6 +249,7 @@ class Mesh:
         def fn(t):
             parts = [torch.empty_like(t) for _ in range(n)]
             dist.all_gather(parts, t, group=group)
+            self._wait(t)        # before the concatenation reads the parts
             return torch.cat(parts, dim=dim)
         # the gather reads x only: no copy of it
         return self._run("all_gather", x, fn, inplace=True)

@@ -1,5 +1,5 @@
 """Training launcher: federated A-FADMM training of an LLM the port builds.
-Counterpart of ``repro/launch/train.py`` on one device.
+Counterpart of ``repro/launch/train.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
         --reduced --rounds 50 --workers 4 --local-steps 2 [--device cpu]
@@ -20,22 +20,25 @@ by the global index, so a resumed run (``--checkpoint-dir`` +
 reference writes them.  Every arch trains: a round's batch adds the stub
 patches (vlm) or frames (audio) to the tokens.
 
-``--fsdp N`` (N > 1) trains the replicated mode on the reference's
-``(n // N, N, 1)`` (data, fsdp, model) mesh of the ``n`` ranks that
+``--fsdp N`` (N > 1) trains either mode on the reference's ``(n // N, N,
+1)`` (data, fsdp, model) mesh of the ``n`` ranks that
 ``torch.distributed.run`` starts:
 
     python -m torch.distributed.run --nproc-per-node 2 \
-        -m repro_torch.launch.train --arch granite-8b --reduced --fsdp 2
+        -m repro_torch.launch.train --arch granite-8b --reduced --fsdp 2 \
+        [--mode sketched]
 
 Each rank joins the process group with the backend ``launch.mesh`` picks
 (NCCL where every rank has a card, gloo where ranks share one or run on
 the CPU), builds the batch of all workers from the round key and keeps its
-workers' rows.  Only rank 0 writes the run dir, the log lines and the
-snapshots (``checkpoint.save_sharded``: the JAX package's global layout;
-every rank restores its part).  Refused by name: an N that does not divide
-the rank count (a CLI error that says "must divide"), ``--mode sketched``
-with ``--fsdp`` > 1 (ROADMAP queue A item 6b), and ``--population`` in the
-sketched mode (the trainer's ValueError).  Torch has no HLO, so no
+workers' rows (the replicated mode) or its rows of every worker's batch
+(the sketched mode, whose Θ the fsdp axis shards).  Only rank 0 writes
+the run dir, the log lines and the snapshots (``checkpoint.save_sharded``:
+the JAX package's global layout; every rank restores its part).  Refused
+by name: an N that does not divide the rank count (a CLI error that says
+"must divide"), workers (replicated) or a batch (sketched) that do not
+split over the data ranks, and ``--population`` in the sketched mode (the
+trainer's ValueError).  Torch has no HLO, so no
 ``compile_report.json`` is written; the manifest says why.
 
 :func:`run` takes the parsed arguments and, optionally, a model built by
@@ -254,10 +257,6 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
     profiler's Chrome trace path (or None)."""
     mesh = None
     if args.fsdp > 1:
-        if args.mode == "sketched":
-            raise SystemExit(
-                f"--mode sketched --fsdp {args.fsdp}: the sketched mode's "
-                f"mesh is not ported yet (ROADMAP queue A item 6b)")
         try:
             shape = fsdp_mesh_shape(int(os.environ.get("WORLD_SIZE", 1)),
                                     args.fsdp)
@@ -367,18 +366,26 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
                          seq_len=args.seq, vocab_size=cfg.vocab_size,
                          n_workers=W_round, device=dev)
     st = init_fn(key)
-    mine = slice(None)          # the batch rows of this rank's workers
+    # the batch rows of this rank: its workers' (replicated), or its rows
+    # of every worker's batch (sketched)
+    mine = (slice(None),)
     if mesh is not None:
         sspec = init_fn.layout["sspec"]
+        faxes = init_fn.layout.get("faxes", ("fsdp",))
         c = shard_coords(mesh)
-        mine = slice(c.jd * (W_round // c.n_data),
-                     (c.jd + 1) * (W_round // c.n_data))
+        flag, n = (("--workers", W_round) if args.mode == "replicated"
+                   else ("--batch", args.batch))
+        if n % c.n_data:
+            raise SystemExit(f"{flag} {n} does not split over the "
+                             f"{c.n_data} data ranks")
+        part = slice(c.jd * (n // c.n_data), (c.jd + 1) * (n // c.n_data))
+        mine = (part,) if args.mode == "replicated" else (slice(None), part)
 
     def snapshot(path: str, st) -> None:
         if mesh is None:
             save(path, st)
         else:
-            save_sharded(path, st, mesh, sspec)
+            save_sharded(path, st, mesh, sspec, faxes)
 
     r0 = 0
     if args.resume and args.checkpoint_dir:
@@ -386,7 +393,7 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
         if latest is not None:
             path = round_path(args.checkpoint_dir, latest)
             st = (restore(path, st) if mesh is None
-                  else restore_sharded(path, st, mesh, sspec))
+                  else restore_sharded(path, st, mesh, sspec, faxes))
             r0 = latest
             say(f"resumed from round {r0} ({path})", flush=True)
             if sink is not None:
@@ -497,7 +504,7 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
 
     if args.checkpoint:
         Theta = (st.Theta if mesh is None
-                 else gather_fl_state(st, mesh, sspec).Theta)
+                 else gather_fl_state(st, mesh, sspec, faxes).Theta)
         if main_rank:
             save(args.checkpoint, Theta)
         say(f"saved global model to {args.checkpoint}")

@@ -13,16 +13,21 @@ entry inside its checkpointed block (:func:`gather_entry`), so the
 backward's recompute gathers again and only one full layer is alive.
 
 The gather's backward (:class:`_Gather`) narrows the full gradient to the
-rank's own slice.  Every rank of the shard grid computes the same products
-on the same batch, so there is no gradient reduction; nor across the data
-axes, where each worker trains its own θ.  Partitioning the products
+rank's own slice where every rank of the gathered axis computed it alike
+(the same products on the same batch).  Where the ranks of the axis hold
+different rows of the batch (the sketched mode's FSDP over the data axes,
+:attr:`GatherPlan.reduce`) the full gradient is summed over the axis
+first: an all-reduce and then the narrow, or, with
+:attr:`GatherPlan.scatter` (``REPRO_OPT=rs_grads``), one reduce-scatter
+that leaves each rank its slice of the sum.  Partitioning the products
 themselves (column and row splits with their all-reduces) is a later
 ROADMAP item.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, NamedTuple, Optional, Tuple
+import math
+from typing import Any, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -30,8 +35,10 @@ from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
 PyTree = Any
+#: a mesh axis, or a tuple of axes taken as one
+Axis = Union[str, Sequence[str]]
 #: a leaf's sharded element dims: ((dim, mesh axis), ...)
-Dims = Tuple[Tuple[int, str], ...]
+Dims = Tuple[Tuple[int, Axis], ...]
 
 
 class GatherPlan(NamedTuple):
@@ -40,20 +47,35 @@ class GatherPlan(NamedTuple):
     mesh: Any
     dims: PyTree        # params' structure; each leaf a :data:`Dims`
     lead: int           # leading worker dims of the leaves
+    #: mesh axes whose ranks hold different batch rows: a gather over them
+    #: sums the gradient over them in its backward
+    reduce: Tuple[str, ...] = ()
+    #: that sum as a reduce-scatter (``REPRO_OPT=rs_grads``), else an
+    #: all-reduce and a narrow
+    scatter: bool = False
 
 
 _ACTIVE: dict = {"plan": None}
 
 
+def _names(axis: Axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
 def make_plan(params: PyTree, model_dims, fsdp_dims, mesh, lead: int = 1,
-              model_axis: str = "model",
-              fsdp_axis: str = "fsdp") -> GatherPlan:
+              model_axis: str = "model", fsdp_axis: Axis = "fsdp",
+              reduce: Tuple[str, ...] = ()) -> GatherPlan:
     """The plan of a params tree (its flatten order) from its per-leaf
-    model and fsdp element dims (``launch.shardings.shard_dims_2d``).  An
-    axis of size 1 gathers nothing and is left out."""
+    model and fsdp element dims (``launch.shardings.shard_dims_2d``).
+    ``fsdp_axis`` is an axis or a tuple of them (the data axes, where the
+    fsdp dim rides them); an axis of size 1 gathers nothing and is left
+    out."""
     treedef = tree_flatten(params)[1]
-    n_model = mesh.shape.get(model_axis, 1)
-    n_fsdp = mesh.shape.get(fsdp_axis, 1)
+
+    def size(axis: Axis) -> int:
+        return math.prod(mesh.shape.get(a, 1) for a in _names(axis))
+
+    n_model, n_fsdp = size(model_axis), size(fsdp_axis)
     leaves = []
     for md, fd in zip(model_dims, fsdp_dims):
         pairs = []
@@ -62,7 +84,8 @@ def make_plan(params: PyTree, model_dims, fsdp_dims, mesh, lead: int = 1,
         if fd is not None and n_fsdp > 1:
             pairs.append((fd, fsdp_axis))
         leaves.append(tuple(pairs))
-    return GatherPlan(mesh, tree_unflatten(treedef, leaves), lead)
+    return GatherPlan(mesh, tree_unflatten(treedef, leaves), lead,
+                      tuple(reduce))
 
 
 @contextlib.contextmanager
@@ -83,23 +106,37 @@ def current() -> Optional[GatherPlan]:
 
 class _Gather(torch.autograd.Function):
     """All-gather along ``dim`` over ``axis``; the backward narrows the
-    (identical on every rank) full gradient to this rank's slice."""
+    full gradient to this rank's slice, after summing it over the axis
+    where ``reduce`` (all-reduce then narrow, or a reduce-scatter where
+    ``scatter``)."""
 
     @staticmethod
-    def forward(ctx, x: Tensor, mesh, axis: str, dim: int) -> Tensor:
+    def forward(ctx, x: Tensor, mesh, axis: Axis, dim: int, reduce: bool,
+                scatter: bool) -> Tensor:
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.reduce, ctx.scatter = reduce, scatter
         ctx.width = x.shape[dim]
         return mesh.all_gather(x.detach(), axis, dim)
 
     @staticmethod
     def backward(ctx, g: Tensor):
-        i = ctx.mesh.axis_index(ctx.axis)
-        return g.narrow(ctx.dim, i * ctx.width, ctx.width), None, None, None
+        mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
+        if ctx.reduce and ctx.scatter:
+            out = mesh.reduce_scatter(g, axis, dim)
+        else:
+            if ctx.reduce:
+                g = mesh.psum(g, axis)
+            i = mesh.axis_index(axis)
+            out = g.narrow(dim, i * ctx.width, ctx.width)
+        return out, None, None, None, None, None
 
 
-def _gather_leaf(x: Tensor, pairs: Dims, mesh, offset: int) -> Tensor:
+def _gather_leaf(x: Tensor, pairs: Dims, plan: GatherPlan,
+                 offset: int) -> Tensor:
     for d, axis in pairs:
-        x = _Gather.apply(x, mesh, axis, offset + d)
+        reduce = set(_names(axis)) <= set(plan.reduce)
+        x = _Gather.apply(x, plan.mesh, axis, offset + d, reduce,
+                          plan.scatter)
     return x
 
 
@@ -118,11 +155,11 @@ def gather_params(params: PyTree, plan: Optional[GatherPlan] = None
         dims = plan.dims[key]
         if key in STACKED_KEYS and isinstance(sub, dict):
             out[key] = tree_map(lambda x, p: _gather_leaf(
-                x, tuple(q for q in p if q[0] == 0), plan.mesh, plan.lead),
+                x, tuple(q for q in p if q[0] == 0), plan, plan.lead),
                 sub, dims)
         else:
             out[key] = tree_map(lambda x, p: _gather_leaf(
-                x, p, plan.mesh, plan.lead), sub, dims)
+                x, p, plan, plan.lead), sub, dims)
     return out
 
 
@@ -133,5 +170,5 @@ def gather_entry(plan: Optional[GatherPlan], entry: PyTree,
     if plan is None:
         return entry
     return tree_map(lambda x, p: _gather_leaf(
-        x, tuple((d - 1, a) for d, a in p if d > 0), plan.mesh,
-        plan.lead), entry, plan.dims[key])
+        x, tuple((d - 1, a) for d, a in p if d > 0), plan, plan.lead),
+        entry, plan.dims[key])

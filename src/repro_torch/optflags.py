@@ -19,6 +19,13 @@ the port still takes effect:
   (G the largest divisor of a worker's N ≤ 16), each with its own sort and
   capacity (``models/moe.moe_apply``); it changes which (token, k) pairs
   the capacity drops, so it changes results, as in the reference.
+* ``enabled("rs_grads")`` — the sketched mode on a mesh sums a worker's
+  gradient over the data ranks that split its batch as a reduce-scatter
+  into each rank's shard where the codec's fsdp dim rides those ranks
+  (``models/gather``'s backward), not as an all-reduce of the full
+  gradient and a narrow; the sum is the same.  Elsewhere no rank sums a
+  gradient the grid shards, so the flag changes nothing
+  (``train/llm_trainer.make_sketched``).
 
 ``SCAN_CHUNK`` (``REPRO_SCAN_CHUNK``, 512) and ``ATTN_CHUNK``
 (``REPRO_ATTN_CHUNK``, 512) are the chunk lengths.

@@ -27,13 +27,14 @@ Presets (``make_scenario(name, ccfg)``):
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import rng
 from repro_torch.core import cplx
-from repro_torch.core.channel import ChannelConfig, awgn, rayleigh
+from repro_torch.core.channel import (ChannelConfig, awgn, rayleigh,
+                                      rayleigh_rows)
 from repro_torch.core.cplx import Complex
 from repro_torch.phy import csi as _csi
 from repro_torch.phy import fading as _fading
@@ -130,6 +131,11 @@ class Scenario:
 
     name: str
     cfg: PhyConfig
+    #: the fading's rows keyed by worker (``channel.rayleigh_rows``: the
+    #: LLM trainer's draw, so its ``block-fading`` scenario is its packed
+    #: block bit for bit); else the whole plane from one key (the flat
+    #: trainer's, whose legacy channel draws so)
+    row_keyed: bool = False
 
     @property
     def truncating(self) -> bool:
@@ -183,6 +189,13 @@ class Scenario:
             return False
         return state.age == 0
 
+    def _fading(self, key: int, n_workers: int, d: int, device) -> Complex:
+        """A (W, d) Rayleigh plane of the fading, by :attr:`row_keyed`'s
+        rule."""
+        if self.row_keyed:
+            return rayleigh_rows(key, range(n_workers), d, device)
+        return rayleigh(rng.generator(key, device), (n_workers, d))
+
     def _csi_shape(self, n_workers: int, d: int) -> Tuple[int, int]:
         # narrowband: ONE error per worker, drawn on the (W, 1) scalar
         return (n_workers, 1) if self.cfg.freq_flat else (n_workers, d)
@@ -193,11 +206,17 @@ class Scenario:
         return awgn(rng.generator(kc, device), shape, self.cfg.csi_err ** 2)
 
     def init(self, key: int, n_workers: int, d: int, device,
-             shard: Optional[int] = None) -> PhyState:
+             shard: Optional[int] = None,
+             mask_fn: Optional[Callable[[Complex], Tensor]] = None
+             ) -> PhyState:
+        """The scenario's first state over (``n_workers``, ``d``) planes.
+        ``mask_fn`` replaces :func:`participation_mask` (a shard grid's
+        planes hold a slice of each row, so its RMS needs the grid's
+        sum)."""
         cfg = self.cfg
         kf, kg, kc = self._keys(key, shard)
-        shape = (n_workers, 1) if cfg.freq_flat else (n_workers, d)
-        h_small = rayleigh(rng.generator(kf, device), shape)
+        h_small = self._fading(kf, n_workers, 1 if cfg.freq_flat else d,
+                               device)
         gain = shadow = pos = dest = None
         if self.has_geometry:
             kp, ks = rng.split(kg)
@@ -208,7 +227,7 @@ class Scenario:
             gain = _geo.worker_gains(pos, shadow, cfg.geometry)
         return self._assemble(h_small, gain, shadow, pos, dest, 0, d,
                               self._draw_csi(kc, self._csi_shape(n_workers, d),
-                                             device))
+                                             device), mask_fn)
 
     def draw(self, key: int, state: PhyState,
              shard: Optional[int] = None) -> PhyDraws:
@@ -225,7 +244,7 @@ class Scenario:
         h_small = state.h if state.h_small is None else state.h_small
         w = None
         if _fading.redraws(state.age, cfg.coherence_iters):
-            w = rayleigh(rng.generator(kf, dev), tuple(h_small.re.shape))
+            w = self._fading(kf, *h_small.re.shape, dev)
         dest_fresh = shadow_fresh = None
         if self.mobile:
             n = state.pos.shape[0]
@@ -239,8 +258,11 @@ class Scenario:
         return PhyDraws(w=w, dest_fresh=dest_fresh, shadow_fresh=shadow_fresh,
                         csi_err=self._draw_csi(kc, self._csi_shape(W, d), dev))
 
-    def step(self, state: PhyState, draws: PhyDraws) -> PhyState:
-        """Advance one round on the given draws (:meth:`draw`)."""
+    def step(self, state: PhyState, draws: PhyDraws,
+             mask_fn: Optional[Callable[[Complex], Tensor]] = None
+             ) -> PhyState:
+        """Advance one round on the given draws (:meth:`draw`); ``mask_fn``
+        as :meth:`init`'s."""
         cfg = self.cfg
         if self._static:
             return state._replace(age=state.age + 1)
@@ -256,10 +278,12 @@ class Scenario:
             h_small, age, _ = _fading.correlated_step(
                 h_small, draws.w, state.age, cfg.rho, cfg.coherence_iters)
         return self._assemble(h_small, gain, shadow, pos, dest, age,
-                              state.h.re.shape[-1], draws.csi_err)
+                              state.h.re.shape[-1], draws.csi_err, mask_fn)
 
     def _assemble(self, h_small: Complex, gain, shadow, pos, dest, age: int,
-                  d: int, csi_err: Optional[Complex]) -> PhyState:
+                  d: int, csi_err: Optional[Complex],
+                  mask_fn: Optional[Callable[[Complex], Tensor]] = None
+                  ) -> PhyState:
         """Derive (h, h_hat, mask) from the independent state components."""
         cfg = self.cfg
         if cfg.freq_flat:
@@ -279,8 +303,10 @@ class Scenario:
                      if self.imperfect_csi else None)
             known = h if h_hat is None else h_hat
         # the truncation decision is the worker's: it knows only its CSI
-        mask = participation_mask(known, cfg.h_min) \
-            if self.truncating else None
+        mask = None
+        if self.truncating:
+            mask = (participation_mask(known, cfg.h_min) if mask_fn is None
+                    else mask_fn(known))
         keep_small = cfg.freq_flat or gain is not None
         return PhyState(h=h, h_small=h_small if keep_small else None,
                         h_hat=h_hat, gain=gain, shadow=shadow, pos=pos,
@@ -318,7 +344,8 @@ def make_scenario(name: str, ccfg: Optional[ChannelConfig] = None, *,
                   rho: Optional[float] = None,
                   geometry: Optional[GeometryConfig] = None,
                   freq_flat: Optional[bool] = None,
-                  slots_per_round: Optional[int] = None) -> Scenario:
+                  slots_per_round: Optional[int] = None,
+                  row_keyed: bool = False) -> Scenario:
     """Build a preset scenario, with per-experiment overrides.
 
     ``ccfg`` supplies the slot length (Doppler → rho conversion) and the
@@ -326,7 +353,8 @@ def make_scenario(name: str, ccfg: Optional[ChannelConfig] = None, *,
     which wins over the ``ChannelConfig`` defaults.  There is one slot
     clock: the geometry's ``slot_seconds`` is set to the slot the Doppler
     conversion uses, scaled by ``slots_per_round``, so fading decorrelation
-    and waypoint mobility advance in lock-step.
+    and waypoint mobility advance in lock-step.  ``row_keyed``: the
+    fading drawn by :attr:`Scenario.row_keyed`'s rule (the LLM trainer's).
     """
     if name not in PRESETS:
         raise ValueError(
@@ -362,4 +390,4 @@ def make_scenario(name: str, ccfg: Optional[ChannelConfig] = None, *,
         geometry=geom,
         slots_per_round=spr,
     )
-    return Scenario(name=name, cfg=cfg)
+    return Scenario(name=name, cfg=cfg, row_keyed=row_keyed)

@@ -1,5 +1,6 @@
 """Federated LLM training: A-FADMM as the aggregation layer.  Counterpart
-of ``repro/train/llm_trainer.py`` on one device, in both of its modes.
+of ``repro/train/llm_trainer.py``, in both of its modes, on one device or
+as the ranks of a mesh.
 
 ``replicated``: every FL worker owns a full (θ_n, λ_n) copy; per-worker
 tensors carry a leading worker dim W.  The local prox steps run all workers
@@ -35,22 +36,29 @@ reports the loss alone).
 
 A round's random planes are a :class:`TreeRoundDraws`, drawn from the round
 key when not given (:func:`draw_round`), so a test can replay the JAX
-package's.  ``telemetry`` adds the round's ``obs/`` keys
+package's.  A packed fading block's row w comes from ``fold_in(kc, w)``
+(``channel.rayleigh_rows``; a scenario's fading too,
+``Scenario.row_keyed``), so a pure-data mesh's ranks draw one device's
+rows.  ``telemetry`` adds the round's ``obs/`` keys
 (``repro_torch.obs``) and ``ota_block_cols`` picks the fused kernel's plan
 (``kernels/ota_round.block_cols_choices``).
 
-``mesh`` (a ``launch.mesh.Mesh``; the replicated mode) runs the trainer as
-one rank of a (data, fsdp, model) process grid.  The rank holds the rows of
-its workers (its coordinate on the data axes) and, when the grid shards
-the model (model > 1 or fsdp > 1), its (fsdp, model) shard of θ, Θ, the
-optimizer state and of the global shard-packed (W, d_pad) λ and h
+``mesh`` (a ``launch.mesh.Mesh``) runs the trainer as one rank of a
+(data, fsdp, model) process grid.  In the replicated mode
+(:func:`_mesh_replicated`) the rank holds the rows of its workers (its
+coordinate on the data axes) and, when the grid shards the model (model >
+1 or fsdp > 1), its (fsdp, model) shard of θ, Θ, the optimizer state and
+of the global shard-packed (W, d_pad) λ and h
 (``core.packing.ShardPackSpec`` over ``launch.shardings.shard_dims_2d``).
 The local steps run the gathered forward (``models.gather``), the penalty
 reads λ and h through ``tree_ota.unpack_cplx_shard_local`` and the round is
 ``tree_ota.ota_tree_round_shard_local``.  A pure-data mesh keeps the global
-packed layout, its worker rows split over the data axes.  Refused by name:
-the sketched mode under a mesh (ROADMAP queue A item 6b) and a transport
-backend override.
+packed layout, its worker rows split over the data axes, and samples a
+cohort; ``packed_uplink=False`` runs the leafwise round on each rank's
+blocks.  In the sketched mode Θ is the rank's shard of the codec's grid,
+each rank encodes its resident slice and the partial sketches sum over
+the grid (:func:`make_sketched`).  A transport backend override is refused
+by name.
 """
 from __future__ import annotations
 
@@ -60,18 +68,23 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import obs as _obs
-from repro_torch import rng
+from repro_torch import optflags, rng
 from repro_torch.core import cohort as _cohort
 from repro_torch.core import cplx, transport
 from repro_torch.core.admm import AdmmConfig
-from repro_torch.core.channel import ChannelConfig, rayleigh
+from repro_torch.core.channel import ChannelConfig, rayleigh, rayleigh_rows
 from repro_torch.core.cplx import Complex
 from repro_torch.core.packing import (build_packspec, build_shard_packspec,
-                                      shard_tree, unpack_cplx)
-from repro_torch.core.sketch import chunks, decode_packed, encode_chunked
-from repro_torch.core.tree_ota import (TreeFLState, _zmap, draw_channel_tree,
+                                      pack_shard_local, shard_tree,
+                                      shard_valid_mask, unpack_cplx,
+                                      unpack_shard_local)
+from repro_torch.core.sketch import (chunks, decode_packed,
+                                     decode_shard_local, encode_chunked,
+                                     encode_shard_local)
+from repro_torch.core.tree_ota import (TreeChannel, TreeFLState, _zmap,
+                                       draw_channel_tree,
                                        init_channel_packed, init_channel_tree,
-                                       ota_tree_round,
+                                       ota_tree_round, ota_tree_round_leafwise,
                                        ota_tree_round_packed_state,
                                        ota_tree_round_shard_local, redraws,
                                        shard_coords, shard_replication,
@@ -176,7 +189,7 @@ def _device_of(state) -> torch.device:
 
 
 def block_key(key: int, shard: int, data_rank: int) -> int:
-    """The key of a mesh rank's block of a (W, d_pad) plane: the rank
+    """The key of a shard-grid rank's block of a (W, d_pad) plane: the rank
     draws its (W_local, d_local) block alone, from the plane's key folded
     with its shard and then its data rank."""
     return rng.fold_in(rng.fold_in(key, shard), data_rank)
@@ -193,33 +206,45 @@ def draw_round(key: int, state: TreeFLState, ccfg: ChannelConfig, *,
     scenario's draws), ``kn`` the noise (per leaf: ``split(kn, n_leaves)``
     for the leafwise state) and the guard's planes (folds of ``kn``); the
     fault uniforms from the key's ``FAULT_SALT`` fold and the cohort plane
-    from its ``COHORT_SALT`` fold.
+    from its ``COHORT_SALT`` fold.  A packed redraw block is
+    ``channel.rayleigh_rows``': worker w's row from ``fold_in(kc, w)``.
 
     ``mesh_rank = (shard j, data rank, shard_local)`` draws one mesh rank's
-    planes: its redraw block from :func:`block_key` (a scenario's from its
-    shard's keys, ``Scenario.draw(shard=)``, every worker's row), its noise
-    (d_local,) from ``fold_in(kn, j)`` on the shard-local layout (JAX's
-    per-shard noise) or from ``kn`` on a pure-data mesh (the packed
-    round's), and the guard's planes from that noise key; the fault
-    uniforms stay global."""
+    planes.  On a pure-data mesh its redraw rows are the rows of its
+    workers (the one-device plane's, bit for bit) and its noise is the
+    packed round's, from ``kn``.  On the shard grid its redraw block comes
+    from :func:`block_key` (a scenario's from its shard's keys,
+    ``Scenario.draw(shard=)``, every worker's row) and its noise (d_local,)
+    from ``fold_in(kn, j)`` (JAX's per-shard noise); the guard's planes
+    come from that noise key.  The fault uniforms and the cohort plane stay
+    global."""
     kc, kn = rng.split(key)
     dev = _device_of(state)
     leafwise = not isinstance(state.lam, Complex)
     h_fresh = phy = None
     shard = None
+    row0 = 0
     if mesh_rank is not None:
         j, jd, shard_local = mesh_rank
-        shard = j if shard_local else None
-        if scenario is None:
-            kc = block_key(kc, j, jd)
         if shard_local:
+            shard = j
             kn = rng.fold_in(kn, j)
+            if scenario is None:
+                kc = block_key(kc, j, jd)
+        elif not leafwise:
+            row0 = jd * state.lam.re.shape[0]
     if scenario is not None:
         phy = (scenario.draw(kc, state.chan) if shard is None
                else scenario.draw(kc, state.chan, shard=shard))
     elif redraws(state.chan, ccfg):
-        h_fresh = (draw_channel_tree(kc, state.chan.h) if leafwise else
-                   rayleigh(rng.generator(kc, dev), tuple(state.lam.re.shape)))
+        if leafwise:
+            h_fresh = draw_channel_tree(kc, state.chan.h)
+        elif shard is not None:
+            h_fresh = rayleigh(rng.generator(kc, dev),
+                               tuple(state.lam.re.shape))
+        else:
+            W_l, d = state.lam.re.shape
+            h_fresh = rayleigh_rows(kc, range(row0, row0 + W_l), d, dev)
     if leafwise:
         leaves = tree_leaves(state.theta)
         noise = [transport.matched_filter_noise_re(
@@ -250,16 +275,10 @@ def _local_opt(flcfg: FLConfig):
     return sgd(flcfg.local_lr)
 
 
-def _refuse_unported(flcfg: FLConfig, mesh, model: Model) -> None:
-    """NotImplementedError for every FLConfig feature the port lacks, named
-    with its ROADMAP item, so none is silently ignored; ValueError for a
+def _refuse_unported(flcfg: FLConfig, model: Model) -> None:
+    """ValueError for a transport backend other than the port's and for a
     column tile no plan of the fused kernel takes at the round's (W, D)."""
     transport.check_backend_choice(flcfg.transport_backend)
-    if mesh is not None and flcfg.packed_uplink is False:
-        raise NotImplementedError(
-            "FLConfig.packed_uplink=False under a mesh: the leafwise round "
-            "runs on one device only (ROADMAP queue A item 6e)")
-
     if flcfg.ota_block_cols is not None:
         width = flcfg.cohort if flcfg.population is not None else \
             flcfg.n_workers
@@ -286,7 +305,7 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
     globally packed (W, D) buffer each for λ and h, or per-leaf trees under
     ``packed_uplink=False``; under ``mesh`` one rank's part of the state
     and of the round (:func:`_mesh_replicated`)."""
-    _refuse_unported(flcfg, mesh, model)
+    _refuse_unported(flcfg, model)
     cohort_cfg = None
     if flcfg.population is not None:
         if flcfg.cohort is None:
@@ -313,7 +332,8 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
         scn = make_scenario(flcfg.scenario, ccfg,
                             doppler_hz=flcfg.doppler_hz,
                             csi_err=flcfg.csi_err, h_min=flcfg.h_min,
-                            slots_per_round=flcfg.slots_per_round)
+                            slots_per_round=flcfg.slots_per_round,
+                            row_keyed=True)
     fplan, gcfg = flcfg.faults, flcfg.guard
     if (fplan is not None or gcfg is not None) \
             and flcfg.packed_uplink is False:
@@ -333,12 +353,13 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
             "layout (packed_uplink != False)")
     if mesh is not None:
         return _mesh_replicated(model, flcfg, acfg, ccfg, mesh, dev, W, opt,
-                                tel, sampling, scn)
+                                tel, cohort_cfg, scn, packed_layout)
 
     def init_fn(key: int) -> TreeFLState:
         """Per-worker random init (worker w from ``fold_in(kp, w)``), Θ the
-        workers' mean in the param dtype, λ = 0, one Rayleigh block (or the
-        scenario's initial state), the fault plan's fresh state."""
+        workers' mean in the param dtype, λ = 0, one Rayleigh block (worker
+        w's row from ``fold_in(kc, w)``; or the scenario's initial state),
+        the fault plan's fresh state."""
         kp, kc = rng.split(key)
         theta = tree_stack([model.init(rng.fold_in(kp, w), device=dev)
                             for w in range(W)])           # leaves (W, ...)
@@ -348,7 +369,7 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
             d = build_packspec(theta, batch_dims=1).d
             lam = cplx.czero((W, d), device=dev)
             chan = (scn.init(kc, W, d, dev) if scn is not None else
-                    init_channel_packed(rng.generator(kc, dev), W, d))
+                    init_channel_packed(kc, range(W), d, dev))
             if fplan is not None:
                 # straggler snapshots live in the packed layout, as λ
                 flt = _fplan.init(fplan, W, d, dev)
@@ -505,7 +526,7 @@ def make_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
 
 def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
                      ccfg: ChannelConfig, mesh, dev: torch.device, W: int,
-                     opt, tel, sampling: bool, scn):
+                     opt, tel, cohort_cfg, scn, packed_layout: bool):
     """The replicated mode as one rank of ``mesh`` (SPMD: every rank runs
     the same calls, with the mesh's collectives where the JAX package's
     ``shard_map`` bodies and XLA's partitioning put theirs).
@@ -515,18 +536,35 @@ def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
     θ, Θ and the optimizer state as resident blocks, λ and h as its
     ``(W_l, d_local)`` block of the global shard-packed ``(W, d_pad)``
     planes.  A pure-data mesh keeps the global packed layout (a 1 x 1
-    grid's ``ShardPackSpec`` is ``PackSpec``'s).  ``init_fn`` builds the
-    layout from the full init it slices, so it runs before ``train_step``.
-    Each rank draws its own blocks of h and of the noise
-    (``draw_round(mesh_rank=...)``); the batch a rank's ``train_step`` takes
-    is its workers' rows (W_l, B, ...).  A round's metrics are global
-    values, the same on every rank.
+    grid's ``ShardPackSpec`` is ``PackSpec``'s), and its h rows are the
+    one-device plane's (``channel.rayleigh_rows``), so it computes one
+    device's rounds.  ``init_fn`` builds the layout from the full init it
+    slices, so it runs before ``train_step``.  The batch a rank's
+    ``train_step`` takes is its workers' rows (W_l, B, ...).  A round's
+    metrics are global values, the same on every rank.
 
     Under a scenario the rank's ``PhyState`` holds every worker's row and
     its shard's columns (``Scenario.init(shard=)``: the per-worker state,
     the geometry and a frequency-flat fade, is every rank's; the
     per-element planes are the shard's), so the mask is global and the
-    round reads the rank's rows."""
+    round reads the rank's rows.  A truncating per-element scenario on the
+    shard grid takes each row's RMS over the grid (one psum of a (W,) sum
+    of squares; padding never counts).
+
+    Cohort sampling (a pure-data mesh; the shard grid refuses it, as the
+    JAX package does): the population's rows split over the data ranks, and
+    the round's cohort (the same indices on every rank) splits as a batch
+    does, ``cohort / n_data`` sampled workers a rank.  A rank's cohort rows
+    of θ, the optimizer state, λ, h and the straggler snapshot come from
+    their owners by one all-gather over the data axes a tensor, and go back
+    to them the same way after the round.
+
+    ``packed_uplink=False`` keeps θ's leaf layout for λ and h too: the
+    rank's (fsdp, model) block of each leaf, its workers' rows, and the
+    leafwise round (``tree_ota.ota_tree_round_leafwise(mesh=)``).  Leaf
+    i's block of h and of the noise draw from ``fold_in(kc, i)`` folded
+    with the block's grid index (then the data rank, for h), so the ranks
+    that hold one block draw it alike."""
     from repro_torch.launch.shardings import shard_dims_2d
 
     fplan, gcfg = flcfg.faults, flcfg.guard
@@ -534,28 +572,25 @@ def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
     fsdp_n = mesh.shape.get("fsdp", 1)
     shard_local = model_n > 1 or fsdp_n > 1
     mc = shard_coords(mesh)
-    if sampling:
-        if shard_local:
-            raise ValueError(
-                "FLConfig.population/cohort sampling is not supported on "
-                "the shard-local packed layout yet — run cohort sampling "
-                "on a single-device or pure-data mesh")
-        raise NotImplementedError(
-            "FLConfig.population/cohort sampling on a pure-data mesh is not "
-            "ported yet (ROADMAP queue A item 6e)")
-    if W % mc.n_data:
-        raise ValueError(f"{W} workers do not split over the {mc.n_data} "
-                         f"ranks of the data axes {mc.daxes}")
-    if (scn is not None and shard_local and scn.truncating
-            and not scn.cfg.freq_flat):
-        raise NotImplementedError(
-            f"FLConfig.scenario {flcfg.scenario!r} truncates on the RMS of "
-            f"a whole (W, d) row, which a shard grid splits; not ported yet "
-            f"(ROADMAP queue A item 6e)")
+    sampling = _cohort.cohort_active(cohort_cfg)
+    if sampling and shard_local:
+        raise ValueError(
+            "FLConfig.population/cohort sampling is not supported on "
+            "the shard-local packed layout yet — run cohort sampling "
+            "on a single-device or pure-data mesh")
+    Wc = cohort_cfg.cohort if cohort_cfg is not None else W
+    for n, what in ((W, "workers"), (Wc, "cohort workers")):
+        if n % mc.n_data:
+            raise ValueError(f"{n} {what} do not split over the "
+                             f"{mc.n_data} ranks of the data axes "
+                             f"{mc.daxes}")
     shard = mc.j if shard_local else None
-    W_l = W // mc.n_data
+    W_l, Wc_l = W // mc.n_data, Wc // mc.n_data
     rows = slice(mc.jd * W_l, (mc.jd + 1) * W_l)     # the rank's workers
+    slots = slice(mc.jd * Wc_l, (mc.jd + 1) * Wc_l)  # its cohort slots
     every = mesh.axis_names
+    grid_rms = (scn is not None and shard_local and scn.truncating
+                and not scn.cfg.freq_flat)
     layout: dict = {}
 
     def spec_of(theta: PyTree):
@@ -567,11 +602,45 @@ def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
         return build_shard_packspec(theta, mdims, model_n, batch_dims=1,
                                     fsdp_dims=fdims, n_fsdp=fsdp_n)
 
+    def rms_mask(known: Complex) -> Tensor:
+        """Deep-fade truncation on the grid: each worker's RMS |h| over its
+        whole row, from the (W, d_local) pieces of the ranks."""
+        sq = torch.where(layout["valid"], cplx.abs2(known), 0.0).sum(-1)
+        sq = mesh.psum(sq, mc.saxes)
+        return (torch.sqrt(sq / float(layout["sspec"].spec.d))
+                >= scn.cfg.h_min)
+
+    mask_fn = rms_mask if grid_rms else None
+
+    def leaf_key(key: int, i: int) -> int:
+        """Leaf i's key folded with the grid index of the rank's block."""
+        sspec = layout["sspec"]
+        jb = ((mc.jf if sspec.fsdp_dims[i] is not None else 0) * model_n
+              + (mc.jm if sspec.shard_dims[i] is not None else 0))
+        return rng.fold_in(rng.fold_in(key, i), jb)
+
+    def leaf_blocks(kc: int, leaves) -> list:
+        return [rayleigh(rng.generator(rng.fold_in(leaf_key(kc, i), mc.jd),
+                                       dev), tuple(leaf.shape))
+                for i, leaf in enumerate(leaves)]
+
+    def leaf_draws(key: int, state: TreeFLState) -> TreeRoundDraws:
+        kc, kn = rng.split(key)
+        leaves = tree_leaves(state.theta)
+        h_fresh = (leaf_blocks(kc, leaves) if redraws(state.chan, ccfg)
+                   else None)
+        noise = [transport.matched_filter_noise_re(
+            rng.generator(leaf_key(kn, i), dev), tuple(leaf.shape[1:]), ccfg)
+            for i, leaf in enumerate(leaves)]
+        return TreeRoundDraws(h_fresh, noise)
+
     def init_fn(key: int) -> TreeFLState:
         """Each rank inits its workers as one device inits them (worker w
         from ``fold_in(kp, w)``) and keeps its shard of them, bit for bit
-        the one-device init's slice; Θ is the mean over all W workers; λ =
-        0 and h its block of one Rayleigh draw (:func:`block_key`)."""
+        the one-device init's slice; Θ is the mean over all W workers, as
+        one device sums it; λ = 0; h the rank's rows of the one-device
+        plane on a pure-data mesh, else its block (:func:`block_key`; per
+        leaf under ``packed_uplink=False``)."""
         kp, kc = rng.split(key)
         full = tree_stack([model.init(rng.fold_in(kp, w), device=dev)
                            for w in range(W)[rows]])
@@ -580,24 +649,35 @@ def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
         layout["plan"] = (_gather.make_plan(full, sspec.shard_dims,
                                             sspec.fsdp_dims, mesh)
                           if shard_local else None)
-        if mc.n_data == 1:
-            Theta = tree_map(lambda l: l.float().mean(0).to(l.dtype), full)
-        else:
-            Theta = tree_map(lambda l: (mesh.psum(l.float().sum(0),
-                                                  mc.daxes) / W).to(l.dtype),
-                             full)
+        layout["valid"] = (shard_valid_mask(sspec, mc.j, dev) if grid_rms
+                           else None)
+        # Θ is the mean over every worker's rows, gathered, in one
+        # device's order of summation
+        Theta = tree_map(lambda l: mesh.all_gather(l, mc.daxes, 0).float()
+                         .mean(0).to(l.dtype), full)
         theta = tree_map(torch.clone, shard_tree(sspec, full, mc.j))
         Theta = tree_map(torch.clone, shard_tree(sspec, Theta, mc.j))
         del full
         d_local = sspec.d_local
+        flt = None
+        if not packed_layout:
+            lam = tree_map(lambda l: cplx.czero(tuple(l.shape), device=dev),
+                           theta)
+            leaves, treedef = tree_flatten(theta)
+            chan = TreeChannel(h=tree_unflatten(treedef,
+                                                leaf_blocks(kc, leaves)),
+                               age=0)
+            return TreeFLState(theta=theta, lam=lam, Theta=Theta, chan=chan,
+                               opt=opt.init(theta), step=0, flt=None)
         lam = cplx.czero((W_l, d_local), device=dev)
         if scn is not None:
-            chan = (scn.init(kc, W, d_local, dev) if shard is None
-                    else scn.init(kc, W, d_local, dev, shard=shard))
+            chan = scn.init(kc, W, d_local, dev, shard=shard,
+                            mask_fn=mask_fn)
+        elif shard_local:
+            chan = TreeChannel(h=rayleigh(rng.generator(
+                block_key(kc, mc.j, mc.jd), dev), (W_l, d_local)), age=0)
         else:
-            chan = init_channel_packed(rng.generator(
-                block_key(kc, mc.j, mc.jd), dev), W_l, d_local)
-        flt = None
+            chan = init_channel_packed(kc, range(W)[rows], d_local, dev)
         if fplan is not None:
             # alive is every rank's global (W,); the straggler snapshot is
             # the rank's block, as λ
@@ -609,6 +689,40 @@ def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
                                                device=dev))
         return TreeFLState(theta=theta, lam=lam, Theta=Theta, chan=chan,
                            opt=opt.init(theta), step=0, flt=flt)
+
+    def take(x: Optional[Tensor], idx: Tensor) -> Optional[Tensor]:
+        """The rows of this rank's cohort slots from the population rows
+        the data ranks hold: every rank lays the rows it owns into a (Wc,
+        ...) plane, and one all-gather over the data axes brings each slot
+        its owner's row."""
+        if x is None:
+            return None
+        if isinstance(x, Complex):
+            return Complex(take(x.re, idx), take(x.im, idx))
+        own = idx // W_l == mc.jd
+        buf = torch.zeros((Wc,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        buf[own] = x[idx[own] - mc.jd * W_l]
+        pieces = mesh.all_gather(buf, mc.daxes, 0)     # (n_data·Wc, ...)
+        mine = idx[slots]
+        return pieces[(mine // W_l) * Wc
+                      + torch.arange(slots.start, slots.stop,
+                                     device=idx.device)]
+
+    def put(full, idx: Tensor, new):
+        """This rank's population rows with the cohort's updated rows
+        (``new``: its slots') scattered in: one all-gather of the slots'
+        rows over the data axes."""
+        if full is None:
+            return None
+        if isinstance(full, Complex):
+            return Complex(put(full.re, idx, new.re), put(full.im, idx,
+                                                          new.im))
+        every_slot = mesh.all_gather(new.contiguous(), mc.daxes, 0)
+        own = idx // W_l == mc.jd
+        out = full.clone()
+        out[idx[own] - mc.jd * W_l] = every_slot[own].to(full.dtype)
+        return out
 
     def local_step(theta, opt_state, batch, lam_tree, h_tree, Theta):
         leaves = tree_map(lambda l: l.detach().requires_grad_(), theta)
@@ -624,10 +738,10 @@ def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
         return theta, opt_state, losses.detach(), lm
 
     def over_workers(v: Tensor) -> Tensor:
-        """The mean over all W workers of a (W_l,) per-worker value."""
+        """The mean over the round's Wc workers of a (Wc_l,) value."""
         if mc.n_data == 1:
             return v.float().mean()
-        return mesh.psum(v.float().sum(), mc.daxes) / W
+        return mesh.psum(v.float().sum(), mc.daxes) / Wc
 
     def rms_gap(theta_w: PyTree, Theta: PyTree, sspec) -> Tensor:
         num = None
@@ -642,41 +756,64 @@ def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
     def train_step(state: TreeFLState, batch: dict, key: Optional[int] = None,
                    draws: Optional[TreeRoundDraws] = None
                    ) -> Tuple[TreeFLState, dict]:
-        """One round of this rank.  batch leaves: (W_l, B, ...), the rows
-        of the rank's workers; the round's planes are ``draws`` (this
-        rank's blocks), else drawn from ``key``."""
+        """One round of this rank.  batch leaves: (Wc_l, B, ...), the rows
+        of the rank's workers (its cohort slots under sampling); the
+        round's planes are ``draws`` (this rank's blocks), else drawn from
+        ``key``."""
         sspec = layout.get("sspec")
         if sspec is None:
             raise ValueError("train_step under a mesh: call init_fn first "
                              "(the shard-local layout is built from the "
                              "init it slices)")
+        packed = isinstance(state.lam, Complex)
         if draws is None:
             if key is None:
                 raise ValueError("train_step needs a round key or the "
                                  "round's draws")
-            draws = draw_round(key, state, ccfg, scenario=scn, faults=fplan,
-                               guard=gcfg,
-                               mesh_rank=(mc.j, mc.jd, shard_local))
-        mask = Theta_prev = faults_arg = h_tx_p = None
-        if scn is not None:
-            chan = scn.step(state.chan, draws.phy)   # every worker's rows
-
-            def mine(z):
-                return Complex(z.re[rows], z.im[rows])
-
-            h_air, h_pack = mine(chan.h), mine(_phys_h_tx(chan))
+            draws = (draw_round(key, state, ccfg, scenario=scn,
+                                faults=fplan, guard=gcfg, cohort=cohort_cfg,
+                                mesh_rank=(mc.j, mc.jd, shard_local))
+                     if packed else leaf_draws(key, state))
+        mask = Theta_prev = faults_arg = h_tx_p = idx = None
+        h_all = None
+        if not packed:
+            chan, _ = step_channel_tree(state.chan, ccfg, draws.h_fresh)
+        elif scn is not None:
+            # every worker's rows
+            chan = scn.step(state.chan, draws.phy, mask_fn=mask_fn)
+            h_all = (chan.h, _phys_h_tx(chan))
             if scn.truncating:
                 mask, Theta_prev = chan.mask, state.Theta
-            if scn.imperfect_csi:
-                h_tx_p = h_pack
         else:
             chan, _ = step_channel_packed(state.chan, ccfg, draws.h_fresh)
-            h_air = h_pack = chan.h
         draws = draws._replace(h_fresh=None, phy=None)
         state = state._replace(chan=None)
-        lam_tree = unpack_cplx_shard_local(sspec, state.lam, mesh)
-        h_tree = unpack_cplx_shard_local(sspec, h_pack, mesh)
-        del h_pack
+        theta_run, opt_run, lam_run = state.theta, state.opt, state.lam
+        if sampling:
+            # the cohort: global indices, the same on every rank
+            wgt = None
+            if cohort_cfg.policy != "uniform":
+                wgt = _cohort.channel_weight(chan.h)
+                if scn is None:
+                    wgt = mesh.all_gather(wgt, mc.daxes, 0)
+            idx = _cohort.sample_cohort(cohort_cfg, draws.cohort, wgt)
+            theta_run = tree_map(lambda l: take(l, idx), state.theta)
+            opt_run = _opt_map(lambda l: take(l, idx), state.opt)
+            lam_run = take(state.lam, idx)
+        if h_all is not None:
+            sel = rows if idx is None else idx[slots]
+            h_air, h_pack = (Complex(z.re[sel], z.im[sel]) for z in h_all)
+            if scn.imperfect_csi:
+                h_tx_p = h_pack
+            del h_all
+        elif packed:
+            h_air = h_pack = chan.h if idx is None else take(chan.h, idx)
+        if packed:
+            lam_tree = unpack_cplx_shard_local(sspec, lam_run, mesh)
+            h_tree = unpack_cplx_shard_local(sspec, h_pack, mesh)
+            del h_pack
+        else:
+            lam_tree, h_tree = state.lam, chan.h
         fmetrics = {}
         flt_mid = state.flt
         if fplan is not None:
@@ -686,29 +823,68 @@ def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
             rf, flt_mid, fmetrics = _fplan.draw(fplan, state.flt,
                                                 draws.faults)
             mask = rf.alive if mask is None else mask & rf.alive
-            faults_arg = (fplan, rf, state.flt.stale)
+            stale = state.flt.stale
+            if idx is not None:
+                rt = _cohort.take_rows
+                rf = rf._replace(alive=rt(rf.alive, idx),
+                                 straggler=rt(rf.straggler, idx),
+                                 corrupt=rt(rf.corrupt, idx),
+                                 snapshot_due=rt(rf.snapshot_due, idx))
+                stale = take(stale, idx)
+            faults_arg = (fplan, rf, stale)
         if fplan is not None or gcfg is not None:
             Theta_prev = state.Theta
-        theta, opt_state = state.theta, state.opt
-        state = state._replace(theta=None, opt=None)
+        if idx is not None and mask is not None:
+            mask = mask[idx]         # the round's (Wc,) mask
+        theta, opt_state = theta_run, opt_run
+        if idx is None:
+            del theta_run, opt_run
+            state = state._replace(theta=None, opt=None)
         losses = lm = None
         for _ in range(flcfg.local_steps):
             theta, opt_state, losses, lm = local_step(
                 theta, opt_state, batch, lam_tree, h_tree, state.Theta)
         del lam_tree, h_tree
+        nu_kept = None
+        if idx is not None:
+            nu_kept = opt_state.nu is opt_run.nu
+            del theta_run, opt_run
         with torch.no_grad():
-            Theta_f32, lam_new, m = ota_tree_round_shard_local(
-                theta, state.lam, h_air, draws.noise_re, acfg, ccfg, sspec,
-                mesh, mask=mask, h_tx_p=h_tx_p, Theta_prev=Theta_prev,
-                fused=flcfg.ota_fused, block_cols=flcfg.ota_block_cols,
-                guard=gcfg, guard_draws=draws.guard, faults=faults_arg,
-                telemetry=tel)
-            del draws, faults_arg, h_air, h_tx_p
+            if packed:
+                Theta_f32, lam_new, m = ota_tree_round_shard_local(
+                    theta, lam_run, h_air, draws.noise_re, acfg, ccfg, sspec,
+                    mesh, mask=mask, h_tx_p=h_tx_p, Theta_prev=Theta_prev,
+                    fused=flcfg.ota_fused, block_cols=flcfg.ota_block_cols,
+                    guard=gcfg, guard_draws=draws.guard, faults=faults_arg,
+                    telemetry=tel)
+                del h_air, h_tx_p
+            else:
+                Theta_f32, lam_new, m = ota_tree_round_leafwise(
+                    theta, state.lam, chan.h, draws.noise_re, acfg, ccfg,
+                    mesh=mesh, sspec=sspec)
+            del draws, faults_arg, lam_run
             flt_new = state.flt
             if fplan is not None:
                 aux = m.pop("_fault_aux", {})
-                flt_new = _fplan.commit(flt_mid, aux.get("stale"),
-                                        aux.get("evicted"))
+                stale_new, evicted = aux.get("stale"), aux.get("evicted")
+                if idx is not None:
+                    if stale_new is not None:
+                        stale_new = put(state.flt.stale, idx, stale_new)
+                    if evicted is not None:
+                        evicted = _cohort.put_rows(torch.zeros(
+                            W, dtype=torch.bool, device=dev), idx, evicted)
+                flt_new = _fplan.commit(flt_mid, stale_new, evicted)
+            if idx is not None:
+                # the others keep their pre-round θ, optimizer and λ rows
+                theta = tree_map(lambda full, r: put(full, idx, r),
+                                 state.theta, theta)
+                opt_state = _scatter_opt(state.opt, opt_state, idx, nu_kept,
+                                         put)
+                lam_new = put(state.lam, idx, lam_new)
+                if tel is not None:
+                    m = _obs.merge_disjoint(
+                        m, _cohort.cohort_metrics(cohort_cfg),
+                        who="make_replicated.train_step.cohort")
             Theta_new = _zmap(lambda T, t: T.to(t.dtype), Theta_f32,
                               state.Theta)
             del Theta_f32
@@ -731,19 +907,19 @@ def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
 
 
 def _scatter_opt(full: OptState, new: OptState, idx: Tensor,
-                 nu_kept: bool) -> OptState:
+                 nu_kept: bool, put=_cohort.put_rows) -> OptState:
     """The population's optimizer state with the cohort's updated rows
-    scattered in.  A moment the update passed through untouched
-    (``nu_kept``: sgd's ``nu``) is the population's own, so it is kept
-    rather than scattered back."""
-    mu = tree_map(lambda f, r: _cohort.put_rows(f, idx, r), full.mu, new.mu)
+    scattered in (by ``put``: a mesh's scatter, or ``cohort.put_rows``).
+    A moment the update passed through untouched (``nu_kept``: sgd's
+    ``nu``) is the population's own, so it is kept rather than scattered
+    back."""
+    mu = tree_map(lambda f, r: put(f, idx, r), full.mu, new.mu)
     if new.nu is new.mu:
         nu = mu
     elif nu_kept:
         nu = full.nu
     else:
-        nu = tree_map(lambda f, r: _cohort.put_rows(f, idx, r), full.nu,
-                      new.nu)
+        nu = tree_map(lambda f, r: put(f, idx, r), full.nu, new.nu)
     return OptState(mu=mu, nu=nu, count=new.count)
 
 
@@ -800,7 +976,7 @@ def _sketch_dim(packed_size: int, ratio: int) -> int:
 
 def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
                   ccfg: ChannelConfig, mesh=None, device="cuda"):
-    """``(init_fn, train_step)`` of A-FADMM-CS on one device.
+    """``(init_fn, train_step)`` of A-FADMM-CS.
 
     One shared model Θ; the workers run one after another, each from Θ
     for ``local_steps`` sgd steps on its own batch.  A worker's delta
@@ -812,14 +988,30 @@ def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
     ``ota_tree_round_packed_state``, as one packed leaf: the fused receive,
     the scenario's mask and CSI, faults and the guard.  The consensus
     sketch is decoded leaf by leaf and applied as
-    ``Θ + sketch_lr · decoded`` in the parameter dtype.  On one device the
-    reference's shard-local codec is this packed codec; a ``mesh`` is
-    refused (ROADMAP queue A item 6b)."""
+    ``Θ + sketch_lr · decoded`` in the parameter dtype.
+
+    Under ``mesh`` (SPMD, as the JAX package's ``shard_map`` codec) Θ is
+    held as each rank's shard of the codec's (fsdp, model) grid: the
+    ``fsdp`` axis, or the data axes on a mesh without one
+    (``launch.shardings.fsdp_axes(worker_dim=False)``), by
+    ``shard_dims_2d(worker_dim=False)``.  The local steps run the gathered
+    forward (``models.gather``, no worker dim); a worker's batch rows
+    split over the data axes as XLA partitions the reference's batch, and
+    its gradient sums over them (in the gathers' backward where the grid
+    rides the data axes: an all-reduce, or a reduce-scatter under
+    ``REPRO_OPT=rs_grads``; an all-reduce of the shard's gradient
+    elsewhere).  Each rank encodes its resident slice
+    (``core.packing.pack_shard_local``, ``core.sketch.encode_shard_local``
+    on its canonical indices, a chunk at a time) and one psum over the
+    grid's axes adds the (W, d_s) partial sketches into the global codec's.
+    The (W, d_s) λ, h and scenario state are whole on every rank, drawn
+    from the same key, so the round runs alike on every rank; each rank
+    then decodes its own coordinates (and the B, C and replicated segments
+    it unpacks), with no collective.  ``init_fn.layout`` holds the codec's
+    spec (``"sspec"``), its fsdp axes (``"faxes"``) and the rank's flat
+    shard (``"j"``); a rank's ``train_step`` takes its rows of every
+    worker's batch, (W, B_l, ...)."""
     transport.check_backend_choice(flcfg.transport_backend)
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sketched mode under a mesh (its codec over the shard grid "
-            "and rs_grads) is not ported yet (ROADMAP queue A item 6b)")
     if flcfg.population is not None:
         raise ValueError(
             "FLConfig.population/cohort sampling is a replicated-mode "
@@ -835,20 +1027,26 @@ def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
         scn = make_scenario(flcfg.scenario, ccfg,
                             doppler_hz=flcfg.doppler_hz,
                             csi_err=flcfg.csi_err, h_min=flcfg.h_min,
-                            slots_per_round=flcfg.slots_per_round)
+                            slots_per_round=flcfg.slots_per_round,
+                            row_keyed=True)
     fplan, gcfg = flcfg.faults, flcfg.guard
+    grid = None if mesh is None else _SketchGrid(model, mesh)
+    layout: dict = {}
 
     def init_fn(key: int) -> SketchFLState:
-        """Θ from the model's init, λ = 0 and the channel (or the
-        scenario's state) over (W, d_s), the fault plan's fresh state."""
+        """Θ from the model's init (the rank's shard of it under a mesh),
+        λ = 0 and the channel (or the scenario's state) over (W, d_s), the
+        fault plan's fresh state."""
         kp, kc = rng.split(key)
         Theta = model.init(kp, device=dev)
         d_s = _sketch_dim(build_packspec(Theta).d, ratio)
+        if grid is not None:
+            Theta = grid.init(Theta, layout)
         if flcfg.ota_block_cols is not None:
             _round_k.check_block_cols(W, d_s, flcfg.ota_block_cols)
         lam = cplx.czero((W, d_s), device=dev)
         chan = (scn.init(kc, W, d_s, dev) if scn is not None else
-                init_channel_packed(rng.generator(kc, dev), W, d_s))
+                init_channel_packed(kc, range(W), d_s, dev))
         flt = _fplan.init(fplan, W, d_s, dev) if fplan is not None else None
         return SketchFLState(Theta=Theta, lam=lam, chan=chan, step=0,
                              flt=flt)
@@ -856,61 +1054,64 @@ def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
     def worker_sketch(Theta: PyTree, batch_w: dict, out: Tensor
                       ) -> Tuple[Tensor, dict]:
         """``local_steps`` sgd steps of one worker from Θ, its delta's
-        sketch added into ``out`` (d_s,); returns the loss of the last
-        step (at the θ it started from) and that step's loss terms."""
+        sketch added into ``out`` (d_s,) (the rank's partial sketch under
+        a mesh); returns the loss of the last step (at the θ it started
+        from) and that step's loss terms."""
         with torch.no_grad():
             theta = tree_map(torch.clone, Theta)
-        # one autograd leaf a layer (views of θ), so each layer's gradient
-        # is a tensor of its own
-        run = tree_map(lambda l: l.detach().requires_grad_(),
-                       unstack(theta) if isinstance(theta, dict) else theta)
-        leaves = tree_leaves(run)
-        loss = terms = None
-        for _ in range(flcfg.local_steps):
-            loss, lm = model.loss(run, batch_w)
-            terms = _loss_terms(lm)
-            del lm
-            loss.backward()
-            with torch.no_grad():
-                for p in leaves:
-                    # θ − lr·g in the param dtype: p's storage is θ's
-                    p.sub_(p.grad.to(p.dtype).mul_(flcfg.local_lr))
-                    p.grad = None
-            loss = loss.detach()
-        del run, leaves
+        if grid is not None:
+            loss, terms = grid.local_steps(theta, batch_w, flcfg.local_steps,
+                                           flcfg.local_lr)
+        else:
+            # one autograd leaf a layer (views of θ), so each layer's
+            # gradient is a tensor of its own
+            run = tree_map(lambda l: l.detach().requires_grad_(),
+                           unstack(theta) if isinstance(theta, dict)
+                           else theta)
+            leaves = tree_leaves(run)
+            loss = terms = None
+            for _ in range(flcfg.local_steps):
+                loss, lm = model.loss(run, batch_w)
+                terms = _loss_terms(lm)
+                del lm
+                loss.backward()
+                with torch.no_grad():
+                    for p in leaves:
+                        # θ − lr·g in the param dtype: p's storage is θ's
+                        p.sub_(p.grad.to(p.dtype).mul_(flcfg.local_lr))
+                        p.grad = None
+                loss = loss.detach()
+            del run, leaves
         with torch.no_grad():
             for t, T in zip(tree_leaves(theta), tree_leaves(Theta)):
                 t.sub_(T)              # the delta, rounded in the dtype
-            encode_chunked(tree_leaves(theta), out.shape[-1], SKETCH_SEED,
-                           out=out)
+            if grid is not None:
+                grid.encode(theta, out)
+            else:
+                encode_chunked(tree_leaves(theta), out.shape[-1],
+                               SKETCH_SEED, out=out)
         return loss, terms
 
     def apply_delta(Theta: PyTree, s: Tensor) -> Tuple[PyTree, Tensor]:
-        """Θ + sketch_lr · decode(s), a leaf and a chunk at a time in the
-        param dtype; and ‖decode(s)‖² (f32)."""
-        lr = flcfg.sketch_lr
-        sq = torch.zeros((), dtype=torch.float32, device=s.device)
-        new, off = [], 0
-        leaves, treedef = tree_flatten(Theta)
-        for p in leaves:
-            out = torch.empty_like(p)
-            src, dst = p.reshape(-1), out.view(-1)
-            for a, b in chunks(src.shape[0]):
-                dg = decode_packed(s, b - a, SKETCH_SEED, off + a)
-                if tel is not None:
-                    sq += torch.dot(dg, dg)
-                torch.add(src[a:b], dg.to(p.dtype).mul_(lr), out=dst[a:b])
-            new.append(out)
-            off += src.shape[0]
-        return tree_unflatten(treedef, new), sq
+        """Θ + sketch_lr · decode(s) in the param dtype, and ‖decode(s)‖²
+        (f32) when telemetry reads it."""
+        if grid is not None:
+            return grid.apply_delta(Theta, s, flcfg.sketch_lr,
+                                    tel is not None)
+        return _apply_packed(Theta, s, flcfg.sketch_lr, tel is not None)
 
     def train_step(state: SketchFLState, batch: dict,
                    key: Optional[int] = None,
                    draws: Optional[TreeRoundDraws] = None
                    ) -> Tuple[SketchFLState, dict]:
-        """One round.  batch leaves: (W, B_w, ...), a worker's rows each;
-        the round's planes (at (W, d_s)) are ``draws``, else drawn from
-        ``key`` as the replicated mode draws them."""
+        """One round.  batch leaves: (W, B_w, ...), a worker's rows each
+        (under a mesh, the rank's rows of each); the round's planes (at
+        (W, d_s)) are ``draws``, else drawn from ``key`` as the replicated
+        mode draws them."""
+        if grid is not None and "sspec" not in layout:
+            raise ValueError("train_step under a mesh: call init_fn first "
+                             "(the codec's layout is built from the init "
+                             "it slices)")
         if draws is None:
             if key is None:
                 raise ValueError("train_step needs a round key or the "
@@ -954,6 +1155,9 @@ def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
             terms.append(terms_w)
 
         with torch.no_grad():
+            if grid is not None:
+                # the partial sketches into the global codec's
+                s_w = grid.join(s_w)
             # the consensus round in sketch space: s_w is the packed buffer
             spec = build_packspec(s_w, batch_dims=1)
             Theta_s, lam_new, m = ota_tree_round_packed_state(
@@ -983,7 +1187,205 @@ def make_sketched(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
                                   step=state.step + 1, flt=flt_new)
         return new_state, metrics
 
+    init_fn.layout = layout
     return init_fn, train_step
+
+
+class _SketchGrid:
+    """The sketched mode's codec on a mesh: one rank's part of the local
+    steps, the encode and the decode (:func:`make_sketched`)."""
+
+    def __init__(self, model: Model, mesh):
+        from repro_torch.launch.mesh import axis_size, data_axes
+        from repro_torch.launch.shardings import fsdp_axes
+
+        self.model, self.mesh = model, mesh
+        names = mesh.axis_names
+        self.multi_pod = "pod" in names
+        self.model_n = mesh.shape.get("model", 1)
+        faxes = fsdp_axes(mesh, worker_dim=False,
+                          multi_pod=self.multi_pod) or ()
+        self.faxes = tuple(a for a in faxes if a in names)
+        self.fsdp_n = axis_size(mesh, self.faxes) if self.faxes else 1
+        self.jm = mesh.axis_index("model") if "model" in names else 0
+        self.jf = mesh.axis_index(self.faxes) if self.faxes else 0
+        self.j = self.jf * self.model_n + self.jm
+        self.on = self.model_n > 1 or self.fsdp_n > 1
+        #: the codec grid's axes, fsdp-major
+        self.gaxes = tuple(a for a in self.faxes + ("model",)
+                           if a in names and mesh.shape[a] > 1)
+        #: the axes a worker's batch rows split over
+        self.baxes = tuple(a for a in data_axes(self.multi_pod)
+                           if a in names and mesh.shape[a] > 1)
+        self.n_batch = axis_size(mesh, self.baxes) if self.baxes else 1
+        self.state: dict = {}
+
+    # -- layout -------------------------------------------------------------
+
+    def init(self, Theta: PyTree, layout: dict) -> PyTree:
+        """The rank's shard of the full ``Theta`` (a copy), with the
+        codec's layout built from it into ``layout``."""
+        from repro_torch.core.packing import (b_segment_perm, c_segment_perm,
+                                              rep_segment_perm,
+                                              shard_perm_local)
+        from repro_torch.launch.shardings import shard_dims_2d
+
+        dev = tree_leaves(Theta)[0].device
+        if self.on:
+            mdims, fdims = shard_dims_2d(Theta, self.model.cfg, self.mesh,
+                                         multi_pod=self.multi_pod,
+                                         worker_dim=False)
+            sspec = build_shard_packspec(Theta, mdims, self.model_n,
+                                         fsdp_dims=fdims,
+                                         n_fsdp=self.fsdp_n)
+        else:
+            n = len(tree_leaves(Theta))
+            sspec = build_shard_packspec(Theta, (None,) * n, 1)
+        plan = None
+        reduce = (tuple(a for a in self.baxes if a in self.faxes)
+                  if self.on else ())
+        if self.on:
+            plan = _gather.make_plan(Theta, sspec.shard_dims,
+                                     sspec.fsdp_dims, self.mesh, lead=0,
+                                     fsdp_axis=self.faxes or "fsdp",
+                                     reduce=reduce)
+        st = self.state
+        st.update(sspec=sspec, plan=plan)
+        if self.on:
+            st["perm"] = shard_perm_local(sspec, self.j).to(dev)
+            st["valid"] = shard_valid_mask(sspec, self.j, dev)
+            segs = {}
+            if sspec.b_leaves and sspec.n_fsdp > 1:
+                segs["b_seg"] = (b_segment_perm(sspec, self.jm),
+                                 sspec.b_size)
+            if sspec.c_leaves and sspec.n_model > 1:
+                segs["c_seg"] = (c_segment_perm(sspec, self.jf),
+                                 sspec.c_size)
+            if sspec.rep_leaves:
+                segs["rep_seg"] = (rep_segment_perm(sspec), sspec.rep_size)
+            st["segs"] = {k: (p.to(dev), torch.arange(p.shape[0],
+                                                      device=dev) < n)
+                          for k, (p, n) in segs.items()}
+        # the batch axes each leaf's gradient still sums over after its
+        # gathers' backward (which sums over the fsdp axes it rides)
+        st["rest"] = [tuple(a for a in self.baxes
+                            if not (a in reduce and fd is not None))
+                      for fd in sspec.fsdp_dims]
+        layout.update(sspec=sspec, faxes=self.faxes, j=self.j)
+        return tree_map(torch.clone, shard_tree(sspec, Theta, self.j))
+
+    # -- a worker -----------------------------------------------------------
+
+    def local_steps(self, theta: PyTree, batch_w: dict, steps: int,
+                    lr: float) -> Tuple[Tensor, dict]:
+        """``steps`` sgd steps of one worker on this rank's shard ``theta``
+        (in place) and its rows of the batch; the last step's loss and
+        terms, as means over the worker's whole batch."""
+        mesh = self.mesh
+        plan = self.state["plan"]
+        if plan is not None:
+            plan = plan._replace(scatter=optflags.enabled("rs_grads"))
+        run = tree_map(lambda l: l.detach().requires_grad_(), theta)
+        leaves = tree_leaves(run)
+        rest = self.state["rest"]
+        loss = terms = None
+        for _ in range(steps):
+            with _gather.gathering(plan):
+                loss, lm = self.model.loss(_gather.gather_params(run),
+                                           batch_w)
+                # the worker's mean over its batch: each rank's rows weigh
+                # 1 / n_batch of it
+                (loss / self.n_batch if self.n_batch > 1
+                 else loss).backward()
+            terms = _loss_terms(lm)
+            del lm
+            with torch.no_grad():
+                for p, axes in zip(leaves, rest):
+                    g = p.grad if not axes else mesh.psum(p.grad, axes)
+                    p.sub_(g.to(p.dtype).mul_(lr))
+                    p.grad = None
+            loss = loss.detach()
+        if self.n_batch > 1:
+            loss = mesh.psum(loss.float(), self.baxes) / self.n_batch
+            terms = {k: mesh.psum(v, self.baxes) / self.n_batch
+                     for k, v in terms.items()}
+        return loss, terms
+
+    def encode(self, delta: PyTree, out: Tensor) -> None:
+        """This rank's partial sketch of ``delta`` (its shard) into
+        ``out``: its resident slice encoded a chunk at a time against the
+        global codec (the whole packed delta off the grid)."""
+        sspec = self.state["sspec"]
+        if not self.on:
+            encode_chunked(tree_leaves(delta), out.shape[-1], SKETCH_SEED,
+                           out=out)
+            return
+        buf = pack_shard_local(sspec, delta, self.j)
+        perm, valid = self.state["perm"], self.state["valid"]
+        for a, b in chunks(sspec.d_local):
+            encode_shard_local(buf[a:b], perm[a:b], valid[a:b],
+                               out.shape[-1], SKETCH_SEED, out=out)
+
+    def join(self, s_w: Tensor) -> Tensor:
+        """The ranks' partial (W, d_s) sketches summed over the grid."""
+        if not self.on:
+            return s_w
+        return self.mesh.psum(s_w, self.gaxes, inplace=True)
+
+    # -- the consensus ------------------------------------------------------
+
+    def apply_delta(self, Theta: PyTree, s: Tensor, lr: float,
+                    want_sq: bool) -> Tuple[PyTree, Tensor]:
+        """Θ + lr · decode(s) on this rank's shard, in the param dtype, and
+        ‖decode(s)‖² over the whole model (one psum over the grid, a block
+        several ranks hold counted once)."""
+        sspec = self.state["sspec"]
+        if not self.on:
+            return _apply_packed(Theta, s, lr, want_sq)
+        perm, valid = self.state["perm"], self.state["valid"]
+        buf = torch.empty((sspec.d_local,), dtype=torch.float32,
+                          device=s.device)
+        for a, b in chunks(sspec.d_local):
+            buf[a:b] = decode_shard_local(s, perm[a:b], valid[a:b],
+                                          SKETCH_SEED)
+        segs = {k: decode_shard_local(s, p, v, SKETCH_SEED)
+                for k, (p, v) in self.state["segs"].items()}
+        dgs = tree_leaves(unpack_shard_local(
+            sspec, buf, segs.get("rep_seg"), b_seg=segs.get("b_seg"),
+            c_seg=segs.get("c_seg")))
+        leaves, treedef = tree_flatten(Theta)
+        sq = torch.zeros((), dtype=torch.float32, device=s.device)
+        new = []
+        for i, (p, dg) in enumerate(zip(leaves, dgs)):
+            if want_sq and ((sspec.shard_dims[i] is not None or self.jm == 0)
+                            and (sspec.fsdp_dims[i] is not None
+                                 or self.jf == 0)):
+                f = dg.reshape(-1)
+                sq += torch.dot(f, f)
+            new.append(torch.add(p, dg.to(p.dtype, copy=True).mul_(lr)))
+        if want_sq:
+            sq = self.mesh.psum(sq, self.gaxes)
+        return tree_unflatten(treedef, new), sq
+
+
+def _apply_packed(Theta: PyTree, s: Tensor, lr: float,
+                  want_sq: bool) -> Tuple[PyTree, Tensor]:
+    """Θ + lr · decode(s) over the whole packed index space, a leaf and a
+    chunk at a time in the param dtype; and ‖decode(s)‖² (f32)."""
+    sq = torch.zeros((), dtype=torch.float32, device=s.device)
+    new, off = [], 0
+    leaves, treedef = tree_flatten(Theta)
+    for p in leaves:
+        out = torch.empty_like(p)
+        src, dst = p.reshape(-1), out.view(-1)
+        for a, b in chunks(src.shape[0]):
+            dg = decode_packed(s, b - a, SKETCH_SEED, off + a)
+            if want_sq:
+                sq += torch.dot(dg, dg)
+            torch.add(src[a:b], dg.to(p.dtype).mul_(lr), out=dst[a:b])
+        new.append(out)
+        off += src.shape[0]
+    return tree_unflatten(treedef, new), sq
 
 
 def make_fl_train(model: Model, flcfg: FLConfig, acfg: AdmmConfig,

@@ -25,7 +25,9 @@ from repro_torch.benchmarks import fig3_classification  # noqa: E402
 from repro_torch.benchmarks import run as bench_run  # noqa: E402
 from repro_torch.train.fl_trainer import train  # noqa: E402
 
-from torch_replay import replay, t  # noqa: E402
+from torch_replay import one_thread, replay, t  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 #: the optimality gap cancels to a few ulps of f* ≈ 2.5e-3 (2.3e-10 each)
 #: near the optimum; the rest is solve and sum order over 300 rounds

@@ -29,6 +29,9 @@ from repro_torch.launch.train import main  # noqa: E402
 from repro_torch.obs.sink import read_events  # noqa: E402
 from repro_torch.obs.validate import validate_run_dir  # noqa: E402
 from repro_torch.phy.population import autotune_population_step  # noqa: E402
+from torch_replay import one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--arch", "granite-8b", "--reduced", "--device", "cpu",
@@ -101,7 +104,7 @@ def test_launcher_drivers_agree_bitwise(tmp_path):
 
 @pytest.mark.parametrize("flags,exc,match", [
     (["--fsdp", "2"], SystemExit, "must divide"),
-    (["--mode", "sketched", "--fsdp", "2"], SystemExit, "item 6b"),
+    (["--mode", "sketched", "--fsdp", "2"], SystemExit, "must divide"),
     (["--mode", "sketched", "--population", "4", "--cohort", "2"],
      ValueError, "replicated-mode feature"),
     (["--backend", "jnp"], ValueError, "jnp"),
@@ -221,6 +224,39 @@ def test_launcher_fsdp_on_two_ranks(tmp_path):
         lam = zf["lam|re"]
         emb = zf["theta|embed|table"]
     assert lam.shape[0] == 2 and emb.shape[0] == 2
+
+
+def test_launcher_sketched_fsdp_on_two_ranks(tmp_path):
+    """``--mode sketched --fsdp 2`` on two gloo ranks: the codec's grid is
+    the (1, 2, 1) mesh's fsdp axis; the loss falls over 4 rounds, the run
+    dir is valid, the snapshot holds Θ whole and the (W, d_s) duals; an
+    fsdp of 3 is the "must divide" CLI error."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    run_dir, ck = tmp_path / "run", tmp_path / "ck"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *BASE,
+           "--mode", "sketched", "--sketch-ratio", "16", "--sketch-lr",
+           "0.7", "--fsdp", "2", "--rounds", "4", "--log-every", "1",
+           "--run-dir", str(run_dir), "--checkpoint-dir", str(ck),
+           "--checkpoint-every", "4"]
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.count("done: 4 rounds") == 1, proc.stdout
+    assert validate_run_dir(str(run_dir)) == []
+    events = [e for e in read_events(str(run_dir)) if e.get("event") ==
+              "round"]
+    losses = [e["metrics"]["loss"] for e in events]
+    assert len(losses) == 4 and losses[-1] < losses[0], losses
+    with np.load(round_path(str(ck), 4)) as zf:
+        lam, emb = zf["lam|re"], zf["Theta|embed|table"]
+    assert lam.shape[0] == 2 and emb.shape[0] == 512
+    bad = cmd[:cmd.index("--fsdp") + 1] + ["3"] + cmd[cmd.index("--fsdp")
+                                                      + 2:]
+    proc = subprocess.run(bad, env=env, capture_output=True, text=True,
+                          timeout=300, cwd=REPO)
+    assert proc.returncode != 0 and "must divide" in proc.stderr
 
 
 def test_launcher_runs_as_a_module():

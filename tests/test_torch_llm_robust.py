@@ -36,7 +36,10 @@ from repro_torch.train.llm_trainer import (FLConfig, draw_round,  # noqa: E402
                                            make_fl_train)
 from repro_torch.tree import tree_leaves  # noqa: E402
 
-from torch_replay import llm_round_draws, llm_state  # noqa: E402
+from torch_replay import (llm_round_draws, llm_state,  # noqa: E402,F401
+                          one_thread)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 W, B, S = 4, 2, 16
 ROUNDS = 3

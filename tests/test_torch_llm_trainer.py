@@ -38,6 +38,9 @@ from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.train.llm_trainer import (FLConfig, TreeRoundDraws,  # noqa: E402
                                            make_fl_train)
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_replay import one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 W, B, S = 4, 2, 16
 ROUNDS = 5
@@ -265,9 +268,6 @@ def test_twelve_rounds_lower_the_loss():
 
 
 @pytest.mark.parametrize("override,exc", [
-    # the sketched mode runs on one device; a mesh is refused by name
-    pytest.param(dict(mode="sketched", mesh=object()), NotImplementedError,
-                 id="mode-NotImplementedError"),
     (dict(mode="bogus"), ValueError),
     # JAX's ValueErrors: scenarios, faults, guards and sampling need the
     # packed state; a population needs its cohort
@@ -287,11 +287,9 @@ def test_twelve_rounds_lower_the_loss():
 def test_unsupported_options_raise(override, exc):
     model = reg.get_model("granite-8b", reduced=True)
     _, _, acfg, ccfg = _configs(10)
-    override = dict(override)
-    mesh = override.pop("mesh", None)
     flcfg = dataclasses.replace(FLConfig(n_workers=W), **override)
     with pytest.raises(exc):
-        make_fl_train(model, flcfg, acfg, ccfg, mesh=mesh, device="cpu")
+        make_fl_train(model, flcfg, acfg, ccfg, device="cpu")
 
 
 def test_transport_backend_pallas_is_the_ports_route():
@@ -310,16 +308,6 @@ def test_transport_backend_pallas_is_the_ports_route():
             make_fl_train(model, FLConfig(n_workers=W,
                                           transport_backend=backend),
                           acfg, ccfg, device="cpu")
-
-
-def test_a_mesh_is_refused():
-    """The replicated mode runs on a mesh (``tests/test_torch_shard_local
-    .py``); the leafwise state is refused there by name."""
-    model = reg.get_model("granite-8b", reduced=True)
-    _, _, acfg, ccfg = _configs(10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fl_train(model, FLConfig(n_workers=W, packed_uplink=False),
-                      acfg, ccfg, mesh=object(), device="cpu")
 
 
 def test_token_dataset_shape_dtype_and_skew():

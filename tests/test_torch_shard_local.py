@@ -20,7 +20,9 @@ package's contract (``tests/test_shard_local.py``, the shard-local case of
 * the reference's scenario smoke on the grid: deep-fade truncation for 8
   rounds, the loss falling, truncated workers' λ rows frozen;
 * the shard-local kill-and-resume, port against port, bit for bit, under
-  the reference's markov-doppler, faults and guard.
+  the reference's markov-doppler, faults and guard;
+* one round of the sketched mode on (1, 2) (reduced granite-8b, f32)
+  against JAX's ``make_sketched(mesh=...)`` on its state and noise.
 
 Expected values come from one JAX subprocess with four host devices,
 shared by the file; the port's ranks run in two spawns (``torch_mesh``).
@@ -35,12 +37,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.convert import model_params_from_numpy  # noqa: E402
 from repro_torch.core.admm import AdmmConfig  # noqa: E402
 from repro_torch.core.channel import ChannelConfig  # noqa: E402
 from repro_torch.core.cplx import Complex  # noqa: E402
 from repro_torch.core.packing import (build_shard_packspec,  # noqa: E402
-                                      unpack_shard_global)
+                                      shard_tree, unpack_shard_global)
 from repro_torch.core.tree_ota import ota_tree_round_leafwise  # noqa: E402
+from repro_torch.launch.mesh import abstract_mesh  # noqa: E402
+from repro_torch.launch.shardings import shard_dims_2d  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 import torch_mesh as tm  # noqa: E402
 from torch_replay import one_thread  # noqa: E402,F401
@@ -168,6 +174,38 @@ def trainer(arch, rounds, snap=None):
 
 res["granite"] = trainer("granite-8b", 3, snap=1)
 res["falcon"] = trainer("falcon-mamba-7b", 1)
+
+# --- one sketched round on the (1, 2) mesh: reduced granite-8b in f32, its
+# round key's uplink noise kept for the port's replay
+def sketched():
+    cfg = dataclasses.replace(reg.get_config("granite-8b").reduced(),
+                              param_dtype="float32")
+    Wt = 2
+    cc = ChannelConfig(n_workers=Wt, snr_db=40.0, coherence_iters=10)
+    flcfg = FLConfig(mode="sketched", n_workers=Wt, local_steps=1,
+                     local_lr=1e-2, sketch_ratio=16, sketch_lr=0.7)
+    init_fn, step = make_fl_train(reg.build_model(cfg), flcfg,
+                                  AdmmConfig(rho=0.5, flip_on_change=False),
+                                  cc, mesh=mesh)
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (Wt, 2, 16),
+                                               dtype=np.int32)
+    st = init_fn(KEY)
+    key = jax.random.fold_in(KEY, 5)
+    _, kn = jax.random.split(key)
+    d_s = st.lam.re.shape[-1]
+    out = dict(tokens=tokens, Theta0=np_(st.Theta),
+               lam=(np.asarray(st.lam.re), np.asarray(st.lam.im)),
+               h=(np.asarray(st.chan.h.re), np.asarray(st.chan.h.im)),
+               age=int(st.chan.age),
+               noise=np.asarray(transport.matched_filter_noise_re(
+                   kn, (d_s,), cc)))
+    with mesh, axis_rules(mesh):
+        st, met = jax.jit(step)(st, {"tokens": jnp.asarray(tokens)}, key)
+    out.update(loss=float(met["loss"]), Theta=np_(st.Theta),
+               lam_re=np.asarray(st.lam.re))
+    return out
+
+res["sketched"] = sketched()
 with open(f"{out_dir}/jax.pkl", "wb") as f:
     pickle.dump(res, f)
 print("JAX_OK")
@@ -269,7 +307,8 @@ def spawn_a(tmp_path_factory, jax_ref):
              "granite": ("replay", (jax_ref["granite"],)),
              "falcon": ("replay", (jax_ref["falcon"],)),
              "resume": ("resume", (str(ck),)),
-             "scenario": ("scenario", ())}
+             "scenario": ("scenario", ()),
+             "sketched": ("sketched", (jax_ref["sketched"],))}
     return tm.spawn(tm.suite_rank, 2, tmp, parts, str(ck))
 
 
@@ -447,6 +486,30 @@ def test_scenario_trains_on_the_model_parallel_grid(spawn_a):
         assert res["frozen"] and all(res["frozen"]), res["frozen"]
     assert spawn_a[0]["scenario"]["losses"] == \
         spawn_a[1]["scenario"]["losses"]
+
+
+def test_sketched_round_matches_jax(spawn_a, jax_ref):
+    """One sketched round of reduced granite-8b (f32) on the (1, 2) grid,
+    from JAX's state on its round's noise, against the reference's round on
+    its 2-device mesh: the loss to rtol 1e-5 and each rank's Θ shard to
+    atol 1e-5 (``llm_sketched_check``'s bars); both ranks' λ agree."""
+    want = jax_ref["sketched"]
+    ranks = [r["sketched"] for r in spawn_a]
+    for r in ranks:
+        np.testing.assert_allclose(r["loss"], want["loss"], rtol=1e-5)
+    np.testing.assert_array_equal(ranks[0]["lam_re"], ranks[1]["lam_re"])
+    np.testing.assert_allclose(ranks[0]["lam_re"], want["lam_re"],
+                               rtol=1e-5, atol=1e-5)
+    full = model_params_from_numpy(want["Theta"], device="cpu")
+    model = tm._f32_model("granite-8b")
+    mdims, fdims = shard_dims_2d(full, model.cfg,
+                                 abstract_mesh((1, 2), ("data", "model")),
+                                 multi_pod=False, worker_dim=False)
+    sspec = build_shard_packspec(full, mdims, 2, fsdp_dims=fdims)
+    for r in ranks:
+        for g, w in zip(tree_leaves(r["Theta"]),
+                        tree_leaves(shard_tree(sspec, full, r["j"]))):
+            np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=1e-5)
 
 
 def test_min_reduce_fn_hooks_match_jax():

@@ -329,9 +329,6 @@ def test_refusals():
     with pytest.raises(ValueError, match="replicated-mode feature"):
         make_fl_train(model, FLConfig(mode="sketched", population=4,
                                       cohort=2), acfg, ccfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_fl_train(model, FLConfig(mode="sketched"), acfg, ccfg,
-                      mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="positive compression ratio"):
         _sketch_dim(100, 0)
     with pytest.raises(ValueError, match="positive compression ratio"):

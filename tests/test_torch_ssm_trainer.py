@@ -32,6 +32,9 @@ from repro_torch.tree import to_device, tree_leaves  # noqa: E402
 from test_torch_llm_trainer import (_close_state, _configs,  # noqa: E402
                                     _state_from_jax)
 from test_torch_llm_trainer import B, S, W  # noqa: E402
+from torch_replay import one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROUNDS = 5
 KEY = jax.random.PRNGKey(0)

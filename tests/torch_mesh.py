@@ -406,7 +406,8 @@ def suite_rank(rank: int, parts: dict, ckdir: str) -> dict:
     for name, (kind, args) in parts.items():
         fn = {"round": round_rank_on, "checks": checks_rank,
               "guarded": guarded_rank, "replay": replay_rank,
-              "resume": resume_rank, "scenario": scenario_rank}[kind]
+              "resume": resume_rank, "scenario": scenario_rank,
+              "sketched": sketched_replay_rank}[kind]
         out[name] = fn(mesh, *args)
     return out
 
@@ -443,3 +444,462 @@ def grid_rank(rank: int, cases: list) -> list:
 
     return [round_rank_on(make_mesh(case["shape"], case["axes"], "cpu"),
                           case, runs) for case, runs in cases]
+
+
+# ---------------------------------------------------------------------------
+# the pure-data mesh against one device, cohort sampling on it, the shard
+# grid's row-wise truncation, the leafwise state on a mesh
+# ---------------------------------------------------------------------------
+
+def _own_trainer(mesh, W: int, local_steps: int = 2, coherence: int = 2,
+                 **fl):
+    """Reduced granite-8b in f32 on a noise-free link: ``local_steps`` sgd
+    steps at 1e-2, ρ 0.5, 40 dB, coherence ``coherence``, on the CPU."""
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+
+    n = fl.get("population") or W
+    return make_fl_train(
+        _f32_model("granite-8b"),
+        FLConfig(n_workers=W, local_steps=local_steps, local_lr=1e-2, **fl),
+        AdmmConfig(rho=0.5, flip_on_change=False),
+        ChannelConfig(n_workers=n, snr_db=40.0, coherence_iters=coherence,
+                      noisy=False),
+        mesh=mesh, device="cpu")
+
+
+def _tokens(rows: int, seed: int = 7) -> torch.Tensor:
+    return t(np.random.default_rng(seed).integers(0, 128, (rows, 2, 16)))
+
+
+def _run_rounds(init_fn, step, batch, rounds: int, keep_idx=None):
+    """``rounds`` rounds from ``init_fn(0)`` with round keys 1, 2, …: the
+    losses, α⁻¹ and the final state; ``keep_idx(r)`` (a round's sampled
+    population rows) adds whether every other row of θ and λ kept its
+    bits."""
+    st = init_fn(0)
+    losses, inv_alpha, kept = [], [], []
+    for r in range(rounds):
+        prev = st
+        st, m = step(st, batch, key=r + 1)
+        losses.append(float(m["loss"]))
+        inv_alpha.append(float(m["inv_alpha"]))
+        if keep_idx is not None:
+            kept.append(_rows_kept(prev, st, keep_idx(r)))
+    return st, losses, inv_alpha, kept
+
+
+def _rows_kept(prev, st, rows) -> bool:
+    from repro_torch.tree import tree_leaves
+
+    ok = True
+    for a, b in zip(tree_leaves(prev.theta), tree_leaves(st.theta)):
+        ok &= bool(torch.equal(a[rows], b[rows]))
+    for a, b in ((prev.lam.re, st.lam.re), (prev.lam.im, st.lam.im)):
+        ok &= bool(torch.equal(a[rows], b[rows]))
+    return ok
+
+
+def _replicated_out(st, losses, inv_alpha, kept=()):
+    return {"losses": losses, "inv_alpha": inv_alpha, "kept": list(kept),
+            "Theta": to_np(st.Theta), "theta": to_np(st.theta),
+            "lam_re": to_np(st.lam.re), "lam_im": to_np(st.lam.im),
+            "h_re": to_np(st.chan.h.re), "h_im": to_np(st.chan.h.im)}
+
+
+def data_mesh_rank(rank: int, fl: dict, rounds: int) -> dict:
+    """On a (2, 1) (data, model) mesh: ``rounds`` noise-free rounds of
+    reduced granite-8b, 2 local steps, coherence 2 (a redraw in round 1),
+    with the trainer options ``fl``; rank 0 also runs them on one device.
+    Under uniform sampling each round's unsampled rows are checked for
+    their bits."""
+    from repro_torch.core import cohort as _cohort
+    from repro_torch.core.tree_ota import shard_coords
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 1), ("data", "model"), "cpu")
+    W = fl.get("cohort") or 2
+    init_fn, step = _own_trainer(mesh, W, **fl)
+    tokens = _tokens(W)
+    c = shard_coords(mesh)
+    W_l = W // c.n_data
+    N = fl.get("population") or W
+    N_l = N // c.n_data
+    keep_idx = None
+    if fl.get("cohort_policy", "uniform") == "uniform" and "population" in fl:
+        cfg = _cohort.CohortConfig(N, W)
+
+        def keep_idx(r):
+            idx = _cohort.sample_cohort(cfg, _cohort.draw_cohort(
+                r + 1, cfg, "cpu")).tolist()
+            return [i - c.jd * N_l for i in range(c.jd * N_l,
+                                                  (c.jd + 1) * N_l)
+                    if i not in idx]
+    st, losses, ia, kept = _run_rounds(
+        init_fn, step, {"tokens": tokens[c.jd * W_l:(c.jd + 1) * W_l]},
+        rounds, keep_idx)
+    out = {"jd": c.jd, "mesh": _replicated_out(st, losses, ia, kept)}
+    if rank == 0:
+        init1, step1 = _own_trainer(None, W, **fl)
+        out["one"] = _replicated_out(*_run_rounds(init1, step1,
+                                                  {"tokens": tokens},
+                                                  rounds)[:3])
+    return out
+
+
+def leafwise_rank(mesh) -> dict:
+    """The leafwise state on ``mesh`` against the packed one, one
+    noise-free round of reduced granite-8b (W = 2, one local step) from the
+    same θ, λ and h: the leafwise state's λ and h are the packed state's
+    planes unpacked to the rank's leaf blocks."""
+    from repro_torch.core.cplx import Complex
+    from repro_torch.core.packing import pack_shard_local, shard_valid_mask
+    from repro_torch.core.tree_ota import (TreeChannel, shard_coords,
+                                           unpack_cplx_shard_local)
+    from repro_torch.train.llm_trainer import TreeRoundDraws
+    from repro_torch.tree import tree_leaves, tree_map
+
+    W = 2
+    init_p, step_p = _own_trainer(mesh, W, local_steps=1, coherence=10)
+    init_l, step_l = _own_trainer(mesh, W, local_steps=1, coherence=10,
+                                  packed_uplink=False)
+    sp = init_p(0)
+    sl = init_l(0)
+    sspec = init_p.layout["sspec"]
+    c = shard_coords(mesh, sspec)
+    rows = slice(c.jd * (W // c.n_data), (c.jd + 1) * (W // c.n_data))
+    # a λ that is not zero: the round's own update from a first round
+    sp, _ = step_p(sp, {"tokens": _tokens(W)[rows]},
+                   draws=TreeRoundDraws(None, torch.zeros(sspec.d_local)))
+
+    def tree(z):
+        return tree_map(lambda x: Complex(x.re.clone(), x.im.clone()),
+                        unpack_cplx_shard_local(sspec, z, mesh))
+    sl = sl._replace(theta=tree_map(torch.clone, sp.theta),
+                     Theta=tree_map(torch.clone, sp.Theta),
+                     lam=tree(sp.lam), chan=TreeChannel(
+                         h=tree(sp.chan.h), age=sp.chan.age),
+                     opt=sp.opt)
+    batch = {"tokens": _tokens(W, 8)[rows]}
+    sp2, mp = step_p(sp, batch, draws=TreeRoundDraws(
+        None, torch.zeros(sspec.d_local)))
+    sl2, ml = step_l(sl, batch, draws=TreeRoundDraws(
+        None, [torch.zeros(leaf.shape[1:]) for leaf in
+               tree_leaves(sl.theta)]))
+    valid = shard_valid_mask(sspec, c.j)
+    lam_l = Complex(
+        pack_shard_local(sspec, tree_map(lambda z: z.re, sl2.lam), c.j),
+        pack_shard_local(sspec, tree_map(lambda z: z.im, sl2.lam), c.j))
+    return {"Theta_p": to_np(sp2.Theta), "Theta_l": to_np(sl2.Theta),
+            "theta_equal": all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(sp2.theta), tree_leaves(sl2.theta))),
+            "lam_p": to_np([sp2.lam.re[:, valid], sp2.lam.im[:, valid]]),
+            "lam_l": to_np([lam_l.re[:, valid], lam_l.im[:, valid]]),
+            "inv_alpha": [float(mp["inv_alpha"]), float(ml["inv_alpha"])],
+            "loss": [float(mp["loss"]), float(ml["loss"])]}
+
+
+def rounds_rank(rank: int, parts: dict) -> dict:
+    """Spawn of ``tests/test_torch_mesh_rounds.py`` on two ranks: each
+    part ``name -> (kind, args)`` on its mesh."""
+    from repro_torch.launch.mesh import make_mesh
+
+    out = {}
+    for name, (kind, args) in parts.items():
+        if kind == "data":
+            out[name] = data_mesh_rank(rank, *args)
+        elif kind == "leafwise":
+            out[name] = leafwise_rank(make_mesh(*args, "cpu"))
+        elif kind == "truncation":
+            out[name] = grid_truncation_rank(
+                make_mesh((1, 2), ("data", "model"), "cpu"), *args)
+    return out
+
+
+def grid_truncation_rank(mesh, rounds: int) -> dict:
+    """``markov-doppler`` with a truncation threshold (a per-element,
+    truncating scenario) on the (1, 2) grid against one device, noise-free,
+    W = 4, one local step, from the one-device run's state and on its
+    draws (each plane carried into the rank's columns of the shard-packed
+    layout).  The threshold lies midway between the second and third
+    weakest workers' initial RMS |h|, so two workers start truncated."""
+    from repro_torch.convert import shard_fl_state, phy_planes
+    from repro_torch.core.cplx import Complex
+    from repro_torch.core.packing import (build_packspec, pack_shard_global,
+                                          shard_tree, unpack)
+    from repro_torch.core.tree_ota import shard_coords
+    from repro_torch.train.llm_trainer import TreeRoundDraws, draw_round
+
+    W = 4
+    h0 = _own_trainer(None, W, local_steps=1, scenario="markov-doppler",
+                      h_min=1e-3)[0](0).chan.h
+    rms = torch.sqrt((h0.re ** 2 + h0.im ** 2).mean(-1)).sort().values
+    fl = dict(scenario="markov-doppler", h_min=float(rms[1] + rms[2]) / 2)
+    init1, step1 = _own_trainer(None, W, local_steps=1, **fl)
+    init_m, step_m = _own_trainer(mesh, W, local_steps=1, **fl)
+    st1 = init1(0)
+    init_m(0)
+    sspec = init_m.layout["sspec"]
+    c = shard_coords(mesh, sspec)
+    spec1 = build_packspec(st1.theta, batch_dims=1)
+    dl = sspec.d_local
+    cols = slice(c.j * dl, (c.j + 1) * dl)
+
+    def grid(x):
+        """A one-device (W, D) plane in the shard-packed (W, d_pad)
+        layout."""
+        return pack_shard_global(sspec, unpack(spec1, x, cast=False))
+
+    def cgrid(z):
+        return None if z is None else Complex(grid(z.re), grid(z.im))
+
+    glob = st1._replace(
+        lam=cgrid(st1.lam),
+        chan=phy_planes(st1.chan, spec1.d, grid))
+    stm = shard_fl_state(glob, sspec, c, c.n_data)
+    tokens = {"tokens": _tokens(W)}
+    out = {"mask_1": [], "mask_m": [], "part_1": [], "part_m": [],
+           "loss_1": [], "loss_m": []}
+    cmask = [st1.chan.mask.tolist(), stm.chan.mask.tolist()]
+    for r in range(rounds):
+        d1 = draw_round(r + 1, st1, _ccfg(W), scenario=_scenario(fl, W))
+        w = d1.phy.w
+        dm = TreeRoundDraws(None, torch.zeros(dl), phy=d1.phy._replace(
+            w=None if w is None else Complex(grid(w.re)[:, cols],
+                                             grid(w.im)[:, cols])))
+        st1, m1 = step1(st1, tokens, draws=d1)
+        stm, mm = step_m(stm, tokens, draws=dm)
+        out["mask_1"].append(st1.chan.mask.tolist())
+        out["mask_m"].append(stm.chan.mask.tolist())
+        out["part_1"].append(float(m1["participation"]))
+        out["part_m"].append(float(mm["participation"]))
+        out["loss_1"].append(float(m1["loss"]))
+        out["loss_m"].append(float(mm["loss"]))
+    lam1 = cgrid(st1.lam)
+    out.update(
+        init_masks=cmask, j=c.j,
+        Theta_1=to_np(shard_tree(sspec, st1.Theta, c.j)),
+        Theta_m=to_np(stm.Theta),
+        lam_1=to_np([lam1.re[:, cols], lam1.im[:, cols]]),
+        lam_m=to_np([stm.lam.re, stm.lam.im]))
+    return out
+
+
+def _ccfg(W: int):
+    from repro_torch.core.channel import ChannelConfig
+
+    return ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=2,
+                         noisy=False)
+
+
+def _scenario(fl: dict, W: int):
+    from repro_torch.phy.scenario import make_scenario
+
+    return make_scenario(fl["scenario"], _ccfg(W), h_min=fl["h_min"])
+
+
+# ---------------------------------------------------------------------------
+# the sketched mode on a mesh
+# ---------------------------------------------------------------------------
+
+def _sketched(mesh, W: int, model=None, **fl):
+    """The sketched trainer on reduced granite-8b in f32 (or ``model``): W
+    workers, one sgd step at 1e-2, ratio 16, sketch_lr 0.7, 40 dB,
+    coherence 10, a noise-free link unless ``noisy=True``, on ``mesh`` and
+    the CPU."""
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+
+    kw = dict(mode="sketched", n_workers=W, local_steps=1, local_lr=1e-2,
+              sketch_ratio=16, sketch_lr=0.7)
+    kw.update(fl)
+    noisy = kw.pop("noisy", False)
+    return make_fl_train(
+        model or _f32_model("granite-8b"), FLConfig(**kw),
+        AdmmConfig(rho=0.5, flip_on_change=False),
+        ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=10,
+                      noisy=noisy), mesh=mesh, device="cpu")
+
+
+def codec_rank(mesh) -> dict:
+    """The codec of the sketched mode's grid on one rank: a random delta
+    of reduced granite-8b's shape (the same on every rank; N(0, 10⁻⁴), an
+    sgd step's size) encoded from the rank's shard and summed over the
+    grid, and a random sketch decoded to the rank's shard (as ``Θ = 0 + 1 ·
+    decode(s)``)."""
+    from repro_torch.core.packing import shard_tree
+    from repro_torch.train.llm_trainer import _SketchGrid
+    from repro_torch.tree import tree_map
+
+    model = _f32_model("granite-8b")
+    full = model.init(0, device="cpu")
+    grid = _SketchGrid(model, mesh)
+    layout: dict = {}
+    grid.init(full, layout)
+    r = np.random.default_rng(11)
+    delta = tree_map(lambda l: t((1e-2 * r.standard_normal(tuple(l.shape)))
+                                 .astype(np.float32)), full)
+    mine = tree_map(torch.clone, shard_tree(layout["sspec"], delta,
+                                            layout["j"]))
+    d_s = 4099
+    out = torch.zeros((1, d_s))
+    grid.encode(mine, out[0])
+    s = t(r.standard_normal(d_s).astype(np.float32))
+    zero = tree_map(torch.zeros_like, mine)
+    dec, sq = grid.apply_delta(zero, s, 1.0, True)
+    return {"sketch": to_np(grid.join(out)[0]), "decoded": to_np(dec),
+            "sq": float(sq), "j": layout["j"], "jm": grid.jm, "jf": grid.jf,
+            "delta": to_np(delta), "s": to_np(s)}
+
+
+def sketched_round_rank(mesh, W: int, rounds: int, rs: bool,
+                        tokens) -> dict:
+    """``rounds`` noise-free sketched rounds (keys 1, 2, …) on ``mesh`` with
+    or without ``REPRO_OPT=rs_grads``: each round's loss and the final Θ
+    shard, λ and the layout's shard coordinates.  ``tokens`` (W, B, S):
+    the rank takes its rows of each worker's batch."""
+    from repro_torch.launch.mesh import axis_size, data_axes
+
+    os.environ["REPRO_OPT"] = "rs_grads" if rs else ""
+    try:
+        init_fn, step = _sketched(mesh, W)
+        st = init_fn(0)
+        baxes = tuple(a for a in data_axes(False) if a in mesh.axis_names)
+        nb = axis_size(mesh, baxes) if baxes else 1
+        jb = mesh.axis_index(baxes) if baxes else 0
+        B = tokens.shape[1] // nb
+        batch = {"tokens": t(tokens)[:, jb * B:(jb + 1) * B]}
+        losses = []
+        for r in range(rounds):
+            st, m = step(st, batch, key=r + 1)
+            losses.append(float(m["loss"]))
+    finally:
+        os.environ.pop("REPRO_OPT", None)
+    lay = init_fn.layout
+    return {"losses": losses, "Theta": to_np(st.Theta),
+            "lam_re": to_np(st.lam.re), "j": lay["j"],
+            "stats": dict(mesh.stats)}
+
+
+def sketched_scenario_rank(mesh) -> dict:
+    """The reference's sketched smoke on the 2-D grid
+    (``tests/test_shard_local.py``, ``SKETCHED_2D_SCENARIO_TRAIN_OK``):
+    reduced granite-8b (bf16), W = 4, B = 2, T = 16, ratio 16, sketch_lr
+    0.7, one sgd step at 1e-2, ``deep-fade-truncation`` with h_min 0.8, 40
+    dB, 8 rounds."""
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import get_model
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+
+    W = 4
+    init_fn, step = make_fl_train(
+        get_model("granite-8b", reduced=True),
+        FLConfig(mode="sketched", n_workers=W, local_steps=1, local_lr=1e-2,
+                 sketch_ratio=16, sketch_lr=0.7,
+                 scenario="deep-fade-truncation", h_min=0.8),
+        AdmmConfig(rho=0.5, flip_on_change=False),
+        ChannelConfig(n_workers=W, snr_db=40.0), mesh=mesh, device="cpu")
+    st = init_fn(0)
+    batch = {"tokens": _tokens(W, 0)}
+    losses, parts, frozen = [], [], []
+    d_s = st.lam.re.shape[-1]
+    for r in range(8):
+        prev = st.lam.re.clone()
+        st, m = step(st, batch, key=r)
+        msk = st.chan.mask
+        if (~msk).any():
+            frozen.append(bool(torch.equal(st.lam.re[~msk], prev[~msk])))
+        losses.append(float(m["loss"]))
+        parts.append(float(m["participation"]))
+    return {"losses": losses, "participation": parts, "frozen": frozen,
+            "lam_shape": tuple(st.lam.re.shape), "d_s": d_s,
+            "lam_re": to_np(st.lam.re)}
+
+
+def sketched_resume_rank(mesh, ckdir: str) -> dict:
+    """The sketched state's snapshot on a mesh: 2 rounds, a snapshot
+    (``save_sharded``: Θ gathered whole), a fresh restore and a third
+    round, against 3 rounds straight; and the file's Θ against the ranks'
+    shards."""
+    from repro_torch.checkpoint import restore_sharded, save_sharded
+    from repro_torch.tree import tree_leaves
+
+    W = 2
+    init_fn, step = _sketched(mesh, W)
+    batch = {"tokens": _tokens(W)}
+    st = init_fn(0)
+    lay = init_fn.layout
+    for r in range(2):
+        st, _ = step(st, batch, key=r + 1)
+    path = os.path.join(ckdir, "sketched.npz")
+    save_sharded(path, st, mesh, lay["sspec"], lay["faxes"])
+    back = restore_sharded(path, init_fn(0), mesh, lay["sspec"],
+                           lay["faxes"])
+    bits = [bool(torch.equal(a, b)) for a, b in zip(
+        tree_leaves(st.Theta) + [st.lam.re, st.chan.h.re],
+        tree_leaves(back.Theta) + [back.lam.re, back.chan.h.re])]
+    st, _ = step(st, batch, key=3)
+    back, _ = step(back, batch, key=3)
+    bits += [bool(torch.equal(a, b)) for a, b in zip(
+        tree_leaves(st.Theta) + [st.lam.re],
+        tree_leaves(back.Theta) + [back.lam.re])]
+    with np.load(path) as zf:
+        shapes = {k: zf[k].shape for k in zf.files}
+    return {"bits": bits, "shapes": shapes, "step": back.step}
+
+
+def sketched_rank(rank: int, tokens, ckdir: str) -> dict:
+    """Spawn of ``tests/test_torch_mesh_sketched.py`` on four ranks: the
+    codec on the (1, 2, 2) grid; the reference's 8-round scenario smoke
+    there; a snapshot and its restore there (files under ``ckdir``); one
+    round with and without ``rs_grads`` on (1, 2, 2) (no rank
+    sums a gradient) and on a (2, 2) (data, model) mesh, where the codec's
+    fsdp dim rides the data axis and the gathers' backward sums each
+    worker's split batch; rank 0 runs that round on one device too."""
+    from repro_torch.launch.mesh import make_mesh
+
+    grid = make_mesh((1, 2, 2), ("data", "fsdp", "model"), "cpu")
+    out = {"codec": codec_rank(grid),
+           "scenario": sketched_scenario_rank(grid),
+           "grid": [sketched_round_rank(grid, 2, 1, rs, tokens)
+                    for rs in (False, True)],
+           "resume": sketched_resume_rank(grid, ckdir)}
+    fsdp_data = make_mesh((2, 2), ("data", "model"), "cpu")
+    out["fsdp_data"] = [sketched_round_rank(fsdp_data, 2, 1, rs, tokens)
+                        for rs in (False, True)]
+    if rank == 0:
+        init_fn, step = _sketched(None, 2)
+        st, m = step(init_fn(0), {"tokens": t(tokens)}, key=1)
+        out["one"] = {"losses": [float(m["loss"])], "Theta": to_np(st.Theta),
+                      "lam_re": to_np(st.lam.re)}
+    return out
+
+
+def sketched_replay_rank(mesh, case: dict) -> dict:
+    """JAX's sketched round on its (1, 2) mesh replayed on this rank: the
+    rank's shard of JAX's Θ, its (W, d_s) λ and h, the round's noise."""
+    from repro_torch import convert
+    from repro_torch.core.cplx import Complex
+    from repro_torch.core.packing import shard_tree
+    from repro_torch.core.tree_ota import TreeChannel
+    from repro_torch.train.llm_trainer import TreeRoundDraws
+    from repro_torch.tree import tree_map
+
+    W = case["tokens"].shape[0]
+    init_fn, step = _sketched(mesh, W, noisy=True)
+    st = init_fn(0)
+    lay = init_fn.layout
+    Theta = convert.model_params_from_numpy(case["Theta0"], device="cpu")
+    st = st._replace(
+        Theta=tree_map(torch.clone, shard_tree(lay["sspec"], Theta,
+                                               lay["j"])),
+        lam=Complex(t(case["lam"][0]), t(case["lam"][1])),
+        chan=TreeChannel(h=Complex(t(case["h"][0]), t(case["h"][1])),
+                         age=case["age"]))
+    st, m = step(st, {"tokens": t(case["tokens"])},
+                 draws=TreeRoundDraws(None, t(case["noise"])))
+    return {"loss": float(m["loss"]), "Theta": to_np(st.Theta),
+            "lam_re": to_np(st.lam.re), "j": lay["j"]}
