@@ -151,7 +151,8 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              (W = 2, 4,096 tokens, the scan driver, 4 rounds) with a run
              dir, telemetry, the profiler and the autotune cache, twice
              (measured, then cached): the run dir validates, every round is
-             logged, the trace exists, the loss falls; then the reference's
+             logged, the trace exists, the loss falls, each call wrote
+             ``compile_report.json`` (one block traced); then the reference's
              kill-and-resume of the reduced model with faults and the
              guard, bit for bit.
 
@@ -261,11 +262,20 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              sgd steps at 5e-4, ratio 256, 3 rounds: λ and h (2, d_s), the
              loss and Θ finite, each rank's peak ≤ 40 GB; s/round,
              tokens/s, the gathers', psums' and codec's ms a round.
-43. llm_mesh_cohort_check — last: reduced granite-8b in f32 on (2, 1), a
-             population of 4 sampling 2 by top-gain, 3 rounds against the
-             parent's one-device run: the losses within rtol 1e-6, Θ and
-             the rank's θ and λ rows within 1e-6 of each tensor's largest
-             magnitude.
+43. llm_mesh_cohort_check — after phase 42: reduced granite-8b in f32 on
+             (2, 1), a population of 4 sampling 2 by top-gain, 3 rounds
+             against the parent's one-device run: the losses within rtol
+             1e-6, Θ and the rank's θ and λ rows within 1e-6 of each
+             tensor's largest magnitude.
+44. dryrun — last: the dry run's trace on ``meta`` (no kernel) against
+             the card: phases 40's and 42's rounds traced on a fake-rank
+             mesh count each rank's collectives (calls and bytes by op)
+             exactly; phase 27's ``compile_report.json`` holds the trace's
+             flops; phase 15's predicted peak within [0.9, 1.15] of its
+             measured one and its temporaries (the peak less the state)
+             within [0.9, 1.25], its predicted compute and memory terms beside
+             its device time; the time to trace granite-8b train_4k on
+             the 16 × 16 production mesh at full size.
 
 Launch counts are reset just before each of phases 4–12, 14–43 and read
 just after (in each rank for phases 39–43, summed over the ranks).  Then
@@ -3273,7 +3283,7 @@ def phase_launch(torch):
     model = build_model(_llm_cfg(LLM_ARCH, ROBUST_LAYERS))
     knobs = ("REPRO_OTA_BLOCK_COLS", "REPRO_OTA_WORKER_CHUNK")
     saved = {k: os.environ.get(k) for k in knobs}
-    calls, launches = [], {}
+    calls, launches, report = [], {}, None
     try:
         with tempfile.TemporaryDirectory() as tmp:
             cache = os.path.join(tmp, "autotune.json")
@@ -3314,6 +3324,12 @@ def phase_launch(torch):
                         f"launch: losses {losses}")
                 require(tune is not None and tune["cached"] == (i > 0),
                         f"launch: call {i} autotune {tune}")
+                rep_path = os.path.join(rd, "compile_report.json")
+                require(os.path.isfile(rep_path), f"launch: call {i} wrote "
+                        f"no compile_report.json: {out[-2000:]}")
+                if report is None:
+                    with open(rep_path) as f:
+                        report = json.load(f)
                 round_s = res["seconds"] / res["rounds"]
                 calls.append({
                     "profiled": profiled,
@@ -3360,8 +3376,8 @@ def phase_launch(torch):
           "kill_resume": {"argv": LAUNCH_RESUME_ARGS, "killed_after": 4,
                           "rounds": 6, "bitwise": True,
                           "launches": resume_launches},
-          "launches": launches})
-    return launches
+          "compile_report": report, "launches": launches})
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -4472,9 +4488,11 @@ MESH_ROUND_LAUNCHES = {"ota_round_stats": 1, "ota_demodulate_dyn": 1,
                        "ota_receive": 0, "ota_round_theta": 0}
 
 
-def _mesh_trainer(torch, cfg, mesh, noisy: bool, local_steps: int = 2):
+def _mesh_trainer(torch, cfg, mesh, noisy: bool, local_steps: int = 2,
+                  device="cuda"):
     """The replicated trainer of phase ``llm`` (W = 2, ``local_steps`` sgd
-    steps at ``LLM_LR``) on ``cfg``, on ``mesh`` (None: one device)."""
+    steps at ``LLM_LR``) on ``cfg``, on ``mesh`` (None: one device) and
+    ``device`` (``meta``: phase ``dryrun``'s trace)."""
     from repro_torch.core.admm import AdmmConfig
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.models import build_model
@@ -4486,7 +4504,7 @@ def _mesh_trainer(torch, cfg, mesh, noisy: bool, local_steps: int = 2):
     init_fn, step = make_fl_train(
         build_model(cfg), FLConfig(n_workers=LLM_WORKERS,
                                    local_steps=local_steps, local_lr=LLM_LR),
-        acfg, ccfg, mesh=mesh)
+        acfg, ccfg, mesh=mesh, device=device)
     return init_fn, step, acfg, ccfg
 
 
@@ -4615,6 +4633,7 @@ def _mesh_run_rank(torch, mesh) -> dict:
     from repro_torch import rng
     from repro_torch.core.tree_ota import shard_coords
     from repro_torch.kernels import build
+    from repro_torch.launch.trace_analysis import mesh_collectives
     from repro_torch.tree import tree_leaves
 
     cfg = _llm_cfg(LLM_ARCH, LLM_LAYERS)
@@ -4649,6 +4668,7 @@ def _mesh_run_rank(torch, mesh) -> dict:
            "peak": torch.cuda.max_memory_allocated(), "finite": finite,
            "launches": dict(build.launches),
            "collectives": _mesh_stats(mesh, LLM_ROUNDS),
+           "counts": mesh_collectives(mesh.stats),
            "W_local": W_l, "d_local": init_fn.layout["sspec"].d_local}
     del state, step, init_fn
     _free(torch)
@@ -4775,7 +4795,7 @@ MESH_SKETCH_THETA_RTOL = 1e-5
 
 
 def _mesh_sketched_trainer(torch, cfg, mesh, noisy: bool,
-                           local_steps: int):
+                           local_steps: int, device="cuda"):
     from repro_torch.core.admm import AdmmConfig
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.models import build_model
@@ -4787,7 +4807,7 @@ def _mesh_sketched_trainer(torch, cfg, mesh, noisy: bool,
             local_lr=LLM_LR, sketch_ratio=SKETCH_RATIO, sketch_lr=SKETCH_LR),
         AdmmConfig(rho=0.5, flip_on_change=False),
         ChannelConfig(n_workers=LLM_WORKERS, snr_db=40.0, coherence_iters=10,
-                      noisy=noisy), mesh=mesh)
+                      noisy=noisy), mesh=mesh, device=device)
 
 
 @contextlib.contextmanager
@@ -4909,6 +4929,7 @@ def _mesh_sketched_rank(torch, mesh) -> dict:
     rank's encodes, the grid's psum, its decode) timed."""
     from repro_torch import rng
     from repro_torch.kernels import build
+    from repro_torch.launch.trace_analysis import mesh_collectives
     from repro_torch.models.registry import packed_param_count
     from repro_torch.train import llm_trainer
     from repro_torch.tree import tree_leaves
@@ -4953,6 +4974,7 @@ def _mesh_sketched_rank(torch, mesh) -> dict:
            "peak": torch.cuda.max_memory_allocated(),
            "launches": dict(build.launches),
            "collectives": _mesh_stats(mesh, MESH_SKETCH_ROUNDS),
+           "counts": mesh_collectives(mesh.stats),
            "codec_ms_per_round": {k: v / MESH_SKETCH_ROUNDS
                                   for k, v in codec.items()},
            "d_local": init_fn.layout["sspec"].d_local,
@@ -5197,7 +5219,9 @@ def phase_llm_mesh(torch):
     one-device rounds the checks hold the ranks to (each rank runs the
     full-width pure-data pin's itself), frees them, then waits for its
     ranks (killing them after ``MESH_TIMEOUT``), and gates their results.
-    Returns each phase's launches, summed over the ranks."""
+    Returns each phase's launches, summed over the ranks, and each rank's
+    collectives (calls and bytes by op) in ``llm_mesh`` on each grid and in
+    ``llm_mesh_sketched``."""
     refs = {"loss": _mesh_check_reference(torch)}
     _free(torch)
     refs["sketched"] = _mesh_sketched_reference(torch)
@@ -5416,13 +5440,170 @@ def phase_llm_mesh(torch):
                     for c in co],
           "launches": [c["launches"] for c in co], "wall_s": wall_s})
 
-    return {"llm_mesh_check": _summed([c["launches"] for c in chk]
-                                      + [p["launches"] for p in pins]),
-            "llm_mesh_sketched_check": _summed(c["launches"] for c in sk),
-            "llm_mesh": _summed(p["launches"] for r in res
-                                for p in r["runs"].values()),
-            "llm_mesh_sketched": _summed(run["launches"] for run in sr),
-            "llm_mesh_cohort_check": _summed(c["launches"] for c in co)}
+    counts = {str(shape): [r["runs"][str(shape)]["counts"] for r in res]
+              for shape in MESH_SHAPES}
+    counts["sketched"] = [run["counts"] for run in sr]
+    return ({"llm_mesh_check": _summed([c["launches"] for c in chk]
+                                       + [p["launches"] for p in pins]),
+             "llm_mesh_sketched_check": _summed(c["launches"] for c in sk),
+             "llm_mesh": _summed(p["launches"] for r in res
+                                 for p in r["runs"].values()),
+             "llm_mesh_sketched": _summed(run["launches"] for run in sr),
+             "llm_mesh_cohort_check": _summed(c["launches"] for c in co)},
+            counts)
+
+
+# ---------------------------------------------------------------------------
+# the dry run: one rank's trace on meta against the live runs
+# ---------------------------------------------------------------------------
+
+#: phase ``dryrun``'s band for the trace's predicted peak over phase
+#: ``llm``'s measured one (``torch.cuda.max_memory_allocated``), and for its
+#: predicted temporaries (the peak less the state, the trace's arguments)
+#: over the measured peak less the same state: set around the two equal
+#: readings on an H100 (52.28 GB against 49.80, 1.050; temporaries 25.50
+#: against 23.02, 1.108), so a tracker that misses the temporaries or
+#: their frees falls outside
+DRYRUN_PEAK_BAND = (0.9, 1.15)
+DRYRUN_TEMP_BAND = (0.9, 1.25)
+
+
+def _traced(torch, init_fn, step, mesh, batch: dict, keys) -> object:
+    """The trace (``launch/trace_analysis``) of ``step`` over ``keys`` from
+    ``init_fn(SEED)``, all on ``meta``, as rank 0 of ``mesh``."""
+    from repro_torch.launch.trace_analysis import tracing
+
+    state = init_fn(SEED)
+    with tracing(mesh, (state, batch)) as tr:
+        for key in keys:
+            state, _ = step(state, batch, key=key)
+    return tr.summary()
+
+
+def _meta_tokens(torch, *shape):
+    return {"tokens": torch.empty(shape, dtype=torch.int32, device="meta")}
+
+
+def phase_dryrun(torch, llm: dict, llm_prof: dict, launch_report: dict,
+                 mesh_counts: dict):
+    """The dry run (``repro_torch.launch.dryrun``: one rank's program traced
+    on ``meta`` under a fake-rank mesh) against what the card ran.  Gates:
+    the trace of ``llm_mesh``'s rounds on (1, 2) and (2, 1) and of
+    ``llm_mesh_sketched``'s counts the calls and bytes of each collective
+    op that both live ranks' ``Mesh.stats`` recorded, exactly; phase
+    ``launch``'s ``compile_report.json`` holds the flops of this trace of
+    the launcher's config (one block of 2 rounds); the predicted peak of
+    ``llm``'s round is within :data:`DRYRUN_PEAK_BAND` of the measured
+    one, and its temporaries within :data:`DRYRUN_TEMP_BAND`.  Recorded beside the measurements: ``llm``'s predicted compute
+    and memory terms (H100 rates) against its round's device time, and the
+    time to trace granite-8b train_4k on the 16 × 16 production mesh at
+    full size."""
+    from repro_torch import rng
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import FakeMesh
+    from repro_torch.models import build_model
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+
+    t0 = time.perf_counter()
+    axes = ("data", "model")
+    grids = {}
+    cfg = _llm_cfg(LLM_ARCH, LLM_LAYERS)
+    keys = [rng.fold_in(SEED, r + 1) for r in range(LLM_ROUNDS)]
+    for shape in MESH_SHAPES:
+        fake = FakeMesh(shape, axes)
+        init_fn, step, _, _ = _mesh_trainer(torch, cfg, fake, noisy=True,
+                                            device="meta")
+        summ = _traced(torch, init_fn, step, fake, _meta_tokens(
+            torch, LLM_WORKERS // shape[0], 1, LLM_SEQ), keys)
+        grids[str(shape)] = summ
+    cfg2 = _llm_cfg(LLM_ARCH, MESH_SKETCH_LAYERS)
+    fake = FakeMesh(MESH_SKETCH_SHAPE, axes)
+    init_fn, step = _mesh_sketched_trainer(torch, cfg2, fake, noisy=True,
+                                           local_steps=2, device="meta")
+    grids["sketched"] = _traced(
+        torch, init_fn, step, fake,
+        _meta_tokens(torch, LLM_WORKERS, 1, LLM_SEQ),
+        [rng.fold_in(SEED, r + 1) for r in range(MESH_SKETCH_ROUNDS)])
+    collectives = {}
+    for name, summ in grids.items():
+        for r, live in enumerate(mesh_counts[name]):
+            require(summ.mesh_stats == live, f"dryrun: the trace of "
+                    f"{name}'s rounds counts {summ.mesh_stats}, rank {r} "
+                    f"recorded {live}")
+        collectives[name] = {"calls_and_bytes": summ.mesh_stats,
+                             "by_kind_count": summ.coll_count,
+                             "by_kind_bytes": summ.coll_bytes,
+                             "trace_s": summ.seconds}
+    del grids
+
+    # the launcher's compile report against this trace of its config
+    args = launch.parser().parse_args([*LAUNCH_ARGS, "--run-dir", "unused"])
+    flcfg, acfg, ccfg = launch.configs(args, telemetry_on=True)
+    per = math.gcd(args.log_every, args.rounds)
+    init_fn, step = make_fl_train(
+        build_model(_llm_cfg(LLM_ARCH, ROBUST_LAYERS)), flcfg, acfg, ccfg,
+        device="meta")
+    lsum = _traced(torch, init_fn, step, None, _meta_tokens(
+        torch, args.workers, args.batch, args.seq),
+        [rng.fold_in(args.seed, 2000 + r) for r in range(per)])
+    require(launch_report["flops"] == lsum.flops
+            and launch_report["rounds_per_dispatch"] == per,
+            f"dryrun: launch's compile_report.json {launch_report} against "
+            f"the dry run's {lsum.flops} flops over {per} rounds")
+
+    # phase llm's one-device round: predicted against measured
+    init_fn, step = make_fl_train(
+        build_model(cfg), FLConfig(n_workers=LLM_WORKERS, local_steps=2,
+                                   local_lr=LLM_LR),
+        AdmmConfig(rho=0.5, flip_on_change=False),
+        ChannelConfig(n_workers=LLM_WORKERS, snr_db=40.0,
+                      coherence_iters=10), device="meta")
+    rsum = _traced(torch, init_fn, step, None,
+                   _meta_tokens(torch, LLM_WORKERS, 1, LLM_SEQ), keys[:1])
+    peak = llm["peak_mem_gb"] * 1e9
+    ratio = rsum.peak_bytes / peak
+    temp_ratio = (rsum.peak_bytes - rsum.arg_bytes) / (peak - rsum.arg_bytes)
+    lo, hi = DRYRUN_PEAK_BAND
+    require(lo <= ratio <= hi, f"dryrun: llm's predicted peak "
+            f"{rsum.peak_bytes / 1e9} GB is {ratio} of the measured "
+            f"{peak / 1e9} GB, outside {DRYRUN_PEAK_BAND}")
+    lo, hi = DRYRUN_TEMP_BAND
+    require(lo <= temp_ratio <= hi, f"dryrun: llm's predicted temporaries "
+            f"are {temp_ratio} of the measured peak less the state "
+            f"({rsum.arg_bytes / 1e9} GB), outside {DRYRUN_TEMP_BAND}")
+    compute_ms = 1e3 * rsum.flops / dryrun.PEAK_FLOPS
+    memory_ms = 1e3 * rsum.mem_bytes / dryrun.HBM_BW
+
+    # the planning question at full size: granite-8b train_4k on 16 x 16
+    full = dryrun.run_one("granite-8b", "train_4k", multi_pod=False)
+    emit({"phase": "dryrun", "ok": True,
+          "hardware": dryrun.HARDWARE,
+          "mesh_collectives": collectives,
+          "launch": {"argv": LAUNCH_ARGS, "rounds_per_dispatch": per,
+                     "flops": lsum.flops,
+                     "compile_report_flops": launch_report["flops"],
+                     "trace_s": lsum.seconds},
+          "llm": {"arch": LLM_ARCH, "n_layers": LLM_LAYERS,
+                  "predicted_peak_gb": rsum.peak_bytes / 1e9,
+                  "predicted_args_gb": rsum.arg_bytes / 1e9,
+                  "measured_peak_gb": peak / 1e9, "peak_ratio": ratio,
+                  "peak_band": DRYRUN_PEAK_BAND,
+                  "temp_ratio": temp_ratio, "temp_band": DRYRUN_TEMP_BAND,
+                  "flops": rsum.flops, "hbm_bytes": rsum.mem_bytes,
+                  "predicted_compute_ms": compute_ms,
+                  "predicted_memory_ms": memory_ms,
+                  "measured_device_ms": llm_prof.get("device_ms"),
+                  "measured_round_ms": 1e3 * llm["seconds_per_round"],
+                  "trace_s": rsum.seconds},
+          "granite_train_4k_16x16": {
+              "spec_s": full["timings"]["spec_s"],
+              "trace_s": full["timings"]["trace_s"],
+              "roofline": full["roofline"], "memory": full["memory"],
+              "collectives": full["collectives"]["by_kind_count"]},
+          "seconds": time.perf_counter() - t0})
 
 
 def _kernel_family(name: str) -> str:
@@ -5628,7 +5809,7 @@ def main() -> int:
         _free(torch)
         paths["telemetry_llm"] = phase_telemetry_llm(torch)
         _free(torch)
-        paths["launch"] = phase_launch(torch)
+        paths["launch"], launch_report = phase_launch(torch)
         _free(torch)
         paths["llm_sketched_check"] = phase_llm_sketched_check(torch)
         _free(torch)
@@ -5648,7 +5829,10 @@ def main() -> int:
         _free(torch)
         paths["serve"] = phase_serve(torch, name)
         _free(torch)
-        paths.update(phase_llm_mesh(torch))
+        mesh_paths, mesh_counts = phase_llm_mesh(torch)
+        paths.update(mesh_paths)
+        phase_dryrun(torch, llm_summary, llm_prof, launch_report,
+                     mesh_counts)
     except SmokeFailure as e:
         emit({"ok": False, "error": str(e)})
         return 1

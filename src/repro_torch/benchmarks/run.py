@@ -25,15 +25,12 @@ def _not_ported(name: str, why: str, device="cuda"):
 def _benchmarks():
     from repro_torch.benchmarks import (ablation_noniid, fig2_linreg,
                                         fig3_classification, fig5_rho,
-                                        scaleup, serve_microbench)
+                                        roofline, scaleup, serve_microbench)
     kernels = ("the JAX package's kernel and transport timings; the port's "
                "are chip_smoke.py's kernels phase")
     missing = {
         "kernels_microbench": kernels,
         "transport_microbench": kernels,
-        "roofline_summary": ("the JAX package's roofline reads its dry run's "
-                             "HLO; its twin comes with the dry run (ROADMAP "
-                             "queue A item 6c)"),
     }
     return {
         "ablation_noniid": ablation_noniid.ablation_noniid,
@@ -45,6 +42,7 @@ def _benchmarks():
         "fig3b_energy": fig3_classification.fig3b_energy,
         "fig3c_scalability": fig3_classification.fig3c_scalability,
         "fig5_rho_sensitivity": fig5_rho.fig5_rho_sensitivity,
+        "roofline_summary": roofline.roofline_summary,
         "scaleup": scaleup.scaleup,
         "serve_microbench": serve_microbench.serve_microbench,
         **{k: functools.partial(_not_ported, k, why)

@@ -546,19 +546,20 @@ _U32 = (1 << 32) - 1
 
 
 def _resident_flat_index(sspec: ShardPackSpec, i: int, jm: int,
-                         jf: int) -> Tensor:
+                         jf: int, device="cpu") -> Tensor:
     """Canonical PackSpec index of every element of leaf ``i``'s resident
     slice on shard (jm, jf), as int64 wrapped mod 2³² (the JAX package's
     uint32 indices, which wrap at >4G-parameter scale)."""
     eshape = sspec.spec.shapes[i]
     lshape = resident_eshape(sspec, i)
     md, fd = sspec.shard_dims[i], sspec.fsdp_dims[i]
-    idx = torch.zeros(lshape, dtype=torch.int64)
+    idx = torch.zeros(lshape, dtype=torch.int64, device=device)
     stride = 1
     for axis in range(len(lshape) - 1, -1, -1):
         view = [1] * len(lshape)
         view[axis] = lshape[axis]
-        ax = torch.arange(lshape[axis], dtype=torch.int64).reshape(view)
+        ax = torch.arange(lshape[axis], dtype=torch.int64,
+                          device=device).reshape(view)
         if axis == md:
             ax = ax + lshape[axis] * jm
         if axis == fd:
@@ -569,48 +570,56 @@ def _resident_flat_index(sspec: ShardPackSpec, i: int, jm: int,
 
 
 def _seg_perm(sspec: ShardPackSpec, idxs, jm: int, jf: int,
-              pad_to: int) -> Tensor:
-    seg = torch.cat([_resident_flat_index(sspec, i, jm, jf) for i in idxs])
+              pad_to: int, device="cpu") -> Tensor:
+    seg = torch.cat([_resident_flat_index(sspec, i, jm, jf, device)
+                     for i in idxs])
     return torch.nn.functional.pad(seg, (0, pad_to - seg.shape[0]))
 
 
-def b_segment_perm(sspec: ShardPackSpec, model_idx: int) -> Optional[Tensor]:
+def b_segment_perm(sspec: ShardPackSpec, model_idx: int,
+                   device="cpu") -> Optional[Tensor]:
     """(b_pad,) canonical indices of model shard ``model_idx``'s B segment
     (0 on padding: pair with ``arange(b_pad) < b_size``)."""
     if not sspec.b_leaves:
         return None
-    return _seg_perm(sspec, sspec.b_leaves, model_idx, 0, sspec.b_pad)
+    return _seg_perm(sspec, sspec.b_leaves, model_idx, 0, sspec.b_pad,
+                     device)
 
 
-def c_segment_perm(sspec: ShardPackSpec, fsdp_idx: int) -> Optional[Tensor]:
+def c_segment_perm(sspec: ShardPackSpec, fsdp_idx: int,
+                   device="cpu") -> Optional[Tensor]:
     """(c_pad,) canonical indices of fsdp shard ``fsdp_idx``'s C segment."""
     if not sspec.c_leaves:
         return None
-    return _seg_perm(sspec, sspec.c_leaves, 0, fsdp_idx, sspec.c_pad)
+    return _seg_perm(sspec, sspec.c_leaves, 0, fsdp_idx, sspec.c_pad, device)
 
 
-def rep_segment_perm(sspec: ShardPackSpec) -> Optional[Tensor]:
+def rep_segment_perm(sspec: ShardPackSpec,
+                     device="cpu") -> Optional[Tensor]:
     """(rep_pad,) canonical indices of the global D segment."""
     if not sspec.rep_leaves:
         return None
-    return _seg_perm(sspec, sspec.rep_leaves, 0, 0, sspec.rep_pad)
+    return _seg_perm(sspec, sspec.rep_leaves, 0, 0, sspec.rep_pad, device)
 
 
-def shard_perm_local(sspec: ShardPackSpec, shard_idx: int) -> Tensor:
+def shard_perm_local(sspec: ShardPackSpec, shard_idx: int,
+                     device="cpu") -> Tensor:
     """(d_local,) canonical :class:`PackSpec` index of every position of
-    ONE shard's local buffer (int64 wrapped mod 2³²); padding carries 0,
-    so pair it with :func:`shard_valid_mask`."""
+    ONE shard's local buffer (int64 wrapped mod 2³²), built on ``device``;
+    padding carries 0, so pair it with :func:`shard_valid_mask`."""
     jm, jf = split_idx(sspec, shard_idx)
     parts = []
     for i, off in enumerate(sspec.local_offsets):
         if off is not None:
-            parts.append(_resident_flat_index(sspec, i, jm, jf))
+            parts.append(_resident_flat_index(sspec, i, jm, jf, device))
     if sspec.b_leaves:
-        parts.append(_chunk_at(b_segment_perm(sspec, jm), jf, sspec.b_chunk))
+        parts.append(_chunk_at(b_segment_perm(sspec, jm, device), jf,
+                               sspec.b_chunk))
     if sspec.c_leaves:
-        parts.append(_chunk_at(c_segment_perm(sspec, jf), jm, sspec.c_chunk))
+        parts.append(_chunk_at(c_segment_perm(sspec, jf, device), jm,
+                               sspec.c_chunk))
     if sspec.rep_leaves:
-        parts.append(_chunk_at(rep_segment_perm(sspec), shard_idx,
+        parts.append(_chunk_at(rep_segment_perm(sspec, device), shard_idx,
                                sspec.rep_chunk))
     return torch.cat(parts)
 

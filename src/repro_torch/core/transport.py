@@ -382,6 +382,14 @@ def matched_filter_noise_re(gen: torch.Generator, shape,
 ChanStep = Tuple[Complex, float, bool]
 
 
+def _host(x, cast):
+    """``cast(x)``: a host scalar from a number or a one-element tensor;
+    None from a ``meta`` tensor, which holds no value."""
+    if isinstance(x, torch.Tensor) and x.is_meta:
+        return None
+    return cast(x)
+
+
 def _round_operands(theta: Tensor, lam: Complex, h: Complex,
                     mask: Optional[Tensor], h_tx: Optional[Complex],
                     chan_step: Optional[ChanStep]):
@@ -392,13 +400,17 @@ def _round_operands(theta: Tensor, lam: Complex, h: Complex,
     chan = None
     if chan_step is not None:
         w, rho_f, redraw = chan_step
-        if resolve_backend(theta.device) == "torch" and float(rho_f) == 0.0:
+        rho, redraw = _host(rho_f, float), _host(redraw, bool)
+        if resolve_backend(theta.device) == "torch" and rho == 0.0:
             h_air = w if redraw else h
         else:
+            # a meta step (the dry run) has no values: it takes the
+            # kernel's path, whose shapes do not depend on them
+            rho = 1.0 if rho is None else rho
             h_air = None
-            chan = (_f32(w.re), _f32(w.im), float(rho_f),
-                    math.sqrt(max(1.0 - float(rho_f) ** 2, 0.0)),
-                    bool(redraw))
+            chan = (_f32(w.re), _f32(w.im), rho,
+                    math.sqrt(max(1.0 - rho ** 2, 0.0)),
+                    True if redraw is None else redraw)
     h_k = h if h_air is None else h_air
     planes = (_f32(theta), _f32(lam.re), _f32(lam.im), _f32(h_k.re),
               _f32(h_k.im))

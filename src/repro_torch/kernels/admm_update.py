@@ -37,8 +37,9 @@ def admm_dual_update(lam_re: Tensor, lam_im: Tensor, h_re: Tensor,
     """Fused λ' = λ + ρ·h·(θ−Θ) − ρ·Re{z} (B4).  (W, d) planes, Θ (d,);
     ``noise_re`` is a (W, d) plane under an analog downlink, else None."""
     if build.resolve_backend(lam_re.device) == "torch":
-        return ref.admm_dual_update(lam_re, lam_im, h_re, h_im, theta, Theta,
-                                    rho, noise_re)
+        return build.plain("admm_dual_update", ref.admm_dual_update,
+                           lam_re, lam_im, h_re, h_im, theta, Theta, rho,
+                           noise_re)
     planes = dict(lam_re=lam_re, lam_im=lam_im, h_re=h_re, h_im=h_im,
                   theta=theta)
     if noise_re is not None:
@@ -62,7 +63,8 @@ def admm_flip_lambda(grad: Tensor, theta: Tensor, Theta_prev: Tensor,
     """Fused flip rule (B5): λ = t·h/max(|h|², 1e-12),
     t = −(∂f + ρ|h|²(θ−Θ)).  (W, d) planes, Θ_prev (d,)."""
     if build.resolve_backend(grad.device) == "torch":
-        return ref.admm_flip_lambda(grad, theta, Theta_prev, h_re, h_im, rho)
+        return build.plain("admm_flip_lambda", ref.admm_flip_lambda, grad,
+                           theta, Theta_prev, h_re, h_im, rho)
     planes = dict(grad=grad, theta=theta, h_re=h_re, h_im=h_im)
     dev = build.check_cuda_f32("admm_flip_lambda", Theta_prev=Theta_prev,
                                **planes)

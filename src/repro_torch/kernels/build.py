@@ -100,17 +100,43 @@ def reset_launches() -> None:
     launches.clear()
 
 
+#: the dry run's hook around a plain version (``launch/trace_analysis``)
+_PLAIN_HOOK: Dict[str, object] = {"hook": None}
+
+
+def set_plain_hook(hook):
+    """Make ``hook(name, fn, args, kwargs, flops, like)`` the one
+    :func:`plain` calls (None: none); returns the previous hook."""
+    prev = _PLAIN_HOOK["hook"]
+    _PLAIN_HOOK["hook"] = hook
+    return prev
+
+
+def plain(name: str, fn, *args, flops: float = 0.0, like=None, **kwargs):
+    """``fn(*args, **kwargs)``: wrapper ``name``'s plain version, on the
+    tensors that do not launch the kernel.  Under the dry run's trace the
+    call counts as the kernel would: its inputs read once, its outputs
+    written once and ``flops`` (the kernel's products), not the plain
+    version's own ops; ``like()``, where given, makes the outputs' ``meta``
+    stand-ins without running a plain version that loops on the host."""
+    hook = _PLAIN_HOOK["hook"]
+    if hook is None:
+        return fn(*args, **kwargs)
+    return hook(name, fn, args, kwargs, flops, like)
+
+
 def resolve_backend(device) -> str:
     """``"cuda"`` (the hand-written kernels) for CUDA tensors, ``"torch"``
-    (the plain versions in ``kernels/ref.py``) for CPU tensors; anything else
-    fails fast."""
+    (the plain versions in ``kernels/ref.py``) for CPU tensors and for the
+    dry run's ``meta`` tensors (shapes only, :func:`plain` counts them as
+    the kernel); anything else fails fast."""
     dev = torch.device(device)
     if dev.type == "cuda":
         return "cuda"
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return "torch"
     raise ValueError(f"no OTA backend for device {dev}; the backends are "
-                     f"{BACKENDS} for 'cpu' and 'cuda' tensors")
+                     f"{BACKENDS} for 'cpu' (or 'meta') and 'cuda' tensors")
 
 
 def nvcc_path() -> str:

@@ -27,6 +27,22 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BH = 65535
 
 
+def attention_flops(q: Tensor, k: Tensor, causal: bool, per_pair: int
+                    ) -> float:
+    """The products one B11 kernel computes: ``per_pair`` · hd flops for
+    each (query, key) pair it visits, the pairs with key ≤ query where
+    ``causal`` (4 the forward: q·kᵀ and p·v; 6 dq; 8 dk/dv).  PERF.md §6's
+    bound convention; the dry run counts a B11 call so."""
+    B, H, S, hd = q.shape
+    T = k.shape[2]
+    if causal:
+        n = min(S, T)
+        pairs = n * (n + 1) // 2 + max(S - T, 0) * T
+    else:
+        pairs = S * T
+    return float(per_pair * hd * B * H * pairs)
+
+
 def _scale(q: Tensor, scale: Optional[float]) -> float:
     return q.shape[-1] ** -0.5 if scale is None else float(scale)
 
@@ -73,7 +89,9 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
                         ) -> Tuple[Tensor, Tensor]:
     """B11 forward: ``(o, lse)``, o in q's dtype, lse f32 (B, H, S)."""
     if build.resolve_backend(q.device) == "torch":
-        return ref.flash_attention_fwd(q, k, v, causal, scale)
+        return build.plain("flash_attention_fwd", ref.flash_attention_fwd,
+                           q, k, v, causal, scale,
+                           flops=attention_flops(q, k, causal, 4))
     dev, BH, S, T, hd = _check("flash_attention_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
@@ -96,8 +114,9 @@ def flash_attention_dq(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     """B11 dq: Σ_k p∘(do·vᵀ − δ)·k·scale with p = exp(q·kᵀ·scale − lse)."""
     name = "flash_attention_dq"
     if build.resolve_backend(q.device) == "torch":
-        return ref.flash_attention_bwd(q, k, v, do, causal, scale, lse=lse,
-                                       delta=delta)[0]
+        return build.plain(name, lambda *a, **kw: ref.flash_attention_bwd(
+            *a, **kw)[0], q, k, v, do, causal, scale, lse=lse, delta=delta,
+            flops=attention_flops(q, k, causal, 6))
     dev, BH, S, T, hd = _check(name, q, k, v, do, lse=lse, delta=delta)
     dq = torch.empty_like(q)
     build.launch("flash_attention", name, dev, q.data_ptr(), k.data_ptr(),
@@ -114,8 +133,9 @@ def flash_attention_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     """B11 dk/dv: dv = pᵀ·do, dk = dsᵀ·q·scale with ds = p∘(do·vᵀ − δ)."""
     name = "flash_attention_dkv"
     if build.resolve_backend(q.device) == "torch":
-        return ref.flash_attention_bwd(q, k, v, do, causal, scale, lse=lse,
-                                       delta=delta)[1:]
+        return build.plain(name, lambda *a, **kw: ref.flash_attention_bwd(
+            *a, **kw)[1:], q, k, v, do, causal, scale, lse=lse, delta=delta,
+            flops=attention_flops(q, k, causal, 8))
     dev, BH, S, T, hd = _check(name, q, k, v, do, lse=lse, delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     build.launch("flash_attention", name, dev, q.data_ptr(), k.data_ptr(),

@@ -147,7 +147,9 @@ def linear_scan_fwd(a: Tensor, b: Tensor, plan: PlanArg = None) -> Tensor:
     if build.resolve_backend(a.device) == "torch":
         if plan is not None:
             _plan("linear_scan_fwd", plan, a, b)
-        return ref.linear_scan(a, b)
+        return build.plain("linear_scan_fwd", ref.linear_scan, a, b,
+                           like=lambda: torch.empty_like(
+                               b, dtype=torch.float32))
     dev, rows, S, D = _check("linear_scan_fwd", a=a, b=b)
     t = _plan("linear_scan_fwd", plan, a, b)
     h = torch.empty_like(b)
@@ -168,7 +170,9 @@ def linear_scan_bwd(a: Tensor, h: Tensor, dh: Tensor, plan: PlanArg = None
     if build.resolve_backend(a.device) == "torch":
         if plan is not None:
             _plan("linear_scan_bwd", plan, a, h, dh)
-        return ref.linear_scan_bwd(a, h, dh)
+        return build.plain("linear_scan_bwd", ref.linear_scan_bwd, a, h,
+                           dh, like=lambda: tuple(torch.empty_like(
+                               dh, dtype=torch.float32) for _ in range(2)))
     dev, rows, S, D = _check("linear_scan_bwd", a=a, h=h, dh=dh)
     t = _plan("linear_scan_bwd", plan, a, h, dh)
     da = torch.empty_like(dh)

@@ -36,7 +36,8 @@ def ota_modulate(theta: Tensor, lam_re: Tensor, lam_im: Tensor, h_re: Tensor,
                  h_im: Tensor, rho: float) -> Tuple[Tensor, Tensor]:
     """Fused s = conj(h)·θ + conj(λ)/ρ over planes of one shape (B1)."""
     if build.resolve_backend(theta.device) == "torch":
-        return ref.ota_modulate(theta, lam_re, lam_im, h_re, h_im, rho)
+        return build.plain("ota_modulate", ref.ota_modulate, theta,
+                           lam_re, lam_im, h_re, h_im, rho)
     dev = build.check_cuda_f32("ota_modulate", theta=theta, lam_re=lam_re,
                                lam_im=lam_im, h_re=h_re, h_im=h_im)
     for name, t in (("lam_re", lam_re), ("lam_im", lam_im), ("h_re", h_re),
@@ -79,7 +80,8 @@ def ota_receive(s_re: Tensor, s_im: Tensor, h_re: Tensor, h_im: Tensor,
     ``plan``: the kernel's grid, :func:`receive_tiling`'s by default.
     Returns (d,) float32; one counted launch whichever plan runs."""
     if build.resolve_backend(s_re.device) == "torch":
-        return ref.ota_receive(s_re, s_im, h_re, h_im, noise_re, inv_alpha)
+        return build.plain("ota_receive", ref.ota_receive, s_re, s_im,
+                           h_re, h_im, noise_re, inv_alpha)
     if not isinstance(inv_alpha, torch.Tensor) or inv_alpha.numel() != 1:
         raise ValueError("ota_receive: inv_alpha must be a one-element tensor "
                          "on the device")
@@ -133,7 +135,8 @@ def ota_demodulate_dyn(y_re: Tensor, noise_re: Tensor, sumh2: Tensor,
     """Θ = (y + z·α⁻¹)/max(Σ|h|², 1e-12) elementwise (B3), with α⁻¹ a
     one-element tensor read by the kernel on the device."""
     if build.resolve_backend(y_re.device) == "torch":
-        return ref.ota_demodulate_dyn(y_re, noise_re, sumh2, inv_alpha)
+        return build.plain("ota_demodulate_dyn", ref.ota_demodulate_dyn,
+                           y_re, noise_re, sumh2, inv_alpha)
     if not isinstance(inv_alpha, torch.Tensor) or inv_alpha.numel() != 1:
         raise ValueError("ota_demodulate_dyn: inv_alpha must be a "
                          "one-element tensor on the device")
@@ -150,7 +153,8 @@ def ota_demodulate(y_re: Tensor, noise_re: Tensor, sumh2: Tensor,
                    inv_alpha: float) -> Tensor:
     """B3 with α⁻¹ a host float (B3′): Θ = (y + z·α⁻¹)/max(Σ|h|², 1e-12)."""
     if build.resolve_backend(y_re.device) == "torch":
-        return ref.ota_demodulate(y_re, noise_re, sumh2, float(inv_alpha))
+        return build.plain("ota_demodulate", ref.ota_demodulate, y_re,
+                           noise_re, sumh2, float(inv_alpha))
     dev = _demod_operands("ota_demodulate", y_re, noise_re, sumh2)
     out = torch.empty_like(y_re)
     build.launch("ota", "ota_demodulate", dev, y_re.data_ptr(),
@@ -166,7 +170,8 @@ def ota_accumulate(y_re: Tensor, sumh2: Tensor, s_re: Tensor, s_im: Tensor,
     of one shape, in one pass; new tensors, the inputs are left as they
     are."""
     if build.resolve_backend(y_re.device) == "torch":
-        return ref.ota_accumulate(y_re, sumh2, s_re, s_im, h_re, h_im)
+        return build.plain("ota_accumulate", ref.ota_accumulate, y_re,
+                           sumh2, s_re, s_im, h_re, h_im)
     dev = build.check_cuda_f32("ota_accumulate", y_re=y_re, sumh2=sumh2,
                                s_re=s_re, s_im=s_im, h_re=h_re, h_im=h_im)
     for name, t in (("sumh2", sumh2), ("s_re", s_re), ("s_im", s_im),

@@ -264,8 +264,9 @@ def ota_round_stats(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
     p2 (d,), energy (W,))``, plus the stepped channel's (W, d) planes with
     ``chan``."""
     if build.resolve_backend(theta.device) == "torch":
-        return ref.ota_round_stats(theta, lam_re, lam_im, h_re, h_im, rho,
-                                   mask=mask, htx=htx, chan=chan)
+        return build.plain("ota_round_stats", ref.ota_round_stats, theta,
+                           lam_re, lam_im, h_re, h_im, rho, mask=mask,
+                           htx=htx, chan=chan)
     dev = _operands("ota_round_stats", theta, lam_re, lam_im, h_re, h_im,
                     mask, htx, chan)
     W, d = theta.shape
@@ -308,9 +309,9 @@ def ota_round_theta(theta: Tensor, lam_re: Tensor, lam_im: Tensor,
     device; ``plan`` as there.  Returns ``(Theta,)``,
     plus the stepped channel's planes with ``chan``."""
     if build.resolve_backend(theta.device) == "torch":
-        return ref.ota_round_theta(theta, lam_re, lam_im, h_re, h_im,
-                                   noise_re, inv_alpha, rho, mask=mask,
-                                   htx=htx, chan=chan)
+        return build.plain("ota_round_theta", ref.ota_round_theta, theta,
+                           lam_re, lam_im, h_re, h_im, noise_re, inv_alpha,
+                           rho, mask=mask, htx=htx, chan=chan)
     if not isinstance(inv_alpha, torch.Tensor) or inv_alpha.numel() != 1:
         raise ValueError("ota_round_theta: inv_alpha must be a one-element "
                          "tensor on the device")

@@ -22,7 +22,8 @@ def fading_step(h_re: Tensor, h_im: Tensor, w_re: Tensor, w_im: Tensor,
     """Fused AR(1) fading update (B9): h' = ρ·h + scale·w where ``redraw``,
     else h, over four planes of one shape.  ``redraw`` is a host bool."""
     if build.resolve_backend(h_re.device) == "torch":
-        return ref.fading_step(h_re, h_im, w_re, w_im, rho, scale, redraw)
+        return build.plain("fading_step", ref.fading_step, h_re, h_im,
+                           w_re, w_im, rho, scale, redraw)
     dev = build.check_cuda_f32("fading_step", h_re=h_re, h_im=h_im, w_re=w_re,
                                w_im=w_im)
     for name, t in (("h_im", h_im), ("w_re", w_re), ("w_im", w_im)):
@@ -48,8 +49,8 @@ def ota_receive_masked(s_re: Tensor, s_im: Tensor, h_re: Tensor, h_im: Tensor,
     one-element tensor on the device.  A masked worker's planes are never
     read into the sums, so NaN or Inf there is harmless.  Returns (d,)."""
     if build.resolve_backend(s_re.device) == "torch":
-        return ref.ota_receive_masked(s_re, s_im, h_re, h_im, mask, noise_re,
-                                      inv_alpha)
+        return build.plain("ota_receive_masked", ref.ota_receive_masked,
+                           s_re, s_im, h_re, h_im, mask, noise_re, inv_alpha)
     if not isinstance(inv_alpha, torch.Tensor) or inv_alpha.numel() != 1:
         raise ValueError("ota_receive_masked: inv_alpha must be a one-element "
                          "tensor on the device")

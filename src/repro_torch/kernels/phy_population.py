@@ -45,7 +45,8 @@ def population_step(h_re: Tensor, h_im: Tensor, w_re: Tensor, w_im: Tensor,
     threads = check_block_rows(optflags.ota_block_rows() if block_rows is None
                                else block_rows)
     if build.resolve_backend(h_re.device) == "torch":
-        return ref.population_step(*planes, *scalars)
+        return build.plain("population_step", ref.population_step,
+                           *planes, *scalars)
     dev = build.check_cuda_f32("population_step", **dict(zip(_PLANES, planes)))
     n = h_re.numel()
     for name, t in zip(_PLANES, planes):

@@ -29,9 +29,16 @@ repeated runs never showed again (``tools/check_mesh_bits.py`` repeats
 the round's pieces).
 
 With ``Mesh.timing`` on, every collective synchronises the card before and
-after itself and adds its wall time and bytes to :attr:`Mesh.stats`, so a
-caller reads the collectives' milliseconds a round; off (the default) it
-adds its call count only.
+after itself and adds its wall time to :attr:`Mesh.stats`, so a caller
+reads the collectives' milliseconds a round; every collective adds its
+call and its input's bytes there, timed or not.
+
+:class:`FakeMesh` (:func:`make_production_mesh`) is the dry run's mesh:
+the reference's 16 × 16 or 2 × 16 × 16 production layout seen from rank
+0, with no process group.  Its collectives communicate nothing: they run
+the local copies a rank would, return the result's shape and count
+themselves in :attr:`Mesh.stats` as the live mesh does, and in
+:attr:`FakeMesh.coll` by the reference's collective kinds.
 """
 from __future__ import annotations
 
@@ -287,6 +294,107 @@ def fsdp_mesh_shape(n_ranks: int, fsdp: int) -> Tuple[int, int, int]:
         raise ValueError(f"--fsdp {fsdp} must divide the rank count "
                          f"({n_ranks})")
     return (n_ranks // fsdp, fsdp, 1)
+
+
+#: the reference's collective kind of each of the mesh's collectives
+COLL_KIND = {"psum": "all-reduce", "pmin": "all-reduce", "por": "all-reduce",
+             "all_gather": "all-gather", "reduce_scatter": "reduce-scatter"}
+#: bytes moved per result byte, by kind (the reference's ``_COLL_MULT``:
+#: an all-reduce is a reduce-scatter and an all-gather)
+COLL_MULT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0}
+
+
+class FakeMesh(Mesh):
+    """A mesh of fake ranks seen from the rank at coordinate 0 on every
+    axis: the layout of :class:`Mesh` without a process group, so that one
+    process traces one rank's program at a production mesh's shape (the
+    dry run, ``launch/trace_analysis.py``) and a live run's default group
+    is left alone.  A collective runs the rank's local copies (the
+    contiguous clone of a reduced input, the gather's concatenation, the
+    scatter's parts), moves nothing, and returns a tensor of the result's
+    shape; it counts itself in :attr:`stats` exactly as :class:`Mesh` does
+    (calls and input bytes by op) and in :attr:`coll` by the reference's
+    kind (``"count"``, and ``"bytes"``: result bytes × :data:`COLL_MULT`).
+    Its tensors are the caller's: ``meta`` in the dry run."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 device="meta"):
+        shape = tuple(int(n) for n in shape)
+        axes = tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} does not match axes "
+                             f"{axes}")
+        self.device_mesh = None
+        self.device = torch.device(device)
+        self.backend = "fake"
+        self.axis_names = axes
+        self.shape = dict(zip(axes, shape))
+        self._coord = {a: 0 for a in axes}
+        self._groups = {}
+        self.timing = False
+        self.stats = {}
+        self.coll: Dict[str, Dict[str, float]] = {}
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def group(self, names: Axes):
+        return None
+
+    def reset_stats(self) -> None:
+        self.stats = {}
+        self.coll = {}
+
+    def _run(self, op: str, x: Tensor, fn, inplace: bool = False) -> Tensor:
+        out = super()._run(op, x, fn, inplace)
+        kind = COLL_KIND[op]
+        c = self.coll.setdefault(kind, {"count": 0, "bytes": 0.0})
+        c["count"] += 1
+        c["bytes"] += out.numel() * out.element_size() * COLL_MULT[kind]
+        return out
+
+    def _reduce(self, op: str, x: Tensor, names: Axes, rop,
+                inplace: bool = False) -> Tensor:
+        if self.axis_size(names) == 1:
+            return x
+        return self._run(op, x, lambda t: t, inplace)
+
+    def reduce_scatter(self, x: Tensor, names: Axes, dim: int) -> Tensor:
+        n = self.axis_size(names)
+        if n == 1:
+            return x
+
+        def fn(t):
+            parts = [p.contiguous() for p in t.chunk(n, dim)]
+            return torch.empty_like(parts[0])
+        return self._run("reduce_scatter", x, fn, inplace=True)
+
+    def all_gather(self, x: Tensor, names: Axes, dim: int) -> Tensor:
+        n = self.axis_size(names)
+        if n == 1:
+            return x
+        return self._run("all_gather", x,
+                         lambda t: torch.cat([t] * n, dim=dim), inplace=True)
+
+
+def make_production_mesh(*, multi_pod: bool = False, fsdp: int = 1,
+                         device="meta") -> FakeMesh:
+    """The reference's production mesh (``repro/launch/mesh.py``) as a
+    :class:`FakeMesh`: 16 × 16 ("data", "model") on one pod, 2 × 16 × 16
+    ("pod", "data", "model") on two; ``fsdp > 1`` splits the 16-wide data
+    plane into ("data", "fsdp")."""
+    if fsdp <= 1:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+        return FakeMesh(shape, axes, device)
+    if 16 % fsdp:
+        raise ValueError(f"fsdp={fsdp} must divide the 16-wide data plane")
+    shape = (2, 16 // fsdp, fsdp, 16) if multi_pod \
+        else (16 // fsdp, fsdp, 16)
+    axes = ("pod", "data", "fsdp", "model") if multi_pod \
+        else ("data", "fsdp", "model")
+    return FakeMesh(shape, axes, device)
 
 
 def data_axes(multi_pod: bool) -> Tuple[str, ...]:

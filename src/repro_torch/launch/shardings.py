@@ -17,8 +17,9 @@ names, or None (replicated on that dim).  The rules:
 each rank packs exactly the slice these specs make resident on it.  A mesh
 is anything with ``shape`` (axis -> size) and ``axis_names``: a
 ``launch.mesh.Mesh`` or, for layout checks without ranks, a
-``launch.mesh.MeshShape``.  Decode under a mesh (``cache_pspec``) is not
-ported: :func:`cache_pspec` refuses by its ROADMAP item.
+``launch.mesh.MeshShape``.  :func:`cache_pspecs` are the decode caches'
+specs (the dry run reports them; the port's decode holds its cache split
+over the batch only, ``launch/specs.py``).
 """
 from __future__ import annotations
 
@@ -188,15 +189,90 @@ def shard_dims_2d(tree: PyTree, cfg: ModelConfig, mesh, *, multi_pod: bool,
     return tuple(mdims), tuple(fdims)
 
 
-def cache_pspec(*_args, **_kw):
-    """Decode caches under a mesh are not ported (ROADMAP queue A item 6c:
-    the cache specs)."""
-    raise NotImplementedError("cache_pspec: decode under a mesh is not "
-                              "ported yet (ROADMAP queue A item 6c: the "
-                              "cache specs)")
+def cache_pspec(names: Tuple[str, ...], leaf_shape: Tuple[int, ...],
+                cfg: ModelConfig, mesh, batch: int, *,
+                multi_pod: bool) -> Spec:
+    """Spec of one decode-cache leaf reached by the path ``names``: the
+    batch dim over the data axes where the batch divides them; K/V heads
+    over ``model`` where they divide it, else the sequence (over every axis
+    when the batch cannot shard); MLA's latent cache on the sequence; the
+    SSM and recurrent states on their channel dim."""
+    name = names[-1]
+    ndim = len(leaf_shape)
+    daxes = data_axes(multi_pod)
+    d_n = axis_size(mesh, daxes)
+    model_n = mesh.shape["model"]
+    batch_ok = batch % d_n == 0 and batch >= d_n
+    b_spec = (daxes if len(daxes) > 1 else daxes[0]) if batch_ok else None
+    #: when batch can't shard, spread the sequence over every axis
+    seq_axes = "model" if batch_ok else (daxes + ("model",) if len(daxes) > 1
+                                         else (daxes[0], "model"))
+
+    def seq_spec(T: int):
+        n = model_n if batch_ok else model_n * d_n
+        return seq_axes if (T % n == 0 and T >= n) else (
+            "model" if T % model_n == 0 and T >= model_n else None)
+
+    # locate the batch dim: caches are (L?, B, ...) or (B, ...)
+    b_dim = 1 if ndim >= 2 and leaf_shape[0] != batch else 0
+    if leaf_shape[b_dim] != batch:
+        b_dim = next((i for i, n in enumerate(leaf_shape) if n == batch),
+                     None)
+
+    spec: list = [None] * ndim
+    if b_dim is not None:
+        spec[b_dim] = b_spec
+
+    if name in ("k", "v", "self_k", "self_v", "cross_k", "cross_v"):
+        # (..., B, T, KV, hd): heads over `model` where they divide it,
+        # else the sequence dim
+        if leaf_shape[ndim - 2] % model_n == 0 and \
+                leaf_shape[ndim - 2] >= model_n:
+            spec[ndim - 2] = "model"
+        else:
+            spec[ndim - 3] = seq_spec(leaf_shape[ndim - 3])
+    elif name in ("c_kv", "k_rope"):
+        # (..., B, T, c)
+        spec[ndim - 2] = seq_spec(leaf_shape[ndim - 2])
+    elif name == "ssm":
+        # (L, B, di, n)
+        if leaf_shape[ndim - 2] % model_n == 0:
+            spec[ndim - 2] = "model"
+    elif name in ("conv", "lru"):
+        # (..., B, W-1, di/dw) and (..., B, dw)
+        if leaf_shape[ndim - 1] % model_n == 0:
+            spec[ndim - 1] = "model"
+    return tuple(spec)
 
 
-cache_pspecs = cache_pspec
+def cache_pspecs(cache: PyTree, cfg: ModelConfig, mesh, batch: int, *,
+                 multi_pod: bool) -> PyTree:
+    """:func:`cache_pspec` over a cache tree -> the tree of specs."""
+    treedef = tree_flatten(cache)[1]
+    return tree_unflatten(treedef, [
+        cache_pspec(p, tuple(v.shape), cfg, mesh, batch,
+                    multi_pod=multi_pod)
+        for p, v in tree_paths(cache)])
+
+
+def shard_leaf(x, spec: Spec, mesh):
+    """The block of ``x`` a rank at ``mesh``'s coordinates holds under
+    ``spec`` (views, narrowed on every sharded dim)."""
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n = axis_size(mesh, entry)
+        if n > 1:
+            w = x.shape[d] // n
+            x = x.narrow(d, mesh.axis_index(entry) * w, w)
+    return x
+
+
+def shard_shape(shape: Tuple[int, ...], spec: Spec, mesh
+                ) -> Tuple[int, ...]:
+    """The shape of a rank's block of a ``shape`` leaf under ``spec``."""
+    return tuple(n // (axis_size(mesh, e) if e is not None else 1)
+                 for n, e in zip(shape, tuple(spec) + (None,) * len(shape)))
 
 
 def batch_pspec(shape: Tuple[int, ...], mesh, batch_dim: int,

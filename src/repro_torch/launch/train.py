@@ -38,8 +38,16 @@ the JAX package's global layout; every rank restores its part).  Refused
 by name: an N that does not divide the rank count (a CLI error that says
 "must divide"), workers (replicated) or a batch (sketched) that do not
 split over the data ranks, and ``--population`` in the sketched mode (the
-trainer's ValueError).  Torch has no HLO, so no
-``compile_report.json`` is written; the manifest says why.
+trainer's ValueError).
+
+With ``--run-dir`` the launcher traces one dispatch (one round, or one
+block of the scan driver) of the same trainer on ``meta`` tensors under a
+fake-rank copy of its mesh before the first round
+(``launch/trace_analysis.py``, the reference's AOT compile) and writes
+``compile_report.json`` (``obs.profiling.compile_report``, with
+``trace_seconds`` and ``rounds_per_dispatch``); the manifest points to
+it.  A trace that fails is printed and recorded in the manifest, and the
+run goes on.
 
 :func:`run` takes the parsed arguments and, optionally, a model built by
 the caller (a full-width model cut to fewer layers, say); :func:`main`
@@ -54,7 +62,7 @@ import json
 import math
 import os
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -75,9 +83,8 @@ from repro_torch.models.registry import (Model, get_model, list_archs,
 from repro_torch.phy import list_scenarios
 from repro_torch.train.llm_trainer import FLConfig, make_fl_train
 
-#: why the launcher writes no compile report (the manifest records it)
-NO_COMPILE_REPORT = ("torch has no HLO to analyse; the launcher's HLO "
-                     "analysis is ROADMAP queue A item 6c")
+#: the file the launcher's trace of one dispatch writes into the run dir
+COMPILE_REPORT = "compile_report.json"
 
 
 def parser() -> argparse.ArgumentParser:
@@ -248,6 +255,55 @@ def _log(r: int, metrics: dict) -> None:
           flush=True)
 
 
+def configs(args: argparse.Namespace, telemetry_on: bool):
+    """The run's ``(FLConfig, AdmmConfig, ChannelConfig)`` from the parsed
+    flags (``telemetry_on``: the ``obs/`` keys, on with ``--run-dir``
+    unless ``--telemetry`` says otherwise)."""
+    faults, guard = _faults(args)
+    flcfg = FLConfig(mode=args.mode, n_workers=args.workers,
+                     local_steps=args.local_steps, local_lr=args.local_lr,
+                     sketch_ratio=args.sketch_ratio,
+                     sketch_lr=args.sketch_lr,
+                     transport_backend=args.backend,
+                     scenario=args.scenario, doppler_hz=args.doppler_hz,
+                     csi_err=args.csi_err, h_min=args.h_min,
+                     slots_per_round=args.slots_per_round,
+                     ota_fused=None if args.ota_fused is None
+                     else args.ota_fused == "on",
+                     ota_worker_chunk=args.ota_worker_chunk,
+                     ota_block_cols=args.ota_block_cols,
+                     faults=faults, guard=guard,
+                     telemetry=True if telemetry_on else None,
+                     population=args.population, cohort=args.cohort,
+                     cohort_policy=args.cohort_policy)
+    acfg = AdmmConfig(rho=args.rho, flip_on_change=False)
+    ccfg = ChannelConfig(n_workers=args.population or args.workers,
+                         snr_db=args.snr_db, coherence_iters=args.coherence)
+    return flcfg, acfg, ccfg
+
+
+def trace_dispatch(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
+                   ccfg: ChannelConfig, mesh, key: int, batch: dict,
+                   rounds: Sequence[int]):
+    """The trace of one dispatch: ``rounds`` (their global indices) of the
+    trainer on ``meta`` tensors, as rank 0 of a fake-rank copy of
+    ``mesh`` (None: one device), from its init at ``key`` on the rank's
+    ``batch`` shapes.  Returns the ``TraceSummary``."""
+    from repro_torch.launch.mesh import FakeMesh
+    from repro_torch.launch.trace_analysis import tracing
+
+    fake = None if mesh is None else FakeMesh(
+        tuple(mesh.shape[a] for a in mesh.axis_names), mesh.axis_names)
+    init_fn, train_step = make_fl_train(model, flcfg, acfg, ccfg, mesh=fake,
+                                        device="meta")
+    st = init_fn(key)
+    mb = {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+    with tracing(fake, (st, mb)) as tr:
+        for r in rounds:
+            st, _ = train_step(st, mb, key=rng.fold_in(key, 2000 + r))
+    return tr.summary()
+
+
 def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
     """Train per ``args`` (:func:`parser`'s namespace), on ``model`` if
     given (else ``get_model(args.arch, reduced=args.reduced)``).  Returns
@@ -290,45 +346,11 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
     #: rows the batch (and the uplink) carries per round: the cohort width
     #: under population sampling, else every worker
     W_round = args.cohort if args.population is not None else W
-    faults, guard = _faults(args)
-    flcfg = FLConfig(mode=args.mode, n_workers=W,
-                     local_steps=args.local_steps, local_lr=args.local_lr,
-                     sketch_ratio=args.sketch_ratio,
-                     sketch_lr=args.sketch_lr,
-                     transport_backend=args.backend,
-                     scenario=args.scenario, doppler_hz=args.doppler_hz,
-                     csi_err=args.csi_err, h_min=args.h_min,
-                     slots_per_round=args.slots_per_round,
-                     ota_fused=None if args.ota_fused is None
-                     else args.ota_fused == "on",
-                     ota_worker_chunk=args.ota_worker_chunk,
-                     ota_block_cols=args.ota_block_cols,
-                     faults=faults, guard=guard,
-                     telemetry=True if telemetry_on else None,
-                     population=args.population, cohort=args.cohort,
-                     cohort_policy=args.cohort_policy)
-    acfg = AdmmConfig(rho=args.rho, flip_on_change=False)
-    ccfg = ChannelConfig(n_workers=args.population or W, snr_db=args.snr_db,
-                         coherence_iters=args.coherence)
+    flcfg, acfg, ccfg = configs(args, telemetry_on)
     init_fn, train_step = make_fl_train(model, flcfg, acfg, ccfg, mesh=mesh,
                                         device=dev)
 
     sink = timer = None
-    if args.run_dir and main_rank:
-        from repro_torch.obs.sink import MetricsSink, run_manifest
-        sink = MetricsSink(args.run_dir, resume=args.resume)
-        sink.write_manifest(run_manifest(
-            arch=args.arch, reduced=args.reduced, mode=args.mode,
-            driver=args.driver, backend=args.backend, device=str(dev),
-            telemetry=telemetry_on, rounds=args.rounds, workers=W,
-            seed=args.seed, log_every=args.log_every,
-            mesh_shape=None if mesh is None else dict(mesh.shape),
-            model=dataclasses.asdict(cfg),
-            flconfig=dataclasses.asdict(flcfg),
-            admm=dataclasses.asdict(acfg),
-            channel=dataclasses.asdict(ccfg),
-            compile_report=None, compile_report_why=NO_COMPILE_REPORT,
-            argv=vars(args)))
     if args.run_dir or args.profile:
         from repro_torch.obs.profiling import SpanTimer
         timer = SpanTimer()
@@ -396,8 +418,6 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
                   else restore_sharded(path, st, mesh, sspec, faxes))
             r0 = latest
             say(f"resumed from round {r0} ({path})", flush=True)
-            if sink is not None:
-                sink.log_resume(r0)
 
     def maybe_checkpoint(stop: int, st, last: int) -> int:
         """Snapshot the whole trainer state (θ, λ, Θ, channel and fault
@@ -432,6 +452,42 @@ def run(args: argparse.Namespace, model: Optional[Model] = None) -> dict:
 
     def step(st, r: int):
         return train_step(st, make_batch(r), key=rng.fold_in(key, 2000 + r))
+
+    if args.run_dir and main_rank:
+        from repro_torch.obs.profiling import compile_report
+        from repro_torch.obs.sink import MetricsSink, run_manifest
+        # one dispatch: a round, or a block of the scan driver
+        per = (max(1, math.gcd(args.log_every, args.rounds - r0))
+               if args.driver == "scan" else 1)
+        report = why = None
+        os.makedirs(args.run_dir, exist_ok=True)
+        try:
+            t_tr = time.time()
+            summary = trace_dispatch(model, flcfg, acfg, ccfg, mesh, key,
+                                     make_batch(r0), range(r0, r0 + per))
+            compile_report(summary, os.path.join(args.run_dir,
+                                                 COMPILE_REPORT),
+                           trace_seconds=time.time() - t_tr,
+                           rounds_per_dispatch=per)
+            report = COMPILE_REPORT
+        except Exception as e:
+            why = f"trace failed: {type(e).__name__}: {e}"
+            print(f"obs: compile report unavailable ({why})", flush=True)
+        sink = MetricsSink(args.run_dir, resume=args.resume)
+        sink.write_manifest(run_manifest(
+            arch=args.arch, reduced=args.reduced, mode=args.mode,
+            driver=args.driver, backend=args.backend, device=str(dev),
+            telemetry=telemetry_on, rounds=args.rounds, workers=W,
+            seed=args.seed, log_every=args.log_every,
+            mesh_shape=None if mesh is None else dict(mesh.shape),
+            model=dataclasses.asdict(cfg),
+            flconfig=dataclasses.asdict(flcfg),
+            admm=dataclasses.asdict(acfg),
+            channel=dataclasses.asdict(ccfg),
+            compile_report=report, compile_report_why=why,
+            argv=vars(args)))
+        if r0 > 0:
+            sink.log_resume(r0)
 
     trace_ctx = contextlib.nullcontext(None)
     if args.profile and args.run_dir and main_rank:

@@ -30,8 +30,8 @@ from repro_torch import rng
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (init_stacked, layer_params,
-                                            run_stacked)
+from repro_torch.models.transformer import (decode_layer, init_stacked,
+                                            layer_params, run_stacked)
 
 Tensor = torch.Tensor
 Params = Dict
@@ -216,7 +216,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict, token: Tensor,
     T = cache["self_k"].shape[2]
     write_pos = pos % T if cfg.sliding_window is not None else pos
     for i in range(cfg.n_layers):
-        p = layer_params(params, i, "dec_layers")
+        p = decode_layer(params, i, "dec_layers")
         h = L.layernorm(p["ln1"], x, cfg.norm_eps)
         a, _, _ = L.attention_decode(p["self_attn"], h, cfg,
                                      cache["self_k"][i], cache["self_v"][i],

@@ -38,7 +38,7 @@ from repro_torch.kernels.linear_scan import gated_linear_scan
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import _conv1d_causal
-from repro_torch.models.transformer import (init_stacked, layer_params,
+from repro_torch.models.transformer import (decode_layer, init_stacked,
                                             run_stacked)
 from repro_torch.tree import tree_map
 
@@ -289,7 +289,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict, token: Tensor,
     x = L.embed(params["embed"], token[:, None]) * scale
     write_pos = pos % cfg.attn_window
     for s in range(n_super):
-        super_p = layer_params(params, s, key="super")
+        super_p = decode_layer(params, s, key="super")
         super_c = tree_map(lambda leaf: leaf[s], cache["super"])
         for i, kind in enumerate(pat):
             x = _layer_decode(super_p[f"b{i}"], x, cfg, super_c[f"b{i}"],

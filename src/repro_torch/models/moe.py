@@ -41,7 +41,7 @@ from repro_torch import optflags, rng
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (init_stacked, layer_params,
+from repro_torch.models.transformer import (decode_layer, init_stacked,
                                             run_stacked)
 from repro_torch.tree import tree_leaves
 
@@ -563,10 +563,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict, token: Tensor,
     nd = cfg.first_dense_layers
     if "dense" in cache:
         for i in range(nd):
-            x = _block_decode(layer_params(params, i, "dense_layers"), x, cfg,
+            x = _block_decode(decode_layer(params, i, "dense_layers"), x, cfg,
                               cache["dense"], i, write_pos, pos, moe=False)
     for i in range(cfg.n_layers - nd):
-        x = _block_decode(layer_params(params, i, "moe_layers"), x, cfg,
+        x = _block_decode(decode_layer(params, i, "moe_layers"), x, cfg,
                           cache["moe"], i, write_pos, pos, moe=True)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x)[:, 0], cache

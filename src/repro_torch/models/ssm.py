@@ -35,7 +35,7 @@ from repro_torch.kernels.linear_scan import (gated_linear_scan,
                                              linear_scan_carry)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (init_stacked, layer_params,
+from repro_torch.models.transformer import (decode_layer, init_stacked,
                                             run_stacked)
 
 Tensor = torch.Tensor
@@ -228,7 +228,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
     del pos
     x = L.embed(params["embed"], token[:, None])
     for i in range(cfg.n_layers):
-        x, s, c = block_decode(layer_params(params, i), x, cfg,
+        x, s, c = block_decode(decode_layer(params, i), x, cfg,
                                cache["ssm"][i], cache["conv"][i])
         cache["ssm"][i].copy_(s)
         cache["conv"][i].copy_(c)

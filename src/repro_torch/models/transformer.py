@@ -155,6 +155,17 @@ def layer_params(params: Params, i: int, key: str = "layers") -> Params:
     return tree_map(lambda leaf: leaf[index], params[key])
 
 
+def decode_layer(params: Params, i: int, key: str = "layers") -> Params:
+    """Entry ``i`` of ``params[key]`` for a decode step: :func:`layer_params`,
+    with the entry's sharded dims gathered under a mesh's gather plan
+    (``models/gather``: the serving layer's, the params held as a rank's
+    shards); without a plan, :func:`layer_params` itself."""
+    from repro_torch.models import gather as _gather
+
+    return _gather.gather_entry(_gather.current(),
+                                layer_params(params, i, key), key)
+
+
 #: the matrix products ``dense``, the einsums and ``matmul`` lower to
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
          torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
@@ -251,7 +262,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
     T = cache["k"].shape[2]
     write_pos = pos % T if cfg.sliding_window is not None else pos
     for i in range(cfg.n_layers):
-        x, _, _ = block_decode(layer_params(params, i), x, cfg,
+        x, _, _ = block_decode(decode_layer(params, i), x, cfg,
                                cache["k"][i], cache["v"][i], write_pos, pos)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x)[:, 0], cache

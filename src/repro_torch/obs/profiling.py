@@ -11,11 +11,15 @@ Counterpart of ``repro/obs/profiling.py``.
   caller that needs the trace (``chip_smoke.py``) can fail on its own.
 * :class:`SpanTimer` — wall-clock spans accumulated into a
   JSON-serialisable dict, as in the JAX package.
-* :func:`compile_report` — refused: torch has no HLO to analyse.
+* :func:`compile_report` — the static report of one dispatch from the dry
+  run's trace of it (``launch/trace_analysis.py``, in place of the
+  reference's HLO analysis): flops, HBM bytes, per-collective bytes and
+  calls, written as ``compile_report.json`` next to the run's JSONL.
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from typing import Any, Dict, Optional
@@ -126,13 +130,31 @@ class SpanTimer:
         return {k: dict(v) for k, v in self.spans.items()}
 
 
-def compile_report(hlo_text: str, path: Optional[str] = None,
+def compile_report(summary, path: Optional[str] = None,
                    **extra) -> Dict[str, Any]:
-    """Refused: the JAX package's report analyses a compiled module's
-    optimized HLO, and torch's eager kernels have none.  The launcher's
-    analysis of a round (``launch/hlo_analysis.py``) is ROADMAP queue A
-    item 6c."""
-    raise NotImplementedError(
-        "compile_report: torch has no HLO to analyse; the port's launcher "
-        "writes no compile_report.json (the HLO analysis is ROADMAP queue A "
-        "item 6c)")
+    """The compile report of one traced dispatch
+    (``launch.trace_analysis.TraceSummary``), the reference's keys with
+    ``collective_calls`` in place of ``collective_permutes``::
+
+        {"flops": ..., "mem_bytes": ..., "coll_bytes": {...},
+         "coll_count": {...}, "coll_bytes_total": ...,
+         "collective_calls": ..., **extra}
+
+    ``extra`` fields (``trace_seconds``, ``rounds_per_dispatch``) are
+    merged verbatim; with ``path`` the report is written there as JSON."""
+    from repro_torch.launch.trace_analysis import collective_calls
+
+    rep: Dict[str, Any] = {
+        "flops": summary.flops,
+        "mem_bytes": summary.mem_bytes,
+        "coll_bytes": dict(summary.coll_bytes),
+        "coll_count": dict(summary.coll_count),
+        "coll_bytes_total": summary.coll_bytes_total,
+        "collective_calls": collective_calls(summary),
+    }
+    rep.update(extra)
+    if path is not None:
+        with open(path, "w") as f:
+            json.dump(rep, f, indent=2, sort_keys=True)
+            f.write("\n")
+    return rep

@@ -39,8 +39,21 @@ def split(key: int, num: int = 2) -> Tuple[int, ...]:
     return tuple(fold_in(key, i) for i in range(num))
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that names ``meta`` as its device: torch makes no
+    generator on ``meta``, but draws on ``meta`` take a CPU one, and the
+    port's draws put their result on ``generator.device``."""
+
+    device = property(lambda self: torch.device("meta"))
+
+
 def generator(key: int, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded from ``key``."""
-    g = torch.Generator(device=device)
+    """A ``torch.Generator`` on ``device`` seeded from ``key`` (on
+    ``meta``, a CPU generator that reports ``meta``: the dry run's shapes
+    without data)."""
+    if torch.device(device).type == "meta":
+        g = _MetaGenerator()
+    else:
+        g = torch.Generator(device=device)
     g.manual_seed(key & _MASK64)
     return g

@@ -1252,17 +1252,23 @@ class _SketchGrid:
         st = self.state
         st.update(sspec=sspec, plan=plan)
         if self.on:
-            st["perm"] = shard_perm_local(sspec, self.j).to(dev)
+            # the canonical indices are built on the host and moved: built
+            # on the card, they moved a mesh rank's first sketched-round
+            # loss in its last bits (ROADMAP queue C item 1); on ``meta``
+            # (the dry run) they are shapes alone
+            host = dev if dev.type == "meta" else torch.device("cpu")
+            st["perm"] = shard_perm_local(sspec, self.j, host).to(dev)
             st["valid"] = shard_valid_mask(sspec, self.j, dev)
             segs = {}
             if sspec.b_leaves and sspec.n_fsdp > 1:
-                segs["b_seg"] = (b_segment_perm(sspec, self.jm),
+                segs["b_seg"] = (b_segment_perm(sspec, self.jm, host),
                                  sspec.b_size)
             if sspec.c_leaves and sspec.n_model > 1:
-                segs["c_seg"] = (c_segment_perm(sspec, self.jf),
+                segs["c_seg"] = (c_segment_perm(sspec, self.jf, host),
                                  sspec.c_size)
             if sspec.rep_leaves:
-                segs["rep_seg"] = (rep_segment_perm(sspec), sspec.rep_size)
+                segs["rep_seg"] = (rep_segment_perm(sspec, host),
+                                   sspec.rep_size)
             st["segs"] = {k: (p.to(dev), torch.arange(p.shape[0],
                                                       device=dev) < n)
                           for k, (p, n) in segs.items()}

@@ -1,0 +1,510 @@
+"""The port's dry run (``repro_torch.launch.specs``, ``trace_analysis``,
+``dryrun``, ``shardings.cache_pspecs``, ``obs.profiling.compile_report``
+and the ``benchmarks.roofline``/``report`` twins) against the JAX
+package's, on the CPU.
+
+* Specs: every arch × shape (reduced) on the reference's ``AbstractMesh``
+  (16, 16), (4, 4, 16) and (2, 16, 16) and the port's fake-rank mesh of the
+  same shape, plus granite-8b sketched, leafwise and under markov-doppler:
+  ``args`` leaf shapes and dtypes, ``in_shardings``, donation and ``meta``
+  equal the reference's; ``local_args`` are what ``local_shardings`` cut.
+* Cache specs for decode_32k and long_500k, leaf by leaf.
+* Flops: the port's trace against the reference's loop-corrected HLO flops
+  on a (1, 1) ``Auto`` mesh for six reduced cases, rtol 1e-2.  The named
+  exception is attention: the reference counts its masked S × S score
+  products (full squares, of which the compiled CPU module keeps some
+  inside fusions that ``hlo_analysis`` counts once), the port counts B11 as
+  the kernel computes it (causal pairs only).  So the products whose
+  operands or result carry two sequence-length dims are set aside on both
+  sides, and B11's flops are held to the causal-pair count instead.
+* Collectives: one spawn of two gloo ranks runs a round of reduced granite
+  on (1, 2), on (2, 1) and sketched on (1, 2); the trace of the same round
+  on the fake mesh counts the same calls and bytes by op, exactly.  The
+  same spawn serves reduced granite-8b and falcon-mamba-7b on (1, 2) and
+  (2, 1) through ``.shard(full)``: each rank's prefill logits, greedy
+  tokens and cache are its rows of one device's (the path
+  ``test_torch_serve`` holds to JAX), and the traced prefill and decode
+  step count the live ranks' collectives.
+* Port against port: the packed round's collective calls within 1.1× the
+  leafwise round's on 16 × 16 (the reference's CI rule); k rounds count k
+  times one round's flops and collectives; the CLI writes the reference's
+  keys for its own ``test_dryrun_reduced`` cases (and a ``.err`` for a
+  combination that fails); the report and roofline twins read them.
+"""
+import collections
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+from jax.sharding import AbstractMesh, AxisType  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+from repro.launch import hlo_analysis  # noqa: E402
+from repro.launch import shardings as JSH  # noqa: E402
+from repro.launch.specs import build_spec as jbuild_spec  # noqa: E402
+from repro.models.registry import build_model as jbuild_model  # noqa: E402
+from repro.models.registry import get_config as jget_config  # noqa: E402
+from repro_torch.benchmarks import report, roofline  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_flops  # noqa: E402
+from repro_torch.launch import dryrun, specs  # noqa: E402
+from repro_torch.launch import shardings as SH  # noqa: E402
+from repro_torch.launch.mesh import FakeMesh  # noqa: E402
+from repro_torch.launch.trace_analysis import (analyze,  # noqa: E402
+                                               collective_calls, tracing)
+from repro_torch.models.registry import build_model, get_config  # noqa: E402
+from repro_torch.models.registry import list_archs  # noqa: E402
+
+import torch_mesh as tm  # noqa: E402
+from torch_replay import one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
+MESHES = {"16x16": ((16, 16), ("data", "model")),
+          "4x4x16": ((4, 4, 16), ("data", "fsdp", "model")),
+          "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+REDUCED_CACHE_SHAPES = ("decode_32k", "long_500k")
+
+
+def _amesh(name):
+    shape, axes = MESHES[name]
+    return AbstractMesh(shape, axes,
+                        axis_types=(AxisType.Explicit,) * len(axes))
+
+
+def _fake(name):
+    return FakeMesh(*MESHES[name])
+
+
+def _norm(spec, ndim):
+    spec = tuple(spec)
+    return spec + (None,) * (ndim - len(spec))
+
+
+def _jax_leaves(spec):
+    args = jax.tree_util.tree_leaves(spec.args)
+    shs = jax.tree_util.tree_leaves(spec.in_shardings,
+                                    is_leaf=lambda x: isinstance(x, P))
+    return args, shs
+
+
+def _check_spec(ours, ref, mesh):
+    """``ours`` (the port's DryRunSpec) against ``ref`` (the JAX
+    package's): leaves, shapes, dtypes, specs, donation, meta; and the
+    rank's resident args are what the local specs cut."""
+    ra, rs = _jax_leaves(ref)
+    pa = specs.leaves(ours.args)
+    ps = specs.leaves(ours.in_shardings)
+    assert len(pa) == len(ra) == len(ps) == len(rs)
+    for (path, x), j, (_, s), js in zip(pa, ra, ps, rs):
+        where = ".".join(path)
+        assert tuple(x.shape) == tuple(j.shape), where
+        assert str(x.dtype).replace("torch.", "") == str(j.dtype), where
+        assert _norm(s, x.dim()) == _norm(js, x.dim()), (where, s, js)
+    assert tuple(ours.donate_argnums) == tuple(ref.donate_argnums)
+    assert {k: v for k, v in ours.meta.items() if k in ref.meta} == ref.meta
+    assert set(ours.meta) - set(ref.meta) <= {"cache_layout"}
+    local = specs.leaves(ours.local_args)
+    cut = specs.cut_shapes(ours.args, ours.local_shardings, mesh)
+    assert len(local) == len(cut)
+    for (path, x), want in zip(local, cut):
+        if isinstance(x, torch.Tensor):
+            assert tuple(x.shape) == want, ".".join(path)
+            assert x.is_meta, ".".join(path)
+
+
+def _same_layout(ours, mesh_name):
+    """Where the rank's layout is the reference's boundary layout: every
+    argument but the decode cache (split over the batch only) and, on an
+    fsdp mesh, the replicated mode's state (on the (fsdp, model) grid)."""
+    kind = ours.meta["kind"]
+    skip = {1} if kind == "decode" else set()
+    if kind == "train" and ours.meta["fl_mode"] == "replicated" \
+            and mesh_name == "4x4x16":
+        skip.add(0)
+    loc = specs.leaves(ours.local_shardings)
+    ref = specs.leaves(ours.in_shardings)
+    for ((path, a), (_, b)), (_, x) in zip(zip(loc, ref),
+                                           specs.leaves(ours.args)):
+        if int(path[0]) in skip or not isinstance(x, torch.Tensor):
+            continue
+        assert _norm(a, x.dim()) == _norm(b, x.dim()), ".".join(path)
+    if kind == "decode":
+        assert ours.meta["cache_layout"] == "batch"
+
+
+@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_specs_match_the_reference(mesh_name, arch):
+    multi_pod = mesh_name == "2x16x16"
+    for shape in specs.SHAPES:
+        ref = jbuild_spec(arch, shape, _amesh(mesh_name),
+                          multi_pod=multi_pod, reduced=True)
+        mesh = _fake(mesh_name)
+        ours = specs.build_spec(arch, shape, mesh, multi_pod=multi_pod,
+                                reduced=True)
+        _check_spec(ours, ref, mesh)
+        _same_layout(ours, mesh_name)
+
+
+@pytest.mark.parametrize("kw", [dict(fl_mode="sketched"),
+                                dict(packed_uplink=False),
+                                dict(scenario="markov-doppler")],
+                         ids=["sketched", "leafwise", "markov-doppler"])
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_train_spec_variants_match_the_reference(mesh_name, kw):
+    multi_pod = mesh_name == "2x16x16"
+    ref = jbuild_spec("granite-8b", "train_4k", _amesh(mesh_name),
+                      multi_pod=multi_pod, reduced=True, **kw)
+    mesh = _fake(mesh_name)
+    ours = specs.build_spec("granite-8b", "train_4k", mesh,
+                            multi_pod=multi_pod, reduced=True, **kw)
+    _check_spec(ours, ref, mesh)
+
+
+@pytest.mark.parametrize("shape", REDUCED_CACHE_SHAPES)
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_cache_pspecs_match_the_reference(mesh_name, shape):
+    multi_pod = mesh_name == "2x16x16"
+    amesh, mesh = _amesh(mesh_name), _fake(mesh_name)
+    for arch in list_archs():
+        cfg_j = jget_config(arch)
+        cfg_p = get_config(arch)
+        if shape == "long_500k" and not cfg_j.subquadratic:
+            cfg_j = cfg_j.with_sliding_window(specs.SLIDING_WINDOW_LONG)
+            cfg_p = cfg_p.with_sliding_window(specs.SLIDING_WINDOW_LONG)
+        cfg_j, cfg_p = cfg_j.reduced(), cfg_p.reduced()
+        d_n = 32 if multi_pod else (4 if mesh_name == "4x4x16" else 16)
+        B = d_n if specs.SHAPES[shape]["batch"] >= d_n \
+            else specs.SHAPES[shape]["batch"]
+        kw = {"n_frames": 32} if cfg_p.family == "audio" else {}
+        cj = jax.eval_shape(lambda: jbuild_model(cfg_j).init_cache(
+            B, 128, **kw))
+        cp = build_model(cfg_p).init_cache(B, 128, device="meta", **kw)
+        sj = jax.tree_util.tree_leaves(
+            JSH.cache_pspecs(cj, cfg_j, amesh, B, multi_pod=multi_pod),
+            is_leaf=lambda x: isinstance(x, P))
+        lp = specs.leaves((cp,))
+        sp = specs.leaves((SH.cache_pspecs(cp, cfg_p, mesh, B,
+                                           multi_pod=multi_pod),))
+        lj = jax.tree_util.tree_leaves(cj)
+        assert len(lj) == len(lp) == len(sp) == len(sj), arch
+        for (path, x), j, (_, s), js in zip(lp, lj, sp, sj):
+            assert tuple(x.shape) == tuple(j.shape), (arch, path)
+            assert _norm(s, x.dim()) == _norm(js, x.dim()), (arch, path)
+
+
+# ---------------------------------------------------------------------------
+# flops against the reference's HLO
+# ---------------------------------------------------------------------------
+
+def _hlo_of(arch, shape):
+    """The reference's compiled module of the reduced spec on a (1, 1)
+    mesh with ``Auto`` axes, as its ``run_one`` lowers it."""
+    from repro.launch.shardings import named, rules_for
+    from repro.models.sharding import axis_rules
+
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    spec = jbuild_spec(arch, shape, mesh, multi_pod=False, reduced=True)
+    fl_repl = (spec.meta.get("kind") == "train"
+               and spec.meta.get("fl_mode") == "replicated")
+    rules = rules_for(jget_config(arch).reduced(), mesh, multi_pod=False,
+                      fl_replicated=fl_repl)
+    with mesh:
+        with axis_rules(mesh, rules):
+            return jax.jit(spec.fn, in_shardings=named(
+                mesh, spec.in_shardings), donate_argnums=spec.donate_argnums
+            ).lower(*spec.args).compile().as_text()
+
+
+def _hlo_dots(hlo):
+    """Flops of every dot of the module by (lhs, rhs, result) dims, times
+    the loop trips ``hlo_analysis`` multiplies through."""
+    comps, entry = hlo_analysis._parse_computations(hlo)
+    costs = {n: hlo_analysis._analyze_comp(c) for n, c in comps.items()}
+    mult = collections.Counter()
+
+    def walk(name, m):
+        mult[name] += m
+        for child, k, _ in costs[name].refs:
+            if child in costs:
+                walk(child, m * k)
+    walk(entry, 1.0)
+    out = collections.Counter()
+    for name, lines in comps.items():
+        if not mult[name]:
+            continue
+        defs = {}
+        for line in lines:
+            m = hlo_analysis._OP_RE.match(line)
+            if m:
+                defs[m.group(1)] = m.group(2)
+        for line in lines:
+            m = hlo_analysis._OP_RE.match(line)
+            if not m or m.group(3) != "dot":
+                continue
+            ops = hlo_analysis._NAME_RE.findall(m.group(4).split(")")[0])
+            lhs = hlo_analysis.shape_dims(defs.get(ops[0], ""))
+            rhs = hlo_analysis.shape_dims(defs.get(ops[1], ""))
+            res = hlo_analysis.shape_dims(m.group(2))
+            k = 1
+            cm = hlo_analysis._CONTRACT_RE.search(line)
+            for i in (int(x) for x in cm.group(1).split(",") if x):
+                k *= lhs[i]
+            out[(lhs, rhs, res)] += 2.0 * float(np.prod(res)) * k \
+                * mult[name]
+    return out
+
+
+def _attention(shapes, S):
+    return any(list(s).count(S) >= 2 for s in shapes)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("granite-8b", "train_4k"), ("granite-8b", "prefill_32k"),
+    ("granite-8b", "decode_32k"), ("falcon-mamba-7b", "long_500k"),
+    ("recurrentgemma-2b", "train_4k"), ("qwen3-moe-30b-a3b", "train_4k")])
+def test_trace_flops_match_the_reference_hlo(arch, shape):
+    hlo = _hlo_of(arch, shape)
+    ref_total = hlo_analysis.analyze(hlo).flops
+    dots = _hlo_dots(hlo)
+    assert sum(dots.values()) == pytest.approx(ref_total, rel=1e-9)
+    mesh = FakeMesh((1, 1), ("data", "model"))
+    spec = specs.build_spec(arch, shape, mesh, multi_pod=False, reduced=True)
+    s = analyze(spec.fn, spec.local_args, mesh)
+    S = spec.meta["seq"]
+    ref_attn = sum(v for k, v in dots.items() if _attention(k, S))
+    ours_attn = sum(v for (_, ins, outs), v in s.products.items()
+                    if _attention(ins + outs, S))
+    b11 = {k: v for k, v in s.kernels.items()
+           if k.startswith("flash_attention")}
+    kernel_flops = sum(k["flops"] for k in s.kernels.values())
+    # outside attention the products are the reference's
+    assert s.flops - ours_attn - kernel_flops == pytest.approx(
+        ref_total - ref_attn, rel=1e-2)
+    if not ref_attn:
+        assert s.flops == pytest.approx(ref_total, rel=1e-2)
+    # B11 as the kernel computes it: per call, the causal pairs × 4/6/8·hd
+    if b11:
+        cfg = spec.meta
+        assert cfg["kind"] in ("train", "prefill")
+        n_rows = {"train": 2, "prefill": 1}[cfg["kind"]]   # B·(workers)
+        m = get_config(arch)
+        hd = m.reduced().hd
+        H = m.reduced().n_heads
+        q = torch.empty((n_rows, H, S, hd), device="meta")
+        per = {"flash_attention_fwd": 4, "flash_attention_dq": 6,
+               "flash_attention_dkv": 8}
+        for name, k in b11.items():
+            assert k["flops"] == k["calls"] * attention_flops(
+                q, q, True, per[name]), name
+
+
+# ---------------------------------------------------------------------------
+# collectives against a live round on two gloo ranks
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def live(tmp_path_factory):
+    """The module's one spawn of two gloo ranks (``torch_mesh.dryrun_rank``):
+    each rank's live rounds and serving runs."""
+    return tm.spawn(tm.dryrun_rank, 2, tmp_path_factory.mktemp("live"))
+
+
+def test_trace_collectives_equal_a_live_round(live):
+    for name, shape, mode in tm.DRYRUN_ROUNDS:
+        mesh = FakeMesh(shape, ("data", "model"))
+        init_fn, step = tm.dryrun_trainer(mesh, mode, "meta")
+        state = init_fn(0)
+        batch = tm.dryrun_batch(mesh, mode, "meta")
+        s = analyze(lambda st, b: step(st, b, key=tm.DRYRUN_KEY),
+                    (state, batch), mesh)
+        assert s.mesh_stats, name
+        for rank in (0, 1):
+            assert s.mesh_stats == live[rank][name]["stats"], (name, rank)
+            assert np.isfinite(live[rank][name]["loss"])
+        # the reference's kinds count the same calls
+        assert sum(s.coll_count.values()) == sum(
+            v["calls"] for v in s.mesh_stats.values())
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh against one device, and its trace against the live ranks
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def served_alone():
+    """Each served arch on one device: the path ``test_torch_serve`` holds
+    to JAX."""
+    return {arch: tm.serve_run(arch) for arch in
+            dict.fromkeys(a for a, _ in tm.DRYRUN_SERVE)}
+
+
+def _rank_rows(shape, rank: int) -> slice:
+    b = tm.SERVE_BATCH // shape[0]
+    j = rank // shape[1]                     # the rank's data coordinate
+    return slice(j * b, (j + 1) * b)
+
+
+@pytest.mark.parametrize("arch,shape", tm.DRYRUN_SERVE)
+def test_serving_on_a_mesh_equals_one_device(live, served_alone, arch,
+                                             shape):
+    """Each rank's prefill logits, greedy tokens and final cache are its
+    rows of one device's: the gathered layers are the full ones, so only
+    the batch's split can move a bit (f32, 1e-5)."""
+    want = served_alone[arch]
+    for rank in (0, 1):
+        got = live[rank][(arch, shape)]
+        rows = _rank_rows(shape, rank)
+        np.testing.assert_allclose(got["logits"], want["logits"][rows],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(got["tokens"], want["tokens"][rows])
+        for k, c in want["cache"].items():
+            # every family's cache leads with the layer dim, then the batch
+            np.testing.assert_allclose(got["cache"][k], c[:, rows],
+                                       rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("arch,shape", tm.DRYRUN_SERVE)
+def test_trace_serving_collectives_equal_the_live_ranks(live, arch, shape):
+    """The prefill and one greedy step traced on the fake mesh count the
+    calls and bytes by op that each live rank's ``Mesh.stats`` recorded."""
+    from repro_torch.serve import make_prefill, make_serve_step
+
+    mesh = FakeMesh(shape, ("data", "model"))
+    model = tm._f32_model(arch)
+    full = model.init(0, device="meta")
+    b = tm.SERVE_BATCH // shape[0]
+    toks = torch.empty((b, tm.SERVE_PROMPT), dtype=torch.int32,
+                       device="meta")
+    prefill = make_prefill(model, mesh)
+    s_pre = analyze(prefill, (prefill.shard(full), {"tokens": toks}), mesh)
+    step = make_serve_step(model, mesh)
+    cache = model.init_cache(b, tm.SERVE_PROMPT + tm.SERVE_STEPS,
+                             device="meta")
+    s_dec = analyze(step, (step.shard(full), cache, toks[:, 0],
+                           tm.SERVE_PROMPT + tm.SERVE_STEPS - 2), mesh)
+    # a pure-data mesh holds the params whole: nothing to gather
+    assert bool(s_pre.mesh_stats) == bool(s_dec.mesh_stats) == (shape[1] > 1)
+    for rank in (0, 1):
+        stats = live[rank][(arch, shape)]["stats"]
+        assert s_pre.mesh_stats == stats["prefill"], rank
+        assert s_dec.mesh_stats == stats["decode"], rank
+
+
+# ---------------------------------------------------------------------------
+# port against port
+# ---------------------------------------------------------------------------
+
+def test_packed_round_collectives_within_leafwise_on_16x16():
+    calls = {}
+    for packed in (None, False):
+        mesh = _fake("16x16")
+        spec = specs.build_spec("granite-8b", "train_4k", mesh,
+                                multi_pod=False, reduced=True,
+                                packed_uplink=packed)
+        calls[packed] = collective_calls(analyze(spec.fn, spec.local_args,
+                                                 mesh))
+    assert 0 < calls[None] <= 1.1 * calls[False]
+
+
+def test_k_rounds_count_k_times_one_round():
+    mesh = FakeMesh((1, 2), ("data", "model"))
+    init_fn, step = tm.dryrun_trainer(mesh, "replicated", "meta")
+    batch = tm.dryrun_batch(mesh, "replicated", "meta")
+
+    def rounds(k):
+        st = init_fn(0)
+        with tracing(mesh, (st, batch)) as tr:
+            for r in range(k):
+                st, _ = step(st, batch, key=tm.DRYRUN_KEY + r)
+        return tr.summary()
+    one, three = rounds(1), rounds(3)
+    assert one.flops > 0 and three.flops == 3 * one.flops
+    assert three.coll_count == {k: 3 * v for k, v in one.coll_count.items()}
+    assert three.coll_bytes == {k: 3 * v for k, v in one.coll_bytes.items()}
+    assert three.mesh_stats == {
+        op: {"calls": 3 * v["calls"], "bytes": 3 * v["bytes"]}
+        for op, v in one.mesh_stats.items()}
+
+
+#: the keys of a result, as the reference's ``run_one`` writes them
+RESULT_KEYS = {"arch", "shape", "mesh", "chips", "meta", "timings", "memory",
+               "collectives", "roofline"}
+
+
+def test_cli_writes_results_and_the_twins_read_them(tmp_path, capsys):
+    out = str(tmp_path / "dry")
+    for arch, shape in (("recurrentgemma-2b", "train_4k"),
+                        ("falcon-mamba-7b", "long_500k")):
+        assert dryrun.main(["--arch", arch, "--shape", shape, "--reduced",
+                            "--out", out]) == 0
+        path = os.path.join(out, f"{arch}_{shape}_16x16.json")
+        r = json.load(open(path))
+        assert RESULT_KEYS <= set(r)
+        assert r["chips"] == 256 and r["mesh"] == "16x16"
+        rf = r["roofline"]
+        for key in ("compute_s", "memory_s", "collective_s", "dominant",
+                    "model_flops", "useful_flop_fraction"):
+            assert key in rf
+        assert rf["compute_s"] >= 0 and rf["memory_s"] > 0
+        assert r["collectives"]["bytes_per_device"] >= 0
+        assert r["collectives"]["collective_calls"] >= 0
+        assert r["trace"]["flops"] > 0 and r["timings"]["trace_s"] >= 0
+        assert r["memory"]["argument_size_in_bytes"] > 0
+        assert r["hardware"]["device"] == "NVIDIA H100 80GB HBM3"
+    assert "[ ok ]" in capsys.readouterr().out
+    # a combination that fails leaves its traceback, as the reference's
+    assert dryrun.main(["--arch", "no-such-arch", "--shape", "train_4k",
+                        "--reduced", "--out", out]) == 0
+    err = os.path.join(out, "no-such-arch_train_4k_16x16.json.err")
+    assert "KeyError" in open(err).read()
+
+    rows = roofline.table(out)
+    assert sorted(r["arch"] for r in rows) == ["falcon-mamba-7b",
+                                               "recurrentgemma-2b"]
+    summ = roofline.roofline_summary(out)
+    assert summ["n_results"] == 2 and sum(
+        summ["dominant_counts"].values()) == 2
+    assert summ["worst_useful_flop_fraction"]["arch"] == "recurrentgemma-2b"
+    assert "recurrentgemma-2b | train_4k" in roofline.markdown_table(out)
+    sec = report.dryrun_section(out)
+    assert "NVIDIA H100 80GB HBM3, 700 W" in sec
+    assert "2/40 combinations traced" in sec
+    assert "no-such-arch_train_4k_16x16 | failed:" in sec
+    roof = report.roofline_section(out)
+    assert "falcon-mamba-7b | long_500k" in roof
+    assert "NVIDIA H100 80GB HBM3, 700 W" in roof
+    assert len(report.load("16x16", out)) == 2
+    assert report.load("2x16x16", out) == []
+
+
+def test_fused_round_with_a_channel_step_traces_on_meta():
+    """A fused round whose AR(1) step arrives as tensors traces on ``meta``
+    (the kernel's path: no value to read) and counts the kernel once."""
+    from repro_torch.core import transport
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.cplx import Complex
+
+    W, d = 4, 64
+
+    def z(*shape):
+        return torch.empty(shape, device="meta")
+    theta, noise = z(W, d), z(d)
+    lam, h, w = (Complex(z(W, d), z(W, d)) for _ in range(3))
+    rho_f = torch.empty((), device="meta")
+    redraw = torch.empty((), dtype=torch.bool, device="meta")
+    s = analyze(lambda: transport.ota_round_fused(
+        theta, lam, h, noise, 0.5, ChannelConfig(n_workers=W),
+        chan_step=(w, rho_f, redraw)), ())
+    # the stats pass with the fused channel step, then the demodulation
+    assert {k: v["calls"] for k, v in s.kernels.items()} == {
+        "ota_round_stats": 1, "ota_demodulate_dyn": 1}
+    # the step's innovations are read once: the kernel's bytes count them
+    assert s.kernels["ota_round_stats"]["bytes"] >= 7 * W * d * 4
+    assert s.mem_bytes > 0

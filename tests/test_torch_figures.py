@@ -4,6 +4,8 @@ every round's random planes replayed into the twin's ``train``: fig2a's
 rounds and channel uses to the 1e-4 gap, fig5's gaps after the budget, and
 fig3a's accuracies.  This is the main path's "derived numbers agree with the
 reference" check."""
+import json
+
 import numpy as np
 import pytest
 
@@ -22,6 +24,7 @@ from repro.data.synthetic import linreg_dataset as jlinreg  # noqa: E402
 from repro_torch.benchmarks import (ablation_noniid, common,  # noqa: E402
                                     fig2_linreg, fig5_rho)
 from repro_torch.benchmarks import fig3_classification  # noqa: E402
+from repro_torch.benchmarks import roofline  # noqa: E402
 from repro_torch.benchmarks import run as bench_run  # noqa: E402
 from repro_torch.train.fl_trainer import train  # noqa: E402
 
@@ -147,7 +150,7 @@ def test_fig3a_twin_accuracies_within_the_band(monkeypatch):
                                                     rel=1e-9)
 
 
-def test_run_cli_names_and_refusals(capsys):
+def test_run_cli_names_and_refusals(capsys, monkeypatch, tmp_path):
     """``run.py`` offers JAX's names, and the twin of JAX's stand-alone
     ``benchmarks/scaleup.py`` as ``scaleup``; the unported ones fail by
     name."""
@@ -162,6 +165,12 @@ def test_run_cli_names_and_refusals(capsys):
     assert out[0] == "name,us_per_call,derived"
     assert out[1].startswith("kernels_microbench,-1,")
     assert "chip_smoke.py" in out[1]
+    # the roofline twin reads the dry run's results (none here)
+    monkeypatch.setattr(roofline, "RESULTS_DIR", str(tmp_path))
+    assert bench_run.main(["--only", "roofline", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[1].startswith("roofline_summary,")
+    assert json.loads(out[1].split(",", 2)[2]) == {"n_results": 0}
 
 
 def test_ota_backend_knob(monkeypatch):

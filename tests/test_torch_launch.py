@@ -3,8 +3,7 @@ its autotuners, on the CPU (``--device cpu``) at the reduced granite-8b.
 
 In process, through ``main(argv)``: the run-dir case of
 ``tests/test_obs.py`` (the scan driver logs every round of each block, the
-manifest says why there is no compile report, ``--profile`` writes a
-trace), the kill-and-resume of ``tests/test_checkpoint_resume.py`` with its
+compile report of one traced block, ``--profile`` writes a trace), the kill-and-resume of ``tests/test_checkpoint_resume.py`` with its
 fault flags (6 rounds against 4 then resumed to 6: ``round_00000006.npz``
 bit for bit), the two drivers agreeing bit for bit, and the refusals.  The
 autotune smokes of ``tests/test_fused_round.py`` and
@@ -66,9 +65,13 @@ def test_launcher_run_dir_scan_logs_every_round(tmp_path, capsys):
     assert out.count("round ") == 2 and "done: 4 rounds" in out
     man = json.load(open(os.path.join(rd, "manifest.json")))
     assert man["telemetry"] is True and man["driver"] == "scan"
-    assert man["compile_report"] is None and "HLO" in \
-        man["compile_report_why"]
-    assert not os.path.exists(os.path.join(rd, "compile_report.json"))
+    # one dispatch of the scan driver (a block of 2 rounds) traced on meta
+    assert man["compile_report"] == "compile_report.json"
+    assert man["compile_report_why"] is None
+    rep = json.load(open(os.path.join(rd, "compile_report.json")))
+    assert rep["rounds_per_dispatch"] == 2 and rep["flops"] > 0
+    assert rep["mem_bytes"] > 0 and rep["trace_seconds"] > 0
+    assert rep["coll_count"] == {} and rep["collective_calls"] == 0
     prof = json.load(open(os.path.join(rd, "profile.json")))
     assert prof["spans"]["execute"]["count"] == 2.0
     assert prof["trace"] and os.path.isfile(prof["trace"])

@@ -506,6 +506,26 @@ def test_profiling_trace_spans_and_refused_compile_report(tmp_path):
     timer.add("execute", 0.5)
     assert timer.summary()["execute"]["count"] == 2.0
     assert len(timer.series["execute"]) == 2
-    with pytest.raises(NotImplementedError, match="no HLO"):
-        profiling.compile_report("HloModule m")
+    # the compile report of a traced dispatch, in the reference's keys with
+    # collective_calls for collective_permutes; a product's flops as the
+    # reference's HLO analysis counts them
+    from repro.obs.profiling import compile_report as jcompile_report
+    from repro_torch.launch.mesh import FakeMesh
+    from repro_torch.launch.trace_analysis import analyze
+
+    mesh = FakeMesh((1, 2), ("data", "model"))
+    x = torch.empty((8, 8), device="meta")
+    summ = analyze(lambda a: mesh.psum(a @ a, "model"), (x,), mesh)
+    rep = profiling.compile_report(summ, str(tmp_path / "cr.json"),
+                                   trace_seconds=0.5, rounds_per_dispatch=1)
+    assert json.load(open(tmp_path / "cr.json")) == rep
+    want = jcompile_report(jax.jit(lambda a: a @ a).lower(
+        jnp.ones((8, 8))).compile().as_text())
+    assert set(rep) - {"collective_calls", "trace_seconds",
+                       "rounds_per_dispatch"} \
+        == set(want) - {"collective_permutes"}
+    assert rep["flops"] == want["flops"] == 2 * 8 ** 3
+    assert rep["coll_count"] == {"all-reduce": 1.0}
+    assert rep["coll_bytes"] == {"all-reduce": 2.0 * 8 * 8 * 4}
+    assert rep["collective_calls"] == 1.0 and rep["rounds_per_dispatch"] == 1
     assert math.isfinite(timer.summary()["execute"]["seconds"])

@@ -903,3 +903,131 @@ def sketched_replay_rank(mesh, case: dict) -> dict:
                  draws=TreeRoundDraws(None, t(case["noise"])))
     return {"loss": float(m["loss"]), "Theta": to_np(st.Theta),
             "lam_re": to_np(st.lam.re), "j": lay["j"]}
+
+
+# ---------------------------------------------------------------------------
+# the dry run's collectives against a live round (tests/test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+
+#: (name, mesh shape, FL mode) of the rounds the dry-run test holds to a live
+#: round, and that round's key
+DRYRUN_ROUNDS = (("(1, 2)", (1, 2), "replicated"),
+                 ("(2, 1)", (2, 1), "replicated"),
+                 ("sketched (1, 2)", (1, 2), "sketched"))
+DRYRUN_KEY = 7
+DRYRUN_SEQ = 16
+
+
+def dryrun_trainer(mesh, mode: str, device):
+    """``(init_fn, train_step)`` of reduced granite-8b, 2 workers, one local
+    sgd step, on ``mesh`` and ``device`` (``meta`` for the trace)."""
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+
+    return make_fl_train(
+        get_model("granite-8b", reduced=True),
+        FLConfig(mode=mode, n_workers=2, local_steps=1, local_lr=1e-2,
+                 sketch_ratio=16),
+        AdmmConfig(rho=0.5, flip_on_change=False),
+        ChannelConfig(n_workers=2, snr_db=40.0), mesh=mesh, device=device)
+
+
+def dryrun_batch(mesh, mode: str, device) -> dict:
+    """The rank's tokens: its workers' rows (replicated), or every worker's
+    one row (sketched)."""
+    rows = 2 // mesh.shape["data"] if mode == "replicated" else 2
+    if torch.device(device).type == "meta":
+        return {"tokens": torch.empty((rows, 1, DRYRUN_SEQ),
+                                      dtype=torch.int32, device=device)}
+    g = torch.Generator().manual_seed(3)
+    return {"tokens": torch.randint(0, 512, (rows, 1, DRYRUN_SEQ),
+                                    generator=g, dtype=torch.int32)}
+
+
+#: (arch, mesh shape) of the serving runs the dry-run test holds to one
+#: device and to the trace: a dense and an SSM family, over the model axis
+#: and over the data axis
+DRYRUN_SERVE = tuple((arch, shape) for arch in ("granite-8b",
+                                                "falcon-mamba-7b")
+                     for shape in ((1, 2), (2, 1)))
+#: the served batch, its prompt length and the greedy steps after it
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 2, 4, 3
+
+
+def serve_tokens(vocab: int) -> torch.Tensor:
+    """The served batch's prompts, (SERVE_BATCH, SERVE_PROMPT) int32."""
+    g = torch.Generator().manual_seed(5)
+    return torch.randint(0, vocab, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                         dtype=torch.int32)
+
+
+def serve_run(arch: str, mesh=None) -> dict:
+    """Reduced ``arch`` (f32, seed 0) served on the CPU: the prompt's
+    prefill (its last logits), then the prompt ingested a token at a time
+    through the greedy step and :data:`SERVE_STEPS` tokens generated, and
+    the cache at the end.  Under ``mesh`` (``launch.mesh``) the params are
+    the rank's block (``.shard(full)``) and the batch, the tokens, the
+    logits and the cache the rank's rows of it; ``stats`` holds the mesh's
+    collectives in the prefill and in the last step."""
+    from repro_torch.launch.trace_analysis import mesh_collectives
+    from repro_torch.serve import make_prefill, make_serve_step
+
+    model = _f32_model(arch)
+    full = model.init(0, device="cpu")
+    toks = serve_tokens(model.cfg.vocab_size)
+    if mesh is not None:
+        n = mesh.axis_size("data")
+        b = SERVE_BATCH // n
+        toks = toks[mesh.axis_index("data") * b:][:b]
+    out: dict = {"stats": {}}
+    prefill = make_prefill(model, mesh)
+    params = prefill.shard(full)
+    if mesh is not None:
+        mesh.reset_stats()
+    out["logits"] = to_np(prefill(params, {"tokens": toks}))
+    if mesh is not None:
+        out["stats"]["prefill"] = mesh_collectives(mesh.stats)
+    step = make_serve_step(model, mesh)
+    params = step.shard(full)
+    cache = model.init_cache(toks.shape[0], SERVE_PROMPT + SERVE_STEPS,
+                             device="cpu")
+    tok, gen = toks[:, 0], []
+    for i in range(SERVE_PROMPT + SERVE_STEPS - 1):
+        if mesh is not None:
+            mesh.reset_stats()
+        nxt, cache = step(params, cache, tok, i)
+        if i + 1 < SERVE_PROMPT:
+            tok = toks[:, i + 1]
+        else:
+            tok = nxt
+            gen.append(nxt)
+    if mesh is not None:
+        out["stats"]["decode"] = mesh_collectives(mesh.stats)
+    out["tokens"] = to_np(torch.stack(gen, dim=1))
+    out["cache"] = to_np(cache)
+    return out
+
+
+def dryrun_rank(rank: int) -> dict:
+    """One round of each of :data:`DRYRUN_ROUNDS` on this rank: the mesh's
+    collectives in it (calls and bytes by op); then each serving run of
+    :data:`DRYRUN_SERVE` (:func:`serve_run`)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.trace_analysis import mesh_collectives
+
+    out = {}
+    for name, shape, mode in DRYRUN_ROUNDS:
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        init_fn, step = dryrun_trainer(mesh, mode, "cpu")
+        state = init_fn(0)
+        batch = dryrun_batch(mesh, mode, "cpu")
+        mesh.reset_stats()
+        state, m = step(state, batch, key=DRYRUN_KEY)
+        out[name] = {"stats": mesh_collectives(mesh.stats),
+                     "loss": float(m["loss"])}
+    for arch, shape in DRYRUN_SERVE:
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        out[(arch, shape)] = serve_run(arch, mesh)
+    return out

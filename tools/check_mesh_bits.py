@@ -10,11 +10,21 @@ on one card) to one device's bit for bit; this repeats its pieces:
 * ``b11``: two processes on the card at once each launch B11's forward,
   dq and dk/dv at (2, 32, 4,096, 128) bf16 thousands of times and count
   the launches whose outputs differ from their first;
-* ``one``: the one-device round-1 loss 8 times.
+* ``one``: the one-device round-1 loss 8 times;
+* ``mesh``: ``chip_smoke.py``'s phases ``llm``, ``launch`` and its mesh
+  phases (``llm_mesh_check`` to ``llm_mesh_cohort_check``), in its order,
+  their gates exiting 1.  With ``--indices-on-card`` the ranks' sketched
+  grid builds its codec's canonical indices on the card instead of on
+  the host, as an earlier tree did: on an H100 that tree twice read rank
+  0's round-1 loss in ``llm_mesh_sketched_check`` as 10.540054321289062
+  against one device's 10.540083885192871, its 30 gathered tensors
+  bit-equal to rank 1's and its round repeated from a fresh init right
+  (ROADMAP queue C item 1); this one has not reproduced it.
 
-    python3 tools/check_mesh_bits.py [--parts gather,b11,one]
+    python3 tools/check_mesh_bits.py [--parts gather,b11,one,mesh]
+                                     [--indices-on-card]
 
-Needs one NVIDIA GPU with ~40 GB free and nvcc.
+Needs one NVIDIA GPU with ~40 GB free (``mesh``: the whole card) and nvcc.
 """
 import argparse
 import hashlib
@@ -131,6 +141,30 @@ def b11_process(rank: int, out_dir: str) -> None:
                    "seconds": time.perf_counter() - t0}, f)
 
 
+def indices_on_card() -> None:
+    """Make the sketched grid build its canonical indices on the card: the
+    trainer passes the host as each builder's last argument."""
+    import torch
+
+    from repro_torch.core import packing
+
+    def on_card(fn):
+        def built(*args):
+            return fn(*args[:-1], torch.device("cuda"))
+        return built
+    for name in ("shard_perm_local", "b_segment_perm", "c_segment_perm",
+                 "rep_segment_perm"):
+        setattr(packing, name, on_card(getattr(packing, name)))
+
+
+def mesh_rank_on_card(rank: int, store: str, out_dir: str,
+                      refs: dict) -> None:
+    """``chip_smoke._mesh_rank_main`` with :func:`indices_on_card`."""
+    sys.path.insert(0, str(cs.SRC))
+    indices_on_card()
+    cs._mesh_rank_main(rank, store, out_dir, refs)
+
+
 def spawn(target, args_of) -> None:
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=target, args=args_of(r)) for r in range(2)]
@@ -138,12 +172,20 @@ def spawn(target, args_of) -> None:
         p.start()
     for p in procs:
         p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parts", default="gather,b11,one")
-    parts = ap.parse_args().parts.split(",")
+    ap.add_argument("--indices-on-card", action="store_true",
+                    help="mesh: the ranks build the sketched codec's "
+                         "canonical indices on the card")
+    args = ap.parse_args()
+    parts = args.parts.split(",")
     import torch
 
     cs.phase_device(torch)
@@ -151,6 +193,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     cs.phase_build(build)
+    rc = 0
     with tempfile.TemporaryDirectory() as d:
         if "gather" in parts:
             spawn(gather_rank, lambda r: (r, "file://" + d + "/store", d))
@@ -169,6 +212,23 @@ def main() -> int:
                           [j for j, (a, b) in enumerate(
                               zip(run["grad"], base["grad"])) if a != b],
                           flush=True)
+        if "mesh" in parts:
+            # the smoke's own order: phases llm and launch, then the mesh
+            # phases, whose gates fail on a rank's loss that misses one
+            # device's
+            cs.phase_llm(torch, "llm", cs.LLM_ARCH, cs.LLM_LAYERS,
+                         cs.LLM_SEQ, cs.LLM_LR, cs.LLM_LAUNCHES)
+            cs._free(torch)
+            cs.phase_launch(torch)
+            cs._free(torch)
+            if args.indices_on_card:
+                cs._mesh_rank_main = mesh_rank_on_card
+            try:
+                cs.phase_llm_mesh(torch)
+                print("mesh: every gate held", flush=True)
+            except cs.SmokeFailure as e:
+                print("mesh:", e, flush=True)
+                rc = 1
         if "b11" in parts:
             spawn(b11_process, lambda r: (r, d))
             for r in range(2):
@@ -178,7 +238,7 @@ def main() -> int:
         print("one-device round-1 losses",
               [cs._mesh_check_reference(torch) for _ in range(8)],
               flush=True)
-    return 0
+    return rc
 
 
 if __name__ == "__main__":
