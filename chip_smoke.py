@@ -276,9 +276,20 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              within [0.9, 1.25], its predicted compute and memory terms beside
              its device time; the time to trace granite-8b train_4k on
              the 16 × 16 production mesh at full size.
+45. microbench — after phase 30: the twin of
+             ``benchmarks/kernels_microbench.py``
+             (``repro_torch.benchmarks.kernels_microbench``) through its
+             ``main`` with ``REPRO_BENCH_DEVICE=gpu``: the kernel, transport
+             and packed sections, then every section flag (the shard-local
+             section's two ranks and the sketched section's four spawned on
+             the one card), its JSON files in a temporary directory; the
+             launch and uplink-entry counts the reference reads, 0.0 where
+             it says bit for bit, B9 within 1e-6 and B11's gradients within
+             1e-5 of their plain versions (gates); the times recorded.
 
-Launch counts are reset just before each of phases 4–12, 14–43 and read
-just after (in each rank for phases 39–43, summed over the ranks).  Then
+Launch counts are reset just before each of phases 4–12, 14–43 and 45
+and read just after (in each rank for phases 39–43, summed over the ranks;
+phase 45's spawned ranks count in their own sections).  Then
 come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
 directory that lacks ``src/repro_torch``, it exits non-zero before printing
@@ -300,7 +311,6 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 SEED = 0
 W_FULL = 100
-TIMED_RUNS = 25
 #: (memory bytes/s, fp32 flop/s outside the tensor cores, dense bf16 flop/s
 #: of the tensor cores): NVIDIA data sheets
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
@@ -345,35 +355,6 @@ GUARD_SPAN = "guarded_ota_round"
 #: the profiler spans of the MoE dispatch (``models/moe.py``): the sort,
 #: ranking and scatter into the capacity buffer; the gather and the sum
 MOE_SPANS = ("moe_dispatch", "moe_combine")
-
-#: GPU cycles to spin before each timed call (~3 ms on an H100): the host
-#: enqueues the start event, the call's launches and the end event while the
-#: card is still busy, so the interval holds device time only and not the
-#: wrapper's host-side launch gap
-SPIN_CYCLES = 5_000_000
-
-
-def time_ms(torch, fn, runs: int = TIMED_RUNS, warmup: int = 3,
-            spin: bool = True) -> float:
-    """Median over ``runs`` CUDA-event timings of one call of ``fn``.  With
-    ``spin`` each call is queued behind a GPU spin, so only device time is
-    measured; without it the interval also holds the host's time to issue
-    the call (the wrapper's checks and launch) while the card waits."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if spin:
-            torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
 
 def phase_device(torch):
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -433,6 +414,7 @@ def _err_ratio(diff, tol) -> float:
 
 def phase_kernels(torch, card):
     from repro_torch import rng
+    from repro_torch.benchmarks.common import time_ms
     from repro_torch.kernels import (admm_update, build, ota, ota_round,
                                      phy_channel, phy_population, ref)
     from repro_torch.phy import doppler_rho, innovation_scale
@@ -565,7 +547,7 @@ def phase_kernels(torch, card):
          4 * 4 * 65_536 * 32 + 2 * 4 * 32 + 4, 8 * 65_536 * 32 + 3 * 32,
          (1e-5, 1e-6), [65_536, 32], {
              "plan": receive_plan(65_536, 32).plan,
-             "unsplit_ms": time_ms(torch, lambda: ota.ota_receive(
+             "unsplit_ms": time_ms(lambda: ota.ota_receive(
                  *big[1:], noise[:32], ia,
                  plan=unsplit(65_536, 32)))}),
         ("admm_dual_update", "src/repro/kernels/admm_update.py:42",
@@ -856,6 +838,8 @@ def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
     ``flops`` are counted at ``op_rate``; ``select`` picks the outputs to
     compare; ``plain_times`` (``plain_ms``, ``plain_ms_with_launch``) of an
     earlier row on the same inputs spare timing the plain version again."""
+    from repro_torch.benchmarks.common import time_ms
+
     fn_name = name.split("[")[0]
     before = build.launches[fn_name]
     out = kernel()
@@ -879,9 +863,9 @@ def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
             f"{tols} (max abs err {max_abs}, {err_over_tol} of the "
             f"tolerance)")
     del out, outs, want, refs
-    kernel_ms = time_ms(torch, kernel)
+    kernel_ms = time_ms(kernel)
     if plain_times is None:
-        plain_times = (time_ms(torch, plain), time_ms(torch, plain,
+        plain_times = (time_ms(plain), time_ms(plain,
                                                       spin=False))
     plain_ms, plain_ms_with_launch = plain_times
     bytes_ms = nbytes / mem_rate * 1e3
@@ -893,13 +877,13 @@ def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
            "rtol": tols[0][0], "atol": tols[0][1], "ok": True,
            "ms": kernel_ms, "plain_ms": plain_ms,
            "kernel_ms": kernel_ms, "ref_ms": plain_ms,
-           "ms_with_launch": time_ms(torch, kernel, spin=False),
+           "ms_with_launch": time_ms(kernel, spin=False),
            "plain_ms_with_launch": plain_ms_with_launch,
            "bytes": nbytes, "flops": flops, "op_rate": op_rate,
            "bound_ms": max(bytes_ms, flops_ms),
            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
            "library_ms": None if library is None
-           else time_ms(torch, library), "shape": shape, **extra}
+           else time_ms(library), "shape": shape, **extra}
     if tol_of is not None:
         row["output_tols"] = tols
     emit({"phase": "kernels", **row})
@@ -966,6 +950,7 @@ def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
     five (W, D) planes (25.5 GB at granite's) and Θ, then B3 on three (D,)
     vectors; each set is freed when its rows are done."""
     from repro_torch import rng
+    from repro_torch.benchmarks.common import time_ms
     from repro_torch.kernels import admm_update, ota, ota_round, ref
 
     dev = torch.device("cuda")
@@ -992,7 +977,7 @@ def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
         lambda: ref.ota_round_stats(theta, lam_re, lam_im, h_re, h_im, 0.5),
         4 * (W * d * 5 + 2 * d + W), 18 * W * d, (1e-4, 1e-4), shape,
         {"plan": plan.plan, "tiling": list(plan),
-         "row_plan_ms": time_ms(torch, lambda: ota_round.ota_round_stats(
+         "row_plan_ms": time_ms(lambda: ota_round.ota_round_stats(
              theta, lam_re, lam_im, h_re, h_im, 0.5, plan=row_plan))})
     # elementwise: five planes and Θ in, two planes out, as at (100, 109,386)
     rows["b4"] = _kernel_row(
@@ -1576,6 +1561,7 @@ def phase_scaleup(torch, card):
     scenario."""
     from repro_torch import rng
     from repro_torch.benchmarks import scaleup
+    from repro_torch.benchmarks.common import time_ms
     from repro_torch.kernels import build, ota, ota_round
     from repro_torch.train.fl_trainer import train
 
@@ -1615,7 +1601,7 @@ def phase_scaleup(torch, card):
               for _ in range(4)]
     z = torch.randn(D, generator=gen, device=dev)
     ia = torch.tensor(0.5, device=dev)
-    recv_ms = time_ms(torch, lambda: ota.ota_receive(*planes, z, ia))
+    recv_ms = time_ms(lambda: ota.ota_receive(*planes, z, ia))
     recv_bytes = 4 * W * D * 4 + 2 * D * 4 + 4
     emit({"phase": "scaleup", "ok": True, "W": W, "d": D,
           "scenario": "urban-mobility", "freq_flat": True, "rounds": n_rounds,
@@ -1635,6 +1621,7 @@ def phase_fused_round(torch):
     the same inputs and noise plane, with its launches gated and both
     timed on the device."""
     from repro_torch import rng
+    from repro_torch.benchmarks.common import time_ms
     from repro_torch.core import transport
     from repro_torch.core.channel import ChannelConfig, rayleigh
     from repro_torch.kernels import build
@@ -1706,16 +1693,16 @@ def phase_fused_round(torch):
                 f"fused_round[{label}]: fused and composed disagree: Θ "
                 f"{t_abs} ({t_ratio} of rtol 1e-5, atol 1e-6), α⁻¹ rel "
                 f"{ia_rel}, h_air {h_abs}")
-        fused_ms = time_ms(torch, fused)
-        composed_ms = time_ms(torch, composed)
+        fused_ms = time_ms(fused)
+        composed_ms = time_ms(composed)
         rows.append({"variant": label, "launches": launches,
                      "theta_max_abs_err": t_abs, "theta_err_over_tol": t_ratio,
                      "inv_alpha_rel_err": ia_rel, "h_air_max_abs_err": h_abs,
                      "fused_ms": fused_ms, "composed_ms": composed_ms,
                      "composed_over_fused": composed_ms / fused_ms,
-                     "fused_ms_with_launch": time_ms(torch, fused,
+                     "fused_ms_with_launch": time_ms(fused,
                                                      spin=False),
-                     "composed_ms_with_launch": time_ms(torch, composed,
+                     "composed_ms_with_launch": time_ms(composed,
                                                         spin=False)})
     emit({"phase": "fused_round", "ok": True, "W": W, "d": d,
           "active_deep_fade": int(fade.mask.sum()), "rho_f": rho_f,
@@ -1731,6 +1718,7 @@ def phase_accumulate(torch, card):
     channel and noise plane, as ``tests/test_transport.py``'s accumulated
     receive does.  The launches are gated: 100 B13 and one demodulate."""
     from repro_torch import rng
+    from repro_torch.benchmarks.common import time_ms
     from repro_torch.core import transport
     from repro_torch.core.channel import ChannelConfig, rayleigh
     from repro_torch.core.cplx import Complex
@@ -1770,13 +1758,13 @@ def phase_accumulate(torch, card):
     t_abs, t_ratio = _max_err([got], [want], 1e-5, 1e-6)
     require(t_ratio <= 1.0, f"accumulate: Θ differs from the stacked "
             f"receive by {t_abs} ({t_ratio} of rtol 1e-5, atol 1e-6)")
-    acc_ms = time_ms(torch, accumulated)
-    recv_ms = time_ms(torch, lambda: transport.receive(s, h, noise, ia))
+    acc_ms = time_ms(accumulated)
+    recv_ms = time_ms(lambda: transport.receive(s, h, noise, ia))
     emit({"phase": "accumulate", "ok": True, "W": W, "d": d,
           "theta_max_abs_err": t_abs, "theta_err_over_tol": t_ratio,
           "rtol": 1e-5, "atol": 1e-6,
           "accumulated_ms": acc_ms, "stacked_receive_ms": recv_ms,
-          "accumulated_ms_with_launch": time_ms(torch, accumulated,
+          "accumulated_ms_with_launch": time_ms(accumulated,
                                                 spin=False),
           "accumulated_bytes": W * 8 * 4 * d + 4 * 4 * d,
           "accumulated_bound_ms": (W * 8 * 4 * d + 4 * 4 * d) / mem_rate
@@ -2549,6 +2537,7 @@ def phase_rec_block(torch):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import rng
+    from repro_torch.benchmarks.common import time_ms
     from repro_torch.kernels import build, linear_scan as ls
     from repro_torch.models import get_config, hybrid
     from repro_torch.tree import tree_leaves
@@ -2593,7 +2582,7 @@ def phase_rec_block(torch):
     times = {plan: [] for plan in ls.PLANS}
     for _ in range(REC_RUNS):
         for plan in ("thread", "staged", "staged", "thread"):
-            times[plan].append(time_ms(torch, lambda: run(plan), runs=1,
+            times[plan].append(time_ms(lambda: run(plan), runs=1,
                                        warmup=0))
     stats = {}
     for plan in ls.PLANS:
@@ -3564,6 +3553,7 @@ def phase_chunked_attn(torch):
     flag, 3 rounds: full causal attention keeps B11 (4 fwd, 2 dq, 2 dk/dv a
     round)."""
     from repro_torch import rng
+    from repro_torch.benchmarks.common import time_ms
     from repro_torch.models import get_config, hybrid
     from repro_torch.tree import tree_leaves
 
@@ -3624,9 +3614,9 @@ def phase_chunked_attn(torch):
     del res, out_m, out_c, bo_m, bo_c, g_m, g_c
     for path, flag in flags.items():
         with _opt_env(REPRO_OPT=flag, REPRO_ATTN_CHUNK=ATTN_CHUNK_ROWS):
-            stats[path]["fwd_ms"] = time_ms(torch, fwd, runs=ATTN_RUNS,
+            stats[path]["fwd_ms"] = time_ms(fwd, runs=ATTN_RUNS,
                                             warmup=1)
-            stats[path]["fwd_bwd_ms"] = time_ms(torch, fwd_bwd,
+            stats[path]["fwd_bwd_ms"] = time_ms(fwd_bwd,
                                                 runs=ATTN_RUNS, warmup=1)
     emit({"phase": "chunked_attn", "path": "block", "ok": True,
           "arch": cfg.name, "reduced": "one local-attention sub-block "
@@ -3781,6 +3771,118 @@ def phase_examples(torch):
     return total
 
 
+#: the twin of ``benchmarks/kernels_microbench.py`` in two calls of its
+#: ``main``: the kernel, transport and packed sections, then every flagged
+#: section (files into a temporary directory, their ``BENCH_torch_`` names)
+MICROBENCH_UNFLAGGED = ("transport", "packed")
+MICROBENCH_FLAGGED = ("attn_bwd", "phy", "fused_round", "faults",
+                      "shard_local", "sketched", "obs", "scaleup", "device")
+
+
+def phase_microbench(torch):
+    """``repro_torch.benchmarks.kernels_microbench.main`` in process with
+    ``REPRO_BENCH_DEVICE=gpu``: ``--out``/``--out-packed``, then every
+    section flag (the two mesh sections spawn their ranks, two and four, on
+    the one card).  Gates, each contract the reference's docstrings state:
+    the launch and uplink-entry counts the reference reads (B11 1 forward
+    and 2 backward; B9 1; 1 packed, 6 and 11 per-leaf entries; 1 entry a
+    shard on the (1, 2) and the (1, 2, 2) grids; d_local 196,928; W = 256
+    streamed in cohorts of 32 over 4,194,304 of 33,554,432 signal-plane
+    elements; 300 loop against 30 block dispatches; one B10 a freq-flat
+    mobile scenario step); 0.0 where it says bit for bit (the guard on a
+    healthy slot, telemetry on against off, shard-local against leafwise,
+    loop against scan histories); B9 within 1e-6 and B11's gradients
+    within 1e-5 of their plain versions; the sink's JSONL valid, the chaos
+    run's evals and the sketched loss finite; the device lane run.  Times
+    and ``inv_alpha_equal`` are recorded.  The spawned ranks' launches stay
+    in their ranks: the phase's count is the parent's."""
+    import io
+    import tempfile
+
+    from repro_torch.benchmarks import kernels_microbench as km
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mb_") as d, \
+            _opt_env(REPRO_BENCH_DEVICE="gpu"):
+        def out(name):
+            return os.path.join(d, f"BENCH_torch_{name}.json")
+
+        flagged = []
+        for name in MICROBENCH_FLAGGED:
+            opt = "device-bench" if name == "device" \
+                else name.replace("_", "-")
+            flagged += [f"--{opt}", f"--out-{opt}", out(name)]
+        build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = (km.main(["--out", out("transport"), "--out-packed",
+                           out("packed")]), km.main(flagged))
+        torch.cuda.synchronize()
+        launches = dict(build.launches)
+        require(rc == (0, 0), f"microbench: main exited {rc}")
+        # a skipped device lane writes no file
+        res = {"device": {"skipped": True}}
+        for name in MICROBENCH_UNFLAGGED + MICROBENCH_FLAGGED:
+            if os.path.exists(out(name)):
+                with open(out(name)) as f:
+                    res[name] = json.load(f)
+    seconds = time.perf_counter() - t0
+
+    kern, tr = res["transport"]["kernels"], res["transport"]["transport"]
+    trainer = tr["trainer_linreg_300r"]
+    attn, phy, fr = res["attn_bwd"], res["phy"], res["fused_round"]
+    sl, sk = res["shard_local"], res["sketched"]
+    packed = res["packed"]
+    want = {
+        "attn_bwd fwd/bwd dispatches": ((attn["fwd_dispatches"],
+                                         attn["bwd_dispatches"]), (1, 2)),
+        "phy channel-step dispatches": (
+            phy["channel_step_dispatches_per_round"], 1),
+        "packed entries (mlp, granite)": (
+            tuple(packed[k][f"{p}_uplink_entries_per_round"]
+                  for k in ("uplink_mlp_tree", "uplink_transformer_tree")
+                  for p in ("packed", "per_leaf")), (1, 6, 1, 11)),
+        "fused_round entries": (fr["fused_uplink_entries_per_round"], 1),
+        "w256 streamed": (tuple(fr["w256_streamed"][k] for k in (
+            "W", "worker_chunk", "peak_signal_plane_elems",
+            "monolithic_signal_plane_elems")), (256, 32, 4_194_304,
+                                                33_554_432)),
+        "shard_local entries, d_local": (
+            (sl["uplink_entries_per_shard_per_round"], sl["d_local"]),
+            (1, 196_928)),
+        "sketched entries": (sk["uplink_entries_per_shard_per_round"], 1),
+        "loop/scan dispatches": (
+            (trainer["compiled_dispatch"]["loop_n_dispatches"],
+             trainer["compiled_dispatch"]["scan_n_dispatches"]), (300, 30)),
+        "scaleup scenario-step dispatches": (
+            res["scaleup"]["scenario_step_kernel_dispatches"], 1),
+        "bit for bit (guard, telemetry, shard-local θ and λ)": (
+            (res["faults"]["healthy_max_abs_err_vs_unguarded"],
+             res["obs"]["telemetry_max_abs_err"],
+             sl["noise_free_max_abs_err_vs_leafwise"],
+             sl["noise_free_lam_max_abs_err_vs_leafwise"]),
+            (0.0, 0.0, 0.0, 0.0)),
+        "loop and scan histories equal": (trainer["history_bitwise_equal"],
+                                          True),
+        "sink valid, chaos finite, sketched loss finite": (
+            (res["obs"]["sink_jsonl_valid"],
+             res["faults"]["chaos"]["all_evals_finite"], sk["loss_finite"]),
+            (True, True, True)),
+        "device lane ran": (res["device"]["skipped"], False),
+    }
+    bad = {k: got for k, (got, w) in want.items() if got != w}
+    require(not bad, f"microbench: {bad}")
+    require(phy["channel_step_max_err_vs_plain"] <= 1e-6,
+            f"microbench: B9 is {phy['channel_step_max_err_vs_plain']} from "
+            f"its plain version")
+    attn_err = max(attn[f"max_abs_err_d{n}"] for n in "qkv")
+    require(attn_err <= 1e-5, f"microbench: B11's gradients are {attn_err} "
+            f"from the plain attention's")
+    emit({"phase": "microbench", "ok": True, "seconds": seconds,
+          "sections": res, "launches": launches})
+    return launches
+
+
 #: phase ``llm_sketched_check``: ``tests/test_fl_llm.py``'s sketched setting
 #: (reduced granite-8b, W = 4, B = 2, S = 16, ratio 16, sketch_lr 0.5, 2
 #: local sgd steps at 1e-2) in f32, so the card can be held to the CPU
@@ -3904,6 +4006,7 @@ def _codec_ms(torch, Theta, d_s: int) -> dict:
     """Device ms of the round's codec on ``Theta``'s leaves (a delta's size
     and layout): one worker's chunked encode, and one decode of a (d_s,)
     sketch a chunk at a time (its values summed so none is dropped)."""
+    from repro_torch.benchmarks.common import time_ms
     from repro_torch.core.sketch import (chunks, decode_packed,
                                          encode_chunked)
     from repro_torch.train.llm_trainer import SKETCH_SEED
@@ -3924,8 +4027,8 @@ def _codec_ms(torch, Theta, d_s: int) -> dict:
             off += n
         return acc
 
-    return {"encode_ms": time_ms(torch, encode, runs=3, warmup=1),
-            "decode_ms": time_ms(torch, decode, runs=3, warmup=1)}
+    return {"encode_ms": time_ms(encode, runs=3, warmup=1),
+            "decode_ms": time_ms(decode, runs=3, warmup=1)}
 
 
 def phase_llm_sketched(torch, phase: str = "llm_sketched",
@@ -4357,6 +4460,7 @@ def phase_serve(torch, card):
     import dataclasses
 
     from repro_torch import rng
+    from repro_torch.benchmarks.common import time_ms
     from repro_torch.kernels import build
     from repro_torch.models import build_model, get_config
     from repro_torch.serve import generate, make_prefill
@@ -4401,7 +4505,7 @@ def phase_serve(torch, card):
         require(bool(torch.isfinite(last).all()) and tuple(last.shape)
                 == (B, cfg.vocab_size), f"serve: {arch} prefill logits "
                 f"{tuple(last.shape)} not finite or not ({B}, V)")
-        prefill_ms = time_ms(torch, lambda: prefill(params, batch), runs=5,
+        prefill_ms = time_ms(lambda: prefill(params, batch), runs=5,
                              warmup=1, spin=False)
         for k, v in launches.items():
             paths[k] = paths.get(k, 0) + v
@@ -5760,6 +5864,7 @@ def main() -> int:
         paths["figures"] = phase_figures(torch)
         paths["decentralized"] = phase_decentralized(torch)
         paths["examples"] = phase_examples(torch)
+        paths["microbench"] = phase_microbench(torch)
         _free(torch)
         phase_profile(torch, "mlp", _mlp_round(mlp_run["alg"], mlp_run),
                       round_s)

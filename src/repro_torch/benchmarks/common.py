@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import statistics
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -247,3 +248,39 @@ def timed(fn: Callable) -> Dict:
     t0 = time.time()
     derived = fn()
     return {"seconds": time.time() - t0, "derived": derived}
+
+
+# ---------------------------------------------------------------------------
+# device timing on the card
+# ---------------------------------------------------------------------------
+
+#: CUDA-event timings a call the medians of :func:`time_ms` take by default
+TIMED_RUNS = 25
+#: GPU cycles to spin before each timed call (~3 ms on an H100): the host
+#: enqueues the start event, the call's launches and the end event while the
+#: card is still busy, so the interval holds device time only and not the
+#: wrapper's host-side launch gap
+SPIN_CYCLES = 5_000_000
+
+
+def time_ms(fn: Callable, runs: int = TIMED_RUNS, warmup: int = 3,
+            spin: bool = True) -> float:
+    """Median over ``runs`` CUDA-event timings of one call of ``fn`` on the
+    current card.  With ``spin`` each call is queued behind a GPU spin, so
+    only device time is measured; without it the interval also holds the
+    host's time to issue the call (the wrapper's checks and launch) while
+    the card waits."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

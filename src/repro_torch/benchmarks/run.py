@@ -3,8 +3,8 @@ figure, under the names of ``benchmarks/run.py``.
 
 Prints ``name,us_per_call,derived`` CSV (us_per_call = wall time of the whole
 benchmark in microseconds; derived = the figure's headline numbers as JSON);
-a benchmark that fails or is not ported prints ``name,-1,{"error": ...}``
-and the run exits 1.
+a benchmark that fails prints ``name,-1,{"error": ...}`` and the run exits
+1.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run \
         [--only fig2a_comm_efficiency] [--device cuda|cpu]
@@ -12,26 +12,16 @@ and the run exits 1.
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import sys
 import time
 
 
-def _not_ported(name: str, why: str, device="cuda"):
-    raise NotImplementedError(f"{name} is not ported: {why}")
-
-
 def _benchmarks():
     from repro_torch.benchmarks import (ablation_noniid, fig2_linreg,
                                         fig3_classification, fig5_rho,
-                                        roofline, scaleup, serve_microbench)
-    kernels = ("the JAX package's kernel and transport timings; the port's "
-               "are chip_smoke.py's kernels phase")
-    missing = {
-        "kernels_microbench": kernels,
-        "transport_microbench": kernels,
-    }
+                                        kernels_microbench, roofline, scaleup,
+                                        serve_microbench)
     return {
         "ablation_noniid": ablation_noniid.ablation_noniid,
         "ablation_decentralized": ablation_noniid.ablation_decentralized,
@@ -45,8 +35,8 @@ def _benchmarks():
         "roofline_summary": roofline.roofline_summary,
         "scaleup": scaleup.scaleup,
         "serve_microbench": serve_microbench.serve_microbench,
-        **{k: functools.partial(_not_ported, k, why)
-           for k, why in missing.items()},
+        "kernels_microbench": kernels_microbench.microbench,
+        "transport_microbench": kernels_microbench.transport_microbench,
     }
 
 

@@ -152,19 +152,21 @@ def test_fig3a_twin_accuracies_within_the_band(monkeypatch):
 
 def test_run_cli_names_and_refusals(capsys, monkeypatch, tmp_path):
     """``run.py`` offers JAX's names, and the twin of JAX's stand-alone
-    ``benchmarks/scaleup.py`` as ``scaleup``; the unported ones fail by
-    name."""
+    ``benchmarks/scaleup.py`` as ``scaleup``; none is refused any more:
+    ``kernels_microbench`` runs its twin's B1 section."""
     assert set(bench_run._benchmarks()) == {
         "ablation_noniid", "ablation_decentralized", "fig2a_comm_efficiency",
         "fig2b_energy", "fig2c_scalability", "fig3a_comm_efficiency",
         "fig3b_energy", "fig3c_scalability", "fig5_rho_sensitivity",
         "serve_microbench", "kernels_microbench", "transport_microbench",
         "roofline_summary", "scaleup"}
-    assert bench_run.main(["--only", "kernels", "--device", "cpu"]) == 1
+    assert bench_run.main(["--only", "kernels_microbench", "--device",
+                           "cpu"]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "name,us_per_call,derived"
-    assert out[1].startswith("kernels_microbench,-1,")
-    assert "chip_smoke.py" in out[1]
+    assert out[1].startswith("kernels_microbench,")
+    assert not out[1].startswith("kernels_microbench,-1,")
+    assert json.loads(out[1].split(",", 2)[2])["n_elements"] == 1 << 20
     # the roofline twin reads the dry run's results (none here)
     monkeypatch.setattr(roofline, "RESULTS_DIR", str(tmp_path))
     assert bench_run.main(["--only", "roofline", "--device", "cpu"]) == 0

@@ -13,16 +13,10 @@ on one card) to one device's bit for bit; this repeats its pieces:
 * ``one``: the one-device round-1 loss 8 times;
 * ``mesh``: ``chip_smoke.py``'s phases ``llm``, ``launch`` and its mesh
   phases (``llm_mesh_check`` to ``llm_mesh_cohort_check``), in its order,
-  their gates exiting 1.  With ``--indices-on-card`` the ranks' sketched
-  grid builds its codec's canonical indices on the card instead of on
-  the host, as an earlier tree did: on an H100 that tree twice read rank
-  0's round-1 loss in ``llm_mesh_sketched_check`` as 10.540054321289062
-  against one device's 10.540083885192871, its 30 gathered tensors
-  bit-equal to rank 1's and its round repeated from a fresh init right
-  (ROADMAP queue C item 1); this one has not reproduced it.
+  their gates exiting 1 (the rank losses that once missed one device's
+  are in ROADMAP queue C item 1).
 
     python3 tools/check_mesh_bits.py [--parts gather,b11,one,mesh]
-                                     [--indices-on-card]
 
 Needs one NVIDIA GPU with ~40 GB free (``mesh``: the whole card) and nvcc.
 """
@@ -141,30 +135,6 @@ def b11_process(rank: int, out_dir: str) -> None:
                    "seconds": time.perf_counter() - t0}, f)
 
 
-def indices_on_card() -> None:
-    """Make the sketched grid build its canonical indices on the card: the
-    trainer passes the host as each builder's last argument."""
-    import torch
-
-    from repro_torch.core import packing
-
-    def on_card(fn):
-        def built(*args):
-            return fn(*args[:-1], torch.device("cuda"))
-        return built
-    for name in ("shard_perm_local", "b_segment_perm", "c_segment_perm",
-                 "rep_segment_perm"):
-        setattr(packing, name, on_card(getattr(packing, name)))
-
-
-def mesh_rank_on_card(rank: int, store: str, out_dir: str,
-                      refs: dict) -> None:
-    """``chip_smoke._mesh_rank_main`` with :func:`indices_on_card`."""
-    sys.path.insert(0, str(cs.SRC))
-    indices_on_card()
-    cs._mesh_rank_main(rank, store, out_dir, refs)
-
-
 def spawn(target, args_of) -> None:
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=target, args=args_of(r)) for r in range(2)]
@@ -181,9 +151,6 @@ def spawn(target, args_of) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parts", default="gather,b11,one")
-    ap.add_argument("--indices-on-card", action="store_true",
-                    help="mesh: the ranks build the sketched codec's "
-                         "canonical indices on the card")
     args = ap.parse_args()
     parts = args.parts.split(",")
     import torch
@@ -221,8 +188,6 @@ def main() -> int:
             cs._free(torch)
             cs.phase_launch(torch)
             cs._free(torch)
-            if args.indices_on_card:
-                cs._mesh_rank_main = mesh_rank_on_card
             try:
                 cs.phase_llm_mesh(torch)
                 print("mesh: every gate held", flush=True)
