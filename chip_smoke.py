@@ -22,7 +22,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              the leafwise round's embedding leaf (2, 201,326,592) and at
              the sampled cohort's (256, 32); flash attention B11 — forward,
              dq, dk/dv — at the LLM round's (2, 32, 4096, 128) in bf16 (the
-             tensor-core kernels) and on a ragged causal and a non-causal
+             tensor-core kernels), at a (1, 2) mesh rank's half of its heads
+             (2, 16, 4096, 128) and the sketched mode's worker at a time
+             (1, 16, 4096, 128), and on a ragged causal and a non-causal
              (1, 2, 1000, 64) case in bf16 and in f32 (the SIMT kernels);
              B2 at the scaleup phase's (65,536, 32) on its split plan with
              the unsplit time beside it, and at the MLP's width on its
@@ -232,9 +234,14 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              model) = (1, 2) grid of two ranks spawned on the one card
              (gloo, ``launch.mesh``; the kernels built once, before the
              spawn): granite-8b cut to 1 of 36 layers (D = 419,442,688), W
-             = 2, one sgd step, noise-free with power control.  Round 1's
-             loss equals the one-device trainer's from the same init bit
-             for bit; then the shard-local round on the trainer's θ, λ and
+             = 2, one sgd step, noise-free with power control.  The forward
+             partitions its products over ``model`` (``models/partition``:
+             each rank its 16 of 32 heads, its ff columns and vocab rows,
+             the row-split products summed over the ranks), so round 1's
+             loss is the two ranks' bit for bit and within 2⁻⁸ relative
+             (one bf16 ulp) of the one-device trainer's from the same init
+             (the gap recorded); then the shard-local round on the
+             trainer's θ, λ and
              h against the one-rank packed round (B6, B3, B4 over the
              gathered (2, d_pad) planes): Θ, λ and α⁻¹ within 1e-6; B6, B3
              and B4 once a round on each rank.  Then the pure-data pin: the
@@ -242,26 +249,46 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              device, noise-free, 3 rounds of 2 local steps: every round's
              loss and α⁻¹, Θ, the rank's θ and λ rows within rtol 1e-6, its
              h rows bit-equal (each rank runs the one-device rounds in
-             turn, then the mesh's).
+             turn, then the mesh's).  Then, in the same ranks, the
+             partitioned forward held tight (``llm_mesh_partition_check``):
+             reduced granite-8b and starcoder2-15b in f32 on (1, 2), 3
+             rounds of the replicated mode from one device's init and h,
+             against one device on the card: each round's loss within rtol
+             1e-5 and Θ within atol 1e-5, the ranks' losses bit-equal, B11
+             launched on half the heads, and no all-gather over ``model``
+             but of the leaves whose products do not partition; then one
+             sketched round of each, f32, against one device: the loss
+             within rtol 1e-5, Θ_s within atol 1e-6, the Θ shard within
+             atol 1e-5.
 40. llm_mesh — phase 15's trainer (granite-8b, 2 of 36 layers, W = 2,
              4,096 tokens a worker, 3 rounds) on the (1, 2) grid (each rank
-             half of every leaf, the forward gathering a layer at a time)
-             and the (2, 1) grid (one worker a rank): the loss falling, θ
-             and Θ finite, each rank's peak ≤ 40 GB; s/round, tokens/s,
-             each rank's peak, the gathers' and collectives' ms a round,
+             half of every leaf, its heads, ff columns and vocab rows of
+             every product) and the (2, 1) grid (one worker a rank): the
+             loss falling, θ and Θ finite, the ranks' losses bit-equal,
+             each rank's peak ≤ 40 GB; s/round, tokens/s, each rank's peak,
+             the all-reduces' and all-gathers' calls, MB and ms a round,
              the backend and any staged collective.
 41. llm_mesh_sketched_check — between phases 39 and 40, in the same
              ranks: the sketched mode on (1, 2) (Θ each rank's model shard,
              the (2, d_s) sketches whole on each), granite-8b cut to 1
              layer, one local step, noise-free, against the parent's
-             one-device round: round 1's loss bit-equal, the consensus
-             sketch Θ_s within atol 1e-6, each rank's decoded Θ shard
-             within rtol 1e-5 of one device's slice.
+             one-device round (the forward partitioned as in 39): round
+             1's loss the two ranks' bit for bit and within 2⁻⁸ relative of
+             one device's, each rank's decoded Θ shard within 2⁻⁸ of each
+             leaf's largest magnitude of one device's slice, the consensus
+             sketch Θ_s the two ranks' bit for bit and within 2⁻⁴ of one
+             device's in relative L2, where a control round with rank 1's
+             ``wo`` partial products dropped must read past 2⁻⁴ (the
+             readings against atol 1e-6 and rtol 1e-5, the bounds before
+             the forward was partitioned, recorded; the f32 rounds of 39
+             hold Θ_s to one device's at atol 1e-6).
 42. llm_mesh_sketched — after phase 40: the sketched mode on (1, 2),
              granite-8b cut to 2 of 36 layers, W = 2, 1 × 4,096 tokens, 2
-             sgd steps at 5e-4, ratio 256, 3 rounds: λ and h (2, d_s), the
-             loss and Θ finite, each rank's peak ≤ 40 GB; s/round,
-             tokens/s, the gathers', psums' and codec's ms a round.
+             sgd steps at 5e-4, ratio 256, 3 rounds (the forward
+             partitioned): λ and h (2, d_s), the loss and Θ finite, the
+             ranks' losses bit-equal, each rank's peak ≤ 40 GB; s/round,
+             tokens/s, the all-reduces', all-gathers' and codec's ms a
+             round.
 43. llm_mesh_cohort_check — after phase 42: reduced granite-8b in f32 on
              (2, 1), a population of 4 sampling 2 by top-gain, 3 rounds
              against the parent's one-device run: the losses within rtol
@@ -299,6 +326,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import json
 import math
 import os
@@ -1090,6 +1118,13 @@ FLASH_CASES = (("", 2, 32, 4096, 128, "bfloat16", True),
                # over 256 patches + 64 tokens
                ("[bf16 sketched (1, 32, 4096, 128)]", 1, 32, 4096, 128,
                 "bfloat16", True),
+               # a (1, 2) mesh rank's heads: the partitioned forward runs
+               # 16 of granite-8b's 32 heads, on the replicated mode's two
+               # workers and on the sketched mode's one at a time
+               ("[bf16 model rank (2, 16, 4096, 128)]", 2, 16, 4096, 128,
+                "bfloat16", True),
+               ("[bf16 sketched model rank (1, 16, 4096, 128)]", 1, 16,
+                4096, 128, "bfloat16", True),
                ("[bf16 enc-dec decoder (4, 16, 1024, 64)]", 4, 16, 1024, 64,
                 "bfloat16", True),
                ("[bf16 vlm prefill (8, 32, 320, 128)]", 8, 32, 320, 128,
@@ -4623,6 +4658,13 @@ def _mesh_batch(torch, cfg, rows=slice(None)):
 #: forward's on the init alone (a second step's loss also reads h through
 #: the penalty, and the mesh draws its blocks of h from keys of its own)
 MESH_CHECK_STEPS = 1
+#: a (1, 2) round-1 loss against one device's: the partitioned forward
+#: (``models/partition``) sums each row-split product's two partial
+#: products in bf16, regrouping its accumulation as the reference's
+#: partitioned program does, so the loss is held to one bf16 ulp relative
+#: (2⁻⁸) of one device's, and the two ranks' losses (the same psums) to
+#: each other bit for bit
+MESH_LOSS_RTOL = 2.0 ** -8
 
 
 def _mesh_check_reference(torch) -> float:
@@ -4727,6 +4769,136 @@ def _mesh_check_rank(torch, mesh, loss_ref: float) -> dict:
             out[f"lam_{part}_bits_equal"] = bool(torch.equal(x, ref))
         del x
     mesh.timing = False
+    return out
+
+
+#: ``llm_mesh_partition_check``: the partitioned products held tight on the
+#: card.  Reduced granite-8b (GQA, swiglu) and starcoder2-15b (gelu, the
+#: biases, ``fc_out``'s gathered on its layer dim) in f32 on (1, 2), W = 2,
+#: 2 sgd steps at 1e-2, noise-free, 3 rounds, from the one-device init and
+#: the one-device h carried into the rank's block (so the rounds read the
+#: same channel), against the one-device trainer on the card:
+#: ``llm_hybrid``'s bars (each round's loss rtol 1e-5, Θ atol 1e-5).  Then
+#: one sketched round of each on (1, 2) (1 sgd step, 4,096 tokens a worker,
+#: ratio 256) against one device's: Θ_s at ``llm_mesh_sketched_check``'s
+#: bound from before the forward was partitioned (atol 1e-6: in f32 an
+#: update is far above the rounding, so the grid's codec is held tight on
+#: the partitioned forward's gradients), the loss rtol 1e-5 and the Θ shard
+#: atol 1e-5 (``test_sketched_round_matches_jax``'s bars: Θ sums the init
+#: and the decode, an f32 ulp apart from one device's near zero)
+MESH_PART_ARCHS = ("granite-8b", "starcoder2-15b")
+MESH_PART_ROUNDS = 3
+MESH_PART_LOSS_RTOL = HYBRID_LOSS_RTOL
+MESH_PART_THETA_ATOL = HYBRID_THETA_ATOL
+
+
+def _mesh_part_trainer(torch, cfg, mesh):
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.models import build_model
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+
+    return make_fl_train(
+        build_model(cfg), FLConfig(n_workers=LLM_WORKERS, local_steps=2,
+                                   local_lr=1e-2),
+        AdmmConfig(rho=0.5, flip_on_change=False),
+        ChannelConfig(n_workers=LLM_WORKERS, snr_db=40.0,
+                      coherence_iters=10, noisy=False), mesh=mesh)
+
+
+def _mesh_partition_rank(torch, mesh) -> dict:
+    """``llm_mesh_partition_check`` on one rank: for each of
+    ``MESH_PART_ARCHS``, the one-device rounds, then the same rounds on
+    ``mesh`` from its init with the one-device h in the rank's block; the
+    losses and the rank's Θ block against one device's, B11's head counts
+    on the mesh, and the all-gathers over ``model`` against the leaves the
+    plan still gathers (each whole, once a forward)."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.core.cplx import Complex
+    from repro_torch.core.packing import (build_packspec, pack_shard_global,
+                                          shard_tree, unpack)
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import get_config
+    from repro_torch.models.partition import gathered_model_leaf
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    out = {}
+    j = mesh.axis_index("model")
+    for arch in MESH_PART_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  param_dtype="float32")
+        batch = {"tokens": token_dataset(SEED + 5, SKETCH_CHECK_B,
+                                         SKETCH_CHECK_S, cfg.vocab_size,
+                                         n_workers=LLM_WORKERS)}
+        init1, step1 = _mesh_part_trainer(torch, cfg, None)
+        st1 = init1(SEED)
+        init_m, step_m = _mesh_part_trainer(torch, cfg, mesh)
+        stm = init_m(SEED)
+        lay = init_m.layout
+        sspec, plan = lay["sspec"], lay["plan"]
+        spec1 = build_packspec(st1.theta, batch_dims=1)
+        dl = sspec.d_local
+        h = Complex(*(pack_shard_global(sspec, unpack(spec1, z, cast=False))
+                      [:, j * dl:(j + 1) * dl].contiguous()
+                      for z in (st1.chan.h.re, st1.chan.h.im)))
+        stm = stm._replace(chan=stm.chan._replace(h=h))
+        losses1 = []
+        for r in range(MESH_PART_ROUNDS):
+            st1, m = step1(st1, batch, key=rng.fold_in(SEED, r + 1))
+            losses1.append(float(m["loss"]))
+        heads = []
+        inner = fa.flash_attention_fwd
+
+        def fwd(q, *a, **kw):
+            heads.append(int(q.shape[1]))
+            return inner(q, *a, **kw)
+        fa.flash_attention_fwd = fwd
+        mesh.reset_stats()
+        losses = []
+        try:
+            for r in range(MESH_PART_ROUNDS):
+                stm, m = step_m(stm, batch, key=rng.fold_in(SEED, r + 1))
+                losses.append(float(m["loss"]))
+        finally:
+            fa.flash_attention_fwd = inner
+        gathers = mesh.stats.get("all_gather", {}).get("axes", {})
+        # the leaves whose products do not partition, each gathered whole
+        # (unstacked, or on its layer dim) once a forward
+        still, whole = [], True
+        for (path, _), md in zip(tree_paths(stm.theta), sspec.shard_dims):
+            if gathered_model_leaf(path, md, plan.part):
+                still.append("/".join(path))
+                whole &= path[0] != "layers" or md == 0
+        n_fwd = MESH_PART_ROUNDS * 2
+        mine = shard_tree(sspec, st1.Theta, j)
+        t_err = _max_err(tree_leaves(stm.Theta), tree_leaves(mine), 0.0,
+                         MESH_PART_THETA_ATOL)
+        out[arch] = {
+            "losses": losses, "losses_one_device": losses1,
+            "loss_rel_err": max(abs(a - b) / abs(b)
+                                for a, b in zip(losses, losses1)),
+            "Theta_max_abs": t_err[0], "Theta_over_atol": t_err[1],
+            "heads": sorted(set(heads)), "n_heads": cfg.n_heads,
+            "b11_fwd_launches": len(heads),
+            "model_all_gathers": gathers.get("model", 0),
+            "model_all_gathers_want": len(still) * n_fwd,
+            "gathered_leaves": still, "gathered_whole": whole,
+            "collectives": _mesh_stats(mesh, MESH_PART_ROUNDS),
+            "partition": {k: getattr(plan.part, k)
+                          for k in ("heads", "kv", "ff", "vocab")}}
+        del st1, stm, init1, step1, init_m, step_m, h, mine
+        _free(torch)
+        # the sketched mode's round on the same grid: the codec against one
+        # device's on gradients of the partitioned forward, in f32, at
+        # ``llm_mesh_sketched_check``'s first bounds
+        ref = _mesh_sketched_reference(torch, cfg)
+        _free(torch)
+        out[f"sketched {arch}"] = _mesh_sketched_check_rank(torch, mesh, ref,
+                                                            cfg)
+        _free(torch)
     return out
 
 
@@ -4893,9 +5065,27 @@ MESH_SKETCH_LAYERS, MESH_SKETCH_ROUNDS = 2, 3
 #: Θ_s against one device's: the encode's scatter-add sums each bucket in
 #: another order (float atomics, and the grid's psum of its partial
 #: sketches), the chunked encode's tolerance; the decoded Θ shard against
-#: the one-device Θ's slice to rtol 1e-5
+#: the one-device Θ's slice to rtol 1e-5.  These two are recorded: the
+#: forward partitioned over ``model`` (``models/partition``) rounds the
+#: bf16 gradients otherwise than one device's, so a parameter whose bf16
+#: update lies near a rounding boundary moves by one ulp of itself.  The
+#: row-split products are summed in f32 and rounded once, as one device's
+#: product is; the column-split products' input gradients are still summed
+#: over the ranks in bf16.  A step at 5e-4 is below one bf16 ulp for most
+#: parameters, so Θ_s sums the parameters' rounding flips, which the
+#: reordered sums move.  Θ_s is held to one device's by its relative L2
+#: distance, ``MESH_SKETCH_THETA_S_REL_L2``, which must lie between the
+#: sound round's reading and a control's that drops rank 1's ``wo`` partial
+#: products (:func:`_dropped_partial`); the ranks' Θ_s are held to each
+#: other bit for bit.  On an H100 (700 W) the sound round read 0.0319 with
+#: the f32 row sums (0.0323 with bf16 ones) and the control 1.18.  The Θ shard is held to ``MESH_SKETCH_SCALED_RTOL``
+#: (2⁻⁸) of each leaf's largest magnitude; the codec is held to one
+#: device's at atol 1e-6 in f32, on the partitioned forward's gradients
+#: (``llm_mesh_partition_check``)
 MESH_SKETCH_THETA_S_ATOL = 1e-6
 MESH_SKETCH_THETA_RTOL = 1e-5
+MESH_SKETCH_SCALED_RTOL = 2.0 ** -8
+MESH_SKETCH_THETA_S_REL_L2 = 2.0 ** -4
 
 
 def _mesh_sketched_trainer(torch, cfg, mesh, noisy: bool,
@@ -4933,12 +5123,13 @@ def _consensus_sketch(out: list):
         llm_trainer.ota_tree_round_packed_state = inner
 
 
-def _mesh_sketched_reference(torch) -> dict:
-    """The one-device round of ``llm_mesh_sketched_check``: its loss and
-    consensus sketch Θ_s (on the host)."""
+def _mesh_sketched_reference(torch, cfg=None) -> dict:
+    """The one-device round of ``llm_mesh_sketched_check`` (on ``cfg``,
+    1-layer granite-8b by default): its loss and consensus sketch Θ_s (on
+    the host)."""
     from repro_torch import rng
 
-    cfg = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
+    cfg = cfg or _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
     init_fn, step = _mesh_sketched_trainer(torch, cfg, None, noisy=False,
                                            local_steps=1)
     sketches: list = []
@@ -4948,11 +5139,53 @@ def _mesh_sketched_reference(torch) -> dict:
     return {"loss": float(m["loss"]), "Theta_s": sketches[0].cpu().numpy()}
 
 
-def _mesh_sketched_check_rank(torch, mesh, ref: dict) -> dict:
-    """``llm_mesh_sketched_check`` on one rank: one round on ``mesh``; the
-    loss, Θ_s and the rank's decoded Θ shard against the one-device round
-    (``ref``; its Θ is the one-device decode of its Θ_s over the full
-    init)."""
+@contextlib.contextmanager
+def _dropped_partial(what: str):
+    """A fault for the Θ_s gate's control: rank 1 of the model axis adds
+    nothing to the sum of the row-split product ``what`` (its partial
+    product dropped), so both ranks go on with rank 0's partial alone and
+    issue the same collectives."""
+    from repro_torch.models.partition import Partition
+
+    inner = Partition.dense_rows
+
+    def drop(self, p, x, n_full, name="row"):
+        if name == what and self.index == 1:
+            x = x * 0            # in the graph: its gradients are zeros
+        return inner(self, p, x, n_full, name)
+    Partition.dense_rows = drop
+    try:
+        yield
+    finally:
+        Partition.dense_rows = inner
+
+
+def _mesh_sketched_control(torch, mesh, cfg, ref_s) -> float:
+    """Θ_s's relative L2 distance from one device's (``ref_s``) in a
+    round whose ``wo`` partial products of rank 1 are dropped
+    (:func:`_dropped_partial`): the reading the Θ_s gate must refuse."""
+    from repro_torch import rng
+
+    init_fn, step = _mesh_sketched_trainer(torch, cfg, mesh, noisy=False,
+                                           local_steps=1)
+    sketches: list = []
+    with _dropped_partial("wo"), _consensus_sketch(sketches):
+        step(init_fn(SEED), _mesh_batch(torch, cfg),
+             key=rng.fold_in(SEED, 1))
+    rel = float((sketches[0] - ref_s).float().norm() / ref_s.float().norm())
+    del init_fn, step, sketches
+    _free(torch)
+    return rel
+
+
+def _mesh_sketched_check_rank(torch, mesh, ref: dict, cfg=None,
+                              control: bool = False) -> dict:
+    """``llm_mesh_sketched_check`` on one rank: one round on ``mesh`` (of
+    ``cfg``, 1-layer granite-8b by default); the loss, Θ_s and the rank's
+    decoded Θ shard against the one-device round (``ref``; its Θ is the
+    one-device decode of its Θ_s over the full init).  With ``control``,
+    also Θ_s's distance in a faulted round (:func:`_mesh_sketched_control`),
+    after the counted round."""
     from repro_torch import rng
     from repro_torch.core.packing import shard_tree
     from repro_torch.kernels import build
@@ -4960,7 +5193,7 @@ def _mesh_sketched_check_rank(torch, mesh, ref: dict) -> dict:
     from repro_torch.train.llm_trainer import _apply_packed
     from repro_torch.tree import tree_leaves
 
-    cfg = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
+    cfg = cfg or _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
     init_fn, step = _mesh_sketched_trainer(torch, cfg, mesh, noisy=False,
                                            local_steps=1)
     state = init_fn(SEED)
@@ -4989,7 +5222,15 @@ def _mesh_sketched_check_rank(torch, mesh, ref: dict) -> dict:
     mine = shard_tree(lay["sspec"], one, lay["j"])
     t_err = _max_err(tree_leaves(state.Theta), tree_leaves(mine),
                      MESH_SKETCH_THETA_RTOL, 0.0)
+    s_rel = float((sketches[0] - ref_s).float().norm()
+                  / ref_s.float().norm())
+    s_sha1 = hashlib.sha1(sketches[0].cpu().numpy().tobytes()).hexdigest()
+    t_scaled = _scaled_err(tree_leaves(state.Theta), tree_leaves(mine),
+                           MESH_SKETCH_SCALED_RTOL)
     out = {"loss": float(m["loss"]), "loss_one_device": ref["loss"],
+           "Theta_s_max_ref": float(ref_s.abs().max()),
+           "Theta_s_rel_l2": s_rel, "Theta_s_sha1": s_sha1,
+           "Theta_over_scaled": t_scaled[1],
            "Theta_s_max_abs": s_err[0], "Theta_s_over_atol": s_err[1],
            "Theta_s_bits_equal": bool(torch.equal(sketches[0], ref_s)),
            "Theta_max_abs": t_err[0], "Theta_over_rtol": t_err[1],
@@ -5001,6 +5242,9 @@ def _mesh_sketched_check_rank(torch, mesh, ref: dict) -> dict:
            "launches": launches, "collectives": _mesh_stats(mesh, 1)}
     del state, step, init_fn, one, mine, sketches
     _free(torch)
+    if control:
+        out["Theta_s_rel_l2_control"] = _mesh_sketched_control(
+            torch, mesh, cfg, ref_s)
     return out
 
 
@@ -5244,8 +5488,10 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
         _free(torch)
         res["pin"] = _mesh_pin_rank(torch, on(MESH_PIN_SHAPE))
         dump()
+        res["partition"] = _mesh_partition_rank(torch, on(MESH_SHAPES[0]))
+        dump()
         res["sketched_check"] = _mesh_sketched_check_rank(
-            torch, on(MESH_SKETCH_SHAPE), refs["sketched"])
+            torch, on(MESH_SKETCH_SHAPE), refs["sketched"], control=True)
         dump()
         res["runs"] = {}
         for shape in MESH_SHAPES:
@@ -5347,9 +5593,13 @@ def phase_llm_mesh(torch):
         require((LLM_WORKERS, c["d_local"]) == shapes[0], f"llm_mesh_check: "
                 f"a rank's block (2, {c['d_local']}) is not the kernel rows' "
                 f"{shapes[0]}")
-        require(c["loss"] == loss_ref, f"llm_mesh_check: rank {r}'s round-1 "
-                f"loss {c['loss']} is not the one-device trainer's "
-                f"{loss_ref} bit for bit")
+        require(c["loss"] == c0["loss"], f"llm_mesh_check: rank {r}'s "
+                f"round-1 loss {c['loss']} is not rank 0's {c0['loss']} bit "
+                f"for bit")
+        require(abs(c["loss"] - loss_ref) <= MESH_LOSS_RTOL * abs(loss_ref),
+                f"llm_mesh_check: rank {r}'s round-1 loss {c['loss']} is "
+                f"not within {MESH_LOSS_RTOL} relative of the one-device "
+                f"trainer's {loss_ref}")
         _per_round(dict(c["launches"]), 1, dict(
             {k: v * MESH_CHECK_STEPS // 2 for k, v in LLM_FLASH_1.items()},
             **MESH_ROUND_LAUNCHES))
@@ -5370,6 +5620,8 @@ def phase_llm_mesh(torch):
                 f"rtol {MESH_PIN_RTOL}: {pin}")
         require(pin["bits_equal"]["h"], f"{tag}: the rank's h is not its "
                 f"rows of one device's h")
+        require(pin["losses"] == pins[0]["losses"], f"{tag}: losses "
+                f"{pin['losses']} are not rank 0's {pins[0]['losses']}")
         _per_round(dict(pin["launches"]), MESH_PIN_ROUNDS,
                    dict(LLM_FLASH_1, **MESH_ROUND_LAUNCHES))
     check = {"phase": "llm_mesh_check", "ok": True, "arch": LLM_ARCH,
@@ -5381,7 +5633,10 @@ def phase_llm_mesh(torch):
              "W": LLM_WORKERS, "seq": LLM_SEQ,
              "local_steps": MESH_CHECK_STEPS, "noisy": False,
              "power_control": True, "loss": [c["loss"] for c in chk],
-             "loss_one_device": loss_ref, "loss_bits_equal": True,
+             "loss_one_device": loss_ref,
+             "loss_rel_gap": abs(c0["loss"] - loss_ref) / abs(loss_ref),
+             "loss_rtol": MESH_LOSS_RTOL, "ranks_loss_bits_equal": True,
+             "loss_bits_equal_one_device": c0["loss"] == loss_ref,
              "round_s": [c["round_s"] for c in chk],
              "peak_mem_gb": [c["peak"] / 1e9 for c in chk],
              "inv_alpha_mesh": c0["inv_alpha_mesh"],
@@ -5406,6 +5661,67 @@ def phase_llm_mesh(torch):
             f"differ beyond rtol {LEAFWISE_RTOL}: {check}")
     emit(check)
 
+    # llm_mesh_partition_check
+    require(all("partition" in r for r in res),
+            "llm_mesh_partition_check: a rank failed:\n"
+            + _rank_failures(res, "partition"))
+    pc = [r["partition"] for r in res]
+    for arch in MESH_PART_ARCHS:
+        for r, c in enumerate(p[arch] for p in pc):
+            tag = f"llm_mesh_partition_check {arch} rank {r}"
+            require(c["losses"] == pc[0][arch]["losses"], f"{tag}: losses "
+                    f"{c['losses']} are not rank 0's "
+                    f"{pc[0][arch]['losses']} bit for bit")
+            require(c["loss_rel_err"] <= MESH_PART_LOSS_RTOL, f"{tag}: the "
+                    f"losses {c['losses']} differ from one device's "
+                    f"{c['losses_one_device']} beyond rtol "
+                    f"{MESH_PART_LOSS_RTOL}")
+            require(c["Theta_over_atol"] <= 1.0, f"{tag}: Θ differs from one "
+                    f"device's block by {c['Theta_max_abs']}, beyond atol "
+                    f"{MESH_PART_THETA_ATOL}")
+            require(all(c["partition"].values()), f"{tag}: the plan does "
+                    f"not partition every product: {c['partition']}")
+            require(c["heads"] == [c["n_heads"] // MESH_RANKS]
+                    and c["b11_fwd_launches"] > 0, f"{tag}: B11 ran on "
+                    f"{c['heads']} heads, not {c['n_heads'] // MESH_RANKS}")
+            require(c["gathered_whole"] and c["model_all_gathers"]
+                    == c["model_all_gathers_want"], f"{tag}: "
+                    f"{c['model_all_gathers']} all-gathers over model, "
+                    f"want {c['model_all_gathers_want']} (the leaves "
+                    f"{c['gathered_leaves']} once a forward)")
+        for r, c in enumerate(p[f"sketched {arch}"] for p in pc):
+            tag = f"llm_mesh_partition_check sketched {arch} rank {r}"
+            c0 = pc[0][f"sketched {arch}"]
+            require(c["loss"] == c0["loss"] and abs(
+                c["loss"] - c["loss_one_device"]) <= MESH_PART_LOSS_RTOL
+                * abs(c["loss_one_device"]), f"{tag}: loss {c['loss']} "
+                f"(rank 0 {c0['loss']}, one device "
+                f"{c['loss_one_device']})")
+            require(c["Theta_s_sha1"] == c0["Theta_s_sha1"], f"{tag}: Θ_s "
+                    f"is not rank 0's bit for bit")
+            require(c["Theta_s_over_atol"] <= 1.0, f"{tag}: Θ_s differs "
+                    f"from one device's by {c['Theta_s_max_abs']}, beyond "
+                    f"atol {MESH_SKETCH_THETA_S_ATOL}")
+            require(c["Theta_max_abs"] <= MESH_PART_THETA_ATOL, f"{tag}: "
+                    f"the decoded Θ shard differs from one device's slice by "
+                    f"{c['Theta_max_abs']}, beyond atol "
+                    f"{MESH_PART_THETA_ATOL}")
+    emit({"phase": "llm_mesh_partition_check", "ok": True,
+          "archs": list(MESH_PART_ARCHS),
+          "reduced": "ModelConfig.reduced(): 2 layers, d_model 128",
+          "dtype": "float32", "grid": {"data": 1, "model": 2},
+          "W": LLM_WORKERS, "batch": SKETCH_CHECK_B, "seq": SKETCH_CHECK_S,
+          "local_steps": 2, "local_lr": 1e-2, "noisy": False,
+          "rounds": MESH_PART_ROUNDS, "loss_rtol": MESH_PART_LOSS_RTOL,
+          "Theta_atol": MESH_PART_THETA_ATOL,
+          "sketched": {"local_steps": 1, "sketch_ratio": SKETCH_RATIO,
+                       "seq": LLM_SEQ, "Theta_s_atol":
+                       MESH_SKETCH_THETA_S_ATOL, "Theta_atol":
+                       MESH_PART_THETA_ATOL},
+          "ranks": [{a: {k: v for k, v in p[a].items()
+                         if k not in ("launches", "collectives")}
+                     for a in p} for p in pc]})
+
     # llm_mesh_sketched_check
     require(all("sketched_check" in r for r in res),
             "llm_mesh_sketched_check: a rank failed:\n"
@@ -5414,15 +5730,24 @@ def phase_llm_mesh(torch):
     cfg1 = _llm_cfg(LLM_ARCH, ROBUST_LAYERS)
     for r, c in enumerate(sk):
         tag = f"llm_mesh_sketched_check rank {r}"
-        require(c["loss"] == refs["sketched"]["loss"], f"{tag}: round-1 loss "
-                f"{c['loss']} is not one device's "
-                f"{refs['sketched']['loss']} bit for bit")
-        require(c["Theta_s_over_atol"] <= 1.0, f"{tag}: Θ_s differs from one "
-                f"device's by {c['Theta_s_max_abs']}, beyond atol "
-                f"{MESH_SKETCH_THETA_S_ATOL}")
-        require(c["Theta_over_rtol"] <= 1.0, f"{tag}: the decoded Θ shard "
+        ref_l = refs["sketched"]["loss"]
+        require(c["loss"] == sk[0]["loss"], f"{tag}: round-1 loss "
+                f"{c['loss']} is not rank 0's {sk[0]['loss']} bit for bit")
+        require(abs(c["loss"] - ref_l) <= MESH_LOSS_RTOL * abs(ref_l),
+                f"{tag}: round-1 loss {c['loss']} is not within "
+                f"{MESH_LOSS_RTOL} relative of one device's {ref_l}")
+        require(c["Theta_s_sha1"] == sk[0]["Theta_s_sha1"], f"{tag}: Θ_s "
+                f"is not rank 0's bit for bit")
+        require(c["Theta_s_rel_l2"] <= MESH_SKETCH_THETA_S_REL_L2
+                < c["Theta_s_rel_l2_control"], f"{tag}: Θ_s is "
+                f"{c['Theta_s_rel_l2']} from one device's in relative L2, "
+                f"the control with rank 1's wo partial dropped "
+                f"{c['Theta_s_rel_l2_control']}: the bound "
+                f"{MESH_SKETCH_THETA_S_REL_L2} must lie between them")
+        require(c["Theta_over_scaled"] <= 1.0, f"{tag}: the decoded Θ shard "
                 f"differs from one device's slice by {c['Theta_max_abs']}, "
-                f"beyond rtol {MESH_SKETCH_THETA_RTOL}")
+                f"beyond {MESH_SKETCH_SCALED_RTOL} of a leaf's largest "
+                f"magnitude")
         _per_round(dict(c["launches"]), 1,
                    _sketched_launches(cfg1, LLM_WORKERS, 1))
     emit({"phase": "llm_mesh_sketched_check", "ok": True, "arch": LLM_ARCH,
@@ -5431,9 +5756,19 @@ def phase_llm_mesh(torch):
           "W": LLM_WORKERS, "seq": LLM_SEQ, "local_steps": 1,
           "sketch_ratio": SKETCH_RATIO, "noisy": False,
           "d_s": sk[0]["lam_shape"][1], "loss_one_device":
-          refs["sketched"]["loss"], "loss_bits_equal": True,
+          refs["sketched"]["loss"], "loss": [c["loss"] for c in sk],
+          "loss_rel_gap": abs(sk[0]["loss"] - refs["sketched"]["loss"])
+          / abs(refs["sketched"]["loss"]), "loss_rtol": MESH_LOSS_RTOL,
+          "ranks_loss_bits_equal": True,
+          "loss_bits_equal_one_device": sk[0]["loss"]
+          == refs["sketched"]["loss"],
           "Theta_s_atol": MESH_SKETCH_THETA_S_ATOL,
           "Theta_rtol": MESH_SKETCH_THETA_RTOL,
+          "gate_rtol_of_max": MESH_SKETCH_SCALED_RTOL,
+          "Theta_s_rel_l2_bound": MESH_SKETCH_THETA_S_REL_L2,
+          "Theta_s_rel_l2": sk[0]["Theta_s_rel_l2"],
+          "Theta_s_rel_l2_control": [c["Theta_s_rel_l2_control"]
+                                     for c in sk],
           "ranks": [{k: v for k, v in c.items() if k != "launches"}
                     for c in sk],
           "launches": [c["launches"] for c in sk]})
@@ -5457,6 +5792,8 @@ def phase_llm_mesh(torch):
                     f"{tag}: round {LLM_ROUNDS} loss {run['losses'][-1]} is "
                     f"not below round 1's {run['losses'][0]}")
             require(run["finite"], f"{tag}: non-finite θ or Θ")
+            require(run["losses"] == per[0]["losses"], f"{tag}: losses "
+                    f"{run['losses']} are not rank 0's {per[0]['losses']}")
             require(run["peak"] <= MESH_PEAK, f"{tag}: peak "
                     f"{run['peak'] / 1e9} GB above {MESH_PEAK / 1e9} GB")
             _per_round(dict(run["launches"]), LLM_ROUNDS,
@@ -5493,6 +5830,8 @@ def phase_llm_mesh(torch):
                 f"{run['d_s']})")
         require(run["finite"], f"{tag}: a loss or Θ is not finite: "
                 f"{run['losses']}")
+        require(run["losses"] == sr[0]["losses"], f"{tag}: losses "
+                f"{run['losses']} are not rank 0's {sr[0]['losses']}")
         require(run["peak"] <= MESH_PEAK, f"{tag}: peak {run['peak'] / 1e9} "
                 f"GB above {MESH_PEAK / 1e9} GB")
         _per_round(dict(run["launches"]), MESH_SKETCH_ROUNDS,
@@ -5525,6 +5864,9 @@ def phase_llm_mesh(torch):
             f"llm_mesh: rank exit codes {exit_codes}")
     co = [r["cohort"] for r in res]
     for r, c in enumerate(co):
+        require(c["losses"] == co[0]["losses"], f"llm_mesh_cohort_check "
+                f"rank {r}: losses {c['losses']} are not rank 0's "
+                f"{co[0]['losses']}")
         require(c["loss_rel_err"] <= MESH_COHORT_RTOL
                 and all(c[f"{k}_over_rtol_of_max"] <= 1.0
                         for k in ("Theta", "theta", "lam")),

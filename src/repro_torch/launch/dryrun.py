@@ -11,8 +11,11 @@ Where the reference lowers and compiles one partition of the SPMD program
 on 512 host devices, this runs the port's own code for rank 0 of the
 production mesh (``launch.mesh.make_production_mesh``: fake ranks, no
 process group) on ``meta`` tensors at that rank's resident shapes
-(``launch/specs.py``) and counts it (``launch/trace_analysis.py``).  It
-needs no card and allocates no tensor memory.
+(``launch/specs.py``) and counts it (``launch/trace_analysis.py``).  The
+dense and vlm families' training step is the partitioned program (each
+model rank its heads, ff columns and vocab rows, ``models/partition.py``),
+as XLA partitions the reference's.  It needs no card and allocates no
+tensor memory.
 
 Every number comes from that trace and the published rates of one NVIDIA
 H100 SXM at its 700 W power limit (:data:`HARDWARE`): the compute term is

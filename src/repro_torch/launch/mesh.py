@@ -8,13 +8,21 @@ multi-pod layout), over a ``torch.distributed.device_mesh.DeviceMesh``.
 Each rank knows its coordinate on every axis (:meth:`Mesh.axis_index`) and
 holds one process group per axis and per tuple of axes
 (:meth:`Mesh.group`).  The collectives are the ones the JAX package's
-shard-local round and the gathered forward need, and no more:
-:meth:`Mesh.psum` (all-reduce SUM), :meth:`Mesh.pmin` (MIN),
-:meth:`Mesh.por` (an OR as a SUM > 0, as ``tree_ota`` takes it),
-:meth:`Mesh.all_gather` along a tensor dim and :meth:`Mesh.reduce_scatter`
-(the sketched mode's ``rs_grads``), each over one axis or a tuple of
-axes.  A collective over axes of total size 1 is the identity and
-touches no process group.
+shard-local round, the gathered forward and the partitioned products
+need, and no more: :meth:`Mesh.psum` (all-reduce SUM), :meth:`Mesh.pmin`
+(MIN), :meth:`Mesh.pmax` (the MIN of the negation), :meth:`Mesh.por` (an
+OR as a SUM > 0, as ``tree_ota`` takes it), :meth:`Mesh.all_gather` along
+a tensor dim and :meth:`Mesh.reduce_scatter` (the sketched mode's
+``rs_grads``), each over one axis or a tuple of axes.  A collective over
+axes of total size 1 is the identity and touches no process group.
+
+The partitioned products (``models/partition.py``) differentiate through
+two of them (:func:`copy_to`, :func:`reduce_from`): the identity forward
+whose backward sums the gradient over an axis (at the input of a
+column-split product), and the sum forward whose backward is the identity
+(at the output of a row-split product).  Every rank of the axis issues
+them in the same order, the checkpointed recompute included, since each
+runs the same program on its own columns.
 
 Backend rule (:func:`backend_for`): NCCL where every rank has a card of its
 own; gloo where ranks share a card or run on the CPU.  Gloo takes each of
@@ -31,7 +39,8 @@ the round's pieces).
 With ``Mesh.timing`` on, every collective synchronises the card before and
 after itself and adds its wall time to :attr:`Mesh.stats`, so a caller
 reads the collectives' milliseconds a round; every collective adds its
-call and its input's bytes there, timed or not.
+call and its input's bytes there, timed or not, and its calls by the axes
+it ran over (``"axes"``: ``{"model": n, "data+model": n}``).
 
 :class:`FakeMesh` (:func:`make_production_mesh`) is the dry run's mesh:
 the reference's 16 × 16 or 2 × 16 × 16 production layout seen from rank
@@ -175,21 +184,24 @@ class Mesh:
     def reset_stats(self) -> None:
         self.stats = {}
 
-    def _run(self, op: str, x: Tensor, fn, inplace: bool = False) -> Tensor:
+    def _run(self, op: str, x: Tensor, fn, inplace: bool = False,
+             names: Axes = ()) -> Tensor:
         """``fn(t)`` on ``t``, a contiguous copy of ``x`` (``x`` itself when
         ``inplace`` and contiguous: a collective that only reads it, or a
         plane the caller gives up), counted (and timed when asked) under
-        ``op`` in :attr:`stats`."""
+        ``op`` in :attr:`stats`, its call also under the axes ``names``."""
         self._wait(x)
         t0 = time.perf_counter()
         out = fn(x if inplace and x.is_contiguous()
                  else x.contiguous().clone())
         self._wait(x)
         s = self.stats.setdefault(op, {"calls": 0, "seconds": 0.0,
-                                       "bytes": 0})
+                                       "bytes": 0, "axes": {}})
         s["calls"] += 1
         s["seconds"] += time.perf_counter() - t0
         s["bytes"] += x.numel() * x.element_size()
+        key = "+".join(_axes(names))
+        s["axes"][key] = s["axes"].get(key, 0) + 1
         return out
 
     def _wait(self, x: Tensor) -> None:
@@ -208,7 +220,7 @@ class Mesh:
         def fn(t):
             dist.all_reduce(t, op=rop, group=group)
             return t
-        return self._run(op, x, fn, inplace)
+        return self._run(op, x, fn, inplace, names)
 
     def psum(self, x: Tensor, names: Axes, inplace: bool = False) -> Tensor:
         """Σ of ``x`` over the ranks of ``names``; ``inplace`` sums into
@@ -219,6 +231,14 @@ class Mesh:
     def pmin(self, x: Tensor, names: Axes) -> Tensor:
         """Elementwise min of ``x`` over the ranks of ``names``."""
         return self._reduce("pmin", x, names, dist.ReduceOp.MIN)
+
+    def pmax(self, x: Tensor, names: Axes) -> Tensor:
+        """Elementwise max of ``x`` over the ranks of ``names``: the MIN
+        of ``-x``, negated (exact)."""
+        if self.axis_size(names) == 1:
+            return x
+        return -self._reduce("pmax", -x, names, dist.ReduceOp.MIN,
+                             inplace=True)
 
     def por(self, x: Tensor, names: Axes) -> Tensor:
         """Elementwise OR of bool ``x`` over ``names``: a SUM of its f32
@@ -243,7 +263,7 @@ class Mesh:
             dist.reduce_scatter(out, parts, group=group)
             return out
         # the scatter reads x only: no copy of it
-        return self._run("reduce_scatter", x, fn, inplace=True)
+        return self._run("reduce_scatter", x, fn, inplace=True, names=names)
 
     def all_gather(self, x: Tensor, names: Axes, dim: int) -> Tensor:
         """The ranks' ``x`` over ``names`` concatenated along ``dim``, in
@@ -259,7 +279,56 @@ class Mesh:
             self._wait(t)        # before the concatenation reads the parts
             return torch.cat(parts, dim=dim)
         # the gather reads x only: no copy of it
-        return self._run("all_gather", x, fn, inplace=True)
+        return self._run("all_gather", x, fn, inplace=True, names=names)
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity; the backward sums the gradient over the axis."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, mesh: "Mesh", names: Axes) -> Tensor:
+        ctx.mesh, ctx.names = mesh, names
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return (ctx.mesh._reduce("copy_to", g, ctx.names,
+                                 dist.ReduceOp.SUM), None, None)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over the axis; the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, mesh: "Mesh", names: Axes) -> Tensor:
+        return mesh._reduce("reduce_from", x, names, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return g, None, None
+
+
+def copy_to(x: Tensor, mesh: "Mesh", names: Axes) -> Tensor:
+    """``x`` at the input of a product each rank of ``names`` computes on
+    its own columns: the identity, whose backward sums the ranks' partial
+    input gradients (an all-reduce, counted as ``"copy_to"``).  Also how a
+    leaf every rank holds whole, read by each rank for its own part (a
+    replicated bias sliced to the rank's columns, the K/V projection of
+    heads the axis does not split), gets the gradient of the whole
+    product."""
+    if mesh.axis_size(names) == 1:
+        return x
+    return _CopyTo.apply(x, mesh, names)
+
+
+def reduce_from(x: Tensor, mesh: "Mesh", names: Axes) -> Tensor:
+    """The sum over the ranks of ``names`` of their partial results of a
+    row-split product (an all-reduce in ``x``'s dtype, counted as
+    ``"reduce_from"``); the backward hands each rank the whole gradient,
+    which every rank holds alike."""
+    if mesh.axis_size(names) == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh, names)
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], device) -> Mesh:
@@ -298,7 +367,9 @@ def fsdp_mesh_shape(n_ranks: int, fsdp: int) -> Tuple[int, int, int]:
 
 #: the reference's collective kind of each of the mesh's collectives
 COLL_KIND = {"psum": "all-reduce", "pmin": "all-reduce", "por": "all-reduce",
-             "all_gather": "all-gather", "reduce_scatter": "reduce-scatter"}
+             "pmax": "all-reduce", "copy_to": "all-reduce",
+             "reduce_from": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter"}
 #: bytes moved per result byte, by kind (the reference's ``_COLL_MULT``:
 #: an all-reduce is a reduce-scatter and an all-gather)
 COLL_MULT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0}
@@ -346,8 +417,9 @@ class FakeMesh(Mesh):
         self.stats = {}
         self.coll = {}
 
-    def _run(self, op: str, x: Tensor, fn, inplace: bool = False) -> Tensor:
-        out = super()._run(op, x, fn, inplace)
+    def _run(self, op: str, x: Tensor, fn, inplace: bool = False,
+             names: Axes = ()) -> Tensor:
+        out = super()._run(op, x, fn, inplace, names)
         kind = COLL_KIND[op]
         c = self.coll.setdefault(kind, {"count": 0, "bytes": 0.0})
         c["count"] += 1
@@ -358,7 +430,7 @@ class FakeMesh(Mesh):
                 inplace: bool = False) -> Tensor:
         if self.axis_size(names) == 1:
             return x
-        return self._run(op, x, lambda t: t, inplace)
+        return self._run(op, x, lambda t: t, inplace, names)
 
     def reduce_scatter(self, x: Tensor, names: Axes, dim: int) -> Tensor:
         n = self.axis_size(names)
@@ -368,14 +440,15 @@ class FakeMesh(Mesh):
         def fn(t):
             parts = [p.contiguous() for p in t.chunk(n, dim)]
             return torch.empty_like(parts[0])
-        return self._run("reduce_scatter", x, fn, inplace=True)
+        return self._run("reduce_scatter", x, fn, inplace=True, names=names)
 
     def all_gather(self, x: Tensor, names: Axes, dim: int) -> Tensor:
         n = self.axis_size(names)
         if n == 1:
             return x
         return self._run("all_gather", x,
-                         lambda t: torch.cat([t] * n, dim=dim), inplace=True)
+                         lambda t: torch.cat([t] * n, dim=dim), inplace=True,
+                         names=names)
 
 
 def make_production_mesh(*, multi_pod: bool = False, fsdp: int = 1,

@@ -15,8 +15,9 @@ dispatches:
   eager PyTorch every op reads and writes HBM, so this is the port's
   traffic, not an estimate of fusion);
 * **collectives** — as the mesh counts them: kinds ``all-reduce`` (psum,
-  pmin, por), ``all-gather`` and ``reduce-scatter``, per-rank result bytes
-  × the reference's multiplier (all-reduce 2×).  The port has no
+  pmin, pmax, por, and the partitioned products' ``copy_to`` and
+  ``reduce_from``), ``all-gather`` and ``reduce-scatter``, per-rank result
+  bytes × the reference's multiplier (all-reduce 2×).  The port has no
   collective-permute; a reshard shows up as extra gathers, which
   :func:`collective_calls` counts.
 

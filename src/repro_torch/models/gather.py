@@ -1,6 +1,6 @@
 """The gathered forward: a model whose parameters each rank holds as its
-(fsdp, model) shard runs on the full parameters, one stacked layer at a
-time.
+(fsdp, model) shard runs on the full parameters of each product it does
+not partition, one stacked layer at a time.
 
 Under a model-parallel mesh the JAX package's θ leaves carry their model
 and fsdp shardings and XLA partitions the forward; the semantics are each
@@ -12,6 +12,14 @@ shards that dim; ``transformer.run_stacked`` then gathers the rest of each
 entry inside its checkpointed block (:func:`gather_entry`), so the
 backward's recompute gathers again and only one full layer is alive.
 
+Where the plan carries a :class:`~repro_torch.models.partition.Partition`
+(the trainer's plan for the dense and vlm families), the leaves of the
+partitioned products are gathered over their fsdp dims only: each rank
+computes its own heads, ff columns and vocab rows on its ``model`` block
+(``models/partition.py``), as XLA partitions the reference's products.
+The fsdp axes keep their gather, as XLA's FSDP does; serving's plan has
+no partition and gathers every layer.
+
 The gather's backward (:class:`_Gather`) narrows the full gradient to the
 rank's own slice where every rank of the gathered axis computed it alike
 (the same products on the same batch).  Where the ranks of the axis hold
@@ -19,9 +27,7 @@ different rows of the batch (the sketched mode's FSDP over the data axes,
 :attr:`GatherPlan.reduce`) the full gradient is summed over the axis
 first: an all-reduce and then the narrow, or, with
 :attr:`GatherPlan.scatter` (``REPRO_OPT=rs_grads``), one reduce-scatter
-that leaves each rank its slice of the sum.  Partitioning the products
-themselves (column and row splits with their all-reduces) is a later
-ROADMAP item.
+that leaves each rank its slice of the sum.
 """
 from __future__ import annotations
 
@@ -53,6 +59,9 @@ class GatherPlan(NamedTuple):
     #: that sum as a reduce-scatter (``REPRO_OPT=rs_grads``), else an
     #: all-reduce and a narrow
     scatter: bool = False
+    #: the products that split over ``model`` (``models/partition``), whose
+    #: leaves keep their model block; None: every product whole
+    part: Any = None
 
 
 _ACTIVE: dict = {"plan": None}
@@ -64,13 +73,17 @@ def _names(axis: Axis) -> Tuple[str, ...]:
 
 def make_plan(params: PyTree, model_dims, fsdp_dims, mesh, lead: int = 1,
               model_axis: str = "model", fsdp_axis: Axis = "fsdp",
-              reduce: Tuple[str, ...] = ()) -> GatherPlan:
+              reduce: Tuple[str, ...] = (), part=None) -> GatherPlan:
     """The plan of a params tree (its flatten order) from its per-leaf
     model and fsdp element dims (``launch.shardings.shard_dims_2d``).
     ``fsdp_axis`` is an axis or a tuple of them (the data axes, where the
     fsdp dim rides them); an axis of size 1 gathers nothing and is left
-    out."""
+    out.  With ``part`` (``partition.partition_for``), the leaves of the
+    partitioned products are not gathered over ``model_axis``."""
+    from repro_torch.models import partition as _partition
+
     treedef = tree_flatten(params)[1]
+    model_dims = _partition.model_dims(params, model_dims, part)
 
     def size(axis: Axis) -> int:
         return math.prod(mesh.shape.get(a, 1) for a in _names(axis))
@@ -85,7 +98,7 @@ def make_plan(params: PyTree, model_dims, fsdp_dims, mesh, lead: int = 1,
             pairs.append((fd, fsdp_axis))
         leaves.append(tuple(pairs))
     return GatherPlan(mesh, tree_unflatten(treedef, leaves), lead,
-                      tuple(reduce))
+                      tuple(reduce), part=part)
 
 
 @contextlib.contextmanager

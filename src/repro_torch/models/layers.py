@@ -139,16 +139,42 @@ def embedding_init(key: int, vocab: int, d: int, dtype,
     return {"table": t.to(dtype)}
 
 
-def embed(p: Params, ids: Tensor) -> Tensor:
-    table = p["table"]
+def _lookup(table: Tensor, ids: Tensor) -> Tensor:
     if _lead(table, 2):
         w = torch.arange(table.shape[0], device=ids.device)
         return table[w.reshape((-1,) + (1,) * (ids.dim() - 1)), ids]
     return table[ids]
 
 
-def unembed(p: Params, x: Tensor) -> Tensor:
+def embed(p: Params, ids: Tensor, vocab: Optional[int] = None) -> Tensor:
+    """The rows of ``ids``.  Under a partition of the vocab
+    (``models/partition``; ``vocab`` the whole count), each rank looks up
+    the ids of its rows, writes zeros for the others, and the ranks' rows
+    are summed: one nonzero addend a row, so the sum is exact."""
+    from repro_torch.models import partition
+
     table = p["table"]
+    part = partition.current()
+    if part is None or not part.vocab:
+        return _lookup(table, ids)
+    v0, vl = part.vocab_rows(table, vocab)
+    local = ids.long() - v0
+    mine = (local >= 0) & (local < vl)
+    rows = _lookup(table, torch.where(mine, local, 0))
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                          device=rows.device))
+    return part.reduce_from(rows)
+
+
+def unembed(p: Params, x: Tensor) -> Tensor:
+    """The logits; under a partition of the vocab, this rank's vocab
+    columns of them (``x`` read through ``copy_to``)."""
+    from repro_torch.models import partition
+
+    table = p["table"]
+    part = partition.current()
+    if part is not None and part.vocab:
+        x = part.copy_to(x)
     if _lead(table, 2):
         return torch.einsum("w...d,wvd->w...v", x, table)
     return torch.einsum("...d,vd->...v", x, table)
@@ -222,26 +248,68 @@ def _attention_chunked(qg: Tensor, k: Tensor, v: Tensor,
     return torch.cat(outs, 1)[:, :S]
 
 
+def _qkv_partitioned(p: Params, x: Tensor, cfg: ModelConfig, part
+                     ) -> Tuple[Tensor, Tensor, Tensor, int, int]:
+    """This rank's q, k, v under a partition of the heads: its ``H/m``
+    query heads ``[r·H/m, (r+1)·H/m)`` and the KV heads they read, with
+    the local (query heads, KV heads).  Where the KV heads split too, they
+    are the rank's ``wk``/``wv`` columns; else ``wk``/``wv`` are whole on
+    the rank and it projects the contiguous KV heads its query heads read,
+    repeated to one a query head where the group does not fit them
+    evenly."""
+    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    g = H // KV
+    Hl = H // part.n
+    x = part.copy_to(x)
+    q = _split_heads(part.dense_cols(p["wq"], x, H * hd, "wq"), Hl, hd)
+    if part.kv:
+        KVl = KV // part.n
+        k = _split_heads(part.dense_cols(p["wk"], x, KV * hd, "wk"), KVl, hd)
+        v = _split_heads(part.dense_cols(p["wv"], x, KV * hd, "wv"), KVl, hd)
+        return q, k, v, Hl, KVl
+    h0 = part.index * Hl
+    k0, k1 = h0 // g, (h0 + Hl - 1) // g + 1
+    KVl = k1 - k0
+    k = _split_heads(part.dense_slice(p["wk"], x, k0 * hd, k1 * hd), KVl, hd)
+    v = _split_heads(part.dense_slice(p["wv"], x, k0 * hd, k1 * hd), KVl, hd)
+    rel = [h // g - k0 for h in range(h0, h0 + Hl)]
+    if Hl % KVl == 0 and rel == [i // (Hl // KVl) for i in range(Hl)]:
+        return q, k, v, Hl, KVl
+    idx = torch.tensor(rel, device=x.device)
+    return q, k.index_select(-2, idx), v.index_select(-2, idx), Hl, Hl
+
+
 def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
                   window: Optional[int]) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Full-sequence causal attention over x (..., S, d). Returns (out, kv)
     — kv for prefill.  The reference's dispatch: B11 wherever there is no
     window and S ≥ 16, else the chunked path under ``chunked_attn`` when
-    S > ``ATTN_CHUNK``, else the masked einsum."""
+    S > ``ATTN_CHUNK``, else the masked einsum.  Under a partition of the
+    heads (``models/partition``) each branch runs on this rank's heads and
+    ``wo``'s row-split partial outputs are summed over the ranks."""
+    from repro_torch.models import partition
+
     hd = cfg.hd
     S = x.shape[-2]
     lead = x.shape[:-2]
     n = math.prod(lead)
-    q = _split_heads(dense(p["wq"], x), cfg.n_heads, hd)
-    k = _split_heads(dense(p["wk"], x), cfg.n_kv_heads, hd)
-    v = _split_heads(dense(p["wv"], x), cfg.n_kv_heads, hd)
+    part = partition.current()
+    if part is not None and not part.heads:
+        part = None             # the heads do not split: attention whole
+    if part is not None:
+        q, k, v, n_heads, n_kv = _qkv_partitioned(p, x, cfg, part)
+    else:
+        n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
+        q = _split_heads(dense(p["wq"], x), n_heads, hd)
+        k = _split_heads(dense(p["wk"], x), n_kv, hd)
+        v = _split_heads(dense(p["wv"], x), n_kv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    g = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(n, S, cfg.n_kv_heads, g, hd)
-    kn = k.reshape(n, S, cfg.n_kv_heads, hd)
-    vn = v.reshape(n, S, cfg.n_kv_heads, hd)
+    g = n_heads // n_kv
+    qg = q.reshape(n, S, n_kv, g, hd)
+    kn = k.reshape(n, S, n_kv, hd)
+    vn = v.reshape(n, S, n_kv, hd)
     if window is None and S >= 16:
         # B11 (kernels/flash_attention), differentiable through its
         # autograd.Function.  GQA stays here: KV repeated over the group
@@ -249,22 +317,25 @@ def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
         # cotangents back over the group in a fixed order (on the card,
         # repeat_interleave's backward adds them with float atomics, whose
         # order is not)
-        qf = qg.permute(0, 2, 3, 1, 4).reshape(n, cfg.n_heads, S, hd)
+        qf = qg.permute(0, 2, 3, 1, 4).reshape(n, n_heads, S, hd)
 
         def group(t: Tensor) -> Tensor:
             t = t.permute(0, 2, 1, 3)[:, :, None]
-            return t.expand(n, cfg.n_kv_heads, g, S, hd).reshape(
-                n, cfg.n_heads, S, hd).contiguous()
+            return t.expand(n, n_kv, g, S, hd).reshape(
+                n, n_heads, S, hd).contiguous()
 
         of = flash_attention(qf.contiguous(), group(kn), group(vn),
                              causal=True)
-        o = of.reshape(n, cfg.n_kv_heads, g, S, hd).permute(0, 3, 1, 2, 4)
+        o = of.reshape(n, n_kv, g, S, hd).permute(0, 3, 1, 2, 4)
     elif optflags.enabled("chunked_attn") and S > optflags.ATTN_CHUNK:
         o = _attention_chunked(qg, kn, vn, window, optflags.ATTN_CHUNK)
     else:
         w = _attn_weights(qg, kn, causal_mask(S, window, x.device))
         o = torch.einsum("bkgst,btkh->bskgh", w.to(x.dtype), vn)
-    o = o.reshape(lead + (S, cfg.n_heads * hd))
+    o = o.reshape(lead + (S, n_heads * hd))
+    if part is not None:
+        return (part.dense_rows(p["wo"], o, cfg.n_heads * hd, "wo"),
+                {"k": k, "v": v})
     return dense(p["wo"], o), {"k": k, "v": v}
 
 
@@ -333,6 +404,22 @@ def mlp_init(key: int, cfg: ModelConfig, d_ff: Optional[int] = None,
 
 
 def mlp(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """The MLP; under a partition of ``ff`` (``models/partition``), this
+    rank's hidden columns, ``down``/``fc_out``'s partial outputs summed
+    over the ranks and ``fc_out``'s bias added once after the sum."""
+    from repro_torch.models import partition
+
+    part = partition.current()
+    if part is not None and part.ff:
+        ff = cfg.d_ff
+        x = part.copy_to(x)
+        if "gate" in p:
+            act = F.silu if cfg.mlp_act == "silu" else _gelu
+            h = (act(part.dense_cols(p["gate"], x, ff, "gate"))
+                 * part.dense_cols(p["up"], x, ff, "up"))
+            return part.dense_rows(p["down"], h, ff, "down")
+        h = _gelu(part.dense_cols(p["fc_in"], x, ff, "fc_in"))
+        return part.dense_rows(p["fc_out"], h, ff, "fc_out")
     if "gate" in p:
         act = F.silu if cfg.mlp_act == "silu" else _gelu
         h = act(dense(p["gate"], x)) * dense(p["up"], x)

@@ -1,0 +1,237 @@
+"""The partitioned products: on a mesh whose ``model`` axis splits a
+layer, each rank computes only its own part of each product, in the
+layer's parallel form, and no rank gathers the layer.
+
+The JAX package binds the logical axes ``heads``, ``kv_heads``, ``ff`` and
+``vocab`` to ``model`` (``launch.shardings.rules_for``: where the count
+divides the axis) and annotates the activations on them; XLA then
+partitions each product.  The port does it by hand, with the parameter
+layout ``launch.shardings`` already gives every rank (its column or row
+block, ``core.packing.ShardPackSpec``):
+
+* attention: rank r of m runs query heads ``[r·H/m, (r+1)·H/m)`` on its
+  ``wq`` columns and KV heads ``[r·KV/m, (r+1)·KV/m)`` on its ``wk``/``wv``
+  columns (under ``head = kv·g + i`` these are exactly the KV heads its
+  query heads read).  Where ``kv_heads`` is unbound, ``wk``/``wv`` stay
+  whole on every rank (gathered, or replicated) and each rank projects the
+  KV heads its query heads read.  ``wo`` is row-split: the ranks' partial
+  outputs are summed in f32 (:func:`~repro_torch.launch.mesh.reduce_from`)
+  and rounded once, and ``wo``'s bias, if any, is added once after the
+  sum;
+* the MLP: ``gate``/``up``/``fc_in`` column-split, ``down``/``fc_out``
+  row-split (``fc_out``'s bias after the sum);
+* the embedding: a vocab-parallel lookup (each rank its rows
+  ``[r·V/m, (r+1)·V/m)``, zeros elsewhere, summed: one nonzero addend a
+  row, so exact), and the unembedding on the rank's vocab rows, which
+  leaves the logits split over the vocab for the vocab-parallel
+  cross-entropy (``models/registry._xent``).
+
+A column-split product reads its input through
+:func:`~repro_torch.launch.mesh.copy_to`, whose backward sums the ranks'
+partial input gradients, so everything outside the products (norms,
+residual stream, RoPE) is computed and differentiated alike on every
+rank.  A leaf a rank holds whole but uses for its own part only (the K/V
+projection and its bias where the KV heads do not split) is read through
+``copy_to`` as well, so its gradient is the whole product's on every
+rank.  The column biases of the split products need no such slice: as
+stacked (L, n) leaves their last dim splits over ``model`` like their
+weight's.
+
+The plan (:func:`partition_for`) covers the families of
+``models/transformer.py`` (dense and vlm); the others, and serving, keep
+the gathered forward (``models/gather``).  A model-sharded leaf whose
+product is not partitioned (pixtral's ``projector``, whose output is the
+residual stream; ``fc_out``'s bias, split on its layer dim; ``wk``/``wv``
+where ``kv_heads`` is unbound) is gathered as before
+(:func:`gathered_model_leaf`).
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.launch.mesh import copy_to, reduce_from
+
+Tensor = torch.Tensor
+
+#: the families whose products partition over ``model``
+FAMILIES = ("dense", "vlm")
+#: each partitioned leaf: (its layer key, its param name) -> (the logical
+#: axis that must bind to ``model``, its split: "col" | "row" | "vocab")
+_LEAVES = {
+    ("attn", "wq"): ("heads", "col"), ("attn", "wo"): ("heads", "row"),
+    ("attn", "wk"): ("kv_heads", "col"), ("attn", "wv"): ("kv_heads", "col"),
+    ("mlp", "gate"): ("ff", "col"), ("mlp", "up"): ("ff", "col"),
+    ("mlp", "down"): ("ff", "row"), ("mlp", "fc_in"): ("ff", "col"),
+    ("mlp", "fc_out"): ("ff", "row"),
+}
+
+
+class Partition(NamedTuple):
+    """Which products a rank computes its part of, over ``axis``."""
+
+    mesh: Any
+    axis: str           # the mesh axis the products split over
+    n: int              # its size
+    index: int          # this rank's coordinate on it
+    heads: bool         # attention's query heads (and ``wo``'s rows)
+    kv: bool            # the KV heads (else ``wk``/``wv`` are whole)
+    ff: bool            # the MLP's hidden columns
+    vocab: bool         # the embedding's and the logits' vocab rows
+
+    # -- collectives ---------------------------------------------------------
+
+    def copy_to(self, x: Tensor) -> Tensor:
+        return copy_to(x, self.mesh, self.axis)
+
+    def reduce_from(self, x: Tensor) -> Tensor:
+        return reduce_from(x, self.mesh, self.axis)
+
+    # -- products ------------------------------------------------------------
+
+    def dense_cols(self, p: dict, x: Tensor, n_full: int,
+                   what: str = "column") -> Tensor:
+        """A column-split dense on ``x`` (already read through
+        :meth:`copy_to`): this rank's ``n_full / n`` output columns.  Its
+        bias, a stacked (L, n_full) leaf, is split on its columns by the
+        same layout rule as the weight, so the rank holds its block of
+        both."""
+        from repro_torch.models.layers import dense
+
+        nl = n_full // self.n
+        for k, t in p.items():
+            if t.shape[-1] != nl:
+                raise ValueError(f"{what}/{k}: the plan partitions it but "
+                                 f"the rank holds {t.shape[-1]} of "
+                                 f"{n_full} columns")
+        return dense(p, x)
+
+    def dense_slice(self, p: dict, x: Tensor, c0: int, c1: int) -> Tensor:
+        """Columns ``[c0, c1)`` of a dense the rank holds whole (read
+        through :meth:`copy_to`, so its gradient sums the ranks')."""
+        from repro_torch.models.layers import _bcast, dense
+
+        w = self.copy_to(p["w"]).narrow(-1, c0, c1 - c0)
+        y = dense({"w": w}, x)
+        if "b" in p:
+            b = self.copy_to(p["b"]).narrow(-1, c0, c1 - c0)
+            y = y + _bcast(b, y, 1)
+        return y
+
+    def dense_rows(self, p: dict, x: Tensor, n_full: int,
+                   what: str = "row") -> Tensor:
+        """A row-split dense on this rank's ``n_full / n`` input columns:
+        the partial products computed and summed over the axis in f32 (at
+        least), rounded once to ``x``'s dtype, as one device's product
+        accumulates in f32 and rounds once; then the bias (whole on every
+        rank) added once."""
+        from repro_torch.models.layers import _bcast, dense
+
+        w = p["w"]
+        if w.shape[-2] != n_full // self.n:
+            raise ValueError(f"{what}: the plan partitions it but the rank "
+                             f"holds {w.shape[-2]} of {n_full} rows")
+        acc = torch.promote_types(x.dtype, torch.float32)
+        y = self.reduce_from(dense({"w": w.to(acc)}, x.to(acc))).to(x.dtype)
+        if "b" in p:
+            y = y + _bcast(p["b"], y, 1)
+        return y
+
+    def vocab_rows(self, table: Tensor, vocab: int) -> Tuple[int, int]:
+        """This rank's first vocab row and row count."""
+        vl = vocab // self.n
+        if table.shape[-2] != vl:
+            raise ValueError(f"embedding: the plan partitions the vocab but "
+                             f"the rank holds {table.shape[-2]} of {vocab} "
+                             f"rows")
+        return self.index * vl, vl
+
+
+def partition_for(cfg, mesh, *, multi_pod: bool = False
+                  ) -> Optional[Partition]:
+    """The trainer's plan on ``mesh``: which products split over
+    ``model`` (a logical axis partitions where
+    ``launch.shardings.rules_for`` binds it to ``model``, as the reference
+    decides); None where the axis has one rank or the family keeps the
+    gathered forward."""
+    from repro_torch.launch.shardings import rules_for
+
+    axis = "model"
+    n = mesh.shape.get(axis, 1)
+    if n == 1 or cfg.family not in FAMILIES:
+        return None
+    rules = rules_for(cfg, mesh, multi_pod=multi_pod)
+
+    def bound(name: str) -> bool:
+        r = rules.get(name)
+        return r == axis or (isinstance(r, tuple) and axis in r)
+
+    return Partition(mesh, axis, n, mesh.axis_index(axis), bound("heads"),
+                     bound("kv_heads"), bound("ff"), bound("vocab"))
+
+
+def _split(path: Tuple[str, ...], part: Partition) -> Optional[str]:
+    """The split of the leaf at ``path`` where its product partitions
+    ("col", "row", "vocab"), else None."""
+    if path[:1] == ("embed",) and path[-1] == "table":
+        return "vocab" if part.vocab else None
+    if path[:1] != ("layers",) or len(path) < 4:
+        return None
+    axis, split = _LEAVES.get((path[1], path[2]), (None, None))
+    if axis is None:
+        return None
+    on = {"heads": part.heads, "kv_heads": part.kv, "ff": part.ff}[axis]
+    if axis == "kv_heads":
+        on = on and part.heads
+    if not on:
+        return None
+    if path[-1] == "b" and split == "row":
+        return None          # a row layer's bias is added after the sum
+    return split
+
+
+def model_dims(params, mdims, part: Optional[Partition]
+               ) -> Tuple[Optional[int], ...]:
+    """``mdims`` (each leaf's element dim on ``model``, flatten order, the
+    stacked entry dim counted) with the partitioned leaves' dims dropped
+    (None): those the rank keeps as its block, where the gather plan
+    gathers the rest.  Each partitioned leaf's dim must be its split's:
+    the last for a column split, the one before for a row split, the
+    table's vocab dim."""
+    from repro_torch.tree import tree_paths
+
+    if part is None:
+        return tuple(mdims)
+    out = []
+    for (path, _), md in zip(tree_paths(params), mdims):
+        split = _split(path, part)
+        if split is None:
+            out.append(md)
+            continue
+        # element dims: the table (V, d), a stacked weight (L, i, o), a
+        # stacked bias (L, o)
+        nd = 3 if path[-1] == "w" else 2
+        want = {"col": nd - 1, "row": nd - 2, "vocab": 0}[split]
+        if md != want:
+            raise ValueError(f"{'/'.join(path)}: the plan splits its "
+                             f"{split}s over {part.axis} but the layout "
+                             f"shards element dim {md}, not {want}")
+        out.append(None)
+    return tuple(out)
+
+
+def gathered_model_leaf(path: Tuple[str, ...], md: Optional[int],
+                        part: Optional[Partition]) -> bool:
+    """True where a leaf sharded over ``model`` is still gathered under
+    ``part`` (its product does not partition)."""
+    return md is not None and (part is None or _split(path, part) is None)
+
+
+def current() -> Optional[Partition]:
+    """The partition of the active gather plan (``models/gather``), or
+    None: the layers run their whole products."""
+    from repro_torch.models import gather as _gather
+
+    plan = _gather.current()
+    return None if plan is None else plan.part

@@ -19,7 +19,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import encdec, hybrid, moe, ssm, transformer
+from repro_torch.models import (encdec, hybrid, moe, partition, ssm,
+                                transformer)
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -123,12 +124,37 @@ class Model(NamedTuple):
     decode_step: Callable[..., Any]
 
 
+def _ll_vocab_parallel(logits: Tensor, labels: Tensor, part) -> Tensor:
+    """Each token's log-likelihood from logits split over the vocab
+    (this rank's columns, ``models/partition``), in f32: the row max over
+    the axis (no gradient: a shift), and one sum over the axis of each
+    row's Σexp and of its target's shifted logit (nonzero only on the
+    target's owner)."""
+    lf = logits.float()
+    vl = lf.shape[-1]
+    with torch.no_grad():
+        mx = part.mesh.pmax(lf.amax(-1), part.axis)
+    z = lf - mx[..., None]
+    local = labels.long() - part.index * vl
+    mine = (local >= 0) & (local < vl)
+    tgt = torch.gather(z, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    tgt = torch.where(mine, tgt, torch.zeros((), device=tgt.device))
+    sums = part.reduce_from(torch.stack([torch.exp(z).sum(-1), tgt]))
+    return sums[1] - torch.log(sums[0])
+
+
 def _xent(logits: Tensor, labels: Tensor, mask: Optional[Tensor] = None,
           lead: int = 0) -> Tensor:
     """Mean token cross-entropy, log-softmax in f32; the ``lead`` leading
-    dims are kept (one loss per worker)."""
-    logp = F.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    dims are kept (one loss per worker).  Under a partition of the vocab
+    (``models/partition``) the logits are this rank's vocab columns and
+    the log-softmax runs over the axis (:func:`_ll_vocab_parallel`)."""
+    part = partition.current()
+    if part is not None and part.vocab:
+        ll = _ll_vocab_parallel(logits, labels, part)
+    else:
+        logp = F.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     ll = ll.reshape(ll.shape[:lead] + (-1,))
     if mask is not None:
         m = mask.reshape(ll.shape).to(ll.dtype)

@@ -6,8 +6,11 @@ Model code may annotate activations with logical axis names
 names to mesh axes.  In eager torch no compiler partitions a tensor by its
 annotation, so :func:`shard` is the identity, as the JAX package's is
 outside a mesh; under a binding it checks that the annotation names every
-dim.  The rules are what ``launch/shardings`` specialises per arch and
-what a later partitioned product would read.
+dim.  The rules are what ``launch/shardings`` specialises per arch, and
+what ``models/partition.partition_for`` reads: a product partitions over
+``model`` by hand (the port's counterpart of XLA partitioning an
+annotated one) where the rules bind its ``heads``, ``kv_heads``, ``ff``
+or ``vocab`` axis to ``model``.
 """
 from __future__ import annotations
 

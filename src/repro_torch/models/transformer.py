@@ -112,7 +112,7 @@ def _embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor,
     """Token embeddings (..., S, d); with ``frontend_embeds`` (..., P,
     frontend_dim), the projected patches (cast to the param dtype) in front
     of them: (..., P + S, d)."""
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, cfg.vocab_size)
     if frontend_embeds is not None:
         patches = L.dense(params["projector"],
                           frontend_embeds.to(cfg.dtype))
@@ -193,7 +193,10 @@ def run_stacked(params: Params, x: Tensor, block: Callable, n: int,
     ``(x, aux)`` (the scan's per-layer output) and so does this: ``(x, [aux
     of each entry])``.  Under a gather plan (``models/gather``: θ held as
     shards of a mesh) each entry's shards are gathered inside its block, so
-    the recompute gathers again and one full entry is alive at a time."""
+    the recompute gathers again and one full entry is alive at a time;
+    where the plan partitions the products (``models/partition``), only
+    the fsdp dims of their leaves are gathered, and the block runs under
+    the plan again when the backward recomputes it."""
     from repro_torch.models import gather as _gather
 
     plan = _gather.current()
@@ -201,7 +204,8 @@ def run_stacked(params: Params, x: Tensor, block: Callable, n: int,
         inner = block
 
         def block(x_, p_):
-            return inner(x_, _gather.gather_entry(plan, p_, key))
+            with _gather.gathering(plan):
+                return inner(x_, _gather.gather_entry(plan, p_, key))
     policy = {}
     if remat and optflags.enabled("save_dots"):
         policy["context_fn"] = functools.partial(

@@ -68,7 +68,8 @@ def make_prefill(model: Model, mesh=None, *, fsdp: bool = False):
     mesh, as the trainer takes) a rank holds its block of the parameters
     (``prefill.shard(full)`` cuts it and builds the gather plan; call it
     first) and its rows of the batch; each layer is gathered whole
-    (``models/gather``), as the trainer's forward gathers it."""
+    (``models/gather``; serving's plan partitions no product, where the
+    trainer's computes each rank's heads, ff columns and vocab rows)."""
     layout, shard = _mesh_layout(model, mesh, fsdp)
 
     def prefill(params, batch):

@@ -50,7 +50,9 @@ coordinate on the data axes) and, when the grid shards the model (model >
 1 or fsdp > 1), its (fsdp, model) shard of θ, Θ, the optimizer state and
 of the global shard-packed (W, d_pad) λ and h
 (``core.packing.ShardPackSpec`` over ``launch.shardings.shard_dims_2d``).
-The local steps run the gathered forward (``models.gather``), the penalty
+The local steps run the gathered forward (``models.gather``), in which the
+dense and vlm families compute each rank's own heads, ff columns and vocab
+rows on its model block (``models.partition``), the penalty
 reads λ and h through ``tree_ota.unpack_cplx_shard_local`` and the round is
 ``tree_ota.ota_tree_round_shard_local``.  A pure-data mesh keeps the global
 packed layout, its worker rows split over the data axes, and samples a
@@ -97,6 +99,7 @@ from repro_torch.faults import guards as _guards
 from repro_torch.faults import plan as _fplan
 from repro_torch.kernels import ota_round as _round_k
 from repro_torch.models import gather as _gather
+from repro_torch.models.partition import partition_for
 from repro_torch.models.registry import Model, packed_param_count
 from repro_torch.models.transformer import unstack
 from repro_torch.optim.optimizers import OptState, adam, sgd
@@ -646,9 +649,11 @@ def _mesh_replicated(model: Model, flcfg: FLConfig, acfg: AdmmConfig,
                            for w in range(W)[rows]])
         sspec = spec_of(full)
         layout["sspec"] = sspec
-        layout["plan"] = (_gather.make_plan(full, sspec.shard_dims,
-                                            sspec.fsdp_dims, mesh)
-                          if shard_local else None)
+        layout["plan"] = (_gather.make_plan(
+            full, sspec.shard_dims, sspec.fsdp_dims, mesh,
+            part=partition_for(model.cfg, mesh,
+                               multi_pod="pod" in mesh.axis_names))
+            if shard_local else None)
         layout["valid"] = (shard_valid_mask(sspec, mc.j, dev) if grid_rms
                            else None)
         # Θ is the mean over every worker's rows, gathered, in one
@@ -1248,7 +1253,10 @@ class _SketchGrid:
             plan = _gather.make_plan(Theta, sspec.shard_dims,
                                      sspec.fsdp_dims, self.mesh, lead=0,
                                      fsdp_axis=self.faxes or "fsdp",
-                                     reduce=reduce)
+                                     reduce=reduce,
+                                     part=partition_for(
+                                         self.model.cfg, self.mesh,
+                                         multi_pod=self.multi_pod))
         st = self.state
         st.update(sspec=sspec, plan=plan)
         if self.on:

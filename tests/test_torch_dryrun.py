@@ -10,7 +10,10 @@ package's, on the CPU.
   equal the reference's; ``local_args`` are what ``local_shardings`` cut.
 * Cache specs for decode_32k and long_500k, leaf by leaf.
 * Flops: the port's trace against the reference's loop-corrected HLO flops
-  on a (1, 1) ``Auto`` mesh for six reduced cases, rtol 1e-2.  The named
+  on a (1, 1) ``Auto`` mesh for six reduced cases, rtol 1e-2; and the
+  port's partitioned rank on (1, 2) against the per-device module XLA
+  partitions over a (1, 2) ``Auto`` mesh (one JAX subprocess with two
+  host devices), reduced granite-8b train_4k, rtol 1e-2.  The named
   exception is attention: the reference counts its masked S × S score
   products (full squares, of which the compiled CPU module keeps some
   inside fusions that ``hlo_analysis`` counts once), the port counts B11 as
@@ -303,6 +306,84 @@ def test_trace_flops_match_the_reference_hlo(arch, shape):
         for name, k in b11.items():
             assert k["flops"] == k["calls"] * attention_flops(
                 q, q, True, per[name]), name
+
+
+#: the reference's reduced granite-8b train_4k compiled on a (1, 2) ``Auto``
+#: mesh of two forced host devices: XLA's partition of each product over
+#: ``model`` (its per-device module's text into ``argv[1]``)
+_HLO_12 = r"""
+import sys
+import jax
+from jax.sharding import AxisType
+from repro.launch.shardings import named, rules_for
+from repro.launch.specs import build_spec
+from repro.models.registry import get_config
+from repro.models.sharding import axis_rules
+
+assert jax.device_count() == 2, jax.devices()
+mesh = jax.make_mesh((1, 2), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2)
+spec = build_spec("granite-8b", "train_4k", mesh, multi_pod=False,
+                  reduced=True)
+rules = rules_for(get_config("granite-8b").reduced(), mesh, multi_pod=False,
+                  fl_replicated=True)
+with mesh:
+    with axis_rules(mesh, rules):
+        hlo = jax.jit(spec.fn, in_shardings=named(mesh, spec.in_shardings),
+                      donate_argnums=spec.donate_argnums
+                      ).lower(*spec.args).compile().as_text()
+open(sys.argv[1], "w").write(hlo)
+print("HLO_OK")
+"""
+
+
+def test_partitioned_trace_flops_match_the_references_partition(tmp_path):
+    """The port's rank on a (1, 2) fake mesh computes its heads, ff columns
+    and vocab rows (``models/partition``): its traced flops outside
+    attention equal, within rtol 1e-2, the per-device flops of the
+    reference's module that XLA partitions over the same mesh, and B11 runs
+    on half the heads."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "granite_12.hlo"
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+                          + " --xla_force_host_platform_device_count=2"
+                          ).strip())
+    proc = subprocess.run([sys.executable, "-c", _HLO_12, str(out)],
+                          env=env, capture_output=True, text=True,
+                          timeout=400, cwd=repo)
+    assert "HLO_OK" in proc.stdout, proc.stdout + proc.stderr
+    hlo = out.read_text()
+    ref_total = hlo_analysis.analyze(hlo).flops
+    dots = _hlo_dots(hlo)
+    mesh = FakeMesh((1, 2), ("data", "model"))
+    spec = specs.build_spec("granite-8b", "train_4k", mesh, multi_pod=False,
+                            reduced=True)
+    s = analyze(spec.fn, spec.local_args, mesh)
+    S = spec.meta["seq"]
+    ref_attn = sum(v for k, v in dots.items() if _attention(k, S))
+    ours_attn = sum(v for (_, ins, outs), v in s.products.items()
+                    if _attention(ins + outs, S))
+    kernel_flops = sum(k["flops"] for k in s.kernels.values())
+    assert s.flops - ours_attn - kernel_flops == pytest.approx(
+        ref_total - ref_attn, rel=1e-2)
+    # against the whole products on (1, 1): each rank's half of them
+    one = FakeMesh((1, 1), ("data", "model"))
+    whole = specs.build_spec("granite-8b", "train_4k", one, multi_pod=False,
+                             reduced=True)
+    assert s.flops < 0.6 * analyze(whole.fn, whole.local_args, one).flops
+    cfg = get_config("granite-8b").reduced()
+    q = torch.empty((2, cfg.n_heads // 2, S, cfg.hd), device="meta")
+    fwd = s.kernels["flash_attention_fwd"]
+    assert fwd["flops"] == fwd["calls"] * attention_flops(q, q, True, 4)
+    # the products partition: no all-gather over model, the sums instead
+    assert "all_gather" not in s.mesh_stats
+    assert s.mesh_stats["reduce_from"]["calls"] > 0
+    assert s.mesh_stats["copy_to"]["calls"] > 0
 
 
 # ---------------------------------------------------------------------------

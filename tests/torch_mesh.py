@@ -1031,3 +1031,64 @@ def dryrun_rank(rank: int) -> dict:
         mesh = make_mesh(shape, ("data", "model"), "cpu")
         out[(arch, shape)] = serve_run(arch, mesh)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the partitioned products on (1, 2): loss and grads of each rank's block
+# ---------------------------------------------------------------------------
+
+def partition_cfg(arch: str, over: dict):
+    """Reduced ``arch`` in f32 with the fields of ``over`` replaced: the
+    port's config of a partitioned case (the test builds JAX's alike)."""
+    import dataclasses
+
+    from repro_torch.models import get_config
+
+    return dataclasses.replace(get_config(arch).reduced(),
+                               param_dtype="float32", **over)
+
+
+def partitioned_rank(rank: int, cases: list) -> dict:
+    """Each case (``name``, ``arch``, ``over``, ``params``: the numpy
+    worker-led tree, ``batch``) on the (1, 2) grid: the rank's blocks of
+    the params under the trainer's layout and partition plan, the loss
+    (W,), the gradient of each block, and the mesh's collectives in the
+    forward and in the backward (calls by axis)."""
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.core.packing import build_shard_packspec, shard_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import shard_dims_2d
+    from repro_torch.models import build_model
+    from repro_torch.models import gather as G
+    from repro_torch.models.partition import partition_for
+    from repro_torch.tree import tree_map
+
+    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    j = mesh.axis_index("model")
+    out = {}
+    for case in cases:
+        model = build_model(partition_cfg(case["arch"], case["over"]))
+        full = model_params_from_numpy(case["params"], device="cpu")
+        md, fd = shard_dims_2d(full, model.cfg, mesh, multi_pod=False)
+        sspec = build_shard_packspec(full, md, 2, batch_dims=1,
+                                     fsdp_dims=fd, n_fsdp=1)
+        part = partition_for(model.cfg, mesh)
+        plan = G.make_plan(full, sspec.shard_dims, sspec.fsdp_dims, mesh,
+                           part=part)
+        theta = tree_map(lambda l: l.clone().requires_grad_(),
+                         shard_tree(sspec, full, j))
+        batch = {k: t(v) for k, v in case["batch"].items()}
+
+        def calls():
+            return {op: dict(s["axes"]) for op, s in mesh.stats.items()}
+        mesh.reset_stats()
+        with G.gathering(plan):
+            loss, _ = model.loss(G.gather_params(theta), batch)
+            fwd = calls()
+            mesh.reset_stats()
+            loss.sum().backward()
+        out[case["name"]] = {
+            "j": j, "loss": to_np(loss), "fwd": fwd, "bwd": calls(),
+            "grads": to_np(tree_map(lambda l: l.grad, theta)),
+            "part": None if part is None else part._replace(mesh=None)}
+    return out

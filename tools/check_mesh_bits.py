@@ -2,19 +2,25 @@
 """Does the card give the mesh check's round-1 loss the same bits every
 time?  ``chip_smoke.py``'s ``llm_mesh_check`` holds two ranks' round-1
 loss (granite-8b at full width cut to 1 layer, the (1, 2) grid over gloo
-on one card) to one device's bit for bit; this repeats its pieces:
+on one card, the forward partitioned over the model axis) to each other
+bit for bit and to one device's within one bf16 ulp relative; this
+repeats its pieces:
 
 * ``gather``: two ranks each run the first local step's forward and
-  backward ``K`` times, with a digest of every tensor the gathers return
-  and of every gradient, against their first run and each other's;
+  backward ``K`` times, with a digest of every tensor the gathers return,
+  of every partial product the partitioned forward sums over the ranks
+  (``launch.mesh.reduce_from``'s output) and of every gradient, against
+  their first run and each other's;
 * ``b11``: two processes on the card at once each launch B11's forward,
   dq and dk/dv at (2, 32, 4,096, 128) bf16 thousands of times and count
   the launches whose outputs differ from their first;
 * ``one``: the one-device round-1 loss 8 times;
 * ``mesh``: ``chip_smoke.py``'s phases ``llm``, ``launch`` and its mesh
   phases (``llm_mesh_check`` to ``llm_mesh_cohort_check``), in its order,
-  their gates exiting 1 (the rank losses that once missed one device's
-  are in ROADMAP queue C item 1).
+  their gates exiting 1: the ranks' losses bit-equal to each other in
+  every phase, and within each phase's stated bounds of one device (a
+  rank loss that once missed one device's, and now would miss its peer's,
+  is ROADMAP queue C item 1).
 
     python3 tools/check_mesh_bits.py [--parts gather,b11,one,mesh]
 
@@ -55,6 +61,7 @@ def gather_rank(rank: int, store: str, out_dir: str) -> None:
 
     res = {"rank": rank}
     try:
+        from repro_torch.launch import mesh as M
         from repro_torch.launch.mesh import init_distributed, make_mesh
         from repro_torch.models import build_model
         from repro_torch.models import gather as G
@@ -73,18 +80,27 @@ def gather_rank(rank: int, store: str, out_dir: str) -> None:
         plan = init_fn.layout["plan"]
         batch = cs._mesh_batch(torch, cfg)
         model = build_model(cfg)
-        seen = []
+        seen, sums = [], []
         inner = G._Gather.forward
+        inner_sum = M._ReduceFrom.forward
 
         def fwd(ctx, x, *a):
             out = inner(ctx, x, *a)
             torch.cuda.synchronize()
             seen.append((tuple(out.shape), digest(out)))
             return out
+
+        def fwd_sum(ctx, x, *a):
+            out = inner_sum(ctx, x, *a)
+            torch.cuda.synchronize()
+            sums.append((tuple(out.shape), digest(out)))
+            return out
         G._Gather.forward = staticmethod(fwd)
+        M._ReduceFrom.forward = staticmethod(fwd_sum)
         runs = []
         for _ in range(K):
             seen.clear()
+            sums.clear()
             leaves = tree_map(lambda l: l.detach().requires_grad_(), st.theta)
             with G.gathering(plan):
                 losses, _ = model.loss(G.gather_params(leaves), batch)
@@ -92,6 +108,7 @@ def gather_rank(rank: int, store: str, out_dir: str) -> None:
                 losses.sum().backward()
             torch.cuda.synchronize()
             runs.append({"loss": loss, "gathers": list(seen),
+                         "sums": list(sums),
                          "grad": [digest(l.grad)
                                   for l in tree_leaves(leaves)]})
         res["runs"] = runs
@@ -175,6 +192,13 @@ def main() -> int:
                           "gathers differing from run 0:",
                           [j for j, (a, b) in enumerate(
                               zip(run["gathers"], base["gathers"])) if a != b],
+                          "sums differing from run 0:",
+                          [j for j, (a, b) in enumerate(
+                              zip(run["sums"], base["sums"])) if a != b],
+                          "sums differing from rank 0:",
+                          [j for j, (a, b) in enumerate(
+                              zip(run["sums"], res[0]["runs"][i]["sums"]))
+                           if a != b] if "runs" in res[0] else None,
                           "grads differing:",
                           [j for j, (a, b) in enumerate(
                               zip(run["grad"], base["grad"])) if a != b],
