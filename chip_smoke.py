@@ -249,7 +249,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              device, noise-free, 3 rounds of 2 local steps: every round's
              loss and α⁻¹, Θ, the rank's θ and λ rows within rtol 1e-6, its
              h rows bit-equal (each rank runs the one-device rounds in
-             turn, then the mesh's).  Then, in the same ranks, the
+             turn, twice, recording whether the two agree bit for bit and,
+             where not, each layer's output digest and the cuBLAS settings;
+             then the mesh's).  Then, in the same ranks, the
              partitioned forward held tight (``llm_mesh_partition_check``):
              reduced granite-8b and starcoder2-15b in f32 on (1, 2), 3
              rounds of the replicated mode from one device's init and h,
@@ -294,6 +296,24 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              against the parent's one-device run: the losses within rtol
              1e-6, Θ and the rank's θ and λ rows within 1e-6 of each
              tensor's largest magnitude.
+46. serve_mesh — after phase 43, in the same spawn: partitioned serving
+             on (1, 2) (``repro_torch.serve`` on a mesh, the cache's
+             "heads" layout): granite-8b at full width and all 36 layers
+             in bf16, an 8 × 64 prefill and 79 greedy steps fed one
+             device's tokens (the parent's run, and the same weights in
+             f32): the ranks' tokens and logits bit-equal, the logits no
+             further from the f32 run than one device's bf16 logits (RMS
+             ratio ≤ 1.1; 2⁻⁶ of the largest logit recorded),
+             the tokens equal wherever one device's top-2 margin exceeds
+             twice the step's largest |Δ|, B11 36 times a prefill on each
+             rank's 16 heads and none in decode, no all-gather over
+             ``model`` of a partitioned leaf, each rank's peak ≤ 40 GB;
+             then reduced f32 granite-8b in the heads layout, with one KV
+             head (the sequence over ``model``) and with a window of 32
+             past its wrap: logits and cache within 1e-5 of one device's,
+             tokens equal.  Each rank first runs one device's prefill and
+             8 steps twice and records whether they agree bit for bit, as
+             phase 39's pure-data pin does with its one-device rounds.
 44. dryrun — last: the dry run's trace on ``meta`` (no kernel) against
              the card: phases 40's and 42's rounds traced on a fake-rank
              mesh count each rank's collectives (calls and bytes by op)
@@ -314,8 +334,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              it says bit for bit, B9 within 1e-6 and B11's gradients within
              1e-5 of their plain versions (gates); the times recorded.
 
-Launch counts are reset just before each of phases 4–12, 14–43 and 45
-and read just after (in each rank for phases 39–43, summed over the ranks;
+Launch counts are reset just before each of phases 4–12, 14–43, 45 and
+46 and read just after (in each rank for phases 39–43 and 46, summed over
+the ranks;
 phase 45's spawned ranks count in their own sections).  Then
 come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
@@ -1130,6 +1151,10 @@ FLASH_CASES = (("", 2, 32, 4096, 128, "bfloat16", True),
                ("[bf16 vlm prefill (8, 32, 320, 128)]", 8, 32, 320, 128,
                 "bfloat16", True),
                ("[bf16 enc-dec prefill (8, 16, 64, 64)]", 8, 16, 64, 64,
+                "bfloat16", True),
+               # a (1, 2) mesh rank's prefill (``serve_mesh``): 16 of
+               # granite-8b's 32 heads over the 8 × 64 prompt
+               ("[bf16 model-rank prefill (8, 16, 64, 128)]", 8, 16, 64, 128,
                 "bfloat16", True))
 #: which cores each dtype's B11 kernels run on (``flash_attention.cu``)
 FLASH_CORES = {"bfloat16": "tensor cores", "float32": "simt"}
@@ -4961,11 +4986,84 @@ MESH_PIN_ROUNDS, MESH_PIN_STEPS = 3, 2
 MESH_PIN_RTOL = 1e-6
 
 
+def _sha1(torch, x) -> str:
+    """A digest of a tensor's bytes."""
+    t = x.detach().contiguous()
+    return hashlib.sha1(t.view(torch.uint8).cpu().numpy().tobytes()
+                        ).hexdigest()
+
+
+def _cublas_settings(torch) -> dict:
+    """The matrix products' settings in force (ROADMAP queue C item 1's
+    watch: a GEMM whose algorithm moved would change bits)."""
+    mm = torch.backends.cuda.matmul
+    return {"allow_tf32": mm.allow_tf32,
+            "allow_bf16_reduced_precision_reduction":
+            mm.allow_bf16_reduced_precision_reduction,
+            "allow_fp16_reduced_precision_reduction":
+            mm.allow_fp16_reduced_precision_reduction,
+            "CUBLAS_WORKSPACE_CONFIG": os.environ.get(
+                "CUBLAS_WORKSPACE_CONFIG"),
+            "deterministic_algorithms":
+            torch.are_deterministic_algorithms_enabled(),
+            "preferred_blas_library":
+            str(torch.backends.cuda.preferred_blas_library())}
+
+
+class _LayerDigests:
+    """While entered, a digest of the output of every call of the
+    transformer's ``block_fwd`` and ``block_decode`` (the checkpoint's
+    recompute included), in call order, in :attr:`digests`."""
+
+    NAMES = ("block_fwd", "block_decode")
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.digests: list = []
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+
+        self.saved = {n: getattr(transformer, n) for n in self.NAMES}
+
+        def wrap(name, fn):
+            def call(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                self.digests.append(f"{name}:{_sha1(self.torch, out[0])}")
+                return out
+            return call
+        for n, fn in self.saved.items():
+            setattr(transformer, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+
+        for n, fn in self.saved.items():
+            setattr(transformer, n, fn)
+
+
+def _repeat_verdict(torch, same: bool, first: list, second: list) -> dict:
+    """Whether a one-device reference run twice in one process agreed bit
+    for bit; on a mismatch the two runs' layer digests from the first that
+    differs, and the cuBLAS settings in force."""
+    out = {"bits_equal": same, "cublas": _cublas_settings(torch),
+           "layer_calls": [len(first), len(second)]}
+    if not same:
+        i = next((k for k, (a, b) in enumerate(zip(first, second))
+                  if a != b), min(len(first), len(second)))
+        out.update(first_differing_layer_call=i,
+                   digests=[first[i:i + 12], second[i:i + 12]])
+    return out
+
+
 def _mesh_pin_rank(torch, mesh) -> dict:
     """The pure-data pin on one rank.  Each rank in turn (the others wait)
-    runs the one-device trainer and keeps its workers' rows of the final
-    state, the losses and α⁻¹; then the ranks run the same rounds on
-    ``mesh`` and the rank holds its rows, and Θ whole, to them."""
+    runs the one-device trainer twice (the two runs recorded as bit-equal
+    or not, with each layer's output digest where not: ROADMAP queue C
+    item 1) and keeps the first run's workers' rows of the final state,
+    the losses and α⁻¹; then the ranks run the same rounds on ``mesh`` and
+    the rank holds its rows, and Θ whole, to them."""
     from repro_torch import rng
     from repro_torch.core.tree_ota import shard_coords
     from repro_torch.kernels import build
@@ -4977,26 +5075,43 @@ def _mesh_pin_rank(torch, mesh) -> dict:
     W_l = LLM_WORKERS // n_data
     rows = slice(jd * W_l, (jd + 1) * W_l)
     ref: dict = {}
+    runs: list = []
     for turn in range(MESH_RANKS):
         torch.distributed.barrier()
         if rank != turn:
             continue
-        init1, step1, _, _ = _mesh_trainer(torch, cfg, None, noisy=False,
-                                           local_steps=MESH_PIN_STEPS)
-        st = init1(SEED)
-        batch = _mesh_batch(torch, cfg)
-        losses, ias = [], []
-        for r in range(MESH_PIN_ROUNDS):
-            st, m = step1(st, batch, key=rng.fold_in(SEED, r + 1))
-            losses.append(float(m["loss"]))
-            ias.append(float(m["inv_alpha"]))
-        ref = {"losses": losses, "inv_alpha": ias, "Theta": st.Theta,
-               "theta": [x[rows].clone() for x in tree_leaves(st.theta)],
-               "lam": [st.lam.re[rows].clone(), st.lam.im[rows].clone()],
-               "h": [st.chan.h.re[rows].clone(), st.chan.h.im[rows].clone()]}
-        del st, step1, init1, m
-        _free(torch)
+        for _ in range(2):
+            init1, step1, _, _ = _mesh_trainer(
+                torch, cfg, None, noisy=False, local_steps=MESH_PIN_STEPS)
+            st = init1(SEED)
+            batch = _mesh_batch(torch, cfg)
+            losses, ias = [], []
+            with _LayerDigests(torch) as dig:
+                for r in range(MESH_PIN_ROUNDS):
+                    st, m = step1(st, batch, key=rng.fold_in(SEED, r + 1))
+                    losses.append(float(m["loss"]))
+                    ias.append(float(m["inv_alpha"]))
+            runs.append({"losses": losses, "inv_alpha": ias,
+                         "Theta": [_sha1(torch, x)
+                                   for x in tree_leaves(st.Theta)],
+                         "digests": dig.digests})
+            if not ref:
+                ref = {"losses": losses, "inv_alpha": ias, "Theta": st.Theta,
+                       "theta": [x[rows].clone()
+                                 for x in tree_leaves(st.theta)],
+                       "lam": [st.lam.re[rows].clone(),
+                               st.lam.im[rows].clone()],
+                       "h": [st.chan.h.re[rows].clone(),
+                             st.chan.h.im[rows].clone()]}
+            del st, step1, init1, m
+            _free(torch)
     torch.distributed.barrier()
+    a, b = runs
+    repeat = _repeat_verdict(
+        torch, all(a[k] == b[k] for k in ("losses", "inv_alpha", "Theta",
+                                           "digests")),
+        a["digests"], b["digests"])
+    repeat["losses"] = [a["losses"], b["losses"]]
     init_fn, step, _, _ = _mesh_trainer(torch, cfg, mesh, noisy=False,
                                         local_steps=MESH_PIN_STEPS)
     state = init_fn(SEED)
@@ -5047,7 +5162,8 @@ def _mesh_pin_rank(torch, mesh) -> dict:
            "peak": torch.cuda.max_memory_allocated(),
            "W_local": W_l, "d_local": init_fn.layout["sspec"].d_local,
            "jd": c.jd, "launches": launches,
-           "collectives": _mesh_stats(mesh, MESH_PIN_ROUNDS)}
+           "collectives": _mesh_stats(mesh, MESH_PIN_ROUNDS),
+           "one_device_repeat": repeat}
     del state, step, init_fn, ref
     _free(torch)
     return out
@@ -5450,14 +5566,430 @@ def _mesh_cohort_rank(torch, mesh, ref: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 20: partitioned serving on the (1, 2) grid
+# ---------------------------------------------------------------------------
+
+#: ``serve_mesh``: granite-8b at full width and all 36 layers, bf16, served
+#: on the (1, 2) grid (its 8 KV heads split over ``model``: the cache's
+#: "heads" layout): an 8 × 64 prompt through ``make_prefill``, then through
+#: the greedy step a token at a time, then 16 new tokens; the ranks feed one
+#: device's tokens, so every step's logits are compared on the same inputs
+SERVE_MESH_SHAPE = (1, 2)
+SERVE_MESH_B, SERVE_MESH_P, SERVE_MESH_N = 8, 64, 16
+SERVE_MESH_STEPS = SERVE_MESH_P - 1 + SERVE_MESH_N
+#: a bound on a step's logits against one device's, 2⁻⁶ of the step's
+#: largest |logit|, recorded, not gated: two valid bf16 runs of 36 layers
+#: differ by more (each ~0.1 from an f32 run where the largest logit is
+#: ~5); the tokens equal up to the first step whose one-device top-2
+#: margin (a row's) is below that bound
+SERVE_MESH_TOL = 2.0 ** -6
+#: the gate on the bf16 logits: their RMS distance from the same weights
+#: and inputs run in f32 on one device, over the prefill and over all the
+#: steps, at most this multiple of one device's bf16 logits' distance
+SERVE_MESH_F32_RATIO = 1.1
+#: the one-device greedy steps each rank runs twice (ROADMAP C item 1)
+SERVE_MESH_REPEAT_STEPS = 8
+#: the rank's prefill timings
+SERVE_MESH_PREFILL_RUNS = 3
+#: the reduced f32 checks on (1, 2): (name, config fields replaced, prompt,
+#: new tokens), a batch of 4: the heads layout; one KV head (the sequence
+#: over ``model``); one KV head and a window of 32, the prompt and the new
+#: tokens past it (the rotating buffer split over the sequence)
+SERVE_MESH_CHECKS = (("heads", {}, 8, 8),
+                     ("seq", {"n_kv_heads": 1}, 8, 8),
+                     ("seq-window", {"n_kv_heads": 1, "sliding_window": 32},
+                      40, 8))
+SERVE_MESH_CHECK_B = 4
+SERVE_MESH_CHECK_RTOL = 1e-5
+#: the expected layout of each check's cache
+SERVE_MESH_LAYOUTS = {"heads": "heads", "seq": "seq", "seq-window": "seq"}
+
+
+def _serve_check_cfg(over: dict):
+    import dataclasses
+
+    from repro_torch.models import get_config
+
+    return dataclasses.replace(get_config(LLM_ARCH).reduced(),
+                               param_dtype="float32", **over)
+
+
+def _greedy_run(step, params, cache, prompts, n_new: int, feed=None,
+                every=None):
+    """The prompt ingested through ``step`` a token at a time, then
+    ``n_new`` greedy tokens: each step's logits (as ``model.decode_step``
+    returned them, which ``step`` must call: see :func:`_observed`), the
+    step's tokens and the cache.  ``feed`` (steps, B) replaces the greedy
+    inputs (teacher forcing); ``every(i)`` runs after each step."""
+    P = prompts.shape[1]
+    logits, toks = [], []
+    tok = prompts[:, 0]
+    for i in range(P - 1 + n_new):
+        nxt, cache = step(params, cache, tok, i)
+        toks.append(nxt)
+        if every is not None:
+            every(i)
+        if feed is not None and i + 1 < feed.shape[0]:
+            tok = feed[i + 1]
+        else:
+            tok = prompts[:, i + 1] if i + 1 < P else nxt
+    return toks, cache
+
+
+def _observed(model, store: list):
+    """``model`` whose ``decode_step`` keeps each step's logits in
+    ``store``."""
+    def observed(p, c, tok, pos):
+        logits, c = model.decode_step(p, c, tok, pos)
+        store.append(logits)
+        return logits, c
+    return model._replace(decode_step=observed)
+
+
+def _serve_mesh_reference(torch, ref_dir: str) -> dict:
+    """One device's runs ``serve_mesh`` holds the ranks to, saved to
+    ``ref_dir``: granite-8b (bf16, 36 layers): the prefill's last logits,
+    every step's logits, inputs and greedy tokens; and each reduced f32
+    check's prefill, step logits, tokens and final cache.  Returns the
+    file's path, the steps' largest |logit| and smallest top-2 margin,
+    and the one-device prefill and decode times."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.benchmarks.common import time_ms
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda")
+    model = build_model(get_config(LLM_ARCH))
+    params = model.init(SEED + 20)
+    gen = rng.generator(SEED + 21, dev)
+    prompts = torch.randint(0, model.cfg.vocab_size,
+                            (SERVE_MESH_B, SERVE_MESH_P), device=dev,
+                            generator=gen)
+    prefill = make_prefill(model)
+    last = prefill(params, {"tokens": prompts})
+    prefill_ms = time_ms(lambda: prefill(params, {"tokens": prompts}),
+                         runs=5, warmup=1, spin=False)
+    store: list = []
+    step = make_serve_step(_observed(model, store))
+    cache = model.init_cache(SERVE_MESH_B, SERVE_MESH_P + SERVE_MESH_N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, cache = _greedy_run(step, params, cache, prompts, SERVE_MESH_N)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / SERVE_MESH_STEPS * 1e3
+    logits = torch.stack(store)                       # (steps, B, V)
+    top2 = logits.float().topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]              # (steps, B)
+    scale = logits.float().abs().amax(dim=(1, 2))
+    feed = torch.cat([prompts[:, :1].T, torch.stack(toks)[:-1]])
+    feed[:SERVE_MESH_P] = prompts.T
+    # the same weights and inputs in f32 (TF32 off): the arithmetic both
+    # bf16 runs are held to
+    m32 = build_model(dataclasses.replace(model.cfg, param_dtype="float32"))
+    p32 = tree_map(lambda x: x.float(), params)
+    del params, cache, store
+    _free(torch)
+    last32 = make_prefill(m32)(p32, {"tokens": prompts})
+    store = []
+    c32 = m32.init_cache(SERVE_MESH_B, SERVE_MESH_P + SERVE_MESH_N)
+    _greedy_run(make_serve_step(_observed(m32, store)), p32, c32, prompts,
+                SERVE_MESH_N, feed=feed)
+    truth = torch.stack(store)
+    one_err = {"prefill": _err_stats(last, last32),
+               "steps": [_err_stats(a, b) for a, b in zip(logits, truth)]}
+    data = {"prompts": prompts.cpu(), "prefill": last.cpu(),
+            "logits": logits.cpu(), "tokens": torch.stack(toks).cpu(),
+            "feed": feed.cpu(), "prefill_f32": last32.cpu(),
+            "logits_f32": truth.cpu()}
+    del model, m32, p32, c32, prefill, step, store, logits, last, last32
+    del toks, truth
+    _free(torch)
+    for name, over, P, N in SERVE_MESH_CHECKS:
+        m = build_model(_serve_check_cfg(over))
+        p = m.init(SEED + 22)
+        pr = torch.randint(0, m.cfg.vocab_size, (SERVE_MESH_CHECK_B, P),
+                           device=dev, generator=rng.generator(SEED + 23,
+                                                               dev))
+        st: list = []
+        last = make_prefill(m)(p, {"tokens": pr})
+        c = m.init_cache(SERVE_MESH_CHECK_B, P + N)
+        tk, c = _greedy_run(make_serve_step(_observed(m, st)), p, c, pr, N)
+        data[name] = {"prompts": pr.cpu(), "prefill": last.cpu(),
+                      "logits": torch.stack(st).cpu(),
+                      "tokens": torch.stack(tk).cpu(),
+                      "cache": {k: v.cpu() for k, v in c.items()}}
+        del m, p, c, st, last, tk
+    _free(torch)
+    path = os.path.join(ref_dir, "serve_mesh_reference.pt")
+    torch.save(data, path)
+    return {"path": path, "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "max_abs_logit": scale.tolist(), "margin": margin.tolist(),
+            "one_device_vs_f32": one_err}
+
+
+def _err_stats(a, b) -> dict:
+    """``a`` against ``b``: the largest |Δ|, the sum of Δ² and the count
+    (for an RMS over several blocks), in f32."""
+    d = a.float() - b.float()
+    return {"max_abs": float(d.abs().max()), "sum_sq": float((d * d).sum()),
+            "n": d.numel()}
+
+
+def _rms(stats: list) -> float:
+    return math.sqrt(sum(s["sum_sq"] for s in stats)
+                     / sum(s["n"] for s in stats))
+
+
+def _serve_mesh_repeat(torch, model, params, prompts, data) -> dict:
+    """One device's prefill and ``SERVE_MESH_REPEAT_STEPS`` greedy steps,
+    run twice in this rank's process: whether the two runs' logits agree
+    bit for bit (each layer's output digest kept for the verdict), and
+    whether they are the parent's bits."""
+    from repro_torch.serve import make_prefill, make_serve_step
+
+    runs = []
+    for _ in range(2):
+        store: list = []
+        step = make_serve_step(_observed(model, store))
+        cache = model.init_cache(SERVE_MESH_B,
+                                 SERVE_MESH_P + SERVE_MESH_N)
+        feed = data["feed"][:SERVE_MESH_REPEAT_STEPS].to(prompts.device)
+        with _LayerDigests(torch) as dig:
+            last = make_prefill(model)(params, {"tokens": prompts})
+            tok = feed[0]
+            for i in range(SERVE_MESH_REPEAT_STEPS):
+                _, cache = step(params, cache, tok, i)
+                if i + 1 < SERVE_MESH_REPEAT_STEPS:
+                    tok = feed[i + 1]
+        runs.append({"prefill": _sha1(torch, last),
+                     "steps": [_sha1(torch, x) for x in store],
+                     "digests": dig.digests,
+                     "parent": bool(torch.equal(last.cpu(), data["prefill"]))
+                     and all(torch.equal(x.cpu(), y) for x, y in zip(
+                         store, data["logits"][:SERVE_MESH_REPEAT_STEPS]))})
+        del cache, store, last
+    a, b = runs
+    out = _repeat_verdict(torch, a["prefill"] == b["prefill"]
+                          and a["steps"] == b["steps"]
+                          and a["digests"] == b["digests"],
+                          a["digests"], b["digests"])
+    out["parent_bits_equal"] = [a["parent"], b["parent"]]
+    return out
+
+
+def _serve_mesh_full(torch, mesh, data: dict) -> dict:
+    """``serve_mesh`` (a) on one rank: granite-8b at full width and depth on
+    ``mesh``, its prefill and its teacher-forced greedy steps against one
+    device's, timed, with the mesh's collectives, B11's launches and the
+    rank's peaks.  Each rank first runs one device's prefill and steps
+    twice in turn (:func:`_serve_mesh_repeat`)."""
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model, get_config, layers
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda")
+    rank = torch.distributed.get_rank()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(get_config(LLM_ARCH))
+    t0 = time.perf_counter()
+    full = model.init(SEED + 20)
+    prompts = data["prompts"].to(dev)
+    repeat = None
+    for turn in range(MESH_RANKS):
+        torch.distributed.barrier()
+        if rank == turn:
+            with torch.no_grad():
+                repeat = _serve_mesh_repeat(torch, model, full, prompts,
+                                            data)
+            _free(torch)
+    torch.distributed.barrier()
+    store: list = []
+    step = make_serve_step(_observed(model, store), mesh)
+    prefill = make_prefill(model, mesh)
+    params = step.shard(full)
+    # the prefill's plan from the shapes alone: its blocks on ``meta``
+    prefill.shard(tree_map(lambda x: x.to("meta"), full))
+    del full
+    cache = step.init_cache(SERVE_MESH_B, SERVE_MESH_P + SERVE_MESH_N)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _free(torch)
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    batch = {"tokens": prompts}
+    b11_shapes = []
+    b11 = layers.flash_attention
+
+    def recorded(q, *args, **kwargs):
+        b11_shapes.append(list(q.shape))
+        return b11(q, *args, **kwargs)
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    layers.flash_attention = recorded
+    try:
+        last = prefill(params, batch)
+    finally:
+        layers.flash_attention = b11
+    torch.cuda.synchronize()
+    mesh.timing = False
+    pre_launches = {k: v for k, v in build.launches.items() if v}
+    pre_stats = _mesh_stats(mesh, 1)
+    pre_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+    ref_pre = data["prefill"].to(dev).float()
+    pre_err = float((last.float() - ref_pre).abs().max())
+    pre_scale = float(ref_pre.abs().max())
+    times = []
+    for _ in range(SERVE_MESH_PREFILL_RUNS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+
+    feed = data["feed"].to(dev)
+    step_s = []
+
+    def tick(i):
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter())
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks, cache = _greedy_run(step, params, cache, prompts, SERVE_MESH_N,
+                              feed=feed, every=tick)
+    mesh.timing = False
+    dec_launches = {k: v for k, v in build.launches.items() if v}
+    dec_stats = _mesh_stats(mesh, SERVE_MESH_STEPS)
+    dec_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+    walls = [(b - a) * 1e3 for a, b in zip([t1] + step_s[:-1], step_s)]
+    peak = torch.cuda.max_memory_allocated()
+    j = mesh.axis_index("model")
+    errs, errs32, local = [], [], torch.stack(store)
+    vl = local.shape[-1]
+    cols = slice(j * vl, (j + 1) * vl)
+    for i in range(SERVE_MESH_STEPS):
+        ref = data["logits"][i][:, cols].to(dev)
+        errs.append(float((local[i].float() - ref.float()).abs().max()))
+        errs32.append(_err_stats(local[i],
+                                 data["logits_f32"][i][:, cols].to(dev)))
+    tokens = torch.stack(toks).cpu()
+    gathered = mesh.all_gather(local, "model", -1, op="gather_vocab")
+    out = {"prefill_max_abs_err": pre_err, "prefill_max_abs_logit": pre_scale,
+           "prefill_sha1": _sha1(torch, last),
+           "step_logits_sha1": _sha1(torch, gathered),
+           "step_max_abs_err": errs, "step_vs_f32": errs32,
+           "prefill_vs_f32": _err_stats(last, data["prefill_f32"].to(dev)),
+           "tokens": tokens.tolist(),
+           "tokens_one_device": data["tokens"].tolist(),
+           "prefill_launches": pre_launches, "decode_launches": dec_launches,
+           "prefill_b11_shapes": sorted(map(list, {tuple(x)
+                                                   for x in b11_shapes})),
+           "prefill_collectives": pre_stats, "prefill_calls": pre_calls,
+           "decode_collectives": dec_stats, "decode_calls": dec_calls,
+           "prefill_ms": times, "decode_wall_ms": walls,
+           "setup_s": setup_s, "setup_peak": setup_peak, "peak": peak,
+           "cache_layout": step.layout["cache"],
+           "cache_block": list(cache["k"].shape),
+           "one_device_repeat": repeat}
+    del gathered, local, store
+    # one more step's kernels on the device (the profiler's kernel events;
+    # the step rewrites the last slot with the same token)
+    out["decode_device_ms"] = _kernel_ms(
+        torch, lambda: step(params, cache, feed[-1], SERVE_MESH_STEPS - 1))
+    del params, cache, last, model, step, prefill
+    _free(torch)
+    return out
+
+
+def _kernel_ms(torch, fn) -> float:
+    """The device time of the kernels of one call of ``fn``
+    (``torch.profiler``'s CUDA kernel events, as phase ``profile`` sums
+    them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def _serve_mesh_check(torch, mesh, data: dict, over: dict, P: int,
+                      N: int) -> dict:
+    """``serve_mesh`` (b) on one rank: reduced f32 granite-8b with ``over``
+    served greedily on ``mesh`` against one device's run on the card:
+    the prefill's and every step's logits (the rank's vocab columns), the
+    tokens, and the rank's cache against its block of one device's."""
+    from repro_torch.launch.shardings import shard_leaf
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill, make_serve_step
+
+    dev = torch.device("cuda")
+    m = build_model(_serve_check_cfg(over))
+    full = m.init(SEED + 22)
+    prompts = data["prompts"].to(dev)
+    store: list = []
+    prefill = make_prefill(m, mesh)
+    last = prefill(prefill.shard(full), {"tokens": prompts})
+    step = make_serve_step(_observed(m, store), mesh)
+    params = step.shard(full)
+    cache = step.init_cache(SERVE_MESH_CHECK_B, P + N)
+    mesh.reset_stats()
+    toks, cache = _greedy_run(step, params, cache, prompts, N)
+    calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+
+    def scaled(a, b):
+        b = b.to(dev).float()
+        return float((a.float() - b).abs().max() / b.abs().max())
+    j = mesh.axis_index("model")
+    vl = store[0].shape[-1]
+    cache_err = max(scaled(cache[k], shard_leaf(
+        data["cache"][k], step.layout["cache_specs"][k], mesh))
+        for k in cache)
+    out = {"layout": step.layout["cache"],
+           "cache_block": list(cache["k"].shape),
+           "prefill_rel_err": scaled(last, data["prefill"]),
+           "step_rel_err": max(scaled(x, y[:, j * vl:(j + 1) * vl])
+                               for x, y in zip(store, data["logits"])),
+           "cache_rel_err": cache_err,
+           "tokens_equal": bool(torch.equal(torch.stack(toks).cpu(),
+                                            data["tokens"])),
+           "tokens_sha1": _sha1(torch, torch.stack(toks)),
+           "decode_calls": calls}
+    del m, full, params, cache, store, last
+    return out
+
+
+def _serve_mesh_rank(torch, mesh, ref: dict) -> dict:
+    """Phase ``serve_mesh`` on one rank: (a), then the reduced checks
+    (b)."""
+    data = torch.load(ref["path"])
+    out = {"full": _serve_mesh_full(torch, mesh, data)}
+    out["checks"] = {name: _serve_mesh_check(torch, mesh, data[name], over,
+                                             P, N)
+                     for name, over, P, N in SERVE_MESH_CHECKS}
+    _free(torch)
+    return out
+
+
 def _mesh_rank_main(rank: int, store: str, out_dir: str,
                     refs: dict) -> None:
     """One rank of the mesh phases, spawned by :func:`phase_llm_mesh`: it
     joins the gloo group through ``store``, runs ``llm_mesh_check`` (with
     its pure-data pin), ``llm_mesh_sketched_check``, ``llm_mesh`` on both
-    grids, ``llm_mesh_sketched`` and ``llm_mesh_cohort_check`` against the
-    parent's one-device ``refs``, and writes its results (or its
-    traceback) to ``out_dir`` after each."""
+    grids, ``llm_mesh_sketched``, ``llm_mesh_cohort_check`` and
+    ``serve_mesh`` against the parent's one-device ``refs``, and writes its
+    results (or its traceback) to ``out_dir`` after each."""
     import datetime
     import traceback
 
@@ -5501,6 +6033,9 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
         dump()
         res["cohort"] = _mesh_cohort_rank(torch, on(MESH_PIN_SHAPE),
                                           refs["cohort"])
+        dump()
+        res["serve_mesh"] = _serve_mesh_rank(torch, on(SERVE_MESH_SHAPE),
+                                             refs["serve"])
         torch.distributed.destroy_process_group()
     except Exception:
         res["error"] = traceback.format_exc()
@@ -5561,9 +6096,10 @@ def _rank_failures(res, part: str) -> str:
 
 def phase_llm_mesh(torch):
     """Phases ``llm_mesh_check``, ``llm_mesh_sketched_check``,
-    ``llm_mesh``, ``llm_mesh_sketched`` and ``llm_mesh_cohort_check``: the
-    replicated and the sketched mode on (data, model) grids of two ranks
-    spawned on the one card, gloo between them (``launch.mesh``).  The
+    ``llm_mesh``, ``llm_mesh_sketched``, ``llm_mesh_cohort_check`` and
+    ``serve_mesh``: the replicated and the sketched mode, and partitioned
+    serving, on (data, model) grids of two ranks spawned on the one card,
+    gloo between them (``launch.mesh``).  The
     kernels are built already (phase ``build``), so the ranks load them and
     do not race on the build directory.  The parent first runs the
     one-device rounds the checks hold the ranks to (each rank runs the
@@ -5572,15 +6108,20 @@ def phase_llm_mesh(torch):
     Returns each phase's launches, summed over the ranks, and each rank's
     collectives (calls and bytes by op) in ``llm_mesh`` on each grid and in
     ``llm_mesh_sketched``."""
+    import tempfile
+
     refs = {"loss": _mesh_check_reference(torch)}
     _free(torch)
     refs["sketched"] = _mesh_sketched_reference(torch)
     _free(torch)
     refs["cohort"] = _mesh_cohort_reference(torch)
-    # the ranks share the card with this process: it holds no tensor now
     _free(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as ref_dir:
+        refs["serve"] = _serve_mesh_reference(torch, ref_dir)
+        # the ranks share the card with this process: it holds no tensor
+        _free(torch)
+        res, exit_codes, wall_s = _spawn_mesh_ranks(refs)
     loss_ref = refs["loss"]
-    res, exit_codes, wall_s = _spawn_mesh_ranks(refs)
     for part in ("check", "pin"):
         require(all(part in r for r in res), f"llm_mesh_check: a rank "
                 f"failed:\n" + _rank_failures(res, part))
@@ -5886,6 +6427,8 @@ def phase_llm_mesh(torch):
                     for c in co],
           "launches": [c["launches"] for c in co], "wall_s": wall_s})
 
+    serve_launches = _gate_serve_mesh(res, refs["serve"])
+
     counts = {str(shape): [r["runs"][str(shape)]["counts"] for r in res]
               for shape in MESH_SHAPES}
     counts["sketched"] = [run["counts"] for run in sr]
@@ -5895,8 +6438,149 @@ def phase_llm_mesh(torch):
              "llm_mesh": _summed(p["launches"] for r in res
                                  for p in r["runs"].values()),
              "llm_mesh_sketched": _summed(run["launches"] for run in sr),
-             "llm_mesh_cohort_check": _summed(c["launches"] for c in co)},
+             "llm_mesh_cohort_check": _summed(c["launches"] for c in co),
+             "serve_mesh": serve_launches},
             counts)
+
+
+def _gate_serve_mesh(res: list, ref: dict) -> dict:
+    """Phase ``serve_mesh``'s gates on the ranks' results, and its line;
+    returns the launches of its prefill and decode, summed over the
+    ranks."""
+    from repro_torch.models import get_config
+
+    require(all("serve_mesh" in r for r in res), "serve_mesh: a rank "
+            "failed:\n" + _rank_failures(res, "serve_mesh"))
+    full = [r["serve_mesh"]["full"] for r in res]
+    f0 = full[0]
+    bound = [SERVE_MESH_TOL * s for s in ref["max_abs_logit"]]
+    # the first step whose one-device top-2 margin (a row's) is below the
+    # 2⁻⁶ bound
+    low = next((i for i, (mg, b) in enumerate(zip(ref["margin"], bound))
+                if min(mg) < b), SERVE_MESH_STEPS)
+    errs = [max(f["step_max_abs_err"][i] for f in full)
+            for i in range(SERVE_MESH_STEPS)]
+    agree = [a == b for a, b in zip(f0["tokens"], f0["tokens_one_device"])]
+    # where one device's top-2 margin exceeds twice the step's largest
+    # |Δlogit|, the two argmaxes must agree
+    sure = [(i, b) for i in range(SERVE_MESH_STEPS)
+            for b in range(SERVE_MESH_B) if ref["margin"][i][b] > 2 * errs[i]]
+    differ = [(i, b) for i, b in sure
+              if f0["tokens"][i][b] != f0["tokens_one_device"][i][b]]
+    # the distance of each bf16 run from the same weights in f32
+    one32 = ref["one_device_vs_f32"]
+    rms = {"prefill": (_rms([f["prefill_vs_f32"] for f in full[:1]]),
+                       _rms([one32["prefill"]])),
+           "steps": (_rms([e for f in full for e in f["step_vs_f32"]]),
+                     _rms(one32["steps"]))}
+    ratio = {k: a / b for k, (a, b) in rms.items()}
+    cfg = get_config(LLM_ARCH)
+    n_layers = cfg.n_layers
+    for r, f in enumerate(full):
+        tag = f"serve_mesh rank {r}"
+        require(f["tokens"] == f0["tokens"] and f["prefill_sha1"]
+                == f0["prefill_sha1"] and f["step_logits_sha1"]
+                == f0["step_logits_sha1"], f"{tag}: the tokens or logits are "
+                f"not rank 0's bit for bit")
+        require(f["cache_layout"] == "heads", f"{tag}: the cache's layout is "
+                f"{f['cache_layout']!r}, not the KV heads'")
+        require(f["prefill_launches"] == {"flash_attention_fwd": n_layers}
+                and not f["decode_launches"], f"{tag}: prefill launched "
+                f"{f['prefill_launches']}, decode {f['decode_launches']}")
+        want = [[SERVE_MESH_B, cfg.n_heads // MESH_RANKS, SERVE_MESH_P,
+                 cfg.hd]]
+        require(f["prefill_b11_shapes"] == want, f"{tag}: B11 ran on "
+                f"{f['prefill_b11_shapes']}, not the rank's heads {want}")
+        for part in ("prefill_calls", "decode_calls"):
+            require("model" not in f[part].get("all_gather", {}),
+                    f"{tag}: an all-gather over model of a partitioned leaf "
+                    f"in {part}: {f[part]}")
+        require(max(f["peak"], f["setup_peak"]) <= MESH_PEAK, f"{tag}: peak "
+                f"{f['peak'] / 1e9} GB, set-up {f['setup_peak'] / 1e9} GB, "
+                f"above {MESH_PEAK / 1e9} GB")
+    require(all(r <= SERVE_MESH_F32_RATIO for r in ratio.values()),
+            f"serve_mesh: the mesh's logits are further from the f32 run "
+            f"than one device's bf16 logits are, beyond "
+            f"{SERVE_MESH_F32_RATIO}× in RMS: {rms}")
+    require(not differ, f"serve_mesh: the tokens differ from one device's "
+            f"at (step, row) {differ}, where its top-2 margin exceeds twice "
+            f"the step's largest |Δlogit|")
+    require(all(agree[:low]), f"serve_mesh: the tokens differ from one "
+            f"device's at step {agree.index(False)}, before step {low}, the "
+            f"first whose one-device top-2 margin is below the bound")
+    checks = [r["serve_mesh"]["checks"] for r in res]
+    for name, _, _, _ in SERVE_MESH_CHECKS:
+        for r, c in enumerate(ch[name] for ch in checks):
+            tag = f"serve_mesh check {name} rank {r}"
+            require(c["layout"] == SERVE_MESH_LAYOUTS[name], f"{tag}: layout "
+                    f"{c['layout']!r}")
+            require(max(c["prefill_rel_err"], c["step_rel_err"])
+                    <= SERVE_MESH_CHECK_RTOL, f"{tag}: logits "
+                    f"{c['prefill_rel_err']} / {c['step_rel_err']} from one "
+                    f"device's, beyond {SERVE_MESH_CHECK_RTOL}")
+            require(c["tokens_equal"] and c["tokens_sha1"]
+                    == checks[0][name]["tokens_sha1"], f"{tag}: the tokens "
+                    f"are not one device's, or not rank 0's")
+            require(c["cache_rel_err"] <= SERVE_MESH_CHECK_RTOL, f"{tag}: the "
+                    f"cache differs from its block of one device's by "
+                    f"{c['cache_rel_err']}")
+            require("model" not in c["decode_calls"].get("all_gather", {})
+                    or name != "heads", f"{tag}: an all-gather over model of "
+                    f"a partitioned leaf: {c['decode_calls']}")
+    walls = [statistics.median(f["decode_wall_ms"]) for f in full]
+
+    def per_rank(key):
+        return [f[key] for f in full]
+    emit({"phase": "serve_mesh", "ok": True, "arch": LLM_ARCH,
+          "n_layers": n_layers, "dtype": "bfloat16",
+          "grid": dict(zip(("data", "model"), SERVE_MESH_SHAPE)),
+          "ranks": MESH_RANKS, "backend": res[0]["backend"],
+          "batch": SERVE_MESH_B, "prompt": SERVE_MESH_P,
+          "new_tokens": SERVE_MESH_N, "decode_steps": SERVE_MESH_STEPS,
+          "inputs": "one device's tokens (teacher forced)",
+          "cache_layout": f0["cache_layout"], "cache_block":
+          f0["cache_block"], "tol_of_max_logit": SERVE_MESH_TOL,
+          "prefill_max_abs_err": f0["prefill_max_abs_err"],
+          "prefill_max_abs_logit": f0["prefill_max_abs_logit"],
+          "step_max_abs_err": errs, "step_bound": bound,
+          "worst_step_err_over_bound": max(e / b for e, b in zip(errs, bound)),
+          "prefill_err_over_bound": f0["prefill_max_abs_err"]
+          / (SERVE_MESH_TOL * f0["prefill_max_abs_logit"]),
+          "rms_vs_f32": {k: {"mesh": a, "one_device": b}
+                         for k, (a, b) in rms.items()},
+          "rms_vs_f32_ratio": ratio, "f32_ratio_bound": SERVE_MESH_F32_RATIO,
+          "max_abs_vs_f32": {
+              "mesh_steps": max(e["max_abs"] for f in full
+                                for e in f["step_vs_f32"]),
+              "one_device_steps": max(e["max_abs"] for e in one32["steps"]),
+              "mesh_prefill": f0["prefill_vs_f32"]["max_abs"],
+              "one_device_prefill": one32["prefill"]["max_abs"]},
+          "first_low_margin_step": low,
+          "rows_sure": len(sure), "rows_sure_differ": len(differ),
+          "tokens_equal_steps": sum(agree), "tokens_equal_all": all(agree),
+          "ranks_bits_equal": True,
+          "prefill_ms": per_rank("prefill_ms"),
+          "prefill_ms_one_device": ref["prefill_ms"],
+          "decode_wall_ms_per_step": walls,
+          "decode_wall_ms_per_step_one_device": ref["step_ms"],
+          "decode_device_ms_per_step": per_rank("decode_device_ms"),
+          "setup_s": per_rank("setup_s"),
+          "setup_peak_gb": [f["setup_peak"] / 1e9 for f in full],
+          "peak_mem_gb": [f["peak"] / 1e9 for f in full],
+          "prefill_collectives": per_rank("prefill_collectives"),
+          "decode_collectives_per_step": per_rank("decode_collectives"),
+          "prefill_launches": per_rank("prefill_launches"),
+          "prefill_b11_shapes": f0["prefill_b11_shapes"],
+          "one_device_repeat": per_rank("one_device_repeat"),
+          "timing": "every collective synchronised and timed (Mesh.timing)",
+          "checks": {"dtype": "float32", "batch": SERVE_MESH_CHECK_B,
+                     "rtol": SERVE_MESH_CHECK_RTOL,
+                     "cases": {name: {"over": over, "prompt": P,
+                                      "new_tokens": N,
+                                      "ranks": [ch[name] for ch in checks]}
+                               for name, over, P, N in SERVE_MESH_CHECKS}}})
+    return _summed([f["prefill_launches"] for f in full]
+                   + [f["decode_launches"] for f in full])
 
 
 # ---------------------------------------------------------------------------

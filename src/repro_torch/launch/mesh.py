@@ -15,6 +15,11 @@ OR as a SUM > 0, as ``tree_ota`` takes it), :meth:`Mesh.all_gather` along
 a tensor dim and :meth:`Mesh.reduce_scatter` (the sketched mode's
 ``rs_grads``), each over one axis or a tuple of axes.  A collective over
 axes of total size 1 is the identity and touches no process group.
+Partitioned serving's collectives over activations (the query heads'
+gather, the split softmax's max and sum, the greedy token's max and min,
+the last logits' gather) run through the same methods under names of
+their own (:data:`COLL_KIND`), so :attr:`Mesh.stats`'s ``all_gather``
+counts the gathers of parameters alone.
 
 The partitioned products (``models/partition.py``) differentiate through
 two of them (:func:`copy_to`, :func:`reduce_from`): the identity forward
@@ -222,22 +227,24 @@ class Mesh:
             return t
         return self._run(op, x, fn, inplace, names)
 
-    def psum(self, x: Tensor, names: Axes, inplace: bool = False) -> Tensor:
+    def psum(self, x: Tensor, names: Axes, inplace: bool = False,
+             op: str = "psum") -> Tensor:
         """Σ of ``x`` over the ranks of ``names``; ``inplace`` sums into
         ``x`` itself (a plane the caller no longer needs as it was), where
-        a copy would hold one more plane."""
-        return self._reduce("psum", x, names, dist.ReduceOp.SUM, inplace)
+        a copy would hold one more plane.  ``op`` names the call in
+        :attr:`stats` (here and below: one of :data:`COLL_KIND`)."""
+        return self._reduce(op, x, names, dist.ReduceOp.SUM, inplace)
 
-    def pmin(self, x: Tensor, names: Axes) -> Tensor:
+    def pmin(self, x: Tensor, names: Axes, op: str = "pmin") -> Tensor:
         """Elementwise min of ``x`` over the ranks of ``names``."""
-        return self._reduce("pmin", x, names, dist.ReduceOp.MIN)
+        return self._reduce(op, x, names, dist.ReduceOp.MIN)
 
-    def pmax(self, x: Tensor, names: Axes) -> Tensor:
+    def pmax(self, x: Tensor, names: Axes, op: str = "pmax") -> Tensor:
         """Elementwise max of ``x`` over the ranks of ``names``: the MIN
         of ``-x``, negated (exact)."""
         if self.axis_size(names) == 1:
             return x
-        return -self._reduce("pmax", -x, names, dist.ReduceOp.MIN,
+        return -self._reduce(op, -x, names, dist.ReduceOp.MIN,
                              inplace=True)
 
     def por(self, x: Tensor, names: Axes) -> Tensor:
@@ -265,7 +272,8 @@ class Mesh:
         # the scatter reads x only: no copy of it
         return self._run("reduce_scatter", x, fn, inplace=True, names=names)
 
-    def all_gather(self, x: Tensor, names: Axes, dim: int) -> Tensor:
+    def all_gather(self, x: Tensor, names: Axes, dim: int,
+                   op: str = "all_gather") -> Tensor:
         """The ranks' ``x`` over ``names`` concatenated along ``dim``, in
         the order of :meth:`axis_index`."""
         n = self.axis_size(names)
@@ -279,7 +287,7 @@ class Mesh:
             self._wait(t)        # before the concatenation reads the parts
             return torch.cat(parts, dim=dim)
         # the gather reads x only: no copy of it
-        return self._run("all_gather", x, fn, inplace=True, names=names)
+        return self._run(op, x, fn, inplace=True, names=names)
 
 
 class _CopyTo(torch.autograd.Function):
@@ -369,7 +377,11 @@ def fsdp_mesh_shape(n_ranks: int, fsdp: int) -> Tuple[int, int, int]:
 COLL_KIND = {"psum": "all-reduce", "pmin": "all-reduce", "por": "all-reduce",
              "pmax": "all-reduce", "copy_to": "all-reduce",
              "reduce_from": "all-reduce", "all_gather": "all-gather",
-             "reduce_scatter": "reduce-scatter"}
+             "reduce_scatter": "reduce-scatter",
+             # serving's collectives over activations (``models/partition``)
+             "gather_heads": "all-gather", "gather_vocab": "all-gather",
+             "softmax_max": "all-reduce", "softmax_sum": "all-reduce",
+             "vocab_max": "all-reduce", "vocab_min": "all-reduce"}
 #: bytes moved per result byte, by kind (the reference's ``_COLL_MULT``:
 #: an all-reduce is a reduce-scatter and an all-gather)
 COLL_MULT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0}
@@ -442,13 +454,13 @@ class FakeMesh(Mesh):
             return torch.empty_like(parts[0])
         return self._run("reduce_scatter", x, fn, inplace=True, names=names)
 
-    def all_gather(self, x: Tensor, names: Axes, dim: int) -> Tensor:
+    def all_gather(self, x: Tensor, names: Axes, dim: int,
+                   op: str = "all_gather") -> Tensor:
         n = self.axis_size(names)
         if n == 1:
             return x
-        return self._run("all_gather", x,
-                         lambda t: torch.cat([t] * n, dim=dim), inplace=True,
-                         names=names)
+        return self._run(op, x, lambda t: torch.cat([t] * n, dim=dim),
+                         inplace=True, names=names)
 
 
 def make_production_mesh(*, multi_pod: bool = False, fsdp: int = 1,

@@ -18,8 +18,9 @@ each rank packs exactly the slice these specs make resident on it.  A mesh
 is anything with ``shape`` (axis -> size) and ``axis_names``: a
 ``launch.mesh.Mesh`` or, for layout checks without ranks, a
 ``launch.mesh.MeshShape``.  :func:`cache_pspecs` are the decode caches'
-specs (the dry run reports them; the port's decode holds its cache split
-over the batch only, ``launch/specs.py``).
+specs: the dense and vlm families' decode holds its block of them
+(``serve/serving.py``, ``models/partition.partition_for``), the other
+families their batch rows only (``launch/specs.py``).
 """
 from __future__ import annotations
 

@@ -29,9 +29,13 @@ more or less than the reference's boundary layout says:
   shard grid from the start (the reference's own trainer re-lays them so
   inside its ``shard_map``); a scenario's planes hold every worker's row,
   and the fault state's (W,) liveness is every rank's;
-* decode: the cache is split over the batch only; heads and sequence stay
-  whole over ``model`` (``meta["cache_layout"] == "batch"``, until the
-  products are partitioned, ROADMAP queue A item 6d).
+* decode: the dense and vlm families hold the reference's cache block
+  (``serving.make_serve_step``'s ``init_cache``: the KV heads over
+  ``model`` where they divide it, ``meta["cache_layout"] == "heads"``, else
+  the sequence, ``"seq"``); the other families split it over the batch
+  only, their heads, channels and sequence whole over ``model``
+  (``"batch"``, until their products are partitioned, ROADMAP queue A
+  items 9–12).
 """
 from __future__ import annotations
 
@@ -388,8 +392,9 @@ def _serve_params(model, mesh, fsdp: bool, prep) -> Tuple[PyTree, PyTree,
 def build_prefill_spec(arch: str, mesh, *, multi_pod: bool,
                        reduced: bool = False) -> DryRunSpec:
     """The batch's forward to the last logits (``serving.make_prefill``)
-    as one rank: its rows of the batch over the data axes, each layer
-    gathered whole."""
+    as one rank: its rows of the batch over the data axes, its part of
+    each product where the family partitions them (dense, vlm), else each
+    layer gathered whole."""
     mesh = _as_mesh(mesh)
     shp = SHAPES["prefill_32k"]
     cfg = _arch_cfg(arch, "prefill_32k")
@@ -421,8 +426,8 @@ def build_decode_spec(arch: str, shape_name: str, mesh, *,
                       multi_pod: bool, reduced: bool = False) -> DryRunSpec:
     """One greedy decode step (``serving.make_serve_step``) as one rank:
     in ``in_shardings`` the reference's cache specs
-    (``shardings.cache_pspecs``); the rank's cache is its rows of the
-    batch, heads and sequence whole (``cache_layout: "batch"``)."""
+    (``shardings.cache_pspecs``); the rank's cache is its block under the
+    step's layout (``init_cache``; ``meta["cache_layout"]``)."""
     mesh = _as_mesh(mesh)
     shp = SHAPES[shape_name]
     cfg = _arch_cfg(arch, shape_name)
@@ -442,13 +447,10 @@ def build_decode_spec(arch: str, shape_name: str, mesh, *,
     cache_g = model.init_cache(B, seq, device=META, **cache_kw)
     cspec = SH.cache_pspecs(cache_g, cfg, mesh, B, multi_pod=multi_pod)
     tspec = SH.batch_pspec((B,), mesh, 0, multi_pod)
-    # the rank's cache: its rows of the batch, each leaf's batch dim where
-    # the reference's spec puts the data axes
     b_loc = SH.shard_shape((B,), tspec, mesh)[0]
-    cache_l = model.init_cache(b_loc, seq, device=META, **cache_kw)
-    cspec_l = smap(lambda _p, x, s: tuple(
-        e if e is not None and set(SH._entry_axes(e)) <= set(data_axes(
-            multi_pod)) else None for e in s), cache_g, cspec)
+    # the rank's block of the cache, as the step lays it out
+    cache_l = step.init_cache(B, seq, device=META, **cache_kw)
+    cspec_l = step.layout["cache_specs"]
     return DryRunSpec(
         fn=step,
         args=(params_g, cache_g, _meta_like((B,), torch.int32),
@@ -456,7 +458,11 @@ def build_decode_spec(arch: str, shape_name: str, mesh, *,
         in_shardings=(pspec, cspec, tspec, ()), donate_argnums=(1,),
         meta=dict(kind="decode", arch=arch, seq=seq, global_batch=B,
                   fsdp=fsdp, sliding_window=cfg.sliding_window,
-                  cache_layout="batch"),
+                  cache_layout=step.layout["cache"],
+                  # leaves whose batch entry the rank holds on dim 1 where
+                  # ``cspec`` (the reference's) puts it on dim 0: their
+                  # layer count equals the batch (``cspec_l`` the rank's)
+                  cache_batch_moved=step.layout["cache_batch_moved"]),
         local_args=(params_l, cache_l, _meta_like((b_loc,), torch.int32),
                     seq - 1),
         local_shardings=(pspec, cspec_l, tspec, ()), mesh=mesh)

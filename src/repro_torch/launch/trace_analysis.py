@@ -15,11 +15,15 @@ dispatches:
   eager PyTorch every op reads and writes HBM, so this is the port's
   traffic, not an estimate of fusion);
 * **collectives** — as the mesh counts them: kinds ``all-reduce`` (psum,
-  pmin, pmax, por, and the partitioned products' ``copy_to`` and
-  ``reduce_from``), ``all-gather`` and ``reduce-scatter``, per-rank result
-  bytes × the reference's multiplier (all-reduce 2×).  The port has no
-  collective-permute; a reshard shows up as extra gathers, which
-  :func:`collective_calls` counts.
+  pmin, pmax, por, the partitioned products' ``copy_to`` and
+  ``reduce_from``, and partitioned serving's ``softmax_max``/
+  ``softmax_sum`` of a cache split over the sequence and ``vocab_max``/
+  ``vocab_min`` of the greedy token), ``all-gather`` (of parameters, and
+  serving's ``gather_heads`` of the query heads and ``gather_vocab`` of
+  the last logits) and ``reduce-scatter``, per-rank result bytes × the
+  reference's multiplier (all-reduce 2×; ``launch.mesh.COLL_KIND``).  The
+  port has no collective-permute; a reshard shows up as extra gathers,
+  which :func:`collective_calls` counts.
 
 A while loop in HLO is a Python loop here, which the trace counts as it
 runs, so a block of k rounds counts k rounds: loop-corrected by

@@ -13,12 +13,12 @@ entry inside its checkpointed block (:func:`gather_entry`), so the
 backward's recompute gathers again and only one full layer is alive.
 
 Where the plan carries a :class:`~repro_torch.models.partition.Partition`
-(the trainer's plan for the dense and vlm families), the leaves of the
-partitioned products are gathered over their fsdp dims only: each rank
-computes its own heads, ff columns and vocab rows on its ``model`` block
-(``models/partition.py``), as XLA partitions the reference's products.
-The fsdp axes keep their gather, as XLA's FSDP does; serving's plan has
-no partition and gathers every layer.
+(the trainer's and the serving layer's plan for the dense and vlm
+families), the leaves of the partitioned products are gathered over their
+fsdp dims only: each rank computes its own heads, ff columns and vocab
+rows on its ``model`` block (``models/partition.py``), as XLA partitions
+the reference's products.  The fsdp axes keep their gather, as XLA's FSDP
+does.
 
 The gather's backward (:class:`_Gather`) narrows the full gradient to the
 rank's own slice where every rank of the gathered axis computed it alike

@@ -257,8 +257,9 @@ def _qkv_partitioned(p: Params, x: Tensor, cfg: ModelConfig, part
     the rank and it projects the contiguous KV heads its query heads read,
     repeated to one a query head where the group does not fit them
     evenly."""
+    from repro_torch.models.partition import rank_kv_heads
+
     hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    g = H // KV
     Hl = H // part.n
     x = part.copy_to(x)
     q = _split_heads(part.dense_cols(p["wq"], x, H * hd, "wq"), Hl, hd)
@@ -267,13 +268,11 @@ def _qkv_partitioned(p: Params, x: Tensor, cfg: ModelConfig, part
         k = _split_heads(part.dense_cols(p["wk"], x, KV * hd, "wk"), KVl, hd)
         v = _split_heads(part.dense_cols(p["wv"], x, KV * hd, "wv"), KVl, hd)
         return q, k, v, Hl, KVl
-    h0 = part.index * Hl
-    k0, k1 = h0 // g, (h0 + Hl - 1) // g + 1
+    k0, k1, rel = rank_kv_heads(cfg, part)
     KVl = k1 - k0
     k = _split_heads(part.dense_slice(p["wk"], x, k0 * hd, k1 * hd), KVl, hd)
     v = _split_heads(part.dense_slice(p["wv"], x, k0 * hd, k1 * hd), KVl, hd)
-    rel = [h // g - k0 for h in range(h0, h0 + Hl)]
-    if Hl % KVl == 0 and rel == [i // (Hl // KVl) for i in range(Hl)]:
+    if rel is None:
         return q, k, v, Hl, KVl
     idx = torch.tensor(rel, device=x.device)
     return q, k.index_select(-2, idx), v.index_select(-2, idx), Hl, Hl
@@ -339,6 +338,22 @@ def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
     return dense(p["wo"], o), {"k": k, "v": v}
 
 
+def _decode_partial(qg: Tensor, k: Tensor, v: Tensor, valid: Tensor
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One rank's part of the softmax over its slots: qg (B,1,KV,g,hd), k,
+    v (B,T,KV,hd), valid (T,) -> the max score m and the sum l of
+    ``exp(s − m)`` (B,1,KV,g,1), and ``Σ exp(s − m)·v`` (B,1,KV,g,hd), all
+    f32; a row whose slots are all masked has m = −inf and l, o = 0."""
+    s = torch.einsum("bskgh,btkh->bskgt", qg.float(), k.float())
+    s = s * (qg.shape[-1] ** -0.5)
+    s = torch.where(valid, s, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    live = torch.isfinite(m)
+    e = torch.where(valid, torch.exp(s - torch.where(live, m, 0.0)), 0.0)
+    o = torch.einsum("bskgt,btkh->bskgh", e, v.float())
+    return m, e.sum(dim=-1, keepdim=True), o
+
+
 def attention_decode(p: Params, x: Tensor, cfg: ModelConfig, cache_k: Tensor,
                      cache_v: Tensor, write_pos: int,
                      abs_pos: int) -> Tuple[Tensor, Tensor, Tensor]:
@@ -350,25 +365,90 @@ def attention_decode(p: Params, x: Tensor, cfg: ModelConfig, cache_k: Tensor,
     (RoPE, and the validity mask: slot t is attended iff t ≤ abs_pos, so a
     warm rotating buffer attends every slot, which is exactly the window).
     The scores and the softmax run in f32, GQA grouped as
-    :func:`_attn_weights` groups it.  Returns (out, cache_k, cache_v)."""
-    hd = cfg.hd
+    :func:`_attn_weights` groups it.  Returns (out, cache_k, cache_v).
+
+    Under serving's partition (``models/partition``) the caches are this
+    rank's block (``part.cache``) and the products its part: its query
+    heads on its ``wq`` columns where the heads split (``wo``'s rows summed
+    over the ranks after), else every head; then by the cache's layout
+
+    * ``"heads"``: its KV heads on its ``wk``/``wv`` columns, written into
+      its (B, T, KV/n, hd) block and attended as one device attends them;
+    * ``"seq"``: every KV head (``wk``/``wv`` whole), the slot written by
+      the rank whose slice holds it (``write_pos // T_local``), the query
+      heads gathered over ``model``, every head scored on the rank's slots
+      (slot t valid where ``r·T_local + t ≤ abs_pos``), the partial
+      softmaxes joined over the sequence's axes, and the rank's heads of
+      the result kept for ``wo``'s rows;
+    * ``"batch"`` (one device's layout too): every KV head written into
+      the whole cache, the rank's query heads attending the KV heads they
+      read.
+    """
+    from repro_torch.models import partition
+    from repro_torch.models.partition import rank_kv_heads
+
+    part = partition.current()
+    if part is not None and not (part.heads or part.cache == "seq"):
+        part = None             # nothing splits: one device's decode
+    heads = part is not None and part.heads
+    layout = "batch" if part is None else part.cache
+    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     B = x.shape[0]
     T = cache_k.shape[1]
-    q = _split_heads(dense(p["wq"], x), cfg.n_heads, hd)
-    k = _split_heads(dense(p["wk"], x), cfg.n_kv_heads, hd)
-    v = _split_heads(dense(p["wv"], x), cfg.n_kv_heads, hd)
     posv = torch.full((B, 1), abs_pos, dtype=torch.int32, device=x.device)
-    q = rope(q, posv, cfg.rope_theta)
-    k = rope(k, posv, cfg.rope_theta)
-    cache_k[:, write_pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, write_pos] = v[:, 0].to(cache_v.dtype)
+    if part is not None:
+        x = part.copy_to(x)
+    if heads:
+        n_heads = H // part.n
+        q = part.dense_cols(p["wq"], x, H * hd, "wq")
+    else:
+        n_heads = H
+        q = dense(p["wq"], x)
+    q = rope(_split_heads(q, n_heads, hd), posv, cfg.rope_theta)
+    if layout == "heads":
+        n_kv = KV // part.n
+        k = part.dense_cols(p["wk"], x, KV * hd, "wk")
+        v = part.dense_cols(p["wv"], x, KV * hd, "wv")
+    else:
+        n_kv = KV
+        k, v = dense(p["wk"], x), dense(p["wv"], x)
+    k = rope(_split_heads(k, n_kv, hd), posv, cfg.rope_theta)
+    v = _split_heads(v, n_kv, hd)
+    slot = write_pos
+    if layout == "seq":
+        owner, slot = divmod(write_pos, T)
+        slot = slot if owner == part.seq_index else None
+    if slot is not None:
+        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
 
-    m = torch.arange(T, device=x.device) <= abs_pos
-    g = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, 1, cfg.n_kv_heads, g, hd)
-    w = _attn_weights(qg, cache_k, m[None, :])
-    o = torch.einsum("bkgst,btkh->bskgh", w.to(x.dtype), cache_v)
-    o = o.reshape(B, 1, cfg.n_heads * hd)
+    if layout == "seq":
+        if heads:
+            q = _split_heads(part.gather_heads(q.reshape(B, 1, -1)), H, hd)
+        t = part.seq_index * T + torch.arange(T, device=x.device)
+        qg = q.reshape(B, 1, KV, H // KV, hd)
+        o = part.combine_attention(*_decode_partial(qg, cache_k, cache_v,
+                                                    t <= abs_pos))
+        o = o.reshape(B, 1, H, hd).to(x.dtype)
+        if heads:
+            o = o[:, :, part.index * n_heads:(part.index + 1) * n_heads]
+    else:
+        kk, vv = cache_k, cache_v
+        if layout == "batch" and heads:
+            k0, k1, rel = rank_kv_heads(cfg, part)
+            kk, vv = kk[:, :, k0:k1], vv[:, :, k0:k1]
+            n_kv = k1 - k0
+            if rel is not None:
+                idx = torch.tensor(rel, device=x.device)
+                kk, vv = kk.index_select(2, idx), vv.index_select(2, idx)
+                n_kv = n_heads
+        m = torch.arange(T, device=x.device) <= abs_pos
+        qg = q.reshape(B, 1, n_kv, n_heads // n_kv, hd)
+        w = _attn_weights(qg, kk, m[None, :])
+        o = torch.einsum("bkgst,btkh->bskgh", w.to(x.dtype), vv)
+    o = o.reshape(B, 1, n_heads * hd)
+    if heads:
+        return part.dense_rows(p["wo"], o, H * hd, "wo"), cache_k, cache_v
     return dense(p["wo"], o), cache_k, cache_v
 
 

@@ -37,9 +37,29 @@ rank.  The column biases of the split products need no such slice: as
 stacked (L, n) leaves their last dim splits over ``model`` like their
 weight's.
 
+Serving takes the same plan (``serve/serving.py``): the prefill is the
+forward above, its last logits gathered whole (:meth:`Partition
+.gather_vocab`); decode (``layers.attention_decode``) keeps its cache as
+the block ``launch.shardings.cache_pspec`` gives the rank
+(:func:`partition_for`'s ``cache``):
+
+* ``"heads"`` (the KV heads divide ``model``, exactly where ``kv_heads``
+  binds): the rank's KV heads, which its query heads read;
+* ``"seq"`` (they do not): a slice of the sequence over ``model``, or over
+  the data axes and ``model`` where the batch does not split.  Each rank
+  projects every KV head (``wk``/``wv`` whole), the owner of the slot
+  writes it, the query heads are gathered, each rank scores every head on
+  its slots and the ranks join their partial softmaxes
+  (:meth:`Partition.combine_attention`);
+* ``"batch"``: the batch rows only (no layout splits the sequence).
+
+The greedy token is the first index of the row's maximum over the
+vocab-parallel logits (:meth:`Partition.argmax_vocab`).
+
 The plan (:func:`partition_for`) covers the families of
-``models/transformer.py`` (dense and vlm); the others, and serving, keep
-the gathered forward (``models/gather``).  A model-sharded leaf whose
+``models/transformer.py`` (dense and vlm); the others keep the gathered
+forward (``models/gather``) and a cache split over the batch.  A
+model-sharded leaf whose
 product is not partitioned (pixtral's ``projector``, whose output is the
 residual stream; ``fc_out``'s bias, split on its layer dim; ``wk``/``wv``
 where ``kv_heads`` is unbound) is gathered as before
@@ -69,7 +89,8 @@ _LEAVES = {
 
 
 class Partition(NamedTuple):
-    """Which products a rank computes its part of, over ``axis``."""
+    """Which products a rank computes its part of, over ``axis``, and how
+    serving's decode cache lies on the mesh."""
 
     mesh: Any
     axis: str           # the mesh axis the products split over
@@ -79,6 +100,20 @@ class Partition(NamedTuple):
     kv: bool            # the KV heads (else ``wk``/``wv`` are whole)
     ff: bool            # the MLP's hidden columns
     vocab: bool         # the embedding's and the logits' vocab rows
+    #: the decode cache's split beside the batch: "heads" | "seq" | "batch"
+    cache: str = "batch"
+    #: the mesh axes the cache's sequence splits over ("seq")
+    seq_axes: Tuple[str, ...] = ()
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's slice of the cache's sequence."""
+        return self.mesh.axis_index(self.seq_axes)
+
+    @property
+    def seq_n(self) -> int:
+        """The slices of the cache's sequence."""
+        return self.mesh.axis_size(self.seq_axes)
 
     # -- collectives ---------------------------------------------------------
 
@@ -87,6 +122,48 @@ class Partition(NamedTuple):
 
     def reduce_from(self, x: Tensor) -> Tensor:
         return reduce_from(x, self.mesh, self.axis)
+
+    def argmax_vocab(self, local: Tensor) -> Tensor:
+        """The greedy token (..., ) int64 of vocab-parallel logits (...,
+        V/n): the first index of the row's maximum over the whole vocab, as
+        ``torch.argmax`` of the whole row (a tie across two ranks' rows
+        takes the lower index).  The max of the ranks' maxima (exact), then
+        the min of the global index of each rank's first hit."""
+        v0 = self.index * local.shape[-1]
+        lf = local.float()
+        m = lf.amax(dim=-1)
+        top = self.mesh.pmax(m, self.axis, op="vocab_max")
+        first = torch.argmax(lf, dim=-1) + v0
+        none = torch.full_like(first, v0 + self.n * local.shape[-1])
+        cand = torch.where(m == top, first, none)
+        return self.mesh.pmin(cand, self.axis, op="vocab_min")
+
+    def gather_vocab(self, local: Tensor) -> Tensor:
+        """Vocab-parallel logits (..., V/n) whole, (..., V)."""
+        return self.mesh.all_gather(local, self.axis, -1, op="gather_vocab")
+
+    def gather_heads(self, q: Tensor) -> Tensor:
+        """The ranks' query heads (..., H/n · hd) concatenated, (..., H ·
+        hd), in head order."""
+        return self.mesh.all_gather(q, self.axis, -1, op="gather_heads")
+
+    def combine_attention(self, m: Tensor, l: Tensor, o: Tensor) -> Tensor:
+        """The softmax of a sequence split over :attr:`seq_axes`, from each
+        rank's partial over its slots: ``m`` the max score, ``l`` the sum
+        of ``exp(s − m)`` (…, 1), ``o`` the sum of ``exp(s − m) · v`` (…,
+        hd), all f32.  ``M = pmax(m)``, then
+        ``Σ o·exp(m − M) / Σ l·exp(m − M)`` (one psum of both).  A rank
+        whose slots are all masked (``m = −inf``; its ``l`` and ``o`` 0)
+        weighs 0 through a ``where``, so no NaN of ``−inf − (−inf)`` enters
+        the sum."""
+        axes = self.seq_axes
+        top = self.mesh.pmax(m, axes, op="softmax_max")
+        live = torch.isfinite(m)
+        w = torch.where(live, torch.exp(torch.where(live, m - top, 0.0)),
+                        0.0)
+        lo = torch.cat([o * w, l * w], -1)
+        lo = self.mesh.psum(lo, axes, inplace=True, op="softmax_sum")
+        return lo[..., :-1] / lo[..., -1:]
 
     # -- products ------------------------------------------------------------
 
@@ -148,14 +225,20 @@ class Partition(NamedTuple):
         return self.index * vl, vl
 
 
-def partition_for(cfg, mesh, *, multi_pod: bool = False
+def partition_for(cfg, mesh, *, multi_pod: bool = False,
+                  cache: Optional[Tuple[int, ...]] = None
                   ) -> Optional[Partition]:
     """The trainer's plan on ``mesh``: which products split over
     ``model`` (a logical axis partitions where
     ``launch.shardings.rules_for`` binds it to ``model``, as the reference
     decides); None where the axis has one rank or the family keeps the
-    gathered forward."""
-    from repro_torch.launch.shardings import rules_for
+    gathered forward.  With ``cache``, the global shape of a decode cache's
+    K leaf (L, B, T, KV, hd), serving's plan: the cache's layout read from
+    ``launch.shardings.cache_pspec`` (the KV heads over ``model`` where
+    they divide it, which is where ``rules_for`` binds ``kv_heads``; else
+    the sequence; else the batch alone)."""
+    from repro_torch.launch.shardings import (_entry_axes, cache_pspec,
+                                              rules_for)
 
     axis = "model"
     n = mesh.shape.get(axis, 1)
@@ -167,8 +250,40 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False
         r = rules.get(name)
         return r == axis or (isinstance(r, tuple) and axis in r)
 
-    return Partition(mesh, axis, n, mesh.axis_index(axis), bound("heads"),
+    part = Partition(mesh, axis, n, mesh.axis_index(axis), bound("heads"),
                      bound("kv_heads"), bound("ff"), bound("vocab"))
+    if cache is None:
+        return part
+    spec = cache_pspec(("k",), tuple(cache), cfg, mesh, cache[1],
+                       multi_pod=multi_pod)
+    on_heads = spec[3] is not None
+    if on_heads != part.kv:
+        raise ValueError(f"{cfg.name}: the cache's KV heads "
+                         f"{'split' if on_heads else 'stay whole'} over "
+                         f"{axis} where the plan's KV heads "
+                         f"{'split' if part.kv else 'stay whole'}")
+    if on_heads:
+        return part._replace(cache="heads")
+    if spec[2] is None:
+        return part
+    return part._replace(cache="seq", seq_axes=_entry_axes(spec[2]))
+
+
+def rank_kv_heads(cfg, part: Partition
+                  ) -> Tuple[int, int, Optional[Tuple[int, ...]]]:
+    """Where the KV heads do not split: the contiguous KV heads ``[k0,
+    k1)`` this rank's query heads ``[r·H/n, (r+1)·H/n)`` read (``head =
+    kv·g + i``), and, where the group does not fit them evenly, each query
+    head's KV head relative to ``k0`` (else None)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    Hl = cfg.n_heads // part.n
+    h0 = part.index * Hl
+    k0, k1 = h0 // g, (h0 + Hl - 1) // g + 1
+    rel = tuple(h // g - k0 for h in range(h0, h0 + Hl))
+    KVl = k1 - k0
+    even = Hl % KVl == 0 and rel == tuple(i // (Hl // KVl)
+                                          for i in range(Hl))
+    return k0, k1, None if even else rel
 
 
 def _split(path: Tuple[str, ...], part: Partition) -> Optional[str]:

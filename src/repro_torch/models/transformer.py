@@ -159,7 +159,9 @@ def decode_layer(params: Params, i: int, key: str = "layers") -> Params:
     """Entry ``i`` of ``params[key]`` for a decode step: :func:`layer_params`,
     with the entry's sharded dims gathered under a mesh's gather plan
     (``models/gather``: the serving layer's, the params held as a rank's
-    shards); without a plan, :func:`layer_params` itself."""
+    shards; where the plan partitions the products, the leaves of the
+    partitioned ones keep their ``model`` block, ``partition.model_dims``);
+    without a plan, :func:`layer_params` itself."""
     from repro_torch.models import gather as _gather
 
     return _gather.gather_entry(_gather.current(),
@@ -261,9 +263,19 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
                 token: Tensor, pos: int) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One greedy decode step. token: (B,) ids; pos: the absolute position.
     Returns the (B, V) logits and the cache, written in place at slot
-    ``pos`` (``pos % window`` in a sliding window's rotating buffer)."""
-    x = L.embed(params["embed"], token[:, None])
+    ``pos`` (``pos % window`` in a sliding window's rotating buffer).
+
+    Under serving's partition (``models/partition``) the cache is the
+    rank's block, the slot is the global one (``layers.attention_decode``
+    hands it to the rank whose slice of the sequence holds it), and the
+    logits are the rank's vocab columns (B, V/n)."""
+    from repro_torch.models import partition
+
+    part = partition.current()
+    x = L.embed(params["embed"], token[:, None], cfg.vocab_size)
     T = cache["k"].shape[2]
+    if part is not None and part.cache == "seq":
+        T *= part.seq_n
     write_pos = pos % T if cfg.sliding_window is not None else pos
     for i in range(cfg.n_layers):
         x, _, _ = block_decode(decode_layer(params, i), x, cfg,

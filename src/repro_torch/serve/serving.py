@@ -10,6 +10,13 @@ and the hybrid's recurrent layers) on the card; MLA is plain einsums.
 Decode is plain torch, as the reference computes it outside any kernel;
 ``generate`` starts the enc-dec from a zero cross cache, as the reference
 does (``models/encdec.prefill_cross`` fills it).
+
+On a mesh the dense and vlm families serve partitioned over ``model``
+(``models/partition``): the prefill runs each rank's heads, ff columns and
+vocab rows, and decode holds the rank's block of the cache (its KV heads,
+or its slice of the sequence) as the reference's cache specs lay it out;
+no rank gathers a partitioned leaf.  ``generate`` stays one device's, as
+the reference's is.
 """
 from __future__ import annotations
 
@@ -29,9 +36,11 @@ def _mesh_layout(model: Model, mesh, fsdp: bool):
     parameter (``launch.shardings.tree_pspecs`` with no worker dim: the big
     dims over ``model``, and over the fsdp axes where ``fsdp``);
     ``shard(params)`` cuts that block from the full params and puts the
-    gather plan into ``layout["plan"]``.  Without a mesh there is no plan
-    and ``shard`` is the identity."""
-    layout: dict = {"plan": None}
+    gather plan into ``layout["plan"]``, with the products the family
+    partitions (``models/partition``, the trainer's plan: ``layout["part"]``)
+    kept as each rank's part.  Without a mesh there is no plan and
+    ``shard`` is the identity."""
+    layout: dict = {"plan": None, "part": None}
 
     def shard(params):
         if mesh is None:
@@ -39,6 +48,7 @@ def _mesh_layout(model: Model, mesh, fsdp: bool):
         from repro_torch.launch.shardings import (fsdp_axes, shard_leaf,
                                                   tree_pspecs)
         from repro_torch.models.gather import make_plan
+        from repro_torch.models.partition import partition_for
         from repro_torch.tree import tree_leaves
 
         multi_pod = "pod" in mesh.axis_names
@@ -52,8 +62,10 @@ def _mesh_layout(model: Model, mesh, fsdp: bool):
                     for d, e in enumerate(spec) if e is not None]
             mdims.append(next((d for d, a in axes if "model" in a), None))
             fdims.append(next((d for d, a in axes if fset & set(a)), None))
+        layout["part"] = partition_for(model.cfg, mesh, multi_pod=multi_pod)
         layout["plan"] = make_plan(params, mdims, fdims, mesh, lead=0,
-                                   fsdp_axis=faxes or "fsdp")
+                                   fsdp_axis=faxes or "fsdp",
+                                   part=layout["part"])
         layout["specs"] = specs
         # a copy: the block alone, not a view that keeps the full leaf
         return tree_map(lambda x, sp: shard_leaf(x, sp, mesh).clone(
@@ -62,21 +74,50 @@ def _mesh_layout(model: Model, mesh, fsdp: bool):
     return layout, shard
 
 
+def _batch_specs(cache, specs):
+    """(``specs`` with the batch's entry on each leaf's batch dim, the
+    paths of the leaves so moved).  ``specs`` are
+    ``shardings.cache_pspecs``' of ``cache``.  Every family's cache leads
+    with its layer (or stacked entry) dim, then the batch (the hybrid's
+    unstacked ``tail`` layers lead with the batch); the reference's rule
+    takes a leading dim of the batch's size for the batch's, so where the
+    layer count equals the batch it splits the layers over the data axes.
+    Here the same entries stand with the data axes on dim 1 instead of
+    dim 0."""
+    from repro_torch.tree import (tree_flatten, tree_leaves, tree_paths,
+                                  tree_unflatten)
+
+    out, moved = [], []
+    for (path, x), sp in zip(tree_paths(cache), tree_leaves(specs)):
+        if (path[:1] != ("tail",) and x.shape[0] == x.shape[1]
+                and sp[0] is not None and sp[1] is None):
+            sp = (None, sp[0]) + tuple(sp[2:])
+            moved.append("/".join(map(str, path)))
+        out.append(sp)
+    return tree_unflatten(tree_flatten(cache)[1], out), moved
+
+
 def make_prefill(model: Model, mesh=None, *, fsdp: bool = False):
     """prefill(params, batch) -> the last position's logits (B, V) of the
     full forward, without autograd.  Under ``mesh`` (a ``launch.mesh``
     mesh, as the trainer takes) a rank holds its block of the parameters
     (``prefill.shard(full)`` cuts it and builds the gather plan; call it
-    first) and its rows of the batch; each layer is gathered whole
-    (``models/gather``; serving's plan partitions no product, where the
-    trainer's computes each rank's heads, ff columns and vocab rows)."""
+    first) and its rows of the batch.  The dense and vlm families run the
+    trainer's partitioned forward (``models/partition``: each rank's
+    heads, B11 on them, its ff columns and vocab rows) and gather the last
+    position's vocab-parallel logits whole; the other families gather
+    each layer whole (``models/gather``)."""
     layout, shard = _mesh_layout(model, mesh, fsdp)
 
     def prefill(params, batch):
         with torch.no_grad(), _gather.gathering(layout["plan"]):
             logits, _aux = model.forward(_gather.gather_params(params),
                                          batch, remat=True)
-            return logits[:, -1]
+            last = logits[:, -1]
+            part = layout["part"]
+            if part is not None and part.vocab:
+                last = part.gather_vocab(last)
+            return last
 
     prefill.shard = shard
     prefill.layout = layout
@@ -86,19 +127,106 @@ def make_prefill(model: Model, mesh=None, *, fsdp: bool = False):
 def make_serve_step(model: Model, mesh=None, *, fsdp: bool = False):
     """serve_step(params, cache, token, pos) -> (next token (B,) int32,
     cache): one greedy step, the cache updated in place.  Under ``mesh``
-    the params are the rank's block (``serve_step.shard(full)`` first) and
-    the cache, the tokens and the logits the rank's rows of the batch;
-    each family's ``decode_step`` gathers a layer at a time
-    (``transformer.decode_layer``)."""
+    the params are the rank's block (``serve_step.shard(full)`` first), the
+    tokens the rank's rows of the batch, and the cache the rank's block of
+    the whole one as ``launch.shardings.cache_pspecs`` lays it out: the
+    batch over the data axes, then, for the dense and vlm families, the KV
+    heads over ``model`` or else the sequence (``models/partition``);
+    the other families keep a cache split over the batch alone and gather
+    each layer (``transformer.decode_layer``).  Make the cache with
+    ``serve_step.init_cache(batch, max_seq, device=...)`` (the rank's
+    block, never the whole cache; ``batch`` the whole batch) or cut it
+    from a whole one with ``serve_step.shard_cache(full)``: either records
+    the layout the step decodes on (``serve_step.layout["cache"]``).  The
+    greedy token of the partitioned families is the first maximum of the
+    vocab-parallel logits over the ranks (``Partition.argmax_vocab``)."""
     layout, shard = _mesh_layout(model, mesh, fsdp)
+    layout["cache"] = None
+
+    def cache_specs(glob):
+        """The rank's specs of the whole cache ``glob`` (its shapes); puts
+        the cache's layout into ``layout``, with the plan's partition that
+        decodes on it (``cache_part``)."""
+        from repro_torch.launch.mesh import data_axes
+        from repro_torch.launch.shardings import (_entry_axes, cache_pspecs,
+                                                  shard_shape)
+        from repro_torch.models.partition import FAMILIES, partition_for
+        from repro_torch.tree import tree_leaves
+
+        multi_pod = "pod" in mesh.axis_names
+        batch = tree_leaves(glob)[0].shape[1]
+        specs, moved = _batch_specs(glob, cache_pspecs(
+            glob, model.cfg, mesh, batch, multi_pod=multi_pod))
+        part = None
+        if model.cfg.family in FAMILIES:
+            part = partition_for(model.cfg, mesh, multi_pod=multi_pod,
+                                 cache=tuple(glob["k"].shape))
+        if part is None:
+            daxes = set(data_axes(multi_pod))
+            specs = tree_map(lambda _x, sp: tuple(
+                e if e is not None and set(_entry_axes(e)) <= daxes
+                else None for e in sp), glob, specs)
+        layout["cache_part"] = part
+        layout["cache"] = "batch" if part is None else part.cache
+        layout["cache_specs"] = specs
+        layout["cache_batch_moved"] = moved
+        layout["cache_shapes"] = [shard_shape(tuple(x.shape), sp, mesh)
+                                  for x, sp in zip(tree_leaves(glob),
+                                                   tree_leaves(specs))]
+        return specs
+
+    def init_cache(batch: int, max_seq: int, dtype=None, device="cuda",
+                   **kw):
+        """The rank's block of the zero cache of ``batch`` rows and
+        ``max_seq`` positions (the whole cache without a mesh)."""
+        from repro_torch.device import resolve_device
+        from repro_torch.launch.shardings import shard_shape
+
+        if mesh is None:
+            return model.init_cache(batch, max_seq, dtype=dtype,
+                                    device=device, **kw)
+        glob = model.init_cache(batch, max_seq, dtype=dtype, device="meta",
+                                **kw)
+        dev = resolve_device(device)
+        return tree_map(lambda x, sp: torch.zeros(
+            shard_shape(tuple(x.shape), sp, mesh), dtype=x.dtype,
+            device=dev), glob, cache_specs(glob))
+
+    def shard_cache(full):
+        """The rank's block of the whole cache ``full`` (a copy)."""
+        from repro_torch.launch.shardings import shard_leaf
+
+        if mesh is None:
+            return full
+        return tree_map(lambda x, sp: shard_leaf(x, sp, mesh).clone(
+            memory_format=torch.contiguous_format), full, cache_specs(full))
 
     def serve_step(params, cache, token: Tensor, pos: int):
-        with torch.no_grad(), _gather.gathering(layout["plan"]):
+        plan, part = layout["plan"], layout["part"]
+        if part is not None:
+            from repro_torch.tree import tree_leaves
+
+            shapes = [tuple(x.shape) for x in tree_leaves(cache)]
+            if layout["cache"] is None or shapes != layout["cache_shapes"]:
+                raise ValueError(
+                    f"{model.cfg.name}: the cache {shapes} is not the block "
+                    f"of the layout the plan decodes on "
+                    f"({layout['cache']}: {layout.get('cache_shapes')}); "
+                    f"make it with serve_step.init_cache or .shard_cache")
+            part = layout["cache_part"]
+            plan = plan._replace(part=part)
+        with torch.no_grad(), _gather.gathering(plan):
             logits, cache = model.decode_step(
                 _gather.gather_params(params), cache, token, pos)
-            return torch.argmax(logits, dim=-1).to(torch.int32), cache
+            if part is not None and part.vocab:
+                tok = part.argmax_vocab(logits)
+            else:
+                tok = torch.argmax(logits, dim=-1)
+            return tok.to(torch.int32), cache
 
     serve_step.shard = shard
+    serve_step.init_cache = init_cache
+    serve_step.shard_cache = shard_cache
     serve_step.layout = layout
     return serve_step
 

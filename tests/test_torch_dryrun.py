@@ -60,6 +60,7 @@ from repro_torch.launch.mesh import FakeMesh  # noqa: E402
 from repro_torch.launch.trace_analysis import (analyze,  # noqa: E402
                                                collective_calls, tracing)
 from repro_torch.models.registry import build_model, get_config  # noqa: E402
+from repro_torch.models.partition import FAMILIES  # noqa: E402
 from repro_torch.models.registry import list_archs  # noqa: E402
 
 import torch_mesh as tm  # noqa: E402
@@ -110,7 +111,8 @@ def _check_spec(ours, ref, mesh):
         assert _norm(s, x.dim()) == _norm(js, x.dim()), (where, s, js)
     assert tuple(ours.donate_argnums) == tuple(ref.donate_argnums)
     assert {k: v for k, v in ours.meta.items() if k in ref.meta} == ref.meta
-    assert set(ours.meta) - set(ref.meta) <= {"cache_layout"}
+    assert set(ours.meta) - set(ref.meta) <= {"cache_layout",
+                                              "cache_batch_moved"}
     local = specs.leaves(ours.local_args)
     cut = specs.cut_shapes(ours.args, ours.local_shardings, mesh)
     assert len(local) == len(cut)
@@ -120,24 +122,43 @@ def _check_spec(ours, ref, mesh):
             assert x.is_meta, ".".join(path)
 
 
+def _cache_layout(ours):
+    """The decode cache's layout the reference's cache specs give a dense
+    or vlm family (the KV heads over ``model``, else the sequence, else the
+    batch alone), and ``"batch"`` for the families still gathering."""
+    if get_config(ours.meta["arch"]).family not in FAMILIES:
+        return "batch"
+    spec = _norm(dict(specs.leaves(ours.in_shardings))[("1", "k")], 5)
+    return "heads" if spec[3] else ("seq" if spec[2] else "batch")
+
+
 def _same_layout(ours, mesh_name):
     """Where the rank's layout is the reference's boundary layout: every
-    argument but the decode cache (split over the batch only) and, on an
-    fsdp mesh, the replicated mode's state (on the (fsdp, model) grid)."""
+    argument but the decode cache of the families still gathering (split
+    over the batch only) and, on an fsdp mesh, the replicated mode's state
+    (on the (fsdp, model) grid)."""
     kind = ours.meta["kind"]
-    skip = {1} if kind == "decode" else set()
+    skip = set()
+    if kind == "decode" and get_config(
+            ours.meta["arch"]).family not in FAMILIES:
+        skip.add(1)
     if kind == "train" and ours.meta["fl_mode"] == "replicated" \
             and mesh_name == "4x4x16":
         skip.add(0)
+    moved = set(ours.meta.get("cache_batch_moved", ()))
     loc = specs.leaves(ours.local_shardings)
     ref = specs.leaves(ours.in_shardings)
     for ((path, a), (_, b)), (_, x) in zip(zip(loc, ref),
                                            specs.leaves(ours.args)):
         if int(path[0]) in skip or not isinstance(x, torch.Tensor):
             continue
-        assert _norm(a, x.dim()) == _norm(b, x.dim()), ".".join(path)
+        b = _norm(b, x.dim())
+        if path[0] == "1" and "/".join(path[1:]) in moved:
+            # layer count = batch: the data axes on dim 1, not dim 0
+            b = (b[1], b[0]) + b[2:]
+        assert _norm(a, x.dim()) == b, ".".join(path)
     if kind == "decode":
-        assert ours.meta["cache_layout"] == "batch"
+        assert ours.meta["cache_layout"] == _cache_layout(ours)
 
 
 @pytest.mark.parametrize("arch", list_archs())
@@ -435,9 +456,11 @@ def _rank_rows(shape, rank: int) -> slice:
 @pytest.mark.parametrize("arch,shape", tm.DRYRUN_SERVE)
 def test_serving_on_a_mesh_equals_one_device(live, served_alone, arch,
                                              shape):
-    """Each rank's prefill logits, greedy tokens and final cache are its
-    rows of one device's: the gathered layers are the full ones, so only
-    the batch's split can move a bit (f32, 1e-5)."""
+    """Each rank's prefill logits and greedy tokens are its rows of one
+    device's, and its final cache is its block of one device's under the
+    layout the step records (the reference's cache specs for granite-8b,
+    whose products partition over ``model``; the batch rows for
+    falcon-mamba-7b, which gathers its layers): f32, 1e-5."""
     want = served_alone[arch]
     for rank in (0, 1):
         got = live[rank][(arch, shape)]
@@ -445,9 +468,12 @@ def test_serving_on_a_mesh_equals_one_device(live, served_alone, arch,
         np.testing.assert_allclose(got["logits"], want["logits"][rows],
                                    rtol=1e-5, atol=1e-5)
         np.testing.assert_array_equal(got["tokens"], want["tokens"][rows])
+        assert got["layout"]["cache"] == (
+            "heads" if arch == "granite-8b" and shape[1] > 1 else "batch")
         for k, c in want["cache"].items():
-            # every family's cache leads with the layer dim, then the batch
-            np.testing.assert_allclose(got["cache"][k], c[:, rows],
+            block = tm.cache_block(c, got["layout"]["cache_specs"][k],
+                                   got["coord"], got["mesh"])
+            np.testing.assert_allclose(got["cache"][k], block,
                                        rtol=1e-5, atol=1e-5, err_msg=k)
 
 
@@ -466,8 +492,8 @@ def test_trace_serving_collectives_equal_the_live_ranks(live, arch, shape):
     prefill = make_prefill(model, mesh)
     s_pre = analyze(prefill, (prefill.shard(full), {"tokens": toks}), mesh)
     step = make_serve_step(model, mesh)
-    cache = model.init_cache(b, tm.SERVE_PROMPT + tm.SERVE_STEPS,
-                             device="meta")
+    cache = step.init_cache(tm.SERVE_BATCH, tm.SERVE_PROMPT + tm.SERVE_STEPS,
+                            device="meta")
     s_dec = analyze(step, (step.shard(full), cache, toks[:, 0],
                            tm.SERVE_PROMPT + tm.SERVE_STEPS - 2), mesh)
     # a pure-data mesh holds the params whole: nothing to gather

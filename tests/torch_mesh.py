@@ -956,58 +956,133 @@ DRYRUN_SERVE = tuple((arch, shape) for arch in ("granite-8b",
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 2, 4, 3
 
 
-def serve_tokens(vocab: int) -> torch.Tensor:
-    """The served batch's prompts, (SERVE_BATCH, SERVE_PROMPT) int32."""
+def serve_tokens(vocab: int, batch: int = SERVE_BATCH,
+                 prompt: int = SERVE_PROMPT) -> torch.Tensor:
+    """The served batch's prompts, (batch, prompt) int32."""
     g = torch.Generator().manual_seed(5)
-    return torch.randint(0, vocab, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+    return torch.randint(0, vocab, (batch, prompt), generator=g,
                          dtype=torch.int32)
 
 
-def serve_run(arch: str, mesh=None) -> dict:
-    """Reduced ``arch`` (f32, seed 0) served on the CPU: the prompt's
-    prefill (its last logits), then the prompt ingested a token at a time
-    through the greedy step and :data:`SERVE_STEPS` tokens generated, and
-    the cache at the end.  Under ``mesh`` (``launch.mesh``) the params are
-    the rank's block (``.shard(full)``) and the batch, the tokens, the
-    logits and the cache the rank's rows of it; ``stats`` holds the mesh's
-    collectives in the prefill and in the last step."""
+def serve_rows(mesh, batch: int) -> slice:
+    """The rank's rows of a served batch: its block over the data axis
+    where the batch divides it, else every row (``shardings
+    .batch_pspec``)."""
+    n = mesh.axis_size("data")
+    if batch % n or batch < n:
+        return slice(0, batch)
+    b = batch // n
+    j = mesh.axis_index("data")
+    return slice(j * b, (j + 1) * b)
+
+
+def serve_inputs(cfg, batch: int, prompt: int) -> dict:
+    """The served batch of ``cfg``: its prompts (:func:`serve_tokens`)
+    and, for the vlm, stub patches (seed 6)."""
+    inputs = {"tokens": serve_tokens(cfg.vocab_size, batch, prompt)}
+    if cfg.modality == "vision":
+        g = torch.Generator().manual_seed(6)
+        inputs["patches"] = torch.randn(
+            (batch, cfg.frontend_tokens, cfg.frontend_dim), generator=g)
+    return inputs
+
+
+def serve_run(arch: str, mesh=None, *, over=None, batch: int = SERVE_BATCH,
+              prompt: int = SERVE_PROMPT, steps: int = SERVE_STEPS,
+              params=None) -> dict:
+    """Reduced ``arch`` (f32, the fields of ``over`` replaced; the port's
+    seed-0 init, or ``params``, a numpy tree such as the JAX package's)
+    served on the CPU: the prompt's prefill (its last logits), then the
+    prompt ingested a token at a time through the greedy step and
+    ``steps`` tokens generated, each step's logits (the rank's vocab
+    columns under a partition), and the cache at the end.  Under ``mesh``
+    (``launch.mesh``) the params are the rank's block (``.shard(full)``),
+    the batch, the tokens and the logits the rank's rows of it, and the
+    cache the rank's block of the whole one (``.init_cache``); ``stats``
+    holds the mesh's collectives in the prefill and in the last step,
+    ``layout`` the cache's layout and specs and ``coord`` the rank's
+    coordinates."""
     from repro_torch.launch.trace_analysis import mesh_collectives
     from repro_torch.serve import make_prefill, make_serve_step
 
-    model = _f32_model(arch)
-    full = model.init(0, device="cpu")
-    toks = serve_tokens(model.cfg.vocab_size)
+    model = (_f32_model(arch) if over is None
+             else _build(partition_cfg(arch, over)))
+    if params is None:
+        full = model.init(0, device="cpu")
+    else:
+        from repro_torch.convert import model_params_from_numpy
+
+        full = model_params_from_numpy(params, device="cpu")
+    inputs = serve_inputs(model.cfg, batch, prompt)
+    toks = inputs["tokens"]
     if mesh is not None:
-        n = mesh.axis_size("data")
-        b = SERVE_BATCH // n
-        toks = toks[mesh.axis_index("data") * b:][:b]
-    out: dict = {"stats": {}}
+        rows = serve_rows(mesh, batch)
+        inputs = {k: v[rows] for k, v in inputs.items()}
+        toks = inputs["tokens"]
+    out: dict = {"stats": {}, "logits_steps": []}
     prefill = make_prefill(model, mesh)
     params = prefill.shard(full)
     if mesh is not None:
         mesh.reset_stats()
-    out["logits"] = to_np(prefill(params, {"tokens": toks}))
+    out["logits"] = to_np(prefill(params, inputs))
     if mesh is not None:
         out["stats"]["prefill"] = mesh_collectives(mesh.stats)
-    step = make_serve_step(model, mesh)
+        out["calls"] = {"prefill": {op: dict(v["axes"])
+                                    for op, v in mesh.stats.items()}}
+
+    def observed(p, c, tok, pos):
+        logits, c = model.decode_step(p, c, tok, pos)
+        out["logits_steps"].append(to_np(logits))
+        return logits, c
+    step = make_serve_step(model._replace(decode_step=observed), mesh)
     params = step.shard(full)
-    cache = model.init_cache(toks.shape[0], SERVE_PROMPT + SERVE_STEPS,
-                             device="cpu")
+    if mesh is None:
+        cache = model.init_cache(batch, prompt + steps, device="cpu")
+    else:
+        cache = step.init_cache(batch, prompt + steps, device="cpu")
     tok, gen = toks[:, 0], []
-    for i in range(SERVE_PROMPT + SERVE_STEPS - 1):
+    for i in range(prompt + steps - 1):
         if mesh is not None:
             mesh.reset_stats()
         nxt, cache = step(params, cache, tok, i)
-        if i + 1 < SERVE_PROMPT:
+        if i + 1 < prompt:
             tok = toks[:, i + 1]
         else:
             tok = nxt
             gen.append(nxt)
     if mesh is not None:
         out["stats"]["decode"] = mesh_collectives(mesh.stats)
+        out["calls"]["decode"] = {op: dict(v["axes"])
+                                  for op, v in mesh.stats.items()}
+        out["layout"] = {k: step.layout[k] for k in (
+            "cache", "cache_specs", "cache_batch_moved")}
+        out["coord"] = {a: mesh.axis_index(a) for a in mesh.axis_names}
+        out["mesh"] = dict(mesh.shape)
     out["tokens"] = to_np(torch.stack(gen, dim=1))
     out["cache"] = to_np(cache)
     return out
+
+
+def cache_block(x, spec, coord: dict, shape: dict):
+    """The block of a whole cache leaf ``x`` (numpy) that ``spec`` gives the
+    rank at ``coord`` (axis -> index) of a mesh of ``shape`` (axis ->
+    size)."""
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        axes = (e,) if isinstance(e, str) else tuple(e)
+        n, j = 1, 0
+        for a in axes:
+            n, j = n * shape[a], j * shape[a] + coord[a]
+        w = x.shape[d] // n
+        x = x.take(range(j * w, (j + 1) * w), axis=d)
+    return x
+
+
+def _build(cfg):
+    from repro_torch.models import build_model
+
+    return build_model(cfg)
 
 
 def dryrun_rank(rank: int) -> dict:
@@ -1091,4 +1166,51 @@ def partitioned_rank(rank: int, cases: list) -> dict:
             "j": j, "loss": to_np(loss), "fwd": fwd, "bwd": calls(),
             "grads": to_np(tree_map(lambda l: l.grad, theta)),
             "part": None if part is None else part._replace(mesh=None)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# partitioned serving (tests/test_torch_serve_partitioned.py)
+# ---------------------------------------------------------------------------
+
+#: planted vocab-parallel rows for ``Partition.argmax_vocab`` on (1, 2):
+#: (name, the whole row's length, the indices set to the row's max)
+ARGMAX_TIES = (("straddling", 16, (5, 11)), ("rank 1 alone", 16, (9, 14)),
+               ("rank 0 alone", 16, (2, 3)), ("first and last", 16, (0, 15)))
+
+
+def argmax_rows() -> torch.Tensor:
+    """(len(ARGMAX_TIES), 16) rows below 1 with 2.0 at each case's
+    indices."""
+    g = torch.Generator().manual_seed(9)
+    rows = torch.rand((len(ARGMAX_TIES), 16), generator=g)
+    for i, (_, _, idx) in enumerate(ARGMAX_TIES):
+        rows[i, list(idx)] = 2.0
+    return rows
+
+
+def serve_partitioned_rank(rank: int, shape, cases: list,
+                           params: dict) -> dict:
+    """Each case (name, arch, config fields replaced, batch, prompt,
+    steps) served on a ``shape`` (data, model) mesh (:func:`serve_run`)
+    from ``params[name]`` (a numpy tree), and on (1, 2) the greedy tokens
+    of :func:`argmax_rows` (each rank its vocab half) and of 64 random
+    rows."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.partition import partition_for
+
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    out = {name: serve_run(arch, mesh, over=over, batch=b, prompt=p,
+                           steps=st, params=params[name])
+           for name, arch, over, b, p, st in cases}
+    if tuple(shape) == (1, 2):
+        part = partition_for(_f32_model("granite-8b").cfg, mesh)
+        j = mesh.axis_index("model")
+        g = torch.Generator().manual_seed(10)
+        rand = torch.randn((64, 16), generator=g)
+        half = slice(j * 8, (j + 1) * 8)
+        out["argmax"] = {
+            "planted": to_np(part.argmax_vocab(argmax_rows()[:, half])),
+            "random": to_np(part.argmax_vocab(rand[:, half])),
+            "random_rows": to_np(rand)}
     return out
