@@ -314,6 +314,30 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              tokens equal.  Each rank first runs one device's prefill and
              8 steps twice and records whether they agree bit for bit, as
              phase 39's pure-data pin does with its one-device rounds.
+47. llm_mesh_moe_check — after phase 42, in the same spawn: the MoE
+             family's partitioned training products (``models/partition``:
+             each rank its E/m routed experts on the whole routing, its
+             heads, MLA's on its ``wq_b``/``wk_b``/``wv_b`` heads, the
+             shared expert's and the dense layer's columns, its vocab rows)
+             on reduced qwen3-moe and deepseek-v3 (q-LoRA, the shared
+             expert, a dense first layer, MTP) in f32 on (1, 2), 3
+             replicated rounds from one device's init and h against the
+             parent's one-device rounds: each round's loss within rtol
+             1e-5, Θ within atol 1e-5, the ranks' losses bit-equal, 0
+             differing expert picks or kept pairs, B11 on half the heads,
+             B6, B3 and B4 once a round a rank, no all-gather over
+             ``model`` but of the leaves whose products stay whole.
+48. llm_mesh_moe — after phase 47: qwen3-moe-30b-a3b at full width cut
+             48 -> 2 layers (D = 1,557,407,744, d_s = 6,083,624), sketched
+             on (1, 2) (64 experts, 16 heads, 2 KV heads, half the vocab a
+             rank), W = 2, 1 × 4,096 tokens, 2 sgd steps, 3 rounds: λ and h
+             (2, d_s), loss and Θ finite, the ranks' losses and picks
+             bit-equal, B11 16/8/8 on 16 heads and B6, B3, B4 once a
+             round, no expert leaf gathered, ≤ 40 GB a rank; s/round
+             (median of rounds 2–3), tokens/s, the peaks, the collectives,
+             the codec's ms, the dropped share, and the ``moe_dispatch``/
+             ``moe_combine`` device ms of one more profiled round.  Its
+             kernel rows: B6, B3 and B4 at (2, 6,083,624).
 44. dryrun — last: the dry run's trace on ``meta`` (no kernel) against
              the card: phases 40's and 42's rounds traced on a fake-rank
              mesh count each rank's collectives (calls and bytes by op)
@@ -970,8 +994,9 @@ def _mesh_round_shapes():
     """Each mesh rank's (W_local, d_local) block of the round: in
     ``llm_mesh_check`` (1 layer on the first grid) and ``llm_mesh`` (2
     layers on each grid), then the pure-data pin's (1 layer on (2, 1)),
-    the sketched phases' (W, d_s) sketches (1 and 2 layers) and the cohort
-    check's (reduced granite-8b on (2, 1)).  granite-8b's replicated
+    the sketched phases' (W, d_s) sketches (1 and 2 layers), the cohort
+    check's (reduced granite-8b on (2, 1)) and ``llm_mesh_moe``'s (W, d_s)
+    sketches (qwen3-moe, 2 layers).  granite-8b's replicated
     segment (its norms) splits evenly, so d_local is D over the model axis
     with no padding (the phases gate that)."""
     import dataclasses
@@ -991,7 +1016,9 @@ def _mesh_round_shapes():
         (LLM_WORKERS // pin_data, d1)] + [
         (LLM_WORKERS, _sketch_dim(d, SKETCH_RATIO)) for d in (
             d1, packed_param_count(_llm_cfg(LLM_ARCH, MESH_SKETCH_LAYERS)))
-    ] + [(MESH_COHORT["cohort"] // pin_data, d_red)]
+    ] + [(MESH_COHORT["cohort"] // pin_data, d_red),
+         (LLM_WORKERS, _sketch_dim(packed_param_count(
+             _llm_cfg(MOE_ARCH, MESH_MOE_LAYERS)), SKETCH_RATIO))]
 
 
 def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
@@ -4845,7 +4872,6 @@ def _mesh_partition_rank(torch, mesh) -> dict:
     from repro_torch.core.packing import (build_packspec, pack_shard_global,
                                           shard_tree, unpack)
     from repro_torch.data.synthetic import token_dataset
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import get_config
     from repro_torch.models.partition import gathered_model_leaf
     from repro_torch.tree import tree_leaves, tree_paths
@@ -4875,20 +4901,12 @@ def _mesh_partition_rank(torch, mesh) -> dict:
             st1, m = step1(st1, batch, key=rng.fold_in(SEED, r + 1))
             losses1.append(float(m["loss"]))
         heads = []
-        inner = fa.flash_attention_fwd
-
-        def fwd(q, *a, **kw):
-            heads.append(int(q.shape[1]))
-            return inner(q, *a, **kw)
-        fa.flash_attention_fwd = fwd
         mesh.reset_stats()
         losses = []
-        try:
+        with _b11_heads(heads):
             for r in range(MESH_PART_ROUNDS):
                 stm, m = step_m(stm, batch, key=rng.fold_in(SEED, r + 1))
                 losses.append(float(m["loss"]))
-        finally:
-            fa.flash_attention_fwd = inner
         gathers = mesh.stats.get("all_gather", {}).get("axes", {})
         # the leaves whose products do not partition, each gathered whole
         # (unstacked, or on its layer dim) once a forward
@@ -5982,13 +6000,307 @@ def _serve_mesh_rank(torch, mesh, ref: dict) -> dict:
     return out
 
 
+#: ``llm_mesh_moe_check``: the MoE family's partitioned products held tight
+#: on the card.  Reduced qwen3-moe (GQA, 4 experts top 2) and deepseek-v3
+#: (MLA with q-LoRA, the shared expert, a dense first layer, MTP) in f32 on
+#: (1, 2), W = 2, 2 sgd steps at 1e-2, noise-free, 3 replicated rounds from
+#: one device's init and h, against the parent's one-device rounds on the
+#: card: ``llm_mesh_partition_check``'s bars (each round's loss rtol 1e-5,
+#: Θ atol 1e-5), the ranks' losses bit-equal, every dispatch's expert picks
+#: and kept pairs one device's (0 differing), B11 on half the heads, B6, B3
+#: and B4 once a round a rank, and no all-gather over ``model`` but of the
+#: leaves whose products do not partition (the router, ``wq_a``,
+#: ``wkv_a``, ``mtp_proj``, the MTP block's experts)
+MESH_MOE_ARCHS = (MOE_ARCH, "deepseek-v3-671b")
+MESH_MOE_CHECK_ROUNDS = 3
+#: ``llm_mesh_moe``: qwen3-moe-30b-a3b at full width (d_model 2,048, 128
+#: experts top 8, 32 heads on 4 KV heads, vocabulary 151,936, bf16) cut 48
+#: -> 2 layers, the sketched mode on (1, 2) (each rank 64 experts, 16
+#: heads, 2 KV heads, half the vocabulary), ratio 256, W = 2, 1 × 4,096
+#: tokens a worker, 2 sgd steps at ``LLM_LR``, 3 rounds, then one profiled
+MESH_MOE_LAYERS, MESH_MOE_ROUNDS = 2, 3
+
+
+def _moe_part_cfg(arch: str):
+    import dataclasses
+
+    from repro_torch.models import get_config
+
+    return dataclasses.replace(get_config(arch).reduced(),
+                               param_dtype="float32")
+
+
+def _moe_part_batch(torch, cfg):
+    from repro_torch.data.synthetic import token_dataset
+
+    return {"tokens": token_dataset(SEED + 5, SKETCH_CHECK_B, SKETCH_CHECK_S,
+                                    cfg.vocab_size, n_workers=LLM_WORKERS)}
+
+
+def _mesh_moe_reference(torch) -> dict:
+    """The one-device rounds of ``llm_mesh_moe_check``, for each arch: the
+    losses, the final Θ and every dispatch's picks and kept pairs (on the
+    host)."""
+    from repro_torch import rng
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for arch in MESH_MOE_ARCHS:
+        cfg = _moe_part_cfg(arch)
+        batch = _moe_part_batch(torch, cfg)
+        init1, step1 = _mesh_part_trainer(torch, cfg, None)
+        st = init1(SEED)
+        losses = []
+        with moe.record_routing() as seen:
+            for r in range(MESH_MOE_CHECK_ROUNDS):
+                st, m = step1(st, batch, key=rng.fold_in(SEED, r + 1))
+                losses.append(float(m["loss"]))
+        out[arch] = {
+            "losses": losses,
+            "Theta": [x.cpu().numpy() for x in tree_leaves(st.Theta)],
+            "routing": [{k: e[k].cpu().numpy() for k in ("idx", "kept")}
+                        for e in seen]}
+        del st, init1, step1, seen
+        _free(torch)
+    return out
+
+
+def _gathers_want(theta, sspec, part, forwards: int, lead: int) -> tuple:
+    """The all-gathers over ``model`` ``forwards`` forwards make under
+    ``part`` (``models/partition.gathered_model_leaf``), and the leaves
+    gathered: an unstacked leaf, or one sharded on its layer dim, once a
+    forward; a stacked leaf's entries each gathered in the forward and
+    again in the checkpoint's recompute.  ``lead``: the leaves' leading
+    worker dims."""
+    from repro_torch.models.partition import gathered_model_leaf
+    from repro_torch.models.transformer import STACKED_KEYS
+    from repro_torch.tree import tree_paths
+
+    n, still = 0, []
+    for (path, leaf), md in zip(tree_paths(theta), sspec.shard_dims):
+        if gathered_model_leaf(path, md, part):
+            still.append("/".join(path))
+            stacked = path[0] in STACKED_KEYS and md != 0
+            n += 2 * leaf.shape[lead] if stacked else 1
+    return n * forwards, still
+
+
+@contextlib.contextmanager
+def _b11_heads(heads: list):
+    """Append the head count of each B11 forward launched in the block."""
+    from repro_torch.kernels import flash_attention as fa
+
+    inner = fa.flash_attention_fwd
+
+    def fwd(q, *a, **kw):
+        heads.append(int(q.shape[1]))
+        return inner(q, *a, **kw)
+    fa.flash_attention_fwd = fwd
+    try:
+        yield heads
+    finally:
+        fa.flash_attention_fwd = inner
+
+
+def _picks_differ(seen: list, ref: list) -> int:
+    """The expert picks and kept pairs that differ between two runs'
+    dispatches (each dispatch's whole count where their number or shapes
+    differ)."""
+    import numpy as np
+
+    n = abs(len(seen) - len(ref))
+    for a, b in zip(seen, ref):
+        for k in ("idx", "kept"):
+            x = a[k].cpu().numpy()
+            n += (int((x != b[k]).sum()) if x.shape == b[k].shape
+                  else x.size)
+    return n
+
+
+def _mesh_moe_check_rank(torch, mesh, ref: dict) -> dict:
+    """``llm_mesh_moe_check`` on one rank: for each of ``MESH_MOE_ARCHS``,
+    the rounds on ``mesh`` from one device's init with its h carried into
+    the rank's block, against the parent's one-device rounds (``ref``):
+    the losses, the rank's Θ block, the picks, B11's head counts, the
+    launches and the all-gathers over ``model``."""
+    from repro_torch import rng
+    from repro_torch.core.cplx import Complex
+    from repro_torch.core.packing import (build_packspec, pack_shard_global,
+                                          shard_tree, unpack)
+    from repro_torch.kernels import build
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+    out = {}
+    j = mesh.axis_index("model")
+    for arch in MESH_MOE_ARCHS:
+        cfg = _moe_part_cfg(arch)
+        batch = _moe_part_batch(torch, cfg)
+        init1, _ = _mesh_part_trainer(torch, cfg, None)
+        st1 = init1(SEED)
+        init_m, step_m = _mesh_part_trainer(torch, cfg, mesh)
+        stm = init_m(SEED)
+        sspec, plan = init_m.layout["sspec"], init_m.layout["plan"]
+        spec1 = build_packspec(st1.theta, batch_dims=1)
+        dl = sspec.d_local
+        h = Complex(*(pack_shard_global(sspec, unpack(spec1, z, cast=False))
+                      [:, j * dl:(j + 1) * dl].contiguous()
+                      for z in (st1.chan.h.re, st1.chan.h.im)))
+        stm = stm._replace(chan=stm.chan._replace(h=h))
+        treedef = tree_flatten(st1.Theta)[1]
+        del st1, init1, h
+        heads: list = []
+        build.reset_launches()
+        mesh.reset_stats()
+        losses = []
+        with _b11_heads(heads), moe.record_routing() as seen:
+            for r in range(MESH_MOE_CHECK_ROUNDS):
+                stm, m = step_m(stm, batch, key=rng.fold_in(SEED, r + 1))
+                losses.append(float(m["loss"]))
+        gathers = mesh.stats.get("all_gather", {}).get("axes", {})
+        want, still = _gathers_want(stm.theta, sspec, plan.part,
+                                    MESH_MOE_CHECK_ROUNDS * 2, 1)
+        dev = tree_leaves(stm.Theta)[0].device
+        Theta1 = tree_unflatten(treedef, [torch.from_numpy(x).to(dev)
+                                          for x in ref[arch]["Theta"]])
+        t_err = _max_err(tree_leaves(stm.Theta),
+                         tree_leaves(shard_tree(sspec, Theta1, j)), 0.0,
+                         MESH_PART_THETA_ATOL)
+        losses1 = ref[arch]["losses"]
+        out[arch] = {
+            "losses": losses, "losses_one_device": losses1,
+            "loss_rel_err": max(abs(a - b) / abs(b)
+                                for a, b in zip(losses, losses1)),
+            "Theta_max_abs": t_err[0], "Theta_over_atol": t_err[1],
+            "dispatches": len(seen),
+            "picks_differing": _picks_differ(seen, ref[arch]["routing"]),
+            "picks_sha1": _sha1(torch, torch.cat(
+                [e["idx"].reshape(-1) for e in seen])),
+            "heads": sorted(set(heads)), "n_heads": cfg.n_heads,
+            "b11_fwd_launches": len(heads),
+            "launches": dict(build.launches),
+            "model_all_gathers": gathers.get("model", 0),
+            "model_all_gathers_want": want, "gathered_leaves": still,
+            "collectives": _mesh_stats(mesh, MESH_MOE_CHECK_ROUNDS),
+            "partition": {k: getattr(plan.part, k)
+                          for k in ("heads", "kv", "ff", "vocab", "expert",
+                                    "shared_ff")
+                          if k != "shared_ff" or cfg.n_shared_experts}}
+        del stm, init_m, step_m, seen, Theta1
+        _free(torch)
+    return out
+
+
+def _mesh_moe_rank(torch, mesh) -> dict:
+    """``llm_mesh_moe`` on one rank: qwen3-moe at full width cut to
+    ``MESH_MOE_LAYERS`` in the sketched mode on ``mesh``, the collectives
+    and the codec timed, the routing recorded; then one more round under
+    ``torch.profiler`` for the dispatch's and the combine's device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import rng
+    from repro_torch.kernels import build
+    from repro_torch.launch.trace_analysis import mesh_collectives
+    from repro_torch.models import moe
+    from repro_torch.models.partition import partition_for
+    from repro_torch.models.registry import packed_param_count
+    from repro_torch.train import llm_trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = _llm_cfg(MOE_ARCH, MESH_MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init_fn, step = _mesh_sketched_trainer(torch, cfg, mesh, noisy=True,
+                                           local_steps=2)
+    state = init_fn(SEED)
+    batch = _mesh_batch(torch, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    d_s = llm_trainer._sketch_dim(packed_param_count(cfg), SKETCH_RATIO)
+    shapes_ok = (tuple(state.lam.re.shape) == (LLM_WORKERS, d_s)
+                 and tuple(state.chan.h.re.shape) == (LLM_WORKERS, d_s))
+    part = partition_for(cfg, mesh)
+    want, still = _gathers_want(state.Theta, init_fn.layout["sspec"], part,
+                                MESH_MOE_ROUNDS * LLM_WORKERS * 2, 0)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    codec: dict = {}
+    undo = _timed_methods(torch, llm_trainer._SketchGrid,
+                          ("encode", "join", "apply_delta"), codec)
+    losses, times, finite, heads, picks = [], [], True, [], []
+    kept = pairs = 0
+    try:
+        for r in range(MESH_MOE_ROUNDS):
+            held = [state]
+            state = None
+            t0 = time.perf_counter()
+            with _b11_heads(heads), moe.record_routing() as seen:
+                state, m = step(held.pop(), batch,
+                                key=rng.fold_in(SEED, r + 1))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            finite &= math.isfinite(losses[-1]) and all(
+                bool(torch.isfinite(leaf).all())
+                for leaf in tree_leaves(state.Theta))
+            kept += sum(int(e["kept"].sum()) for e in seen)
+            pairs += sum(e["kept"].numel() for e in seen)
+            picks.append(_sha1(torch, torch.cat(
+                [e["idx"].reshape(-1) for e in seen])))
+            del m, seen
+    finally:
+        undo()
+        mesh.timing = False
+    launches = dict(build.launches)
+    gathers = mesh.stats.get("all_gather", {}).get("axes", {})
+    out = {"losses": losses, "round_s": times, "setup_s": setup_s,
+           "setup_peak": setup_peak, "finite": finite,
+           "shapes_ok": shapes_ok, "d_s": d_s,
+           "peak": torch.cuda.max_memory_allocated(), "launches": launches,
+           "heads": sorted(set(heads)), "picks_sha1": picks,
+           "pairs_dispatched": pairs,
+           "pairs_dropped_share": (pairs - kept) / pairs,
+           "collectives": _mesh_stats(mesh, MESH_MOE_ROUNDS),
+           "counts": mesh_collectives(mesh.stats),
+           "codec_ms_per_round": {k: v / MESH_MOE_ROUNDS
+                                  for k, v in codec.items()},
+           "model_all_gathers": gathers.get("model", 0),
+           "model_all_gathers_want": want, "gathered_leaves": still,
+           "d_local": init_fn.layout["sspec"].d_local,
+           "D": packed_param_count(cfg),
+           "partition": {k: getattr(part, k)
+                         for k in ("heads", "kv", "ff", "vocab", "expert")}}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch, key=rng.fold_in(SEED, 100))
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out["spans"] = {}
+    for name in MOE_SPANS:
+        on_host = [e for e in events
+                   if e.key == name and e.device_type == DeviceType.CPU]
+        out["spans"][name] = {
+            "calls": on_host[0].count if on_host else 0,
+            "device_ms": on_host[0].device_time_total / 1e3 if on_host
+            else 0.0}
+    del state, step, init_fn, m, prof, events
+    _free(torch)
+    return out
+
+
 def _mesh_rank_main(rank: int, store: str, out_dir: str,
                     refs: dict) -> None:
     """One rank of the mesh phases, spawned by :func:`phase_llm_mesh`: it
     joins the gloo group through ``store``, runs ``llm_mesh_check`` (with
     its pure-data pin), ``llm_mesh_sketched_check``, ``llm_mesh`` on both
-    grids, ``llm_mesh_sketched``, ``llm_mesh_cohort_check`` and
-    ``serve_mesh`` against the parent's one-device ``refs``, and writes its
+    grids, ``llm_mesh_sketched``, ``llm_mesh_moe_check``, ``llm_mesh_moe``,
+    ``llm_mesh_cohort_check`` and ``serve_mesh`` against the parent's
+    one-device ``refs``, and writes its
     results (or its traceback) to ``out_dir`` after each."""
     import datetime
     import traceback
@@ -6030,6 +6342,11 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
             res["runs"][str(shape)] = _mesh_run_rank(torch, on(shape))
             dump()
         res["sketched"] = _mesh_sketched_rank(torch, on(MESH_SKETCH_SHAPE))
+        dump()
+        res["moe_check"] = _mesh_moe_check_rank(torch, on(MESH_SHAPES[0]),
+                                                refs["moe"])
+        dump()
+        res["moe"] = _mesh_moe_rank(torch, on(MESH_SHAPES[0]))
         dump()
         res["cohort"] = _mesh_cohort_rank(torch, on(MESH_PIN_SHAPE),
                                           refs["cohort"])
@@ -6115,6 +6432,8 @@ def phase_llm_mesh(torch):
     refs["sketched"] = _mesh_sketched_reference(torch)
     _free(torch)
     refs["cohort"] = _mesh_cohort_reference(torch)
+    _free(torch)
+    refs["moe"] = _mesh_moe_reference(torch)
     _free(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as ref_dir:
         refs["serve"] = _serve_mesh_reference(torch, ref_dir)
@@ -6427,6 +6746,7 @@ def phase_llm_mesh(torch):
                     for c in co],
           "launches": [c["launches"] for c in co], "wall_s": wall_s})
 
+    moe_launches = _gate_mesh_moe(res, refs["moe"])
     serve_launches = _gate_serve_mesh(res, refs["serve"])
 
     counts = {str(shape): [r["runs"][str(shape)]["counts"] for r in res]
@@ -6439,8 +6759,130 @@ def phase_llm_mesh(torch):
                                  for p in r["runs"].values()),
              "llm_mesh_sketched": _summed(run["launches"] for run in sr),
              "llm_mesh_cohort_check": _summed(c["launches"] for c in co),
-             "serve_mesh": serve_launches},
+             **moe_launches, "serve_mesh": serve_launches},
             counts)
+
+
+def _gate_mesh_moe(res: list, ref: dict) -> dict:
+    """Phases ``llm_mesh_moe_check`` and ``llm_mesh_moe``: their gates on
+    the ranks' results and their lines; returns each phase's launches,
+    summed over the ranks."""
+    require(all("moe_check" in r for r in res), "llm_mesh_moe_check: a "
+            "rank failed:\n" + _rank_failures(res, "moe_check"))
+    mc = [r["moe_check"] for r in res]
+    for arch in MESH_MOE_ARCHS:
+        cfg = _moe_part_cfg(arch)
+        for r, c in enumerate(p[arch] for p in mc):
+            tag = f"llm_mesh_moe_check {arch} rank {r}"
+            require(c["losses"] == mc[0][arch]["losses"], f"{tag}: losses "
+                    f"{c['losses']} are not rank 0's "
+                    f"{mc[0][arch]['losses']} bit for bit")
+            require(c["loss_rel_err"] <= MESH_PART_LOSS_RTOL, f"{tag}: the "
+                    f"losses {c['losses']} differ from one device's "
+                    f"{c['losses_one_device']} beyond rtol "
+                    f"{MESH_PART_LOSS_RTOL}")
+            require(c["Theta_over_atol"] <= 1.0, f"{tag}: Θ differs from one "
+                    f"device's block by {c['Theta_max_abs']}, beyond atol "
+                    f"{MESH_PART_THETA_ATOL}")
+            require(c["picks_differing"] == 0 and c["dispatches"] == len(
+                ref[arch]["routing"]) and c["picks_sha1"]
+                == mc[0][arch]["picks_sha1"], f"{tag}: "
+                f"{c['picks_differing']} expert picks or kept pairs differ "
+                f"from one device's over {c['dispatches']} dispatches")
+            require(all(c["partition"].values()), f"{tag}: the plan does "
+                    f"not partition every product: {c['partition']}")
+            if not cfg.use_mla:
+                require(c["heads"] == [c["n_heads"] // MESH_RANKS]
+                        and c["b11_fwd_launches"] > 0, f"{tag}: B11 ran on "
+                        f"{c['heads']} heads, not "
+                        f"{c['n_heads'] // MESH_RANKS}")
+            _per_round(dict(c["launches"]), MESH_MOE_CHECK_ROUNDS,
+                       MESH_ROUND_LAUNCHES)
+            require(c["model_all_gathers"] == c["model_all_gathers_want"]
+                    and not any("mlp/gate" in p or "mlp/up" in p
+                                or "mlp/down" in p for p in
+                                c["gathered_leaves"]
+                                if p.startswith("moe_layers")),
+                    f"{tag}: {c['model_all_gathers']} all-gathers over "
+                    f"model, want {c['model_all_gathers_want']} (the leaves "
+                    f"{c['gathered_leaves']})")
+    emit({"phase": "llm_mesh_moe_check", "ok": True,
+          "archs": list(MESH_MOE_ARCHS),
+          "reduced": "ModelConfig.reduced(): 2 layers, d_model 128, "
+          "4 experts top 2", "dtype": "float32",
+          "grid": {"data": 1, "model": 2}, "W": LLM_WORKERS,
+          "batch": SKETCH_CHECK_B, "seq": SKETCH_CHECK_S, "local_steps": 2,
+          "local_lr": 1e-2, "noisy": False, "rounds": MESH_MOE_CHECK_ROUNDS,
+          "loss_rtol": MESH_PART_LOSS_RTOL,
+          "Theta_atol": MESH_PART_THETA_ATOL,
+          "ranks": [{a: {k: v for k, v in p[a].items()
+                         if k not in ("launches", "collectives")}
+                     for a in p} for p in mc],
+          "collectives": [{a: p[a]["collectives"] for a in p} for p in mc],
+          "launches": [{a: p[a]["launches"] for a in p} for p in mc]})
+
+    require(all("moe" in r for r in res), "llm_mesh_moe: a rank failed:\n"
+            + _rank_failures(res, "moe"))
+    mr = [r["moe"] for r in res]
+    cfg = _llm_cfg(MOE_ARCH, MESH_MOE_LAYERS)
+    for r, run in enumerate(mr):
+        tag = f"llm_mesh_moe rank {r}"
+        require(run["shapes_ok"] and (LLM_WORKERS, run["d_s"])
+                in _mesh_round_shapes(), f"{tag}: λ or h is not "
+                f"({LLM_WORKERS}, {run['d_s']}), or not a kernel row's shape")
+        require(run["finite"], f"{tag}: a loss or Θ is not finite: "
+                f"{run['losses']}")
+        require(run["losses"] == mr[0]["losses"]
+                and run["picks_sha1"] == mr[0]["picks_sha1"], f"{tag}: "
+                f"losses {run['losses']} or picks are not rank 0's")
+        require(run["heads"] == [cfg.n_heads // MESH_RANKS], f"{tag}: B11 "
+                f"ran on {run['heads']} heads, not "
+                f"{cfg.n_heads // MESH_RANKS}")
+        require(all(run["partition"].values()), f"{tag}: the plan does not "
+                f"partition every product: {run['partition']}")
+        require(run["model_all_gathers"] == run["model_all_gathers_want"]
+                and not any(p.startswith("moe_layers/mlp/") and
+                            p.split("/")[2] in ("gate", "up", "down")
+                            for p in run["gathered_leaves"]),
+                f"{tag}: {run['model_all_gathers']} all-gathers over model, "
+                f"want {run['model_all_gathers_want']} (the leaves "
+                f"{run['gathered_leaves']})")
+        require(max(run["peak"], run["setup_peak"]) <= MESH_PEAK,
+                f"{tag}: peak {run['peak'] / 1e9} GB (set-up "
+                f"{run['setup_peak'] / 1e9} GB) above {MESH_PEAK / 1e9} GB")
+        _per_round(dict(run["launches"]), MESH_MOE_ROUNDS,
+                   _sketched_launches(cfg, LLM_WORKERS, 2))
+    s_round = statistics.median(max(mr[r]["round_s"][i]
+                                    for r in range(MESH_RANKS))
+                                for i in range(1, MESH_MOE_ROUNDS))
+    emit({"phase": "llm_mesh_moe", "ok": True, "arch": MOE_ARCH,
+          "reduced": {"n_layers": f"48 -> {MESH_MOE_LAYERS}"},
+          "grid": {"data": 1, "model": 2}, "ranks": MESH_RANKS,
+          "backend": res[0]["backend"], "W": LLM_WORKERS, "seq": LLM_SEQ,
+          "local_steps": 2, "local_lr": LLM_LR, "sketch_ratio": SKETCH_RATIO,
+          "rounds": MESH_MOE_ROUNDS, "D": mr[0]["D"], "d_s": mr[0]["d_s"],
+          "d_local": mr[0]["d_local"], "experts_a_rank":
+          cfg.n_experts // MESH_RANKS, "heads_a_rank":
+          cfg.n_heads // MESH_RANKS, "loss": mr[0]["losses"],
+          "round_s": [run["round_s"] for run in mr],
+          "seconds_per_round": s_round,
+          "tokens_per_s": LLM_WORKERS * LLM_SEQ * 2 / s_round,
+          "setup_s": [run["setup_s"] for run in mr],
+          "peak_mem_gb": [run["peak"] / 1e9 for run in mr],
+          "setup_peak_mem_gb": [run["setup_peak"] / 1e9 for run in mr],
+          "collectives": [run["collectives"] for run in mr],
+          "codec_ms_per_round": [run["codec_ms_per_round"] for run in mr],
+          "spans_profiled_round": [run["spans"] for run in mr],
+          "pairs_dispatched": mr[0]["pairs_dispatched"],
+          "pairs_dropped_share": mr[0]["pairs_dropped_share"],
+          "model_all_gathers": [run["model_all_gathers"] for run in mr],
+          "gathered_leaves": mr[0]["gathered_leaves"],
+          "timing": "every collective and codec call synchronised and "
+          "timed; the spans from one more round under torch.profiler",
+          "launches": [run["launches"] for run in mr]})
+    return {"llm_mesh_moe_check": _summed(
+                p[a]["launches"] for p in mc for a in MESH_MOE_ARCHS),
+            "llm_mesh_moe": _summed(run["launches"] for run in mr)}
 
 
 def _gate_serve_mesh(res: list, ref: dict) -> dict:
@@ -6524,9 +6966,9 @@ def _gate_serve_mesh(res: list, ref: dict) -> dict:
             require(c["cache_rel_err"] <= SERVE_MESH_CHECK_RTOL, f"{tag}: the "
                     f"cache differs from its block of one device's by "
                     f"{c['cache_rel_err']}")
-            require("model" not in c["decode_calls"].get("all_gather", {})
-                    or name != "heads", f"{tag}: an all-gather over model of "
-                    f"a partitioned leaf: {c['decode_calls']}")
+            require("model" not in c["decode_calls"].get("all_gather", {}),
+                    f"{tag}: an all-gather over model of a partitioned leaf: "
+                    f"{c['decode_calls']}")
     walls = [statistics.median(f["decode_wall_ms"]) for f in full]
 
     def per_rank(key):

@@ -12,9 +12,10 @@ on 512 host devices, this runs the port's own code for rank 0 of the
 production mesh (``launch.mesh.make_production_mesh``: fake ranks, no
 process group) on ``meta`` tensors at that rank's resident shapes
 (``launch/specs.py``) and counts it (``launch/trace_analysis.py``).  The
-dense and vlm families' training step is the partitioned program (each
-model rank its heads, ff columns and vocab rows, ``models/partition.py``),
-as XLA partitions the reference's.  It needs no card and allocates no
+dense, vlm and moe families' training step is the partitioned program
+(each model rank its heads, ff columns, experts and vocab rows,
+``models/partition.py``), as XLA partitions the reference's; their
+serving, the dense and vlm families'.  It needs no card and allocates no
 tensor memory.
 
 Every number comes from that trace and the published rates of one NVIDIA

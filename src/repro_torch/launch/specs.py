@@ -34,8 +34,8 @@ more or less than the reference's boundary layout says:
   ``model`` where they divide it, ``meta["cache_layout"] == "heads"``, else
   the sequence, ``"seq"``); the other families split it over the batch
   only, their heads, channels and sequence whole over ``model``
-  (``"batch"``, until their products are partitioned, ROADMAP queue A
-  items 9–12).
+  (``"batch"``, until their serving products are partitioned, ROADMAP
+  queue A items 9–12; the moe family's training products are).
 """
 from __future__ import annotations
 

@@ -19,8 +19,9 @@ dispatches:
   ``reduce_from``, and partitioned serving's ``softmax_max``/
   ``softmax_sum`` of a cache split over the sequence and ``vocab_max``/
   ``vocab_min`` of the greedy token), ``all-gather`` (of parameters, and
-  serving's ``gather_heads`` of the query heads and ``gather_vocab`` of
-  the last logits) and ``reduce-scatter``, per-rank result bytes × the
+  serving's ``gather_heads`` of the query heads, ``gather_kv`` of the K
+  and V projections and ``gather_vocab`` of the last logits) and
+  ``reduce-scatter``, per-rank result bytes × the
   reference's multiplier (all-reduce 2×; ``launch.mesh.COLL_KIND``).  The
   port has no collective-permute; a reshard shows up as extra gathers,
   which :func:`collective_calls` counts.

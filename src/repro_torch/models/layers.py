@@ -254,9 +254,11 @@ def _qkv_partitioned(p: Params, x: Tensor, cfg: ModelConfig, part
     query heads ``[r·H/m, (r+1)·H/m)`` and the KV heads they read, with
     the local (query heads, KV heads).  Where the KV heads split too, they
     are the rank's ``wk``/``wv`` columns; else ``wk``/``wv`` are whole on
-    the rank and it projects the contiguous KV heads its query heads read,
-    repeated to one a query head where the group does not fit them
-    evenly."""
+    the rank and it projects the contiguous KV heads its query heads read
+    (under serving's :attr:`~repro_torch.models.partition.Partition.kv_cols`
+    it projects its ``wk``/``wv`` columns, gathers the projections and
+    takes those heads), repeated to one a query head where the group does
+    not fit them evenly."""
     from repro_torch.models.partition import rank_kv_heads
 
     hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
@@ -270,8 +272,15 @@ def _qkv_partitioned(p: Params, x: Tensor, cfg: ModelConfig, part
         return q, k, v, Hl, KVl
     k0, k1, rel = rank_kv_heads(cfg, part)
     KVl = k1 - k0
-    k = _split_heads(part.dense_slice(p["wk"], x, k0 * hd, k1 * hd), KVl, hd)
-    v = _split_heads(part.dense_slice(p["wv"], x, k0 * hd, k1 * hd), KVl, hd)
+    if part.kv_cols:
+        # serving: the rank's wk/wv columns, the projections gathered
+        k, v = part.gather_kv(dense(p["wk"], x), dense(p["wv"], x))
+        k = k.narrow(-1, k0 * hd, KVl * hd)
+        v = v.narrow(-1, k0 * hd, KVl * hd)
+    else:
+        k = part.dense_slice(p["wk"], x, k0 * hd, k1 * hd)
+        v = part.dense_slice(p["wv"], x, k0 * hd, k1 * hd)
+    k, v = _split_heads(k, KVl, hd), _split_heads(v, KVl, hd)
     if rel is None:
         return q, k, v, Hl, KVl
     idx = torch.tensor(rel, device=x.device)
@@ -374,7 +383,9 @@ def attention_decode(p: Params, x: Tensor, cfg: ModelConfig, cache_k: Tensor,
 
     * ``"heads"``: its KV heads on its ``wk``/``wv`` columns, written into
       its (B, T, KV/n, hd) block and attended as one device attends them;
-    * ``"seq"``: every KV head (``wk``/``wv`` whole), the slot written by
+    * ``"seq"``: every KV head (``wk``/``wv`` whole, or, under
+      ``part.kv_cols``, the rank's columns projected and the projections
+      gathered over ``model``), the slot written by
       the rank whose slice holds it (``write_pos // T_local``), the query
       heads gathered over ``model``, every head scored on the rank's slots
       (slot t valid where ``r·T_local + t ≤ abs_pos``), the partial
@@ -412,6 +423,8 @@ def attention_decode(p: Params, x: Tensor, cfg: ModelConfig, cache_k: Tensor,
     else:
         n_kv = KV
         k, v = dense(p["wk"], x), dense(p["wv"], x)
+        if part is not None and part.kv_cols:
+            k, v = part.gather_kv(k, v)
     k = rope(_split_heads(k, n_kv, hd), posv, cfg.rope_theta)
     v = _split_heads(v, n_kv, hd)
     slot = write_pos
@@ -483,15 +496,19 @@ def mlp_init(key: int, cfg: ModelConfig, d_ff: Optional[int] = None,
     }
 
 
-def mlp(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    """The MLP; under a partition of ``ff`` (``models/partition``), this
-    rank's hidden columns, ``down``/``fc_out``'s partial outputs summed
-    over the ranks and ``fc_out``'s bias added once after the sum."""
+def mlp(p: Params, x: Tensor, cfg: ModelConfig, d_ff: Optional[int] = None,
+        split: str = "ff") -> Tensor:
+    """The MLP of hidden width ``d_ff`` (``cfg.d_ff``; the MoE's shared
+    expert passes its own); under a partition whose field ``split`` is set
+    (``models/partition``: ``ff``, or ``shared_ff`` for the shared
+    expert), this rank's hidden columns, ``down``/``fc_out``'s partial
+    outputs summed over the ranks and ``fc_out``'s bias added once after
+    the sum."""
     from repro_torch.models import partition
 
     part = partition.current()
-    if part is not None and part.ff:
-        ff = cfg.d_ff
+    if part is not None and getattr(part, split):
+        ff = d_ff or cfg.d_ff
         x = part.copy_to(x)
         if "gate" in p:
             act = F.silu if cfg.mlp_act == "silu" else _gelu

@@ -27,6 +27,12 @@ dispatch.
   ``layers.attention_fwd``, so full causal attention runs B11.
 * **MTP**: one extra block and the shared unembedding predict token t+2
   from the last hidden state and the next token's embedding.
+* **On a mesh** whose ``model`` axis splits the products (the trainer's
+  plan, ``models/partition``): each rank runs its E/m routed experts on
+  the whole routing (:func:`_dispatch_compute`), MLA on its H/m heads
+  (:func:`mla_fwd`), the shared expert's and the dense layers' hidden
+  columns, and its vocab rows of the embedding, the logits and the MTP
+  logits.  Serving stays gathered.
 """
 from __future__ import annotations
 
@@ -158,16 +164,28 @@ class _Put(torch.autograd.Function):
 
 
 def _dispatch_compute(p: Params, xf: Tensor, gate_vals: Tensor, idx: Tensor,
-                      cfg: ModelConfig, C: int) -> Tensor:
+                      cfg: ModelConfig, C: int, part=None) -> Tensor:
     """Sort-based dispatch, the experts' products and the combine, for each
     token group of the leading dims.  xf: (*lead, N, d); gate_vals, idx:
     (*lead, N, K); the experts' leaves (own lead, E, d, f) broadcast
     against ``lead``.  Returns (*lead, N, d).  The sort, ranking and
     scatter run in the profiler range ``moe_dispatch``, the gather and the
-    sum in ``moe_combine``."""
+    sum in ``moe_combine``.
+
+    With ``part`` (``models/partition``) the leaves are this rank's E/m
+    experts ``[e0, e0 + E/m)``, e0 = r·E/m: the routing, the sort, the
+    ranks within each expert and the drops are the whole (token, k) set's,
+    as on one device, but the buffer and the products are the rank's
+    experts' alone (the other pairs go to a dump slot that is sliced off).
+    The combine reads zeros for the other experts' pairs, sums each
+    token's contributions in ascending expert id in f32, and the ranks'
+    partial sums are added over the axis (``reduce_from``) and rounded
+    once."""
     lead = xf.shape[:-2]
     N, d = xf.shape[-2:]
     E, K = cfg.n_experts, cfg.n_experts_active
+    El = p["gate"].shape[-3]
+    e0 = 0 if part is None else part.index * El
     G = xf[..., 0, 0].numel()
     dev = xf.device
     flat_e = idx.reshape(G, N * K)
@@ -192,30 +210,44 @@ def _dispatch_compute(p: Params, xf: Tensor, gate_vals: Tensor, idx: Tensor,
         # off
         rows = xf.reshape(G, N, 1, d).expand(G, N, K, d).reshape(G, N * K, d)
         rows = _Take.apply(rows, order)
-        dest = se * (C + 1) + slot
-        buf = _Put.apply(rows, dest, E * (C + 1))
-        buf = buf.reshape(G, E, C + 1, d)[:, :, :C].reshape(lead + (E, C, d))
+        dest = (se - e0) * (C + 1) + slot
+        if part is not None:
+            # the other ranks' experts' pairs: the dump slot El·(C + 1)
+            mine = (se >= e0) & (se < e0 + El)
+            dest = torch.where(mine, dest, El * (C + 1))
+        n_slots = El * (C + 1) + (part is not None)
+        buf = _Put.apply(rows, dest, n_slots)[:, :El * (C + 1)]
+        buf = buf.reshape(G, El, C + 1, d)[:, :, :C].reshape(
+            lead + (El, C, d))
 
     nl = len(lead)
     gate = _wview(p["gate"], 3, nl)
     up = _wview(p["up"], 3, nl)
     down = _wview(p["down"], 3, nl)
     h = F.silu(torch.matmul(buf, gate)) * torch.matmul(buf, up)
-    eo = torch.matmul(h, down).reshape(G, E, C, d)
+    eo = torch.matmul(h, down).reshape(G, El, C, d)
 
     with torch.profiler.record_function("moe_combine"):
-        # each pair's expert output (zero from the overflow slot), weighed by
-        # its gate; back in (token, k) order, then each token's K
-        # contributions summed in ascending expert id
-        eo_pad = torch.cat([eo, eo.new_zeros((G, E, 1, d))], dim=2)
-        out_rows = _Take.apply(eo_pad.reshape(G, E * (C + 1), d), dest)
+        # each pair's expert output (zero from the overflow slot, and from
+        # the dump slot), weighed by its gate; back in (token, k) order,
+        # then each token's K contributions summed in ascending expert id
+        eo_pad = torch.cat([eo, eo.new_zeros((G, El, 1, d))], dim=2)
+        eo_pad = eo_pad.reshape(G, El * (C + 1), d)
+        if part is not None:
+            eo_pad = torch.cat([eo_pad, eo.new_zeros((G, 1, d))], dim=1)
+        out_rows = _Take.apply(eo_pad, dest)
         out_rows = out_rows * (sg * keep.to(xf.dtype))[..., None]
         per_pair = _Take.apply(out_rows, torch.argsort(order, dim=-1))
         by_expert = torch.argsort(idx.reshape(G * N, K), dim=-1)
         per_pair = _Take.apply(per_pair.reshape(G * N, K, d), by_expert)
+        if part is not None:
+            per_pair = per_pair.to(torch.promote_types(xf.dtype,
+                                                       torch.float32))
         out = per_pair[:, 0]
         for k in range(1, K):
             out = out + per_pair[:, k]
+        if part is not None:
+            out = part.reduce_from(out).to(xf.dtype)
     return out.reshape(lead + (N, d))
 
 
@@ -226,14 +258,36 @@ def _dispatch_groups(N: int, max_groups: int = 16) -> int:
     return 1
 
 
+def _expert_part(p: Params, cfg: ModelConfig):
+    """The partition the routed experts of ``p`` run under: the active
+    plan's where the rank holds E/m of them (``models/partition``), None
+    where it holds all E (one device, the gathered experts)."""
+    from repro_torch.models import partition
+
+    El, E = p["gate"].shape[-3], cfg.n_experts
+    if El == E:
+        return None
+    part = partition.current()
+    if part is None or not part.expert or El * part.n != E:
+        raise ValueError(f"moe: the rank holds {El} of {E} experts but the "
+                         f"plan does not split them")
+    return part
+
+
 def moe_apply(p: Params, x: Tensor, cfg: ModelConfig
               ) -> Tuple[Tensor, Tensor]:
     """x: (*lead, B, S, d) -> (out, aux_loss (*lead)); the routing, the
-    capacity and the load-balance loss per leading (worker) entry."""
+    capacity and the load-balance loss per leading (worker) entry.  Where
+    the rank holds its experts only (:func:`_expert_part`), the dispatch's
+    input and the normalised gates enter through ``copy_to``, whose
+    backward sums the ranks' partial gradients, so the router's gradient
+    is the whole product's on every rank; the load-balance loss reads the
+    probabilities directly, and its gradient is every rank's alike."""
     lead = x.shape[:-3]
     B, S, d = x.shape[-3:]
     N = B * S
     E, K = cfg.n_experts, cfg.n_experts_active
+    part = _expert_part(p, cfg)
 
     xf = x.reshape(lead + (N, d))
     w = p["router"]["w"]
@@ -247,20 +301,24 @@ def moe_apply(p: Params, x: Tensor, cfg: ModelConfig
     ce = torch.mean(F.one_hot(idx[..., 0], E).float(), dim=-2)
     aux = cfg.router_aux_weight * E * torch.sum(me * ce, -1)
 
+    xd, gd = xf, gate_vals
+    if part is not None:
+        xd, gd = part.copy_to(xf), part.copy_to(gate_vals)
     if optflags.enabled("grouped_moe") and N > 1:
         G = _dispatch_groups(N)
         Ng = N // G
         C = _capacity(Ng, cfg)
         groups = lead + (G, Ng)
         out = _dispatch_compute(
-            p, xf.reshape(groups + (d,)), gate_vals.reshape(groups + (K,)),
-            idx.reshape(groups + (K,)), cfg, C).reshape(lead + (N, d))
+            p, xd.reshape(groups + (d,)), gd.reshape(groups + (K,)),
+            idx.reshape(groups + (K,)), cfg, C, part).reshape(lead + (N, d))
     else:
-        out = _dispatch_compute(p, xf, gate_vals, idx, cfg,
-                                _capacity(N, cfg))
+        out = _dispatch_compute(p, xd, gd, idx, cfg, _capacity(N, cfg), part)
 
     if "shared" in p:
-        out = out + L.mlp(p["shared"], xf, cfg)
+        out = out + L.mlp(p["shared"], xf, cfg,
+                          d_ff=cfg.moe_d_ff * cfg.n_shared_experts,
+                          split="shared_ff")
     return out.reshape(x.shape), aux
 
 
@@ -302,16 +360,22 @@ def mla_init(key: int, cfg: ModelConfig, device="cuda") -> Params:
     return p
 
 
-def _mla_q(p: Params, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
-    """Returns (q_nope (..., S, H, dn), q_rope (..., S, H, dr))."""
-    H = cfg.n_heads
+def _mla_q(p: Params, x: Tensor, cfg: ModelConfig, part=None
+           ) -> Tuple[Tensor, Tensor]:
+    """Returns (q_nope (..., S, H, dn), q_rope (..., S, H, dr)); under a
+    partition of the heads, the rank's H/m heads on its ``wq_b`` (or
+    ``wq``) columns, whose input (``q_norm``'s output, or x) is read
+    through ``copy_to``."""
+    qh = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    H = cfg.n_heads if part is None else cfg.n_heads // part.n
+    name = "wq_b" if "wq_a" in p else "wq"
     if "wq_a" in p:
-        qc = L.rmsnorm(p["q_norm"], L.dense(p["wq_a"], x), cfg.norm_eps)
-        q = L.dense(p["wq_b"], qc)
+        x = L.rmsnorm(p["q_norm"], L.dense(p["wq_a"], x), cfg.norm_eps)
+    if part is None:
+        q = L.dense(p[name], x)
     else:
-        q = L.dense(p["wq"], x)
-    q = q.reshape(x.shape[:-1] + (H, cfg.qk_nope_head_dim
-                                  + cfg.qk_rope_head_dim))
+        q = part.dense_cols(p[name], part.copy_to(x), cfg.n_heads * qh, name)
+    q = q.reshape(x.shape[:-1] + (H, qh))
     return q[..., :cfg.qk_nope_head_dim], q[..., cfg.qk_nope_head_dim:]
 
 
@@ -356,13 +420,25 @@ def _mla_attend(q_c: Tensor, q_rope: Tensor, c_kv: Tensor, k_rope: Tensor,
 def mla_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
             window: Optional[int]) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Full-sequence MLA over x (..., S, d) (train/prefill). Returns (out,
-    the compressed cache {c_kv, k_rope})."""
+    the compressed cache {c_kv, k_rope}).  Under a partition of the heads
+    (``models/partition``) the rank runs its H/m heads: the whole
+    ``wq_a``/``wkv_a`` products and norms on every rank, ``copy_to`` after
+    them (on the q-LoRA's normed output or x, and on c_kv and k_rope), the
+    rank's ``wq_b``/``wq`` columns and ``wk_b``/``wv_b`` heads, and
+    ``wo``'s row-split partial outputs summed over the ranks."""
+    from repro_torch.models import partition
+
     S = x.shape[-2]
     lead = x.shape[:-2]
-    H = cfg.n_heads
-    q_nope, q_rope = _mla_q(p, x, cfg)
+    part = partition.current()
+    if part is not None and not part.heads:
+        part = None
+    H = cfg.n_heads if part is None else cfg.n_heads // part.n
+    q_nope, q_rope = _mla_q(p, x, cfg, part)
     q_rope = L.rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = _kv_a(p, x, cfg, positions)
+    if part is not None:
+        c_kv, k_rope = part.copy_to(c_kv), part.copy_to(k_rope)
 
     # absorption: project q_nope into the compressed space once
     q_c = _per_head("hn,hcn->hc", q_nope, p["wk_b"])        # (.., S, H, c)
@@ -374,7 +450,11 @@ def mla_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
     o = _per_head("hc,hcv->hv", o_c.reshape(lead + (S, H, -1)),
                   p["wv_b"])
     o = o.reshape(lead + (S, H * cfg.v_head_dim))
-    return L.dense(p["wo"], o), {"c_kv": c_kv, "k_rope": k_rope}
+    if part is not None:
+        out = part.dense_rows(p["wo"], o, cfg.n_heads * cfg.v_head_dim, "wo")
+    else:
+        out = L.dense(p["wo"], o)
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
 
 
 def mla_decode(p: Params, x: Tensor, cfg: ModelConfig, c_kv: Tensor,
@@ -470,7 +550,7 @@ def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
     """Full-sequence forward over tokens (..., B, S).  Returns the logits,
     the aux loss summed over the MoE layers (one a leading entry), and the
     MTP logits (None unless ``return_mtp`` and the config has MTP)."""
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, cfg.vocab_size)
     S = x.shape[-2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
 
@@ -492,7 +572,8 @@ def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
 
     if cfg.mtp and return_mtp:
         # depth-1 MTP: the hidden state with the next token's embedding
-        emb_next = torch.roll(L.embed(params["embed"], tokens), -1, dims=-2)
+        emb_next = torch.roll(L.embed(params["embed"], tokens,
+                                      cfg.vocab_size), -1, dims=-2)
         h = L.dense(params["mtp_proj"],
                     torch.cat([L.rmsnorm(params["mtp_norm"], x,
                                          cfg.norm_eps), emb_next], -1))

@@ -19,7 +19,12 @@ block, ``core.packing.ShardPackSpec``):
   and rounded once, and ``wo``'s bias, if any, is added once after the
   sum;
 * the MLP: ``gate``/``up``/``fc_in`` column-split, ``down``/``fc_out``
-  row-split (``fc_out``'s bias after the sum);
+  row-split (``fc_out``'s bias after the sum); the MoE's shared expert
+  alike, on its own hidden width;
+* the MoE's routed experts (``models/moe._dispatch_compute``): every rank
+  routes, sorts and drops the whole (token, k) set alike, and rank r
+  runs experts ``[r·E/m, (r+1)·E/m)`` on their capacity buffers; the
+  ranks' partial combines are summed;
 * the embedding: a vocab-parallel lookup (each rank its rows
   ``[r·V/m, (r+1)·V/m)``, zeros elsewhere, summed: one nonzero addend a
   row, so exact), and the unembedding on the rank's vocab rows, which
@@ -56,14 +61,24 @@ the block ``launch.shardings.cache_pspec`` gives the rank
 The greedy token is the first index of the row's maximum over the
 vocab-parallel logits (:meth:`Partition.argmax_vocab`).
 
-The plan (:func:`partition_for`) covers the families of
-``models/transformer.py`` (dense and vlm); the others keep the gathered
-forward (``models/gather``) and a cache split over the batch.  A
-model-sharded leaf whose
-product is not partitioned (pixtral's ``projector``, whose output is the
-residual stream; ``fc_out``'s bias, split on its layer dim; ``wk``/``wv``
-where ``kv_heads`` is unbound) is gathered as before
-(:func:`gathered_model_leaf`).
+Where ``kv_heads`` is unbound but ``KV·hd`` divides ``model``, serving's
+plan (``partition_for(..., serve=True)``: :attr:`Partition.kv_cols`) keeps
+``wk``/``wv`` as the rank's column block, as ``launch.shardings`` lays
+them out: a rank projects its columns and the ranks' (…, KV·hd/m) results
+are gathered (:meth:`Partition.gather_kv`).  The trainer reads them whole
+through ``copy_to`` instead: a gather of the projection would need a
+reduce-scatter backward.
+
+The trainer's plan (:func:`partition_for`) covers :data:`FAMILIES` (dense,
+vlm and moe); serving's :data:`SERVE_FAMILIES` (dense and vlm: a moe model
+serves gathered).  The others keep the gathered forward
+(``models/gather``) and a cache split over the batch.  A model-sharded
+leaf whose product is not partitioned (pixtral's ``projector`` and the
+MTP's ``mtp_proj``, whose outputs are the residual stream; ``fc_out``'s
+bias, split on its layer dim; ``wk``/``wv`` where ``kv_heads`` is unbound;
+the router, ``wq_a`` and ``wkv_a``; the experts where ``n_experts`` does
+not divide ``model``, and the MTP block's, which the layout splits on
+their hidden dim) is gathered as before (:func:`gathered_model_leaf`).
 """
 from __future__ import annotations
 
@@ -75,17 +90,32 @@ from repro_torch.launch.mesh import copy_to, reduce_from
 
 Tensor = torch.Tensor
 
-#: the families whose products partition over ``model``
-FAMILIES = ("dense", "vlm")
-#: each partitioned leaf: (its layer key, its param name) -> (the logical
-#: axis that must bind to ``model``, its split: "col" | "row" | "vocab")
+#: the families whose training products partition over ``model``
+FAMILIES = ("dense", "vlm", "moe")
+#: the families whose serving products partition (the moe family's
+#: prefill and decode run gathered)
+SERVE_FAMILIES = ("dense", "vlm")
+#: the stacked layer keys whose entries partition, and the unstacked
+#: blocks that do
+_STACKS = ("layers", "dense_layers", "moe_layers")
+_BLOCKS = ("mtp_block",)
+#: each partitioned dense leaf: (its layer key, its param name) -> (the
+#: Partition field that must be set, its split: "col" | "row")
 _LEAVES = {
     ("attn", "wq"): ("heads", "col"), ("attn", "wo"): ("heads", "row"),
-    ("attn", "wk"): ("kv_heads", "col"), ("attn", "wv"): ("kv_heads", "col"),
+    ("attn", "wq_b"): ("heads", "col"),
+    ("attn", "wk"): ("kv", "col"), ("attn", "wv"): ("kv", "col"),
     ("mlp", "gate"): ("ff", "col"), ("mlp", "up"): ("ff", "col"),
     ("mlp", "down"): ("ff", "row"), ("mlp", "fc_in"): ("ff", "col"),
     ("mlp", "fc_out"): ("ff", "row"),
+    ("shared", "gate"): ("shared_ff", "col"),
+    ("shared", "up"): ("shared_ff", "col"),
+    ("shared", "down"): ("shared_ff", "row"),
 }
+#: the routed experts' leaves (E, d, f) / (E, f, d), split on E
+_EXPERT_LEAVES = ("gate", "up", "down")
+#: MLA's per-head leaves (H, c, ·), split on H
+_HEAD_LEAVES = ("wk_b", "wv_b")
 
 
 class Partition(NamedTuple):
@@ -104,6 +134,15 @@ class Partition(NamedTuple):
     cache: str = "batch"
     #: the mesh axes the cache's sequence splits over ("seq")
     seq_axes: Tuple[str, ...] = ()
+    #: the MoE's routed experts (``n_experts`` divides the axis)
+    expert: bool = False
+    #: the MoE shared expert's hidden columns (``moe_d_ff ·
+    #: n_shared_experts`` divides the axis)
+    shared_ff: bool = False
+    #: serving: ``wk``/``wv`` held as the rank's column block where the KV
+    #: heads do not split, their projections gathered
+    #: (:meth:`gather_kv`)
+    kv_cols: bool = False
 
     @property
     def seq_index(self) -> int:
@@ -141,6 +180,13 @@ class Partition(NamedTuple):
     def gather_vocab(self, local: Tensor) -> Tensor:
         """Vocab-parallel logits (..., V/n) whole, (..., V)."""
         return self.mesh.all_gather(local, self.axis, -1, op="gather_vocab")
+
+    def gather_kv(self, k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
+        """The ranks' column blocks (..., KV·hd/n) of the K and V
+        projections whole, (..., KV·hd) each, in one all-gather."""
+        kv = self.mesh.all_gather(torch.stack([k, v]), self.axis, -1,
+                                  op="gather_kv")
+        return kv[0], kv[1]
 
     def gather_heads(self, q: Tensor) -> Tensor:
         """The ranks' query heads (..., H/n · hd) concatenated, (..., H ·
@@ -226,14 +272,17 @@ class Partition(NamedTuple):
 
 
 def partition_for(cfg, mesh, *, multi_pod: bool = False,
-                  cache: Optional[Tuple[int, ...]] = None
-                  ) -> Optional[Partition]:
+                  cache: Optional[Tuple[int, ...]] = None,
+                  serve: bool = False) -> Optional[Partition]:
     """The trainer's plan on ``mesh``: which products split over
     ``model`` (a logical axis partitions where
     ``launch.shardings.rules_for`` binds it to ``model``, as the reference
     decides); None where the axis has one rank or the family keeps the
-    gathered forward.  With ``cache``, the global shape of a decode cache's
-    K leaf (L, B, T, KV, hd), serving's plan: the cache's layout read from
+    gathered forward.  With ``serve`` (or ``cache``), serving's plan: the
+    families of :data:`SERVE_FAMILIES`, and ``wk``/``wv`` kept as the
+    rank's columns where the KV heads do not split but ``KV·hd`` does
+    (:attr:`Partition.kv_cols`).  With ``cache``, the global shape of a
+    decode cache's K leaf (L, B, T, KV, hd), the cache's layout read from
     ``launch.shardings.cache_pspec`` (the KV heads over ``model`` where
     they divide it, which is where ``rules_for`` binds ``kv_heads``; else
     the sequence; else the batch alone)."""
@@ -242,7 +291,8 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
 
     axis = "model"
     n = mesh.shape.get(axis, 1)
-    if n == 1 or cfg.family not in FAMILIES:
+    serve = serve or cache is not None
+    if n == 1 or cfg.family not in (SERVE_FAMILIES if serve else FAMILIES):
         return None
     rules = rules_for(cfg, mesh, multi_pod=multi_pod)
 
@@ -250,8 +300,16 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
         r = rules.get(name)
         return r == axis or (isinstance(r, tuple) and axis in r)
 
+    def fits(k: int) -> bool:
+        return k >= n and k % n == 0
+
     part = Partition(mesh, axis, n, mesh.axis_index(axis), bound("heads"),
-                     bound("kv_heads"), bound("ff"), bound("vocab"))
+                     bound("kv_heads"), bound("ff"), bound("vocab"),
+                     expert=bool(cfg.n_experts) and bound("expert"),
+                     shared_ff=bool(cfg.n_shared_experts) and fits(
+                         cfg.moe_d_ff * cfg.n_shared_experts))
+    if serve and part.heads and not part.kv:
+        part = part._replace(kv_cols=fits(cfg.n_kv_heads * cfg.hd))
     if cache is None:
         return part
     spec = cache_pspec(("k",), tuple(cache), cfg, mesh, cache[1],
@@ -288,20 +346,35 @@ def rank_kv_heads(cfg, part: Partition
 
 def _split(path: Tuple[str, ...], part: Partition) -> Optional[str]:
     """The split of the leaf at ``path`` where its product partitions
-    ("col", "row", "vocab"), else None."""
+    ("col", "row", "vocab"; "head" for MLA's per-head leaves, "expert"
+    for the routed experts), else None.  A dense leaf's path ends in its
+    param name and "w" or "b" (``attn/wq/w``, ``mlp/shared/gate/w``); a
+    routed expert's in its name alone (``mlp/gate``), which tells it from
+    the dense MLP's, whose width is ``d_ff``, not ``moe_d_ff``."""
     if path[:1] == ("embed",) and path[-1] == "table":
         return "vocab" if part.vocab else None
-    if path[:1] != ("layers",) or len(path) < 4:
+    if path[0] not in _STACKS + _BLOCKS:
         return None
-    axis, split = _LEAVES.get((path[1], path[2]), (None, None))
-    if axis is None:
+    rest = path[1:]
+    if len(rest) == 2 and rest[0] == "mlp" and rest[1] in _EXPERT_LEAVES:
+        # the MTP block's experts split on their hidden dim (the layout's
+        # expert rule keys on a stack's name): gathered
+        return "expert" if part.expert and path[0] in _STACKS else None
+    if len(rest) == 2 and rest[0] == "attn" and rest[1] in _HEAD_LEAVES:
+        return "head" if part.heads else None
+    if rest[:2] == ("mlp", "shared"):
+        rest = rest[1:]
+    if len(rest) != 3 or rest[2] not in ("w", "b"):
         return None
-    on = {"heads": part.heads, "kv_heads": part.kv, "ff": part.ff}[axis]
-    if axis == "kv_heads":
-        on = on and part.heads
+    field, split = _LEAVES.get((rest[0], rest[1]), (None, None))
+    if field is None:
+        return None
+    on = getattr(part, field)
+    if field == "kv":
+        on = (on or part.kv_cols) and part.heads
     if not on:
         return None
-    if path[-1] == "b" and split == "row":
+    if rest[2] == "b" and split == "row":
         return None          # a row layer's bias is added after the sum
     return split
 
@@ -313,7 +386,8 @@ def model_dims(params, mdims, part: Optional[Partition]
     (None): those the rank keeps as its block, where the gather plan
     gathers the rest.  Each partitioned leaf's dim must be its split's:
     the last for a column split, the one before for a row split, the
-    table's vocab dim."""
+    head or expert dim of a per-head or expert leaf (H, ·, ·) / (E, ·, ·),
+    the table's vocab dim."""
     from repro_torch.tree import tree_paths
 
     if part is None:
@@ -324,10 +398,11 @@ def model_dims(params, mdims, part: Optional[Partition]
         if split is None:
             out.append(md)
             continue
-        # element dims: the table (V, d), a stacked weight (L, i, o), a
-        # stacked bias (L, o)
-        nd = 3 if path[-1] == "w" else 2
-        want = {"col": nd - 1, "row": nd - 2, "vocab": 0}[split]
+        # element dims: the table (V, d), a weight (L?, i, o), a bias
+        # (L?, o), a per-head or expert leaf (L?, H|E, ·, ·)
+        nd = {"w": 2, "b": 1}.get(path[-1], 3) + (path[0] in _STACKS)
+        want = {"col": nd - 1, "row": nd - 2, "head": nd - 3,
+                "expert": nd - 3, "vocab": 0}[split]
         if md != want:
             raise ValueError(f"{'/'.join(path)}: the plan splits its "
                              f"{split}s over {part.axis} but the layout "

@@ -15,7 +15,9 @@ On a mesh the dense and vlm families serve partitioned over ``model``
 (``models/partition``): the prefill runs each rank's heads, ff columns and
 vocab rows, and decode holds the rank's block of the cache (its KV heads,
 or its slice of the sequence) as the reference's cache specs lay it out;
-no rank gathers a partitioned leaf.  ``generate`` stays one device's, as
+no rank gathers a partitioned leaf (where the KV heads do not split, a
+rank projects its ``wk``/``wv`` columns and gathers the projections).  A
+moe model on a mesh serves gathered.  ``generate`` stays one device's, as
 the reference's is.
 """
 from __future__ import annotations
@@ -37,7 +39,7 @@ def _mesh_layout(model: Model, mesh, fsdp: bool):
     dims over ``model``, and over the fsdp axes where ``fsdp``);
     ``shard(params)`` cuts that block from the full params and puts the
     gather plan into ``layout["plan"]``, with the products the family
-    partitions (``models/partition``, the trainer's plan: ``layout["part"]``)
+    partitions (``models/partition``, serving's plan: ``layout["part"]``)
     kept as each rank's part.  Without a mesh there is no plan and
     ``shard`` is the identity."""
     layout: dict = {"plan": None, "part": None}
@@ -62,7 +64,8 @@ def _mesh_layout(model: Model, mesh, fsdp: bool):
                     for d, e in enumerate(spec) if e is not None]
             mdims.append(next((d for d, a in axes if "model" in a), None))
             fdims.append(next((d for d, a in axes if fset & set(a)), None))
-        layout["part"] = partition_for(model.cfg, mesh, multi_pod=multi_pod)
+        layout["part"] = partition_for(model.cfg, mesh, multi_pod=multi_pod,
+                                       serve=True)
         layout["plan"] = make_plan(params, mdims, fdims, mesh, lead=0,
                                    fsdp_axis=faxes or "fsdp",
                                    part=layout["part"])
@@ -150,7 +153,8 @@ def make_serve_step(model: Model, mesh=None, *, fsdp: bool = False):
         from repro_torch.launch.mesh import data_axes
         from repro_torch.launch.shardings import (_entry_axes, cache_pspecs,
                                                   shard_shape)
-        from repro_torch.models.partition import FAMILIES, partition_for
+        from repro_torch.models.partition import (SERVE_FAMILIES,
+                                                  partition_for)
         from repro_torch.tree import tree_leaves
 
         multi_pod = "pod" in mesh.axis_names
@@ -158,7 +162,7 @@ def make_serve_step(model: Model, mesh=None, *, fsdp: bool = False):
         specs, moved = _batch_specs(glob, cache_pspecs(
             glob, model.cfg, mesh, batch, multi_pod=multi_pod))
         part = None
-        if model.cfg.family in FAMILIES:
+        if model.cfg.family in SERVE_FAMILIES:
             part = partition_for(model.cfg, mesh, multi_pod=multi_pod,
                                  cache=tuple(glob["k"].shape))
         if part is None:

@@ -60,7 +60,7 @@ from repro_torch.launch.mesh import FakeMesh  # noqa: E402
 from repro_torch.launch.trace_analysis import (analyze,  # noqa: E402
                                                collective_calls, tracing)
 from repro_torch.models.registry import build_model, get_config  # noqa: E402
-from repro_torch.models.partition import FAMILIES  # noqa: E402
+from repro_torch.models.partition import SERVE_FAMILIES  # noqa: E402
 from repro_torch.models.registry import list_archs  # noqa: E402
 
 import torch_mesh as tm  # noqa: E402
@@ -125,8 +125,8 @@ def _check_spec(ours, ref, mesh):
 def _cache_layout(ours):
     """The decode cache's layout the reference's cache specs give a dense
     or vlm family (the KV heads over ``model``, else the sequence, else the
-    batch alone), and ``"batch"`` for the families still gathering."""
-    if get_config(ours.meta["arch"]).family not in FAMILIES:
+    batch alone), and ``"batch"`` for the families that serve gathered."""
+    if get_config(ours.meta["arch"]).family not in SERVE_FAMILIES:
         return "batch"
     spec = _norm(dict(specs.leaves(ours.in_shardings))[("1", "k")], 5)
     return "heads" if spec[3] else ("seq" if spec[2] else "batch")
@@ -140,7 +140,7 @@ def _same_layout(ours, mesh_name):
     kind = ours.meta["kind"]
     skip = set()
     if kind == "decode" and get_config(
-            ours.meta["arch"]).family not in FAMILIES:
+            ours.meta["arch"]).family not in SERVE_FAMILIES:
         skip.add(1)
     if kind == "train" and ours.meta["fl_mode"] == "replicated" \
             and mesh_name == "4x4x16":
@@ -329,9 +329,9 @@ def test_trace_flops_match_the_reference_hlo(arch, shape):
                 q, q, True, per[name]), name
 
 
-#: the reference's reduced granite-8b train_4k compiled on a (1, 2) ``Auto``
-#: mesh of two forced host devices: XLA's partition of each product over
-#: ``model`` (its per-device module's text into ``argv[1]``)
+#: the reference's reduced ``argv[2]`` train_4k compiled on a (1, 2)
+#: ``Auto`` mesh of two forced host devices: XLA's partition of each product
+#: over ``model`` (its per-device module's text into ``argv[1]``)
 _HLO_12 = r"""
 import sys
 import jax
@@ -344,9 +344,9 @@ from repro.models.sharding import axis_rules
 assert jax.device_count() == 2, jax.devices()
 mesh = jax.make_mesh((1, 2), ("data", "model"),
                      axis_types=(AxisType.Auto,) * 2)
-spec = build_spec("granite-8b", "train_4k", mesh, multi_pod=False,
+spec = build_spec(sys.argv[2], "train_4k", mesh, multi_pod=False,
                   reduced=True)
-rules = rules_for(get_config("granite-8b").reduced(), mesh, multi_pod=False,
+rules = rules_for(get_config(sys.argv[2]).reduced(), mesh, multi_pod=False,
                   fl_replicated=True)
 with mesh:
     with axis_rules(mesh, rules):
@@ -358,27 +358,32 @@ print("HLO_OK")
 """
 
 
+def _hlo_12(tmp_path, arch):
+    """The text of :data:`_HLO_12`'s module for ``arch``."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / f"{arch}_12.hlo"
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+                          + " --xla_force_host_platform_device_count=2"
+                          ).strip())
+    proc = subprocess.run([sys.executable, "-c", _HLO_12, str(out), arch],
+                          env=env, capture_output=True, text=True,
+                          timeout=400, cwd=repo)
+    assert "HLO_OK" in proc.stdout, proc.stdout + proc.stderr
+    return out.read_text()
+
+
 def test_partitioned_trace_flops_match_the_references_partition(tmp_path):
     """The port's rank on a (1, 2) fake mesh computes its heads, ff columns
     and vocab rows (``models/partition``): its traced flops outside
     attention equal, within rtol 1e-2, the per-device flops of the
     reference's module that XLA partitions over the same mesh, and B11 runs
     on half the heads."""
-    import subprocess
-    import sys
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = tmp_path / "granite_12.hlo"
-    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"),
-               JAX_PLATFORMS="cpu",
-               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
-                          + " --xla_force_host_platform_device_count=2"
-                          ).strip())
-    proc = subprocess.run([sys.executable, "-c", _HLO_12, str(out)],
-                          env=env, capture_output=True, text=True,
-                          timeout=400, cwd=repo)
-    assert "HLO_OK" in proc.stdout, proc.stdout + proc.stderr
-    hlo = out.read_text()
+    hlo = _hlo_12(tmp_path, "granite-8b")
     ref_total = hlo_analysis.analyze(hlo).flops
     dots = _hlo_dots(hlo)
     mesh = FakeMesh((1, 2), ("data", "model"))
@@ -407,6 +412,73 @@ def test_partitioned_trace_flops_match_the_references_partition(tmp_path):
     assert s.mesh_stats["copy_to"]["calls"] > 0
 
 
+def _expert_product(shapes, E_local, C):
+    """A routed expert's batched product: an (E_local, ·, ·) operand with
+    the capacity C on one of its last two dims."""
+    return any(len(sh) == 3 and sh[0] == E_local and C in sh[1:]
+               for sh in shapes)
+
+
+def test_partitioned_moe_trace_flops_match_the_references_partition(
+        tmp_path):
+    """Reduced qwen3-moe train_4k on a (1, 2) fake mesh: the rank runs its
+    E/2 routed experts, its heads and vocab rows (``models/partition``).
+    The experts' three batched products (with their backward and the
+    checkpoint's recompute) and every product outside attention count,
+    within rtol 1e-2, the flops of the per-device module XLA partitions
+    from the reference's over the same mesh."""
+    from repro_torch.models import moe
+
+    hlo = _hlo_12(tmp_path, "qwen3-moe-30b-a3b")
+    ref_total = hlo_analysis.analyze(hlo).flops
+    dots = _hlo_dots(hlo)
+    mesh = FakeMesh((1, 2), ("data", "model"))
+    spec = specs.build_spec("qwen3-moe-30b-a3b", "train_4k", mesh,
+                            multi_pod=False, reduced=True)
+    s = analyze(spec.fn, spec.local_args, mesh)
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    S = spec.meta["seq"]
+    C = moe._capacity(S * spec.meta["global_batch"]
+                      // spec.meta["n_workers"], cfg)
+    ref_ex = sum(v for k, v in dots.items()
+                 if _expert_product(k, cfg.n_experts // 2, C))
+    ours_ex = sum(v for (_, ins, outs), v in s.products.items()
+                  if _expert_product(ins + outs, cfg.n_experts // 2, C))
+    assert ref_ex > 0
+    assert ours_ex == pytest.approx(ref_ex, rel=1e-2)
+    ref_attn = sum(v for k, v in dots.items() if _attention(k, S))
+    ours_attn = sum(v for (_, ins, outs), v in s.products.items()
+                    if _attention(ins + outs, S))
+    kernel_flops = sum(k["flops"] for k in s.kernels.values())
+    assert s.flops - ours_attn - kernel_flops == pytest.approx(
+        ref_total - ref_attn, rel=1e-2)
+    # no expert leaf is gathered: the router's columns alone, a layer each
+    assert s.mesh_stats["all_gather"]["calls"] == 2 * cfg.n_layers
+    assert s.mesh_stats["reduce_from"]["calls"] > 0
+
+
+def test_seq_decode_gathers_the_kv_projections_not_wk_wv():
+    """granite-8b decode_32k at full size on 16 × 16 (32 heads split, 8 KV
+    heads not, so the cache lies on the sequence): a step gathers no
+    parameter over ``model``.  Each layer gathers its K and V projections
+    of the rank's ``wk``/``wv`` columns, (B, 1, KV·hd) each, where a gather
+    of ``wk``/``wv`` (d, KV·hd) would move over 500× the bytes."""
+    mesh = _fake("16x16")
+    spec = specs.build_spec("granite-8b", "decode_32k", mesh,
+                            multi_pod=False)
+    assert spec.meta["cache_layout"] == "seq"
+    s = analyze(spec.fn, spec.local_args, mesh)
+    assert "all_gather" not in s.mesh_stats
+    cfg = get_config("granite-8b")
+    L, kvd, n = cfg.n_layers, cfg.n_kv_heads * cfg.hd, mesh.shape["model"]
+    B = spec.local_args[1]["k"].shape[1]
+    kv = s.mesh_stats["gather_kv"]
+    assert kv["calls"] == L
+    # the mesh counts a gather's input: the rank's (2, B, 1, KV·hd/n) bf16
+    assert kv["bytes"] == L * 2 * B * kvd // n * 2
+    assert 500 * n * kv["bytes"] < L * 2 * cfg.d_model * kvd * 2
+
+
 # ---------------------------------------------------------------------------
 # collectives against a live round on two gloo ranks
 # ---------------------------------------------------------------------------
@@ -419,9 +491,9 @@ def live(tmp_path_factory):
 
 
 def test_trace_collectives_equal_a_live_round(live):
-    for name, shape, mode in tm.DRYRUN_ROUNDS:
+    for name, shape, mode, arch in tm.DRYRUN_ROUNDS:
         mesh = FakeMesh(shape, ("data", "model"))
-        init_fn, step = tm.dryrun_trainer(mesh, mode, "meta")
+        init_fn, step = tm.dryrun_trainer(mesh, mode, "meta", arch)
         state = init_fn(0)
         batch = tm.dryrun_batch(mesh, mode, "meta")
         s = analyze(lambda st, b: step(st, b, key=tm.DRYRUN_KEY),

@@ -279,9 +279,12 @@ def test_collectives_per_layer(ranks, name):
     the last logits' gather.  Decode: the same sums, the greedy token's
     max and min over the vocab and, where the cache splits the sequence,
     each layer's query heads gathered over ``model`` (where the heads
-    split) and its softmax's max and sum over the sequence's axes.  No
-    all-gather over ``model`` but of the leaves whose products do not
-    partition (pixtral's ``projector``, ``wk``/``wv`` of one KV head)."""
+    split) and its softmax's max and sum over the sequence's axes.  Where
+    the KV heads do not split, each layer's K and V projections of the
+    rank's ``wk``/``wv`` columns gathered (``gather_kv``), in the prefill
+    and in decode.  No all-gather over ``model`` but of the leaves whose
+    products do not partition (pixtral's ``projector``): never
+    ``wk``/``wv``."""
     cfg = _cfg(name)
     L = cfg.n_layers
     got = ranks[name][0]
@@ -289,11 +292,13 @@ def test_collectives_per_layer(ranks, name):
     full = tm._build(cfg).init(0, device="meta")
     md, _ = shard_dims_2d(full, cfg, mesh, multi_pod=False,
                           worker_dim=False)
-    part = partition_for(cfg, mesh)
+    part = partition_for(cfg, mesh, serve=True)
     assert part.heads and part.ff and part.vocab
-    n_gather = sum(1 if path[0] != "layers" else L
-                   for (path, _), d in zip(tree_paths(full), md)
-                   if gathered_model_leaf(path, d, part))
+    assert part.kv_cols == (not part.kv)
+    still = [path for (path, _), d in zip(tree_paths(full), md)
+             if gathered_model_leaf(path, d, part)]
+    assert not any(p[-2] in ("wk", "wv") for p in still), still
+    n_gather = sum(1 if path[0] != "layers" else L for path in still)
     # a decode step reads no projector, but gathers it with the unstacked
     # leaves
     gathered = {"model": n_gather} if n_gather else None
@@ -305,10 +310,14 @@ def test_collectives_per_layer(ranks, name):
         assert pre.get("reduce_from") == {"model": 1 + 2 * L}, pre
         assert pre.get("gather_vocab") == {"model": 1}, pre
         assert pre.get("all_gather") == gathered, pre
+        kv = {"model": L} if part.kv_cols else None
+        assert pre.get("gather_kv") == kv, pre
         want = {"reduce_from": {"model": 1 + 2 * L},
                 "vocab_max": {"model": 1}, "vocab_min": {"model": 1}}
         if gathered:
             want["all_gather"] = gathered
+        if kv:
+            want["gather_kv"] = kv
         if layout == "seq":
             want.update(gather_heads={"model": L},
                         softmax_max={seq: L}, softmax_sum={seq: L})

@@ -7,6 +7,7 @@ returns each rank's pickled result.  The rank functions import only torch
 and the port, so a spawned rank never pays for JAX."""
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import traceback
@@ -909,17 +910,19 @@ def sketched_replay_rank(mesh, case: dict) -> dict:
 # the dry run's collectives against a live round (tests/test_torch_dryrun.py)
 # ---------------------------------------------------------------------------
 
-#: (name, mesh shape, FL mode) of the rounds the dry-run test holds to a live
-#: round, and that round's key
-DRYRUN_ROUNDS = (("(1, 2)", (1, 2), "replicated"),
-                 ("(2, 1)", (2, 1), "replicated"),
-                 ("sketched (1, 2)", (1, 2), "sketched"))
+#: (name, mesh shape, FL mode, arch) of the rounds the dry-run test holds to
+#: a live round (reduced; qwen3-moe's experts, heads and vocab partitioned on
+#: (1, 2)), and that round's key
+DRYRUN_ROUNDS = (("(1, 2)", (1, 2), "replicated", "granite-8b"),
+                 ("(2, 1)", (2, 1), "replicated", "granite-8b"),
+                 ("sketched (1, 2)", (1, 2), "sketched", "granite-8b"),
+                 ("moe (1, 2)", (1, 2), "replicated", "qwen3-moe-30b-a3b"))
 DRYRUN_KEY = 7
 DRYRUN_SEQ = 16
 
 
-def dryrun_trainer(mesh, mode: str, device):
-    """``(init_fn, train_step)`` of reduced granite-8b, 2 workers, one local
+def dryrun_trainer(mesh, mode: str, device, arch: str = "granite-8b"):
+    """``(init_fn, train_step)`` of reduced ``arch``, 2 workers, one local
     sgd step, on ``mesh`` and ``device`` (``meta`` for the trace)."""
     from repro_torch.core.admm import AdmmConfig
     from repro_torch.core.channel import ChannelConfig
@@ -927,7 +930,7 @@ def dryrun_trainer(mesh, mode: str, device):
     from repro_torch.train.llm_trainer import FLConfig, make_fl_train
 
     return make_fl_train(
-        get_model("granite-8b", reduced=True),
+        get_model(arch, reduced=True),
         FLConfig(mode=mode, n_workers=2, local_steps=1, local_lr=1e-2,
                  sketch_ratio=16),
         AdmmConfig(rho=0.5, flip_on_change=False),
@@ -1093,9 +1096,9 @@ def dryrun_rank(rank: int) -> dict:
     from repro_torch.launch.trace_analysis import mesh_collectives
 
     out = {}
-    for name, shape, mode in DRYRUN_ROUNDS:
+    for name, shape, mode, arch in DRYRUN_ROUNDS:
         mesh = make_mesh(shape, ("data", "model"), "cpu")
-        init_fn, step = dryrun_trainer(mesh, mode, "cpu")
+        init_fn, step = dryrun_trainer(mesh, mode, "cpu", arch)
         state = init_fn(0)
         batch = dryrun_batch(mesh, mode, "cpu")
         mesh.reset_stats()
@@ -1125,15 +1128,17 @@ def partition_cfg(arch: str, over: dict):
 
 def partitioned_rank(rank: int, cases: list) -> dict:
     """Each case (``name``, ``arch``, ``over``, ``params``: the numpy
-    worker-led tree, ``batch``) on the (1, 2) grid: the rank's blocks of
-    the params under the trainer's layout and partition plan, the loss
-    (W,), the gradient of each block, and the mesh's collectives in the
-    forward and in the backward (calls by axis)."""
+    worker-led tree, ``batch``, and optionally ``opt``, a ``REPRO_OPT``
+    value) on the (1, 2) grid: the rank's blocks of the params under the
+    trainer's layout and partition plan, the loss (W,), the gradient of
+    each block, the mesh's collectives in the forward and in the backward
+    (calls by axis), and the forward's MoE routing (``moe.record_routing``:
+    each dispatch's picks and kept pairs)."""
     from repro_torch.convert import model_params_from_numpy
     from repro_torch.core.packing import build_shard_packspec, shard_tree
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.shardings import shard_dims_2d
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
     from repro_torch.models import gather as G
     from repro_torch.models.partition import partition_for
     from repro_torch.tree import tree_map
@@ -1157,16 +1162,35 @@ def partitioned_rank(rank: int, cases: list) -> dict:
         def calls():
             return {op: dict(s["axes"]) for op, s in mesh.stats.items()}
         mesh.reset_stats()
-        with G.gathering(plan):
-            loss, _ = model.loss(G.gather_params(theta), batch)
+        with G.gathering(plan), opt_env(case.get("opt")):
+            with moe.record_routing() as routing:
+                loss, _ = model.loss(G.gather_params(theta), batch)
             fwd = calls()
             mesh.reset_stats()
             loss.sum().backward()
         out[case["name"]] = {
             "j": j, "loss": to_np(loss), "fwd": fwd, "bwd": calls(),
             "grads": to_np(tree_map(lambda l: l.grad, theta)),
+            "routing": to_np(routing),
             "part": None if part is None else part._replace(mesh=None)}
     return out
+
+
+@contextlib.contextmanager
+def opt_env(value):
+    """``REPRO_OPT`` set to ``value`` in the block (left as it is where
+    None)."""
+    prev = os.environ.get("REPRO_OPT")
+    if value is not None:
+        os.environ["REPRO_OPT"] = value
+    try:
+        yield
+    finally:
+        if value is not None:
+            if prev is None:
+                os.environ.pop("REPRO_OPT")
+            else:
+                os.environ["REPRO_OPT"] = prev
 
 
 # ---------------------------------------------------------------------------
