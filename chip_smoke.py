@@ -44,9 +44,10 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              version on the same inputs, with its device time (``ms``,
              median of CUDA-event timings behind a GPU spin), its time with
              the host's launch (``ms_with_launch``), the plain version's
-             times, its bound (bytes over the card's memory rate, or
-             operations over the card's rate for their type, whichever is
-             larger) and, for B11, SDPA's time (``library_ms``).
+             times (medians of ``PLAIN_RUNS`` calls), its bound (bytes
+             over the card's memory rate, or operations over the card's
+             rate for their type, whichever is larger) and, for B11, SDPA's
+             time (``library_ms``).
 4. mlp     — the main path: the paper's 784-128-64-10 MLP, 100 workers,
              4096 subcarriers, 20 local Adam steps per round, trained for 5
              rounds through ``make("afadmm", ...)`` and ``train``.
@@ -81,7 +82,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              in fig2a.
 13. profile — one more round of phases 4, 7 and 10 each under
              torch.profiler: device time by kernel family, its share of the
-             phase's round time, and the guarded uplink's span.
+             phase's round time, and the guarded uplink's span, summed
+             from kineto's raw events (``_trace``: a trace of up to
+             ``TRACE_CHECK_EVENTS`` events is held to ``key_averages``).
 14. accumulate — the worker-at-a-time receive at the paper MLP's width
              (W = 100, d = 109,386): ``transport.ota_accumulate`` (B13) once
              per worker, then ``ota_receive_accumulated`` (one B3), held
@@ -196,7 +199,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              recurrentgemma-2b, qwen3-moe-30b-a3b (48 layers), pixtral-12b
              (40) and seamless-m4t-medium (12 + 12) at full width and
              depth, and deepseek-v3-671b cut to 4 of its 61 layers, bf16:
-             8 prompts of 64 tokens, 64 greedy tokens through ``generate``
+             8 prompts of 64 tokens, 16 greedy tokens through ``generate``
              (every step's logits finite, no kernel launched) and
              ``make_prefill`` (B11 × 36, B12 × 64, B12 × 18, B11 × 48,
              B11 × 40 over 256 stub patches a prompt, B11 × 12 over 1,024
@@ -246,7 +249,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              gathered (2, d_pad) planes): Θ, λ and α⁻¹ within 1e-6; B6, B3
              and B4 once a round on each rank.  Then the pure-data pin: the
              same 1-layer trainer on (2, 1) (one worker a rank) against one
-             device, noise-free, 3 rounds of 2 local steps: every round's
+             device, noise-free, 2 rounds of 2 local steps: every round's
              loss and α⁻¹, Θ, the rank's θ and λ rows within rtol 1e-6, its
              h rows bit-equal (each rank runs the one-device rounds in
              turn, twice, recording whether the two agree bit for bit and,
@@ -263,7 +266,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              within rtol 1e-5, Θ_s within atol 1e-6, the Θ shard within
              atol 1e-5.
 40. llm_mesh — phase 15's trainer (granite-8b, 2 of 36 layers, W = 2,
-             4,096 tokens a worker, 3 rounds) on the (1, 2) grid (each rank
+             4,096 tokens a worker, 2 rounds) on the (1, 2) grid (each rank
              half of every leaf, its heads, ff columns and vocab rows of
              every product) and the (2, 1) grid (one worker a rank): the
              loss falling, θ and Θ finite, the ranks' losses bit-equal,
@@ -286,7 +289,7 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              hold Θ_s to one device's at atol 1e-6).
 42. llm_mesh_sketched — after phase 40: the sketched mode on (1, 2),
              granite-8b cut to 2 of 36 layers, W = 2, 1 × 4,096 tokens, 2
-             sgd steps at 5e-4, ratio 256, 3 rounds (the forward
+             sgd steps at 5e-4, ratio 256, 2 rounds (the forward
              partitioned): λ and h (2, d_s), the loss and Θ finite, the
              ranks' losses bit-equal, each rank's peak ≤ 40 GB; s/round,
              tokens/s, the all-reduces', all-gathers' and codec's ms a
@@ -298,14 +301,14 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              tensor's largest magnitude.
 46. serve_mesh — after phase 43, in the same spawn: partitioned serving
              on (1, 2) (``repro_torch.serve`` on a mesh, the cache's
-             "heads" layout): granite-8b at full width and all 36 layers
-             in bf16, an 8 × 64 prefill and 79 greedy steps fed one
+             "heads" layout): granite-8b at full width cut to 12 of its
+             36 layers in bf16, an 8 × 64 prefill and 79 greedy steps fed one
              device's tokens (the parent's run, and the same weights in
              f32): the ranks' tokens and logits bit-equal, the logits no
              further from the f32 run than one device's bf16 logits (RMS
              ratio ≤ 1.1; 2⁻⁶ of the largest logit recorded),
              the tokens equal wherever one device's top-2 margin exceeds
-             twice the step's largest |Δ|, B11 36 times a prefill on each
+             twice the step's largest |Δ|, B11 12 times a prefill on each
              rank's 16 heads and none in decode, no all-gather over
              ``model`` of a partitioned leaf, each rank's peak ≤ 40 GB;
              then reduced f32 granite-8b in the heads layout, with one KV
@@ -330,14 +333,36 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 48. llm_mesh_moe — after phase 47: qwen3-moe-30b-a3b at full width cut
              48 -> 2 layers (D = 1,557,407,744, d_s = 6,083,624), sketched
              on (1, 2) (64 experts, 16 heads, 2 KV heads, half the vocab a
-             rank), W = 2, 1 × 4,096 tokens, 2 sgd steps, 3 rounds: λ and h
+             rank), W = 2, 1 × 4,096 tokens, 2 sgd steps, 2 rounds: λ and h
              (2, d_s), loss and Θ finite, the ranks' losses and picks
              bit-equal, B11 16/8/8 on 16 heads and B6, B3, B4 once a
              round, no expert leaf gathered, ≤ 40 GB a rank; s/round
-             (median of rounds 2–3), tokens/s, the peaks, the collectives,
+             (round 2), tokens/s, the peaks, the collectives,
              the codec's ms, the dropped share, and the ``moe_dispatch``/
              ``moe_combine`` device ms of one more profiled round.  Its
              kernel rows: B6, B3 and B4 at (2, 6,083,624).
+49. serve_mesh_moe — after phase 46, in the same spawn: the MoE family's
+             partitioned serving on (1, 2): qwen3-moe-30b-a3b at full width
+             cut 48 -> 8 layers, bf16 (each rank 64 experts, 16 heads, 2
+             KV heads, the cache's "heads" layout, half the vocabulary),
+             phase 46's 8 × 64 prefill and 79 greedy steps fed one
+             device's tokens: the ranks' tokens, logits and expert picks
+             bit-equal, the logits no further from the same weights in f32
+             than one device's bf16 logits (RMS ratio ≤ 1.1), B11 8 times
+             a prefill on each rank's 16 heads and none in decode, the
+             prefill's only parameter all-gathers the routers', none in
+             decode (the router's columns on the rank, its one-token
+             logits gathered), each rank's peak ≤ 40 GB; prefill ms, a
+             step's wall and device ms, the collectives, the dropped share.
+50. serve_mesh_moe_check — after phase 49: reduced qwen3-moe (the KV
+             heads; one KV head on the sequence) and deepseek-v3 (MLA's
+             latent cache on the sequence; with and without q-LoRA, the
+             shared expert, a dense first layer, MTP never gathered) in
+             f32 on (1, 2) against the parent's one-device runs: logits
+             and cache within 1e-5 of one device's, tokens equal, 0
+             differing expert picks or kept pairs, the prefill's parameter
+             all-gathers only the router's, ``wq_a``'s and ``wkv_a``'s,
+             none in decode.
 44. dryrun — last: the dry run's trace on ``meta`` (no kernel) against
              the card: phases 40's and 42's rounds traced on a fake-rank
              mesh count each rank's collectives (calls and bytes by op)
@@ -358,9 +383,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              it says bit for bit, B9 within 1e-6 and B11's gradients within
              1e-5 of their plain versions (gates); the times recorded.
 
-Launch counts are reset just before each of phases 4–12, 14–43, 45 and
-46 and read just after (in each rank for phases 39–43 and 46, summed over
-the ranks;
+Launch counts are reset just before each of phases 4–12, 14–43, 45, 46
+and 49 and read just after (in each rank for phases 39–43, 46 and 49,
+summed over the ranks;
 phase 45's spawned ranks count in their own sections).  Then
 come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
@@ -901,6 +926,13 @@ def _robust_rows(torch, build, mem_rate, f32_rate):
     return rows
 
 
+#: the plain versions' times in the kernel table: the median of this many
+#: calls after one warm-up (a kernel's own times take ``TIMED_RUNS``); at
+#: the paths' shapes a plain call takes up to 0.3 s, and 25 of them made
+#: most of the kernel phase's time
+PLAIN_RUNS = 5
+
+
 def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
                 plain, nbytes, flops, tol, shape, extra, select=None,
                 tol_of=None, library=None, plain_times=None):
@@ -938,8 +970,8 @@ def _kernel_row(torch, build, mem_rate, op_rate, name, replaces, lib, kernel,
     del out, outs, want, refs
     kernel_ms = time_ms(kernel)
     if plain_times is None:
-        plain_times = (time_ms(plain), time_ms(plain,
-                                                      spin=False))
+        plain_times = (time_ms(plain, runs=PLAIN_RUNS, warmup=1),
+                       time_ms(plain, runs=PLAIN_RUNS, warmup=1, spin=False))
     plain_ms, plain_ms_with_launch = plain_times
     bytes_ms = nbytes / mem_rate * 1e3
     flops_ms = flops / op_rate * 1e3
@@ -4446,7 +4478,7 @@ def phase_llm_encdec(torch):
 
 
 #: phase ``serve``: each family at full width and depth, bf16, random init:
-#: a batch of 8 prompts of 64 tokens, 64 greedy tokens through ``generate``
+#: a batch of 8 prompts of 64 tokens, 16 greedy tokens through ``generate``
 #: (the prompt ingested through decode), and ``make_prefill`` on the same
 #: prompts (the vlm's after 256 stub patches each, the enc-dec's over 1,024
 #: stub frames each), whose launches are B11 a causal attention layer
@@ -4454,7 +4486,7 @@ def phase_llm_encdec(torch):
 #: layers; none for deepseek-v3's MLA) and B12 a recurrent layer (all 64 of
 #: falcon-mamba-7b; 18 of recurrentgemma-2b's 26, its windowed attention
 #: taking the masked path)
-SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 64, 64
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 64, 16
 SERVE_ARCHS = (("granite-8b", {"flash_attention_fwd": 36}),
                ("falcon-mamba-7b", {"linear_scan_fwd": 64}),
                ("recurrentgemma-2b", {"linear_scan_fwd": 18}),
@@ -4945,10 +4977,16 @@ def _mesh_partition_rank(torch, mesh) -> dict:
     return out
 
 
+#: rounds of ``llm_mesh`` on each grid (``llm``'s 3 before the run's time
+#: limit)
+MESH_RUN_ROUNDS = 2
+
+
 def _mesh_run_rank(torch, mesh) -> dict:
     """``llm_mesh`` on one rank: phase ``llm``'s trainer (granite-8b at
     full width, 2 of 36 layers, W = 2, 1 × 4,096 tokens a worker, 2 sgd
-    steps at ``LLM_LR``, 3 rounds) on ``mesh``, the collectives timed."""
+    steps at ``LLM_LR``, ``MESH_RUN_ROUNDS`` rounds) on ``mesh``, the
+    collectives timed."""
     from repro_torch import rng
     from repro_torch.core.tree_ota import shard_coords
     from repro_torch.kernels import build
@@ -4969,7 +5007,7 @@ def _mesh_run_rank(torch, mesh) -> dict:
     mesh.reset_stats()
     mesh.timing = True
     losses, times = [], []
-    for r in range(LLM_ROUNDS):
+    for r in range(MESH_RUN_ROUNDS):
         # the state goes in through a list the call empties, so the trainer
         # can free the old θ and optimizer state mid-round
         held = [state]
@@ -4986,7 +5024,7 @@ def _mesh_run_rank(torch, mesh) -> dict:
     out = {"losses": losses, "round_s": times, "setup_s": setup_s,
            "peak": torch.cuda.max_memory_allocated(), "finite": finite,
            "launches": dict(build.launches),
-           "collectives": _mesh_stats(mesh, LLM_ROUNDS),
+           "collectives": _mesh_stats(mesh, MESH_RUN_ROUNDS),
            "counts": mesh_collectives(mesh.stats),
            "W_local": W_l, "d_local": init_fn.layout["sspec"].d_local}
     del state, step, init_fn
@@ -5000,7 +5038,7 @@ def _mesh_run_rank(torch, mesh) -> dict:
 #: holds the ranks to one device's draws of h); every round's loss, Θ, λ
 #: and α⁻¹ within rtol 1e-6, h's rows bit for bit
 MESH_PIN_SHAPE = (2, 1)
-MESH_PIN_ROUNDS, MESH_PIN_STEPS = 3, 2
+MESH_PIN_ROUNDS, MESH_PIN_STEPS = 2, 2
 MESH_PIN_RTOL = 1e-6
 
 
@@ -5191,11 +5229,11 @@ def _mesh_pin_rank(torch, mesh) -> dict:
 #: on the (1, 2) grid (Θ the rank's model shard, the (W, d_s) sketches
 #: whole on each rank); granite-8b at full width, W = 2, 1 × 4,096 tokens
 #: a worker, sgd at ``LLM_LR``, ratio 256.  The check: 1 layer, one local
-#: step, noise-free, against one device; the run: 2 layers, 2 steps, 3
-#: rounds (each worker's local steps gather every layer, twice with the
-#: checkpoint's recompute)
+#: step, noise-free, against one device; the run: 2 layers, 2 steps, 2
+#: rounds (3 before the run's time limit; each worker's local steps gather
+#: every layer, twice with the checkpoint's recompute)
 MESH_SKETCH_SHAPE = (1, 2)
-MESH_SKETCH_LAYERS, MESH_SKETCH_ROUNDS = 2, 3
+MESH_SKETCH_LAYERS, MESH_SKETCH_ROUNDS = 2, 2
 #: Θ_s against one device's: the encode's scatter-add sums each bucket in
 #: another order (float atomics, and the grid's psum of its partial
 #: sketches), the chunked encode's tolerance; the decoded Θ shard against
@@ -5588,12 +5626,14 @@ def _mesh_cohort_rank(torch, mesh, ref: dict) -> dict:
 # slice 20: partitioned serving on the (1, 2) grid
 # ---------------------------------------------------------------------------
 
-#: ``serve_mesh``: granite-8b at full width and all 36 layers, bf16, served
-#: on the (1, 2) grid (its 8 KV heads split over ``model``: the cache's
-#: "heads" layout): an 8 × 64 prompt through ``make_prefill``, then through
+#: ``serve_mesh``: granite-8b at full width cut to ``SERVE_MESH_LAYERS`` of
+#: its 36 layers (the run's time limit), bf16, served on the (1, 2) grid
+#: (its 8 KV heads split over ``model``: the cache's "heads" layout): an
+#: 8 × 64 prompt through ``make_prefill``, then through
 #: the greedy step a token at a time, then 16 new tokens; the ranks feed one
 #: device's tokens, so every step's logits are compared on the same inputs
 SERVE_MESH_SHAPE = (1, 2)
+SERVE_MESH_LAYERS = 12
 SERVE_MESH_B, SERVE_MESH_P, SERVE_MESH_N = 8, 64, 16
 SERVE_MESH_STEPS = SERVE_MESH_P - 1 + SERVE_MESH_N
 #: a bound on a step's logits against one device's, 2⁻⁶ of the step's
@@ -5622,6 +5662,15 @@ SERVE_MESH_CHECK_B = 4
 SERVE_MESH_CHECK_RTOL = 1e-5
 #: the expected layout of each check's cache
 SERVE_MESH_LAYOUTS = {"heads": "heads", "seq": "seq", "seq-window": "seq"}
+
+
+def _serve_mesh_cfg():
+    import dataclasses
+
+    from repro_torch.models import get_config
+
+    return dataclasses.replace(get_config(LLM_ARCH),
+                               n_layers=SERVE_MESH_LAYERS)
 
 
 def _serve_check_cfg(over: dict):
@@ -5667,7 +5716,8 @@ def _observed(model, store: list):
 
 def _serve_mesh_reference(torch, ref_dir: str) -> dict:
     """One device's runs ``serve_mesh`` holds the ranks to, saved to
-    ``ref_dir``: granite-8b (bf16, 36 layers): the prefill's last logits,
+    ``ref_dir``: granite-8b (bf16, ``SERVE_MESH_LAYERS`` layers): the
+    prefill's last logits,
     every step's logits, inputs and greedy tokens; and each reduced f32
     check's prefill, step logits, tokens and final cache.  Returns the
     file's path, the steps' largest |logit| and smallest top-2 margin,
@@ -5676,12 +5726,12 @@ def _serve_mesh_reference(torch, ref_dir: str) -> dict:
 
     from repro_torch import rng
     from repro_torch.benchmarks.common import time_ms
-    from repro_torch.models import build_model, get_config
+    from repro_torch.models import build_model
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.tree import tree_map
 
     dev = torch.device("cuda")
-    model = build_model(get_config(LLM_ARCH))
+    model = build_model(_serve_mesh_cfg())
     params = model.init(SEED + 20)
     gen = rng.generator(SEED + 21, dev)
     prompts = torch.randint(0, model.cfg.vocab_size,
@@ -5800,20 +5850,21 @@ def _serve_mesh_repeat(torch, model, params, prompts, data) -> dict:
 
 
 def _serve_mesh_full(torch, mesh, data: dict) -> dict:
-    """``serve_mesh`` (a) on one rank: granite-8b at full width and depth on
-    ``mesh``, its prefill and its teacher-forced greedy steps against one
-    device's, timed, with the mesh's collectives, B11's launches and the
-    rank's peaks.  Each rank first runs one device's prefill and steps
-    twice in turn (:func:`_serve_mesh_repeat`)."""
+    """``serve_mesh`` (a) on one rank: granite-8b at full width on
+    ``mesh`` (``SERVE_MESH_LAYERS`` layers), its prefill and its
+    teacher-forced greedy steps against one device's, timed, with the
+    mesh's collectives, B11's launches and the rank's peaks.  Each rank
+    first runs one device's prefill and steps twice in turn
+    (:func:`_serve_mesh_repeat`)."""
     from repro_torch.kernels import build
-    from repro_torch.models import build_model, get_config, layers
+    from repro_torch.models import build_model, layers
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.tree import tree_map
 
     dev = torch.device("cuda")
     rank = torch.distributed.get_rank()
     torch.cuda.reset_peak_memory_stats()
-    model = build_model(get_config(LLM_ARCH))
+    model = build_model(_serve_mesh_cfg())
     t0 = time.perf_counter()
     full = model.init(SEED + 20)
     prompts = data["prompts"].to(dev)
@@ -6017,8 +6068,9 @@ MESH_MOE_CHECK_ROUNDS = 3
 #: experts top 8, 32 heads on 4 KV heads, vocabulary 151,936, bf16) cut 48
 #: -> 2 layers, the sketched mode on (1, 2) (each rank 64 experts, 16
 #: heads, 2 KV heads, half the vocabulary), ratio 256, W = 2, 1 × 4,096
-#: tokens a worker, 2 sgd steps at ``LLM_LR``, 3 rounds, then one profiled
-MESH_MOE_LAYERS, MESH_MOE_ROUNDS = 2, 3
+#: tokens a worker, 2 sgd steps at ``LLM_LR``, 2 rounds (3 before the
+#: run's time limit), then one profiled
+MESH_MOE_LAYERS, MESH_MOE_ROUNDS = 2, 2
 
 
 def _moe_part_cfg(arch: str):
@@ -6197,7 +6249,6 @@ def _mesh_moe_rank(torch, mesh) -> dict:
     ``MESH_MOE_LAYERS`` in the sketched mode on ``mesh``, the collectives
     and the codec timed, the routing recorded; then one more round under
     ``torch.profiler`` for the dispatch's and the combine's device ms."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import rng
@@ -6279,16 +6330,11 @@ def _mesh_moe_rank(torch, mesh) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         state, m = step(state, batch, key=rng.fold_in(SEED, 100))
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    out["spans"] = {}
-    for name in MOE_SPANS:
-        on_host = [e for e in events
-                   if e.key == name and e.device_type == DeviceType.CPU]
-        out["spans"][name] = {
-            "calls": on_host[0].count if on_host else 0,
-            "device_ms": on_host[0].device_time_total / 1e3 if on_host
-            else 0.0}
-    del state, step, init_fn, m, prof, events
+    spans = _trace(prof, MOE_SPANS)["spans"]
+    out["spans"] = {name: {"calls": spans[name]["calls"],
+                           "device_ms": spans[name]["device_us"] / 1e3}
+                    for name in MOE_SPANS}
+    del state, step, init_fn, m, prof
     _free(torch)
     return out
 
@@ -6299,8 +6345,9 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
     joins the gloo group through ``store``, runs ``llm_mesh_check`` (with
     its pure-data pin), ``llm_mesh_sketched_check``, ``llm_mesh`` on both
     grids, ``llm_mesh_sketched``, ``llm_mesh_moe_check``, ``llm_mesh_moe``,
-    ``llm_mesh_cohort_check`` and ``serve_mesh`` against the parent's
-    one-device ``refs``, and writes its
+    ``llm_mesh_cohort_check``, ``serve_mesh``, ``serve_mesh_moe`` and
+    ``serve_mesh_moe_check`` against the parent's one-device ``refs``, and
+    writes its
     results (or its traceback) to ``out_dir`` after each."""
     import datetime
     import traceback
@@ -6327,32 +6374,48 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
 
         def on(shape):
             return make_mesh(shape, axes, "cuda")
-        res["check"] = _mesh_check_rank(torch, on(MESH_SHAPES[0]),
-                                        refs["loss"])
+        res["part_s"] = {}
+
+        def part(key, fn, *args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            res["part_s"][key] = time.perf_counter() - t0
+            return out
+
+        res["check"] = part("check", _mesh_check_rank, torch,
+                            on(MESH_SHAPES[0]), refs["loss"])
         _free(torch)
-        res["pin"] = _mesh_pin_rank(torch, on(MESH_PIN_SHAPE))
+        res["pin"] = part("pin", _mesh_pin_rank, torch, on(MESH_PIN_SHAPE))
         dump()
-        res["partition"] = _mesh_partition_rank(torch, on(MESH_SHAPES[0]))
+        res["partition"] = part("partition", _mesh_partition_rank, torch,
+                                on(MESH_SHAPES[0]))
         dump()
-        res["sketched_check"] = _mesh_sketched_check_rank(
-            torch, on(MESH_SKETCH_SHAPE), refs["sketched"], control=True)
+        res["sketched_check"] = part(
+            "sketched_check", _mesh_sketched_check_rank, torch,
+            on(MESH_SKETCH_SHAPE), refs["sketched"], control=True)
         dump()
         res["runs"] = {}
         for shape in MESH_SHAPES:
-            res["runs"][str(shape)] = _mesh_run_rank(torch, on(shape))
+            res["runs"][str(shape)] = part(f"runs {shape}", _mesh_run_rank,
+                                           torch, on(shape))
             dump()
-        res["sketched"] = _mesh_sketched_rank(torch, on(MESH_SKETCH_SHAPE))
+        res["sketched"] = part("sketched", _mesh_sketched_rank, torch,
+                               on(MESH_SKETCH_SHAPE))
         dump()
-        res["moe_check"] = _mesh_moe_check_rank(torch, on(MESH_SHAPES[0]),
-                                                refs["moe"])
+        res["moe_check"] = part("moe_check", _mesh_moe_check_rank, torch,
+                                on(MESH_SHAPES[0]), refs["moe"])
         dump()
-        res["moe"] = _mesh_moe_rank(torch, on(MESH_SHAPES[0]))
+        res["moe"] = part("moe", _mesh_moe_rank, torch, on(MESH_SHAPES[0]))
         dump()
-        res["cohort"] = _mesh_cohort_rank(torch, on(MESH_PIN_SHAPE),
-                                          refs["cohort"])
+        res["cohort"] = part("cohort", _mesh_cohort_rank, torch,
+                             on(MESH_PIN_SHAPE), refs["cohort"])
         dump()
-        res["serve_mesh"] = _serve_mesh_rank(torch, on(SERVE_MESH_SHAPE),
-                                             refs["serve"])
+        res["serve_mesh"] = part("serve_mesh", _serve_mesh_rank, torch,
+                                 on(SERVE_MESH_SHAPE), refs["serve"])
+        dump()
+        res["serve_mesh_moe"] = part(
+            "serve_mesh_moe", _serve_mesh_moe_rank, torch,
+            on(SERVE_MESH_SHAPE), refs["serve_moe"])
         torch.distributed.destroy_process_group()
     except Exception:
         res["error"] = traceback.format_exc()
@@ -6413,9 +6476,11 @@ def _rank_failures(res, part: str) -> str:
 
 def phase_llm_mesh(torch):
     """Phases ``llm_mesh_check``, ``llm_mesh_sketched_check``,
-    ``llm_mesh``, ``llm_mesh_sketched``, ``llm_mesh_cohort_check`` and
-    ``serve_mesh``: the replicated and the sketched mode, and partitioned
-    serving, on (data, model) grids of two ranks spawned on the one card,
+    ``llm_mesh``, ``llm_mesh_sketched``, ``llm_mesh_cohort_check``,
+    ``serve_mesh``, ``serve_mesh_moe`` and ``serve_mesh_moe_check``: the
+    replicated and the sketched mode, and partitioned serving of the dense
+    and moe families, on (data, model) grids of two ranks spawned on the
+    one card,
     gloo between them (``launch.mesh``).  The
     kernels are built already (phase ``build``), so the ranks load them and
     do not race on the build directory.  The parent first runs the
@@ -6427,18 +6492,22 @@ def phase_llm_mesh(torch):
     ``llm_mesh_sketched``."""
     import tempfile
 
-    refs = {"loss": _mesh_check_reference(torch)}
-    _free(torch)
-    refs["sketched"] = _mesh_sketched_reference(torch)
-    _free(torch)
-    refs["cohort"] = _mesh_cohort_reference(torch)
-    _free(torch)
-    refs["moe"] = _mesh_moe_reference(torch)
-    _free(torch)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as ref_dir:
-        refs["serve"] = _serve_mesh_reference(torch, ref_dir)
-        # the ranks share the card with this process: it holds no tensor
+    refs: dict = {"seconds": {}}
+
+    def ref(key, fn, *args):
+        t0 = time.perf_counter()
+        refs[key] = fn(torch, *args)
         _free(torch)
+        refs["seconds"][key] = time.perf_counter() - t0
+
+    ref("loss", _mesh_check_reference)
+    ref("sketched", _mesh_sketched_reference)
+    ref("cohort", _mesh_cohort_reference)
+    ref("moe", _mesh_moe_reference)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as ref_dir:
+        ref("serve", _serve_mesh_reference, ref_dir)
+        # the ranks share the card with this process: it holds no tensor
+        ref("serve_moe", _serve_mesh_moe_reference, ref_dir)
         res, exit_codes, wall_s = _spawn_mesh_ranks(refs)
     loss_ref = refs["loss"]
     for part in ("check", "pin"):
@@ -6649,18 +6718,19 @@ def phase_llm_mesh(torch):
                     f"{tag}: block ({run['W_local']}, {run['d_local']}) is "
                     f"not one of the kernel rows' {shapes[1:]}")
             require(run["losses"][-1] < run["losses"][0],
-                    f"{tag}: round {LLM_ROUNDS} loss {run['losses'][-1]} is "
+                    f"{tag}: round {MESH_RUN_ROUNDS} loss "
+                    f"{run['losses'][-1]} is "
                     f"not below round 1's {run['losses'][0]}")
             require(run["finite"], f"{tag}: non-finite θ or Θ")
             require(run["losses"] == per[0]["losses"], f"{tag}: losses "
                     f"{run['losses']} are not rank 0's {per[0]['losses']}")
             require(run["peak"] <= MESH_PEAK, f"{tag}: peak "
                     f"{run['peak'] / 1e9} GB above {MESH_PEAK / 1e9} GB")
-            _per_round(dict(run["launches"]), LLM_ROUNDS,
+            _per_round(dict(run["launches"]), MESH_RUN_ROUNDS,
                        {k: v for k, v in LLM_LAUNCHES.items()})
         s_round = statistics.mean(max(per[r]["round_s"][i]
                                       for r in range(MESH_RANKS))
-                                  for i in range(1, LLM_ROUNDS))
+                                  for i in range(1, MESH_RUN_ROUNDS))
         tokens = LLM_WORKERS * LLM_SEQ * 2
         runs[str(shape)] = {
             "grid": dict(zip(("data", "model"), shape)),
@@ -6676,7 +6746,7 @@ def phase_llm_mesh(torch):
           "ranks": MESH_RANKS, "backend": res[0]["backend"],
           "staged_collectives": STAGED_COLLECTIVES, "W": LLM_WORKERS,
           "seq": LLM_SEQ, "local_steps": 2, "local_lr": LLM_LR,
-          "rounds": LLM_ROUNDS, "timing": "every collective synchronised "
+          "rounds": MESH_RUN_ROUNDS, "timing": "every collective synchronised "
           "and timed (Mesh.timing)", "grids": runs})
 
     # llm_mesh_sketched
@@ -6744,10 +6814,13 @@ def phase_llm_mesh(torch):
           "rtol": MESH_COHORT_RTOL, "noisy": False,
           "ranks": [{k: v for k, v in c.items() if k != "launches"}
                     for c in co],
-          "launches": [c["launches"] for c in co], "wall_s": wall_s})
+          "launches": [c["launches"] for c in co], "wall_s": wall_s,
+          "references_s": refs["seconds"],
+          "rank_part_s": [r.get("part_s") for r in res]})
 
     moe_launches = _gate_mesh_moe(res, refs["moe"])
     serve_launches = _gate_serve_mesh(res, refs["serve"])
+    serve_moe_launches = _gate_serve_mesh_moe(res, refs["serve_moe"])
 
     counts = {str(shape): [r["runs"][str(shape)]["counts"] for r in res]
               for shape in MESH_SHAPES}
@@ -6759,7 +6832,8 @@ def phase_llm_mesh(torch):
                                  for p in r["runs"].values()),
              "llm_mesh_sketched": _summed(run["launches"] for run in sr),
              "llm_mesh_cohort_check": _summed(c["launches"] for c in co),
-             **moe_launches, "serve_mesh": serve_launches},
+             **moe_launches, "serve_mesh": serve_launches,
+             **serve_moe_launches},
             counts)
 
 
@@ -6916,7 +6990,7 @@ def _gate_serve_mesh(res: list, ref: dict) -> dict:
            "steps": (_rms([e for f in full for e in f["step_vs_f32"]]),
                      _rms(one32["steps"]))}
     ratio = {k: a / b for k, (a, b) in rms.items()}
-    cfg = get_config(LLM_ARCH)
+    cfg = _serve_mesh_cfg()
     n_layers = cfg.n_layers
     for r, f in enumerate(full):
         tag = f"serve_mesh rank {r}"
@@ -6974,6 +7048,8 @@ def _gate_serve_mesh(res: list, ref: dict) -> dict:
     def per_rank(key):
         return [f[key] for f in full]
     emit({"phase": "serve_mesh", "ok": True, "arch": LLM_ARCH,
+          "reduced": {"n_layers": f"{get_config(LLM_ARCH).n_layers} -> "
+                                  f"{n_layers}"},
           "n_layers": n_layers, "dtype": "bfloat16",
           "grid": dict(zip(("data", "model"), SERVE_MESH_SHAPE)),
           "ranks": MESH_RANKS, "backend": res[0]["backend"],
@@ -7023,6 +7099,477 @@ def _gate_serve_mesh(res: list, ref: dict) -> dict:
                                for name, over, P, N in SERVE_MESH_CHECKS}}})
     return _summed([f["prefill_launches"] for f in full]
                    + [f["decode_launches"] for f in full])
+
+
+# ---------------------------------------------------------------------------
+# slice 22: the MoE family's partitioned serving on the (1, 2) grid
+# ---------------------------------------------------------------------------
+
+#: ``serve_mesh_moe``: qwen3-moe-30b-a3b at full width (d_model 2,048, 128
+#: experts top 8, 32 heads on 4 KV heads, vocabulary 151,936) cut 48 -> 8
+#: layers, bf16, served on the (1, 2) grid (each rank 64 experts, 16 heads,
+#: 2 KV heads, the cache's "heads" layout, half the vocabulary): the
+#: ``serve_mesh`` run (an 8 × 64 prefill, the prompt a token at a time, 16
+#: new tokens, the ranks fed one device's tokens) on it
+SERVE_MOE_LAYERS = 8
+#: ``serve_mesh_moe_check``: the CPU test's four cases in f32 on (1, 2),
+#: a batch of ``SERVE_MESH_CHECK_B``: (name, arch, config fields replaced
+#: on its reduced config, prompt, new tokens; an even ``max_seq``, so the
+#: sequence splits) and each cache's layout: qwen3-moe (the KV heads),
+#: with one KV head (the sequence, ``wk``/``wv`` the rank's columns),
+#: deepseek-v3 (MLA's latent cache on the sequence; q-LoRA, the shared
+#: expert, a dense first layer, MTP) and without q-LoRA
+SERVE_MOE_CHECKS = (("qwen3-moe", MOE_ARCH, {}, 8, 8),
+                    ("qwen3-moe-kv1", MOE_ARCH, {"n_kv_heads": 1}, 8, 8),
+                    ("deepseek-v3", "deepseek-v3-671b", {}, 8, 8),
+                    ("deepseek-v3-wq", "deepseek-v3-671b",
+                     {"q_lora_rank": 0}, 8, 8))
+SERVE_MOE_LAYOUTS = {"qwen3-moe": "heads", "qwen3-moe-kv1": "seq",
+                     "deepseek-v3": "seq", "deepseek-v3-wq": "seq"}
+
+
+def _serve_moe_check_cfg(arch: str, over: dict):
+    import dataclasses
+
+    return dataclasses.replace(_moe_part_cfg(arch), **over)
+
+
+def _routing_host(seen: list) -> list:
+    """Each dispatch's picks and kept pairs, on the host."""
+    return [{k: e[k].cpu() for k in ("idx", "kept")} for e in seen]
+
+
+def _dropped(seen: list) -> float:
+    """The share of (token, k) pairs the dispatches dropped."""
+    kept = sum(int(e["kept"].sum()) for e in seen)
+    return 1.0 - kept / max(1, sum(e["kept"].numel() for e in seen))
+
+
+def _serve_mesh_moe_reference(torch, ref_dir: str) -> dict:
+    """One device's runs ``serve_mesh_moe`` and ``serve_mesh_moe_check``
+    hold the ranks to, saved to ``ref_dir``: qwen3-moe (bf16, 8 layers):
+    the prefill's last logits, every step's logits, the inputs and greedy
+    tokens, and the same weights in f32 fed the same tokens; each reduced
+    f32 check's prefill, step logits, tokens, final cache and every
+    dispatch's picks and kept pairs.  Returns the file's path, the
+    one-device times and its bf16 logits' distance from the f32 run."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.benchmarks.common import time_ms
+    from repro_torch.device import resolve_device
+    from repro_torch.models import build_model, moe
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.tree import tree_map
+
+    t_start = time.perf_counter()
+    dev = resolve_device("cuda")
+    model = build_model(_llm_cfg(MOE_ARCH, SERVE_MOE_LAYERS))
+    params = model.init(SEED + 30)
+    gen = rng.generator(SEED + 31, dev)
+    prompts = torch.randint(0, model.cfg.vocab_size,
+                            (SERVE_MESH_B, SERVE_MESH_P), device=dev,
+                            generator=gen)
+    prefill = make_prefill(model)
+    last = prefill(params, {"tokens": prompts})
+    prefill_ms = time_ms(lambda: prefill(params, {"tokens": prompts}),
+                         runs=5, warmup=1, spin=False)
+    store: list = []
+    step = make_serve_step(_observed(model, store))
+    cache = model.init_cache(SERVE_MESH_B, SERVE_MESH_P + SERVE_MESH_N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, cache = _greedy_run(step, params, cache, prompts, SERVE_MESH_N)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / SERVE_MESH_STEPS * 1e3
+    logits = torch.stack(store)                       # (steps, B, V)
+    feed = torch.cat([prompts[:, :1].T, torch.stack(toks)[:-1]])
+    feed[:SERVE_MESH_P] = prompts.T
+    m32 = build_model(dataclasses.replace(model.cfg, param_dtype="float32"))
+    p32 = tree_map(lambda x: x.float(), params)
+    del params, cache, store
+    _free(torch)
+    last32 = make_prefill(m32)(p32, {"tokens": prompts})
+    store = []
+    c32 = m32.init_cache(SERVE_MESH_B, SERVE_MESH_P + SERVE_MESH_N)
+    _greedy_run(make_serve_step(_observed(m32, store)), p32, c32, prompts,
+                SERVE_MESH_N, feed=feed)
+    truth = torch.stack(store)
+    one_err = {"prefill": _err_stats(last, last32),
+               "steps": [_err_stats(a, b) for a, b in zip(logits, truth)]}
+    data = {"prompts": prompts.cpu(), "prefill": last.cpu(),
+            "logits": logits.cpu(), "tokens": torch.stack(toks).cpu(),
+            "feed": feed.cpu(), "prefill_f32": last32.cpu(),
+            "logits_f32": truth.cpu()}
+    del model, m32, p32, c32, prefill, step, store, logits, last, last32
+    del toks, truth
+    _free(torch)
+    t_checks = time.perf_counter()
+    for name, arch, over, P, N in SERVE_MOE_CHECKS:
+        m = build_model(_serve_moe_check_cfg(arch, over))
+        p = m.init(SEED + 32)
+        pr = torch.randint(0, m.cfg.vocab_size, (SERVE_MESH_CHECK_B, P),
+                           device=dev, generator=rng.generator(SEED + 33,
+                                                               dev))
+        st: list = []
+        with moe.record_routing() as seen:
+            last = make_prefill(m)(p, {"tokens": pr})
+            c = m.init_cache(SERVE_MESH_CHECK_B, P + N)
+            tk, c = _greedy_run(make_serve_step(_observed(m, st)), p, c,
+                                pr, N)
+        data[name] = {"prompts": pr.cpu(), "prefill": last.cpu(),
+                      "logits": torch.stack(st).cpu(),
+                      "tokens": torch.stack(tk).cpu(),
+                      "cache": tree_map(lambda x: x.cpu(), c),
+                      "routing": _routing_host(seen)}
+        del m, p, c, st, last, tk, seen
+    _free(torch)
+    path = os.path.join(ref_dir, "serve_mesh_moe_reference.pt")
+    torch.save(data, path)
+    return {"path": path, "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "one_device_vs_f32": one_err,
+            "seconds": {"full": t_checks - t_start,
+                        "checks": time.perf_counter() - t_checks}}
+
+
+def _serve_mesh_moe_full(torch, mesh, data: dict) -> dict:
+    """``serve_mesh_moe`` on one rank: qwen3-moe at full width cut to
+    ``SERVE_MOE_LAYERS`` on ``mesh``, its prefill and its teacher-forced
+    greedy steps against one device's (and the f32 run's), timed, with the
+    mesh's collectives, B11's launches and shapes, the dispatches' dropped
+    share and the rank's peaks."""
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model, layers, moe
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.tree import tree_map
+
+    dev = resolve_device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(_llm_cfg(MOE_ARCH, SERVE_MOE_LAYERS))
+    t0 = time.perf_counter()
+    full = model.init(SEED + 30)
+    prompts = data["prompts"].to(dev)
+    store: list = []
+    step = make_serve_step(_observed(model, store), mesh)
+    prefill = make_prefill(model, mesh)
+    params = step.shard(full)
+    # the prefill's plan from the shapes alone: the blocks are the step's
+    prefill.shard(tree_map(lambda x: x.to("meta"), full))
+    del full
+    cache = step.init_cache(SERVE_MESH_B, SERVE_MESH_P + SERVE_MESH_N)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _free(torch)
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    batch = {"tokens": prompts}
+    b11_shapes = []
+    b11 = layers.flash_attention
+
+    def recorded(q, *args, **kwargs):
+        b11_shapes.append(list(q.shape))
+        return b11(q, *args, **kwargs)
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    layers.flash_attention = recorded
+    try:
+        with moe.record_routing() as seen_pre:
+            last = prefill(params, batch)
+    finally:
+        layers.flash_attention = b11
+    torch.cuda.synchronize()
+    mesh.timing = False
+    pre_launches = {k: v for k, v in build.launches.items() if v}
+    pre_stats = _mesh_stats(mesh, 1)
+    pre_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+    times = []
+    for _ in range(SERVE_MESH_PREFILL_RUNS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+
+    feed = data["feed"].to(dev)
+    step_s = []
+
+    def tick(i):
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter())
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with moe.record_routing() as seen_dec:
+        toks, cache = _greedy_run(step, params, cache, prompts,
+                                  SERVE_MESH_N, feed=feed, every=tick)
+    mesh.timing = False
+    dec_launches = {k: v for k, v in build.launches.items() if v}
+    dec_stats = _mesh_stats(mesh, SERVE_MESH_STEPS)
+    dec_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+    walls = [(b - a) * 1e3 for a, b in zip([t1] + step_s[:-1], step_s)]
+    peak = torch.cuda.max_memory_allocated()
+    j = mesh.axis_index("model")
+    local = torch.stack(store)
+    vl = local.shape[-1]
+    cols = slice(j * vl, (j + 1) * vl)
+    errs, errs32 = [], []
+    for i in range(SERVE_MESH_STEPS):
+        errs.append(float((local[i].float() - data["logits"][i][:, cols]
+                           .to(dev).float()).abs().max()))
+        errs32.append(_err_stats(local[i],
+                                 data["logits_f32"][i][:, cols].to(dev)))
+    tokens = torch.stack(toks).cpu()
+    gathered = mesh.all_gather(local, "model", -1, op="gather_vocab")
+    part = step.layout["cache_part"]
+    out = {"prefill_max_abs_err": float((last.float() - data["prefill"].to(
+               dev).float()).abs().max()),
+           "prefill_sha1": _sha1(torch, last),
+           "step_logits_sha1": _sha1(torch, gathered),
+           "step_max_abs_err": errs, "step_vs_f32": errs32,
+           "prefill_vs_f32": _err_stats(last, data["prefill_f32"].to(dev)),
+           "tokens_sha1": _sha1(torch, torch.stack(toks)),
+           "tokens_equal_one_device": float(
+               (tokens == data["tokens"]).float().mean()),
+           "prefill_launches": pre_launches, "decode_launches": dec_launches,
+           "prefill_b11_shapes": sorted(map(list, {tuple(x)
+                                                   for x in b11_shapes})),
+           "prefill_collectives": pre_stats, "prefill_calls": pre_calls,
+           "decode_collectives": dec_stats, "decode_calls": dec_calls,
+           "prefill_ms": times, "decode_wall_ms": walls,
+           "setup_s": setup_s, "setup_peak": setup_peak, "peak": peak,
+           "cache_layout": step.layout["cache"],
+           "cache_block": list(cache["moe"]["k"].shape),
+           "proj_cols": list(part.proj_cols),
+           "experts_local": int(params["moe_layers"]["mlp"]["gate"]
+                                .shape[1]),
+           "picks_sha1": _sha1(torch, torch.cat(
+               [e["idx"].reshape(-1) for e in seen_pre + seen_dec])),
+           "dropped_prefill": _dropped(seen_pre),
+           "dropped_decode": _dropped(seen_dec),
+           "dispatches": [len(seen_pre), len(seen_dec)]}
+    del gathered, local, store, seen_pre, seen_dec
+    out["decode_device_ms"] = _kernel_ms(
+        torch, lambda: step(params, cache, feed[-1], SERVE_MESH_STEPS - 1))
+    del params, cache, last, model, step, prefill
+    _free(torch)
+    return out
+
+
+def _serve_mesh_moe_check(torch, mesh, data: dict, arch: str, over: dict,
+                          P: int, N: int) -> dict:
+    """``serve_mesh_moe_check`` on one rank: a reduced f32 case served
+    greedily on ``mesh`` against one device's run on the card: the
+    prefill's and every step's logits (the rank's vocab columns), the
+    tokens, every dispatch's picks and kept pairs, and the rank's cache
+    against its block of one device's."""
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.shardings import shard_leaf
+    from repro_torch.models import build_model, moe
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = resolve_device("cuda")
+    m = build_model(_serve_moe_check_cfg(arch, over))
+    full = m.init(SEED + 32)
+    prompts = data["prompts"].to(dev)
+    store: list = []
+    prefill = make_prefill(m, mesh)
+    step = make_serve_step(_observed(m, store), mesh)
+    params = step.shard(full)
+    cache = step.init_cache(SERVE_MESH_CHECK_B, P + N)
+    mesh.reset_stats()
+    with moe.record_routing() as seen:
+        last = prefill(prefill.shard(full), {"tokens": prompts})
+        pre_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+        mesh.reset_stats()
+        toks, cache = _greedy_run(step, params, cache, prompts, N)
+    calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+
+    def scaled(a, b):
+        b = b.to(dev).float()
+        return float((a.float() - b).abs().max() / b.abs().max())
+    j = mesh.axis_index("model")
+    vl = store[0].shape[-1]
+    blocks = tree_map(lambda x, sp: shard_leaf(x, sp, mesh), data["cache"],
+                      step.layout["cache_specs"])
+    out = {"layout": step.layout["cache"],
+           "cache_block": list(tree_leaves(cache)[0].shape),
+           "prefill_rel_err": scaled(last, data["prefill"]),
+           "step_rel_err": max(scaled(x, y[:, j * vl:(j + 1) * vl])
+                               for x, y in zip(store, data["logits"])),
+           "cache_rel_err": max(scaled(a, b) for a, b in zip(
+               tree_leaves(cache), tree_leaves(blocks))),
+           "tokens_equal": bool(torch.equal(torch.stack(toks).cpu(),
+                                            data["tokens"])),
+           "tokens_sha1": _sha1(torch, torch.stack(toks)),
+           "dispatches": len(seen),
+           "picks_differing": _picks_differ(seen, [
+               {k: e[k].numpy() for k in ("idx", "kept")}
+               for e in data["routing"]]),
+           "prefill_calls": pre_calls, "decode_calls": calls}
+    del m, full, params, cache, store, last, seen
+    return out
+
+
+def _serve_mesh_moe_rank(torch, mesh, ref: dict) -> dict:
+    """Phases ``serve_mesh_moe`` and ``serve_mesh_moe_check`` on one
+    rank."""
+    t0 = time.perf_counter()
+    data = torch.load(ref["path"])
+    out = {"full": _serve_mesh_moe_full(torch, mesh, data)}
+    t1 = time.perf_counter()
+    out["checks"] = {name: _serve_mesh_moe_check(torch, mesh, data[name],
+                                                 arch, over, P, N)
+                     for name, arch, over, P, N in SERVE_MOE_CHECKS}
+    _free(torch)
+    out["seconds"] = {"full": t1 - t0, "checks": time.perf_counter() - t1}
+    return out
+
+
+def _gate_serve_mesh_moe(res: list, ref: dict) -> dict:
+    """Phases ``serve_mesh_moe`` and ``serve_mesh_moe_check``: their gates
+    on the ranks' results and their lines; returns each phase's launches,
+    summed over the ranks."""
+    cfg = _llm_cfg(MOE_ARCH, SERVE_MOE_LAYERS)
+    require(all("serve_mesh_moe" in r for r in res), "serve_mesh_moe: a "
+            "rank failed:\n" + _rank_failures(res, "serve_mesh_moe"))
+    full = [r["serve_mesh_moe"]["full"] for r in res]
+    f0 = full[0]
+    one32 = ref["one_device_vs_f32"]
+    rms = {"prefill": (_rms([f["prefill_vs_f32"] for f in full[:1]]),
+                       _rms([one32["prefill"]])),
+           "steps": (_rms([e for f in full for e in f["step_vs_f32"]]),
+                     _rms(one32["steps"]))}
+    ratio = {k: a / b for k, (a, b) in rms.items()}
+    L, n = cfg.n_layers, MESH_RANKS
+    for r, f in enumerate(full):
+        tag = f"serve_mesh_moe rank {r}"
+        require(all(f[k] == f0[k] for k in (
+            "tokens_sha1", "prefill_sha1", "step_logits_sha1",
+            "picks_sha1")), f"{tag}: the tokens, logits or expert picks are "
+                f"not rank 0's bit for bit")
+        require(f["cache_layout"] == "heads" and f["cache_block"] == [
+            L, SERVE_MESH_B, SERVE_MESH_P + SERVE_MESH_N,
+            cfg.n_kv_heads // n, cfg.hd], f"{tag}: the cache's layout "
+            f"{f['cache_layout']!r}, block {f['cache_block']}")
+        require(f["experts_local"] == cfg.n_experts // n
+                and f["proj_cols"] == ["router"], f"{tag}: the rank holds "
+                f"{f['experts_local']} experts, decode keeps the columns of "
+                f"{f['proj_cols']}")
+        require(f["prefill_launches"] == {"flash_attention_fwd": L}
+                and not f["decode_launches"], f"{tag}: prefill launched "
+                f"{f['prefill_launches']}, decode {f['decode_launches']}")
+        want = [[SERVE_MESH_B, cfg.n_heads // n, SERVE_MESH_P, cfg.hd]]
+        require(f["prefill_b11_shapes"] == want, f"{tag}: B11 ran on "
+                f"{f['prefill_b11_shapes']}, not the rank's heads {want}")
+        # the prefill gathers each layer's router alone; decode no leaf
+        require(f["prefill_calls"].get("all_gather") == {"model": L}
+                and "all_gather" not in f["decode_calls"], f"{tag}: "
+                f"parameter all-gathers in the prefill "
+                f"{f['prefill_calls'].get('all_gather')}, in decode "
+                f"{f['decode_calls'].get('all_gather')}")
+        require(max(f["peak"], f["setup_peak"]) <= MESH_PEAK, f"{tag}: peak "
+                f"{f['peak'] / 1e9} GB, set-up {f['setup_peak'] / 1e9} GB, "
+                f"above {MESH_PEAK / 1e9} GB")
+    require(all(x <= SERVE_MESH_F32_RATIO for x in ratio.values()),
+            f"serve_mesh_moe: the mesh's logits are further from the f32 run "
+            f"than one device's bf16 logits are, beyond "
+            f"{SERVE_MESH_F32_RATIO}× in RMS: {rms}")
+    walls = [statistics.median(f["decode_wall_ms"]) for f in full]
+
+    def per_rank(key):
+        return [f[key] for f in full]
+    emit({"phase": "serve_mesh_moe", "ok": True, "arch": MOE_ARCH,
+          "n_layers": L, "reduced": f"depth only: {L} of 48 layers",
+          "dtype": "bfloat16",
+          "grid": dict(zip(("data", "model"), SERVE_MESH_SHAPE)),
+          "ranks": MESH_RANKS, "backend": res[0]["backend"],
+          "batch": SERVE_MESH_B, "prompt": SERVE_MESH_P,
+          "new_tokens": SERVE_MESH_N, "decode_steps": SERVE_MESH_STEPS,
+          "inputs": "one device's tokens (teacher forced)",
+          "experts_local": f0["experts_local"],
+          "proj_cols": f0["proj_cols"], "cache_layout": f0["cache_layout"],
+          "cache_block": f0["cache_block"],
+          "prefill_max_abs_err": f0["prefill_max_abs_err"],
+          "step_max_abs_err": [max(f["step_max_abs_err"][i] for f in full)
+                               for i in range(SERVE_MESH_STEPS)],
+          "rms_vs_f32": {k: {"mesh": a, "one_device": b}
+                         for k, (a, b) in rms.items()},
+          "rms_vs_f32_ratio": ratio, "f32_ratio_bound": SERVE_MESH_F32_RATIO,
+          "tokens_equal_one_device": f0["tokens_equal_one_device"],
+          "ranks_bits_equal": True,
+          "prefill_ms": per_rank("prefill_ms"),
+          "prefill_ms_one_device": ref["prefill_ms"],
+          "decode_wall_ms_per_step": walls,
+          "decode_wall_ms_per_step_one_device": ref["step_ms"],
+          "decode_device_ms_per_step": per_rank("decode_device_ms"),
+          "setup_s": per_rank("setup_s"),
+          "setup_peak_gb": [f["setup_peak"] / 1e9 for f in full],
+          "peak_mem_gb": [f["peak"] / 1e9 for f in full],
+          "prefill_collectives": per_rank("prefill_collectives"),
+          "decode_collectives_per_step": per_rank("decode_collectives"),
+          "dropped_share": {"prefill": f0["dropped_prefill"],
+                            "decode": f0["dropped_decode"]},
+          "dispatches": f0["dispatches"],
+          "prefill_launches": per_rank("prefill_launches"),
+          "prefill_b11_shapes": f0["prefill_b11_shapes"],
+          "seconds": {"one_device_reference": ref["seconds"]["full"],
+                      "ranks": [r["serve_mesh_moe"]["seconds"]["full"]
+                                for r in res]},
+          "timing": "every collective synchronised and timed (Mesh.timing)"})
+
+    checks = [r["serve_mesh_moe"]["checks"] for r in res]
+    for name, arch, over, P, N in SERVE_MOE_CHECKS:
+        c_cfg = _serve_moe_check_cfg(arch, over)
+        nm = c_cfg.n_layers - c_cfg.first_dense_layers
+        # the prefill's parameter gathers: each layer's wq_a and wkv_a
+        # (MLA), each MoE layer's router; never an MTP leaf
+        gathers = (c_cfg.n_layers * (1 + bool(c_cfg.q_lora_rank))
+                   * c_cfg.use_mla + nm)
+        for r, c in enumerate(ch[name] for ch in checks):
+            tag = f"serve_mesh_moe_check {name} rank {r}"
+            require(c["layout"] == SERVE_MOE_LAYOUTS[name], f"{tag}: layout "
+                    f"{c['layout']!r}")
+            require(max(c["prefill_rel_err"], c["step_rel_err"])
+                    <= SERVE_MESH_CHECK_RTOL, f"{tag}: logits "
+                    f"{c['prefill_rel_err']} / {c['step_rel_err']} from one "
+                    f"device's, beyond {SERVE_MESH_CHECK_RTOL}")
+            require(c["tokens_equal"] and c["tokens_sha1"]
+                    == checks[0][name]["tokens_sha1"], f"{tag}: the tokens "
+                    f"are not one device's, or not rank 0's")
+            require(c["cache_rel_err"] <= SERVE_MESH_CHECK_RTOL, f"{tag}: the "
+                    f"cache differs from its block of one device's by "
+                    f"{c['cache_rel_err']}")
+            require(c["picks_differing"] == 0 and c["dispatches"]
+                    == nm * (P + N), f"{tag}: {c['picks_differing']} picks "
+                    f"or kept pairs differ from one device's over "
+                    f"{c['dispatches']} dispatches")
+            require(c["prefill_calls"].get("all_gather") == {"model": gathers}
+                    and "all_gather" not in c["decode_calls"], f"{tag}: "
+                    f"parameter all-gathers in the prefill "
+                    f"{c['prefill_calls'].get('all_gather')} (want "
+                    f"{gathers}), in decode "
+                    f"{c['decode_calls'].get('all_gather')}")
+    emit({"phase": "serve_mesh_moe_check", "ok": True, "dtype": "float32",
+          "grid": dict(zip(("data", "model"), SERVE_MESH_SHAPE)),
+          "batch": SERVE_MESH_CHECK_B, "rtol": SERVE_MESH_CHECK_RTOL,
+          "seconds": {"one_device_reference": ref["seconds"]["checks"],
+                      "ranks": [r["serve_mesh_moe"]["seconds"]["checks"]
+                                for r in res]},
+          "reduced": "ModelConfig.reduced()",
+          "cases": {name: {"arch": arch, "over": over, "prompt": P,
+                           "new_tokens": N,
+                           "ranks": [ch[name] for ch in checks]}
+                    for name, arch, over, P, N in SERVE_MOE_CHECKS}})
+    return {"serve_mesh_moe": _summed([f["prefill_launches"] for f in full]
+                                      + [f["decode_launches"]
+                                         for f in full]),
+            "serve_mesh_moe_check": {}}
 
 
 # ---------------------------------------------------------------------------
@@ -7083,7 +7630,7 @@ def phase_dryrun(torch, llm: dict, llm_prof: dict, launch_report: dict,
     axes = ("data", "model")
     grids = {}
     cfg = _llm_cfg(LLM_ARCH, LLM_LAYERS)
-    keys = [rng.fold_in(SEED, r + 1) for r in range(LLM_ROUNDS)]
+    keys = [rng.fold_in(SEED, r + 1) for r in range(MESH_RUN_ROUNDS)]
     for shape in MESH_SHAPES:
         fake = FakeMesh(shape, axes)
         init_fn, step, _, _ = _mesh_trainer(torch, cfg, fake, noisy=True,
@@ -7213,6 +7760,128 @@ def _mlp_round(alg, run):
     return lambda: train(alg, theta0, solver, grad_fn, 1, SEED + 2)
 
 
+#: a trace of at most this many events is also summed through
+#: ``key_averages``, and :func:`_trace` must agree with it
+TRACE_CHECK_EVENTS = 20_000
+TRACE_CHECK_RTOL = 1e-9
+
+
+def _trace_by_events(prof, ranges: tuple) -> dict:
+    """:func:`_trace`'s sums from kineto's raw events: the device events
+    grouped by (name, is a device-side range), each group's calls and µs,
+    and for each name in ``ranges`` its calls on the host and the µs of the
+    device events linked to a host op inside one of those calls, on its
+    thread (as ``key_averages`` nests host ops and credits each device
+    event to the op it links to)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    names: dict = {}
+    device: dict = {}
+    ops: dict = {}
+    calls = {r: {} for r in ranges}
+    linked = []
+    for e in prof.profiler.kineto_results.events():
+        raw = e.name()
+        if _filter_name(raw) or getattr(e, "is_hidden_event",
+                                        lambda: False)():
+            continue
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = _rewrite_name(raw, with_wildcard=True)
+        is_async = e.is_async() or e.start_thread_id() != e.end_thread_id()
+        kind = e.device_type()
+        if kind == DeviceType.CPU:
+            if is_async:
+                continue
+            span = (e.start_ns(), e.end_ns(), e.start_thread_id())
+            if e.linked_correlation_id() == 0:
+                ops.setdefault(e.correlation_id(), []).append(span)
+            if name in calls:
+                calls[name].setdefault(span[2], []).append(span[:2])
+        elif kind == DeviceType.CUDA:
+            ns = e.end_ns() - e.start_ns()
+            if e.linked_correlation_id() > 0:
+                linked.append((e.linked_correlation_id(), ns))
+            got = device.setdefault((name, e.is_user_annotation()), [0, 0])
+            got[0] += 1
+            if not is_async:
+                got[1] += ns
+    spans = {}
+    for r, by_thread in calls.items():
+        for t in by_thread.values():
+            t.sort()
+        starts = {t: [s for s, _ in v] for t, v in by_thread.items()}
+        ns = 0
+        for corr, dur in linked:
+            for start, end, thread in ops.get(corr, ()):
+                if thread not in by_thread:
+                    continue
+                i = bisect.bisect_right(starts[thread], start) - 1
+                if i >= 0 and end <= by_thread[thread][i][1]:
+                    ns += dur
+        spans[r] = {"calls": sum(len(v) for v in by_thread.values()),
+                    "device_us": ns / 1e3}
+    return {"device": {k: (n, ns / 1e3) for k, (n, ns) in device.items()},
+            "spans": spans}
+
+
+def _trace_by_averages(prof, ranges: tuple) -> dict:
+    """:func:`_trace_by_events`'s sums through ``key_averages``."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    device = {(e.key, e.is_user_annotation): (e.count,
+                                              e.self_device_time_total)
+              for e in events if e.device_type == DeviceType.CUDA}
+    spans = {}
+    for r in ranges:
+        host = [e for e in events
+                if e.key == r and e.device_type == DeviceType.CPU]
+        spans[r] = {"calls": host[0].count if host else 0,
+                    "device_us": host[0].device_time_total if host else 0.0}
+    return {"device": device, "spans": spans}
+
+
+def _trace(prof, ranges: tuple = ()) -> dict:
+    """The device time of one profiled call: ``kernels``, (name, calls, µs)
+    of every device event of nonzero time that is not a device-side range
+    (``key_averages``' CUDA events whose ``self_device_time_total`` is
+    positive), ``ranges_on_device``, each device-side range's µs, and
+    ``spans``, for each name in ``ranges`` its calls on the host and the
+    device µs of the kernels launched inside them.  Summed from kineto's
+    raw events: ``key_averages`` builds a Python object an event (~80 µs
+    each on this host's CPU, tens of seconds for a full-depth round); a
+    trace of at most ``TRACE_CHECK_EVENTS`` events is summed both ways and
+    must agree within ``TRACE_CHECK_RTOL``."""
+    got = _trace_by_events(prof, ranges)
+    n_events = len(prof.profiler.kineto_results.events())
+    if n_events <= TRACE_CHECK_EVENTS:
+        want = _trace_by_averages(prof, ranges)
+
+        def close(a, b):
+            return abs(a - b) <= TRACE_CHECK_RTOL * max(abs(a), abs(b), 1.0)
+
+        dev_a, dev_b = got["device"], want["device"]
+        same = set(dev_a) == set(dev_b) and all(
+            dev_a[k][0] == dev_b[k][0] and close(dev_a[k][1], dev_b[k][1])
+            for k in dev_a) and all(
+            got["spans"][r]["calls"] == want["spans"][r]["calls"]
+            and close(got["spans"][r]["device_us"],
+                      want["spans"][r]["device_us"]) for r in ranges)
+        require(same, f"profile: the raw events' sums are not "
+                f"key_averages': {got} against {want}")
+    kernels = [(k, n, us) for (k, note), (n, us) in got["device"].items()
+               if us > 0 and k not in ranges]
+    return {"kernels": kernels, "events": n_events,
+            "checked": n_events <= TRACE_CHECK_EVENTS,
+            "ranges_on_device": {k: us for (k, note), (n, us)
+                                 in got["device"].items() if k in ranges},
+            "spans": got["spans"]}
+
+
 def phase_profile(torch, path: str, run_once, round_s: float,
                   spans=()):
     """One more round of ``path`` (``run_once``) under ``torch.profiler``:
@@ -7220,9 +7889,9 @@ def phase_profile(torch, path: str, run_once, round_s: float,
     credits each kernel's time to the ``aten::`` op that launched it),
     grouped by family, and its share of the unprofiled round time of that
     path's phase; for each profiler range named in ``spans``, the device
-    time of the kernels launched inside it.  Returns the device ms, the
-    matrix products' (cuBLAS) ms and the spans' device ms."""
-    from torch.autograd import DeviceType
+    time of the kernels launched inside it (summed by :func:`_trace`, whose
+    own seconds the line records).  Returns the device ms, the matrix
+    products' (cuBLAS) ms and the spans' device ms."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -7231,30 +7900,24 @@ def phase_profile(torch, path: str, run_once, round_s: float,
         run_once()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+    t0 = time.perf_counter()
     # the guarded uplink's span (core/admm.py) shows twice: on the host,
     # with the device time of the kernels launched inside it, and on the
     # device timeline, as its extent from first to last kernel
-    ranges = (GUARD_SPAN, *MOE_SPANS)
-    kernels = [e for e in events
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0 and e.key not in ranges]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    trace = _trace(prof, (GUARD_SPAN, *MOE_SPANS))
+    del prof
+    kernels = trace["kernels"]
+    device_ms = sum(us for _, _, us in kernels) / 1e3
     families: dict = {}
-    for e in kernels:
-        fam = families.setdefault(_kernel_family(e.key),
+    for key, n, us in kernels:
+        fam = families.setdefault(_kernel_family(key),
                                   {"calls": 0, "device_ms": 0.0})
-        fam["calls"] += e.count
-        fam["device_ms"] += e.self_device_time_total / 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:8]
-    host = [e for e in events
-            if e.key == GUARD_SPAN and e.device_type == DeviceType.CPU]
-    extent = [e for e in events
-              if e.key == GUARD_SPAN and e.device_type == DeviceType.CUDA]
+        fam["calls"] += n
+        fam["device_ms"] += us / 1e3
+    top = sorted(kernels, key=lambda k: k[2], reverse=True)[:8]
     guard = None
-    if host and kernels:
-        span_ms = host[0].device_time_total / 1e3
+    if trace["spans"][GUARD_SPAN]["calls"] and kernels:
+        span_ms = trace["spans"][GUARD_SPAN]["device_us"] / 1e3
 
         def per_call(fam):
             f = families.get("port:" + fam)
@@ -7266,28 +7929,26 @@ def phase_profile(torch, path: str, run_once, round_s: float,
                    + per_call("round_cols_kernel")
                    + per_call("round_energy_kernel")
                    + per_call("demodulate_kernel"))
+        extent = trace["ranges_on_device"].get(GUARD_SPAN)
         guard = {"span_device_ms": span_ms, "span_share": span_ms / device_ms,
                  "beyond_one_pass_ms": span_ms - base_ms,
                  "beyond_one_pass_share": (span_ms - base_ms) / device_ms,
                  "span_extent_on_device_ms":
-                 extent[0].self_device_time_total / 1e3 if extent else None}
-    spans_ms = {}
-    for name in spans:
-        on_host = [e for e in events
-                   if e.key == name and e.device_type == DeviceType.CPU]
-        spans_ms[name] = {
-            "calls": on_host[0].count if on_host else 0,
-            "device_ms": on_host[0].device_time_total / 1e3 if on_host
-            else 0.0}
+                 None if extent is None else extent / 1e3}
+    spans_ms = {name: {"calls": trace["spans"][name]["calls"],
+                       "device_ms": trace["spans"][name]["device_us"] / 1e3}
+                for name in spans}
     emit({"phase": "profile", "path": path, "ok": True, "rounds": 1,
           "guard": guard, **({"spans": spans_ms} if spans else {}),
           "profiled_wall_ms": wall_ms, "round_ms": round_s * 1e3,
           "device_ms": device_ms if kernels else None,
           "busy_share": device_ms / (round_s * 1e3) if kernels else None,
           "families": families,
-          "top": [{"name": e.key[:90], "calls": e.count,
-                   "device_ms": e.self_device_time_total / 1e3}
-                  for e in top]})
+          "top": [{"name": key[:90], "calls": n, "device_ms": us / 1e3}
+                  for key, n, us in top],
+          "trace_events": trace["events"],
+          "trace_checked_by_key_averages": trace["checked"],
+          "trace_s": time.perf_counter() - t0})
     return {"device_ms": device_ms if kernels else None,
             "matmul_ms": families.get("matmul", {}).get("device_ms", 0.0),
             "spans": spans_ms}

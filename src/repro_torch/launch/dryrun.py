@@ -14,8 +14,8 @@ process group) on ``meta`` tensors at that rank's resident shapes
 (``launch/specs.py``) and counts it (``launch/trace_analysis.py``).  The
 dense, vlm and moe families' training step is the partitioned program
 (each model rank its heads, ff columns, experts and vocab rows,
-``models/partition.py``), as XLA partitions the reference's; their
-serving, the dense and vlm families'.  It needs no card and allocates no
+``models/partition.py``), as XLA partitions the reference's, and so is
+their serving.  It needs no card and allocates no
 tensor memory.
 
 Every number comes from that trace and the published rates of one NVIDIA

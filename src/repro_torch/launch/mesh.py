@@ -380,7 +380,7 @@ COLL_KIND = {"psum": "all-reduce", "pmin": "all-reduce", "por": "all-reduce",
              "reduce_scatter": "reduce-scatter",
              # serving's collectives over activations (``models/partition``)
              "gather_heads": "all-gather", "gather_vocab": "all-gather",
-             "gather_kv": "all-gather",
+             "gather_kv": "all-gather", "gather_proj": "all-gather",
              "softmax_max": "all-reduce", "softmax_sum": "all-reduce",
              "vocab_max": "all-reduce", "vocab_min": "all-reduce"}
 #: bytes moved per result byte, by kind (the reference's ``_COLL_MULT``:

@@ -18,7 +18,7 @@ each rank packs exactly the slice these specs make resident on it.  A mesh
 is anything with ``shape`` (axis -> size) and ``axis_names``: a
 ``launch.mesh.Mesh`` or, for layout checks without ranks, a
 ``launch.mesh.MeshShape``.  :func:`cache_pspecs` are the decode caches'
-specs: the dense and vlm families' decode holds its block of them
+specs: the dense, vlm and moe families' decode holds its block of them
 (``serve/serving.py``, ``models/partition.partition_for``), the other
 families their batch rows only (``launch/specs.py``).
 """

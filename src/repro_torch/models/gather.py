@@ -13,8 +13,8 @@ entry inside its checkpointed block (:func:`gather_entry`), so the
 backward's recompute gathers again and only one full layer is alive.
 
 Where the plan carries a :class:`~repro_torch.models.partition.Partition`
-(the trainer's plan for the dense, vlm and moe families, the serving
-layer's for the dense and vlm ones), the leaves of the partitioned
+(the trainer's and the serving layer's plans for the dense, vlm and moe
+families), the leaves of the partitioned
 products are gathered over their fsdp dims only: each rank computes its
 own heads, ff columns, experts and vocab rows on its ``model`` block
 (``models/partition.py``), as XLA partitions the reference's products.  The fsdp axes keep their gather, as XLA's FSDP

@@ -274,7 +274,8 @@ def _qkv_partitioned(p: Params, x: Tensor, cfg: ModelConfig, part
     KVl = k1 - k0
     if part.kv_cols:
         # serving: the rank's wk/wv columns, the projections gathered
-        k, v = part.gather_kv(dense(p["wk"], x), dense(p["wv"], x))
+        k, v = part.gather_cols(dense(p["wk"], x), dense(p["wv"], x),
+                                op="gather_kv")
         k = k.narrow(-1, k0 * hd, KVl * hd)
         v = v.narrow(-1, k0 * hd, KVl * hd)
     else:
@@ -424,7 +425,7 @@ def attention_decode(p: Params, x: Tensor, cfg: ModelConfig, cache_k: Tensor,
         n_kv = KV
         k, v = dense(p["wk"], x), dense(p["wv"], x)
         if part is not None and part.kv_cols:
-            k, v = part.gather_kv(k, v)
+            k, v = part.gather_cols(k, v, op="gather_kv")
     k = rope(_split_heads(k, n_kv, hd), posv, cfg.rope_theta)
     v = _split_heads(v, n_kv, hd)
     slot = write_pos

@@ -32,7 +32,13 @@ dispatch.
   the whole routing (:func:`_dispatch_compute`), MLA on its H/m heads
   (:func:`mla_fwd`), the shared expert's and the dense layers' hidden
   columns, and its vocab rows of the embedding, the logits and the MTP
-  logits.  Serving stays gathered.
+  logits.  Serving's plan runs the prefill alike and decode on the same
+  products (:func:`decode_step`): GQA through
+  ``layers.attention_decode``, MLA on the rank's heads against its slice
+  of the latent cache's sequence (:func:`mla_decode`), and the router,
+  ``wq_a`` and ``wkv_a`` on the rank's columns, their one-token outputs
+  gathered.  The prefill reads those three whole (gathered): at S tokens
+  their outputs outweigh the weights.
 """
 from __future__ import annotations
 
@@ -283,6 +289,8 @@ def moe_apply(p: Params, x: Tensor, cfg: ModelConfig
     backward sums the ranks' partial gradients, so the router's gradient
     is the whole product's on every rank; the load-balance loss reads the
     probabilities directly, and its gradient is every rank's alike."""
+    from repro_torch.models import partition
+
     lead = x.shape[:-3]
     B, S, d = x.shape[-3:]
     N = B * S
@@ -292,6 +300,9 @@ def moe_apply(p: Params, x: Tensor, cfg: ModelConfig
     xf = x.reshape(lead + (N, d))
     w = p["router"]["w"]
     logits = torch.matmul(xf.float(), _wview(w, 2, len(lead)).float())
+    # decode's plan may keep the router's columns on the rank: gathered
+    logits = partition.gather_proj({"router": logits}, {"router": E})[
+        "router"]
     probs = torch.softmax(logits, dim=-1)
     gate_vals, idx = torch.topk(probs, K, dim=-1)              # (.., N, K)
     gate_vals = gate_vals / torch.sum(gate_vals, -1, keepdim=True)
@@ -360,17 +371,20 @@ def mla_init(key: int, cfg: ModelConfig, device="cuda") -> Params:
     return p
 
 
-def _mla_q(p: Params, x: Tensor, cfg: ModelConfig, part=None
-           ) -> Tuple[Tensor, Tensor]:
+def _mla_q(p: Params, x: Tensor, cfg: ModelConfig, part=None,
+           q_a: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Returns (q_nope (..., S, H, dn), q_rope (..., S, H, dr)); under a
     partition of the heads, the rank's H/m heads on its ``wq_b`` (or
     ``wq``) columns, whose input (``q_norm``'s output, or x) is read
-    through ``copy_to``."""
+    through ``copy_to``.  ``q_a``: ``wq_a``'s whole output on x, where the
+    caller has it (decode gathers it from the ranks' columns)."""
     qh = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
     H = cfg.n_heads if part is None else cfg.n_heads // part.n
     name = "wq_b" if "wq_a" in p else "wq"
     if "wq_a" in p:
-        x = L.rmsnorm(p["q_norm"], L.dense(p["wq_a"], x), cfg.norm_eps)
+        if q_a is None:
+            q_a = L.dense(p["wq_a"], x)
+        x = L.rmsnorm(p["q_norm"], q_a, cfg.norm_eps)
     if part is None:
         q = L.dense(p[name], x)
     else:
@@ -389,11 +403,13 @@ def _per_head(spec: str, x: Tensor, w: Tensor) -> Tensor:
     return torch.einsum(f"...{a},{b}->...{out}", x, w)
 
 
-def _kv_a(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor
-          ) -> Tuple[Tensor, Tensor]:
+def _kv_a(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
+          kv_a: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """The compressed c_kv (..., S, c) and the RoPE'd shared-head k_rope
-    (..., S, dr) of x."""
-    kv_a = L.dense(p["wkv_a"], x)
+    (..., S, dr) of x (of ``wkv_a``'s whole output ``kv_a`` on x, where
+    the caller has it)."""
+    if kv_a is None:
+        kv_a = L.dense(p["wkv_a"], x)
     c_kv = L.rmsnorm(p["kv_norm"], kv_a[..., :cfg.kv_lora_rank],
                      cfg.norm_eps)
     k_rope = L.rope(kv_a[..., cfg.kv_lora_rank:][..., None, :], positions,
@@ -457,27 +473,112 @@ def mla_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,
     return out, {"c_kv": c_kv, "k_rope": k_rope}
 
 
+def _mla_partial(q_c: Tensor, q_rope: Tensor, c_kv: Tensor,
+                 k_rope: Tensor, valid: Tensor, cfg: ModelConfig
+                 ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One rank's part of the absorbed softmax over its slots: q_c (B, 1,
+    H, c), q_rope (B, 1, H, dr) against c_kv (B, T, c), k_rope (B, T, dr),
+    valid (T,) -> the max score m and the sum l of ``exp(s − m)`` (B, 1,
+    H, 1), and ``Σ exp(s − m)·c_kv`` (B, 1, H, c), all f32; a row whose
+    slots are all masked has m = −inf and l, o = 0 (as
+    ``layers._decode_partial``)."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    s = (torch.einsum("bshc,btc->bsht", q_c.float(), c_kv.float())
+         + torch.einsum("bshr,btr->bsht", q_rope.float(),
+                        k_rope.float())) * scale
+    s = torch.where(valid, s, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    live = torch.isfinite(m)
+    e = torch.where(valid, torch.exp(s - torch.where(live, m, 0.0)), 0.0)
+    o = torch.einsum("bsht,btc->bshc", e, c_kv.float())
+    return m, e.sum(dim=-1, keepdim=True), o
+
+
 def mla_decode(p: Params, x: Tensor, cfg: ModelConfig, c_kv: Tensor,
                k_rope: Tensor, write_pos: int, abs_pos: int):
     """One-token MLA decode against the compressed cache, c_kv (B, T, c)
     and k_rope (B, T, dr): the token's entries written in place at slot
     ``write_pos``, slot t attended iff t ≤ ``abs_pos``.  Returns (out,
-    c_kv, k_rope)."""
+    c_kv, k_rope).
+
+    Under serving's partition (``models/partition``) the products are the
+    rank's part: ``wq_a``'s and ``wkv_a``'s columns where decode's plan
+    keeps them (:attr:`~repro_torch.models.partition.Partition.proj_cols`),
+    their (B, 1, ·) outputs gathered in one all-gather, so every rank
+    applies the q-LoRA norm, the kv norm and RoPE to the whole result
+    alike; its H/m query heads through ``_mla_q(part)``, ``wk_b`` absorbed
+    for them; and ``wv_b``'s heads and ``wo``'s rows after (the ranks'
+    partial outputs summed).  The latent cache is the rank's block as
+    ``launch.shardings.cache_pspec`` lays it out (``part.cache``):
+
+    * ``"seq"``: its slice of the sequence.  Every rank computes the
+      token's c_kv and k_rope, the rank whose slice holds the slot
+      (``write_pos // T_local``) writes them, q_c and q_rope are gathered
+      over ``model`` in one all-gather, every head is scored on the rank's
+      slots (slot t valid where ``r·T_local + t ≤ abs_pos``), the partial
+      softmaxes (f32) are joined over the sequence's axes
+      (:meth:`~repro_torch.models.partition.Partition.combine_attention`)
+      and the rank keeps its heads' o_c;
+    * ``"batch"``: the whole sequence, which the rank's heads attend.
+
+    The reference asks XLA for the latent cache whole on the sequence
+    (``kv_seq`` is unbound where ``kv_heads`` binds) while its cache spec
+    splits it; the port follows the stored layout and joins partial
+    softmaxes instead of gathering the cache: the same values, other
+    collectives."""
+    from repro_torch.models import partition
+
     B = x.shape[0]
     H = cfg.n_heads
     T = c_kv.shape[1]
-    q_nope, q_rope = _mla_q(p, x, cfg)
+    part = partition.current()
+    if part is not None and not (part.heads or part.cache == "seq"):
+        part = None             # nothing splits: one device's decode
+    heads = part is not None and part.heads
+    layout = "batch" if part is None else part.cache
+    widths = {"wkv_a": cfg.kv_lora_rank + cfg.qk_rope_head_dim}
+    outs = {"wkv_a": L.dense(p["wkv_a"], x)}
+    if "wq_a" in p:
+        widths["wq_a"] = cfg.q_lora_rank
+        outs["wq_a"] = L.dense(p["wq_a"], x)
+    outs = partition.gather_proj(outs, widths)
+    Hl = H // part.n if heads else H
+    q_nope, q_rope = _mla_q(p, x, cfg, part if heads else None,
+                            q_a=outs.get("wq_a"))
     posv = torch.full((B, 1), abs_pos, dtype=torch.int32, device=x.device)
     q_rope = L.rope(q_rope, posv, cfg.rope_theta)
-    c_new, kr_new = _kv_a(p, x, cfg, posv)
-    c_kv[:, write_pos] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[:, write_pos] = kr_new[:, 0].to(k_rope.dtype)
+    c_new, kr_new = _kv_a(p, x, cfg, posv, kv_a=outs["wkv_a"])
+    slot = write_pos
+    if layout == "seq":
+        owner, slot = divmod(write_pos, T)
+        slot = slot if owner == part.seq_index else None
+    if slot is not None:
+        c_kv[:, slot] = c_new[:, 0].to(c_kv.dtype)
+        k_rope[:, slot] = kr_new[:, 0].to(k_rope.dtype)
 
-    q_c = _per_head("hn,hcn->hc", q_nope, p["wk_b"])
-    mask = (torch.arange(T, device=x.device) <= abs_pos)[None, None, None]
-    o_c = _mla_attend(q_c, q_rope, c_kv, k_rope, mask, cfg, x.dtype)
+    q_c = _per_head("hn,hcn->hc", q_nope, p["wk_b"])       # (B, 1, Hl, c)
+    if layout == "seq":
+        c, dr = q_c.shape[-1], q_rope.shape[-1]
+        if heads:
+            q = part.gather_heads(torch.cat([q_c, q_rope], -1).reshape(
+                B, 1, Hl * (c + dr)))
+            q = q.reshape(B, 1, H, c + dr)
+            q_c, q_rope = q[..., :c], q[..., c:]
+        t = part.seq_index * T + torch.arange(T, device=x.device)
+        o_c = part.combine_attention(*_mla_partial(
+            q_c, q_rope, c_kv, k_rope, t <= abs_pos, cfg)).to(x.dtype)
+        if heads:
+            o_c = o_c[:, :, part.index * Hl:(part.index + 1) * Hl]
+    else:
+        mask = (torch.arange(T, device=x.device) <= abs_pos)[None, None,
+                                                             None]
+        o_c = _mla_attend(q_c, q_rope, c_kv, k_rope, mask, cfg, x.dtype)
     o = _per_head("hc,hcv->hv", o_c, p["wv_b"]).reshape(B, 1, -1)
-    return L.dense(p["wo"], o), c_kv, k_rope
+    if heads:
+        out = part.dense_rows(p["wo"], o, H * cfg.v_head_dim, "wo")
+    else:
+        out = L.dense(p["wo"], o)
+    return out, c_kv, k_rope
 
 
 # ---------------------------------------------------------------------------
@@ -637,9 +738,22 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict, token: Tensor,
     """One greedy decode step. token: (B,) ids; pos: the absolute position.
     Returns the (B, V) logits and the cache, written in place at slot
     ``pos`` (``pos % window`` under a sliding window).  Every expert runs
-    on its capacity buffer, as in the reference."""
-    x = L.embed(params["embed"], token[:, None])
+    on its capacity buffer, as in the reference.
+
+    Under serving's partition (``models/partition``) the cache is the
+    rank's block, the slot the global one (the attention hands it to the
+    rank whose slice of the sequence holds it), each MoE layer's routed
+    experts the rank's E/m on the step's B tokens (every rank routes
+    alike, the partial combines summed), the shared expert's and the
+    dense layers' MLP the rank's hidden columns, and the logits the
+    rank's vocab columns (B, V/n)."""
+    from repro_torch.models import partition
+
+    part = partition.current()
+    x = L.embed(params["embed"], token[:, None], cfg.vocab_size)
     T = tree_leaves(cache)[0].shape[2]
+    if part is not None and part.cache == "seq":
+        T *= part.seq_n
     write_pos = pos % T if cfg.sliding_window is not None else pos
     nd = cfg.first_dense_layers
     if "dense" in cache:

@@ -44,9 +44,10 @@ weight's.
 
 Serving takes the same plan (``serve/serving.py``): the prefill is the
 forward above, its last logits gathered whole (:meth:`Partition
-.gather_vocab`); decode (``layers.attention_decode``) keeps its cache as
-the block ``launch.shardings.cache_pspec`` gives the rank
-(:func:`partition_for`'s ``cache``):
+.gather_vocab`); decode (``layers.attention_decode``,
+``moe.mla_decode``) keeps its cache as the block
+``launch.shardings.cache_pspec`` gives the rank (:func:`partition_for`'s
+``cache``, read from the cache's attention leaf):
 
 * ``"heads"`` (the KV heads divide ``model``, exactly where ``kv_heads``
   binds): the rank's KV heads, which its query heads read;
@@ -58,6 +59,11 @@ the block ``launch.shardings.cache_pspec`` gives the rank
   (:meth:`Partition.combine_attention`);
 * ``"batch"``: the batch rows only (no layout splits the sequence).
 
+MLA's latent cache (``c_kv``/``k_rope``) lies on the sequence wherever it
+splits, whatever the KV heads do: each rank computes the token's latent
+entries, the owner of the slot writes them, its heads' absorbed queries
+are gathered, and the partial softmaxes are joined as above.
+
 The greedy token is the first index of the row's maximum over the
 vocab-parallel logits (:meth:`Partition.argmax_vocab`).
 
@@ -65,20 +71,29 @@ Where ``kv_heads`` is unbound but ``KV·hd`` divides ``model``, serving's
 plan (``partition_for(..., serve=True)``: :attr:`Partition.kv_cols`) keeps
 ``wk``/``wv`` as the rank's column block, as ``launch.shardings`` lays
 them out: a rank projects its columns and the ranks' (…, KV·hd/m) results
-are gathered (:meth:`Partition.gather_kv`).  The trainer reads them whole
-through ``copy_to`` instead: a gather of the projection would need a
-reduce-scatter backward.
+are gathered (:meth:`Partition.gather_cols`, ``gather_kv`` in
+``Mesh.stats``).  The trainer reads them whole through ``copy_to``
+instead: a gather of the projection would need a reduce-scatter
+backward.  Decode's plan (``partition_for(...,
+decode=True)``: :attr:`Partition.proj_cols`) does the same with the
+router, ``wq_a`` and ``wkv_a``, column-split by the layout: a rank
+projects the token on its columns and the (B, 1, ·) results of a layer's
+attention (``wq_a`` and ``wkv_a``), or of its router, are gathered in one
+all-gather (:func:`gather_proj`); every rank then normalises, rotates and
+routes the whole result alike.  The prefill reads those three whole
+(gathered): at S tokens their outputs outweigh the weights.
 
 The trainer's plan (:func:`partition_for`) covers :data:`FAMILIES` (dense,
-vlm and moe); serving's :data:`SERVE_FAMILIES` (dense and vlm: a moe model
-serves gathered).  The others keep the gathered forward
-(``models/gather``) and a cache split over the batch.  A model-sharded
-leaf whose product is not partitioned (pixtral's ``projector`` and the
-MTP's ``mtp_proj``, whose outputs are the residual stream; ``fc_out``'s
-bias, split on its layer dim; ``wk``/``wv`` where ``kv_heads`` is unbound;
-the router, ``wq_a`` and ``wkv_a``; the experts where ``n_experts`` does
-not divide ``model``, and the MTP block's, which the layout splits on
-their hidden dim) is gathered as before (:func:`gathered_model_leaf`).
+vlm and moe), and serving's :data:`SERVE_FAMILIES` the same three.  The
+others keep the gathered forward (``models/gather``) and a cache split
+over the batch.  A model-sharded leaf whose product is not partitioned
+(pixtral's ``projector`` and the MTP's ``mtp_proj``, whose outputs are
+the residual stream; ``fc_out``'s bias, split on its layer dim;
+``wk``/``wv`` where ``kv_heads`` is unbound; the router, ``wq_a`` and
+``wkv_a`` outside decode; the experts where ``n_experts`` does not divide
+``model``, and the MTP block's, which the layout splits on their hidden
+dim) is gathered as before (:func:`gathered_model_leaf`).  Serving reads
+no MTP leaf (:data:`MTP_KEYS`) and gathers none.
 """
 from __future__ import annotations
 
@@ -92,9 +107,14 @@ Tensor = torch.Tensor
 
 #: the families whose training products partition over ``model``
 FAMILIES = ("dense", "vlm", "moe")
-#: the families whose serving products partition (the moe family's
-#: prefill and decode run gathered)
-SERVE_FAMILIES = ("dense", "vlm")
+#: the families whose serving products partition
+SERVE_FAMILIES = ("dense", "vlm", "moe")
+#: the small column-split projections serving's decode keeps as the
+#: rank's columns, their (B, 1, ·) outputs gathered
+#: (:attr:`Partition.proj_cols`): the router, MLA's ``wq_a`` and ``wkv_a``
+_PROJ_LEAVES = {("mlp", "router"), ("attn", "wq_a"), ("attn", "wkv_a")}
+#: the MTP head's leaves, which serving never reads
+MTP_KEYS = ("mtp_block", "mtp_proj", "mtp_norm")
 #: the stacked layer keys whose entries partition, and the unstacked
 #: blocks that do
 _STACKS = ("layers", "dense_layers", "moe_layers")
@@ -141,8 +161,12 @@ class Partition(NamedTuple):
     shared_ff: bool = False
     #: serving: ``wk``/``wv`` held as the rank's column block where the KV
     #: heads do not split, their projections gathered
-    #: (:meth:`gather_kv`)
+    #: (:meth:`gather_cols`)
     kv_cols: bool = False
+    #: serving's decode: the names of :data:`_PROJ_LEAVES` (``router``,
+    #: ``wq_a``, ``wkv_a``) held as the rank's column block, their
+    #: one-token projections gathered (:meth:`gather_cols`)
+    proj_cols: Tuple[str, ...] = ()
 
     @property
     def seq_index(self) -> int:
@@ -181,12 +205,18 @@ class Partition(NamedTuple):
         """Vocab-parallel logits (..., V/n) whole, (..., V)."""
         return self.mesh.all_gather(local, self.axis, -1, op="gather_vocab")
 
-    def gather_kv(self, k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
-        """The ranks' column blocks (..., KV·hd/n) of the K and V
-        projections whole, (..., KV·hd) each, in one all-gather."""
-        kv = self.mesh.all_gather(torch.stack([k, v]), self.axis, -1,
-                                  op="gather_kv")
-        return kv[0], kv[1]
+    def gather_cols(self, *xs: Tensor, op: str = "gather_proj"
+                    ) -> Tuple[Tensor, ...]:
+        """The ranks' column blocks (..., n_i/n) of several projections
+        of one dtype whole, (..., n_i) each, in one all-gather (named
+        ``op`` in ``Mesh.stats``): the blocks concatenated, gathered over
+        the axis rank after rank, and each projection's columns taken back
+        in rank order."""
+        widths = [x.shape[-1] for x in xs]
+        y = self.mesh.all_gather(torch.cat(xs, -1), self.axis, -1, op=op)
+        y = y.reshape(y.shape[:-1] + (self.n, sum(widths)))
+        return tuple(p.reshape(p.shape[:-2] + (-1,))
+                     for p in torch.split(y, widths, dim=-1))
 
     def gather_heads(self, q: Tensor) -> Tensor:
         """The ranks' query heads (..., H/n · hd) concatenated, (..., H ·
@@ -273,25 +303,32 @@ class Partition(NamedTuple):
 
 def partition_for(cfg, mesh, *, multi_pod: bool = False,
                   cache: Optional[Tuple[int, ...]] = None,
-                  serve: bool = False) -> Optional[Partition]:
+                  cache_leaf: str = "k", serve: bool = False,
+                  decode: bool = False) -> Optional[Partition]:
     """The trainer's plan on ``mesh``: which products split over
     ``model`` (a logical axis partitions where
     ``launch.shardings.rules_for`` binds it to ``model``, as the reference
     decides); None where the axis has one rank or the family keeps the
-    gathered forward.  With ``serve`` (or ``cache``), serving's plan: the
-    families of :data:`SERVE_FAMILIES`, and ``wk``/``wv`` kept as the
-    rank's columns where the KV heads do not split but ``KV·hd`` does
-    (:attr:`Partition.kv_cols`).  With ``cache``, the global shape of a
-    decode cache's K leaf (L, B, T, KV, hd), the cache's layout read from
-    ``launch.shardings.cache_pspec`` (the KV heads over ``model`` where
-    they divide it, which is where ``rules_for`` binds ``kv_heads``; else
-    the sequence; else the batch alone)."""
+    gathered forward.  With ``serve`` (or ``decode``, or ``cache``),
+    serving's plan: the families of :data:`SERVE_FAMILIES`, and
+    ``wk``/``wv`` kept as the rank's columns where the KV heads do not
+    split but ``KV·hd`` does (:attr:`Partition.kv_cols`).  With ``decode``
+    (or ``cache``), decode's: the router, ``wq_a`` and ``wkv_a`` kept as
+    the rank's columns where their widths split
+    (:attr:`Partition.proj_cols`).  With ``cache``, the global shape of
+    the decode cache's attention leaf ``cache_leaf``, the cache's layout
+    read from ``launch.shardings.cache_pspec``: for a K leaf (L, B, T,
+    KV, hd) the KV heads over ``model`` where they divide it (which is
+    where ``rules_for`` binds ``kv_heads``), else the sequence, else the
+    batch alone; for MLA's latent ``c_kv`` (L, B, T, c) the sequence
+    where it splits, else the batch, whatever the KV heads do."""
     from repro_torch.launch.shardings import (_entry_axes, cache_pspec,
                                               rules_for)
 
     axis = "model"
     n = mesh.shape.get(axis, 1)
-    serve = serve or cache is not None
+    decode = decode or cache is not None
+    serve = serve or decode
     if n == 1 or cfg.family not in (SERVE_FAMILIES if serve else FAMILIES):
         return None
     rules = rules_for(cfg, mesh, multi_pod=multi_pod)
@@ -310,21 +347,54 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
                          cfg.moe_d_ff * cfg.n_shared_experts))
     if serve and part.heads and not part.kv:
         part = part._replace(kv_cols=fits(cfg.n_kv_heads * cfg.hd))
+    if decode:
+        widths = {"router": cfg.n_experts}
+        if cfg.use_mla:
+            widths.update(wq_a=cfg.q_lora_rank,
+                          wkv_a=cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+        part = part._replace(proj_cols=tuple(
+            k for k, w in widths.items() if w and fits(w)))
     if cache is None:
         return part
-    spec = cache_pspec(("k",), tuple(cache), cfg, mesh, cache[1],
+    if cache_leaf not in ("k", "c_kv"):
+        raise ValueError(f"{cfg.name}: no decode layout for a cache led by "
+                         f"{cache_leaf!r}")
+    spec = cache_pspec((cache_leaf,), tuple(cache), cfg, mesh, cache[1],
                        multi_pod=multi_pod)
-    on_heads = spec[3] is not None
-    if on_heads != part.kv:
-        raise ValueError(f"{cfg.name}: the cache's KV heads "
-                         f"{'split' if on_heads else 'stay whole'} over "
-                         f"{axis} where the plan's KV heads "
-                         f"{'split' if part.kv else 'stay whole'}")
-    if on_heads:
-        return part._replace(cache="heads")
-    if spec[2] is None:
+    seq = spec[2]
+    if cache_leaf == "k":
+        on_heads = spec[3] is not None
+        if on_heads != part.kv:
+            raise ValueError(f"{cfg.name}: the cache's KV heads "
+                             f"{'split' if on_heads else 'stay whole'} over "
+                             f"{axis} where the plan's KV heads "
+                             f"{'split' if part.kv else 'stay whole'}")
+        if on_heads:
+            return part._replace(cache="heads")
+    if seq is None:
         return part
-    return part._replace(cache="seq", seq_axes=_entry_axes(spec[2]))
+    return part._replace(cache="seq", seq_axes=_entry_axes(seq))
+
+
+def gather_proj(outs: dict, widths: dict) -> dict:
+    """Decode's small projections whole: ``outs`` maps each name of
+    :data:`_PROJ_LEAVES` (``router``, ``wq_a``, ``wkv_a``) to its
+    product on the columns the rank holds, ``widths`` to its whole width.
+    Those the rank holds as its column block (the active plan's
+    :attr:`Partition.proj_cols`) are gathered in one all-gather; the others
+    are whole already.  A block the plan does not account for raises."""
+    split = [k for k, y in outs.items() if y.shape[-1] != widths[k]]
+    if not split:
+        return outs
+    part = current()
+    for k in split:
+        if (part is None or k not in part.proj_cols
+                or outs[k].shape[-1] * part.n != widths[k]):
+            raise ValueError(f"{k}: the rank holds {outs[k].shape[-1]} of "
+                             f"its {widths[k]} columns but the plan does "
+                             f"not split them")
+    return {**outs, **dict(zip(split, part.gather_cols(
+        *(outs[k] for k in split))))}
 
 
 def rank_kv_heads(cfg, part: Partition
@@ -366,6 +436,10 @@ def _split(path: Tuple[str, ...], part: Partition) -> Optional[str]:
         rest = rest[1:]
     if len(rest) != 3 or rest[2] not in ("w", "b"):
         return None
+    if rest[:2] in _PROJ_LEAVES:
+        # decode's small projections (the MTP block's are never served)
+        return ("col" if rest[1] in part.proj_cols and path[0] in _STACKS
+                else None)
     field, split = _LEAVES.get((rest[0], rest[1]), (None, None))
     if field is None:
         return None

@@ -11,14 +11,16 @@ Decode is plain torch, as the reference computes it outside any kernel;
 ``generate`` starts the enc-dec from a zero cross cache, as the reference
 does (``models/encdec.prefill_cross`` fills it).
 
-On a mesh the dense and vlm families serve partitioned over ``model``
-(``models/partition``): the prefill runs each rank's heads, ff columns and
-vocab rows, and decode holds the rank's block of the cache (its KV heads,
-or its slice of the sequence) as the reference's cache specs lay it out;
-no rank gathers a partitioned leaf (where the KV heads do not split, a
-rank projects its ``wk``/``wv`` columns and gathers the projections).  A
-moe model on a mesh serves gathered.  ``generate`` stays one device's, as
-the reference's is.
+On a mesh the dense, vlm and moe families serve partitioned over
+``model`` (``models/partition``): the prefill runs each rank's heads, ff
+columns, experts and vocab rows, and decode holds the rank's block of the
+cache (its KV heads, or its slice of the sequence; MLA's latent cache on
+the sequence) as the reference's cache specs lay it out; no rank gathers
+a partitioned leaf (where the KV heads do not split, a rank projects its
+``wk``/``wv`` columns and gathers the projections; decode does the same
+with the router, ``wq_a`` and ``wkv_a``, which the prefill gathers whole).
+Neither reads the MTP head, and neither gathers it.  ``generate`` stays
+one device's, as the reference's is.
 """
 from __future__ import annotations
 
@@ -33,14 +35,33 @@ from repro_torch.tree import tree_map
 Tensor = torch.Tensor
 
 
-def _mesh_layout(model: Model, mesh, fsdp: bool):
+def _served(params):
+    """``params`` without the MTP head's leaves (``partition.MTP_KEYS``),
+    which neither the prefill nor decode reads: none is gathered."""
+    from repro_torch.models.partition import MTP_KEYS
+
+    return {k: v for k, v in params.items() if k not in MTP_KEYS}
+
+
+def _attention_leaf(glob) -> tuple:
+    """(name, global shape) of a whole cache's attention leaf: the K leaf
+    (L, B, T, KV, hd), or MLA's latent ``c_kv`` (L, B, T, c); the moe
+    family's ``dense`` and ``moe`` stacks share one layout, read from the
+    ``moe`` stack's."""
+    sub = glob.get("moe", glob)
+    name = "k" if "k" in sub else "c_kv"
+    return name, tuple(sub[name].shape)
+
+
+def _mesh_layout(model: Model, mesh, fsdp: bool, decode: bool = False):
     """``(layout, shard)``: under ``mesh`` a rank holds its block of every
     parameter (``launch.shardings.tree_pspecs`` with no worker dim: the big
     dims over ``model``, and over the fsdp axes where ``fsdp``);
     ``shard(params)`` cuts that block from the full params and puts the
     gather plan into ``layout["plan"]``, with the products the family
-    partitions (``models/partition``, serving's plan: ``layout["part"]``)
-    kept as each rank's part.  Without a mesh there is no plan and
+    partitions (``models/partition``, serving's plan: ``layout["part"]``;
+    with ``decode``, decode's, which keeps the small projections' columns
+    too) kept as each rank's part.  Without a mesh there is no plan and
     ``shard`` is the identity."""
     layout: dict = {"plan": None, "part": None}
 
@@ -65,7 +86,7 @@ def _mesh_layout(model: Model, mesh, fsdp: bool):
             mdims.append(next((d for d, a in axes if "model" in a), None))
             fdims.append(next((d for d, a in axes if fset & set(a)), None))
         layout["part"] = partition_for(model.cfg, mesh, multi_pod=multi_pod,
-                                       serve=True)
+                                       serve=True, decode=decode)
         layout["plan"] = make_plan(params, mdims, fdims, mesh, lead=0,
                                    fsdp_axis=faxes or "fsdp",
                                    part=layout["part"])
@@ -105,17 +126,19 @@ def make_prefill(model: Model, mesh=None, *, fsdp: bool = False):
     full forward, without autograd.  Under ``mesh`` (a ``launch.mesh``
     mesh, as the trainer takes) a rank holds its block of the parameters
     (``prefill.shard(full)`` cuts it and builds the gather plan; call it
-    first) and its rows of the batch.  The dense and vlm families run the
-    trainer's partitioned forward (``models/partition``: each rank's
-    heads, B11 on them, its ff columns and vocab rows) and gather the last
-    position's vocab-parallel logits whole; the other families gather
-    each layer whole (``models/gather``)."""
+    first) and its rows of the batch.  The dense, vlm and moe families
+    run the trainer's partitioned forward (``models/partition``: each
+    rank's heads, B11 on them, its ff columns, experts and vocab rows) and
+    gather the last position's vocab-parallel logits whole; the router,
+    ``wq_a`` and ``wkv_a`` are gathered whole, since at S tokens their
+    outputs outweigh the weights.  The other families gather each layer
+    whole (``models/gather``).  No MTP leaf is gathered."""
     layout, shard = _mesh_layout(model, mesh, fsdp)
 
     def prefill(params, batch):
         with torch.no_grad(), _gather.gathering(layout["plan"]):
-            logits, _aux = model.forward(_gather.gather_params(params),
-                                         batch, remat=True)
+            logits, _aux = model.forward(
+                _gather.gather_params(_served(params)), batch, remat=True)
             last = logits[:, -1]
             part = layout["part"]
             if part is not None and part.vocab:
@@ -133,17 +156,20 @@ def make_serve_step(model: Model, mesh=None, *, fsdp: bool = False):
     the params are the rank's block (``serve_step.shard(full)`` first), the
     tokens the rank's rows of the batch, and the cache the rank's block of
     the whole one as ``launch.shardings.cache_pspecs`` lays it out: the
-    batch over the data axes, then, for the dense and vlm families, the KV
-    heads over ``model`` or else the sequence (``models/partition``);
-    the other families keep a cache split over the batch alone and gather
-    each layer (``transformer.decode_layer``).  Make the cache with
+    batch over the data axes, then, for the dense, vlm and moe families,
+    the KV heads over ``model`` or else the sequence (MLA's latent cache:
+    the sequence, else the batch alone; ``models/partition``), with the
+    router's, ``wq_a``'s and ``wkv_a``'s columns on the rank and their
+    one-token outputs gathered; the other families keep a cache split over
+    the batch alone and gather each layer
+    (``transformer.decode_layer``).  Make the cache with
     ``serve_step.init_cache(batch, max_seq, device=...)`` (the rank's
     block, never the whole cache; ``batch`` the whole batch) or cut it
     from a whole one with ``serve_step.shard_cache(full)``: either records
     the layout the step decodes on (``serve_step.layout["cache"]``).  The
     greedy token of the partitioned families is the first maximum of the
     vocab-parallel logits over the ranks (``Partition.argmax_vocab``)."""
-    layout, shard = _mesh_layout(model, mesh, fsdp)
+    layout, shard = _mesh_layout(model, mesh, fsdp, decode=True)
     layout["cache"] = None
 
     def cache_specs(glob):
@@ -163,8 +189,9 @@ def make_serve_step(model: Model, mesh=None, *, fsdp: bool = False):
             glob, model.cfg, mesh, batch, multi_pod=multi_pod))
         part = None
         if model.cfg.family in SERVE_FAMILIES:
+            name, shape = _attention_leaf(glob)
             part = partition_for(model.cfg, mesh, multi_pod=multi_pod,
-                                 cache=tuple(glob["k"].shape))
+                                 cache=shape, cache_leaf=name)
         if part is None:
             daxes = set(data_axes(multi_pod))
             specs = tree_map(lambda _x, sp: tuple(
@@ -221,7 +248,7 @@ def make_serve_step(model: Model, mesh=None, *, fsdp: bool = False):
             plan = plan._replace(part=part)
         with torch.no_grad(), _gather.gathering(plan):
             logits, cache = model.decode_step(
-                _gather.gather_params(params), cache, token, pos)
+                _gather.gather_params(_served(params)), cache, token, pos)
             if part is not None and part.vocab:
                 tok = part.argmax_vocab(logits)
             else:

@@ -957,6 +957,10 @@ DRYRUN_SERVE = tuple((arch, shape) for arch in ("granite-8b",
                      for shape in ((1, 2), (2, 1)))
 #: the served batch, its prompt length and the greedy steps after it
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 2, 4, 3
+#: (arch, mesh shape, prompt, steps) of the moe family's serving run the
+#: dry-run test holds to the trace: an even ``max_seq``, so MLA's latent
+#: cache splits its sequence over ``model``
+DRYRUN_SERVE_MOE = (("deepseek-v3-671b", (1, 2), 4, 4),)
 
 
 def serve_tokens(vocab: int, batch: int = SERVE_BATCH,
@@ -1091,7 +1095,7 @@ def _build(cfg):
 def dryrun_rank(rank: int) -> dict:
     """One round of each of :data:`DRYRUN_ROUNDS` on this rank: the mesh's
     collectives in it (calls and bytes by op); then each serving run of
-    :data:`DRYRUN_SERVE` (:func:`serve_run`)."""
+    :data:`DRYRUN_SERVE` and :data:`DRYRUN_SERVE_MOE` (:func:`serve_run`)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.trace_analysis import mesh_collectives
 
@@ -1108,6 +1112,9 @@ def dryrun_rank(rank: int) -> dict:
     for arch, shape in DRYRUN_SERVE:
         mesh = make_mesh(shape, ("data", "model"), "cpu")
         out[(arch, shape)] = serve_run(arch, mesh)
+    for arch, shape, p, s in DRYRUN_SERVE_MOE:
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        out[(arch, shape, p, s)] = serve_run(arch, mesh, prompt=p, steps=s)
     return out
 
 
@@ -1238,3 +1245,32 @@ def serve_partitioned_rank(rank: int, shape, cases: list,
             "random": to_np(part.argmax_vocab(rand[:, half])),
             "random_rows": to_np(rand)}
     return out
+
+
+# ---------------------------------------------------------------------------
+# the MoE family's partitioned serving
+# (tests/test_torch_serve_partitioned_moe.py)
+# ---------------------------------------------------------------------------
+
+def serve_routed(arch: str, mesh=None, **kw) -> dict:
+    """:func:`serve_run` with every MoE dispatch recorded
+    (``moe.record_routing``: the prefill's, then each step's, each with
+    its picks and kept pairs) under ``"routing"``."""
+    from repro_torch.models import moe
+
+    with moe.record_routing() as seen:
+        out = serve_run(arch, mesh, **kw)
+    out["routing"] = to_np(seen)
+    return out
+
+
+def serve_moe_rank(rank: int, cases: list, params: dict) -> dict:
+    """Each case (name, arch, config fields replaced, batch, prompt,
+    steps) served on the (1, 2) grid from ``params[name]`` (a numpy tree)
+    with its dispatches recorded (:func:`serve_routed`)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    return {name: serve_routed(arch, mesh, over=over, batch=b, prompt=p,
+                               steps=st, params=params[name])
+            for name, arch, over, b, p, st in cases}
