@@ -1027,10 +1027,12 @@ def _mesh_round_shapes():
     ``llm_mesh_check`` (1 layer on the first grid) and ``llm_mesh`` (2
     layers on each grid), then the pure-data pin's (1 layer on (2, 1)),
     the sketched phases' (W, d_s) sketches (1 and 2 layers), the cohort
-    check's (reduced granite-8b on (2, 1)) and ``llm_mesh_moe``'s (W, d_s)
-    sketches (qwen3-moe, 2 layers).  granite-8b's replicated
-    segment (its norms) splits evenly, so d_local is D over the model axis
-    with no padding (the phases gate that)."""
+    check's (reduced granite-8b on (2, 1)), ``llm_mesh_moe``'s (W, d_s)
+    sketches (qwen3-moe, 2 layers) and ``llm_mesh_ssm``'s block
+    (falcon-mamba-7b, 2 layers, on the first grid).  granite-8b's and
+    falcon-mamba-7b's replicated segments (their norms, conv, ``A_log``,
+    ``D``) split evenly, so d_local is D over the model axis with no
+    padding (the phases gate that)."""
     import dataclasses
 
     from repro_torch.models import get_config
@@ -1050,7 +1052,9 @@ def _mesh_round_shapes():
             d1, packed_param_count(_llm_cfg(LLM_ARCH, MESH_SKETCH_LAYERS)))
     ] + [(MESH_COHORT["cohort"] // pin_data, d_red),
          (LLM_WORKERS, _sketch_dim(packed_param_count(
-             _llm_cfg(MOE_ARCH, MESH_MOE_LAYERS)), SKETCH_RATIO))]
+             _llm_cfg(MOE_ARCH, MESH_MOE_LAYERS)), SKETCH_RATIO)),
+         (LLM_WORKERS // data, packed_param_count(
+             _llm_cfg(SSM_ARCH, MESH_SSM_LAYERS)) // model)]
 
 
 def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
@@ -1315,7 +1319,9 @@ def _scan_cases():
     d_inner·ssm_state channels), one chunk of them (``llm_ssm_chunked``:
     ``SSM_SCAN_CHUNK`` steps), the hybrid's at full width
     (recurrentgemma-2b's lru_width at the granite path's W·B and S), the
-    ``llm_hybrid`` path's reduced ones, and a ragged case."""
+    ``llm_hybrid`` path's reduced ones, a ragged case, the serving
+    prefills', and a (1, 2) mesh rank's half of the SSM's channels in
+    ``llm_mesh_ssm`` and in ``serve_mesh_ssm``'s prefill."""
     from repro_torch.models import get_config
 
     ssm_cfg = get_config(SSM_ARCH)
@@ -1330,7 +1336,11 @@ def _scan_cases():
             ("[ssm prefill ({}, {}, {})]", SERVE_BATCH, SERVE_PROMPT,
              ssm_cfg.d_inner * ssm_cfg.ssm_state),
             ("[hybrid prefill ({}, {}, {})]", SERVE_BATCH, SERVE_PROMPT,
-             full.lru_width)]
+             full.lru_width),
+            ("[mesh ssm rank ({}, {}, {})]", LLM_WORKERS, SSM_SEQ,
+             ssm_cfg.d_inner // MESH_RANKS * ssm_cfg.ssm_state),
+            ("[mesh ssm prefill rank ({}, {}, {})]", SERVE_MESH_B,
+             SERVE_MESH_P, ssm_cfg.d_inner // MESH_RANKS * ssm_cfg.ssm_state)]
 
 
 def _scan_rows(torch, build, mem_rate, f32_rate):
@@ -5072,31 +5082,43 @@ class _LayerDigests:
     recompute included), in call order, in :attr:`digests`."""
 
     NAMES = ("block_fwd", "block_decode")
+    MODULE = "transformer"
 
     def __init__(self, torch):
         self.torch = torch
-        self.digests: list = []
+        self.kept: list = []
+
+    @property
+    def digests(self) -> list:
+        return [f"{n}:{d}" for n, d in self.kept]
+
+    def digest(self, y):
+        return _sha1(self.torch, y)
+
+    def _module(self):
+        import importlib
+
+        return importlib.import_module(f"repro_torch.models.{self.MODULE}")
 
     def __enter__(self):
-        from repro_torch.models import transformer
-
-        self.saved = {n: getattr(transformer, n) for n in self.NAMES}
+        mod = self._module()
+        self.saved = {n: getattr(mod, n) for n in self.NAMES}
 
         def wrap(name, fn):
             def call(*args, **kwargs):
                 out = fn(*args, **kwargs)
-                self.digests.append(f"{name}:{_sha1(self.torch, out[0])}")
+                y = out[0] if isinstance(out, tuple) else out
+                self.kept.append((name, self.digest(y)))
                 return out
             return call
         for n, fn in self.saved.items():
-            setattr(transformer, n, wrap(n, fn))
+            setattr(mod, n, wrap(n, fn))
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.models import transformer
-
+        mod = self._module()
         for n, fn in self.saved.items():
-            setattr(transformer, n, fn)
+            setattr(mod, n, fn)
 
 
 def _repeat_verdict(torch, same: bool, first: list, second: list) -> dict:
@@ -6345,10 +6367,10 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
     joins the gloo group through ``store``, runs ``llm_mesh_check`` (with
     its pure-data pin), ``llm_mesh_sketched_check``, ``llm_mesh`` on both
     grids, ``llm_mesh_sketched``, ``llm_mesh_moe_check``, ``llm_mesh_moe``,
-    ``llm_mesh_cohort_check``, ``serve_mesh``, ``serve_mesh_moe`` and
-    ``serve_mesh_moe_check`` against the parent's one-device ``refs``, and
-    writes its
-    results (or its traceback) to ``out_dir`` after each."""
+    ``llm_mesh_cohort_check``, ``serve_mesh``, ``serve_mesh_moe``,
+    ``serve_mesh_moe_check``, ``llm_mesh_ssm_check``, ``llm_mesh_ssm`` and
+    ``serve_mesh_ssm`` against the parent's one-device ``refs``, and
+    writes its results (or its traceback) to ``out_dir`` after each."""
     import datetime
     import traceback
 
@@ -6416,6 +6438,15 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
         res["serve_mesh_moe"] = part(
             "serve_mesh_moe", _serve_mesh_moe_rank, torch,
             on(SERVE_MESH_SHAPE), refs["serve_moe"])
+        dump()
+        res["ssm_check"] = part("ssm_check", _mesh_ssm_check_rank, torch,
+                                on(MESH_SHAPES[0]), refs["ssm"])
+        dump()
+        res["ssm"] = part("ssm", _mesh_ssm_rank, torch, on(MESH_SHAPES[0]))
+        dump()
+        res["serve_mesh_ssm"] = part(
+            "serve_mesh_ssm", _serve_mesh_ssm_rank, torch,
+            on(SERVE_MESH_SHAPE), refs["serve_ssm"])
         torch.distributed.destroy_process_group()
     except Exception:
         res["error"] = traceback.format_exc()
@@ -6477,10 +6508,11 @@ def _rank_failures(res, part: str) -> str:
 def phase_llm_mesh(torch):
     """Phases ``llm_mesh_check``, ``llm_mesh_sketched_check``,
     ``llm_mesh``, ``llm_mesh_sketched``, ``llm_mesh_cohort_check``,
-    ``serve_mesh``, ``serve_mesh_moe`` and ``serve_mesh_moe_check``: the
-    replicated and the sketched mode, and partitioned serving of the dense
-    and moe families, on (data, model) grids of two ranks spawned on the
-    one card,
+    ``serve_mesh``, ``serve_mesh_moe``, ``serve_mesh_moe_check``,
+    ``llm_mesh_ssm_check``, ``llm_mesh_ssm`` and ``serve_mesh_ssm``: the
+    replicated and the sketched mode, and partitioned serving of the
+    dense, moe and ssm families, on (data, model) grids of two ranks
+    spawned on the one card,
     gloo between them (``launch.mesh``).  The
     kernels are built already (phase ``build``), so the ranks load them and
     do not race on the build directory.  The parent first runs the
@@ -6504,10 +6536,12 @@ def phase_llm_mesh(torch):
     ref("sketched", _mesh_sketched_reference)
     ref("cohort", _mesh_cohort_reference)
     ref("moe", _mesh_moe_reference)
+    ref("ssm", _mesh_ssm_reference)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as ref_dir:
         ref("serve", _serve_mesh_reference, ref_dir)
-        # the ranks share the card with this process: it holds no tensor
         ref("serve_moe", _serve_mesh_moe_reference, ref_dir)
+        # the ranks share the card with this process: it holds no tensor
+        ref("serve_ssm", _serve_mesh_ssm_reference, ref_dir)
         res, exit_codes, wall_s = _spawn_mesh_ranks(refs)
     loss_ref = refs["loss"]
     for part in ("check", "pin"):
@@ -6821,6 +6855,7 @@ def phase_llm_mesh(torch):
     moe_launches = _gate_mesh_moe(res, refs["moe"])
     serve_launches = _gate_serve_mesh(res, refs["serve"])
     serve_moe_launches = _gate_serve_mesh_moe(res, refs["serve_moe"])
+    ssm_launches = _gate_mesh_ssm(res, refs)
 
     counts = {str(shape): [r["runs"][str(shape)]["counts"] for r in res]
               for shape in MESH_SHAPES}
@@ -6833,7 +6868,7 @@ def phase_llm_mesh(torch):
              "llm_mesh_sketched": _summed(run["launches"] for run in sr),
              "llm_mesh_cohort_check": _summed(c["launches"] for c in co),
              **moe_launches, "serve_mesh": serve_launches,
-             **serve_moe_launches},
+             **serve_moe_launches, **ssm_launches},
             counts)
 
 
@@ -7145,31 +7180,29 @@ def _dropped(seen: list) -> float:
     return 1.0 - kept / max(1, sum(e["kept"].numel() for e in seen))
 
 
-def _serve_mesh_moe_reference(torch, ref_dir: str) -> dict:
-    """One device's runs ``serve_mesh_moe`` and ``serve_mesh_moe_check``
-    hold the ranks to, saved to ``ref_dir``: qwen3-moe (bf16, 8 layers):
-    the prefill's last logits, every step's logits, the inputs and greedy
-    tokens, and the same weights in f32 fed the same tokens; each reduced
-    f32 check's prefill, step logits, tokens, final cache and every
-    dispatch's picks and kept pairs.  Returns the file's path, the
-    one-device times and its bf16 logits' distance from the f32 run."""
+def _serve_full_reference(torch, cfg, seed: int):
+    """One device's full-width serving run the partitioned serving parts
+    hold their ranks to: ``cfg`` in bf16 from ``model.init(seed)``, an
+    ``SERVE_MESH_B`` × ``SERVE_MESH_P`` prompt (``seed + 1``), the
+    prefill's last logits and ``SERVE_MESH_STEPS`` greedy steps' logits,
+    inputs and tokens, then the same weights in f32 fed the same tokens.
+    Returns (the data on the host, the prefill's ms, a step's ms, the bf16
+    logits' distance from the f32 run)."""
     import dataclasses
 
     from repro_torch import rng
     from repro_torch.benchmarks.common import time_ms
     from repro_torch.device import resolve_device
-    from repro_torch.models import build_model, moe
+    from repro_torch.models import build_model
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.tree import tree_map
 
-    t_start = time.perf_counter()
     dev = resolve_device("cuda")
-    model = build_model(_llm_cfg(MOE_ARCH, SERVE_MOE_LAYERS))
-    params = model.init(SEED + 30)
-    gen = rng.generator(SEED + 31, dev)
+    model = build_model(cfg)
+    params = model.init(seed)
     prompts = torch.randint(0, model.cfg.vocab_size,
                             (SERVE_MESH_B, SERVE_MESH_P), device=dev,
-                            generator=gen)
+                            generator=rng.generator(seed + 1, dev))
     prefill = make_prefill(model)
     last = prefill(params, {"tokens": prompts})
     prefill_ms = time_ms(lambda: prefill(params, {"tokens": prompts}),
@@ -7204,6 +7237,27 @@ def _serve_mesh_moe_reference(torch, ref_dir: str) -> dict:
     del model, m32, p32, c32, prefill, step, store, logits, last, last32
     del toks, truth
     _free(torch)
+    return data, prefill_ms, step_ms, one_err
+
+
+def _serve_mesh_moe_reference(torch, ref_dir: str) -> dict:
+    """One device's runs ``serve_mesh_moe`` and ``serve_mesh_moe_check``
+    hold the ranks to, saved to ``ref_dir``: qwen3-moe (bf16, 8 layers):
+    the prefill's last logits, every step's logits, the inputs and greedy
+    tokens, and the same weights in f32 fed the same tokens; each reduced
+    f32 check's prefill, step logits, tokens, final cache and every
+    dispatch's picks and kept pairs.  Returns the file's path, the
+    one-device times and its bf16 logits' distance from the f32 run."""
+    from repro_torch import rng
+    from repro_torch.device import resolve_device
+    from repro_torch.models import build_model, moe
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.tree import tree_map
+
+    t_start = time.perf_counter()
+    dev = resolve_device("cuda")
+    data, prefill_ms, step_ms, one_err = _serve_full_reference(
+        torch, _llm_cfg(MOE_ARCH, SERVE_MOE_LAYERS), SEED + 30)
     t_checks = time.perf_counter()
     for name, arch, over, P, N in SERVE_MOE_CHECKS:
         m = build_model(_serve_moe_check_cfg(arch, over))
@@ -7570,6 +7624,706 @@ def _gate_serve_mesh_moe(res: list, ref: dict) -> dict:
                                       + [f["decode_launches"]
                                          for f in full]),
             "serve_mesh_moe_check": {}}
+
+
+# ---------------------------------------------------------------------------
+# the SSM family partitioned on the model axis: llm_mesh_ssm_check,
+# llm_mesh_ssm, serve_mesh_ssm
+# ---------------------------------------------------------------------------
+
+#: ``llm_mesh_ssm_check``: reduced falcon-mamba-7b (d_inner 256, x_proj 24
+#: wide, dt_rank 8) in f32 on (1, 2), W = 2, 2 sgd steps at 1e-2,
+#: noise-free, 3 replicated rounds from one device's init and h, against
+#: the parent's one-device rounds on the card: each round's loss rtol 1e-5,
+#: Θ atol 1e-5 (``llm_mesh_partition_check``'s bars), the ranks' losses
+#: bit-equal, B12 forward and backward on the rank's channels (W·B, S,
+#: d_inner/2 · n), B6, B3 and B4 once a round a rank, and no all-gather
+#: over ``model`` but of ``x_proj``, ``dt_proj`` and ``dt_proj``'s bias
+MESH_SSM_CHECK_ROUNDS = 3
+#: ``llm_mesh_ssm``: falcon-mamba-7b at full width (d_model 4,096, d_inner
+#: 8,192, vocabulary 65,024, bf16) cut 64 -> 2 layers, replicated on (1,
+#: 2) (each rank 4,096 channels and half the vocabulary), W = 2, 1 × 4,096
+#: tokens a worker, 2 sgd steps at ``SSM_LR``, ``MESH_RUN_ROUNDS`` rounds
+MESH_SSM_LAYERS = 2
+#: ``serve_mesh_ssm``: falcon-mamba-7b in bf16 at full width, 8 of 64
+#: layers, ``serve_mesh``'s 8 × 64 prefill and 79 greedy steps fed one
+#: device's tokens; then reduced f32 falcon-mamba, a batch of
+#: ``SERVE_MESH_CHECK_B``, a prompt of 8 and 8 new tokens
+SERVE_SSM_LAYERS = 8
+SERVE_SSM_CHECK_P, SERVE_SSM_CHECK_N = 8, 8
+#: the leaves the SSM's partitioned training still gathers over ``model``
+#: (decode: ``dt_proj``'s bias alone, split on its layer dim)
+SSM_GATHERED = ["layers/dt_proj/b", "layers/dt_proj/w", "layers/x_proj/w"]
+
+
+class _SsmDigests(_LayerDigests):
+    """:class:`_LayerDigests` of the SSM's ``block_fwd`` and
+    ``block_decode``: the sum of each output's 16-bit words in int64, kept
+    on the device until :attr:`digests` reads them, so a full-width round
+    pays no copy to the host."""
+
+    MODULE = "ssm"
+
+    def digest(self, y):
+        return y.detach().contiguous().view(self.torch.int16).sum(
+            dtype=self.torch.int64)
+
+    @property
+    def digests(self) -> list:
+        return [f"{n}:{int(v)}" for n, v in self.kept]
+
+
+@contextlib.contextmanager
+def _scan_shapes(shapes: list):
+    """Append ``[direction, *shape]`` of each B12 launch in the block."""
+    from repro_torch.kernels import linear_scan as ls
+
+    fwd, bwd = ls.linear_scan_fwd, ls.linear_scan_bwd
+
+    def f(a, *args, **kw):
+        shapes.append(["fwd"] + list(a.shape))
+        return fwd(a, *args, **kw)
+
+    def g(a, *args, **kw):
+        shapes.append(["bwd"] + list(a.shape))
+        return bwd(a, *args, **kw)
+    ls.linear_scan_fwd, ls.linear_scan_bwd = f, g
+    try:
+        yield shapes
+    finally:
+        ls.linear_scan_fwd, ls.linear_scan_bwd = fwd, bwd
+
+
+def _distinct(shapes: list) -> list:
+    return sorted(map(list, {tuple(x) for x in shapes}))
+
+
+def _mesh_ssm_reference(torch) -> dict:
+    """The one-device rounds of ``llm_mesh_ssm_check`` along their own
+    trajectory: the losses (recorded beside the mesh's, not gated)."""
+    from repro_torch import rng
+
+    cfg = _moe_part_cfg(SSM_ARCH)
+    batch = _moe_part_batch(torch, cfg)
+    init1, step1 = _mesh_part_trainer(torch, cfg, None)
+    st = init1(SEED)
+    losses = []
+    for r in range(MESH_SSM_CHECK_ROUNDS):
+        st, m = step1(st, batch, key=rng.fold_in(SEED, r + 1))
+        losses.append(float(m["loss"]))
+    del st, init1, step1
+    _free(torch)
+    return {"losses": losses}
+
+
+def _rank_state(torch, st1, stm, sspec, j: int):
+    """The rank's block of one device's state ``st1`` as the mesh trainer
+    holds it (``stm``'s form): θ, Θ and the optimizer's trees cut by
+    ``sspec``, λ and h packed shard-major and narrowed to the rank's
+    columns, the channel's age and the step as they are."""
+    from repro_torch.core.cplx import Complex
+    from repro_torch.core.packing import (build_packspec, pack_shard_global,
+                                          shard_tree, unpack)
+    from repro_torch.tree import tree_map
+
+    spec1 = build_packspec(st1.theta, batch_dims=1)
+    dl = sspec.d_local
+
+    def plane(z):
+        return Complex(*(pack_shard_global(sspec, unpack(spec1, x,
+                                                         cast=False))
+                         [:, j * dl:(j + 1) * dl].contiguous()
+                         for x in (z.re, z.im)))
+
+    def cut(tree):
+        return tree_map(lambda x: x.clone(), shard_tree(sspec, tree, j))
+    opt = st1.opt._replace(mu=cut(st1.opt.mu), nu=cut(st1.opt.nu))
+    return stm._replace(theta=cut(st1.theta), Theta=cut(st1.Theta),
+                        lam=plane(st1.lam), opt=opt, step=st1.step,
+                        chan=stm.chan._replace(h=plane(st1.chan.h),
+                                               age=st1.chan.age))
+
+
+def _mesh_ssm_check_rank(torch, mesh, ref: dict) -> dict:
+    """``llm_mesh_ssm_check`` on one rank: each round run on ``mesh`` from
+    the rank's block of one device's state before it (:func:`_rank_state`)
+    and held to one device's round from that state: the loss and the
+    rank's Θ block; B12's shapes, the launches, the all-gathers over
+    ``model`` and each layer's output digests of the mesh's rounds.  Along
+    their own trajectories the two runs fork: this model at lr 1e-2 turns
+    a regrouped f32 sum's last bit into a loss gap that grows about 10× a
+    round (one device with ``out_proj``'s contraction summed in two halves
+    read 3.5e-6 and 2.0e-5 relative in rounds 2 and 3 on the CPU), so the
+    free-running losses beside the parent's (``ref``) are recorded, not
+    gated."""
+    from repro_torch import rng
+    from repro_torch.core.packing import shard_tree
+    from repro_torch.kernels import build
+    from repro_torch.tree import tree_leaves
+
+    j = mesh.axis_index("model")
+    cfg = _moe_part_cfg(SSM_ARCH)
+    batch = _moe_part_batch(torch, cfg)
+    init1, step1 = _mesh_part_trainer(torch, cfg, None)
+    st1 = init1(SEED)
+    init_m, step_m = _mesh_part_trainer(torch, cfg, mesh)
+    stm = init_m(SEED)
+    sspec, plan = init_m.layout["sspec"], init_m.layout["plan"]
+    free = stm = _rank_state(torch, st1, stm, sspec, j)
+    shapes: list = []
+    losses, losses1, t_errs, free_losses = [], [], [], []
+    launches: dict = {}
+    mesh.reset_stats()
+    dig = _SsmDigests(torch)
+    for r in range(MESH_SSM_CHECK_ROUNDS):
+        key = rng.fold_in(SEED, r + 1)
+        stm = _rank_state(torch, st1, stm, sspec, j)
+        build.reset_launches()
+        with _scan_shapes(shapes), dig:
+            stm, m = step_m(stm, batch, key=key)
+        launches = _summed([launches, dict(build.launches)])
+        st1, m1 = step1(st1, batch, key=key)
+        losses.append(float(m["loss"]))
+        losses1.append(float(m1["loss"]))
+        t_errs.append(_max_err(tree_leaves(stm.Theta),
+                               tree_leaves(shard_tree(sspec, st1.Theta, j)),
+                               0.0, MESH_PART_THETA_ATOL))
+    n_gathers = mesh.stats.get("all_gather", {}).get("axes", {}).get(
+        "model", 0)
+    want, still = _gathers_want(stm.theta, sspec, plan.part,
+                                MESH_SSM_CHECK_ROUNDS * 2, 1)
+    collectives = _mesh_stats(mesh, MESH_SSM_CHECK_ROUNDS)
+    for r in range(MESH_SSM_CHECK_ROUNDS):
+        free, m = step_m(free, batch, key=rng.fold_in(SEED, r + 1))
+        free_losses.append(float(m["loss"]))
+    out = {"losses": losses, "losses_one_device": losses1,
+           "loss_rel_err": max(abs(a - b) / abs(b)
+                               for a, b in zip(losses, losses1)),
+           "Theta_max_abs": max(e[0] for e in t_errs),
+           "Theta_over_atol": max(e[1] for e in t_errs),
+           "free_running": {"losses": free_losses,
+                            "losses_one_device": ref["losses"],
+                            "loss_rel_gap": [abs(a - b) / abs(b) for a, b
+                                             in zip(free_losses,
+                                                    ref["losses"])]},
+           "scan_shapes": _distinct(shapes), "launches": launches,
+           "model_all_gathers": n_gathers,
+           "model_all_gathers_want": want, "gathered_leaves": still,
+           "collectives": collectives, "inner": plan.part.inner,
+           "digests": dig.digests}
+    del stm, st1, free, init_m, step_m, init1, step1
+    _free(torch)
+    return out
+
+
+def _mesh_ssm_rank(torch, mesh) -> dict:
+    """``llm_mesh_ssm`` on one rank: falcon-mamba-7b at full width cut to
+    ``MESH_SSM_LAYERS``, replicated on ``mesh``, the collectives timed,
+    B12's shapes and each layer's output digests recorded."""
+    from repro_torch import rng
+    from repro_torch.kernels import build
+    from repro_torch.launch.trace_analysis import mesh_collectives
+    from repro_torch.tree import tree_leaves
+
+    cfg = _llm_cfg(SSM_ARCH, MESH_SSM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init_fn, step, _, _ = _mesh_trainer(torch, cfg, mesh, noisy=True)
+    state = init_fn(SEED)
+    batch = _mesh_batch(torch, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    sspec, part = init_fn.layout["sspec"], init_fn.layout["plan"].part
+    want, still = _gathers_want(state.theta, sspec, part,
+                                MESH_RUN_ROUNDS * 2, 1)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    losses, times, shapes = [], [], []
+    with _scan_shapes(shapes), _SsmDigests(torch) as dig:
+        for r in range(MESH_RUN_ROUNDS):
+            held = [state]
+            state = None
+            t0 = time.perf_counter()
+            state, m = step(held.pop(), batch, key=rng.fold_in(SEED, r + 1))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            del m
+    mesh.timing = False
+    gathers = mesh.stats.get("all_gather", {}).get("axes", {})
+    finite = all(bool(torch.isfinite(leaf).all()) for leaf in
+                 tree_leaves(state.theta) + tree_leaves(state.Theta))
+    out = {"losses": losses, "round_s": times, "setup_s": setup_s,
+           "setup_peak": setup_peak,
+           "peak": torch.cuda.max_memory_allocated(), "finite": finite,
+           "launches": dict(build.launches), "scan_shapes": _distinct(shapes),
+           "collectives": _mesh_stats(mesh, MESH_RUN_ROUNDS),
+           "counts": mesh_collectives(mesh.stats),
+           "model_all_gathers": gathers.get("model", 0),
+           "model_all_gathers_want": want, "gathered_leaves": still,
+           "d_local": sspec.d_local, "inner": part.inner,
+           "digests": dig.digests}
+    del state, step, init_fn
+    _free(torch)
+    return out
+
+
+def _serve_mesh_ssm_reference(torch, ref_dir: str) -> dict:
+    """One device's runs ``serve_mesh_ssm`` holds the ranks to, saved to
+    ``ref_dir``: falcon-mamba-7b (bf16, ``SERVE_SSM_LAYERS`` layers): the
+    prefill's last logits, every step's logits, the inputs and greedy
+    tokens, and the same weights in f32 fed the same tokens; the reduced
+    f32 check's prefill, step logits, tokens and final cache.  Returns the
+    file's path, the one-device times and its bf16 logits' distance from
+    the f32 run."""
+    from repro_torch import rng
+    from repro_torch.device import resolve_device
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.tree import tree_map
+
+    t_start = time.perf_counter()
+    dev = resolve_device("cuda")
+    data, prefill_ms, step_ms, one_err = _serve_full_reference(
+        torch, _llm_cfg(SSM_ARCH, SERVE_SSM_LAYERS), SEED + 40)
+    t_check = time.perf_counter()
+    m = build_model(_moe_part_cfg(SSM_ARCH))
+    p = m.init(SEED + 42)
+    pr = torch.randint(0, m.cfg.vocab_size,
+                       (SERVE_MESH_CHECK_B, SERVE_SSM_CHECK_P), device=dev,
+                       generator=rng.generator(SEED + 43, dev))
+    st: list = []
+    last = make_prefill(m)(p, {"tokens": pr})
+    c = m.init_cache(SERVE_MESH_CHECK_B, SERVE_SSM_CHECK_P
+                     + SERVE_SSM_CHECK_N)
+    tk, c = _greedy_run(make_serve_step(_observed(m, st)), p, c, pr,
+                        SERVE_SSM_CHECK_N)
+    data["check"] = {"prompts": pr.cpu(), "prefill": last.cpu(),
+                     "logits": torch.stack(st).cpu(),
+                     "tokens": torch.stack(tk).cpu(),
+                     "cache": tree_map(lambda x: x.cpu(), c)}
+    del m, p, c, st, last, tk
+    _free(torch)
+    path = os.path.join(ref_dir, "serve_mesh_ssm_reference.pt")
+    torch.save(data, path)
+    return {"path": path, "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "one_device_vs_f32": one_err,
+            "seconds": {"full": t_check - t_start,
+                        "check": time.perf_counter() - t_check}}
+
+
+def _serve_mesh_ssm_full(torch, mesh, data: dict) -> dict:
+    """``serve_mesh_ssm`` on one rank: falcon-mamba-7b at full width cut
+    to ``SERVE_SSM_LAYERS`` on ``mesh``, its prefill and its
+    teacher-forced greedy steps against one device's (and the f32 run's),
+    timed, with the mesh's collectives, B12's launches and shapes, each
+    layer's output digests and the rank's peaks."""
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.tree import tree_map
+
+    dev = resolve_device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(_llm_cfg(SSM_ARCH, SERVE_SSM_LAYERS))
+    t0 = time.perf_counter()
+    full = model.init(SEED + 40)
+    prompts = data["prompts"].to(dev)
+    store: list = []
+    step = make_serve_step(_observed(model, store), mesh)
+    prefill = make_prefill(model, mesh)
+    params = step.shard(full)
+    # the prefill's plan from the shapes alone: the blocks are the step's
+    prefill.shard(tree_map(lambda x: x.to("meta"), full))
+    del full
+    cache = step.init_cache(SERVE_MESH_B, SERVE_MESH_P + SERVE_MESH_N)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _free(torch)
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    batch = {"tokens": prompts}
+    pre_shapes: list = []
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    with _scan_shapes(pre_shapes), _SsmDigests(torch) as dig_pre:
+        last = prefill(params, batch)
+    torch.cuda.synchronize()
+    mesh.timing = False
+    pre_launches = {k: v for k, v in build.launches.items() if v}
+    pre_stats = _mesh_stats(mesh, 1)
+    pre_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+    times = []
+    for _ in range(SERVE_MESH_PREFILL_RUNS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+
+    feed = data["feed"].to(dev)
+    step_s = []
+
+    def tick(i):
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter())
+    dec_shapes: list = []
+    build.reset_launches()
+    mesh.reset_stats()
+    mesh.timing = True
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with _scan_shapes(dec_shapes), _SsmDigests(torch) as dig_dec:
+        toks, cache = _greedy_run(step, params, cache, prompts,
+                                  SERVE_MESH_N, feed=feed, every=tick)
+    mesh.timing = False
+    dec_launches = {k: v for k, v in build.launches.items() if v}
+    dec_stats = _mesh_stats(mesh, SERVE_MESH_STEPS)
+    dec_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+    walls = [(b - a) * 1e3 for a, b in zip([t1] + step_s[:-1], step_s)]
+    peak = torch.cuda.max_memory_allocated()
+    j = mesh.axis_index("model")
+    local = torch.stack(store)
+    vl = local.shape[-1]
+    cols = slice(j * vl, (j + 1) * vl)
+    errs, errs32 = [], []
+    for i in range(SERVE_MESH_STEPS):
+        errs.append(float((local[i].float() - data["logits"][i][:, cols]
+                           .to(dev).float()).abs().max()))
+        errs32.append(_err_stats(local[i],
+                                 data["logits_f32"][i][:, cols].to(dev)))
+    tokens = torch.stack(toks).cpu()
+    gathered = mesh.all_gather(local, "model", -1, op="gather_vocab")
+    part = step.layout["cache_part"]
+    out = {"prefill_max_abs_err": float((last.float() - data["prefill"].to(
+               dev).float()).abs().max()),
+           "prefill_sha1": _sha1(torch, last),
+           "step_logits_sha1": _sha1(torch, gathered),
+           "step_max_abs_err": errs, "step_vs_f32": errs32,
+           "prefill_vs_f32": _err_stats(last, data["prefill_f32"].to(dev)),
+           "tokens_sha1": _sha1(torch, torch.stack(toks)),
+           "tokens_equal_one_device": float(
+               (tokens == data["tokens"]).float().mean()),
+           "prefill_launches": pre_launches, "decode_launches": dec_launches,
+           "prefill_scan_shapes": _distinct(pre_shapes),
+           "decode_scan_shapes": _distinct(dec_shapes),
+           "prefill_collectives": pre_stats, "prefill_calls": pre_calls,
+           "decode_collectives": dec_stats, "decode_calls": dec_calls,
+           "prefill_ms": times, "decode_wall_ms": walls,
+           "setup_s": setup_s, "setup_peak": setup_peak, "peak": peak,
+           "cache_layout": step.layout["cache"],
+           "cache_blocks": {k: list(v.shape) for k, v in cache.items()},
+           "proj_cols": list(part.proj_cols),
+           "digests": dig_pre.digests + dig_dec.digests}
+    del gathered, local, store
+    out["decode_device_ms"] = _kernel_ms(
+        torch, lambda: step(params, cache, feed[-1], SERVE_MESH_STEPS - 1))
+    del params, cache, last, model, step, prefill
+    _free(torch)
+    return out
+
+
+def _serve_mesh_ssm_check(torch, mesh, data: dict) -> dict:
+    """``serve_mesh_ssm``'s reduced f32 check on one rank: falcon-mamba
+    served greedily on ``mesh`` against one device's run on the card: the
+    prefill's and every step's logits (the rank's vocab columns), the
+    tokens, and the rank's ``ssm`` and ``conv`` against their blocks of
+    one device's."""
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.shardings import shard_leaf
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill, make_serve_step
+
+    dev = resolve_device("cuda")
+    m = build_model(_moe_part_cfg(SSM_ARCH))
+    full = m.init(SEED + 42)
+    prompts = data["prompts"].to(dev)
+    store: list = []
+    prefill = make_prefill(m, mesh)
+    step = make_serve_step(_observed(m, store), mesh)
+    params = step.shard(full)
+    cache = step.init_cache(SERVE_MESH_CHECK_B,
+                            SERVE_SSM_CHECK_P + SERVE_SSM_CHECK_N)
+    mesh.reset_stats()
+    last = prefill(prefill.shard(full), {"tokens": prompts})
+    pre_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+    mesh.reset_stats()
+    toks, cache = _greedy_run(step, params, cache, prompts,
+                              SERVE_SSM_CHECK_N)
+    calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+
+    def scaled(a, b):
+        b = b.to(dev).float()
+        return float((a.float() - b).abs().max() / b.abs().max())
+    j = mesh.axis_index("model")
+    vl = store[0].shape[-1]
+    out = {"layout": step.layout["cache"],
+           "cache_blocks": {k: list(v.shape) for k, v in cache.items()},
+           "prefill_rel_err": scaled(last, data["prefill"]),
+           "step_rel_err": max(scaled(x, y[:, j * vl:(j + 1) * vl])
+                               for x, y in zip(store, data["logits"])),
+           "cache_rel_err": {k: scaled(cache[k], shard_leaf(
+               data["cache"][k], step.layout["cache_specs"][k], mesh))
+               for k in cache},
+           "tokens_equal": bool(torch.equal(torch.stack(toks).cpu(),
+                                            data["tokens"])),
+           "tokens_sha1": _sha1(torch, torch.stack(toks)),
+           "prefill_calls": pre_calls, "decode_calls": calls}
+    del m, full, params, cache, store, last
+    return out
+
+
+def _serve_mesh_ssm_rank(torch, mesh, ref: dict) -> dict:
+    """Phase ``serve_mesh_ssm`` on one rank: the full-width run, then the
+    reduced f32 check."""
+    t0 = time.perf_counter()
+    data = torch.load(ref["path"])
+    out = {"full": _serve_mesh_ssm_full(torch, mesh, data)}
+    t1 = time.perf_counter()
+    out["check"] = _serve_mesh_ssm_check(torch, mesh, data["check"])
+    _free(torch)
+    out["seconds"] = {"full": t1 - t0, "check": time.perf_counter() - t1}
+    return out
+
+
+def _unequal_ranks(phase: str, per: list, keys: tuple) -> None:
+    """Where the ranks' results differ in any of ``keys``: the line of
+    ``phase`` with both ranks' losses (or digests of their outputs) and
+    per-layer output digests from the first layer call that differs
+    (ROADMAP queue C item 1's dump), then the phase fails."""
+    if all(all(p[k] == per[0][k] for k in keys) for p in per):
+        return
+    first, second = per[0]["digests"], per[1]["digests"]
+    i = next((k for k, (a, b) in enumerate(zip(first, second)) if a != b),
+             min(len(first), len(second)))
+    emit({"phase": phase, "ok": False, "ranks_bits_equal": False,
+          "ranks": [{k: p[k] for k in keys} for p in per],
+          "layer_calls": [len(first), len(second)],
+          "first_differing_layer_call": i,
+          "digests": [first[max(0, i - 2):i + 12],
+                      second[max(0, i - 2):i + 12]]})
+    require(False, f"{phase}: the ranks' {', '.join(keys)} are not bit-equal "
+            f"(first differing layer call {i})")
+
+
+def _gate_mesh_ssm(res: list, refs: dict) -> dict:
+    """Phases ``llm_mesh_ssm_check``, ``llm_mesh_ssm`` and
+    ``serve_mesh_ssm``: their gates on the ranks' results and their
+    lines; returns each phase's launches, summed over the ranks."""
+    from repro_torch.models import get_config
+
+    n = MESH_RANKS
+    require(all("ssm_check" in r for r in res), "llm_mesh_ssm_check: a rank "
+            "failed:\n" + _rank_failures(res, "ssm_check"))
+    sc = [r["ssm_check"] for r in res]
+    cfg = _moe_part_cfg(SSM_ARCH)
+    L = cfg.n_layers
+    rows = LLM_WORKERS * SKETCH_CHECK_B
+    plane = [rows, SKETCH_CHECK_S, cfg.d_inner // n * cfg.ssm_state]
+    _unequal_ranks("llm_mesh_ssm_check", sc, ("losses",))
+    for r, c in enumerate(sc):
+        tag = f"llm_mesh_ssm_check rank {r}"
+        require(c["inner"], f"{tag}: the plan does not split the channels")
+        require(c["loss_rel_err"] <= MESH_PART_LOSS_RTOL, f"{tag}: the losses "
+                f"{c['losses']} differ from one device's "
+                f"{c['losses_one_device']} beyond rtol {MESH_PART_LOSS_RTOL}")
+        require(c["Theta_over_atol"] <= 1.0, f"{tag}: Θ differs from one "
+                f"device's block by {c['Theta_max_abs']}, beyond atol "
+                f"{MESH_PART_THETA_ATOL}")
+        require(c["scan_shapes"] == [["bwd"] + plane, ["fwd"] + plane],
+                f"{tag}: B12 ran on {c['scan_shapes']}, not the rank's "
+                f"channels {plane}")
+        _per_round(dict(c["launches"]), MESH_SSM_CHECK_ROUNDS, dict(
+            MESH_ROUND_LAUNCHES, linear_scan_fwd=2 * L * 2,
+            linear_scan_bwd=L * 2))
+        require(c["gathered_leaves"] == SSM_GATHERED and
+                c["model_all_gathers"] == c["model_all_gathers_want"],
+                f"{tag}: {c['model_all_gathers']} all-gathers over model, "
+                f"want {c['model_all_gathers_want']} (the leaves "
+                f"{c['gathered_leaves']})")
+    emit({"phase": "llm_mesh_ssm_check", "ok": True, "arch": SSM_ARCH,
+          "reduced": "ModelConfig.reduced(): 2 layers, d_model 128, "
+          "d_inner 256, ssm_state 8, dt_rank 8", "dtype": "float32",
+          "grid": {"data": 1, "model": 2}, "W": LLM_WORKERS,
+          "batch": SKETCH_CHECK_B, "seq": SKETCH_CHECK_S, "local_steps": 2,
+          "local_lr": 1e-2, "noisy": False, "rounds": MESH_SSM_CHECK_ROUNDS,
+          "loss_rtol": MESH_PART_LOSS_RTOL,
+          "Theta_atol": MESH_PART_THETA_ATOL, "ranks_bits_equal": True,
+          "ranks": [{k: v for k, v in c.items()
+                     if k not in ("launches", "collectives", "digests")}
+                    for c in sc],
+          "collectives": [c["collectives"] for c in sc],
+          "launches": [c["launches"] for c in sc]})
+
+    require(all("ssm" in r for r in res), "llm_mesh_ssm: a rank failed:\n"
+            + _rank_failures(res, "ssm"))
+    sr = [r["ssm"] for r in res]
+    full = get_config(SSM_ARCH)
+    plane = [LLM_WORKERS, LLM_SEQ, full.d_inner // n * full.ssm_state]
+    _unequal_ranks("llm_mesh_ssm", sr, ("losses",))
+    for r, run in enumerate(sr):
+        tag = f"llm_mesh_ssm rank {r}"
+        require(run["inner"], f"{tag}: the plan does not split the channels")
+        require((LLM_WORKERS, run["d_local"]) in _mesh_round_shapes(),
+                f"{tag}: the rank's block ({LLM_WORKERS}, {run['d_local']}) "
+                f"is not one of the kernel rows' shapes")
+        require(run["losses"][-1] < run["losses"][0], f"{tag}: round "
+                f"{MESH_RUN_ROUNDS} loss {run['losses'][-1]} is not below "
+                f"round 1's {run['losses'][0]}")
+        require(run["finite"], f"{tag}: non-finite θ or Θ")
+        require(max(run["peak"], run["setup_peak"]) <= MESH_PEAK,
+                f"{tag}: peak {run['peak'] / 1e9} GB (set-up "
+                f"{run['setup_peak'] / 1e9} GB) above {MESH_PEAK / 1e9} GB")
+        require(run["scan_shapes"] == [["bwd"] + plane, ["fwd"] + plane],
+                f"{tag}: B12 ran on {run['scan_shapes']}, not the rank's "
+                f"channels {plane}")
+        _per_round(dict(run["launches"]), MESH_RUN_ROUNDS, SSM_LAUNCHES)
+        require(run["gathered_leaves"] == SSM_GATHERED and
+                run["model_all_gathers"] == run["model_all_gathers_want"],
+                f"{tag}: {run['model_all_gathers']} all-gathers over model, "
+                f"want {run['model_all_gathers_want']} (the leaves "
+                f"{run['gathered_leaves']})")
+    s_round = statistics.mean(max(sr[r]["round_s"][i] for r in range(n))
+                              for i in range(1, MESH_RUN_ROUNDS))
+    emit({"phase": "llm_mesh_ssm", "ok": True, "arch": SSM_ARCH,
+          "reduced": {"n_layers": f"64 -> {MESH_SSM_LAYERS}"},
+          "grid": {"data": 1, "model": 2}, "ranks": n,
+          "backend": res[0]["backend"], "W": LLM_WORKERS, "seq": LLM_SEQ,
+          "local_steps": 2, "local_lr": LLM_LR, "rounds": MESH_RUN_ROUNDS,
+          "channels_a_rank": full.d_inner // n, "d_local": sr[0]["d_local"],
+          "loss": sr[0]["losses"], "ranks_bits_equal": True,
+          "round_s": [run["round_s"] for run in sr],
+          "seconds_per_round": s_round,
+          "tokens_per_s": LLM_WORKERS * LLM_SEQ * 2 / s_round,
+          "setup_s": [run["setup_s"] for run in sr],
+          "peak_mem_gb": [run["peak"] / 1e9 for run in sr],
+          "setup_peak_mem_gb": [run["setup_peak"] / 1e9 for run in sr],
+          "scan_shapes": sr[0]["scan_shapes"],
+          "collectives": [run["collectives"] for run in sr],
+          "model_all_gathers": [run["model_all_gathers"] for run in sr],
+          "gathered_leaves": sr[0]["gathered_leaves"],
+          "timing": "every collective synchronised and timed (Mesh.timing)",
+          "launches": [run["launches"] for run in sr]})
+
+    require(all("serve_mesh_ssm" in r for r in res), "serve_mesh_ssm: a "
+            "rank failed:\n" + _rank_failures(res, "serve_mesh_ssm"))
+    ref = refs["serve_ssm"]
+    fs = [r["serve_mesh_ssm"]["full"] for r in res]
+    f0 = fs[0]
+    one32 = ref["one_device_vs_f32"]
+    rms = {"prefill": (_rms([f["prefill_vs_f32"] for f in fs[:1]]),
+                       _rms([one32["prefill"]])),
+           "steps": (_rms([e for f in fs for e in f["step_vs_f32"]]),
+                     _rms(one32["steps"]))}
+    ratio = {k: a / b for k, (a, b) in rms.items()}
+    cfg8 = _llm_cfg(SSM_ARCH, SERVE_SSM_LAYERS)
+    Ls, c = cfg8.n_layers, cfg8.d_inner // n
+    _unequal_ranks("serve_mesh_ssm", fs, ("tokens_sha1", "prefill_sha1",
+                                          "step_logits_sha1"))
+    for r, f in enumerate(fs):
+        tag = f"serve_mesh_ssm rank {r}"
+        require(f["cache_layout"] == "inner" and f["cache_blocks"] == {
+            "ssm": [Ls, SERVE_MESH_B, c, cfg8.ssm_state],
+            "conv": [Ls, SERVE_MESH_B, cfg8.conv1d_width - 1, c]},
+            f"{tag}: the cache's layout {f['cache_layout']!r}, blocks "
+            f"{f['cache_blocks']}")
+        require(sorted(f["proj_cols"]) == ["dt_proj", "x_proj"], f"{tag}: "
+                f"decode keeps the rank's block of {f['proj_cols']}")
+        require(f["prefill_launches"] == {"linear_scan_fwd": Ls}
+                and not f["decode_launches"], f"{tag}: prefill launched "
+                f"{f['prefill_launches']}, decode {f['decode_launches']}")
+        want = [["fwd", SERVE_MESH_B, SERVE_MESH_P, c * cfg8.ssm_state]]
+        require(f["prefill_scan_shapes"] == want
+                and not f["decode_scan_shapes"], f"{tag}: B12 ran on "
+                f"{f['prefill_scan_shapes']}, not the rank's channels {want}")
+        # the prefill gathers x_proj, dt_proj (each layer's) and dt_proj's
+        # bias (once); decode the bias alone
+        require(f["prefill_calls"].get("all_gather") == {"model": 2 * Ls + 1}
+                and f["decode_calls"].get("all_gather") == {
+                    "model": SERVE_MESH_STEPS}, f"{tag}: parameter "
+                f"all-gathers in the prefill "
+                f"{f['prefill_calls'].get('all_gather')}, in decode "
+                f"{f['decode_calls'].get('all_gather')}")
+        require(max(f["peak"], f["setup_peak"]) <= MESH_PEAK, f"{tag}: peak "
+                f"{f['peak'] / 1e9} GB, set-up {f['setup_peak'] / 1e9} GB, "
+                f"above {MESH_PEAK / 1e9} GB")
+    require(all(x <= SERVE_MESH_F32_RATIO for x in ratio.values()),
+            f"serve_mesh_ssm: the mesh's logits are further from the f32 run "
+            f"than one device's bf16 logits are, beyond "
+            f"{SERVE_MESH_F32_RATIO}× in RMS: {rms}")
+    checks = [r["serve_mesh_ssm"]["check"] for r in res]
+    for r, ck in enumerate(checks):
+        tag = f"serve_mesh_ssm check rank {r}"
+        require(ck["layout"] == "inner", f"{tag}: layout {ck['layout']!r}")
+        require(max(ck["prefill_rel_err"], ck["step_rel_err"],
+                    *ck["cache_rel_err"].values()) <= SERVE_MESH_CHECK_RTOL,
+                f"{tag}: logits {ck['prefill_rel_err']} / "
+                f"{ck['step_rel_err']}, cache {ck['cache_rel_err']} from one "
+                f"device's, beyond {SERVE_MESH_CHECK_RTOL} of their largest")
+        require(ck["tokens_equal"] and ck["tokens_sha1"]
+                == checks[0]["tokens_sha1"], f"{tag}: the tokens are not one "
+                f"device's, or not rank 0's")
+        Lc = _moe_part_cfg(SSM_ARCH).n_layers
+        require(ck["prefill_calls"].get("all_gather") == {"model": 2 * Lc + 1}
+                and ck["decode_calls"].get("all_gather") == {
+                    "model": SERVE_SSM_CHECK_P - 1 + SERVE_SSM_CHECK_N},
+                f"{tag}: parameter all-gathers in the prefill "
+                f"{ck['prefill_calls'].get('all_gather')}, in decode "
+                f"{ck['decode_calls'].get('all_gather')} (dt_proj's bias "
+                f"once a step)")
+    walls = [statistics.median(f["decode_wall_ms"]) for f in fs]
+
+    def per_rank(key):
+        return [f[key] for f in fs]
+    emit({"phase": "serve_mesh_ssm", "ok": True, "arch": SSM_ARCH,
+          "n_layers": Ls, "reduced": f"depth only: {Ls} of 64 layers",
+          "dtype": "bfloat16",
+          "grid": dict(zip(("data", "model"), SERVE_MESH_SHAPE)),
+          "ranks": n, "backend": res[0]["backend"],
+          "batch": SERVE_MESH_B, "prompt": SERVE_MESH_P,
+          "new_tokens": SERVE_MESH_N, "decode_steps": SERVE_MESH_STEPS,
+          "inputs": "one device's tokens (teacher forced)",
+          "channels_a_rank": c, "proj_cols": f0["proj_cols"],
+          "cache_layout": f0["cache_layout"],
+          "cache_blocks": f0["cache_blocks"],
+          "prefill_max_abs_err": f0["prefill_max_abs_err"],
+          "step_max_abs_err": [max(f["step_max_abs_err"][i] for f in fs)
+                               for i in range(SERVE_MESH_STEPS)],
+          "rms_vs_f32": {k: {"mesh": a, "one_device": b}
+                         for k, (a, b) in rms.items()},
+          "rms_vs_f32_ratio": ratio, "f32_ratio_bound": SERVE_MESH_F32_RATIO,
+          "tokens_equal_one_device": f0["tokens_equal_one_device"],
+          "ranks_bits_equal": True,
+          "prefill_ms": per_rank("prefill_ms"),
+          "prefill_ms_one_device": ref["prefill_ms"],
+          "decode_wall_ms_per_step": walls,
+          "decode_wall_ms_per_step_one_device": ref["step_ms"],
+          "decode_device_ms_per_step": per_rank("decode_device_ms"),
+          "setup_s": per_rank("setup_s"),
+          "setup_peak_gb": [f["setup_peak"] / 1e9 for f in fs],
+          "peak_mem_gb": [f["peak"] / 1e9 for f in fs],
+          "prefill_collectives": per_rank("prefill_collectives"),
+          "decode_collectives_per_step": per_rank("decode_collectives"),
+          "prefill_launches": per_rank("prefill_launches"),
+          "prefill_scan_shapes": f0["prefill_scan_shapes"],
+          "check": {"reduced": "ModelConfig.reduced()", "dtype": "float32",
+                    "batch": SERVE_MESH_CHECK_B, "prompt": SERVE_SSM_CHECK_P,
+                    "new_tokens": SERVE_SSM_CHECK_N,
+                    "rtol": SERVE_MESH_CHECK_RTOL, "ranks": checks},
+          "seconds": {"one_device_reference": ref["seconds"],
+                      "ranks": [r["serve_mesh_ssm"]["seconds"]
+                                for r in res]},
+          "timing": "every collective synchronised and timed (Mesh.timing)"})
+    return {"llm_mesh_ssm_check": _summed(c["launches"] for c in sc),
+            "llm_mesh_ssm": _summed(run["launches"] for run in sr),
+            "serve_mesh_ssm": _summed([f["prefill_launches"] for f in fs]
+                                      + [f["decode_launches"] for f in fs])}
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,11 @@ shard-local round, the gathered forward and the partitioned products
 need, and no more: :meth:`Mesh.psum` (all-reduce SUM), :meth:`Mesh.pmin`
 (MIN), :meth:`Mesh.pmax` (the MIN of the negation), :meth:`Mesh.por` (an
 OR as a SUM > 0, as ``tree_ota`` takes it), :meth:`Mesh.all_gather` along
-a tensor dim and :meth:`Mesh.reduce_scatter` (the sketched mode's
-``rs_grads``), each over one axis or a tuple of axes.  A collective over
-axes of total size 1 is the identity and touches no process group.
+a tensor dim, :meth:`Mesh.reduce_scatter` (the sketched mode's
+``rs_grads``) and :meth:`Mesh.all_to_all` (the SSM's ``in_proj`` output
+to each rank's channels), each over one axis or a tuple of axes.  A
+collective over axes of total size 1 is the identity and touches no
+process group.
 Partitioned serving's collectives over activations (the query heads'
 gather, the split softmax's max and sum, the greedy token's max and min,
 the last logits' gather) run through the same methods under names of
@@ -22,18 +24,21 @@ their own (:data:`COLL_KIND`), so :attr:`Mesh.stats`'s ``all_gather``
 counts the gathers of parameters alone.
 
 The partitioned products (``models/partition.py``) differentiate through
-two of them (:func:`copy_to`, :func:`reduce_from`): the identity forward
-whose backward sums the gradient over an axis (at the input of a
-column-split product), and the sum forward whose backward is the identity
-(at the output of a row-split product).  Every rank of the axis issues
-them in the same order, the checkpointed recompute included, since each
-runs the same program on its own columns.
+three of them (:func:`copy_to`, :func:`reduce_from`,
+:func:`all_to_all`): the identity forward whose backward sums the
+gradient over an axis (at the input of a column-split product), the sum
+forward whose backward is the identity (at the output of a row-split
+product), and the exchange whose backward is the inverse exchange.
+Every rank of the axis issues them in the same order, the checkpointed
+recompute included, since each runs the same program on its own
+columns.
 
 Backend rule (:func:`backend_for`): NCCL where every rank has a card of its
 own; gloo where ranks share a card or run on the CPU.  Gloo takes each of
 these collectives on CUDA tensors and copies them through the host itself
-(with torch 2.11 on an H100 host: all-reduce SUM and MIN and
-all-gather, so this module stages none); compute never leaves the card.
+(with torch 2.11 on an H100 host: all-reduce SUM and MIN,
+all-gather, and the all-to-all with uneven and zero counts, so this
+module stages none); compute never leaves the card.
 Gloo copies on streams of its own, so on CUDA tensors the mesh waits for
 the card before each such collective and again before anything reads
 what it wrote, which leaves no window for a copy race: one (1, 2) round
@@ -255,7 +260,8 @@ class Mesh:
         return self._reduce("por", x.to(torch.float32), names,
                             dist.ReduceOp.SUM) > 0.0
 
-    def reduce_scatter(self, x: Tensor, names: Axes, dim: int) -> Tensor:
+    def reduce_scatter(self, x: Tensor, names: Axes, dim: int,
+                       op: str = "reduce_scatter") -> Tensor:
         """Σ of ``x`` over the ranks of ``names``, of which this rank keeps
         its slice along ``dim`` (``x``'s ``dim`` cut in the order of
         :meth:`axis_index`)."""
@@ -270,7 +276,26 @@ class Mesh:
             dist.reduce_scatter(out, parts, group=group)
             return out
         # the scatter reads x only: no copy of it
-        return self._run("reduce_scatter", x, fn, inplace=True, names=names)
+        return self._run(op, x, fn, inplace=True, names=names)
+
+    def all_to_all(self, x: Tensor, names: Axes, send: Sequence[int],
+                   recv: Sequence[int]) -> Tensor:
+        """``x``'s dim 0 cut into blocks of ``send[j]`` rows, block j to the
+        rank of ``names`` at coordinate j (:meth:`axis_index`); returns the
+        blocks received, ``recv[j]`` rows from coordinate j, concatenated
+        on dim 0 in coordinate order.  A count may be 0."""
+        if self.axis_size(names) == 1:
+            return x
+        group = self.group(names)
+
+        def fn(t):
+            out = t.new_empty((sum(recv),) + tuple(t.shape[1:]))
+            dist.all_to_all_single(out, t, list(recv), list(send),
+                                   group=group)
+            self._wait(t)        # before anything reads what it wrote
+            return out
+        # the exchange reads x only: no copy of it
+        return self._run("all_to_all", x, fn, inplace=True, names=names)
 
     def all_gather(self, x: Tensor, names: Axes, dim: int,
                    op: str = "all_gather") -> Tensor:
@@ -314,6 +339,31 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: Tensor):
         return g, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """:meth:`Mesh.all_to_all`; the backward sends the gradient back, the
+    inverse exchange (``send`` and ``recv`` swapped)."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, mesh: "Mesh", names: Axes, send, recv
+                ) -> Tensor:
+        ctx.mesh, ctx.names, ctx.send, ctx.recv = mesh, names, send, recv
+        return mesh.all_to_all(x, names, send, recv)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return (ctx.mesh.all_to_all(g, ctx.names, ctx.recv, ctx.send),
+                None, None, None, None)
+
+
+def all_to_all(x: Tensor, mesh: "Mesh", names: Axes, send: Sequence[int],
+               recv: Sequence[int]) -> Tensor:
+    """:meth:`Mesh.all_to_all` with its gradient (counted as
+    ``"all_to_all"`` both ways)."""
+    if mesh.axis_size(names) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, names, tuple(send), tuple(recv))
 
 
 def copy_to(x: Tensor, mesh: "Mesh", names: Axes) -> Tensor:
@@ -377,15 +427,18 @@ def fsdp_mesh_shape(n_ranks: int, fsdp: int) -> Tuple[int, int, int]:
 COLL_KIND = {"psum": "all-reduce", "pmin": "all-reduce", "por": "all-reduce",
              "pmax": "all-reduce", "copy_to": "all-reduce",
              "reduce_from": "all-reduce", "all_gather": "all-gather",
-             "reduce_scatter": "reduce-scatter",
+             "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
              # serving's collectives over activations (``models/partition``)
              "gather_heads": "all-gather", "gather_vocab": "all-gather",
              "gather_kv": "all-gather", "gather_proj": "all-gather",
              "softmax_max": "all-reduce", "softmax_sum": "all-reduce",
-             "vocab_max": "all-reduce", "vocab_min": "all-reduce"}
+             "vocab_max": "all-reduce", "vocab_min": "all-reduce",
+             # the SSM's decode: the token's channels, dt's partial sums
+             "gather_inner": "all-gather", "scatter_inner": "reduce-scatter"}
 #: bytes moved per result byte, by kind (the reference's ``_COLL_MULT``:
 #: an all-reduce is a reduce-scatter and an all-gather)
-COLL_MULT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0}
+COLL_MULT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
+             "all-to-all": 1.0}
 
 
 class FakeMesh(Mesh):
@@ -445,7 +498,8 @@ class FakeMesh(Mesh):
             return x
         return self._run(op, x, lambda t: t, inplace, names)
 
-    def reduce_scatter(self, x: Tensor, names: Axes, dim: int) -> Tensor:
+    def reduce_scatter(self, x: Tensor, names: Axes, dim: int,
+                       op: str = "reduce_scatter") -> Tensor:
         n = self.axis_size(names)
         if n == 1:
             return x
@@ -453,7 +507,14 @@ class FakeMesh(Mesh):
         def fn(t):
             parts = [p.contiguous() for p in t.chunk(n, dim)]
             return torch.empty_like(parts[0])
-        return self._run("reduce_scatter", x, fn, inplace=True, names=names)
+        return self._run(op, x, fn, inplace=True, names=names)
+
+    def all_to_all(self, x: Tensor, names: Axes, send: Sequence[int],
+                   recv: Sequence[int]) -> Tensor:
+        if self.axis_size(names) == 1:
+            return x
+        return self._run("all_to_all", x, lambda t: t.new_empty(
+            (sum(recv),) + tuple(t.shape[1:])), inplace=True, names=names)
 
     def all_gather(self, x: Tensor, names: Axes, dim: int,
                    op: str = "all_gather") -> Tensor:

@@ -13,10 +13,10 @@ entry inside its checkpointed block (:func:`gather_entry`), so the
 backward's recompute gathers again and only one full layer is alive.
 
 Where the plan carries a :class:`~repro_torch.models.partition.Partition`
-(the trainer's and the serving layer's plans for the dense, vlm and moe
-families), the leaves of the partitioned
-products are gathered over their fsdp dims only: each rank computes its
-own heads, ff columns, experts and vocab rows on its ``model`` block
+(the trainer's and the serving layer's plans for the dense, vlm, moe and
+ssm families), the leaves of the partitioned products are gathered over
+their fsdp dims only: each rank computes its own heads, ff columns,
+experts, inner channels and vocab rows on its ``model`` block
 (``models/partition.py``), as XLA partitions the reference's products.  The fsdp axes keep their gather, as XLA's FSDP
 does.
 
@@ -118,18 +118,18 @@ def current() -> Optional[GatherPlan]:
 
 
 class _Gather(torch.autograd.Function):
-    """All-gather along ``dim`` over ``axis``; the backward narrows the
-    full gradient to this rank's slice, after summing it over the axis
-    where ``reduce`` (all-reduce then narrow, or a reduce-scatter where
-    ``scatter``)."""
+    """All-gather along ``dim`` over ``axis`` (counted as ``op`` in
+    ``Mesh.stats``); the backward narrows the full gradient to this rank's
+    slice, after summing it over the axis where ``reduce`` (all-reduce
+    then narrow, or a reduce-scatter where ``scatter``)."""
 
     @staticmethod
     def forward(ctx, x: Tensor, mesh, axis: Axis, dim: int, reduce: bool,
-                scatter: bool) -> Tensor:
+                scatter: bool, op: str = "all_gather") -> Tensor:
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
         ctx.reduce, ctx.scatter = reduce, scatter
         ctx.width = x.shape[dim]
-        return mesh.all_gather(x.detach(), axis, dim)
+        return mesh.all_gather(x.detach(), axis, dim, op=op)
 
     @staticmethod
     def backward(ctx, g: Tensor):
@@ -141,7 +141,7 @@ class _Gather(torch.autograd.Function):
                 g = mesh.psum(g, axis)
             i = mesh.axis_index(axis)
             out = g.narrow(dim, i * ctx.width, ctx.width)
-        return out, None, None, None, None, None
+        return out, None, None, None, None, None, None
 
 
 def _gather_leaf(x: Tensor, pairs: Dims, plan: GatherPlan,

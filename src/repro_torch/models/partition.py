@@ -25,6 +25,22 @@ block, ``core.packing.ShardPackSpec``):
   routes, sorts and drops the whole (token, k) set alike, and rank r
   runs experts ``[r·E/m, (r+1)·E/m)`` on their capacity buffers; the
   ranks' partial combines are summed;
+* the SSM (``models/ssm.py``, where ``inner`` binds: ``d_inner``
+  divides the axis): rank r runs channels ``[r·c, (r+1)·c)``, c =
+  d_inner/m.  ``in_proj``'s stored column block is chunks 2r and 2r + 1
+  of the 2m chunks of ``[x | z]``; one all-to-all
+  (:meth:`Partition.inner_xz`) leaves the rank its x and z chunks.  The
+  conv, ``A_log``, ``D`` and ``dt_proj``'s columns (and bias) are read on
+  the rank's channels through ``copy_to`` (:meth:`Partition.channels`);
+  ``x_proj`` runs whole on x's channels gathered
+  (:meth:`Partition.gather_inner`), one device's contraction; the normed
+  (dt, B, C), whole on every rank but used on its channels alone, pass a
+  ``copy_to``; B12 scans the rank's channels; ``out_proj`` is row-split.
+  The trainer and the prefill gather ``x_proj``, ``dt_proj`` and
+  ``dt_proj``'s bias (split on its layer dim); decode keeps ``x_proj``'s
+  columns (the token's channels gathered, its columns projected and
+  gathered) and ``dt_proj``'s rows (the partials reduce-scattered to the
+  rank's channels, ``scatter_inner``), and gathers the bias alone;
 * the embedding: a vocab-parallel lookup (each rank its rows
   ``[r·V/m, (r+1)·V/m)``, zeros elsewhere, summed: one nonzero addend a
   row, so exact), and the unembedding on the rank's vocab rows, which
@@ -59,8 +75,10 @@ forward above, its last logits gathered whole (:meth:`Partition
   (:meth:`Partition.combine_attention`);
 * ``"batch"``: the batch rows only (no layout splits the sequence).
 
-MLA's latent cache (``c_kv``/``k_rope``) lies on the sequence wherever it
-splits, whatever the KV heads do: each rank computes the token's latent
+The SSM's state ``ssm`` (L, B, di, n) and conv window ``conv`` (L, B,
+K − 1, di) lie on their channels (``"inner"``).  MLA's latent cache
+(``c_kv``/``k_rope``) lies on the sequence wherever it splits, whatever
+the KV heads do: each rank computes the token's latent
 entries, the owner of the slot writes them, its heads' absorbed queries
 are gathered, and the partial softmaxes are joined as above.
 
@@ -84,9 +102,9 @@ routes the whole result alike.  The prefill reads those three whole
 (gathered): at S tokens their outputs outweigh the weights.
 
 The trainer's plan (:func:`partition_for`) covers :data:`FAMILIES` (dense,
-vlm and moe), and serving's :data:`SERVE_FAMILIES` the same three.  The
-others keep the gathered forward (``models/gather``) and a cache split
-over the batch.  A model-sharded leaf whose product is not partitioned
+vlm, moe and ssm; the ssm only where ``inner`` binds), and serving's
+:data:`SERVE_FAMILIES` the same four.  The others keep the gathered
+forward (``models/gather``) and a cache split over the batch.  A model-sharded leaf whose product is not partitioned
 (pixtral's ``projector`` and the MTP's ``mtp_proj``, whose outputs are
 the residual stream; ``fc_out``'s bias, split on its layer dim;
 ``wk``/``wv`` where ``kv_heads`` is unbound; the router, ``wq_a`` and
@@ -106,9 +124,9 @@ from repro_torch.launch.mesh import copy_to, reduce_from
 Tensor = torch.Tensor
 
 #: the families whose training products partition over ``model``
-FAMILIES = ("dense", "vlm", "moe")
+FAMILIES = ("dense", "vlm", "moe", "ssm")
 #: the families whose serving products partition
-SERVE_FAMILIES = ("dense", "vlm", "moe")
+SERVE_FAMILIES = ("dense", "vlm", "moe", "ssm")
 #: the small column-split projections serving's decode keeps as the
 #: rank's columns, their (B, 1, ·) outputs gathered
 #: (:attr:`Partition.proj_cols`): the router, MLA's ``wq_a`` and ``wkv_a``
@@ -136,6 +154,18 @@ _LEAVES = {
 _EXPERT_LEAVES = ("gate", "up", "down")
 #: MLA's per-head leaves (H, c, ·), split on H
 _HEAD_LEAVES = ("wk_b", "wv_b")
+#: the SSM's leaves under a partition of its inner channels: (its param
+#: name, and "w" for a dense's weight) -> its split; "narrow": held whole
+#: (replicated), each rank reading its channels
+_INNER_LEAVES = {
+    ("in_proj", "w"): "col", ("out_proj", "w"): "row",
+    ("conv_w",): "narrow", ("conv_b",): "narrow", ("A_log",): "narrow",
+    ("D",): "narrow",
+}
+#: the SSM's leaves decode keeps as the rank's block where the layout
+#: splits them (:attr:`Partition.proj_cols`): ``x_proj``'s columns and
+#: ``dt_proj``'s rows
+_INNER_DECODE = {("x_proj", "w"): "col", ("dt_proj", "w"): "row"}
 
 
 class Partition(NamedTuple):
@@ -150,7 +180,8 @@ class Partition(NamedTuple):
     kv: bool            # the KV heads (else ``wk``/``wv`` are whole)
     ff: bool            # the MLP's hidden columns
     vocab: bool         # the embedding's and the logits' vocab rows
-    #: the decode cache's split beside the batch: "heads" | "seq" | "batch"
+    #: the decode cache's split beside the batch: "heads" | "seq" |
+    #: "inner" (the SSM's channels) | "batch"
     cache: str = "batch"
     #: the mesh axes the cache's sequence splits over ("seq")
     seq_axes: Tuple[str, ...] = ()
@@ -165,8 +196,11 @@ class Partition(NamedTuple):
     kv_cols: bool = False
     #: serving's decode: the names of :data:`_PROJ_LEAVES` (``router``,
     #: ``wq_a``, ``wkv_a``) held as the rank's column block, their
-    #: one-token projections gathered (:meth:`gather_cols`)
+    #: one-token projections gathered (:meth:`gather_cols`); the SSM's
+    #: ``x_proj`` (its columns) and ``dt_proj`` (its rows)
     proj_cols: Tuple[str, ...] = ()
+    #: the SSM's inner channels (``d_inner`` divides the axis)
+    inner: bool = False
 
     @property
     def seq_index(self) -> int:
@@ -272,6 +306,44 @@ class Partition(NamedTuple):
             y = y + _bcast(b, y, 1)
         return y
 
+    def channels(self, t: Tensor, dim: int = -1) -> Tensor:
+        """The rank's ``1/n`` of dim ``dim`` of a leaf it holds whole (the
+        SSM's ``conv_w``, ``A_log``, ``D``, a bias): read through
+        :meth:`copy_to`, so its gradient is the whole leaf's on every
+        rank."""
+        c = t.shape[dim] // self.n
+        return self.copy_to(t).narrow(dim, self.index * c, c)
+
+    def gather_inner(self, x: Tensor) -> Tensor:
+        """The SSM's activation on the ranks' channels (…, di/n) whole
+        (…, di), in channel order (``gather_inner`` in ``Mesh.stats``),
+        for a product every rank then computes whole and alike (its
+        backward keeps the rank's channels of the gradient, which every
+        rank holds whole)."""
+        from repro_torch.models.gather import _Gather
+
+        return _Gather.apply(x, self.mesh, self.axis, x.dim() - 1, False,
+                             False, "gather_inner")
+
+    def inner_xz(self, xz: Tensor) -> Tuple[Tensor, Tensor]:
+        """The SSM's x and z on the rank's channels, (…, di/n) each, from
+        its block of ``in_proj``'s output (…, 2·di/n): columns ``[r·2c,
+        (r+1)·2c)`` of ``[x | z]`` with c = di/n, that is, chunks 2r and
+        2r + 1 of the 2n chunks of width c, where rank r needs chunk r
+        (its x) and chunk n + r (its z).  One all-to-all over the axis
+        sends each chunk to its rank (:func:`~repro_torch.launch.mesh
+        .all_to_all`: the chunks on a leading dim, each rank sending and
+        receiving two; its backward is the inverse exchange)."""
+        from repro_torch.launch.mesh import all_to_all
+
+        flip, send, recv = xz_routes(self.n, self.index)
+        chunks = xz.unflatten(-1, (2, xz.shape[-1] // 2)).movedim(-2, 0)
+        if flip:
+            chunks = chunks.flip(0)
+        y = all_to_all(chunks.contiguous(), self.mesh, self.axis, send,
+                       recv)
+        return y[0], y[1]
+
     def dense_rows(self, p: dict, x: Tensor, n_full: int,
                    what: str = "row") -> Tensor:
         """A row-split dense on this rank's ``n_full / n`` input columns:
@@ -299,6 +371,20 @@ class Partition(NamedTuple):
                              f"the rank holds {table.shape[-2]} of {vocab} "
                              f"rows")
         return self.index * vl, vl
+
+
+def xz_routes(n: int, r: int) -> Tuple[bool, Tuple[int, ...],
+                                        Tuple[int, ...]]:
+    """Rank r's routes of :meth:`Partition.inner_xz` on an axis of n:
+    whether its chunks 2r and 2r + 1 go out in reverse (each block goes
+    in the order of its destination rank), the chunks it sends each rank
+    (chunk k is rank k mod n's: x's chunk k, or z's chunk k − n) and the
+    chunks it receives from each (chunk r from rank r // 2, before chunk
+    n + r from rank (n + r) // 2)."""
+    dests = ((2 * r) % n, (2 * r + 1) % n)
+    send = tuple(int(j in dests) for j in range(n))
+    recv = tuple(int(j in (r // 2, (n + r) // 2)) for j in range(n))
+    return dests[0] > dests[1], send, recv
 
 
 def partition_for(cfg, mesh, *, multi_pod: bool = False,
@@ -344,7 +430,11 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
                      bound("kv_heads"), bound("ff"), bound("vocab"),
                      expert=bool(cfg.n_experts) and bound("expert"),
                      shared_ff=bool(cfg.n_shared_experts) and fits(
-                         cfg.moe_d_ff * cfg.n_shared_experts))
+                         cfg.moe_d_ff * cfg.n_shared_experts),
+                     inner=cfg.family == "ssm" and bound("inner"))
+    if cfg.family == "ssm":
+        return _ssm_plan(cfg, mesh, part, multi_pod, cache, cache_leaf,
+                         decode)
     if serve and part.heads and not part.kv:
         part = part._replace(kv_cols=fits(cfg.n_kv_heads * cfg.hd))
     if decode:
@@ -374,6 +464,36 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
     if seq is None:
         return part
     return part._replace(cache="seq", seq_axes=_entry_axes(seq))
+
+
+def _ssm_plan(cfg, mesh, part: Partition, multi_pod: bool,
+              cache: Optional[Tuple[int, ...]], cache_leaf: str,
+              decode: bool) -> Optional[Partition]:
+    """The SSM's plan: None where ``inner`` is unbound (the gathered
+    forward); decode keeps ``x_proj``'s columns and ``dt_proj``'s rows
+    where their widths split; the cache (its ``ssm`` leaf's global shape)
+    lies on its channels, as ``cache_pspec`` lays out ``ssm`` and
+    ``conv``."""
+    from repro_torch.launch.shardings import cache_pspec
+
+    if not part.inner:
+        return None
+    if decode:
+        widths = {"x_proj": cfg.dt_rank + 2 * cfg.ssm_state,
+                  "dt_proj": cfg.dt_rank}
+        part = part._replace(proj_cols=tuple(
+            k for k, w in widths.items() if w >= part.n and w % part.n == 0))
+    if cache is None:
+        return part
+    if cache_leaf != "ssm":
+        raise ValueError(f"{cfg.name}: no decode layout for a cache led by "
+                         f"{cache_leaf!r}")
+    spec = cache_pspec(("ssm",), tuple(cache), cfg, mesh, cache[1],
+                       multi_pod=multi_pod)
+    if spec[2] != part.axis:
+        raise ValueError(f"{cfg.name}: the plan splits the channels over "
+                         f"{part.axis} but the cache's state does not")
+    return part._replace(cache="inner")
 
 
 def gather_proj(outs: dict, widths: dict) -> dict:
@@ -417,7 +537,8 @@ def rank_kv_heads(cfg, part: Partition
 def _split(path: Tuple[str, ...], part: Partition) -> Optional[str]:
     """The split of the leaf at ``path`` where its product partitions
     ("col", "row", "vocab"; "head" for MLA's per-head leaves, "expert"
-    for the routed experts), else None.  A dense leaf's path ends in its
+    for the routed experts, "narrow" for a leaf held whole of which each
+    rank reads its inner channels), else None.  A dense leaf's path ends in its
     param name and "w" or "b" (``attn/wq/w``, ``mlp/shared/gate/w``); a
     routed expert's in its name alone (``mlp/gate``), which tells it from
     the dense MLP's, whose width is ``d_ff``, not ``moe_d_ff``."""
@@ -426,6 +547,12 @@ def _split(path: Tuple[str, ...], part: Partition) -> Optional[str]:
     if path[0] not in _STACKS + _BLOCKS:
         return None
     rest = path[1:]
+    if part.inner:
+        key = rest[:1] if len(rest) == 1 else rest
+        if key in _INNER_DECODE:
+            return (_INNER_DECODE[key] if key[0] in part.proj_cols
+                    else None)
+        return _INNER_LEAVES.get(key)
     if len(rest) == 2 and rest[0] == "mlp" and rest[1] in _EXPERT_LEAVES:
         # the MTP block's experts split on their hidden dim (the layout's
         # expert rule keys on a stack's name): gathered
@@ -461,7 +588,7 @@ def model_dims(params, mdims, part: Optional[Partition]
     gathers the rest.  Each partitioned leaf's dim must be its split's:
     the last for a column split, the one before for a row split, the
     head or expert dim of a per-head or expert leaf (H, ·, ·) / (E, ·, ·),
-    the table's vocab dim."""
+    the table's vocab dim, none (replicated) for a narrowed one."""
     from repro_torch.tree import tree_paths
 
     if part is None:
@@ -476,7 +603,7 @@ def model_dims(params, mdims, part: Optional[Partition]
         # (L?, o), a per-head or expert leaf (L?, H|E, ·, ·)
         nd = {"w": 2, "b": 1}.get(path[-1], 3) + (path[0] in _STACKS)
         want = {"col": nd - 1, "row": nd - 2, "head": nd - 3,
-                "expert": nd - 3, "vocab": 0}[split]
+                "expert": nd - 3, "vocab": 0, "narrow": None}[split]
         if md != want:
             raise ValueError(f"{'/'.join(path)}: the plan splits its "
                              f"{split}s over {part.axis} but the layout "

@@ -21,6 +21,14 @@ forward, B12 included, once more.  ``A_log`` and ``D`` stay f32 leaves in a
 bf16 tree.  Decode is the O(1)-per-token state update in plain torch
 (:func:`init_cache`, :func:`decode_step`): an f32 state (B, d_inner, n)
 and the conv window (B, K − 1, d_inner) a layer, updated in place.
+
+On a mesh whose ``model`` axis divides ``d_inner`` (``models/partition``:
+``Partition.inner``) every rank runs its d_inner/m channels: its
+``in_proj`` block exchanged to its x and z (one all-to-all), the conv,
+``dt_proj``, ``A_log``, ``D`` and B12 on its channels, ``x_proj`` whole on
+the gathered channels, ``out_proj``'s rows summed; decode holds the
+rank's channels of the state and the window.  One device (no partition)
+runs the same code with nothing split.
 """
 from __future__ import annotations
 
@@ -78,19 +86,104 @@ def _conv1d_causal(w: Tensor, b: Tensor, x: Tensor) -> Tensor:
     return out + L._bcast(b, x, 1)
 
 
-def _ssm_inputs(p: Params, x: Tensor, cfg: ModelConfig):
-    """Shared pre-scan computation. x: (..., B, S, di) post-conv.  Returns
-    (dt, B, C, A): dt (..., B, S, di), B and C (..., B, S, n) in f32, and
-    A = −exp(A_log) (..., di, n)."""
+def _inner_part():
+    """The active partition where it splits the inner channels
+    (``models/partition``), else None: the whole products."""
+    from repro_torch.models import partition
+
+    part = partition.current()
+    return part if part is not None and part.inner else None
+
+
+def _x_proj(p: Params, x: Tensor, cfg: ModelConfig, part) -> Tensor:
+    """``x_proj`` (…, r + 2n) whole from x on the rank's channels: the
+    channels gathered (``gather_inner``), then the whole product, one
+    device's contraction over d_inner, where the rank holds the weight
+    whole (the trainer and the prefill gather it; a width the axis does
+    not divide is replicated), or its columns of it where it holds its
+    column block (decode's plan), the columns gathered (``gather_proj``).
+    A row split of the contraction (each rank's channels, the partials
+    summed) moves fewer bytes at S tokens, but the sums' other rounding
+    moves reduced falcon-mamba's f32 gradients by up to 1.6e-5 of their
+    largest, where one device's contraction keeps them within 1e-5 of
+    JAX's."""
+    xs = part.gather_inner(x)
+    if p["x_proj"]["w"].shape[-1] == cfg.dt_rank + 2 * cfg.ssm_state:
+        return L.dense(p["x_proj"], xs)
+    return part.gather_cols(L.dense(p["x_proj"], xs))[0]
+
+
+def _dt_proj(p: Params, dt_r: Tensor, cfg: ModelConfig, part) -> Tensor:
+    """``dt_proj``'s output on the rank's channels (…, di/n), bias added.
+    Where the rank holds the weight whole (gathered, or replicated) its
+    columns; where it holds its row block (decode's plan), the product on
+    those rows in f32, reduce-scattered over the axis to the rank's
+    channels (``scatter_inner``) and rounded once."""
+    from repro_torch.models.layers import _bcast
+
+    w = p["dt_proj"]["w"]
+    c = cfg.d_inner // part.n
+    if w.shape[-2] == cfg.dt_rank:
+        return part.dense_slice(p["dt_proj"], dt_r, part.index * c,
+                                (part.index + 1) * c)
+    rl = w.shape[-2]
+    acc = torch.promote_types(dt_r.dtype, torch.float32)
+    y = L.dense({"w": w.to(acc)},
+                dt_r.narrow(-1, part.index * rl, rl).to(acc))
+    y = part.mesh.reduce_scatter(y, part.axis, y.dim() - 1,
+                                 op="scatter_inner").to(dt_r.dtype)
+    return y + _bcast(part.channels(p["dt_proj"]["b"]), y, 1)
+
+
+def _ssm_inputs(p: Params, x: Tensor, cfg: ModelConfig, part=None):
+    """Shared pre-scan computation. x: (..., B, S, di) post-conv (the
+    rank's di/m channels under ``part``).  Returns (dt, B, C, A): dt (...,
+    B, S, di), B and C (..., B, S, n) in f32, and A = −exp(A_log) (...,
+    di, n); under ``part`` dt and A on the rank's channels, B and C
+    whole."""
     n, r = cfg.ssm_state, cfg.dt_rank
-    proj = L.dense(p["x_proj"], x)
+    proj = (L.dense(p["x_proj"], x) if part is None
+            else _x_proj(p, x, cfg, part))
     dt_r, Bc, Cc = torch.split(proj, [r, n, n], dim=-1)
     dt_r = L.rmsnorm(p["dt_norm"], dt_r, cfg.norm_eps)
-    Bc = L.rmsnorm(p["b_norm"], Bc, cfg.norm_eps).float()
-    Cc = L.rmsnorm(p["c_norm"], Cc, cfg.norm_eps).float()
-    dt = F.softplus(L.dense(p["dt_proj"], dt_r).float())
-    A = -torch.exp(p["A_log"])
+    Bc = L.rmsnorm(p["b_norm"], Bc, cfg.norm_eps)
+    Cc = L.rmsnorm(p["c_norm"], Cc, cfg.norm_eps)
+    if part is not None:
+        # whole on every rank, each uses them on its channels alone: their
+        # gradients sum over the axis (one ``copy_to``), so the norms and
+        # ``x_proj`` before them see the whole gradient on every rank
+        dt_r, Bc, Cc = torch.split(part.copy_to(torch.cat([dt_r, Bc, Cc],
+                                                          -1)),
+                                   [r, n, n], dim=-1)
+    Bc, Cc = Bc.float(), Cc.float()
+    if part is None:
+        dt = F.softplus(L.dense(p["dt_proj"], dt_r).float())
+        A = -torch.exp(p["A_log"])
+    else:
+        dt = F.softplus(_dt_proj(p, dt_r, cfg, part).float())
+        A = -torch.exp(part.channels(p["A_log"], -2))
     return dt, Bc, Cc, A
+
+
+def _in_proj(p: Params, h: Tensor, cfg: ModelConfig, part
+             ) -> Tuple[Tensor, Tensor]:
+    """x and z (…, di) of ``in_proj`` on h; under ``part`` the rank's
+    channels of each (…, di/m): its column block's product, exchanged
+    (``Partition.inner_xz``)."""
+    if part is None:
+        return torch.chunk(L.dense(p["in_proj"], h), 2, dim=-1)
+    xz = part.dense_cols(p["in_proj"], part.copy_to(h), 2 * cfg.d_inner,
+                         "in_proj")
+    return part.inner_xz(xz)
+
+
+def _conv_params(p: Params, part) -> Tuple[Tensor, Tensor, Tensor]:
+    """``conv_w``, ``conv_b`` and ``D`` on the rank's channels (whole
+    without ``part``)."""
+    if part is None:
+        return p["conv_w"], p["conv_b"], p["D"]
+    return (part.channels(p["conv_w"]), part.channels(p["conv_b"]),
+            part.channels(p["D"]))
 
 
 def _scan_full(dt: Tensor, Bc: Tensor, Cc: Tensor, A: Tensor,
@@ -138,21 +231,31 @@ def _scan_chunked_fused(dt: Tensor, Bc: Tensor, Cc: Tensor, A: Tensor,
     return torch.cat(ys, dim=1)[:, :S].reshape(*lead, S, di)
 
 
+def _out_proj(p: Params, y: Tensor, cfg: ModelConfig, part) -> Tensor:
+    if part is None:
+        return L.dense(p["out_proj"], y)
+    return part.dense_rows(p["out_proj"], y, cfg.d_inner, "out_proj")
+
+
 def block_fwd(p: Params, u: Tensor, cfg: ModelConfig) -> Tensor:
-    """Full-sequence forward. u: (..., B, S, d)."""
+    """Full-sequence forward. u: (..., B, S, d).  Under a partition of the
+    inner channels (``models/partition``) every product, the conv, B12
+    and the gate run on the rank's di/m channels, and ``out_proj``'s
+    row-split partials are summed."""
+    part = _inner_part()
     h = L.rmsnorm(p["norm"], u, cfg.norm_eps)
-    xz = L.dense(p["in_proj"], h)
-    x, z = torch.chunk(xz, 2, dim=-1)
-    x = F.silu(_conv1d_causal(p["conv_w"], p["conv_b"], x))
-    dt, Bc, Cc, A = _ssm_inputs(p, x, cfg)
+    x, z = _in_proj(p, h, cfg, part)
+    conv_w, conv_b, D = _conv_params(p, part)
+    x = F.silu(_conv1d_causal(conv_w, conv_b, x))
+    dt, Bc, Cc, A = _ssm_inputs(p, x, cfg, part)
     xf = x.float()
     if optflags.enabled("chunked_scan") and x.shape[-2] > optflags.SCAN_CHUNK:
         y = _scan_chunked_fused(dt, Bc, Cc, A, xf, optflags.SCAN_CHUNK)
     else:
         y = _scan_full(dt, Bc, Cc, A, xf)
-    y = y + L._bcast(p["D"], xf, 1) * xf
+    y = y + L._bcast(D, xf, 1) * xf
     y = y.to(u.dtype) * F.silu(z)
-    return u + L.dense(p["out_proj"], y)
+    return u + _out_proj(p, y, cfg, part)
 
 
 def init_params(key: int, cfg: ModelConfig, device="cuda") -> Params:
@@ -171,8 +274,9 @@ def init_params(key: int, cfg: ModelConfig, device="cuda") -> Params:
 
 def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
                remat: bool = True) -> Tensor:
-    """Full-sequence forward over tokens (..., B, S). Returns logits."""
-    x = L.embed(params["embed"], tokens)
+    """Full-sequence forward over tokens (..., B, S). Returns logits (the
+    rank's vocab columns under a partition of the vocab)."""
+    x = L.embed(params["embed"], tokens, cfg.vocab_size)
 
     def block(x_: Tensor, p_: Params) -> Tensor:
         return block_fwd(p_, x_, cfg)
@@ -190,7 +294,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device="cuda") -> Dict[str, Tensor]:
     """The zero state of every layer: ``ssm`` (n_layers, B, d_inner, n) f32
     and ``conv`` (n_layers, B, K − 1, d_inner) in the param dtype; the size
-    does not depend on the sequence."""
+    does not depend on the sequence.  (Serving on a mesh makes the rank's
+    block, ``serve_step.init_cache``.)"""
     del max_seq, dtype
     dev = resolve_device(device)
     return {
@@ -204,29 +309,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 def block_decode(p: Params, u: Tensor, cfg: ModelConfig, ssm_state: Tensor,
                  conv_state: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """u: (B, 1, d); ssm_state: (B, d_inner, n); conv_state: (B, K − 1,
-    d_inner).  Returns (out, new state, new conv window)."""
+    d_inner).  Returns (out, new state, new conv window).  Under serving's
+    partition of the inner channels (``models/partition``: the cache's
+    ``"inner"`` layout) the states are the rank's channels (B, d_inner/m,
+    ·), and so is every product but ``x_proj``'s, whose columns the rank
+    projects from the gathered token (``_x_proj``)."""
+    part = _inner_part()
     h = L.rmsnorm(p["norm"], u, cfg.norm_eps)
-    xz = L.dense(p["in_proj"], h)
-    x, z = torch.chunk(xz, 2, dim=-1)                   # (B, 1, di)
+    x, z = _in_proj(p, h, cfg, part)                    # (B, 1, di)
+    conv_w, conv_b, D = _conv_params(p, part)
     window = torch.cat([conv_state, x], dim=1)          # (B, K, di)
-    x = torch.einsum("bwd,wd->bd", window, p["conv_w"]) + p["conv_b"]
+    x = torch.einsum("bwd,wd->bd", window, conv_w) + conv_b
     x = F.silu(x)[:, None]                              # (B, 1, di)
-    dt, Bc, Cc, A = _ssm_inputs(p, x, cfg)
+    dt, Bc, Cc, A = _ssm_inputs(p, x, cfg, part)
     dt, Bc, Cc = dt[:, 0], Bc[:, 0], Cc[:, 0]           # (B, di) / (B, n)
     xf = x[:, 0].float()
     a = torch.exp(dt[..., None] * A[None])              # (B, di, n)
     hnew = a * ssm_state + (dt * xf)[..., None] * Bc[:, None, :]
-    y = torch.einsum("bdn,bn->bd", hnew, Cc) + p["D"][None] * xf
+    y = torch.einsum("bdn,bn->bd", hnew, Cc) + D[None] * xf
     y = (y.to(u.dtype) * F.silu(z[:, 0]))[:, None]
-    return u + L.dense(p["out_proj"], y), hnew, window[:, 1:]
+    return u + _out_proj(p, y, cfg, part), hnew, window[:, 1:]
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
                 token: Tensor, pos: int) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One decode step (an SSM has no positional state beyond h): the
-    (B, V) logits, and the cache updated in place."""
+    (B, V) logits (the rank's vocab columns under a partition of the
+    vocab), and the cache updated in place."""
     del pos
-    x = L.embed(params["embed"], token[:, None])
+    x = L.embed(params["embed"], token[:, None], cfg.vocab_size)
     for i in range(cfg.n_layers):
         x, s, c = block_decode(decode_layer(params, i), x, cfg,
                                cache["ssm"][i], cache["conv"][i])

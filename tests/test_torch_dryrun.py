@@ -62,6 +62,7 @@ from repro_torch.launch.trace_analysis import (analyze,  # noqa: E402
 from repro_torch.models.registry import build_model, get_config  # noqa: E402
 from repro_torch.models.partition import SERVE_FAMILIES  # noqa: E402
 from repro_torch.models.registry import list_archs  # noqa: E402
+from repro_torch.tree import tree_paths  # noqa: E402
 
 import torch_mesh as tm  # noqa: E402
 from torch_replay import one_thread  # noqa: E402,F401
@@ -124,12 +125,15 @@ def _check_spec(ours, ref, mesh):
 
 def _cache_layout(ours):
     """The decode cache's layout the reference's cache specs give a dense,
-    vlm or moe family (the KV heads over ``model``, else the sequence,
-    else the batch alone; MLA's latent ``c_kv`` on the sequence, else the
-    batch), and ``"batch"`` for the families that serve gathered."""
+    vlm, moe or ssm family (the KV heads over ``model``, else the
+    sequence, else the batch alone; MLA's latent ``c_kv`` on the sequence,
+    else the batch; the SSM's state on its channels, else the batch), and
+    ``"batch"`` for the families that serve gathered."""
     if get_config(ours.meta["arch"]).family not in SERVE_FAMILIES:
         return "batch"
     leaves = dict(specs.leaves(ours.in_shardings))
+    if ("1", "ssm") in leaves:
+        return "inner" if _norm(leaves[("1", "ssm")], 4)[2] else "batch"
     path = next(p for p in (("1", "k"), ("1", "moe", "k"),
                             ("1", "moe", "c_kv")) if p in leaves)
     spec = _norm(leaves[path], 5 if path[-1] == "k" else 4)
@@ -632,6 +636,148 @@ def test_mla_decode_keeps_the_latent_cache_split_and_gathers_no_weight():
     assert moved < block
 
 
+def _x_proj_flops(s, cfg) -> float:
+    """The traced flops of the SSM's ``x_proj`` products (forward,
+    recompute and backward): those with an operand or result ``r + 2n``
+    wide."""
+    w = cfg.dt_rank + 2 * cfg.ssm_state
+    return sum(v for (_, ins, outs), v in s.products.items()
+               if any(w in sh[-2:] for sh in ins + outs))
+
+
+def test_partitioned_ssm_trace_flops_match_the_references_partition(
+        tmp_path):
+    """Reduced falcon-mamba train_4k on a (1, 2) fake mesh: the rank runs
+    its d_inner/2 channels (``in_proj``'s columns, ``dt_proj``'s columns,
+    ``out_proj``'s rows, B12 on its channels) and its vocab rows.  Each
+    rank computes ``x_proj``'s whole product on the gathered channels (one
+    device's contraction), where XLA splits its columns: with the half of
+    those products the rank computes beyond XLA's set aside, its traced
+    flops count, within rtol 1e-2, those of the per-device module XLA
+    partitions from the reference's over the same mesh (measured: +0.42 %,
+    XLA's remat keeps a few products the port recomputes), and exactly
+    half of its own flops on (1, 1) otherwise.  Only ``x_proj``,
+    ``dt_proj`` and ``dt_proj``'s bias are gathered: twice a layer (the
+    forward and the recompute) and the bias once."""
+    hlo = _hlo_12(tmp_path, "falcon-mamba-7b")
+    ref_total = hlo_analysis.analyze(hlo).flops
+    cfg = get_config("falcon-mamba-7b").reduced()
+    mesh = FakeMesh((1, 2), ("data", "model"))
+    spec = specs.build_spec("falcon-mamba-7b", "train_4k", mesh,
+                            multi_pod=False, reduced=True)
+    s = analyze(spec.fn, spec.local_args, mesh)
+    kernel_flops = sum(k["flops"] for k in s.kernels.values())
+    assert s.kernels["linear_scan_fwd"]["calls"] == 2 * cfg.n_layers
+    extra = 0.5 * _x_proj_flops(s, cfg)
+    assert extra > 0
+    assert s.flops - kernel_flops - extra == pytest.approx(ref_total,
+                                                           rel=1e-2)
+    one = FakeMesh((1, 1), ("data", "model"))
+    whole = specs.build_spec("falcon-mamba-7b", "train_4k", one,
+                             multi_pod=False, reduced=True)
+    sw = analyze(whole.fn, whole.local_args, one)
+    assert s.flops - extra == pytest.approx(0.5 * sw.flops, rel=1e-6)
+    L = cfg.n_layers
+    assert s.mesh_stats["all_gather"]["calls"] == 2 * (2 * L) + 1
+    assert s.mesh_stats["all_to_all"]["calls"] == 3 * L
+    assert s.mesh_stats["gather_inner"]["calls"] == 2 * L
+
+
+SSM_SERVE = [("falcon-mamba-7b", s) for s in ("decode_32k", "prefill_32k")]
+
+
+@pytest.fixture(scope="module")
+def ssm_serve_hlo(tmp_path_factory):
+    """The text of each :data:`SSM_SERVE` module XLA partitions over (1,
+    2), from one JAX subprocess."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path_factory.mktemp("hlo_ssm")
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+                          + " --xla_force_host_platform_device_count=2"
+                          ).strip())
+    proc = subprocess.run(
+        [sys.executable, "-c", _HLO_SERVE_12, str(out)]
+        + [f"{a}:{s}" for a, s in SSM_SERVE], env=env, capture_output=True,
+        text=True, timeout=400, cwd=repo)
+    assert "HLO_OK" in proc.stdout, proc.stdout + proc.stderr
+    return {(a, s): (out / f"{a}_{s}.hlo").read_text() for a, s in SSM_SERVE}
+
+
+@pytest.mark.parametrize("arch,shape", SSM_SERVE)
+def test_partitioned_ssm_serving_flops_match_the_references_partition(
+        ssm_serve_hlo, arch, shape):
+    """Reduced falcon-mamba serving on a (1, 2) fake mesh, the rank's
+    channels and vocab rows.  Decode (the cache on its channels; the
+    token's channels gathered and ``x_proj``'s columns projected,
+    ``dt_proj``'s rows reduce-scattered) counts, within rtol 1e-2, the
+    flops of the per-device module XLA partitions from the reference's
+    ``serve_step`` over the same mesh, half of one device's.  The prefill
+    computes ``x_proj``'s whole product on the gathered channels, where
+    XLA splits its columns: with the half the rank computes beyond XLA's
+    set aside, it counts XLA's flops within rtol 1e-2."""
+    hlo = ssm_serve_hlo[(arch, shape)]
+    ref = hlo_analysis.analyze(hlo).flops
+    mesh = FakeMesh((1, 2), ("data", "model"))
+    spec = specs.build_spec(arch, shape, mesh, multi_pod=False, reduced=True)
+    s = analyze(spec.fn, spec.local_args, mesh)
+    cfg = get_config(arch).reduced()
+    ours = s.flops - sum(k["flops"] for k in s.kernels.values())
+    one = FakeMesh((1, 1), ("data", "model"))
+    whole = specs.build_spec(arch, shape, one, multi_pod=False, reduced=True)
+    sw = analyze(whole.fn, whole.local_args, one)
+    if shape == "prefill_32k":
+        extra = 0.5 * _x_proj_flops(s, cfg)
+        assert extra > 0
+        ours -= extra
+        assert s.kernels["linear_scan_fwd"]["calls"] == cfg.n_layers
+    else:
+        assert spec.meta["cache_layout"] == "inner"
+        assert "linear_scan_fwd" not in s.kernels
+    assert ours == pytest.approx(0.5 * sw.flops, rel=1e-2)
+    assert ours == pytest.approx(ref, rel=1e-2)
+
+
+def test_ssm_decode_gathers_no_weight_but_the_dt_bias():
+    """falcon-mamba-7b decode_32k at full size on 16 × 16 (d_inner 8,192
+    over ``model``): the rank's cache is its 512 channels of the state
+    and the conv window, and a step all-gathers no parameter over
+    ``model`` but ``dt_proj``'s bias, which the layout splits on its layer
+    dim (the rank's 4 of 64 rows, once a step).  Each layer exchanges its
+    ``in_proj`` block (all-to-all), gathers the token's channels and its
+    ``x_proj`` columns, and reduce-scatters ``dt_proj``'s partials, which
+    together move less than one layer's ``x_proj`` and ``dt_proj``
+    weights would."""
+    mesh = _fake("16x16")
+    spec = specs.build_spec("falcon-mamba-7b", "decode_32k", mesh,
+                            multi_pod=False)
+    assert spec.meta["cache_layout"] == "inner"
+    cfg = get_config("falcon-mamba-7b")
+    L, di, n = cfg.n_layers, cfg.d_inner, mesh.shape["model"]
+    cache = spec.local_args[1]
+    B = cache["ssm"].shape[1]
+    assert tuple(cache["ssm"].shape) == (L, B, di // n, cfg.ssm_state)
+    assert tuple(cache["conv"].shape) == (L, B, cfg.conv1d_width - 1,
+                                          di // n)
+    analyze(spec.fn, spec.local_args, mesh)
+    st = mesh.stats
+    # dt_proj's bias: the rank's L/n rows (bf16), whole once
+    assert st["all_gather"]["axes"] == {"model": 1}
+    assert st["all_gather"]["bytes"] == L // n * di * 2
+    for op in ("all_to_all", "gather_inner", "gather_proj",
+               "scatter_inner"):
+        assert st[op]["axes"] == {"model": L}, op
+    moved = sum(st[op]["bytes"] for op in ("all_to_all", "gather_inner",
+                                           "gather_proj", "scatter_inner"))
+    weights = L * (di * (cfg.dt_rank + 2 * cfg.ssm_state)
+                   + cfg.dt_rank * di) * 2
+    assert moved < weights
+
+
 # ---------------------------------------------------------------------------
 # collectives against a live round on two gloo ranks
 # ---------------------------------------------------------------------------
@@ -684,8 +830,10 @@ def test_serving_on_a_mesh_equals_one_device(live, served_alone, arch,
     """Each rank's prefill logits and greedy tokens are its rows of one
     device's, and its final cache is its block of one device's under the
     layout the step records (the reference's cache specs for granite-8b,
-    whose products partition over ``model``; the batch rows for
-    falcon-mamba-7b, which gathers its layers): f32, 1e-5."""
+    whose products partition over ``model``, on its KV heads, and for
+    falcon-mamba-7b, whose inner channels partition, on its channels; the
+    batch rows for recurrentgemma-2b, which gathers its layers): f32,
+    1e-5."""
     want = served_alone[arch]
     for rank in (0, 1):
         got = live[rank][(arch, shape)]
@@ -694,12 +842,15 @@ def test_serving_on_a_mesh_equals_one_device(live, served_alone, arch,
                                    rtol=1e-5, atol=1e-5)
         np.testing.assert_array_equal(got["tokens"], want["tokens"][rows])
         assert got["layout"]["cache"] == (
-            "heads" if arch == "granite-8b" and shape[1] > 1 else "batch")
-        for k, c in want["cache"].items():
-            block = tm.cache_block(c, got["layout"]["cache_specs"][k],
-                                   got["coord"], got["mesh"])
-            np.testing.assert_allclose(got["cache"][k], block,
-                                       rtol=1e-5, atol=1e-5, err_msg=k)
+            {"granite-8b": "heads", "falcon-mamba-7b": "inner"}.get(
+                arch, "batch") if shape[1] > 1 else "batch")
+        for (path, c), (_, sp), (_, mine) in zip(
+                tree_paths(want["cache"]),
+                tree_paths(got["layout"]["cache_specs"]),
+                tree_paths(got["cache"])):
+            block = tm.cache_block(c, sp, got["coord"], got["mesh"])
+            np.testing.assert_allclose(mine, block, rtol=1e-5, atol=1e-5,
+                                       err_msg="/".join(map(str, path)))
 
 
 @pytest.mark.parametrize("arch,shape", tm.DRYRUN_SERVE)

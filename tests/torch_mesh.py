@@ -950,10 +950,12 @@ def dryrun_batch(mesh, mode: str, device) -> dict:
 
 
 #: (arch, mesh shape) of the serving runs the dry-run test holds to one
-#: device and to the trace: a dense and an SSM family, over the model axis
-#: and over the data axis
+#: device and to the trace: a dense family and the SSM family, whose
+#: products partition over the model axis, and the hybrid family, which
+#: still gathers its layers; over the model axis and over the data axis
 DRYRUN_SERVE = tuple((arch, shape) for arch in ("granite-8b",
-                                                "falcon-mamba-7b")
+                                                "falcon-mamba-7b",
+                                                "recurrentgemma-2b")
                      for shape in ((1, 2), (2, 1)))
 #: the served batch, its prompt length and the greedy steps after it
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 2, 4, 3
@@ -1136,7 +1138,8 @@ def partition_cfg(arch: str, over: dict):
 def partitioned_rank(rank: int, cases: list) -> dict:
     """Each case (``name``, ``arch``, ``over``, ``params``: the numpy
     worker-led tree, ``batch``, and optionally ``opt``, a ``REPRO_OPT``
-    value) on the (1, 2) grid: the rank's blocks of the params under the
+    value, and ``scan_chunk``, a ``REPRO_SCAN_CHUNK``) on the (1, 2)
+    grid: the rank's blocks of the params under the
     trainer's layout and partition plan, the loss (W,), the gradient of
     each block, the mesh's collectives in the forward and in the backward
     (calls by axis), and the forward's MoE routing (``moe.record_routing``:
@@ -1169,7 +1172,8 @@ def partitioned_rank(rank: int, cases: list) -> dict:
         def calls():
             return {op: dict(s["axes"]) for op, s in mesh.stats.items()}
         mesh.reset_stats()
-        with G.gathering(plan), opt_env(case.get("opt")):
+        with G.gathering(plan), opt_env(case.get("opt")), \
+                env_var("REPRO_SCAN_CHUNK", case.get("scan_chunk")):
             with moe.record_routing() as routing:
                 loss, _ = model.loss(G.gather_params(theta), batch)
             fwd = calls()
@@ -1183,21 +1187,61 @@ def partitioned_rank(rank: int, cases: list) -> dict:
     return out
 
 
+def exchange_rank(rank: int) -> dict:
+    """``Partition.inner_xz`` on the (1, 2) grid (reduced falcon-mamba's
+    plan) for a (3, 8) ``[x | z]`` plane of d_inner 4 made from seed 0:
+    the rank's block of it (columns ``[4j, 4j + 4)``) exchanged, the x and
+    z it receives, and the gradient its block gets back for a loss that
+    weighs each received entry by a plane ``a`` (seed 0, after the
+    plane)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.partition import partition_for
+
+    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    part = partition_for(partition_cfg("falcon-mamba-7b", {}), mesh)
+    j = part.index
+    g = torch.Generator().manual_seed(0)
+    full = torch.randn((3, 8), generator=g)
+    a = torch.randn((3, 8), generator=g)
+    xz = full[:, 4 * j:4 * j + 4].clone().requires_grad_()
+    mesh.reset_stats()
+    x, z = part.inner_xz(xz)
+    ((x * a[:, 2 * j:2 * j + 2]).sum()
+     + (z * a[:, 4 + 2 * j:6 + 2 * j]).sum()).backward()
+    return {"j": j, "full": to_np(full), "a": to_np(a), "x": to_np(x),
+            "z": to_np(z), "grad": to_np(xz.grad),
+            "calls": {op: dict(v["axes"]) for op, v in mesh.stats.items()}}
+
+
+def partitioned_ssm_rank(rank: int, cases: list) -> dict:
+    """:func:`partitioned_rank`'s cases, then :func:`exchange_rank`'s
+    (under ``"exchange"``), on one mesh's group."""
+    out = partitioned_rank(rank, cases)
+    out["exchange"] = exchange_rank(rank)
+    return out
+
+
 @contextlib.contextmanager
-def opt_env(value):
-    """``REPRO_OPT`` set to ``value`` in the block (left as it is where
-    None)."""
-    prev = os.environ.get("REPRO_OPT")
+def env_var(name: str, value):
+    """The environment variable ``name`` set to ``str(value)`` in the
+    block (left as it is where None)."""
+    prev = os.environ.get(name)
     if value is not None:
-        os.environ["REPRO_OPT"] = value
+        os.environ[name] = str(value)
     try:
         yield
     finally:
         if value is not None:
             if prev is None:
-                os.environ.pop("REPRO_OPT")
+                os.environ.pop(name)
             else:
-                os.environ["REPRO_OPT"] = prev
+                os.environ[name] = prev
+
+
+def opt_env(value):
+    """``REPRO_OPT`` set to ``value`` in the block (left as it is where
+    None)."""
+    return env_var("REPRO_OPT", value)
 
 
 # ---------------------------------------------------------------------------
@@ -1267,7 +1311,8 @@ def serve_routed(arch: str, mesh=None, **kw) -> dict:
 def serve_moe_rank(rank: int, cases: list, params: dict) -> dict:
     """Each case (name, arch, config fields replaced, batch, prompt,
     steps) served on the (1, 2) grid from ``params[name]`` (a numpy tree)
-    with its dispatches recorded (:func:`serve_routed`)."""
+    with its MoE dispatches recorded (:func:`serve_routed`; none for a
+    family without experts)."""
     from repro_torch.launch.mesh import make_mesh
 
     mesh = make_mesh((1, 2), ("data", "model"), "cpu")
