@@ -18,7 +18,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              and 1-layer granite-8b's 419,442,688, where B9 and the guarded
              round's masked B6 with CSI and B3′ run too, and at each mesh
              rank's block of phases 39 and 40 ((2, 209,721,344), (2,
-             318,777,344), (1, 637,554,688)); B1, B2 and B4 on
+             318,777,344), (1, 637,554,688)), of phase 52 ((2,
+             238,483,744)) and phase 55's sketch (2, 3,563,750); B1, B2
+             and B4 on
              the leafwise round's embedding leaf (2, 201,326,592) and at
              the sampled cohort's (256, 32); flash attention B11 — forward,
              dq, dk/dv — at the LLM round's (2, 32, 4096, 128) in bf16 (the
@@ -36,7 +38,10 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              and backward — at the SSM round's (2, 4,096, 131,072), one
              512-step chunk of it (2, 512, 131,072), the hybrid's
              full-width (2, 4,096, 2,560), the hybrid path's
-             (4, 128, 128) and a ragged (3, 1,000, 100), each on the
+             (4, 128, 128), a ragged (3, 1,000, 100), and a (1, 2) mesh
+             rank's half of the channels in phases 52, 53, 55 and 56
+             ((2, 4,096, 65,536), (8, 64, 65,536), (1, 4,096, 1,280),
+             (8, 64, 1,280)), each on the
              planner's plan and again on the other (``thread`` or
              ``staged``, named in the row); the accumulate
              B13 at d = 109,386), in each
@@ -363,6 +368,28 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              differing expert picks or kept pairs, the prefill's parameter
              all-gathers only the router's, ``wq_a``'s and ``wkv_a``'s,
              none in decode.
+51–53. llm_mesh_ssm_check, llm_mesh_ssm, serve_mesh_ssm — after phase
+             50, in the same spawn: the SSM family on its inner channels
+             (``models/partition``, ``Partition.inner``): reduced
+             falcon-mamba in f32 on (1, 2), 3 rounds each from one
+             device's state (loss rtol 1e-5, Θ atol 1e-5, the ranks'
+             losses bit-equal, B12 on the rank's channels, B6, B3 and B4
+             once a round); falcon-mamba-7b at full width cut to 2 layers,
+             2 replicated rounds (loss falls, ≤ 40 GB a rank); served at
+             8 layers as phase 46 serves granite-8b (the state and conv
+             window on the rank's channels), and a reduced f32 check.
+54–56. llm_mesh_hybrid_check, llm_mesh_hybrid, serve_mesh_hybrid — after
+             phase 53, the same three on the hybrid family's RG-LRU
+             channels (``Partition.lru``): reduced recurrentgemma-2b at 5
+             layers (a super-block and the tail list) in f32;
+             recurrentgemma-2b at full width cut to 3 layers (rec, rec,
+             attn), 2 rounds in the sketched mode (replicated, two ranks'
+             blocks of λ, h and θ do not fit the card); served at 8
+             layers (the state and
+             conv window on the rank's channels, the attention's 2,048-slot
+             window on its 1,024 slots), no parameter all-gathered, B12 × 6
+             a prefill on (8, 64, 1,280), and the reduced check run 67
+             steps, past its 64-slot window's wrap.
 44. dryrun — last: the dry run's trace on ``meta`` (no kernel) against
              the card: phases 40's and 42's rounds traced on a fake-rank
              mesh count each rank's collectives (calls and bytes by op)
@@ -383,9 +410,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              it says bit for bit, B9 within 1e-6 and B11's gradients within
              1e-5 of their plain versions (gates); the times recorded.
 
-Launch counts are reset just before each of phases 4–12, 14–43, 45, 46
-and 49 and read just after (in each rank for phases 39–43, 46 and 49,
-summed over the ranks;
+Launch counts are reset just before each of phases 4–12, 14–43, 45–56
+and read just after (in each rank for phases 39–43 and 46–56, summed over
+the ranks;
 phase 45's spawned ranks count in their own sections).  Then
 come the kernel table as one JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without a card, or run from a
@@ -1028,8 +1055,9 @@ def _mesh_round_shapes():
     layers on each grid), then the pure-data pin's (1 layer on (2, 1)),
     the sketched phases' (W, d_s) sketches (1 and 2 layers), the cohort
     check's (reduced granite-8b on (2, 1)), ``llm_mesh_moe``'s (W, d_s)
-    sketches (qwen3-moe, 2 layers) and ``llm_mesh_ssm``'s block
-    (falcon-mamba-7b, 2 layers, on the first grid).  granite-8b's and
+    sketches (qwen3-moe, 2 layers), ``llm_mesh_ssm``'s block
+    (falcon-mamba-7b, 2 layers, on the first grid) and ``llm_mesh_hybrid``'s
+    (W, d_s) sketch (recurrentgemma-2b, 3 layers).  granite-8b's and
     falcon-mamba-7b's replicated segments (their norms, conv, ``A_log``,
     ``D``) split evenly, so d_local is D over the model axis with no
     padding (the phases gate that)."""
@@ -1054,7 +1082,9 @@ def _mesh_round_shapes():
          (LLM_WORKERS, _sketch_dim(packed_param_count(
              _llm_cfg(MOE_ARCH, MESH_MOE_LAYERS)), SKETCH_RATIO)),
          (LLM_WORKERS // data, packed_param_count(
-             _llm_cfg(SSM_ARCH, MESH_SSM_LAYERS)) // model)]
+             _llm_cfg(SSM_ARCH, MESH_SSM_LAYERS)) // model),
+         (LLM_WORKERS, _sketch_dim(packed_param_count(
+             _llm_cfg(HYBRID_ARCH, MESH_HYBRID_LAYERS)), SKETCH_RATIO))]
 
 
 def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
@@ -1321,7 +1351,9 @@ def _scan_cases():
     (recurrentgemma-2b's lru_width at the granite path's W·B and S), the
     ``llm_hybrid`` path's reduced ones, a ragged case, the serving
     prefills', and a (1, 2) mesh rank's half of the SSM's channels in
-    ``llm_mesh_ssm`` and in ``serve_mesh_ssm``'s prefill."""
+    ``llm_mesh_ssm`` and in ``serve_mesh_ssm``'s prefill, and of the
+    hybrid's RG-LRU channels in ``llm_mesh_hybrid`` (its sketched mode's
+    worker at a time) and in ``serve_mesh_hybrid``'s prefill."""
     from repro_torch.models import get_config
 
     ssm_cfg = get_config(SSM_ARCH)
@@ -1340,7 +1372,11 @@ def _scan_cases():
             ("[mesh ssm rank ({}, {}, {})]", LLM_WORKERS, SSM_SEQ,
              ssm_cfg.d_inner // MESH_RANKS * ssm_cfg.ssm_state),
             ("[mesh ssm prefill rank ({}, {}, {})]", SERVE_MESH_B,
-             SERVE_MESH_P, ssm_cfg.d_inner // MESH_RANKS * ssm_cfg.ssm_state)]
+             SERVE_MESH_P, ssm_cfg.d_inner // MESH_RANKS * ssm_cfg.ssm_state),
+            ("[mesh hybrid rank ({}, {}, {})]", 1, LLM_SEQ,
+             full.lru_width // MESH_RANKS),
+            ("[mesh hybrid prefill rank ({}, {}, {})]", SERVE_MESH_B,
+             SERVE_MESH_P, full.lru_width // MESH_RANKS)]
 
 
 def _scan_rows(torch, build, mem_rate, f32_rate):
@@ -6368,8 +6404,9 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
     its pure-data pin), ``llm_mesh_sketched_check``, ``llm_mesh`` on both
     grids, ``llm_mesh_sketched``, ``llm_mesh_moe_check``, ``llm_mesh_moe``,
     ``llm_mesh_cohort_check``, ``serve_mesh``, ``serve_mesh_moe``,
-    ``serve_mesh_moe_check``, ``llm_mesh_ssm_check``, ``llm_mesh_ssm`` and
-    ``serve_mesh_ssm`` against the parent's one-device ``refs``, and
+    ``serve_mesh_moe_check``, ``llm_mesh_ssm_check``, ``llm_mesh_ssm``,
+    ``serve_mesh_ssm``, ``llm_mesh_hybrid_check``, ``llm_mesh_hybrid`` and
+    ``serve_mesh_hybrid`` against the parent's one-device ``refs``, and
     writes its results (or its traceback) to ``out_dir`` after each."""
     import datetime
     import traceback
@@ -6439,14 +6476,19 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
             "serve_mesh_moe", _serve_mesh_moe_rank, torch,
             on(SERVE_MESH_SHAPE), refs["serve_moe"])
         dump()
-        res["ssm_check"] = part("ssm_check", _mesh_ssm_check_rank, torch,
-                                on(MESH_SHAPES[0]), refs["ssm"])
-        dump()
-        res["ssm"] = part("ssm", _mesh_ssm_rank, torch, on(MESH_SHAPES[0]))
-        dump()
-        res["serve_mesh_ssm"] = part(
-            "serve_mesh_ssm", _serve_mesh_ssm_rank, torch,
-            on(SERVE_MESH_SHAPE), refs["serve_ssm"])
+        for tag in CHANNEL_TAGS:
+            fam = _channel_family(tag)
+            res[f"{tag}_check"] = part(
+                f"{tag}_check", _mesh_channels_check_rank, torch,
+                on(MESH_SHAPES[0]), refs[tag], fam)
+            dump()
+            res[tag] = part(tag, _mesh_channels_rank, torch,
+                            on(MESH_SHAPES[0]), fam)
+            dump()
+            res[f"serve_mesh_{tag}"] = part(
+                f"serve_mesh_{tag}", _serve_mesh_channels_rank, torch,
+                on(SERVE_MESH_SHAPE), refs[f"serve_{tag}"], fam)
+            dump()
         torch.distributed.destroy_process_group()
     except Exception:
         res["error"] = traceback.format_exc()
@@ -6509,9 +6551,11 @@ def phase_llm_mesh(torch):
     """Phases ``llm_mesh_check``, ``llm_mesh_sketched_check``,
     ``llm_mesh``, ``llm_mesh_sketched``, ``llm_mesh_cohort_check``,
     ``serve_mesh``, ``serve_mesh_moe``, ``serve_mesh_moe_check``,
-    ``llm_mesh_ssm_check``, ``llm_mesh_ssm`` and ``serve_mesh_ssm``: the
-    replicated and the sketched mode, and partitioned serving of the
-    dense, moe and ssm families, on (data, model) grids of two ranks
+    ``llm_mesh_ssm_check``, ``llm_mesh_ssm``, ``serve_mesh_ssm``,
+    ``llm_mesh_hybrid_check``, ``llm_mesh_hybrid`` and
+    ``serve_mesh_hybrid``: the replicated and the sketched mode, and
+    partitioned serving of the dense, moe, ssm and hybrid families, on
+    (data, model) grids of two ranks
     spawned on the one card,
     gloo between them (``launch.mesh``).  The
     kernels are built already (phase ``build``), so the ranks load them and
@@ -6536,12 +6580,17 @@ def phase_llm_mesh(torch):
     ref("sketched", _mesh_sketched_reference)
     ref("cohort", _mesh_cohort_reference)
     ref("moe", _mesh_moe_reference)
-    ref("ssm", _mesh_ssm_reference)
+    fams = [_channel_family(tag) for tag in CHANNEL_TAGS]
+    for fam in fams:
+        ref(fam["tag"], _free_running_reference, fam["check_cfg"],
+            MESH_SSM_CHECK_ROUNDS)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as ref_dir:
         ref("serve", _serve_mesh_reference, ref_dir)
         ref("serve_moe", _serve_mesh_moe_reference, ref_dir)
+        for fam in fams:
+            ref(f"serve_{fam['tag']}", _serve_mesh_channels_reference,
+                ref_dir, fam)
         # the ranks share the card with this process: it holds no tensor
-        ref("serve_ssm", _serve_mesh_ssm_reference, ref_dir)
         res, exit_codes, wall_s = _spawn_mesh_ranks(refs)
     loss_ref = refs["loss"]
     for part in ("check", "pin"):
@@ -6855,7 +6904,9 @@ def phase_llm_mesh(torch):
     moe_launches = _gate_mesh_moe(res, refs["moe"])
     serve_launches = _gate_serve_mesh(res, refs["serve"])
     serve_moe_launches = _gate_serve_mesh_moe(res, refs["serve_moe"])
-    ssm_launches = _gate_mesh_ssm(res, refs)
+    channel_launches = {}
+    for fam in fams:
+        channel_launches.update(_gate_mesh_channels(res, refs, fam))
 
     counts = {str(shape): [r["runs"][str(shape)]["counts"] for r in res]
               for shape in MESH_SHAPES}
@@ -6868,7 +6919,7 @@ def phase_llm_mesh(torch):
              "llm_mesh_sketched": _summed(run["launches"] for run in sr),
              "llm_mesh_cohort_check": _summed(c["launches"] for c in co),
              **moe_launches, "serve_mesh": serve_launches,
-             **serve_moe_launches, **ssm_launches},
+             **serve_moe_launches, **channel_launches},
             counts)
 
 
@@ -7627,8 +7678,9 @@ def _gate_serve_mesh_moe(res: list, ref: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the SSM family partitioned on the model axis: llm_mesh_ssm_check,
-# llm_mesh_ssm, serve_mesh_ssm
+# the SSM and hybrid families partitioned on the model axis by their
+# channels: llm_mesh_ssm_check, llm_mesh_ssm, serve_mesh_ssm and
+# llm_mesh_hybrid_check, llm_mesh_hybrid, serve_mesh_hybrid
 # ---------------------------------------------------------------------------
 
 #: ``llm_mesh_ssm_check``: reduced falcon-mamba-7b (d_inner 256, x_proj 24
@@ -7654,6 +7706,39 @@ SERVE_SSM_CHECK_P, SERVE_SSM_CHECK_N = 8, 8
 #: the leaves the SSM's partitioned training still gathers over ``model``
 #: (decode: ``dt_proj``'s bias alone, split on its layer dim)
 SSM_GATHERED = ["layers/dt_proj/b", "layers/dt_proj/w", "layers/x_proj/w"]
+#: ``llm_mesh_hybrid_check``: reduced recurrentgemma-2b cut to 5 layers
+#: (one super-block of rec, rec, attn and the (rec, rec) tail list, so the
+#: stacked entries and the list both run) in f32 on (1, 2), with
+#: ``llm_mesh_ssm_check``'s trainer, rounds and bars: B12 on the rank's
+#: lru_width/2 channels, no all-gather over ``model`` but of the one KV
+#: head's ``wk``/``wv``
+MESH_HYBRID_CHECK_LAYERS = 5
+#: the families of the channel parts, in the order the ranks run them
+CHANNEL_TAGS = ("ssm", "hybrid")
+#: ``llm_mesh_hybrid``: recurrentgemma-2b at full width (d_model 2,560,
+#: lru_width 2,560, 10 heads, d_ff 7,680, vocabulary 256,000, bf16) cut 26
+#: -> 3 layers (one super-block, rec, rec, attn: the least depth that runs
+#: both temporal blocks) on (1, 2) (each rank 1,280 channels, 5 heads, 3,840
+#: ff columns and half the vocabulary), W = 2, 1 × 4,096 tokens a worker, 2
+#: sgd steps at ``LLM_LR``, ``MESH_RUN_ROUNDS`` rounds, in the sketched mode
+#: (ratio ``SKETCH_RATIO``, as ``llm_mesh_moe``): replicated, a rank's
+#: (2, 456,160,000) block of λ, h, θ and the optimizer is 21.0 GB and the
+#: round's trace peaks at 43.5 GB a rank (``launch/trace_analysis`` on
+#: ``meta``, which read ``llm_mesh_ssm``'s 27.13 GB against 27.20 measured
+#: on an H100), so two ranks do not fit the card; sketched, the trace reads
+#: 10.5 GB
+MESH_HYBRID_LAYERS = 3
+#: ``serve_mesh_hybrid``: recurrentgemma-2b in bf16 at full width, 8 of 26
+#: layers (two super-blocks and the tail), ``serve_mesh``'s 8 × 64 prefill
+#: and 79 greedy steps fed one device's tokens; then the check's 5 layers
+#: in f32, a batch of ``SERVE_MESH_CHECK_B``, a prompt of 8 and 60 new
+#: tokens: 67 steps, past the 64-slot window's wrap
+SERVE_HYBRID_LAYERS = 8
+SERVE_HYBRID_CHECK_P, SERVE_HYBRID_CHECK_N = 8, 60
+#: the leaves the hybrid's partitioned training still gathers over
+#: ``model`` (serving keeps their columns and gathers their projections)
+HYBRID_GATHERED = ["super/b2/temporal/attn/wk/w",
+                   "super/b2/temporal/attn/wv/w"]
 
 
 class _SsmDigests(_LayerDigests):
@@ -7671,6 +7756,124 @@ class _SsmDigests(_LayerDigests):
     @property
     def digests(self) -> list:
         return [f"{n}:{int(v)}" for n, v in self.kept]
+
+
+class _HybridDigests(_SsmDigests):
+    """:class:`_SsmDigests` of the hybrid's layers (``_layer_fwd``,
+    ``_layer_decode``: a temporal block and its MLP block)."""
+
+    NAMES = ("_layer_fwd", "_layer_decode")
+    MODULE = "hybrid"
+
+
+def _channel_family(tag: str) -> dict:
+    """What the three parts of a family partitioned on its channels run
+    and gate: ``"ssm"`` (falcon-mamba-7b's inner channels) or ``"hybrid"``
+    (recurrentgemma-2b's RG-LRU channels)."""
+    import dataclasses
+
+    if tag == "ssm":
+        return {"tag": tag, "arch": SSM_ARCH, "flag": "inner",
+                "check_cfg": _moe_part_cfg(SSM_ARCH),
+                "check_reduced": "ModelConfig.reduced(): 2 layers, d_model "
+                "128, d_inner 256, ssm_state 8, dt_rank 8",
+                "run_layers": MESH_SSM_LAYERS,
+                "serve_layers": SERVE_SSM_LAYERS,
+                "serve_check": (SERVE_SSM_CHECK_P, SERVE_SSM_CHECK_N),
+                "gathered": SSM_GATHERED, "layout": "inner",
+                "proj_cols": ["dt_proj", "x_proj"], "run_mode": "replicated",
+                "digests": _SsmDigests}
+    return {"tag": tag, "arch": HYBRID_ARCH, "flag": "lru",
+            "check_cfg": dataclasses.replace(
+                _moe_part_cfg(HYBRID_ARCH),
+                n_layers=MESH_HYBRID_CHECK_LAYERS),
+            "check_reduced": "ModelConfig.reduced() at 5 layers (one "
+            "super-block and the tail): d_model 128, lru_width 128, 4 "
+            "heads, 1 KV head, window 64",
+            "run_layers": MESH_HYBRID_LAYERS,
+            "serve_layers": SERVE_HYBRID_LAYERS,
+            "serve_check": (SERVE_HYBRID_CHECK_P, SERVE_HYBRID_CHECK_N),
+            "gathered": HYBRID_GATHERED, "layout": "seq", "proj_cols": [],
+            "run_mode": "sketched", "digests": _HybridDigests}
+
+
+def _rec_layers(cfg) -> tuple:
+    """(the recurrent layers in checkpointed stacked entries, those
+    outside them): every SSM layer is stacked; the hybrid's super-blocks
+    hold their pattern's, the tail list the rest."""
+    if cfg.family == "ssm":
+        return cfg.n_layers, 0
+    pat = cfg.block_pattern
+    n_super = cfg.n_layers // len(pat)
+    return (n_super * pat.count("rec"),
+            pat[:cfg.n_layers - n_super * len(pat)].count("rec"))
+
+
+def _channels(cfg, n: int) -> int:
+    """A rank's channels of the family's split width on an axis of n."""
+    return (cfg.d_inner if cfg.family == "ssm" else cfg.lru_width) // n
+
+
+def _scan_width(cfg, n: int) -> int:
+    """The last dim of B12's planes on a rank: the SSM's channels by its
+    state, the hybrid's channels."""
+    c = _channels(cfg, n)
+    return c * cfg.ssm_state if cfg.family == "ssm" else c
+
+
+def _channel_round_launches(cfg, mode: str = "replicated") -> dict:
+    """A round's launches (2 local steps, all workers at once; the
+    sketched mode runs them a worker at a time): each recurrent layer's
+    B12 forward once a step and once more where its checkpoint is
+    recomputed, its backward once; B6, B3 and B4 once; no B11."""
+    ckpt, plain = _rec_layers(cfg)
+    steps = 2 * (LLM_WORKERS if mode == "sketched" else 1)
+    return dict(MESH_ROUND_LAUNCHES, flash_attention_fwd=0,
+                linear_scan_fwd=steps * (2 * ckpt + plain),
+                linear_scan_bwd=steps * (ckpt + plain))
+
+
+def _param_gathers(cfg, steps: int) -> tuple:
+    """The all-gathers over ``model`` of (a prefill, ``steps`` decode
+    steps) on (1, 2): the SSM's prefill gathers ``x_proj`` and ``dt_proj``
+    (each layer's) and ``dt_proj``'s bias (once), its decode the bias
+    alone once a step; the hybrid's gather none (its heads split, the one
+    KV head's projections gathered instead)."""
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers + 1, steps
+    return 0, 0
+
+
+def _cache_blocks_want(cfg, B: int, n: int) -> dict:
+    """Each cache leaf's block on a rank of a (1, n) grid, by path: the
+    SSM's ``ssm`` and ``conv`` on its channels; the hybrid's ``lru`` and
+    ``conv`` on its channels, its attention's ``k``/``v`` on the window's
+    slots."""
+    K1, c = cfg.conv1d_width - 1, _channels(cfg, n)
+    if cfg.family == "ssm":
+        L = cfg.n_layers
+        return {"ssm": [L, B, c, cfg.ssm_state], "conv": [L, B, K1, c]}
+    pat = cfg.block_pattern
+    n_super = cfg.n_layers // len(pat)
+    out = {}
+    for i, kind in enumerate(pat):
+        if kind == "rec":
+            out[f"super/b{i}/conv"] = [n_super, B, K1, c]
+            out[f"super/b{i}/lru"] = [n_super, B, c]
+        else:
+            for k in ("k", "v"):
+                out[f"super/b{i}/{k}"] = [n_super, B, cfg.attn_window // n,
+                                          cfg.n_kv_heads, cfg.hd]
+    for j, kind in enumerate(pat[:cfg.n_layers - n_super * len(pat)]):
+        out[f"tail/#{j}/conv"] = [B, K1, c]
+        out[f"tail/#{j}/lru"] = [B, c]
+    return out
+
+
+def _leaf_shapes(tree) -> dict:
+    from repro_torch.tree import tree_paths
+
+    return {"/".join(p): list(x.shape) for p, x in tree_paths(tree)}
 
 
 @contextlib.contextmanager
@@ -7698,17 +7901,17 @@ def _distinct(shapes: list) -> list:
     return sorted(map(list, {tuple(x) for x in shapes}))
 
 
-def _mesh_ssm_reference(torch) -> dict:
-    """The one-device rounds of ``llm_mesh_ssm_check`` along their own
-    trajectory: the losses (recorded beside the mesh's, not gated)."""
+def _free_running_reference(torch, cfg, rounds: int) -> dict:
+    """The one-device rounds of a channel check (``cfg``, ``rounds``)
+    along their own trajectory: the losses (recorded beside the mesh's,
+    not gated)."""
     from repro_torch import rng
 
-    cfg = _moe_part_cfg(SSM_ARCH)
     batch = _moe_part_batch(torch, cfg)
     init1, step1 = _mesh_part_trainer(torch, cfg, None)
     st = init1(SEED)
     losses = []
-    for r in range(MESH_SSM_CHECK_ROUNDS):
+    for r in range(rounds):
         st, m = step1(st, batch, key=rng.fold_in(SEED, r + 1))
         losses.append(float(m["loss"]))
     del st, init1, step1
@@ -7744,25 +7947,26 @@ def _rank_state(torch, st1, stm, sspec, j: int):
                                                age=st1.chan.age))
 
 
-def _mesh_ssm_check_rank(torch, mesh, ref: dict) -> dict:
-    """``llm_mesh_ssm_check`` on one rank: each round run on ``mesh`` from
-    the rank's block of one device's state before it (:func:`_rank_state`)
-    and held to one device's round from that state: the loss and the
-    rank's Θ block; B12's shapes, the launches, the all-gathers over
-    ``model`` and each layer's output digests of the mesh's rounds.  Along
-    their own trajectories the two runs fork: this model at lr 1e-2 turns
-    a regrouped f32 sum's last bit into a loss gap that grows about 10× a
-    round (one device with ``out_proj``'s contraction summed in two halves
-    read 3.5e-6 and 2.0e-5 relative in rounds 2 and 3 on the CPU), so the
-    free-running losses beside the parent's (``ref``) are recorded, not
-    gated."""
+def _mesh_channels_check_rank(torch, mesh, ref: dict, fam: dict) -> dict:
+    """A channel check (``llm_mesh_ssm_check``, ``llm_mesh_hybrid_check``)
+    on one rank: each round run on ``mesh`` from the rank's block of one
+    device's state before it (:func:`_rank_state`) and held to one
+    device's round from that state: the loss and the rank's Θ block; B12's
+    shapes, the launches, the all-gathers over ``model`` and each layer's
+    output digests of the mesh's rounds.  Along their own trajectories the
+    two runs fork: falcon-mamba at lr 1e-2 turns a regrouped f32 sum's
+    last bit into a loss gap that grows about 10× a round (one device with
+    ``out_proj``'s contraction summed in two halves read 3.5e-6 and 2.0e-5
+    relative in rounds 2 and 3 on the CPU), so the free-running losses
+    beside the parent's (``ref``) are recorded, not gated."""
     from repro_torch import rng
     from repro_torch.core.packing import shard_tree
     from repro_torch.kernels import build
     from repro_torch.tree import tree_leaves
 
     j = mesh.axis_index("model")
-    cfg = _moe_part_cfg(SSM_ARCH)
+    cfg = fam["check_cfg"]
+    rounds = MESH_SSM_CHECK_ROUNDS
     batch = _moe_part_batch(torch, cfg)
     init1, step1 = _mesh_part_trainer(torch, cfg, None)
     st1 = init1(SEED)
@@ -7774,8 +7978,8 @@ def _mesh_ssm_check_rank(torch, mesh, ref: dict) -> dict:
     losses, losses1, t_errs, free_losses = [], [], [], []
     launches: dict = {}
     mesh.reset_stats()
-    dig = _SsmDigests(torch)
-    for r in range(MESH_SSM_CHECK_ROUNDS):
+    dig = fam["digests"](torch)
+    for r in range(rounds):
         key = rng.fold_in(SEED, r + 1)
         stm = _rank_state(torch, st1, stm, sspec, j)
         build.reset_launches()
@@ -7790,10 +7994,9 @@ def _mesh_ssm_check_rank(torch, mesh, ref: dict) -> dict:
                                0.0, MESH_PART_THETA_ATOL))
     n_gathers = mesh.stats.get("all_gather", {}).get("axes", {}).get(
         "model", 0)
-    want, still = _gathers_want(stm.theta, sspec, plan.part,
-                                MESH_SSM_CHECK_ROUNDS * 2, 1)
-    collectives = _mesh_stats(mesh, MESH_SSM_CHECK_ROUNDS)
-    for r in range(MESH_SSM_CHECK_ROUNDS):
+    want, still = _gathers_want(stm.theta, sspec, plan.part, rounds * 2, 1)
+    collectives = _mesh_stats(mesh, rounds)
+    for r in range(rounds):
         free, m = step_m(free, batch, key=rng.fold_in(SEED, r + 1))
         free_losses.append(float(m["loss"]))
     out = {"losses": losses, "losses_one_device": losses1,
@@ -7809,40 +8012,52 @@ def _mesh_ssm_check_rank(torch, mesh, ref: dict) -> dict:
            "scan_shapes": _distinct(shapes), "launches": launches,
            "model_all_gathers": n_gathers,
            "model_all_gathers_want": want, "gathered_leaves": still,
-           "collectives": collectives, "inner": plan.part.inner,
+           "collectives": collectives,
+           fam["flag"]: getattr(plan.part, fam["flag"]),
            "digests": dig.digests}
     del stm, st1, free, init_m, step_m, init1, step1
     _free(torch)
     return out
 
 
-def _mesh_ssm_rank(torch, mesh) -> dict:
-    """``llm_mesh_ssm`` on one rank: falcon-mamba-7b at full width cut to
-    ``MESH_SSM_LAYERS``, replicated on ``mesh``, the collectives timed,
-    B12's shapes and each layer's output digests recorded."""
+def _mesh_channels_rank(torch, mesh, fam: dict) -> dict:
+    """``llm_mesh_ssm`` or ``llm_mesh_hybrid`` on one rank: the family at
+    full width cut to its depth on ``mesh`` (replicated, or sketched where
+    ``fam["run_mode"]`` says), the collectives timed, B12's shapes and each
+    layer's output digests recorded."""
     from repro_torch import rng
     from repro_torch.kernels import build
     from repro_torch.launch.trace_analysis import mesh_collectives
+    from repro_torch.models.partition import partition_for
     from repro_torch.tree import tree_leaves
 
-    cfg = _llm_cfg(SSM_ARCH, MESH_SSM_LAYERS)
+    cfg = _llm_cfg(fam["arch"], fam["run_layers"])
+    sketched = fam["run_mode"] == "sketched"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    init_fn, step, _, _ = _mesh_trainer(torch, cfg, mesh, noisy=True)
+    if sketched:
+        init_fn, step = _mesh_sketched_trainer(torch, cfg, mesh, noisy=True,
+                                               local_steps=2)
+    else:
+        init_fn, step, _, _ = _mesh_trainer(torch, cfg, mesh, noisy=True)
     state = init_fn(SEED)
     batch = _mesh_batch(torch, cfg)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     setup_peak = torch.cuda.max_memory_allocated()
-    sspec, part = init_fn.layout["sspec"], init_fn.layout["plan"].part
-    want, still = _gathers_want(state.theta, sspec, part,
-                                MESH_RUN_ROUNDS * 2, 1)
+    sspec, part = init_fn.layout["sspec"], partition_for(cfg, mesh)
+    # the replicated mode's local steps run every worker's rows at once
+    # (θ leads with W), the sketched mode's a worker at a time on Θ
+    want, still = (_gathers_want(state.Theta, sspec, part, MESH_RUN_ROUNDS
+                                 * LLM_WORKERS * 2, 0) if sketched else
+                   _gathers_want(state.theta, sspec, part,
+                                 MESH_RUN_ROUNDS * 2, 1))
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     mesh.reset_stats()
     mesh.timing = True
     losses, times, shapes = [], [], []
-    with _scan_shapes(shapes), _SsmDigests(torch) as dig:
+    with _scan_shapes(shapes), fam["digests"](torch) as dig:
         for r in range(MESH_RUN_ROUNDS):
             held = [state]
             state = None
@@ -7854,8 +8069,9 @@ def _mesh_ssm_rank(torch, mesh) -> dict:
             del m
     mesh.timing = False
     gathers = mesh.stats.get("all_gather", {}).get("axes", {})
-    finite = all(bool(torch.isfinite(leaf).all()) for leaf in
-                 tree_leaves(state.theta) + tree_leaves(state.Theta))
+    finite = all(math.isfinite(x) for x in losses) and all(
+        bool(torch.isfinite(leaf).all()) for leaf in tree_leaves(
+            state.Theta) + ([] if sketched else tree_leaves(state.theta)))
     out = {"losses": losses, "round_s": times, "setup_s": setup_s,
            "setup_peak": setup_peak,
            "peak": torch.cuda.max_memory_allocated(), "finite": finite,
@@ -7864,21 +8080,22 @@ def _mesh_ssm_rank(torch, mesh) -> dict:
            "counts": mesh_collectives(mesh.stats),
            "model_all_gathers": gathers.get("model", 0),
            "model_all_gathers_want": want, "gathered_leaves": still,
-           "d_local": sspec.d_local, "inner": part.inner,
-           "digests": dig.digests}
+           "d_local": sspec.d_local,
+           "round_block": list(state.lam.re.shape),
+           fam["flag"]: getattr(part, fam["flag"]), "digests": dig.digests}
     del state, step, init_fn
     _free(torch)
     return out
 
 
-def _serve_mesh_ssm_reference(torch, ref_dir: str) -> dict:
-    """One device's runs ``serve_mesh_ssm`` holds the ranks to, saved to
-    ``ref_dir``: falcon-mamba-7b (bf16, ``SERVE_SSM_LAYERS`` layers): the
-    prefill's last logits, every step's logits, the inputs and greedy
-    tokens, and the same weights in f32 fed the same tokens; the reduced
-    f32 check's prefill, step logits, tokens and final cache.  Returns the
-    file's path, the one-device times and its bf16 logits' distance from
-    the f32 run."""
+def _serve_mesh_channels_reference(torch, ref_dir: str, fam: dict) -> dict:
+    """One device's runs ``serve_mesh_ssm`` or ``serve_mesh_hybrid`` holds
+    the ranks to, saved to ``ref_dir``: the family in bf16 at its serving
+    depth: the prefill's last logits, every step's logits, the inputs and
+    greedy tokens, and the same weights in f32 fed the same tokens; the
+    reduced f32 check's prefill, step logits, tokens and final cache.
+    Returns the file's path, the one-device times and its bf16 logits'
+    distance from the f32 run."""
     from repro_torch import rng
     from repro_torch.device import resolve_device
     from repro_torch.models import build_model
@@ -7888,26 +8105,24 @@ def _serve_mesh_ssm_reference(torch, ref_dir: str) -> dict:
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
     data, prefill_ms, step_ms, one_err = _serve_full_reference(
-        torch, _llm_cfg(SSM_ARCH, SERVE_SSM_LAYERS), SEED + 40)
+        torch, _llm_cfg(fam["arch"], fam["serve_layers"]), SEED + 40)
     t_check = time.perf_counter()
-    m = build_model(_moe_part_cfg(SSM_ARCH))
+    P, N = fam["serve_check"]
+    m = build_model(fam["check_cfg"])
     p = m.init(SEED + 42)
-    pr = torch.randint(0, m.cfg.vocab_size,
-                       (SERVE_MESH_CHECK_B, SERVE_SSM_CHECK_P), device=dev,
-                       generator=rng.generator(SEED + 43, dev))
+    pr = torch.randint(0, m.cfg.vocab_size, (SERVE_MESH_CHECK_B, P),
+                       device=dev, generator=rng.generator(SEED + 43, dev))
     st: list = []
     last = make_prefill(m)(p, {"tokens": pr})
-    c = m.init_cache(SERVE_MESH_CHECK_B, SERVE_SSM_CHECK_P
-                     + SERVE_SSM_CHECK_N)
-    tk, c = _greedy_run(make_serve_step(_observed(m, st)), p, c, pr,
-                        SERVE_SSM_CHECK_N)
+    c = m.init_cache(SERVE_MESH_CHECK_B, P + N)
+    tk, c = _greedy_run(make_serve_step(_observed(m, st)), p, c, pr, N)
     data["check"] = {"prompts": pr.cpu(), "prefill": last.cpu(),
                      "logits": torch.stack(st).cpu(),
                      "tokens": torch.stack(tk).cpu(),
                      "cache": tree_map(lambda x: x.cpu(), c)}
     del m, p, c, st, last, tk
     _free(torch)
-    path = os.path.join(ref_dir, "serve_mesh_ssm_reference.pt")
+    path = os.path.join(ref_dir, f"serve_mesh_{fam['tag']}_reference.pt")
     torch.save(data, path)
     return {"path": path, "prefill_ms": prefill_ms, "step_ms": step_ms,
             "one_device_vs_f32": one_err,
@@ -7915,9 +8130,9 @@ def _serve_mesh_ssm_reference(torch, ref_dir: str) -> dict:
                         "check": time.perf_counter() - t_check}}
 
 
-def _serve_mesh_ssm_full(torch, mesh, data: dict) -> dict:
-    """``serve_mesh_ssm`` on one rank: falcon-mamba-7b at full width cut
-    to ``SERVE_SSM_LAYERS`` on ``mesh``, its prefill and its
+def _serve_mesh_channels_full(torch, mesh, data: dict, fam: dict) -> dict:
+    """``serve_mesh_ssm`` or ``serve_mesh_hybrid`` on one rank: the family
+    at full width cut to its serving depth on ``mesh``, its prefill and its
     teacher-forced greedy steps against one device's (and the f32 run's),
     timed, with the mesh's collectives, B12's launches and shapes, each
     layer's output digests and the rank's peaks."""
@@ -7929,7 +8144,7 @@ def _serve_mesh_ssm_full(torch, mesh, data: dict) -> dict:
 
     dev = resolve_device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    model = build_model(_llm_cfg(SSM_ARCH, SERVE_SSM_LAYERS))
+    model = build_model(_llm_cfg(fam["arch"], fam["serve_layers"]))
     t0 = time.perf_counter()
     full = model.init(SEED + 40)
     prompts = data["prompts"].to(dev)
@@ -7952,7 +8167,7 @@ def _serve_mesh_ssm_full(torch, mesh, data: dict) -> dict:
     build.reset_launches()
     mesh.reset_stats()
     mesh.timing = True
-    with _scan_shapes(pre_shapes), _SsmDigests(torch) as dig_pre:
+    with _scan_shapes(pre_shapes), fam["digests"](torch) as dig_pre:
         last = prefill(params, batch)
     torch.cuda.synchronize()
     mesh.timing = False
@@ -7979,7 +8194,7 @@ def _serve_mesh_ssm_full(torch, mesh, data: dict) -> dict:
     mesh.timing = True
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    with _scan_shapes(dec_shapes), _SsmDigests(torch) as dig_dec:
+    with _scan_shapes(dec_shapes), fam["digests"](torch) as dig_dec:
         toks, cache = _greedy_run(step, params, cache, prompts,
                                   SERVE_MESH_N, feed=feed, every=tick)
     mesh.timing = False
@@ -8018,7 +8233,7 @@ def _serve_mesh_ssm_full(torch, mesh, data: dict) -> dict:
            "prefill_ms": times, "decode_wall_ms": walls,
            "setup_s": setup_s, "setup_peak": setup_peak, "peak": peak,
            "cache_layout": step.layout["cache"],
-           "cache_blocks": {k: list(v.shape) for k, v in cache.items()},
+           "cache_blocks": _leaf_shapes(cache),
            "proj_cols": list(part.proj_cols),
            "digests": dig_pre.digests + dig_dec.digests}
     del gathered, local, store
@@ -8029,33 +8244,32 @@ def _serve_mesh_ssm_full(torch, mesh, data: dict) -> dict:
     return out
 
 
-def _serve_mesh_ssm_check(torch, mesh, data: dict) -> dict:
-    """``serve_mesh_ssm``'s reduced f32 check on one rank: falcon-mamba
-    served greedily on ``mesh`` against one device's run on the card: the
-    prefill's and every step's logits (the rank's vocab columns), the
-    tokens, and the rank's ``ssm`` and ``conv`` against their blocks of
-    one device's."""
+def _serve_mesh_channels_check(torch, mesh, data: dict, fam: dict) -> dict:
+    """Serving's reduced f32 check on one rank: the family served greedily
+    on ``mesh`` against one device's run on the card: the prefill's and
+    every step's logits (the rank's vocab columns), the tokens, and each
+    cache leaf of the rank against its block of one device's."""
     from repro_torch.device import resolve_device
     from repro_torch.launch.shardings import shard_leaf
     from repro_torch.models import build_model
     from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.tree import tree_leaves, tree_paths
 
     dev = resolve_device("cuda")
-    m = build_model(_moe_part_cfg(SSM_ARCH))
+    m = build_model(fam["check_cfg"])
     full = m.init(SEED + 42)
     prompts = data["prompts"].to(dev)
+    P, N = fam["serve_check"]
     store: list = []
     prefill = make_prefill(m, mesh)
     step = make_serve_step(_observed(m, store), mesh)
     params = step.shard(full)
-    cache = step.init_cache(SERVE_MESH_CHECK_B,
-                            SERVE_SSM_CHECK_P + SERVE_SSM_CHECK_N)
+    cache = step.init_cache(SERVE_MESH_CHECK_B, P + N)
     mesh.reset_stats()
     last = prefill(prefill.shard(full), {"tokens": prompts})
     pre_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
     mesh.reset_stats()
-    toks, cache = _greedy_run(step, params, cache, prompts,
-                              SERVE_SSM_CHECK_N)
+    toks, cache = _greedy_run(step, params, cache, prompts, N)
     calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
 
     def scaled(a, b):
@@ -8064,13 +8278,15 @@ def _serve_mesh_ssm_check(torch, mesh, data: dict) -> dict:
     j = mesh.axis_index("model")
     vl = store[0].shape[-1]
     out = {"layout": step.layout["cache"],
-           "cache_blocks": {k: list(v.shape) for k, v in cache.items()},
+           "cache_blocks": _leaf_shapes(cache),
            "prefill_rel_err": scaled(last, data["prefill"]),
            "step_rel_err": max(scaled(x, y[:, j * vl:(j + 1) * vl])
                                for x, y in zip(store, data["logits"])),
-           "cache_rel_err": {k: scaled(cache[k], shard_leaf(
-               data["cache"][k], step.layout["cache_specs"][k], mesh))
-               for k in cache},
+           "cache_rel_err": {
+               "/".join(p): scaled(c, shard_leaf(w, sp, mesh))
+               for (p, c), w, sp in zip(
+                   tree_paths(cache), tree_leaves(data["cache"]),
+                   tree_leaves(step.layout["cache_specs"]))},
            "tokens_equal": bool(torch.equal(torch.stack(toks).cpu(),
                                             data["tokens"])),
            "tokens_sha1": _sha1(torch, torch.stack(toks)),
@@ -8079,14 +8295,15 @@ def _serve_mesh_ssm_check(torch, mesh, data: dict) -> dict:
     return out
 
 
-def _serve_mesh_ssm_rank(torch, mesh, ref: dict) -> dict:
-    """Phase ``serve_mesh_ssm`` on one rank: the full-width run, then the
-    reduced f32 check."""
+def _serve_mesh_channels_rank(torch, mesh, ref: dict, fam: dict) -> dict:
+    """Phase ``serve_mesh_ssm`` or ``serve_mesh_hybrid`` on one rank: the
+    full-width run, then the reduced f32 check."""
     t0 = time.perf_counter()
     data = torch.load(ref["path"])
-    out = {"full": _serve_mesh_ssm_full(torch, mesh, data)}
+    out = {"full": _serve_mesh_channels_full(torch, mesh, data, fam)}
     t1 = time.perf_counter()
-    out["check"] = _serve_mesh_ssm_check(torch, mesh, data["check"])
+    out["check"] = _serve_mesh_channels_check(torch, mesh, data["check"],
+                                              fam)
     _free(torch)
     out["seconds"] = {"full": t1 - t0, "check": time.perf_counter() - t1}
     return out
@@ -8112,44 +8329,46 @@ def _unequal_ranks(phase: str, per: list, keys: tuple) -> None:
             f"(first differing layer call {i})")
 
 
-def _gate_mesh_ssm(res: list, refs: dict) -> dict:
-    """Phases ``llm_mesh_ssm_check``, ``llm_mesh_ssm`` and
-    ``serve_mesh_ssm``: their gates on the ranks' results and their
-    lines; returns each phase's launches, summed over the ranks."""
+def _gate_mesh_channels(res: list, refs: dict, fam: dict) -> dict:
+    """Phases ``llm_mesh_<tag>_check``, ``llm_mesh_<tag>`` and
+    ``serve_mesh_<tag>`` of a family partitioned on its channels: their
+    gates on the ranks' results and their lines; returns each phase's
+    launches, summed over the ranks."""
     from repro_torch.models import get_config
 
+    tag, flag, arch = fam["tag"], fam["flag"], fam["arch"]
+    p_check, p_run = f"llm_mesh_{tag}_check", f"llm_mesh_{tag}"
+    p_serve = f"serve_mesh_{tag}"
     n = MESH_RANKS
-    require(all("ssm_check" in r for r in res), "llm_mesh_ssm_check: a rank "
-            "failed:\n" + _rank_failures(res, "ssm_check"))
-    sc = [r["ssm_check"] for r in res]
-    cfg = _moe_part_cfg(SSM_ARCH)
-    L = cfg.n_layers
+    key = f"{tag}_check"
+    require(all(key in r for r in res), f"{p_check}: a rank failed:\n"
+            + _rank_failures(res, key))
+    sc = [r[key] for r in res]
+    cfg = fam["check_cfg"]
     rows = LLM_WORKERS * SKETCH_CHECK_B
-    plane = [rows, SKETCH_CHECK_S, cfg.d_inner // n * cfg.ssm_state]
-    _unequal_ranks("llm_mesh_ssm_check", sc, ("losses",))
+    plane = [rows, SKETCH_CHECK_S, _scan_width(cfg, n)]
+    _unequal_ranks(p_check, sc, ("losses",))
     for r, c in enumerate(sc):
-        tag = f"llm_mesh_ssm_check rank {r}"
-        require(c["inner"], f"{tag}: the plan does not split the channels")
-        require(c["loss_rel_err"] <= MESH_PART_LOSS_RTOL, f"{tag}: the losses "
+        t = f"{p_check} rank {r}"
+        require(c[flag], f"{t}: the plan does not split the channels")
+        require(c["loss_rel_err"] <= MESH_PART_LOSS_RTOL, f"{t}: the losses "
                 f"{c['losses']} differ from one device's "
                 f"{c['losses_one_device']} beyond rtol {MESH_PART_LOSS_RTOL}")
-        require(c["Theta_over_atol"] <= 1.0, f"{tag}: Θ differs from one "
+        require(c["Theta_over_atol"] <= 1.0, f"{t}: Θ differs from one "
                 f"device's block by {c['Theta_max_abs']}, beyond atol "
                 f"{MESH_PART_THETA_ATOL}")
         require(c["scan_shapes"] == [["bwd"] + plane, ["fwd"] + plane],
-                f"{tag}: B12 ran on {c['scan_shapes']}, not the rank's "
+                f"{t}: B12 ran on {c['scan_shapes']}, not the rank's "
                 f"channels {plane}")
-        _per_round(dict(c["launches"]), MESH_SSM_CHECK_ROUNDS, dict(
-            MESH_ROUND_LAUNCHES, linear_scan_fwd=2 * L * 2,
-            linear_scan_bwd=L * 2))
-        require(c["gathered_leaves"] == SSM_GATHERED and
+        _per_round(dict(c["launches"]), MESH_SSM_CHECK_ROUNDS,
+                   _channel_round_launches(cfg))
+        require(c["gathered_leaves"] == fam["gathered"] and
                 c["model_all_gathers"] == c["model_all_gathers_want"],
-                f"{tag}: {c['model_all_gathers']} all-gathers over model, "
+                f"{t}: {c['model_all_gathers']} all-gathers over model, "
                 f"want {c['model_all_gathers_want']} (the leaves "
                 f"{c['gathered_leaves']})")
-    emit({"phase": "llm_mesh_ssm_check", "ok": True, "arch": SSM_ARCH,
-          "reduced": "ModelConfig.reduced(): 2 layers, d_model 128, "
-          "d_inner 256, ssm_state 8, dt_rank 8", "dtype": "float32",
+    emit({"phase": p_check, "ok": True, "arch": arch,
+          "reduced": fam["check_reduced"], "dtype": "float32",
           "grid": {"data": 1, "model": 2}, "W": LLM_WORKERS,
           "batch": SKETCH_CHECK_B, "seq": SKETCH_CHECK_S, "local_steps": 2,
           "local_lr": 1e-2, "noisy": False, "rounds": MESH_SSM_CHECK_ROUNDS,
@@ -8161,42 +8380,50 @@ def _gate_mesh_ssm(res: list, refs: dict) -> dict:
           "collectives": [c["collectives"] for c in sc],
           "launches": [c["launches"] for c in sc]})
 
-    require(all("ssm" in r for r in res), "llm_mesh_ssm: a rank failed:\n"
-            + _rank_failures(res, "ssm"))
-    sr = [r["ssm"] for r in res]
-    full = get_config(SSM_ARCH)
-    plane = [LLM_WORKERS, LLM_SEQ, full.d_inner // n * full.ssm_state]
-    _unequal_ranks("llm_mesh_ssm", sr, ("losses",))
+    require(all(tag in r for r in res), f"{p_run}: a rank failed:\n"
+            + _rank_failures(res, tag))
+    sr = [r[tag] for r in res]
+    full = get_config(arch)
+    cfg_run = _llm_cfg(arch, fam["run_layers"])
+    mode = fam["run_mode"]
+    rows = 1 if mode == "sketched" else LLM_WORKERS
+    plane = [rows, LLM_SEQ, _scan_width(full, n)]
+    _unequal_ranks(p_run, sr, ("losses",))
     for r, run in enumerate(sr):
-        tag = f"llm_mesh_ssm rank {r}"
-        require(run["inner"], f"{tag}: the plan does not split the channels")
-        require((LLM_WORKERS, run["d_local"]) in _mesh_round_shapes(),
-                f"{tag}: the rank's block ({LLM_WORKERS}, {run['d_local']}) "
-                f"is not one of the kernel rows' shapes")
-        require(run["losses"][-1] < run["losses"][0], f"{tag}: round "
+        t = f"{p_run} rank {r}"
+        require(run[flag], f"{t}: the plan does not split the channels")
+        require(tuple(run["round_block"]) in _mesh_round_shapes(),
+                f"{t}: the round's block {run['round_block']} (λ, h) is "
+                f"not one of the kernel rows' shapes")
+        require(run["losses"][-1] < run["losses"][0], f"{t}: round "
                 f"{MESH_RUN_ROUNDS} loss {run['losses'][-1]} is not below "
                 f"round 1's {run['losses'][0]}")
-        require(run["finite"], f"{tag}: non-finite θ or Θ")
+        require(run["finite"], f"{t}: non-finite θ or Θ")
         require(max(run["peak"], run["setup_peak"]) <= MESH_PEAK,
-                f"{tag}: peak {run['peak'] / 1e9} GB (set-up "
+                f"{t}: peak {run['peak'] / 1e9} GB (set-up "
                 f"{run['setup_peak'] / 1e9} GB) above {MESH_PEAK / 1e9} GB")
         require(run["scan_shapes"] == [["bwd"] + plane, ["fwd"] + plane],
-                f"{tag}: B12 ran on {run['scan_shapes']}, not the rank's "
+                f"{t}: B12 ran on {run['scan_shapes']}, not the rank's "
                 f"channels {plane}")
-        _per_round(dict(run["launches"]), MESH_RUN_ROUNDS, SSM_LAUNCHES)
-        require(run["gathered_leaves"] == SSM_GATHERED and
+        _per_round(dict(run["launches"]), MESH_RUN_ROUNDS,
+                   _channel_round_launches(cfg_run, mode))
+        require(run["gathered_leaves"] == fam["gathered"] and
                 run["model_all_gathers"] == run["model_all_gathers_want"],
-                f"{tag}: {run['model_all_gathers']} all-gathers over model, "
+                f"{t}: {run['model_all_gathers']} all-gathers over model, "
                 f"want {run['model_all_gathers_want']} (the leaves "
                 f"{run['gathered_leaves']})")
     s_round = statistics.mean(max(sr[r]["round_s"][i] for r in range(n))
                               for i in range(1, MESH_RUN_ROUNDS))
-    emit({"phase": "llm_mesh_ssm", "ok": True, "arch": SSM_ARCH,
-          "reduced": {"n_layers": f"64 -> {MESH_SSM_LAYERS}"},
+    emit({"phase": p_run, "ok": True, "arch": arch,
+          "reduced": {"n_layers": f"{full.n_layers} -> "
+                      f"{fam['run_layers']}"},
           "grid": {"data": 1, "model": 2}, "ranks": n,
           "backend": res[0]["backend"], "W": LLM_WORKERS, "seq": LLM_SEQ,
           "local_steps": 2, "local_lr": LLM_LR, "rounds": MESH_RUN_ROUNDS,
-          "channels_a_rank": full.d_inner // n, "d_local": sr[0]["d_local"],
+          "mode": mode, **({"sketch_ratio": SKETCH_RATIO}
+                           if mode == "sketched" else {}),
+          "channels_a_rank": _channels(full, n), "d_local": sr[0]["d_local"],
+          "round_block": sr[0]["round_block"],
           "loss": sr[0]["losses"], "ranks_bits_equal": True,
           "round_s": [run["round_s"] for run in sr],
           "seconds_per_round": s_round,
@@ -8211,10 +8438,10 @@ def _gate_mesh_ssm(res: list, refs: dict) -> dict:
           "timing": "every collective synchronised and timed (Mesh.timing)",
           "launches": [run["launches"] for run in sr]})
 
-    require(all("serve_mesh_ssm" in r for r in res), "serve_mesh_ssm: a "
-            "rank failed:\n" + _rank_failures(res, "serve_mesh_ssm"))
-    ref = refs["serve_ssm"]
-    fs = [r["serve_mesh_ssm"]["full"] for r in res]
+    require(all(p_serve in r for r in res), f"{p_serve}: a rank failed:\n"
+            + _rank_failures(res, p_serve))
+    ref = refs[f"serve_{tag}"]
+    fs = [r[p_serve]["full"] for r in res]
     f0 = fs[0]
     one32 = ref["one_device_vs_f32"]
     rms = {"prefill": (_rms([f["prefill_vs_f32"] for f in fs[:1]]),
@@ -8222,68 +8449,69 @@ def _gate_mesh_ssm(res: list, refs: dict) -> dict:
            "steps": (_rms([e for f in fs for e in f["step_vs_f32"]]),
                      _rms(one32["steps"]))}
     ratio = {k: a / b for k, (a, b) in rms.items()}
-    cfg8 = _llm_cfg(SSM_ARCH, SERVE_SSM_LAYERS)
-    Ls, c = cfg8.n_layers, cfg8.d_inner // n
-    _unequal_ranks("serve_mesh_ssm", fs, ("tokens_sha1", "prefill_sha1",
-                                          "step_logits_sha1"))
+    cfg8 = _llm_cfg(arch, fam["serve_layers"])
+    n_rec = sum(_rec_layers(cfg8))
+    c = _channels(cfg8, n)
+    pre_gathers, step_gathers = _param_gathers(cfg8, SERVE_MESH_STEPS)
+    _unequal_ranks(p_serve, fs, ("tokens_sha1", "prefill_sha1",
+                                 "step_logits_sha1"))
     for r, f in enumerate(fs):
-        tag = f"serve_mesh_ssm rank {r}"
-        require(f["cache_layout"] == "inner" and f["cache_blocks"] == {
-            "ssm": [Ls, SERVE_MESH_B, c, cfg8.ssm_state],
-            "conv": [Ls, SERVE_MESH_B, cfg8.conv1d_width - 1, c]},
-            f"{tag}: the cache's layout {f['cache_layout']!r}, blocks "
-            f"{f['cache_blocks']}")
-        require(sorted(f["proj_cols"]) == ["dt_proj", "x_proj"], f"{tag}: "
-                f"decode keeps the rank's block of {f['proj_cols']}")
-        require(f["prefill_launches"] == {"linear_scan_fwd": Ls}
-                and not f["decode_launches"], f"{tag}: prefill launched "
+        t = f"{p_serve} rank {r}"
+        require(f["cache_layout"] == fam["layout"] and f["cache_blocks"]
+                == _cache_blocks_want(cfg8, SERVE_MESH_B, n),
+                f"{t}: the cache's layout {f['cache_layout']!r}, blocks "
+                f"{f['cache_blocks']}")
+        require(sorted(f["proj_cols"]) == fam["proj_cols"], f"{t}: decode "
+                f"keeps the rank's block of {f['proj_cols']}")
+        require(f["prefill_launches"] == {"linear_scan_fwd": n_rec}
+                and not f["decode_launches"], f"{t}: prefill launched "
                 f"{f['prefill_launches']}, decode {f['decode_launches']}")
-        want = [["fwd", SERVE_MESH_B, SERVE_MESH_P, c * cfg8.ssm_state]]
+        want = [["fwd", SERVE_MESH_B, SERVE_MESH_P, _scan_width(cfg8, n)]]
         require(f["prefill_scan_shapes"] == want
-                and not f["decode_scan_shapes"], f"{tag}: B12 ran on "
+                and not f["decode_scan_shapes"], f"{t}: B12 ran on "
                 f"{f['prefill_scan_shapes']}, not the rank's channels {want}")
-        # the prefill gathers x_proj, dt_proj (each layer's) and dt_proj's
-        # bias (once); decode the bias alone
-        require(f["prefill_calls"].get("all_gather") == {"model": 2 * Ls + 1}
-                and f["decode_calls"].get("all_gather") == {
-                    "model": SERVE_MESH_STEPS}, f"{tag}: parameter "
-                f"all-gathers in the prefill "
-                f"{f['prefill_calls'].get('all_gather')}, in decode "
-                f"{f['decode_calls'].get('all_gather')}")
-        require(max(f["peak"], f["setup_peak"]) <= MESH_PEAK, f"{tag}: peak "
+        got = [x.get("all_gather", {}).get("model", 0)
+               for x in (f["prefill_calls"], f["decode_calls"])]
+        require(got == [pre_gathers, step_gathers], f"{t}: parameter "
+                f"all-gathers over model in the prefill and decode {got}, "
+                f"want {[pre_gathers, step_gathers]}")
+        require(max(f["peak"], f["setup_peak"]) <= MESH_PEAK, f"{t}: peak "
                 f"{f['peak'] / 1e9} GB, set-up {f['setup_peak'] / 1e9} GB, "
                 f"above {MESH_PEAK / 1e9} GB")
     require(all(x <= SERVE_MESH_F32_RATIO for x in ratio.values()),
-            f"serve_mesh_ssm: the mesh's logits are further from the f32 run "
+            f"{p_serve}: the mesh's logits are further from the f32 run "
             f"than one device's bf16 logits are, beyond "
             f"{SERVE_MESH_F32_RATIO}× in RMS: {rms}")
-    checks = [r["serve_mesh_ssm"]["check"] for r in res]
+    checks = [r[p_serve]["check"] for r in res]
+    P, N = fam["serve_check"]
+    cfg_c = fam["check_cfg"]
+    pre_c, step_c = _param_gathers(cfg_c, P - 1 + N)
     for r, ck in enumerate(checks):
-        tag = f"serve_mesh_ssm check rank {r}"
-        require(ck["layout"] == "inner", f"{tag}: layout {ck['layout']!r}")
+        t = f"{p_serve} check rank {r}"
+        require(ck["layout"] == fam["layout"] and ck["cache_blocks"]
+                == _cache_blocks_want(cfg_c, SERVE_MESH_CHECK_B, n),
+                f"{t}: layout {ck['layout']!r}, blocks {ck['cache_blocks']}")
         require(max(ck["prefill_rel_err"], ck["step_rel_err"],
                     *ck["cache_rel_err"].values()) <= SERVE_MESH_CHECK_RTOL,
-                f"{tag}: logits {ck['prefill_rel_err']} / "
+                f"{t}: logits {ck['prefill_rel_err']} / "
                 f"{ck['step_rel_err']}, cache {ck['cache_rel_err']} from one "
                 f"device's, beyond {SERVE_MESH_CHECK_RTOL} of their largest")
         require(ck["tokens_equal"] and ck["tokens_sha1"]
-                == checks[0]["tokens_sha1"], f"{tag}: the tokens are not one "
+                == checks[0]["tokens_sha1"], f"{t}: the tokens are not one "
                 f"device's, or not rank 0's")
-        Lc = _moe_part_cfg(SSM_ARCH).n_layers
-        require(ck["prefill_calls"].get("all_gather") == {"model": 2 * Lc + 1}
-                and ck["decode_calls"].get("all_gather") == {
-                    "model": SERVE_SSM_CHECK_P - 1 + SERVE_SSM_CHECK_N},
-                f"{tag}: parameter all-gathers in the prefill "
-                f"{ck['prefill_calls'].get('all_gather')}, in decode "
-                f"{ck['decode_calls'].get('all_gather')} (dt_proj's bias "
-                f"once a step)")
+        got = [x.get("all_gather", {}).get("model", 0)
+               for x in (ck["prefill_calls"], ck["decode_calls"])]
+        require(got == [pre_c, step_c], f"{t}: parameter all-gathers over "
+                f"model in the prefill and decode {got}, want "
+                f"{[pre_c, step_c]}")
     walls = [statistics.median(f["decode_wall_ms"]) for f in fs]
 
-    def per_rank(key):
-        return [f[key] for f in fs]
-    emit({"phase": "serve_mesh_ssm", "ok": True, "arch": SSM_ARCH,
-          "n_layers": Ls, "reduced": f"depth only: {Ls} of 64 layers",
-          "dtype": "bfloat16",
+    def per_rank(k):
+        return [f[k] for f in fs]
+    emit({"phase": p_serve, "ok": True, "arch": arch,
+          "n_layers": cfg8.n_layers,
+          "reduced": f"depth only: {cfg8.n_layers} of {full.n_layers} "
+          f"layers", "dtype": "bfloat16",
           "grid": dict(zip(("data", "model"), SERVE_MESH_SHAPE)),
           "ranks": n, "backend": res[0]["backend"],
           "batch": SERVE_MESH_B, "prompt": SERVE_MESH_P,
@@ -8312,18 +8540,17 @@ def _gate_mesh_ssm(res: list, refs: dict) -> dict:
           "decode_collectives_per_step": per_rank("decode_collectives"),
           "prefill_launches": per_rank("prefill_launches"),
           "prefill_scan_shapes": f0["prefill_scan_shapes"],
-          "check": {"reduced": "ModelConfig.reduced()", "dtype": "float32",
-                    "batch": SERVE_MESH_CHECK_B, "prompt": SERVE_SSM_CHECK_P,
-                    "new_tokens": SERVE_SSM_CHECK_N,
-                    "rtol": SERVE_MESH_CHECK_RTOL, "ranks": checks},
+          "check": {"reduced": fam["check_reduced"], "dtype": "float32",
+                    "batch": SERVE_MESH_CHECK_B, "prompt": P,
+                    "new_tokens": N, "rtol": SERVE_MESH_CHECK_RTOL,
+                    "ranks": checks},
           "seconds": {"one_device_reference": ref["seconds"],
-                      "ranks": [r["serve_mesh_ssm"]["seconds"]
-                                for r in res]},
+                      "ranks": [r[p_serve]["seconds"] for r in res]},
           "timing": "every collective synchronised and timed (Mesh.timing)"})
-    return {"llm_mesh_ssm_check": _summed(c["launches"] for c in sc),
-            "llm_mesh_ssm": _summed(run["launches"] for run in sr),
-            "serve_mesh_ssm": _summed([f["prefill_launches"] for f in fs]
-                                      + [f["decode_launches"] for f in fs])}
+    return {p_check: _summed(c["launches"] for c in sc),
+            p_run: _summed(run["launches"] for run in sr),
+            p_serve: _summed([f["prefill_launches"] for f in fs]
+                             + [f["decode_launches"] for f in fs])}
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,17 @@ rec layer keeps its f32 RG-LRU state (B, lru_width) and conv window, an
 attention layer a rotating KV buffer of ``attn_window`` slots written at
 ``pos % attn_window``; the caches of the super-blocks are stacked and the
 tail's a list, in the parameters' order, and are updated in place.
+
+On a mesh whose ``model`` axis divides ``lru_width`` (``models/partition``:
+``Partition.lru``) every rank runs its lru_width/m channels of each
+recurrent block: ``w_gelu``'s and ``w_rec``'s column blocks, the conv and
+Λ on its channels, the conv's output gathered once for ``gate_a``'s and
+``gate_x``'s column blocks, B12 on its channels, ``w_out``'s rows summed;
+the local attention and the MLP take the dense family's plan, the
+embedding and the logits its vocab rows; decode holds the rank's
+channels of the state and the conv window, and the attention's window as
+the dense family's cache.  One device (no partition) runs the same code
+with nothing split.
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ from repro_torch import rng
 from repro_torch.device import resolve_device
 from repro_torch.kernels.linear_scan import gated_linear_scan
 from repro_torch.models import layers as L
+from repro_torch.models import partition
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import _conv1d_causal
 from repro_torch.models.transformer import (decode_layer, init_stacked,
@@ -80,44 +92,104 @@ def rec_block_init(key: int, cfg: ModelConfig, device="cuda") -> Params:
     }
 
 
-def _rglru_coeffs(p: Params, x: Tensor) -> Tuple[Tensor, Tensor]:
-    """x: (..., dw) -> (a, gated input b) in f32."""
-    r = torch.sigmoid(L.dense(p["gate_a"], x).float())
-    i = torch.sigmoid(L.dense(p["gate_x"], x).float())
-    log_a = -LRU_C * r * L._bcast(F.softplus(p["lam"]), r, 1)
+def _in_proj(p: Params, x: Tensor, cfg: ModelConfig, part
+             ) -> Tuple[Tensor, Tensor]:
+    """gelu(``w_gelu`` x) and ``w_rec`` x, (…, dw) each; under ``part``
+    the rank's channels of each (…, dw/m): its column blocks, on x read
+    through ``copy_to`` once for both."""
+    if part is None:
+        return L._gelu(L.dense(p["w_gelu"], x)), L.dense(p["w_rec"], x)
+    x = part.copy_to(x)
+    dw = cfg.lru_width
+    return (L._gelu(part.dense_cols(p["w_gelu"], x, dw, "w_gelu")),
+            part.dense_cols(p["w_rec"], x, dw, "w_rec"))
+
+
+def _conv_params(p: Params, part) -> Tuple[Tensor, Tensor]:
+    """``conv_w`` and ``conv_b`` on the rank's channels (whole without
+    ``part``)."""
+    if part is None:
+        return p["conv_w"], p["conv_b"]
+    return part.channels(p["conv_w"]), part.channels(p["conv_b"])
+
+
+def _gate(p: Params, xs: Tensor, part, what: str) -> Tensor:
+    """The rank's column block of a gate (``gate_a`` or ``gate_x``) on the
+    gathered channels ``xs``: its weight block's product, then its bias,
+    which is the rank's block where the layout splits it (a stacked
+    super-block's) and else (the tail's, replicated) read on the rank's
+    channels."""
+    y = part.dense_cols({"w": p["w"]}, xs, xs.shape[-1], what)
+    b = p["b"]
+    if b.shape[-1] != y.shape[-1]:
+        b = part.channels(b)
+    return y + L._bcast(b, y, 1)
+
+
+def _rglru_coeffs(p: Params, x: Tensor, part=None
+                  ) -> Tuple[Tensor, Tensor]:
+    """x: (..., dw) -> (a, gated input b) in f32.  Under ``part`` x is the
+    rank's channels (..., dw/m): ``gate_a`` and ``gate_x`` contract over
+    every channel, so x is gathered once (``gather_inner``, whose backward
+    reduce-scatters the ranks' partial gradients) for their column blocks,
+    one device's contraction; Λ is read on the rank's channels."""
+    if part is None:
+        ra, ix = L.dense(p["gate_a"], x), L.dense(p["gate_x"], x)
+        lam = p["lam"]
+    else:
+        xs = part.gather_inner(x, partial=True)
+        ra = _gate(p["gate_a"], xs, part, "gate_a")
+        ix = _gate(p["gate_x"], xs, part, "gate_x")
+        lam = part.channels(p["lam"])
+    r = torch.sigmoid(ra.float())
+    i = torch.sigmoid(ix.float())
+    log_a = -LRU_C * r * L._bcast(F.softplus(lam), r, 1)
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * x.float())
     return a, b
 
 
+def _w_out(p: Params, y: Tensor, cfg: ModelConfig, part) -> Tensor:
+    if part is None:
+        return L.dense(p["w_out"], y)
+    return part.dense_rows(p["w_out"], y, cfg.lru_width, "w_out")
+
+
 def rec_block_fwd(p: Params, u: Tensor, cfg: ModelConfig) -> Tensor:
+    """Full-sequence forward. u: (..., B, S, d).  Under a partition of the
+    RG-LRU channels (``models/partition``) the branches, the conv, the
+    gates' columns and B12 run on the rank's dw/m channels, and
+    ``w_out``'s row-split partials are summed."""
+    part = partition.current("lru")
     x = L.rmsnorm(p["norm"], u, cfg.norm_eps)
-    g = L._gelu(L.dense(p["w_gelu"], x))
-    y = L.dense(p["w_rec"], x)
-    y = _conv1d_causal(p["conv_w"], p["conv_b"], y)
-    a, b = _rglru_coeffs(p, y)
+    g, y = _in_proj(p, x, cfg, part)
+    y = _conv1d_causal(*_conv_params(p, part), y)
+    a, b = _rglru_coeffs(p, y, part)
     S, dw = a.shape[-2:]
     h = gated_linear_scan(a.reshape(-1, S, dw),
                           b.reshape(-1, S, dw)).reshape(a.shape)
     y = h.to(u.dtype) * g
-    return u + L.dense(p["w_out"], y)
+    return u + _w_out(p, y, cfg, part)
 
 
 def rec_block_decode(p: Params, u: Tensor, cfg: ModelConfig,
                      lru_state: Tensor, conv_state: Tensor
                      ) -> Tuple[Tensor, Tensor, Tensor]:
     """u: (B, 1, d); lru_state: (B, dw) f32; conv_state: (B, K − 1, dw).
-    Returns (out, new state, new conv window)."""
+    Returns (out, new state, new conv window).  Under serving's partition
+    of the RG-LRU channels the states are the rank's channels (B, dw/m)
+    and (B, K − 1, dw/m), and so is every product but the gates', whose
+    columns the rank computes on the conv's output gathered."""
+    part = partition.current("lru")
     x = L.rmsnorm(p["norm"], u, cfg.norm_eps)
-    g = L._gelu(L.dense(p["w_gelu"], x))
-    y = L.dense(p["w_rec"], x)                           # (B, 1, dw)
+    g, y = _in_proj(p, x, cfg, part)                     # (B, 1, dw)
+    conv_w, conv_b = _conv_params(p, part)
     window = torch.cat([conv_state, y], dim=1)
-    y = (torch.einsum("bwd,wd->bd", window, p["conv_w"])
-         + p["conv_b"])[:, None]
-    a, b = _rglru_coeffs(p, y)
+    y = (torch.einsum("bwd,wd->bd", window, conv_w) + conv_b)[:, None]
+    a, b = _rglru_coeffs(p, y, part)
     h = a[:, 0] * lru_state + b[:, 0]
     y = h[:, None].to(u.dtype) * g
-    return u + L.dense(p["w_out"], y), h, window[:, 1:]
+    return u + _w_out(p, y, cfg, part), h, window[:, 1:]
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +273,8 @@ def init_params(key: int, cfg: ModelConfig, device="cuda") -> Params:
 
 def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
                remat: bool = True) -> Tensor:
-    """Full-sequence forward over tokens (..., B, S). Returns logits."""
+    """Full-sequence forward over tokens (..., B, S). Returns logits (the
+    rank's vocab columns under a partition of the vocab)."""
     pat = cfg.block_pattern
     n_super, tail = _split_pattern(cfg)
     table = params["embed"]["table"]
@@ -209,7 +282,7 @@ def lm_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
     # 50.5, not 50.596)
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
                          device=table.device)
-    x = L.embed(params["embed"], tokens) * scale
+    x = L.embed(params["embed"], tokens, cfg.vocab_size) * scale
     S = x.shape[-2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
 
@@ -280,13 +353,15 @@ def _layer_decode(p: Params, x: Tensor, cfg: ModelConfig, cache: Dict,
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict, token: Tensor,
                 pos: int) -> Tuple[Tensor, Dict]:
-    """One decode step: the (B, V) logits, and the cache updated in place
-    (attention slots at ``pos % attn_window``)."""
+    """One decode step: the (B, V) logits (the rank's vocab columns under
+    a partition of the vocab), and the cache updated in place (attention
+    slots at ``pos % attn_window``; under serving's ``"seq"`` layout the
+    rank whose slots hold it writes it, ``layers.attention_decode``)."""
     pat = cfg.block_pattern
     n_super, tail = _split_pattern(cfg)
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
                          device=token.device)
-    x = L.embed(params["embed"], token[:, None]) * scale
+    x = L.embed(params["embed"], token[:, None], cfg.vocab_size) * scale
     write_pos = pos % cfg.attn_window
     for s in range(n_super):
         super_p = decode_layer(params, s, key="super")

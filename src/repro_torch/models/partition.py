@@ -41,6 +41,22 @@ block, ``core.packing.ShardPackSpec``):
   columns (the token's channels gathered, its columns projected and
   gathered) and ``dt_proj``'s rows (the partials reduce-scattered to the
   rank's channels, ``scatter_inner``), and gathers the bias alone;
+* the hybrid's RG-LRU block (``models/hybrid.py``, where ``lru`` binds:
+  ``lru_width`` divides the axis): rank r runs channels ``[r·c, (r+1)·c)``,
+  c = lru_width/m.  ``w_gelu``'s and ``w_rec``'s column blocks give the
+  rank's channels of the gelu branch and of the recurrence's input; the
+  conv and Λ (``conv_w``, ``conv_b``, ``lam``, replicated) are read on
+  them (:meth:`Partition.channels`); the conv's output is gathered once
+  (:meth:`Partition.gather_inner` with ``partial``: its backward
+  reduce-scatters the ranks' partial gradients) for the column blocks of
+  ``gate_a`` and ``gate_x``, one device's contraction over every channel;
+  B12 scans the rank's channels; ``w_out`` is row-split.  The gates'
+  biases are laid out two ways by one rule (``launch.shardings``: a leaf
+  of two or more dims splits its last): a stacked super-block's (L, dw)
+  is the rank's block, the tail's (dw,) is replicated and read on the
+  rank's channels.  The local attention and the MLP take the dense
+  family's plan above (the attention whole, its weights gathered, where
+  the heads do not split);
 * the embedding: a vocab-parallel lookup (each rank its rows
   ``[r·V/m, (r+1)·V/m)``, zeros elsewhere, summed: one nonzero addend a
   row, so exact), and the unembedding on the rank's vocab rows, which
@@ -76,7 +92,13 @@ forward above, its last logits gathered whole (:meth:`Partition
 * ``"batch"``: the batch rows only (no layout splits the sequence).
 
 The SSM's state ``ssm`` (L, B, di, n) and conv window ``conv`` (L, B,
-K − 1, di) lie on their channels (``"inner"``).  MLA's latent cache
+K − 1, di) lie on their channels (``"inner"``).  The hybrid's cache has
+both kinds of leaf: its RG-LRU state ``lru`` (L?, B, dw) and conv window
+``conv`` (L?, B, K − 1, dw) on their channels wherever the plan splits
+them (:attr:`Partition.lru`), and its attention layers' rotating ``k``/``v``
+(L, B, window, KV, hd) as the dense family's, by the layout of ``k``
+(:attr:`Partition.cache`: the window's slots over ``model`` where the one
+KV head does not split).  MLA's latent cache
 (``c_kv``/``k_rope``) lies on the sequence wherever it splits, whatever
 the KV heads do: each rank computes the token's latent
 entries, the owner of the slot writes them, its heads' absorbed queries
@@ -102,8 +124,9 @@ routes the whole result alike.  The prefill reads those three whole
 (gathered): at S tokens their outputs outweigh the weights.
 
 The trainer's plan (:func:`partition_for`) covers :data:`FAMILIES` (dense,
-vlm, moe and ssm; the ssm only where ``inner`` binds), and serving's
-:data:`SERVE_FAMILIES` the same four.  The others keep the gathered
+vlm, moe, ssm and hybrid; the ssm only where ``inner`` binds, the hybrid
+only where ``lru`` does), and serving's :data:`SERVE_FAMILIES` the same
+five.  The others keep the gathered
 forward (``models/gather``) and a cache split over the batch.  A model-sharded leaf whose product is not partitioned
 (pixtral's ``projector`` and the MTP's ``mtp_proj``, whose outputs are
 the residual stream; ``fc_out``'s bias, split on its layer dim;
@@ -124,9 +147,9 @@ from repro_torch.launch.mesh import copy_to, reduce_from
 Tensor = torch.Tensor
 
 #: the families whose training products partition over ``model``
-FAMILIES = ("dense", "vlm", "moe", "ssm")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 #: the families whose serving products partition
-SERVE_FAMILIES = ("dense", "vlm", "moe", "ssm")
+SERVE_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 #: the small column-split projections serving's decode keeps as the
 #: rank's columns, their (B, 1, ·) outputs gathered
 #: (:attr:`Partition.proj_cols`): the router, MLA's ``wq_a`` and ``wkv_a``
@@ -135,8 +158,12 @@ _PROJ_LEAVES = {("mlp", "router"), ("attn", "wq_a"), ("attn", "wkv_a")}
 MTP_KEYS = ("mtp_block", "mtp_proj", "mtp_norm")
 #: the stacked layer keys whose entries partition, and the unstacked
 #: blocks that do
-_STACKS = ("layers", "dense_layers", "moe_layers")
+_STACKS = ("layers", "dense_layers", "moe_layers", "super")
 _BLOCKS = ("mtp_block",)
+#: the hybrid's layers: the stacked super-blocks and the ``tail`` list, a
+#: leaf at (its key, the block ``b{i}`` or ``#{j}``, ``temporal`` or
+#: ``mlp_blk``, …)
+_HYBRID = ("super", "tail")
 #: each partitioned dense leaf: (its layer key, its param name) -> (the
 #: Partition field that must be set, its split: "col" | "row")
 _LEAVES = {
@@ -166,6 +193,16 @@ _INNER_LEAVES = {
 #: splits them (:attr:`Partition.proj_cols`): ``x_proj``'s columns and
 #: ``dt_proj``'s rows
 _INNER_DECODE = {("x_proj", "w"): "col", ("dt_proj", "w"): "row"}
+#: the RG-LRU block's leaves under a partition of its channels, as
+#: :data:`_INNER_LEAVES`; "bias": the gates' biases, "col" in a stacked
+#: super-block (L, dw) and "narrow" in the tail (dw,), as the layout
+#: splits a leaf of two or more dims on its last
+_LRU_LEAVES = {
+    ("w_gelu", "w"): "col", ("w_rec", "w"): "col", ("gate_a", "w"): "col",
+    ("gate_x", "w"): "col", ("w_out", "w"): "row", ("conv_w",): "narrow",
+    ("conv_b",): "narrow", ("lam",): "narrow", ("gate_a", "b"): "bias",
+    ("gate_x", "b"): "bias",
+}
 
 
 class Partition(NamedTuple):
@@ -201,6 +238,10 @@ class Partition(NamedTuple):
     proj_cols: Tuple[str, ...] = ()
     #: the SSM's inner channels (``d_inner`` divides the axis)
     inner: bool = False
+    #: the hybrid's RG-LRU channels (``lru_width`` divides the axis); its
+    #: cache's ``lru`` and ``conv`` on them beside :attr:`cache`, which is
+    #: its attention layers'
+    lru: bool = False
 
     @property
     def seq_index(self) -> int:
@@ -308,22 +349,25 @@ class Partition(NamedTuple):
 
     def channels(self, t: Tensor, dim: int = -1) -> Tensor:
         """The rank's ``1/n`` of dim ``dim`` of a leaf it holds whole (the
-        SSM's ``conv_w``, ``A_log``, ``D``, a bias): read through
-        :meth:`copy_to`, so its gradient is the whole leaf's on every
-        rank."""
+        SSM's ``conv_w``, ``A_log``, ``D``, the hybrid's conv and Λ, a
+        bias): read through :meth:`copy_to`, so its gradient is the whole
+        leaf's on every rank."""
         c = t.shape[dim] // self.n
         return self.copy_to(t).narrow(dim, self.index * c, c)
 
-    def gather_inner(self, x: Tensor) -> Tensor:
-        """The SSM's activation on the ranks' channels (…, di/n) whole
-        (…, di), in channel order (``gather_inner`` in ``Mesh.stats``),
-        for a product every rank then computes whole and alike (its
-        backward keeps the rank's channels of the gradient, which every
-        rank holds whole)."""
+    def gather_inner(self, x: Tensor, partial: bool = False) -> Tensor:
+        """An activation on the ranks' channels (…, c/n) whole (…, c), in
+        channel order (``gather_inner`` in ``Mesh.stats``).  For a product
+        every rank then computes whole and alike (the SSM's ``x_proj``)
+        the backward keeps the rank's channels of the gradient, which
+        every rank holds whole; with ``partial`` (each rank computes its
+        column block of the products on it: the hybrid's gates) the ranks'
+        partial gradients are summed and each keeps its channels, one
+        reduce-scatter."""
         from repro_torch.models.gather import _Gather
 
-        return _Gather.apply(x, self.mesh, self.axis, x.dim() - 1, False,
-                             False, "gather_inner")
+        return _Gather.apply(x, self.mesh, self.axis, x.dim() - 1, partial,
+                             partial, "gather_inner")
 
     def inner_xz(self, xz: Tensor) -> Tuple[Tensor, Tensor]:
         """The SSM's x and z on the rank's channels, (…, di/n) each, from
@@ -407,7 +451,10 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
     KV, hd) the KV heads over ``model`` where they divide it (which is
     where ``rules_for`` binds ``kv_heads``), else the sequence, else the
     batch alone; for MLA's latent ``c_kv`` (L, B, T, c) the sequence
-    where it splits, else the batch, whatever the KV heads do."""
+    where it splits, else the batch, whatever the KV heads do.  The
+    hybrid's plan is None where ``lru`` is unbound (the gathered forward);
+    its ``cache`` is its super-blocks' ``k`` leaf, laid out as above, and
+    their ``lru`` leaf beside it (L, B, dw) must lie on its channels."""
     from repro_torch.launch.shardings import (_entry_axes, cache_pspec,
                                               rules_for)
 
@@ -431,10 +478,13 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
                      expert=bool(cfg.n_experts) and bound("expert"),
                      shared_ff=bool(cfg.n_shared_experts) and fits(
                          cfg.moe_d_ff * cfg.n_shared_experts),
-                     inner=cfg.family == "ssm" and bound("inner"))
+                     inner=cfg.family == "ssm" and bound("inner"),
+                     lru=cfg.family == "hybrid" and bound("lru"))
     if cfg.family == "ssm":
         return _ssm_plan(cfg, mesh, part, multi_pod, cache, cache_leaf,
                          decode)
+    if cfg.family == "hybrid" and not part.lru:
+        return None
     if serve and part.heads and not part.kv:
         part = part._replace(kv_cols=fits(cfg.n_kv_heads * cfg.hd))
     if decode:
@@ -449,6 +499,13 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
     if cache_leaf not in ("k", "c_kv"):
         raise ValueError(f"{cfg.name}: no decode layout for a cache led by "
                          f"{cache_leaf!r}")
+    if part.lru:
+        state = cache_pspec(("lru",), tuple(cache[:2]) + (cfg.lru_width,),
+                            cfg, mesh, cache[1], multi_pod=multi_pod)
+        if state[-1] != part.axis:
+            raise ValueError(f"{cfg.name}: the plan splits the RG-LRU "
+                             f"channels over {part.axis} but the cache's "
+                             f"state does not")
     spec = cache_pspec((cache_leaf,), tuple(cache), cfg, mesh, cache[1],
                        multi_pod=multi_pod)
     seq = spec[2]
@@ -538,15 +595,27 @@ def _split(path: Tuple[str, ...], part: Partition) -> Optional[str]:
     """The split of the leaf at ``path`` where its product partitions
     ("col", "row", "vocab"; "head" for MLA's per-head leaves, "expert"
     for the routed experts, "narrow" for a leaf held whole of which each
-    rank reads its inner channels), else None.  A dense leaf's path ends in its
+    rank reads its channels), else None.  A dense leaf's path ends in its
     param name and "w" or "b" (``attn/wq/w``, ``mlp/shared/gate/w``); a
     routed expert's in its name alone (``mlp/gate``), which tells it from
-    the dense MLP's, whose width is ``d_ff``, not ``moe_d_ff``."""
+    the dense MLP's, whose width is ``d_ff``, not ``moe_d_ff``.  The
+    hybrid's leaves lie two keys deeper (``super/b0/temporal/w_rec/w``,
+    ``tail/#1/mlp_blk/mlp/up/w``): its RG-LRU leaves resolve by
+    :data:`_LRU_LEAVES`, its attention and MLP as the dense family's."""
     if path[:1] == ("embed",) and path[-1] == "table":
         return "vocab" if part.vocab else None
-    if path[0] not in _STACKS + _BLOCKS:
+    if path[0] in _HYBRID and len(path) > 3:
+        rest = path[3:]
+        if part.lru and path[2] == "temporal" and rest[0] not in ("attn",
+                                                                  "ln"):
+            split = _LRU_LEAVES.get(rest[:1] if len(rest) == 1 else rest)
+            if split == "bias":
+                return "col" if path[0] in _STACKS else "narrow"
+            return split
+    elif path[0] not in _STACKS + _BLOCKS:
         return None
-    rest = path[1:]
+    else:
+        rest = path[1:]
     if part.inner:
         key = rest[:1] if len(rest) == 1 else rest
         if key in _INNER_DECODE:
@@ -619,10 +688,15 @@ def gathered_model_leaf(path: Tuple[str, ...], md: Optional[int],
     return md is not None and (part is None or _split(path, part) is None)
 
 
-def current() -> Optional[Partition]:
+def current(field: Optional[str] = None) -> Optional[Partition]:
     """The partition of the active gather plan (``models/gather``), or
-    None: the layers run their whole products."""
+    None: the layers run their whole products.  With ``field`` (the SSM's
+    ``"inner"``, the hybrid's ``"lru"``), None too where that field of it
+    is not set."""
     from repro_torch.models import gather as _gather
 
     plan = _gather.current()
-    return None if plan is None else plan.part
+    part = None if plan is None else plan.part
+    if part is None or (field is not None and not getattr(part, field)):
+        return None
+    return part

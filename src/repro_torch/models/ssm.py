@@ -42,6 +42,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.linear_scan import (gated_linear_scan,
                                              linear_scan_carry)
 from repro_torch.models import layers as L
+from repro_torch.models import partition
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (decode_layer, init_stacked,
                                             run_stacked)
@@ -84,15 +85,6 @@ def _conv1d_causal(w: Tensor, b: Tensor, x: Tensor) -> Tensor:
     out = sum(xp[..., i:i + S, :] * L._bcast(w[..., i, :], x, 1)
               for i in range(K))
     return out + L._bcast(b, x, 1)
-
-
-def _inner_part():
-    """The active partition where it splits the inner channels
-    (``models/partition``), else None: the whole products."""
-    from repro_torch.models import partition
-
-    part = partition.current()
-    return part if part is not None and part.inner else None
 
 
 def _x_proj(p: Params, x: Tensor, cfg: ModelConfig, part) -> Tensor:
@@ -242,7 +234,7 @@ def block_fwd(p: Params, u: Tensor, cfg: ModelConfig) -> Tensor:
     inner channels (``models/partition``) every product, the conv, B12
     and the gate run on the rank's di/m channels, and ``out_proj``'s
     row-split partials are summed."""
-    part = _inner_part()
+    part = partition.current("inner")
     h = L.rmsnorm(p["norm"], u, cfg.norm_eps)
     x, z = _in_proj(p, h, cfg, part)
     conv_w, conv_b, D = _conv_params(p, part)
@@ -314,7 +306,7 @@ def block_decode(p: Params, u: Tensor, cfg: ModelConfig, ssm_state: Tensor,
     ``"inner"`` layout) the states are the rank's channels (B, d_inner/m,
     ·), and so is every product but ``x_proj``'s, whose columns the rank
     projects from the gathered token (``_x_proj``)."""
-    part = _inner_part()
+    part = partition.current("inner")
     h = L.rmsnorm(p["norm"], u, cfg.norm_eps)
     x, z = _in_proj(p, h, cfg, part)                    # (B, 1, di)
     conv_w, conv_b, D = _conv_params(p, part)

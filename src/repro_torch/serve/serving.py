@@ -11,12 +11,13 @@ Decode is plain torch, as the reference computes it outside any kernel;
 ``generate`` starts the enc-dec from a zero cross cache, as the reference
 does (``models/encdec.prefill_cross`` fills it).
 
-On a mesh the dense, vlm, moe and ssm families serve partitioned over
-``model`` (``models/partition``): the prefill runs each rank's heads, ff
-columns, experts, inner channels and vocab rows, and decode holds the
-rank's block of the cache (its KV heads, or its slice of the sequence;
-MLA's latent cache on the sequence; the SSM's state and conv window on
-its channels) as the reference's cache specs lay it out; no rank gathers
+On a mesh the dense, vlm, moe, ssm and hybrid families serve partitioned
+over ``model`` (``models/partition``): the prefill runs each rank's heads,
+ff columns, experts, inner or RG-LRU channels and vocab rows, and decode
+holds the rank's block of the cache (its KV heads, or its slice of the
+sequence; MLA's latent cache on the sequence; the SSM's and the hybrid's
+states and conv windows on their channels, the hybrid's attention window
+on its slots) as the reference's cache specs lay it out; no rank gathers
 a partitioned leaf (where the KV heads do not split, a rank projects its
 ``wk``/``wv`` columns and gathers the projections; decode does the same
 with the router, ``wq_a``, ``wkv_a`` and the SSM's ``x_proj``, which the
@@ -51,10 +52,15 @@ def _attention_leaf(glob) -> tuple:
     layout: the K leaf (L, B, T, KV, hd), MLA's latent ``c_kv`` (L, B, T,
     c), or the SSM's state ``ssm`` (L, B, di, n); the moe family's
     ``dense`` and ``moe`` stacks share one layout, read from the ``moe``
-    stack's."""
-    sub = glob.get("moe", glob)
-    name = next(k for k in ("k", "c_kv", "ssm") if k in sub)
-    return name, tuple(sub[name].shape)
+    stack's; the hybrid's is its super-blocks' attention ``k`` (their
+    RG-LRU state beside it, ``partition.partition_for``)."""
+    from repro_torch.tree import tree_paths
+
+    leaves: dict = {}
+    for path, x in tree_paths(glob.get("moe", glob)):
+        leaves.setdefault(path[-1], x)
+    name = next(k for k in ("k", "c_kv", "ssm") if k in leaves)
+    return name, tuple(leaves[name].shape)
 
 
 def _mesh_layout(model: Model, mesh, fsdp: bool, decode: bool = False):
@@ -130,13 +136,13 @@ def make_prefill(model: Model, mesh=None, *, fsdp: bool = False):
     full forward, without autograd.  Under ``mesh`` (a ``launch.mesh``
     mesh, as the trainer takes) a rank holds its block of the parameters
     (``prefill.shard(full)`` cuts it and builds the gather plan; call it
-    first) and its rows of the batch.  The dense, vlm, moe and ssm
+    first) and its rows of the batch.  The dense, vlm, moe, ssm and hybrid
     families run the trainer's partitioned forward (``models/partition``:
-    each rank's heads, B11 on them, its ff columns, experts, inner
-    channels, B12 on them, and vocab rows) and gather the last position's
-    vocab-parallel logits whole; the router, ``wq_a``, ``wkv_a``,
-    ``x_proj`` and ``dt_proj`` are gathered whole, since at S tokens their
-    outputs outweigh the weights.  The other families gather each layer
+    each rank's heads, B11 on them, its ff columns, experts, inner or
+    RG-LRU channels, B12 on them, and vocab rows) and gather the last
+    position's vocab-parallel logits whole; the router, ``wq_a``,
+    ``wkv_a``, ``x_proj`` and ``dt_proj`` are gathered whole, since at S
+    tokens their outputs outweigh the weights.  The other families gather each layer
     whole (``models/gather``).  No MTP leaf is gathered."""
     layout, shard = _mesh_layout(model, mesh, fsdp)
 
@@ -167,8 +173,10 @@ def make_serve_step(model: Model, mesh=None, *, fsdp: bool = False):
     router's, ``wq_a``'s and ``wkv_a``'s columns on the rank and their
     one-token outputs gathered; for the ssm family the state and the conv
     window on the rank's channels (``"inner"``), with ``x_proj``'s columns
-    and ``dt_proj``'s rows on the rank; the other families keep a cache
-    split over the batch alone and gather each layer
+    and ``dt_proj``'s rows on the rank; for the hybrid its RG-LRU state and
+    conv window on the rank's channels and its attention window as the
+    dense family's (``"seq"`` for its one KV head); the audio family keeps
+    a cache split over the batch alone and gathers each layer
     (``transformer.decode_layer``).  Make the cache with
     ``serve_step.init_cache(batch, max_seq, device=...)`` (the rank's
     block, never the whole cache; ``batch`` the whole batch) or cut it

@@ -51,8 +51,9 @@ coordinate on the data axes) and, when the grid shards the model (model >
 of the global shard-packed (W, d_pad) λ and h
 (``core.packing.ShardPackSpec`` over ``launch.shardings.shard_dims_2d``).
 The local steps run the gathered forward (``models.gather``), in which the
-dense, vlm and moe families compute each rank's own heads, ff columns,
-experts and vocab rows on its model block (``models.partition``), the
+dense, vlm, moe, ssm and hybrid families compute each rank's own heads, ff
+columns, experts, inner or RG-LRU channels and vocab rows on its model
+block (``models.partition``), the
 penalty
 reads λ and h through ``tree_ota.unpack_cplx_shard_local`` and the round is
 ``tree_ota.ota_tree_round_shard_local``.  A pure-data mesh keeps the global

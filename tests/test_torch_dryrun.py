@@ -125,17 +125,23 @@ def _check_spec(ours, ref, mesh):
 
 def _cache_layout(ours):
     """The decode cache's layout the reference's cache specs give a dense,
-    vlm, moe or ssm family (the KV heads over ``model``, else the
+    vlm, moe, ssm or hybrid family (the KV heads over ``model``, else the
     sequence, else the batch alone; MLA's latent ``c_kv`` on the sequence,
-    else the batch; the SSM's state on its channels, else the batch), and
-    ``"batch"`` for the families that serve gathered."""
+    else the batch; the SSM's state on its channels, else the batch; the
+    hybrid's attention window as a K leaf's, the batch where its RG-LRU
+    state does not split), and ``"batch"`` for the families that serve
+    gathered."""
     if get_config(ours.meta["arch"]).family not in SERVE_FAMILIES:
         return "batch"
     leaves = dict(specs.leaves(ours.in_shardings))
     if ("1", "ssm") in leaves:
         return "inner" if _norm(leaves[("1", "ssm")], 4)[2] else "batch"
+    lru = ("1", "super", "b0", "lru")
+    if lru in leaves and not _norm(leaves[lru], 3)[2]:
+        return "batch"
     path = next(p for p in (("1", "k"), ("1", "moe", "k"),
-                            ("1", "moe", "c_kv")) if p in leaves)
+                            ("1", "moe", "c_kv"), ("1", "super", "b2", "k"))
+                if p in leaves)
     spec = _norm(leaves[path], 5 if path[-1] == "k" else 4)
     if path[-1] == "k" and spec[3]:
         return "heads"
@@ -778,6 +784,106 @@ def test_ssm_decode_gathers_no_weight_but_the_dt_bias():
     assert moved < weights
 
 
+def test_partitioned_hybrid_trace_flops_match_the_references_partition(
+        tmp_path):
+    """Reduced recurrentgemma-2b train_4k on a (1, 2) fake mesh: the rank
+    runs its lru_width/2 RG-LRU channels (``w_gelu``'s, ``w_rec``'s and the
+    gates' columns on the gathered channels, ``w_out``'s rows, B12 on its
+    channels), its half of the heads, its ff columns and its vocab rows.
+    Each rank projects the one KV head whole (``wk``/``wv`` read through
+    ``copy_to``, as the dense family's trainer does where the KV heads do
+    not split), where XLA splits those columns and gathers the result:
+    with the half of those products the rank computes beyond XLA's set
+    aside (measured: exactly that half, 2²² flops), its traced flops
+    outside attention count, within rtol 1e-2, those of the per-device
+    module XLA partitions from the reference's over the same mesh, and
+    half of its own on (1, 1); B12 runs on the rank's channels.  No
+    RG-LRU, MLP or vocab leaf is gathered: the one KV head's ``wk``/``wv``
+    alone, twice (the forward and the recompute)."""
+    hlo = _hlo_12(tmp_path, "recurrentgemma-2b")
+    ref_total = hlo_analysis.analyze(hlo).flops
+    dots = _hlo_dots(hlo)
+    mesh = FakeMesh((1, 2), ("data", "model"))
+    spec = specs.build_spec("recurrentgemma-2b", "train_4k", mesh,
+                            multi_pod=False, reduced=True)
+    s = analyze(spec.fn, spec.local_args, mesh)
+    S = spec.meta["seq"]
+    ref_attn = sum(v for k, v in dots.items() if _attention(k, S))
+    ours_attn = sum(v for (_, ins, outs), v in s.products.items()
+                    if _attention(ins + outs, S))
+    kernel_flops = sum(k["flops"] for k in s.kernels.values())
+    cfg = get_config("recurrentgemma-2b").reduced()
+    d, kv = cfg.d_model, cfg.n_kv_heads * cfg.hd
+    # the K and V projections: an operand of the weight's (1, d, KV·hd)
+    # shape or its transpose
+    extra = 0.5 * sum(v for (_, ins, _), v in s.products.items()
+                      if {(1, d, kv), (1, kv, d)} & set(map(tuple, ins)))
+    assert extra > 0
+    assert s.flops - ours_attn - kernel_flops - extra == pytest.approx(
+        ref_total - ref_attn, rel=1e-2)
+    one = FakeMesh((1, 1), ("data", "model"))
+    whole = specs.build_spec("recurrentgemma-2b", "train_4k", one,
+                             multi_pod=False, reduced=True)
+    sw = analyze(whole.fn, whole.local_args, one)
+    assert s.flops - extra == pytest.approx(0.5 * sw.flops, rel=1e-2)
+    n_rec = cfg.block_pattern.count("rec")
+    fwd = s.kernels["linear_scan_fwd"]
+    assert fwd["calls"] == 2 * n_rec
+    assert fwd["bytes"] == pytest.approx(0.5 * sw.kernels[
+        "linear_scan_fwd"]["bytes"], rel=1e-6)
+    assert s.mesh_stats["all_gather"]["calls"] == 2 * 2
+    assert s.mesh_stats["gather_inner"]["calls"] == 2 * n_rec
+
+
+def test_hybrid_decode_gathers_no_lru_ff_or_vocab_leaf():
+    """recurrentgemma-2b decode_32k at full size on 16 × 16 (lru_width
+    2,560, d_ff 7,680 and the vocabulary over ``model``; its 10 heads do
+    not split 16): the rank's cache is its 160 channels of each recurrent
+    layer's state and conv window and its 128 of the 2,048-slot window of
+    each attention layer's one KV head.  A step all-gathers over ``model``
+    no RG-LRU, MLP or vocab leaf: only the attention's ``wq``, ``wk``,
+    ``wv`` and ``wo``, whose heads stay whole (the rank's blocks, 4 a
+    layer).  Each recurrent layer gathers the conv's channels (B, 1, dw)
+    once."""
+    from repro_torch.models.partition import gathered_model_leaf
+
+    mesh = _fake("16x16")
+    spec = specs.build_spec("recurrentgemma-2b", "decode_32k", mesh,
+                            multi_pod=False)
+    assert spec.meta["cache_layout"] == "seq"
+    cfg = get_config("recurrentgemma-2b")
+    n, dw, d = mesh.shape["model"], cfg.lru_width, cfg.d_model
+    pat = cfg.block_pattern
+    n_super = cfg.n_layers // len(pat)
+    n_tail = cfg.n_layers - n_super * len(pat)
+    n_rec = n_super * pat.count("rec") + n_tail
+    n_attn = n_super * pat.count("attn")
+    cache = spec.local_args[1]
+    B = cache["super"]["b0"]["lru"].shape[1]
+    assert tuple(cache["super"]["b0"]["lru"].shape) == (n_super, B, dw // n)
+    assert tuple(cache["super"]["b1"]["conv"].shape) == (
+        n_super, B, cfg.conv1d_width - 1, dw // n)
+    assert tuple(cache["tail"][0]["lru"].shape) == (B, dw // n)
+    assert tuple(cache["super"]["b2"]["k"].shape) == (
+        n_super, B, cfg.attn_window // n, cfg.n_kv_heads, cfg.hd)
+    part = spec.fn.layout["part"]
+    assert part.lru and part.ff and part.vocab and not part.heads
+    params = spec.local_args[0]
+    md, _ = SH.shard_dims_2d(params, cfg, mesh, multi_pod=False,
+                             worker_dim=False)
+    gathered = sorted({"/".join(p[3:]) for (p, _), m in zip(
+        tree_paths(params), md) if gathered_model_leaf(p, m, part)})
+    assert gathered == [f"attn/{w}/w" for w in ("wk", "wo", "wq", "wv")]
+    analyze(spec.fn, spec.local_args, mesh)
+    st = mesh.stats
+    assert st["all_gather"]["axes"] == {"model": 4 * n_attn}
+    hq, hkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    assert st["all_gather"]["bytes"] == n_attn * (2 * d * hq + 2 * d * hkv
+                                                  ) // n * 2
+    assert st["gather_inner"]["axes"] == {"model": n_rec}
+    assert st["gather_inner"]["bytes"] == n_rec * B * dw // n * 2
+
+
 # ---------------------------------------------------------------------------
 # collectives against a live round on two gloo ranks
 # ---------------------------------------------------------------------------
@@ -830,10 +936,10 @@ def test_serving_on_a_mesh_equals_one_device(live, served_alone, arch,
     """Each rank's prefill logits and greedy tokens are its rows of one
     device's, and its final cache is its block of one device's under the
     layout the step records (the reference's cache specs for granite-8b,
-    whose products partition over ``model``, on its KV heads, and for
-    falcon-mamba-7b, whose inner channels partition, on its channels; the
-    batch rows for recurrentgemma-2b, which gathers its layers): f32,
-    1e-5."""
+    whose products partition over ``model``, on its KV heads; for
+    falcon-mamba-7b, whose inner channels partition, on its channels;
+    for recurrentgemma-2b, whose RG-LRU channels partition, its state on
+    its channels and its attention window on its slots): f32, 1e-5."""
     want = served_alone[arch]
     for rank in (0, 1):
         got = live[rank][(arch, shape)]
@@ -842,8 +948,9 @@ def test_serving_on_a_mesh_equals_one_device(live, served_alone, arch,
                                    rtol=1e-5, atol=1e-5)
         np.testing.assert_array_equal(got["tokens"], want["tokens"][rows])
         assert got["layout"]["cache"] == (
-            {"granite-8b": "heads", "falcon-mamba-7b": "inner"}.get(
-                arch, "batch") if shape[1] > 1 else "batch")
+            {"granite-8b": "heads", "falcon-mamba-7b": "inner",
+             "recurrentgemma-2b": "seq"}[arch] if shape[1] > 1
+            else "batch")
         for (path, c), (_, sp), (_, mine) in zip(
                 tree_paths(want["cache"]),
                 tree_paths(got["layout"]["cache_specs"]),

@@ -950,9 +950,9 @@ def dryrun_batch(mesh, mode: str, device) -> dict:
 
 
 #: (arch, mesh shape) of the serving runs the dry-run test holds to one
-#: device and to the trace: a dense family and the SSM family, whose
-#: products partition over the model axis, and the hybrid family, which
-#: still gathers its layers; over the model axis and over the data axis
+#: device and to the trace: a dense family, the SSM family and the hybrid
+#: family, whose products partition over the model axis; over the model
+#: axis and over the data axis
 DRYRUN_SERVE = tuple((arch, shape) for arch in ("granite-8b",
                                                 "falcon-mamba-7b",
                                                 "recurrentgemma-2b")
@@ -1135,13 +1135,13 @@ def partition_cfg(arch: str, over: dict):
                                param_dtype="float32", **over)
 
 
-def partitioned_rank(rank: int, cases: list) -> dict:
+def partitioned_rank(rank: int, cases: list, shape=(1, 2)) -> dict:
     """Each case (``name``, ``arch``, ``over``, ``params``: the numpy
     worker-led tree, ``batch``, and optionally ``opt``, a ``REPRO_OPT``
     value, and ``scan_chunk``, a ``REPRO_SCAN_CHUNK``) on the (1, 2)
-    grid: the rank's blocks of the params under the
-    trainer's layout and partition plan, the loss (W,), the gradient of
-    each block, the mesh's collectives in the forward and in the backward
+    grid (or the (1, m) ``shape``): the rank's blocks of the params under
+    the trainer's layout and partition plan, the loss (W,), the gradient
+    of each block, the mesh's collectives in the forward and in the backward
     (calls by axis), and the forward's MoE routing (``moe.record_routing``:
     each dispatch's picks and kept pairs)."""
     from repro_torch.convert import model_params_from_numpy
@@ -1153,14 +1153,14 @@ def partitioned_rank(rank: int, cases: list) -> dict:
     from repro_torch.models.partition import partition_for
     from repro_torch.tree import tree_map
 
-    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
     j = mesh.axis_index("model")
     out = {}
     for case in cases:
         model = build_model(partition_cfg(case["arch"], case["over"]))
         full = model_params_from_numpy(case["params"], device="cpu")
         md, fd = shard_dims_2d(full, model.cfg, mesh, multi_pod=False)
-        sspec = build_shard_packspec(full, md, 2, batch_dims=1,
+        sspec = build_shard_packspec(full, md, shape[1], batch_dims=1,
                                      fsdp_dims=fd, n_fsdp=1)
         part = partition_for(model.cfg, mesh)
         plan = G.make_plan(full, sspec.shard_dims, sspec.fsdp_dims, mesh,
