@@ -390,6 +390,23 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              window on its 1,024 slots), no parameter all-gathered, B12 × 6
              a prefill on (8, 64, 1,280), and the reduced check run 67
              steps, past its 64-slot window's wrap.
+57–59. llm_mesh_encdec_check, llm_mesh_encdec, serve_mesh_encdec — after
+             phase 56, the same three on the audio enc-dec's heads
+             (``models/encdec.py``: each rank's heads of the encoder's
+             and the decoder's attention, its ff columns, its vocab rows):
+             reduced seamless-m4t-medium (2 + 2 layers) in f32, 3 rounds
+             each from one device's state, B11 on the rank's 2 heads;
+             seamless at full width cut to 4 + 4 layers, ``llm_encdec``'s
+             W = 2 × 2 × 1,024 tokens over 1,024 stub frames, 2
+             replicated rounds (loss falls, ≤ 40 GB a rank), B11 16/8/8 a
+             round on (4, 8, 1,024, 64); served at full width and depth
+             (12 + 12) over 1,024 stub frames a prompt, the cross cache
+             from ``prefill_cross`` on the rank's KV heads, B11 × 12 a
+             prefill on (8, 8, 64, 64), none in decode, no parameter
+             all-gathered but ``fc_out``'s bias (split on its layer dim),
+             and reduced f32 checks in both cache layouts (4 KV heads;
+             one KV head, the self cache on its slots and the cross cache
+             on its frames).
 44. dryrun — last: the dry run's trace on ``meta`` (no kernel) against
              the card: phases 40's and 42's rounds traced on a fake-rank
              mesh count each rank's collectives (calls and bytes by op)
@@ -410,8 +427,8 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
              it says bit for bit, B9 within 1e-6 and B11's gradients within
              1e-5 of their plain versions (gates); the times recorded.
 
-Launch counts are reset just before each of phases 4–12, 14–43, 45–56
-and read just after (in each rank for phases 39–43 and 46–56, summed over
+Launch counts are reset just before each of phases 4–12, 14–43, 45–59
+and read just after (in each rank for phases 39–43 and 46–59, summed over
 the ranks;
 phase 45's spawned ranks count in their own sections).  Then
 come the kernel table as one JSON line, the nvidia-smi line,
@@ -1056,8 +1073,10 @@ def _mesh_round_shapes():
     the sketched phases' (W, d_s) sketches (1 and 2 layers), the cohort
     check's (reduced granite-8b on (2, 1)), ``llm_mesh_moe``'s (W, d_s)
     sketches (qwen3-moe, 2 layers), ``llm_mesh_ssm``'s block
-    (falcon-mamba-7b, 2 layers, on the first grid) and ``llm_mesh_hybrid``'s
-    (W, d_s) sketch (recurrentgemma-2b, 3 layers).  granite-8b's and
+    (falcon-mamba-7b, 2 layers, on the first grid), ``llm_mesh_hybrid``'s
+    (W, d_s) sketch (recurrentgemma-2b, 3 layers) and ``llm_mesh_encdec``'s
+    block (seamless-m4t-medium, 4 + 4 layers, on the first grid: its
+    layernorms split evenly too).  granite-8b's and
     falcon-mamba-7b's replicated segments (their norms, conv, ``A_log``,
     ``D``) split evenly, so d_local is D over the model axis with no
     padding (the phases gate that)."""
@@ -1084,7 +1103,9 @@ def _mesh_round_shapes():
          (LLM_WORKERS // data, packed_param_count(
              _llm_cfg(SSM_ARCH, MESH_SSM_LAYERS)) // model),
          (LLM_WORKERS, _sketch_dim(packed_param_count(
-             _llm_cfg(HYBRID_ARCH, MESH_HYBRID_LAYERS)), SKETCH_RATIO))]
+             _llm_cfg(HYBRID_ARCH, MESH_HYBRID_LAYERS)), SKETCH_RATIO)),
+         (LLM_WORKERS // data, packed_param_count(
+             _encdec_cfg(MESH_ENCDEC_LAYERS)) // model)]
 
 
 def _llm_round_rows(torch, build, mem_rate, f32_rate, W: int, d: int):
@@ -1248,7 +1269,14 @@ FLASH_CASES = (("", 2, 32, 4096, 128, "bfloat16", True),
                # a (1, 2) mesh rank's prefill (``serve_mesh``): 16 of
                # granite-8b's 32 heads over the 8 × 64 prompt
                ("[bf16 model-rank prefill (8, 16, 64, 128)]", 8, 16, 64, 128,
-                "bfloat16", True))
+                "bfloat16", True),
+               # a (1, 2) mesh rank of the enc-dec: 8 of seamless's 16
+               # decoder heads in training (``llm_mesh_encdec``: W·B = 4 ×
+               # 1,024) and in the prefill (``serve_mesh_encdec``: 8 × 64)
+               ("[bf16 enc-dec model rank (4, 8, 1024, 64)]", 4, 8, 1024, 64,
+                "bfloat16", True),
+               ("[bf16 enc-dec model-rank prefill (8, 8, 64, 64)]", 8, 8, 64,
+                64, "bfloat16", True))
 #: which cores each dtype's B11 kernels run on (``flash_attention.cu``)
 FLASH_CORES = {"bfloat16": "tensor cores", "float32": "simt"}
 
@@ -6140,13 +6168,6 @@ def _moe_part_cfg(arch: str):
                                param_dtype="float32")
 
 
-def _moe_part_batch(torch, cfg):
-    from repro_torch.data.synthetic import token_dataset
-
-    return {"tokens": token_dataset(SEED + 5, SKETCH_CHECK_B, SKETCH_CHECK_S,
-                                    cfg.vocab_size, n_workers=LLM_WORKERS)}
-
-
 def _mesh_moe_reference(torch) -> dict:
     """The one-device rounds of ``llm_mesh_moe_check``, for each arch: the
     losses, the final Θ and every dispatch's picks and kept pairs (on the
@@ -6158,7 +6179,7 @@ def _mesh_moe_reference(torch) -> dict:
     out = {}
     for arch in MESH_MOE_ARCHS:
         cfg = _moe_part_cfg(arch)
-        batch = _moe_part_batch(torch, cfg)
+        batch = _check_batch(torch, cfg)
         init1, step1 = _mesh_part_trainer(torch, cfg, None)
         st = init1(SEED)
         losses = []
@@ -6246,7 +6267,7 @@ def _mesh_moe_check_rank(torch, mesh, ref: dict) -> dict:
     j = mesh.axis_index("model")
     for arch in MESH_MOE_ARCHS:
         cfg = _moe_part_cfg(arch)
-        batch = _moe_part_batch(torch, cfg)
+        batch = _check_batch(torch, cfg)
         init1, _ = _mesh_part_trainer(torch, cfg, None)
         st1 = init1(SEED)
         init_m, step_m = _mesh_part_trainer(torch, cfg, mesh)
@@ -6405,8 +6426,9 @@ def _mesh_rank_main(rank: int, store: str, out_dir: str,
     grids, ``llm_mesh_sketched``, ``llm_mesh_moe_check``, ``llm_mesh_moe``,
     ``llm_mesh_cohort_check``, ``serve_mesh``, ``serve_mesh_moe``,
     ``serve_mesh_moe_check``, ``llm_mesh_ssm_check``, ``llm_mesh_ssm``,
-    ``serve_mesh_ssm``, ``llm_mesh_hybrid_check``, ``llm_mesh_hybrid`` and
-    ``serve_mesh_hybrid`` against the parent's one-device ``refs``, and
+    ``serve_mesh_ssm``, ``llm_mesh_hybrid_check``, ``llm_mesh_hybrid``,
+    ``serve_mesh_hybrid``, ``llm_mesh_encdec_check``, ``llm_mesh_encdec``
+    and ``serve_mesh_encdec`` against the parent's one-device ``refs``, and
     writes its results (or its traceback) to ``out_dir`` after each."""
     import datetime
     import traceback
@@ -6552,9 +6574,10 @@ def phase_llm_mesh(torch):
     ``llm_mesh``, ``llm_mesh_sketched``, ``llm_mesh_cohort_check``,
     ``serve_mesh``, ``serve_mesh_moe``, ``serve_mesh_moe_check``,
     ``llm_mesh_ssm_check``, ``llm_mesh_ssm``, ``serve_mesh_ssm``,
-    ``llm_mesh_hybrid_check``, ``llm_mesh_hybrid`` and
-    ``serve_mesh_hybrid``: the replicated and the sketched mode, and
-    partitioned serving of the dense, moe, ssm and hybrid families, on
+    ``llm_mesh_hybrid_check``, ``llm_mesh_hybrid``,
+    ``serve_mesh_hybrid``, ``llm_mesh_encdec_check``, ``llm_mesh_encdec``
+    and ``serve_mesh_encdec``: the replicated and the sketched mode, and
+    partitioned serving of every family, on
     (data, model) grids of two ranks
     spawned on the one card,
     gloo between them (``launch.mesh``).  The
@@ -7234,9 +7257,11 @@ def _dropped(seen: list) -> float:
 def _serve_full_reference(torch, cfg, seed: int):
     """One device's full-width serving run the partitioned serving parts
     hold their ranks to: ``cfg`` in bf16 from ``model.init(seed)``, an
-    ``SERVE_MESH_B`` × ``SERVE_MESH_P`` prompt (``seed + 1``), the
-    prefill's last logits and ``SERVE_MESH_STEPS`` greedy steps' logits,
-    inputs and tokens, then the same weights in f32 fed the same tokens.
+    ``SERVE_MESH_B`` × ``SERVE_MESH_P`` prompt (``seed + 1``; the
+    enc-dec's stub frames from ``seed + 2``, its cross cache filled from
+    them), the prefill's last logits and ``SERVE_MESH_STEPS`` greedy
+    steps' logits, inputs and tokens, then the same weights in f32 fed the
+    same tokens.
     Returns (the data on the host, the prefill's ms, a step's ms, the bf16
     logits' distance from the f32 run)."""
     import dataclasses
@@ -7254,13 +7279,17 @@ def _serve_full_reference(torch, cfg, seed: int):
     prompts = torch.randint(0, model.cfg.vocab_size,
                             (SERVE_MESH_B, SERVE_MESH_P), device=dev,
                             generator=rng.generator(seed + 1, dev))
+    extra = _frontend(torch, model.cfg, (SERVE_MESH_B,),
+                      rng.generator(seed + 2, dev))
+    batch = {"tokens": prompts, **extra}
     prefill = make_prefill(model)
-    last = prefill(params, {"tokens": prompts})
-    prefill_ms = time_ms(lambda: prefill(params, {"tokens": prompts}),
+    last = prefill(params, batch)
+    prefill_ms = time_ms(lambda: prefill(params, batch),
                          runs=5, warmup=1, spin=False)
     store: list = []
     step = make_serve_step(_observed(model, store))
     cache = model.init_cache(SERVE_MESH_B, SERVE_MESH_P + SERVE_MESH_N)
+    _fill_cross(step, params, cache, extra)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks, cache = _greedy_run(step, params, cache, prompts, SERVE_MESH_N)
@@ -7273,19 +7302,22 @@ def _serve_full_reference(torch, cfg, seed: int):
     p32 = tree_map(lambda x: x.float(), params)
     del params, cache, store
     _free(torch)
-    last32 = make_prefill(m32)(p32, {"tokens": prompts})
+    last32 = make_prefill(m32)(p32, batch)
     store = []
     c32 = m32.init_cache(SERVE_MESH_B, SERVE_MESH_P + SERVE_MESH_N)
-    _greedy_run(make_serve_step(_observed(m32, store)), p32, c32, prompts,
-                SERVE_MESH_N, feed=feed)
+    step32 = make_serve_step(_observed(m32, store))
+    _fill_cross(step32, p32, c32, extra)
+    _greedy_run(step32, p32, c32, prompts, SERVE_MESH_N, feed=feed)
     truth = torch.stack(store)
     one_err = {"prefill": _err_stats(last, last32),
                "steps": [_err_stats(a, b) for a, b in zip(logits, truth)]}
     data = {"prompts": prompts.cpu(), "prefill": last.cpu(),
             "logits": logits.cpu(), "tokens": torch.stack(toks).cpu(),
             "feed": feed.cpu(), "prefill_f32": last32.cpu(),
-            "logits_f32": truth.cpu()}
-    del model, m32, p32, c32, prefill, step, store, logits, last, last32
+            "logits_f32": truth.cpu(),
+            **{k: v.cpu() for k, v in extra.items()}}
+    del model, m32, p32, c32, prefill, step, step32, store, logits, last
+    del last32, batch, extra
     del toks, truth
     _free(torch)
     return data, prefill_ms, step_ms, one_err
@@ -7679,8 +7711,8 @@ def _gate_serve_mesh_moe(res: list, ref: dict) -> dict:
 
 # ---------------------------------------------------------------------------
 # the SSM and hybrid families partitioned on the model axis by their
-# channels: llm_mesh_ssm_check, llm_mesh_ssm, serve_mesh_ssm and
-# llm_mesh_hybrid_check, llm_mesh_hybrid, serve_mesh_hybrid
+# channels, and the enc-dec by its heads: llm_mesh_<tag>_check,
+# llm_mesh_<tag> and serve_mesh_<tag> for ssm, hybrid and encdec
 # ---------------------------------------------------------------------------
 
 #: ``llm_mesh_ssm_check``: reduced falcon-mamba-7b (d_inner 256, x_proj 24
@@ -7713,8 +7745,10 @@ SSM_GATHERED = ["layers/dt_proj/b", "layers/dt_proj/w", "layers/x_proj/w"]
 #: lru_width/2 channels, no all-gather over ``model`` but of the one KV
 #: head's ``wk``/``wv``
 MESH_HYBRID_CHECK_LAYERS = 5
-#: the families of the channel parts, in the order the ranks run them
-CHANNEL_TAGS = ("ssm", "hybrid")
+#: the families of the channel parts, in the order the ranks run them (the
+#: enc-dec's parts, ``encdec``, split its heads as the others split their
+#: channels)
+CHANNEL_TAGS = ("ssm", "hybrid", "encdec")
 #: ``llm_mesh_hybrid``: recurrentgemma-2b at full width (d_model 2,560,
 #: lru_width 2,560, 10 heads, d_ff 7,680, vocabulary 256,000, bf16) cut 26
 #: -> 3 layers (one super-block, rec, rec, attn: the least depth that runs
@@ -7739,6 +7773,33 @@ SERVE_HYBRID_CHECK_P, SERVE_HYBRID_CHECK_N = 8, 60
 #: ``model`` (serving keeps their columns and gathers their projections)
 HYBRID_GATHERED = ["super/b2/temporal/attn/wk/w",
                    "super/b2/temporal/attn/wv/w"]
+#: ``llm_mesh_encdec``: seamless-m4t-medium at full width (d_model 1,024,
+#: 16 heads and 16 KV heads of 64, d_ff 4,096, vocabulary 256,206, bf16),
+#: depth cut 12 + 12 -> 4 + 4 layers, replicated on (1, 2) (each rank 8
+#: heads, 2,048 ff columns and half the vocabulary), ``llm_encdec``'s
+#: settings: W = 2, 2 × 1,024 tokens a worker over 2 × 1,024 stub frames,
+#: 2 sgd steps at ``LLM_LR``, ``MESH_RUN_ROUNDS`` rounds
+MESH_ENCDEC_LAYERS = 4
+#: ``serve_mesh_encdec``: seamless-m4t-medium in bf16 at full width and
+#: depth (12 + 12 layers), ``serve_mesh``'s 8 × 64 prefill over 1,024 stub
+#: frames a prompt, the cross cache from ``serve_step.prefill_cross`` of
+#: the same frames, 79 greedy steps fed one device's tokens; then reduced
+#: f32 seamless in both cache layouts: 4 KV heads (``"heads"``) and one KV
+#: head (the self cache on its slots and the cross cache on its 16 frames,
+#: ``"seq"``), a batch of ``SERVE_MESH_CHECK_B``, a prompt of 8 and 8 new
+#: tokens
+SERVE_ENCDEC_CHECKS = (("heads", {}, "heads"),
+                       ("seq", {"n_kv_heads": 1}, "seq"))
+SERVE_ENCDEC_CHECK_P, SERVE_ENCDEC_CHECK_N = 8, 8
+#: ``llm_mesh_encdec_check``: reduced seamless-m4t-medium (2 encoder and 2
+#: decoder layers, d_model 128, 4 heads and 4 KV heads of 32, d_ff 256,
+#: vocabulary 512, 16 stub frames) in f32 on (1, 2), with
+#: ``llm_mesh_ssm_check``'s trainer, rounds and bars: B11 on the rank's 2
+#: heads (W·B, 2, 16, 32), B6, B3 and B4 once a round a rank.  The leaves
+#: it, ``llm_mesh_encdec`` and the prefills still gather over ``model``
+#: (decode: the decoder's alone): ``fc_out``'s bias, which the layout
+#: splits on its layer dim (each rank adds it whole after the row sum)
+ENCDEC_GATHERED = ["dec_layers/mlp/fc_out/b", "enc_layers/mlp/fc_out/b"]
 
 
 class _SsmDigests(_LayerDigests):
@@ -7766,35 +7827,144 @@ class _HybridDigests(_SsmDigests):
     MODULE = "hybrid"
 
 
+class _EncdecDigests(_SsmDigests):
+    """:class:`_SsmDigests` of the enc-dec's attention blocks: the
+    encoder's (``_bidir_attention``), the decoder's cross-attention in
+    training and the prefill (``_cross_attention``) and in decode
+    (``_cross_decode``)."""
+
+    NAMES = ("_bidir_attention", "_cross_attention", "_cross_decode")
+    MODULE = "encdec"
+
+
+def _encdec_cfg(n_layers: int):
+    """seamless-m4t-medium at full width, ``n_layers`` encoder and
+    ``n_layers`` decoder layers."""
+    import dataclasses
+
+    return dataclasses.replace(_llm_cfg(ENCDEC_ARCH, n_layers),
+                               n_enc_layers=n_layers)
+
+
+@contextlib.contextmanager
+def _flash_shapes(shapes: list):
+    """Append ``[direction, *q.shape]`` of each B11 launch in the block
+    (``fwd``, ``dq``, ``dkv``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    saved = {d: getattr(fa, f"flash_attention_{d}")
+             for d in ("fwd", "dq", "dkv")}
+
+    def wrap(d, fn):
+        def call(q, *a, **kw):
+            shapes.append([d] + list(q.shape))
+            return fn(q, *a, **kw)
+        return call
+    for d, fn in saved.items():
+        setattr(fa, f"flash_attention_{d}", wrap(d, fn))
+    try:
+        yield shapes
+    finally:
+        for d, fn in saved.items():
+            setattr(fa, f"flash_attention_{d}", fn)
+
+
 def _channel_family(tag: str) -> dict:
-    """What the three parts of a family partitioned on its channels run
-    and gate: ``"ssm"`` (falcon-mamba-7b's inner channels) or ``"hybrid"``
-    (recurrentgemma-2b's RG-LRU channels)."""
+    """What the three parts of a family partitioned on the model axis run
+    and gate: ``"ssm"`` (falcon-mamba-7b's inner channels), ``"hybrid"``
+    (recurrentgemma-2b's RG-LRU channels) or ``"encdec"``
+    (seamless-m4t-medium's heads).  ``serve_checks``: (name, the reduced
+    f32 config, prompt, new tokens, the cache's layout) of each serving
+    check; ``run_batch``: a worker's (rows, tokens) in the run part."""
     import dataclasses
 
     if tag == "ssm":
+        check = _moe_part_cfg(SSM_ARCH)
         return {"tag": tag, "arch": SSM_ARCH, "flag": "inner",
-                "check_cfg": _moe_part_cfg(SSM_ARCH),
+                "unit": "channels", "check_cfg": check,
                 "check_reduced": "ModelConfig.reduced(): 2 layers, d_model "
                 "128, d_inner 256, ssm_state 8, dt_rank 8",
-                "run_layers": MESH_SSM_LAYERS,
-                "serve_layers": SERVE_SSM_LAYERS,
-                "serve_check": (SERVE_SSM_CHECK_P, SERVE_SSM_CHECK_N),
+                "run_cfg": _llm_cfg(SSM_ARCH, MESH_SSM_LAYERS),
+                "run_reduced": {"n_layers": f"64 -> {MESH_SSM_LAYERS}"},
+                "run_batch": (1, LLM_SEQ),
+                "serve_cfg": _llm_cfg(SSM_ARCH, SERVE_SSM_LAYERS),
+                "serve_checks": [(tag, check, SERVE_SSM_CHECK_P,
+                                  SERVE_SSM_CHECK_N, "inner")],
                 "gathered": SSM_GATHERED, "layout": "inner",
                 "proj_cols": ["dt_proj", "x_proj"], "run_mode": "replicated",
-                "digests": _SsmDigests}
-    return {"tag": tag, "arch": HYBRID_ARCH, "flag": "lru",
-            "check_cfg": dataclasses.replace(
-                _moe_part_cfg(HYBRID_ARCH),
-                n_layers=MESH_HYBRID_CHECK_LAYERS),
-            "check_reduced": "ModelConfig.reduced() at 5 layers (one "
-            "super-block and the tail): d_model 128, lru_width 128, 4 "
-            "heads, 1 KV head, window 64",
-            "run_layers": MESH_HYBRID_LAYERS,
-            "serve_layers": SERVE_HYBRID_LAYERS,
-            "serve_check": (SERVE_HYBRID_CHECK_P, SERVE_HYBRID_CHECK_N),
-            "gathered": HYBRID_GATHERED, "layout": "seq", "proj_cols": [],
-            "run_mode": "sketched", "digests": _HybridDigests}
+                "digests": _SsmDigests, "shapes": _scan_shapes}
+    if tag == "hybrid":
+        check = dataclasses.replace(_moe_part_cfg(HYBRID_ARCH),
+                                    n_layers=MESH_HYBRID_CHECK_LAYERS)
+        return {"tag": tag, "arch": HYBRID_ARCH, "flag": "lru",
+                "unit": "channels", "check_cfg": check,
+                "check_reduced": "ModelConfig.reduced() at 5 layers (one "
+                "super-block and the tail): d_model 128, lru_width 128, 4 "
+                "heads, 1 KV head, window 64",
+                "run_cfg": _llm_cfg(HYBRID_ARCH, MESH_HYBRID_LAYERS),
+                "run_reduced": {"n_layers": f"26 -> {MESH_HYBRID_LAYERS}"},
+                "run_batch": (1, LLM_SEQ),
+                "serve_cfg": _llm_cfg(HYBRID_ARCH, SERVE_HYBRID_LAYERS),
+                "serve_checks": [(tag, check, SERVE_HYBRID_CHECK_P,
+                                  SERVE_HYBRID_CHECK_N, "seq")],
+                "gathered": HYBRID_GATHERED, "layout": "seq",
+                "proj_cols": [], "run_mode": "sketched",
+                "digests": _HybridDigests, "shapes": _scan_shapes}
+    check = _moe_part_cfg(ENCDEC_ARCH)
+    return {"tag": tag, "arch": ENCDEC_ARCH, "flag": "heads",
+            "unit": "heads", "check_cfg": check,
+            "check_reduced": "ModelConfig.reduced(): 2 + 2 layers, d_model "
+            "128, 4 heads and 4 KV heads of 32, d_ff 256, vocabulary 512, "
+            "16 stub frames",
+            "run_cfg": _encdec_cfg(MESH_ENCDEC_LAYERS),
+            "run_reduced": {"n_enc_layers": f"12 -> {MESH_ENCDEC_LAYERS}",
+                            "n_layers": f"12 -> {MESH_ENCDEC_LAYERS}"},
+            "run_batch": (ENCDEC_BATCH, ENCDEC_SEQ),
+            "serve_cfg": _encdec_cfg(ENCDEC_LAYERS),
+            "serve_checks": [
+                (name, dataclasses.replace(check, **over),
+                 SERVE_ENCDEC_CHECK_P, SERVE_ENCDEC_CHECK_N, layout)
+                for name, over, layout in SERVE_ENCDEC_CHECKS],
+            "gathered": ENCDEC_GATHERED, "layout": "heads",
+            "proj_cols": [], "run_mode": "replicated",
+            "digests": _EncdecDigests, "shapes": _flash_shapes}
+
+
+def _channel_batch(torch, cfg, rows: int, seq: int, seed: int) -> dict:
+    """The workers' batch of a channel part: ``rows`` × ``seq`` tokens a
+    worker (``token_dataset`` from ``seed``) and, for the enc-dec, its stub
+    frames (W, rows, frontend_tokens, d_model) from ``seed + 1``."""
+    from repro_torch import rng
+    from repro_torch.data.synthetic import token_dataset
+
+    tokens = token_dataset(seed, rows, seq, cfg.vocab_size,
+                           n_workers=LLM_WORKERS)
+    return {"tokens": tokens, **_frontend(
+        torch, cfg, (LLM_WORKERS, rows),
+        rng.generator(seed + 1, tokens.device))}
+
+
+def _check_batch(torch, cfg) -> dict:
+    """A reduced f32 check's batch (the MoE and channel checks'): W = 2
+    workers' ``SKETCH_CHECK_B`` × ``SKETCH_CHECK_S`` tokens, and the
+    enc-dec's frames."""
+    return _channel_batch(torch, cfg, SKETCH_CHECK_B, SKETCH_CHECK_S,
+                          SEED + 5)
+
+
+def _kernel_shapes_want(cfg, n: int, rows: int, seq: int,
+                        train: bool = True) -> list:
+    """The distinct launch shapes of the family's kernel on a rank of a
+    (1, n) grid over ``rows`` × ``seq`` tokens: B12's (rows, seq, the
+    rank's scan width) forward and, in training, backward; B11's q (rows,
+    the rank's heads, seq, hd) forward and, in training, dq and dk/dv."""
+    if cfg.family == "audio":
+        q = [rows, cfg.n_heads // n, seq, cfg.hd]
+        dirs = ("dkv", "dq", "fwd") if train else ("fwd",)
+    else:
+        q = [rows, seq, _scan_width(cfg, n)]
+        dirs = ("bwd", "fwd") if train else ("fwd",)
+    return [[d] + q for d in dirs]
 
 
 def _rec_layers(cfg) -> tuple:
@@ -7810,7 +7980,10 @@ def _rec_layers(cfg) -> tuple:
 
 
 def _channels(cfg, n: int) -> int:
-    """A rank's channels of the family's split width on an axis of n."""
+    """A rank's channels of the family's split width on an axis of n (the
+    enc-dec's: its heads)."""
+    if cfg.family == "audio":
+        return cfg.n_heads // n
     return (cfg.d_inner if cfg.family == "ssm" else cfg.lru_width) // n
 
 
@@ -7825,30 +7998,62 @@ def _channel_round_launches(cfg, mode: str = "replicated") -> dict:
     """A round's launches (2 local steps, all workers at once; the
     sketched mode runs them a worker at a time): each recurrent layer's
     B12 forward once a step and once more where its checkpoint is
-    recomputed, its backward once; B6, B3 and B4 once; no B11."""
-    ckpt, plain = _rec_layers(cfg)
+    recomputed, its backward once; the enc-dec's B11 so in each decoder
+    layer's self-attention (forward, dq, dk/dv); B6, B3 and B4 once."""
     steps = 2 * (LLM_WORKERS if mode == "sketched" else 1)
+    if cfg.family == "audio":
+        n = steps * cfg.n_layers
+        return dict(MESH_ROUND_LAUNCHES, flash_attention_fwd=2 * n,
+                    flash_attention_dq=n, flash_attention_dkv=n,
+                    linear_scan_fwd=0)
+    ckpt, plain = _rec_layers(cfg)
     return dict(MESH_ROUND_LAUNCHES, flash_attention_fwd=0,
                 linear_scan_fwd=steps * (2 * ckpt + plain),
                 linear_scan_bwd=steps * (ckpt + plain))
 
 
-def _param_gathers(cfg, steps: int) -> tuple:
+def _prefill_launches(cfg) -> dict:
+    """A prefill's launches: B12 a recurrent layer; the enc-dec's B11 a
+    decoder layer."""
+    if cfg.family == "audio":
+        return {"flash_attention_fwd": cfg.n_layers}
+    return {"linear_scan_fwd": sum(_rec_layers(cfg))}
+
+
+def _param_gathers(cfg, steps: int, n: int = MESH_RANKS) -> tuple:
     """The all-gathers over ``model`` of (a prefill, ``steps`` decode
-    steps) on (1, 2): the SSM's prefill gathers ``x_proj`` and ``dt_proj``
+    steps) on (1, n): the SSM's prefill gathers ``x_proj`` and ``dt_proj``
     (each layer's) and ``dt_proj``'s bias (once), its decode the bias
     alone once a step; the hybrid's gather none (its heads split, the one
-    KV head's projections gathered instead)."""
+    KV head's projections gathered instead); the enc-dec's prefill each
+    stack's ``fc_out`` bias where the layout splits it on its layer dim,
+    its decode the decoder's once a step (and, in ``prefill_cross``, the
+    prefill's)."""
     if cfg.family == "ssm":
         return 2 * cfg.n_layers + 1, steps
+    if cfg.family == "audio":
+        dec = int(cfg.n_layers % n == 0)
+        return int(cfg.n_enc_layers % n == 0) + dec, dec * steps
     return 0, 0
 
 
-def _cache_blocks_want(cfg, B: int, n: int) -> dict:
+def _cache_blocks_want(cfg, B: int, n: int, T: int = 0,
+                       layout: str = "") -> dict:
     """Each cache leaf's block on a rank of a (1, n) grid, by path: the
     SSM's ``ssm`` and ``conv`` on its channels; the hybrid's ``lru`` and
     ``conv`` on its channels, its attention's ``k``/``v`` on the window's
-    slots."""
+    slots; the enc-dec's self (``T`` slots) and cross (its frames) caches
+    on their KV heads (``layout`` ``"heads"``), else on their sequences."""
+    if cfg.family == "audio":
+        F, KV, L = cfg.frontend_tokens, cfg.n_kv_heads, cfg.n_layers
+        if layout == "heads":
+            self_, cross = [L, B, T, KV // n, cfg.hd], [L, B, F, KV // n,
+                                                        cfg.hd]
+        else:
+            self_, cross = [L, B, T // n, KV, cfg.hd], [L, B, F // n, KV,
+                                                        cfg.hd]
+        return {"cross_k": cross, "cross_v": cross, "self_k": self_,
+                "self_v": self_}
     K1, c = cfg.conv1d_width - 1, _channels(cfg, n)
     if cfg.family == "ssm":
         L = cfg.n_layers
@@ -7907,7 +8112,7 @@ def _free_running_reference(torch, cfg, rounds: int) -> dict:
     not gated)."""
     from repro_torch import rng
 
-    batch = _moe_part_batch(torch, cfg)
+    batch = _check_batch(torch, cfg)
     init1, step1 = _mesh_part_trainer(torch, cfg, None)
     st = init1(SEED)
     losses = []
@@ -7967,7 +8172,7 @@ def _mesh_channels_check_rank(torch, mesh, ref: dict, fam: dict) -> dict:
     j = mesh.axis_index("model")
     cfg = fam["check_cfg"]
     rounds = MESH_SSM_CHECK_ROUNDS
-    batch = _moe_part_batch(torch, cfg)
+    batch = _check_batch(torch, cfg)
     init1, step1 = _mesh_part_trainer(torch, cfg, None)
     st1 = init1(SEED)
     init_m, step_m = _mesh_part_trainer(torch, cfg, mesh)
@@ -7983,7 +8188,7 @@ def _mesh_channels_check_rank(torch, mesh, ref: dict, fam: dict) -> dict:
         key = rng.fold_in(SEED, r + 1)
         stm = _rank_state(torch, st1, stm, sspec, j)
         build.reset_launches()
-        with _scan_shapes(shapes), dig:
+        with fam["shapes"](shapes), dig:
             stm, m = step_m(stm, batch, key=key)
         launches = _summed([launches, dict(build.launches)])
         st1, m1 = step1(st1, batch, key=key)
@@ -8009,7 +8214,7 @@ def _mesh_channels_check_rank(torch, mesh, ref: dict, fam: dict) -> dict:
                             "loss_rel_gap": [abs(a - b) / abs(b) for a, b
                                              in zip(free_losses,
                                                     ref["losses"])]},
-           "scan_shapes": _distinct(shapes), "launches": launches,
+           "kernel_shapes": _distinct(shapes), "launches": launches,
            "model_all_gathers": n_gathers,
            "model_all_gathers_want": want, "gathered_leaves": still,
            "collectives": collectives,
@@ -8021,17 +8226,18 @@ def _mesh_channels_check_rank(torch, mesh, ref: dict, fam: dict) -> dict:
 
 
 def _mesh_channels_rank(torch, mesh, fam: dict) -> dict:
-    """``llm_mesh_ssm`` or ``llm_mesh_hybrid`` on one rank: the family at
-    full width cut to its depth on ``mesh`` (replicated, or sketched where
-    ``fam["run_mode"]`` says), the collectives timed, B12's shapes and each
-    layer's output digests recorded."""
+    """``llm_mesh_ssm``, ``llm_mesh_hybrid`` or ``llm_mesh_encdec`` on one
+    rank: the family at full width cut to its depth on ``mesh``
+    (replicated, or sketched where ``fam["run_mode"]`` says), the
+    collectives timed, the kernel's shapes and each layer's output
+    digests recorded."""
     from repro_torch import rng
     from repro_torch.kernels import build
     from repro_torch.launch.trace_analysis import mesh_collectives
     from repro_torch.models.partition import partition_for
     from repro_torch.tree import tree_leaves
 
-    cfg = _llm_cfg(fam["arch"], fam["run_layers"])
+    cfg = fam["run_cfg"]
     sketched = fam["run_mode"] == "sketched"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -8041,7 +8247,7 @@ def _mesh_channels_rank(torch, mesh, fam: dict) -> dict:
     else:
         init_fn, step, _, _ = _mesh_trainer(torch, cfg, mesh, noisy=True)
     state = init_fn(SEED)
-    batch = _mesh_batch(torch, cfg)
+    batch = _channel_batch(torch, cfg, *fam["run_batch"], SEED + 1)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     setup_peak = torch.cuda.max_memory_allocated()
@@ -8057,7 +8263,7 @@ def _mesh_channels_rank(torch, mesh, fam: dict) -> dict:
     mesh.reset_stats()
     mesh.timing = True
     losses, times, shapes = [], [], []
-    with _scan_shapes(shapes), fam["digests"](torch) as dig:
+    with fam["shapes"](shapes), fam["digests"](torch) as dig:
         for r in range(MESH_RUN_ROUNDS):
             held = [state]
             state = None
@@ -8075,7 +8281,8 @@ def _mesh_channels_rank(torch, mesh, fam: dict) -> dict:
     out = {"losses": losses, "round_s": times, "setup_s": setup_s,
            "setup_peak": setup_peak,
            "peak": torch.cuda.max_memory_allocated(), "finite": finite,
-           "launches": dict(build.launches), "scan_shapes": _distinct(shapes),
+           "launches": dict(build.launches),
+           "kernel_shapes": _distinct(shapes),
            "collectives": _mesh_stats(mesh, MESH_RUN_ROUNDS),
            "counts": mesh_collectives(mesh.stats),
            "model_all_gathers": gathers.get("model", 0),
@@ -8088,14 +8295,24 @@ def _mesh_channels_rank(torch, mesh, fam: dict) -> dict:
     return out
 
 
+def _fill_cross(step, params, cache, inputs: dict) -> None:
+    """The enc-dec's cross cache filled in place from its batch's frames
+    (``serve_step.prefill_cross``: the rank's block under a mesh); nothing
+    for another family."""
+    if "frames" in inputs:
+        ck, cv = step.prefill_cross(params, inputs["frames"])
+        cache["cross_k"].copy_(ck)
+        cache["cross_v"].copy_(cv)
+
+
 def _serve_mesh_channels_reference(torch, ref_dir: str, fam: dict) -> dict:
-    """One device's runs ``serve_mesh_ssm`` or ``serve_mesh_hybrid`` holds
-    the ranks to, saved to ``ref_dir``: the family in bf16 at its serving
-    depth: the prefill's last logits, every step's logits, the inputs and
-    greedy tokens, and the same weights in f32 fed the same tokens; the
-    reduced f32 check's prefill, step logits, tokens and final cache.
-    Returns the file's path, the one-device times and its bf16 logits'
-    distance from the f32 run."""
+    """One device's runs ``serve_mesh_<tag>`` holds the ranks to, saved to
+    ``ref_dir``: the family in bf16 at its serving depth: the prefill's
+    last logits, every step's logits, the inputs and greedy tokens, and
+    the same weights in f32 fed the same tokens; each reduced f32 check's
+    prefill, step logits, tokens and final cache (the enc-dec's cross
+    cache filled from its frames first).  Returns the file's path, the
+    one-device times and its bf16 logits' distance from the f32 run."""
     from repro_torch import rng
     from repro_torch.device import resolve_device
     from repro_torch.models import build_model
@@ -8105,23 +8322,31 @@ def _serve_mesh_channels_reference(torch, ref_dir: str, fam: dict) -> dict:
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
     data, prefill_ms, step_ms, one_err = _serve_full_reference(
-        torch, _llm_cfg(fam["arch"], fam["serve_layers"]), SEED + 40)
+        torch, fam["serve_cfg"], SEED + 40)
     t_check = time.perf_counter()
-    P, N = fam["serve_check"]
-    m = build_model(fam["check_cfg"])
-    p = m.init(SEED + 42)
-    pr = torch.randint(0, m.cfg.vocab_size, (SERVE_MESH_CHECK_B, P),
-                       device=dev, generator=rng.generator(SEED + 43, dev))
-    st: list = []
-    last = make_prefill(m)(p, {"tokens": pr})
-    c = m.init_cache(SERVE_MESH_CHECK_B, P + N)
-    tk, c = _greedy_run(make_serve_step(_observed(m, st)), p, c, pr, N)
-    data["check"] = {"prompts": pr.cpu(), "prefill": last.cpu(),
-                     "logits": torch.stack(st).cpu(),
-                     "tokens": torch.stack(tk).cpu(),
-                     "cache": tree_map(lambda x: x.cpu(), c)}
-    del m, p, c, st, last, tk
-    _free(torch)
+    data["check"] = {}
+    for name, cfg_c, P, N, _ in fam["serve_checks"]:
+        m = build_model(cfg_c)
+        p = m.init(SEED + 42)
+        pr = torch.randint(0, m.cfg.vocab_size, (SERVE_MESH_CHECK_B, P),
+                           device=dev,
+                           generator=rng.generator(SEED + 43, dev))
+        extra = _frontend(torch, m.cfg, (SERVE_MESH_CHECK_B,),
+                          rng.generator(SEED + 44, dev))
+        st: list = []
+        last = make_prefill(m)(p, {"tokens": pr, **extra})
+        c = m.init_cache(SERVE_MESH_CHECK_B, P + N)
+        step = make_serve_step(_observed(m, st))
+        _fill_cross(step, p, c, extra)
+        tk, c = _greedy_run(step, p, c, pr, N)
+        data["check"][name] = {
+            "prompts": pr.cpu(), "prefill": last.cpu(),
+            "logits": torch.stack(st).cpu(),
+            "tokens": torch.stack(tk).cpu(),
+            "cache": tree_map(lambda x: x.cpu(), c),
+            **{k: v.cpu() for k, v in extra.items()}}
+        del m, p, c, st, last, tk, step
+        _free(torch)
     path = os.path.join(ref_dir, f"serve_mesh_{fam['tag']}_reference.pt")
     torch.save(data, path)
     return {"path": path, "prefill_ms": prefill_ms, "step_ms": step_ms,
@@ -8131,11 +8356,12 @@ def _serve_mesh_channels_reference(torch, ref_dir: str, fam: dict) -> dict:
 
 
 def _serve_mesh_channels_full(torch, mesh, data: dict, fam: dict) -> dict:
-    """``serve_mesh_ssm`` or ``serve_mesh_hybrid`` on one rank: the family
-    at full width cut to its serving depth on ``mesh``, its prefill and its
-    teacher-forced greedy steps against one device's (and the f32 run's),
-    timed, with the mesh's collectives, B12's launches and shapes, each
-    layer's output digests and the rank's peaks."""
+    """``serve_mesh_<tag>`` on one rank: the family at full width cut to
+    its serving depth on ``mesh``, its prefill (and the enc-dec's cross
+    cache from its frames) and its teacher-forced greedy steps against one
+    device's (and the f32 run's), timed, with the mesh's collectives, the
+    kernel's launches and shapes, each layer's output digests and the
+    rank's peaks."""
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
     from repro_torch.models import build_model
@@ -8144,7 +8370,7 @@ def _serve_mesh_channels_full(torch, mesh, data: dict, fam: dict) -> dict:
 
     dev = resolve_device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    model = build_model(_llm_cfg(fam["arch"], fam["serve_layers"]))
+    model = build_model(fam["serve_cfg"])
     t0 = time.perf_counter()
     full = model.init(SEED + 40)
     prompts = data["prompts"].to(dev)
@@ -8162,12 +8388,13 @@ def _serve_mesh_channels_full(torch, mesh, data: dict, fam: dict) -> dict:
     setup_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
-    batch = {"tokens": prompts}
+    batch = {"tokens": prompts, **{k: data[k].to(dev) for k in ("frames",)
+                                   if k in data}}
     pre_shapes: list = []
     build.reset_launches()
     mesh.reset_stats()
     mesh.timing = True
-    with _scan_shapes(pre_shapes), fam["digests"](torch) as dig_pre:
+    with fam["shapes"](pre_shapes), fam["digests"](torch) as dig_pre:
         last = prefill(params, batch)
     torch.cuda.synchronize()
     mesh.timing = False
@@ -8182,6 +8409,10 @@ def _serve_mesh_channels_full(torch, mesh, data: dict, fam: dict) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
 
+    mesh.reset_stats()
+    _fill_cross(step, params, cache, batch)
+    torch.cuda.synchronize()
+    cross_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
     feed = data["feed"].to(dev)
     step_s = []
 
@@ -8194,7 +8425,7 @@ def _serve_mesh_channels_full(torch, mesh, data: dict, fam: dict) -> dict:
     mesh.timing = True
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    with _scan_shapes(dec_shapes), fam["digests"](torch) as dig_dec:
+    with fam["shapes"](dec_shapes), fam["digests"](torch) as dig_dec:
         toks, cache = _greedy_run(step, params, cache, prompts,
                                   SERVE_MESH_N, feed=feed, every=tick)
     mesh.timing = False
@@ -8226,8 +8457,9 @@ def _serve_mesh_channels_full(torch, mesh, data: dict, fam: dict) -> dict:
            "tokens_equal_one_device": float(
                (tokens == data["tokens"]).float().mean()),
            "prefill_launches": pre_launches, "decode_launches": dec_launches,
-           "prefill_scan_shapes": _distinct(pre_shapes),
-           "decode_scan_shapes": _distinct(dec_shapes),
+           "prefill_kernel_shapes": _distinct(pre_shapes),
+           "decode_kernel_shapes": _distinct(dec_shapes),
+           "cross_calls": cross_calls,
            "prefill_collectives": pre_stats, "prefill_calls": pre_calls,
            "decode_collectives": dec_stats, "decode_calls": dec_calls,
            "prefill_ms": times, "decode_wall_ms": walls,
@@ -8245,10 +8477,12 @@ def _serve_mesh_channels_full(torch, mesh, data: dict, fam: dict) -> dict:
 
 
 def _serve_mesh_channels_check(torch, mesh, data: dict, fam: dict) -> dict:
-    """Serving's reduced f32 check on one rank: the family served greedily
-    on ``mesh`` against one device's run on the card: the prefill's and
-    every step's logits (the rank's vocab columns), the tokens, and each
-    cache leaf of the rank against its block of one device's."""
+    """Serving's reduced f32 checks on one rank, by name: the family
+    served greedily on ``mesh`` (the enc-dec's cross cache filled from its
+    frames, ``serve_step.prefill_cross``) against one device's run on the
+    card: the prefill's and every step's logits (the rank's vocab
+    columns), the tokens, and each cache leaf of the rank against its
+    block of one device's."""
     from repro_torch.device import resolve_device
     from repro_torch.launch.shardings import shard_leaf
     from repro_torch.models import build_model
@@ -8256,42 +8490,50 @@ def _serve_mesh_channels_check(torch, mesh, data: dict, fam: dict) -> dict:
     from repro_torch.tree import tree_leaves, tree_paths
 
     dev = resolve_device("cuda")
-    m = build_model(fam["check_cfg"])
-    full = m.init(SEED + 42)
-    prompts = data["prompts"].to(dev)
-    P, N = fam["serve_check"]
-    store: list = []
-    prefill = make_prefill(m, mesh)
-    step = make_serve_step(_observed(m, store), mesh)
-    params = step.shard(full)
-    cache = step.init_cache(SERVE_MESH_CHECK_B, P + N)
-    mesh.reset_stats()
-    last = prefill(prefill.shard(full), {"tokens": prompts})
-    pre_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
-    mesh.reset_stats()
-    toks, cache = _greedy_run(step, params, cache, prompts, N)
-    calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
 
     def scaled(a, b):
         b = b.to(dev).float()
         return float((a.float() - b).abs().max() / b.abs().max())
-    j = mesh.axis_index("model")
-    vl = store[0].shape[-1]
-    out = {"layout": step.layout["cache"],
-           "cache_blocks": _leaf_shapes(cache),
-           "prefill_rel_err": scaled(last, data["prefill"]),
-           "step_rel_err": max(scaled(x, y[:, j * vl:(j + 1) * vl])
-                               for x, y in zip(store, data["logits"])),
-           "cache_rel_err": {
-               "/".join(p): scaled(c, shard_leaf(w, sp, mesh))
-               for (p, c), w, sp in zip(
-                   tree_paths(cache), tree_leaves(data["cache"]),
-                   tree_leaves(step.layout["cache_specs"]))},
-           "tokens_equal": bool(torch.equal(torch.stack(toks).cpu(),
-                                            data["tokens"])),
-           "tokens_sha1": _sha1(torch, torch.stack(toks)),
-           "prefill_calls": pre_calls, "decode_calls": calls}
-    del m, full, params, cache, store, last
+    out = {}
+    for name, cfg_c, P, N, _ in fam["serve_checks"]:
+        ref = data[name]
+        m = build_model(cfg_c)
+        full = m.init(SEED + 42)
+        prompts = ref["prompts"].to(dev)
+        extra = {k: ref[k].to(dev) for k in ("frames",) if k in ref}
+        store: list = []
+        prefill = make_prefill(m, mesh)
+        step = make_serve_step(_observed(m, store), mesh)
+        params = step.shard(full)
+        cache = step.init_cache(SERVE_MESH_CHECK_B, P + N)
+        mesh.reset_stats()
+        last = prefill(prefill.shard(full), {"tokens": prompts, **extra})
+        pre_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+        mesh.reset_stats()
+        _fill_cross(step, params, cache, extra)
+        cross_calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+        mesh.reset_stats()
+        toks, cache = _greedy_run(step, params, cache, prompts, N)
+        calls = {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+        j = mesh.axis_index("model")
+        vl = store[0].shape[-1]
+        out[name] = {
+            "layout": step.layout["cache"],
+            "cache_blocks": _leaf_shapes(cache),
+            "prefill_rel_err": scaled(last, ref["prefill"]),
+            "step_rel_err": max(scaled(x, y[:, j * vl:(j + 1) * vl])
+                                for x, y in zip(store, ref["logits"])),
+            "cache_rel_err": {
+                "/".join(p): scaled(c, shard_leaf(w, sp, mesh))
+                for (p, c), w, sp in zip(
+                    tree_paths(cache), tree_leaves(ref["cache"]),
+                    tree_leaves(step.layout["cache_specs"]))},
+            "tokens_equal": bool(torch.equal(torch.stack(toks).cpu(),
+                                             ref["tokens"])),
+            "tokens_sha1": _sha1(torch, torch.stack(toks)),
+            "prefill_calls": pre_calls, "cross_calls": cross_calls,
+            "decode_calls": calls}
+        del m, full, params, cache, store, last
     return out
 
 
@@ -8331,9 +8573,10 @@ def _unequal_ranks(phase: str, per: list, keys: tuple) -> None:
 
 def _gate_mesh_channels(res: list, refs: dict, fam: dict) -> dict:
     """Phases ``llm_mesh_<tag>_check``, ``llm_mesh_<tag>`` and
-    ``serve_mesh_<tag>`` of a family partitioned on its channels: their
-    gates on the ranks' results and their lines; returns each phase's
-    launches, summed over the ranks."""
+    ``serve_mesh_<tag>`` of a family partitioned on the model axis (its
+    channels, or the enc-dec's heads): their gates on the ranks' results
+    and their lines; returns each phase's launches, summed over the
+    ranks."""
     from repro_torch.models import get_config
 
     tag, flag, arch = fam["tag"], fam["flag"], fam["arch"]
@@ -8345,21 +8588,21 @@ def _gate_mesh_channels(res: list, refs: dict, fam: dict) -> dict:
             + _rank_failures(res, key))
     sc = [r[key] for r in res]
     cfg = fam["check_cfg"]
-    rows = LLM_WORKERS * SKETCH_CHECK_B
-    plane = [rows, SKETCH_CHECK_S, _scan_width(cfg, n)]
+    want_shapes = _kernel_shapes_want(cfg, n, LLM_WORKERS * SKETCH_CHECK_B,
+                                      SKETCH_CHECK_S)
     _unequal_ranks(p_check, sc, ("losses",))
     for r, c in enumerate(sc):
         t = f"{p_check} rank {r}"
-        require(c[flag], f"{t}: the plan does not split the channels")
+        require(c[flag], f"{t}: the plan does not split the {fam['unit']}")
         require(c["loss_rel_err"] <= MESH_PART_LOSS_RTOL, f"{t}: the losses "
                 f"{c['losses']} differ from one device's "
                 f"{c['losses_one_device']} beyond rtol {MESH_PART_LOSS_RTOL}")
         require(c["Theta_over_atol"] <= 1.0, f"{t}: Θ differs from one "
                 f"device's block by {c['Theta_max_abs']}, beyond atol "
                 f"{MESH_PART_THETA_ATOL}")
-        require(c["scan_shapes"] == [["bwd"] + plane, ["fwd"] + plane],
-                f"{t}: B12 ran on {c['scan_shapes']}, not the rank's "
-                f"channels {plane}")
+        require(c["kernel_shapes"] == want_shapes, f"{t}: the kernel ran "
+                f"on {c['kernel_shapes']}, not the rank's {fam['unit']} "
+                f"{want_shapes}")
         _per_round(dict(c["launches"]), MESH_SSM_CHECK_ROUNDS,
                    _channel_round_launches(cfg))
         require(c["gathered_leaves"] == fam["gathered"] and
@@ -8384,14 +8627,16 @@ def _gate_mesh_channels(res: list, refs: dict, fam: dict) -> dict:
             + _rank_failures(res, tag))
     sr = [r[tag] for r in res]
     full = get_config(arch)
-    cfg_run = _llm_cfg(arch, fam["run_layers"])
+    cfg_run = fam["run_cfg"]
     mode = fam["run_mode"]
-    rows = 1 if mode == "sketched" else LLM_WORKERS
-    plane = [rows, LLM_SEQ, _scan_width(full, n)]
+    b_run, s_run = fam["run_batch"]
+    rows = (1 if mode == "sketched" else LLM_WORKERS) * b_run
+    want_shapes = _kernel_shapes_want(cfg_run, n, rows, s_run)
     _unequal_ranks(p_run, sr, ("losses",))
     for r, run in enumerate(sr):
         t = f"{p_run} rank {r}"
-        require(run[flag], f"{t}: the plan does not split the channels")
+        require(run[flag], f"{t}: the plan does not split the "
+                f"{fam['unit']}")
         require(tuple(run["round_block"]) in _mesh_round_shapes(),
                 f"{t}: the round's block {run['round_block']} (λ, h) is "
                 f"not one of the kernel rows' shapes")
@@ -8402,9 +8647,9 @@ def _gate_mesh_channels(res: list, refs: dict, fam: dict) -> dict:
         require(max(run["peak"], run["setup_peak"]) <= MESH_PEAK,
                 f"{t}: peak {run['peak'] / 1e9} GB (set-up "
                 f"{run['setup_peak'] / 1e9} GB) above {MESH_PEAK / 1e9} GB")
-        require(run["scan_shapes"] == [["bwd"] + plane, ["fwd"] + plane],
-                f"{t}: B12 ran on {run['scan_shapes']}, not the rank's "
-                f"channels {plane}")
+        require(run["kernel_shapes"] == want_shapes, f"{t}: the kernel ran "
+                f"on {run['kernel_shapes']}, not the rank's {fam['unit']} "
+                f"{want_shapes}")
         _per_round(dict(run["launches"]), MESH_RUN_ROUNDS,
                    _channel_round_launches(cfg_run, mode))
         require(run["gathered_leaves"] == fam["gathered"] and
@@ -8415,23 +8660,24 @@ def _gate_mesh_channels(res: list, refs: dict, fam: dict) -> dict:
     s_round = statistics.mean(max(sr[r]["round_s"][i] for r in range(n))
                               for i in range(1, MESH_RUN_ROUNDS))
     emit({"phase": p_run, "ok": True, "arch": arch,
-          "reduced": {"n_layers": f"{full.n_layers} -> "
-                      f"{fam['run_layers']}"},
+          "reduced": fam["run_reduced"],
           "grid": {"data": 1, "model": 2}, "ranks": n,
-          "backend": res[0]["backend"], "W": LLM_WORKERS, "seq": LLM_SEQ,
+          "backend": res[0]["backend"], "W": LLM_WORKERS,
+          "batch_per_worker": b_run, "seq": s_run,
           "local_steps": 2, "local_lr": LLM_LR, "rounds": MESH_RUN_ROUNDS,
           "mode": mode, **({"sketch_ratio": SKETCH_RATIO}
                            if mode == "sketched" else {}),
-          "channels_a_rank": _channels(full, n), "d_local": sr[0]["d_local"],
+          f"{fam['unit']}_a_rank": _channels(full, n),
+          "d_local": sr[0]["d_local"],
           "round_block": sr[0]["round_block"],
           "loss": sr[0]["losses"], "ranks_bits_equal": True,
           "round_s": [run["round_s"] for run in sr],
           "seconds_per_round": s_round,
-          "tokens_per_s": LLM_WORKERS * LLM_SEQ * 2 / s_round,
+          "tokens_per_s": LLM_WORKERS * b_run * s_run * 2 / s_round,
           "setup_s": [run["setup_s"] for run in sr],
           "peak_mem_gb": [run["peak"] / 1e9 for run in sr],
           "setup_peak_mem_gb": [run["setup_peak"] / 1e9 for run in sr],
-          "scan_shapes": sr[0]["scan_shapes"],
+          "kernel_shapes": sr[0]["kernel_shapes"],
           "collectives": [run["collectives"] for run in sr],
           "model_all_gathers": [run["model_all_gathers"] for run in sr],
           "gathered_leaves": sr[0]["gathered_leaves"],
@@ -8449,32 +8695,39 @@ def _gate_mesh_channels(res: list, refs: dict, fam: dict) -> dict:
            "steps": (_rms([e for f in fs for e in f["step_vs_f32"]]),
                      _rms(one32["steps"]))}
     ratio = {k: a / b for k, (a, b) in rms.items()}
-    cfg8 = _llm_cfg(arch, fam["serve_layers"])
-    n_rec = sum(_rec_layers(cfg8))
+    cfg8 = fam["serve_cfg"]
     c = _channels(cfg8, n)
+    T = SERVE_MESH_P + SERVE_MESH_N
     pre_gathers, step_gathers = _param_gathers(cfg8, SERVE_MESH_STEPS)
     _unequal_ranks(p_serve, fs, ("tokens_sha1", "prefill_sha1",
                                  "step_logits_sha1"))
     for r, f in enumerate(fs):
         t = f"{p_serve} rank {r}"
-        require(f["cache_layout"] == fam["layout"] and f["cache_blocks"]
-                == _cache_blocks_want(cfg8, SERVE_MESH_B, n),
+        blocks = _cache_blocks_want(cfg8, SERVE_MESH_B, n, T, fam["layout"])
+        require(f["cache_layout"] == fam["layout"]
+                and f["cache_blocks"] == blocks,
                 f"{t}: the cache's layout {f['cache_layout']!r}, blocks "
                 f"{f['cache_blocks']}")
         require(sorted(f["proj_cols"]) == fam["proj_cols"], f"{t}: decode "
                 f"keeps the rank's block of {f['proj_cols']}")
-        require(f["prefill_launches"] == {"linear_scan_fwd": n_rec}
+        require(f["prefill_launches"] == _prefill_launches(cfg8)
                 and not f["decode_launches"], f"{t}: prefill launched "
                 f"{f['prefill_launches']}, decode {f['decode_launches']}")
-        want = [["fwd", SERVE_MESH_B, SERVE_MESH_P, _scan_width(cfg8, n)]]
-        require(f["prefill_scan_shapes"] == want
-                and not f["decode_scan_shapes"], f"{t}: B12 ran on "
-                f"{f['prefill_scan_shapes']}, not the rank's channels {want}")
+        want = _kernel_shapes_want(cfg8, n, SERVE_MESH_B, SERVE_MESH_P,
+                                   train=False)
+        require(f["prefill_kernel_shapes"] == want
+                and not f["decode_kernel_shapes"], f"{t}: the kernel ran on "
+                f"{f['prefill_kernel_shapes']}, not the rank's "
+                f"{fam['unit']} {want}")
         got = [x.get("all_gather", {}).get("model", 0)
                for x in (f["prefill_calls"], f["decode_calls"])]
         require(got == [pre_gathers, step_gathers], f"{t}: parameter "
                 f"all-gathers over model in the prefill and decode {got}, "
                 f"want {[pre_gathers, step_gathers]}")
+        if cfg8.family == "audio":
+            got = f["cross_calls"].get("all_gather", {}).get("model", 0)
+            require(got == pre_gathers, f"{t}: prefill_cross all-gathered "
+                    f"{got} parameters over model, want {pre_gathers}")
         require(max(f["peak"], f["setup_peak"]) <= MESH_PEAK, f"{t}: peak "
                 f"{f['peak'] / 1e9} GB, set-up {f['setup_peak'] / 1e9} GB, "
                 f"above {MESH_PEAK / 1e9} GB")
@@ -8483,41 +8736,44 @@ def _gate_mesh_channels(res: list, refs: dict, fam: dict) -> dict:
             f"than one device's bf16 logits are, beyond "
             f"{SERVE_MESH_F32_RATIO}× in RMS: {rms}")
     checks = [r[p_serve]["check"] for r in res]
-    P, N = fam["serve_check"]
-    cfg_c = fam["check_cfg"]
-    pre_c, step_c = _param_gathers(cfg_c, P - 1 + N)
-    for r, ck in enumerate(checks):
-        t = f"{p_serve} check rank {r}"
-        require(ck["layout"] == fam["layout"] and ck["cache_blocks"]
-                == _cache_blocks_want(cfg_c, SERVE_MESH_CHECK_B, n),
-                f"{t}: layout {ck['layout']!r}, blocks {ck['cache_blocks']}")
-        require(max(ck["prefill_rel_err"], ck["step_rel_err"],
-                    *ck["cache_rel_err"].values()) <= SERVE_MESH_CHECK_RTOL,
-                f"{t}: logits {ck['prefill_rel_err']} / "
-                f"{ck['step_rel_err']}, cache {ck['cache_rel_err']} from one "
-                f"device's, beyond {SERVE_MESH_CHECK_RTOL} of their largest")
-        require(ck["tokens_equal"] and ck["tokens_sha1"]
-                == checks[0]["tokens_sha1"], f"{t}: the tokens are not one "
-                f"device's, or not rank 0's")
-        got = [x.get("all_gather", {}).get("model", 0)
-               for x in (ck["prefill_calls"], ck["decode_calls"])]
-        require(got == [pre_c, step_c], f"{t}: parameter all-gathers over "
-                f"model in the prefill and decode {got}, want "
-                f"{[pre_c, step_c]}")
+    for name, cfg_c, P, N, layout in fam["serve_checks"]:
+        pre_c, step_c = _param_gathers(cfg_c, P - 1 + N)
+        for r, ck in enumerate(ch[name] for ch in checks):
+            t = f"{p_serve} check {name} rank {r}"
+            require(ck["layout"] == layout and ck["cache_blocks"]
+                    == _cache_blocks_want(cfg_c, SERVE_MESH_CHECK_B, n,
+                                          P + N, layout),
+                    f"{t}: layout {ck['layout']!r}, blocks "
+                    f"{ck['cache_blocks']}")
+            require(max(ck["prefill_rel_err"], ck["step_rel_err"],
+                        *ck["cache_rel_err"].values())
+                    <= SERVE_MESH_CHECK_RTOL, f"{t}: logits "
+                    f"{ck['prefill_rel_err']} / {ck['step_rel_err']}, cache "
+                    f"{ck['cache_rel_err']} from one device's, beyond "
+                    f"{SERVE_MESH_CHECK_RTOL} of their largest")
+            require(ck["tokens_equal"] and ck["tokens_sha1"]
+                    == checks[0][name]["tokens_sha1"], f"{t}: the tokens "
+                    f"are not one device's, or not rank 0's")
+            got = [x.get("all_gather", {}).get("model", 0)
+                   for x in (ck["prefill_calls"], ck["decode_calls"])]
+            require(got == [pre_c, step_c], f"{t}: parameter all-gathers "
+                    f"over model in the prefill and decode {got}, want "
+                    f"{[pre_c, step_c]}")
     walls = [statistics.median(f["decode_wall_ms"]) for f in fs]
 
     def per_rank(k):
         return [f[k] for f in fs]
     emit({"phase": p_serve, "ok": True, "arch": arch,
           "n_layers": cfg8.n_layers,
-          "reduced": f"depth only: {cfg8.n_layers} of {full.n_layers} "
-          f"layers", "dtype": "bfloat16",
+          "reduced": ("none: full depth" if cfg8.n_layers == full.n_layers
+                      else f"depth only: {cfg8.n_layers} of "
+                      f"{full.n_layers} layers"), "dtype": "bfloat16",
           "grid": dict(zip(("data", "model"), SERVE_MESH_SHAPE)),
           "ranks": n, "backend": res[0]["backend"],
           "batch": SERVE_MESH_B, "prompt": SERVE_MESH_P,
           "new_tokens": SERVE_MESH_N, "decode_steps": SERVE_MESH_STEPS,
           "inputs": "one device's tokens (teacher forced)",
-          "channels_a_rank": c, "proj_cols": f0["proj_cols"],
+          f"{fam['unit']}_a_rank": c, "proj_cols": f0["proj_cols"],
           "cache_layout": f0["cache_layout"],
           "cache_blocks": f0["cache_blocks"],
           "prefill_max_abs_err": f0["prefill_max_abs_err"],
@@ -8539,11 +8795,18 @@ def _gate_mesh_channels(res: list, refs: dict, fam: dict) -> dict:
           "prefill_collectives": per_rank("prefill_collectives"),
           "decode_collectives_per_step": per_rank("decode_collectives"),
           "prefill_launches": per_rank("prefill_launches"),
-          "prefill_scan_shapes": f0["prefill_scan_shapes"],
+          "prefill_kernel_shapes": f0["prefill_kernel_shapes"],
+          **({"frames": cfg8.frontend_tokens,
+              "prefill_cross_collectives": per_rank("cross_calls")}
+             if cfg8.family == "audio" else {}),
           "check": {"reduced": fam["check_reduced"], "dtype": "float32",
-                    "batch": SERVE_MESH_CHECK_B, "prompt": P,
-                    "new_tokens": N, "rtol": SERVE_MESH_CHECK_RTOL,
-                    "ranks": checks},
+                    "batch": SERVE_MESH_CHECK_B,
+                    "rtol": SERVE_MESH_CHECK_RTOL,
+                    "cases": {name: {"prompt": P, "new_tokens": N,
+                                     "layout": layout,
+                                     "ranks": [ch[name] for ch in checks]}
+                              for name, _, P, N, layout
+                              in fam["serve_checks"]}},
           "seconds": {"one_device_reference": ref["seconds"],
                       "ranks": [r[p_serve]["seconds"] for r in res]},
           "timing": "every collective synchronised and timed (Mesh.timing)"})

@@ -12,10 +12,10 @@ on 512 host devices, this runs the port's own code for rank 0 of the
 production mesh (``launch.mesh.make_production_mesh``: fake ranks, no
 process group) on ``meta`` tensors at that rank's resident shapes
 (``launch/specs.py``) and counts it (``launch/trace_analysis.py``).  The
-dense, vlm, moe, ssm and hybrid families' training step is the
-partitioned program (each model rank its heads, ff columns, experts,
-inner or RG-LRU channels and vocab rows, ``models/partition.py``), as XLA
-partitions the reference's, and so is their serving.  It needs no card and allocates no
+training step of every family is the partitioned program (each model
+rank its heads, ff columns, experts, inner or RG-LRU channels and vocab
+rows, ``models/partition.py``), as XLA partitions the reference's, and so
+is its serving.  It needs no card and allocates no
 tensor memory.
 
 Every number comes from that trace and the published rates of one NVIDIA

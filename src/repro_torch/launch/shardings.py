@@ -18,9 +18,8 @@ each rank packs exactly the slice these specs make resident on it.  A mesh
 is anything with ``shape`` (axis -> size) and ``axis_names``: a
 ``launch.mesh.Mesh`` or, for layout checks without ranks, a
 ``launch.mesh.MeshShape``.  :func:`cache_pspecs` are the decode caches'
-specs: the dense, vlm, moe, ssm and hybrid families' decode holds its
-block of them (``serve/serving.py``, ``models/partition.partition_for``),
-the audio family its batch rows only (``launch/specs.py``).
+specs: every family's decode holds its block of them
+(``serve/serving.py``, ``models/partition.partition_for``).
 """
 from __future__ import annotations
 

@@ -29,16 +29,15 @@ more or less than the reference's boundary layout says:
   shard grid from the start (the reference's own trainer re-lays them so
   inside its ``shard_map``); a scenario's planes hold every worker's row,
   and the fault state's (W,) liveness is every rank's;
-* decode: the dense, vlm, moe, ssm and hybrid families hold the
-  reference's cache block (``serving.make_serve_step``'s ``init_cache``:
-  the KV heads over ``model`` where they divide it, ``meta["cache_layout"]
-  == "heads"``, else the sequence, ``"seq"``; MLA's latent cache on the
-  sequence; the SSM's state and conv window on their channels,
-  ``"inner"``; the hybrid's RG-LRU state and conv window on their
-  channels beside its attention window's layout, ``"seq"``); the audio
-  family splits it over the batch only, its sequence whole over ``model``
-  (``"batch"``, until its serving products are partitioned, ROADMAP queue
-  A item 12).
+* decode: every family holds the reference's cache block
+  (``serving.make_serve_step``'s ``init_cache``: the KV heads over
+  ``model`` where they divide it, ``meta["cache_layout"] == "heads"``,
+  else the sequence, ``"seq"``; MLA's latent cache on the sequence; the
+  SSM's state and conv window on their channels, ``"inner"``; the
+  hybrid's RG-LRU state and conv window on their channels beside its
+  attention window's layout, ``"seq"``; the enc-dec's self and cross
+  caches on their KV heads, or each on its own sequence or whole, its
+  layout the self cache's).
 """
 from __future__ import annotations
 
@@ -396,8 +395,8 @@ def build_prefill_spec(arch: str, mesh, *, multi_pod: bool,
                        reduced: bool = False) -> DryRunSpec:
     """The batch's forward to the last logits (``serving.make_prefill``)
     as one rank: its rows of the batch over the data axes, its part of
-    each product where the family partitions them (dense, vlm, moe, ssm,
-    hybrid), else each layer gathered whole."""
+    each product (``models/partition``: its heads, ff columns, experts,
+    channels and vocab rows)."""
     mesh = _as_mesh(mesh)
     shp = SHAPES["prefill_32k"]
     cfg = _arch_cfg(arch, "prefill_32k")

@@ -17,6 +17,21 @@ dim (``enc_layers``, ``dec_layers``).
   place and reads the cross K/V cache, which :func:`init_cache` leaves at
   zero and :func:`prefill_cross` computes from an encoder memory.
 
+On a mesh whose ``model`` axis splits the heads (``models/partition``)
+every attention runs the rank's H/m query heads and the KV heads they
+read (its ``wk``/``wv`` columns, or the KV heads of ``wk``/``wv`` read
+whole through ``copy_to`` where the KV heads do not split), ``wo``'s rows
+summed; the MLPs their ff columns, and the embedding and the logits their
+vocab rows where ``vocab`` binds.  Every decoder layer projects the one
+encoder memory through its own K/V columns, so the decoder reads the
+memory through ``copy_to`` once: its backward sums the ranks' partial
+gradients, which the encoder then takes whole on every rank.  Decode
+holds the rank's block of both caches (``Partition.cache`` for the self
+cache, ``Partition.cross_cache`` for the cross cache): on the KV heads,
+or, where they do not split, the self cache on its slots and the cross
+cache on its frames (the ranks' partial softmaxes joined,
+``Partition.combine_attention``) or whole.
+
 Leaves may carry a leading worker dim W (``models/layers.py``).
 """
 from __future__ import annotations
@@ -29,9 +44,10 @@ import torch
 from repro_torch import rng
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import partition
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (decode_layer, init_stacked,
-                                            layer_params, run_stacked)
+                                            run_stacked)
 
 Tensor = torch.Tensor
 Params = Dict
@@ -78,32 +94,50 @@ def init_params(key: int, cfg: ModelConfig, device="cuda") -> Params:
 # encoder (bidirectional over the stub frame embeddings)
 # ---------------------------------------------------------------------------
 
-def _attend(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
-            dtype) -> Tensor:
+def _heads_part():
+    """The active partition where it splits the heads, else None (the
+    attention runs whole)."""
+    part = partition.current()
+    return part if part is not None and part.heads else None
+
+
+def _attend(q: Tensor, k: Tensor, v: Tensor, dtype) -> Tensor:
     """Unmasked GQA attention: q (..., S, H, hd) against k, v (..., T, KV,
-    hd), scores and softmax in f32.  Returns (..., S, H·hd)."""
-    hd = cfg.hd
-    S, T = q.shape[-3], k.shape[-3]
+    hd) (H and KV the rank's where the heads split), scores and softmax in
+    f32.  Returns (..., S, H·hd)."""
+    S, H, hd = q.shape[-3:]
+    T, KV = k.shape[-3], k.shape[-2]
     lead = q.shape[:-3]
     n = math.prod(lead)
-    g = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(n, S, cfg.n_kv_heads, g, hd)
+    qg = q.reshape(n, S, KV, H // KV, hd)
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    w = L._attn_weights(qg, k.reshape(n, T, cfg.n_kv_heads, hd), mask)
-    o = torch.einsum("bkgst,btkh->bskgh", w.to(dtype),
-                     v.reshape(n, T, cfg.n_kv_heads, hd))
-    return o.reshape(lead + (S, cfg.n_heads * hd))
+    w = L._attn_weights(qg, k.reshape(n, T, KV, hd), mask)
+    o = torch.einsum("bkgst,btkh->bskgh", w.to(dtype), v.reshape(n, T, KV,
+                                                                 hd))
+    return o.reshape(lead + (S, H * hd))
+
+
+def _out(p: Params, o: Tensor, cfg: ModelConfig, part) -> Tensor:
+    """``wo`` on the attention's output: its rows summed over the ranks
+    where the heads split."""
+    if part is not None:
+        return part.dense_rows(p["wo"], o, cfg.n_heads * cfg.hd, "wo")
+    return L.dense(p["wo"], o)
 
 
 def _bidir_attention(p: Params, x: Tensor, cfg: ModelConfig,
                      positions: Tensor) -> Tensor:
     hd = cfg.hd
-    q = L.rope(L._split_heads(L.dense(p["wq"], x), cfg.n_heads, hd),
-               positions, cfg.rope_theta)
-    k = L.rope(L._split_heads(L.dense(p["wk"], x), cfg.n_kv_heads, hd),
-               positions, cfg.rope_theta)
-    v = L._split_heads(L.dense(p["wv"], x), cfg.n_kv_heads, hd)
-    return L.dense(p["wo"], _attend(q, k, v, cfg, x.dtype))
+    part = _heads_part()
+    if part is not None:
+        q, k, v, _, _ = L._qkv_partitioned(p, x, cfg, part)
+    else:
+        q = L._split_heads(L.dense(p["wq"], x), cfg.n_heads, hd)
+        k = L._split_heads(L.dense(p["wk"], x), cfg.n_kv_heads, hd)
+        v = L._split_heads(L.dense(p["wv"], x), cfg.n_kv_heads, hd)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    return _out(p, _attend(q, k, v, x.dtype), cfg, part)
 
 
 def encode(params: Params, cfg: ModelConfig, frames: Tensor,
@@ -133,13 +167,28 @@ def encode(params: Params, cfg: ModelConfig, frames: Tensor,
 def _cross_attention(p: Params, x: Tensor, cfg: ModelConfig, mem_k: Tensor,
                      mem_v: Tensor) -> Tensor:
     """x: (..., S, d); mem_[kv]: (..., T, KV, hd) from the encoder memory
-    (no RoPE)."""
-    q = L._split_heads(L.dense(p["wq"], x), cfg.n_heads, cfg.hd)
-    return L.dense(p["wo"], _attend(q, mem_k, mem_v, cfg, x.dtype))
+    (no RoPE): the rank's KV heads where the heads split, as
+    :func:`_cross_kv` gives them."""
+    hd = cfg.hd
+    part = _heads_part()
+    if part is not None:
+        x = part.copy_to(x)
+        q = L._split_heads(part.dense_cols(p["wq"], x, cfg.n_heads * hd,
+                                           "wq"), cfg.n_heads // part.n, hd)
+    else:
+        q = L._split_heads(L.dense(p["wq"], x), cfg.n_heads, hd)
+    return _out(p, _attend(q, mem_k, mem_v, x.dtype), cfg, part)
 
 
 def _cross_kv(p: Params, cfg: ModelConfig, memory: Tensor
               ) -> Tuple[Tensor, Tensor]:
+    """The cross K and V of ``memory`` (..., T, d): every KV head, or,
+    where the heads split, those the rank's query heads read (the memory
+    read through ``copy_to`` by the caller)."""
+    part = _heads_part()
+    if part is not None:
+        k, v, _ = L._kv_partitioned(p, memory, cfg, part)
+        return k, v
     k = L._split_heads(L.dense(p["wk"], memory), cfg.n_kv_heads, cfg.hd)
     v = L._split_heads(L.dense(p["wv"], memory), cfg.n_kv_heads, cfg.hd)
     return k, v
@@ -148,8 +197,12 @@ def _cross_kv(p: Params, cfg: ModelConfig, memory: Tensor
 def decode_forward(params: Params, cfg: ModelConfig, tokens: Tensor,
                    memory: Tensor, remat: bool = True) -> Tensor:
     """Teacher-forced decoder pass (training). tokens: (..., B, S); memory:
-    the encoder's (..., B, T, d). Returns logits."""
-    x = L.embed(params["embed"], tokens)
+    the encoder's (..., B, T, d). Returns logits (the rank's vocab
+    columns where the plan splits the vocab)."""
+    x = L.embed(params["embed"], tokens, cfg.vocab_size)
+    part = _heads_part()
+    if part is not None:
+        memory = part.copy_to(memory)
     S = x.shape[-2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
 
@@ -197,23 +250,102 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             "cross_k": zeros(n_frames), "cross_v": zeros(n_frames)}
 
 
+def _cross_cache_kv(p: Params, cfg: ModelConfig, memory: Tensor
+                    ) -> Tuple[Tensor, Tensor]:
+    """A decoder layer's cross K and V as the cache holds them: the
+    rank's KV heads where the cache lies on them, else every KV head (the
+    projections of the rank's ``wk``/``wv`` columns gathered under
+    serving's ``kv_cols``)."""
+    part = partition.current()
+    if part is not None and part.cross_cache == "heads":
+        return _cross_kv(p, cfg, memory)
+    k, v = L.dense(p["wk"], memory), L.dense(p["wv"], memory)
+    if part is not None and part.kv_cols:
+        k, v = part.gather_cols(k, v, op="gather_kv")
+    return (L._split_heads(k, cfg.n_kv_heads, cfg.hd),
+            L._split_heads(v, cfg.n_kv_heads, cfg.hd))
+
+
 def prefill_cross(params: Params, cfg: ModelConfig, memory: Tensor
                   ) -> Tuple[Tensor, Tensor]:
     """Every decoder layer's cross K and V of ``memory`` (B, T, d), stacked
-    on a leading layer dim: (n_layers, B, T, KV, hd) each."""
-    ks, vs = zip(*(_cross_kv(layer_params(params, i, "dec_layers")
-                             ["cross_attn"], cfg, memory)
+    on a leading layer dim: (n_layers, B, T, KV, hd) each.  Under serving's
+    plan, the rank's block of them as the cache lies: its KV heads, or its
+    slice of the frames (every KV head), or all of them.  The frames are
+    cut after the projections: under ``kv_cols`` the ranks' column blocks
+    of every frame are gathered first."""
+    part = partition.current()
+    ks, vs = zip(*(_cross_cache_kv(decode_layer(params, i, "dec_layers")
+                                   ["cross_attn"], cfg, memory)
                    for i in range(cfg.n_layers)))
-    return torch.stack(ks), torch.stack(vs)
+    ks, vs = torch.stack(ks), torch.stack(vs)
+    if part is not None and part.cross_cache == "seq":
+        cp = part.cross
+        t = ks.shape[-3] // cp.seq_n
+        ks = ks.narrow(-3, cp.seq_index * t, t).contiguous()
+        vs = vs.narrow(-3, cp.seq_index * t, t).contiguous()
+    return ks, vs
+
+
+def _cross_decode_seq(p: Params, x: Tensor, cfg: ModelConfig, ck: Tensor,
+                      cv: Tensor, part) -> Tensor:
+    """One token's cross-attention against the cross cache split on its
+    frames (``part.cross``): every query head (the rank's gathered where
+    the heads split) scored on the rank's frames, every KV head, the
+    partial softmaxes joined over the frames' axes, and the rank's heads
+    of the result kept for ``wo``'s rows."""
+    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    B = x.shape[0]
+    if part.heads:
+        q = part.dense_cols(p["wq"], part.copy_to(x), H * hd, "wq")
+        q = part.gather_heads(q.reshape(B, 1, -1))
+    else:
+        q = L.dense(p["wq"], x)
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    valid = torch.ones(ck.shape[1], dtype=torch.bool, device=x.device)
+    o = part.cross.combine_attention(*L._decode_partial(qg, ck, cv, valid))
+    o = o.reshape(B, 1, H, hd).to(x.dtype)
+    if part.heads:
+        Hl = H // part.n
+        o = o[:, :, part.index * Hl:(part.index + 1) * Hl]
+        return _out(p, o.reshape(B, 1, Hl * hd), cfg, part)
+    return _out(p, o.reshape(B, 1, H * hd), cfg, None)
+
+
+def _cross_decode(p: Params, x: Tensor, cfg: ModelConfig, ck: Tensor,
+                  cv: Tensor) -> Tensor:
+    """One token's cross-attention against a layer's cross cache block
+    (B, T, ·, hd): on the rank's KV heads (``"heads"``), its frames
+    (``"seq"``), or the whole cache (``"batch"``, the rank's query heads
+    reading the KV heads they read)."""
+    from repro_torch.models.partition import rank_kv_heads
+
+    part = partition.current()
+    layout = "batch" if part is None else part.cross_cache
+    if layout == "seq":
+        return _cross_decode_seq(p, x, cfg, ck, cv, part)
+    if layout == "batch" and part is not None and part.heads:
+        k0, k1, rel = rank_kv_heads(cfg, part)
+        ck, cv = ck[:, :, k0:k1], cv[:, :, k0:k1]
+        if rel is not None:
+            idx = torch.tensor(rel, device=x.device)
+            ck, cv = ck.index_select(2, idx), cv.index_select(2, idx)
+    return _cross_attention(p, x, cfg, ck, cv)
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict, token: Tensor,
                 pos: int) -> Tuple[Tensor, Dict]:
     """One greedy decode step: the (B, V) logits, and the cache with the
     self K/V written in place at slot ``pos`` (``pos % window`` under a
-    sliding window); the cross K/V are read as they are."""
-    x = L.embed(params["embed"], token[:, None])
+    sliding window); the cross K/V are read as they are.  Under serving's
+    partition the cache is the rank's block, the slot the global one
+    (``layers.attention_decode`` hands it to the rank whose slice holds
+    it), and the logits the rank's vocab columns (B, V/n)."""
+    part = partition.current()
+    x = L.embed(params["embed"], token[:, None], cfg.vocab_size)
     T = cache["self_k"].shape[2]
+    if part is not None and part.cache == "seq":
+        T *= part.seq_n
     write_pos = pos % T if cfg.sliding_window is not None else pos
     for i in range(cfg.n_layers):
         p = decode_layer(params, i, "dec_layers")
@@ -222,10 +354,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict, token: Tensor,
                                      cache["self_k"][i], cache["self_v"][i],
                                      write_pos, pos)
         x = x + a
-        x = x + _cross_attention(p["cross_attn"],
-                                 L.layernorm(p["ln_x"], x, cfg.norm_eps),
-                                 cfg, cache["cross_k"][i],
-                                 cache["cross_v"][i])
+        x = x + _cross_decode(p["cross_attn"],
+                              L.layernorm(p["ln_x"], x, cfg.norm_eps), cfg,
+                              cache["cross_k"][i], cache["cross_v"][i])
         x = x + L.mlp(p["mlp"], L.layernorm(p["ln2"], x, cfg.norm_eps), cfg)
     x = L.layernorm(params["dec_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x)[:, 0], cache

@@ -13,10 +13,10 @@ entry inside its checkpointed block (:func:`gather_entry`), so the
 backward's recompute gathers again and only one full layer is alive.
 
 Where the plan carries a :class:`~repro_torch.models.partition.Partition`
-(the trainer's and the serving layer's plans for the dense, vlm, moe, ssm
-and hybrid families), the leaves of the partitioned products are gathered
-over their fsdp dims only: each rank computes its own heads, ff columns,
-experts, inner or RG-LRU channels and vocab rows on its ``model`` block
+(the trainer's and the serving layer's plans, for every family), the
+leaves of the partitioned products are gathered over their fsdp dims
+only: each rank computes its own heads, ff columns, experts, inner or
+RG-LRU channels and vocab rows on its ``model`` block
 (``models/partition.py``), as XLA partitions the reference's products.  The fsdp axes keep their gather, as XLA's FSDP
 does.
 

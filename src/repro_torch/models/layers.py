@@ -248,11 +248,11 @@ def _attention_chunked(qg: Tensor, k: Tensor, v: Tensor,
     return torch.cat(outs, 1)[:, :S]
 
 
-def _qkv_partitioned(p: Params, x: Tensor, cfg: ModelConfig, part
-                     ) -> Tuple[Tensor, Tensor, Tensor, int, int]:
-    """This rank's q, k, v under a partition of the heads: its ``H/m``
-    query heads ``[r·H/m, (r+1)·H/m)`` and the KV heads they read, with
-    the local (query heads, KV heads).  Where the KV heads split too, they
+def _kv_partitioned(p: Params, x: Tensor, cfg: ModelConfig, part
+                    ) -> Tuple[Tensor, Tensor, int]:
+    """The k and v (…, S, n_kv, hd) this rank's query heads ``[r·H/m,
+    (r+1)·H/m)`` read under a partition of the heads, from ``x`` already
+    read through ``copy_to``, and n_kv.  Where the KV heads split too, they
     are the rank's ``wk``/``wv`` columns; else ``wk``/``wv`` are whole on
     the rank and it projects the contiguous KV heads its query heads read
     (under serving's :attr:`~repro_torch.models.partition.Partition.kv_cols`
@@ -261,15 +261,12 @@ def _qkv_partitioned(p: Params, x: Tensor, cfg: ModelConfig, part
     not fit them evenly."""
     from repro_torch.models.partition import rank_kv_heads
 
-    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    Hl = H // part.n
-    x = part.copy_to(x)
-    q = _split_heads(part.dense_cols(p["wq"], x, H * hd, "wq"), Hl, hd)
+    hd, KV = cfg.hd, cfg.n_kv_heads
     if part.kv:
         KVl = KV // part.n
         k = _split_heads(part.dense_cols(p["wk"], x, KV * hd, "wk"), KVl, hd)
         v = _split_heads(part.dense_cols(p["wv"], x, KV * hd, "wv"), KVl, hd)
-        return q, k, v, Hl, KVl
+        return k, v, KVl
     k0, k1, rel = rank_kv_heads(cfg, part)
     KVl = k1 - k0
     if part.kv_cols:
@@ -283,9 +280,22 @@ def _qkv_partitioned(p: Params, x: Tensor, cfg: ModelConfig, part
         v = part.dense_slice(p["wv"], x, k0 * hd, k1 * hd)
     k, v = _split_heads(k, KVl, hd), _split_heads(v, KVl, hd)
     if rel is None:
-        return q, k, v, Hl, KVl
+        return k, v, KVl
     idx = torch.tensor(rel, device=x.device)
-    return q, k.index_select(-2, idx), v.index_select(-2, idx), Hl, Hl
+    return k.index_select(-2, idx), v.index_select(-2, idx), len(rel)
+
+
+def _qkv_partitioned(p: Params, x: Tensor, cfg: ModelConfig, part
+                     ) -> Tuple[Tensor, Tensor, Tensor, int, int]:
+    """This rank's q, k, v under a partition of the heads: its ``H/m``
+    query heads on its ``wq`` columns and the KV heads they read
+    (:func:`_kv_partitioned`), with the local (query heads, KV heads)."""
+    hd, H = cfg.hd, cfg.n_heads
+    Hl = H // part.n
+    x = part.copy_to(x)
+    q = _split_heads(part.dense_cols(p["wq"], x, H * hd, "wq"), Hl, hd)
+    k, v, n_kv = _kv_partitioned(p, x, cfg, part)
+    return q, k, v, Hl, n_kv
 
 
 def attention_fwd(p: Params, x: Tensor, cfg: ModelConfig, positions: Tensor,

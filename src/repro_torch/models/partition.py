@@ -57,6 +57,12 @@ block, ``core.packing.ShardPackSpec``):
   rank's channels.  The local attention and the MLP take the dense
   family's plan above (the attention whole, its weights gathered, where
   the heads do not split);
+* the audio enc-dec (``models/encdec.py``): the encoder's bidirectional
+  attention, the decoder's self- and cross-attention and every MLP take
+  the plan above (``self_attn``/``cross_attn`` resolve as ``attn``); the
+  cross-attention's K and V are each decoder layer's column block of the
+  one encoder memory, so the memory is read through ``copy_to`` once
+  before the decoder (its gradient the ranks' partials summed);
 * the embedding: a vocab-parallel lookup (each rank its rows
   ``[r·V/m, (r+1)·V/m)``, zeros elsewhere, summed: one nonzero addend a
   row, so exact), and the unembedding on the rank's vocab rows, which
@@ -91,6 +97,14 @@ forward above, its last logits gathered whole (:meth:`Partition
   (:meth:`Partition.combine_attention`);
 * ``"batch"``: the batch rows only (no layout splits the sequence).
 
+The enc-dec's caches (``self_k``/``self_v`` over the decoded positions,
+``cross_k``/``cross_v`` over the encoder's frames) lie on their KV heads
+together where the heads split; where they do not, each by its own spec:
+the self cache on its slots (:attr:`Partition.cache`), the cross cache on
+its frames where they divide the axes (:attr:`Partition.cross_cache`
+``"seq"``, over :attr:`Partition.cross_seq_axes`), else whole
+(``"batch"``).
+
 The SSM's state ``ssm`` (L, B, di, n) and conv window ``conv`` (L, B,
 K − 1, di) lie on their channels (``"inner"``).  The hybrid's cache has
 both kinds of leaf: its RG-LRU state ``lru`` (L?, B, dw) and conv window
@@ -124,10 +138,11 @@ routes the whole result alike.  The prefill reads those three whole
 (gathered): at S tokens their outputs outweigh the weights.
 
 The trainer's plan (:func:`partition_for`) covers :data:`FAMILIES` (dense,
-vlm, moe, ssm and hybrid; the ssm only where ``inner`` binds, the hybrid
-only where ``lru`` does), and serving's :data:`SERVE_FAMILIES` the same
-five.  The others keep the gathered
-forward (``models/gather``) and a cache split over the batch.  A model-sharded leaf whose product is not partitioned
+vlm, moe, ssm, hybrid and audio; the ssm only where ``inner`` binds, the
+hybrid only where ``lru`` does), and serving's :data:`SERVE_FAMILIES` the
+same six; where the plan is None the layers are gathered whole
+(``models/gather``).  A model-sharded leaf whose product is not
+partitioned
 (pixtral's ``projector`` and the MTP's ``mtp_proj``, whose outputs are
 the residual stream; ``fc_out``'s bias, split on its layer dim;
 ``wk``/``wv`` where ``kv_heads`` is unbound; the router, ``wq_a`` and
@@ -147,9 +162,9 @@ from repro_torch.launch.mesh import copy_to, reduce_from
 Tensor = torch.Tensor
 
 #: the families whose training products partition over ``model``
-FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 #: the families whose serving products partition
-SERVE_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+SERVE_FAMILIES = FAMILIES
 #: the small column-split projections serving's decode keeps as the
 #: rank's columns, their (B, 1, ·) outputs gathered
 #: (:attr:`Partition.proj_cols`): the router, MLA's ``wq_a`` and ``wkv_a``
@@ -158,7 +173,8 @@ _PROJ_LEAVES = {("mlp", "router"), ("attn", "wq_a"), ("attn", "wkv_a")}
 MTP_KEYS = ("mtp_block", "mtp_proj", "mtp_norm")
 #: the stacked layer keys whose entries partition, and the unstacked
 #: blocks that do
-_STACKS = ("layers", "dense_layers", "moe_layers", "super")
+_STACKS = ("layers", "dense_layers", "moe_layers", "super", "enc_layers",
+           "dec_layers")
 _BLOCKS = ("mtp_block",)
 #: the hybrid's layers: the stacked super-blocks and the ``tail`` list, a
 #: leaf at (its key, the block ``b{i}`` or ``#{j}``, ``temporal`` or
@@ -177,6 +193,9 @@ _LEAVES = {
     ("shared", "up"): ("shared_ff", "col"),
     ("shared", "down"): ("shared_ff", "row"),
 }
+#: the enc-dec decoder's attention blocks, whose leaves split as
+#: ``attn``'s
+_ATTN_KEYS = ("self_attn", "cross_attn")
 #: the routed experts' leaves (E, d, f) / (E, f, d), split on E
 _EXPERT_LEAVES = ("gate", "up", "down")
 #: MLA's per-head leaves (H, c, ·), split on H
@@ -218,10 +237,14 @@ class Partition(NamedTuple):
     ff: bool            # the MLP's hidden columns
     vocab: bool         # the embedding's and the logits' vocab rows
     #: the decode cache's split beside the batch: "heads" | "seq" |
-    #: "inner" (the SSM's channels) | "batch"
+    #: "inner" (the SSM's channels) | "batch"; the enc-dec's self cache
     cache: str = "batch"
     #: the mesh axes the cache's sequence splits over ("seq")
     seq_axes: Tuple[str, ...] = ()
+    #: the enc-dec's cross cache: "heads" (with the self cache) | "seq"
+    #: (its frames over :attr:`cross_seq_axes`) | "batch" (whole)
+    cross_cache: str = "batch"
+    cross_seq_axes: Tuple[str, ...] = ()
     #: the MoE's routed experts (``n_experts`` divides the axis)
     expert: bool = False
     #: the MoE shared expert's hidden columns (``moe_d_ff ·
@@ -252,6 +275,13 @@ class Partition(NamedTuple):
     def seq_n(self) -> int:
         """The slices of the cache's sequence."""
         return self.mesh.axis_size(self.seq_axes)
+
+    @property
+    def cross(self) -> "Partition":
+        """This plan with the enc-dec's cross cache as its cache: its
+        layout and sequence axes in :attr:`cache` and :attr:`seq_axes`."""
+        return self._replace(cache=self.cross_cache,
+                             seq_axes=self.cross_seq_axes)
 
     # -- collectives ---------------------------------------------------------
 
@@ -434,7 +464,9 @@ def xz_routes(n: int, r: int) -> Tuple[bool, Tuple[int, ...],
 def partition_for(cfg, mesh, *, multi_pod: bool = False,
                   cache: Optional[Tuple[int, ...]] = None,
                   cache_leaf: str = "k", serve: bool = False,
-                  decode: bool = False) -> Optional[Partition]:
+                  decode: bool = False,
+                  cross: Optional[Tuple[int, ...]] = None
+                  ) -> Optional[Partition]:
     """The trainer's plan on ``mesh``: which products split over
     ``model`` (a logical axis partitions where
     ``launch.shardings.rules_for`` binds it to ``model``, as the reference
@@ -454,7 +486,11 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
     where it splits, else the batch, whatever the KV heads do.  The
     hybrid's plan is None where ``lru`` is unbound (the gathered forward);
     its ``cache`` is its super-blocks' ``k`` leaf, laid out as above, and
-    their ``lru`` leaf beside it (L, B, dw) must lie on its channels."""
+    their ``lru`` leaf beside it (L, B, dw) must lie on its channels.  The
+    enc-dec's ``cache`` is its ``self_k`` leaf, laid out as a K leaf, and
+    ``cross`` the global shape of its ``cross_k`` leaf (L, B, T_frames,
+    KV, hd): on the KV heads with the self cache, else by its own spec,
+    on its frames (:attr:`Partition.cross_cache`) or whole."""
     from repro_torch.launch.shardings import (_entry_axes, cache_pspec,
                                               rules_for)
 
@@ -496,9 +532,15 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
             k for k, w in widths.items() if w and fits(w)))
     if cache is None:
         return part
-    if cache_leaf not in ("k", "c_kv"):
+    want = ("self_k",) if cfg.family == "audio" else ("k", "c_kv")
+    if cache_leaf not in want:
         raise ValueError(f"{cfg.name}: no decode layout for a cache led by "
                          f"{cache_leaf!r}")
+    if cfg.family == "audio":
+        if cross is None:
+            raise ValueError(f"{cfg.name}: the cross cache's shape is "
+                             f"needed beside the self cache's")
+        part = _cross_layout(cfg, mesh, part, multi_pod, cross)
     if part.lru:
         state = cache_pspec(("lru",), tuple(cache[:2]) + (cfg.lru_width,),
                             cfg, mesh, cache[1], multi_pod=multi_pod)
@@ -509,7 +551,7 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
     spec = cache_pspec((cache_leaf,), tuple(cache), cfg, mesh, cache[1],
                        multi_pod=multi_pod)
     seq = spec[2]
-    if cache_leaf == "k":
+    if cache_leaf in ("k", "self_k"):
         on_heads = spec[3] is not None
         if on_heads != part.kv:
             raise ValueError(f"{cfg.name}: the cache's KV heads "
@@ -521,6 +563,24 @@ def partition_for(cfg, mesh, *, multi_pod: bool = False,
     if seq is None:
         return part
     return part._replace(cache="seq", seq_axes=_entry_axes(seq))
+
+
+def _cross_layout(cfg, mesh, part: Partition, multi_pod: bool,
+                  cross: Tuple[int, ...]) -> Partition:
+    """``part`` with the enc-dec's cross cache laid out by
+    ``cache_pspec`` of ``cross_k`` (global shape ``cross``): its KV heads
+    (``"heads"``, as the self cache's, checked there), else its frames
+    where they split (``"seq"``), else whole (``"batch"``)."""
+    from repro_torch.launch.shardings import _entry_axes, cache_pspec
+
+    spec = cache_pspec(("cross_k",), tuple(cross), cfg, mesh, cross[1],
+                       multi_pod=multi_pod)
+    if spec[3] is not None:
+        return part._replace(cross_cache="heads")
+    if spec[2] is None:
+        return part
+    return part._replace(cross_cache="seq",
+                         cross_seq_axes=_entry_axes(spec[2]))
 
 
 def _ssm_plan(cfg, mesh, part: Partition, multi_pod: bool,
@@ -601,7 +661,9 @@ def _split(path: Tuple[str, ...], part: Partition) -> Optional[str]:
     the dense MLP's, whose width is ``d_ff``, not ``moe_d_ff``.  The
     hybrid's leaves lie two keys deeper (``super/b0/temporal/w_rec/w``,
     ``tail/#1/mlp_blk/mlp/up/w``): its RG-LRU leaves resolve by
-    :data:`_LRU_LEAVES`, its attention and MLP as the dense family's."""
+    :data:`_LRU_LEAVES`, its attention and MLP as the dense family's.  The
+    enc-dec's decoder leaves lie under ``self_attn`` and ``cross_attn``
+    (:data:`_ATTN_KEYS`), which resolve as ``attn``."""
     if path[:1] == ("embed",) and path[-1] == "table":
         return "vocab" if part.vocab else None
     if path[0] in _HYBRID and len(path) > 3:
@@ -630,6 +692,8 @@ def _split(path: Tuple[str, ...], part: Partition) -> Optional[str]:
         return "head" if part.heads else None
     if rest[:2] == ("mlp", "shared"):
         rest = rest[1:]
+    if rest[:1] and rest[0] in _ATTN_KEYS:
+        rest = ("attn",) + rest[1:]
     if len(rest) != 3 or rest[2] not in ("w", "b"):
         return None
     if rest[:2] in _PROJ_LEAVES:

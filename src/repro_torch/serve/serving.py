@@ -11,18 +11,19 @@ Decode is plain torch, as the reference computes it outside any kernel;
 ``generate`` starts the enc-dec from a zero cross cache, as the reference
 does (``models/encdec.prefill_cross`` fills it).
 
-On a mesh the dense, vlm, moe, ssm and hybrid families serve partitioned
-over ``model`` (``models/partition``): the prefill runs each rank's heads,
-ff columns, experts, inner or RG-LRU channels and vocab rows, and decode
-holds the rank's block of the cache (its KV heads, or its slice of the
-sequence; MLA's latent cache on the sequence; the SSM's and the hybrid's
-states and conv windows on their channels, the hybrid's attention window
-on its slots) as the reference's cache specs lay it out; no rank gathers
-a partitioned leaf (where the KV heads do not split, a rank projects its
-``wk``/``wv`` columns and gathers the projections; decode does the same
-with the router, ``wq_a``, ``wkv_a`` and the SSM's ``x_proj``, which the
-prefill gathers whole, and reduce-scatters the SSM's ``dt_proj`` product
-from its rows).
+On a mesh every family serves partitioned over ``model``
+(``models/partition``): the prefill runs each rank's heads, ff columns,
+experts, inner or RG-LRU channels and vocab rows, and decode holds the
+rank's block of the cache (its KV heads, or its slice of the sequence;
+MLA's latent cache on the sequence; the SSM's and the hybrid's states and
+conv windows on their channels, the hybrid's attention window on its
+slots; the enc-dec's self and cross caches on their KV heads, or each on
+its own sequence, its frames, or whole) as the reference's cache specs
+lay it out; no rank gathers a partitioned leaf (where the KV heads do not
+split, a rank projects its ``wk``/``wv`` columns and gathers the
+projections; decode does the same with the router, ``wq_a``, ``wkv_a``
+and the SSM's ``x_proj``, which the prefill gathers whole, and
+reduce-scatters the SSM's ``dt_proj`` product from its rows).
 Neither reads the MTP head, and neither gathers it.  ``generate`` stays
 one device's, as the reference's is.
 """
@@ -39,27 +40,35 @@ from repro_torch.tree import tree_map
 Tensor = torch.Tensor
 
 
-def _served(params):
+#: the enc-dec's encoder, which decode does not read (it decodes against
+#: its cross cache, ``models/encdec.prefill_cross``)
+DECODE_UNREAD = ("enc_layers", "enc_norm")
+
+
+def _served(params, decode: bool = False):
     """``params`` without the MTP head's leaves (``partition.MTP_KEYS``),
-    which neither the prefill nor decode reads: none is gathered."""
+    which neither the prefill nor decode reads, and, for ``decode``,
+    without :data:`DECODE_UNREAD`: none of them is gathered."""
     from repro_torch.models.partition import MTP_KEYS
 
-    return {k: v for k, v in params.items() if k not in MTP_KEYS}
+    drop = MTP_KEYS + (DECODE_UNREAD if decode else ())
+    return {k: v for k, v in params.items() if k not in drop}
 
 
 def _attention_leaf(glob) -> tuple:
     """(name, global shape) of the whole cache's leaf that decides its
-    layout: the K leaf (L, B, T, KV, hd), MLA's latent ``c_kv`` (L, B, T,
-    c), or the SSM's state ``ssm`` (L, B, di, n); the moe family's
-    ``dense`` and ``moe`` stacks share one layout, read from the ``moe``
-    stack's; the hybrid's is its super-blocks' attention ``k`` (their
-    RG-LRU state beside it, ``partition.partition_for``)."""
+    layout: the K leaf (L, B, T, KV, hd), the enc-dec's ``self_k`` of that
+    shape, MLA's latent ``c_kv`` (L, B, T, c), or the SSM's state ``ssm``
+    (L, B, di, n); the moe family's ``dense`` and ``moe`` stacks share one
+    layout, read from the ``moe`` stack's; the hybrid's is its
+    super-blocks' attention ``k`` (their RG-LRU state beside it,
+    ``partition.partition_for``)."""
     from repro_torch.tree import tree_paths
 
     leaves: dict = {}
     for path, x in tree_paths(glob.get("moe", glob)):
         leaves.setdefault(path[-1], x)
-    name = next(k for k in ("k", "c_kv", "ssm") if k in leaves)
+    name = next(k for k in ("k", "self_k", "c_kv", "ssm") if k in leaves)
     return name, tuple(leaves[name].shape)
 
 
@@ -136,14 +145,13 @@ def make_prefill(model: Model, mesh=None, *, fsdp: bool = False):
     full forward, without autograd.  Under ``mesh`` (a ``launch.mesh``
     mesh, as the trainer takes) a rank holds its block of the parameters
     (``prefill.shard(full)`` cuts it and builds the gather plan; call it
-    first) and its rows of the batch.  The dense, vlm, moe, ssm and hybrid
-    families run the trainer's partitioned forward (``models/partition``:
-    each rank's heads, B11 on them, its ff columns, experts, inner or
-    RG-LRU channels, B12 on them, and vocab rows) and gather the last
-    position's vocab-parallel logits whole; the router, ``wq_a``,
-    ``wkv_a``, ``x_proj`` and ``dt_proj`` are gathered whole, since at S
-    tokens their outputs outweigh the weights.  The other families gather each layer
-    whole (``models/gather``).  No MTP leaf is gathered."""
+    first) and its rows of the batch.  Each family runs the trainer's
+    partitioned forward (``models/partition``: each rank's heads, B11 on
+    them, its ff columns, experts, inner or RG-LRU channels, B12 on them,
+    and vocab rows) and gathers the last position's vocab-parallel logits
+    whole; the router, ``wq_a``, ``wkv_a``, ``x_proj`` and ``dt_proj``
+    are gathered whole, since at S tokens their outputs outweigh the
+    weights.  No MTP leaf is gathered."""
     layout, shard = _mesh_layout(model, mesh, fsdp)
 
     def prefill(params, batch):
@@ -175,9 +183,13 @@ def make_serve_step(model: Model, mesh=None, *, fsdp: bool = False):
     window on the rank's channels (``"inner"``), with ``x_proj``'s columns
     and ``dt_proj``'s rows on the rank; for the hybrid its RG-LRU state and
     conv window on the rank's channels and its attention window as the
-    dense family's (``"seq"`` for its one KV head); the audio family keeps
-    a cache split over the batch alone and gathers each layer
-    (``transformer.decode_layer``).  Make the cache with
+    dense family's (``"seq"`` for its one KV head); for the audio family
+    its self and cross caches on the rank's KV heads, or, where they do
+    not split, the self cache on its slots and the cross cache on its
+    frames or whole (``Partition.cross_cache``), the encoder's leaves
+    neither read nor gathered.  Fill the enc-dec's cross cache with
+    ``serve_step.prefill_cross(params, frames)`` (the rank's block; a zero
+    cross cache otherwise, as ``generate`` starts from).  Make the cache with
     ``serve_step.init_cache(batch, max_seq, device=...)`` (the rank's
     block, never the whole cache; ``batch`` the whole batch) or cut it
     from a whole one with ``serve_step.shard_cache(full)``: either records
@@ -205,8 +217,11 @@ def make_serve_step(model: Model, mesh=None, *, fsdp: bool = False):
         part = None
         if model.cfg.family in SERVE_FAMILIES:
             name, shape = _attention_leaf(glob)
-            part = partition_for(model.cfg, mesh, multi_pod=multi_pod,
-                                 cache=shape, cache_leaf=name)
+            cross = glob.get("cross_k")
+            part = partition_for(
+                model.cfg, mesh, multi_pod=multi_pod, cache=shape,
+                cache_leaf=name,
+                cross=None if cross is None else tuple(cross.shape))
         if part is None:
             daxes = set(data_axes(multi_pod))
             specs = tree_map(lambda _x, sp: tuple(
@@ -263,15 +278,37 @@ def make_serve_step(model: Model, mesh=None, *, fsdp: bool = False):
             plan = plan._replace(part=part)
         with torch.no_grad(), _gather.gathering(plan):
             logits, cache = model.decode_step(
-                _gather.gather_params(_served(params)), cache, token, pos)
+                _gather.gather_params(_served(params, decode=True)), cache,
+                token, pos)
             if part is not None and part.vocab:
                 tok = part.argmax_vocab(logits)
             else:
                 tok = torch.argmax(logits, dim=-1)
             return tok.to(torch.int32), cache
 
+    def prefill_cross(params, frames: Tensor):
+        """The enc-dec's cross K and V of ``frames`` (B, T, d; the rank's
+        rows): the encoder's forward under the plan, then each decoder
+        layer's projections of its memory (``encdec.prefill_cross``), the
+        rank's block of the cross cache as :func:`init_cache` laid it out
+        (call it, or :func:`shard_cache`, first)."""
+        from repro_torch.models import encdec
+
+        plan = layout["plan"]
+        if plan is not None:
+            if layout["cache"] is None:
+                raise ValueError(f"{model.cfg.name}: the cache's layout is "
+                                 f"not known yet; make the cache with "
+                                 f"serve_step.init_cache or .shard_cache")
+            plan = plan._replace(part=layout["cache_part"])
+        with torch.no_grad(), _gather.gathering(plan):
+            p = _gather.gather_params(_served(params))
+            memory = encdec.encode(p, model.cfg, frames, remat=False)
+            return encdec.prefill_cross(p, model.cfg, memory)
+
     serve_step.shard = shard
     serve_step.init_cache = init_cache
+    serve_step.prefill_cross = prefill_cross
     serve_step.shard_cache = shard_cache
     serve_step.layout = layout
     return serve_step

@@ -50,11 +50,11 @@ coordinate on the data axes) and, when the grid shards the model (model >
 1 or fsdp > 1), its (fsdp, model) shard of θ, Θ, the optimizer state and
 of the global shard-packed (W, d_pad) λ and h
 (``core.packing.ShardPackSpec`` over ``launch.shardings.shard_dims_2d``).
-The local steps run the gathered forward (``models.gather``), in which the
-dense, vlm, moe, ssm and hybrid families compute each rank's own heads, ff
-columns, experts, inner or RG-LRU channels and vocab rows on its model
-block (``models.partition``), the
-penalty
+The local steps run the gathered forward (``models.gather``), in which
+every family computes each rank's own heads, ff columns, experts, inner or
+RG-LRU channels and vocab rows on its model block (``models.partition``;
+every model rank of a data row takes the same batch rows, the enc-dec's
+``frames`` with its tokens), the penalty
 reads λ and h through ``tree_ota.unpack_cplx_shard_local`` and the round is
 ``tree_ota.ota_tree_round_shard_local``.  A pure-data mesh keeps the global
 packed layout, its worker rows split over the data axes, and samples a

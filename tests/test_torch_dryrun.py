@@ -13,7 +13,10 @@ package's, on the CPU.
   on a (1, 1) ``Auto`` mesh for six reduced cases, rtol 1e-2; and the
   port's partitioned rank on (1, 2) against the per-device module XLA
   partitions over a (1, 2) ``Auto`` mesh (one JAX subprocess with two
-  host devices), reduced granite-8b train_4k, rtol 1e-2.  The named
+  host devices), reduced granite-8b train_4k, rtol 1e-2; so too the moe,
+  ssm, hybrid and enc-dec families' training and serving modules, and
+  full-size decode traces on 16 × 16 (what a step gathers, the cache's
+  blocks).  The named
   exception is attention: the reference counts its masked S × S score
   products (full squares, of which the compiled CPU module keeps some
   inside fusions that ``hlo_analysis`` counts once), the port counts B11 as
@@ -124,13 +127,13 @@ def _check_spec(ours, ref, mesh):
 
 
 def _cache_layout(ours):
-    """The decode cache's layout the reference's cache specs give a dense,
-    vlm, moe, ssm or hybrid family (the KV heads over ``model``, else the
-    sequence, else the batch alone; MLA's latent ``c_kv`` on the sequence,
-    else the batch; the SSM's state on its channels, else the batch; the
-    hybrid's attention window as a K leaf's, the batch where its RG-LRU
-    state does not split), and ``"batch"`` for the families that serve
-    gathered."""
+    """The decode cache's layout the reference's cache specs give a
+    family (the KV heads over ``model``, else the sequence, else the batch
+    alone; the enc-dec's by its self cache ``self_k``, as a K leaf's;
+    MLA's latent ``c_kv`` on the sequence, else the batch; the SSM's state
+    on its channels, else the batch; the hybrid's attention window as a K
+    leaf's, the batch where its RG-LRU state does not split), and
+    ``"batch"`` for a family that serves gathered."""
     if get_config(ours.meta["arch"]).family not in SERVE_FAMILIES:
         return "batch"
     leaves = dict(specs.leaves(ours.in_shardings))
@@ -139,11 +142,11 @@ def _cache_layout(ours):
     lru = ("1", "super", "b0", "lru")
     if lru in leaves and not _norm(leaves[lru], 3)[2]:
         return "batch"
-    path = next(p for p in (("1", "k"), ("1", "moe", "k"),
+    path = next(p for p in (("1", "k"), ("1", "self_k"), ("1", "moe", "k"),
                             ("1", "moe", "c_kv"), ("1", "super", "b2", "k"))
                 if p in leaves)
-    spec = _norm(leaves[path], 5 if path[-1] == "k" else 4)
-    if path[-1] == "k" and spec[3]:
+    spec = _norm(leaves[path], 4 if path[-1] == "c_kv" else 5)
+    if path[-1] != "c_kv" and spec[3]:
         return "heads"
     return "seq" if spec[2] else "batch"
 
@@ -882,6 +885,136 @@ def test_hybrid_decode_gathers_no_lru_ff_or_vocab_leaf():
                                                   ) // n * 2
     assert st["gather_inner"]["axes"] == {"model": n_rec}
     assert st["gather_inner"]["bytes"] == n_rec * B * dw // n * 2
+
+
+def test_partitioned_encdec_trace_flops_match_the_references_partition(
+        tmp_path):
+    """Reduced seamless-m4t-medium train_4k on a (1, 2) fake mesh: the rank
+    runs its half of the heads of the encoder's bidirectional attention and
+    of the decoder's self- and cross-attention, its ff columns and its
+    vocab rows (``models/partition``).  Its traced flops outside the
+    decoder's causal attention count, within rtol 1e-2, those of the
+    per-device module XLA partitions from the reference's over the same
+    mesh, and half of its own on (1, 1); B11 runs on half the heads.  No
+    product's leaf is gathered: ``fc_out``'s bias alone (split on its layer
+    dim), once a stack a forward."""
+    arch = "seamless-m4t-medium"
+    hlo = _hlo_12(tmp_path, arch)
+    ref_total = hlo_analysis.analyze(hlo).flops
+    dots = _hlo_dots(hlo)
+    mesh = FakeMesh((1, 2), ("data", "model"))
+    spec = specs.build_spec(arch, "train_4k", mesh, multi_pod=False,
+                            reduced=True)
+    s = analyze(spec.fn, spec.local_args, mesh)
+    S = spec.meta["seq"]
+    ref_attn = sum(v for k, v in dots.items() if _attention(k, S))
+    ours_attn = sum(v for (_, ins, outs), v in s.products.items()
+                    if _attention(ins + outs, S))
+    kernel_flops = sum(k["flops"] for k in s.kernels.values())
+    assert s.flops - ours_attn - kernel_flops == pytest.approx(
+        ref_total - ref_attn, rel=1e-2)
+    one = FakeMesh((1, 1), ("data", "model"))
+    whole = specs.build_spec(arch, "train_4k", one, multi_pod=False,
+                             reduced=True)
+    sw = analyze(whole.fn, whole.local_args, one)
+    assert s.flops == pytest.approx(0.5 * sw.flops, rel=1e-2)
+    cfg = get_config(arch).reduced()
+    q = torch.empty((2, cfg.n_heads // 2, S, cfg.hd), device="meta")
+    fwd = s.kernels["flash_attention_fwd"]
+    assert fwd["flops"] == fwd["calls"] * attention_flops(q, q, True, 4)
+    assert s.mesh_stats["all_gather"]["calls"] == 2
+
+
+ENCDEC_SERVE = [("seamless-m4t-medium", s)
+                for s in ("decode_32k", "prefill_32k")]
+
+
+@pytest.fixture(scope="module")
+def encdec_serve_hlo(tmp_path_factory):
+    """The text of each :data:`ENCDEC_SERVE` module XLA partitions over
+    (1, 2), from one JAX subprocess."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path_factory.mktemp("hlo_encdec")
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+                          + " --xla_force_host_platform_device_count=2"
+                          ).strip())
+    proc = subprocess.run(
+        [sys.executable, "-c", _HLO_SERVE_12, str(out)]
+        + [f"{a}:{s}" for a, s in ENCDEC_SERVE], env=env,
+        capture_output=True, text=True, timeout=400, cwd=repo)
+    assert "HLO_OK" in proc.stdout, proc.stdout + proc.stderr
+    return {(a, s): (out / f"{a}_{s}.hlo").read_text()
+            for a, s in ENCDEC_SERVE}
+
+
+@pytest.mark.parametrize("arch,shape", ENCDEC_SERVE)
+def test_partitioned_encdec_serving_flops_match_the_references_partition(
+        encdec_serve_hlo, arch, shape):
+    """Reduced seamless serving on a (1, 2) fake mesh: the rank's heads,
+    ff columns and vocab rows; decode on its KV heads of both caches
+    (``"heads"``).  Decode counts, within rtol 1e-2, the flops of the
+    per-device module XLA partitions from the reference's ``serve_step``
+    over the same mesh, half of one device's.  The prefill does too outside
+    the decoder's causal attention (B11 on half the heads, set aside on
+    both sides as in the training test)."""
+    hlo = encdec_serve_hlo[(arch, shape)]
+    ref = hlo_analysis.analyze(hlo).flops
+    mesh = FakeMesh((1, 2), ("data", "model"))
+    spec = specs.build_spec(arch, shape, mesh, multi_pod=False, reduced=True)
+    s = analyze(spec.fn, spec.local_args, mesh)
+    cfg = get_config(arch).reduced()
+    ours = s.flops
+    if shape == "prefill_32k":
+        S = spec.meta["seq"]
+        dots = _hlo_dots(hlo)
+        ref -= sum(v for k, v in dots.items() if _attention(k, S))
+        ours -= sum(v for (_, ins, outs), v in s.products.items()
+                    if _attention(ins + outs, S))
+        ours -= sum(k["flops"] for k in s.kernels.values())
+        q = torch.empty((spec.meta["global_batch"], cfg.n_heads // 2, S,
+                         cfg.hd), device="meta")
+        fwd = s.kernels["flash_attention_fwd"]
+        assert fwd["flops"] == fwd["calls"] * attention_flops(q, q, True, 4)
+    else:
+        assert spec.meta["cache_layout"] == "heads"
+        one = FakeMesh((1, 1), ("data", "model"))
+        whole = specs.build_spec(arch, shape, one, multi_pod=False,
+                                 reduced=True)
+        assert s.flops == pytest.approx(
+            0.5 * analyze(whole.fn, whole.local_args, one).flops, rel=1e-2)
+    assert ours == pytest.approx(ref, rel=1e-2)
+
+
+def test_encdec_decode_keeps_both_caches_on_their_heads():
+    """seamless-m4t-medium decode_32k at full size on 16 × 16 (its 16
+    heads and 16 KV heads, d_ff 4,096 over ``model``; its 256,206-row
+    vocabulary does not divide 16, so the table and the logits stay whole,
+    as XLA's module keeps them): the rank's caches are its one KV head of
+    the self cache's 32,768 slots and of the cross cache's 8,192 frames, a
+    step all-gathers no parameter (``fc_out``'s bias, 12 layers, does not
+    split 16) and reads no encoder leaf, and it sums each decoder layer's
+    self- and cross-attention and MLP rows, nothing else."""
+    mesh = _fake("16x16")
+    spec = specs.build_spec("seamless-m4t-medium", "decode_32k", mesh,
+                            multi_pod=False)
+    assert spec.meta["cache_layout"] == "heads"
+    cfg = get_config("seamless-m4t-medium")
+    L, n = cfg.n_layers, mesh.shape["model"]
+    part = spec.fn.layout["cache_part"]
+    assert part.heads and part.kv and part.ff and not part.vocab
+    assert part.cross_cache == "heads"
+    cache = spec.local_args[1]
+    B = cache["self_k"].shape[1]
+    assert tuple(cache["self_k"].shape) == (L, B, 32768, 1, cfg.hd)
+    assert tuple(cache["cross_k"].shape) == (L, B, 8192, 1, cfg.hd)
+    s = analyze(spec.fn, spec.local_args, mesh)
+    assert s.mesh_stats == {"reduce_from": s.mesh_stats["reduce_from"]}
+    assert s.mesh_stats["reduce_from"]["calls"] == 3 * L
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ import contextlib
 import os
 import pickle
 import traceback
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1319,3 +1320,183 @@ def serve_moe_rank(rank: int, cases: list, params: dict) -> dict:
     return {name: serve_routed(arch, mesh, over=over, batch=b, prompt=p,
                                steps=st, params=params[name])
             for name, arch, over, b, p, st in cases}
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec family on the model axis
+# (tests/test_torch_partitioned_encdec.py,
+# tests/test_torch_serve_partitioned_encdec.py)
+# ---------------------------------------------------------------------------
+
+def encdec_frames(batch: int, frames: int, d: int,
+                  lead: tuple = ()) -> torch.Tensor:
+    """The enc-dec's stub frame embeddings, (*lead, batch, frames, d) f32
+    (seed 6)."""
+    g = torch.Generator().manual_seed(6)
+    return torch.randn(lead + (batch, frames, d), generator=g)
+
+
+def _encdec_trainer(mesh, over: dict, W: int):
+    """Reduced seamless-m4t-medium in f32 (the fields of ``over``
+    replaced) on a noise-free link: one sgd step at 1e-2, ρ 0.5, 40 dB,
+    coherence 10 (no redraw in the replayed rounds), on ``mesh`` and the
+    CPU."""
+    from repro_torch.core.admm import AdmmConfig
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.train.llm_trainer import FLConfig, make_fl_train
+
+    return make_fl_train(
+        _build(partition_cfg("seamless-m4t-medium", over)),
+        FLConfig(n_workers=W, local_steps=1, local_lr=1e-2),
+        AdmmConfig(rho=0.5, flip_on_change=False),
+        ChannelConfig(n_workers=W, snr_db=40.0, coherence_iters=10,
+                      noisy=False),
+        mesh=mesh, device="cpu")
+
+
+def _rank_block(st1, stm, sspec, j: int):
+    """The rank's block of one device's state ``st1`` as the mesh trainer
+    holds it (``stm``'s form): θ, Θ and the optimizer's trees cut by
+    ``sspec``, λ and h packed shard-major and narrowed to the rank's
+    columns, the channel's age and the step as they are."""
+    from repro_torch.core.cplx import Complex
+    from repro_torch.core.packing import (build_packspec, pack_shard_global,
+                                          unpack)
+    from repro_torch.core.packing import shard_tree
+    from repro_torch.tree import tree_map
+
+    spec1 = build_packspec(st1.theta, batch_dims=1)
+    dl = sspec.d_local
+
+    def plane(z):
+        return Complex(*(pack_shard_global(sspec, unpack(spec1, x,
+                                                         cast=False))
+                         [:, j * dl:(j + 1) * dl].contiguous()
+                         for x in (z.re, z.im)))
+
+    def cut(tree):
+        return tree_map(lambda x: x.clone(), shard_tree(sspec, tree, j))
+    opt = st1.opt._replace(mu=cut(st1.opt.mu), nu=cut(st1.opt.nu))
+    return stm._replace(theta=cut(st1.theta), Theta=cut(st1.Theta),
+                        lam=plane(st1.lam), opt=opt, step=st1.step,
+                        chan=stm.chan._replace(h=plane(st1.chan.h),
+                                               age=st1.chan.age))
+
+
+def encdec_rounds_rank(mesh, over: dict, batch: dict, rounds: int) -> dict:
+    """``rounds`` noise-free replicated rounds of reduced seamless on
+    ``mesh`` (every model rank the whole batch: the tokens and the frames
+    alike), each from the rank's block of one device's state before it
+    (:func:`_rank_block`: the mesh draws its blocks of h from keys of its
+    own, so along their own trajectories the runs part after round 1),
+    and one device's round from that state, with round keys 1, 2, …: the
+    losses, and each round's Θ block of the rank and of one device."""
+    from repro_torch.core.packing import shard_tree
+
+    b = {k: t(v) for k, v in batch.items()}
+    W = b["tokens"].shape[0]
+    init_fn, step = _encdec_trainer(mesh, over, W)
+    init1, step1 = _encdec_trainer(None, over, W)
+    stm, st1 = init_fn(0), init1(0)
+    sspec = init_fn.layout["sspec"]
+    j = mesh.axis_index("model")
+    out = {"losses": [], "losses_one": [], "Theta": [], "Theta_one": []}
+    for r in range(rounds):
+        stm = _rank_block(st1, stm, sspec, j)
+        stm, m = step(stm, b, key=r + 1)
+        st1, m1 = step1(st1, b, key=r + 1)
+        out["losses"].append(float(m["loss"]))
+        out["losses_one"].append(float(m1["loss"]))
+        out["Theta"].append(to_np(stm.Theta))
+        out["Theta_one"].append(to_np(shard_tree(sspec, st1.Theta, j)))
+    return out
+
+
+def partitioned_encdec_rank(rank: int, cases: list, shape,
+                            rounds: Optional[dict] = None) -> dict:
+    """:func:`partitioned_rank`'s cases on the (1, m) ``shape``, then, with
+    ``rounds`` (``over``, ``batch``, ``rounds``), :func:`encdec_rounds_rank`
+    on the same mesh (under ``"rounds"``)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    out = partitioned_rank(rank, cases, shape)
+    if rounds is not None:
+        out["rounds"] = encdec_rounds_rank(
+            make_mesh(shape, ("data", "model"), "cpu"), **rounds)
+    return out
+
+
+def serve_encdec_run(mesh, *, over: dict, batch: int, prompt: int,
+                     steps: int, frames: int, params) -> dict:
+    """Reduced seamless (f32, ``over`` replaced, the numpy ``params``)
+    served on ``mesh`` as :func:`serve_run` serves a family, over
+    ``frames`` stub frames (:func:`encdec_frames`): the prefill's last
+    logits (the tokens and the frames), the cross cache filled by
+    ``serve_step.prefill_cross`` (the rank's block), the prompt ingested a
+    token at a time and ``steps`` tokens generated (each step's logits,
+    the rank's vocab columns); the collectives of the prefill, of the
+    cross prefill and of the last step, the cache and its layout."""
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.serve import make_prefill, make_serve_step
+
+    model = _build(partition_cfg("seamless-m4t-medium", over))
+    cfg = model.cfg
+    full = model_params_from_numpy(params, device="cpu")
+    rows = serve_rows(mesh, batch)
+    toks = serve_tokens(cfg.vocab_size, batch, prompt)[rows]
+    fr = encdec_frames(batch, frames, cfg.d_model)[rows]
+
+    def calls():
+        return {op: dict(v["axes"]) for op, v in mesh.stats.items()}
+    out: dict = {"logits_steps": [], "calls": {}}
+    prefill = make_prefill(model, mesh)
+    pp = prefill.shard(full)
+    mesh.reset_stats()
+    out["logits"] = to_np(prefill(pp, {"tokens": toks, "frames": fr}))
+    out["calls"]["prefill"] = calls()
+
+    def observed(p, c, tok, pos):
+        logits, c = model.decode_step(p, c, tok, pos)
+        out["logits_steps"].append(to_np(logits))
+        return logits, c
+    step = make_serve_step(model._replace(decode_step=observed), mesh)
+    params = step.shard(full)
+    cache = step.init_cache(batch, prompt + steps, device="cpu",
+                            n_frames=frames)
+    mesh.reset_stats()
+    ck, cv = step.prefill_cross(params, fr)
+    out["calls"]["cross"] = calls()
+    out["cross"] = to_np({"cross_k": ck, "cross_v": cv})
+    cache["cross_k"].copy_(ck)
+    cache["cross_v"].copy_(cv)
+    tok, gen = toks[:, 0], []
+    for i in range(prompt + steps - 1):
+        mesh.reset_stats()
+        nxt, cache = step(params, cache, tok, i)
+        if i + 1 < prompt:
+            tok = toks[:, i + 1]
+        else:
+            tok = nxt
+            gen.append(nxt)
+    out["calls"]["decode"] = calls()
+    out["layout"] = {k: step.layout[k] for k in (
+        "cache", "cache_specs", "cache_batch_moved")}
+    part = step.layout["cache_part"]
+    out["cross_layout"] = part.cross_cache
+    out["coord"] = {a: mesh.axis_index(a) for a in mesh.axis_names}
+    out["mesh"] = dict(mesh.shape)
+    out["tokens"] = to_np(torch.stack(gen, dim=1))
+    out["cache"] = to_np(cache)
+    return out
+
+
+def serve_encdec_rank(rank: int, shape, cases: list, params: dict) -> dict:
+    """Each case (name, config fields replaced, batch, prompt, steps,
+    frames) served on the ``shape`` (data, model) mesh
+    (:func:`serve_encdec_run`) from ``params[name]``."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    return {name: serve_encdec_run(mesh, over=over, batch=b, prompt=p,
+                                   steps=st, frames=f, params=params[name])
+            for name, over, b, p, st, f in cases}

@@ -1,10 +1,11 @@
 """Card check of chip_smoke's channel parts alone: the build, B12's rows
-(and, for the hybrid, B6/B3/B4's) at a mesh rank's shapes, the parent's
-one-device references, two ranks spawned on the card running each
-family's check, run and serving parts, and their gates; the lines also
-go to ``--out`` (default ``results/channel_parts.jsonl``).
+(and, for the hybrid, B6/B3/B4's; for the enc-dec, B11's and B6/B3/B4's)
+at a mesh rank's shapes, the parent's one-device references, two ranks
+spawned on the card running each family's check, run and serving parts,
+and their gates; the lines also go to ``--out`` (default
+``results/channel_parts.jsonl``).
 
-    python3 tools/mesh_channel_parts.py [ssm] [hybrid] [--out FILE]
+    python3 tools/mesh_channel_parts.py [ssm] [hybrid] [encdec] [--out FILE]
 """
 import argparse
 import datetime
@@ -82,11 +83,19 @@ def main():
     t0 = time.perf_counter()
     rows = cs._scan_rows(torch, build, mem, f32)
     if "hybrid" in tags:
-        # the sketched round's (W, d_s): the last of the mesh's blocks
+        # the sketched round's (W, d_s): the last but one of the blocks
+        d = cs._mesh_round_shapes()[-2]
+        rows.update(cs._llm_round_rows(torch, build, mem, f32, *d))
+    if "encdec" in tags:
+        # the replicated round's (W, d_local): the last of the blocks, and
+        # B11 at the rank's heads
         d = cs._mesh_round_shapes()[-1]
         rows.update(cs._llm_round_rows(torch, build, mem, f32, *d))
-    keep = ("ms", "ms_with_launch", "plain_ms", "bound_ms", "max_abs_err",
-            "shape", "plan")
+        cs.FLASH_CASES = tuple(c for c in cs.FLASH_CASES
+                               if "enc-dec model" in c[0])
+        rows.update(cs._flash_rows(torch, build, name))
+    keep = ("ms", "ms_with_launch", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err", "shape", "plan")
     emit({"phase": "rows", "seconds": time.perf_counter() - t0,
           "rows": {k: {kk: v[kk] for kk in keep if kk in v}
                    for k, v in rows.items()}})
